@@ -1,0 +1,263 @@
+"""YAML settings for the port — the counterpart of ``tpuddp/config.py``.
+
+Same settings-file schema as the JAX package (``script_path``, ``out_dir``,
+``optional_args``, ``local``, ``training``), retargeted at GPUs:
+
+- ``local.device`` is ``cuda`` (the default) or ``cpu``;
+- the world size comes from ``$TPUDDP_WORLD_SIZE``, ``local.gpu.num_gpus`` or
+  the reference tutorial's ``local.condor.num_gpus``, in that order;
+- ``training`` merges over :data:`TRAINING_DEFAULTS` and refuses unknown keys.
+
+This slice implements the native DDP main path only. Every knob whose
+non-default value needs a part of the JAX package that is not ported yet is
+refused with ``NotImplementedError`` naming its ROADMAP item
+(:func:`check_supported`), never ignored. Two knobs are accepted because an
+eager loop gives identical results by construction: ``scan_steps`` (K fused
+steps compute the same K steps one by one) and ``prefetch`` (loading stays
+synchronous; the batches and their order are the same).
+"""
+
+from __future__ import annotations
+
+import difflib
+import os
+from typing import Any, Dict, Optional
+
+import yaml
+
+# The JAX package's knob set and defaults (tpuddp/config.py TRAINING_DEFAULTS),
+# so one settings file drives either package.
+TRAINING_DEFAULTS = {
+    "model": "alexnet",
+    "dataset": "cifar10",
+    "data_root": "./data",
+    "train_batch_size": 128,  # per replica
+    "test_batch_size": 100,  # per replica
+    "learning_rate": 0.001,
+    "num_epochs": 20,
+    "checkpoint_epoch": 5,
+    "image_size": 224,
+    "flip": None,  # None -> on except for digits
+    "compute_dtype": "float32",
+    "seed": None,  # None -> fresh per run
+    "mode": "shard_map",
+    "sync_bn": False,
+    "scan_steps": "auto",
+    "clip_grad_norm": None,
+    "remat": False,
+    "weight_update_sharding": False,
+    "comm_hook": "none",
+    "bucket_cap_mb": 25,
+    "comm_topology": "flat",
+    "comm_overlap": "auto",
+    "topk_density": 0.1,
+    "optimizer": "adam",
+    "weight_decay": 0.0,  # Adam: L2 added to the gradient (torch rule)
+    "momentum": 0.9,
+    "trust_coefficient": 0.001,
+    "prefetch": True,
+    "pipeline": None,
+    "deferred_metrics": False,
+    "fuse_steps": "auto",
+    "gradient_accumulation_steps": 1,
+    "optimizer_state_dtype": None,
+    "pretrained_path": None,
+    "num_classes": None,  # None -> derived from training.dataset
+    "resume": False,
+    "auto_resume": False,
+    "reshard_on_mismatch": False,
+    "keep_last": None,
+    "snapshot": None,
+    "guard": None,
+    "synthetic_n": None,  # (train, test) sizes of the synthetic stand-in
+    "step_stats_every": 0,
+}
+
+DATASET_NUM_CLASSES = {"cifar10": 10, "synthetic": 10, "digits": 10}
+
+DEVICES = ("cuda", "cpu")
+
+_F32_NAMES = (None, "float32", "f32", "fp32")
+
+# knob -> (is the value one this slice implements?, ROADMAP.md item)
+_UNSUPPORTED = {
+    "sync_bn": (lambda v: not v, "Queue 1 item 4: BN/SyncBN"),
+    "compute_dtype": (lambda v: v in _F32_NAMES, "Queue 1 item 5: bf16 compute"),
+    "optimizer_state_dtype": (
+        lambda v: v in _F32_NAMES, "Queue 1 item 6: bf16 Adam state"
+    ),
+    "resume": (lambda v: not v, "Queue 1 item 7: checkpoint resume"),
+    "auto_resume": (lambda v: not v, "Queue 1 item 7: checkpoint resume"),
+    "keep_last": (lambda v: v is None, "Queue 1 item 7: checkpoint resume"),
+    "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
+    "optimizer": (lambda v: str(v).lower() == "adam", "Queue 1 item 8: optimizers"),
+    "clip_grad_norm": (lambda v: v is None, "Queue 1 item 8: optimizers"),
+    "gradient_accumulation_steps": (
+        lambda v: int(v or 1) == 1, "Queue 1 item 8: gradient accumulation"
+    ),
+    "mode": (lambda v: v == "shard_map", "Queue 1 item 8: managed path"),
+    "deferred_metrics": (lambda v: not v, "Queue 1 item 8: managed path"),
+    "fuse_steps": (lambda v: v == "auto", "Queue 1 item 8: managed path"),
+    "comm_hook": (lambda v: (v or "none") == "none", "Queue 1 item 8: comm hooks"),
+    "comm_topology": (
+        lambda v: (v or "flat") == "flat", "Queue 1 item 8: hierarchical topology"
+    ),
+    # auto and false both mean the barrier step this slice runs
+    "comm_overlap": (lambda v: v in ("auto", False), "Queue 1 item 8: overlap"),
+    "weight_update_sharding": (lambda v: not v, "Queue 1 item 8: ZeRO-1"),
+    "remat": (lambda v: not v, "Queue 1 item 8: remat"),
+    "guard": (lambda v: not v, "Queue 1 item 8: numerical guard"),
+    "pipeline": (lambda v: v is None, "Queue 1 item 8: async pipeline"),
+    "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
+    "pretrained_path": (lambda v: not v, "Queue 1 item 8: pretrained fine-tune"),
+    "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
+}
+
+_MULTIHOST_ENV = ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not implemented in tpuddp_torch yet (ROADMAP.md {item})"
+    )
+
+
+def _merge_refusing_unknown(defaults, overrides, block: str) -> Dict[str, Any]:
+    """Defaults + overrides, refusing unknown keys with a did-you-mean hint:
+    a typo'd knob silently ignored would run another configuration than the
+    file says."""
+    unknown = set(overrides) - set(defaults)
+    if unknown:
+        hints = []
+        for k in sorted(unknown):
+            close = difflib.get_close_matches(k, defaults, n=1)
+            hints.append(f"{k!r}" + (f" (did you mean {close[0]!r}?)" if close else ""))
+        raise ValueError(
+            f"unknown {block} key(s): {', '.join(hints)}. Known keys: "
+            f"{sorted(defaults)}"
+        )
+    cfg = dict(defaults)
+    cfg.update(overrides)
+    return cfg
+
+
+def check_supported(training: Dict[str, Any]) -> None:
+    """Raise ``NotImplementedError`` for any knob set to a value this slice
+    does not implement."""
+    for knob, (ok, item) in _UNSUPPORTED.items():
+        value = training.get(knob, TRAINING_DEFAULTS[knob])
+        if not ok(value):
+            raise _not_ported(f"training.{knob}={value!r}", item)
+
+
+def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge the settings file's ``training`` block over the defaults,
+    refusing unknown keys and unported values."""
+    if os.environ.get("TPUDDP_TUNE_OVERLAY"):
+        raise _not_ported("$TPUDDP_TUNE_OVERLAY", "Queue 1 item 8: fleet and tune")
+    cfg = _merge_refusing_unknown(
+        TRAINING_DEFAULTS, settings.get("training") or {}, "training"
+    )
+    check_supported(cfg)
+    return cfg
+
+
+def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -> None:
+    """Refuse the settings blocks outside ``training`` that this slice does
+    not implement: a tensor-parallel ``parallel`` block, an ``observability``
+    block and a multi-host rendezvous. An explicit ``parallel.data`` must
+    equal ``world_size``."""
+    parallel = settings.get("parallel") or {}
+    unknown = set(parallel) - {"data", "model"}
+    if unknown:
+        raise ValueError(f"unknown parallel key(s) {sorted(unknown)}")
+    if int(parallel.get("model", 1)) != 1:
+        raise _not_ported(
+            f"parallel.model={parallel['model']!r}", "Queue 1 item 8: tensor parallel"
+        )
+    data = parallel.get("data", "auto")
+    if data != "auto" and world_size is not None and int(data) != world_size:
+        raise ValueError(
+            f"parallel.data={data!r} != world size {world_size}; the data axis "
+            "must tile the world exactly (set data: auto to derive it)"
+        )
+    if settings.get("observability") is not None:
+        raise _not_ported("the observability block", "Queue 1 item 8: observability")
+    local = settings.get("local") or {}
+    if local.get("rendezvous") or any(os.environ.get(e) for e in _MULTIHOST_ENV):
+        raise _not_ported("multi-host rendezvous", "Queue 1 item 8: multi-host")
+
+
+def num_classes_from(training: Dict[str, Any]) -> int:
+    """Head size: explicit ``training.num_classes`` wins, else derived from
+    ``training.dataset``."""
+    nc = training.get("num_classes")
+    if nc is not None:
+        return int(nc)
+    ds = str(training.get("dataset") or "cifar10")
+    if ds not in DATASET_NUM_CLASSES:
+        raise ValueError(
+            f"cannot derive num_classes for dataset {ds!r}; set "
+            "training.num_classes explicitly"
+        )
+    return DATASET_NUM_CLASSES[ds]
+
+
+def load_settings(path: str) -> Dict[str, Any]:
+    with open(path, "r") as f:
+        settings = yaml.safe_load(f)
+    if not isinstance(settings, dict):
+        raise ValueError(f"settings file {path} did not parse to a mapping")
+    return settings
+
+
+def prepare_out_dir(settings: Dict[str, Any], settings_file: str) -> str:
+    """mkdir ``out_dir`` and copy the settings into it for provenance."""
+    out_dir = settings["out_dir"]
+    os.makedirs(out_dir, exist_ok=True)
+    dest = os.path.join(out_dir, os.path.basename(settings_file))
+    if os.path.abspath(dest) != os.path.abspath(settings_file):
+        with open(dest, "w") as f:
+            yaml.dump(settings, f)
+    return out_dir
+
+
+def world_size_from(settings: Dict[str, Any]) -> Optional[int]:
+    """World size: ``$TPUDDP_WORLD_SIZE``, else ``local.gpu.num_gpus``, else
+    the reference's ``local.condor.num_gpus``. None -> every visible GPU
+    (one process on the CPU)."""
+    env = os.environ.get("TPUDDP_WORLD_SIZE")
+    if env:
+        return int(env)
+    local = settings.get("local") or {}
+    for block in ("gpu", "condor"):
+        if "num_gpus" in (local.get(block) or {}):
+            return int(local[block]["num_gpus"])
+    return None
+
+
+def device_from(settings: Dict[str, Any]) -> str:
+    """``local.device``: ``cuda`` (the default) or ``cpu``."""
+    dev = (settings.get("local") or {}).get("device") or "cuda"
+    if dev not in DEVICES:
+        raise ValueError(f"unsupported local.device {dev!r} (expected cuda or cpu)")
+    return dev
+
+
+def optional_args_from(settings: Dict[str, Any]) -> Dict[str, Any]:
+    return dict(settings.get("optional_args") or {})
+
+
+def optimizer_from(training: Dict[str, Any], params):
+    """Build the configured optimizer over ``params``. Only ``adam`` is
+    ported; :func:`check_supported` refuses the others."""
+    from tpuddp_torch import optim
+
+    name = str(training.get("optimizer") or "adam").lower()
+    if name != "adam":
+        raise _not_ported(f"training.optimizer={name!r}", "Queue 1 item 8: optimizers")
+    return optim.Adam(
+        params,
+        lr=float(training["learning_rate"]),
+        weight_decay=float(training.get("weight_decay") or 0.0),
+    )

@@ -1,0 +1,60 @@
+"""Data layer: datasets, the per-process loader and device-side transforms —
+the counterpart of ``tpuddp/data``."""
+
+from typing import Any, Dict, Sequence, Tuple
+
+from tpuddp_torch.data.loader import ShardedDataLoader  # noqa: F401
+from tpuddp_torch.data.synthetic import SyntheticClassification  # noqa: F401
+
+
+def load_datasets_for(training: Dict[str, Any], synthetic_fallback: bool = True):
+    """(train, test) datasets for ``training.dataset``: ``cifar10`` (falling
+    back to the synthetic stand-in when none is staged) or ``synthetic``.
+    ``digits`` needs scikit-learn and waits for a later slice."""
+    name = str(training.get("dataset") or "cifar10")
+    n = tuple(training.get("synthetic_n") or (2048, 512))
+    if name == "cifar10":
+        from tpuddp_torch.data import cifar10
+
+        return cifar10.load_datasets(
+            training.get("data_root", "./data"),
+            synthetic_fallback=synthetic_fallback,
+            synthetic_n=n,
+        )
+    if name == "synthetic":
+        from tpuddp_torch.data.synthetic import synthetic_uint8_datasets
+
+        return synthetic_uint8_datasets(n[0], n[1])
+    if name == "digits":
+        raise NotImplementedError(
+            "training.dataset='digits' is not implemented in tpuddp_torch yet "
+            "(ROADMAP.md Queue 1 item 3: digits)"
+        )
+    raise ValueError(
+        f"unknown training.dataset {name!r}; one of cifar10, digits, synthetic"
+    )
+
+
+def flip_for(training: Dict[str, Any]) -> bool:
+    """Horizontal-flip setting: explicit ``training.flip`` wins; the default
+    follows the dataset (CIFAR photos are flip-invariant, digits are not)."""
+    f = training.get("flip")
+    if f is not None:
+        return bool(f)
+    return str(training.get("dataset") or "cifar10") != "digits"
+
+
+def norm_stats_for(training: Dict[str, Any]) -> Tuple[Sequence[float], Sequence[float]]:
+    """Per-dataset normalization (mean, std) for the device-side transforms."""
+    from tpuddp_torch.data.cifar10 import CIFAR10_MEAN, CIFAR10_STD
+
+    return CIFAR10_MEAN, CIFAR10_STD
+
+
+__all__ = [
+    "ShardedDataLoader",
+    "SyntheticClassification",
+    "load_datasets_for",
+    "norm_stats_for",
+    "flip_for",
+]

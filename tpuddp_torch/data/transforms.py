@@ -1,0 +1,106 @@
+"""Device-side image transforms — the counterpart of
+``tpuddp/data/transforms.py``.
+
+The host ships raw uint8 NHWC 32x32 images; on the device they become float
+in [0, 1], get a per-sample horizontal flip (train only), are normalized and
+then resized bilinearly to the model's input size. The order (flip,
+normalize, resize) is the JAX package's, and tensors stay NHWC at every
+function boundary.
+
+``F.interpolate(mode="bilinear", align_corners=False, antialias=False)``
+agrees with ``jax.image.resize(..., "bilinear")`` when upsampling (both use
+half-pixel centres and clamp at the edge), which is the only direction the
+main path takes (32 -> 224).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from tpuddp_torch.data.cifar10 import CIFAR10_MEAN, CIFAR10_STD
+
+
+def to_float(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [0,255] -> float32 [0,1]; floats pass through as float32."""
+    if x.is_floating_point():
+        return x.float()
+    return x.float() / 255.0
+
+
+def resize(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear resize of an NHWC batch to (size, size)."""
+    y = F.interpolate(
+        x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+        align_corners=False, antialias=False,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+def normalize(
+    x: torch.Tensor,
+    mean: Sequence[float] = CIFAR10_MEAN,
+    std: Sequence[float] = CIFAR10_STD,
+) -> torch.Tensor:
+    mean_t = torch.tensor(mean, dtype=x.dtype, device=x.device)
+    std_t = torch.tensor(std, dtype=x.dtype, device=x.device)
+    return (x - mean_t) / std_t
+
+
+def horizontal_flip(x: torch.Tensor, flip_mask: torch.Tensor) -> torch.Tensor:
+    """Flip the NHWC images whose ``flip_mask`` entry is True along W."""
+    return torch.where(flip_mask.view(-1, 1, 1, 1), x.flip(2), x)
+
+
+def flip_mask_like(
+    x: torch.Tensor, generator: torch.Generator, p: float = 0.5
+) -> torch.Tensor:
+    """One Bernoulli(p) per image, drawn on the host from ``generator`` (so a
+    rank's masks follow its seed) and moved to ``x``'s device."""
+    draws = torch.rand(x.shape[0], generator=generator)
+    return (draws < p).to(x.device)
+
+
+def make_train_augment(
+    size: Optional[int] = 224,
+    flip: bool = True,
+    mean: Sequence[float] = CIFAR10_MEAN,
+    std: Sequence[float] = CIFAR10_STD,
+    generator: Optional[torch.Generator] = None,
+):
+    """Train transform: ``augment(x, flip_mask=None) -> x``. Without an
+    explicit ``flip_mask`` the mask is drawn from ``generator`` (a fresh one
+    seeded 0 when None)."""
+    if flip and generator is None:
+        generator = torch.Generator().manual_seed(0)
+
+    def augment(x: torch.Tensor, flip_mask: Optional[torch.Tensor] = None):
+        x = to_float(x)
+        if flip:
+            if flip_mask is None:
+                flip_mask = flip_mask_like(x, generator)
+            x = horizontal_flip(x, flip_mask)
+        x = normalize(x, mean, std)
+        if size is not None and (x.shape[1] != size or x.shape[2] != size):
+            x = resize(x, size)
+        return x
+
+    return augment
+
+
+def make_eval_transform(
+    size: Optional[int] = 224,
+    mean: Sequence[float] = CIFAR10_MEAN,
+    std: Sequence[float] = CIFAR10_STD,
+):
+    """Eval transform (no flip)."""
+
+    def transform(x: torch.Tensor) -> torch.Tensor:
+        x = normalize(to_float(x), mean, std)
+        if size is not None and (x.shape[1] != size or x.shape[2] != size):
+            x = resize(x, size)
+        return x
+
+    return transform

@@ -1,0 +1,97 @@
+"""DistributedDataParallel — the counterpart of ``tpuddp/parallel/ddp.py``
+for the native path.
+
+It does not use ``torch.nn.parallel.DistributedDataParallel``: like the JAX
+package, which computes its own ``pmean``, it makes one explicit all-reduce
+per step, which is what the parity tests pin:
+
+- at wrap time, parameters and buffers are broadcast from rank 0
+  (``tpuddp/parallel/ddp.py:443``), so every replica starts identical;
+- after backward, all gradients go into one flat buffer, one all-reduce SUM,
+  then a division by the world size. Each replica's gradient is the gradient
+  of its own weighted-mean loss, so the result is the MEAN OF PER-REPLICA
+  WEIGHTED-MEAN GRADIENTS, as ``pmean`` gives it
+  (``tpuddp/training/step.py:197-225``) — not a global weighted mean, which
+  differs when padded tails give replicas different real-row counts.
+
+The wrap runs on ``cuda`` unless ``device`` asks for the CPU; without a
+visible GPU it raises.
+
+A one-process world skips the collectives: a sum over one replica divided by
+one is the identity.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tpuddp_torch.parallel import backend
+from tpuddp_torch.training.step import eval_core, train_core
+
+
+class DistributedDataParallel:
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        criterion: Callable,
+        augment: Optional[Callable] = None,
+        eval_transform: Optional[Callable] = None,
+        device: Optional[torch.device] = None,
+    ):
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise backend.BackendUnavailableError(
+                "DistributedDataParallel on cuda but no GPU is visible; pass "
+                "device='cpu' to run on the CPU"
+            )
+        self.model = model.to(self.device)
+        self.optimizer = optimizer
+        self.criterion = criterion
+        self.augment = augment
+        self.eval_transform = eval_transform
+        self.rank = backend.get_rank()
+        self.world_size = backend.get_world_size()
+        if self.world_size > 1:
+            with torch.no_grad():
+                for t in list(self.model.parameters()) + list(self.model.buffers()):
+                    dist.broadcast(t, src=0)
+
+    def sync_grads(self) -> None:
+        """All-reduce mean of every gradient, through one flat buffer."""
+        if self.world_size == 1:
+            return
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat.div_(self.world_size)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset : offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def to_device(self, batch):
+        """Host ``(x, y, w)`` numpy batch -> device tensors."""
+        x, y, w = batch
+        return (
+            torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+            torch.from_numpy(np.asarray(y, dtype=np.int64)).to(self.device),
+            torch.from_numpy(np.asarray(w, dtype=np.float32)).to(self.device),
+        )
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One step on a host batch; returns on-device ``[loss_sum, n]``."""
+        x, y, w = self.to_device(batch)
+        return train_core(
+            self.model, self.optimizer, self.criterion, self.augment,
+            self.sync_grads, x, y, w,
+        )
+
+    def eval_step(self, batch) -> torch.Tensor:
+        """Returns on-device ``[loss_sum, correct, n]``."""
+        x, y, w = self.to_device(batch)
+        return eval_core(self.model, self.criterion, self.eval_transform, x, y, w)

@@ -1,0 +1,56 @@
+"""Process launch — the counterpart of ``tpuddp/parallel/spawn.py`` and of the
+reference tutorial's ``run_DDP_training`` (multi-GPU-training-torch.py:269-279).
+
+One process per GPU through ``torch.multiprocessing.spawn(join=True)``; a
+worker's exception propagates to the launcher. World size 1 runs in this
+process. The spawned worker function lives here, so a child process imports
+only ``tpuddp_torch`` (and whatever module ``demo_fn`` comes from).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.multiprocessing as mp
+
+from tpuddp_torch.parallel import backend as _backend
+
+
+def _worker(
+    rank: int,
+    demo_fn: Callable,
+    world_size: int,
+    save_dir: str,
+    optional_args: dict,
+    device: str,
+    init_method: str,
+):
+    _backend.setup(rank, world_size, device, init_method)
+    try:
+        return demo_fn(rank, world_size, save_dir, optional_args)
+    finally:
+        _backend.cleanup()
+
+
+def run_ddp_training(
+    demo_fn: Callable,
+    world_size: Optional[int],
+    save_dir: Optional[str],
+    optional_args: dict,
+    backend: str = "cuda",
+):
+    """Run ``demo_fn(rank, world_size, save_dir, optional_args)`` once per
+    rank. ``backend`` is the device kind, ``cuda`` or ``cpu``; the process
+    group's backend follows from it (:func:`backend.detect_backend`).
+    ``world_size=None`` means every visible GPU, or one process on the CPU.
+    Returns ``demo_fn``'s result when the world is one process."""
+    _backend.detect_backend(backend)  # no GPU -> raise before spawning
+    if world_size is None:
+        world_size = torch.cuda.device_count() if backend == "cuda" else 1
+    init_method = f"tcp://localhost:{_backend.free_port()}"
+    args = (demo_fn, world_size, save_dir, optional_args, backend, init_method)
+    if world_size == 1:
+        return _worker(0, *args)
+    mp.spawn(_worker, args=args, nprocs=world_size, join=True)
+    return None

@@ -1,0 +1,55 @@
+"""Rank-aware seeding — the counterpart of ``tpuddp/seeding.py`` and of the
+reference tutorial's ``set_seed_based_on_rank``.
+
+torch is seeded at ``base + rank`` and Python/NumPy at
+``base % (2**32 - 1) + rank``: the reference's deliberately different seed
+range is kept. Each rank also gets its own ``torch.Generator`` (seeded
+``base + rank``) for host-side randomness such as the flip mask. On the GPU
+``cudnn.deterministic = True`` / ``cudnn.benchmark = False`` are real
+settings, not the JAX package's logged no-op.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import struct
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def initial_seed() -> int:
+    """A fresh random base seed (analog of torch's per-run ``initial_seed``)."""
+    return struct.unpack("<Q", os.urandom(8))[0] >> 1  # non-negative int64
+
+
+def set_seed_based_on_rank(
+    rank: int, base_seed: Optional[int] = None
+) -> Tuple[torch.Generator, int]:
+    """Seed torch, Python and NumPy for ``rank``; return
+    ``(generator, base_seed)``. ``base_seed=None`` draws a fresh one."""
+    if base_seed is None:
+        base_seed = initial_seed()
+    torch.manual_seed(int(base_seed) + rank)
+    generator = torch.Generator().manual_seed(int(base_seed) + rank)
+
+    # Python/NumPy: reduced seed range + rank, exactly the reference quirk.
+    reduced_seed = int(base_seed) % (2**32 - 1)
+    random.seed(reduced_seed + rank)
+    np.random.seed((reduced_seed + rank) % (2**32))
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return generator, base_seed
+
+
+def rng_probe_string(base_seed: Optional[int]) -> str:
+    """Formatted RNG-state dump matching the reference's print_rand probe."""
+    py_state = random.getstate()[1][:3]
+    np_state = np.random.get_state()[1][:3]
+    return (
+        f"Python random state: {py_state}, numpy random state: {tuple(np_state)}; "
+        f"base seed: {base_seed}"
+    )

@@ -1,0 +1,143 @@
+"""Explicit (native) DDP training entry point of the port — the counterpart of
+``train_native.py`` and of the reference's ``multi-GPU-training-torch.py``.
+
+    python -m tpuddp_torch.train_native --settings_file F
+
+One process per GPU (``local.gpu.num_gpus``, ``local.condor.num_gpus`` or
+``$TPUDDP_WORLD_SIZE``), NCCL between them; ``local.device: cpu`` runs the
+same path on the CPU with Gloo.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from functools import partial
+from typing import Optional
+
+import torch
+
+from tpuddp_torch import config as cfg_lib
+from tpuddp_torch import seeding
+from tpuddp_torch.data import ShardedDataLoader, flip_for, load_datasets_for, norm_stats_for
+from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
+from tpuddp_torch.models import load_model
+from tpuddp_torch.nn import CrossEntropyLoss
+from tpuddp_torch.parallel.ddp import DistributedDataParallel
+from tpuddp_torch.parallel.spawn import run_ddp_training
+from tpuddp_torch.training.loop import run_training_loop
+
+
+def set_float32_precision() -> None:
+    """Full float32 for ``compute_dtype: float32``: matrix products and cuDNN
+    convolutions both off TF32 (cuDNN's default is on), printed so a run's
+    log states its precision."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(
+        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
+    )
+
+
+def build_training(rank: int, world_size: int, training: dict, device: str = "cuda"):
+    """Everything a rank trains with: seeds, loaders, transforms, model,
+    optimizer and the DDP wrap. Returns ``(ddp, train_loader, test_loader,
+    base_seed)``."""
+    cfg_lib.check_supported(training)
+    set_float32_precision()
+    dev = torch.device(f"cuda:{rank}" if device == "cuda" else "cpu")
+
+    generator, base_seed = seeding.set_seed_based_on_rank(rank, training.get("seed"))
+
+    train_ds, test_ds = load_datasets_for(training)
+    # the data order is shared across ranks and independent of the model seed
+    train_loader = ShardedDataLoader(
+        train_ds, training["train_batch_size"], rank, world_size, shuffle=True
+    )
+    test_loader = ShardedDataLoader(
+        test_ds, training["test_batch_size"], rank, world_size, shuffle=True
+    )
+
+    size = training.get("image_size")
+    mean, std = norm_stats_for(training)
+    augment = make_train_augment(
+        size=size, flip=flip_for(training), mean=mean, std=std, generator=generator
+    )
+    eval_transform = make_eval_transform(size=size, mean=mean, std=std)
+
+    in_hw = size if size else train_ds.images.shape[1]
+    model = load_model(
+        training["model"], cfg_lib.num_classes_from(training), input_shape=(in_hw, in_hw, 3)
+    ).to(dev)
+    optimizer = cfg_lib.optimizer_from(training, model.parameters())
+    ddp = DistributedDataParallel(
+        model, optimizer, CrossEntropyLoss(), augment=augment,
+        eval_transform=eval_transform, device=dev,
+    )
+    return ddp, train_loader, test_loader, base_seed
+
+
+def basic_ddp_training_loop(
+    rank: int,
+    world_size: int,
+    save_dir: Optional[str],
+    optional_args: dict,
+    training: Optional[dict] = None,
+    device: str = "cuda",
+):
+    """Per-process worker (reference ``basic_DDP_training_loop``,
+    multi-GPU-training-torch.py:228-266); the process group is already up.
+    Returns the epoch history."""
+    unit = "GPU" if device == "cuda" else "process"
+    print(f"Running DDP training on process {rank} ({world_size}-{unit} world).")
+    training = dict(training or cfg_lib.TRAINING_DEFAULTS)
+    ddp, train_loader, test_loader, base_seed = build_training(
+        rank, world_size, training, device
+    )
+    return run_training_loop(
+        ddp,
+        train_loader,
+        test_loader,
+        save_dir,
+        num_epochs=training["num_epochs"],
+        checkpoint_epoch=training["checkpoint_epoch"],
+        set_epoch=optional_args.get("set_epoch", True),
+        print_rand=optional_args.get("print_rand", False),
+        data_probe_every=100,  # shard-disjointness probe (reference :112-115)
+        per_replica_log=True,  # reference's per-replica loss lines (:186-191)
+        base_seed=base_seed,
+    )
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="tpuddp_torch explicit DDP training (ShardedDataLoader + "
+        "DistributedDataParallel over NCCL, Gloo on the CPU).",
+    )
+    parser.add_argument(
+        "--settings_file", type=str, required=True,
+        help="YAML settings: out_dir, local.{device,gpu}, optional_args, training.",
+    )
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    settings = cfg_lib.load_settings(args.settings_file)
+    device = cfg_lib.device_from(settings)
+    world_size = cfg_lib.world_size_from(settings)
+    if world_size is None:
+        world_size = torch.cuda.device_count() if device == "cuda" else 1
+    cfg_lib.check_settings(settings, world_size)
+    training = cfg_lib.training_config(settings)
+    out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
+    return run_ddp_training(
+        partial(basic_ddp_training_loop, training=training, device=device),
+        world_size,
+        out_dir,
+        cfg_lib.optional_args_from(settings),
+        backend=device,
+    )
+
+
+if __name__ == "__main__":
+    main()
