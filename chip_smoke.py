@@ -8,15 +8,17 @@ Phases, each printing one line (the first failure exits non-zero):
 1. a CUDA device exists; print ``nvidia-smi``'s name and power limit;
 2. build every kernel of the main path from the sources in the checkout;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (and odd shapes), and time kernel, plain version,
-   ``torch.optim.Adam(fused=True)`` (a yardstick, never called by the port)
-   and the card's bound for the same work, with CUDA events;
+   main path's shapes and at odd ones (misaligned views, leaves of 1, 3 and
+   4 elements, 100 leaves over three launches), and time kernel, plain
+   version and ``torch.optim.Adam(fused=True)`` (a yardstick, never called
+   by the port) in turns with CUDA events, beside the host's enqueue time
+   and the card's bound for the same work;
 4. drive the main path once — the ``train_native`` worker in-process on
    ``cuda:0`` with ``tpuddp_torch/configs/cifar10_alexnet_h100.yaml``:
    AlexNet at 224 px, batch 128, one epoch (16 train steps and 6 eval
    batches on the synthetic CIFAR-10 stand-in, no checkpoint) — and check
-   that every train step went through the kernel and that the losses are
-   finite.
+   that every train step went through the kernel, in one launch, and that
+   the losses are finite.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -50,9 +52,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SETTINGS = os.path.join(ROOT, "tpuddp_torch", "configs", "cifar10_alexnet_h100.yaml")
 
 # Tolerances of the kernel against its plain version (IEEE float32 both;
-# they differ only where nvcc contracts a multiply-add into an FMA).
+# they differ only where the kernel fuses a multiply-add that the plain
+# version rounds twice).
 P_TOL, MOMENT_TOL = 1e-5, 1e-6
 ODD_SHAPES = [(37, 50), (5,), (700, 130)]
+# csrc/fused_adam.cu's design: all leaves in one launch, 16-byte streaming
+# accesses (its header says more)
+DESIGN = "vec4-multi"
 STEPS = 3
 HP = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 
@@ -86,13 +92,19 @@ def peaks_for(name: str):
     raise SystemExit(f"chip_smoke: no published peaks for card {name!r}")
 
 
-def make_leaves(shapes, seed: int):
+def make_leaves(shapes, seed: int, misaligned: str = ""):
+    """(p, g, m, v) per leaf on the card; the tensors named in `misaligned`
+    are views at storage offset 1, 4 bytes off 16-byte alignment."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     leaves = []
     for shape in shapes:
-        p = torch.randn(shape, generator=gen, device="cuda")
-        g = torch.randn(shape, generator=gen, device="cuda")
-        leaves.append((p, g, torch.zeros_like(p), torch.zeros_like(p)))
+        leaf = [torch.randn(shape, generator=gen, device="cuda") for _ in range(2)]
+        leaf += [torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")]
+        for i, name in enumerate("pgmv"):
+            if name in misaligned:
+                view = torch.empty(leaf[i].numel() + 1, device="cuda")[1:]
+                leaf[i] = view.view(shape).copy_(leaf[i])
+        leaves.append(tuple(leaf))
     return leaves
 
 
@@ -100,11 +112,22 @@ def clone(leaves):
     return [tuple(t.clone() for t in leaf) for leaf in leaves]
 
 
-def run_steps(update, leaves, steps, weight_decay):
-    for t in range(1, steps + 1):
-        bc1, bc2 = fused_adam.bias_corrections(t, HP["betas"])
-        for p, g, m, v in leaves:
-            update(p, g, m, v, weight_decay=weight_decay, bc1=bc1, bc2=bc2, **HP)
+def step_bcs(t, n_leaves):
+    """Per-leaf bias corrections: leaf i at step t + i % 3, as parameters
+    whose step counts differ."""
+    return [fused_adam.bias_corrections(t + i % 3, HP["betas"]) for i in range(n_leaves)]
+
+
+def kernel_step(leaves, bcs, weight_decay):
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    fused_adam.kernel(ps, gs, ms, vs, bc1s=[b[0] for b in bcs], bc2s=[b[1] for b in bcs],
+                      weight_decay=weight_decay, **HP)
+
+
+def plain_step(leaves, bcs, weight_decay):
+    for (p, g, m, v), (bc1, bc2) in zip(leaves, bcs):
+        fused_adam.adam_update_reference(p, g, m, v, weight_decay=weight_decay,
+                                         bc1=bc1, bc2=bc2, **HP)
 
 
 def max_diffs(a, b):
@@ -114,16 +137,22 @@ def max_diffs(a, b):
     ]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, enqueue ms) per call: CUDA events around `iters` calls,
+    and the host clock around the same enqueues without synchronising. When
+    the two are close, the host sets the pace."""
     for _ in range(warmup):
         fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / iters, enqueue_ms
 
 
 def main() -> None:
@@ -148,53 +177,77 @@ def main() -> None:
         alexnet_shapes = [tuple(t.shape) for t in AlexNet(num_classes=10).parameters()]
     n_leaves = len(alexnet_shapes)
     n_params = sum(math.prod(s) for s in alexnet_shapes)
+    chunk = fused_adam.CHUNK
+    hundred = [(1 + (i * 7919) % 40000,) for i in range(97)]
+    hundred += [(chunk - 1,), (chunk,), (chunk + 1,)]
+    cases = [
+        ("AlexNet", alexnet_shapes, "", 0.0),
+        ("odd shapes", ODD_SHAPES, "", 1e-2),
+        ("odd shapes", ODD_SHAPES, "", 0.0),
+        *[(f"odd shapes, {t} a misaligned view", ODD_SHAPES, t, 1e-2) for t in "pgmv"],
+        ("sizes 1, 3, 4", [(1,), (3,), (4,)], "", 0.0),
+        ("100 leaves", hundred, "", 1e-2),
+    ]
     errs = []
-    for shapes, wd in ((alexnet_shapes, 0.0), (ODD_SHAPES, 1e-2), (ODD_SHAPES, 0.0)):
-        kern = make_leaves(shapes, seed=len(shapes))
+    for label, shapes, misaligned, wd in cases:
+        kern = make_leaves(shapes, seed=len(shapes), misaligned=misaligned)
         plain = clone(kern)
-        run_steps(fused_adam.kernel, kern, STEPS, wd)
-        run_steps(fused_adam.adam_update_reference, plain, STEPS, wd)
+        launches = fused_adam.kernel.launches
+        for t in range(1, STEPS + 1):
+            bcs = step_bcs(t, len(shapes))
+            kernel_step(kern, bcs, wd)
+            plain_step(plain, bcs, wd)
         torch.cuda.synchronize()
+        launches = fused_adam.kernel.launches - launches
+        want = STEPS * math.ceil(len(shapes) / fused_adam.MAX_LEAVES)
         dp, dm, dv = max_diffs(kern, plain)
-        if not (dp <= P_TOL and dm <= MOMENT_TOL and dv <= MOMENT_TOL):
+        if not (dp <= P_TOL and dm <= MOMENT_TOL and dv <= MOMENT_TOL and launches == want):
             raise SystemExit(
-                f"chip_smoke: fused_adam disagrees with its plain version at "
-                f"{len(shapes)} leaves, wd={wd}: |dp|={dp:.3g} |dm|={dm:.3g} |dv|={dv:.3g}"
+                f"chip_smoke: fused_adam disagrees with its plain version on {label} "
+                f"({len(shapes)} leaves, wd={wd}): |dp|={dp:.3g} |dm|={dm:.3g} "
+                f"|dv|={dv:.3g}, {launches} launches (expected {want})"
             )
         errs.append(dp)
-        phase("3 compare", f"fused_adam vs plain, {len(shapes)} leaves, wd={wd}, "
-              f"{STEPS} steps: max|dp|={dp:.3g} max|dm|={dm:.3g} max|dv|={dv:.3g}")
+        phase("3 compare", f"fused_adam vs plain, {label}: {len(shapes)} leaves, wd={wd}, "
+              f"{STEPS} steps, {launches} launches: max|dp|={dp:.3g} max|dm|={dm:.3g} "
+              f"max|dv|={dv:.3g}")
+    del kern, plain
 
     leaves = make_leaves(alexnet_shapes, seed=1)
-    bc1, bc2 = fused_adam.bias_corrections(1, HP["betas"])
+    bcs = step_bcs(1, n_leaves)
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    bc1s, bc2s = [b[0] for b in bcs], [b[1] for b in bcs]
 
-    def one_step(update):
-        def run():
-            for p, g, m, v in leaves:
-                update(p, g, m, v, weight_decay=0.0, bc1=bc1, bc2=bc2, **HP)
-        return run
+    def kernel_run():
+        fused_adam.kernel(ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, weight_decay=0.0, **HP)
 
-    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
-    for prm, (_, g, _, _) in zip(params, leaves):
+    params = [torch.nn.Parameter(p.clone()) for p in ps]
+    for prm, g in zip(params, gs):
         prm.grad = g.clone()
     library = torch.optim.Adam(params, fused=True, **HP)
-    # plain, kernel, kernel, plain: the two versions alternate on one card
-    plain_a = time_ms(one_step(fused_adam.adam_update_reference))
-    kernel_a = time_ms(one_step(fused_adam.kernel))
-    kernel_b = time_ms(one_step(fused_adam.kernel))
-    plain_b = time_ms(one_step(fused_adam.adam_update_reference))
-    library_ms = time_ms(library.step)
-    kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
+    # in turns on one card: plain, kernel, library, library, kernel, plain
+    order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    fns = {"plain": partial(plain_step, leaves, bcs, 0.0), "kernel": kernel_run,
+           "library": library.step}
+    runs = {k: [] for k in fns}
+    for k in order:
+        runs[k].append(time_ms(fns[k]))
+    (kernel_ms, kernel_enq), (plain_ms, _), (library_ms, library_enq) = (
+        min(runs[k]) for k in ("kernel", "plain", "library")
+    )
     nbytes = 7 * 4 * n_params  # read p, g, m, v; write p, m, v
     bytes_ms = nbytes / bw * 1e3
     ops_ms = ADAM_OPS_PER_ELEMENT * n_params / flops * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    each = " ".join(f"{k}=" + ",".join(f"{t_ms:.4f}" for t_ms, _ in runs[k]) for k in fns)
     phase("3 time", f"one AlexNet Adam step ({n_leaves} leaves, {n_params} params, "
-          f"{nbytes / 1e9:.3f} GB): kernel_ms={kernel_ms:.4f} ({kernel_a:.4f}, "
-          f"{kernel_b:.4f}) plain_ms={plain_ms:.4f} ({plain_a:.4f}, {plain_b:.4f}) "
-          f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"({nbytes / kernel_ms / 1e6:.0f} GB/s, {100 * bound_ms / kernel_ms:.1f}% of bound)")
-    del leaves, params, library
+          f"{nbytes / 1e9:.3f} GB), best of two in turns: kernel_ms={kernel_ms:.4f} "
+          f"enqueue_ms={kernel_enq:.4f} library_ms={library_ms:.4f} "
+          f"library_enqueue_ms={library_enq:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({nbytes / kernel_ms / 1e6:.0f} GB/s, "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; kernel/library "
+          f"{kernel_ms / library_ms:.3f}); each run: {each}")
+    del leaves, ps, gs, ms, vs, params, library
     torch.cuda.empty_cache()
 
     settings = cfg_lib.load_settings(SETTINGS)
@@ -216,7 +269,7 @@ def main() -> None:
     steps = len(row["step_ms"])
     checks = {
         "16 train steps": steps == 16,
-        f"{n_leaves} launches per step": launches == n_leaves * steps,
+        "1 launch per step": launches == steps,
         "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
         "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
     }
@@ -244,6 +297,9 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "launches_per_step": launches // steps,
+        "enqueue_ms": kernel_enq,
+        "design": DESIGN,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """torch-rule Adam with float32 moments — the counterpart of
 ``tpuddp/optim.py``'s ``Adam`` (lines 133-225).
 
-The update of every parameter runs through
-:func:`tpuddp_torch.ops.fused_adam.adam_update`: the CUDA kernel for CUDA
-parameters, the plain PyTorch version for CPU ones. ``weight_decay`` is the
+Each param group's update is one call of
+:func:`tpuddp_torch.ops.fused_adam.adam_update`: one CUDA kernel launch for
+all of the group's CUDA parameters (up to 48 leaves; more take one launch per
+48), the plain PyTorch version for CPU ones. ``weight_decay`` is the
 torch L2 convention (added to the gradient), as in the JAX package.
 
 The JAX optimizer is a pure function returning new arrays and one shared step
@@ -40,6 +41,10 @@ class Adam(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
+            # the group's leaves that have a gradient, each with the bias
+            # corrections of its own step count, in one adam_update call
+            ps, gs, ms, vs, bc1s, bc2s = [], [], [], [], [], []
+            corrections = {}
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -51,10 +56,18 @@ class Adam(torch.optim.Optimizer):
                     )
                     state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
                 state["step"] += 1
-                bc1, bc2 = bias_corrections(state["step"], group["betas"])
-                adam_update(
-                    p, p.grad, state["exp_avg"], state["exp_avg_sq"],
-                    lr=group["lr"], betas=group["betas"], eps=group["eps"],
-                    weight_decay=group["weight_decay"], bc1=bc1, bc2=bc2,
-                )
+                step = state["step"]
+                if step not in corrections:
+                    corrections[step] = bias_corrections(step, group["betas"])
+                bc1, bc2 = corrections[step]
+                ps.append(p)
+                gs.append(p.grad)
+                ms.append(state["exp_avg"])
+                vs.append(state["exp_avg_sq"])
+                bc1s.append(bc1)
+                bc2s.append(bc2)
+            adam_update(
+                ps, gs, ms, vs, lr=group["lr"], betas=group["betas"], eps=group["eps"],
+                weight_decay=group["weight_decay"], bc1s=bc1s, bc2s=bc2s,
+            )
         return loss
