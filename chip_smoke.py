@@ -6,19 +6,31 @@
 Phases, each printing one line (the first failure exits non-zero):
 
 1. a CUDA device exists; print ``nvidia-smi``'s name and power limit;
-2. build every kernel of the main path from the sources in the checkout;
+2. build every kernel of the main path from the sources in the checkout
+   (``fused_adam.cu``: its float32-moment and bf16-moment instantiations);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at odd ones (misaligned views, leaves of 1, 3 and
-   4 elements, 100 leaves over three launches), and time kernel, plain
-   version and ``torch.optim.Adam(fused=True)`` (a yardstick, never called
-   by the port) in turns with CUDA events, beside the host's enqueue time
-   and the card's bound for the same work;
-4. drive the main path once — the ``train_native`` worker in-process on
-   ``cuda:0`` with ``tpuddp_torch/configs/cifar10_alexnet_h100.yaml``:
-   AlexNet at 224 px, batch 128, one epoch (16 train steps and 6 eval
-   batches on the synthetic CIFAR-10 stand-in, no checkpoint) — and check
-   that every train step went through the kernel, in one launch, and that
-   the losses are finite.
+   4 elements, 100 leaves over three launches), and time it in turns with
+   its plain version, beside the card's bound for the same work and the
+   host's enqueue time: the float32 instantiation also beside
+   ``torch.optim.Adam(fused=True)`` (a yardstick, never called by the port);
+   the bf16 one has no PyTorch counterpart. The bf16 instantiation must
+   agree bitwise on its moments with zero gradients (then both versions'
+   float32 moments are b * m, rounded once, so any difference is a wrong
+   element index, step count or salt in the rounding);
+4. drive the main paths, each through the ``train_native`` worker
+   in-process on ``cuda:0`` with the launch counts set to 0 just before it
+   and read just after:
+   - ``tpuddp_torch/configs/cifar10_alexnet_h100.yaml``: AlexNet at 224 px,
+     batch 128, float32, one epoch (16 train steps and 6 eval batches on the
+     synthetic CIFAR-10 stand-in, no checkpoint): one float32-kernel launch
+     per step, and the losses of PR 2's kernel (2.9944 / 2.3076) to four
+     decimals, so the float32 instantiation did not move;
+   - ``tpuddp_torch/configs/cifar10_alexnet_bf16_h100.yaml``: the same epoch
+     with bfloat16 compute and bf16 Adam moments: one bf16-kernel launch per
+     step, finite losses, its step median beside the float32 one;
+   - ``tpuddp_torch/configs/cifar10_toy_cnn_sync_bn.yaml``: one toy_cnn epoch
+     with sync_bn at world 1: finite losses and BatchNorm buffers that moved.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -44,16 +56,23 @@ if not torch.cuda.is_available():
 
 from tpuddp_torch import config as cfg_lib  # noqa: E402
 from tpuddp_torch.models import AlexNet  # noqa: E402
+from tpuddp_torch.nn.norm import BatchNorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
-from tpuddp_torch.train_native import basic_ddp_training_loop  # noqa: E402
+from tpuddp_torch.train_native import basic_ddp_training_loop, build_training  # noqa: E402
+from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SETTINGS = os.path.join(ROOT, "tpuddp_torch", "configs", "cifar10_alexnet_h100.yaml")
+CONFIGS = os.path.join(ROOT, "tpuddp_torch", "configs")
+SETTINGS = os.path.join(CONFIGS, "cifar10_alexnet_h100.yaml")
+SETTINGS_BF16 = os.path.join(CONFIGS, "cifar10_alexnet_bf16_h100.yaml")
+SETTINGS_TOY = os.path.join(CONFIGS, "cifar10_toy_cnn_sync_bn.yaml")
 
 # Tolerances of the kernel against its plain version (IEEE float32 both;
 # they differ only where the kernel fuses a multiply-add that the plain
-# version rounds twice).
+# version rounds twice). bf16 moments: equal, or one bf16 step apart where
+# those two float32 moments fall on two sides of a rounding threshold; such
+# a step moves a later p update by about lr * 2^-8 = 4e-6, inside P_TOL.
 P_TOL, MOMENT_TOL = 1e-5, 1e-6
 ODD_SHAPES = [(37, 50), (5,), (700, 130)]
 # csrc/fused_adam.cu's design: all leaves in one launch, 16-byte streaming
@@ -61,6 +80,8 @@ ODD_SHAPES = [(37, 50), (5,), (700, 130)]
 DESIGN = "vec4-multi"
 STEPS = 3
 HP = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+# PR 2's float32 epoch on this synthetic stand-in (PERF.md section 6)
+F32_LOSSES = (2.9944, 2.3076)
 
 # Published peaks (NVIDIA data sheets): memory bytes/s and float32 FLOP/s
 # outside the tensor cores, by a substring of the card's name.
@@ -71,6 +92,14 @@ PEAKS = (
     ("H100", 3.35e12, 67e12),
 )
 ADAM_OPS_PER_ELEMENT = 14  # m: 3, v: 4, p: 7 (no weight decay)
+# integer operations per bf16 moment: widen (shift), noise (multiply, add,
+# mask), add to the bits, shift
+ROUNDING_OPS_PER_MOMENT = 6
+KERNEL_NAMES = {torch.float32: "fused_adam", torch.bfloat16: "fused_adam_bf16_moments"}
+NO_LIBRARY_BF16 = (
+    "no PyTorch call computes it: torch.optim.Adam(fused=True) keeps the moments "
+    "in the parameter's dtype, and nothing in PyTorch rounds them to bf16 stochastically"
+)
 
 
 def phase(name: str, msg: str) -> None:
@@ -92,18 +121,28 @@ def peaks_for(name: str):
     raise SystemExit(f"chip_smoke: no published peaks for card {name!r}")
 
 
-def make_leaves(shapes, seed: int, misaligned: str = ""):
+def make_leaves(shapes, seed: int, misaligned: str = "", moments=torch.float32,
+                zero_grad: bool = False):
     """(p, g, m, v) per leaf on the card; the tensors named in `misaligned`
-    are views at storage offset 1, 4 bytes off 16-byte alignment."""
+    are views at storage offset 1 (4 bytes off 16-byte alignment for
+    float32, 2 for bf16). float32 moments start at zero; bf16 ones at small
+    non-zero values, so a zero gradient still moves them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     leaves = []
     for shape in shapes:
-        leaf = [torch.randn(shape, generator=gen, device="cuda") for _ in range(2)]
-        leaf += [torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")]
+        leaf = [torch.randn(shape, generator=gen, device="cuda"),
+                torch.zeros(shape, device="cuda") if zero_grad
+                else torch.randn(shape, generator=gen, device="cuda")]
+        if moments == torch.float32:
+            leaf += [torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")]
+        else:
+            leaf += [(torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(moments),
+                     (torch.rand(shape, generator=gen, device="cuda") * 1e-3).to(moments)]
         for i, name in enumerate("pgmv"):
             if name in misaligned:
-                view = torch.empty(leaf[i].numel() + 1, device="cuda")[1:]
-                leaf[i] = view.view(shape).copy_(leaf[i])
+                t = leaf[i]
+                view = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+                leaf[i] = view.view(shape).copy_(t)
         leaves.append(tuple(leaf))
     return leaves
 
@@ -112,29 +151,68 @@ def clone(leaves):
     return [tuple(t.clone() for t in leaf) for leaf in leaves]
 
 
-def step_bcs(t, n_leaves):
-    """Per-leaf bias corrections: leaf i at step t + i % 3, as parameters
-    whose step counts differ."""
-    return [fused_adam.bias_corrections(t + i % 3, HP["betas"]) for i in range(n_leaves)]
+def step_counts(t, n_leaves):
+    """Per-leaf step counts: leaf i at step t + i % 3, as parameters whose
+    step counts differ."""
+    return [t + i % 3 for i in range(n_leaves)]
 
 
-def kernel_step(leaves, bcs, weight_decay):
+def leaf_indices(n_leaves):
+    return [(7 * i + 3) % 50 for i in range(n_leaves)]
+
+
+def kernel_step(wrapper, leaves, steps, weight_decay):
     ps, gs, ms, vs = (list(x) for x in zip(*leaves))
-    fused_adam.kernel(ps, gs, ms, vs, bc1s=[b[0] for b in bcs], bc2s=[b[1] for b in bcs],
-                      weight_decay=weight_decay, **HP)
+    bcs = [fused_adam.bias_corrections(s, HP["betas"]) for s in steps]
+    wrapper(ps, gs, ms, vs, bc1s=[b[0] for b in bcs], bc2s=[b[1] for b in bcs],
+            steps=steps, leaves=leaf_indices(len(leaves)), weight_decay=weight_decay, **HP)
 
 
-def plain_step(leaves, bcs, weight_decay):
-    for (p, g, m, v), (bc1, bc2) in zip(leaves, bcs):
+def plain_step(leaves, steps, weight_decay):
+    for (p, g, m, v), s, k in zip(leaves, steps, leaf_indices(len(leaves))):
+        bc1, bc2 = fused_adam.bias_corrections(s, HP["betas"])
         fused_adam.adam_update_reference(p, g, m, v, weight_decay=weight_decay,
-                                         bc1=bc1, bc2=bc2, **HP)
+                                         bc1=bc1, bc2=bc2, step=s, leaf=k, **HP)
 
 
 def max_diffs(a, b):
+    """max |dp|, max |dm|, max |dv| over the leaves, the moments as float32."""
     return [
-        max(float((x[i] - y[i]).abs().max()) for x, y in zip(a, b))
+        max(float((x[i].float() - y[i].float()).abs().max()) for x, y in zip(a, b))
         for i in (0, 2, 3)  # p, m, v
     ]
+
+
+def f32_moments(leaf, weight_decay):
+    """The plain version's unrounded float32 moments of one step from the
+    leaf's state, each with the slack within which the kernel's may differ:
+    its fused multiply-adds round once where the plain version rounds twice,
+    which moves a moment by a few float32 ulps of the largest term; 2^-20
+    of the terms' magnitudes covers them eight times over."""
+    p, g, m, v = leaf
+    b1, b2 = HP["betas"]
+    if weight_decay:
+        g = g + weight_decay * p
+    m_terms = (b1 * m.float()).abs() + ((1 - b1) * g).abs()
+    v_terms = (b2 * v.float()).abs() + ((1 - b2) * g * g).abs()
+    m32 = b1 * m.float() + (1 - b1) * g
+    v32 = b2 * v.float() + (1 - b2) * (g * g)
+    return (m32, (m_terms + m32.abs()) * 2.0**-20), (v32, (v_terms + v32.abs()) * 2.0**-20)
+
+
+def bf16_moment_check(kern, plain, before, weight_decay):
+    """(moments outside their bounds, moments the two versions store
+    differently): each kernel moment must be a bf16 neighbour of a float32
+    value within the slack of the plain version's unrounded moment."""
+    outside = apart = 0
+    for k, pl, b in zip(kern, plain, before):
+        for i, (x32, slack) in zip((2, 3), f32_moments(b, weight_decay)):
+            low, _ = fused_adam.bf16_neighbours(x32 - slack)
+            _, high = fused_adam.bf16_neighbours(x32 + slack)
+            got = k[i].float()
+            outside += int(((got < low) | (got > high)).sum())
+            apart += int((k[i].view(torch.int16) != pl[i].view(torch.int16)).sum())
+    return outside, apart
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3):
@@ -155,6 +233,227 @@ def time_ms(fn, iters: int = 20, warmup: int = 3):
     return start.elapsed_time(stop) / iters, enqueue_ms
 
 
+def compare_cases(alexnet_shapes):
+    chunk = fused_adam.CHUNK
+    hundred = [(1 + (i * 7919) % 40000,) for i in range(97)]
+    hundred += [(chunk - 1,), (chunk,), (chunk + 1,)]
+    return [
+        ("AlexNet", alexnet_shapes, "", 0.0),
+        ("odd shapes", ODD_SHAPES, "", 1e-2),
+        ("odd shapes", ODD_SHAPES, "", 0.0),
+        *[(f"odd shapes, {t} a misaligned view", ODD_SHAPES, t, 1e-2) for t in "pgmv"],
+        ("sizes 1, 3, 4", [(1,), (3,), (4,)], "", 0.0),
+        ("100 leaves", hundred, "", 1e-2),
+    ]
+
+
+def compare(wrapper, cases, alexnet_shapes):
+    """Phase 3: `wrapper`'s kernel against the plain version over the
+    cases, 3 steps each; returns max |dp| over them. Before each step the
+    plain version takes the kernel's state, so each step is held from the
+    same inputs: p within P_TOL, float32 moments within MOMENT_TOL. A bf16
+    moment may differ from the plain version's wherever the two float32
+    moments straddle a rounding threshold (or, where 0.9 m + 0.1 g cancels,
+    zero): it must be a bf16 neighbour of a value within float32 rounding
+    of the plain version's unrounded moment. bf16 moments also run the
+    zero-gradient cases, where both float32 moments are b * m, rounded once,
+    and the stored ones must be bitwise equal: any difference is a wrong
+    element index, step count or salt."""
+    bf16 = wrapper.moment_dtype == torch.bfloat16
+    runs = [(*c, False) for c in cases]
+    if bf16:
+        runs += [("zero gradients, AlexNet", alexnet_shapes, "", 0.0, True),
+                 ("zero gradients, odd shapes", ODD_SHAPES + [(1,), (3,), (4097,)], "", 0.0, True)]
+    errs = []
+    for label, shapes, misaligned, wd, zero_grad in runs:
+        kern = make_leaves(shapes, seed=len(shapes), misaligned=misaligned,
+                           moments=wrapper.moment_dtype, zero_grad=zero_grad)
+        launches = wrapper.launches
+        dp = dm = dv = 0.0
+        outside = apart = 0
+        for t in range(1, STEPS + 1):
+            before, plain = clone(kern), clone(kern)
+            steps = step_counts(t, len(shapes))
+            kernel_step(wrapper, kern, steps, wd)
+            plain_step(plain, steps, wd)
+            torch.cuda.synchronize()
+            dp, dm, dv = (max(a, b) for a, b in zip((dp, dm, dv), max_diffs(kern, plain)))
+            if bf16:
+                out, n_apart = bf16_moment_check(kern, plain, before, wd)
+                outside, apart = outside + out, apart + n_apart
+            del before, plain
+        launches = wrapper.launches - launches
+        want = STEPS * math.ceil(len(shapes) / fused_adam.MAX_LEAVES)
+        detail = f"max|dp|={dp:.3g} max|dm|={dm:.3g} max|dv|={dv:.3g}"
+        if bf16:
+            n = STEPS * sum(2 * math.prod(s) for s in shapes)
+            moments_ok = outside == 0 and (apart == 0 or not zero_grad)
+            detail += (f"; moments stored differently (each a bf16 neighbour of the plain "
+                       f"float32 moment within rounding): {apart} of {n} moment-steps"
+                       + (" (bitwise)" if zero_grad else "") + f", {outside} outside their bounds")
+        else:
+            moments_ok = dm <= MOMENT_TOL and dv <= MOMENT_TOL
+        name = KERNEL_NAMES[wrapper.moment_dtype]
+        if not (dp <= P_TOL and moments_ok and launches == want):
+            raise SystemExit(
+                f"chip_smoke: {name} disagrees with its plain version on {label} "
+                f"({len(shapes)} leaves, wd={wd}): {detail}; {launches} launches "
+                f"(expected {want})"
+            )
+        errs.append(dp)
+        phase("3 compare", f"{name} vs plain, {label}: {len(shapes)} leaves, wd={wd}, "
+              f"{STEPS} steps, {launches} launches: {detail}")
+    return max(errs)
+
+
+def time_kernel(wrapper, alexnet_shapes, bw, flops):
+    """Phase 3: one AlexNet Adam step of `wrapper`'s kernel timed in turns
+    with the plain version and, for float32 moments, with
+    ``torch.optim.Adam(fused=True)``; beside the bound for the bytes it must
+    move and the operations it must do."""
+    bf16 = wrapper.moment_dtype == torch.bfloat16
+    n_params = sum(math.prod(s) for s in alexnet_shapes)
+    leaves = make_leaves(alexnet_shapes, seed=1, moments=wrapper.moment_dtype)
+    steps = step_counts(1, len(alexnet_shapes))
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    bcs = [fused_adam.bias_corrections(s, HP["betas"]) for s in steps]
+    fns = {
+        "plain": partial(plain_step, leaves, steps, 0.0),
+        "kernel": partial(wrapper, ps, gs, ms, vs, bc1s=[b[0] for b in bcs],
+                          bc2s=[b[1] for b in bcs], steps=steps,
+                          leaves=leaf_indices(len(leaves)), weight_decay=0.0, **HP),
+    }
+    # in turns on one card: plain, kernel, [library, library,] kernel, plain
+    order = ("plain", "kernel", "kernel", "plain")
+    if not bf16:
+        params = [torch.nn.Parameter(p.clone()) for p in ps]
+        for prm, g in zip(params, gs):
+            prm.grad = g.clone()
+        fns["library"] = torch.optim.Adam(params, fused=True, **HP).step
+        order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    runs = {k: [] for k in fns}
+    for k in order:
+        runs[k].append(time_ms(fns[k]))
+    best = {k: min(r) for k, r in runs.items()}
+    (kernel_ms, kernel_enq), (plain_ms, _) = best["kernel"], best["plain"]
+    # read p, g, m, v; write p, m, v
+    nbytes = (3 * 4 + 4 * ms[0].element_size()) * n_params
+    bytes_ms = nbytes / bw * 1e3
+    ops = ADAM_OPS_PER_ELEMENT + (2 * ROUNDING_OPS_PER_MOMENT if bf16 else 0)
+    ops_ms = ops * n_params / flops * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    library_ms = best["library"][0] if "library" in best else None
+    each = " ".join(f"{k}=" + ",".join(f"{t_ms:.4f}" for t_ms, _ in runs[k]) for k in fns)
+    library = ""
+    if library_ms is not None:
+        library = (f"library_ms={library_ms:.4f} library_enqueue_ms={best['library'][1]:.4f} "
+                   f"(kernel/library {kernel_ms / library_ms:.3f}) ")
+    phase("3 time", f"one AlexNet Adam step, {KERNEL_NAMES[wrapper.moment_dtype]} "
+          f"({len(alexnet_shapes)} leaves, {n_params} params, {nbytes / 1e9:.3f} GB), best of "
+          f"two in turns: kernel_ms={kernel_ms:.4f} enqueue_ms={kernel_enq:.4f} {library}"
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({nbytes / kernel_ms / 1e6:.0f} "
+          f"GB/s, {100 * bound_ms / kernel_ms:.1f}% of bound); each run: {each}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, enqueue_ms=kernel_enq,
+                bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def training_for(path: str):
+    settings = cfg_lib.load_settings(path)
+    cfg_lib.check_settings(settings)
+    training = cfg_lib.training_config(settings)
+    # the synthetic stand-in by name, so a CIFAR-10 staged under data_root
+    # cannot change the epoch's size; no save_dir, so no checkpoint is written
+    training.update(num_epochs=1, dataset="synthetic", synthetic_n=(2048, 512))
+    return settings, training
+
+
+def reset_counts():
+    for k in fused_adam.kernels.values():
+        k.launches = 0
+
+
+def alexnet_epoch(label: str, path: str, wrapper):
+    """One AlexNet epoch of the settings at `path`; every step must launch
+    `wrapper`'s kernel once and no other kernel."""
+    settings, training = training_for(path)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = run_ddp_training(
+        partial(basic_ddp_training_loop, training=training, device="cuda"),
+        1, None, cfg_lib.optional_args_from(settings), backend="cuda",
+    )
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in fused_adam.kernels.values()}
+    row = history[-1]
+    steps = len(row["step_ms"])
+    others = sum(n for s, n in launches.items() if s != wrapper.symbol)
+    checks = {
+        "16 train steps": steps == 16,
+        "1 launch per step": wrapper.launches == steps and others == 0,
+        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
+        "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
+    }
+    if wrapper is fused_adam.kernel:
+        checks["PR 2's losses 2.9944 / 2.3076"] = (
+            round(row["train_loss"], 4), round(row["test_loss"], 4)) == F32_LOSSES
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: {label} failed {failed}: launches={launches}, "
+                         f"steps={steps}, row={row}")
+    steady = statistics.median(row["step_ms"][1:])
+    phase("4 main path", f"{label}, 1 epoch: {steps} steps, {wrapper.symbol} "
+          f"launches={wrapper.launches} ({wrapper.launches // steps}/step), train_loss="
+          f"{row['train_loss']:.4f} test_loss={row['test_loss']:.4f}; step_ms "
+          f"first={row['step_ms'][0]:.2f} median(2..{steps})={steady:.2f} "
+          f"min={min(row['step_ms'][1:]):.2f}; {128 * 1e3 / steady:.0f} img/s; "
+          f"epoch wall {wall_s:.2f} s")
+    return wrapper.launches, steps, steady
+
+
+def _toy_cnn_worker(rank, world_size, save_dir, optional_args, training):
+    """basic_ddp_training_loop's two calls, keeping the model to read its
+    BatchNorm buffers."""
+    ddp, train_loader, test_loader, base_seed = build_training(rank, world_size, training, "cuda")
+    norms = [m for m in ddp.model.modules() if isinstance(m, BatchNorm)]
+    before = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+    history = run_training_loop(
+        ddp, train_loader, test_loader, save_dir, num_epochs=training["num_epochs"],
+        checkpoint_epoch=training["checkpoint_epoch"], base_seed=base_seed,
+    )
+    moved = all(
+        not torch.equal(m.running_mean, mean) and not torch.equal(m.running_var, var)
+        for m, (mean, var) in zip(norms, before)
+    )
+    return history, [m.sync for m in norms], moved
+
+
+def toy_cnn_epoch():
+    settings, training = training_for(SETTINGS_TOY)
+    reset_counts()
+    history, syncs, moved = run_ddp_training(
+        partial(_toy_cnn_worker, training=training), 1, None,
+        cfg_lib.optional_args_from(settings), backend="cuda",
+    )
+    torch.cuda.synchronize()
+    row = history[-1]
+    steps = len(row["step_ms"])
+    checks = {
+        "2 synced BatchNorms": syncs == [True, True],
+        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
+        "BatchNorm buffers moved": moved,
+        "1 launch per step": (fused_adam.kernel.launches == steps
+                              and fused_adam.kernels[torch.bfloat16].launches == 0),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: toy_cnn sync-BN epoch failed {failed}: row={row}")
+    phase("4 toy_cnn", f"toy_cnn@32 b128 sync_bn, 1 epoch at world 1: {steps} steps, "
+          f"fused_adam launches={fused_adam.kernel.launches}, train_loss={row['train_loss']:.4f} "
+          f"test_loss={row['test_loss']:.4f}, BatchNorm buffers moved; step_ms median(2..{steps})="
+          f"{statistics.median(row['step_ms'][1:]):.2f}")
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -165,142 +464,45 @@ def main() -> None:
     bw, flops = peaks_for(name)
 
     t0 = time.perf_counter()
-    fused_adam.kernel.load()
+    for k in fused_adam.kernels.values():
+        k.load()
     build_s = time.perf_counter() - t0
     ptxas = " | ".join(
-        line.strip() for line in fused_adam.kernel.build_log.splitlines()
-        if "registers" in line or "spill" in line
+        line.strip() for line in fused_adam.library.build_log.splitlines()
+        if "registers" in line or "spill" in line or "Compiling entry" in line
     )
-    phase("2 build", f"fused_adam.cu built and loaded in {build_s:.2f} s; ptxas: {ptxas}")
+    phase("2 build", f"fused_adam.cu (float32 and bf16 moments) built and loaded in "
+          f"{build_s:.2f} s; ptxas: {ptxas}")
 
     with torch.device("meta"):
         alexnet_shapes = [tuple(t.shape) for t in AlexNet(num_classes=10).parameters()]
-    n_leaves = len(alexnet_shapes)
-    n_params = sum(math.prod(s) for s in alexnet_shapes)
-    chunk = fused_adam.CHUNK
-    hundred = [(1 + (i * 7919) % 40000,) for i in range(97)]
-    hundred += [(chunk - 1,), (chunk,), (chunk + 1,)]
-    cases = [
-        ("AlexNet", alexnet_shapes, "", 0.0),
-        ("odd shapes", ODD_SHAPES, "", 1e-2),
-        ("odd shapes", ODD_SHAPES, "", 0.0),
-        *[(f"odd shapes, {t} a misaligned view", ODD_SHAPES, t, 1e-2) for t in "pgmv"],
-        ("sizes 1, 3, 4", [(1,), (3,), (4,)], "", 0.0),
-        ("100 leaves", hundred, "", 1e-2),
-    ]
-    errs = []
-    for label, shapes, misaligned, wd in cases:
-        kern = make_leaves(shapes, seed=len(shapes), misaligned=misaligned)
-        plain = clone(kern)
-        launches = fused_adam.kernel.launches
-        for t in range(1, STEPS + 1):
-            bcs = step_bcs(t, len(shapes))
-            kernel_step(kern, bcs, wd)
-            plain_step(plain, bcs, wd)
-        torch.cuda.synchronize()
-        launches = fused_adam.kernel.launches - launches
-        want = STEPS * math.ceil(len(shapes) / fused_adam.MAX_LEAVES)
-        dp, dm, dv = max_diffs(kern, plain)
-        if not (dp <= P_TOL and dm <= MOMENT_TOL and dv <= MOMENT_TOL and launches == want):
-            raise SystemExit(
-                f"chip_smoke: fused_adam disagrees with its plain version on {label} "
-                f"({len(shapes)} leaves, wd={wd}): |dp|={dp:.3g} |dm|={dm:.3g} "
-                f"|dv|={dv:.3g}, {launches} launches (expected {want})"
-            )
-        errs.append(dp)
-        phase("3 compare", f"fused_adam vs plain, {label}: {len(shapes)} leaves, wd={wd}, "
-              f"{STEPS} steps, {launches} launches: max|dp|={dp:.3g} max|dm|={dm:.3g} "
-              f"max|dv|={dv:.3g}")
-    del kern, plain
-
-    leaves = make_leaves(alexnet_shapes, seed=1)
-    bcs = step_bcs(1, n_leaves)
-    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
-    bc1s, bc2s = [b[0] for b in bcs], [b[1] for b in bcs]
-
-    def kernel_run():
-        fused_adam.kernel(ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, weight_decay=0.0, **HP)
-
-    params = [torch.nn.Parameter(p.clone()) for p in ps]
-    for prm, g in zip(params, gs):
-        prm.grad = g.clone()
-    library = torch.optim.Adam(params, fused=True, **HP)
-    # in turns on one card: plain, kernel, library, library, kernel, plain
-    order = ("plain", "kernel", "library", "library", "kernel", "plain")
-    fns = {"plain": partial(plain_step, leaves, bcs, 0.0), "kernel": kernel_run,
-           "library": library.step}
-    runs = {k: [] for k in fns}
-    for k in order:
-        runs[k].append(time_ms(fns[k]))
-    (kernel_ms, kernel_enq), (plain_ms, _), (library_ms, library_enq) = (
-        min(runs[k]) for k in ("kernel", "plain", "library")
-    )
-    nbytes = 7 * 4 * n_params  # read p, g, m, v; write p, m, v
-    bytes_ms = nbytes / bw * 1e3
-    ops_ms = ADAM_OPS_PER_ELEMENT * n_params / flops * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    each = " ".join(f"{k}=" + ",".join(f"{t_ms:.4f}" for t_ms, _ in runs[k]) for k in fns)
-    phase("3 time", f"one AlexNet Adam step ({n_leaves} leaves, {n_params} params, "
-          f"{nbytes / 1e9:.3f} GB), best of two in turns: kernel_ms={kernel_ms:.4f} "
-          f"enqueue_ms={kernel_enq:.4f} library_ms={library_ms:.4f} "
-          f"library_enqueue_ms={library_enq:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({nbytes / kernel_ms / 1e6:.0f} GB/s, "
-          f"{100 * bound_ms / kernel_ms:.1f}% of bound; kernel/library "
-          f"{kernel_ms / library_ms:.3f}); each run: {each}")
-    del leaves, ps, gs, ms, vs, params, library
+    f32, bf16 = fused_adam.kernel, fused_adam.kernels[torch.bfloat16]
+    cases = compare_cases(alexnet_shapes)
+    err_f32 = compare(f32, cases, alexnet_shapes)
+    err_bf16 = compare(bf16, cases, alexnet_shapes)
+    torch.cuda.empty_cache()
+    t_f32 = time_kernel(f32, alexnet_shapes, bw, flops)
+    torch.cuda.empty_cache()
+    t_bf16 = time_kernel(bf16, alexnet_shapes, bw, flops)
     torch.cuda.empty_cache()
 
-    settings = cfg_lib.load_settings(SETTINGS)
-    cfg_lib.check_settings(settings)
-    training = cfg_lib.training_config(settings)
-    # the synthetic stand-in by name, so a CIFAR-10 staged under data_root
-    # cannot change the epoch's size; no save_dir, so no checkpoint is written
-    training.update(num_epochs=1, dataset="synthetic", synthetic_n=(2048, 512))
-    fused_adam.kernel.launches = 0
-    t0 = time.perf_counter()
-    history = run_ddp_training(
-        partial(basic_ddp_training_loop, training=training, device="cuda"),
-        1, None, cfg_lib.optional_args_from(settings), backend="cuda",
-    )
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = fused_adam.kernel.launches
-    row = history[-1]
-    steps = len(row["step_ms"])
-    checks = {
-        "16 train steps": steps == 16,
-        "1 launch per step": launches == steps,
-        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
-        "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
-    }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise SystemExit(f"chip_smoke: main path failed {failed}: launches={launches}, "
-                         f"steps={steps}, row={row}")
-    steady = statistics.median(row["step_ms"][1:])
-    phase("4 main path", f"AlexNet@224 b128, 1 epoch: {steps} steps, fused_adam "
-          f"launches={launches} ({launches // steps}/step), train_loss="
-          f"{row['train_loss']:.4f} test_loss={row['test_loss']:.4f}; step_ms "
-          f"first={row['step_ms'][0]:.2f} median(2..{steps})={steady:.2f} "
-          f"min={min(row['step_ms'][1:]):.2f}; {128 * 1e3 / steady:.0f} img/s; "
-          f"epoch wall {wall_s:.2f} s")
+    launches_f32, steps, steady_f32 = alexnet_epoch(
+        "AlexNet@224 b128 float32", SETTINGS, f32)
+    launches_bf16, steps_bf16, steady_bf16 = alexnet_epoch(
+        "AlexNet@224 b128 bf16 compute, bf16 moments", SETTINGS_BF16, bf16)
+    phase("4 bf16 vs float32", f"step median {steady_bf16:.2f} ms (bf16) vs {steady_f32:.2f} ms "
+          f"(float32), ratio {steady_bf16 / steady_f32:.3f}")
+    toy_cnn_epoch()
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_adam",
-        "route": "cuda",
-        "source": "tpuddp_torch/ops/csrc/fused_adam.cu",
-        "replaces": "tpuddp/ops/fused_adam.py:71",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "launches_per_step": launches // steps,
-        "enqueue_ms": kernel_enq,
-        "design": DESIGN,
-    }]}))
+    common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
+                  replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
+    print(json.dumps({"kernels": [
+        {"name": KERNEL_NAMES[torch.float32], **common, "launches": launches_f32, "max_abs_err": err_f32,
+         **t_f32, "launches_per_step": launches_f32 // steps},
+        {"name": KERNEL_NAMES[torch.bfloat16], **common, "launches": launches_bf16,
+         "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
+         "launches_per_step": launches_bf16 // steps_bf16},
+    ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -256,9 +256,12 @@ def test_leaf_dtype_matches_the_c_struct():
     (size,) = re.findall(r"static_assert\(sizeof\(Leaf\) == (\d+)", src)
     offsets = dict(re.findall(r"static_assert\(offsetof\(Leaf, (\w+)\) == (\d+)", src))
     dtype = fused_adam.LEAF_DTYPE
-    assert dtype.itemsize == int(size) == 64
+    assert dtype.itemsize == int(size) == 72
     assert {k: dtype.fields[k][1] for k in dtype.names} == {k: int(v) for k, v in offsets.items()}
     assert re.search(r"constexpr int kMaxLeaves = (\d+);", src).group(1) == str(fused_adam.MAX_LEAVES)
+    # Table (16-byte header + MAX_LEAVES rows), chunk and 7 float hyperparameters
+    # within the 4 KB of kernel parameters
+    assert 16 + fused_adam.MAX_LEAVES * dtype.itemsize + 8 + 7 * 4 <= 4096
     # the kernel needs chunk starts at multiples of 4 elements (16 bytes)
     assert CHUNK % 4 == 0 and CHUNK & (CHUNK - 1) == 0
 

@@ -38,6 +38,7 @@ from tpuddp.training.loop import run_training_loop as jax_run_training_loop
 
 from tpuddp_torch import config as cfg
 from tpuddp_torch import seeding
+from tpuddp_torch.data import compute_dtype_for
 from tpuddp_torch.data.transforms import make_train_augment
 from tpuddp_torch.models import AlexNet, ToyMLP
 from tpuddp_torch.models.convert import state_dict_from_jax
@@ -254,11 +255,10 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 # ---------------------------------------------------------------- config --
 
 @pytest.mark.parametrize("knob,value", [
-    ("sync_bn", True), ("remat", True), ("weight_update_sharding", True),
+    ("remat", True), ("weight_update_sharding", True),
     ("comm_hook", "bf16"), ("comm_topology", "hierarchical"), ("comm_overlap", True),
     ("guard", True), ("snapshot", True), ("resume", True), ("auto_resume", True),
-    ("pretrained_path", "/x.pt"), ("compute_dtype", "bfloat16"),
-    ("optimizer_state_dtype", "bfloat16"), ("optimizer", "sgd"),
+    ("pretrained_path", "/x.pt"), ("optimizer", "sgd"),
     ("gradient_accumulation_steps", 2), ("mode", "auto"), ("clip_grad_norm", 1.0),
     ("keep_last", 2), ("pipeline", {"depth": 2}), ("step_stats_every", 10),
     ("deferred_metrics", True), ("fuse_steps", 4), ("reshard_on_mismatch", True),
@@ -266,6 +266,42 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         cfg.training_config({"training": {knob: value}})
+
+
+def test_ported_knobs_are_accepted_and_reach_the_optimizer():
+    """sync_bn, compute_dtype and optimizer_state_dtype: bf16 moments end
+    up in the Adam that optimizer_from builds."""
+    training = cfg.training_config({"training": {
+        "sync_bn": True, "compute_dtype": "bfloat16", "optimizer_state_dtype": "bfloat16",
+    }})
+    opt = cfg.optimizer_from(training, [torch.nn.Parameter(torch.zeros(2))], leaf_index=[0])
+    assert opt.state_dtype == torch.bfloat16
+    for name in ("bf16", "float32", None):
+        training = cfg.training_config({"training": {"optimizer_state_dtype": name}})
+        cfg.optimizer_from(training, [torch.nn.Parameter(torch.zeros(2))], leaf_index=[0])
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("compute_dtype", "float16"), ("compute_dtype", "fp8"),
+    ("optimizer_state_dtype", "float16"), ("optimizer_state_dtype", "int8"),
+])
+def test_unknown_dtypes_raise(knob, value):
+    training = cfg.training_config({"training": {knob: value}})
+    with pytest.raises(ValueError, match=f"training.{knob}"):
+        if knob == "compute_dtype":
+            compute_dtype_for(training)
+        else:
+            cfg.optimizer_from(training, [torch.nn.Parameter(torch.zeros(2))])
+
+
+def test_bf16_state_is_an_adam_knob():
+    """tpuddp/config.py:768-772: optimizer_state_dtype with another
+    optimizer is a ValueError (before the optimizer's own refusal)."""
+    with pytest.raises(ValueError, match="Adam knob"):
+        cfg.optimizer_from({"optimizer": "sgd", "optimizer_state_dtype": "bfloat16",
+                            "learning_rate": 0.1}, [])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.optimizer_from({"optimizer": "sgd", "learning_rate": 0.1}, [])
 
 
 @pytest.mark.parametrize("settings", [

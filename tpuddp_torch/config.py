@@ -8,7 +8,8 @@ Same settings-file schema as the JAX package (``script_path``, ``out_dir``,
   the reference tutorial's ``local.condor.num_gpus``, in that order;
 - ``training`` merges over :data:`TRAINING_DEFAULTS` and refuses unknown keys.
 
-This slice implements the native DDP main path only. Every knob whose
+The port implements the native DDP main path, with ``sync_bn``,
+``compute_dtype`` and ``optimizer_state_dtype``. Every knob whose
 non-default value needs a part of the JAX package that is not ported yet is
 refused with ``NotImplementedError`` naming its ROADMAP item
 (:func:`check_supported`), never ignored. Two knobs are accepted because an
@@ -77,15 +78,8 @@ DATASET_NUM_CLASSES = {"cifar10": 10, "synthetic": 10, "digits": 10}
 
 DEVICES = ("cuda", "cpu")
 
-_F32_NAMES = (None, "float32", "f32", "fp32")
-
-# knob -> (is the value one this slice implements?, ROADMAP.md item)
+# knob -> (is the value one the port implements?, ROADMAP.md item)
 _UNSUPPORTED = {
-    "sync_bn": (lambda v: not v, "Queue 1 item 4: BN/SyncBN"),
-    "compute_dtype": (lambda v: v in _F32_NAMES, "Queue 1 item 5: bf16 compute"),
-    "optimizer_state_dtype": (
-        lambda v: v in _F32_NAMES, "Queue 1 item 6: bf16 Adam state"
-    ),
     "resume": (lambda v: not v, "Queue 1 item 7: checkpoint resume"),
     "auto_resume": (lambda v: not v, "Queue 1 item 7: checkpoint resume"),
     "keep_last": (lambda v: v is None, "Queue 1 item 7: checkpoint resume"),
@@ -248,16 +242,26 @@ def optional_args_from(settings: Dict[str, Any]) -> Dict[str, Any]:
     return dict(settings.get("optional_args") or {})
 
 
-def optimizer_from(training: Dict[str, Any], params):
+def optimizer_from(training: Dict[str, Any], params, leaf_index=None):
     """Build the configured optimizer over ``params``. Only ``adam`` is
-    ported; :func:`check_supported` refuses the others."""
+    ported; :func:`check_supported` refuses the others. ``leaf_index``
+    gives each parameter's index in the JAX package's flattened parameter
+    tree, which keys the rounding of bf16 moments
+    (``models.convert.jax_leaf_index``); bf16 moments require it."""
     from tpuddp_torch import optim
 
     name = str(training.get("optimizer") or "adam").lower()
     if name != "adam":
+        if training.get("optimizer_state_dtype"):
+            raise ValueError(
+                "training.optimizer_state_dtype is an Adam knob (bf16 moment "
+                f"storage); optimizer {name!r} stores its state in f32"
+            )
         raise _not_ported(f"training.optimizer={name!r}", "Queue 1 item 8: optimizers")
     return optim.Adam(
         params,
         lr=float(training["learning_rate"]),
         weight_decay=float(training.get("weight_decay") or 0.0),
+        state_dtype=training.get("optimizer_state_dtype"),
+        leaf_index=leaf_index,
     )

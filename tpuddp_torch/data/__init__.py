@@ -3,6 +3,8 @@ the counterpart of ``tpuddp/data``."""
 
 from typing import Any, Dict, Sequence, Tuple
 
+import torch
+
 from tpuddp_torch.data.loader import ShardedDataLoader  # noqa: F401
 from tpuddp_torch.data.synthetic import SyntheticClassification  # noqa: F401
 
@@ -44,6 +46,19 @@ def flip_for(training: Dict[str, Any]) -> bool:
     return str(training.get("dataset") or "cifar10") != "digits"
 
 
+def compute_dtype_for(training: Dict[str, Any]) -> torch.dtype:
+    """Activation dtype for the device-side transforms and the model:
+    ``bfloat16`` (``bf16``) is mixed precision (float32 master weights,
+    bfloat16 activations), ``float32`` the default."""
+    name = str(training.get("compute_dtype") or "float32")
+    table = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+    if name not in table:
+        raise ValueError(
+            f"unknown training.compute_dtype {name!r}; one of float32, bfloat16"
+        )
+    return table[name]
+
+
 def norm_stats_for(training: Dict[str, Any]) -> Tuple[Sequence[float], Sequence[float]]:
     """Per-dataset normalization (mean, std) for the device-side transforms."""
     from tpuddp_torch.data.cifar10 import CIFAR10_MEAN, CIFAR10_STD
@@ -55,6 +70,7 @@ __all__ = [
     "ShardedDataLoader",
     "SyntheticClassification",
     "load_datasets_for",
+    "compute_dtype_for",
     "norm_stats_for",
     "flip_for",
 ]

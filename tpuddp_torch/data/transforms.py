@@ -5,7 +5,9 @@ The host ships raw uint8 NHWC 32x32 images; on the device they become float
 in [0, 1], get a per-sample horizontal flip (train only), are normalized and
 then resized bilinearly to the model's input size. The order (flip,
 normalize, resize) is the JAX package's, and tensors stay NHWC at every
-function boundary.
+function boundary. All of it runs in float32; the last operation casts to
+the compute dtype (``tpuddp/data/transforms.py:70,88``), so under
+``compute_dtype: bfloat16`` the model receives bfloat16 images.
 
 ``F.interpolate(mode="bilinear", align_corners=False, antialias=False)``
 agrees with ``jax.image.resize(..., "bilinear")`` when upsampling (both use
@@ -69,6 +71,7 @@ def make_train_augment(
     mean: Sequence[float] = CIFAR10_MEAN,
     std: Sequence[float] = CIFAR10_STD,
     generator: Optional[torch.Generator] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Train transform: ``augment(x, flip_mask=None) -> x``. Without an
     explicit ``flip_mask`` the mask is drawn from ``generator`` (a fresh one
@@ -85,7 +88,7 @@ def make_train_augment(
         x = normalize(x, mean, std)
         if size is not None and (x.shape[1] != size or x.shape[2] != size):
             x = resize(x, size)
-        return x
+        return x.to(compute_dtype)
 
     return augment
 
@@ -94,6 +97,7 @@ def make_eval_transform(
     size: Optional[int] = 224,
     mean: Sequence[float] = CIFAR10_MEAN,
     std: Sequence[float] = CIFAR10_STD,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Eval transform (no flip)."""
 
@@ -101,6 +105,6 @@ def make_eval_transform(
         x = normalize(to_float(x), mean, std)
         if size is not None and (x.shape[1] != size or x.shape[2] != size):
             x = resize(x, size)
-        return x
+        return x.to(compute_dtype)
 
     return transform

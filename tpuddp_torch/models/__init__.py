@@ -1,14 +1,14 @@
-"""Model zoo of the port: ``alexnet`` (the main path) and ``toy_mlp``.
-The JAX package's other models wait for a later slice."""
+"""Model zoo of the port: ``alexnet`` (the main path), ``toy_mlp`` and
+``toy_cnn``. The JAX package's other models wait for a later slice."""
 
 from typing import Sequence
 
 from tpuddp_torch.models.alexnet import AlexNet  # noqa: F401
-from tpuddp_torch.models.toy import ToyMLP  # noqa: F401
+from tpuddp_torch.models.toy import ToyCNN, ToyMLP  # noqa: F401
 
 # the JAX package's other models (tpuddp/models/__init__.py)
 _NOT_PORTED = (
-    "toy_cnn", "vgg11", "vgg13", "vgg16", "vgg19", "resnet18", "resnet34",
+    "vgg11", "vgg13", "vgg16", "vgg19", "resnet18", "resnet34",
     "resnet50", "resnet101", "resnet152", "transformer_tiny", "transformer_small",
 )
 
@@ -25,13 +25,15 @@ def load_model(
     if name == "toy_mlp":
         h, w, c = input_shape
         return ToyMLP(in_features=h * w * c, num_classes=num_classes, **kwargs)
+    if name == "toy_cnn":
+        return ToyCNN(num_classes=num_classes, input_shape=input_shape, **kwargs)
     base = name.split("_s2d")[0].split("_small")[0]
     if base in _NOT_PORTED or name == "alexnet_s2d":
         raise NotImplementedError(
             f"model {name!r} is not implemented in tpuddp_torch yet "
             "(ROADMAP.md Queue 1 item 8: other models)"
         )
-    raise ValueError(f"unknown model {name!r}; one of alexnet, toy_mlp")
+    raise ValueError(f"unknown model {name!r}; one of alexnet, toy_mlp, toy_cnn")
 
 
-__all__ = ["AlexNet", "ToyMLP", "load_model"]
+__all__ = ["AlexNet", "ToyCNN", "ToyMLP", "load_model"]

@@ -1,5 +1,6 @@
 """Weight bridge from the JAX package's parameter trees to the port's
-``state_dict`` — the inverse of ``tpuddp/models/torch_import.py:56-108``.
+``state_dict`` — the inverse of ``tpuddp/models/torch_import.py:56-108`` —
+and each parameter's place in the JAX package's flattened parameter tree.
 
 JAX params arrive as numpy arrays (one entry per layer of the JAX
 ``Sequential``; parameter-free layers hold ``()``):
@@ -7,7 +8,10 @@ JAX params arrive as numpy arrays (one entry per layer of the JAX
 - conv weights: HWIO -> OIHW;
 - Linear weights: ``(in, out)`` -> ``(out, in)``;
 - AlexNet's first classifier Linear additionally re-orders its 9216-wide
-  input axis from JAX's NHWC flatten ``(h, w, c)`` to torch's ``(c, h, w)``.
+  input axis from JAX's NHWC flatten ``(h, w, c)`` to torch's ``(c, h, w)``;
+- BatchNorm (``toy_cnn``): ``scale`` and ``bias`` -> ``weight`` and
+  ``bias``, and the JAX model state's ``mean`` and ``var`` -> the
+  ``running_mean`` and ``running_var`` buffers.
 
 Every tensor's shape is checked against the port's model, with the key named
 on a mismatch.
@@ -15,7 +19,7 @@ on a mismatch.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ def _linear_indices(params: Sequence) -> list:
 def _expected_model(name: str, params: Sequence):
     """The port's model with the widths ``params`` imply, on the meta device
     (shapes only, no memory)."""
-    from tpuddp_torch.models import AlexNet, ToyMLP
+    from tpuddp_torch.models import AlexNet, ToyCNN, ToyMLP
 
     lin = _linear_indices(params)
     num_classes = int(np.shape(params[lin[-1]]["weight"])[1])
@@ -45,11 +49,26 @@ def _expected_model(name: str, params: Sequence):
             hidden = [int(np.shape(params[i]["weight"])[1]) for i in lin[:-1]]
             in_features = int(np.shape(params[lin[0]]["weight"])[0])
             return ToyMLP(in_features, num_classes, hidden)
-    raise ValueError(f"no weight bridge for model {name!r}; one of alexnet, toy_mlp")
+        if name == "toy_cnn":
+            convs = [np.shape(p["weight"]) for p in params[:lin[-1]] if p and "weight" in p]
+            widths = [int(s[3]) for s in convs]
+            # the head sees (h // f) * (w // f) * widths[-1] features, f = 2^blocks;
+            # any input with that many gives the same shapes
+            cells = int(np.shape(params[lin[-1]]["weight"])[0]) // widths[-1]
+            f = 2 ** len(widths)
+            return ToyCNN(num_classes, widths, input_shape=(f, f * cells, int(convs[0][2])))
+    raise ValueError(
+        f"no weight bridge for model {name!r}; one of alexnet, toy_mlp, toy_cnn"
+    )
 
 
-def state_dict_from_jax(name: str, params: Sequence) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` (float32 CPU tensors) for JAX ``params``."""
+def state_dict_from_jax(
+    name: str, params: Sequence, model_state: Optional[Sequence] = None
+) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (float32 CPU tensors) for JAX ``params``
+    and, for a model with buffers, its ``model_state``. Without
+    ``model_state`` only the parameters are converted (as for a gradient
+    tree)."""
     out: Dict[str, np.ndarray] = {}
     if name == "alexnet":
         for idx, key in _ALEXNET_CONV.items():
@@ -78,8 +97,26 @@ def state_dict_from_jax(name: str, params: Sequence) -> Dict[str, torch.Tensor]:
         for idx in _linear_indices(params):
             out[f"{idx}.weight"] = np.asarray(params[idx]["weight"]).T
             out[f"{idx}.bias"] = params[idx]["bias"]
+    elif name == "toy_cnn":
+        for idx, p in enumerate(params):
+            if not p:
+                continue
+            if "scale" in p:  # BatchNorm
+                out[f"{idx}.weight"], out[f"{idx}.bias"] = p["scale"], p["bias"]
+                if model_state is not None:
+                    out[f"{idx}.running_mean"] = model_state[idx]["mean"]
+                    out[f"{idx}.running_var"] = model_state[idx]["var"]
+            elif np.ndim(p["weight"]) == 4:  # conv, HWIO -> OIHW
+                out[f"{idx}.weight"] = np.transpose(p["weight"], (3, 2, 0, 1))
+            else:  # Linear
+                out[f"{idx}.weight"] = np.asarray(p["weight"]).T
+                out[f"{idx}.bias"] = p["bias"]
 
-    expected = _expected_model(name, params).state_dict()
+    model = _expected_model(name, params)
+    expected = (
+        model.state_dict() if model_state is not None
+        else dict(model.named_parameters())
+    )
     if set(out) != set(expected):
         raise ValueError(
             f"{name}: converted keys {sorted(out)} != model keys {sorted(expected)}"
@@ -93,3 +130,27 @@ def state_dict_from_jax(name: str, params: Sequence) -> Dict[str, torch.Tensor]:
             )
         state[key] = torch.from_numpy(arr)
     return state
+
+
+def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:
+    """Each parameter of the port's ``model`` (by ``named_parameters`` name)
+    -> its index among the leaves of the JAX package's flattened parameter
+    tree for the same model: the layers in order, each layer's dict keys
+    sorted (``bias`` before ``scale`` and ``weight``), parameter-free layers
+    holding none. bf16 Adam moments salt their rounding with it
+    (``tpuddp/optim.py:127``)."""
+    from tpuddp_torch.nn.norm import BatchNorm
+
+    if name == "alexnet":
+        layer_of = {key: idx for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
+    elif name in ("toy_mlp", "toy_cnn"):
+        layer_of = None  # Sequentials with the JAX layer indices
+    else:
+        raise ValueError(f"no JAX leaf order for model {name!r}; one of alexnet, toy_mlp, toy_cnn")
+    places = {}
+    for pname, _ in model.named_parameters():
+        prefix, key = pname.rsplit(".", 1)
+        if key == "weight" and isinstance(model.get_submodule(prefix), BatchNorm):
+            key = "scale"
+        places[pname] = (int(prefix) if layer_of is None else layer_of[prefix], key)
+    return {pname: k for k, pname in enumerate(sorted(places, key=places.get))}

@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel tpuddp/ops/fused_adam.py::_adam_kernel
 // (launched by _update_leaf, pl.pallas_call at tpuddp/ops/fused_adam.py:71).
 // Same rule, plus the L2 term of tpuddp/optim.py's Adam (g += wd * p), so
-// every float32 Adam the port builds runs here:
+// every Adam the port builds runs here:
 //
 //   g <- g + wd * p                       (only when wd != 0)
 //   m <- b1 * m + (1 - b1) * g
@@ -15,11 +15,36 @@
 // host (the TPU kernel reads them from SMEM), one pair per leaf: each
 // parameter keeps its own step count. p, m and v are updated in place.
 //
+// Two instantiations, on the type the moments are stored in:
+// - float32 (tpuddp_fused_adam_multi): the kernel above, bitwise what it was
+//   before the moment type became a template parameter.
+// - bfloat16 (tpuddp_fused_adam_multi_bf16), for optimizer_state_dtype:
+//   bfloat16. m and v are read as bf16 and widened to float32, the update
+//   runs in the same float32 arithmetic, p is computed from the unrounded
+//   float32 moments, and only then are m and v stored back to bf16 with the
+//   JAX package's Weyl-sequence stochastic rounding (tpuddp/optim.py:79-130):
+//
+//     noise = (i * 0x9E3779B1 + t * 0x85EBCA77 + salt) mod 2^16
+//     bf16  = (bits(x) + noise) mod 2^32 >> 16
+//
+//   with i the element's index within its leaf, t the leaf's step count and
+//   salt = salt0 + 0x68E31DA4 * (k + 1) for the leaf's index k in the JAX
+//   package's flattened parameter tree (salt0 0x5ADA0000 for m, 0x7EE70000
+//   for v). The host folds t and salt into one word per moment
+//   (Leaf::noise_m, Leaf::noise_v); the kernel adds i * 0x9E3779B1. `i`
+//   counts the PyTorch layout of the leaf (OIHW, (out, in)), so for a conv
+//   or linear weight the noise falls on other elements than in the JAX
+//   package's layout: an equally valid, unbiased realisation
+//   (tpuddp/optim.py:99-105), reproducible within a layout and bitwise equal
+//   to JAX's for 1-D leaves.
+//
 // What bounds it: memory bandwidth. Each element reads p, g, m, v and writes
-// p, m, v: 28 bytes for about 15 floating-point operations, far below the
-// ~20 operations per byte where an H100's float32 units would become the
-// limit. AlexNet with 10 classes has 57,044,810 parameters in 16 leaves, so
-// one optimizer step moves 1.597 GB: 0.477 ms at the H100 SXM's 3.35 TB/s.
+// p, m, v: 28 bytes with float32 moments (20 with bf16 ones) for about 15
+// floating-point operations (and about 6 integer operations per bf16
+// moment), far below the ~20 operations per byte where an H100's float32
+// units would become the limit. AlexNet with 10 classes has 57,044,810
+// parameters in 16 leaves, so one optimizer step moves 1.597 GB (1.141 GB):
+// 0.477 ms (0.341 ms) at the H100 SXM's 3.35 TB/s.
 //
 // What the design does about it. The step's time is the time to stream
 // those bytes, so the kernel has to keep every SM's loads in flight from the
@@ -29,10 +54,11 @@
 // each small leaf, and 4-byte accesses keep few bytes in flight per thread.
 // So:
 // - One launch updates up to kMaxLeaves leaves. Their launch table (four
-//   pointers, n, first chunk, bc1, bc2 and an alignment flag per leaf) is a
-//   __grid_constant__ kernel parameter passed by value: no device buffer, no
-//   host-to-device copy, no synchronisation. Python builds the table
-//   (fused_adam.launch_tables) and splits longer leaf lists into several.
+//   pointers, n, first chunk, bc1, bc2, an alignment flag and the two noise
+//   words per leaf) is a __grid_constant__ kernel parameter passed by value:
+//   no device buffer, no host-to-device copy, no synchronisation. Python
+//   builds the table (fused_adam.launch_tables) and splits longer leaf lists
+//   into several.
 // - The leaves are cut into chunks of `chunk` elements, numbered across the
 //   table, and the grid has one block per chunk. A block finds its chunk's
 //   leaf by binary search over the chunk starts (at most 6 steps for 48
@@ -43,14 +69,16 @@
 //   chunk size tried, since its static share of chunks per block left a
 //   tail. The chunk size (fused_adam.CHUNK) was chosen on the card with
 //   tpuddp_torch/ops/tune_chunk.py.
-// - On a leaf whose four pointers are 16-byte aligned, each thread loads two
-//   float4 groups of each of p, g, m and v (8 x 16 B in flight) before any
-//   arithmetic. Every load and store takes the streaming, evict-first form
-//   (__ldcs, __stcs): each byte is touched once per step, and a step moves
-//   some 30 times the 50 MB L2.
+// - On a leaf whose p and g are 16-byte aligned and whose m and v are
+//   aligned to four moments (16 bytes for float32, 8 for bf16), each thread
+//   loads two groups of four elements of each of p, g, m and v (8 vector
+//   loads in flight) before any arithmetic. Every load and store takes the
+//   streaming, evict-first form (__ldcs, __stcs): each byte is touched once
+//   per step, and a step moves some 20-30 times the 50 MB L2.
 // - A chunk's n % 4 tail, and every element of a leaf with an unaligned
 //   pointer (a view at an odd offset), take a scalar loop in the same kernel.
-// - Element indices are 64-bit: a leaf may exceed 2^31 elements.
+// - Element indices are 64-bit: a leaf may exceed 2^31 elements (the
+//   rounding's `i` wraps at 2^32, as the JAX package's uint32 iota does).
 //
 // IEEE float32 throughout, in the operation order above for every element,
 // with the roundings written out in adam() below.
@@ -70,15 +98,17 @@ constexpr int kMaxLeaves = 48;
 struct Leaf {
   float* p;
   const float* g;
-  float* m;
-  float* v;
+  void* m;  // float32 or bf16, as the instantiation says
+  void* v;
   int64_t n;
   int64_t chunk_start;  // first chunk of this leaf within the table
   float bc1;
   float bc2;
-  int32_t aligned;  // 1 when p, g, m and v are all 16-byte aligned
+  int32_t aligned;   // 1 when p and g are 16-byte and m and v 4-moment aligned
+  uint32_t noise_m;  // bf16 moments: (t * 0x85EBCA77 + salt of m) mod 2^32
+  uint32_t noise_v;  // bf16 moments: (t * 0x85EBCA77 + salt of v) mod 2^32
 };
-static_assert(sizeof(Leaf) == 64, "Leaf layout");
+static_assert(sizeof(Leaf) == 72, "Leaf layout");
 static_assert(offsetof(Leaf, p) == 0, "Leaf layout");
 static_assert(offsetof(Leaf, g) == 8, "Leaf layout");
 static_assert(offsetof(Leaf, m) == 16, "Leaf layout");
@@ -88,6 +118,8 @@ static_assert(offsetof(Leaf, chunk_start) == 40, "Leaf layout");
 static_assert(offsetof(Leaf, bc1) == 48, "Leaf layout");
 static_assert(offsetof(Leaf, bc2) == 52, "Leaf layout");
 static_assert(offsetof(Leaf, aligned) == 56, "Leaf layout");
+static_assert(offsetof(Leaf, noise_m) == 60, "Leaf layout");
+static_assert(offsetof(Leaf, noise_v) == 64, "Leaf layout");
 
 struct Table {
   int64_t n_chunks;
@@ -128,7 +160,45 @@ __device__ __forceinline__ void adam4(float4& p, const float4& g, float4& m, flo
   adam(p.w, g.w, m.w, v.w, h, bc1, bc2);
 }
 
-// One block per chunk: block c updates chunk c of the table.
+// Moment storage. The float32 overloads are the plain streaming loads and
+// stores; the bf16 ones (a moment held as its 16 bits) widen on load and
+// round stochastically on store. `i` is the element's index within its leaf.
+__device__ __forceinline__ float4 load4(const float* m) {
+  return __ldcs(reinterpret_cast<const float4*>(m));
+}
+__device__ __forceinline__ float load1(const float* m) { return __ldcs(m); }
+__device__ __forceinline__ void store4(float* m, const float4& x, int64_t, uint32_t) {
+  __stcs(reinterpret_cast<float4*>(m), x);
+}
+__device__ __forceinline__ void store1(float* m, float x, int64_t, uint32_t) { __stcs(m, x); }
+
+__device__ __forceinline__ float widen(unsigned short b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+// tpuddp/optim.py:107-117: add sub-ulp Weyl noise to the float32 bits, keep
+// the upper 16. uint32 arithmetic wraps as the JAX package's does.
+__device__ __forceinline__ unsigned short round_bf16(float x, int64_t i, uint32_t noise0) {
+  const uint32_t noise = (static_cast<uint32_t>(i) * 0x9E3779B1u + noise0) & 0xFFFFu;
+  return static_cast<unsigned short>((__float_as_uint(x) + noise) >> 16);
+}
+__device__ __forceinline__ float4 load4(const unsigned short* m) {
+  const ushort4 b = __ldcs(reinterpret_cast<const ushort4*>(m));
+  return make_float4(widen(b.x), widen(b.y), widen(b.z), widen(b.w));
+}
+__device__ __forceinline__ float load1(const unsigned short* m) { return widen(__ldcs(m)); }
+__device__ __forceinline__ void store4(unsigned short* m, const float4& x, int64_t i,
+                                       uint32_t noise0) {
+  __stcs(reinterpret_cast<ushort4*>(m),
+         make_ushort4(round_bf16(x.x, i, noise0), round_bf16(x.y, i + 1, noise0),
+                      round_bf16(x.z, i + 2, noise0), round_bf16(x.w, i + 3, noise0)));
+}
+__device__ __forceinline__ void store1(unsigned short* m, float x, int64_t i, uint32_t noise0) {
+  __stcs(m, round_bf16(x, i, noise0));
+}
+
+// One block per chunk: block c updates chunk c of the table. M is the
+// moments' storage: float, or unsigned short for bf16 bits.
+template <typename M>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk,
                         const Hyper h) {
@@ -149,36 +219,38 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
   const int64_t end = begin + chunk < leaf.n ? begin + chunk : leaf.n;
   const float bc1 = leaf.bc1;
   const float bc2 = leaf.bc2;
+  M* const mp = static_cast<M*>(leaf.m);
+  M* const vp = static_cast<M*>(leaf.v);
 
   int64_t scalar_begin = begin;
   if (leaf.aligned) {
     float4* p4 = reinterpret_cast<float4*>(leaf.p + begin);
     const float4* g4 = reinterpret_cast<const float4*>(leaf.g + begin);
-    float4* m4 = reinterpret_cast<float4*>(leaf.m + begin);
-    float4* v4 = reinterpret_cast<float4*>(leaf.v + begin);
     const int64_t groups = (end - begin) / 4;
     for (int64_t j = threadIdx.x; j < groups; j += 2 * kThreads) {
       const int64_t k = j + kThreads;
       const bool second = k < groups;
-      // all eight 16-byte loads before any arithmetic
+      const int64_t i0 = begin + 4 * j;  // element index within the leaf
+      const int64_t i1 = begin + 4 * k;
+      // all eight vector loads before any arithmetic
       float4 p0 = __ldcs(p4 + j), g0 = __ldcs(g4 + j);
-      float4 m0 = __ldcs(m4 + j), v0 = __ldcs(v4 + j);
+      float4 m0 = load4(mp + i0), v0 = load4(vp + i0);
       float4 p1, g1, m1, v1;
       if (second) {
         p1 = __ldcs(p4 + k);
         g1 = __ldcs(g4 + k);
-        m1 = __ldcs(m4 + k);
-        v1 = __ldcs(v4 + k);
+        m1 = load4(mp + i1);
+        v1 = load4(vp + i1);
       }
       adam4(p0, g0, m0, v0, h, bc1, bc2);
       __stcs(p4 + j, p0);
-      __stcs(m4 + j, m0);
-      __stcs(v4 + j, v0);
+      store4(mp + i0, m0, i0, leaf.noise_m);
+      store4(vp + i0, v0, i0, leaf.noise_v);
       if (second) {
         adam4(p1, g1, m1, v1, h, bc1, bc2);
         __stcs(p4 + k, p1);
-        __stcs(m4 + k, m1);
-        __stcs(v4 + k, v1);
+        store4(mp + i1, m1, i1, leaf.noise_m);
+        store4(vp + i1, v1, i1, leaf.noise_v);
       }
     }
     scalar_begin = begin + groups * 4;
@@ -186,27 +258,25 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
   for (int64_t i = scalar_begin + threadIdx.x; i < end; i += kThreads) {
     float p = __ldcs(leaf.p + i);
     const float g = __ldcs(leaf.g + i);
-    float m = __ldcs(leaf.m + i);
-    float v = __ldcs(leaf.v + i);
+    float m = load1(mp + i);
+    float v = load1(vp + i);
     adam(p, g, m, v, h, bc1, bc2);
     __stcs(leaf.p + i, p);
-    __stcs(leaf.m + i, m);
-    __stcs(leaf.v + i, v);
+    store1(mp + i, m, i, leaf.noise_m);
+    store1(vp + i, v, i, leaf.noise_v);
   }
 }
 
-}  // namespace
-
-// Launches the update of the n_leaves (1..48) leaves described by `leaves`,
-// a host array of Leaf rows whose chunk starts are the prefix sums of
-// ceil(n / chunk) from 0, on `stream`. The rows are copied into the kernel's
-// parameters, so the array may be freed when this returns. `chunk` is a
-// positive multiple of 4. Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue for arguments it cannot take.
-extern "C" int tpuddp_fused_adam_multi(const void* leaves, int n_leaves, int64_t chunk,
-                                       float lr, float b1, float one_minus_b1, float b2,
-                                       float one_minus_b2, float eps, float weight_decay,
-                                       void* stream) {
+// Launches the update of the n_leaves (1..kMaxLeaves) leaves described by
+// `leaves`, a host array of Leaf rows whose chunk starts are the prefix sums
+// of ceil(n / chunk) from 0, on `stream`. The rows are copied into the
+// kernel's parameters, so the array may be freed when this returns. `chunk`
+// is a positive multiple of 4. Returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for arguments it cannot take.
+template <typename M>
+int launch(const void* leaves, int n_leaves, int64_t chunk, float lr, float b1,
+           float one_minus_b1, float b2, float one_minus_b2, float eps, float weight_decay,
+           void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -221,7 +291,27 @@ extern "C" int tpuddp_fused_adam_multi(const void* leaves, int n_leaves, int64_t
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Hyper h{lr, b1, one_minus_b1, b2, one_minus_b2, eps, weight_decay};
-  fused_adam_multi_kernel<<<static_cast<unsigned int>(table.n_chunks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(table, chunk, h);
+  fused_adam_multi_kernel<M><<<static_cast<unsigned int>(table.n_chunks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(table, chunk, h);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// float32 moments: m and v are float* in every row.
+extern "C" int tpuddp_fused_adam_multi(const void* leaves, int n_leaves, int64_t chunk,
+                                       float lr, float b1, float one_minus_b1, float b2,
+                                       float one_minus_b2, float eps, float weight_decay,
+                                       void* stream) {
+  return launch<float>(leaves, n_leaves, chunk, lr, b1, one_minus_b1, b2, one_minus_b2, eps,
+                       weight_decay, stream);
+}
+
+// bf16 moments: m and v point at bf16 arrays; noise_m and noise_v are set.
+extern "C" int tpuddp_fused_adam_multi_bf16(const void* leaves, int n_leaves, int64_t chunk,
+                                            float lr, float b1, float one_minus_b1, float b2,
+                                            float one_minus_b2, float eps, float weight_decay,
+                                            void* stream) {
+  return launch<unsigned short>(leaves, n_leaves, chunk, lr, b1, one_minus_b1, b2,
+                                one_minus_b2, eps, weight_decay, stream);
 }

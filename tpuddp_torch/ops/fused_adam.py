@@ -4,12 +4,20 @@
 
 :func:`adam_update` updates a list of parameter leaves in place, each with
 its own bias corrections. For CUDA tensors it launches the kernel through
-:data:`kernel` (which checks device, dtype, contiguity and sizes in one pass
-and raises on anything else) once per launch table of up to ``MAX_LEAVES``
-leaves, so once for AlexNet's 16; for CPU tensors it runs
+the wrapper of the moments' dtype in :data:`kernels` (which checks device,
+dtype, contiguity and sizes in one pass and raises on anything else) once
+per launch table of up to ``MAX_LEAVES`` leaves, so once for AlexNet's 16;
+for CPU tensors it runs
 :func:`adam_update_reference`, the plain PyTorch version of the same rule,
 leaf by leaf. There is no fallback between the two: a CUDA tensor never
 reaches the plain version through this function.
+
+The moments are float32 or bfloat16 (``optimizer_state_dtype: bfloat16``).
+Each type has its own instantiation of the kernel and its own wrapper and
+launch count (:data:`kernels`); bf16 moments are widened to float32 for the
+update and stored back with the JAX package's Weyl-sequence stochastic
+rounding (:func:`stochastic_round_bf16`), keyed by each leaf's step count and
+its index in the JAX package's flattened parameter tree.
 
 The launch table (:func:`launch_tables`) is built here, from plain ints and
 floats, so the CPU tests reach its chunk starts, alignment flags and
@@ -23,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +53,45 @@ LEAF_DTYPE = np.dtype(
         ("p", np.uint64), ("g", np.uint64), ("m", np.uint64), ("v", np.uint64),
         ("n", np.int64), ("chunk_start", np.int64),
         ("bc1", np.float32), ("bc2", np.float32), ("aligned", np.int32),
+        ("noise_m", np.uint32), ("noise_v", np.uint32),
     ],
     align=True,
 )
+
+# The Weyl-sequence constants of tpuddp/optim.py:107-130 (a copy: the port
+# imports nothing of the JAX package).
+_U32 = 0xFFFFFFFF
+WEYL_INDEX, WEYL_STEP = 0x9E3779B1, 0x85EBCA77
+SALT_M, SALT_V, SALT_LEAF = 0x5ADA0000, 0x7EE70000, 0x68E31DA4
+
+
+def moment_salts(leaf: int) -> Tuple[int, int]:
+    """The rounding salts of m and v for the leaf at index ``leaf`` of the
+    JAX package's flattened parameter tree (``tpuddp/optim.py:127``)."""
+    k = SALT_LEAF * (leaf + 1)
+    return (SALT_M + k) & _U32, (SALT_V + k) & _U32
+
+
+def noise_offset(step: int, salt: int) -> int:
+    """``(step * 0x85EBCA77 + salt) mod 2^32``: the part of the rounding
+    noise that is the same for every element of a leaf."""
+    return (step * WEYL_STEP + salt) & _U32
+
+
+def stochastic_round_bf16(x: torch.Tensor, step: int, salt: int) -> torch.Tensor:
+    """float32 -> bfloat16 with the JAX package's dithered rounding
+    (``tpuddp/optim.py::_stochastic_round_bf16``): add the noise
+    ``(i * 0x9E3779B1 + step * 0x85EBCA77 + salt) mod 2^16`` to the float32
+    bits, ``i`` the element's flat index in ``x``, and keep the upper 16.
+    The uint32 arithmetic runs in int64 masked to 32 bits (torch's uint32
+    support is partial); only integer operations touch the bits, so
+    subnormals, infinities and NaNs go through as JAX sends them."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & _U32
+    i = torch.arange(x.numel(), dtype=torch.int64, device=x.device).view(x.shape)
+    noise = (i * WEYL_INDEX + noise_offset(step, salt)) & 0xFFFF
+    upper = ((bits + noise) >> 16) & 0xFFFF
+    upper = torch.where(upper >= 0x8000, upper - 0x10000, upper)  # as int16
+    return upper.to(torch.int16).view(torch.bfloat16)
 
 
 def bias_corrections(step: int, betas: Tuple[float, float]) -> Tuple[float, float]:
@@ -58,19 +102,40 @@ def bias_corrections(step: int, betas: Tuple[float, float]) -> Tuple[float, floa
     return float(np.float32(1) - b1**t), float(np.float32(1) - b2**t)
 
 
+def bf16_neighbours(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 values just below and just above each float32 value of
+    ``x`` (both ``x`` where it is a bf16 value), as float32: the two results
+    a stochastic rounding of ``x`` can give. A check helper: the update never
+    calls it; ``chip_smoke.py`` and the tests bound the kernel's bf16 moments
+    with it."""
+    bits = x.float().contiguous().view(torch.int32)
+    toward_zero = bits & -0x10000
+    away = torch.where((bits & 0xFFFF) == 0, toward_zero, toward_zero + 0x10000)
+    toward_zero, away = toward_zero.view(torch.float32), away.view(torch.float32)
+    negative = bits < 0
+    return torch.where(negative, away, toward_zero), torch.where(negative, toward_zero, away)
+
+
 def adam_update_reference(
     p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
     lr: float, betas: Tuple[float, float], eps: float, weight_decay: float,
-    bc1: float, bc2: float,
+    bc1: float, bc2: float, step: Optional[int] = None, leaf: Optional[int] = None,
 ) -> None:
     """Plain PyTorch version of the kernel for one leaf: the torch Adam rule
-    with the L2 term, in the operation order of ``tpuddp/optim.py``'s Adam."""
+    with the L2 term, in the operation order of ``tpuddp/optim.py``'s Adam.
+    bf16 moments (``m.dtype``) are widened, updated in float32, used for
+    ``p`` unrounded, and stored with :func:`stochastic_round_bf16` keyed by
+    the leaf's step count ``step`` and JAX leaf index ``leaf``."""
     b1, b2 = betas
     if weight_decay:
         g = g + weight_decay * p
-    m_new = b1 * m + (1 - b1) * g
-    v_new = b2 * v + (1 - b2) * (g * g)
+    m_new = b1 * m.float() + (1 - b1) * g
+    v_new = b2 * v.float() + (1 - b2) * (g * g)
     p_new = p - lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if m.dtype == torch.bfloat16:
+        salt_m, salt_v = moment_salts(leaf)
+        m_new = stochastic_round_bf16(m_new, step, salt_m)
+        v_new = stochastic_round_bf16(v_new, step, salt_v)
     m.copy_(m_new)
     v.copy_(v_new)
     p.copy_(p_new)
@@ -79,30 +144,38 @@ def adam_update_reference(
 def launch_tables(
     ptrs: Sequence[Tuple[int, int, int, int]], numels: Sequence[int],
     bc1s: Sequence[float], bc2s: Sequence[float], chunk: int = CHUNK,
+    noise: Optional[Sequence[Tuple[int, int]]] = None, moment_bytes: int = 4,
 ) -> List[np.ndarray]:
     """The kernel's launch tables for leaves given by their ``(p, g, m, v)``
-    data pointers, element counts and bias corrections: one ``LEAF_DTYPE``
-    array per launch, of at most ``MAX_LEAVES`` rows. Empty leaves are
-    dropped. Within a table, ``chunk_start`` is the prefix sum of
-    ``ceil(n / chunk)``; ``aligned`` is 1 when all four pointers are 16-byte
-    aligned (the kernel's float4 path), else 0 (its scalar path)."""
+    data pointers, element counts and bias corrections (and, for bf16
+    moments, their ``(noise_m, noise_v)`` offsets; zeros when None): one
+    ``LEAF_DTYPE`` array per launch, of at most ``MAX_LEAVES`` rows. Empty
+    leaves are dropped. Within a table, ``chunk_start`` is the prefix sum of
+    ``ceil(n / chunk)``; ``aligned`` is 1 when p and g are 16-byte aligned
+    and m and v aligned to four moments of ``moment_bytes`` each (the
+    kernel's vector path), else 0 (its scalar path)."""
+    if noise is None:
+        noise = [(0, 0)] * len(ptrs)
     tables, rows, start = [], [], 0
-    for (p, g, m, v), n, bc1, bc2 in zip(ptrs, numels, bc1s, bc2s, strict=True):
+    leaves = zip(ptrs, numels, bc1s, bc2s, noise, strict=True)
+    for (p, g, m, v), n, bc1, bc2, (noise_m, noise_v) in leaves:
         if n == 0:
             continue
         if len(rows) == MAX_LEAVES:
             tables.append(np.array(rows, dtype=LEAF_DTYPE))
             rows, start = [], 0
-        rows.append((p, g, m, v, n, start, bc1, bc2, (p | g | m | v) % 16 == 0))
+        aligned = (p | g) % 16 == 0 and (m | v) % (4 * moment_bytes) == 0
+        rows.append((p, g, m, v, n, start, bc1, bc2, aligned, noise_m, noise_v))
         start += -(-n // chunk)
     if rows:
         tables.append(np.array(rows, dtype=LEAF_DTYPE))
     return tables
 
 
-def _check(ps, gs, ms, vs, bc1s, bc2s) -> None:
+def _check(ps, gs, ms, vs, bc1s, bc2s, moment_dtype) -> None:
     """One pass over the leaves: equal list lengths, one CUDA device (the
-    current one), float32, contiguous, equal element counts per leaf."""
+    current one), float32 p and g, ``moment_dtype`` m and v, contiguous,
+    equal element counts per leaf."""
     if not len(ps) == len(gs) == len(ms) == len(vs) == len(bc1s) == len(bc2s):
         raise ValueError(
             f"fused_adam: {len(ps)} p, {len(gs)} g, {len(ms)} m, {len(vs)} v, "
@@ -121,8 +194,9 @@ def _check(ps, gs, ms, vs, bc1s, bc2s) -> None:
         for name, t in zip("pgmv", leaf):
             if t.device != device:
                 raise ValueError(f"fused_adam: {name}[{i}] is on {t.device}, expected {device}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"fused_adam: {name}[{i}] is {t.dtype}, expected float32")
+            want = moment_dtype if name in "mv" else torch.float32
+            if t.dtype != want:
+                raise TypeError(f"fused_adam: {name}[{i}] is {t.dtype}, expected {want}")
             if not t.is_contiguous():
                 raise ValueError(f"fused_adam: {name}[{i}] is not contiguous")
             if t.numel() != n:
@@ -131,42 +205,81 @@ def _check(ps, gs, ms, vs, bc1s, bc2s) -> None:
                 )
 
 
-class FusedAdamKernel:
-    """The kernel's wrapper: builds and loads the library at first use,
-    checks its arguments, launches once per launch table on PyTorch's current
-    stream and counts launches in ``launches``."""
+def _rounding_keys(steps, leaves, n: int) -> List[Tuple[int, int]]:
+    """``(step count, JAX leaf index)`` of each of ``n`` bf16 leaves."""
+    if steps is None or leaves is None or not len(steps) == len(leaves) == n:
+        raise ValueError(
+            "fused_adam: bf16 moments need one step count and one JAX leaf index per leaf"
+        )
+    return list(zip(steps, leaves))
+
+
+def _noise(steps, leaves, n: int) -> List[Tuple[int, int]]:
+    """Each bf16 leaf's ``(noise_m, noise_v)`` offsets."""
+    return [
+        tuple(noise_offset(t, salt) for salt in moment_salts(k))
+        for t, k in _rounding_keys(steps, leaves, n)
+    ]
+
+
+class _Library:
+    """The kernels' shared library: built (if needed) and loaded at first
+    use; ``build_log`` holds the compiler's output of a build in this
+    process."""
 
     def __init__(self):
-        self.launches = 0
         self.build_log = ""
         self._lib = None
+
+    def function(self, name: str):
+        if self._lib is None:
+            path, self.build_log = _build.build(SOURCE, "fused_adam")
+            self._lib = ctypes.CDLL(str(path))
+        fn = getattr(self._lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64]
+            + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        return fn
+
+
+library = _Library()
+
+
+class FusedAdamKernel:
+    """The wrapper of one instantiation of the kernel (the moments' dtype):
+    loads its C function at first use, checks its arguments, launches once
+    per launch table on PyTorch's current stream and counts launches in
+    ``launches``."""
+
+    def __init__(self, moment_dtype: torch.dtype, symbol: str):
+        self.moment_dtype = moment_dtype
+        self.symbol = symbol
+        self.launches = 0
         self._fn = None
 
     def load(self):
         """Build (if needed) and load the library; return the C function."""
         if self._fn is None:
-            path, self.build_log = _build.build(SOURCE, "fused_adam")
-            lib = ctypes.CDLL(str(path))
-            fn = lib.tpuddp_fused_adam_multi
-            fn.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64]
-                + [ctypes.c_float] * 7 + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
+            self._fn = library.function(self.symbol)
         return self._fn
 
     def __call__(
-        self, ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s
+        self, ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s,
+        steps=None, leaves=None,
     ) -> None:
         if not ps:
             return
-        _check(ps, gs, ms, vs, bc1s, bc2s)
+        _check(ps, gs, ms, vs, bc1s, bc2s, self.moment_dtype)
+        bf16 = self.moment_dtype == torch.bfloat16
         chunk = CHUNK
         tables = launch_tables(
             [(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
              for p, g, m, v in zip(ps, gs, ms, vs)],
             [p.numel() for p in ps], bc1s, bc2s, chunk,
+            noise=_noise(steps, leaves, len(ps)) if bf16 else None,
+            moment_bytes=ms[0].element_size(),
         )
         if not tables:
             return
@@ -183,28 +296,45 @@ class FusedAdamKernel:
             self.launches += 1
 
 
-kernel = FusedAdamKernel()
+kernels = {
+    torch.float32: FusedAdamKernel(torch.float32, "tpuddp_fused_adam_multi"),
+    torch.bfloat16: FusedAdamKernel(torch.bfloat16, "tpuddp_fused_adam_multi_bf16"),
+}
+kernel = kernels[torch.float32]  # float32 moments, the default
 
 
 def adam_update(
-    ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s
+    ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s, steps=None, leaves=None,
 ) -> None:
     """Update the leaves ``ps[i]`` (gradient ``gs[i]``, moments ``ms[i]``,
     ``vs[i]``, bias corrections ``bc1s[i]``, ``bc2s[i]``) in place: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel of the moments' dtype for CUDA tensors, the plain version for CPU
+    tensors. bf16 moments also need each leaf's step count ``steps[i]`` and
+    JAX leaf index ``leaves[i]``, which key their rounding."""
     if not ps:
         return
     hp = dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
     device = ps[0].device
+    moment_dtype = ms[0].dtype
+    if moment_dtype not in kernels:
+        raise TypeError(f"fused_adam: moments are {moment_dtype}, expected one of {list(kernels)}")
     if device.type == "cuda":
-        kernel(ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, **hp)
+        kernels[moment_dtype](
+            ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves, **hp
+        )
     elif device.type == "cpu":
-        leaves = list(zip(ps, gs, ms, vs, bc1s, bc2s, strict=True))
-        for i, leaf in enumerate(leaves):
+        rows = list(zip(ps, gs, ms, vs, bc1s, bc2s, strict=True))
+        if moment_dtype == torch.bfloat16:
+            keys = _rounding_keys(steps, leaves, len(rows))
+        else:
+            keys = [(None, None)] * len(rows)
+        for i, leaf in enumerate(rows):
             for t in leaf[:4]:
                 if t.device != device:
                     raise ValueError(f"fused_adam: leaf {i} has a tensor on {t.device}, p[0] on cpu")
-        for p, g, m, v, bc1, bc2 in leaves:
-            adam_update_reference(p, g, m, v, bc1=bc1, bc2=bc2, **hp)
+            if leaf[2].dtype != moment_dtype or leaf[3].dtype != moment_dtype:
+                raise TypeError(f"fused_adam: leaf {i} has moments of another dtype than m[0]")
+        for (p, g, m, v, bc1, bc2), (step, leaf) in zip(rows, keys):
+            adam_update_reference(p, g, m, v, bc1=bc1, bc2=bc2, step=step, leaf=leaf, **hp)
     else:
         raise ValueError(f"fused_adam: unsupported device {device}")

@@ -7,6 +7,11 @@ per step, which is what the parity tests pin:
 
 - at wrap time, parameters and buffers are broadcast from rank 0
   (``tpuddp/parallel/ddp.py:443``), so every replica starts identical;
+- after every train forward, the model's buffers (BatchNorm running
+  statistics) are broadcast from rank 0, as the JAX step does with its
+  ``sync_buffers="broadcast"`` default (``tpuddp/training/step.py:216-223``).
+  torch DDP broadcasts before the forward instead, which leaves other
+  buffers at epoch end;
 - after backward, all gradients go into one flat buffer, one all-reduce SUM,
   then a division by the world size. Each replica's gradient is the gradient
   of its own weighted-mean loss, so the result is the MEAN OF PER-REPLICA
@@ -18,7 +23,7 @@ The wrap runs on ``cuda`` unless ``device`` asks for the CPU; without a
 visible GPU it raises.
 
 A one-process world skips the collectives: a sum over one replica divided by
-one is the identity.
+one is the identity, and so is a broadcast.
 """
 
 from __future__ import annotations
@@ -31,6 +36,16 @@ import torch.distributed as dist
 
 from tpuddp_torch.parallel import backend
 from tpuddp_torch.training.step import eval_core, train_core
+
+def _flat_collective(tensors, collective: Callable) -> None:
+    """Run ``collective`` in place on one flat buffer holding ``tensors``
+    (one dtype) and copy the result back into them."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    collective(flat)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset : offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 class DistributedDataParallel:
@@ -61,18 +76,28 @@ class DistributedDataParallel:
                 for t in list(self.model.parameters()) + list(self.model.buffers()):
                     dist.broadcast(t, src=0)
 
+    def _mean(self, flat: torch.Tensor) -> None:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat.div_(self.world_size)
+
     def sync_grads(self) -> None:
         """All-reduce mean of every gradient, through one flat buffer."""
         if self.world_size == 1:
             return
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat.div_(self.world_size)
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset : offset + g.numel()].view_as(g))
-            offset += g.numel()
+        _flat_collective(grads, self._mean)
+
+    @torch.no_grad()
+    def sync_buffers(self) -> None:
+        """Broadcast the model's buffers from rank 0, one flat collective per
+        buffer dtype; nothing for a world of one or a model without buffers."""
+        if self.world_size == 1:
+            return
+        by_dtype = {}
+        for b in self.model.buffers():
+            by_dtype.setdefault(b.dtype, []).append(b)
+        for buffers in by_dtype.values():
+            _flat_collective(buffers, lambda flat: dist.broadcast(flat, src=0))
 
     def to_device(self, batch):
         """Host ``(x, y, w)`` numpy batch -> device tensors."""
@@ -88,7 +113,7 @@ class DistributedDataParallel:
         x, y, w = self.to_device(batch)
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
-            self.sync_grads, x, y, w,
+            self.sync_grads, self.sync_buffers, x, y, w,
         )
 
     def eval_step(self, batch) -> torch.Tensor:

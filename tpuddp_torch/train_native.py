@@ -19,19 +19,25 @@ import torch
 
 from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
-from tpuddp_torch.data import ShardedDataLoader, flip_for, load_datasets_for, norm_stats_for
+from tpuddp_torch.data import (
+    ShardedDataLoader, compute_dtype_for, flip_for, load_datasets_for, norm_stats_for,
+)
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models import load_model
+from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
+from tpuddp_torch.nn.norm import convert_sync_batchnorm
 from tpuddp_torch.parallel.ddp import DistributedDataParallel
 from tpuddp_torch.parallel.spawn import run_ddp_training
 from tpuddp_torch.training.loop import run_training_loop
 
 
 def set_float32_precision() -> None:
-    """Full float32 for ``compute_dtype: float32``: matrix products and cuDNN
+    """Full float32 where the work is float32: matrix products and cuDNN
     convolutions both off TF32 (cuDNN's default is on), printed so a run's
-    log states its precision."""
+    log states its precision. Under ``compute_dtype: bfloat16`` the
+    convolutions and products take bfloat16 inputs and TF32 does not
+    apply."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(
@@ -61,16 +67,23 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
 
     size = training.get("image_size")
     mean, std = norm_stats_for(training)
+    cdtype = compute_dtype_for(training)
     augment = make_train_augment(
-        size=size, flip=flip_for(training), mean=mean, std=std, generator=generator
+        size=size, flip=flip_for(training), mean=mean, std=std, generator=generator,
+        compute_dtype=cdtype,
     )
-    eval_transform = make_eval_transform(size=size, mean=mean, std=std)
+    eval_transform = make_eval_transform(size=size, mean=mean, std=std, compute_dtype=cdtype)
 
     in_hw = size if size else train_ds.images.shape[1]
     model = load_model(
         training["model"], cfg_lib.num_classes_from(training), input_shape=(in_hw, in_hw, 3)
     ).to(dev)
-    optimizer = cfg_lib.optimizer_from(training, model.parameters())
+    if training.get("sync_bn"):
+        convert_sync_batchnorm(model)
+    leaf = jax_leaf_index(training["model"], model)
+    optimizer = cfg_lib.optimizer_from(
+        training, model.parameters(), leaf_index=[leaf[n] for n, _ in model.named_parameters()]
+    )
     ddp = DistributedDataParallel(
         model, optimizer, CrossEntropyLoss(), augment=augment,
         eval_transform=eval_transform, device=dev,

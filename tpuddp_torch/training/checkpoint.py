@@ -4,9 +4,14 @@ single-writer save.
 Rank 0 writes ``ckpt_{epoch}.npz`` (atomically: staged, fsync'd, renamed)
 and then a ``ckpt_{epoch}.npz.sha256`` sidecar in the JAX package's manifest
 format (``<sha256>  <name>`` and ``# size=<bytes>``); the other ranks wait at
-a barrier. The npz holds the port's own layout: ``model/<state_dict key>``,
-``optim/<param index>/<state key>`` and ``__meta__epoch``. Loading a JAX
-checkpoint, or this one into the JAX package, is ROADMAP.md Queue 1 item 7.
+a barrier. The npz holds the port's own layout: ``model/<state_dict key>``
+(parameters and buffers, such as BatchNorm's running statistics),
+``optim/<param index>/<state key>`` and ``__meta__epoch``. numpy has no
+bfloat16, so a bf16 tensor (Adam moments under ``optimizer_state_dtype:
+bfloat16``) is stored as its uint16 bit view under the key prefixed with
+``__bf16__`` and viewed back on load, as the JAX package stores its bf16
+leaves (``tpuddp/training/checkpoint.py:99-101``). Loading a JAX checkpoint,
+or this one into the JAX package, is ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -19,6 +24,31 @@ import torch
 import torch.distributed as dist
 
 FORMAT = "tpuddp_torch/1"
+_BF16_MARK = "__bf16__"
+
+
+def _put(payload: dict, key: str, value) -> None:
+    """``payload[key]`` as numpy; a bf16 tensor as its uint16 bits under
+    ``__bf16__`` + key."""
+    if not torch.is_tensor(value):
+        payload[key] = np.asarray(value)
+    elif value.dtype == torch.bfloat16:
+        payload[_BF16_MARK + key] = value.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    else:
+        payload[key] = value.detach().cpu().numpy()
+
+
+def _tensors(data) -> dict:
+    """Every stored array of an npz as a tensor by its key, bf16 ones viewed
+    back from their bits."""
+    out = {}
+    for k in data.files:
+        if k.startswith(_BF16_MARK):
+            bits = torch.from_numpy(data[k].view(np.int16))
+            out[k[len(_BF16_MARK):]] = bits.view(torch.bfloat16)
+        elif not k.startswith("__"):
+            out[k] = torch.from_numpy(data[k])
+    return out
 
 
 def checkpoint_path(save_dir: str, epoch: int, prefix: str = "ckpt") -> str:
@@ -55,13 +85,12 @@ def verify(path: str) -> bool:
 
 
 def save(path: str, model: torch.nn.Module, optimizer, epoch: int) -> str:
-    payload = {
-        f"model/{k}": v.detach().cpu().numpy() for k, v in model.state_dict().items()
-    }
+    payload = {}
+    for k, v in model.state_dict().items():
+        _put(payload, f"model/{k}", v)
     for idx, state in optimizer.state_dict()["state"].items():
         for key, value in state.items():
-            arr = value.detach().cpu().numpy() if torch.is_tensor(value) else value
-            payload[f"optim/{idx}/{key}"] = np.asarray(arr)
+            _put(payload, f"optim/{idx}/{key}", value)
     payload["__meta__epoch"] = np.asarray(epoch, dtype=np.int64)
     payload["__format__"] = np.asarray(FORMAT)
     tmp = path + ".tmp"
@@ -74,6 +103,37 @@ def save(path: str, model: torch.nn.Module, optimizer, epoch: int) -> str:
     return path
 
 
+def _restore_optimizer(path: str, optimizer, state: dict) -> None:
+    """Put each parameter's saved state (by its index over the param
+    groups) into ``optimizer``, on the parameter's device and in the saved
+    dtype. ``Optimizer.load_state_dict`` would cast the moments to the
+    parameter's dtype; a checkpoint whose moments are not in the optimizer's
+    ``state_dtype`` is refused instead."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    want = optimizer.state_dtype
+    for idx, saved in state.items():
+        if idx >= len(params):
+            raise ValueError(f"{path}: optimizer state for parameter {idx} of {len(params)}")
+        p = params[idx]
+        for key, value in saved.items():
+            if not torch.is_tensor(value):
+                continue
+            if value.dtype != want:
+                raise ValueError(
+                    f"checkpoint {path}: optimizer state {idx}/{key} is {value.dtype} but "
+                    f"the optimizer keeps {want} (check training.optimizer_state_dtype "
+                    "matches the saved run)"
+                )
+            if value.shape != p.shape:
+                raise ValueError(
+                    f"{path}: optimizer state {idx}/{key} has shape {tuple(value.shape)}, "
+                    f"parameter {idx} {tuple(p.shape)}"
+                )
+        optimizer.state[p] = {
+            k: v.to(p.device) if torch.is_tensor(v) else v for k, v in saved.items()
+        }
+
+
 def load(path: str, model: torch.nn.Module, optimizer=None) -> int:
     """Restore ``model`` (and ``optimizer``'s per-parameter state) from a
     verified checkpoint; returns its epoch."""
@@ -82,23 +142,19 @@ def load(path: str, model: torch.nn.Module, optimizer=None) -> int:
     with np.load(path) as data:
         if str(data["__format__"]) != FORMAT:
             raise ValueError(f"{path}: format {data['__format__']} != {FORMAT}")
-        model.load_state_dict(
-            {k[len("model/"):]: torch.from_numpy(data[k]) for k in data.files
-             if k.startswith("model/")}
-        )
-        if optimizer is not None:
-            state = {}
-            for k in data.files:
-                if k.startswith("optim/"):
-                    _, idx, key = k.split("/")
-                    value = data[k]
-                    state.setdefault(int(idx), {})[key] = (
-                        int(value) if key == "step" else torch.from_numpy(value)
-                    )
-            optimizer.load_state_dict(
-                {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
-            )
-        return int(data["__meta__epoch"])
+        epoch = int(data["__meta__epoch"])
+        tensors = _tensors(data)
+    model.load_state_dict(
+        {k[len("model/"):]: v for k, v in tensors.items() if k.startswith("model/")}
+    )
+    if optimizer is not None:
+        state = {}
+        for k, value in tensors.items():
+            if k.startswith("optim/"):
+                _, idx, key = k.split("/")
+                state.setdefault(int(idx), {})[key] = int(value) if key == "step" else value
+        _restore_optimizer(path, optimizer, state)
+    return epoch
 
 
 def save_on_main(save_dir: str, epoch: int, model, optimizer, rank: int):

@@ -2,8 +2,12 @@
 (``_make_grad_core``/``_make_update_fn`` at 197-225 and 452-481, the eval
 core at 737-753, ``finalize_metrics`` at 1224).
 
-A train step is forward -> weighted loss -> backward -> gradient sync (the
-DDP wrap's all-reduce mean) -> Adam. Metrics stay on the device as sums:
+A train step is forward -> buffer sync (the DDP wrap's broadcast of the
+model's buffers from rank 0) -> weighted loss -> backward -> gradient sync
+(the DDP wrap's all-reduce mean) -> Adam. The train forward hands the batch
+weights to the model's BatchNorms, so padded rows stay out of their
+statistics (``tpuddp/training/step.py:203-207``); eval normalises with the
+running statistics. Metrics stay on the device as sums:
 ``loss_sum = loss * n`` and ``n`` (the batch's real rows) for training,
 plus ``correct`` for eval; nothing is read back per batch.
 :func:`finalize_metrics` makes one all-reduce of the stacked epoch sums.
@@ -16,19 +20,24 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from tpuddp_torch.nn.norm import batch_weights
+
 TRAIN_KEYS = ("loss_sum", "n")
 EVAL_KEYS = ("loss_sum", "correct", "n")
 
 
 def train_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
-    x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+    sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 ) -> torch.Tensor:
     """One train step; returns the on-device sums ``[loss_sum, n]``."""
     model.train()
     if augment is not None:
         x = augment(x)
-    loss = criterion(model(x), y, w)
+    with batch_weights(model, w):
+        logits = model(x)
+    sync_buffers()
+    loss = criterion(logits, y, w)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     sync_grads()
