@@ -30,7 +30,19 @@ Phases, each printing one line (the first failure exits non-zero):
      with bfloat16 compute and bf16 Adam moments: one bf16-kernel launch per
      step, finite losses, its step median beside the float32 one;
    - ``tpuddp_torch/configs/cifar10_toy_cnn_sync_bn.yaml``: one toy_cnn epoch
-     with sync_bn at world 1: finite losses and BatchNorm buffers that moved.
+     with sync_bn at world 1: finite losses and BatchNorm buffers that moved;
+5. drive the managed path (``train_accelerate``'s worker, in-process on
+   ``cuda:0``, counts set to 0 just before each run and read just after):
+   - "5 managed": one epoch of
+     ``tpuddp_torch/configs/cifar10_alexnet_managed_h100.yaml`` (AlexNet at
+     224 px, batch 128, float32, the synthetic stand-in): 16 steps, one
+     float32-kernel launch per step, finite losses, 512 test rows evaluated
+     by the process (the unprepared test loader), its step median beside
+     the native one;
+   - "5 managed accum": the same epoch with ``gradient_accumulation_steps:
+     2``: 8 launches for 16 micro-batches;
+   - "5 managed vs native": 3 AlexNet steps of each path from one state
+     dict, no flip, the same dropout seed: parameters within 1e-5.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -55,10 +67,16 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from tpuddp_torch import config as cfg_lib  # noqa: E402
+from tpuddp_torch.accelerate import Accelerator  # noqa: E402
+from tpuddp_torch.data.transforms import make_train_augment  # noqa: E402
 from tpuddp_torch.models import AlexNet  # noqa: E402
+from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
+from tpuddp_torch.optim import Adam  # noqa: E402
+from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
+from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
 from tpuddp_torch.train_native import basic_ddp_training_loop, build_training  # noqa: E402
 from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
 
@@ -67,6 +85,7 @@ CONFIGS = os.path.join(ROOT, "tpuddp_torch", "configs")
 SETTINGS = os.path.join(CONFIGS, "cifar10_alexnet_h100.yaml")
 SETTINGS_BF16 = os.path.join(CONFIGS, "cifar10_alexnet_bf16_h100.yaml")
 SETTINGS_TOY = os.path.join(CONFIGS, "cifar10_toy_cnn_sync_bn.yaml")
+SETTINGS_MANAGED = os.path.join(CONFIGS, "cifar10_alexnet_managed_h100.yaml")
 
 # Tolerances of the kernel against its plain version (IEEE float32 both;
 # they differ only where the kernel fuses a multiply-add that the plain
@@ -74,6 +93,9 @@ SETTINGS_TOY = os.path.join(CONFIGS, "cifar10_toy_cnn_sync_bn.yaml")
 # those two float32 moments fall on two sides of a rounding threshold; such
 # a step moves a later p update by about lr * 2^-8 = 4e-6, inside P_TOL.
 P_TOL, MOMENT_TOL = 1e-5, 1e-6
+# the managed and the native path from one state: the same kernels in the
+# same order at world 1, so any difference beyond rounding is a fault
+PATHS_TOL = 1e-5
 ODD_SHAPES = [(37, 50), (5,), (700, 130)]
 # csrc/fused_adam.cu's design: all leaves in one launch, 16-byte streaming
 # accesses (its header says more)
@@ -452,6 +474,94 @@ def toy_cnn_epoch():
           f"fused_adam launches={fused_adam.kernel.launches}, train_loss={row['train_loss']:.4f} "
           f"test_loss={row['test_loss']:.4f}, BatchNorm buffers moved; step_ms median(2..{steps})="
           f"{statistics.median(row['step_ms'][1:]):.2f}")
+    return fused_adam.kernel.launches
+
+
+def managed_epoch(label: str, accum: int):
+    """One managed AlexNet epoch (train_accelerate's worker) with
+    ``gradient_accumulation_steps = accum``: one float32-kernel launch per
+    update, ``16 / accum`` updates."""
+    settings, training = training_for(SETTINGS_MANAGED)
+    training["gradient_accumulation_steps"] = accum
+    reset_counts()
+    t0 = time.perf_counter()
+    history = run_ddp_training(
+        partial(basic_accelerate_training, training=training, device="cuda"),
+        1, None, cfg_lib.optional_args_from(settings), backend="cuda",
+    )
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    row = history[-1]
+    steps = len(row["step_ms"])
+    launches = fused_adam.kernel.launches
+    checks = {
+        "16 train steps": steps == 16,
+        f"{16 // accum} updates, 1 launch each": (
+            launches == row["updates"] == 16 // accum
+            and fused_adam.kernels[torch.bfloat16].launches == 0),
+        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
+        "2048 train rows, 512 test rows on the process": (
+            (row["train_samples"], row["test_samples"]) == (2048, 512)),
+        "managed history row": (row["api"], row["grad_accumulation"], row["fuse_steps"]) == (
+            "managed", accum, 1),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: managed {label} failed {failed}: launches={launches}, row={row}")
+    steady = statistics.median(row["step_ms"][1:])
+    phase("5 managed" + (f" accum" if accum > 1 else ""),
+          f"{label}, 1 epoch: {steps} steps, {row['updates']} updates, fused_adam launches="
+          f"{launches}, train_loss={row['train_loss']:.4f} test_loss={row['test_loss']:.4f} "
+          f"test_accuracy={row['test_accuracy']:.2f}% on {row['test_samples']} test rows; step_ms "
+          f"first={row['step_ms'][0]:.2f} median(2..{steps})={steady:.2f} "
+          f"min={min(row['step_ms'][1:]):.2f}; epoch wall {wall_s:.2f} s")
+    return launches, steady
+
+
+def managed_vs_native():
+    """3 AlexNet steps through each API from one state dict, no flip, the
+    dropout generator seeded alike: the parameters (and buffers) after them
+    agree."""
+    torch.manual_seed(0)
+    init = {k: v.clone() for k, v in AlexNet(num_classes=10).state_dict().items()}
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(),
+                torch.ones(128).numpy()) for _ in range(3)]
+    augment = make_train_augment(size=224, flip=False)
+
+    def fresh():
+        model = AlexNet(num_classes=10)
+        model.load_state_dict(init)
+        return model.cuda()
+
+    native = fresh()
+    ddp = DistributedDataParallel(native, Adam(native.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                  augment=augment, device="cuda")
+    torch.cuda.manual_seed(7)
+    for batch in batches:
+        ddp.train_step(batch)
+
+    acc = Accelerator(seed=0, augment=augment, device="cuda")
+    module = fresh()
+    model, opt = acc.prepare(module, Adam(module.parameters(), lr=1e-3))
+    torch.cuda.manual_seed(7)  # after the Accelerator seeded its process
+    losses = []
+    for x, y, w in batches:
+        opt.zero_grad()
+        loss = CrossEntropyLoss()(model(x), y, w)
+        acc.backward(loss)
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(model.module.state_dict().values(), native.state_dict().values()))
+    if not diff <= PATHS_TOL or not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"chip_smoke: managed and native AlexNet disagree after 3 steps: "
+                         f"max|dp|={diff:.3g} (tolerance {PATHS_TOL}), losses {losses}")
+    phase("5 managed vs native", f"3 AlexNet@224 b128 steps through each API from one state: "
+          f"max|dp|={diff:.3g} (tolerance {PATHS_TOL}); managed losses "
+          + ", ".join(f"{v:.4f}" for v in losses))
 
 
 def main() -> None:
@@ -492,16 +602,26 @@ def main() -> None:
         "AlexNet@224 b128 bf16 compute, bf16 moments", SETTINGS_BF16, bf16)
     phase("4 bf16 vs float32", f"step median {steady_bf16:.2f} ms (bf16) vs {steady_f32:.2f} ms "
           f"(float32), ratio {steady_bf16 / steady_f32:.3f}")
-    toy_cnn_epoch()
+    launches_toy = toy_cnn_epoch()
 
+    launches_managed, steady_managed = managed_epoch("AlexNet@224 b128 float32", 1)
+    phase("5 managed vs native", f"step median {steady_managed:.2f} ms (managed) vs "
+          f"{steady_f32:.2f} ms (native), ratio {steady_managed / steady_f32:.3f}")
+    launches_accum, _ = managed_epoch("AlexNet@224 b128 float32, gradient_accumulation_steps 2", 2)
+    managed_vs_native()
+
+    by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
+               "managed": launches_managed, "managed accum 2": launches_accum}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     print(json.dumps({"kernels": [
-        {"name": KERNEL_NAMES[torch.float32], **common, "launches": launches_f32, "max_abs_err": err_f32,
-         **t_f32, "launches_per_step": launches_f32 // steps},
+        {"name": KERNEL_NAMES[torch.float32], **common, "launches": sum(by_path.values()),
+         "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
+         "launches_by_path": by_path},
         {"name": KERNEL_NAMES[torch.bfloat16], **common, "launches": launches_bf16,
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
-         "launches_per_step": launches_bf16 // steps_bf16},
+         "launches_per_step": launches_bf16 // steps_bf16,
+         "launches_by_path": {"native bf16": launches_bf16}},
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -259,7 +259,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
     ("comm_hook", "bf16"), ("comm_topology", "hierarchical"), ("comm_overlap", True),
     ("guard", True), ("snapshot", True), ("resume", True), ("auto_resume", True),
     ("pretrained_path", "/x.pt"), ("optimizer", "sgd"),
-    ("gradient_accumulation_steps", 2), ("mode", "auto"), ("clip_grad_norm", 1.0),
+    ("optimizer", "lars"), ("mode", "auto"), ("clip_grad_norm", 1.0),
     ("keep_last", 2), ("pipeline", {"depth": 2}), ("step_stats_every", 10),
     ("deferred_metrics", True), ("fuse_steps", 4), ("reshard_on_mismatch", True),
 ])

@@ -8,8 +8,11 @@ Same settings-file schema as the JAX package (``script_path``, ``out_dir``,
   the reference tutorial's ``local.condor.num_gpus``, in that order;
 - ``training`` merges over :data:`TRAINING_DEFAULTS` and refuses unknown keys.
 
-The port implements the native DDP main path, with ``sync_bn``,
-``compute_dtype`` and ``optimizer_state_dtype``. Every knob whose
+The port implements the native DDP main path and the managed
+(``Accelerator``) path, with ``sync_bn``, ``compute_dtype``,
+``optimizer_state_dtype``, ``gradient_accumulation_steps`` and
+``deferred_metrics``; ``fuse_steps`` is 1, or ``auto`` where the JAX package
+resolves it to 1 (:func:`resolve_fuse_steps`). Every knob whose
 non-default value needs a part of the JAX package that is not ported yet is
 refused with ``NotImplementedError`` naming its ROADMAP item
 (:func:`check_supported`), never ignored. Two knobs are accepted because an
@@ -86,12 +89,7 @@ _UNSUPPORTED = {
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "optimizer": (lambda v: str(v).lower() == "adam", "Queue 1 item 8: optimizers"),
     "clip_grad_norm": (lambda v: v is None, "Queue 1 item 8: optimizers"),
-    "gradient_accumulation_steps": (
-        lambda v: int(v or 1) == 1, "Queue 1 item 8: gradient accumulation"
-    ),
-    "mode": (lambda v: v == "shard_map", "Queue 1 item 8: managed path"),
-    "deferred_metrics": (lambda v: not v, "Queue 1 item 8: managed path"),
-    "fuse_steps": (lambda v: v == "auto", "Queue 1 item 8: managed path"),
+    "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
     "comm_hook": (lambda v: (v or "none") == "none", "Queue 1 item 8: comm hooks"),
     "comm_topology": (
         lambda v: (v or "flat") == "flat", "Queue 1 item 8: hierarchical topology"
@@ -106,6 +104,10 @@ _UNSUPPORTED = {
     "pretrained_path": (lambda v: not v, "Queue 1 item 8: pretrained fine-tune"),
     "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
 }
+
+MANAGED_FUSE_ITEM = (
+    "Queue 1 item 8: managed fuse_steps: K queued steps per CUDA-graph replay"
+)
 
 _MULTIHOST_ENV = ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID")
 
@@ -135,13 +137,45 @@ def _merge_refusing_unknown(defaults, overrides, block: str) -> Dict[str, Any]:
     return cfg
 
 
+def resolve_fuse_steps(fuse_steps, accum: int = 1, deferred_metrics: bool = True) -> int:
+    """The managed path's fuse depth, resolved as the JAX package resolves
+    it (``train_accelerate.py:797-803``, ``tpuddp/accelerate.py:1452-1460``):
+    ``auto`` is 1 under gradient accumulation or without deferred metrics;
+    otherwise the JAX package queues up to 32 steps per dispatch, which the
+    port does not implement yet. An explicit depth over 1 with accumulation
+    is the JAX package's ``ValueError``."""
+    if fuse_steps in (None, "auto"):
+        if accum > 1 or not deferred_metrics:
+            return 1
+        raise _not_ported(
+            "fuse_steps='auto' with deferred metrics (the JAX package queues up to "
+            "32 steps per dispatch)", MANAGED_FUSE_ITEM,
+        )
+    fuse = max(1, int(fuse_steps))
+    if fuse > 1 and accum > 1:
+        raise ValueError(
+            "gradient_accumulation_steps and fuse_steps are mutually exclusive "
+            "(fused scan steps each apply an update)"
+        )
+    if fuse > 1:
+        raise _not_ported(f"fuse_steps={fuse}", MANAGED_FUSE_ITEM)
+    return fuse
+
+
 def check_supported(training: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for any knob set to a value this slice
-    does not implement."""
+    does not implement (``ValueError`` for a gradient accumulation depth
+    under 1, or one together with an explicit ``fuse_steps`` over 1)."""
     for knob, (ok, item) in _UNSUPPORTED.items():
         value = training.get(knob, TRAINING_DEFAULTS[knob])
         if not ok(value):
             raise _not_ported(f"training.{knob}={value!r}", item)
+    accum = int(training.get("gradient_accumulation_steps") or 1)
+    if accum < 1:
+        raise ValueError(f"training.gradient_accumulation_steps must be >= 1, got {accum}")
+    resolve_fuse_steps(
+        training.get("fuse_steps", "auto"), accum, bool(training.get("deferred_metrics"))
+    )
 
 
 def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,5 +1,11 @@
-"""Per-process batch loader — the counterpart of ``tpuddp/data/loader.py``'s
-``ShardedDataLoader``.
+"""Batch loaders — the counterparts of ``tpuddp/data/loader.py``'s
+``DataLoader`` and ``ShardedDataLoader``.
+
+:class:`DataLoader` is the single-stream loader of the managed path: the
+whole dataset, in order or shuffled by ``seed`` and the epoch. The managed
+``Accelerator.prepare`` re-creates it as the rank's
+:class:`ShardedDataLoader`; a loader left unprepared (the reference's test
+loader) keeps its full stream on every process.
 
 The reference gives each of N single-GPU processes its own
 ``DataLoader(sampler=DistributedSampler(...))`` (multi-GPU-training-torch.py:
@@ -47,6 +53,39 @@ def _fetch(dataset, indices: np.ndarray):
         return dataset.get_batch(indices)
     xs, ys = zip(*(dataset[int(i)] for i in indices))
     return np.stack(xs), np.asarray(ys)
+
+
+class DataLoader:
+    """Single-stream loader yielding ``(x, y, w)`` numpy batches
+    (``tpuddp/data/loader.py:92-166``): sequential, or with ``shuffle`` a
+    permutation by ``PCG64(seed + epoch)`` that ``set_epoch`` re-keys. The
+    last batch is padded with ``w = 0``."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return math.ceil(len(self.dataset) / self.batch_size)
+
+    def _indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            return np.random.Generator(np.random.PCG64(self.seed + self.epoch)).permutation(n)
+        return np.arange(n)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        indices = self._indices()
+        for s in range(len(self)):
+            chunk = indices[s * self.batch_size : (s + 1) * self.batch_size]
+            x, y = _fetch(self.dataset, chunk)
+            yield pad_batch(x, y, self.batch_size)
 
 
 class ShardedDataLoader:

@@ -3,6 +3,10 @@
 Padded rows of a static-shape batch carry weight 0. The ``mean`` reduction is
 the weighted mean, and a batch that is all padding has loss 0, not 0/0.
 Computed in float32 whatever the logits' dtype.
+
+A criterion applied to the managed path's deferred forward (an object with
+a ``_tpuddp_bind_loss`` hook, :class:`tpuddp_torch.accelerate.LazyForward`)
+returns the deferred loss the hook makes (``tpuddp/nn/loss.py:66-73``).
 """
 
 from __future__ import annotations
@@ -42,4 +46,7 @@ class CrossEntropyLoss:
         self.reduction = reduction
 
     def __call__(self, logits, labels, weights=None):
+        bind = getattr(logits, "_tpuddp_bind_loss", None)
+        if bind is not None:
+            return bind(self, labels, weights)
         return cross_entropy(logits, labels, weights, self.reduction)

@@ -20,6 +20,14 @@ unbiased one for the running buffer. What ``torch.nn.BatchNorm2d`` and
 - ``stable_var`` forms the variance in two passes, ``E[(x - mean)^2]``,
   instead of ``E[x^2] - mean^2``, at the price of a second all-reduce.
 
+On the managed path (:mod:`tpuddp_torch.accelerate`) BatchNorm statistics
+are the global batch's whatever ``sync_bn`` says, as the JAX ``Accelerator``
+computes them over the whole sharded batch (``tpuddp/accelerate.py:26-28``):
+its ``prepare`` applies :func:`convert_sync_batchnorm`. The averaged sums
+give the global statistics whenever the global batch holds at least as many
+real elements per feature as there are processes (the clamp of the
+averaged count to 1 acts below that).
+
 This is plain PyTorch; no TPU kernel stands behind it.
 """
 

@@ -19,6 +19,13 @@ per step, which is what the parity tests pin:
   (``tpuddp/training/step.py:197-225``) — not a global weighted mean, which
   differs when padded tails give replicas different real-row counts.
 
+``grad_accumulation=A > 1`` makes one update per A micro-batches
+(:meth:`DistributedDataParallel.train_cycle`, ``tpuddp/parallel/ddp.py:100-106``):
+each replica's gradient is the n-weighted mean over its cycle, and the
+all-reduce runs once, at the cycle boundary. The per-batch
+:meth:`~DistributedDataParallel.train_step` is refused then: a full-scale
+update per micro-batch would be an A-fold learning rate.
+
 The wrap runs on ``cuda`` unless ``device`` asks for the CPU; without a
 visible GPU it raises.
 
@@ -34,18 +41,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpuddp_torch.parallel import backend
-from tpuddp_torch.training.step import eval_core, train_core
-
-def _flat_collective(tensors, collective: Callable) -> None:
-    """Run ``collective`` in place on one flat buffer holding ``tensors``
-    (one dtype) and copy the result back into them."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    collective(flat)
-    offset = 0
-    for t in tensors:
-        t.copy_(flat[offset : offset + t.numel()].view_as(t))
-        offset += t.numel()
+from tpuddp_torch.parallel import backend, collectives
+from tpuddp_torch.training.step import eval_core, train_core, train_cycle
 
 
 class DistributedDataParallel:
@@ -57,7 +54,11 @@ class DistributedDataParallel:
         augment: Optional[Callable] = None,
         eval_transform: Optional[Callable] = None,
         device: Optional[torch.device] = None,
+        grad_accumulation: int = 1,
     ):
+        self.grad_accumulation = int(grad_accumulation)
+        if self.grad_accumulation < 1:
+            raise ValueError(f"grad_accumulation must be >= 1, got {grad_accumulation!r}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise backend.BackendUnavailableError(
@@ -71,10 +72,7 @@ class DistributedDataParallel:
         self.eval_transform = eval_transform
         self.rank = backend.get_rank()
         self.world_size = backend.get_world_size()
-        if self.world_size > 1:
-            with torch.no_grad():
-                for t in list(self.model.parameters()) + list(self.model.buffers()):
-                    dist.broadcast(t, src=0)
+        collectives.broadcast_one_to_all(self.model)
 
     def _mean(self, flat: torch.Tensor) -> None:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
@@ -85,19 +83,12 @@ class DistributedDataParallel:
         if self.world_size == 1:
             return
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        _flat_collective(grads, self._mean)
+        collectives.flat_collective(grads, self._mean)
 
-    @torch.no_grad()
     def sync_buffers(self) -> None:
         """Broadcast the model's buffers from rank 0, one flat collective per
         buffer dtype; nothing for a world of one or a model without buffers."""
-        if self.world_size == 1:
-            return
-        by_dtype = {}
-        for b in self.model.buffers():
-            by_dtype.setdefault(b.dtype, []).append(b)
-        for buffers in by_dtype.values():
-            _flat_collective(buffers, lambda flat: dist.broadcast(flat, src=0))
+        collectives.broadcast_(self.model.buffers())
 
     def to_device(self, batch):
         """Host ``(x, y, w)`` numpy batch -> device tensors."""
@@ -110,10 +101,28 @@ class DistributedDataParallel:
 
     def train_step(self, batch) -> torch.Tensor:
         """One step on a host batch; returns on-device ``[loss_sum, n]``."""
+        if self.grad_accumulation > 1:
+            raise RuntimeError(
+                "per-batch train_step is undefined under grad_accumulation "
+                f"(= {self.grad_accumulation}): it would apply one full-scale update "
+                "per micro-batch; use train_cycle with a whole cycle of batches"
+            )
         x, y, w = self.to_device(batch)
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
             self.sync_grads, self.sync_buffers, x, y, w,
+        )
+
+    def train_cycle(self, batches) -> torch.Tensor:
+        """One accumulation cycle over ``grad_accumulation`` host batches;
+        returns the cycle's on-device ``[loss_sum, n]``."""
+        if len(batches) != self.grad_accumulation:
+            raise ValueError(
+                f"a cycle takes {self.grad_accumulation} micro-batches, got {len(batches)}"
+            )
+        return train_cycle(
+            self.model, self.optimizer, self.criterion, self.augment, self.sync_grads,
+            self.sync_buffers, [self.to_device(b) for b in batches],
         )
 
     def eval_step(self, batch) -> torch.Tensor:

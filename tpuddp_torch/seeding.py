@@ -7,6 +7,11 @@ range is kept. Each rank also gets its own ``torch.Generator`` (seeded
 ``base + rank``) for host-side randomness such as the flip mask. On the GPU
 ``cudnn.deterministic = True`` / ``cudnn.benchmark = False`` are real
 settings, not the JAX package's logged no-op.
+
+The managed ``Accelerator`` keeps that generator as its per-process stream
+(``tpuddp/accelerate.py:1378, 1487-1494``): the flip masks draw from it, and
+:func:`split` and :func:`fork_from` derive fresh generators and the model's
+initial weights from it, as ``jax.random.split`` derives keys.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import os
 import random
 import struct
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import numpy as np
@@ -43,6 +49,26 @@ def set_seed_based_on_rank(
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     return generator, base_seed
+
+
+def _next_seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
+def split(generator: torch.Generator) -> torch.Generator:
+    """A fresh generator seeded from the next draw of ``generator``."""
+    return torch.Generator().manual_seed(_next_seed(generator))
+
+
+@contextmanager
+def fork_from(generator: torch.Generator):
+    """Inside the block torch's global CPU generator is seeded from the next
+    draw of ``generator`` (a module built there draws its initial weights
+    from the stream); outside it is as it was."""
+    seed = _next_seed(generator)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        yield
 
 
 def rng_probe_string(base_seed: Optional[int]) -> str:

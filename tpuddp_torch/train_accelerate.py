@@ -1,0 +1,252 @@
+"""Managed training entry point of the port — the counterpart of
+``train_accelerate.py`` and of the reference's
+``multi-GPU-training-accelerate.py``.
+
+    python -m tpuddp_torch.train_accelerate --settings_file F
+
+One process per GPU, as ``accelerate launch`` starts them
+(``local.gpu.num_gpus``, ``local.condor.num_gpus`` or ``$TPUDDP_WORLD_SIZE``),
+through the native path's launcher; ``local.device: cpu`` runs the same path
+on the CPU with Gloo. The ``Accelerator`` hides the topology: ``prepare``
+shards the train loader, and ``backward`` syncs the gradient.
+
+Reference behaviours kept on purpose (quirk Q3): the test loader is not
+prepared, so every process evaluates the whole test set; the test loss is
+the sum of per-batch mean losses over ``len(test_loader)`` and the accuracy
+counts the rows with ``w > 0``, with no cross-process reduction. The train
+loss is the sum of the per-step global losses over ``len(train_loader)``,
+read once per epoch (``sum_losses``). With ``deferred_metrics`` the eval
+pass keeps its sums on the device too and reads them once; without it, it
+reads each batch's loss and predictions, as the reference does.
+
+Process 0 prints the epoch line of the JAX package byte for byte and appends
+one ``history.jsonl`` row per epoch (``api: "managed"``, ``step_ms`` per
+``optimizer.step()`` from CUDA events on the GPU). At ``epoch %
+checkpoint_epoch == 0`` it writes ``model.npz`` and ``state_{epoch}.npz``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+from functools import partial
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpuddp_torch import config as cfg_lib
+from tpuddp_torch import seeding
+from tpuddp_torch.accelerate import Accelerator, sum_losses
+from tpuddp_torch.data import (
+    DataLoader, compute_dtype_for, flip_for, load_datasets_for, norm_stats_for,
+)
+from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
+from tpuddp_torch.models import load_model
+from tpuddp_torch.models.convert import jax_leaf_index
+from tpuddp_torch.nn import CrossEntropyLoss
+from tpuddp_torch.parallel.collectives import all_reduce_sum_
+from tpuddp_torch.parallel.spawn import run_ddp_training
+from tpuddp_torch.train_native import set_float32_precision
+from tpuddp_torch.training.loop import StepClock
+
+
+def setup_dataloaders(training):
+    """Plain, distribution-unaware loaders (reference :22-36); ``prepare``
+    re-creates the train loader sharded."""
+    train_dataset, test_dataset = load_datasets_for(training)
+    train_loader = DataLoader(train_dataset, batch_size=training["train_batch_size"], shuffle=True)
+    test_loader = DataLoader(test_dataset, batch_size=training["test_batch_size"])
+    return train_loader, test_loader
+
+
+def train(model, train_loader, criterion, optimizer, accelerator, clock: Optional[StepClock] = None):
+    """One training epoch; returns ``(mean per-step loss, real rows of the
+    global batches)``. A partial accumulation cycle is applied at the end."""
+    model.train()
+    n_seen = 0.0
+    losses = []
+    for inputs, labels, weights in train_loader:
+        n_seen += float(np.sum(weights))
+        optimizer.zero_grad()
+        if clock is not None:
+            clock.mark()
+        outputs = model(inputs)  # flip/normalize/resize run inside backward's forward
+        loss = criterion(outputs, labels, weights)
+        accelerator.backward(loss)
+        optimizer.step()
+        losses.append(loss)
+    optimizer.flush_accumulation()
+    if clock is not None:
+        clock.mark()
+    # one read of the loss sum and of the rows every process saw
+    totals = torch.stack([sum_losses(losses), torch.tensor(n_seen, device=model.device)])
+    all_reduce_sum_([totals[1:]])
+    loss_sum, n_seen = totals.tolist()
+    return loss_sum / len(train_loader), n_seen
+
+
+def evaluate(model, test_loader, criterion, transform, deferred: bool = False):
+    """Returns ``(mean per-batch loss, accuracy %, rows evaluated)``."""
+    model.eval()
+    test_loss, correct, total = 0.0, 0, 0
+    if deferred:
+        test_loss = correct = torch.zeros((), device=model.device)
+    for inputs, labels, weights in test_loader:
+        outputs = model(transform(model.to_device(inputs)))
+        loss = criterion(outputs, labels, weights)
+        mask = weights > 0
+        total += int(mask.sum())
+        if deferred:
+            test_loss = test_loss + loss.device_value()
+            right = (outputs.argmax(dim=-1) == model.to_device(labels)) & model.to_device(mask)
+            correct = correct + right.sum()
+        else:
+            test_loss += loss.item()
+            predicted = outputs.argmax(dim=-1).cpu().numpy()
+            correct += int(((predicted == labels) & mask).sum())
+    test_loss, correct = float(test_loss), int(correct)
+    return test_loss / len(test_loader), 100 * correct / total, total
+
+
+def run_training_loop(
+    model, train_loader, test_loader, criterion, optimizer, save_dir: Optional[str],
+    accelerator, eval_transform, num_epochs: int = 20, checkpoint_epoch: int = 5,
+    deferred_metrics: bool = False,
+):
+    """Run ``num_epochs`` epochs; returns the list of per-epoch records."""
+    history = []
+    for epoch in range(num_epochs):
+        epoch_t0 = time.perf_counter()
+        train_loader.set_epoch(epoch)
+        clock = StepClock(accelerator.device)
+        updates = optimizer.updates
+        train_loss, train_samples = train(
+            model, train_loader, criterion, optimizer, accelerator, clock
+        )
+        step_ms = clock.step_ms()
+        train_time_s = time.perf_counter() - epoch_t0
+        test_loss, test_accuracy, test_samples = evaluate(
+            model, test_loader, criterion, eval_transform, deferred=deferred_metrics
+        )
+        epoch_time = time.perf_counter() - epoch_t0
+        accelerator.print(
+            f"Epoch {epoch + 1}/{num_epochs}, "
+            f"Train Loss: {train_loss:.4f}, "
+            f"Test Loss: {test_loss:.4f}, "
+            f"Test Accuracy: {test_accuracy:.2f}%"
+        )
+        record = {
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "test_loss": test_loss,
+            "test_accuracy": test_accuracy,
+            "train_samples": train_samples,
+            "test_samples": test_samples,
+            "train_time_s": train_time_s,
+            "epoch_time_s": epoch_time,
+            "step_ms": step_ms,
+            "updates": optimizer.updates - updates,
+            "api": "managed",
+            "grad_accumulation": accelerator.gradient_accumulation_steps,
+            "fuse_steps": accelerator.fuse_steps,
+            "world_size": accelerator.num_processes,
+        }
+        history.append(record)
+        if save_dir is not None and accelerator.is_main_process:
+            with open(os.path.join(save_dir, "history.jsonl"), "a") as f:
+                f.write(json.dumps(record) + "\n")
+        if save_dir is not None and epoch % checkpoint_epoch == 0:
+            accelerator.wait_for_everyone()
+            accelerator.save_model(model, save_dir)
+            accelerator.save_state(model, optimizer, save_dir, epoch=epoch)
+    accelerator.print("Finished Training.")
+    return history
+
+
+def build_training(training: dict, device: str = "cuda"):
+    """The accelerator and the prepared objects a process trains with:
+    ``(accelerator, model, optimizer, train_loader, test_loader, criterion,
+    eval_transform)``; the process group, if any, is already up."""
+    cfg_lib.check_supported(training)
+    set_float32_precision()
+    accum = int(training.get("gradient_accumulation_steps") or 1)
+    accelerator = Accelerator(
+        seed=training.get("seed"),
+        fuse_steps=cfg_lib.resolve_fuse_steps(
+            training.get("fuse_steps"), accum, bool(training.get("deferred_metrics"))
+        ),
+        gradient_accumulation_steps=accum,
+        device=device,
+    )
+    size = training.get("image_size")
+    mean, std = norm_stats_for(training)
+    cdtype = compute_dtype_for(training)
+    accelerator.augment = make_train_augment(
+        size=size, flip=flip_for(training), mean=mean, std=std,
+        generator=accelerator.generator, compute_dtype=cdtype,
+    )
+    eval_transform = make_eval_transform(size=size, mean=mean, std=std, compute_dtype=cdtype)
+
+    train_loader, test_loader = setup_dataloaders(training)
+    in_hw = size if size else train_loader.dataset.images.shape[1]
+    with seeding.fork_from(accelerator.generator):  # the init draws from the stream
+        model = load_model(
+            training["model"], cfg_lib.num_classes_from(training), input_shape=(in_hw, in_hw, 3)
+        )
+    leaf = jax_leaf_index(training["model"], model)
+    optimizer = cfg_lib.optimizer_from(
+        training, model.parameters(), leaf_index=[leaf[n] for n, _ in model.named_parameters()]
+    )
+    # the test loader stays unprepared: every process evaluates all of it (Q3)
+    model, optimizer, train_loader = accelerator.prepare(model, optimizer, train_loader)
+    return accelerator, model, optimizer, train_loader, test_loader, CrossEntropyLoss(), eval_transform
+
+
+def basic_accelerate_training(
+    rank: int, world_size: int, save_dir: Optional[str], optional_args: dict,
+    training: Optional[dict] = None, device: str = "cuda",
+):
+    """Per-process worker; returns the epoch history."""
+    training = dict(training or cfg_lib.TRAINING_DEFAULTS)
+    accelerator, model, optimizer, train_loader, test_loader, criterion, eval_transform = (
+        build_training(training, device)
+    )
+    return run_training_loop(
+        model, train_loader, test_loader, criterion, optimizer, save_dir, accelerator,
+        eval_transform, num_epochs=training["num_epochs"],
+        checkpoint_epoch=training["checkpoint_epoch"],
+        deferred_metrics=bool(training.get("deferred_metrics")),
+    )
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="tpuddp_torch managed training (Accelerator over NCCL, Gloo on the CPU).",
+    )
+    parser.add_argument(
+        "--settings_file", type=str, required=True,
+        help="YAML settings: out_dir, local.{device,gpu}, optional_args, training.",
+    )
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    settings = cfg_lib.load_settings(args.settings_file)
+    device = cfg_lib.device_from(settings)
+    world_size = cfg_lib.world_size_from(settings)
+    if world_size is None:
+        world_size = torch.cuda.device_count() if device == "cuda" else 1
+    cfg_lib.check_settings(settings, world_size)
+    training = cfg_lib.training_config(settings)
+    out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
+    return run_ddp_training(
+        partial(basic_accelerate_training, training=training, device=device),
+        world_size, out_dir, cfg_lib.optional_args_from(settings), backend=device,
+    )
+
+
+if __name__ == "__main__":
+    main()

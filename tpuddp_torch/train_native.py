@@ -87,6 +87,7 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     ddp = DistributedDataParallel(
         model, optimizer, CrossEntropyLoss(), augment=augment,
         eval_transform=eval_transform, device=dev,
+        grad_accumulation=int(training.get("gradient_accumulation_steps") or 1),
     )
     return ddp, train_loader, test_loader, base_seed
 

@@ -12,6 +12,13 @@ bfloat16``) is stored as its uint16 bit view under the key prefixed with
 ``__bf16__`` and viewed back on load, as the JAX package stores its bf16
 leaves (``tpuddp/training/checkpoint.py:99-101``). Loading a JAX checkpoint,
 or this one into the JAX package, is ROADMAP.md Queue 1 item 7.
+
+The managed path writes two more files the same way: ``model.npz``
+(:func:`save_model_on_main`: parameters and buffers, no epoch, the
+``accelerator.save_model`` contract, ``tpuddp/accelerate.py:1559-1570``) and
+``state_{epoch}.npz`` (:func:`save_on_main` with ``prefix="state"``: the
+checkpoint's content plus the random generators' states under ``rng/``).
+Loading either is Queue 1 item 7 too.
 """
 
 from __future__ import annotations
@@ -84,14 +91,20 @@ def verify(path: str) -> bool:
         return False
 
 
-def save(path: str, model: torch.nn.Module, optimizer, epoch: int) -> str:
+def save(path: str, model: torch.nn.Module, optimizer=None, epoch=None, extra=None) -> str:
+    """Write ``model``'s state_dict, ``optimizer``'s per-parameter state and
+    the ``extra`` arrays by their keys; ``epoch`` None stores no epoch."""
     payload = {}
     for k, v in model.state_dict().items():
         _put(payload, f"model/{k}", v)
-    for idx, state in optimizer.state_dict()["state"].items():
-        for key, value in state.items():
-            _put(payload, f"optim/{idx}/{key}", value)
-    payload["__meta__epoch"] = np.asarray(epoch, dtype=np.int64)
+    if optimizer is not None:
+        for idx, state in optimizer.state_dict()["state"].items():
+            for key, value in state.items():
+                _put(payload, f"optim/{idx}/{key}", value)
+    for k, v in (extra or {}).items():
+        _put(payload, k, v)
+    if epoch is not None:
+        payload["__meta__epoch"] = np.asarray(epoch, dtype=np.int64)
     payload["__format__"] = np.asarray(FORMAT)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -157,12 +170,29 @@ def load(path: str, model: torch.nn.Module, optimizer=None) -> int:
     return epoch
 
 
-def save_on_main(save_dir: str, epoch: int, model, optimizer, rank: int):
-    """Rank 0 writes; everyone waits so no reader races the writer."""
-    path = None
-    if rank == 0:
-        os.makedirs(save_dir, exist_ok=True)
-        path = save(checkpoint_path(save_dir, epoch), model, optimizer, epoch)
+def _on_main(rank: int, write):
+    """Rank 0 runs ``write()``; everyone waits so no reader races the
+    writer."""
+    path = write() if rank == 0 else None
     if dist.is_initialized():
         dist.barrier()
     return path
+
+
+def save_on_main(save_dir: str, epoch: int, model, optimizer, rank: int,
+                 prefix: str = "ckpt", extra=None):
+    """``{prefix}_{epoch}.npz`` in ``save_dir``, written by rank 0."""
+    def write():
+        os.makedirs(save_dir, exist_ok=True)
+        return save(checkpoint_path(save_dir, epoch, prefix), model, optimizer, epoch, extra)
+
+    return _on_main(rank, write)
+
+
+def save_model_on_main(save_dir: str, model, rank: int):
+    """``save_dir/model.npz`` (parameters and buffers), written by rank 0."""
+    def write():
+        os.makedirs(save_dir, exist_ok=True)
+        return save(os.path.join(save_dir, "model.npz"), model)
+
+    return _on_main(rank, write)

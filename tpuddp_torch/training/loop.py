@@ -7,10 +7,15 @@ epoch line, and a rank-0 checkpoint when ``epoch % checkpoint_epoch == 0``
 (quirk Q6 kept: it fires at epoch 0). The process-0 log lines are the JAX
 package's, byte for byte (``loop.py:799-806, 978-990, 1072-1076``).
 
-Each history row also carries the train pass's step times in milliseconds
-(``step_ms``): on the GPU from CUDA events recorded between steps, read once
-after the pass, so the loop adds no synchronisation per step. Process 0
-appends every row to ``save_dir/history.jsonl``.
+Under gradient accumulation (``ddp.grad_accumulation = A > 1``) an epoch is
+whole cycles of A micro-batches: a ragged tail is padded with all-padding
+micro-batches (``tpuddp/training/pipeline.py:209-220``), so an epoch makes
+``ceil(len(train_loader) / A)`` updates (``tpuddp/training/loop.py:1006-1008``).
+
+Each history row also carries the train pass's times per update in
+milliseconds (``step_ms``): on the GPU from CUDA events recorded between
+updates, read once after the pass, so the loop adds no synchronisation per
+update. Process 0 appends every row to ``save_dir/history.jsonl``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -29,7 +35,7 @@ from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training.step import EVAL_KEYS, TRAIN_KEYS, finalize_metrics
 
 
-class _StepClock:
+class StepClock:
     """Marks between train steps; CUDA events on the GPU, the host clock on
     the CPU."""
 
@@ -77,6 +83,30 @@ def _per_replica_lines(sums: torch.Tensor, world_size: int, log) -> None:
             f"based on {_count(n)} samples")
 
 
+def _probed(loader, every: Optional[int], log):
+    """``loader``'s batches, logging the shard-disjointness probe of every
+    ``every``-th one."""
+    for batch_idx, batch in enumerate(loader):
+        if every and batch_idx % every == 0:
+            log(f"TRAIN: Batch {batch_idx}, Data {loader.probe_fingerprint(batch[0])}")
+        yield batch
+
+
+def _cycles(batches, accum: int):
+    """Lists of ``accum`` host batches; a ragged tail is padded with copies
+    of its last batch whose weights are all 0, which add nothing to the
+    gradient, the metrics or the BatchNorm statistics."""
+    cycle = []
+    for batch in batches:
+        cycle.append(batch)
+        if len(cycle) == accum:
+            yield cycle
+            cycle = []
+    if cycle:
+        x, y, w = cycle[-1]
+        yield cycle + [(x, y, np.zeros_like(w))] * (accum - len(cycle))
+
+
 def run_training_loop(
     ddp,
     train_loader,
@@ -93,6 +123,7 @@ def run_training_loop(
 ):
     """Run ``num_epochs`` epochs; returns the list of per-epoch records."""
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
+    accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
     is_main = rank == 0
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
@@ -111,13 +142,16 @@ def run_training_loop(
             log(f"Process {rank}, {seeding.rng_probe_string(base_seed)}")
 
         train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
-        clock = _StepClock(device)
-        for batch_idx, batch in enumerate(train_loader):
-            if data_probe_every and batch_idx % data_probe_every == 0:
-                log(f"TRAIN: Batch {batch_idx}, "
-                    f"Data {train_loader.probe_fingerprint(batch[0])}")
-            clock.mark()
-            train_sums += ddp.train_step(batch)
+        clock = StepClock(device)
+        batches = _probed(train_loader, data_probe_every, log)
+        if accum == 1:
+            for batch in batches:
+                clock.mark()
+                train_sums += ddp.train_step(batch)
+        else:
+            for cycle in _cycles(batches, accum):
+                clock.mark()
+                train_sums += ddp.train_cycle(cycle)
         clock.mark()
         step_ms = clock.step_ms()
         if not step_ms:
@@ -157,6 +191,7 @@ def run_training_loop(
             "train_time_s": train_time_s,
             "epoch_time_s": time.perf_counter() - t0,
             "step_ms": step_ms,
+            "grad_accumulation": accum,
             "world_size": world_size,
         }
         history.append(record)

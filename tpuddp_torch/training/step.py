@@ -1,21 +1,28 @@
 """Train and eval cores — the counterpart of ``tpuddp/training/step.py``
-(``_make_grad_core``/``_make_update_fn`` at 197-225 and 452-481, the eval
-core at 737-753, ``finalize_metrics`` at 1224).
+(``_make_grad_core``/``_make_update_fn`` at 173-420, the accumulation cycle
+at 945-1000, the eval core at 737-753, ``finalize_metrics`` at 1224).
 
-A train step is forward -> buffer sync (the DDP wrap's broadcast of the
-model's buffers from rank 0) -> weighted loss -> backward -> gradient sync
-(the DDP wrap's all-reduce mean) -> Adam. The train forward hands the batch
+A train step is its grad half (:func:`grad_core`: forward -> buffer sync
+(the DDP wrap's broadcast of the model's buffers from rank 0) -> weighted
+loss -> backward) and its update half (:func:`update_core`: gradient sync
+(the DDP wrap's all-reduce mean) -> Adam). The train forward hands the batch
 weights to the model's BatchNorms, so padded rows stay out of their
 statistics (``tpuddp/training/step.py:203-207``); eval normalises with the
 running statistics. Metrics stay on the device as sums:
 ``loss_sum = loss * n`` and ``n`` (the batch's real rows) for training,
 plus ``correct`` for eval; nothing is read back per batch.
 :func:`finalize_metrics` makes one all-reduce of the stacked epoch sums.
+
+:func:`train_cycle` is the native path's gradient accumulation: A
+micro-batches through the grad half, their local gradients summed as
+``n_i * g_i``, divided by ``sum n_i`` at the cycle boundary, then ONE update
+half (one gradient all-reduce, one Adam step). All-padding micro-batches
+(``n = 0``) add nothing.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -26,11 +33,13 @@ TRAIN_KEYS = ("loss_sum", "n")
 EVAL_KEYS = ("loss_sum", "correct", "n")
 
 
-def train_core(
-    model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
-    sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-) -> torch.Tensor:
-    """One train step; returns the on-device sums ``[loss_sum, n]``."""
+def grad_core(
+    model, optimizer, criterion, augment: Optional[Callable], sync_buffers: Callable,
+    x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+):
+    """Forward and backward of one batch; the replica's local weighted-mean
+    gradient replaces each parameter's ``.grad``. Returns the on-device
+    ``(loss, n)``."""
     model.train()
     if augment is not None:
         x = augment(x)
@@ -40,10 +49,48 @@ def train_core(
     loss = criterion(logits, y, w)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    return loss.detach(), w.sum()
+
+
+def update_core(optimizer, sync_grads: Callable) -> None:
+    """The gradient all-reduce, then one optimizer update."""
     sync_grads()
     optimizer.step()
-    n = w.sum()
-    return torch.stack([loss.detach() * n, n])
+
+
+def train_core(
+    model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
+    sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+) -> torch.Tensor:
+    """One train step; returns the on-device sums ``[loss_sum, n]``."""
+    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w)
+    update_core(optimizer, sync_grads)
+    return torch.stack([loss * n, n])
+
+
+def train_cycle(
+    model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
+    sync_buffers: Callable, batches: Sequence,
+) -> torch.Tensor:
+    """One accumulation cycle over the device batches ``(x, y, w)`` of
+    ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
+    concatenation on this replica; the all-padding case divides by 1), then
+    one update. Returns the cycle's on-device sums ``[loss_sum, n]``."""
+    params = list(model.parameters())
+    acc = [None] * len(params)
+    sums = None
+    for x, y, w in batches:
+        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w)
+        for i, p in enumerate(params):
+            if p.grad is not None:
+                acc[i] = n * p.grad if acc[i] is None else acc[i] + n * p.grad
+        step = torch.stack([loss * n, n])
+        sums = step if sums is None else sums + step
+    denom = torch.where(sums[1] == 0, torch.ones_like(sums[1]), sums[1])
+    for p, a in zip(params, acc):
+        p.grad = None if a is None else a / denom
+    update_core(optimizer, sync_grads)
+    return sums
 
 
 @torch.no_grad()
