@@ -7,7 +7,9 @@ Phases, each printing one line (the first failure exits non-zero):
 
 1. a CUDA device exists; print ``nvidia-smi``'s name and power limit;
 2. build every kernel of the main path from the sources in the checkout
-   (``fused_adam.cu``: its float32-moment and bf16-moment instantiations);
+   (``fused_adam.cu``: its float32-moment and bf16-moment instantiations),
+   and the host row gather (``data/_native/gather.cpp``, g++), each with its
+   build seconds;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at odd ones (misaligned views, leaves of 1, 3 and
    4 elements, 100 leaves over three launches), and time it in turns with
@@ -20,7 +22,8 @@ Phases, each printing one line (the first failure exits non-zero):
    element index, step count or salt in the rounding);
 4. drive the main paths, each through the ``train_native`` worker
    in-process on ``cuda:0`` with the launch counts set to 0 just before it
-   and read just after:
+   and read just after (the default pipeline: two ``PrefetchLoader`` threads
+   and batches staged from pinned memory two ahead of the step):
    - ``tpuddp_torch/configs/cifar10_alexnet_h100.yaml``: AlexNet at 224 px,
      batch 128, float32, one epoch (16 train steps and 6 eval batches on the
      synthetic CIFAR-10 stand-in, no checkpoint): one float32-kernel launch
@@ -42,7 +45,22 @@ Phases, each printing one line (the first failure exits non-zero):
    - "5 managed accum": the same epoch with ``gradient_accumulation_steps:
      2``: 8 launches for 16 micro-batches;
    - "5 managed vs native": 3 AlexNet steps of each path from one state
-     dict, no flip, the same dropout seed: parameters within 1e-5.
+     dict, no flip, the same dropout seed: parameters within 1e-5;
+6. the host data path: the three native epochs of phase 4 under
+   ``pipeline: false``, the default pipeline and the default's staging
+   without loader threads (``host_workers: 0``), in turns (false, default,
+   no threads, no threads, default, false), each with its launches, the
+   float32 ones at 2.9944 / 2.3076: step medians (steps 2-16) and the train
+   pass's host stall per step; and the native row gather's ms per 128-row
+   batch of a CIFAR-10-sized uint8 array beside numpy's, in turns;
+7. resume at full width (AlexNet@224 b128 float32, ``checkpoint_epoch: 1``,
+   in a temporary directory deleted afterwards; each file is 684 MB), for
+   the native (``ckpt_{epoch}.npz``) and the managed (``state_{epoch}.npz``)
+   path: 2 epochs straight against epoch 0 alone and a run with ``resume:
+   true`` and ``keep_last: 1`` for epoch 1: epoch 1's losses equal, the final
+   parameters and moments at max |dp| = 0, 16 float32-kernel launches in the
+   resumed run, only ``*_1.npz`` kept; a truncated newest file is skipped for
+   the one before it; the save and load seconds of one file.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -54,12 +72,15 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -68,6 +89,7 @@ if not torch.cuda.is_available():
 
 from tpuddp_torch import config as cfg_lib  # noqa: E402
 from tpuddp_torch.accelerate import Accelerator  # noqa: E402
+from tpuddp_torch.data import _native  # noqa: E402
 from tpuddp_torch.data.transforms import make_train_augment  # noqa: E402
 from tpuddp_torch.models import AlexNet  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
@@ -78,6 +100,7 @@ from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
 from tpuddp_torch.train_native import basic_ddp_training_loop, build_training  # noqa: E402
+from tpuddp_torch.training import checkpoint as ckpt  # noqa: E402
 from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -104,6 +127,10 @@ STEPS = 3
 HP = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 # PR 2's float32 epoch on this synthetic stand-in (PERF.md section 6)
 F32_LOSSES = (2.9944, 2.3076)
+# the pipelines of phase 6, in the order of their runs: the synchronous A/B
+# mode, the default, and the default's staging without loader threads
+PIPELINE_TURNS = ("false", "default", "no threads", "no threads", "default", "false")
+PIPELINES = {"default": None, "false": False, "no threads": {"host_workers": 0}}
 
 # Published peaks (NVIDIA data sheets): memory bytes/s and float32 FLOP/s
 # outside the tensor cores, by a substring of the card's name.
@@ -394,42 +421,56 @@ def reset_counts():
         k.launches = 0
 
 
-def alexnet_epoch(label: str, path: str, wrapper):
-    """One AlexNet epoch of the settings at `path`; every step must launch
-    `wrapper`'s kernel once and no other kernel."""
+def native_run(path: str, overrides=None, save_dir=None):
+    """The native worker on the settings at `path` (one epoch unless
+    `overrides` says otherwise), counts set to 0 just before it and read
+    just after: ``(history, wall seconds, launches by kernel symbol)``."""
     settings, training = training_for(path)
+    training.update(overrides or {})
     reset_counts()
     t0 = time.perf_counter()
     history = run_ddp_training(
         partial(basic_ddp_training_loop, training=training, device="cuda"),
-        1, None, cfg_lib.optional_args_from(settings), backend="cuda",
+        1, save_dir, cfg_lib.optional_args_from(settings), backend="cuda",
     )
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in fused_adam.kernels.values()}
-    row = history[-1]
+    return history, time.perf_counter() - t0, {k.symbol: k.launches for k in fused_adam.kernels.values()}
+
+
+def check_epoch(label: str, row, launches, wrapper, f32_losses: bool):
+    """One epoch's row: 16 steps, one launch of `wrapper`'s kernel per step
+    and none of another, finite losses, every sample, and with
+    `f32_losses` the float32 epoch's reference losses (F32_LOSSES)."""
     steps = len(row["step_ms"])
-    others = sum(n for s, n in launches.items() if s != wrapper.symbol)
+    others = sum(n for sym, n in launches.items() if sym != wrapper.symbol)
     checks = {
         "16 train steps": steps == 16,
-        "1 launch per step": wrapper.launches == steps and others == 0,
+        "1 launch per step": launches[wrapper.symbol] == steps and others == 0,
         "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
         "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
     }
-    if wrapper is fused_adam.kernel:
+    if f32_losses:
         checks["PR 2's losses 2.9944 / 2.3076"] = (
             round(row["train_loss"], 4), round(row["test_loss"], 4)) == F32_LOSSES
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"chip_smoke: {label} failed {failed}: launches={launches}, "
-                         f"steps={steps}, row={row}")
+        raise SystemExit(f"chip_smoke: {label} failed {failed}: launches={launches}, row={row}")
+    return steps
+
+
+def alexnet_epoch(label: str, path: str, wrapper):
+    """One AlexNet epoch of the settings at `path`; every step must launch
+    `wrapper`'s kernel once and no other kernel."""
+    history, wall_s, launches = native_run(path)
+    row = history[-1]
+    steps = check_epoch(label, row, launches, wrapper, wrapper is fused_adam.kernel)
     steady = statistics.median(row["step_ms"][1:])
     phase("4 main path", f"{label}, 1 epoch: {steps} steps, {wrapper.symbol} "
           f"launches={wrapper.launches} ({wrapper.launches // steps}/step), train_loss="
           f"{row['train_loss']:.4f} test_loss={row['test_loss']:.4f}; step_ms "
           f"first={row['step_ms'][0]:.2f} median(2..{steps})={steady:.2f} "
-          f"min={min(row['step_ms'][1:]):.2f}; {128 * 1e3 / steady:.0f} img/s; "
-          f"epoch wall {wall_s:.2f} s")
+          f"min={min(row['step_ms'][1:]):.2f}; {128 * 1e3 / steady:.0f} img/s; host stall "
+          f"{row['host_stall_s'] * 1e3 / steps:.3f} ms/step; epoch wall {wall_s:.2f} s")
     return wrapper.launches, steps, steady
 
 
@@ -564,6 +605,130 @@ def managed_vs_native():
           + ", ".join(f"{v:.4f}" for v in losses))
 
 
+def pipeline_turns(label: str, path: str, wrapper, f32_losses: bool):
+    """Phase 6: epochs of the settings at `path` under ``pipeline: false``
+    and the default pipeline in turns; returns the launches by pipeline."""
+    medians = {k: [] for k in PIPELINES}
+    stalls = {k: [] for k in PIPELINES}
+    launches = {k: 0 for k in PIPELINES}
+    for mode in PIPELINE_TURNS:
+        history, _, counts = native_run(path, {"pipeline": PIPELINES[mode]})
+        row = history[-1]
+        steps = check_epoch(f"{label}, pipeline {mode}", row, counts, wrapper, f32_losses)
+        medians[mode].append(statistics.median(row["step_ms"][1:]))
+        stalls[mode].append(row["host_stall_s"] * 1e3 / steps)
+        launches[mode] += counts[wrapper.symbol]
+    fmt = lambda xs, d: ", ".join(f"{x:.{d}f}" for x in xs)
+    ratio = lambda k: statistics.median(medians[k]) / statistics.median(medians["false"])
+    phase("6 data path", f"{label}, turns {'/'.join(PIPELINE_TURNS)}: step median(2..16) ms "
+          + "; ".join(f"{k} [{fmt(medians[k], 2)}]" for k in PIPELINES)
+          + f"; ratio to false: default {ratio('default'):.3f}, no threads "
+          f"{ratio('no threads'):.3f}; host stall ms/step "
+          + "; ".join(f"{k} [{fmt(stalls[k], 3)}]" for k in PIPELINES)
+          + f"; launches {launches}" + ("; losses 2.9944 / 2.3076 in every run" if f32_losses else ""))
+    return launches
+
+
+def gather_turns(batches: int = 200):
+    """Phase 6: the native row gather against numpy's fancy indexing, 128
+    rows per batch out of a CIFAR-10-sized uint8 array (50,000 x 32x32x3),
+    in turns (numpy, native, native, numpy), best of two."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, size=(50000, 32, 32, 3), dtype=np.uint8)
+    index = [rng.integers(0, len(images), 128) for _ in range(batches)]
+    fns = {"numpy": lambda idx: images[idx],
+           "native": lambda idx: _native.gather_rows(images, idx, pad_rows=128)}
+    if not np.array_equal(fns["numpy"](index[0]), fns["native"](index[0])):
+        raise SystemExit("chip_smoke: the native gather disagrees with numpy")
+    runs = {k: [] for k in fns}
+    for k in ("numpy", "native", "native", "numpy"):
+        t0 = time.perf_counter()
+        for idx in index:
+            fns[k](idx)
+        runs[k].append((time.perf_counter() - t0) * 1e3 / batches)
+    phase("6 gather", f"128-row uint8 batch of 32x32x3 rows from 50,000 ({128 * 3072} B), {batches} "
+          f"batches per run, in turns: native {min(runs['native']):.4f} ms vs numpy "
+          f"{min(runs['numpy']):.4f} ms (runs native {runs['native']}, numpy {runs['numpy']})")
+
+
+def _arrays(path):
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def resume_check(kind: str, root: str):
+    """Phase 7 for one path: 2 epochs straight against epoch 0 and a
+    resumed epoch 1 (``keep_last: 1``); a truncated newest file skipped;
+    the save and load seconds. Returns the resumed run's launches."""
+    layout = ckpt.NATIVE if kind == "native" else ckpt.MANAGED
+    prefix = ckpt.PREFIX[layout]
+    path = SETTINGS if kind == "native" else SETTINGS_MANAGED
+    worker = basic_ddp_training_loop if kind == "native" else basic_accelerate_training
+    straight, resumed = os.path.join(root, kind, "straight"), os.path.join(root, kind, "resumed")
+
+    def run(save_dir, **overrides):
+        settings, training = training_for(path)
+        training.update(checkpoint_epoch=1, **overrides)
+        os.makedirs(save_dir, exist_ok=True)
+        reset_counts()
+        history = run_ddp_training(partial(worker, training=training, device="cuda"), 1,
+                                   save_dir, cfg_lib.optional_args_from(settings), backend="cuda")
+        torch.cuda.synchronize()
+        return history, fused_adam.kernel.launches
+
+    whole, _ = run(straight, num_epochs=2)
+    run(resumed, num_epochs=1)
+    t0 = time.perf_counter()
+    again, launches = run(resumed, num_epochs=2, resume=True, keep_last=1)
+    resumed_s = time.perf_counter() - t0
+    a, b = _arrays(os.path.join(straight, f"{prefix}_1.npz")), _arrays(os.path.join(resumed, f"{prefix}_1.npz"))
+    dp = max((float(np.abs(a[k].astype(np.float64) - b[k].astype(np.float64)).max())
+              for k in a if a[k].dtype.kind == "f"), default=math.inf)
+    kept = sorted(f for f in os.listdir(resumed) if f.startswith(f"{prefix}_"))
+    checks = {
+        "epoch 1 resumed alone": [r["epoch"] for r in again] == [1],
+        "epoch 1's losses equal": (again[0]["train_loss"], again[0]["test_loss"]) == (
+            whole[1]["train_loss"], whole[1]["test_loss"]),
+        "max |dp| = 0 over parameters and moments": dp == 0.0,
+        "every array equal": sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a),
+        "16 float32-kernel launches in the resumed run": launches == 16,
+        f"keep_last 1 kept {prefix}_1.npz alone": kept == [f"{prefix}_1.npz", f"{prefix}_1.npz.sha256"],
+    }
+    if kind == "native":
+        checks["epoch 0 at 2.9944 / 2.3076"] = (
+            round(whole[0]["train_loss"], 4), round(whole[0]["test_loss"], 4)) == F32_LOSSES
+    del a, b
+    newest = os.path.join(straight, f"{prefix}_1.npz")
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    model = AlexNet(num_classes=10).cuda()
+    opt = Adam(model.parameters(), lr=1e-3)
+    t0 = time.perf_counter()
+    next_epoch, meta = ckpt.restore_latest(straight, model, opt, layout=layout)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    checks["truncated newest skipped for the one before"] = (next_epoch, meta["epoch"]) == (1, 0)
+    checks["restored moments on the card, float32, contiguous"] = all(
+        st["exp_avg"].is_cuda and st["exp_avg"].dtype == torch.float32 and st["exp_avg"].is_contiguous()
+        and st["step"] == 16 for st in opt.state.values())
+    t0 = time.perf_counter()
+    saved = ckpt.save_on_main(os.path.join(root, kind, "timed"), 0, model, opt, 0, layout=layout)
+    save_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(saved) / 1e6
+    shutil.rmtree(os.path.join(root, kind))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: resume ({kind}) failed {failed}: max|dp|={dp}, kept={kept}, "
+                         f"launches={launches}, straight={whole}, resumed={again}")
+    phase("7 resume", f"{kind} AlexNet@224 b128 float32: epoch 1 resumed from {prefix}_0.npz "
+          f"(train_loss={again[0]['train_loss']:.4f} test_loss={again[0]['test_loss']:.4f}, equal to "
+          f"the straight run), max|dp|=0 over parameters and moments, {launches} fused_adam launches, "
+          f"kept {kept[0]} alone; truncated {prefix}_1.npz skipped for {prefix}_0.npz; one "
+          f"{size_mb:.0f} MB file: save {save_s:.2f} s, verify+load "
+          f"{load_s:.2f} s; resumed run {resumed_s:.2f} s")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -583,6 +748,10 @@ def main() -> None:
     )
     phase("2 build", f"fused_adam.cu (float32 and bf16 moments) built and loaded in "
           f"{build_s:.2f} s; ptxas: {ptxas}")
+    t0 = time.perf_counter()
+    _native.load()
+    phase("2 build", f"gather.cpp ({' '.join(_native.CXX_FLAGS)}) built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s: {_native.library.path.name}")
 
     with torch.device("meta"):
         alexnet_shapes = [tuple(t.shape) for t in AlexNet(num_classes=10).parameters()]
@@ -610,18 +779,35 @@ def main() -> None:
     launches_accum, _ = managed_epoch("AlexNet@224 b128 float32, gradient_accumulation_steps 2", 2)
     managed_vs_native()
 
+    ab_f32 = pipeline_turns("AlexNet@224 b128 float32", SETTINGS, f32, True)
+    ab_bf16 = pipeline_turns("AlexNet@224 b128 bf16 compute, bf16 moments", SETTINGS_BF16, bf16, False)
+    ab_toy = pipeline_turns("toy_cnn@32 b128 sync_bn", SETTINGS_TOY, f32, False)
+    gather_turns()
+
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_resume_")
+    try:
+        resume_native = resume_check("native", root)
+        resume_managed = resume_check("managed", root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
-               "managed": launches_managed, "managed accum 2": launches_accum}
+               "managed": launches_managed, "managed accum 2": launches_accum,
+               **{f"native pipeline {k}": n for k, n in ab_f32.items()},
+               **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
+               "native resumed": resume_native, "managed resumed": resume_managed}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     print(json.dumps({"kernels": [
         {"name": KERNEL_NAMES[torch.float32], **common, "launches": sum(by_path.values()),
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
          "launches_by_path": by_path},
-        {"name": KERNEL_NAMES[torch.bfloat16], **common, "launches": launches_bf16,
+        {"name": KERNEL_NAMES[torch.bfloat16], **common,
+         "launches": launches_bf16 + sum(ab_bf16.values()),
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
-         "launches_by_path": {"native bf16": launches_bf16}},
+         "launches_by_path": {"native bf16": launches_bf16,
+                              **{f"native bf16 pipeline {k}": n for k, n in ab_bf16.items()}}},
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

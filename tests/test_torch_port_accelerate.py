@@ -41,7 +41,7 @@ from tpuddp_torch.accelerate import (
 from tpuddp_torch.data import DataLoader, ShardedDataLoader
 from tpuddp_torch.data.synthetic import SyntheticClassification
 from tpuddp_torch.models import ToyCNN, ToyMLP
-from tpuddp_torch.models.convert import jax_leaf_index, state_dict_from_jax
+from tpuddp_torch.models.convert import jax_from_state_dict, jax_leaf_index, state_dict_from_jax
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.nn.norm import BatchNorm
 from tpuddp_torch.optim import Adam
@@ -466,30 +466,37 @@ def test_prepare_shards_a_dataloader_and_leaves_others():
 # --------------------------------------------------------- checkpoints ----
 
 def test_save_model_and_save_state_contents(tmp_path, inits):
+    """model.npz and state_{epoch}.npz hold the JAX package's managed keys
+    (tpuddp/accelerate.py:1559-1570, 1636-1651), in its layouts."""
     acc, model, opt = _prepared("toy_cnn", sd=inits["toy_cnn"][2])
     x, y, w = make_batches(7)[0]
     acc.backward(CrossEntropyLoss()(model(x), y, w))
     opt.step()
     path = acc.save_model(model, str(tmp_path))
-    assert path == str(tmp_path / "model.npz") and ckpt.verify(path)
+    assert path == str(tmp_path / "model.npz") and ckpt.verify_file(path)
+    params, mstate = jax_from_state_dict("toy_cnn", model.module.state_dict())
+    want = {f"['params'][{i}]['{k}']": a for i, layer in enumerate(params) for k, a in (layer or {}).items()}
+    want.update({f"['model_state'][{i}]['{k}']": a
+                 for i, layer in enumerate(mstate) for k, a in (layer or {}).items()})
     with np.load(path) as data:
-        assert "__meta__epoch" not in data.files and "rng/torch" not in data.files
-        sd = model.module.state_dict()
-        assert sorted(k for k in data.files if k.startswith("model/")) == sorted(f"model/{k}" for k in sd)
-        for k, v in sd.items():
-            np.testing.assert_array_equal(data[f"model/{k}"], v.numpy())
+        assert sorted(data.files) == sorted(want)
+        for k, a in want.items():
+            np.testing.assert_array_equal(data[k], a)
     path = acc.save_state(model, opt, str(tmp_path), epoch=3)
-    assert path == str(tmp_path / "state_3.npz") and ckpt.verify(path)
+    assert path == str(tmp_path / "state_3.npz") and ckpt.verify_file(path)
     with np.load(path) as data:
-        assert int(data["__meta__epoch"]) == 3
-        state = opt.optimizer.state_dict()["state"]
-        for idx, p in enumerate(model.parameters()):
-            np.testing.assert_array_equal(data[f"optim/{idx}/exp_avg_sq"], state[idx]["exp_avg_sq"].numpy())
-            assert int(data[f"optim/{idx}/step"]) == 1
-        np.testing.assert_array_equal(data["rng/accelerator"], acc.generator.get_state().numpy())
-        assert data["rng/torch"].dtype == np.uint8
+        assert int(data["__meta__epoch"]) == 3 and int(data["__meta__completed"]) == 1
+        assert int(data["['opt_state'].step"]) == 1 and data["['opt_state'].step"].dtype == np.int32
+        assert int(data["['bwd_counter']"]) == 1 and data["['bwd_counter']"].dtype == np.int64
+        assert data["__prngkey__['rng_key']"].dtype == np.uint32
+        moments = {n: opt.optimizer.state[p]["exp_avg_sq"] for n, p in model.module.named_parameters()}
+        v, _ = jax_from_state_dict("toy_cnn", moments)
+        np.testing.assert_array_equal(data["['opt_state'].v[0]['weight']"], v[0]["weight"])
+        np.testing.assert_array_equal(data["['opt_state'].v[1]['scale']"], v[1]["scale"])
+        record = json.loads(str(data[ckpt.RNG_KEY]))
+        assert record[0]["generator"] == acc.generator.get_state().numpy().tobytes().hex()
     other = port_model("toy_cnn")
-    assert ckpt.load(path, other) == 3  # the port's own loader reads the weights back
+    assert ckpt.load(path, other, layout=ckpt.MANAGED)["epoch"] == 3  # the weights read back
     assert_state_close(other.state_dict(), model.module.state_dict())
 
 
@@ -504,9 +511,9 @@ def test_save_state_stores_bf16_moments_as_bits(tmp_path):
     acc.backward(CrossEntropyLoss()(model(x), y, w))
     opt.step()
     with np.load(acc.save_state(model, opt, str(tmp_path), epoch=0)) as data:
-        bits = data["__bf16__optim/0/exp_avg"]
-        assert bits.dtype == np.uint16
-        want = adam.state_dict()["state"][0]["exp_avg"]
+        bits = data["__bf16__['opt_state'].m[1]['weight']"]
+        assert bits.dtype == np.uint16 and "['opt_state'].m[1]['weight']" not in data.files
+        want = adam.state[module[1].weight]["exp_avg"].T  # (out, in) -> (in, out)
         assert torch.equal(torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16), want)
 
 
@@ -521,7 +528,7 @@ def test_save_state_refuses_a_partial_accumulation_cycle(tmp_path):
     assert not os.listdir(tmp_path)
     opt.flush_accumulation()
     assert opt.updates == 1
-    assert ckpt.verify(acc.save_state(model, opt, str(tmp_path)))
+    assert ckpt.verify_file(acc.save_state(model, opt, str(tmp_path)))
 
 
 # --------------------------------------------------------- entry point ----
@@ -559,7 +566,8 @@ def test_entry_point_two_gloo_processes(tmp_path):
         assert len(r["step_ms"]) == 4 and r["updates"] == 2
         assert (r["train_samples"], r["test_samples"]) == (100, 40)
     # checkpoint_epoch 5: epoch 0 only (quirk Q6)
-    assert ckpt.verify(str(out / "model.npz")) and ckpt.verify(str(out / "state_0.npz"))
+    assert ckpt.verify_file(str(out / "model.npz")) and ckpt.verify_file(str(out / "state_0.npz"))
     assert not (out / "state_1.npz").exists()
     with np.load(out / "state_0.npz") as data:
-        assert {"rng/accelerator", "rng/torch", "optim/0/exp_avg"} <= set(data.files)
+        assert {ckpt.RNG_KEY, "['opt_state'].m[1]['weight']", "['bwd_counter']"} <= set(data.files)
+        assert len(json.loads(str(data[ckpt.RNG_KEY]))) == 2  # both processes' streams

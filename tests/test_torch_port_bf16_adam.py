@@ -394,15 +394,17 @@ def _trained(state_dtype, seed=0):
 
 
 def test_bf16_checkpoint_round_trips_bitwise(tmp_path):
-    """bf16 moments are saved as uint16 bit views under __bf16__ and come
-    back bitwise as bf16; BatchNorm buffers are model state."""
+    """bf16 moments are saved as uint16 bit views under __bf16__ (the JAX
+    package's key, tpuddp/training/checkpoint.py:99-101) and come back
+    bitwise as bf16; BatchNorm buffers are model state."""
     model, opt = _trained("bfloat16")
     path = ckpt.save_on_main(str(tmp_path), 3, model, opt, rank=0)
     with np.load(path) as data:
-        assert data["__bf16__optim/0/exp_avg"].dtype == np.uint16
-        assert "optim/0/exp_avg" not in data.files and "model/1.running_var" in data.files
+        assert data["__bf16__.opt_state.m[0]['weight']"].dtype == np.uint16
+        assert ".opt_state.m[0]['weight']" not in data.files
+        assert ".model_state[1]['var']" in data.files
     other, other_opt = _trained("bfloat16", seed=1)
-    assert ckpt.load(path, other, other_opt) == 3
+    assert ckpt.load(path, other, other_opt)["epoch"] == 3
     for k, v in model.state_dict().items():
         assert torch.equal(v, other.state_dict()[k]), k
     for p, q in zip(model.parameters(), other.parameters()):

@@ -249,12 +249,12 @@ def test_entry_point_runs_toy_cnn_sync_bn_with_both_bf16_knobs(tmp_path):
     ) for l in lines)
     path = str(out / "ckpt_0.npz")
     with np.load(path) as data:
-        marked = [k for k in data.files if k.startswith("__bf16__optim/")]
+        marked = [k for k in data.files if k.startswith("__bf16__.opt_state.")]
         assert len(marked) == 2 * 8 and all(data[k].dtype == np.uint16 for k in marked)
-        assert "model/1.running_mean" in data.files
+        assert ".model_state[1]['mean']" in data.files
     model = ToyCNN(10, input_shape=(32, 32, 3))
     index = jax_leaf_index("toy_cnn", model)
     opt = Adam(model.parameters(), state_dtype="bfloat16",
                leaf_index=[index[n] for n, _ in model.named_parameters()])
-    assert ckpt.load(path, model, opt) == 0
+    assert ckpt.load(path, model, opt)["epoch"] == 0
     assert all(opt.state[p]["exp_avg"].dtype == torch.bfloat16 for p in model.parameters())

@@ -3,10 +3,14 @@
 package), imports ``jax``, ``jaxlib`` or the JAX package ``tpuddp`` — by an
 import statement or by ``importlib.import_module``/``__import__`` with a
 literal name. ``tpuddp_torch`` itself is allowed, and so are imports inside
-the package relative to it."""
+the package relative to it. Nor does the port read a source file of the JAX
+package: its native sources (``gather.cpp``, ``fused_adam.cu``) are its own
+copies inside ``tpuddp_torch/``, and no string in its code (docstrings
+aside) names a path under ``tpuddp/``."""
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -56,7 +60,10 @@ def test_the_guard_sees_every_form():
 def test_the_port_has_its_files():
     files = _port_files()
     for must in ("chip_smoke.py", "tpuddp_torch/accelerate.py", "tpuddp_torch/train_accelerate.py",
-                 "tpuddp_torch/parallel/collectives.py", "tests/_torch_port_accel_worker.py"):
+                 "tpuddp_torch/parallel/collectives.py", "tests/_torch_port_accel_worker.py",
+                 "tpuddp_torch/data/_native/__init__.py", "tpuddp_torch/training/pipeline.py",
+                 "tpuddp_torch/training/checkpoint.py", "tpuddp_torch/utils/batching.py",
+                 "tests/_torch_port_resume_worker.py"):
         assert must in files, must
 
 
@@ -65,3 +72,44 @@ def test_no_jax_or_tpuddp_import(path):
     with open(os.path.join(ROOT, path)) as f:
         bad = sorted({n for n in imported_names(f.read(), path) if forbidden(n)})
     assert not bad, f"{path} imports {bad}"
+
+
+# a source file under the JAX package (not tpuddp_torch/) in a string of code;
+# a "file:line" reference (chip_smoke.py's "replaces") reads nothing
+_JAX_PATH = re.compile(r"(^|[/\\'\"])tpuddp[/\\][^:]*\.(cpp|cc|cu|cuh|h|hpp|py)$")
+
+
+def code_strings(source: str, filename: str = "<source>"):
+    """Every string constant of ``source`` that is not a docstring."""
+    tree = ast.parse(source, filename=filename)
+    docstrings = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings:
+            yield node.value
+
+
+def test_the_source_guard_sees_a_jax_path():
+    src = 'p = "tpuddp/data/_native/gather.cpp"\nq = "tpuddp_torch/ops/csrc/fused_adam.cu"\n'
+    assert [v for v in code_strings(src) if _JAX_PATH.search(v)] == ["tpuddp/data/_native/gather.cpp"]
+    assert not list(code_strings('"""see tpuddp/data/loader.py"""\n'))
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_no_source_of_the_jax_package_is_read(path):
+    with open(os.path.join(ROOT, path)) as f:
+        bad = [v for v in code_strings(f.read(), path) if _JAX_PATH.search(v)]
+    assert not bad, f"{path} names {bad}"
+
+
+def test_native_sources_are_the_ports_own():
+    from tpuddp_torch.data import _native
+    from tpuddp_torch.ops import fused_adam
+
+    port = os.path.join(ROOT, "tpuddp_torch") + os.sep
+    for source in (_native.SOURCE, fused_adam.SOURCE):
+        assert str(source.resolve()).startswith(port) and source.exists(), source

@@ -249,7 +249,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
         r"Epoch 1/1, Train Loss: \d+\.\d{4}, Test Loss: \d+\.\d{4}, Test Accuracy: \d+\.\d{2}%", l
     ) for l in lines)
     assert "torch.backends.cuda.matmul.allow_tf32=False, torch.backends.cudnn.allow_tf32=False" in lines
-    assert ckpt.verify(str(out / "ckpt_0.npz")) and (out / "s.yaml").exists()
+    assert ckpt.verify_file(str(out / "ckpt_0.npz")) and (out / "s.yaml").exists()
 
 
 # ---------------------------------------------------------------- config --
@@ -257,14 +257,30 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 @pytest.mark.parametrize("knob,value", [
     ("remat", True), ("weight_update_sharding", True),
     ("comm_hook", "bf16"), ("comm_topology", "hierarchical"), ("comm_overlap", True),
-    ("guard", True), ("snapshot", True), ("resume", True), ("auto_resume", True),
+    ("guard", True), ("snapshot", True),
     ("pretrained_path", "/x.pt"), ("optimizer", "sgd"),
     ("optimizer", "lars"), ("mode", "auto"), ("clip_grad_norm", 1.0),
-    ("keep_last", 2), ("pipeline", {"depth": 2}), ("step_stats_every", 10),
+    ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
     ("deferred_metrics", True), ("fuse_steps", 4), ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        cfg.training_config({"training": {knob: value}})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("resume", True), ("auto_resume", True), ("keep_last", 2),
+    ("pipeline", {"depth": 3, "sync_readback": True}), ("pipeline", False),
+])
+def test_resume_and_pipeline_knobs_are_accepted(knob, value):
+    assert cfg.training_config({"training": {knob: value}})[knob] == value
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("pipeline", {"depht": 2}), ("pipeline", {"depth": 0}), ("pipeline", 3),
+])
+def test_malformed_resume_and_pipeline_knobs_raise(knob, value):
+    with pytest.raises(ValueError, match=f"{knob}"):
         cfg.training_config({"training": {knob: value}})
 
 
@@ -418,11 +434,11 @@ def test_checkpoint_round_trip_and_corruption(tmp_path):
         p.grad = torch.randn_like(p)
     opt.step()
     path = ckpt.save_on_main(str(tmp_path), 4, model, opt, rank=0)
-    assert path.endswith("ckpt_4.npz") and ckpt.verify(path)
+    assert path.endswith("ckpt_4.npz") and ckpt.verify_file(path)
 
     other = ToyMLP(12, 3, hidden=(5,))
     other_opt = Adam(other.parameters(), lr=1e-2)
-    assert ckpt.load(path, other, other_opt) == 4
+    assert ckpt.load(path, other, other_opt) == {"epoch": 4, "completed": 1}
     for (k, a), b in zip(model.state_dict().items(), other.state_dict().values()):
         assert torch.equal(a, b), k
     for p, q in zip(model.parameters(), other.parameters()):
@@ -432,7 +448,7 @@ def test_checkpoint_round_trip_and_corruption(tmp_path):
     with open(path, "r+b") as f:
         f.seek(100)
         f.write(b"\x00\x01\x02")
-    assert not ckpt.verify(path)
+    assert not ckpt.verify_file(path)
     with pytest.raises(ValueError, match="sha256"):
         ckpt.load(path, other)
 

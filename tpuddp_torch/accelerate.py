@@ -38,10 +38,17 @@ Call-order contracts (``tests/test_accelerate.py``): ``step()`` without a
 ``backward()`` raises; a second ``backward()`` before ``step()`` drops the
 first loss (reading it then raises), or raises under accumulation;
 ``zero_grad()`` drops a staged step and is otherwise a no-op.
+
+Batches may arrive already on the device (the entry point stages them,
+``training/pipeline.py``); a host array is copied from pinned memory without
+blocking. ``save_model``/``load_model`` and ``save_state``/``load_state``
+write and read the JAX package's ``model.npz`` and ``state_{epoch}.npz``
+(``training/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -53,6 +60,7 @@ from tpuddp_torch.data.loader import DataLoader, ShardedDataLoader
 from tpuddp_torch.nn.norm import BatchNorm, batch_weights, convert_sync_batchnorm
 from tpuddp_torch.parallel import backend, collectives
 from tpuddp_torch.training import checkpoint as ckpt
+from tpuddp_torch.training.pipeline import to_device
 
 
 class LazyForward:
@@ -143,6 +151,8 @@ class PreparedModel:
         self.module = convert_sync_batchnorm(module.to(self.device))
         collectives.broadcast_one_to_all(self.module)
         self._staged: Optional[LazyLoss] = None  # backward done, step() not yet
+        self._optimizer: Optional["PreparedOptimizer"] = None  # bound by prepare
+        self._bwd_counter = 0  # backward passes run, saved as ['bwd_counter']
 
     def train(self, mode: bool = True) -> "PreparedModel":
         self.module.train(mode)
@@ -158,9 +168,9 @@ class PreparedModel:
         return LazyForward(self, x)
 
     def to_device(self, a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """A host array or a tensor on the device (``dtype`` if given)."""
-        t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(self.device, dtype=dtype)
+        """A host array or a tensor on the device (``dtype`` if given); a
+        tensor already there passes as it is."""
+        return to_device(a, self.device, dtype)
 
     def _params(self):
         return [p for p in self.module.parameters() if p.requires_grad]
@@ -231,6 +241,7 @@ class PreparedModel:
         loss._value = value.reshape(())
         fwd._logits = logits.detach()
         self._staged = loss
+        self._bwd_counter += 1
 
 
 class PreparedOptimizer:
@@ -370,7 +381,7 @@ class Accelerator:
             if isinstance(obj, torch.optim.Optimizer):
                 if model is None:
                     raise ValueError("prepare() got an optimizer but no model")
-                out[i] = PreparedOptimizer(obj, model)
+                out[i] = model._optimizer = PreparedOptimizer(obj, model)
         return out[0] if len(out) == 1 else tuple(out)
 
     def backward(self, loss: LazyLoss) -> None:
@@ -398,24 +409,57 @@ class Accelerator:
 
     def save_model(self, model: PreparedModel, save_dir: str):
         """Process 0 writes ``save_dir/model.npz`` (the unwrapped module's
-        parameters and buffers); everyone waits at a barrier."""
+        parameters and buffers in the JAX layout); everyone waits at a
+        barrier."""
         return ckpt.save_model_on_main(save_dir, model.module, self.process_index)
 
+    @staticmethod
+    def _discard_staged_work(model: PreparedModel, reason: str) -> None:
+        """Drop what was staged against the weights about to be replaced: a
+        backward waiting for ``step()`` and a partial accumulation cycle."""
+        if model._staged is not None:
+            model._staged._drop(reason)
+            model._staged = None
+        opt = model._optimizer
+        if opt is not None:
+            opt._accum, opt._accum_count = None, 0
+
+    def load_model(self, model: PreparedModel, save_dir: str) -> PreparedModel:
+        """Restore the weights of ``save_dir/model.npz``; the Adam moments
+        and step start again from zero, as ``tpuddp/accelerate.py:1599-1607``
+        resets them (moments of other weights must not steer these)."""
+        self._discard_staged_work(model, "load_model discarded the staged step")
+        ckpt.load(os.path.join(save_dir, "model.npz"), model.module, layout=ckpt.MANAGED)
+        if model._optimizer is not None:
+            model._optimizer.optimizer.state.clear()
+        return model
+
     def save_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
-                   save_dir: str, epoch: int = 0):
+                   save_dir: str, epoch: int = 0, keep_last: Optional[int] = None):
         """Process 0 writes ``save_dir/state_{epoch}.npz``: parameters,
-        buffers, Adam moments and the random generators' states (``rng/``).
-        A partial accumulation cycle is refused: it would be lost."""
+        buffers, the Adam moments and step, and every process's random
+        streams; with ``keep_last`` the older state files are pruned. A
+        partial accumulation cycle is refused: it would be lost."""
         if optimizer._accum_count:
             raise RuntimeError(
                 "save_state mid-gradient-accumulation-cycle would silently lose the "
                 "partial cycle; call optimizer.flush_accumulation() first (the entry "
                 "point's epoch boundary does)"
             )
-        rng = {"rng/accelerator": self.generator.get_state(), "rng/torch": torch.get_rng_state()}
-        if self.device.type == "cuda":
-            rng["rng/cuda"] = torch.cuda.get_rng_state(self.device)
         return ckpt.save_on_main(
             save_dir, epoch, model.module, optimizer.optimizer, self.process_index,
-            prefix="state", extra=rng,
+            layout=ckpt.MANAGED, seed=self.seed, generator=self.generator,
+            world_size=self.num_processes, keep_last=keep_last, counter=model._bwd_counter,
         )
+
+    def load_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
+                   save_dir: str) -> int:
+        """Restore the newest intact ``state_{epoch}.npz`` in ``save_dir``;
+        returns the epoch to train next (0 when there is none)."""
+        self._discard_staged_work(model, "load_state discarded the staged step")
+        next_epoch, meta = ckpt.restore_latest(
+            save_dir, model.module, optimizer.optimizer, layout=ckpt.MANAGED,
+            generator=self.generator,
+        )
+        model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)
+        return next_epoch

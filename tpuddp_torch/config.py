@@ -10,15 +10,18 @@ Same settings-file schema as the JAX package (``script_path``, ``out_dir``,
 
 The port implements the native DDP main path and the managed
 (``Accelerator``) path, with ``sync_bn``, ``compute_dtype``,
-``optimizer_state_dtype``, ``gradient_accumulation_steps`` and
-``deferred_metrics``; ``fuse_steps`` is 1, or ``auto`` where the JAX package
-resolves it to 1 (:func:`resolve_fuse_steps`). Every knob whose
-non-default value needs a part of the JAX package that is not ported yet is
-refused with ``NotImplementedError`` naming its ROADMAP item
-(:func:`check_supported`), never ignored. Two knobs are accepted because an
-eager loop gives identical results by construction: ``scan_steps`` (K fused
-steps compute the same K steps one by one) and ``prefetch`` (loading stays
-synchronous; the batches and their order are the same).
+``optimizer_state_dtype``, ``gradient_accumulation_steps``,
+``deferred_metrics``, ``prefetch`` (``PrefetchLoader`` threads), ``pipeline``
+(staged host-to-device copies, :func:`tpuddp_torch.training.pipeline.
+resolve_pipeline`; ``device_augment: false`` is refused there) and ``resume``,
+``auto_resume`` and ``keep_last`` (checkpoints in the JAX package's layout);
+``fuse_steps`` is 1, or ``auto`` where the JAX package resolves it to 1
+(:func:`resolve_fuse_steps`). Every knob whose non-default value needs a part
+of the JAX package that is not ported yet is refused with
+``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
+never ignored. ``scan_steps`` is accepted because an eager loop gives
+identical results by construction: K fused steps compute the same K steps
+one by one.
 """
 
 from __future__ import annotations
@@ -83,9 +86,6 @@ DEVICES = ("cuda", "cpu")
 
 # knob -> (is the value one the port implements?, ROADMAP.md item)
 _UNSUPPORTED = {
-    "resume": (lambda v: not v, "Queue 1 item 7: checkpoint resume"),
-    "auto_resume": (lambda v: not v, "Queue 1 item 7: checkpoint resume"),
-    "keep_last": (lambda v: v is None, "Queue 1 item 7: checkpoint resume"),
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "optimizer": (lambda v: str(v).lower() == "adam", "Queue 1 item 8: optimizers"),
     "clip_grad_norm": (lambda v: v is None, "Queue 1 item 8: optimizers"),
@@ -99,7 +99,6 @@ _UNSUPPORTED = {
     "weight_update_sharding": (lambda v: not v, "Queue 1 item 8: ZeRO-1"),
     "remat": (lambda v: not v, "Queue 1 item 8: remat"),
     "guard": (lambda v: not v, "Queue 1 item 8: numerical guard"),
-    "pipeline": (lambda v: v is None, "Queue 1 item 8: async pipeline"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
     "pretrained_path": (lambda v: not v, "Queue 1 item 8: pretrained fine-tune"),
     "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
@@ -164,12 +163,16 @@ def resolve_fuse_steps(fuse_steps, accum: int = 1, deferred_metrics: bool = True
 
 def check_supported(training: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for any knob set to a value this slice
-    does not implement (``ValueError`` for a gradient accumulation depth
-    under 1, or one together with an explicit ``fuse_steps`` over 1)."""
+    does not implement (``ValueError`` for a malformed ``pipeline`` block, a
+    gradient accumulation depth under 1, or one together with an explicit
+    ``fuse_steps`` over 1)."""
     for knob, (ok, item) in _UNSUPPORTED.items():
         value = training.get(knob, TRAINING_DEFAULTS[knob])
         if not ok(value):
             raise _not_ported(f"training.{knob}={value!r}", item)
+    from tpuddp_torch.training.pipeline import resolve_pipeline
+
+    resolve_pipeline(training.get("pipeline"))
     accum = int(training.get("gradient_accumulation_steps") or 1)
     if accum < 1:
         raise ValueError(f"training.gradient_accumulation_steps must be >= 1, got {accum}")

@@ -5,7 +5,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
-from tpuddp_torch.data.loader import DataLoader, ShardedDataLoader  # noqa: F401
+from tpuddp_torch.data.loader import DataLoader, PrefetchLoader, ShardedDataLoader  # noqa: F401
 from tpuddp_torch.data.synthetic import SyntheticClassification  # noqa: F401
 
 
@@ -68,6 +68,7 @@ def norm_stats_for(training: Dict[str, Any]) -> Tuple[Sequence[float], Sequence[
 
 __all__ = [
     "DataLoader",
+    "PrefetchLoader",
     "ShardedDataLoader",
     "SyntheticClassification",
     "load_datasets_for",

@@ -1,6 +1,8 @@
-"""Weight bridge from the JAX package's parameter trees to the port's
-``state_dict`` — the inverse of ``tpuddp/models/torch_import.py:56-108`` —
-and each parameter's place in the JAX package's flattened parameter tree.
+"""Weight bridge between the JAX package's parameter trees and the port's
+``state_dict``, both ways (``state_dict_from_jax`` is the inverse of
+``tpuddp/models/torch_import.py:56-108``, :func:`jax_from_state_dict` the
+inverse of ``state_dict_from_jax``), and each parameter's place in the JAX
+package's flattened parameter tree.
 
 JAX params arrive as numpy arrays (one entry per layer of the JAX
 ``Sequential``; parameter-free layers hold ``()``):
@@ -14,12 +16,15 @@ JAX params arrive as numpy arrays (one entry per layer of the JAX
   ``running_mean`` and ``running_var`` buffers.
 
 Every tensor's shape is checked against the port's model, with the key named
-on a mismatch.
+on a mismatch. Both directions only move elements, so a round trip is
+bitwise; :func:`torch_layout` and :func:`jax_from_state_dict` keep each
+array's dtype, so Adam moments travel the same way (bf16 ones as their
+uint16 bits).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,13 +67,11 @@ def _expected_model(name: str, params: Sequence):
     )
 
 
-def state_dict_from_jax(
+def torch_layout(
     name: str, params: Sequence, model_state: Optional[Sequence] = None
-) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` (float32 CPU tensors) for JAX ``params``
-    and, for a model with buffers, its ``model_state``. Without
-    ``model_state`` only the parameters are converted (as for a gradient
-    tree)."""
+) -> Dict[str, np.ndarray]:
+    """JAX ``params`` (and ``model_state``) as numpy arrays by the port's
+    ``state_dict`` keys, in the port's layouts, each in its own dtype."""
     out: Dict[str, np.ndarray] = {}
     if name == "alexnet":
         for idx, key in _ALEXNET_CONV.items():
@@ -111,7 +114,17 @@ def state_dict_from_jax(
             else:  # Linear
                 out[f"{idx}.weight"] = np.asarray(p["weight"]).T
                 out[f"{idx}.bias"] = p["bias"]
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
+
+def state_dict_from_jax(
+    name: str, params: Sequence, model_state: Optional[Sequence] = None
+) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (float32 CPU tensors) for JAX ``params``
+    and, for a model with buffers, its ``model_state``. Without
+    ``model_state`` only the parameters are converted (as for a gradient
+    tree)."""
+    out = torch_layout(name, params, model_state)
     model = _expected_model(name, params)
     expected = (
         model.state_dict() if model_state is not None
@@ -130,6 +143,70 @@ def state_dict_from_jax(
             )
         state[key] = torch.from_numpy(arr)
     return state
+
+
+# JAX AlexNet's Sequential: 22 layers, parameters at the conv and Linear indices
+_ALEXNET_LAYERS = 22
+
+
+def _numpy(value) -> np.ndarray:
+    if torch.is_tensor(value):
+        if value.dtype == torch.bfloat16:
+            raise TypeError("pass a bf16 tensor as its uint16 bits (numpy has no bfloat16)")
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
+    """The inverse of :func:`state_dict_from_jax`: the JAX package's
+    ``(params, model_state)`` tuples (one entry per layer, ``()`` where a
+    layer has none) for a port ``state_dict`` of tensors or arrays, each in
+    its own dtype. A mapping of parameters alone (a moment tree) gives its
+    ``params`` and a ``model_state`` of ``()``."""
+    sd = {k: _numpy(v) for k, v in state_dict.items()}
+    if name == "alexnet":
+        layers = {idx: key for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
+        n_layers = _ALEXNET_LAYERS
+    elif name in ("toy_mlp", "toy_cnn"):
+        idxs = sorted({int(k.split(".")[0]) for k in sd})
+        layers = {i: str(i) for i in idxs}
+        n_layers = idxs[-1] + 1
+    else:
+        raise ValueError(f"no weight bridge for model {name!r}; one of alexnet, toy_mlp, toy_cnn")
+    params, mstate = [()] * n_layers, [()] * n_layers
+    for idx, key in layers.items():
+        w, b = sd.get(f"{key}.weight"), sd.get(f"{key}.bias")
+        if w is None:
+            raise KeyError(f"{name}: state_dict has no {key}.weight")
+        if w.ndim == 1:  # BatchNorm
+            params[idx] = {"bias": b, "scale": w}
+            if f"{key}.running_mean" in sd:
+                mstate[idx] = {"mean": sd[f"{key}.running_mean"], "var": sd[f"{key}.running_var"]}
+            continue
+        if w.ndim == 4:  # conv, OIHW -> HWIO
+            w = np.transpose(w, (2, 3, 1, 0))
+        elif name == "alexnet" and key == "classifier.1":
+            # (out, c, h, w) -> (h, w, c, out)
+            out_f = w.shape[0]
+            w = w.reshape(out_f, _POOL_CH, _POOL_GRID, _POOL_GRID).transpose(2, 3, 1, 0)
+            w = w.reshape(-1, out_f)
+        else:  # Linear, (out, in) -> (in, out)
+            w = w.T
+        params[idx] = {"weight": w} if b is None else {"weight": w, "bias": b}
+    contiguous = lambda layer: (
+        {k: np.ascontiguousarray(v) for k, v in layer.items()} if layer else ()
+    )
+    return tuple(map(contiguous, params)), tuple(map(contiguous, mstate))
+
+
+def model_name(model: torch.nn.Module) -> str:
+    """The registry name of one of the port's models."""
+    from tpuddp_torch.models import AlexNet, ToyCNN, ToyMLP
+
+    for cls, name in ((AlexNet, "alexnet"), (ToyCNN, "toy_cnn"), (ToyMLP, "toy_mlp")):
+        if isinstance(model, cls):
+            return name
+    raise ValueError(f"no JAX layout for a {type(model).__name__}; one of AlexNet, ToyCNN, ToyMLP")
 
 
 def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:

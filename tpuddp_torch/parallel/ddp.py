@@ -27,7 +27,11 @@ all-reduce runs once, at the cycle boundary. The per-batch
 update per micro-batch would be an A-fold learning rate.
 
 The wrap runs on ``cuda`` unless ``device`` asks for the CPU; without a
-visible GPU it raises.
+visible GPU it raises. Batches may arrive already on the device (the epoch
+loop stages them, ``training/pipeline.py``); a host batch is staged here
+the same way, from pinned memory with ``non_blocking=True``. ``generator`` is
+the rank's host random stream (the flip masks), which checkpoints save and
+restore.
 
 A one-process world skips the collectives: a sum over one replica divided by
 one is the identity, and so is a broadcast.
@@ -37,11 +41,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from tpuddp_torch.parallel import backend, collectives
+from tpuddp_torch.training.pipeline import stage_batch
 from tpuddp_torch.training.step import eval_core, train_core, train_cycle
 
 
@@ -55,7 +59,9 @@ class DistributedDataParallel:
         eval_transform: Optional[Callable] = None,
         device: Optional[torch.device] = None,
         grad_accumulation: int = 1,
+        generator: Optional[torch.Generator] = None,
     ):
+        self.generator = generator
         self.grad_accumulation = int(grad_accumulation)
         if self.grad_accumulation < 1:
             raise ValueError(f"grad_accumulation must be >= 1, got {grad_accumulation!r}")
@@ -91,13 +97,9 @@ class DistributedDataParallel:
         collectives.broadcast_(self.model.buffers())
 
     def to_device(self, batch):
-        """Host ``(x, y, w)`` numpy batch -> device tensors."""
-        x, y, w = batch
-        return (
-            torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
-            torch.from_numpy(np.asarray(y, dtype=np.int64)).to(self.device),
-            torch.from_numpy(np.asarray(w, dtype=np.float32)).to(self.device),
-        )
+        """``(x, y, w)`` on the device: staged tensors as they are, a host
+        batch copied from pinned memory without blocking."""
+        return stage_batch(batch, self.device)
 
     def train_step(self, batch) -> torch.Tensor:
         """One step on a host batch; returns on-device ``[loss_sum, n]``."""

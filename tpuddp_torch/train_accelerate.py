@@ -15,14 +15,25 @@ prepared, so every process evaluates the whole test set; the test loss is
 the sum of per-batch mean losses over ``len(test_loader)`` and the accuracy
 counts the rows with ``w > 0``, with no cross-process reduction. The train
 loss is the sum of the per-step global losses over ``len(train_loader)``,
-read once per epoch (``sum_losses``). With ``deferred_metrics`` the eval
-pass keeps its sums on the device too and reads them once; without it, it
-reads each batch's loss and predictions, as the reference does.
+read once per epoch (``sum_losses``). The eval pass counts its correct and
+real rows on the device and reads them once; with ``deferred_metrics`` its
+loss sum stays there too, without it each batch's loss is read, as the
+reference does.
 
 Process 0 prints the epoch line of the JAX package byte for byte and appends
 one ``history.jsonl`` row per epoch (``api: "managed"``, ``step_ms`` per
 ``optimizer.step()`` from CUDA events on the GPU). At ``epoch %
-checkpoint_epoch == 0`` it writes ``model.npz`` and ``state_{epoch}.npz``.
+checkpoint_epoch == 0`` it writes ``model.npz`` and ``state_{epoch}.npz``
+(``keep_last`` prunes the older state files).
+
+As ``train_accelerate.py:864-876`` does, the loaders are wrapped after
+``prepare``: in ``PrefetchLoader(workers=pipeline.host_workers)`` under
+``prefetch: true``, then in the staging of ``training/pipeline.py``, which
+copies each batch from pinned memory without blocking, ``pipeline.depth``
+batches ahead. ``training.resume``, ``auto_resume`` or
+``$TPUDDP_AUTO_RESUME`` restore the newest intact ``state_{epoch}.npz`` in
+``out_dir`` before the first epoch (``train_accelerate.py:894-912``) and the
+run continues at the epoch after it.
 """
 
 from __future__ import annotations
@@ -35,14 +46,14 @@ import time
 from functools import partial
 from typing import Optional
 
-import numpy as np
 import torch
 
 from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
 from tpuddp_torch.accelerate import Accelerator, sum_losses
 from tpuddp_torch.data import (
-    DataLoader, compute_dtype_for, flip_for, load_datasets_for, norm_stats_for,
+    DataLoader, PrefetchLoader, compute_dtype_for, flip_for, load_datasets_for,
+    norm_stats_for,
 )
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models import load_model
@@ -51,7 +62,9 @@ from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import run_ddp_training
 from tpuddp_torch.train_native import set_float32_precision
+from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training.loop import StepClock
+from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
 
 
 def setup_dataloaders(training):
@@ -67,10 +80,10 @@ def train(model, train_loader, criterion, optimizer, accelerator, clock: Optiona
     """One training epoch; returns ``(mean per-step loss, real rows of the
     global batches)``. A partial accumulation cycle is applied at the end."""
     model.train()
-    n_seen = 0.0
+    n_seen = torch.zeros((), device=model.device)
     losses = []
     for inputs, labels, weights in train_loader:
-        n_seen += float(np.sum(weights))
+        n_seen = n_seen + model.to_device(weights, torch.float32).sum()
         optimizer.zero_grad()
         if clock is not None:
             clock.mark()
@@ -83,7 +96,7 @@ def train(model, train_loader, criterion, optimizer, accelerator, clock: Optiona
     if clock is not None:
         clock.mark()
     # one read of the loss sum and of the rows every process saw
-    totals = torch.stack([sum_losses(losses), torch.tensor(n_seen, device=model.device)])
+    totals = torch.stack([sum_losses(losses), n_seen])
     all_reduce_sum_([totals[1:]])
     loss_sum, n_seen = totals.tolist()
     return loss_sum / len(train_loader), n_seen
@@ -92,34 +105,32 @@ def train(model, train_loader, criterion, optimizer, accelerator, clock: Optiona
 def evaluate(model, test_loader, criterion, transform, deferred: bool = False):
     """Returns ``(mean per-batch loss, accuracy %, rows evaluated)``."""
     model.eval()
-    test_loss, correct, total = 0.0, 0, 0
-    if deferred:
-        test_loss = correct = torch.zeros((), device=model.device)
+    test_loss = 0.0
+    correct = total = torch.zeros((), dtype=torch.int64, device=model.device)
     for inputs, labels, weights in test_loader:
         outputs = model(transform(model.to_device(inputs)))
         loss = criterion(outputs, labels, weights)
-        mask = weights > 0
-        total += int(mask.sum())
+        mask = model.to_device(weights, torch.float32) > 0
+        right = (outputs.argmax(dim=-1) == model.to_device(labels, torch.int64)) & mask
+        total = total + mask.sum()
+        correct = correct + right.sum()
         if deferred:
             test_loss = test_loss + loss.device_value()
-            right = (outputs.argmax(dim=-1) == model.to_device(labels)) & model.to_device(mask)
-            correct = correct + right.sum()
         else:
-            test_loss += loss.item()
-            predicted = outputs.argmax(dim=-1).cpu().numpy()
-            correct += int(((predicted == labels) & mask).sum())
-    test_loss, correct = float(test_loss), int(correct)
+            test_loss += loss.item()  # the reference's read per batch
+    test_loss, correct, total = float(test_loss), int(correct), int(total)
     return test_loss / len(test_loader), 100 * correct / total, total
 
 
 def run_training_loop(
     model, train_loader, test_loader, criterion, optimizer, save_dir: Optional[str],
     accelerator, eval_transform, num_epochs: int = 20, checkpoint_epoch: int = 5,
-    deferred_metrics: bool = False,
+    deferred_metrics: bool = False, start_epoch: int = 0, keep_last: Optional[int] = None,
 ):
-    """Run ``num_epochs`` epochs; returns the list of per-epoch records."""
+    """Run epochs ``start_epoch`` to ``num_epochs``; returns the list of
+    per-epoch records."""
     history = []
-    for epoch in range(num_epochs):
+    for epoch in range(start_epoch, num_epochs):
         epoch_t0 = time.perf_counter()
         train_loader.set_epoch(epoch)
         clock = StepClock(accelerator.device)
@@ -149,6 +160,7 @@ def run_training_loop(
             "train_time_s": train_time_s,
             "epoch_time_s": epoch_time,
             "step_ms": step_ms,
+            "host_stall_s": train_loader.stall.total,
             "updates": optimizer.updates - updates,
             "api": "managed",
             "grad_accumulation": accelerator.gradient_accumulation_steps,
@@ -162,7 +174,7 @@ def run_training_loop(
         if save_dir is not None and epoch % checkpoint_epoch == 0:
             accelerator.wait_for_everyone()
             accelerator.save_model(model, save_dir)
-            accelerator.save_state(model, optimizer, save_dir, epoch=epoch)
+            accelerator.save_state(model, optimizer, save_dir, epoch=epoch, keep_last=keep_last)
     accelerator.print("Finished Training.")
     return history
 
@@ -203,6 +215,12 @@ def build_training(training: dict, device: str = "cuda"):
     )
     # the test loader stays unprepared: every process evaluates all of it (Q3)
     model, optimizer, train_loader = accelerator.prepare(model, optimizer, train_loader)
+    pipeline = resolve_pipeline(training.get("pipeline"))
+    if training.get("prefetch", True) and pipeline.host_workers > 0:
+        train_loader = PrefetchLoader(train_loader, workers=pipeline.host_workers)
+        test_loader = PrefetchLoader(test_loader, workers=pipeline.host_workers)
+    train_loader = StagedLoader(train_loader, accelerator.device, pipeline)
+    test_loader = StagedLoader(test_loader, accelerator.device, pipeline)
     return accelerator, model, optimizer, train_loader, test_loader, CrossEntropyLoss(), eval_transform
 
 
@@ -215,11 +233,20 @@ def basic_accelerate_training(
     accelerator, model, optimizer, train_loader, test_loader, criterion, eval_transform = (
         build_training(training, device)
     )
+    start_epoch = 0
+    if save_dir is not None and (
+        training.get("resume") or training.get("auto_resume") or ckpt.auto_resume_requested()
+    ):
+        start_epoch = accelerator.load_state(model, optimizer, save_dir)
+        if start_epoch:
+            accelerator.print(f"Resumed from epoch {start_epoch - 1} state.")
     return run_training_loop(
         model, train_loader, test_loader, criterion, optimizer, save_dir, accelerator,
         eval_transform, num_epochs=training["num_epochs"],
         checkpoint_epoch=training["checkpoint_epoch"],
         deferred_metrics=bool(training.get("deferred_metrics")),
+        start_epoch=start_epoch,
+        keep_last=int(training["keep_last"]) if training.get("keep_last") else None,
     )
 
 

@@ -5,7 +5,10 @@
 
 One process per GPU (``local.gpu.num_gpus``, ``local.condor.num_gpus`` or
 ``$TPUDDP_WORLD_SIZE``), NCCL between them; ``local.device: cpu`` runs the
-same path on the CPU with Gloo.
+same path on the CPU with Gloo. Under ``prefetch: true`` (the default) both
+loaders are wrapped in ``PrefetchLoader(workers=pipeline.host_workers)``, as
+``train_native.py:80-90`` does; ``training.resume`` or ``auto_resume``
+continues from the newest intact checkpoint in ``out_dir``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
 from tpuddp_torch.data import (
-    ShardedDataLoader, compute_dtype_for, flip_for, load_datasets_for, norm_stats_for,
+    PrefetchLoader, ShardedDataLoader, compute_dtype_for, flip_for, load_datasets_for,
+    norm_stats_for,
 )
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models import load_model
@@ -30,6 +34,7 @@ from tpuddp_torch.nn.norm import convert_sync_batchnorm
 from tpuddp_torch.parallel.ddp import DistributedDataParallel
 from tpuddp_torch.parallel.spawn import run_ddp_training
 from tpuddp_torch.training.loop import run_training_loop
+from tpuddp_torch.training.pipeline import resolve_pipeline
 
 
 def set_float32_precision() -> None:
@@ -64,6 +69,12 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     test_loader = ShardedDataLoader(
         test_ds, training["test_batch_size"], rank, world_size, shuffle=True
     )
+    pipeline = resolve_pipeline(training.get("pipeline"))
+    if training.get("prefetch", True) and pipeline.host_workers > 0:
+        # host batch assembly overlaps the device's work (the reference's
+        # num_workers); workers > 1 share out the loaders' batch plans
+        train_loader = PrefetchLoader(train_loader, workers=pipeline.host_workers)
+        test_loader = PrefetchLoader(test_loader, workers=pipeline.host_workers)
 
     size = training.get("image_size")
     mean, std = norm_stats_for(training)
@@ -88,6 +99,7 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         model, optimizer, CrossEntropyLoss(), augment=augment,
         eval_transform=eval_transform, device=dev,
         grad_accumulation=int(training.get("gradient_accumulation_steps") or 1),
+        generator=generator,
     )
     return ddp, train_loader, test_loader, base_seed
 
@@ -121,6 +133,9 @@ def basic_ddp_training_loop(
         data_probe_every=100,  # shard-disjointness probe (reference :112-115)
         per_replica_log=True,  # reference's per-replica loss lines (:186-191)
         base_seed=base_seed,
+        auto_resume=bool(training.get("auto_resume") or training.get("resume")),
+        keep_last=int(training["keep_last"]) if training.get("keep_last") else None,
+        pipeline=training.get("pipeline"),
     )
 
 

@@ -12,10 +12,22 @@ whole cycles of A micro-batches: a ragged tail is padded with all-padding
 micro-batches (``tpuddp/training/pipeline.py:209-220``), so an epoch makes
 ``ceil(len(train_loader) / A)`` updates (``tpuddp/training/loop.py:1006-1008``).
 
+Both passes take their batches through :class:`~tpuddp_torch.training.
+pipeline.StagedLoader`: each host batch is copied from pinned memory without
+blocking, ``pipeline.depth`` batches ahead of its step (``pipeline: false``
+stages each batch just before its step and synchronises after it).
+
 Each history row also carries the train pass's times per update in
 milliseconds (``step_ms``): on the GPU from CUDA events recorded between
 updates, read once after the pass, so the loop adds no synchronisation per
-update. Process 0 appends every row to ``save_dir/history.jsonl``.
+update; and the time the pass waited for host batches (``host_stall_s``).
+Process 0 appends every row to ``save_dir/history.jsonl``.
+
+Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
+``$TPUDDP_AUTO_RESUME``) the newest intact ``ckpt_{epoch}.npz`` in
+``save_dir`` is restored (parameters, buffers, Adam state, every rank's
+random streams) and the run continues at the epoch after it;
+``keep_last=K`` keeps the K newest checkpoints after each save.
 """
 
 from __future__ import annotations
@@ -26,12 +38,12 @@ import os
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from tpuddp_torch import seeding
 from tpuddp_torch.training import checkpoint as ckpt
+from tpuddp_torch.training import pipeline as pipeline_lib
 from tpuddp_torch.training.step import EVAL_KEYS, TRAIN_KEYS, finalize_metrics
 
 
@@ -83,18 +95,18 @@ def _per_replica_lines(sums: torch.Tensor, world_size: int, log) -> None:
             f"based on {_count(n)} samples")
 
 
-def _probed(loader, every: Optional[int], log):
-    """``loader``'s batches, logging the shard-disjointness probe of every
-    ``every``-th one."""
-    for batch_idx, batch in enumerate(loader):
+def _prober(loader, every: Optional[int], log):
+    """The shard-disjointness probe of every ``every``-th host batch."""
+    def probe(batch_idx, batch):
         if every and batch_idx % every == 0:
             log(f"TRAIN: Batch {batch_idx}, Data {loader.probe_fingerprint(batch[0])}")
-        yield batch
+
+    return probe
 
 
 def _cycles(batches, accum: int):
-    """Lists of ``accum`` host batches; a ragged tail is padded with copies
-    of its last batch whose weights are all 0, which add nothing to the
+    """Lists of ``accum`` batches; a ragged tail is padded with copies of
+    its last batch whose weights are all 0, which add nothing to the
     gradient, the metrics or the BatchNorm statistics."""
     cycle = []
     for batch in batches:
@@ -104,7 +116,7 @@ def _cycles(batches, accum: int):
             cycle = []
     if cycle:
         x, y, w = cycle[-1]
-        yield cycle + [(x, y, np.zeros_like(w))] * (accum - len(cycle))
+        yield cycle + [(x, y, torch.zeros_like(w))] * (accum - len(cycle))
 
 
 def run_training_loop(
@@ -119,16 +131,36 @@ def run_training_loop(
     data_probe_every: Optional[int] = None,
     per_replica_log: bool = False,
     base_seed: Optional[int] = None,
+    auto_resume: bool = False,
+    keep_last: Optional[int] = None,
+    pipeline=None,
     log=print,
 ):
-    """Run ``num_epochs`` epochs; returns the list of per-epoch records."""
+    """Run the epochs from the first not yet done (0 unless resumed) to
+    ``num_epochs``; returns the list of per-epoch records."""
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
     accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
+    pipeline = pipeline_lib.resolve_pipeline(pipeline)
     is_main = rank == 0
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
+    start_epoch = 0
+    if auto_resume or ckpt.auto_resume_requested():
+        if save_dir is None:
+            if is_main:
+                log("Auto-resume requested but no save_dir configured; starting fresh.")
+        else:
+            start_epoch, _ = ckpt.restore_latest(
+                save_dir, ddp.model, ddp.optimizer, generator=ddp.generator
+            )
+            if start_epoch > 0 and is_main:
+                log(f"Auto-resume: continuing from epoch {start_epoch}.")
+    train_pass = pipeline_lib.StagedLoader(
+        train_loader, device, pipeline, probe=_prober(train_loader, data_probe_every, log)
+    )
+    test_pass = pipeline_lib.StagedLoader(test_loader, device, pipeline)
     history = []
-    for epoch in range(num_epochs):
+    for epoch in range(start_epoch, num_epochs):
         t0 = time.perf_counter()
         if is_main:
             log(f"Process {rank}, Epoch {epoch}")
@@ -143,13 +175,12 @@ def run_training_loop(
 
         train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
         clock = StepClock(device)
-        batches = _probed(train_loader, data_probe_every, log)
         if accum == 1:
-            for batch in batches:
+            for batch in train_pass:
                 clock.mark()
                 train_sums += ddp.train_step(batch)
         else:
-            for cycle in _cycles(batches, accum):
+            for cycle in _cycles(train_pass, accum):
                 clock.mark()
                 train_sums += ddp.train_cycle(cycle)
         clock.mark()
@@ -162,7 +193,7 @@ def run_training_loop(
         train_time_s = time.perf_counter() - t0
 
         eval_sums = torch.zeros(len(EVAL_KEYS), device=device)
-        for batch in test_loader:
+        for batch in test_pass:
             eval_sums += ddp.eval_step(batch)
 
         if per_replica_log:
@@ -180,7 +211,10 @@ def run_training_loop(
                 f"Test Accuracy: {test_accuracy:.2f}%"
             )
         if save_dir is not None and epoch % checkpoint_epoch == 0:
-            ckpt.save_on_main(save_dir, epoch, ddp.model, ddp.optimizer, rank)
+            ckpt.save_on_main(
+                save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
+                generator=ddp.generator, world_size=world_size, keep_last=keep_last,
+            )
         record = {
             "epoch": epoch,
             "train_loss": train_loss,
@@ -191,6 +225,8 @@ def run_training_loop(
             "train_time_s": train_time_s,
             "epoch_time_s": time.perf_counter() - t0,
             "step_ms": step_ms,
+            "host_stall_s": train_pass.stall.total,
+            "pipeline": pipeline.as_dict(),
             "grad_accumulation": accum,
             "world_size": world_size,
         }
