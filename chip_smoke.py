@@ -60,15 +60,38 @@ Phases, each printing one line (the first failure exits non-zero):
    true`` and ``keep_last: 1`` for epoch 1: epoch 1's losses equal, the final
    parameters and moments at max |dp| = 0, 16 float32-kernel launches in the
    resumed run, only ``*_1.npz`` kept; a truncated newest file is skipped for
-   the one before it; the save and load seconds of one file.
+   the one before it; the save and load seconds of one file;
+8. the optimizers beside Adam (SGD, SGDW, LARS, LAMB and the global-norm
+   clip, PyTorch ops on the card: the JAX package has no Pallas kernel for
+   them), with weight decay 5e-4 and momentum 0.9:
+   - "8 optimizer steps": each optimizer's 3 steps on AlexNet's 16 leaf
+     shapes plus one all-zero leaf, from one seeded state, on the card
+     against the same optimizer on the CPU: parameters within 1e-5, the
+     LARS/LAMB trust ratios within 1e-6 relative, the zero leaf's ratio 1
+     (the unscaled step; for LARS its first step is ``-lr * g`` bitwise);
+     then the clip to 1.0 of a gradient whose norm is far above 1; each
+     update's time on the card beside the bytes it must move;
+   - "8 native <opt>": one native AlexNet float32 epoch per optimizer
+     (lars and lamb with ``clip_grad_norm: 1.0``): finite losses, no launch
+     of either Adam kernel, the step median beside the Adam float32 one of
+     phase 4;
+   - "8 managed lamb accum": the managed epoch of phase 5 with lamb,
+     ``clip_grad_norm: 1.0`` and ``gradient_accumulation_steps: 2``: finite
+     losses, 8 updates, no Adam-kernel launch;
+   - "8 resume lars": phase 7's native check with lars (456 MB files:
+     parameters and momentum), no Adam-kernel launch;
+   - "8 digits": skipped, on a line of its own: the card's machine has no
+     scikit-learn, which ``training.dataset: digits`` needs.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
+Then one JSON line with the optimizers' numbers, one with every kernel's,
+the card's name and power limit again, and last ``{"ok": true, "device":
+{...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -88,6 +111,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from tpuddp_torch import config as cfg_lib  # noqa: E402
+from tpuddp_torch import optim  # noqa: E402
 from tpuddp_torch.accelerate import Accelerator  # noqa: E402
 from tpuddp_torch.data import _native  # noqa: E402
 from tpuddp_torch.data.transforms import make_train_augment  # noqa: E402
@@ -145,6 +169,17 @@ ADAM_OPS_PER_ELEMENT = 14  # m: 3, v: 4, p: 7 (no weight decay)
 # mask), add to the bits, shift
 ROUNDING_OPS_PER_MOMENT = 6
 KERNEL_NAMES = {torch.float32: "fused_adam", torch.bfloat16: "fused_adam_bf16_moments"}
+# phase 8: the optimizers beside Adam, their settings, and the learning rates
+# of the step comparison (the epochs keep the settings file's 1e-3)
+OPTIMIZERS = ("sgd", "sgdw", "lars", "lamb")
+OPT_HP = dict(weight_decay=5e-4, momentum=0.9)
+OPT_LR = {"sgd": 1e-2, "sgdw": 1e-2, "lars": 1.0, "lamb": 1e-3}
+TRUST = ("lars", "lamb")
+RATIO_RTOL = 1e-6
+# bytes per parameter an update must move (each input read once, each
+# output written once): p, g and the momentum buffer read, p and the buffer
+# written; LAMB: p, g, m, v read, p, m, v written
+OPT_BYTES = {"sgd": 20, "sgdw": 20, "lars": 20, "lamb": 28}
 NO_LIBRARY_BF16 = (
     "no PyTorch call computes it: torch.optim.Adam(fused=True) keeps the moments "
     "in the parameter's dtype, and nothing in PyTorch rounds them to bf16 stochastically"
@@ -518,12 +553,14 @@ def toy_cnn_epoch():
     return fused_adam.kernel.launches
 
 
-def managed_epoch(label: str, accum: int):
+def managed_epoch(label: str, accum: int, overrides=None, tag: str = "5 managed"):
     """One managed AlexNet epoch (train_accelerate's worker) with
-    ``gradient_accumulation_steps = accum``: one float32-kernel launch per
-    update, ``16 / accum`` updates."""
+    ``gradient_accumulation_steps = accum``: ``16 / accum`` updates, one
+    float32-kernel launch per update (none with `overrides` naming another
+    optimizer than Adam)."""
     settings, training = training_for(SETTINGS_MANAGED)
-    training["gradient_accumulation_steps"] = accum
+    training.update(overrides or {}, gradient_accumulation_steps=accum)
+    adam = training["optimizer"] == "adam"
     reset_counts()
     t0 = time.perf_counter()
     history = run_ddp_training(
@@ -537,8 +574,8 @@ def managed_epoch(label: str, accum: int):
     launches = fused_adam.kernel.launches
     checks = {
         "16 train steps": steps == 16,
-        f"{16 // accum} updates, 1 launch each": (
-            launches == row["updates"] == 16 // accum
+        f"{16 // accum} updates, {'1 launch each' if adam else 'no Adam-kernel launch'}": (
+            row["updates"] == 16 // accum and launches == (row["updates"] if adam else 0)
             and fused_adam.kernels[torch.bfloat16].launches == 0),
         "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
         "2048 train rows, 512 test rows on the process": (
@@ -550,7 +587,7 @@ def managed_epoch(label: str, accum: int):
     if failed:
         raise SystemExit(f"chip_smoke: managed {label} failed {failed}: launches={launches}, row={row}")
     steady = statistics.median(row["step_ms"][1:])
-    phase("5 managed" + (f" accum" if accum > 1 else ""),
+    phase(tag + (f" accum" if accum > 1 else ""),
           f"{label}, 1 epoch: {steps} steps, {row['updates']} updates, fused_adam launches="
           f"{launches}, train_loss={row['train_loss']:.4f} test_loss={row['test_loss']:.4f} "
           f"test_accuracy={row['test_accuracy']:.2f}% on {row['test_samples']} test rows; step_ms "
@@ -656,25 +693,28 @@ def _arrays(path):
         return {k: data[k] for k in data.files}
 
 
-def resume_check(kind: str, root: str):
-    """Phase 7 for one path: 2 epochs straight against epoch 0 and a
-    resumed epoch 1 (``keep_last: 1``); a truncated newest file skipped;
-    the save and load seconds. Returns the resumed run's launches."""
+def resume_check(kind: str, root: str, overrides=None, tag: str = "7 resume"):
+    """Phase 7 for one path (phase 8 with `overrides` naming another
+    optimizer): 2 epochs straight against epoch 0 and a resumed epoch 1
+    (``keep_last: 1``); a truncated newest file skipped; the save and load
+    seconds. Returns the resumed run's float32-kernel launches."""
+    overrides = dict(overrides or {})
+    adam = overrides.get("optimizer", "adam") == "adam"
     layout = ckpt.NATIVE if kind == "native" else ckpt.MANAGED
     prefix = ckpt.PREFIX[layout]
     path = SETTINGS if kind == "native" else SETTINGS_MANAGED
     worker = basic_ddp_training_loop if kind == "native" else basic_accelerate_training
     straight, resumed = os.path.join(root, kind, "straight"), os.path.join(root, kind, "resumed")
 
-    def run(save_dir, **overrides):
+    def run(save_dir, **more):
         settings, training = training_for(path)
-        training.update(checkpoint_epoch=1, **overrides)
+        training.update(checkpoint_epoch=1, **overrides, **more)
         os.makedirs(save_dir, exist_ok=True)
         reset_counts()
         history = run_ddp_training(partial(worker, training=training, device="cuda"), 1,
                                    save_dir, cfg_lib.optional_args_from(settings), backend="cuda")
         torch.cuda.synchronize()
-        return history, fused_adam.kernel.launches
+        return history, {k.symbol: k.launches for k in fused_adam.kernels.values()}
 
     whole, _ = run(straight, num_epochs=2)
     run(resumed, num_epochs=1)
@@ -691,10 +731,12 @@ def resume_check(kind: str, root: str):
             whole[1]["train_loss"], whole[1]["test_loss"]),
         "max |dp| = 0 over parameters and moments": dp == 0.0,
         "every array equal": sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a),
-        "16 float32-kernel launches in the resumed run": launches == 16,
+        ("16 float32-kernel launches in the resumed run" if adam else "no Adam-kernel launch"): (
+            launches[fused_adam.kernel.symbol] == (16 if adam else 0)
+            and sum(launches.values()) == launches[fused_adam.kernel.symbol]),
         f"keep_last 1 kept {prefix}_1.npz alone": kept == [f"{prefix}_1.npz", f"{prefix}_1.npz.sha256"],
     }
-    if kind == "native":
+    if kind == "native" and adam:
         checks["epoch 0 at 2.9944 / 2.3076"] = (
             round(whole[0]["train_loss"], 4), round(whole[0]["test_loss"], 4)) == F32_LOSSES
     del a, b
@@ -702,31 +744,149 @@ def resume_check(kind: str, root: str):
     with open(newest, "r+b") as f:
         f.truncate(os.path.getsize(newest) // 2)
     model = AlexNet(num_classes=10).cuda()
-    opt = Adam(model.parameters(), lr=1e-3)
+    opt = cfg_lib.optimizer_from(training_for(path)[1] | overrides, model.parameters())
     t0 = time.perf_counter()
     next_epoch, meta = ckpt.restore_latest(straight, model, opt, layout=layout)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     checks["truncated newest skipped for the one before"] = (next_epoch, meta["epoch"]) == (1, 0)
-    checks["restored moments on the card, float32, contiguous"] = all(
-        st["exp_avg"].is_cuda and st["exp_avg"].dtype == torch.float32 and st["exp_avg"].is_contiguous()
-        and st["step"] == 16 for st in opt.state.values())
+    states = list(opt.state.values())
+    checks["restored optimizer state on the card, float32, contiguous, step 16 where kept"] = (
+        len(states) == 16 and all(
+            t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
+            for st in states for t in st.values() if torch.is_tensor(t))
+        and all(st.get("step", 16) == 16 for st in states))
+    keys = {} if layout == ckpt.NATIVE else {"keys": (meta["rng_key"], meta["bwd_key"])}
     t0 = time.perf_counter()
-    saved = ckpt.save_on_main(os.path.join(root, kind, "timed"), 0, model, opt, 0, layout=layout)
+    saved = ckpt.save_on_main(os.path.join(root, kind, "timed"), 0, model, opt, 0, layout=layout,
+                              **keys)
     save_s = time.perf_counter() - t0
     size_mb = os.path.getsize(saved) / 1e6
     shutil.rmtree(os.path.join(root, kind))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"chip_smoke: resume ({kind}) failed {failed}: max|dp|={dp}, kept={kept}, "
+        raise SystemExit(f"chip_smoke: {tag} ({kind}) failed {failed}: max|dp|={dp}, kept={kept}, "
                          f"launches={launches}, straight={whole}, resumed={again}")
-    phase("7 resume", f"{kind} AlexNet@224 b128 float32: epoch 1 resumed from {prefix}_0.npz "
-          f"(train_loss={again[0]['train_loss']:.4f} test_loss={again[0]['test_loss']:.4f}, equal to "
-          f"the straight run), max|dp|=0 over parameters and moments, {launches} fused_adam launches, "
+    state_name = "moments" if adam else "optimizer state"
+    phase(tag, f"{kind} AlexNet@224 b128 float32{' ' + str(overrides) if overrides else ''}: epoch 1 "
+          f"resumed from {prefix}_0.npz (train_loss={again[0]['train_loss']:.4f} "
+          f"test_loss={again[0]['test_loss']:.4f}, equal to the straight run), max|dp|=0 over "
+          f"parameters and {state_name}, {launches[fused_adam.kernel.symbol]} fused_adam launches, "
           f"kept {kept[0]} alone; truncated {prefix}_1.npz skipped for {prefix}_0.npz; one "
           f"{size_mb:.0f} MB file: save {save_s:.2f} s, verify+load "
           f"{load_s:.2f} s; resumed run {resumed_s:.2f} s")
-    return launches
+    return launches[fused_adam.kernel.symbol]
+
+
+def optimizer_steps(alexnet_shapes, bw, device: str = "cuda"):
+    """Phase 8: each optimizer's 3 steps on `device` against the CPU, from
+    one seeded state (AlexNet's leaves and one all-zero leaf) and the same
+    gradients; then the clip. Returns each optimizer's numbers."""
+    shapes = list(alexnet_shapes) + [(4096,)]
+    n_params = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator().manual_seed(3)
+    init = [torch.randn(s, generator=gen) * 0.02 for s in shapes]
+    init[-1].zero_()
+    grads = [[torch.randn(s, generator=gen) * 1e-2 for s in shapes] for _ in range(STEPS)]
+    out = {}
+    for name in OPTIMIZERS:
+        lr = OPT_LR[name]
+        sides = {}
+        for dev in ("cpu", device):
+            params = [torch.nn.Parameter(p.to(dev, copy=True)) for p in init]
+            opt = cfg_lib.optimizer_from(dict(optimizer=name, learning_rate=lr, **OPT_HP), params)
+            ratios, first_zero = [], None
+            for t in range(STEPS):
+                for p, g in zip(params, grads[t]):
+                    p.grad = g.to(dev)
+                opt.step()
+                if name in TRUST:
+                    ratios.append(opt.trust_ratios.cpu())
+                if t == 0:
+                    first_zero = params[-1].detach().cpu().clone()
+            sides[dev] = ([p.detach().cpu() for p in params], ratios, first_zero, opt, params)
+        (cpu_p, cpu_r, cpu_z, _, _), (dev_p, dev_r, dev_z, opt, params) = sides["cpu"], sides[device]
+        dp = max(float((a - b).abs().max()) for a, b in zip(cpu_p, dev_p))
+        rel = max((float(((a - b).abs() / a.abs()).max()) for a, b in zip(cpu_r, dev_r)), default=0.0)
+        checks = {"params within 1e-5": dp <= P_TOL, "all on the card": all(
+            t.device.type == torch.device(device).type for st in opt.state.values()
+            for t in st.values() if torch.is_tensor(t))}
+        if name in TRUST:
+            checks["trust ratios within 1e-6 relative"] = rel <= RATIO_RTOL
+            checks["zero leaf: ratio 1 at step 1 (the unscaled step)"] = (
+                float(cpu_r[0][-1]) == float(dev_r[0][-1]) == 1.0)
+        if name == "lars":
+            checks["zero leaf's first step is -lr * g"] = torch.equal(dev_z, -(grads[0][-1] * lr)) \
+                and torch.equal(cpu_z, dev_z)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: {name} on {device} disagrees with the CPU: {failed}; "
+                             f"max|dp|={dp:.3g}, trust-ratio rel err={rel:.3g}")
+        update_ms, enqueue_ms = time_ms(opt.step) if device == "cuda" else (None, None)
+        bound_ms = OPT_BYTES[name] * n_params / bw * 1e3
+        out[name] = dict(lr=lr, max_abs_dp=dp, trust_ratio_rel_err=rel if name in TRUST else None,
+                         update_ms=update_ms, enqueue_ms=enqueue_ms, bytes_bound_ms=bound_ms)
+        timing = (f"; update_ms={update_ms:.4f} enqueue_ms={enqueue_ms:.4f} (bytes bound "
+                  f"{bound_ms:.4f} ms, {OPT_BYTES[name]} B/param)") if update_ms is not None else ""
+        phase("8 optimizer steps", f"{name} (lr {lr}, weight_decay 5e-4, momentum 0.9), {STEPS} steps "
+              f"on AlexNet's {len(alexnet_shapes)} leaves + 1 all-zero leaf ({n_params} params), "
+              f"{device} vs cpu: max|dp|={dp:.3g}"
+              + (f", trust ratios max rel err {rel:.3g}, zero leaf's first ratio 1 on both" if name in TRUST
+                 else "") + timing)
+        del sides, params, opt
+    # the clip: a gradient of norm ~7,550 to max_norm 1
+    gen = torch.Generator().manual_seed(5)
+    base = [torch.randn(s, generator=gen) for s in shapes]
+    gs, norms, after = {}, {}, {}
+    for dev in ("cpu", device):
+        params = [torch.nn.Parameter(torch.zeros(s, device=dev)) for s in shapes]
+        for p, g in zip(params, base):
+            p.grad = g.to(dev, copy=True)
+        norms[dev] = float(optim.clip_grad_norm_(params, 1.0))
+        after[dev] = float(optim.global_norm([p.grad for p in params]))
+        gs[dev] = [p.grad.cpu() for p in params]
+    dg = max(float((a - b).abs().max()) for a, b in zip(gs["cpu"], gs[device]))
+    norm_rel = abs(norms[device] - norms["cpu"]) / norms["cpu"]
+    if not (norms["cpu"] > 1.0 and dg <= P_TOL and abs(after[device] - 1.0) <= P_TOL
+            and norm_rel <= RATIO_RTOL):
+        raise SystemExit(f"chip_smoke: clip_grad_norm_ on {device} disagrees: norms {norms}, "
+                         f"max|dg|={dg:.3g}, norms after {after}")
+    clip_ms = None
+    if device == "cuda":
+        clip_ms, _ = time_ms(partial(optim.clip_grad_norm_, params, 1.0))
+    out["clip"] = dict(norm=norms[device], norm_rel_err=norm_rel, max_abs_dg=dg,
+                       norm_after=after[device], ms=clip_ms)
+    phase("8 optimizer steps", f"clip_grad_norm_ to 1.0 of a gradient of norm {norms[device]:.2f} "
+          f"({device}) vs {norms['cpu']:.2f} (cpu), rel err {norm_rel:.3g}: max|dg|={dg:.3g}, norm "
+          f"after {after[device]:.6f}" + (f"; {clip_ms:.4f} ms" if clip_ms is not None else ""))
+    return out
+
+
+def optimizer_epoch(name: str, steady_f32: float):
+    """Phase 8: one native AlexNet float32 epoch with `name` (lars and lamb
+    with clip 1.0): finite losses, no Adam-kernel launch."""
+    overrides = dict(optimizer=name, **OPT_HP)
+    if name in TRUST:
+        overrides["clip_grad_norm"] = 1.0
+    history, wall_s, launches = native_run(SETTINGS, overrides)
+    row = history[-1]
+    steps = len(row["step_ms"])
+    checks = {
+        "16 train steps": steps == 16,
+        "no Adam-kernel launch": sum(launches.values()) == 0,
+        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
+        "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: native {name} epoch failed {failed}: launches={launches}, row={row}")
+    steady = statistics.median(row["step_ms"][1:])
+    phase(f"8 native {name}", f"AlexNet@224 b128 float32, {overrides}, 1 epoch: {steps} steps, "
+          f"Adam-kernel launches {launches}, train_loss={row['train_loss']:.4f} "
+          f"test_loss={row['test_loss']:.4f}; step_ms first={row['step_ms'][0]:.2f} "
+          f"median(2..{steps})={steady:.2f} min={min(row['step_ms'][1:]):.2f} vs Adam float32 "
+          f"{steady_f32:.2f} (ratio {steady / steady_f32:.3f}); epoch wall {wall_s:.2f} s")
+    return sum(launches.values()), steady
 
 
 def main() -> None:
@@ -791,11 +951,36 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    steps_8 = optimizer_steps(alexnet_shapes, bw)
+    torch.cuda.empty_cache()
+    epochs_8 = {name: optimizer_epoch(name, steady_f32) for name in OPTIMIZERS}
+    lamb_accum = dict(optimizer="lamb", clip_grad_norm=1.0, **OPT_HP)
+    launches_lamb, steady_lamb = managed_epoch(
+        f"AlexNet@224 b128 float32, {lamb_accum}, gradient_accumulation_steps 2", 2, lamb_accum,
+        tag="8 managed lamb")
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_resume_")
+    try:
+        resume_lars = resume_check("native", root, dict(optimizer="lars", **OPT_HP), tag="8 resume lars")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    have = "has" if importlib.util.find_spec("sklearn") else "has no"
+    phase("8 digits", f"skipped: training.dataset digits needs scikit-learn, and this machine {have} "
+          "scikit-learn; the digits arrays are not in the repository (ROADMAP.md Queue 1 item 3)")
+    phase_8 = {f"native {n}": launches for n, (launches, _) in epochs_8.items()}
+    phase_8.update({"managed lamb accum 2": launches_lamb, "native resumed lars": resume_lars})
+    print(json.dumps({"optimizers": [
+        {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
+         "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
+        for n in OPTIMIZERS
+    ] + [{"name": "lamb managed accum 2", "managed_step_ms_median": steady_lamb,
+          "adam_f32_managed_step_ms_median": steady_managed},
+         {"name": "clip_grad_norm_", **steps_8["clip"]}]}))
+
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
-               "native resumed": resume_native, "managed resumed": resume_managed}
+               "native resumed": resume_native, "managed resumed": resume_managed, **phase_8}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     print(json.dumps({"kernels": [
@@ -807,7 +992,8 @@ def main() -> None:
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
          "launches_by_path": {"native bf16": launches_bf16,
-                              **{f"native bf16 pipeline {k}": n for k, n in ab_bf16.items()}}},
+                              **{f"native bf16 pipeline {k}": n for k, n in ab_bf16.items()},
+                              **{k: 0 for k in phase_8}}},
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

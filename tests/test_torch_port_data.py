@@ -3,6 +3,8 @@ the CPU: sampler order, loader batches, the synthetic CIFAR-10 stand-in,
 device transforms and the weighted loss. Inputs come from numpy seeds and go
 through both packages."""
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,10 +100,14 @@ def test_cifar10_falls_back_to_jax_synthetic_stand_in(tmp_path, monkeypatch):
         np.testing.assert_array_equal(ours.labels, ref.labels)
 
 
-def test_synthetic_dataset_sizes_and_digits_refused():
+def test_synthetic_dataset_sizes_and_digits_refused(monkeypatch):
+    """Digits without scikit-learn is refused with an ImportError naming it
+    (tests/test_torch_port_digits.py holds the arrays)."""
     train, test = load_datasets_for({"dataset": "synthetic", "synthetic_n": [64, 16]})
     assert (len(train), len(test)) == (64, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
+    with pytest.raises(ImportError, match="scikit-learn.*ROADMAP"):
         load_datasets_for({"dataset": "digits"})
     with pytest.raises(ValueError):
         load_datasets_for({"dataset": "imagenet"})

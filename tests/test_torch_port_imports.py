@@ -63,7 +63,9 @@ def test_the_port_has_its_files():
                  "tpuddp_torch/parallel/collectives.py", "tests/_torch_port_accel_worker.py",
                  "tpuddp_torch/data/_native/__init__.py", "tpuddp_torch/training/pipeline.py",
                  "tpuddp_torch/training/checkpoint.py", "tpuddp_torch/utils/batching.py",
-                 "tests/_torch_port_resume_worker.py"):
+                 "tests/_torch_port_resume_worker.py", "tpuddp_torch/data/digits.py",
+                 "tpuddp_torch/_threefry.py", "tpuddp_torch/seeding.py",
+                 "tests/_torch_port_entry_worker.py"):
         assert must in files, must
 
 

@@ -258,14 +258,20 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
     ("remat", True), ("weight_update_sharding", True),
     ("comm_hook", "bf16"), ("comm_topology", "hierarchical"), ("comm_overlap", True),
     ("guard", True), ("snapshot", True),
-    ("pretrained_path", "/x.pt"), ("optimizer", "sgd"),
-    ("optimizer", "lars"), ("mode", "auto"), ("clip_grad_norm", 1.0),
+    ("pretrained_path", "/x.pt"), ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
     ("deferred_metrics", True), ("fuse_steps", 4), ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         cfg.training_config({"training": {knob: value}})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("optimizer", "sgd"), ("optimizer", "lars"), ("clip_grad_norm", 1.0),
+])
+def test_optimizer_knobs_are_accepted(knob, value):
+    assert cfg.training_config({"training": {knob: value}})[knob] == value
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -312,12 +318,13 @@ def test_unknown_dtypes_raise(knob, value):
 
 def test_bf16_state_is_an_adam_knob():
     """tpuddp/config.py:768-772: optimizer_state_dtype with another
-    optimizer is a ValueError (before the optimizer's own refusal)."""
+    optimizer is a ValueError; without it the optimizer is built."""
     with pytest.raises(ValueError, match="Adam knob"):
         cfg.optimizer_from({"optimizer": "sgd", "optimizer_state_dtype": "bfloat16",
                             "learning_rate": 0.1}, [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.optimizer_from({"optimizer": "sgd", "learning_rate": 0.1}, [])
+    sgd = cfg.optimizer_from({"optimizer": "sgd", "learning_rate": 0.1},
+                             [torch.nn.Parameter(torch.zeros(2))])
+    assert type(sgd).__name__ == "SGD" and sgd.defaults["momentum"] == 0.9
 
 
 @pytest.mark.parametrize("settings", [
@@ -426,6 +433,40 @@ def test_spawn_world_one_runs_in_process_and_propagates(tmp_path):
     assert not torch.distributed.is_initialized()  # cleaned up on the way out
 
 
+def test_rendezvous_port_is_bound_from_the_moment_it_is_picked():
+    """The launcher's store takes its port from the OS as it binds, on every
+    address: nothing else can bind the port between its pick and the ranks'
+    rendezvous (a port picked on 127.0.0.1 and released could be taken on
+    another address, where the store also listens)."""
+    import errno
+    import socket
+
+    store = backend.rendezvous_store(2)
+    for host in ("", "127.0.0.1"):
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            with pytest.raises(OSError) as err:
+                s.bind((host, store.port))
+            assert err.value.errno == errno.EADDRINUSE
+    with pytest.raises(ValueError, match="rendezvous port"):
+        backend.setup(0, 2, "cpu")
+
+
+def test_many_groups_in_turn_keep_the_excepthook(tmp_path):
+    """One process runs world-1 groups one after another (as a smoke run
+    does): each gets a port of its own, and cleanup hands back the excepthook
+    that init_process_group wraps, so a later traceback is not prefixed once
+    per group that came before."""
+    import sys
+
+    hook = sys.excepthook
+    worlds = []
+    for _ in range(25):
+        run_ddp_training(lambda *a: worlds.append(backend.get_world_size()),
+                         1, str(tmp_path), {}, backend="cpu")
+        assert sys.excepthook is hook
+    assert worlds == [1] * 25 and not torch.distributed.is_initialized()
+
+
 def test_checkpoint_round_trip_and_corruption(tmp_path):
     torch.manual_seed(0)
     model = ToyMLP(12, 3, hidden=(5,))
@@ -433,12 +474,12 @@ def test_checkpoint_round_trip_and_corruption(tmp_path):
     for p in model.parameters():
         p.grad = torch.randn_like(p)
     opt.step()
-    path = ckpt.save_on_main(str(tmp_path), 4, model, opt, rank=0)
+    path = ckpt.save_on_main(str(tmp_path), 4, model, opt, rank=0, step=1)
     assert path.endswith("ckpt_4.npz") and ckpt.verify_file(path)
 
     other = ToyMLP(12, 3, hidden=(5,))
     other_opt = Adam(other.parameters(), lr=1e-2)
-    assert ckpt.load(path, other, other_opt) == {"epoch": 4, "completed": 1}
+    assert ckpt.load(path, other, other_opt) == {"epoch": 4, "completed": 1, "step": 1}
     for (k, a), b in zip(model.state_dict().items(), other.state_dict().values()):
         assert torch.equal(a, b), k
     for p, q in zip(model.parameters(), other.parameters()):

@@ -8,7 +8,7 @@ The training sequence is the torch one::
     outputs = model(inputs)                    # LazyForward: runs nothing yet
     loss = criterion(outputs, labels, weights) # LazyLoss: binds the weights
     accelerator.backward(loss)                 # forward + backward + sync
-    optimizer.step()                           # the Adam kernel
+    optimizer.step()                           # the optimizer (Adam: its kernel)
 
 The forward waits for the criterion because a train-mode forward must leave
 padded rows (``w = 0``) out of the BatchNorm statistics, and ``w`` is only
@@ -34,6 +34,19 @@ each micro-batch's global-mean gradient to a sum and every A-th applies ONE
 update from the UNWEIGHTED mean ``sum / A``; ``flush_accumulation()`` applies
 a partial cycle with ``1 / count`` (``tpuddp/accelerate.py:1092-1140``).
 
+``clip_grad_norm`` clips the update's gradient (after the loss-scaled
+all-reduce and, under accumulation, after the cycle's average) to that global
+L2 norm, once per update and never per micro-batch
+(``tpuddp/accelerate.py:1143-1165``).
+
+Besides its torch generator the accelerator keeps the JAX ``Accelerator``'s
+key stream (:class:`~tpuddp_torch.seeding.JaxKeyStream`) and draws from it
+wherever the JAX one draws: ``bwd_key`` and the model's init key at
+``prepare``, one key per forward-only train-mode read and per
+``next_rng_key()``. ``save_state`` writes the stream (``rng_key``) and
+``bwd_key`` as the JAX package would at that point; ``load_state`` puts
+them back.
+
 Call-order contracts (``tests/test_accelerate.py``): ``step()`` without a
 ``backward()`` raises; a second ``backward()`` before ``step()`` drops the
 first loss (reading it then raises), or raises under accumulation;
@@ -58,6 +71,7 @@ from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
 from tpuddp_torch.data.loader import DataLoader, ShardedDataLoader
 from tpuddp_torch.nn.norm import BatchNorm, batch_weights, convert_sync_batchnorm
+from tpuddp_torch.optim import clip_grad_norm_
 from tpuddp_torch.parallel import backend, collectives
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training.pipeline import to_device
@@ -153,6 +167,10 @@ class PreparedModel:
         self._staged: Optional[LazyLoss] = None  # backward done, step() not yet
         self._optimizer: Optional["PreparedOptimizer"] = None  # bound by prepare
         self._bwd_counter = 0  # backward passes run, saved as ['bwd_counter']
+        # the JAX model's draws: its backward base key here, its init key at
+        # its first forward (tpuddp/accelerate.py:544, :605)
+        self._bwd_key = accelerator.jax_keys.draw()
+        accelerator.jax_keys.draw()
 
     def train(self, mode: bool = True) -> "PreparedModel":
         self.module.train(mode)
@@ -180,6 +198,7 @@ class PreparedModel:
         x = self.to_device(x)
         if not self.module.training:
             return self.module(x)
+        self.accelerator.jax_keys.draw()  # the JAX forward's dropout key
         # train mode without a backward: the JAX package computes it over
         # the batch it is given and discards the new buffers; so does this,
         # with the BatchNorms unsynced (no collective on one process's read)
@@ -246,8 +265,9 @@ class PreparedModel:
 
 class PreparedOptimizer:
     """Wraps the optimizer: ``step()`` applies the gradient that the last
-    ``accelerator.backward`` left (one Adam-kernel launch per update on a
-    CUDA model), or under accumulation adds it to the cycle's sum."""
+    ``accelerator.backward`` left (clipped, with ``clip_grad_norm``; one
+    Adam-kernel launch per Adam update on a CUDA model), or under
+    accumulation adds it to the cycle's sum."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, model: PreparedModel):
         self.optimizer = optimizer
@@ -299,6 +319,9 @@ class PreparedOptimizer:
         self._apply()
 
     def _apply(self) -> None:
+        clip = self.model.accelerator.clip_grad_norm
+        if clip is not None:
+            clip_grad_norm_(self.model._params(), clip)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.updates += 1
@@ -313,7 +336,9 @@ class Accelerator:
     ``x -> x`` (flip, normalize, resize) that runs inside every backward's
     forward; build it with ``generator=accelerator.generator`` so its flip
     masks draw from the process's stream. ``fuse_steps``: 1, or ``auto``
-    under accumulation (:func:`tpuddp_torch.config.resolve_fuse_steps`)."""
+    under accumulation (:func:`tpuddp_torch.config.resolve_fuse_steps`).
+    ``clip_grad_norm``: the global L2 norm each update's gradient is clipped
+    to (None: no clip)."""
 
     def __init__(
         self,
@@ -322,8 +347,10 @@ class Accelerator:
         gradient_accumulation_steps: int = 1,
         augment: Optional[Callable] = None,
         device: str = "cuda",
+        clip_grad_norm: Optional[float] = None,
     ):
         self.gradient_accumulation_steps = max(1, int(gradient_accumulation_steps))
+        self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
         self.fuse_steps = cfg_lib.resolve_fuse_steps(fuse_steps, self.gradient_accumulation_steps)
         self.process_index = backend.get_rank()
         self.num_processes = backend.get_world_size()
@@ -337,6 +364,7 @@ class Accelerator:
         else:
             self.device = torch.device(device)
         self.generator, self.seed = seeding.set_seed_based_on_rank(self.process_index, seed)
+        self.jax_keys = seeding.JaxKeyStream(self.seed, self.process_index)
         self.augment = augment
 
     @property
@@ -348,7 +376,9 @@ class Accelerator:
         return self.process_index == 0
 
     def next_rng_key(self) -> torch.Generator:
-        """A fresh generator split from the process's stream."""
+        """A fresh generator split from the process's stream (and a draw
+        from the JAX key stream, as the JAX call makes)."""
+        self.jax_keys.draw()
         return seeding.split(self.generator)
 
     def prepare(self, *objects):
@@ -425,9 +455,9 @@ class Accelerator:
             opt._accum, opt._accum_count = None, 0
 
     def load_model(self, model: PreparedModel, save_dir: str) -> PreparedModel:
-        """Restore the weights of ``save_dir/model.npz``; the Adam moments
-        and step start again from zero, as ``tpuddp/accelerate.py:1599-1607``
-        resets them (moments of other weights must not steer these)."""
+        """Restore the weights of ``save_dir/model.npz``; the optimizer's
+        state starts again from zero, as ``tpuddp/accelerate.py:1599-1607``
+        resets it (moments of other weights must not steer these)."""
         self._discard_staged_work(model, "load_model discarded the staged step")
         ckpt.load(os.path.join(save_dir, "model.npz"), model.module, layout=ckpt.MANAGED)
         if model._optimizer is not None:
@@ -437,9 +467,9 @@ class Accelerator:
     def save_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
                    save_dir: str, epoch: int = 0, keep_last: Optional[int] = None):
         """Process 0 writes ``save_dir/state_{epoch}.npz``: parameters,
-        buffers, the Adam moments and step, and every process's random
-        streams; with ``keep_last`` the older state files are pruned. A
-        partial accumulation cycle is refused: it would be lost."""
+        buffers, the optimizer's state, the JAX keys and every process's
+        random streams; with ``keep_last`` the older state files are pruned.
+        A partial accumulation cycle is refused: it would be lost."""
         if optimizer._accum_count:
             raise RuntimeError(
                 "save_state mid-gradient-accumulation-cycle would silently lose the "
@@ -450,6 +480,7 @@ class Accelerator:
             save_dir, epoch, model.module, optimizer.optimizer, self.process_index,
             layout=ckpt.MANAGED, seed=self.seed, generator=self.generator,
             world_size=self.num_processes, keep_last=keep_last, counter=model._bwd_counter,
+            keys=(self.jax_keys.key, model._bwd_key),
         )
 
     def load_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
@@ -462,4 +493,6 @@ class Accelerator:
             generator=self.generator,
         )
         model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)
+        if "rng_key" in meta:
+            self.jax_keys.key, model._bwd_key = meta["rng_key"], meta["bwd_key"]
         return next_epoch

@@ -9,8 +9,10 @@ Same settings-file schema as the JAX package (``script_path``, ``out_dir``,
 - ``training`` merges over :data:`TRAINING_DEFAULTS` and refuses unknown keys.
 
 The port implements the native DDP main path and the managed
-(``Accelerator``) path, with ``sync_bn``, ``compute_dtype``,
-``optimizer_state_dtype``, ``gradient_accumulation_steps``,
+(``Accelerator``) path, with ``sync_bn``, ``compute_dtype``, ``optimizer``
+(:data:`OPTIMIZERS`, with ``weight_decay``, ``momentum`` and
+``trust_coefficient``), ``clip_grad_norm``, ``optimizer_state_dtype``,
+``gradient_accumulation_steps``,
 ``deferred_metrics``, ``prefetch`` (``PrefetchLoader`` threads), ``pipeline``
 (staged host-to-device copies, :func:`tpuddp_torch.training.pipeline.
 resolve_pipeline`; ``device_augment: false`` is refused there) and ``resume``,
@@ -87,8 +89,6 @@ DEVICES = ("cuda", "cpu")
 # knob -> (is the value one the port implements?, ROADMAP.md item)
 _UNSUPPORTED = {
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
-    "optimizer": (lambda v: str(v).lower() == "adam", "Queue 1 item 8: optimizers"),
-    "clip_grad_norm": (lambda v: v is None, "Queue 1 item 8: optimizers"),
     "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
     "comm_hook": (lambda v: (v or "none") == "none", "Queue 1 item 8: comm hooks"),
     "comm_topology": (
@@ -279,26 +279,43 @@ def optional_args_from(settings: Dict[str, Any]) -> Dict[str, Any]:
     return dict(settings.get("optional_args") or {})
 
 
+OPTIMIZERS = ("adam", "sgd", "sgdw", "lars", "lamb")
+
+
 def optimizer_from(training: Dict[str, Any], params, leaf_index=None):
-    """Build the configured optimizer over ``params``. Only ``adam`` is
-    ported; :func:`check_supported` refuses the others. ``leaf_index``
-    gives each parameter's index in the JAX package's flattened parameter
-    tree, which keys the rounding of bf16 moments
+    """Build ``training.optimizer`` over ``params``, as
+    ``tpuddp/config.py:743-788`` builds it, quirks included: ``momentum``
+    None is 0.9, a ``trust_coefficient`` of 0 (or None) is 0.001, LAMB takes
+    neither, and ``optimizer_state_dtype`` with anything but Adam is a
+    ``ValueError``, as is an unknown name. ``leaf_index`` gives each
+    parameter's index in the JAX package's flattened parameter tree, which
+    keys the rounding of Adam's bf16 moments
     (``models.convert.jax_leaf_index``); bf16 moments require it."""
     from tpuddp_torch import optim
 
     name = str(training.get("optimizer") or "adam").lower()
-    if name != "adam":
-        if training.get("optimizer_state_dtype"):
-            raise ValueError(
-                "training.optimizer_state_dtype is an Adam knob (bf16 moment "
-                f"storage); optimizer {name!r} stores its state in f32"
-            )
-        raise _not_ported(f"training.optimizer={name!r}", "Queue 1 item 8: optimizers")
-    return optim.Adam(
-        params,
-        lr=float(training["learning_rate"]),
-        weight_decay=float(training.get("weight_decay") or 0.0),
-        state_dtype=training.get("optimizer_state_dtype"),
-        leaf_index=leaf_index,
-    )
+    lr = float(training["learning_rate"])
+    wd = float(training.get("weight_decay") or 0.0)
+    momentum = float(training["momentum"] if training.get("momentum") is not None else 0.9)
+    if name == "adam":
+        return optim.Adam(
+            params, lr=lr, weight_decay=wd,
+            state_dtype=training.get("optimizer_state_dtype"), leaf_index=leaf_index,
+        )
+    if training.get("optimizer_state_dtype"):
+        raise ValueError(
+            "training.optimizer_state_dtype is an Adam knob (bf16 moment "
+            f"storage); optimizer {name!r} stores its state in f32"
+        )
+    if name == "sgd":
+        return optim.SGD(params, lr, momentum=momentum, weight_decay=wd)
+    if name == "sgdw":
+        return optim.SGDW(params, lr, momentum=momentum, weight_decay=wd)
+    if name == "lars":
+        return optim.LARS(
+            params, lr, momentum=momentum, weight_decay=wd,
+            trust_coefficient=float(training.get("trust_coefficient") or 0.001),
+        )
+    if name == "lamb":
+        return optim.LAMB(params, lr, weight_decay=wd)
+    raise ValueError(f"unknown training.optimizer {name!r}; one of {OPTIMIZERS}")

@@ -11,8 +11,8 @@ from tpuddp_torch.data.synthetic import SyntheticClassification  # noqa: F401
 
 def load_datasets_for(training: Dict[str, Any], synthetic_fallback: bool = True):
     """(train, test) datasets for ``training.dataset``: ``cifar10`` (falling
-    back to the synthetic stand-in when none is staged) or ``synthetic``.
-    ``digits`` needs scikit-learn and waits for a later slice."""
+    back to the synthetic stand-in when none is staged), ``digits`` (needs
+    scikit-learn) or ``synthetic``."""
     name = str(training.get("dataset") or "cifar10")
     n = tuple(training.get("synthetic_n") or (2048, 512))
     if name == "cifar10":
@@ -28,10 +28,9 @@ def load_datasets_for(training: Dict[str, Any], synthetic_fallback: bool = True)
 
         return synthetic_uint8_datasets(n[0], n[1])
     if name == "digits":
-        raise NotImplementedError(
-            "training.dataset='digits' is not implemented in tpuddp_torch yet "
-            "(ROADMAP.md Queue 1 item 3: digits)"
-        )
+        from tpuddp_torch.data import digits
+
+        return digits.load_datasets()
     raise ValueError(
         f"unknown training.dataset {name!r}; one of cifar10, digits, synthetic"
     )
@@ -60,7 +59,12 @@ def compute_dtype_for(training: Dict[str, Any]) -> torch.dtype:
 
 
 def norm_stats_for(training: Dict[str, Any]) -> Tuple[Sequence[float], Sequence[float]]:
-    """Per-dataset normalization (mean, std) for the device-side transforms."""
+    """Per-dataset normalization (mean, std) for the device-side transforms:
+    the digits statistics for ``digits``, CIFAR-10's otherwise."""
+    if str(training.get("dataset") or "cifar10") == "digits":
+        from tpuddp_torch.data.digits import DIGITS_MEAN, DIGITS_STD
+
+        return DIGITS_MEAN, DIGITS_STD
     from tpuddp_torch.data.cifar10 import CIFAR10_MEAN, CIFAR10_STD
 
     return CIFAR10_MEAN, CIFAR10_STD

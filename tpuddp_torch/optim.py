@@ -1,5 +1,6 @@
-"""torch-rule Adam with float32 or bfloat16 moments — the counterpart of
-``tpuddp/optim.py``'s ``Adam`` (lines 133-225).
+"""The optimizers of ``tpuddp/optim.py``: torch-rule Adam with float32 or
+bfloat16 moments (lines 133-225), SGD, SGDW, LARS and LAMB (lines 36-70,
+228-460), and the global-norm gradient clip (lines 463-481).
 
 Each param group's update is one call of
 :func:`tpuddp_torch.ops.fused_adam.adam_update`: one CUDA kernel launch for
@@ -19,11 +20,22 @@ The JAX optimizer is a pure function returning new arrays and one shared step
 counter; this one keeps ``step``, ``exp_avg`` (m) and ``exp_avg_sq`` (v) per
 parameter, as ``torch.optim.Adam`` does, and updates them and the parameter
 in place.
+
+SGD, SGDW, LARS and LAMB follow the JAX rules term by term, in float32, with
+PyTorch ops: the JAX package computes them as XLA-fused tree maps, with no
+Pallas kernel. They keep ``momentum_buffer`` (SGD and SGDW with a non-zero
+momentum, LARS always) or ``step``, ``exp_avg`` and ``exp_avg_sq`` (LAMB) per
+parameter. A LARS/LAMB "layer" is one parameter tensor, which is one leaf of
+the JAX tree (weight and bias are separate leaves in both packages); a norm
+does not depend on the HWIO/OIHW layout or on AlexNet's 9216-wide reorder, so
+the trust ratios need no conversion. Each step leaves the ratios it used in
+``trust_ratios`` (one float32 tensor, the stepped parameters in order), on
+the parameters' device, read by no update.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -123,3 +135,203 @@ class Adam(torch.optim.Optimizer):
                 steps=steps, leaves=leaves,
             )
         return loss
+
+
+# ------------------------------------------------- SGD, SGDW, LARS, LAMB --
+
+
+def _stepped(group) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The group's parameters that have a gradient, and their gradients."""
+    ps = [p for p in group["params"] if p.grad is not None]
+    return ps, [p.grad for p in ps]
+
+
+def _momentum_buffers(optimizer: torch.optim.Optimizer, ps) -> List[torch.Tensor]:
+    """Each parameter's ``momentum_buffer``, zeros at its first step."""
+    out = []
+    for p in ps:
+        state = optimizer.state[p]
+        if "momentum_buffer" not in state:
+            state["momentum_buffer"] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+        out.append(state["momentum_buffer"])
+    return out
+
+
+def _safe_ratio(p_norm: torch.Tensor, d_norm: torch.Tensor, scale: float) -> torch.Tensor:
+    """``scale * p_norm / d_norm`` where both norms are positive, else 1
+    (``tpuddp/optim.py:271-276``): a zero-norm layer takes the unscaled
+    step."""
+    ok = (p_norm > 0) & (d_norm > 0)
+    return torch.where(ok, scale * p_norm / torch.where(ok, d_norm, torch.ones_like(d_norm)),
+                       torch.ones_like(p_norm))
+
+
+def _norms64(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Each tensor's L2 norm, stacked, accumulated and returned in float64,
+    on the card and on the CPU alike. PyTorch's float32 norm on the CPU sums
+    one element after another and is 2e-3 off on AlexNet's 37.7M-element
+    leaf; the JAX package's float32 sum stays within its own rounding of
+    the exact norm."""
+    return torch.stack(torch._foreach_norm(list(tensors), 2, dtype=torch.float64))
+
+
+def _norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Each tensor's L2 norm, stacked, rounded to float32."""
+    return _norms64(tensors).float()
+
+
+class _TreeMap(torch.optim.Optimizer):
+    """An update written in PyTorch ops, one param group at a time (the JAX
+    package's tree maps), behind ``torch.optim.Optimizer.step``'s closure
+    protocol."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            self._update(group)
+        return loss
+
+    def _update(self, group) -> None:
+        raise NotImplementedError
+
+
+class SGD(_TreeMap):
+    """``tpuddp/optim.py:40-70`` without nesterov (no setting reaches it):
+    ``g + wd * p``, then ``b = momentum * b + g`` and ``p - lr * b``, or
+    ``p - lr * g`` with momentum 0 (which keeps no state)."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+
+    def _update(self, group) -> None:
+        ps, gs = _stepped(group)
+        if not ps:
+            return
+        lr, mu, wd = group["lr"], group["momentum"], group["weight_decay"]
+        if wd:
+            gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
+        if mu == 0.0:
+            torch._foreach_sub_(ps, torch._foreach_mul(gs, lr))
+            return
+        bufs = _momentum_buffers(self, ps)
+        torch._foreach_mul_(bufs, mu)
+        torch._foreach_add_(bufs, gs)
+        torch._foreach_sub_(ps, torch._foreach_mul(bufs, lr))
+
+
+class SGDW(_TreeMap):
+    """``tpuddp/optim.py:279-307``, decoupled weight decay:
+    ``b = momentum * b + g``, ``p - lr * b - lr * wd * p`` (``g`` for ``b``
+    with momentum 0, which keeps no state)."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+
+    def _update(self, group) -> None:
+        ps, gs = _stepped(group)
+        if not ps:
+            return
+        lr, mu, decay = group["lr"], group["momentum"], group["lr"] * group["weight_decay"]
+        step = gs
+        if mu != 0.0:
+            step = _momentum_buffers(self, ps)
+            torch._foreach_mul_(step, mu)
+            torch._foreach_add_(step, gs)
+        decayed = torch._foreach_mul(ps, decay) if decay else None
+        torch._foreach_sub_(ps, torch._foreach_mul(step, lr))
+        if decayed is not None:
+            torch._foreach_sub_(ps, decayed)
+
+
+class LARS(_TreeMap):
+    """``tpuddp/optim.py:314-358``: per layer, ``d = ratio * (g + wd * p)``
+    with ``ratio = tc * ||p|| / (||g|| + wd * ||p|| + eps)`` (1 where a norm
+    is zero), then ``b = momentum * b + d`` and ``p - lr * b``. The
+    momentum buffer is kept even at momentum 0, as the JAX state is."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0,
+                 trust_coefficient: float = 0.001, eps: float = 1e-9):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay,
+                                      trust_coefficient=trust_coefficient, eps=eps))
+        self.trust_ratios: Optional[torch.Tensor] = None
+
+    def _update(self, group) -> None:
+        ps, gs = _stepped(group)
+        if not ps:
+            return
+        wd = group["weight_decay"]
+        p_n, g_n = _norms(ps), _norms(gs)
+        ratios = _safe_ratio(p_n, g_n + wd * p_n + group["eps"], group["trust_coefficient"])
+        bufs = _momentum_buffers(self, ps)
+        for p, g, b, ratio in zip(ps, gs, bufs, ratios):
+            d = g + wd * p
+            b.mul_(group["momentum"]).add_(d.mul_(ratio))
+            p.sub_(b * group["lr"])
+        self.trust_ratios = ratios
+
+
+class LAMB(_TreeMap):
+    """``tpuddp/optim.py:361-448``: Adam's moments in float32 (``step``,
+    ``exp_avg``, ``exp_avg_sq`` per parameter), the direction
+    ``r = (m / bc1) / (sqrt(v / bc2) + eps) + wd * p`` and, per layer,
+    ``p - lr * ratio * r`` with ``ratio = ||p|| / ||r||`` (1 where a norm is
+    zero). ``eps`` defaults to 1e-6."""
+
+    def __init__(self, params, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+        self.trust_ratios: Optional[torch.Tensor] = None
+
+    def _update(self, group) -> None:
+        ps, gs = _stepped(group)
+        if not ps:
+            return
+        b1, b2 = group["betas"]
+        wd, eps = group["weight_decay"], group["eps"]
+        rs = []
+        for p, g in zip(ps, gs):
+            state = self.state[p]
+            if not state:
+                state["step"] = 0
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+                state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
+            state["step"] += 1
+            bc1, bc2 = bias_corrections(state["step"], group["betas"])
+            m, v = state["exp_avg"], state["exp_avg_sq"]
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(g.square().mul_(1 - b2))
+            r = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+            if wd:
+                r.add_(wd * p)
+            rs.append(r)
+        ratios = _safe_ratio(_norms(ps), _norms(rs), 1.0)
+        for p, r, ratio in zip(ps, rs, ratios):
+            p.sub_(r.mul_(group["lr"] * ratio))
+        self.trust_ratios = ratios
+
+
+# ------------------------------------------------------------------ clip --
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(sum of every element's square)`` over ``tensors``, on their
+    device (``tpuddp/optim.py:463-465``), in float32."""
+    return _norms64(tensors).square().sum().sqrt().float()
+
+
+def clip_grad_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale the gradients of ``params`` in place by
+    ``min(1, max_norm / (norm + 1e-6))`` so that their global L2 norm is at
+    most ``max_norm`` (``tpuddp/optim.py:468-481``); returns the pre-clip
+    norm, on the device, without a host read. Under DDP it runs on the
+    averaged gradient, the same on every replica."""
+    gs = [p.grad for p in params if p.grad is not None]
+    if not gs:
+        return torch.zeros(())
+    norm = global_norm(gs)
+    torch._foreach_mul_(gs, torch.clamp(max_norm / (norm + 1e-6), max=1.0))
+    return norm

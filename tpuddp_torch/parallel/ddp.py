@@ -19,6 +19,14 @@ per step, which is what the parity tests pin:
   (``tpuddp/training/step.py:197-225``) — not a global weighted mean, which
   differs when padded tails give replicas different real-row counts.
 
+``clip_grad_norm`` clips the averaged gradient to that global L2 norm
+before each update, on every replica alike (``tpuddp/training/step.py:
+406-413``); under accumulation once per cycle, after its division.
+
+``step`` counts the micro-batches trained, as the JAX ``TrainState.step``
+does (1 per step, A per cycle, padding micro-batches included); checkpoints
+carry it as ``.step``.
+
 ``grad_accumulation=A > 1`` makes one update per A micro-batches
 (:meth:`DistributedDataParallel.train_cycle`, ``tpuddp/parallel/ddp.py:100-106``):
 each replica's gradient is the n-weighted mean over its cycle, and the
@@ -60,8 +68,11 @@ class DistributedDataParallel:
         device: Optional[torch.device] = None,
         grad_accumulation: int = 1,
         generator: Optional[torch.Generator] = None,
+        clip_grad_norm: Optional[float] = None,
     ):
         self.generator = generator
+        self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
+        self.step = 0
         self.grad_accumulation = int(grad_accumulation)
         if self.grad_accumulation < 1:
             raise ValueError(f"grad_accumulation must be >= 1, got {grad_accumulation!r}")
@@ -110,9 +121,10 @@ class DistributedDataParallel:
                 "per micro-batch; use train_cycle with a whole cycle of batches"
             )
         x, y, w = self.to_device(batch)
+        self.step += 1
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
-            self.sync_grads, self.sync_buffers, x, y, w,
+            self.sync_grads, self.sync_buffers, x, y, w, self.clip_grad_norm,
         )
 
     def train_cycle(self, batches) -> torch.Tensor:
@@ -122,9 +134,10 @@ class DistributedDataParallel:
             raise ValueError(
                 f"a cycle takes {self.grad_accumulation} micro-batches, got {len(batches)}"
             )
+        self.step += len(batches)
         return train_cycle(
             self.model, self.optimizer, self.criterion, self.augment, self.sync_grads,
-            self.sync_buffers, [self.to_device(b) for b in batches],
+            self.sync_buffers, [self.to_device(b) for b in batches], self.clip_grad_norm,
         )
 
     def eval_step(self, batch) -> torch.Tensor:

@@ -3,7 +3,9 @@ reference tutorial's ``run_DDP_training`` (multi-GPU-training-torch.py:269-279).
 
 One process per GPU through ``torch.multiprocessing.spawn(join=True)``; a
 worker's exception propagates to the launcher. World size 1 runs in this
-process. The spawned worker function lives here, so a child process imports
+process. The launcher holds the rendezvous server
+(:func:`backend.rendezvous_store`) for the spawned ranks. The spawned worker
+function lives here, so a child process imports
 only ``tpuddp_torch`` (and whatever module ``demo_fn`` comes from).
 """
 
@@ -24,9 +26,9 @@ def _worker(
     save_dir: str,
     optional_args: dict,
     device: str,
-    init_method: str,
+    port: Optional[int],
 ):
-    _backend.setup(rank, world_size, device, init_method)
+    _backend.setup(rank, world_size, device, port)
     try:
         return demo_fn(rank, world_size, save_dir, optional_args)
     finally:
@@ -48,9 +50,9 @@ def run_ddp_training(
     _backend.detect_backend(backend)  # no GPU -> raise before spawning
     if world_size is None:
         world_size = torch.cuda.device_count() if backend == "cuda" else 1
-    init_method = f"tcp://localhost:{_backend.free_port()}"
-    args = (demo_fn, world_size, save_dir, optional_args, backend, init_method)
     if world_size == 1:
-        return _worker(0, *args)
+        return _worker(0, demo_fn, 1, save_dir, optional_args, backend, None)
+    store = _backend.rendezvous_store(world_size)  # open until every rank joins
+    args = (demo_fn, world_size, save_dir, optional_args, backend, store.port)
     mp.spawn(_worker, args=args, nprocs=world_size, join=True)
     return None

@@ -12,6 +12,11 @@ The managed ``Accelerator`` keeps that generator as its per-process stream
 (``tpuddp/accelerate.py:1378, 1487-1494``): the flip masks draw from it, and
 :func:`split` and :func:`fork_from` derive fresh generators and the model's
 initial weights from it, as ``jax.random.split`` derives keys.
+
+The checkpoints also carry the JAX package's own keys, computed in numpy
+(:mod:`tpuddp_torch._threefry`): :func:`jax_run_key`, the native
+``TrainState.rng``, and :class:`JaxKeyStream`, the managed ``Accelerator``'s
+per-process stream.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from tpuddp_torch import _threefry
 
 
 def initial_seed() -> int:
@@ -79,3 +86,31 @@ def rng_probe_string(base_seed: Optional[int]) -> str:
         f"Python random state: {py_state}, numpy random state: {tuple(np_state)}; "
         f"base seed: {base_seed}"
     )
+
+
+def jax_process_key(base_seed: int, rank: int) -> np.ndarray:
+    """The JAX package's key of ``rank`` (``tpuddp/seeding.py:55``):
+    ``fold_in(key(base_seed % 2**63), rank)``, as uint32 key data."""
+    return _threefry.fold_in(_threefry.key(int(base_seed) % 2**63), rank)
+
+
+def jax_run_key(base_seed: int) -> np.ndarray:
+    """The native ``TrainState.rng`` of a JAX run of ``base_seed``:
+    ``split(jax_process_key(base_seed, 0))[1]``, rank 0's, which the
+    construction-time broadcast keeps (``tpuddp/training/train_state.py:60-68``,
+    ``tpuddp/parallel/ddp.py:366-372``)."""
+    return _threefry.split(jax_process_key(base_seed, 0))[1]
+
+
+class JaxKeyStream:
+    """The JAX ``Accelerator``'s per-process key stream
+    (``tpuddp/accelerate.py:1378-1379, 1487-1494``): it starts at
+    ``jax_process_key(base_seed, process_index)``, and each draw splits it
+    and hands out the second half."""
+
+    def __init__(self, base_seed: int, process_index: int):
+        self.key = jax_process_key(base_seed, process_index)
+
+    def draw(self) -> np.ndarray:
+        self.key, sub = _threefry.split(self.key)
+        return sub

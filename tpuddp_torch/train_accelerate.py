@@ -193,6 +193,7 @@ def build_training(training: dict, device: str = "cuda"):
         ),
         gradient_accumulation_steps=accum,
         device=device,
+        clip_grad_norm=training.get("clip_grad_norm"),
     )
     size = training.get("image_size")
     mean, std = norm_stats_for(training)

@@ -99,7 +99,7 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         model, optimizer, CrossEntropyLoss(), augment=augment,
         eval_transform=eval_transform, device=dev,
         grad_accumulation=int(training.get("gradient_accumulation_steps") or 1),
-        generator=generator,
+        generator=generator, clip_grad_norm=training.get("clip_grad_norm"),
     )
     return ddp, train_loader, test_loader, base_seed
 

@@ -7,26 +7,41 @@ trees, so the unchanged JAX package restores what the port writes and the
 port restores what the JAX package writes:
 
 - native ``ckpt_{epoch}.npz``, a ``TrainState``: ``.params[i]['weight']``
-  (and ``'bias'``, ``'scale'``), ``.model_state[i]['mean'|'var']``,
-  ``.opt_state.step`` (int32), ``.opt_state.m[...]``, ``.opt_state.v[...]``,
-  ``.step`` (int32) and ``.rng`` (uint32 ``(2,)``);
+  (and ``'bias'``, ``'scale'``), ``.model_state[i]['mean'|'var']``, the
+  optimizer's state under ``.opt_state`` (below), ``.step`` (int32: the
+  micro-batches trained, so under gradient accumulation A per update,
+  padding micro-batches included) and ``__prngkey__.rng`` (uint32 ``(2,)``,
+  the key data of the JAX run key ``split(fold_in(key(seed), 0))[1]``,
+  :func:`tpuddp_torch.seeding.jax_run_key`);
 - managed ``state_{epoch}.npz``: ``['params']...``, ``['model_state']...``,
   ``['opt_state']...``, ``__prngkey__['rng_key']``, ``__prngkey__['bwd_key']``
   and ``['bwd_counter']`` (int64); managed ``model.npz``: ``['params']`` and
-  ``['model_state']`` alone.
+  ``['model_state']`` alone. The two keys are those of the JAX
+  ``Accelerator`` at the same point of the same run: the port's
+  ``Accelerator`` draws from a :class:`~tpuddp_torch.seeding.JaxKeyStream`
+  wherever the JAX one draws, so the stream's position is reproduced, not
+  approximated.
+
+The optimizer's state (:data:`OPT_STATE`, by optimizer class): Adam and LAMB
+keep ``.opt_state.step`` (int32, the updates) and ``.opt_state.m[...]``,
+``.opt_state.v[...]``; SGD and SGDW keep ``.opt_state.momentum[...]``, or
+nothing with momentum 0 (the JAX ``SGDState(momentum=None)``); LARS keeps
+``.opt_state.momentum[...]`` always. A file that holds another optimizer's
+state is refused with a ``ValueError`` naming both.
 
 Layouts are converted by :mod:`tpuddp_torch.models.convert` (HWIO/OIHW,
 ``(in, out)``/``(out, in)``, AlexNet's 9216-wide reorder), bitwise. bf16
 leaves (Adam moments under ``optimizer_state_dtype: bfloat16``) are stored as
-uint16 bits under ``__bf16__`` + key. The port keeps one Adam step per
+uint16 bits under ``__bf16__`` + key. The port keeps one step count per
 parameter where the JAX package keeps one per tree; every parameter's must
-agree. The JAX random keys are ``jax.random.PRNGKey(seed)``'s
-``[seed >> 32, seed & 0xffffffff]``; the port's own random streams (each
-rank's generator, the torch CPU and CUDA states) go into
-``__tpuddp_torch_rng__``, one JSON record that no JAX loader reads. Files also
-carry ``__meta__epoch`` and ``__meta__completed`` (``completed=0``: an
-emergency save, resume redoes that epoch) and a ``__topology__`` record with
-the world size; all of the port's leaves are replicated, so it tags none.
+agree. The port's own random streams (each rank's generator, the torch CPU
+and CUDA states) go into ``__tpuddp_torch_rng__``, one JSON record that no
+JAX loader reads. Files also carry ``__meta__epoch`` and
+``__meta__completed`` (``completed=0``: an emergency save, resume redoes that
+epoch) and a ``__topology__`` record with the world size; all of the port's
+leaves are replicated, so it tags none. Files written before the key leaf
+became ``__prngkey__.rng`` hold a raw ``.rng`` instead; the port reads
+neither, so both load.
 
 Rank 0 writes (staged, fsync'd, renamed), then a ``.sha256`` sidecar in the
 JAX package's manifest format; every rank waits at a barrier.
@@ -45,15 +60,17 @@ import json
 import logging
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpuddp_torch import optim
 from tpuddp_torch.models.convert import (
     jax_from_state_dict, model_name, state_dict_from_jax, torch_layout,
 )
+from tpuddp_torch.seeding import jax_run_key
 
 logger = logging.getLogger("tpuddp")
 
@@ -65,19 +82,12 @@ AUTO_RESUME_ENV = "TPUDDP_AUTO_RESUME"
 _BF16, _PRNG, _META, _TOPO, _CURSOR = (
     "__bf16__", "__prngkey__", "__meta__", "__topology__", "__cursor__",
 )
-_U32 = 0xFFFFFFFF
 
 
 def auto_resume_requested() -> bool:
     """``$TPUDDP_AUTO_RESUME`` set to anything but empty or ``0``
     (``tpuddp/resilience/preemption.py:77-81``)."""
     return os.environ.get(AUTO_RESUME_ENV, "") not in ("", "0")
-
-
-def jax_prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)`` as its uint32 pair."""
-    seed = int(seed or 0)
-    return np.array([(seed >> 32) & _U32, seed & _U32], np.uint32)
 
 
 def checkpoint_path(save_dir: str, epoch: int, prefix: str = "ckpt") -> str:
@@ -169,23 +179,63 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _adam_state(model: torch.nn.Module, optimizer) -> Tuple[int, dict, dict]:
-    """``(step, m, v)``: the one step count of every parameter and the
-    moments by parameter name (numpy; bf16 as bits). A parameter that has
-    no state yet has zero moments; mixed step counts are refused."""
-    steps, m, v = set(), {}, {}
+# optimizer class -> (JAX slot -> the optimizer's per-parameter state key,
+# whether the JAX state keeps a step count)
+_ADAM_SLOTS = ({"m": "exp_avg", "v": "exp_avg_sq"}, True)
+_MOMENTUM_SLOTS = ({"momentum": "momentum_buffer"}, False)
+OPT_STATE = {
+    optim.Adam: _ADAM_SLOTS, optim.LAMB: _ADAM_SLOTS,
+    optim.SGD: _MOMENTUM_SLOTS, optim.SGDW: _MOMENTUM_SLOTS, optim.LARS: _MOMENTUM_SLOTS,
+}
+# what a file's opt_state holds, by the slots it has
+_KINDS = {("m", "v"): "Adam or LAMB (step, m, v)", ("momentum",): "SGD, SGDW or LARS (momentum)",
+          (): "no optimizer state (SGD or SGDW with momentum 0)"}
+
+
+def _opt_slots(optimizer) -> Tuple[Dict[str, str], bool]:
+    """``optimizer``'s entry of :data:`OPT_STATE`; SGD and SGDW at momentum
+    0 keep no state."""
+    try:
+        slots, counted = OPT_STATE[type(optimizer)]
+    except KeyError:
+        raise TypeError(
+            f"no checkpoint layout for optimizer {type(optimizer).__name__}; one of "
+            f"{sorted(c.__name__ for c in OPT_STATE)}"
+        ) from None
+    if isinstance(optimizer, (optim.SGD, optim.SGDW)) and optimizer.defaults["momentum"] == 0.0:
+        slots = {}
+    return slots, counted
+
+
+def _state_dtype(optimizer) -> torch.dtype:
+    return getattr(optimizer, "state_dtype", torch.float32)
+
+
+def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer) -> Dict[str, np.ndarray]:
+    """The optimizer's state by its JAX keys (numpy; bf16 as bits). A
+    parameter without state yet has zeros; mixed step counts are refused."""
+    slots, counted = _opt_slots(optimizer)
+    dtype = _state_dtype(optimizer)
+    steps, by_slot = set(), {slot: {} for slot in slots}
     for pname, p in model.named_parameters():
         state = optimizer.state.get(p) or {}
         steps.add(int(state.get("step", 0)))
-        zeros = torch.zeros(p.shape, dtype=optimizer.state_dtype)
-        m[pname] = _bits(state.get("exp_avg", zeros))
-        v[pname] = _bits(state.get("exp_avg_sq", zeros))
-    if len(steps) > 1:
-        raise ValueError(
-            f"parameters are at Adam steps {sorted(steps)}; the JAX layout keeps one step "
-            "count for the whole tree"
-        )
-    return (steps.pop() if steps else 0), m, v
+        for slot, key in slots.items():
+            by_slot[slot][pname] = _bits(state.get(key, torch.zeros(p.shape, dtype=dtype)))
+    opt = _field(layout, "opt_state")
+    payload = {}
+    if counted:
+        if len(steps) > 1:
+            raise ValueError(
+                f"parameters are at steps {sorted(steps)}; the JAX layout keeps one step "
+                "count for the whole tree"
+            )
+        payload[f"{opt}.step"] = np.asarray(steps.pop() if steps else 0, np.int32)
+    mark = _BF16 if dtype == torch.bfloat16 else ""
+    for slot, arrays in by_slot.items():
+        tree, _ = jax_from_state_dict(name, arrays)
+        payload.update((mark + k, a) for k, a in _leaves(f"{opt}.{slot}", tree))
+    return payload
 
 
 def state_payload(layout: str, model: torch.nn.Module, optimizer=None) -> Dict[str, np.ndarray]:
@@ -195,13 +245,7 @@ def state_payload(layout: str, model: torch.nn.Module, optimizer=None) -> Dict[s
     payload = dict(_leaves(_field(layout, "params"), params))
     payload.update(_leaves(_field(layout, "model_state"), mstate))
     if optimizer is not None:
-        step, m, v = _adam_state(model, optimizer)
-        opt = _field(layout, "opt_state")
-        mark = _BF16 if optimizer.state_dtype == torch.bfloat16 else ""
-        payload[f"{opt}.step"] = np.asarray(step, np.int32)
-        for slot, moments in (("m", m), ("v", v)):
-            tree, _ = jax_from_state_dict(name, moments)
-            payload.update((mark + k, a) for k, a in _leaves(f"{opt}.{slot}", tree))
+        payload.update(_opt_payload(layout, name, model, optimizer))
     return payload
 
 
@@ -286,25 +330,27 @@ def save_on_main(
     save_dir: str, epoch: int, model: torch.nn.Module, optimizer, rank: int, *,
     layout: str = NATIVE, seed: int = 0, generator: Optional[torch.Generator] = None,
     world_size: int = 1, completed: bool = True, keep_last: Optional[int] = None,
-    counter: int = 0,
+    step: int = 0, counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> Optional[str]:
-    """``ckpt_{epoch}.npz`` (``layout=NATIVE``) or ``state_{epoch}.npz``
-    (``MANAGED``, whose ``['bwd_counter']`` is ``counter``) in ``save_dir``,
-    written by rank 0 after every rank's random streams are gathered; with
+    """``ckpt_{epoch}.npz`` (``layout=NATIVE``, whose ``.step`` is ``step``
+    and whose run key derives from ``seed``) or ``state_{epoch}.npz``
+    (``MANAGED``, whose ``['bwd_counter']`` is ``counter`` and whose
+    ``rng_key`` and ``bwd_key`` are ``keys``) in ``save_dir``, written by
+    rank 0 after every rank's random streams are gathered; with
     ``keep_last`` the older files are pruned. Returns the path on rank 0."""
+    if layout == MANAGED and keys is None:
+        raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
     device = next(model.parameters()).device
     record = _gather_rng(rng_states(generator, device))
 
     def write_fn():
         os.makedirs(save_dir, exist_ok=True)
         payload = state_payload(layout, model, optimizer)
-        key = jax_prng_key(seed)
         if layout == NATIVE:
-            payload[".step"] = payload[".opt_state.step"].copy()
-            payload[".rng"] = key
+            payload[".step"] = np.asarray(step, np.int32)
+            payload[f"{_PRNG}.rng"] = jax_run_key(seed or 0)
         else:
-            payload[f"{_PRNG}['rng_key']"] = key
-            payload[f"{_PRNG}['bwd_key']"] = key.copy()
+            payload[f"{_PRNG}['rng_key']"], payload[f"{_PRNG}['bwd_key']"] = keys
             payload["['bwd_counter']"] = np.asarray(counter, np.int64)
         payload[RNG_KEY] = np.asarray(json.dumps(record))
         path = write(
@@ -396,8 +442,51 @@ def read_meta(path: str) -> Dict[str, int]:
         return {k[len(_META):]: int(data[k]) for k in data.files if k.startswith(_META)}
 
 
+def _file_slots(stored: dict, opt: str) -> Tuple[str, ...]:
+    """The slots of the optimizer state that a file holds under ``opt``."""
+    found = set()
+    for k in stored:
+        k = k[len(_BF16):] if k.startswith(_BF16) else k
+        if k.startswith(opt + "."):
+            found.add(re.split(r"[.\[]", k[len(opt) + 1:], maxsplit=1)[0])
+    return tuple(sorted(found - {"step"}))
+
+
+def _restore_opt(path, stored, layout, name, model, optimizer, params_like) -> None:
+    """Put the file's optimizer state into ``optimizer``."""
+    slots, counted = _opt_slots(optimizer)
+    opt = _field(layout, "opt_state")
+    held = _file_slots(stored, opt)
+    if held != tuple(sorted(slots)):
+        raise ValueError(
+            f"checkpoint {path} holds the optimizer state of "
+            f"{_KINDS.get(held, 'an unknown optimizer ' + repr(held))}, but the optimizer is "
+            f"{type(optimizer).__name__} ({_KINDS[tuple(sorted(slots))]}); check "
+            "training.optimizer (and momentum) match the saved run"
+        )
+    dtype = _state_dtype(optimizer)
+    bf16 = dtype == torch.bfloat16
+    step = int(_leaf(path, stored, f"{opt}.step", np.zeros((), np.int32))) if counted else None
+    trees = {slot: torch_layout(name, _read_tree(path, stored, f"{opt}.{slot}", params_like, bf16))
+             for slot in slots}
+
+    def tensor(arr, p):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if bf16:
+            t = t.view(torch.int16).view(torch.bfloat16)
+        return t.to(p.device).contiguous()
+
+    optimizer.state.clear()
+    for pname, p in model.named_parameters():
+        state = {key: tensor(trees[slot][pname], p) for slot, key in slots.items()}
+        if counted:
+            state["step"] = step
+        if state:
+            optimizer.state[p] = state
+
+
 def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
-             generator: Optional[torch.Generator] = None) -> Dict[str, int]:
+             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     with np.load(path) as data:
         stored = dict(data.items())
     _refuse_unported(path, stored)
@@ -407,36 +496,25 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
     mstate = _read_tree(path, stored, _field(layout, "model_state"), mstate_like)
     model.load_state_dict(state_dict_from_jax(name, params, mstate))
     if optimizer is not None:
-        opt = _field(layout, "opt_state")
-        bf16 = optimizer.state_dtype == torch.bfloat16
-        step = int(_leaf(path, stored, f"{opt}.step", np.zeros((), np.int32)))
-        m = torch_layout(name, _read_tree(path, stored, f"{opt}.m", params_like, bf16))
-        v = torch_layout(name, _read_tree(path, stored, f"{opt}.v", params_like, bf16))
-
-        def tensor(arr, p):
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-            if bf16:
-                t = t.view(torch.int16).view(torch.bfloat16)
-            return t.to(p.device).contiguous()
-
-        optimizer.state.clear()
-        for pname, p in model.named_parameters():
-            optimizer.state[p] = {
-                "step": step, "exp_avg": tensor(m[pname], p), "exp_avg_sq": tensor(v[pname], p),
-            }
+        _restore_opt(path, stored, layout, name, model, optimizer, params_like)
     if RNG_KEY in stored:
         restore_rng(json.loads(str(stored[RNG_KEY])), generator, next(model.parameters()).device)
     meta = {k[len(_META):]: int(a) for k, a in stored.items() if k.startswith(_META)}
+    if layout == NATIVE and ".step" in stored:
+        meta["step"] = int(stored[".step"])
     if layout == MANAGED and "['bwd_counter']" in stored:
         meta["bwd_counter"] = int(stored["['bwd_counter']"])
+        for k in ("rng_key", "bwd_key"):
+            meta[k] = stored[f"{_PRNG}['{k}']"]
     return meta
 
 
 def load(path: str, model: torch.nn.Module, optimizer=None, *, layout: str = NATIVE,
-         generator: Optional[torch.Generator] = None) -> Dict[str, int]:
-    """Restore ``model`` (and ``optimizer``'s moments and step, and the
-    random streams) from the intact file ``path`` in ``layout``; returns its
-    ``__meta__`` scalars (and a managed file's ``bwd_counter``)."""
+         generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """Restore ``model`` (and ``optimizer``'s state, and the random streams)
+    from the intact file ``path`` in ``layout``; returns its ``__meta__``
+    scalars, and a native file's ``.step`` as ``step`` or a managed file's
+    ``bwd_counter``, ``rng_key`` and ``bwd_key``."""
     if not verify_file(path):
         raise ValueError(f"checkpoint {path} does not match its sha256 manifest")
     return _restore(path, layout, model, optimizer, generator)
@@ -519,7 +597,7 @@ def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> in
 
 def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
                    layout: str = NATIVE, generator: Optional[torch.Generator] = None
-                   ) -> Tuple[int, Dict[str, int]]:
+                   ) -> Tuple[int, Dict[str, Any]]:
     """Restore the newest intact file of ``layout`` in ``save_dir``; returns
     ``(next_epoch, meta)``: the epoch to train next (0 when there is no
     file, the file's epoch after an emergency save, ``completed=0``, else

@@ -25,9 +25,10 @@ Process 0 appends every row to ``save_dir/history.jsonl``.
 
 Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
 ``$TPUDDP_AUTO_RESUME``) the newest intact ``ckpt_{epoch}.npz`` in
-``save_dir`` is restored (parameters, buffers, Adam state, every rank's
-random streams) and the run continues at the epoch after it;
-``keep_last=K`` keeps the K newest checkpoints after each save.
+``save_dir`` is restored (parameters, buffers, the optimizer's state, the
+micro-batch count, every rank's random streams) and the run continues at
+the epoch after it; ``keep_last=K`` keeps the K newest checkpoints after
+each save.
 """
 
 from __future__ import annotations
@@ -150,9 +151,10 @@ def run_training_loop(
             if is_main:
                 log("Auto-resume requested but no save_dir configured; starting fresh.")
         else:
-            start_epoch, _ = ckpt.restore_latest(
+            start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator
             )
+            ddp.step = meta.get("step", ddp.step)
             if start_epoch > 0 and is_main:
                 log(f"Auto-resume: continuing from epoch {start_epoch}.")
     train_pass = pipeline_lib.StagedLoader(
@@ -214,6 +216,7 @@ def run_training_loop(
             ckpt.save_on_main(
                 save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
                 generator=ddp.generator, world_size=world_size, keep_last=keep_last,
+                step=ddp.step,
             )
         record = {
             "epoch": epoch,

@@ -5,8 +5,10 @@ at 945-1000, the eval core at 737-753, ``finalize_metrics`` at 1224).
 A train step is its grad half (:func:`grad_core`: forward -> buffer sync
 (the DDP wrap's broadcast of the model's buffers from rank 0) -> weighted
 loss -> backward) and its update half (:func:`update_core`: gradient sync
-(the DDP wrap's all-reduce mean) -> Adam). The train forward hands the batch
-weights to the model's BatchNorms, so padded rows stay out of their
+(the DDP wrap's all-reduce mean) -> the optional ``clip_grad_norm`` on the
+averaged gradient, the same on every replica (``tpuddp/training/step.py:
+406-413``) -> the optimizer). The train forward hands the batch weights to
+the model's BatchNorms, so padded rows stay out of their
 statistics (``tpuddp/training/step.py:203-207``); eval normalises with the
 running statistics. Metrics stay on the device as sums:
 ``loss_sum = loss * n`` and ``n`` (the batch's real rows) for training,
@@ -16,8 +18,8 @@ plus ``correct`` for eval; nothing is read back per batch.
 :func:`train_cycle` is the native path's gradient accumulation: A
 micro-batches through the grad half, their local gradients summed as
 ``n_i * g_i``, divided by ``sum n_i`` at the cycle boundary, then ONE update
-half (one gradient all-reduce, one Adam step). All-padding micro-batches
-(``n = 0``) add nothing.
+half (one gradient all-reduce, one clip, one optimizer step). All-padding
+micro-batches (``n = 0``) add nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch.nn.norm import batch_weights
+from tpuddp_torch.optim import clip_grad_norm_
 
 TRAIN_KEYS = ("loss_sum", "n")
 EVAL_KEYS = ("loss_sum", "correct", "n")
@@ -52,25 +55,29 @@ def grad_core(
     return loss.detach(), w.sum()
 
 
-def update_core(optimizer, sync_grads: Callable) -> None:
-    """The gradient all-reduce, then one optimizer update."""
+def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None) -> None:
+    """The gradient all-reduce, the clip to global norm ``clip`` (if any),
+    then one optimizer update."""
     sync_grads()
+    if clip is not None:
+        clip_grad_norm_([p for g in optimizer.param_groups for p in g["params"]], clip)
     optimizer.step()
 
 
 def train_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+    clip: Optional[float] = None,
 ) -> torch.Tensor:
     """One train step; returns the on-device sums ``[loss_sum, n]``."""
     loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w)
-    update_core(optimizer, sync_grads)
+    update_core(optimizer, sync_grads, clip)
     return torch.stack([loss * n, n])
 
 
 def train_cycle(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
-    sync_buffers: Callable, batches: Sequence,
+    sync_buffers: Callable, batches: Sequence, clip: Optional[float] = None,
 ) -> torch.Tensor:
     """One accumulation cycle over the device batches ``(x, y, w)`` of
     ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
@@ -89,7 +96,7 @@ def train_cycle(
     denom = torch.where(sums[1] == 0, torch.ones_like(sums[1]), sums[1])
     for p, a in zip(params, acc):
         p.grad = None if a is None else a / denom
-    update_core(optimizer, sync_grads)
+    update_core(optimizer, sync_grads, clip)
     return sums
 
 
