@@ -80,18 +80,50 @@ Phases, each printing one line (the first failure exits non-zero):
      losses, 8 updates, no Adam-kernel launch;
    - "8 resume lars": phase 7's native check with lars (456 MB files:
      parameters and momentum), no Adam-kernel launch;
-   - "8 digits": skipped, on a line of its own: the card's machine has no
-     scikit-learn, which ``training.dataset: digits`` needs.
+   - "8 digits": ``tpuddp_torch/configs/digits_h100.yaml`` as written
+     (toy_cnn with sync_bn on the 1,797 real digit scans of
+     ``tpuddp_torch/data/digits.npz``, batch 32, 10 epochs) through the
+     native worker: finite losses, one launch per step, the accuracy;
+9. the managed path's fused steps (``fuse_steps``; each flush of K steps one
+   CUDA-graph replay, ``training/graphs.py``):
+   - "9 graph vs eager": from one state, 3 flushes through graph replay
+     against the same 3 through the eager queue (the reference,
+     ``PreparedOptimizer._graph_replay = False``): toy_cnn on real digits at
+     depth 32 with Adam (float32 and bf16 moments) and with LAMB, and
+     AlexNet@224 b128 at depth 8 with flips and dropout; max |dp| over
+     parameters, buffers and optimizer state, and the losses (expected
+     bitwise; failing beyond 1e-5), one launch of the moments' kernel per
+     update through the replays, 1 capture and 2 replays; and 6 flushes of
+     32 toy_cnn steps taking turns between two signatures of one length (32
+     rows under the mean criterion, 20 under the sum criterion): 2 captures
+     and 4 replays, each flush replaying its own signature's graph;
+   - "9 managed fused": ``tpuddp_torch/configs/managed_fused_h100.yaml`` as
+     written (toy_cnn, real digits, 6 epochs, ``fuse_steps: auto`` = 32,
+     checkpoints at epochs 0 and 5 in a temporary directory) with graph
+     replay, the eager queue and ``fuse_steps: 1`` in turns (replay, eager,
+     depth 1, depth 1, eager, replay): finite losses, the accuracy, 270
+     launches for 270 updates, 2 captures and 10 replays, the capture
+     seconds, whether the three give the same epoch rows, and each one's
+     step median over epochs 2-6;
+   - "9 fused resume": that configuration for 5 epochs, then resumed for
+     the 6th, against 6 straight epochs: ``state_5.npz`` at max |dp| = 0;
+   - "9 managed fused AlexNet": two managed AlexNet@224 b128 epochs at
+     ``fuse_steps: 8`` with graph replay (1 capture, 3 replays), through
+     the eager queue and at ``fuse_steps: 1``, in the same turns: each
+     run's epoch-2 step median.
 
-Then one JSON line with the optimizers' numbers, one with every kernel's,
-the card's name and power limit again, and last ``{"ok": true, "device":
-{...}}``. Without a GPU, or
+Every launch count is the kernel's own: block 0 of each launch adds one to
+a word on the card, so a launch replayed from a CUDA graph counts as an
+eager one does, and a graph that lost its Adam node would count none.
+
+Then one JSON line with the optimizers' numbers, one with the fused steps',
+one with every kernel's, the card's name and power limit again, and last
+``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import math
 import os
@@ -112,10 +144,11 @@ if not torch.cuda.is_available():
 
 from tpuddp_torch import config as cfg_lib  # noqa: E402
 from tpuddp_torch import optim  # noqa: E402
-from tpuddp_torch.accelerate import Accelerator  # noqa: E402
-from tpuddp_torch.data import _native  # noqa: E402
+from tpuddp_torch.accelerate import Accelerator, PreparedOptimizer  # noqa: E402
+from tpuddp_torch.data import _native, load_datasets_for, norm_stats_for  # noqa: E402
 from tpuddp_torch.data.transforms import make_train_augment  # noqa: E402
-from tpuddp_torch.models import AlexNet  # noqa: E402
+from tpuddp_torch.models import AlexNet, load_model  # noqa: E402
+from tpuddp_torch.models.convert import jax_leaf_index  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
@@ -125,6 +158,7 @@ from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
 from tpuddp_torch.train_native import basic_ddp_training_loop, build_training  # noqa: E402
 from tpuddp_torch.training import checkpoint as ckpt  # noqa: E402
+from tpuddp_torch.training import graphs  # noqa: E402
 from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -133,6 +167,8 @@ SETTINGS = os.path.join(CONFIGS, "cifar10_alexnet_h100.yaml")
 SETTINGS_BF16 = os.path.join(CONFIGS, "cifar10_alexnet_bf16_h100.yaml")
 SETTINGS_TOY = os.path.join(CONFIGS, "cifar10_toy_cnn_sync_bn.yaml")
 SETTINGS_MANAGED = os.path.join(CONFIGS, "cifar10_alexnet_managed_h100.yaml")
+SETTINGS_FUSED = os.path.join(CONFIGS, "managed_fused_h100.yaml")
+SETTINGS_DIGITS = os.path.join(CONFIGS, "digits_h100.yaml")
 
 # Tolerances of the kernel against its plain version (IEEE float32 both;
 # they differ only where the kernel fuses a multiply-add that the plain
@@ -453,7 +489,7 @@ def training_for(path: str):
 
 def reset_counts():
     for k in fused_adam.kernels.values():
-        k.launches = 0
+        k.reset_launches()
 
 
 def native_run(path: str, overrides=None, save_dir=None):
@@ -889,6 +925,353 @@ def optimizer_epoch(name: str, steady_f32: float):
     return sum(launches.values()), steady
 
 
+def _fused_settings(path: str = None, **overrides):
+    """The training block of ``managed_fused_h100.yaml`` (or of `path`) as
+    written, real digits included, with `overrides`."""
+    settings = cfg_lib.load_settings(path or SETTINGS_FUSED)
+    cfg_lib.check_settings(settings)
+    training = cfg_lib.training_config(settings)
+    training.update(overrides)
+    return settings, training
+
+
+def _pair_state(model, opt):
+    """Parameters, buffers and optimizer state, cloned off the card."""
+    state = {f"model/{k}": v.detach().clone() for k, v in model._module.state_dict().items()}
+    for i, st in enumerate(opt.optimizer.state.values()):
+        state.update({f"opt{i}/{k}": t.clone() for k, t in st.items() if torch.is_tensor(t)})
+    return state
+
+
+def graph_vs_eager(label: str, make, steps, depth: int, opt_name: str = "adam", flushes: int = 3,
+                   signatures: int = 1):
+    """Phase 9: from one state, the steps of `steps` (``(x, y, w,
+    criterion)`` each; ``flushes`` flushes of `depth`, over `signatures`
+    flush signatures taking turns) through graph replay and through the
+    eager queue (``_graph_replay = False``): max |dp| over parameters,
+    buffers and optimizer state, the losses, each kernel's launches as the
+    kernel counted them, and the graph counts of the replay run.
+    `opt_name`: adam, adam_bf16 (bf16 moments) or lamb."""
+    out = {}
+    for mode in ("eager", "replay"):
+        acc, module, name = make()
+        if opt_name == "lamb":
+            opt = optim.LAMB(module.parameters(), lr=1e-3, weight_decay=5e-4)
+        elif opt_name == "adam_bf16":
+            leaf = jax_leaf_index(name, module)
+            opt = Adam(module.parameters(), lr=1e-3, state_dtype=torch.bfloat16,
+                       leaf_index=[leaf[n] for n, _ in module.named_parameters()])
+        else:
+            opt = Adam(module.parameters(), lr=1e-3)
+        model, opt = acc.prepare(module, opt)
+        opt._graph_replay = mode == "replay"
+        torch.cuda.manual_seed(7)  # dropout: the same stream in both runs
+        reset_counts()
+        graphs.reset_stats()
+        losses = []
+        for x, y, w, criterion in steps[: depth * flushes]:
+            opt.zero_grad()
+            loss = criterion(model(x), y, w)
+            acc.backward(loss)
+            opt.step()
+            losses.append(loss)
+        values = [l.item() for l in losses]
+        torch.cuda.synchronize()
+        out[mode] = (_pair_state(model, opt), values,
+                     {k.symbol: k.launches for k in fused_adam.kernels.values()},
+                     dict(graphs.stats), opt.updates)
+        del acc, module, model, opt, losses
+        torch.cuda.empty_cache()
+    (eager, l_e, n_e, _, u_e), (replay, l_r, n_r, g_r, u_r) = out["eager"], out["replay"]
+    diff = {k: float((eager[k].double() - replay[k].double()).abs().max()) for k in eager}
+    dp = max(v for k, v in diff.items() if k.startswith("model/"))
+    dopt = max((v for k, v in diff.items() if k.startswith("opt")), default=0.0)
+    dl = max(abs(a - b) for a, b in zip(l_e, l_r))
+    n_steps = depth * flushes
+    want = {k.symbol: 0 for k in fused_adam.kernels.values()}
+    if opt_name != "lamb":
+        want[fused_adam.kernels[torch.bfloat16 if opt_name == "adam_bf16" else torch.float32].symbol] = n_steps
+    captures, replays = signatures, flushes - signatures
+    checks = {
+        f"{n_steps} updates each": u_e == u_r == n_steps,
+        "1 launch of the moments' kernel per update, counted on the card": n_e == n_r == want,
+        f"{captures} captures, {replays} replays": (g_r["captures"], g_r["replays"]) == (captures, replays),
+        f"params, buffers and optimizer state within {PATHS_TOL}": max(dp, dopt) <= PATHS_TOL,
+        "finite losses": all(math.isfinite(v) for v in l_r),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    bitwise = dp == dopt == dl == 0.0
+    detail = (f"max|dp|={dp:.3g} max|d opt state|={dopt:.3g} max|d loss|={dl:.3g} "
+              f"({'bitwise' if bitwise else 'NOT bitwise'}); launches replay={n_r} eager={n_e}; "
+              f"captures={g_r['captures']} replays={g_r['replays']} capture_s={g_r['capture_s']:.3f}")
+    if failed:
+        raise SystemExit(f"chip_smoke: graph replay vs eager queue, {label}, failed {failed}: {detail}")
+    phase("9 graph vs eager", f"{label}, depth {depth}, {flushes} flushes ({n_steps} steps) from one "
+          f"state: {detail}; losses (replay) first {l_r[0]:.6f} last {l_r[-1]:.6f}")
+    return dict(label=label, depth=depth, steps=n_steps, max_abs_dp=dp, max_abs_d_opt_state=dopt,
+                max_abs_d_loss=dl, bitwise=bitwise, launches_replay=n_r, launches_eager=n_e,
+                capture_s=g_r["capture_s"])
+
+
+def digits_batches(n: int, batch: int = 32, seed: int = 0):
+    """`n` batches of `batch` real digits rows, drawn with a seeded numpy
+    generator."""
+    train, _ = load_datasets_for({"dataset": "digits"})
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        idx = rng.integers(0, len(train), batch)
+        out.append((train.images[idx], train.labels[idx].astype(np.int64), np.ones(batch, np.float32)))
+    return out
+
+
+def graph_pairs():
+    """Phase 9: graph replay against the eager queue on toy_cnn/digits at
+    depth 32 (Adam with float32 and with bf16 moments, LAMB, and two flush
+    signatures of one length taking turns: 32 rows under the mean
+    criterion, 20 under the sum criterion) and on AlexNet@224 b128 at depth
+    8 with flips and dropout."""
+    mean = CrossEntropyLoss()  # one object: a new criterion flushes the queue
+    digits = [b + (mean,) for b in digits_batches(96)]
+    total = CrossEntropyLoss(reduction="sum")
+    ragged = [b + (mean,) for b in digits_batches(32, seed=1)]
+    ragged += [b + (total,) for b in digits_batches(32, batch=20, seed=2)]
+    # flushes of 32: mean, sum, mean, sum, mean, sum
+    turns = [ragged[32 * (i % 2) + j] for i in range(6) for j in range(32)]
+    _, training = _fused_settings()
+    norm = norm_stats_for(training)
+
+    def toy():
+        acc = Accelerator(seed=0, fuse_steps=32, device="cuda")
+        acc.augment = make_train_augment(size=None, flip=False, mean=norm[0], std=norm[1],
+                                         generator=acc.generator)
+        torch.manual_seed(0)
+        return acc, load_model("toy_cnn", 10, input_shape=(8, 8, 3)), "toy_cnn"
+
+    gen = torch.Generator().manual_seed(1)
+    alex_batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                     torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32), mean)
+                    for _ in range(24)]
+
+    def alex():
+        acc = Accelerator(seed=0, fuse_steps=8, device="cuda")
+        acc.augment = make_train_augment(size=224, flip=True, generator=acc.generator)
+        torch.manual_seed(0)
+        return acc, AlexNet(num_classes=10), "alexnet"
+
+    return [
+        graph_vs_eager("toy_cnn digits b32 adam", toy, digits, 32),
+        graph_vs_eager("toy_cnn digits b32 adam bf16 moments", toy, digits, 32, "adam_bf16"),
+        graph_vs_eager("toy_cnn digits b32 lamb", toy, digits, 32, "lamb"),
+        graph_vs_eager("toy_cnn digits b32 mean / b20 sum in turns adam", toy, turns, 32, flushes=6,
+                       signatures=2),
+        graph_vs_eager("AlexNet@224 b128 flip dropout adam", alex, alex_batches, 8),
+    ]
+
+
+FUSED_TURNS = ("replay", "eager", "depth 1", "depth 1", "eager", "replay")
+
+
+def fused_run(mode: str, save_dir=None, **overrides):
+    """``managed_fused_h100.yaml`` as written (6 epochs of real digits)
+    through ``train_accelerate``'s worker, with graph replay, the eager
+    queue or ``fuse_steps: 1``; counts set to 0 just before it and read just
+    after: ``(history, Adam launches, graph counts, wall s)``."""
+    settings, training = _fused_settings(**overrides)
+    if mode == "depth 1":
+        training["fuse_steps"] = 1
+    if save_dir is not None:
+        os.makedirs(save_dir, exist_ok=True)
+    reset_counts()
+    graphs.reset_stats()
+    PreparedOptimizer._graph_replay = mode != "eager"
+    t0 = time.perf_counter()
+    try:
+        history = run_ddp_training(
+            partial(basic_accelerate_training, training=training, device="cuda"),
+            1, save_dir, cfg_lib.optional_args_from(settings), backend="cuda",
+        )
+        torch.cuda.synchronize()
+    finally:
+        PreparedOptimizer._graph_replay = True
+    return (history, sum(k.launches for k in fused_adam.kernels.values()), dict(graphs.stats),
+            time.perf_counter() - t0)
+
+
+def fused_turns(root: str):
+    """Phase 9: the fused configuration as written, in turns with the eager
+    queue and depth 1: finite losses, the accuracy, 1 launch per update,
+    two graphs (32 and 13 steps) replayed every epoch after the first; step
+    medians over epochs 2-6."""
+    medians = {m: [] for m in FUSED_TURNS}
+    launches = {m: 0 for m in FUSED_TURNS}
+    runs = {}
+    for i, mode in enumerate(FUSED_TURNS):
+        save_dir = os.path.join(root, f"turn{i}")
+        history, n, g, wall = fused_run(mode, save_dir)
+        steps = [ms for row in history[1:] for ms in row["step_ms"]]
+        medians[mode].append(statistics.median(steps))
+        launches[mode] += n
+        runs.setdefault(mode, (history, n, g, wall))
+        updates = sum(r["updates"] for r in history)
+        checks = {
+            "6 epochs of 45 steps": [len(r["step_ms"]) for r in history] == [45] * 6,
+            "1 Adam-kernel launch per update": n == updates == 270,
+            "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
+            "1437 train / 360 test rows": all(
+                (r["train_samples"], r["test_samples"]) == (1437, 360) for r in history),
+            "the history row's depth": all(r["fuse_steps"] == (1 if mode == "depth 1" else 32) for r in history),
+            "state_0 and state_5 written": sorted(f for f in os.listdir(save_dir) if f.endswith(".npz")) == [
+                "model.npz", "state_0.npz", "state_5.npz"],
+        }
+        if mode == "replay":
+            checks["2 captures, 10 replays"] = (g["captures"], g["replays"]) == (2, 10)
+        else:
+            checks["no graph"] = g["replays"] == 0
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: managed_fused_h100.yaml ({mode}) failed {failed}: "
+                             f"launches={n}, graphs={g}, history={history}")
+        shutil.rmtree(save_dir)
+    rows = {m: [(r["train_loss"], r["test_loss"], r["test_accuracy"]) for r in runs[m][0]] for m in runs}
+    same = {m: rows[m] == rows["replay"] for m in rows}
+    last = runs["replay"][0][-1]
+    g = runs["replay"][2]
+    fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
+    phase("9 managed fused", f"managed_fused_h100.yaml as written (toy_cnn, real digits, b32, 6 epochs, "
+          f"fuse_steps auto = 32): train_loss {fmt([r['train_loss'] for r in runs['replay'][0]])}; "
+          f"epoch 6 test_loss={last['test_loss']:.4f} test_accuracy={last['test_accuracy']:.2f}%; "
+          f"{runs['replay'][1]} fused_adam launches for 270 updates; captures={g['captures']} "
+          f"replays={g['replays']} capture_s={g['capture_s']:.3f}; epoch rows equal to the replay "
+          f"run's: {same}; turns {'/'.join(FUSED_TURNS)}: step median (epochs 2-6) ms "
+          + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
+          + f"; wall s " + ", ".join(f"{m} {runs[m][3]:.2f}" for m in runs))
+    return dict(medians=medians, launches=launches, rows_equal=same, capture_s=g["capture_s"],
+                captures=g["captures"], replays=g["replays"], test_accuracy=last["test_accuracy"])
+
+
+def fused_alexnet(steady_managed: float):
+    """Phase 9: two managed AlexNet@224 b128 epochs (synthetic stand-in) at
+    ``fuse_steps: 8`` with graph replay (4 flushes: warm-up, capture, 2
+    replays), through the eager queue and at ``fuse_steps: 1``, in turns
+    (``FUSED_TURNS``): one launch per update, counted on the card; each
+    run's epoch-2 step median, and the mean of epoch 2's steps 9-16 (at
+    depth 8 one flush, which shares no epoch start), beside the unfused
+    managed median of phase 5."""
+    settings, training = training_for(SETTINGS_MANAGED)
+    medians = {m: [] for m in FUSED_TURNS}
+    late = {m: [] for m in FUSED_TURNS}  # mean of epoch 2's steps 9-16
+    launches = {m: 0 for m in FUSED_TURNS}
+    capture_s = []
+    for mode in FUSED_TURNS:
+        depth = 1 if mode == "depth 1" else 8
+        reset_counts()
+        graphs.reset_stats()
+        PreparedOptimizer._graph_replay = mode != "eager"
+        try:
+            history = run_ddp_training(
+                partial(basic_accelerate_training, training=dict(training, fuse_steps=depth, num_epochs=2),
+                        device="cuda"),
+                1, None, cfg_lib.optional_args_from(settings), backend="cuda",
+            )
+            torch.cuda.synchronize()
+        finally:
+            PreparedOptimizer._graph_replay = True
+        n = fused_adam.kernel.launches
+        g = dict(graphs.stats)
+        checks = {
+            "2 epochs of 16 steps": [len(r["step_ms"]) for r in history] == [16, 16],
+            "32 updates, 1 launch each": n == sum(r["updates"] for r in history) == 32,
+            "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
+            f"depth {depth} in the rows": all(r["fuse_steps"] == depth for r in history),
+        }
+        if mode == "replay":
+            checks["1 capture, 3 replays"] = (g["captures"], g["replays"]) == (1, 3)
+            capture_s.append(g["capture_s"])
+        else:
+            checks["no graph"] = g["replays"] == 0
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: managed AlexNet at depth {depth} ({mode}) failed {failed}: "
+                             f"launches={n}, graphs={g}, history={history}")
+        medians[mode].append(statistics.median(history[1]["step_ms"]))
+        late[mode].append(statistics.fmean(history[1]["step_ms"][8:]))
+        launches[mode] += n
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    ratio = lambda d, m: f"{min(d[m]) / min(d['depth 1']):.3f}"
+    phase("9 managed fused AlexNet", f"AlexNet@224 b128 float32 managed, 2 epochs each, turns "
+          f"{'/'.join(FUSED_TURNS)} (depth 8 but depth 1): {launches} fused_adam launches; capture_s "
+          f"{fmt(capture_s)}; epoch-2 step median ms " + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
+          + f" (replay/depth 1 {ratio(medians, 'replay')}, eager/depth 1 {ratio(medians, 'eager')}, least "
+          f"of each); epoch-2 steps 9-16 mean ms " + "; ".join(f"{m} [{fmt(v)}]" for m, v in late.items())
+          + f" (replay/depth 1 {ratio(late, 'replay')}, eager/depth 1 {ratio(late, 'eager')}); phase 5's "
+          f"unfused managed median {steady_managed:.2f}")
+    return launches, dict(medians=medians, steps_9_16_mean=late), capture_s
+
+
+def fused_resume(root: str):
+    """Phase 9: the fused configuration for 5 epochs, then resumed for the
+    6th, against 6 straight epochs (``checkpoint_epoch: 1``): epoch 6 equal,
+    ``state_5.npz`` equal at max |dp| = 0, 45 launches in the resumed run."""
+    straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
+    whole, _, _, _ = fused_run("replay", straight, checkpoint_epoch=1)
+    fused_run("replay", resumed, checkpoint_epoch=1, num_epochs=5)
+    again, launches, g, _ = fused_run("replay", resumed, checkpoint_epoch=1, resume=True)
+    a, b = _arrays(os.path.join(straight, "state_5.npz")), _arrays(os.path.join(resumed, "state_5.npz"))
+    dp = max(float(np.abs(a[k].astype(np.float64) - b[k].astype(np.float64)).max())
+             for k in a if a[k].dtype.kind == "f")
+    checks = {
+        "epoch 6 resumed alone": [r["epoch"] for r in again] == [5],
+        "epoch 6's losses and accuracy equal": [(again[0][k]) for k in ("train_loss", "test_loss", "test_accuracy")]
+        == [whole[5][k] for k in ("train_loss", "test_loss", "test_accuracy")],
+        "max |dp| = 0": dp == 0.0,
+        "every array equal": sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a),
+        "45 launches in the resumed run": launches == 45,
+    }
+    shutil.rmtree(straight)
+    shutil.rmtree(resumed)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: fused resume failed {failed}: max|dp|={dp}, straight={whole[5]}, "
+                         f"resumed={again}")
+    phase("9 fused resume", f"managed_fused_h100.yaml, 5 epochs then resumed for the 6th against 6 straight: "
+          f"epoch 6 train_loss={again[0]['train_loss']:.4f} test_loss={again[0]['test_loss']:.4f} equal, "
+          f"state_5.npz max|dp|=0, {launches} fused_adam launches, graphs {g}")
+    return launches
+
+
+def digits_native():
+    """Phase 8: ``digits_h100.yaml`` as written (toy_cnn with sync_bn, real
+    digits, 10 epochs) through the native worker: finite losses, one launch
+    per step, the accuracy."""
+    settings, training = _fused_settings(SETTINGS_DIGITS)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = run_ddp_training(
+        partial(basic_ddp_training_loop, training=training, device="cuda"),
+        1, None, cfg_lib.optional_args_from(settings), backend="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = sum(len(r["step_ms"]) for r in history)
+    last = history[-1]
+    checks = {
+        "10 epochs of 45 steps": [len(r["step_ms"]) for r in history] == [45] * 10,
+        "1 launch per step": fused_adam.kernel.launches == steps,
+        "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
+        "1437 train / 360 test rows": (last["train_samples"], last["test_samples"]) == (1437, 360),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: digits_h100.yaml failed {failed}: history={history}")
+    phase("8 digits", f"digits_h100.yaml as written (toy_cnn sync_bn, real digits, b32, 10 epochs, native): "
+          f"{fused_adam.kernel.launches} fused_adam launches; train_loss {history[0]['train_loss']:.4f} -> "
+          f"{last['train_loss']:.4f}, test_loss={last['test_loss']:.4f}, test_accuracy="
+          f"{last['test_accuracy']:.2f}%; step median {statistics.median(last['step_ms']):.2f} ms; "
+          f"wall {wall:.2f} s")
+    return fused_adam.kernel.launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -963,11 +1346,36 @@ def main() -> None:
         resume_lars = resume_check("native", root, dict(optimizer="lars", **OPT_HP), tag="8 resume lars")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    have = "has" if importlib.util.find_spec("sklearn") else "has no"
-    phase("8 digits", f"skipped: training.dataset digits needs scikit-learn, and this machine {have} "
-          "scikit-learn; the digits arrays are not in the repository (ROADMAP.md Queue 1 item 3)")
+    launches_digits = digits_native()
     phase_8 = {f"native {n}": launches for n, (launches, _) in epochs_8.items()}
     phase_8.update({"managed lamb accum 2": launches_lamb, "native resumed lars": resume_lars})
+
+    pairs = graph_pairs()
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_fused_")
+    try:
+        turns = fused_turns(root)
+        resume_fused = fused_resume(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches_alex8, medians_alex8, capture_alex8 = fused_alexnet(steady_managed)
+    f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
+    pair_launches = {f"graph vs eager {p['label']} ({m})": p[f"launches_{m}"] for p in pairs
+                     for m in ("replay", "eager")}
+    phase_9 = {
+        **{k: n[f32_sym] for k, n in pair_launches.items()},
+        **{f"managed fused digits {m}": n for m, n in turns["launches"].items()},
+        "managed fused digits resumed": resume_fused,
+        **{f"managed AlexNet {'depth 1' if m == 'depth 1' else 'depth 8 ' + m}": n
+           for m, n in launches_alex8.items()},
+    }
+    phase_9_bf16 = {k: n[bf16_sym] for k, n in pair_launches.items()}
+    print(json.dumps({"fused": {
+        "graph_vs_eager": pairs,
+        "managed_fused_h100": {k: turns[k] for k in (
+            "medians", "rows_equal", "captures", "replays", "capture_s", "test_accuracy")},
+        "alexnet_depth_8": {"turns": list(FUSED_TURNS), "epoch_2_step_ms": medians_alex8,
+                            "phase_5_unfused_step_ms_median": steady_managed, "capture_s": capture_alex8},
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -980,7 +1388,8 @@ def main() -> None:
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
-               "native resumed": resume_native, "managed resumed": resume_managed, **phase_8}
+               "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
+               "native digits": launches_digits, **phase_9}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     print(json.dumps({"kernels": [
@@ -988,12 +1397,13 @@ def main() -> None:
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
          "launches_by_path": by_path},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
-         "launches": launches_bf16 + sum(ab_bf16.values()),
+         "launches": launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values()),
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
          "launches_by_path": {"native bf16": launches_bf16,
                               **{f"native bf16 pipeline {k}": n for k, n in ab_bf16.items()},
-                              **{k: 0 for k in phase_8}}},
+                              **{k: 0 for k in phase_8}, "native digits": 0,
+                              **{k: 0 for k in phase_9}, **phase_9_bf16}},
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Entry-point runs of the port from a settings block, for
-tests/test_torch_port_optim_train.py and tests/test_torch_port_digits.py.
+tests/test_torch_port_optim_train.py, tests/test_torch_port_digits.py and
+tests/test_torch_port_fuse_train.py.
 
     python tests/_torch_port_entry_worker.py WORKDIR
 
@@ -48,7 +49,8 @@ def run(rank: int, world_size: int, path: str, training: dict, init: dict):
     model.module.load_state_dict(sd)
     history = train_accelerate.run_training_loop(
         model, train_loader, test_loader, criterion, opt, None, acc, eval_transform,
-        num_epochs=training["num_epochs"], checkpoint_epoch=training["checkpoint_epoch"])
+        num_epochs=training["num_epochs"], checkpoint_epoch=training["checkpoint_epoch"],
+        deferred_metrics=bool(training.get("deferred_metrics")))
     return history, model.module.state_dict()
 
 

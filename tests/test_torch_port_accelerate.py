@@ -4,7 +4,8 @@ toy_cnn with BatchNorm at world 1 (in-process against a 1-device mesh) and
 world 2 (two Gloo processes against a 2-device mesh, with a ragged batch that
 shows the global-weighted gradient and the global BatchNorm statistics),
 managed == native at world 1, the call-order contracts, the fuse_steps and
-deferred_metrics refusals and resolutions, the loaders, save_model and
+deferred_metrics resolutions (the one refusal: a depth over 1 with
+accumulation), the loaders, save_model and
 save_state, and the entry point end to end on 2 Gloo processes.
 
 Inputs come from numpy seeds, weights from the JAX init through
@@ -401,9 +402,9 @@ def test_fuse_steps_resolutions_match_jax(cpu_devices):
     with pytest.raises(ValueError) as err:
         Accelerator(fuse_steps=4, gradient_accumulation_steps=2, device="cpu")
     assert str(err.value) == str(jax_err.value)
-    for fuse in (4, "auto"):  # the JAX package queues K > 1 steps here
-        with pytest.raises(NotImplementedError, match="managed fuse_steps"):
-            Accelerator(fuse_steps=fuse, device="cpu")
+    for fuse in (4, "auto"):  # the JAX package queues K > 1 steps here; so does the port
+        assert Accelerator(fuse_steps=fuse, device="cpu").fuse_steps \
+            == JaxAccelerator(mesh=mesh, fuse_steps=fuse).fuse_steps == fuse
 
 
 @pytest.mark.parametrize("training,fuse", [
@@ -411,6 +412,9 @@ def test_fuse_steps_resolutions_match_jax(cpu_devices):
     ({"deferred_metrics": True, "fuse_steps": 1}, 1),
     ({"deferred_metrics": True, "gradient_accumulation_steps": 2}, 1),
     ({"fuse_steps": "auto", "gradient_accumulation_steps": 4}, 1),
+    ({"deferred_metrics": True}, "auto"),
+    ({"deferred_metrics": True, "fuse_steps": "auto"}, "auto"),
+    ({"fuse_steps": 2}, 2),
 ])
 def test_accepted_fuse_and_deferred_settings(training, fuse):
     t = cfg.training_config({"training": training})
@@ -419,14 +423,10 @@ def test_accepted_fuse_and_deferred_settings(training, fuse):
 
 
 @pytest.mark.parametrize("training,error", [
-    ({"deferred_metrics": True}, NotImplementedError),
-    ({"deferred_metrics": True, "fuse_steps": "auto"}, NotImplementedError),
-    ({"fuse_steps": 2}, NotImplementedError),
     ({"fuse_steps": 2, "gradient_accumulation_steps": 2}, ValueError),
 ])
 def test_refused_fuse_and_deferred_settings(training, error):
-    match = "managed fuse_steps: K queued steps" if error is NotImplementedError else "mutually"
-    with pytest.raises(error, match=match):
+    with pytest.raises(error, match="mutually"):
         cfg.training_config({"training": training})
 
 

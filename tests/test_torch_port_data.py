@@ -101,14 +101,15 @@ def test_cifar10_falls_back_to_jax_synthetic_stand_in(tmp_path, monkeypatch):
 
 
 def test_synthetic_dataset_sizes_and_digits_refused(monkeypatch):
-    """Digits without scikit-learn is refused with an ImportError naming it
-    (tests/test_torch_port_digits.py holds the arrays)."""
+    """Digits load from the arrays in the repository, with scikit-learn
+    unimportable (tests/test_torch_port_digits.py holds the arrays against
+    the JAX package's); an unknown dataset is refused."""
     train, test = load_datasets_for({"dataset": "synthetic", "synthetic_n": [64, 16]})
     assert (len(train), len(test)) == (64, 16)
     monkeypatch.setitem(sys.modules, "sklearn", None)
     monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
-    with pytest.raises(ImportError, match="scikit-learn.*ROADMAP"):
-        load_datasets_for({"dataset": "digits"})
+    train, test = load_datasets_for({"dataset": "digits"})
+    assert (len(train), len(test)) == (1437, 360)
     with pytest.raises(ValueError):
         load_datasets_for({"dataset": "imagenet"})
     assert flip_for({}) and not flip_for({"dataset": "digits"}) and not flip_for({"flip": False})

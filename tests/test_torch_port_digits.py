@@ -1,7 +1,7 @@
 """The digits dataset of the port (tpuddp_torch/data/digits.py) against the
-JAX package's (tpuddp/data/digits.py), on the CPU: the arrays, the seeded
-1,437/360 split and the normalization statistics, bitwise; the ImportError
-without scikit-learn; tpuddp_torch/configs/digits_h100.yaml's training block
+JAX package's (tpuddp/data/digits.py), on the CPU: the committed arrays
+(``tpuddp_torch/data/digits.npz``), the seeded 1,437/360 split and the
+normalization statistics, bitwise; the arrays load without scikit-learn; tpuddp_torch/configs/digits_h100.yaml's training block
 against configs/digits_tpu.yaml's; both entry points' builders at the native
 8 px (``image_size: null``); and that block (toy_cnn with sync_bn) for one
 epoch through the native entry point on 1 and 2 Gloo processes against the
@@ -71,10 +71,17 @@ def test_arrays_split_and_statistics_are_the_jax_packages():
 
 
 def test_without_scikit_learn_digits_raise_an_import_error(monkeypatch):
+    """Digits need no scikit-learn at run time: with it unimportable they
+    load from ``tpuddp_torch/data/digits.npz``, bitwise the arrays read with
+    it, and no ImportError is raised."""
+    images, labels = digits._load_arrays()
     monkeypatch.setitem(sys.modules, "sklearn", None)
     monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
-    with pytest.raises(ImportError, match=r"scikit-learn.*ROADMAP.md Queue 1 item 3"):
-        digits.load_datasets()
+    again, again_labels = digits._load_arrays()
+    np.testing.assert_array_equal(images, again)
+    np.testing.assert_array_equal(labels, again_labels)
+    train, test = digits.load_datasets()
+    assert (len(train), len(test)) == (1437, 360)
 
 
 def test_the_settings_file_is_the_jax_packages_block():

@@ -260,7 +260,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
     ("guard", True), ("snapshot", True),
     ("pretrained_path", "/x.pt"), ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
-    ("deferred_metrics", True), ("fuse_steps", 4), ("reshard_on_mismatch", True),
+    ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
@@ -271,6 +271,11 @@ def test_unported_knobs_are_refused(knob, value):
     ("optimizer", "sgd"), ("optimizer", "lars"), ("clip_grad_norm", 1.0),
 ])
 def test_optimizer_knobs_are_accepted(knob, value):
+    assert cfg.training_config({"training": {knob: value}})[knob] == value
+
+
+@pytest.mark.parametrize("knob,value", [("deferred_metrics", True), ("fuse_steps", 4)])
+def test_fused_step_knobs_are_accepted(knob, value):
     assert cfg.training_config({"training": {knob: value}})[knob] == value
 
 

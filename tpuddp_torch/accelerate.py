@@ -1,21 +1,51 @@
 """Accelerator — the managed path of the port, the counterpart of
-``tpuddp/accelerate.py`` (52-181, 521-845 without the fused-scan program,
-925-1186 and 1299-1810) and of the HuggingFace ``Accelerator`` surface the
-reference's ``multi-GPU-training-accelerate.py`` uses.
+``tpuddp/accelerate.py`` (52-387, 521-1296 and 1299-1810) and of the
+HuggingFace ``Accelerator`` surface the reference's
+``multi-GPU-training-accelerate.py`` uses.
 
 The training sequence is the torch one::
 
     outputs = model(inputs)                    # LazyForward: runs nothing yet
     loss = criterion(outputs, labels, weights) # LazyLoss: binds the weights
-    accelerator.backward(loss)                 # forward + backward + sync
-    optimizer.step()                           # the optimizer (Adam: its kernel)
+    accelerator.backward(loss)                 # the backward request
+    optimizer.step()                           # the update (Adam: its kernel)
 
 The forward waits for the criterion because a train-mode forward must leave
 padded rows (``w = 0``) out of the BatchNorm statistics, and ``w`` is only
-known when the criterion is applied (``tpuddp/accelerate.py:651-716``). It
-runs at ``accelerator.backward(loss)`` (train mode, with the accelerator's
-``augment`` first), at ``loss.item()`` or at ``outputs.argmax()`` (forward
-only, e.g. in eval loops, which pass already-transformed inputs).
+known when the criterion is applied (``tpuddp/accelerate.py:651-716``).
+``accelerator.backward(loss)`` records the request (its batch on the device,
+its flip mask drawn from the accelerator's stream, its step index). At fuse
+depth 1 it runs at once: forward (train mode, with the accelerator's
+``augment`` first), backward and the gradient sync, and ``step()`` applies
+the update. A forward alone runs at ``loss.item()`` or ``outputs.argmax()``
+(e.g. in eval loops, which pass already-transformed inputs).
+
+**Fused steps** (``fuse_steps`` K > 1, ``tpuddp/accelerate.py:1032-1063,
+:1237-1296``): ``backward`` only records, ``step()`` queues the request, and
+the queue runs as one flush when it holds K steps, when the criterion or
+the batch's shape or dtype changes, or when anything reads the model or a
+queued loss. ``auto`` resolves at the first backward to 32, capped by the
+staging budget over that batch's bytes (:func:`tpuddp_torch.utils.batching.
+resolve_fuse`). On the CPU a flush runs its steps one after another with the
+depth-1 operations in the depth-1 order, so a fused run is bitwise the
+unfused one. On a CUDA model it runs as a CUDA graph of K steps, captured at
+the second flush of each length and replayed at every later one
+(``training/graphs.py``); the first flush of a length runs eagerly as the
+warm-up. The contracts of the JAX queue hold:
+
+- reading a queued loss (``item()``, ``device_value()``), ``sum_losses``,
+  ``parameters()``, ``module``, a forward, ``gather``, ``save_model`` and
+  ``save_state`` flush first;
+- a loss read before ``step()`` flushes, then runs that step's gradient now;
+  the ``step()`` that follows applies it at once, unqueued;
+- ``load_model`` and ``load_state`` discard queued steps without running
+  them (their losses are dropped) and drop every captured graph;
+- a flush that fails marks its unresolved losses dropped, and reading one
+  raises.
+
+:class:`FusedEvaluator` sums each test batch's loss,
+the correct count and the real-row count on the device, with one host read
+at ``finalize()``.
 
 The managed step computes the gradient of the GLOBAL batch's weighted-mean
 loss, as the JAX step evaluates the criterion over the whole sharded batch:
@@ -32,7 +62,9 @@ Gradient accumulation (``gradient_accumulation_steps = A``) is the JAX
 managed rule, which differs from the native one on purpose: ``step()`` adds
 each micro-batch's global-mean gradient to a sum and every A-th applies ONE
 update from the UNWEIGHTED mean ``sum / A``; ``flush_accumulation()`` applies
-a partial cycle with ``1 / count`` (``tpuddp/accelerate.py:1092-1140``).
+a partial cycle with ``1 / count`` (``tpuddp/accelerate.py:1092-1140``). It
+excludes fusion: ``auto`` is then depth 1, and an explicit depth over 1 is a
+``ValueError``.
 
 ``clip_grad_norm`` clips the update's gradient (after the loss-scaled
 all-reduce and, under accumulation, after the cycle's average) to that global
@@ -50,7 +82,8 @@ them back.
 Call-order contracts (``tests/test_accelerate.py``): ``step()`` without a
 ``backward()`` raises; a second ``backward()`` before ``step()`` drops the
 first loss (reading it then raises), or raises under accumulation;
-``zero_grad()`` drops a staged step and is otherwise a no-op.
+``zero_grad()`` drops a backward waiting for ``step()`` and is otherwise a
+no-op (queued steps stay queued).
 
 Batches may arrive already on the device (the entry point stages them,
 ``training/pipeline.py``); a host array is copied from pinned memory without
@@ -62,7 +95,7 @@ write and read the JAX package's ``model.npz`` and ``state_{epoch}.npz``
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,6 +108,10 @@ from tpuddp_torch.optim import clip_grad_norm_
 from tpuddp_torch.parallel import backend, collectives
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training.pipeline import to_device
+from tpuddp_torch.utils import batching
+
+# the fuse depth that ``auto`` is capped at (tpuddp/accelerate.py:473-491)
+AUTO_FUSE_CAP = 32
 
 
 class LazyForward:
@@ -106,10 +143,9 @@ class LazyForward:
 
 
 class LazyLoss:
-    """A deferred ``criterion(outputs, labels, weights)``. After
-    ``accelerator.backward`` it holds the global batch's loss, the same on
-    every process; read without a backward it is this process's forward-only
-    loss."""
+    """A deferred ``criterion(outputs, labels, weights)``. After its step has
+    run it holds the global batch's loss, the same on every process; read
+    without a backward it is this process's forward-only loss."""
 
     def __init__(self, fwd: LazyForward, criterion: Callable, labels, weights):
         self._fwd = fwd
@@ -118,23 +154,29 @@ class LazyLoss:
         self._weights = weights
         self._value: Optional[torch.Tensor] = None
         self._read = False
-        self._dropped = None  # why the staged step was dropped, once it is
+        self._dropped = None  # why its backward request was dropped, once it is
+        self._queued_on: Optional["PreparedOptimizer"] = None  # its step is queued there
 
     def _drop(self, reason: str) -> None:
-        """The staged step this loss belongs to was dropped before
+        """The backward request this loss belongs to was dropped before its
         ``step()``; a value never read must not be read later."""
         if not self._read:
             self._dropped = reason
 
     def device_value(self) -> torch.Tensor:
-        """The loss as a device scalar, with no host read."""
+        """The loss as a device scalar, with no host read (a queued step's
+        loss flushes its queue)."""
+        if self._value is None and self._queued_on is not None:
+            self._queued_on.flush()
+        model = self._fwd._model
+        if self._value is None and model._pending is not None and model._pending.loss is self:
+            model._materialize()  # loss.item() before step(): its gradient runs now
         if self._dropped is not None:
             raise RuntimeError(
                 f"this loss's backward request was dropped before optimizer.step() "
                 f"({self._dropped}); its value must not be read"
             )
         if self._value is None:  # forward only, e.g. in an eval loop
-            model = self._fwd._model
             self._value = self._criterion(
                 self._fwd.value, model.to_device(self._labels, torch.int64),
                 None if self._weights is None else model.to_device(self._weights, torch.float32),
@@ -147,33 +189,61 @@ class LazyLoss:
 
 
 def sum_losses(losses) -> torch.Tensor:
-    """The device sum of many losses' values (one stack and one sum, no host
-    read); ``float()`` it for the one read of an epoch."""
-    values = [l.device_value().reshape(()) for l in losses]
-    return torch.stack(values).sum() if values else torch.zeros(())
+    """The device sum of many losses' values, with no host read; ``float()``
+    it for the one read of an epoch. Queued steps are flushed once. The
+    values are summed as one vector in the losses' order, so the sum is the
+    same bits whatever the fuse depth."""
+    losses = list(losses)
+    for l in losses:
+        if l._value is None and l._queued_on is not None:
+            l._queued_on.flush()
+    if not losses:
+        return torch.zeros(())
+    return torch.stack([l.device_value() for l in losses]).sum()
+
+
+class _Request(NamedTuple):
+    """One ``accelerator.backward`` request: the batch on the device, its
+    flip mask (None: no flip, or an augment that draws its own), the step
+    index and the loss it fills."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor
+    criterion: Callable
+    step_idx: int
+    loss: LazyLoss
+    flip_mask: Optional[torch.Tensor]
 
 
 class PreparedModel:
     """The managed model: ``model(x)`` returns a :class:`LazyForward`;
     ``train()``/``eval()`` switch the module's mode. ``module`` is the
     unwrapped ``nn.Module``, on the accelerator's device, every BatchNorm
-    synced, with process 0's parameters and buffers."""
+    synced, with process 0's parameters and buffers; reading it (or
+    ``parameters()``) flushes queued steps first."""
 
     def __init__(self, accelerator: "Accelerator", module: torch.nn.Module):
         self.accelerator = accelerator
         self.device = accelerator.device
-        self.module = convert_sync_batchnorm(module.to(self.device))
-        collectives.broadcast_one_to_all(self.module)
-        self._staged: Optional[LazyLoss] = None  # backward done, step() not yet
+        self._module = convert_sync_batchnorm(module.to(self.device))
+        collectives.broadcast_one_to_all(self._module)
+        self._pending: Optional[_Request] = None  # backward requested, not run yet
+        self._staged: Optional[LazyLoss] = None  # backward run, step() not yet
         self._optimizer: Optional["PreparedOptimizer"] = None  # bound by prepare
-        self._bwd_counter = 0  # backward passes run, saved as ['bwd_counter']
+        self._bwd_counter = 0  # backward requests, saved as ['bwd_counter']
         # the JAX model's draws: its backward base key here, its init key at
         # its first forward (tpuddp/accelerate.py:544, :605)
         self._bwd_key = accelerator.jax_keys.draw()
         accelerator.jax_keys.draw()
 
+    @property
+    def module(self) -> torch.nn.Module:
+        self._flush_queues()
+        return self._module
+
     def train(self, mode: bool = True) -> "PreparedModel":
-        self.module.train(mode)
+        self._module.train(mode)
         return self
 
     def eval(self) -> "PreparedModel":
@@ -191,63 +261,106 @@ class PreparedModel:
         return to_device(a, self.device, dtype)
 
     def _params(self):
-        return [p for p in self.module.parameters() if p.requires_grad]
+        return [p for p in self._module.parameters() if p.requires_grad]
+
+    def _flush_queues(self) -> None:
+        """Run the optimizer's queued steps, so that what is read next is
+        current."""
+        if self._optimizer is not None:
+            self._optimizer.flush()
 
     @torch.no_grad()
     def _forward_only(self, x, w) -> torch.Tensor:
+        self._flush_queues()
         x = self.to_device(x)
-        if not self.module.training:
-            return self.module(x)
+        module = self._module
+        if not module.training:
+            return module(x)
         self.accelerator.jax_keys.draw()  # the JAX forward's dropout key
         # train mode without a backward: the JAX package computes it over
         # the batch it is given and discards the new buffers; so does this,
         # with the BatchNorms unsynced (no collective on one process's read)
         aug = self.accelerator.augment
-        norms = [m for m in self.module.modules() if isinstance(m, BatchNorm)]
+        norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
         syncs = [m.sync for m in norms]
-        saved = [b.clone() for b in self.module.buffers()]
+        saved = [b.clone() for b in module.buffers()]
         try:
             for m in norms:
                 m.sync = False
-            with batch_weights(self.module, None if w is None else self.to_device(w, torch.float32)):
-                return self.module(aug(x) if aug is not None else x)
+            with batch_weights(module, None if w is None else self.to_device(w, torch.float32)):
+                return module(aug(x) if aug is not None else x)
         finally:
             for m, s in zip(norms, syncs):
                 m.sync = s
-            for b, s in zip(self.module.buffers(), saved):
+            for b, s in zip(module.buffers(), saved):
                 b.copy_(s)
 
     def _backward(self, loss: LazyLoss) -> None:
-        """Forward and backward of the global batch's loss for ``loss``'s
-        batch; the global-mean gradient lands in each parameter's ``.grad``
-        and waits there for ``step()``."""
-        if self._staged is not None:
+        """Record the backward request of ``loss``; at fuse depth 1 run it
+        now (forward, backward, gradient sync)."""
+        if self._pending is not None or self._staged is not None:
             if self.accelerator.gradient_accumulation_steps > 1:
                 raise RuntimeError(
                     "gradient accumulation requires optimizer.step() after EACH "
                     "accelerator.backward(): a second backward here would drop the "
                     "previous micro-batch's gradient"
                 )
-            self._staged._drop("a second accelerator.backward() preceded optimizer.step()")
+            old = self._pending.loss if self._pending is not None else self._staged
+            old._drop("a second accelerator.backward() preceded optimizer.step()")
+            self._pending = self._staged = None
         fwd = loss._fwd
         x = self.to_device(fwd._x)
         y = self.to_device(loss._labels, torch.int64)
         w = (torch.ones(y.shape[0], device=self.device) if loss._weights is None
              else self.to_device(loss._weights, torch.float32))
-        was_training = self.module.training
-        self.module.train()
+        draw = getattr(self.accelerator.augment, "flip_mask", None)
+        req = _Request(x, y, w, loss._criterion, self._bwd_counter, loss,
+                       draw(x) if draw is not None else None)
+        self._bwd_counter += 1
+        if self._optimizer is not None and self._optimizer._depth(x) > 1:
+            self._pending = req
+        else:
+            self._stage(req)
+
+    def _materialize(self) -> None:
+        """A pending request's loss is read before ``step()``: the queue
+        runs first (the gradient must be of the current parameters), then
+        this request's forward and backward."""
+        req, self._pending = self._pending, None
+        self._flush_queues()
+        self._stage(req)
+
+    def _stage(self, req: _Request) -> None:
+        """Run ``req``'s forward and backward; its gradient waits in
+        ``.grad`` for ``step()``."""
+        value, logits = self._execute(req)
+        req.loss._value = value
+        req.loss._fwd._logits = logits.detach()
+        self._staged = req.loss
+
+    @torch.enable_grad()  # a flush may start inside a forward-only read's no_grad
+    def _execute(self, req: _Request):
+        """Forward and backward of the global batch's loss for ``req``'s
+        batch: the global-mean gradient lands in each parameter's ``.grad``.
+        Returns ``(global loss, logits)``. Reads nothing on the host, so it
+        runs inside a CUDA-graph capture too."""
+        module = self._module
+        x = req.x
+        was_training = module.training
+        module.train()
         try:
-            if self.accelerator.augment is not None:
-                x = self.accelerator.augment(x)
-            with batch_weights(self.module, w):
-                logits = self.module(x)
+            aug = self.accelerator.augment
+            if aug is not None:
+                x = aug(x) if req.flip_mask is None else aug(x, flip_mask=req.flip_mask)
+            with batch_weights(module, req.w):
+                logits = module(x)
         finally:
-            self.module.train(was_training)
-        n = w.sum()
+            module.train(was_training)
+        n = req.w.sum()
         total = n.clone()
         collectives.all_reduce_sum_([total])
         share = n / torch.where(total == 0, torch.ones_like(total), total)
-        scaled = loss._criterion(logits, y, w) * share
+        scaled = req.criterion(logits, req.y, req.w) * share
         params = self._params()
         for p in params:
             p.grad = None
@@ -257,44 +370,94 @@ class PreparedModel:
                 p.grad = torch.zeros_like(p)
         value = scaled.detach().reshape(1)
         collectives.all_reduce_sum_([p.grad for p in params] + [value])
-        loss._value = value.reshape(())
-        fwd._logits = logits.detach()
-        self._staged = loss
-        self._bwd_counter += 1
+        return value.reshape(()), logits
 
 
 class PreparedOptimizer:
-    """Wraps the optimizer: ``step()`` applies the gradient that the last
-    ``accelerator.backward`` left (clipped, with ``clip_grad_norm``; one
-    Adam-kernel launch per Adam update on a CUDA model), or under
-    accumulation adds it to the cycle's sum."""
+    """Wraps the optimizer: ``step()`` applies the gradient of the last
+    ``accelerator.backward`` (clipped, with ``clip_grad_norm``; one
+    Adam-kernel launch per Adam update on a CUDA model), adds it to the
+    cycle's sum under accumulation, or queues the step at fuse depth K > 1.
+    ``flush()`` runs the queue: eagerly on the CPU, as a CUDA graph on a CUDA
+    model (``training/graphs.py``)."""
+
+    # False: a CUDA model's flushes run the eager queue, the reference that
+    # chip_smoke.py holds the graph replays against
+    _graph_replay = True
 
     def __init__(self, optimizer: torch.optim.Optimizer, model: PreparedModel):
         self.optimizer = optimizer
         self.model = model
         self._accum = None  # the cycle's gradient sum, one tensor per parameter
         self._accum_count = 0
+        self._fuse: Optional[int] = None  # the resolved depth, at the first backward
+        self._queue: List[_Request] = []
+        self._graphs = None  # training.graphs.StepGraphs, at a CUDA model's first flush
         self.updates = 0
 
+    @property
+    def fuse_depth(self) -> Optional[int]:
+        """The resolved fuse depth (None before the first backward)."""
+        return self._fuse
+
+    @property
+    def queued(self) -> int:
+        """Steps waiting in the queue."""
+        return len(self._queue)
+
+    def _depth(self, x: torch.Tensor) -> int:
+        """The fuse depth, resolved at the first request: ``auto`` is 32,
+        capped by the staging budget over this batch's bytes."""
+        if self._fuse is None:
+            fuse = self.model.accelerator.fuse_steps
+            if fuse == "auto":
+                fuse = batching.resolve_fuse(x.numel() * x.element_size(), cap=AUTO_FUSE_CAP)
+            self._fuse = int(fuse)
+        return self._fuse
+
     def zero_grad(self) -> None:
-        """Drops a staged step; otherwise nothing (the managed no-op)."""
-        staged = self.model._staged
-        if staged is not None:
-            staged._drop("zero_grad() preceded optimizer.step()")
-            for p in self.model._params():
+        """Drops a backward waiting for ``step()``; otherwise nothing (the
+        managed no-op)."""
+        model = self.model
+        if model._pending is not None:
+            model._pending.loss._drop("zero_grad() preceded optimizer.step()")
+        if model._staged is not None:
+            model._staged._drop("zero_grad() preceded optimizer.step()")
+            for p in model._params():
                 p.grad = None
-        self.model._staged = None
+        model._pending = model._staged = None
 
     def step(self) -> None:
-        if self.model._staged is None:
+        model = self.model
+        if model._staged is not None:  # its gradient is in .grad
+            model._staged = None
+            self._update()
+            return
+        req = model._pending
+        if req is None:
             raise RuntimeError(
                 "optimizer.step() called without a preceding accelerator.backward(loss)"
             )
-        self.model._staged = None
-        params = self.model._params()
-        if self.model.accelerator.gradient_accumulation_steps == 1:
+        model._pending = None
+        head = self._queue[0] if self._queue else None
+        if head is not None and (
+            head.criterion is not req.criterion or head.x.shape != req.x.shape
+            or head.x.dtype != req.x.dtype
+        ):
+            self.flush()  # never one flush over mixed criteria, shapes or dtypes
+        self._queue.append(req)
+        req.loss._queued_on = self
+        if len(self._queue) >= self._fuse:
+            self.flush()
+
+    def _update(self) -> None:
+        """The staged gradient: applied, or added to the accumulation
+        cycle."""
+        accum = self.model.accelerator.gradient_accumulation_steps
+        if accum == 1:
             self._apply()
             return
+        params = self.model._params()
         grads = [p.grad for p in params]
         for p in params:
             p.grad = None
@@ -303,8 +466,38 @@ class PreparedOptimizer:
         else:
             self._accum = [a + g for a, g in zip(self._accum, grads)]
         self._accum_count += 1
-        if self._accum_count >= self.model.accelerator.gradient_accumulation_steps:
+        if self._accum_count >= accum:
             self.flush_accumulation()
+
+    def flush(self) -> None:
+        """Run every queued step now. If the flush fails, every queued loss
+        without a value is marked dropped and the error propagates."""
+        queue, self._queue = self._queue, []
+        if not queue:
+            return
+        try:
+            if self._graph_replay and self.model.device.type == "cuda":
+                if self._graphs is None:
+                    from tpuddp_torch.training.graphs import StepGraphs
+
+                    self._graphs = StepGraphs(self)
+                self._graphs.run(queue)
+            else:
+                self._run_eager(queue)
+        except BaseException:
+            for req in queue:
+                req.loss._queued_on = None
+                if req.loss._value is None:
+                    req.loss._drop("its fused-step flush failed (see the original exception)")
+            raise
+        for req in queue:
+            req.loss._queued_on = None
+
+    def _run_eager(self, queue) -> None:
+        """The queued steps one after another, each the depth-1 step."""
+        for req in queue:
+            req.loss._value, _ = self.model._execute(req)
+            self._apply()
 
     def flush_accumulation(self) -> None:
         """Apply a partial cycle now, averaged over the micro-batches it
@@ -327,6 +520,64 @@ class PreparedOptimizer:
         self.updates += 1
 
 
+class FusedEvaluator:
+    """The managed eval pass (``tpuddp/accelerate.py:221-387``): ``add``
+    runs transform, forward, the per-batch criterion and the correct and
+    real-row counts of one test batch on the device and adds them into three
+    device scalars (the loss sum in float32, the counts as integers), and
+    ``finalize()`` reads them once: ``(loss sum, correct, total)``. Queued
+    train steps are flushed first. Every process evaluates the whole stream
+    it is given (quirk Q3); padded rows (``w = 0``) count nowhere.
+
+    The JAX evaluator runs groups of ``fuse_steps`` batches as one program;
+    here each batch runs at ``add`` (eval graph replay is ROADMAP work), so
+    ``fuse_steps`` (None: auto) is accepted for the JAX API and changes no
+    result."""
+
+    def __init__(self, model: PreparedModel, criterion, transform=None, fuse_steps=None):
+        self.model = model
+        self.criterion = criterion
+        self.transform = transform
+        self.fuse_steps = None if fuse_steps is None else max(1, int(fuse_steps))
+        self._stats = None
+
+    @torch.no_grad()
+    def add(self, x, y, w=None) -> None:
+        model = self.model
+        model._flush_queues()  # queued train updates land first
+        x, y = model.to_device(x), model.to_device(y, torch.int64)
+        w = (torch.ones(y.shape[0], device=model.device) if w is None
+             else model.to_device(w, torch.float32))
+        module = model._module
+        if self._stats is None:
+            self._stats = (torch.zeros((), device=model.device),
+                           torch.zeros((), dtype=torch.int64, device=model.device),
+                           torch.zeros((), dtype=torch.int64, device=model.device))
+        loss_sum, correct, total = self._stats
+        was_training = module.training
+        module.eval()
+        try:
+            if self.transform is not None:
+                x = self.transform(x)
+            logits = module(x)
+        finally:
+            module.train(was_training)
+        mask = w > 0
+        self._stats = (loss_sum + self.criterion(logits, y, w),
+                       correct + ((logits.argmax(dim=-1) == y) & mask).sum(),
+                       total + mask.sum())
+
+    def finalize(self):
+        """Read once: host ``(loss sum, correct, total)``."""
+        if self._stats is None:
+            return 0.0, 0, 0
+        loss_sum, correct, total = self._stats
+        self._stats = None
+        loss_sum, correct, total = torch.stack(
+            [loss_sum.double(), correct.double(), total.double()]).tolist()
+        return loss_sum, int(correct), int(total)
+
+
 class Accelerator:
     """The managed entry: topology from the process group, a per-process
     random stream, and the verbs of the reference's Accelerator.
@@ -335,8 +586,9 @@ class Accelerator:
     without a GPU) or ``cpu``. ``augment``: the train-time transform
     ``x -> x`` (flip, normalize, resize) that runs inside every backward's
     forward; build it with ``generator=accelerator.generator`` so its flip
-    masks draw from the process's stream. ``fuse_steps``: 1, or ``auto``
-    under accumulation (:func:`tpuddp_torch.config.resolve_fuse_steps`).
+    masks draw from the process's stream. ``fuse_steps``: a depth, or
+    ``auto`` (32 at the first backward, capped by the staging budget; 1
+    under accumulation; :func:`tpuddp_torch.config.resolve_fuse_steps`).
     ``clip_grad_norm``: the global L2 norm each update's gradient is clipped
     to (None: no clip)."""
 
@@ -366,6 +618,7 @@ class Accelerator:
         self.generator, self.seed = seeding.set_seed_based_on_rank(self.process_index, seed)
         self.jax_keys = seeding.JaxKeyStream(self.seed, self.process_index)
         self.augment = augment
+        self._models: List[PreparedModel] = []
 
     @property
     def is_main_process(self) -> bool:
@@ -392,6 +645,7 @@ class Accelerator:
         for obj in objects:
             if isinstance(obj, torch.nn.Module):
                 model = PreparedModel(self, obj)
+                self._models.append(model)
                 out.append(model)
             elif isinstance(obj, PreparedModel):
                 model = obj
@@ -429,7 +683,9 @@ class Accelerator:
 
     def gather(self, x) -> torch.Tensor:
         """Every process's ``x`` concatenated along axis 0, on every
-        process."""
+        process (queued steps run first)."""
+        for model in self._models:
+            model._flush_queues()
         t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
         return collectives.process_allgather(t)
 
@@ -439,27 +695,37 @@ class Accelerator:
 
     def save_model(self, model: PreparedModel, save_dir: str):
         """Process 0 writes ``save_dir/model.npz`` (the unwrapped module's
-        parameters and buffers in the JAX layout); everyone waits at a
-        barrier."""
+        parameters and buffers in the JAX layout, after the queued steps);
+        everyone waits at a barrier."""
         return ckpt.save_model_on_main(save_dir, model.module, self.process_index)
 
     @staticmethod
     def _discard_staged_work(model: PreparedModel, reason: str) -> None:
-        """Drop what was staged against the weights about to be replaced: a
-        backward waiting for ``step()`` and a partial accumulation cycle."""
+        """Drop what was staged against the weights about to be replaced,
+        without running it: a backward waiting for ``step()``, queued steps
+        (their losses are dropped), a partial accumulation cycle, and every
+        captured graph (its replays would write the replaced storage)."""
+        if model._pending is not None:
+            model._pending.loss._drop(reason)
         if model._staged is not None:
             model._staged._drop(reason)
-            model._staged = None
+        model._pending = model._staged = None
         opt = model._optimizer
         if opt is not None:
+            for req in opt._queue:
+                req.loss._queued_on = None
+                req.loss._drop(reason)
+            opt._queue = []
             opt._accum, opt._accum_count = None, 0
+            if opt._graphs is not None:
+                opt._graphs.clear()
 
     def load_model(self, model: PreparedModel, save_dir: str) -> PreparedModel:
         """Restore the weights of ``save_dir/model.npz``; the optimizer's
         state starts again from zero, as ``tpuddp/accelerate.py:1599-1607``
         resets it (moments of other weights must not steer these)."""
         self._discard_staged_work(model, "load_model discarded the staged step")
-        ckpt.load(os.path.join(save_dir, "model.npz"), model.module, layout=ckpt.MANAGED)
+        ckpt.load(os.path.join(save_dir, "model.npz"), model._module, layout=ckpt.MANAGED)
         if model._optimizer is not None:
             model._optimizer.optimizer.state.clear()
         return model
@@ -469,7 +735,9 @@ class Accelerator:
         """Process 0 writes ``save_dir/state_{epoch}.npz``: parameters,
         buffers, the optimizer's state, the JAX keys and every process's
         random streams; with ``keep_last`` the older state files are pruned.
-        A partial accumulation cycle is refused: it would be lost."""
+        Queued steps run first; a partial accumulation cycle is refused: it
+        would be lost."""
+        model._flush_queues()
         if optimizer._accum_count:
             raise RuntimeError(
                 "save_state mid-gradient-accumulation-cycle would silently lose the "
@@ -477,7 +745,7 @@ class Accelerator:
                 "point's epoch boundary does)"
             )
         return ckpt.save_on_main(
-            save_dir, epoch, model.module, optimizer.optimizer, self.process_index,
+            save_dir, epoch, model._module, optimizer.optimizer, self.process_index,
             layout=ckpt.MANAGED, seed=self.seed, generator=self.generator,
             world_size=self.num_processes, keep_last=keep_last, counter=model._bwd_counter,
             keys=(self.jax_keys.key, model._bwd_key),
@@ -489,7 +757,7 @@ class Accelerator:
         returns the epoch to train next (0 when there is none)."""
         self._discard_staged_work(model, "load_state discarded the staged step")
         next_epoch, meta = ckpt.restore_latest(
-            save_dir, model.module, optimizer.optimizer, layout=ckpt.MANAGED,
+            save_dir, model._module, optimizer.optimizer, layout=ckpt.MANAGED,
             generator=self.generator,
         )
         model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)

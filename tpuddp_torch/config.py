@@ -12,18 +12,19 @@ The port implements the native DDP main path and the managed
 (``Accelerator``) path, with ``sync_bn``, ``compute_dtype``, ``optimizer``
 (:data:`OPTIMIZERS`, with ``weight_decay``, ``momentum`` and
 ``trust_coefficient``), ``clip_grad_norm``, ``optimizer_state_dtype``,
-``gradient_accumulation_steps``,
-``deferred_metrics``, ``prefetch`` (``PrefetchLoader`` threads), ``pipeline``
-(staged host-to-device copies, :func:`tpuddp_torch.training.pipeline.
-resolve_pipeline`; ``device_augment: false`` is refused there) and ``resume``,
-``auto_resume`` and ``keep_last`` (checkpoints in the JAX package's layout);
-``fuse_steps`` is 1, or ``auto`` where the JAX package resolves it to 1
-(:func:`resolve_fuse_steps`). Every knob whose non-default value needs a part
+``gradient_accumulation_steps``, ``deferred_metrics``, ``prefetch``
+(``PrefetchLoader`` threads), ``pipeline`` (staged host-to-device copies,
+:func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
+false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
+(checkpoints in the JAX package's layout) and the managed path's
+``fuse_steps`` (K queued steps per flush, one CUDA-graph replay on the card;
+:func:`resolve_fuse_steps`). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
-never ignored. ``scan_steps`` is accepted because an eager loop gives
-identical results by construction: K fused steps compute the same K steps
-one by one.
+never ignored. The native path's ``scan_steps`` is accepted because an eager
+loop gives identical results by construction: K fused steps compute the same
+K steps one by one (their CUDA-graph replay is ROADMAP Queue 1 item 8,
+"native scan_steps").
 """
 
 from __future__ import annotations
@@ -104,10 +105,6 @@ _UNSUPPORTED = {
     "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
 }
 
-MANAGED_FUSE_ITEM = (
-    "Queue 1 item 8: managed fuse_steps: K queued steps per CUDA-graph replay"
-)
-
 _MULTIHOST_ENV = ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID")
 
 
@@ -136,28 +133,22 @@ def _merge_refusing_unknown(defaults, overrides, block: str) -> Dict[str, Any]:
     return cfg
 
 
-def resolve_fuse_steps(fuse_steps, accum: int = 1, deferred_metrics: bool = True) -> int:
-    """The managed path's fuse depth, resolved as the JAX package resolves
-    it (``train_accelerate.py:797-803``, ``tpuddp/accelerate.py:1452-1460``):
-    ``auto`` is 1 under gradient accumulation or without deferred metrics;
-    otherwise the JAX package queues up to 32 steps per dispatch, which the
-    port does not implement yet. An explicit depth over 1 with accumulation
-    is the JAX package's ``ValueError``."""
+def resolve_fuse_steps(fuse_steps, accum: int = 1, deferred_metrics: bool = True):
+    """The managed path's fuse depth as the JAX package resolves it
+    (``train_accelerate.py:795-826``, ``tpuddp/accelerate.py:1381-1384,
+    :1452-1460``): ``auto`` (or None) is 1 under gradient accumulation or
+    without deferred metrics, else the string ``"auto"``, which the first
+    ``optimizer.step()`` resolves over its batch's bytes; an explicit depth is
+    that depth (at least 1). An explicit depth over 1 with accumulation is
+    the JAX package's ``ValueError``."""
     if fuse_steps in (None, "auto"):
-        if accum > 1 or not deferred_metrics:
-            return 1
-        raise _not_ported(
-            "fuse_steps='auto' with deferred metrics (the JAX package queues up to "
-            "32 steps per dispatch)", MANAGED_FUSE_ITEM,
-        )
+        return 1 if accum > 1 or not deferred_metrics else "auto"
     fuse = max(1, int(fuse_steps))
     if fuse > 1 and accum > 1:
         raise ValueError(
             "gradient_accumulation_steps and fuse_steps are mutually exclusive "
             "(fused scan steps each apply an update)"
         )
-    if fuse > 1:
-        raise _not_ported(f"fuse_steps={fuse}", MANAGED_FUSE_ITEM)
     return fuse
 
 

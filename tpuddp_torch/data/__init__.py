@@ -11,8 +11,8 @@ from tpuddp_torch.data.synthetic import SyntheticClassification  # noqa: F401
 
 def load_datasets_for(training: Dict[str, Any], synthetic_fallback: bool = True):
     """(train, test) datasets for ``training.dataset``: ``cifar10`` (falling
-    back to the synthetic stand-in when none is staged), ``digits`` (needs
-    scikit-learn) or ``synthetic``."""
+    back to the synthetic stand-in when none is staged), ``digits`` (the
+    arrays in the repository) or ``synthetic``."""
     name = str(training.get("dataset") or "cifar10")
     n = tuple(training.get("synthetic_n") or (2048, 512))
     if name == "cifar10":

@@ -1,25 +1,33 @@
-"""Handwritten-digits dataset (scikit-learn's ``load_digits``) — the
-counterpart of ``tpuddp/data/digits.py``: 1,797 real 8x8 digit scans, the
-real-image workload that needs no download.
+"""Handwritten-digits dataset — the counterpart of ``tpuddp/data/digits.py``:
+1,797 real 8x8 digit scans, the real-image workload that needs no download.
 
-The arrays are the JAX package's, bit for bit: intensities 0..16 rescaled by
-``round(x * 255 / 16)`` to uint8, the gray channel replicated to RGB (NHWC),
-int32 labels; a ``RandomState(seed).permutation`` shuffle (``load_digits`` is
-ordered in class blocks), then the 1,437/360 split through
+The arrays ship with the port as ``digits.npz`` beside this file (66 KB):
+``images``, uint8 ``(1797, 8, 8, 3)``, and ``labels``, int32 ``(1797,)``,
+bit for bit the JAX package's ``_load_arrays()`` (intensities 0..16 rescaled
+by ``round(x * 255 / 16)`` to uint8, the gray channel replicated to RGB,
+NHWC). They were written from scikit-learn 1.9.0's bundled copy
+(``sklearn/datasets/data/digits.csv.gz``, read by ``load_digits``) of the
+UCI ML "Optical Recognition of Handwritten Digits" data set's test part (E.
+Alpaydin and C. Kaynak, 1998; UCI Machine Learning Repository, CC BY 4.0;
+scikit-learn is BSD-3-Clause). So digits need neither scikit-learn nor a
+network at run time.
+
+:func:`load_datasets` applies the JAX package's ``RandomState(seed)
+.permutation`` shuffle (``load_digits`` is ordered in class blocks), then
+the 1,437/360 split through
 :class:`~tpuddp_torch.data.synthetic.SyntheticClassification`.
-
-scikit-learn is imported when the arrays are loaded, never at import time.
-Without it, loading raises an ``ImportError`` that names it; there is no
-fallback to synthetic data.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
 from tpuddp_torch.data.synthetic import SyntheticClassification
+
+ARRAYS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "digits.npz")
 
 # Per-channel normalization of the rescaled set (tpuddp/data/digits.py:27-29)
 DIGITS_MEAN = (0.3054, 0.3054, 0.3054)
@@ -27,18 +35,8 @@ DIGITS_STD = (0.3757, 0.3757, 0.3757)
 
 
 def _load_arrays() -> Tuple[np.ndarray, np.ndarray]:
-    try:
-        from sklearn.datasets import load_digits
-    except ImportError as e:
-        raise ImportError(
-            "training.dataset='digits' needs scikit-learn (sklearn.datasets.load_digits), "
-            "which is not installed; the digits arrays are not in the repository "
-            "(ROADMAP.md Queue 1 item 3: digits)"
-        ) from e
-    bunch = load_digits()
-    images = np.round(bunch.images * (255.0 / 16.0)).astype(np.uint8)
-    images = np.repeat(images[..., None], 3, axis=-1)
-    return np.ascontiguousarray(images), bunch.target.astype(np.int32)
+    with np.load(ARRAYS) as data:
+        return np.ascontiguousarray(data["images"]), np.ascontiguousarray(data["labels"])
 
 
 def load_datasets(n_test: int = 360, seed: int = 0):

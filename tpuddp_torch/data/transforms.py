@@ -9,6 +9,11 @@ function boundary. All of it runs in float32; the last operation casts to
 the compute dtype (``tpuddp/data/transforms.py:70,88``), so under
 ``compute_dtype: bfloat16`` the model receives bfloat16 images.
 
+Nothing here reads a device value on the host or copies from the host once
+the normalization statistics of a (device, dtype) are cached, so the train
+transform can run inside a CUDA-graph capture; its flip masks are drawn
+before it (``augment.flip_mask``) and passed in.
+
 ``F.interpolate(mode="bilinear", align_corners=False, antialias=False)``
 agrees with ``jax.image.resize(..., "bilinear")`` when upsampling (both use
 half-pixel centres and clamp at the edge), which is the only direction the
@@ -41,14 +46,23 @@ def resize(x: torch.Tensor, size: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+_STATS = {}  # (values, dtype, device) -> tensor
+
+
+def _stat(values: Sequence[float], x: torch.Tensor) -> torch.Tensor:
+    """``values`` as a tensor of ``x``'s dtype on its device, made once."""
+    key = (tuple(values), x.dtype, x.device)
+    if key not in _STATS:
+        _STATS[key] = torch.tensor(values, dtype=x.dtype, device=x.device)
+    return _STATS[key]
+
+
 def normalize(
     x: torch.Tensor,
     mean: Sequence[float] = CIFAR10_MEAN,
     std: Sequence[float] = CIFAR10_STD,
 ) -> torch.Tensor:
-    mean_t = torch.tensor(mean, dtype=x.dtype, device=x.device)
-    std_t = torch.tensor(std, dtype=x.dtype, device=x.device)
-    return (x - mean_t) / std_t
+    return (x - _stat(mean, x)) / _stat(std, x)
 
 
 def horizontal_flip(x: torch.Tensor, flip_mask: torch.Tensor) -> torch.Tensor:
@@ -75,7 +89,8 @@ def make_train_augment(
 ):
     """Train transform: ``augment(x, flip_mask=None) -> x``. Without an
     explicit ``flip_mask`` the mask is drawn from ``generator`` (a fresh one
-    seeded 0 when None)."""
+    seeded 0 when None); ``augment.flip_mask(x)`` draws the one the call
+    would draw (None without flips)."""
     if flip and generator is None:
         generator = torch.Generator().manual_seed(0)
 
@@ -90,6 +105,7 @@ def make_train_augment(
             x = resize(x, size)
         return x.to(compute_dtype)
 
+    augment.flip_mask = lambda x: flip_mask_like(x, generator) if flip else None
     return augment
 
 

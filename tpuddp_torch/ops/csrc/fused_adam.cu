@@ -59,6 +59,16 @@
 //   no device buffer, no host-to-device copy, no synchronisation. Python
 //   builds the table (fused_adam.launch_tables) and splits longer leaf lists
 //   into several.
+// - A launch captured into a CUDA graph cannot take its step's bc1, bc2 and
+//   noise words by value: every replay would reuse the captured step's. Such
+//   a launch passes Table::scalars, a device array of one LeafScalars per
+//   row that the host refills before each replay
+//   (tpuddp_torch/ops/device_scalars.py), and the kernel reads them from
+//   there; an eager launch passes null and reads its rows. The values are the
+//   same float32 and uint32 words either way, so the arithmetic is too.
+// - Table::launches, when set, is a device word that thread 0 of block 0
+//   adds one to: the count of launches that ran, eager ones and those a
+//   graph replays alike, which the host cannot see launch by launch.
 // - The leaves are cut into chunks of `chunk` elements, numbered across the
 //   table, and the grid has one block per chunk. A block finds its chunk's
 //   leaf by binary search over the chunk starts (at most 6 steps for 48
@@ -121,7 +131,18 @@ static_assert(offsetof(Leaf, aligned) == 56, "Leaf layout");
 static_assert(offsetof(Leaf, noise_m) == 60, "Leaf layout");
 static_assert(offsetof(Leaf, noise_v) == 64, "Leaf layout");
 
+// One row's per-step scalars, for a launch captured into a CUDA graph.
+struct LeafScalars {
+  float bc1;
+  float bc2;
+  uint32_t noise_m;
+  uint32_t noise_v;
+};
+static_assert(sizeof(LeafScalars) == 16, "LeafScalars layout");
+
 struct Table {
+  const LeafScalars* scalars;    // null: each row's own bc1, bc2 and noise words
+  unsigned long long* launches;  // null, or the word each launch adds one to
   int64_t n_chunks;
   int32_t n_leaves;
   Leaf leaves[kMaxLeaves];
@@ -131,8 +152,8 @@ struct Hyper {
   float lr, b1, one_minus_b1, b2, one_minus_b2, eps, weight_decay;
 };
 
-// Every CUDA version takes 4,096 bytes of kernel parameters; the table stays
-// within them.
+// Every CUDA version takes 4,096 bytes of kernel parameters; the table (3,488
+// bytes with its two pointers) stays within them.
 static_assert(sizeof(Table) + sizeof(int64_t) + sizeof(Hyper) <= 4096,
               "kernel parameters exceed 4 KB");
 
@@ -203,6 +224,9 @@ __global__ void __launch_bounds__(kThreads)
 fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk,
                         const Hyper h) {
   const int64_t c = blockIdx.x;
+  if (c == 0 && threadIdx.x == 0 && table.launches != nullptr) {
+    atomicAdd(table.launches, 1ull);
+  }
   // the leaf holding chunk c: the last one whose first chunk is <= c
   int lo = 0;
   int hi = table.n_leaves - 1;
@@ -217,8 +241,17 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
   const Leaf& leaf = table.leaves[lo];
   const int64_t begin = (c - leaf.chunk_start) * chunk;  // a multiple of 4
   const int64_t end = begin + chunk < leaf.n ? begin + chunk : leaf.n;
-  const float bc1 = leaf.bc1;
-  const float bc2 = leaf.bc2;
+  float bc1 = leaf.bc1;
+  float bc2 = leaf.bc2;
+  uint32_t noise_m = leaf.noise_m;
+  uint32_t noise_v = leaf.noise_v;
+  if (table.scalars != nullptr) {
+    const LeafScalars s = table.scalars[lo];
+    bc1 = s.bc1;
+    bc2 = s.bc2;
+    noise_m = s.noise_m;
+    noise_v = s.noise_v;
+  }
   M* const mp = static_cast<M*>(leaf.m);
   M* const vp = static_cast<M*>(leaf.v);
 
@@ -244,13 +277,13 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
       }
       adam4(p0, g0, m0, v0, h, bc1, bc2);
       __stcs(p4 + j, p0);
-      store4(mp + i0, m0, i0, leaf.noise_m);
-      store4(vp + i0, v0, i0, leaf.noise_v);
+      store4(mp + i0, m0, i0, noise_m);
+      store4(vp + i0, v0, i0, noise_v);
       if (second) {
         adam4(p1, g1, m1, v1, h, bc1, bc2);
         __stcs(p4 + k, p1);
-        store4(mp + i1, m1, i1, leaf.noise_m);
-        store4(vp + i1, v1, i1, leaf.noise_v);
+        store4(mp + i1, m1, i1, noise_m);
+        store4(vp + i1, v1, i1, noise_v);
       }
     }
     scalar_begin = begin + groups * 4;
@@ -262,8 +295,8 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
     float v = load1(vp + i);
     adam(p, g, m, v, h, bc1, bc2);
     __stcs(leaf.p + i, p);
-    store1(mp + i, m, i, leaf.noise_m);
-    store1(vp + i, v, i, leaf.noise_v);
+    store1(mp + i, m, i, noise_m);
+    store1(vp + i, v, i, noise_v);
   }
 }
 
@@ -271,12 +304,15 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
 // `leaves`, a host array of Leaf rows whose chunk starts are the prefix sums
 // of ceil(n / chunk) from 0, on `stream`. The rows are copied into the
 // kernel's parameters, so the array may be freed when this returns. `chunk`
-// is a positive multiple of 4. Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for arguments it cannot take.
+// is a positive multiple of 4. `scalars` is null, or a device array of
+// n_leaves LeafScalars that replaces the rows' bc1, bc2 and noise words;
+// `launches` is null or a device word the launch adds one to. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments it cannot take.
 template <typename M>
-int launch(const void* leaves, int n_leaves, int64_t chunk, float lr, float b1,
-           float one_minus_b1, float b2, float one_minus_b2, float eps, float weight_decay,
-           void* stream) {
+int launch(const void* leaves, int n_leaves, int64_t chunk, const void* scalars,
+           void* launches, float lr, float b1, float one_minus_b1, float b2,
+           float one_minus_b2, float eps, float weight_decay, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -284,6 +320,8 @@ int launch(const void* leaves, int n_leaves, int64_t chunk, float lr, float b1,
   memset(&table, 0, sizeof(table));
   memcpy(table.leaves, leaves, static_cast<size_t>(n_leaves) * sizeof(Leaf));
   table.n_leaves = n_leaves;
+  table.scalars = static_cast<const LeafScalars*>(scalars);
+  table.launches = static_cast<unsigned long long*>(launches);
   const Leaf& last = table.leaves[n_leaves - 1];
   table.n_chunks = last.chunk_start + (last.n + chunk - 1) / chunk;
 
@@ -300,18 +338,20 @@ int launch(const void* leaves, int n_leaves, int64_t chunk, float lr, float b1,
 
 // float32 moments: m and v are float* in every row.
 extern "C" int tpuddp_fused_adam_multi(const void* leaves, int n_leaves, int64_t chunk,
-                                       float lr, float b1, float one_minus_b1, float b2,
+                                       const void* scalars, void* launches, float lr,
+                                       float b1, float one_minus_b1, float b2,
                                        float one_minus_b2, float eps, float weight_decay,
                                        void* stream) {
-  return launch<float>(leaves, n_leaves, chunk, lr, b1, one_minus_b1, b2, one_minus_b2, eps,
-                       weight_decay, stream);
+  return launch<float>(leaves, n_leaves, chunk, scalars, launches, lr, b1, one_minus_b1,
+                       b2, one_minus_b2, eps, weight_decay, stream);
 }
 
 // bf16 moments: m and v point at bf16 arrays; noise_m and noise_v are set.
 extern "C" int tpuddp_fused_adam_multi_bf16(const void* leaves, int n_leaves, int64_t chunk,
-                                            float lr, float b1, float one_minus_b1, float b2,
+                                            const void* scalars, void* launches, float lr,
+                                            float b1, float one_minus_b1, float b2,
                                             float one_minus_b2, float eps, float weight_decay,
                                             void* stream) {
-  return launch<unsigned short>(leaves, n_leaves, chunk, lr, b1, one_minus_b1, b2,
-                                one_minus_b2, eps, weight_decay, stream);
+  return launch<unsigned short>(leaves, n_leaves, chunk, scalars, launches, lr, b1,
+                                one_minus_b1, b2, one_minus_b2, eps, weight_decay, stream);
 }

@@ -21,7 +21,11 @@ its index in the JAX package's flattened parameter tree.
 
 The launch table (:func:`launch_tables`) is built here, from plain ints and
 floats, so the CPU tests reach its chunk starts, alignment flags and
-splitting; the kernel only reads it.
+splitting; the kernel only reads it. A launch captured into a CUDA graph
+(``training/graphs.py``) reads its rows' bias corrections and noise words
+from a device slot instead (:func:`table_scalars`,
+:mod:`tpuddp_torch.ops.device_scalars`), which the host refills before each
+replay with :func:`replay_scalars`; an eager launch is unchanged.
 
 The JAX kernel returns new arrays; here ``p``, ``m`` and ``v`` are updated in
 place, which keeps one copy of each in device memory.
@@ -36,7 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpuddp_torch.ops import _build
+from tpuddp_torch.ops import _build, device_scalars
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_adam.cu"
 
@@ -172,6 +176,28 @@ def launch_tables(
     return tables
 
 
+def table_scalars(table: np.ndarray) -> np.ndarray:
+    """A launch table's per-step words, ``(bc1, bc2, noise_m, noise_v)`` per
+    row as float32 (the noise words' bits), the kernel's ``LeafScalars``."""
+    return np.stack([
+        table["bc1"], table["bc2"],
+        table["noise_m"].view(np.float32), table["noise_v"].view(np.float32),
+    ], axis=1).reshape(-1)
+
+
+def replay_scalars(numels, bc1s, bc2s, moment_dtype, steps=None, leaves=None) -> List[np.ndarray]:
+    """The :func:`table_scalars` of each launch that :func:`adam_update`
+    makes for leaves of ``numels`` elements with these bias corrections (and
+    bf16 rounding keys): what a replayed launch reads, computed on the host
+    with no tensor at hand."""
+    bf16 = moment_dtype == torch.bfloat16
+    tables = launch_tables(
+        [(0, 0, 0, 0)] * len(numels), numels, bc1s, bc2s,
+        noise=_noise(steps, leaves, len(numels)) if bf16 else None,
+    )
+    return [table_scalars(t) for t in tables]
+
+
 def _check(ps, gs, ms, vs, bc1s, bc2s, moment_dtype) -> None:
     """One pass over the leaves: equal list lengths, one CUDA device (the
     current one), float32 p and g, ``moment_dtype`` m and v, contiguous,
@@ -237,7 +263,7 @@ class _Library:
             self._lib = ctypes.CDLL(str(path))
         fn = getattr(self._lib, name)
         fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64]
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
             + [ctypes.c_float] * 7 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -249,15 +275,42 @@ library = _Library()
 
 class FusedAdamKernel:
     """The wrapper of one instantiation of the kernel (the moments' dtype):
-    loads its C function at first use, checks its arguments, launches once
-    per launch table on PyTorch's current stream and counts launches in
-    ``launches``."""
+    loads its C function at first use, checks its arguments and launches once
+    per launch table on PyTorch's current stream. During a CUDA-graph
+    capture each launch reads its rows' per-step words from a device slot
+    (:mod:`~tpuddp_torch.ops.device_scalars`).
+
+    Each launch that runs adds one to a word on its device (the kernel's
+    block 0 does, so a launch replayed from a CUDA graph counts as well as
+    an eager one): ``launches`` reads the sum, ``reset_launches()`` sets it
+    to 0. The word of a device is made at the first launch there, which
+    must not be inside a capture."""
 
     def __init__(self, moment_dtype: torch.dtype, symbol: str):
         self.moment_dtype = moment_dtype
         self.symbol = symbol
-        self.launches = 0
+        self._counters = {}  # device -> its int64 launch count, on the device
         self._fn = None
+
+    @property
+    def launches(self) -> int:
+        """Launches that ran, on every device so far (waits for them)."""
+        return sum(int(c.item()) for c in self._counters.values())
+
+    def reset_launches(self) -> None:
+        for c in self._counters.values():
+            c.zero_()
+
+    def _counter(self, device: torch.device) -> torch.Tensor:
+        counter = self._counters.get(device)
+        if counter is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "fused_adam: the first launch on a device is inside a CUDA-graph capture; "
+                    "run one step eagerly first"
+                )
+            counter = self._counters[device] = torch.zeros((), dtype=torch.int64, device=device)
+        return counter
 
     def load(self):
         """Build (if needed) and load the library; return the C function."""
@@ -286,14 +339,17 @@ class FusedAdamKernel:
         fn = self.load()
         b1, b2 = betas
         stream = torch.cuda.current_stream(ps[0].device).cuda_stream
+        counter = self._counter(ps[0].device).data_ptr()
+        recorder = device_scalars.active()
         for table in tables:
+            scalars = None if recorder is None else recorder.slot(table_scalars(table))
             err = fn(
                 table.ctypes.data, len(table), chunk,
+                None if scalars is None else scalars.data_ptr(), counter,
                 lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay, stream,
             )
             if err != 0:
                 raise RuntimeError(f"fused_adam kernel launch failed: CUDA error {err}")
-            self.launches += 1
 
 
 kernels = {

@@ -31,15 +31,25 @@ does not depend on the HWIO/OIHW layout or on AlexNet's 9216-wide reorder, so
 the trust ratios need no conversion. Each step leaves the ratios it used in
 ``trust_ratios`` (one float32 tensor, the stepped parameters in order), on
 the parameters' device, read by no update.
+
+Every optimizer here can run inside a CUDA graph (the managed path's
+``fuse_steps`` replays, ``training/graphs.py``; ``GRAPH_SAFE``): none reads
+a device value on the host. The host state that changes per step, Adam's and
+LAMB's step counts and the scalars they give, is advanced and uploaded
+before each replay through :mod:`tpuddp_torch.ops.device_scalars`, which
+the captured launches read instead of the captured step's values.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from tpuddp_torch.ops.fused_adam import adam_update, bias_corrections
+from tpuddp_torch.ops import device_scalars
+from tpuddp_torch.ops.fused_adam import adam_update, bias_corrections, replay_scalars
 
 # tpuddp/optim.py:162-181: these two have a correct storage path; any other
 # low-precision type would freeze Adam's v (its sub-ulp decrements vanish)
@@ -95,45 +105,65 @@ class Adam(torch.optim.Optimizer):
             )
         self.leaf_index = dict(zip(flat, leaf_index))
 
+    GRAPH_SAFE = True
+
+    def _advance(self, group, ps) -> dict:
+        """Advance the step count of each of ``ps`` (creating its state at
+        its first step) and return the per-leaf arguments of the group's
+        ``adam_update`` call: bias corrections of each leaf's own step
+        count, step counts and JAX leaf indices."""
+        bc1s, bc2s, steps, leaves = [], [], [], []
+        corrections = {}
+        for p in ps:
+            state = self.state[p]
+            if not state:
+                state["step"] = 0
+                state["exp_avg"] = torch.zeros_like(
+                    p, dtype=self.state_dtype, memory_format=torch.contiguous_format
+                )
+                state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
+            state["step"] += 1
+            step = state["step"]
+            if step not in corrections:
+                corrections[step] = bias_corrections(step, group["betas"])
+            bc1, bc2 = corrections[step]
+            bc1s.append(bc1)
+            bc2s.append(bc2)
+            steps.append(step)
+            leaves.append(self.leaf_index[p])
+        return dict(bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves)
+
+    def _replay(self, stepped) -> List[np.ndarray]:
+        """One captured step's host part for a replay: the step counts of
+        the parameters it stepped advance, and each launch's words come
+        back."""
+        out = []
+        for group, ps in zip(self.param_groups, stepped):
+            if ps:
+                out += replay_scalars([p.numel() for p in ps], moment_dtype=self.state_dtype,
+                                      **self._advance(group, ps))
+        return out
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        stepped = []
         for group in self.param_groups:
             # the group's leaves that have a gradient, each with the bias
             # corrections of its own step count, in one adam_update call
-            ps, gs, ms, vs, bc1s, bc2s, steps, leaves = [], [], [], [], [], [], [], []
-            corrections = {}
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["exp_avg"] = torch.zeros_like(
-                        p, dtype=self.state_dtype, memory_format=torch.contiguous_format
-                    )
-                    state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
-                state["step"] += 1
-                step = state["step"]
-                if step not in corrections:
-                    corrections[step] = bias_corrections(step, group["betas"])
-                bc1, bc2 = corrections[step]
-                ps.append(p)
-                gs.append(p.grad)
-                ms.append(state["exp_avg"])
-                vs.append(state["exp_avg_sq"])
-                bc1s.append(bc1)
-                bc2s.append(bc2)
-                steps.append(step)
-                leaves.append(self.leaf_index[p])
+            ps = [p for p in group["params"] if p.grad is not None]
+            args = self._advance(group, ps)
             adam_update(
-                ps, gs, ms, vs, lr=group["lr"], betas=group["betas"], eps=group["eps"],
-                weight_decay=group["weight_decay"], bc1s=bc1s, bc2s=bc2s,
-                steps=steps, leaves=leaves,
+                ps, [p.grad for p in ps], [self.state[p]["exp_avg"] for p in ps],
+                [self.state[p]["exp_avg_sq"] for p in ps], lr=group["lr"],
+                betas=group["betas"], eps=group["eps"], weight_decay=group["weight_decay"],
+                **args,
             )
+            stepped.append(ps)
+        device_scalars.on_replay(partial(self._replay, stepped))
         return loss
 
 
@@ -184,6 +214,8 @@ class _TreeMap(torch.optim.Optimizer):
     """An update written in PyTorch ops, one param group at a time (the JAX
     package's tree maps), behind ``torch.optim.Optimizer.step``'s closure
     protocol."""
+
+    GRAPH_SAFE = True
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -286,25 +318,60 @@ class LAMB(_TreeMap):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
         self.trust_ratios: Optional[torch.Tensor] = None
 
-    def _update(self, group) -> None:
-        ps, gs = _stepped(group)
-        if not ps:
-            return
-        b1, b2 = group["betas"]
-        wd, eps = group["weight_decay"], group["eps"]
-        rs = []
-        for p, g in zip(ps, gs):
+    def _advance(self, group, ps) -> List[Tuple[float, float]]:
+        """Advance the step count of each of ``ps`` (creating its state at
+        its first step); each one's ``(bc1, bc2)``."""
+        out = []
+        for p in ps:
             state = self.state[p]
             if not state:
                 state["step"] = 0
                 state["exp_avg"] = torch.zeros_like(p, memory_format=torch.contiguous_format)
                 state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
             state["step"] += 1
-            bc1, bc2 = bias_corrections(state["step"], group["betas"])
+            out.append(bias_corrections(state["step"], group["betas"]))
+        return out
+
+    @staticmethod
+    def _inverses(bcs) -> np.ndarray:
+        """``(1 / bc1, 1 / bc2)`` per parameter, each a float32 division of
+        float32 values: on the card ``m / bc1`` with a host scalar multiplies
+        by exactly this inverse, so a replayed step that multiplies by it
+        from the device is the eager step bitwise."""
+        return np.float32(1) / np.asarray(bcs, dtype=np.float32).reshape(-1)
+
+    def _replay(self, stepped) -> List[np.ndarray]:
+        return [self._inverses(self._advance(group, ps))
+                for group, ps in zip(self.param_groups, stepped) if ps]
+
+    def step(self, closure=None):
+        self._stepped = []
+        loss = super().step(closure)
+        device_scalars.on_replay(partial(self._replay, self._stepped))
+        return loss
+
+    def _update(self, group) -> None:
+        ps, gs = _stepped(group)
+        self._stepped.append(ps)
+        if not ps:
+            return
+        b1, b2 = group["betas"]
+        wd, eps = group["weight_decay"], group["eps"]
+        bcs = self._advance(group, ps)
+        # inside a capture: the inverses from a device slot (see _inverses)
+        recorder = device_scalars.active()
+        inv = None if recorder is None else recorder.slot(self._inverses(bcs))
+        rs = []
+        for i, (p, g) in enumerate(zip(ps, gs)):
+            state = self.state[p]
+            bc1, bc2 = bcs[i]
             m, v = state["exp_avg"], state["exp_avg_sq"]
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(g.square().mul_(1 - b2))
-            r = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+            if inv is None:
+                r = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+            else:
+                r = (m * inv[2 * i]).div_((v * inv[2 * i + 1]).sqrt_().add_(eps))
             if wd:
                 r.add_(wd * p)
             rs.append(r)

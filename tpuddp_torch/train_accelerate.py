@@ -15,16 +15,22 @@ prepared, so every process evaluates the whole test set; the test loss is
 the sum of per-batch mean losses over ``len(test_loader)`` and the accuracy
 counts the rows with ``w > 0``, with no cross-process reduction. The train
 loss is the sum of the per-step global losses over ``len(train_loader)``,
-read once per epoch (``sum_losses``). The eval pass counts its correct and
-real rows on the device and reads them once; with ``deferred_metrics`` its
-loss sum stays there too, without it each batch's loss is read, as the
-reference does.
+read once per epoch (``sum_losses``, which also flushes the last queued
+steps). The eval pass counts its correct and real rows on the device and
+reads them once; with ``deferred_metrics`` it is a
+:class:`~tpuddp_torch.accelerate.FusedEvaluator` (one per model, cached on
+it), without it each batch's loss is read, as the reference does.
 
-Process 0 prints the epoch line of the JAX package byte for byte and appends
-one ``history.jsonl`` row per epoch (``api: "managed"``, ``step_ms`` per
-``optimizer.step()`` from CUDA events on the GPU). At ``epoch %
-checkpoint_epoch == 0`` it writes ``model.npz`` and ``state_{epoch}.npz``
-(``keep_last`` prunes the older state files).
+``fuse_steps`` (``auto`` with ``deferred_metrics``: 32 steps per flush for
+small batches) queues the steps behind ``optimizer.step()``; on the GPU each
+flush is one CUDA-graph replay (``training/graphs.py``). Process 0 prints
+the epoch line of the JAX package byte for byte and appends one
+``history.jsonl`` row per epoch (``api: "managed"``, ``fuse_steps`` the
+resolved depth, ``step_ms`` per step: CUDA events on the GPU around each
+flush, divided by the steps it ran, so a step that was only queued is never
+timed on its own). At ``epoch % checkpoint_epoch == 0`` it writes
+``model.npz`` and ``state_{epoch}.npz`` (``keep_last`` prunes the older
+state files).
 
 As ``train_accelerate.py:864-876`` does, the loaders are wrapped after
 ``prepare``: in ``PrefetchLoader(workers=pipeline.host_workers)`` under
@@ -50,7 +56,7 @@ import torch
 
 from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
-from tpuddp_torch.accelerate import Accelerator, sum_losses
+from tpuddp_torch.accelerate import Accelerator, FusedEvaluator, sum_losses
 from tpuddp_torch.data import (
     DataLoader, PrefetchLoader, compute_dtype_for, flip_for, load_datasets_for,
     norm_stats_for,
@@ -76,27 +82,52 @@ def setup_dataloaders(training):
     return train_loader, test_loader
 
 
-def train(model, train_loader, criterion, optimizer, accelerator, clock: Optional[StepClock] = None):
+class FlushClock(StepClock):
+    """Step times over groups of steps: :meth:`mark` where a group starts
+    and once after the last; ``groups`` holds each group's step count (1 per
+    step unfused, the flush's steps fused). ``step_ms()`` gives each step its
+    group's time over its step count."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.groups = []
+
+    def step_ms(self):
+        return [ms / k for ms, k in zip(super().step_ms(), self.groups) for _ in range(k)]
+
+
+def train(model, train_loader, criterion, optimizer, accelerator,
+          clock: Optional[FlushClock] = None):
     """One training epoch; returns ``(mean per-step loss, real rows of the
-    global batches)``. A partial accumulation cycle is applied at the end."""
+    global batches)``. A partial accumulation cycle is applied at the end;
+    the fuse queue's last steps run at the epoch's ``sum_losses``."""
     model.train()
     n_seen = torch.zeros((), device=model.device)
     losses = []
+    pending = 0  # steps of the open group (queued, or not yet marked)
     for inputs, labels, weights in train_loader:
         n_seen = n_seen + model.to_device(weights, torch.float32).sum()
         optimizer.zero_grad()
-        if clock is not None:
+        if clock is not None and pending == 0:
             clock.mark()
-        outputs = model(inputs)  # flip/normalize/resize run inside backward's forward
+        outputs = model(inputs)  # flip/normalize/resize run inside the step's forward
         loss = criterion(outputs, labels, weights)
         accelerator.backward(loss)
         optimizer.step()
         losses.append(loss)
+        pending += 1
+        if not optimizer.queued:  # the step ran, or the flush it filled did
+            if clock is not None:
+                clock.groups.append(pending)
+            pending = 0
     optimizer.flush_accumulation()
+    loss_sum = sum_losses(losses)  # flushes what is still queued
     if clock is not None:
+        if pending:
+            clock.groups.append(pending)
         clock.mark()
     # one read of the loss sum and of the rows every process saw
-    totals = torch.stack([sum_losses(losses), n_seen])
+    totals = torch.stack([loss_sum, n_seen])
     all_reduce_sum_([totals[1:]])
     loss_sum, n_seen = totals.tolist()
     return loss_sum / len(train_loader), n_seen
@@ -105,6 +136,16 @@ def train(model, train_loader, criterion, optimizer, accelerator, clock: Optiona
 def evaluate(model, test_loader, criterion, transform, deferred: bool = False):
     """Returns ``(mean per-batch loss, accuracy %, rows evaluated)``."""
     model.eval()
+    if deferred:
+        # one evaluator per (model, criterion, transform), cached on the
+        # model as train_accelerate.py:224-243 caches it
+        ev = getattr(model, "_tpuddp_fused_eval", None)
+        if ev is None or ev.criterion is not criterion or ev.transform is not transform:
+            ev = model._tpuddp_fused_eval = FusedEvaluator(model, criterion, transform=transform)
+        for inputs, labels, weights in test_loader:
+            ev.add(inputs, labels, weights)
+        test_loss, correct, total = ev.finalize()
+        return test_loss / len(test_loader), 100 * correct / total, total
     test_loss = 0.0
     correct = total = torch.zeros((), dtype=torch.int64, device=model.device)
     for inputs, labels, weights in test_loader:
@@ -114,11 +155,8 @@ def evaluate(model, test_loader, criterion, transform, deferred: bool = False):
         right = (outputs.argmax(dim=-1) == model.to_device(labels, torch.int64)) & mask
         total = total + mask.sum()
         correct = correct + right.sum()
-        if deferred:
-            test_loss = test_loss + loss.device_value()
-        else:
-            test_loss += loss.item()  # the reference's read per batch
-    test_loss, correct, total = float(test_loss), int(correct), int(total)
+        test_loss += loss.item()  # the reference's read per batch
+    correct, total = int(correct), int(total)
     return test_loss / len(test_loader), 100 * correct / total, total
 
 
@@ -133,7 +171,7 @@ def run_training_loop(
     for epoch in range(start_epoch, num_epochs):
         epoch_t0 = time.perf_counter()
         train_loader.set_epoch(epoch)
-        clock = StepClock(accelerator.device)
+        clock = FlushClock(accelerator.device)
         updates = optimizer.updates
         train_loss, train_samples = train(
             model, train_loader, criterion, optimizer, accelerator, clock
@@ -164,7 +202,7 @@ def run_training_loop(
             "updates": optimizer.updates - updates,
             "api": "managed",
             "grad_accumulation": accelerator.gradient_accumulation_steps,
-            "fuse_steps": accelerator.fuse_steps,
+            "fuse_steps": optimizer.fuse_depth or accelerator.fuse_steps,
             "world_size": accelerator.num_processes,
         }
         history.append(record)
