@@ -25,15 +25,19 @@ Phases, each printing one line (the first failure exits non-zero):
    and read just after (the default pipeline: two ``PrefetchLoader`` threads
    and batches staged from pinned memory two ahead of the step):
    - ``tpuddp_torch/configs/cifar10_alexnet_h100.yaml``: AlexNet at 224 px,
-     batch 128, float32, one epoch (16 train steps and 6 eval batches on the
-     synthetic CIFAR-10 stand-in, no checkpoint): one float32-kernel launch
-     per step, and the losses of PR 2's kernel (2.9944 / 2.3076) to four
-     decimals, so the float32 instantiation did not move;
-   - ``tpuddp_torch/configs/cifar10_alexnet_bf16_h100.yaml``: the same epoch
+     batch 128, float32, three epochs at ``scan_steps: auto`` (16 train
+     steps, one chunk, and 6 eval batches, one group, per epoch on the
+     synthetic CIFAR-10 stand-in, no checkpoint: epoch 1 is the chunk's
+     eager warm-up, epoch 2 its capture, epoch 3 a replay): one
+     float32-kernel launch per step, and epoch 1 at the float32 kernel's
+     reference losses (2.9944 / 2.3076) to four decimals, so the float32
+     instantiation did not move; the steady step is epoch 3's;
+   - ``tpuddp_torch/configs/cifar10_alexnet_bf16_h100.yaml``: the same epochs
      with bfloat16 compute and bf16 Adam moments: one bf16-kernel launch per
-     step, finite losses, its step median beside the float32 one;
-   - ``tpuddp_torch/configs/cifar10_toy_cnn_sync_bn.yaml``: one toy_cnn epoch
-     with sync_bn at world 1: finite losses and BatchNorm buffers that moved;
+     step, finite losses, its step beside the float32 one;
+   - ``tpuddp_torch/configs/cifar10_toy_cnn_sync_bn.yaml``: three toy_cnn
+     epochs with sync_bn at world 1: finite losses and BatchNorm buffers
+     that moved;
 5. drive the managed path (``train_accelerate``'s worker, in-process on
    ``cuda:0``, counts set to 0 just before each run and read just after):
    - "5 managed": one epoch of
@@ -46,9 +50,11 @@ Phases, each printing one line (the first failure exits non-zero):
      2``: 8 launches for 16 micro-batches;
    - "5 managed vs native": 3 AlexNet steps of each path from one state
      dict, no flip, the same dropout seed: parameters within 1e-5;
-6. the host data path: the three native epochs of phase 4 under
-   ``pipeline: false``, the default pipeline and the default's staging
-   without loader threads (``host_workers: 0``), in turns (false, default,
+6. the host data path: one epoch of each native file of phase 4 at
+   ``scan_steps: 1`` (one step per batch, the cadence whose synchronise
+   ``pipeline: false`` adds) under ``pipeline: false``, the default
+   pipeline and the default's staging without loader threads
+   (``host_workers: 0``), in turns (false, default,
    no threads, no threads, default, false), each with its launches, the
    float32 ones at 2.9944 / 2.3076: step medians (steps 2-16) and the train
    pass's host stall per step; and the native row gather's ms per 128-row
@@ -71,10 +77,10 @@ Phases, each printing one line (the first failure exits non-zero):
      (the unscaled step; for LARS its first step is ``-lr * g`` bitwise);
      then the clip to 1.0 of a gradient whose norm is far above 1; each
      update's time on the card beside the bytes it must move;
-   - "8 native <opt>": one native AlexNet float32 epoch per optimizer
-     (lars and lamb with ``clip_grad_norm: 1.0``): finite losses, no launch
-     of either Adam kernel, the step median beside the Adam float32 one of
-     phase 4;
+   - "8 native <opt>": three native AlexNet float32 epochs per optimizer
+     at ``scan_steps: auto`` (lars and lamb with ``clip_grad_norm: 1.0``):
+     finite losses, no launch of either Adam kernel, epoch 3's replayed
+     step beside the Adam float32 one of phase 4;
    - "8 managed lamb accum": the managed epoch of phase 5 with lamb,
      ``clip_grad_norm: 1.0`` and ``gradient_accumulation_steps: 2``: finite
      losses, 8 updates, no Adam-kernel launch;
@@ -112,12 +118,38 @@ Phases, each printing one line (the first failure exits non-zero):
      the eager queue and at ``fuse_steps: 1``, in the same turns: each
      run's epoch-2 step median.
 
+10. the native path's ``scan_steps`` (each chunk of K train steps and each
+   group of K eval batches one CUDA-graph replay) and the managed
+   evaluator's groups, on the same graph engine:
+   - "10 native graph vs eager": from one state, 3 chunks through
+     ``train_step_many`` replayed against the same 3 run eagerly (the
+     reference, ``DistributedDataParallel._graph_replay = False``): toy_cnn
+     with sync_bn on real digits at K = 45 (Adam, bf16-moment Adam, LARS),
+     AlexNet@224 b128 at K = 8 with flips and dropout, and at A = 2; max
+     |dp| over parameters, buffers and optimizer state and the sums
+     (expected bitwise; failing beyond 1e-5), one launch per update counted
+     on the card, 1 capture and 2 replays; and 3 eval groups of 8 digits
+     batches through ``eval_step_many``;
+   - "10 native digits": ``digits_h100.yaml`` as written at ``scan_steps:
+     auto`` (45 train and 8 eval batches per dispatch) with replay, eagerly
+     and at ``scan_steps: 1``, in turns (replay, eager, 1, 1, eager,
+     replay): the accuracy, equal epoch rows, 450 launches, 1 capture and 9
+     replays each for train and eval, the step median over epochs 3-10;
+   - "10 native AlexNet": 3 epochs of ``cifar10_alexnet_h100.yaml`` at
+     auto (K = 16 train, 6 eval) against ``scan_steps: 1``, in turns: equal
+     epoch rows and the epoch-3 step medians;
+   - "10 managed eval groups": ``managed_fused_h100.yaml``'s model after two
+     fused epochs, its ``FusedEvaluator`` with groups (one of 8 batches,
+     replayed from the third pass) against ``fuse_steps=1``, in turns: the
+     sums bitwise and the ms per eval pass.
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
 
-Then one JSON line with the optimizers' numbers, one with the fused steps',
-one with every kernel's, the card's name and power limit again, and last
+Then one JSON line with the fused steps' numbers, one with phase 10's, one
+with the optimizers', one with every kernel's, the script's seconds, the
+card's name and power limit again, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -144,19 +176,21 @@ if not torch.cuda.is_available():
 
 from tpuddp_torch import config as cfg_lib  # noqa: E402
 from tpuddp_torch import optim  # noqa: E402
-from tpuddp_torch.accelerate import Accelerator, PreparedOptimizer  # noqa: E402
+from tpuddp_torch.accelerate import Accelerator, FusedEvaluator, PreparedOptimizer  # noqa: E402
 from tpuddp_torch.data import _native, load_datasets_for, norm_stats_for  # noqa: E402
-from tpuddp_torch.data.transforms import make_train_augment  # noqa: E402
+from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment  # noqa: E402
 from tpuddp_torch.models import AlexNet, load_model  # noqa: E402
 from tpuddp_torch.models.convert import jax_leaf_index  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
-from tpuddp_torch.nn.norm import BatchNorm  # noqa: E402
+from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
 from tpuddp_torch.optim import Adam  # noqa: E402
 from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
-from tpuddp_torch.train_native import basic_ddp_training_loop, build_training  # noqa: E402
+from tpuddp_torch.train_accelerate import build_training as managed_build  # noqa: E402
+from tpuddp_torch.train_accelerate import train as managed_train  # noqa: E402
+from tpuddp_torch.train_native import basic_ddp_training_loop, build_training, set_numerics  # noqa: E402
 from tpuddp_torch.training import checkpoint as ckpt  # noqa: E402
 from tpuddp_torch.training import graphs  # noqa: E402
 from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
@@ -508,40 +542,45 @@ def native_run(path: str, overrides=None, save_dir=None):
     return history, time.perf_counter() - t0, {k.symbol: k.launches for k in fused_adam.kernels.values()}
 
 
-def check_epoch(label: str, row, launches, wrapper, f32_losses: bool):
-    """One epoch's row: 16 steps, one launch of `wrapper`'s kernel per step
-    and none of another, finite losses, every sample, and with
-    `f32_losses` the float32 epoch's reference losses (F32_LOSSES)."""
-    steps = len(row["step_ms"])
+def check_epochs(label: str, history, launches, wrapper, f32_losses: bool):
+    """Every epoch's row: 16 steps, finite losses, every sample; one launch
+    of `wrapper`'s kernel per step over the run and none of another; with
+    `f32_losses` the first epoch at the float32 reference losses
+    (F32_LOSSES). Returns the run's steps."""
+    steps = sum(len(r["step_ms"]) for r in history)
     others = sum(n for sym, n in launches.items() if sym != wrapper.symbol)
     checks = {
-        "16 train steps": steps == 16,
+        "16 train steps an epoch": all(len(r["step_ms"]) == 16 for r in history),
         "1 launch per step": launches[wrapper.symbol] == steps and others == 0,
-        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
-        "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
+        "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
+        "2048 train / 512 test samples": all(
+            (r["train_samples"], r["test_samples"]) == (2048, 512) for r in history),
     }
     if f32_losses:
         checks["PR 2's losses 2.9944 / 2.3076"] = (
-            round(row["train_loss"], 4), round(row["test_loss"], 4)) == F32_LOSSES
+            round(history[0]["train_loss"], 4), round(history[0]["test_loss"], 4)) == F32_LOSSES
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"chip_smoke: {label} failed {failed}: launches={launches}, row={row}")
+        raise SystemExit(f"chip_smoke: {label} failed {failed}: launches={launches}, history={history}")
     return steps
 
 
 def alexnet_epoch(label: str, path: str, wrapper):
-    """One AlexNet epoch of the settings at `path`; every step must launch
-    `wrapper`'s kernel once and no other kernel."""
-    history, wall_s, launches = native_run(path)
-    row = history[-1]
-    steps = check_epoch(label, row, launches, wrapper, wrapper is fused_adam.kernel)
-    steady = statistics.median(row["step_ms"][1:])
-    phase("4 main path", f"{label}, 1 epoch: {steps} steps, {wrapper.symbol} "
-          f"launches={wrapper.launches} ({wrapper.launches // steps}/step), train_loss="
-          f"{row['train_loss']:.4f} test_loss={row['test_loss']:.4f}; step_ms "
-          f"first={row['step_ms'][0]:.2f} median(2..{steps})={steady:.2f} "
-          f"min={min(row['step_ms'][1:]):.2f}; {128 * 1e3 / steady:.0f} img/s; host stall "
-          f"{row['host_stall_s'] * 1e3 / steps:.3f} ms/step; epoch wall {wall_s:.2f} s")
+    """Three AlexNet epochs of the settings at `path` at its ``scan_steps:
+    auto`` (one 16-step chunk per epoch: the eager warm-up, the capture,
+    a replay); every step must launch `wrapper`'s kernel once and no other
+    kernel. The steady step is epoch 3's, the replayed chunk's time over
+    its 16 steps."""
+    history, wall_s, launches = native_run(path, {"num_epochs": 3})
+    steps = check_epochs(label, history, launches, wrapper, wrapper is fused_adam.kernel)
+    first, last = history[0], history[-1]
+    steady = statistics.median(last["step_ms"])
+    phase("4 main path", f"{label}, 3 epochs at scan_steps auto (one 16-step chunk each): {steps} steps, "
+          f"{wrapper.symbol} launches={wrapper.launches} ({wrapper.launches // steps}/step), epoch 1 "
+          f"train_loss={first['train_loss']:.4f} test_loss={first['test_loss']:.4f}; step_ms epoch 1 (the "
+          f"eager warm-up, set-up included) {first['step_ms'][0]:.2f}, epoch 3 (replayed) {steady:.2f}; "
+          f"{128 * 1e3 / steady:.0f} img/s; host stall {last['host_stall_s'] * 1e3 / 16:.3f} ms/step in "
+          f"epoch 3; wall {wall_s:.2f} s")
     return wrapper.launches, steps, steady
 
 
@@ -564,6 +603,7 @@ def _toy_cnn_worker(rank, world_size, save_dir, optional_args, training):
 
 def toy_cnn_epoch():
     settings, training = training_for(SETTINGS_TOY)
+    training["num_epochs"] = 3
     reset_counts()
     history, syncs, moved = run_ddp_training(
         partial(_toy_cnn_worker, training=training), 1, None,
@@ -571,21 +611,21 @@ def toy_cnn_epoch():
     )
     torch.cuda.synchronize()
     row = history[-1]
-    steps = len(row["step_ms"])
+    steps = sum(len(r["step_ms"]) for r in history)
     checks = {
         "2 synced BatchNorms": syncs == [True, True],
-        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
+        "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
         "BatchNorm buffers moved": moved,
-        "1 launch per step": (fused_adam.kernel.launches == steps
+        "1 launch per step": (fused_adam.kernel.launches == steps == 48
                               and fused_adam.kernels[torch.bfloat16].launches == 0),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"chip_smoke: toy_cnn sync-BN epoch failed {failed}: row={row}")
-    phase("4 toy_cnn", f"toy_cnn@32 b128 sync_bn, 1 epoch at world 1: {steps} steps, "
-          f"fused_adam launches={fused_adam.kernel.launches}, train_loss={row['train_loss']:.4f} "
-          f"test_loss={row['test_loss']:.4f}, BatchNorm buffers moved; step_ms median(2..{steps})="
-          f"{statistics.median(row['step_ms'][1:]):.2f}")
+        raise SystemExit(f"chip_smoke: toy_cnn sync-BN epoch failed {failed}: history={history}")
+    phase("4 toy_cnn", f"toy_cnn@32 b128 sync_bn, 3 epochs at world 1, scan_steps auto (one 16-step chunk "
+          f"each): {steps} steps, fused_adam launches={fused_adam.kernel.launches}, epoch 3 train_loss="
+          f"{row['train_loss']:.4f} test_loss={row['test_loss']:.4f}, BatchNorm buffers moved; step_ms "
+          f"epoch 3 (replayed) {statistics.median(row['step_ms']):.2f}")
     return fused_adam.kernel.launches
 
 
@@ -680,14 +720,16 @@ def managed_vs_native():
 
 def pipeline_turns(label: str, path: str, wrapper, f32_losses: bool):
     """Phase 6: epochs of the settings at `path` under ``pipeline: false``
-    and the default pipeline in turns; returns the launches by pipeline."""
+    and the default pipeline in turns, one step per batch (``scan_steps:
+    1``: what ``pipeline: false`` adds is a synchronise per step); returns
+    the launches by pipeline."""
     medians = {k: [] for k in PIPELINES}
     stalls = {k: [] for k in PIPELINES}
     launches = {k: 0 for k in PIPELINES}
     for mode in PIPELINE_TURNS:
-        history, _, counts = native_run(path, {"pipeline": PIPELINES[mode]})
+        history, _, counts = native_run(path, {"pipeline": PIPELINES[mode], "scan_steps": 1})
         row = history[-1]
-        steps = check_epoch(f"{label}, pipeline {mode}", row, counts, wrapper, f32_losses)
+        steps = check_epochs(f"{label}, pipeline {mode}", history, counts, wrapper, f32_losses)
         medians[mode].append(statistics.median(row["step_ms"][1:]))
         stalls[mode].append(row["host_stall_s"] * 1e3 / steps)
         launches[mode] += counts[wrapper.symbol]
@@ -899,29 +941,31 @@ def optimizer_steps(alexnet_shapes, bw, device: str = "cuda"):
 
 
 def optimizer_epoch(name: str, steady_f32: float):
-    """Phase 8: one native AlexNet float32 epoch with `name` (lars and lamb
-    with clip 1.0): finite losses, no Adam-kernel launch."""
+    """Phase 8: three native AlexNet float32 epochs with `name` (lars and
+    lamb with clip 1.0): finite losses, no Adam-kernel launch; epoch 3's
+    replayed step beside Adam's."""
     overrides = dict(optimizer=name, **OPT_HP)
     if name in TRUST:
         overrides["clip_grad_norm"] = 1.0
-    history, wall_s, launches = native_run(SETTINGS, overrides)
+    history, wall_s, launches = native_run(SETTINGS, dict(overrides, num_epochs=3))
     row = history[-1]
-    steps = len(row["step_ms"])
+    steps = sum(len(r["step_ms"]) for r in history)
     checks = {
-        "16 train steps": steps == 16,
+        "16 train steps an epoch": all(len(r["step_ms"]) == 16 for r in history),
         "no Adam-kernel launch": sum(launches.values()) == 0,
-        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
-        "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
+        "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
+        "2048 train / 512 test samples": all(
+            (r["train_samples"], r["test_samples"]) == (2048, 512) for r in history),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise SystemExit(f"chip_smoke: native {name} epoch failed {failed}: launches={launches}, row={row}")
-    steady = statistics.median(row["step_ms"][1:])
-    phase(f"8 native {name}", f"AlexNet@224 b128 float32, {overrides}, 1 epoch: {steps} steps, "
-          f"Adam-kernel launches {launches}, train_loss={row['train_loss']:.4f} "
-          f"test_loss={row['test_loss']:.4f}; step_ms first={row['step_ms'][0]:.2f} "
-          f"median(2..{steps})={steady:.2f} min={min(row['step_ms'][1:]):.2f} vs Adam float32 "
-          f"{steady_f32:.2f} (ratio {steady / steady_f32:.3f}); epoch wall {wall_s:.2f} s")
+        raise SystemExit(f"chip_smoke: native {name} epochs failed {failed}: launches={launches}, "
+                         f"history={history}")
+    steady = statistics.median(row["step_ms"])
+    phase(f"8 native {name}", f"AlexNet@224 b128 float32, {overrides}, 3 epochs at scan_steps auto: "
+          f"{steps} steps, Adam-kernel launches {launches}, epoch 3 train_loss={row['train_loss']:.4f} "
+          f"test_loss={row['test_loss']:.4f}; step_ms epoch 3 (replayed) {steady:.2f} vs Adam float32 "
+          f"{steady_f32:.2f} (ratio {steady / steady_f32:.3f}); wall {wall_s:.2f} s")
     return sum(launches.values()), steady
 
 
@@ -1124,10 +1168,11 @@ def fused_turns(root: str):
             "state_0 and state_5 written": sorted(f for f in os.listdir(save_dir) if f.endswith(".npz")) == [
                 "model.npz", "state_0.npz", "state_5.npz"],
         }
+        fused = g["by_kind"].get("fused", {"captures": 0, "replays": 0})
         if mode == "replay":
-            checks["2 captures, 10 replays"] = (g["captures"], g["replays"]) == (2, 10)
+            checks["2 captures, 10 replays"] = (fused["captures"], fused["replays"]) == (2, 10)
         else:
-            checks["no graph"] = g["replays"] == 0
+            checks["no graph"] = fused["replays"] == 0
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise SystemExit(f"chip_smoke: managed_fused_h100.yaml ({mode}) failed {failed}: "
@@ -1136,7 +1181,7 @@ def fused_turns(root: str):
     rows = {m: [(r["train_loss"], r["test_loss"], r["test_accuracy"]) for r in runs[m][0]] for m in runs}
     same = {m: rows[m] == rows["replay"] for m in rows}
     last = runs["replay"][0][-1]
-    g = runs["replay"][2]
+    g = runs["replay"][2]["by_kind"]["fused"]
     fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
     phase("9 managed fused", f"managed_fused_h100.yaml as written (toy_cnn, real digits, b32, 6 epochs, "
           f"fuse_steps auto = 32): train_loss {fmt([r['train_loss'] for r in runs['replay'][0]])}; "
@@ -1178,7 +1223,7 @@ def fused_alexnet(steady_managed: float):
         finally:
             PreparedOptimizer._graph_replay = True
         n = fused_adam.kernel.launches
-        g = dict(graphs.stats)
+        g = graphs.stats["by_kind"].get("fused", {"captures": 0, "replays": 0})
         checks = {
             "2 epochs of 16 steps": [len(r["step_ms"]) for r in history] == [16, 16],
             "32 updates, 1 launch each": n == sum(r["updates"] for r in history) == 32,
@@ -1272,9 +1317,332 @@ def digits_native():
     return fused_adam.kernel.launches
 
 
+# ---------------------------------------------------------------- phase 10 --
+
+NATIVE_TURNS = ("replay", "eager", "depth 1", "depth 1", "eager", "replay")
+ALEXNET_TURNS = ("auto", "depth 1", "depth 1", "auto")
+
+
+def _kinds(g: dict) -> dict:
+    """Captures and replays by caller kind."""
+    return {k: (v["captures"], v["replays"]) for k, v in g["by_kind"].items()}
+
+
+def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam", accum: int = 1,
+                      chunks: int = 3):
+    """Phase 10: `chunks` chunks of `k` batches through
+    ``DistributedDataParallel.train_step_many`` from one state, as graph
+    replays and eagerly (``_graph_replay = False``): max |dp| over
+    parameters, buffers and optimizer state, the sums, each kernel's
+    launches as the kernel counted them, the graph counts and the seconds
+    of each run."""
+    out = {}
+    for mode in ("eager", "replay"):
+        model, augment, gen, name = make()
+        if opt_name == "lars":
+            opt = optim.LARS(model.parameters(), lr=0.1, **OPT_HP)
+        elif opt_name == "adam_bf16":
+            leaf = jax_leaf_index(name, model)
+            opt = Adam(model.parameters(), lr=1e-3, state_dtype=torch.bfloat16,
+                       leaf_index=[leaf[n] for n, _ in model.named_parameters()])
+        else:
+            opt = Adam(model.parameters(), lr=1e-3)
+        ddp = DistributedDataParallel(model, opt, CrossEntropyLoss(), augment=augment, device="cuda",
+                                      grad_accumulation=accum, generator=gen)
+        ddp._graph_replay = mode == "replay"
+        torch.cuda.manual_seed(7)  # dropout: the same stream in both runs
+        reset_counts()
+        graphs.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = None
+        for c in range(chunks):
+            sums = ddp.train_step_many(batches[c * k:(c + 1) * k], sums)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        state = {f"model/{n}": t.detach().clone() for n, t in model.state_dict().items()}
+        for i, st in enumerate(opt.state.values()):
+            state.update({f"opt{i}/{n}": t.clone() for n, t in st.items() if torch.is_tensor(t)})
+        out[mode] = (state, sums.clone(), {kn.symbol: kn.launches for kn in fused_adam.kernels.values()},
+                     dict(graphs.stats), ddp.step, seconds)
+        del ddp, model, opt, state
+        torch.cuda.empty_cache()
+    (eager, s_e, n_e, _, step_e, sec_e), (replay, s_r, n_r, g, step_r, sec_r) = out["eager"], out["replay"]
+    diff = {key: float((eager[key].double() - replay[key].double()).abs().max()) for key in eager}
+    dp = max(v for key, v in diff.items() if key.startswith("model/"))
+    dopt = max((v for key, v in diff.items() if key.startswith("opt")), default=0.0)
+    dsum = float((s_e.double() - s_r.double()).abs().max())
+    updates = chunks * k // accum
+    want = {kn.symbol: 0 for kn in fused_adam.kernels.values()}
+    if opt_name != "lars":
+        want[fused_adam.kernels[torch.bfloat16 if opt_name == "adam_bf16" else torch.float32].symbol] = updates
+    checks = {
+        f"params, buffers, optimizer state and sums within {PATHS_TOL}": max(dp, dopt, dsum) <= PATHS_TOL,
+        "1 launch of the moments' kernel per update, counted on the card": n_e == n_r == want,
+        f"1 capture, {chunks - 1} replays": _kinds(g) == {"train": (1, chunks - 1)},
+        f"step {chunks * k}": step_e == step_r == chunks * k,
+        "finite sums": bool(torch.isfinite(s_r).all()),
+    }
+    bitwise = dp == dopt == dsum == 0.0
+    detail = (f"max|dp|={dp:.3g} max|d opt state|={dopt:.3g} max|d sums|={dsum:.3g} "
+              f"({'bitwise' if bitwise else 'NOT bitwise'}); launches replay={n_r} eager={n_e}; "
+              f"captures/replays {_kinds(g)}, capture_s={g['capture_s']:.3f}; run s replay "
+              f"{sec_r:.3f} eager {sec_e:.3f}")
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: native chunk replay vs eager, {label}, failed {failed}: {detail}")
+    phase("10 native graph vs eager", f"{label}, K={k}, A={accum}, {chunks} chunks ({updates} updates) "
+          f"from one state: {detail}")
+    return dict(label=label, k=k, accum=accum, updates=updates, max_abs_dp=dp, max_abs_d_opt_state=dopt,
+                max_abs_d_sums=dsum, bitwise=bitwise, launches_replay=n_r, launches_eager=n_e,
+                capture_s=g["capture_s"])
+
+
+def native_eval_pair(label: str, model_fn, transform, batches, k: int, groups: int = 3):
+    """Phase 10: `groups` eval groups of `k` batches through
+    ``eval_step_many``, replayed and eagerly: the sums, bitwise."""
+    out = {}
+    for mode in ("eager", "replay"):
+        model = model_fn()
+        ddp = DistributedDataParallel(model, Adam(model.parameters()), CrossEntropyLoss(),
+                                      eval_transform=transform, device="cuda")
+        ddp._graph_replay = mode == "replay"
+        graphs.reset_stats()
+        sums = None
+        for c in range(groups):
+            sums = ddp.eval_step_many(batches[c * k:(c + 1) * k], sums)
+        out[mode] = (sums.clone(), dict(graphs.stats))
+    (s_e, _), (s_r, g) = out["eager"], out["replay"]
+    dsum = float((s_e.double() - s_r.double()).abs().max())
+    if not (dsum <= PATHS_TOL and _kinds(g) == {"eval": (1, groups - 1)}):
+        raise SystemExit(f"chip_smoke: eval group replay vs eager, {label}: max|d sums|={dsum}, graphs {g}")
+    phase("10 native graph vs eager", f"{label}, {groups} eval groups of {k}: max|d sums|={dsum:.3g} "
+          f"({'bitwise' if dsum == 0 else 'NOT bitwise'}); captures/replays {_kinds(g)}; sums "
+          f"{[round(v, 4) for v in s_r.tolist()]}")
+    return dict(label=label, k=k, max_abs_d_sums=dsum, bitwise=dsum == 0.0)
+
+
+def native_pairs():
+    """Phase 10: native chunk replay against its eager chunk: toy_cnn with
+    sync_bn on real digits at K = 45 (Adam, bf16-moment Adam, LARS), the
+    digits eval groups at K = 8, AlexNet@224 b128 at K = 8 with flips and
+    dropout, and at A = 2."""
+    _, training = _fused_settings(SETTINGS_DIGITS)
+    mean, std = norm_stats_for(training)
+    digits = digits_batches(135)
+
+    def toy():
+        torch.manual_seed(0)
+        gen = torch.Generator().manual_seed(1)
+        model = convert_sync_batchnorm(load_model("toy_cnn", 10, input_shape=(8, 8, 3)))
+        return (model, make_train_augment(size=None, flip=False, mean=mean, std=std, generator=gen),
+                gen, "toy_cnn")
+
+    gen = torch.Generator().manual_seed(1)
+    alex_batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                     torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32))
+                    for _ in range(24)]
+
+    def alex():
+        torch.manual_seed(0)
+        g = torch.Generator().manual_seed(1)
+        return AlexNet(num_classes=10), make_train_augment(size=224, flip=True, generator=g), g, "alexnet"
+
+    def toy_eval():
+        torch.manual_seed(0)
+        return convert_sync_batchnorm(load_model("toy_cnn", 10, input_shape=(8, 8, 3)))
+
+    _, test = load_datasets_for({"dataset": "digits"})
+    rng = np.random.default_rng(4)
+    eval_batches = []
+    for _ in range(24):
+        idx = rng.integers(0, len(test), 45)
+        eval_batches.append((test.images[idx], test.labels[idx].astype(np.int64),
+                             (rng.random(45) < 0.9).astype(np.float32)))
+    pairs = [
+        native_chunk_pair("toy_cnn sync_bn digits b32 adam", toy, digits, 45),
+        native_chunk_pair("toy_cnn sync_bn digits b32 adam bf16 moments", toy, digits, 45, "adam_bf16"),
+        native_chunk_pair("toy_cnn sync_bn digits b32 lars", toy, digits, 45, "lars"),
+        native_chunk_pair("AlexNet@224 b128 flip dropout adam", alex, alex_batches, 8),
+        native_chunk_pair("AlexNet@224 b128 flip dropout adam, A=2", alex, alex_batches, 8, accum=2),
+    ]
+    evals = [native_eval_pair("toy_cnn sync_bn digits b45", toy_eval,
+                              make_eval_transform(size=None, mean=mean, std=std), eval_batches, 8)]
+    return pairs, evals
+
+
+def _native_turn_run(training, mode: str, settings):
+    """The native worker on `training` with graph replay, eagerly
+    (``_graph_replay = False``) or at ``scan_steps: 1``; counts set to 0
+    just before it and read just after: ``(history, launches, graph counts,
+    wall s)``."""
+    if mode == "depth 1":
+        training = dict(training, scan_steps=1)
+    reset_counts()
+    graphs.reset_stats()
+    DistributedDataParallel._graph_replay = mode != "eager"
+    t0 = time.perf_counter()
+    try:
+        history = run_ddp_training(partial(basic_ddp_training_loop, training=training, device="cuda"),
+                                   1, None, cfg_lib.optional_args_from(settings), backend="cuda")
+        torch.cuda.synchronize()
+    finally:
+        DistributedDataParallel._graph_replay = True
+    return (history, sum(k.launches for k in fused_adam.kernels.values()), dict(graphs.stats),
+            time.perf_counter() - t0)
+
+
+def native_digits_turns():
+    """Phase 10: ``digits_h100.yaml`` as written (10 epochs, ``scan_steps:
+    auto`` = 45 train and 8 eval batches per dispatch) with graph replay,
+    eagerly and at ``scan_steps: 1``, in turns: the accuracy, equal epoch
+    rows, 450 launches, the captures and replays of train and eval, and
+    each run's step median over epochs 3-10."""
+    settings, training = _fused_settings(SETTINGS_DIGITS)
+    medians = {m: [] for m in NATIVE_TURNS}
+    launches = {m: 0 for m in NATIVE_TURNS}
+    walls = {m: [] for m in NATIVE_TURNS}
+    runs = {}
+    for mode in NATIVE_TURNS:
+        history, n, g, wall = _native_turn_run(training, mode, settings)
+        medians[mode].append(statistics.median([ms for r in history[2:] for ms in r["step_ms"]]))
+        launches[mode] += n
+        walls[mode].append(wall)
+        runs.setdefault(mode, (history, g))
+        k = 1 if mode == "depth 1" else 45
+        checks = {
+            "10 epochs of 45 steps": [len(r["step_ms"]) for r in history] == [45] * 10,
+            "450 launches, counted on the card": n == 450,
+            "finite losses": all(math.isfinite(r[key]) for r in history for key in ("train_loss", "test_loss")),
+            "1437 train / 360 test rows": all(
+                (r["train_samples"], r["test_samples"]) == (1437, 360) for r in history),
+            f"scan_steps {k} / eval {8 if k > 1 else 1} in the rows": all(
+                (r["scan_steps"], r["eval_scan_steps"]) == (k, 8 if k > 1 else 1) for r in history),
+            "graphs": _kinds(g) == ({"train": (1, 9), "eval": (1, 9)} if mode == "replay" else {}),
+        }
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: native digits ({mode}) failed {failed}: launches={n}, "
+                             f"graphs={g}, history={history}")
+    rows = {m: [(r["train_loss"], r["test_loss"], r["test_accuracy"]) for r in runs[m][0]] for m in runs}
+    same = {m: rows[m] == rows["replay"] for m in rows}
+    if not all(same.values()):
+        raise SystemExit(f"chip_smoke: native digits epoch rows differ between modes: {rows}")
+    last = runs["replay"][0][-1]
+    g = runs["replay"][1]
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    phase("10 native digits", f"digits_h100.yaml as written (toy_cnn sync_bn, real digits, b32, 10 epochs, "
+          f"scan_steps auto = 45 train / 8 eval): epoch 10 train_loss={last['train_loss']:.4f} test_loss="
+          f"{last['test_loss']:.4f} test_accuracy={last['test_accuracy']:.2f}%; epoch rows equal: {same}; "
+          f"launches {launches}; captures/replays {_kinds(g)}, capture_s={g['capture_s']:.3f}; turns "
+          f"{'/'.join(NATIVE_TURNS)} (launches: both runs of each mode): step median (epochs 3-10) ms "
+          + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
+          + "; wall s " + "; ".join(f"{m} [{fmt(v)}]" for m, v in walls.items()))
+    return dict(medians=medians, launches=launches, rows_equal=same, capture_s=g["capture_s"],
+                graphs=_kinds(g), test_accuracy=last["test_accuracy"], wall_s=walls)
+
+
+def native_alexnet_turns():
+    """Phase 10: 3 epochs of ``cifar10_alexnet_h100.yaml`` (the synthetic
+    stand-in: 16 train and 6 eval batches, ``scan_steps: auto`` = 16 and 6)
+    against ``scan_steps: 1``, in turns: equal epoch rows, 48 launches, and
+    each run's epoch-3 step median."""
+    settings, training = training_for(SETTINGS)
+    training["num_epochs"] = 3
+    medians = {m: [] for m in ALEXNET_TURNS}
+    launches = {m: 0 for m in ALEXNET_TURNS}
+    runs = {}
+    for mode in ALEXNET_TURNS:
+        history, n, g, _ = _native_turn_run(training, "depth 1" if mode == "depth 1" else "replay", settings)
+        medians[mode].append(statistics.median(history[2]["step_ms"]))
+        launches[mode] += n
+        runs.setdefault(mode, (history, g))
+        checks = {
+            "3 epochs of 16 steps": [len(r["step_ms"]) for r in history] == [16] * 3,
+            "48 launches, counted on the card": n == 48,
+            "finite losses": all(math.isfinite(r[key]) for r in history for key in ("train_loss", "test_loss")),
+            "graphs": _kinds(g) == ({"train": (1, 2), "eval": (1, 2)} if mode == "auto" else {}),
+        }
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: native AlexNet ({mode}) failed {failed}: graphs={g}, history={history}")
+    rows = {m: [(r["train_loss"], r["test_loss"], r["test_accuracy"]) for r in runs[m][0]] for m in runs}
+    same = rows["auto"] == rows["depth 1"]
+    if not same:
+        raise SystemExit(f"chip_smoke: native AlexNet epoch rows differ between auto and depth 1: {rows}")
+    g = runs["auto"][1]
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    phase("10 native AlexNet", f"cifar10_alexnet_h100.yaml, 3 epochs (synthetic stand-in, scan_steps auto = "
+          f"16 train / 6 eval) against scan_steps 1, launches of both runs of each: epoch rows equal ({', '.join(f'{a:.4f}/{b:.4f}' for a, b, _ in rows['auto'])}); "
+          f"launches {launches}; captures/replays {_kinds(g)}, capture_s={g['capture_s']:.3f}; turns "
+          f"{'/'.join(ALEXNET_TURNS)}: epoch-3 step median ms "
+          + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
+          + f" (auto/depth 1 {min(medians['auto']) / min(medians['depth 1']):.3f}, least of each)")
+    return dict(medians=medians, launches=launches, rows_equal=same, capture_s=g["capture_s"], graphs=_kinds(g))
+
+
+EVAL_TURNS = ("groups", "depth 1", "depth 1", "groups")
+
+
+def managed_eval_groups(passes: int = 5):
+    """Phase 10: ``managed_fused_h100.yaml``'s model trained two epochs
+    (fused steps, replayed in the second), then its evaluator over the digits test
+    stream (8 batches of 45) `passes` times, with groups (auto: one group
+    of 8, replayed from the third pass) and at ``fuse_steps=1``, in turns:
+    every pass's sums bitwise equal across modes, and the ms per eval pass
+    over passes 3-`passes`."""
+    _, training = _fused_settings()
+    ms = {m: [] for m in EVAL_TURNS}
+    launches = {m: 0 for m in EVAL_TURNS}
+    sums, kinds = {}, {}
+    for mode in EVAL_TURNS:
+        reset_counts()
+        graphs.reset_stats()
+        acc, model, opt, train_loader, test_loader, criterion, transform = managed_build(training, "cuda")
+        for epoch in range(2):
+            train_loader.set_epoch(epoch)
+            managed_train(model, train_loader, criterion, opt, acc)
+        torch.cuda.synchronize()
+        trained = fused_adam.kernel.launches
+        launches[mode] += trained
+        ev = FusedEvaluator(model, criterion, transform=transform, fuse_steps=1 if mode == "depth 1" else None)
+        results, times = [], []
+        for _ in range(passes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, y, w in test_loader:
+                ev.add(x, y, w)
+            results.append(ev.finalize())  # one host read, after the last group
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[mode].append(statistics.median(times[2:]))
+        sums.setdefault(mode, results)
+        kinds[mode] = _kinds(graphs.stats)
+        want = {"fused": (2, 2)}
+        if mode == "groups":
+            want["managed eval"] = (1, passes - 1)  # the capture's own launch counts as a replay
+        if not (trained == 90 and len(set(results)) == 1 and kinds[mode] == want):
+            raise SystemExit(f"chip_smoke: managed eval groups ({mode}) failed: launches {trained}, "
+                             f"pass results {results}, graphs {kinds[mode]} (expected {want})")
+        del acc, model, opt, ev
+    same = sums["groups"] == sums["depth 1"]
+    if not same:
+        raise SystemExit(f"chip_smoke: managed eval groups differ from fuse_steps=1: {sums}")
+    loss_sum, correct, total = sums["groups"][0]
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    phase("10 managed eval groups", f"managed_fused_h100.yaml's model after 2 fused epochs (90 launches "
+          f"each), its evaluator over 360 test rows in 8 batches of 45, {passes} passes: groups (one of 8, "
+          f"captured at pass 2) and fuse_steps=1 give the same sums bitwise (loss sum {loss_sum:.6f}, "
+          f"{correct}/{total} correct); graphs {kinds['groups']}; turns {'/'.join(EVAL_TURNS)}: ms per "
+          f"eval pass (median of passes 3-{passes}) " + "; ".join(f"{m} [{fmt(v)}]" for m, v in ms.items())
+          + f" (groups/depth 1 {min(ms['groups']) / min(ms['depth 1']):.3f}, least of each)")
+    return dict(ms_per_pass=ms, launches=launches, sums_equal=same, graphs=kinds["groups"])
+
+
+T0 = time.perf_counter()
+
+
 def main() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
     card = card_line()
     phase("1 device", f"{name}; nvidia-smi: {card}; torch {torch.__version__}, "
@@ -1317,8 +1685,8 @@ def main() -> None:
     launches_toy = toy_cnn_epoch()
 
     launches_managed, steady_managed = managed_epoch("AlexNet@224 b128 float32", 1)
-    phase("5 managed vs native", f"step median {steady_managed:.2f} ms (managed) vs "
-          f"{steady_f32:.2f} ms (native), ratio {steady_managed / steady_f32:.3f}")
+    phase("5 managed vs native", f"step median {steady_managed:.2f} ms (managed, one step per batch) vs "
+          f"{steady_f32:.2f} ms (native, a replayed 16-step chunk), ratio {steady_managed / steady_f32:.3f}")
     launches_accum, _ = managed_epoch("AlexNet@224 b128 float32, gradient_accumulation_steps 2", 2)
     managed_vs_native()
 
@@ -1358,7 +1726,22 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches_alex8, medians_alex8, capture_alex8 = fused_alexnet(steady_managed)
+    t10 = time.perf_counter()
+    native_chunk_pairs, native_eval_pairs = native_pairs()
+    digits_10 = native_digits_turns()
+    alexnet_10 = native_alexnet_turns()
+    eval_10 = managed_eval_groups()
+    phase_10_s = time.perf_counter() - t10
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
+    native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
+                            for p in native_chunk_pairs for m in ("replay", "eager")}
+    phase_10 = {
+        **{k: n[f32_sym] for k, n in native_pair_launches.items()},
+        **{f"native digits {m}": n for m, n in digits_10["launches"].items()},
+        **{f"native AlexNet {m}": n for m, n in alexnet_10["launches"].items()},
+        **{f"managed eval groups {m}": n for m, n in eval_10["launches"].items()},
+    }
+    phase_10_bf16 = {k: n[bf16_sym] for k, n in native_pair_launches.items()}
     pair_launches = {f"graph vs eager {p['label']} ({m})": p[f"launches_{m}"] for p in pairs
                      for m in ("replay", "eager")}
     phase_9 = {
@@ -1376,6 +1759,11 @@ def main() -> None:
         "alexnet_depth_8": {"turns": list(FUSED_TURNS), "epoch_2_step_ms": medians_alex8,
                             "phase_5_unfused_step_ms_median": steady_managed, "capture_s": capture_alex8},
     }}))
+    print(json.dumps({"scan": {
+        "native_graph_vs_eager": native_chunk_pairs + native_eval_pairs,
+        "native_digits": digits_10, "native_alexnet_3_epochs": alexnet_10,
+        "managed_eval_groups": eval_10, "phase_10_s": phase_10_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -1389,7 +1777,7 @@ def main() -> None:
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
-               "native digits": launches_digits, **phase_9}
+               "native digits": launches_digits, **phase_9, **phase_10}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     print(json.dumps({"kernels": [
@@ -1397,14 +1785,17 @@ def main() -> None:
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
          "launches_by_path": by_path},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
-         "launches": launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values()),
+         "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
+                      + sum(phase_10_bf16.values())),
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
          "launches_by_path": {"native bf16": launches_bf16,
                               **{f"native bf16 pipeline {k}": n for k, n in ab_bf16.items()},
                               **{k: 0 for k in phase_8}, "native digits": 0,
-                              **{k: 0 for k in phase_9}, **phase_9_bf16}},
+                              **{k: 0 for k in phase_9}, **phase_9_bf16,
+                              **{k: 0 for k in phase_10}, **phase_10_bf16}},
     ]}))
+    phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

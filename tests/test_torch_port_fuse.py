@@ -42,7 +42,7 @@ from tpuddp_torch.models import ToyMLP
 from tpuddp_torch.models.convert import state_dict_from_jax
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.ops import device_scalars, fused_adam
-from tpuddp_torch.train_accelerate import FlushClock
+from tpuddp_torch.training.loop import StepClock
 from tpuddp_torch.utils import batching
 
 HW = 4
@@ -133,8 +133,9 @@ def test_fused_evaluator_matches_eager_eval():
 def test_fused_evaluator_matches_jax_on_ragged_streams():
     """tests/test_accelerate.py:943: a ragged stream (8, 3 and 5 rows, the
     shape changing between groups) gives the JAX package's evaluator's
-    result, whose auto depth is worked out again for each batch shape; the
-    port runs each batch at ``add``, so no depth can stale its result."""
+    result; both work the auto depth out again for each batch shape (the
+    depths themselves are held against the JAX evaluator's in
+    tests/test_torch_port_scan.py)."""
     ds_x = np.random.RandomState(3).randn(16, 8, 8, 3).astype(np.float32)
     ds_y = np.random.RandomState(4).randint(0, 10, 16)
     jmodule = JaxToyMLP(10, hidden=(16,))
@@ -519,7 +520,7 @@ def test_recorder_refresh_writes_each_slot_and_refuses_a_mismatch():
 def test_flush_clock_spreads_each_group_over_its_steps():
     """step_ms under fusion: one time per flush, divided by the steps it
     ran; unfused, one time per step."""
-    clock = FlushClock(torch.device("cpu"))
+    clock = StepClock(torch.device("cpu"))
     clock.marks = [0.0, 0.032, 0.045]
     clock.groups = [32, 13]
     ms = clock.step_ms()

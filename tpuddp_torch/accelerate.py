@@ -44,8 +44,9 @@ warm-up. The contracts of the JAX queue hold:
   raises.
 
 :class:`FusedEvaluator` sums each test batch's loss,
-the correct count and the real-row count on the device, with one host read
-at ``finalize()``.
+the correct count and the real-row count on the device in groups of K
+batches (one CUDA-graph replay each on a CUDA model), with one host read at
+``finalize()``.
 
 The managed step computes the gradient of the GLOBAL batch's weighted-mean
 loss, as the JAX step evaluates the criterion over the whole sharded batch:
@@ -107,6 +108,7 @@ from tpuddp_torch.nn.norm import BatchNorm, batch_weights, convert_sync_batchnor
 from tpuddp_torch.optim import clip_grad_norm_
 from tpuddp_torch.parallel import backend, collectives
 from tpuddp_torch.training import checkpoint as ckpt
+from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import to_device
 from tpuddp_torch.utils import batching
 
@@ -231,6 +233,7 @@ class PreparedModel:
         self._pending: Optional[_Request] = None  # backward requested, not run yet
         self._staged: Optional[LazyLoss] = None  # backward run, step() not yet
         self._optimizer: Optional["PreparedOptimizer"] = None  # bound by prepare
+        self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         self._bwd_counter = 0  # backward requests, saved as ['bwd_counter']
         # the JAX model's draws: its backward base key here, its init key at
         # its first forward (tpuddp/accelerate.py:544, :605)
@@ -262,6 +265,13 @@ class PreparedModel:
 
     def _params(self):
         return [p for p in self._module.parameters() if p.requires_grad]
+
+    def _graph_engine(self):
+        """The CUDA-graph engine of this model's fused train steps and eval
+        groups (one memory pool)."""
+        if self._graphs is None:
+            self._graphs = graphs.StepGraphs(self.device)
+        return self._graphs
 
     def _flush_queues(self) -> None:
         """Run the optimizer's queued steps, so that what is read next is
@@ -392,7 +402,6 @@ class PreparedOptimizer:
         self._accum_count = 0
         self._fuse: Optional[int] = None  # the resolved depth, at the first backward
         self._queue: List[_Request] = []
-        self._graphs = None  # training.graphs.StepGraphs, at a CUDA model's first flush
         self.updates = 0
 
     @property
@@ -477,11 +486,7 @@ class PreparedOptimizer:
             return
         try:
             if self._graph_replay and self.model.device.type == "cuda":
-                if self._graphs is None:
-                    from tpuddp_torch.training.graphs import StepGraphs
-
-                    self._graphs = StepGraphs(self)
-                self._graphs.run(queue)
+                self._run_graph(queue)
             else:
                 self._run_eager(queue)
         except BaseException:
@@ -498,6 +503,30 @@ class PreparedOptimizer:
         for req in queue:
             req.loss._value, _ = self.model._execute(req)
             self._apply()
+
+    def _run_graph(self, queue) -> None:
+        """The queued steps as one group of the model's graph engine: the
+        eager steps at the signature's first flush, its graph after."""
+        graphs.check_graph_safe(self.optimizer)
+        model = self.model
+
+        def body(slots):
+            values = []
+            for i, req in enumerate(queue):
+                x, y, w, mask = slots[4 * i:4 * i + 4]
+                value, _ = model._execute(req._replace(x=x, y=y, w=w, flip_mask=mask))
+                values.append(value)
+                self._apply()
+            return torch.stack(values)
+
+        def replayed():
+            self.updates += len(queue)
+
+        inputs = [t for req in queue for t in (req.x, req.y, req.w, req.flip_mask)]
+        losses = model._graph_engine().run(
+            "fused", graphs.signature(self, queue), graphs.held(self, queue), inputs, body, replayed)
+        for i, req in enumerate(queue):
+            req.loss._value = losses[i]
 
     def flush_accumulation(self) -> None:
         """Apply a partial cycle now, averaged over the micro-batches it
@@ -522,53 +551,105 @@ class PreparedOptimizer:
 
 class FusedEvaluator:
     """The managed eval pass (``tpuddp/accelerate.py:221-387``): ``add``
+    queues a test batch on the device, and each group of queued batches
     runs transform, forward, the per-batch criterion and the correct and
-    real-row counts of one test batch on the device and adds them into three
-    device scalars (the loss sum in float32, the counts as integers), and
-    ``finalize()`` reads them once: ``(loss sum, correct, total)``. Queued
-    train steps are flushed first. Every process evaluates the whole stream
-    it is given (quirk Q3); padded rows (``w = 0``) count nowhere.
+    real-row counts of every batch, adding them in order into three device
+    scalars (the loss sum in float32, the counts as integers);
+    ``finalize()`` runs what is still queued and reads them once: ``(loss
+    sum, correct, total)``. Queued train steps are flushed before each
+    group. Every process evaluates the whole stream it is given (quirk Q3);
+    padded rows (``w = 0``) count nowhere.
 
-    The JAX evaluator runs groups of ``fuse_steps`` batches as one program;
-    here each batch runs at ``add`` (eval graph replay is ROADMAP work), so
-    ``fuse_steps`` (None: auto) is accepted for the JAX API and changes no
-    result."""
+    A group runs when the queue holds ``fuse_steps`` batches (None: auto,
+    32 capped by the staging budget over the batch's bytes, worked out
+    again whenever the batch shape changes, as the JAX evaluator's
+    ``_resolve_fuse`` does), when a batch of another shape or dtype arrives
+    (the queue never mixes them) and at ``finalize()``. On the CPU a group
+    runs its batches one after another; on a CUDA model a group of two or
+    more is one group of the model's CUDA-graph engine
+    (``training/graphs.py``): eager at its signature's first group,
+    captured at the second, replayed after. Either way the sums are added
+    in batch order, so they are bitwise those of ``fuse_steps=1``."""
 
     def __init__(self, model: PreparedModel, criterion, transform=None, fuse_steps=None):
         self.model = model
         self.criterion = criterion
         self.transform = transform
         self.fuse_steps = None if fuse_steps is None else max(1, int(fuse_steps))
+        self._queue: List[tuple] = []  # (x, y, w) on the device
         self._stats = None
+        self._fuse_cache = None  # (shape key, resolved depth)
 
-    @torch.no_grad()
+    def _resolve_fuse(self) -> int:
+        """The group depth for the queued batches' shape."""
+        if self.fuse_steps is not None:
+            return self.fuse_steps
+        x = self._queue[0][0]
+        key = (tuple(x.shape), x.dtype)
+        if self._fuse_cache is None or self._fuse_cache[0] != key:
+            self._fuse_cache = (key, batching.resolve_fuse(x.numel() * x.element_size(),
+                                                           cap=AUTO_FUSE_CAP))
+        return self._fuse_cache[1]
+
     def add(self, x, y, w=None) -> None:
         model = self.model
-        model._flush_queues()  # queued train updates land first
         x, y = model.to_device(x), model.to_device(y, torch.int64)
         w = (torch.ones(y.shape[0], device=model.device) if w is None
              else model.to_device(w, torch.float32))
-        module = model._module
+        if self._queue and (self._queue[0][0].shape != x.shape
+                            or self._queue[0][0].dtype != x.dtype):
+            self._flush()  # a ragged stream: never one group over mixed shapes
+        self._queue.append((x, y, w))
+        if len(self._queue) >= self._resolve_fuse():
+            self._flush()
+
+    @torch.no_grad()
+    def _run(self, stats, batches):
+        """The batches' sums added in order into ``stats``."""
+        module = self.model._module
+        loss_sum, correct, total = stats
+        was_training = module.training
+        module.eval()
+        try:
+            for x, y, w in batches:
+                if self.transform is not None:
+                    x = self.transform(x)
+                logits = module(x)
+                mask = w > 0
+                loss_sum = loss_sum + self.criterion(logits, y, w)
+                correct = correct + ((logits.argmax(dim=-1) == y) & mask).sum()
+                total = total + mask.sum()
+        finally:
+            module.train(was_training)
+        return loss_sum, correct, total
+
+    def _flush(self) -> None:
+        queue, self._queue = self._queue, []
+        if not queue:
+            return
+        model = self.model
+        model._flush_queues()  # queued train updates land first
         if self._stats is None:
             self._stats = (torch.zeros((), device=model.device),
                            torch.zeros((), dtype=torch.int64, device=model.device),
                            torch.zeros((), dtype=torch.int64, device=model.device))
-        loss_sum, correct, total = self._stats
-        was_training = module.training
-        module.eval()
-        try:
-            if self.transform is not None:
-                x = self.transform(x)
-            logits = module(x)
-        finally:
-            module.train(was_training)
-        mask = w > 0
-        self._stats = (loss_sum + self.criterion(logits, y, w),
-                       correct + ((logits.argmax(dim=-1) == y) & mask).sum(),
-                       total + mask.sum())
+        if len(queue) == 1 or model.device.type != "cuda":
+            self._stats = self._run(self._stats, queue)
+            return
+
+        def body(slots):
+            return self._run(tuple(slots[:3]), [tuple(slots[i:i + 3]) for i in range(3, len(slots), 3)])
+
+        key = (graphs.shapes(t for b in queue for t in b), id(self.criterion), id(self.transform),
+               tuple(id(p) for p in model._module.parameters()))
+        held = (self.criterion, self.transform, tuple(model._module.parameters()))
+        self._stats = model._graph_engine().run(
+            "managed eval", key, held, [*self._stats, *(t for b in queue for t in b)], body)
 
     def finalize(self):
-        """Read once: host ``(loss sum, correct, total)``."""
+        """Run the queued batches, then read once: host ``(loss sum,
+        correct, total)``."""
+        self._flush()
         if self._stats is None:
             return 0.0, 0, 0
         loss_sum, correct, total = self._stats
@@ -717,8 +798,8 @@ class Accelerator:
                 req.loss._drop(reason)
             opt._queue = []
             opt._accum, opt._accum_count = None, 0
-            if opt._graphs is not None:
-                opt._graphs.clear()
+        if model._graphs is not None:
+            model._graphs.clear()
 
     def load_model(self, model: PreparedModel, save_dir: str) -> PreparedModel:
         """Restore the weights of ``save_dir/model.npz``; the optimizer's

@@ -21,10 +21,11 @@ false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
 :func:`resolve_fuse_steps`). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
-never ignored. The native path's ``scan_steps`` is accepted because an eager
-loop gives identical results by construction: K fused steps compute the same
-K steps one by one (their CUDA-graph replay is ROADMAP Queue 1 item 8,
-"native scan_steps").
+never ignored. The native path's ``scan_steps`` (K batches per dispatch,
+``auto`` or an integer >= 1; :func:`tpuddp_torch.training.loop.
+resolve_scan_steps`) runs each chunk of K train steps and each group of K
+eval batches as one CUDA-graph replay on the card, and the same steps one
+after another on the CPU.
 """
 
 from __future__ import annotations
@@ -155,15 +156,17 @@ def resolve_fuse_steps(fuse_steps, accum: int = 1, deferred_metrics: bool = True
 def check_supported(training: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for any knob set to a value this slice
     does not implement (``ValueError`` for a malformed ``pipeline`` block, a
-    gradient accumulation depth under 1, or one together with an explicit
-    ``fuse_steps`` over 1)."""
+    ``scan_steps`` under 1, a gradient accumulation depth under 1, or one
+    together with an explicit ``fuse_steps`` over 1)."""
     for knob, (ok, item) in _UNSUPPORTED.items():
         value = training.get(knob, TRAINING_DEFAULTS[knob])
         if not ok(value):
             raise _not_ported(f"training.{knob}={value!r}", item)
+    from tpuddp_torch.training.loop import resolve_scan_steps
     from tpuddp_torch.training.pipeline import resolve_pipeline
 
     resolve_pipeline(training.get("pipeline"))
+    resolve_scan_steps(training.get("scan_steps", "auto"), 1)
     accum = int(training.get("gradient_accumulation_steps") or 1)
     if accum < 1:
         raise ValueError(f"training.gradient_accumulation_steps must be >= 1, got {accum}")

@@ -71,12 +71,13 @@ def horizontal_flip(x: torch.Tensor, flip_mask: torch.Tensor) -> torch.Tensor:
 
 
 def flip_mask_like(
-    x: torch.Tensor, generator: torch.Generator, p: float = 0.5
+    x: torch.Tensor, generator: torch.Generator, p: float = 0.5, device=None,
 ) -> torch.Tensor:
     """One Bernoulli(p) per image, drawn on the host from ``generator`` (so a
-    rank's masks follow its seed) and moved to ``x``'s device."""
+    rank's masks follow its seed) and moved to ``device`` (``x``'s device
+    when None)."""
     draws = torch.rand(x.shape[0], generator=generator)
-    return (draws < p).to(x.device)
+    return (draws < p).to(x.device if device is None else device)
 
 
 def make_train_augment(
@@ -89,8 +90,9 @@ def make_train_augment(
 ):
     """Train transform: ``augment(x, flip_mask=None) -> x``. Without an
     explicit ``flip_mask`` the mask is drawn from ``generator`` (a fresh one
-    seeded 0 when None); ``augment.flip_mask(x)`` draws the one the call
-    would draw (None without flips)."""
+    seeded 0 when None); ``augment.flip_mask(x, device=None)`` draws the one
+    the call would draw (None without flips), on ``x``'s device or on
+    ``device``."""
     if flip and generator is None:
         generator = torch.Generator().manual_seed(0)
 
@@ -105,7 +107,7 @@ def make_train_augment(
             x = resize(x, size)
         return x.to(compute_dtype)
 
-    augment.flip_mask = lambda x: flip_mask_like(x, generator) if flip else None
+    augment.flip_mask = lambda x, device=None: flip_mask_like(x, generator, device=device) if flip else None
     return augment
 
 

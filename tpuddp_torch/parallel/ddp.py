@@ -43,6 +43,16 @@ restore.
 
 A one-process world skips the collectives: a sum over one replica divided by
 one is the identity, and so is a broadcast.
+
+``scan_steps`` (:meth:`~DistributedDataParallel.train_step_many`,
+:meth:`~DistributedDataParallel.eval_step_many`, ``tpuddp/parallel/ddp.py:
+812-905``): K steps (K / A cycles) or K eval batches as one dispatch. The
+chunk's K flip masks are drawn on the host from the augment's generator, in
+step order, before the dispatch; ``step`` advances by K. On a GPU each
+chunk is one group of the CUDA-graph engine (``training/graphs.py``):
+eager at its signature's first chunk, captured at the second, replayed
+after; a failed capture raises. On the CPU the chunk's steps run one after
+another, so a chunked epoch is bitwise the per-batch one.
 """
 
 from __future__ import annotations
@@ -53,11 +63,18 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch.parallel import backend, collectives
-from tpuddp_torch.training.pipeline import stage_batch
-from tpuddp_torch.training.step import eval_core, train_core, train_cycle
+from tpuddp_torch.training import graphs
+from tpuddp_torch.training.pipeline import stage_batch, to_device
+from tpuddp_torch.training.step import (
+    EVAL_KEYS, TRAIN_KEYS, eval_core, eval_many, train_core, train_cycle, train_many,
+)
 
 
 class DistributedDataParallel:
+    # False: on a GPU the K-step chunks and eval groups run eagerly, the
+    # reference that chip_smoke.py and the cuda tests hold the replays against
+    _graph_replay = True
+
     def __init__(
         self,
         model: torch.nn.Module,
@@ -89,6 +106,7 @@ class DistributedDataParallel:
         self.eval_transform = eval_transform
         self.rank = backend.get_rank()
         self.world_size = backend.get_world_size()
+        self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         collectives.broadcast_one_to_all(self.model)
 
     def _mean(self, flat: torch.Tensor) -> None:
@@ -144,3 +162,81 @@ class DistributedDataParallel:
         """Returns on-device ``[loss_sum, correct, n]``."""
         x, y, w = self.to_device(batch)
         return eval_core(self.model, self.criterion, self.eval_transform, x, y, w)
+
+    def _flip_masks(self, batches):
+        """One flip mask per batch (None without flips), drawn on the host
+        from the augment's generator in step order, as the per-batch steps
+        draw them, and sent to the device in one copy."""
+        draw = getattr(self.augment, "flip_mask", None)
+        masks = [None if draw is None else draw(x, device="cpu") for x, _, _ in batches]
+        if any(m is None for m in masks):
+            return [None] * len(batches)
+        return list(to_device(torch.stack(masks), self.device).unbind(0))
+
+    def _group(self, kind: str, key: tuple, held: tuple, inputs, body):
+        """``body(inputs)``: eagerly on the CPU (or with ``_graph_replay``
+        off), else one group of the CUDA-graph engine."""
+        if not (self._graph_replay and self.device.type == "cuda"):
+            return body(inputs)
+        if kind == "train":
+            graphs.check_graph_safe(self.optimizer)
+        if self._graphs is None:
+            self._graphs = graphs.StepGraphs(self.device)
+        return self._graphs.run(kind, key, held, inputs, body)
+
+    def clear_graphs(self) -> None:
+        """Drop every captured graph (after anything that replaces the
+        storage of the parameters, buffers or optimizer state)."""
+        if self._graphs is not None:
+            self._graphs.clear()
+
+    def train_step_many(self, batches, sums: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """K = ``len(batches)`` train steps as one dispatch (K / A cycles
+        under accumulation; ``tpuddp/parallel/ddp.py:812-844``): one
+        CUDA-graph replay on a GPU after its signature's warm-up and
+        capture, the same steps one after another on the CPU. Returns
+        ``sums`` (zeros when None) plus each step's ``[loss_sum, n]``, added
+        in order."""
+        if len(batches) % self.grad_accumulation:
+            raise ValueError(
+                f"a chunk holds whole cycles of {self.grad_accumulation} micro-batches, "
+                f"got {len(batches)}"
+            )
+        batches = [self.to_device(b) for b in batches]
+        masks = self._flip_masks(batches)
+        if sums is None:
+            sums = torch.zeros(len(TRAIN_KEYS), device=self.device)
+        self.step += len(batches)
+
+        def body(t):  # [sums, x_0, y_0, w_0, mask_0, x_1, ...]
+            return train_many(
+                self.model, self.optimizer, self.criterion, self.augment, self.sync_grads,
+                self.sync_buffers, t[0], [tuple(t[i:i + 3]) for i in range(1, len(t), 4)],
+                t[4::4], self.clip_grad_norm, self.grad_accumulation,
+            )
+
+        inputs = [sums] + [t for b, m in zip(batches, masks) for t in (*b, m)]
+        params = tuple(self.model.parameters())
+        key = (graphs.shapes(inputs), self.grad_accumulation, self.clip_grad_norm,
+               id(self.criterion), id(self.augment), tuple(id(p) for p in params),
+               graphs.hyperparameters(self.optimizer))
+        return self._group("train", key, (self.criterion, self.augment, params), inputs, body)
+
+    def eval_step_many(self, batches, sums: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """K eval batches as one dispatch (``tpuddp/parallel/ddp.py:
+        885-905``), as :meth:`train_step_many` runs them; returns ``sums``
+        (zeros when None) plus each batch's ``[loss_sum, correct, n]``,
+        added in order."""
+        batches = [self.to_device(b) for b in batches]
+        if sums is None:
+            sums = torch.zeros(len(EVAL_KEYS), device=self.device)
+
+        def body(t):  # [sums, x_0, y_0, w_0, x_1, ...]
+            return eval_many(self.model, self.criterion, self.eval_transform, t[0],
+                             [tuple(t[i:i + 3]) for i in range(1, len(t), 3)])
+
+        inputs = [sums] + [t for b in batches for t in b]
+        params = tuple(self.model.parameters())
+        key = (graphs.shapes(inputs), id(self.criterion), id(self.eval_transform),
+               tuple(id(p) for p in params))
+        return self._group("eval", key, (self.criterion, self.eval_transform, params), inputs, body)

@@ -67,7 +67,7 @@ from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import run_ddp_training
-from tpuddp_torch.train_native import set_float32_precision
+from tpuddp_torch.train_native import set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training.loop import StepClock
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
@@ -82,22 +82,8 @@ def setup_dataloaders(training):
     return train_loader, test_loader
 
 
-class FlushClock(StepClock):
-    """Step times over groups of steps: :meth:`mark` where a group starts
-    and once after the last; ``groups`` holds each group's step count (1 per
-    step unfused, the flush's steps fused). ``step_ms()`` gives each step its
-    group's time over its step count."""
-
-    def __init__(self, device):
-        super().__init__(device)
-        self.groups = []
-
-    def step_ms(self):
-        return [ms / k for ms, k in zip(super().step_ms(), self.groups) for _ in range(k)]
-
-
 def train(model, train_loader, criterion, optimizer, accelerator,
-          clock: Optional[FlushClock] = None):
+          clock: Optional[StepClock] = None):
     """One training epoch; returns ``(mean per-step loss, real rows of the
     global batches)``. A partial accumulation cycle is applied at the end;
     the fuse queue's last steps run at the epoch's ``sum_losses``."""
@@ -171,7 +157,7 @@ def run_training_loop(
     for epoch in range(start_epoch, num_epochs):
         epoch_t0 = time.perf_counter()
         train_loader.set_epoch(epoch)
-        clock = FlushClock(accelerator.device)
+        clock = StepClock(accelerator.device)
         updates = optimizer.updates
         train_loss, train_samples = train(
             model, train_loader, criterion, optimizer, accelerator, clock
@@ -222,7 +208,7 @@ def build_training(training: dict, device: str = "cuda"):
     ``(accelerator, model, optimizer, train_loader, test_loader, criterion,
     eval_transform)``; the process group, if any, is already up."""
     cfg_lib.check_supported(training)
-    set_float32_precision()
+    set_numerics()
     accum = int(training.get("gradient_accumulation_steps") or 1)
     accelerator = Accelerator(
         seed=training.get("seed"),

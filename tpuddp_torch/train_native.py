@@ -8,7 +8,10 @@ One process per GPU (``local.gpu.num_gpus``, ``local.condor.num_gpus`` or
 same path on the CPU with Gloo. Under ``prefetch: true`` (the default) both
 loaders are wrapped in ``PrefetchLoader(workers=pipeline.host_workers)``, as
 ``train_native.py:80-90`` does; ``training.resume`` or ``auto_resume``
-continues from the newest intact checkpoint in ``out_dir``.
+continues from the newest intact checkpoint in ``out_dir``. ``scan_steps``
+(``auto`` by default) sets the batches of one dispatch: on a GPU each chunk
+of K steps is one CUDA-graph replay, on the CPU the same steps run one
+after another (``training/loop.py``).
 """
 
 from __future__ import annotations
@@ -37,18 +40,23 @@ from tpuddp_torch.training.loop import run_training_loop
 from tpuddp_torch.training.pipeline import resolve_pipeline
 
 
-def set_float32_precision() -> None:
+def set_numerics() -> None:
     """Full float32 where the work is float32: matrix products and cuDNN
-    convolutions both off TF32 (cuDNN's default is on), printed so a run's
-    log states its precision. Under ``compute_dtype: bfloat16`` the
-    convolutions and products take bfloat16 inputs and TF32 does not
-    apply."""
+    convolutions both off TF32 (cuDNN's default is on). Under
+    ``compute_dtype: bfloat16`` the convolutions and products take bfloat16
+    inputs and TF32 does not apply. And cuDNN's deterministic algorithms
+    only, so that a run repeats bit for bit, as the JAX package's does: with
+    cuDNN's default choice two identical native toy_cnn runs on an H100
+    parted after 2 steps, and a CUDA-graph replay could not be held bitwise
+    against its eager steps. Printed so a run's log states both."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     print(
         f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
     )
+    print(f"torch.backends.cudnn.deterministic={torch.backends.cudnn.deterministic}")
 
 
 def build_training(rank: int, world_size: int, training: dict, device: str = "cuda"):
@@ -56,7 +64,7 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     optimizer and the DDP wrap. Returns ``(ddp, train_loader, test_loader,
     base_seed)``."""
     cfg_lib.check_supported(training)
-    set_float32_precision()
+    set_numerics()
     dev = torch.device(f"cuda:{rank}" if device == "cuda" else "cpu")
 
     generator, base_seed = seeding.set_seed_based_on_rank(rank, training.get("seed"))
@@ -136,6 +144,7 @@ def basic_ddp_training_loop(
         auto_resume=bool(training.get("auto_resume") or training.get("resume")),
         keep_last=int(training["keep_last"]) if training.get("keep_last") else None,
         pipeline=training.get("pipeline"),
+        scan_steps=training.get("scan_steps", "auto"),
     )
 
 

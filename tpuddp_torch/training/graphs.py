@@ -1,111 +1,140 @@
-"""CUDA-graph replay of the managed path's fused steps — the counterpart of the
-JAX package's fused scan (``tpuddp/accelerate.py:847-922, :1266-1296``),
-which compiles one program per queue length and dispatches each flush of
-that length as one call.
+"""CUDA-graph replay of K steps as one dispatch: the counterpart of the JAX
+package's ``lax.scan`` over K batches, which compiles one program per K and
+dispatches each group of that length as one call. One engine,
+:class:`StepGraphs`, serves the three callers that run such groups:
 
-:class:`StepGraphs` belongs to one :class:`~tpuddp_torch.accelerate.
-PreparedOptimizer` on a CUDA model. It keeps one ``torch.cuda.CUDAGraph``
-of K whole steps (augment, forward, backward, the loss-share and gradient
-all-reduces, the clip and the update of each) for each flush signature
-(:func:`signature`): the queue length K and everything else a capture holds
-fixed, that is each step's input shapes and dtypes and whether it has a
-flip mask, the criterion, the augment, the clip, the trained parameters and
-the optimizer's hyperparameters. For each signature
+- the managed ``fuse_steps`` queue (``tpuddp/accelerate.py:847-922,
+  :1266-1296``): each flush of K queued steps;
+- the native ``scan_steps`` chunks: K train steps (K / A accumulation
+  cycles; ``tpuddp/training/step.py:840-1100``) and K eval batches
+  (``:1155-1185``), :meth:`~tpuddp_torch.parallel.ddp.
+  DistributedDataParallel.train_step_many` and ``eval_step_many``;
+- the managed ``FusedEvaluator``'s groups of K test batches
+  (``tpuddp/accelerate.py:221-387``).
 
-- the first flush runs eagerly: the warm-up that cuDNN, cuBLAS and the
+A caller hands :meth:`StepGraphs.run` a signature (a dictionary key: K and
+everything else that a capture holds fixed, such as each step's input
+shapes and dtypes and whether it has a flip mask, the criterion, the
+augment or transform, the clip, the trained parameters and the optimizer's
+hyperparameters, which reach the captured kernels by value), the objects
+whose ids the key takes, the group's input tensors and a function of those
+inputs that runs the K steps and returns the group's output (a tensor or a
+tuple of tensors). For each signature
+
+- the first group runs eagerly: the warm-up that cuDNN, cuBLAS and the
   optimizer's lazily created state need, which also counts the device words
   of the per-step scalars that its capture will take;
 - the second is captured, then replayed;
 - every later one is replayed.
 
 An epoch of N steps of one batch shape at depth K therefore has at most two
-graphs, K steps and the remainder ``N mod K``, each captured once and
-replayed every epoch after. The graphs share one memory pool.
+graphs per caller, K steps and the remainder, each captured once and
+replayed every epoch after. The graphs of one engine share one memory pool.
 
 A replay's inputs are copied into the graph's static slots first, one
-device-to-device copy per tensor (batch, labels, weights, flip mask). The
-per-step scalars of the optimizer (step counts, bias corrections, rounding
-noise) are advanced on the host and uploaded before the replay
-(:mod:`tpuddp_torch.ops.device_scalars`), and the optimizer's ``updates``
-advances by what the capture counted (the Adam kernel counts its launches
-on the device, replayed ones included). The queued losses get a copy of the
-graph's static ``(K,)`` loss vector, which the next replay overwrites.
+device-to-device copy per tensor (allocated before the capture, so no
+kernel of the graph uses them as scratch). The per-step scalars of the
+optimizer (step counts, bias corrections, rounding noise) are advanced on
+the host and uploaded before the replay (:mod:`tpuddp_torch.ops.
+device_scalars`); ``on_replay`` advances what else the caller counts on the
+host. The caller gets a copy of the graph's static output, which the next
+replay overwrites.
 
 Dropout draws from PyTorch's CUDA generator, which a capture registers: each
-replay advances it as the eager steps would. The flip masks are drawn on the
-host at ``backward()``, as the eager steps draw them, and enter as inputs.
+replay advances it as the eager steps would. Flip masks are drawn on the
+host before the group, in step order, and enter as inputs; nothing inside a
+group may read a device value on the host or copy from host memory.
 
-A failed capture or replay raises; nothing falls back to the eager queue.
-``clear()`` drops every graph (``load_model``/``load_state`` replace the
-storage that a graph's replays would write). At world > 1 the captures hold
-the NCCL all-reduces of each step; that path has not run on a card yet.
+A failed capture or replay raises; nothing falls back to eager steps.
+``clear()`` drops every graph (anything that replaces the storage that a
+graph's replays write must call it). At world > 1 the captures hold the
+NCCL all-reduces of each step; that path has not run on a card yet.
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from tpuddp_torch.ops import device_scalars
 
-# counts over the process, read (and reset) by chip_smoke.py
-stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
+
+def _counts() -> dict:
+    return {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
-class _Graph:
-    """One captured flush signature: the graph, its static inputs and loss
-    vector, its scalar slots and the updates one replay makes."""
+# counts over the process, in total and by caller kind ("fused", "train",
+# "eval", "managed eval"), read (and reset) by chip_smoke.py
+stats = {**_counts(), "by_kind": {}}
 
-    def __init__(self, graph, inputs, losses, recorder, updates: int):
-        self.graph = graph
-        self.inputs = inputs  # per step: (x, y, w, flip mask or None)
-        self.losses = losses
-        self.recorder = recorder
-        self.updates = updates
+
+def _kind_counts(kind: str) -> dict:
+    return stats["by_kind"].setdefault(kind, _counts())
+
+
+def shapes(tensors) -> tuple:
+    """The shapes and dtypes of ``tensors`` (None for a missing one)."""
+    return tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors)
+
+
+def hyperparameters(optimizer) -> tuple:
+    """Each parameter group's hyperparameters, which a capture holds by
+    value."""
+    return tuple(tuple(sorted((k, repr(v)) for k, v in group.items() if k != "params"))
+                 for group in optimizer.param_groups)
+
+
+def check_graph_safe(optimizer) -> None:
+    """A captured optimizer step must read its per-step scalars from the
+    device (``GRAPH_SAFE``, the optimizers of :mod:`tpuddp_torch.optim`)."""
+    if not getattr(optimizer, "GRAPH_SAFE", False):
+        raise TypeError(
+            f"K steps per CUDA-graph replay need an optimizer of tpuddp_torch.optim; "
+            f"got {type(optimizer).__name__}"
+        )
 
 
 def signature(opt, queue) -> tuple:
-    """What a graph captured from ``queue`` holds fixed, as a dictionary
-    key: per step the shapes and dtypes of ``x``, ``y``, ``w`` and the flip
-    mask (None without one) and the criterion; the augment, the clip, the
-    parameters that train and each parameter group's hyperparameters
-    (``lr`` and the rest reach the captured kernels by value). Objects enter
-    by ``id``; :class:`StepGraphs` keeps them alive while the key is in
-    use, so no id is reused."""
+    """The managed flush's key: per step the shapes and dtypes of ``x``,
+    ``y``, ``w`` and the flip mask (None without one) and the criterion;
+    the augment, the clip, the parameters that train and the optimizer's
+    hyperparameters. Objects enter by ``id``; :class:`StepGraphs` keeps them
+    alive while the key is in use, so no id is reused."""
     model = opt.model
-    steps = tuple(
-        tuple(None if t is None else (tuple(t.shape), t.dtype)
-              for t in (req.x, req.y, req.w, req.flip_mask)) + (id(req.criterion),)
-        for req in queue
-    )
+    steps = tuple(shapes((req.x, req.y, req.w, req.flip_mask)) + (id(req.criterion),)
+                  for req in queue)
     acc = model.accelerator
-    hyper = tuple(tuple(sorted((k, repr(v)) for k, v in group.items() if k != "params"))
-                  for group in opt.optimizer.param_groups)
     return (steps, id(acc.augment), acc.clip_grad_norm,
-            tuple(id(p) for p in model._params()), hyper)
+            tuple(id(p) for p in model._params()), hyperparameters(opt.optimizer))
 
 
-def _held(opt, queue) -> tuple:
+def held(opt, queue) -> tuple:
     """The objects whose ids :func:`signature` takes."""
     model = opt.model
     return (tuple(req.criterion for req in queue), model.accelerator.augment,
             tuple(model._params()))
 
 
-class StepGraphs:
-    """The CUDA graphs of one managed optimizer's flushes, by
-    :func:`signature`."""
+class _Graph:
+    """One captured signature: the graph, its static input slots and
+    output, and its scalar slots."""
 
-    def __init__(self, optimizer):
-        if not getattr(optimizer.optimizer, "GRAPH_SAFE", False):
-            raise TypeError(
-                f"fused steps on a CUDA model replay CUDA graphs, which need an optimizer "
-                f"of tpuddp_torch.optim; got {type(optimizer.optimizer).__name__}"
-            )
-        self.opt = optimizer
+    def __init__(self, kind, graph, slots, output, recorder):
+        self.kind = kind
+        self.graph = graph
+        self.slots = slots
+        self.output = output
+        self.recorder = recorder
+
+
+class StepGraphs:
+    """The CUDA graphs of one model's groups of steps, by signature."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
         self.pool = None
         self._graphs: Dict[tuple, _Graph] = {}
         self._words: Dict[tuple, int] = {}  # signature -> scalar words, counted at its warm-up
@@ -116,42 +145,47 @@ class StepGraphs:
         self._words.clear()
         self._held.clear()
 
-    def run(self, queue) -> None:
-        key = signature(self.opt, queue)
+    def run(self, kind: str, key: tuple, held: tuple, inputs: Sequence[Optional[torch.Tensor]],
+            body: Callable, on_replay: Optional[Callable[[], None]] = None):
+        """The group of signature ``key`` (of caller ``kind``) on
+        ``inputs``: ``body(inputs)`` eagerly at the signature's first group,
+        captured at its second, replayed after. ``on_replay()`` runs before
+        each replay after the capture's own. Returns the group's output."""
+        key = (kind, key)
         graph = self._graphs.get(key)
         if graph is not None:
-            self._replay(graph, queue)
-        elif key in self._words:
-            self._graphs[key] = self._capture(queue, self._words[key])
-        else:
-            with device_scalars.Recorder(self.opt.model.device) as counter:
-                self.opt._run_eager(queue)
-            self._words[key] = counter.words
-            self._held[key] = _held(self.opt, queue)
+            self._load(graph.slots, inputs)
+            graph.recorder.refresh()  # step counts advance; this group's scalars
+            graph.recorder.upload()
+            if on_replay is not None:
+                on_replay()
+            return self._launch(graph)
+        if key in self._words:
+            graph = self._graphs[key] = self._capture(kind, inputs, body, self._words[key])
+            return self._launch(graph)
+        with device_scalars.Recorder(self.device) as counter:
+            out = body(list(inputs))
+        self._words[key] = counter.words
+        self._held[key] = held
+        return out
 
     @staticmethod
-    def _load_inputs(inputs, queue) -> None:
-        for slots, req in zip(inputs, queue):
-            for dst, src in zip(slots, (req.x, req.y, req.w, req.flip_mask)):
-                if dst is not None:
-                    dst.copy_(src, non_blocking=True)
+    def _load(slots, inputs) -> None:
+        for dst, src in zip(slots, inputs):
+            if dst is not None:
+                dst.copy_(src, non_blocking=True)
 
-    def _capture(self, queue, words: int) -> _Graph:
-        """Capture the K steps of ``queue`` into one graph, then replay it
-        for this flush. The capture runs the steps' host code once, which
-        is this flush's: step counts, scalars and updates; ``words`` is
-        what the signature's warm-up counted."""
-        opt, model = self.opt, self.opt.model
-        device = model.device
-        inputs = [tuple(None if t is None else torch.empty_like(t)
-                        for t in (req.x, req.y, req.w, req.flip_mask)) for req in queue]
-        self._load_inputs(inputs, queue)
-        losses = torch.empty(len(queue), device=device)
+    def _capture(self, kind: str, inputs, body: Callable, words: int) -> _Graph:
+        """Capture ``body`` on static copies of ``inputs`` into one graph.
+        The capture runs the steps' host code once, which is this group's:
+        step counts and scalars (:meth:`run` then replays it for this
+        group); ``words`` is what the signature's warm-up counted."""
+        slots = [None if t is None else torch.empty_like(t) for t in inputs]
+        self._load(slots, inputs)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        recorder = device_scalars.Recorder(device, capacity=words)
-        updates = opt.updates
+        recorder = device_scalars.Recorder(self.device, capacity=words)
         t0 = time.perf_counter()
         # no cyclic garbage collection during the capture: a dead cycle that
         # holds another CUDA graph (an earlier model's) would destroy it
@@ -161,36 +195,25 @@ class StepGraphs:
         try:
             # thread_local: the loader threads may touch the CUDA runtime meanwhile
             with recorder, torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-                for i, (req, (x, y, w, mask)) in enumerate(zip(queue, inputs)):
-                    value, _ = model._execute(req._replace(x=x, y=y, w=w, flip_mask=mask))
-                    losses[i].copy_(value)
-                    opt._apply()
+                output = body(slots)
         finally:
             if collecting:
                 gc.enable()
-        stats["captures"] += 1
-        stats["capture_s"] += time.perf_counter() - t0
-        captured = _Graph(graph, inputs, losses, recorder, opt.updates - updates)
-        recorder.upload()  # the scalars the capture computed: this flush's
-        self._launch(captured, queue)
-        return captured
-
-    def _replay(self, graph: _Graph, queue) -> None:
-        self._load_inputs(graph.inputs, queue)
-        graph.recorder.refresh()  # step counts advance; this flush's scalars
-        graph.recorder.upload()
-        self.opt.updates += graph.updates
-        self._launch(graph, queue)
+        seconds = time.perf_counter() - t0
+        for c in (stats, _kind_counts(kind)):
+            c["captures"] += 1
+            c["capture_s"] += seconds
+        recorder.upload()  # the scalars the capture computed: this group's
+        return _Graph(kind, graph, slots, output, recorder)
 
     @staticmethod
-    def _launch(graph: _Graph, queue) -> None:
+    def _launch(graph: _Graph):
         graph.graph.replay()
-        stats["replays"] += 1
-        out = graph.losses.clone()
-        for i, req in enumerate(queue):
-            req.loss._value = out[i]
+        for c in (stats, _kind_counts(graph.kind)):
+            c["replays"] += 1
+        out = graph.output
+        return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
 
 
 def reset_stats() -> None:
-    stats.update(captures=0, replays=0, capture_s=0.0)
-
+    stats.update(_counts(), by_kind={})

@@ -7,10 +7,25 @@ epoch line, and a rank-0 checkpoint when ``epoch % checkpoint_epoch == 0``
 (quirk Q6 kept: it fires at epoch 0). The process-0 log lines are the JAX
 package's, byte for byte (``loop.py:799-806, 978-990, 1072-1076``).
 
+``scan_steps`` (``tpuddp/training/loop.py:55-98, :238-270``) is K, the
+batches of one dispatch: ``auto`` is up to 64 (32 when neither the
+parameter bytes are small nor the batch bytes known), capped by the staging
+budget over one batch's bytes and by the pass's batch count; an integer
+pins it; 1 runs one step per batch. The train pass and the eval pass each
+resolve it over their own batch count. A pass is dispatched as the JAX
+``run_pass`` dispatches it (``tpuddp/training/pipeline.py:227-420``,
+:func:`dispatches`): full chunks of K batches, each one dispatch
+(``ddp.train_step_many``/``eval_step_many``: one CUDA-graph replay on a GPU,
+the same steps one after another on the CPU), then the remainder as single
+steps.
+
 Under gradient accumulation (``ddp.grad_accumulation = A > 1``) an epoch is
-whole cycles of A micro-batches: a ragged tail is padded with all-padding
-micro-batches (``tpuddp/training/pipeline.py:209-220``), so an epoch makes
-``ceil(len(train_loader) / A)`` updates (``tpuddp/training/loop.py:1006-1008``).
+whole cycles of A micro-batches: K is rounded to a multiple of A within the
+staging budget (at least one cycle), and a ragged tail is padded with
+all-padding micro-batches to whole cycles (``tpuddp/training/pipeline.py:
+209-220``) and run as one dispatch, so an epoch makes ``ceil(len(train_loader)
+/ A)`` updates (``tpuddp/training/loop.py:1006-1008``). With ``scan_steps:
+1`` the chunks are single cycles, run as before through ``ddp.train_cycle``.
 
 Both passes take their batches through :class:`~tpuddp_torch.training.
 pipeline.StagedLoader`: each host batch is copied from pinned memory without
@@ -18,9 +33,11 @@ blocking, ``pipeline.depth`` batches ahead of its step (``pipeline: false``
 stages each batch just before its step and synchronises after it).
 
 Each history row also carries the train pass's times per update in
-milliseconds (``step_ms``): on the GPU from CUDA events recorded between
-updates, read once after the pass, so the loop adds no synchronisation per
-update; and the time the pass waited for host batches (``host_stall_s``).
+milliseconds (``step_ms``, one entry per update): on the GPU from CUDA
+events recorded between dispatches, read once after the pass, so the loop
+adds no synchronisation per update; a dispatch of K updates (a replay)
+gives each of them its time over K. Also the time the pass waited for host
+batches (``host_stall_s``) and the resolved ``scan_steps`` of both passes.
 Process 0 appends every row to ``save_dir/history.jsonl``.
 
 Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
@@ -34,6 +51,7 @@ each save.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import time
@@ -46,15 +64,85 @@ from tpuddp_torch import seeding
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import pipeline as pipeline_lib
 from tpuddp_torch.training.step import EVAL_KEYS, TRAIN_KEYS, finalize_metrics
+from tpuddp_torch.utils import batching
+
+logger = logging.getLogger("tpuddp")
+
+AUTO_SCAN_CAP = 64  # the JAX package's auto depth (tpuddp/training/loop.py:55)
+AUTO_SCAN_FALLBACK_CAP = 32  # when the staged chunk's size cannot be known
+SMALL_PARAM_BYTES = 4 * 1024 * 1024
+
+
+def resolve_scan_steps(scan_steps, n_batches: int, param_bytes=None, batch_nbytes=None) -> int:
+    """K, the batches of one dispatch (``tpuddp/training/loop.py:68-98``):
+    ``auto`` (or None) is 64 when the parameters take under 4 MiB or one
+    batch's input bytes are known, else 32; capped by the staging budget
+    over those bytes and by ``n_batches``. An integer pins K (>= 1)."""
+    if scan_steps in (None, "auto"):
+        small = param_bytes is not None and param_bytes < SMALL_PARAM_BYTES
+        cap = AUTO_SCAN_CAP if (small or batch_nbytes) else AUTO_SCAN_FALLBACK_CAP
+        cap = batching.resolve_fuse(batch_nbytes, cap=cap)
+        return max(1, min(cap, n_batches))
+    k = int(scan_steps)
+    if k < 1:
+        raise ValueError(f"scan_steps must be >= 1 or 'auto', got {scan_steps!r}")
+    return k
+
+
+def scan_steps_in_cycles(k: int, accum: int, batch_nbytes=None) -> int:
+    """K under accumulation (``tpuddp/training/loop.py:250-270``): a
+    multiple of ``accum``, at least one cycle, and inside the staging budget
+    over ``batch_nbytes`` in whole cycles where that allows one cycle (a
+    warning when even one cycle exceeds it)."""
+    if accum <= 1:
+        return k
+    k = max(accum, (k // accum) * accum)
+    budget = batching.STAGE_BYTES_BUDGET
+    if batch_nbytes and k * batch_nbytes > budget:
+        k = max(accum, (budget // batch_nbytes) // accum * accum)
+        if k * batch_nbytes > budget:
+            logger.warning(
+                "gradient_accumulation_steps=%d forces a staged chunk of %.0f MB (one whole "
+                "cycle), over the ~%d MB staging budget", accum, k * batch_nbytes / 1e6,
+                budget // 2**20,
+            )
+    return k
+
+
+def dispatches(batches, k: int, accum: int = 1):
+    """The dispatch plan of a pass (``tpuddp/training/pipeline.py:227-420``):
+    yields ``(many, chunk)``. Full chunks of ``k`` batches are one dispatch
+    each (``many``); under ``accum > 1`` a ragged tail is padded with
+    all-padding copies of its last batch to whole cycles and is one
+    dispatch; otherwise the remainder is single steps. With ``k <= 1`` and
+    no accumulation every batch is a single step."""
+    if k <= 1 and accum <= 1:
+        for batch in batches:
+            yield False, [batch]
+        return
+    chunk = []
+    for batch in batches:
+        chunk.append(batch)
+        if len(chunk) == k:
+            yield True, chunk
+            chunk = []
+    if chunk and accum > 1:
+        x, y, w = chunk[-1]
+        yield True, chunk + [(x, y, torch.zeros_like(w))] * (-len(chunk) % accum)
+        return
+    for batch in chunk:
+        yield False, [batch]
 
 
 class StepClock:
-    """Marks between train steps; CUDA events on the GPU, the host clock on
-    the CPU."""
+    """Marks between dispatches; CUDA events on the GPU, the host clock on
+    the CPU. ``groups`` holds each dispatch's update count; ``step_ms()``
+    gives each update its dispatch's time over that count."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
+        self.groups = []
 
     def mark(self):
         if self.cuda:
@@ -67,8 +155,10 @@ class StepClock:
     def step_ms(self):
         if self.cuda:
             self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+            ms = [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        else:
+            ms = [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        return [t / k for t, k in zip(ms, self.groups) for _ in range(k)]
 
 
 def _count(v: float):
@@ -105,21 +195,6 @@ def _prober(loader, every: Optional[int], log):
     return probe
 
 
-def _cycles(batches, accum: int):
-    """Lists of ``accum`` batches; a ragged tail is padded with copies of
-    its last batch whose weights are all 0, which add nothing to the
-    gradient, the metrics or the BatchNorm statistics."""
-    cycle = []
-    for batch in batches:
-        cycle.append(batch)
-        if len(cycle) == accum:
-            yield cycle
-            cycle = []
-    if cycle:
-        x, y, w = cycle[-1]
-        yield cycle + [(x, y, torch.zeros_like(w))] * (accum - len(cycle))
-
-
 def run_training_loop(
     ddp,
     train_loader,
@@ -135,6 +210,7 @@ def run_training_loop(
     auto_resume: bool = False,
     keep_last: Optional[int] = None,
     pipeline=None,
+    scan_steps="auto",
     log=print,
 ):
     """Run the epochs from the first not yet done (0 unless resumed) to
@@ -142,6 +218,13 @@ def run_training_loop(
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
     accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
     pipeline = pipeline_lib.resolve_pipeline(pipeline)
+    param_bytes = sum(p.numel() * p.element_size() for p in ddp.model.parameters())
+    eval_k = resolve_scan_steps(scan_steps, len(test_loader), param_bytes,
+                                getattr(test_loader, "batch_nbytes", None))
+    train_nbytes = getattr(train_loader, "batch_nbytes", None)
+    train_k = resolve_scan_steps(scan_steps, len(train_loader), param_bytes, train_nbytes)
+    chunked = train_k > 1  # else one step (one cycle) per dispatch, as before
+    train_k = scan_steps_in_cycles(train_k, accum, train_nbytes)
     is_main = rank == 0
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
@@ -155,6 +238,7 @@ def run_training_loop(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator
             )
             ddp.step = meta.get("step", ddp.step)
+            ddp.clear_graphs()  # the restore replaced what a graph writes
             if start_epoch > 0 and is_main:
                 log(f"Auto-resume: continuing from epoch {start_epoch}.")
     train_pass = pipeline_lib.StagedLoader(
@@ -177,14 +261,15 @@ def run_training_loop(
 
         train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
         clock = StepClock(device)
-        if accum == 1:
-            for batch in train_pass:
-                clock.mark()
-                train_sums += ddp.train_step(batch)
-        else:
-            for cycle in _cycles(train_pass, accum):
-                clock.mark()
-                train_sums += ddp.train_cycle(cycle)
+        for many, chunk in dispatches(train_pass, train_k, accum):
+            clock.mark()
+            clock.groups.append(len(chunk) // accum)
+            if not many:
+                train_sums += ddp.train_step(chunk[0])
+            elif chunked:
+                train_sums = ddp.train_step_many(chunk, train_sums)
+            else:
+                train_sums += ddp.train_cycle(chunk)
         clock.mark()
         step_ms = clock.step_ms()
         if not step_ms:
@@ -195,8 +280,11 @@ def run_training_loop(
         train_time_s = time.perf_counter() - t0
 
         eval_sums = torch.zeros(len(EVAL_KEYS), device=device)
-        for batch in test_pass:
-            eval_sums += ddp.eval_step(batch)
+        for many, chunk in dispatches(test_pass, eval_k):
+            if many:
+                eval_sums = ddp.eval_step_many(chunk, eval_sums)
+            else:
+                eval_sums += ddp.eval_step(chunk[0])
 
         if per_replica_log:
             _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
@@ -231,6 +319,8 @@ def run_training_loop(
             "host_stall_s": train_pass.stall.total,
             "pipeline": pipeline.as_dict(),
             "grad_accumulation": accum,
+            "scan_steps": train_k,
+            "eval_scan_steps": eval_k,
             "world_size": world_size,
         }
         history.append(record)

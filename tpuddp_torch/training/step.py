@@ -20,6 +20,12 @@ micro-batches through the grad half, their local gradients summed as
 ``n_i * g_i``, divided by ``sum n_i`` at the cycle boundary, then ONE update
 half (one gradient all-reduce, one clip, one optimizer step). All-padding
 micro-batches (``n = 0``) add nothing.
+
+:func:`train_many` and :func:`eval_many` are the ``scan_steps`` cores: K
+steps (or K / A cycles) and K eval batches as one group, their sums added
+to a running sum in step order. They read nothing on the host, so a group
+runs as one CUDA graph too (``training/graphs.py``); each step's flip mask
+is an input, drawn before the group.
 """
 
 from __future__ import annotations
@@ -38,14 +44,14 @@ EVAL_KEYS = ("loss_sum", "correct", "n")
 
 def grad_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_buffers: Callable,
-    x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+    x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, flip_mask: Optional[torch.Tensor] = None,
 ):
     """Forward and backward of one batch; the replica's local weighted-mean
     gradient replaces each parameter's ``.grad``. Returns the on-device
-    ``(loss, n)``."""
+    ``(loss, n)``. Without ``flip_mask`` the augment draws its own."""
     model.train()
     if augment is not None:
-        x = augment(x)
+        x = augment(x) if flip_mask is None else augment(x, flip_mask=flip_mask)
     with batch_weights(model, w):
         logits = model(x)
     sync_buffers()
@@ -67,10 +73,10 @@ def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None) -
 def train_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-    clip: Optional[float] = None,
+    clip: Optional[float] = None, flip_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One train step; returns the on-device sums ``[loss_sum, n]``."""
-    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w)
+    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask)
     update_core(optimizer, sync_grads, clip)
     return torch.stack([loss * n, n])
 
@@ -78,6 +84,7 @@ def train_core(
 def train_cycle(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, batches: Sequence, clip: Optional[float] = None,
+    flip_masks: Optional[Sequence] = None,
 ) -> torch.Tensor:
     """One accumulation cycle over the device batches ``(x, y, w)`` of
     ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
@@ -86,8 +93,8 @@ def train_cycle(
     params = list(model.parameters())
     acc = [None] * len(params)
     sums = None
-    for x, y, w in batches:
-        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w)
+    for (x, y, w), mask in zip(batches, flip_masks or [None] * len(batches)):
+        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, mask)
         for i, p in enumerate(params):
             if p.grad is not None:
                 acc[i] = n * p.grad if acc[i] is None else acc[i] + n * p.grad
@@ -97,6 +104,28 @@ def train_cycle(
     for p, a in zip(params, acc):
         p.grad = None if a is None else a / denom
     update_core(optimizer, sync_grads, clip)
+    return sums
+
+
+def train_many(
+    model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
+    sync_buffers: Callable, sums: torch.Tensor, batches: Sequence, flip_masks: Sequence,
+    clip: Optional[float] = None, accum: int = 1,
+) -> torch.Tensor:
+    """K train steps on the device batches (K / ``accum`` accumulation
+    cycles), each step's flip mask given: the counterpart of
+    ``build_train_scan_step`` (``tpuddp/training/step.py:840-1100``).
+    Returns ``sums`` plus each step's (each cycle's) sums, added in order,
+    as the per-batch loop adds them."""
+    for i in range(0, len(batches), accum):
+        if accum == 1:
+            x, y, w = batches[i]
+            step = train_core(model, optimizer, criterion, augment, sync_grads, sync_buffers,
+                              x, y, w, clip, flip_masks[i])
+        else:
+            step = train_cycle(model, optimizer, criterion, augment, sync_grads, sync_buffers,
+                               batches[i:i + accum], clip, flip_masks[i:i + accum])
+        sums = sums + step
     return sums
 
 
@@ -114,6 +143,16 @@ def eval_core(
     n = w.sum()
     correct = ((logits.argmax(dim=-1) == y) * w).sum()
     return torch.stack([loss * n, correct, n])
+
+
+def eval_many(model, criterion, transform: Optional[Callable], sums: torch.Tensor,
+              batches: Sequence) -> torch.Tensor:
+    """K eval steps: ``sums`` plus each batch's sums, added in order (the
+    counterpart of ``build_eval_scan_step``,
+    ``tpuddp/training/step.py:1155-1185``)."""
+    for x, y, w in batches:
+        sums = sums + eval_core(model, criterion, transform, x, y, w)
+    return sums
 
 
 def finalize_metrics(train_sums: torch.Tensor, eval_sums: torch.Tensor) -> Dict[str, Dict[str, float]]:
