@@ -143,12 +143,41 @@ Phases, each printing one line (the first failure exits non-zero):
      replayed from the third pass) against ``fuse_steps=1``, in turns: the
      sums bitwise and the ms per eval pass.
 
+11. ZeRO-1 (``weight_update_sharding``: the update of this rank's shard of
+   one flat parameter vector, one Adam launch of one row per update; at one
+   card the shard is the whole vector and the collectives are skipped) and
+   the space-to-depth stem (``alexnet_s2d``):
+   - "11 fast file": ``tpuddp_torch/configs/cifar10_alexnet_fast_h100.yaml``
+     (``configs/cifar10_alexnet_fast.yaml``'s block: alexnet_s2d, bf16
+     compute and moments, ZeRO-1, ``scan_steps: auto``) for 3 epochs on the
+     synthetic stand-in at 224 px: finite losses, one bf16-kernel launch
+     per update, each launch a table of one row; then 3 chunks of 8 of its
+     steps replayed against the same chunks run eagerly from one state
+     (bitwise, failing beyond 1e-5);
+   - "11 flat shard": the kernel's flat-shard calling form (one row of
+     AlexNet's 57,044,810 elements) against its plain version per step from
+     one state: p within 1e-5 of max(1, |p|) (a v of exactly 0 beside a
+     non-zero m steps p by lr * m / eps), float32 moments within 1e-6; bf16
+     moments each a bf16 neighbour of the plain unrounded moment, bitwise at
+     zero gradients; at base 0 and at the half-vector base; and its time in turns
+     with the plain version, the per-leaf launch over AlexNet's 16 leaves and
+     (float32) ``torch.optim.Adam(fused=True)`` over the one flat tensor,
+     beside its bound;
+   - "11 ZeRO-1 vs replicated": 3 AlexNet float32 steps without the clip
+     from one state through each path with and without ZeRO-1: bitwise
+     (reported as max |dp|, failing beyond 1e-6);
+   - "11 stem": ``alexnet_s2d`` against ``alexnet`` from one state (max |d
+     logits| at 224 px, float32), and the fast file against itself with
+     ``model: alexnet``, in turns (s2d, alexnet, alexnet, s2d; 3 epochs
+     each, the first s2d turn the fast-file run above): epoch-3 step
+     medians.
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
 
 Then one JSON line with the fused steps' numbers, one with phase 10's, one
-with the optimizers', one with every kernel's, the script's seconds, the
+with phase 11's, one with the optimizers', one with every kernel's, the script's seconds, the
 card's name and power limit again, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -203,6 +232,7 @@ SETTINGS_TOY = os.path.join(CONFIGS, "cifar10_toy_cnn_sync_bn.yaml")
 SETTINGS_MANAGED = os.path.join(CONFIGS, "cifar10_alexnet_managed_h100.yaml")
 SETTINGS_FUSED = os.path.join(CONFIGS, "managed_fused_h100.yaml")
 SETTINGS_DIGITS = os.path.join(CONFIGS, "digits_h100.yaml")
+SETTINGS_FAST = os.path.join(CONFIGS, "cifar10_alexnet_fast_h100.yaml")
 
 # Tolerances of the kernel against its plain version (IEEE float32 both;
 # they differ only where the kernel fuses a multiply-add that the plain
@@ -1329,7 +1359,7 @@ def _kinds(g: dict) -> dict:
 
 
 def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam", accum: int = 1,
-                      chunks: int = 3):
+                      chunks: int = 3, zero1: bool = False, tag: str = "10 native graph vs eager"):
     """Phase 10: `chunks` chunks of `k` batches through
     ``DistributedDataParallel.train_step_many`` from one state, as graph
     replays and eagerly (``_graph_replay = False``): max |dp| over
@@ -1348,7 +1378,8 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
         else:
             opt = Adam(model.parameters(), lr=1e-3)
         ddp = DistributedDataParallel(model, opt, CrossEntropyLoss(), augment=augment, device="cuda",
-                                      grad_accumulation=accum, generator=gen)
+                                      grad_accumulation=accum, generator=gen,
+                                      weight_update_sharding=zero1)
         ddp._graph_replay = mode == "replay"
         torch.cuda.manual_seed(7)  # dropout: the same stream in both runs
         reset_counts()
@@ -1363,11 +1394,13 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
         state = {f"model/{n}": t.detach().clone() for n, t in model.state_dict().items()}
         for i, st in enumerate(opt.state.values()):
             state.update({f"opt{i}/{n}": t.clone() for n, t in st.items() if torch.is_tensor(t)})
+        rows = set().union(*(kn.table_rows for kn in fused_adam.kernels.values()))
         out[mode] = (state, sums.clone(), {kn.symbol: kn.launches for kn in fused_adam.kernels.values()},
-                     dict(graphs.stats), ddp.step, seconds)
+                     dict(graphs.stats), ddp.step, seconds, rows)
         del ddp, model, opt, state
         torch.cuda.empty_cache()
-    (eager, s_e, n_e, _, step_e, sec_e), (replay, s_r, n_r, g, step_r, sec_r) = out["eager"], out["replay"]
+    (eager, s_e, n_e, _, step_e, sec_e, rows_e), (replay, s_r, n_r, g, step_r, sec_r, rows_r) = (
+        out["eager"], out["replay"])
     diff = {key: float((eager[key].double() - replay[key].double()).abs().max()) for key in eager}
     dp = max(v for key, v in diff.items() if key.startswith("model/"))
     dopt = max((v for key, v in diff.items() if key.startswith("opt")), default=0.0)
@@ -1383,6 +1416,8 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
         f"step {chunks * k}": step_e == step_r == chunks * k,
         "finite sums": bool(torch.isfinite(s_r).all()),
     }
+    if zero1 and opt_name != "lars":
+        checks["each launch a table of one row (the flat shard)"] = rows_e == rows_r == {1}
     bitwise = dp == dopt == dsum == 0.0
     detail = (f"max|dp|={dp:.3g} max|d opt state|={dopt:.3g} max|d sums|={dsum:.3g} "
               f"({'bitwise' if bitwise else 'NOT bitwise'}); launches replay={n_r} eager={n_e}; "
@@ -1391,7 +1426,7 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: native chunk replay vs eager, {label}, failed {failed}: {detail}")
-    phase("10 native graph vs eager", f"{label}, K={k}, A={accum}, {chunks} chunks ({updates} updates) "
+    phase(tag, f"{label}, K={k}, A={accum}, {chunks} chunks ({updates} updates) "
           f"from one state: {detail}")
     return dict(label=label, k=k, accum=accum, updates=updates, max_abs_dp=dp, max_abs_d_opt_state=dopt,
                 max_abs_d_sums=dsum, bitwise=bitwise, launches_replay=n_r, launches_eager=n_e,
@@ -1638,6 +1673,263 @@ def managed_eval_groups(passes: int = 5):
     return dict(ms_per_pass=ms, launches=launches, sums_equal=same, graphs=kinds["groups"])
 
 
+# ---------------------------------------------------------------- phase 11 --
+
+STEM_TURNS = ("s2d", "alexnet", "alexnet", "s2d")
+FLAT_BASE = 28_522_405  # half AlexNet's flat vector: rank 1's base at world 2, managed
+
+
+def fast_file():
+    """Phase 11: the fast file for 3 epochs (one 16-step chunk each: warm-up,
+    capture, replay): finite losses, one bf16-kernel launch of one row per
+    update, history rows marked ZeRO-1. Returns ``(launches, history)``."""
+    bf16 = fused_adam.kernels[torch.bfloat16]
+    history, wall_s, launches = native_run(SETTINGS_FAST, {"num_epochs": 3})
+    steps = check_epochs("the fast file", history, launches, bf16, False)
+    rows = dict(bf16.table_rows)
+    checks = {
+        "each launch a table of one row (the flat shard)": set(rows) == {1},
+        "history rows say weight_update_sharding": all(r["weight_update_sharding"] for r in history),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: the fast file failed {failed}: tables by rows {rows}")
+    last = history[-1]
+    phase("11 fast file", f"cifar10_alexnet_fast_h100.yaml (alexnet_s2d, bf16 compute and moments, "
+          f"ZeRO-1, scan_steps auto), 3 epochs: {steps} steps, {bf16.symbol} launches="
+          f"{launches[bf16.symbol]} ({launches[bf16.symbol] // steps}/step), tables built by rows {rows}; "
+          + ", ".join(f"epoch {r['epoch'] + 1} {r['train_loss']:.4f}/{r['test_loss']:.4f}" for r in history)
+          + f"; step_ms epoch 3 (replayed) {statistics.median(last['step_ms']):.2f}; wall {wall_s:.2f} s")
+    return launches[bf16.symbol], history
+
+
+def fast_chunk_pair():
+    """Phase 11: 3 chunks of 8 of the fast file's steps (alexnet_s2d, bf16
+    compute and moments, ZeRO-1, flips and dropout) replayed against the
+    same chunks run eagerly, from one state."""
+    _, training = training_for(SETTINGS_FAST)
+    gen = torch.Generator().manual_seed(2)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32))
+               for _ in range(24)]
+    mean, std = norm_stats_for(training)
+
+    def make():
+        torch.manual_seed(0)
+        g = torch.Generator().manual_seed(1)
+        augment = make_train_augment(size=224, flip=True, mean=mean, std=std, generator=g,
+                                     compute_dtype=torch.bfloat16)
+        return load_model("alexnet_s2d", 10), augment, g, "alexnet_s2d"
+
+    return native_chunk_pair("the fast file's step (alexnet_s2d, bf16, ZeRO-1), flip dropout",
+                             make, batches, 8, "adam_bf16", zero1=True, tag="11 fast file")
+
+
+def flat_compare(wrapper, n: int):
+    """Phase 11: the flat-shard launch (one row of `n` elements, JAX leaf 0)
+    against the plain version, 3 steps from the kernel's state, at base 0
+    and at FLAT_BASE; bf16 moments also at zero gradients (bitwise).
+    Returns max |dp| / max(1, |p|)."""
+    bf16 = wrapper.moment_dtype == torch.bfloat16
+    runs = [(base, False) for base in (0, FLAT_BASE)]
+    if bf16:
+        runs += [(base, True) for base in (0, FLAT_BASE)]
+    errs = []
+    for base, zero_grad in runs:
+        kern = make_leaves([(n,)], seed=5, moments=wrapper.moment_dtype, zero_grad=zero_grad)
+        dp = dm = dv = 0.0
+        outside = apart = 0
+        for t in range(1, STEPS + 1):
+            before, plain = clone(kern), clone(kern)
+            bc1, bc2 = fused_adam.bias_corrections(t, HP["betas"])
+            (p, g, m, v), = kern
+            wrapper([p], [g], [m], [v], bc1s=[bc1], bc2s=[bc2], steps=[t], leaves=[0], bases=[base],
+                    weight_decay=0.0, **HP)
+            fused_adam.adam_update_reference(*plain[0], weight_decay=0.0, bc1=bc1, bc2=bc2, step=t,
+                                             leaf=0, base=base, **HP)
+            torch.cuda.synchronize()
+            _, step_dm, step_dv = max_diffs(kern, plain)
+            # p relative to max(1, |p|): a zero second moment beside a non-zero
+            # first one (three of the 57M seeded v are 0) steps p by lr * m / eps,
+            # to |p| ~ 1e4, whose float32 ulp is 1e-3
+            step_dp = float(((kern[0][0] - plain[0][0]).abs() / plain[0][0].abs().clamp(min=1)).max())
+            dp, dm, dv = (max(a, b) for a, b in zip((dp, dm, dv), (step_dp, step_dm, step_dv)))
+            if bf16:
+                out, n_apart = bf16_moment_check(kern, plain, before, 0.0)
+                outside, apart = outside + out, apart + n_apart
+            del before, plain
+        detail = f"max|dp|/max(1,|p|)={dp:.3g} max|dm|={dm:.3g} max|dv|={dv:.3g}"
+        if bf16:
+            moments_ok = outside == 0 and (apart == 0 or not zero_grad)
+            detail += (f"; moments stored differently (each a bf16 neighbour of the plain float32 "
+                       f"moment): {apart} of {STEPS * 2 * n}" + (" (bitwise)" if zero_grad else "")
+                       + f", {outside} outside their bounds")
+        else:
+            moments_ok = dm <= MOMENT_TOL and dv <= MOMENT_TOL
+        label = f"base {base}" + (", zero gradients" if zero_grad else "")
+        if not (dp <= P_TOL and moments_ok):
+            raise SystemExit(f"chip_smoke: the flat-shard launch of {KERNEL_NAMES[wrapper.moment_dtype]} "
+                             f"disagrees with its plain version ({label}): {detail}")
+        errs.append(dp)
+        phase("11 flat shard", f"{KERNEL_NAMES[wrapper.moment_dtype]} flat-shard launch vs plain, one row "
+              f"of {n} elements, {label}, {STEPS} steps: {detail}")
+        del kern
+        torch.cuda.empty_cache()
+    return max(errs)
+
+
+def flat_time(wrapper, alexnet_shapes, bw, flops):
+    """Phase 11: one AlexNet Adam update as one flat row, timed in turns
+    with the plain version, with the per-leaf launch over the 16 leaves
+    and, for float32 moments, with ``torch.optim.Adam(fused=True)`` over the
+    one flat tensor; beside the bound of the bytes and operations."""
+    bf16 = wrapper.moment_dtype == torch.bfloat16
+    n = sum(math.prod(s) for s in alexnet_shapes)
+    (p, g, m, v), = make_leaves([(n,)], seed=1, moments=wrapper.moment_dtype)
+    leaves = make_leaves(alexnet_shapes, seed=1, moments=wrapper.moment_dtype)
+    lps, lgs, lms, lvs = (list(x) for x in zip(*leaves))
+    bc1, bc2 = fused_adam.bias_corrections(1, HP["betas"])
+    k = len(alexnet_shapes)
+    fns = {
+        "plain": partial(fused_adam.adam_update_reference, p, g, m, v, weight_decay=0.0, bc1=bc1,
+                         bc2=bc2, step=1, leaf=0, **HP),
+        "flat": partial(wrapper, [p], [g], [m], [v], bc1s=[bc1], bc2s=[bc2], steps=[1], leaves=[0],
+                        bases=[0], weight_decay=0.0, **HP),
+        "leaves": partial(wrapper, lps, lgs, lms, lvs, bc1s=[bc1] * k, bc2s=[bc2] * k, steps=[1] * k,
+                          leaves=list(range(k)), weight_decay=0.0, **HP),
+    }
+    order = ("plain", "flat", "leaves", "leaves", "flat", "plain")
+    if not bf16:
+        prm = torch.nn.Parameter(p.clone())
+        prm.grad = g.clone()
+        fns["library"] = torch.optim.Adam([prm], fused=True, **HP).step
+        order = ("plain", "flat", "leaves", "library", "library", "leaves", "flat", "plain")
+    runs = {key: [] for key in fns}
+    for key in order:
+        runs[key].append(time_ms(fns[key]))
+    best = {key: min(r) for key, r in runs.items()}
+    nbytes = (3 * 4 + 4 * m.element_size()) * n
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = (ADAM_OPS_PER_ELEMENT + (2 * ROUNDING_OPS_PER_MOMENT if bf16 else 0)) * n / flops * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    flat_ms, flat_enq = best["flat"]
+    library_ms = best["library"][0] if "library" in best else None
+    each = " ".join(f"{key}=" + ",".join(f"{t:.4f}" for t, _ in runs[key]) for key in fns)
+    phase("11 flat shard", f"one AlexNet Adam update as one flat row, {KERNEL_NAMES[wrapper.moment_dtype]} "
+          f"({n} elements, {nbytes / 1e9:.3f} GB), best of two in turns: flat_ms={flat_ms:.4f} "
+          f"enqueue_ms={flat_enq:.4f} leaves_ms={best['leaves'][0]:.4f} (16 leaves, one launch) "
+          + (f"library_ms={library_ms:.4f} " if library_ms is not None else "")
+          + f"plain_ms={best['plain'][0]:.4f} bound_ms={bound_ms:.4f} "
+          f"({100 * bound_ms / flat_ms:.1f}% of bound); each run: {each}")
+    out = dict(ms=flat_ms, plain_ms=best["plain"][0], library_ms=library_ms, bound_ms=bound_ms,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations", enqueue_ms=flat_enq,
+               leaves_ms=best["leaves"][0], elements=n)
+    del p, g, m, v, leaves, lps, lgs, lms, lvs, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero1_vs_replicated():
+    """Phase 11: 3 AlexNet@224 b128 float32 steps without the clip from one
+    state, native and managed, with and without ZeRO-1: bitwise expected
+    (Adam is elementwise, the bias corrections the same), failing beyond
+    1e-6; the ZeRO-1 launches each a table of one row."""
+    torch.manual_seed(0)
+    init = {key: val.clone() for key, val in AlexNet(num_classes=10).state_dict().items()}
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32))
+               for _ in range(3)]
+    augment = make_train_augment(size=224, flip=False)
+
+    def fresh():
+        model = AlexNet(num_classes=10)
+        model.load_state_dict(init)
+        return model.cuda()
+
+    def native(zero1):
+        model = fresh()
+        ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                      augment=augment, device="cuda", weight_update_sharding=zero1)
+        torch.cuda.manual_seed(7)
+        for batch in batches:
+            ddp.train_step(batch)
+        return model
+
+    def managed(zero1):
+        acc = Accelerator(seed=0, augment=augment, device="cuda", weight_update_sharding=zero1)
+        module = fresh()
+        model, opt = acc.prepare(module, Adam(module.parameters(), lr=1e-3))
+        torch.cuda.manual_seed(7)
+        for x, y, w in batches:
+            opt.zero_grad()
+            acc.backward(CrossEntropyLoss()(model(x), y, w))
+            opt.step()
+        return model.module
+
+    out = {"max_abs_dp": {}, "launches": {}}
+    for path, run in (("native", native), ("managed", managed)):
+        diffs, rows = [], None
+        for zero1 in (False, True):
+            reset_counts()
+            model = run(zero1)
+            torch.cuda.synchronize()
+            launches, table_rows = fused_adam.kernel.launches, dict(fused_adam.kernel.table_rows)
+            out["launches"][f"{path} {'ZeRO-1' if zero1 else 'replicated'}"] = launches
+            diffs.append({key: val.clone() for key, val in model.state_dict().items()})
+            if zero1:
+                rows = (launches, table_rows)
+            del model
+        dp = max(float((a - b).abs().max()) for a, b in zip(diffs[0].values(), diffs[1].values()))
+        if not (dp <= 1e-6 and rows == (3, {1: 3})):
+            raise SystemExit(f"chip_smoke: {path} ZeRO-1 vs replicated: max|dp|={dp:.3g} (tolerance 1e-6), "
+                             f"ZeRO-1 launches and tables by rows {rows} (expected 3, {{1: 3}})")
+        out["max_abs_dp"][path] = dp
+        phase("11 ZeRO-1 vs replicated", f"{path}: 3 AlexNet@224 b128 float32 steps from one state, "
+              f"ZeRO-1 at world 1 against the replicated step: max|dp|={dp:.3g} "
+              f"({'bitwise' if dp == 0 else 'NOT bitwise'}); ZeRO-1 launches {rows[0]}, tables by rows {rows[1]}")
+        del diffs
+        torch.cuda.empty_cache()
+    return out
+
+
+def stem_turns(first_s2d):
+    """Phase 11: ``alexnet_s2d`` against ``alexnet`` from one state (max |d
+    logits|, float32 at 224 px, eval mode), and the fast file against the
+    same file at ``model: alexnet`` in turns, 3 epochs each (the first s2d
+    turn is the fast-file run): epoch-3 (replayed) step medians."""
+    torch.manual_seed(0)
+    plain = AlexNet(num_classes=10).cuda().eval()
+    s2d = load_model("alexnet_s2d", 10).cuda().eval()
+    s2d.load_state_dict(plain.state_dict())
+    x = torch.randn(32, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        a, b = plain(x), s2d(x)
+    dlogits = float((a - b).abs().max())
+    scale = float(a.abs().max())
+    if not dlogits <= 1e-4 * scale:
+        raise SystemExit(f"chip_smoke: alexnet_s2d logits part from alexnet's by {dlogits} (scale {scale})")
+    del plain, s2d, x, a, b
+    settings, training = training_for(SETTINGS_FAST)
+    training["num_epochs"] = 3
+    medians = {"s2d": [statistics.median(first_s2d[2]["step_ms"])], "alexnet": []}
+    launches = {"s2d": 0, "alexnet": 0}
+    for mode in STEM_TURNS[1:]:
+        run = dict(training, model="alexnet_s2d" if mode == "s2d" else "alexnet")
+        history, n, g, _ = _native_turn_run(run, "replay", settings)
+        if not (n == 48 and all(math.isfinite(r["train_loss"]) for r in history)):
+            raise SystemExit(f"chip_smoke: stem turn {mode}: launches {n}, history {history}")
+        medians[mode].append(statistics.median(history[2]["step_ms"]))
+        launches[mode] += n
+    fmt = lambda xs: ", ".join(f"{t:.3f}" for t in xs)
+    phase("11 stem", f"alexnet_s2d vs alexnet from one state, float32 eval logits at 224 px (batch 32): "
+          f"max|d logits|={dlogits:.3g} (largest logit {scale:.3g}); the fast file at alexnet_s2d and at "
+          f"alexnet in turns {'/'.join(STEM_TURNS)}, epoch-3 step median ms (bf16, replayed): "
+          + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
+          + f" (s2d/alexnet {min(medians['s2d']) / min(medians['alexnet']):.3f}, least of each)")
+    return dict(max_abs_d_logits=dlogits, largest_logit=scale, step_ms_medians=medians, launches=launches)
+
+
 T0 = time.perf_counter()
 
 
@@ -1732,6 +2024,16 @@ def main() -> None:
     alexnet_10 = native_alexnet_turns()
     eval_10 = managed_eval_groups()
     phase_10_s = time.perf_counter() - t10
+    t11 = time.perf_counter()
+    launches_fast, fast_history = fast_file()
+    fast_pair = fast_chunk_pair()
+    torch.cuda.empty_cache()
+    err_flat = {wrapper.moment_dtype: flat_compare(wrapper, sum(math.prod(sh) for sh in alexnet_shapes))
+                for wrapper in (f32, bf16)}
+    t_flat = {wrapper.moment_dtype: flat_time(wrapper, alexnet_shapes, bw, flops) for wrapper in (f32, bf16)}
+    zero1_pairs = zero1_vs_replicated()
+    stem = stem_turns(fast_history)
+    phase_11_s = time.perf_counter() - t11
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -1764,6 +2066,14 @@ def main() -> None:
         "native_digits": digits_10, "native_alexnet_3_epochs": alexnet_10,
         "managed_eval_groups": eval_10, "phase_10_s": phase_10_s,
     }}))
+    print(json.dumps({"zero1": {
+        "fast_file": {"launches": launches_fast, "epochs": [
+            {k: r[k] for k in ("train_loss", "test_loss", "test_accuracy")} for r in fast_history],
+            "epoch_3_step_ms_median": statistics.median(fast_history[2]["step_ms"])},
+        "fast_chunks_graph_vs_eager": fast_pair,
+        "flat_shard": {KERNEL_NAMES[d]: {**t_flat[d], "max_abs_err": err_flat[d]} for d in t_flat},
+        "zero1_vs_replicated": zero1_pairs, "stem": stem, "phase_11_s": phase_11_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -1772,30 +2082,41 @@ def main() -> None:
           "adam_f32_managed_step_ms_median": steady_managed},
          {"name": "clip_grad_norm_", **steps_8["clip"]}]}))
 
+    phase_11 = {"native ZeRO-1 fast file": launches_fast,
+                **{f"native ZeRO-1 fast chunks ({m})": fast_pair[f"launches_{m}"][bf16_sym]
+                   for m in ("replay", "eager")},
+                **{f"native ZeRO-1 stem turns {m}": n for m, n in stem["launches"].items()}}
+    phase_11_f32 = {f"{k} (phase 11)": n for k, n in zero1_pairs["launches"].items()}
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
-               "native digits": launches_digits, **phase_9, **phase_10}
+               "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
+    flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
+        {k: n for k, n in phase_11_f32.items() if "ZeRO-1" in k} if d == torch.float32 else phase_11)}
+        for d in t_flat}
     print(json.dumps({"kernels": [
         {"name": KERNEL_NAMES[torch.float32], **common, "launches": sum(by_path.values()),
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
-         "launches_by_path": by_path},
+         "launches_by_path": by_path, "flat_shard": flat[torch.float32]},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
-                      + sum(phase_10_bf16.values())),
+                      + sum(phase_10_bf16.values()) + sum(phase_11.values())),
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
          "launches_by_path": {"native bf16": launches_bf16,
                               **{f"native bf16 pipeline {k}": n for k, n in ab_bf16.items()},
                               **{k: 0 for k in phase_8}, "native digits": 0,
                               **{k: 0 for k in phase_9}, **phase_9_bf16,
-                              **{k: 0 for k in phase_10}, **phase_10_bf16}},
+                              **{k: 0 for k in phase_10}, **phase_10_bf16, **phase_11,
+                              **{k: 0 for k in phase_11_f32}},
+         "flat_shard": flat[torch.bfloat16]},
     ]}))
-    phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s)")
+    phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
+          f"phase 11: {phase_11_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -301,10 +301,13 @@ def test_unported_contents_are_refused(tmp_path, cpu_devices):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8: step snapshots"):
         ckpt.restore_latest(str(tmp_path / "a"), model, opt)
     os.makedirs(tmp_path / "b")
-    topo = dict(ckpt.topology_record(2), leaves={".opt_state.m[1]['weight']": {"kind": "data_flat"}})
-    jax_ckpt.save(str(tmp_path / "b" / "ckpt_0.npz"), state, meta={"epoch": 0, "completed": 1},
-                  topology=topo)
-    with pytest.raises(NotImplementedError, match="weight-update sharding"):
+    # ZeRO-1's data_flat moments are ported: into per-parameter Adam they
+    # are the JAX package's missing leaf (tests/test_torch_port_zero1_ckpt.py)
+    flat = dataclasses.replace(state, opt_state=AdamState(
+        step=np.int32(5), m=np.zeros(1000, np.float32), v=np.zeros(1000, np.float32)))
+    jax_ckpt.save(str(tmp_path / "b" / "ckpt_0.npz"), flat, meta={"epoch": 0, "completed": 1},
+                  topology=ckpt.topology_record(2, [".opt_state.m", ".opt_state.v"]))
+    with pytest.raises(KeyError, match="missing leaf"):
         ckpt.restore_latest(str(tmp_path / "b"), model, opt)
     jax_ckpt.save_on_main(str(tmp_path / "c"), 0,
                           dataclasses.replace(state, comm_state=jnp.zeros(8)), world_size=1)

@@ -255,7 +255,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 # ---------------------------------------------------------------- config --
 
 @pytest.mark.parametrize("knob,value", [
-    ("remat", True), ("weight_update_sharding", True),
+    ("remat", True),
     ("comm_hook", "bf16"), ("comm_topology", "hierarchical"), ("comm_overlap", True),
     ("guard", True), ("snapshot", True),
     ("pretrained_path", "/x.pt"), ("mode", "auto"),
@@ -265,6 +265,27 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         cfg.training_config({"training": {knob: value}})
+
+
+def test_weight_update_sharding_is_accepted():
+    assert cfg.training_config({"training": {"weight_update_sharding": True}})[
+        "weight_update_sharding"] is True
+
+
+@pytest.mark.parametrize("settings,message", [
+    ({"training": {"mode": "auto"}}, "requires mode='shard_map'"),
+    ({"training": {"comm_topology": "hierarchical"}}, "mutually exclusive"),
+    ({"parallel": {"model": 2}}, "parallel.model > 1 with weight_update_sharding"),
+])
+def test_weight_update_sharding_combinations_the_jax_package_refuses(settings, message):
+    """ZeRO-1 with mode auto, the hierarchical topology or a model axis:
+    the JAX package's ValueError (tpuddp/parallel/ddp.py:195-300), before
+    the refusal of the knob that is not ported yet."""
+    settings = {**settings, "training": {**settings.get("training", {}),
+                                         "weight_update_sharding": True}}
+    with pytest.raises(ValueError, match=message):
+        cfg.check_settings(settings, world_size=2)
+        cfg.training_config(settings)
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -86,6 +86,20 @@ first loss (reading it then raises), or raises under accumulation;
 ``zero_grad()`` drops a backward waiting for ``step()`` and is otherwise a
 no-op (queued steps stay queued).
 
+``weight_update_sharding`` (ZeRO-1, ``_FlatShardedUpdate`` and
+``_ensure_opt_state``, ``tpuddp/accelerate.py:389-470, :968-1000``):
+``prepare`` wraps the optimizer in :class:`~tpuddp_torch.optim.
+ShardedUpdate` over the flat layout of :func:`~tpuddp_torch.training.step.
+make_flat_param_spec`. The gradients are already the global ones (the
+managed all-reduce), so each process takes its shard as a slice, clips
+before (the clip's norm is of the whole gradient, as the JAX package clips
+the gradient tree before the wrapped update), updates the shard and
+all-gathers the shards; the bf16 rounding numbers the elements over the
+whole flat vector (base ``rank * shard_n``), as the JAX package's
+partitioned update does. It holds inside fused flushes and accumulation
+alike; ``save_state``/``load_state`` write and read the ``data_flat``
+vectors.
+
 Batches may arrive already on the device (the entry point stages them,
 ``training/pipeline.py``); a host array is copied from pinned memory without
 blocking. ``save_model``/``load_model`` and ``save_state``/``load_state``
@@ -105,11 +119,12 @@ from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
 from tpuddp_torch.data.loader import DataLoader, ShardedDataLoader
 from tpuddp_torch.nn.norm import BatchNorm, batch_weights, convert_sync_batchnorm
-from tpuddp_torch.optim import clip_grad_norm_
+from tpuddp_torch.optim import ShardedUpdate, clip_grad_norm_
 from tpuddp_torch.parallel import backend, collectives
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import to_device
+from tpuddp_torch.training.step import make_flat_param_spec
 from tpuddp_torch.utils import batching
 
 # the fuse depth that ``auto`` is capped at (tpuddp/accelerate.py:473-491)
@@ -671,7 +686,8 @@ class Accelerator:
     ``auto`` (32 at the first backward, capped by the staging budget; 1
     under accumulation; :func:`tpuddp_torch.config.resolve_fuse_steps`).
     ``clip_grad_norm``: the global L2 norm each update's gradient is clipped
-    to (None: no clip)."""
+    to (None: no clip). ``weight_update_sharding``: ZeRO-1, the optimizer's
+    update and state sharded across the processes."""
 
     def __init__(
         self,
@@ -681,8 +697,10 @@ class Accelerator:
         augment: Optional[Callable] = None,
         device: str = "cuda",
         clip_grad_norm: Optional[float] = None,
+        weight_update_sharding: bool = False,
     ):
         self.gradient_accumulation_steps = max(1, int(gradient_accumulation_steps))
+        self.weight_update_sharding = bool(weight_update_sharding)
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
         self.fuse_steps = cfg_lib.resolve_fuse_steps(fuse_steps, self.gradient_accumulation_steps)
         self.process_index = backend.get_rank()
@@ -746,6 +764,12 @@ class Accelerator:
             if isinstance(obj, torch.optim.Optimizer):
                 if model is None:
                     raise ValueError("prepare() got an optimizer but no model")
+                if self.weight_update_sharding:
+                    obj = ShardedUpdate(
+                        obj, list(model._module.parameters()),
+                        make_flat_param_spec(model._module, self.num_processes),
+                        self.process_index, managed=True,
+                    )
                 out[i] = model._optimizer = PreparedOptimizer(obj, model)
         return out[0] if len(out) == 1 else tuple(out)
 

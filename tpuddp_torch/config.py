@@ -98,7 +98,6 @@ _UNSUPPORTED = {
     ),
     # auto and false both mean the barrier step this slice runs
     "comm_overlap": (lambda v: v in ("auto", False), "Queue 1 item 8: overlap"),
-    "weight_update_sharding": (lambda v: not v, "Queue 1 item 8: ZeRO-1"),
     "remat": (lambda v: not v, "Queue 1 item 8: remat"),
     "guard": (lambda v: not v, "Queue 1 item 8: numerical guard"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
@@ -153,11 +152,41 @@ def resolve_fuse_steps(fuse_steps, accum: int = 1, deferred_metrics: bool = True
     return fuse
 
 
+def check_weight_update_sharding(training: Dict[str, Any], model_size: int = 1) -> None:
+    """``ValueError`` for the combinations with ``weight_update_sharding``
+    that the JAX package refuses (``tpuddp/parallel/ddp.py:195-300``):
+    ``mode: auto``, ``comm_topology: hierarchical`` and a model axis
+    (``parallel.model > 1``)."""
+    if not training.get("weight_update_sharding"):
+        return
+    if training.get("mode", "shard_map") != "shard_map":
+        raise ValueError(
+            "weight_update_sharding requires mode='shard_map' (the reduce-scatter/"
+            "all-gather exchange is expressed over the explicit per-replica step's "
+            "named axis)"
+        )
+    if (training.get("comm_topology") or "flat") == "hierarchical":
+        raise ValueError(
+            "comm_topology='hierarchical' and weight_update_sharding are mutually "
+            "exclusive: the reduce-scatter/all-gather exchange already factors the "
+            "reduction; pick one"
+        )
+    if int(model_size) > 1:
+        raise ValueError(
+            "parallel.model > 1 with weight_update_sharding is refused: the WUS flat "
+            "layout spans the whole replicated parameter vector, which a model-sharded "
+            "state no longer has"
+        )
+
+
 def check_supported(training: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for any knob set to a value this slice
     does not implement (``ValueError`` for a malformed ``pipeline`` block, a
     ``scan_steps`` under 1, a gradient accumulation depth under 1, or one
-    together with an explicit ``fuse_steps`` over 1)."""
+    together with an explicit ``fuse_steps`` over 1, and for the
+    combinations with ``weight_update_sharding`` that the JAX package
+    refuses)."""
+    check_weight_update_sharding(training)
     for knob, (ok, item) in _UNSUPPORTED.items():
         value = training.get(knob, TRAINING_DEFAULTS[knob])
         if not ok(value):
@@ -196,6 +225,7 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
     unknown = set(parallel) - {"data", "model"}
     if unknown:
         raise ValueError(f"unknown parallel key(s) {sorted(unknown)}")
+    check_weight_update_sharding(settings.get("training") or {}, int(parallel.get("model", 1)))
     if int(parallel.get("model", 1)) != 1:
         raise _not_ported(
             f"parallel.model={parallel['model']!r}", "Queue 1 item 8: tensor parallel"

@@ -1,4 +1,5 @@
-"""Model zoo of the port: ``alexnet`` (the main path), ``toy_mlp`` and
+"""Model zoo of the port: ``alexnet`` (the main path), ``alexnet_s2d`` (its
+space-to-depth stem, the same parameters and checkpoints), ``toy_mlp`` and
 ``toy_cnn``. The JAX package's other models wait for a later slice."""
 
 from typing import Sequence
@@ -20,20 +21,20 @@ def load_model(
     **kwargs,
 ):
     """Build ``name`` for NHWC inputs of ``input_shape`` (one sample)."""
-    if name == "alexnet":
-        return AlexNet(num_classes=num_classes, **kwargs)
+    if name in ("alexnet", "alexnet_s2d"):
+        return AlexNet(num_classes=num_classes, space_to_depth=name == "alexnet_s2d", **kwargs)
     if name == "toy_mlp":
         h, w, c = input_shape
         return ToyMLP(in_features=h * w * c, num_classes=num_classes, **kwargs)
     if name == "toy_cnn":
         return ToyCNN(num_classes=num_classes, input_shape=input_shape, **kwargs)
     base = name.split("_s2d")[0].split("_small")[0]
-    if base in _NOT_PORTED or name == "alexnet_s2d":
+    if base in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not implemented in tpuddp_torch yet "
             "(ROADMAP.md Queue 1 item 8: other models)"
         )
-    raise ValueError(f"unknown model {name!r}; one of alexnet, toy_mlp, toy_cnn")
+    raise ValueError(f"unknown model {name!r}; one of alexnet, alexnet_s2d, toy_mlp, toy_cnn")
 
 
 __all__ = ["AlexNet", "ToyCNN", "ToyMLP", "load_model"]

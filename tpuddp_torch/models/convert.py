@@ -15,6 +15,12 @@ JAX params arrive as numpy arrays (one entry per layer of the JAX
   ``bias``, and the JAX model state's ``mean`` and ``var`` -> the
   ``running_mean`` and ``running_var`` buffers.
 
+``alexnet_s2d`` has AlexNet's parameters and keys, so every function here
+takes it as ``alexnet``. :func:`flat_to_jax` and :func:`flat_from_jax` move
+one flat vector of all parameters (ZeRO-1's layout) between the port's order
+(``model.parameters()``, each raveled as PyTorch stores it) and the JAX
+package's (its tree's leaves in order, each raveled in its own layout).
+
 Every tensor's shape is checked against the port's model, with the key named
 on a mismatch. Both directions only move elements, so a round trip is
 bitwise; :func:`torch_layout` and :func:`jax_from_state_dict` keep each
@@ -36,6 +42,11 @@ _ALEXNET_LINEAR = {16: "classifier.1", 19: "classifier.4", 21: "classifier.6"}
 _POOL_GRID, _POOL_CH = 6, 256
 
 
+def _base(name: str) -> str:
+    """The name whose layout ``name`` shares: ``alexnet_s2d`` is AlexNet's."""
+    return "alexnet" if name == "alexnet_s2d" else name
+
+
 def _linear_indices(params: Sequence) -> list:
     return [i for i, p in enumerate(params) if p and "weight" in p]
 
@@ -45,6 +56,7 @@ def _expected_model(name: str, params: Sequence):
     (shapes only, no memory)."""
     from tpuddp_torch.models import AlexNet, ToyCNN, ToyMLP
 
+    name = _base(name)
     lin = _linear_indices(params)
     num_classes = int(np.shape(params[lin[-1]]["weight"])[1])
     with torch.device("meta"):
@@ -73,6 +85,7 @@ def torch_layout(
     """JAX ``params`` (and ``model_state``) as numpy arrays by the port's
     ``state_dict`` keys, in the port's layouts, each in its own dtype."""
     out: Dict[str, np.ndarray] = {}
+    name = _base(name)
     if name == "alexnet":
         for idx, key in _ALEXNET_CONV.items():
             out[f"{key}.weight"] = np.transpose(params[idx]["weight"], (3, 2, 0, 1))
@@ -164,6 +177,7 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
     its own dtype. A mapping of parameters alone (a moment tree) gives its
     ``params`` and a ``model_state`` of ``()``."""
     sd = {k: _numpy(v) for k, v in state_dict.items()}
+    name = _base(name)
     if name == "alexnet":
         layers = {idx: key for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
         n_layers = _ALEXNET_LAYERS
@@ -200,7 +214,8 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
 
 
 def model_name(model: torch.nn.Module) -> str:
-    """The registry name of one of the port's models."""
+    """The registry name of the layout of one of the port's models
+    (``alexnet`` for ``alexnet_s2d`` too)."""
     from tpuddp_torch.models import AlexNet, ToyCNN, ToyMLP
 
     for cls, name in ((AlexNet, "alexnet"), (ToyCNN, "toy_cnn"), (ToyMLP, "toy_mlp")):
@@ -216,8 +231,17 @@ def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:
     sorted (``bias`` before ``scale`` and ``weight``), parameter-free layers
     holding none. bf16 Adam moments salt their rounding with it
     (``tpuddp/optim.py:127``)."""
+    places = jax_places(name, model)
+    return {pname: k for k, pname in enumerate(sorted(places, key=places.get))}
+
+
+def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Tuple[int, str]]:
+    """Each parameter of the port's ``model`` (by ``named_parameters``
+    name) -> its ``(layer index, key)`` in the JAX package's parameter tree
+    (a BatchNorm's ``weight`` is its ``scale``)."""
     from tpuddp_torch.nn.norm import BatchNorm
 
+    name = _base(name)
     if name == "alexnet":
         layer_of = {key: idx for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
     elif name in ("toy_mlp", "toy_cnn"):
@@ -230,4 +254,48 @@ def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:
         if key == "weight" and isinstance(model.get_submodule(prefix), BatchNorm):
             key = "scale"
         places[pname] = (int(prefix) if layer_of is None else layer_of[prefix], key)
-    return {pname: k for k, pname in enumerate(sorted(places, key=places.get))}
+    return places
+
+
+def _jax_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A parameter's JAX shape for its port shape: OIHW -> HWIO, ``(out,
+    in)`` -> ``(in, out)``, vectors as they are."""
+    if len(shape) == 4:
+        return (shape[2], shape[3], shape[1], shape[0])
+    if len(shape) == 2:
+        return (shape[1], shape[0])
+    return tuple(shape)
+
+
+def flat_to_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndarray:
+    """``vec``, the model's parameters (or a moment of each) raveled in
+    ``model.parameters()`` order, in the JAX package's flat order: its
+    tree's leaves in order, each in its JAX layout. Any dtype; only elements
+    move, so the result is bitwise the same values. Padding past the raw
+    element count is the caller's."""
+    arrays, offset = {}, 0
+    for pname, p in model.named_parameters():
+        arrays[pname] = vec[offset:offset + p.numel()].reshape(tuple(p.shape))
+        offset += p.numel()
+    if offset != len(vec):
+        raise ValueError(f"flat_to_jax: {len(vec)} elements for {offset} parameters")
+    params, _ = jax_from_state_dict(name, arrays)
+    return np.concatenate([np.ravel(layer[k]) for layer in params for k in sorted(layer or ())])
+
+
+def flat_from_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`flat_to_jax`: a raw JAX-ordered flat vector in
+    ``model.parameters()`` order."""
+    places = jax_places(name, model)
+    shapes = {pname: _jax_shape(tuple(p.shape)) for pname, p in model.named_parameters()}
+    n_layers = _ALEXNET_LAYERS if _base(name) == "alexnet" else 1 + max(l for l, _ in places.values())
+    tree, offset = [{} for _ in range(n_layers)], 0
+    for pname in sorted(places, key=places.get):
+        layer, key = places[pname]
+        n = int(np.prod(shapes[pname]))
+        tree[layer][key] = vec[offset:offset + n].reshape(shapes[pname])
+        offset += n
+    if offset != len(vec):
+        raise ValueError(f"flat_from_jax: {len(vec)} elements for {offset} parameters")
+    arrays = torch_layout(name, [layer or () for layer in tree])
+    return np.concatenate([np.ravel(arrays[pname]) for pname, _ in model.named_parameters()])

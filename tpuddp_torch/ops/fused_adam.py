@@ -16,8 +16,13 @@ The moments are float32 or bfloat16 (``optimizer_state_dtype: bfloat16``).
 Each type has its own instantiation of the kernel and its own wrapper and
 launch count (:data:`kernels`); bf16 moments are widened to float32 for the
 update and stored back with the JAX package's Weyl-sequence stochastic
-rounding (:func:`stochastic_round_bf16`), keyed by each leaf's step count and
-its index in the JAX package's flattened parameter tree.
+rounding (:func:`stochastic_round_bf16`), keyed by each leaf's step count,
+its index in the JAX package's flattened parameter tree and the flat index of
+its first element (``base``: 0 for a parameter, the shard's offset in the
+flat parameter vector for a ZeRO-1 shard on the managed path). The kernel
+adds the element's index within its row to a noise word per row, so the
+base is folded into that word on the host: ``(base + i) * A + w = i * A +
+(base * A + w)`` modulo 2^32.
 
 The launch table (:func:`launch_tables`) is built here, from plain ints and
 floats, so the CPU tests reach its chunk starts, alignment flags and
@@ -76,23 +81,26 @@ def moment_salts(leaf: int) -> Tuple[int, int]:
     return (SALT_M + k) & _U32, (SALT_V + k) & _U32
 
 
-def noise_offset(step: int, salt: int) -> int:
-    """``(step * 0x85EBCA77 + salt) mod 2^32``: the part of the rounding
-    noise that is the same for every element of a leaf."""
-    return (step * WEYL_STEP + salt) & _U32
+def noise_offset(step: int, salt: int, base: int = 0) -> int:
+    """``(base * 0x9E3779B1 + step * 0x85EBCA77 + salt) mod 2^32``: the
+    part of the rounding noise that is the same for every element of a row
+    whose first element has the flat index ``base``."""
+    return (base * WEYL_INDEX + step * WEYL_STEP + salt) & _U32
 
 
-def stochastic_round_bf16(x: torch.Tensor, step: int, salt: int) -> torch.Tensor:
+def stochastic_round_bf16(x: torch.Tensor, step: int, salt: int, base: int = 0) -> torch.Tensor:
     """float32 -> bfloat16 with the JAX package's dithered rounding
     (``tpuddp/optim.py::_stochastic_round_bf16``): add the noise
-    ``(i * 0x9E3779B1 + step * 0x85EBCA77 + salt) mod 2^16`` to the float32
-    bits, ``i`` the element's flat index in ``x``, and keep the upper 16.
+    ``((base + i) * 0x9E3779B1 + step * 0x85EBCA77 + salt) mod 2^16`` to the
+    float32 bits, ``i`` the element's flat index in ``x`` (``base`` > 0: ``x``
+    is a slice of a longer vector that the JAX package rounds whole), and
+    keep the upper 16.
     The uint32 arithmetic runs in int64 masked to 32 bits (torch's uint32
     support is partial); only integer operations touch the bits, so
     subnormals, infinities and NaNs go through as JAX sends them."""
     bits = x.float().contiguous().view(torch.int32).to(torch.int64) & _U32
     i = torch.arange(x.numel(), dtype=torch.int64, device=x.device).view(x.shape)
-    noise = (i * WEYL_INDEX + noise_offset(step, salt)) & 0xFFFF
+    noise = (i * WEYL_INDEX + noise_offset(step, salt, base)) & 0xFFFF
     upper = ((bits + noise) >> 16) & 0xFFFF
     upper = torch.where(upper >= 0x8000, upper - 0x10000, upper)  # as int16
     return upper.to(torch.int16).view(torch.bfloat16)
@@ -124,12 +132,14 @@ def adam_update_reference(
     p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
     lr: float, betas: Tuple[float, float], eps: float, weight_decay: float,
     bc1: float, bc2: float, step: Optional[int] = None, leaf: Optional[int] = None,
+    base: int = 0,
 ) -> None:
     """Plain PyTorch version of the kernel for one leaf: the torch Adam rule
     with the L2 term, in the operation order of ``tpuddp/optim.py``'s Adam.
     bf16 moments (``m.dtype``) are widened, updated in float32, used for
     ``p`` unrounded, and stored with :func:`stochastic_round_bf16` keyed by
-    the leaf's step count ``step`` and JAX leaf index ``leaf``."""
+    the leaf's step count ``step``, JAX leaf index ``leaf`` and flat index
+    base ``base``."""
     b1, b2 = betas
     if weight_decay:
         g = g + weight_decay * p
@@ -138,8 +148,8 @@ def adam_update_reference(
     p_new = p - lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
     if m.dtype == torch.bfloat16:
         salt_m, salt_v = moment_salts(leaf)
-        m_new = stochastic_round_bf16(m_new, step, salt_m)
-        v_new = stochastic_round_bf16(v_new, step, salt_v)
+        m_new = stochastic_round_bf16(m_new, step, salt_m, base)
+        v_new = stochastic_round_bf16(v_new, step, salt_v, base)
     m.copy_(m_new)
     v.copy_(v_new)
     p.copy_(p_new)
@@ -185,7 +195,8 @@ def table_scalars(table: np.ndarray) -> np.ndarray:
     ], axis=1).reshape(-1)
 
 
-def replay_scalars(numels, bc1s, bc2s, moment_dtype, steps=None, leaves=None) -> List[np.ndarray]:
+def replay_scalars(numels, bc1s, bc2s, moment_dtype, steps=None, leaves=None,
+                   bases=None) -> List[np.ndarray]:
     """The :func:`table_scalars` of each launch that :func:`adam_update`
     makes for leaves of ``numels`` elements with these bias corrections (and
     bf16 rounding keys): what a replayed launch reads, computed on the host
@@ -193,7 +204,7 @@ def replay_scalars(numels, bc1s, bc2s, moment_dtype, steps=None, leaves=None) ->
     bf16 = moment_dtype == torch.bfloat16
     tables = launch_tables(
         [(0, 0, 0, 0)] * len(numels), numels, bc1s, bc2s,
-        noise=_noise(steps, leaves, len(numels)) if bf16 else None,
+        noise=_noise(steps, leaves, len(numels), bases) if bf16 else None,
     )
     return [table_scalars(t) for t in tables]
 
@@ -240,11 +251,13 @@ def _rounding_keys(steps, leaves, n: int) -> List[Tuple[int, int]]:
     return list(zip(steps, leaves))
 
 
-def _noise(steps, leaves, n: int) -> List[Tuple[int, int]]:
-    """Each bf16 leaf's ``(noise_m, noise_v)`` offsets."""
+def _noise(steps, leaves, n: int, bases=None) -> List[Tuple[int, int]]:
+    """Each bf16 leaf's ``(noise_m, noise_v)`` offsets (``bases``: the flat
+    index of each leaf's first element, 0 when None)."""
+    bases = [0] * n if bases is None else list(bases)
     return [
-        tuple(noise_offset(t, salt) for salt in moment_salts(k))
-        for t, k in _rounding_keys(steps, leaves, n)
+        tuple(noise_offset(t, salt, base) for salt in moment_salts(k))
+        for (t, k), base in zip(_rounding_keys(steps, leaves, n), bases, strict=True)
     ]
 
 
@@ -290,6 +303,9 @@ class FusedAdamKernel:
         self.moment_dtype = moment_dtype
         self.symbol = symbol
         self._counters = {}  # device -> its int64 launch count, on the device
+        # rows per table -> tables this wrapper launched or captured (host
+        # code: a replay adds nothing); reset_launches() empties it
+        self.table_rows = {}
         self._fn = None
 
     @property
@@ -300,6 +316,7 @@ class FusedAdamKernel:
     def reset_launches(self) -> None:
         for c in self._counters.values():
             c.zero_()
+        self.table_rows = {}
 
     def _counter(self, device: torch.device) -> torch.Tensor:
         counter = self._counters.get(device)
@@ -320,7 +337,7 @@ class FusedAdamKernel:
 
     def __call__(
         self, ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s,
-        steps=None, leaves=None,
+        steps=None, leaves=None, bases=None,
     ) -> None:
         if not ps:
             return
@@ -331,11 +348,13 @@ class FusedAdamKernel:
             [(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
              for p, g, m, v in zip(ps, gs, ms, vs)],
             [p.numel() for p in ps], bc1s, bc2s, chunk,
-            noise=_noise(steps, leaves, len(ps)) if bf16 else None,
+            noise=_noise(steps, leaves, len(ps), bases) if bf16 else None,
             moment_bytes=ms[0].element_size(),
         )
         if not tables:
             return
+        for table in tables:
+            self.table_rows[len(table)] = self.table_rows.get(len(table), 0) + 1
         fn = self.load()
         b1, b2 = betas
         stream = torch.cuda.current_stream(ps[0].device).cuda_stream
@@ -361,12 +380,14 @@ kernel = kernels[torch.float32]  # float32 moments, the default
 
 def adam_update(
     ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s, steps=None, leaves=None,
+    bases=None,
 ) -> None:
     """Update the leaves ``ps[i]`` (gradient ``gs[i]``, moments ``ms[i]``,
     ``vs[i]``, bias corrections ``bc1s[i]``, ``bc2s[i]``) in place: the CUDA
     kernel of the moments' dtype for CUDA tensors, the plain version for CPU
     tensors. bf16 moments also need each leaf's step count ``steps[i]`` and
-    JAX leaf index ``leaves[i]``, which key their rounding."""
+    JAX leaf index ``leaves[i]``, which key their rounding, and take the flat
+    index of its first element from ``bases[i]`` (0 when None)."""
     if not ps:
         return
     hp = dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
@@ -376,7 +397,7 @@ def adam_update(
         raise TypeError(f"fused_adam: moments are {moment_dtype}, expected one of {list(kernels)}")
     if device.type == "cuda":
         kernels[moment_dtype](
-            ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves, **hp
+            ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves, bases=bases, **hp
         )
     elif device.type == "cpu":
         rows = list(zip(ps, gs, ms, vs, bc1s, bc2s, strict=True))
@@ -390,7 +411,9 @@ def adam_update(
                     raise ValueError(f"fused_adam: leaf {i} has a tensor on {t.device}, p[0] on cpu")
             if leaf[2].dtype != moment_dtype or leaf[3].dtype != moment_dtype:
                 raise TypeError(f"fused_adam: leaf {i} has moments of another dtype than m[0]")
-        for (p, g, m, v, bc1, bc2), (step, leaf) in zip(rows, keys):
-            adam_update_reference(p, g, m, v, bc1=bc1, bc2=bc2, step=step, leaf=leaf, **hp)
+        for (p, g, m, v, bc1, bc2), (step, leaf), base in zip(
+                rows, keys, [0] * len(rows) if bases is None else bases, strict=True):
+            adam_update_reference(p, g, m, v, bc1=bc1, bc2=bc2, step=step, leaf=leaf, base=base,
+                                  **hp)
     else:
         raise ValueError(f"fused_adam: unsupported device {device}")

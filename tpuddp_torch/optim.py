@@ -32,6 +32,14 @@ the trust ratios need no conversion. Each step leaves the ratios it used in
 ``trust_ratios`` (one float32 tensor, the stepped parameters in order), on
 the parameters' device, read by no update.
 
+Under ``weight_update_sharding`` (ZeRO-1, ``tpuddp/training/step.py:
+291-366``) :class:`ShardedUpdate` wraps any of them: the model's parameters
+become views into one flat float32 vector, and the wrapped optimizer steps
+one parameter, this replica's contiguous shard of it, with its state
+sharded alike; LARS and LAMB then take their per-layer norms over the
+shard's segments of the flat vector (:class:`FlatSegments`), summed across
+replicas.
+
 Every optimizer here can run inside a CUDA graph (the managed path's
 ``fuse_steps`` replays, ``training/graphs.py``; ``GRAPH_SAFE``): none reads
 a device value on the host. The host state that changes per step, Adam's and
@@ -50,6 +58,7 @@ import torch
 
 from tpuddp_torch.ops import device_scalars
 from tpuddp_torch.ops.fused_adam import adam_update, bias_corrections, replay_scalars
+from tpuddp_torch.parallel import collectives
 
 # tpuddp/optim.py:162-181: these two have a correct storage path; any other
 # low-precision type would freeze Adam's v (its sub-ulp decrements vanish)
@@ -104,6 +113,9 @@ class Adam(torch.optim.Optimizer):
                 f"leaf_index has {len(leaf_index)} entries for {len(flat)} parameters"
             )
         self.leaf_index = dict(zip(flat, leaf_index))
+        # the flat index of a parameter's first element in the vector whose
+        # elements the JAX package numbers for the rounding (0: its own)
+        self.noise_base = {}
 
     GRAPH_SAFE = True
 
@@ -111,7 +123,7 @@ class Adam(torch.optim.Optimizer):
         """Advance the step count of each of ``ps`` (creating its state at
         its first step) and return the per-leaf arguments of the group's
         ``adam_update`` call: bias corrections of each leaf's own step
-        count, step counts and JAX leaf indices."""
+        count, step counts, JAX leaf indices and flat index bases."""
         bc1s, bc2s, steps, leaves = [], [], [], []
         corrections = {}
         for p in ps:
@@ -131,7 +143,8 @@ class Adam(torch.optim.Optimizer):
             bc2s.append(bc2)
             steps.append(step)
             leaves.append(self.leaf_index[p])
-        return dict(bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves)
+        return dict(bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves,
+                    bases=[self.noise_base.get(p, 0) for p in ps])
 
     def _replay(self, stepped) -> List[np.ndarray]:
         """One captured step's host part for a replay: the step counts of
@@ -210,12 +223,61 @@ def _norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return _norms64(tensors).float()
 
 
+class FlatSegments:
+    """The layers of a ZeRO-1 shard for LARS and LAMB (``tpuddp/optim.py::
+    _flat_segment_ids``): the shard ``[start, start + n)`` of a flat vector
+    whose layers end at ``ends`` (each parameter one layer, the padding past
+    the last one a trailing layer of zeros), as contiguous slices. A layer's
+    sum of squares is its slices' sum on each replica, accumulated in
+    float64, summed across replicas; the ratios of the shard's layers come
+    back one per element."""
+
+    def __init__(self, ends: Sequence[int], total: int, start: int, n: int,
+                 device: torch.device):
+        bounds = [0, *ends, total]
+        self.num_segments = len(bounds) - 1
+        ids, self.slices = [], []
+        for k in range(self.num_segments):
+            lo, hi = max(bounds[k], start), min(bounds[k + 1], start + n)
+            if lo < hi:
+                ids.append(k)
+                self.slices.append((lo - start, hi - start))
+        self.n = n
+        self.index = torch.tensor(ids, dtype=torch.int64, device=device)
+        self.counts = torch.tensor([hi - lo for lo, hi in self.slices], dtype=torch.int64,
+                                   device=device)
+
+    def norms(self, x: torch.Tensor) -> torch.Tensor:
+        """The L2 norm of each of the shard's layers over every replica's
+        part of it, in float32."""
+        sq = _norms64([x[lo:hi] for lo, hi in self.slices]).square()
+        full = torch.zeros(self.num_segments, dtype=torch.float64, device=x.device)
+        full.index_copy_(0, self.index, sq)
+        collectives.all_reduce_sum_([full])
+        return full.index_select(0, self.index).sqrt().float()
+
+    def expand(self, ratios: torch.Tensor) -> torch.Tensor:
+        """Per-layer ``ratios`` as one value per element of the shard."""
+        return torch.repeat_interleave(ratios, self.counts, output_size=self.n)
+
+
 class _TreeMap(torch.optim.Optimizer):
     """An update written in PyTorch ops, one param group at a time (the JAX
     package's tree maps), behind ``torch.optim.Optimizer.step``'s closure
-    protocol."""
+    protocol. LARS and LAMB take their layers' norms per parameter, or with
+    ``flat`` (a :class:`FlatSegments`, set by :class:`ShardedUpdate`) over
+    the segments of their one parameter, a ZeRO-1 shard."""
 
     GRAPH_SAFE = True
+    flat: Optional[FlatSegments] = None
+
+    def _layer_norms(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        return _norms(tensors) if self.flat is None else self.flat.norms(tensors[0])
+
+    def _per_parameter(self, ratios: torch.Tensor):
+        """Per-layer ratios as each parameter's factor: a scalar each, or one
+        value per element of the flat shard."""
+        return ratios if self.flat is None else [self.flat.expand(ratios)]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -296,10 +358,10 @@ class LARS(_TreeMap):
         if not ps:
             return
         wd = group["weight_decay"]
-        p_n, g_n = _norms(ps), _norms(gs)
+        p_n, g_n = self._layer_norms(ps), self._layer_norms(gs)
         ratios = _safe_ratio(p_n, g_n + wd * p_n + group["eps"], group["trust_coefficient"])
         bufs = _momentum_buffers(self, ps)
-        for p, g, b, ratio in zip(ps, gs, bufs, ratios):
+        for p, g, b, ratio in zip(ps, gs, bufs, self._per_parameter(ratios)):
             d = g + wd * p
             b.mul_(group["momentum"]).add_(d.mul_(ratio))
             p.sub_(b * group["lr"])
@@ -375,8 +437,8 @@ class LAMB(_TreeMap):
             if wd:
                 r.add_(wd * p)
             rs.append(r)
-        ratios = _safe_ratio(_norms(ps), _norms(rs), 1.0)
-        for p, r, ratio in zip(ps, rs, ratios):
+        ratios = _safe_ratio(self._layer_norms(ps), self._layer_norms(rs), 1.0)
+        for p, r, ratio in zip(ps, rs, self._per_parameter(ratios)):
             p.sub_(r.mul_(group["lr"] * ratio))
         self.trust_ratios = ratios
 
@@ -402,3 +464,136 @@ def clip_grad_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Te
     norm = global_norm(gs)
     torch._foreach_mul_(gs, torch.clamp(max_norm / (norm + 1e-6), max=1.0))
     return norm
+
+
+# ---------------------------------------------------------------- ZeRO-1 --
+
+
+class ShardedUpdate:
+    """ZeRO-1 around ``optimizer`` (any optimizer of this module, one param
+    group over the model's parameters): the counterpart of the JAX
+    package's weight-update sharding, native (``tpuddp/training/step.py:
+    291-366``) and managed (``_FlatShardedUpdate``,
+    ``tpuddp/accelerate.py:389-470``).
+
+    At construction (after the model is on its device and replicas agree)
+    the parameters, in ``params`` order, are copied into one flat float32
+    vector of ``spec.total`` elements (zero padding past the last) and each
+    becomes a view into it; ``optimizer`` is rebound to one parameter, this
+    rank's shard ``[rank * shard_n, (rank + 1) * shard_n)`` of that vector,
+    its state dropped (it is created at the first step, over the shard).
+    Adam keys its bf16 rounding with JAX leaf index 0 (a one-array tree) and
+    flat index base 0, as the JAX package's ``shard_map`` step numbers the
+    shard's elements; on the ``managed`` path the JAX update is partitioned
+    from the whole vector, whose elements it numbers, so the base is the
+    shard's offset.
+    LARS and LAMB take their layers' norms over the shard's segments of the
+    flat vector, summed across replicas (:class:`FlatSegments`).
+
+    :meth:`step` copies the parameters' gradients into one flat buffer (one
+    copy), reduce-scatters it (SUM) into this rank's shard and divides by
+    the world size (on the ``managed`` path the gradients are already the
+    global ones, as its step makes them, and the shard is a slice), clips
+    the shard to global norm
+    ``clip`` (``sqrt`` of the replicas' summed squares, ``g * min(1, clip /
+    (norm + 1e-6))``), runs the wrapped optimizer on the shard and
+    all-gathers the new shards into the flat vector, which updates every
+    parameter view. A world of one skips the collectives. Every buffer is
+    allocated here, before any CUDA-graph capture; nothing reads the
+    device on the host."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], spec,
+                 rank: int = 0, *, managed: bool = False, clip: Optional[float] = None):
+        if len(optimizer.param_groups) != 1:
+            raise ValueError(
+                "weight_update_sharding steps one flat vector: the optimizer must have one "
+                f"param group, not {len(optimizer.param_groups)}"
+            )
+        params = list(params)
+        spec.check(params)
+        self.inner = optimizer
+        self.spec = spec
+        self.params = params
+        self.world, self.rank = spec.world, int(rank)
+        self.clip = None if clip is None else float(clip)
+        device = params[0].device
+        n = spec.shard_n
+        self.lo, self.hi = self.rank * n, (self.rank + 1) * n
+        with torch.no_grad():
+            self.flat = torch.zeros(spec.total, dtype=torch.float32, device=device)
+            spec.flatten([p.detach() for p in params], self.flat)
+            for p, view in zip(params, spec.views(self.flat)):
+                p.data = view
+        self.flat_grad = torch.zeros_like(self.flat)
+        multi = self.world > 1
+        self._g_shard = torch.empty(n, device=device) if multi and not managed else None
+        self._send = torch.empty(n, device=device) if multi else None
+        self.shard = self.flat[self.lo:self.hi].detach()
+        optimizer.param_groups[0]["params"] = [self.shard]
+        optimizer.state.clear()
+        if isinstance(optimizer, Adam):
+            optimizer.leaf_index = {self.shard: 0}
+            optimizer.noise_base = {self.shard: self.lo if managed else 0}
+        elif isinstance(optimizer, (LARS, LAMB)):
+            optimizer.flat = FlatSegments(spec.ends, spec.total, self.lo, n, device)
+
+    # the torch.optim.Optimizer surface the steps, graphs and checkpoints read
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    @property
+    def defaults(self):
+        return self.inner.defaults
+
+    @property
+    def GRAPH_SAFE(self) -> bool:
+        return getattr(self.inner, "GRAPH_SAFE", False)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Drop every parameter's gradient (the steps' one use)."""
+        for p in self.params:
+            p.grad = None
+        self.shard.grad = None
+
+    def shard_state(self, key: str) -> Optional[torch.Tensor]:
+        """The wrapped optimizer's ``key`` state of the shard (None before
+        its first step)."""
+        return self.inner.state.get(self.shard, {}).get(key)
+
+    @torch.no_grad()
+    def _flat_gradient(self) -> torch.Tensor:
+        """This rank's shard of the (mean) gradient."""
+        grads = [p.grad for p in self.params]
+        if all(g is not None for g in grads):
+            self.spec.flatten(grads, self.flat_grad)
+        else:
+            for g, view in zip(grads, self.spec.views(self.flat_grad)):
+                view.zero_() if g is None else view.copy_(g)
+        if self._g_shard is None:
+            return self.flat_grad[self.lo:self.hi]
+        collectives.reduce_scatter_sum(self._g_shard, self.flat_grad)
+        return self._g_shard.div_(self.world)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        g = self._flat_gradient()
+        if self.clip is not None:
+            sq = _norms64([g]).square()
+            collectives.all_reduce_sum_([sq])
+            g.mul_(torch.clamp(self.clip / (sq.sqrt().float() + 1e-6), max=1.0))
+        self.shard.grad = g
+        self.inner.step()
+        self.shard.grad = None
+        if self._send is not None:
+            self._send.copy_(self.shard)
+            collectives.all_gather_shards(self.flat, self._send)
+        return loss

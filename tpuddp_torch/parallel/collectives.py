@@ -4,7 +4,12 @@
 Each works on the default process group and is the identity when no group
 is up or the world is one process. Tensors of one dtype travel as one flat
 buffer, so a model's parameters cost one collective per dtype, not one per
-tensor.
+tensor. ZeRO-1 (:class:`tpuddp_torch.optim.ShardedUpdate`) adds the
+reduce-scatter of a flat gradient into each rank's shard
+(``lax.psum_scatter``) and the all-gather of the shards into the flat
+vector (``lax.all_gather(tiled=True)``), through
+``dist.reduce_scatter_tensor`` and ``dist.all_gather_into_tensor``, which
+NCCL and Gloo both run.
 """
 
 from __future__ import annotations
@@ -79,3 +84,20 @@ def process_allgather(t: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous())
     return torch.cat(parts)
+
+
+def reduce_scatter_sum(out: torch.Tensor, flat: torch.Tensor) -> None:
+    """``out`` (``flat.numel() / world`` elements) = this rank's contiguous
+    shard of the SUM of every rank's ``flat``."""
+    if get_world_size() == 1:
+        out.copy_(flat)
+        return
+    dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM)
+
+
+def all_gather_shards(flat: torch.Tensor, shard: torch.Tensor) -> None:
+    """``flat`` = every rank's ``shard`` concatenated in rank order."""
+    if get_world_size() == 1:
+        flat.copy_(shard)
+        return
+    dist.all_gather_into_tensor(flat, shard)

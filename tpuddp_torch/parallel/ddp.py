@@ -53,6 +53,18 @@ chunk is one group of the CUDA-graph engine (``training/graphs.py``):
 eager at its signature's first chunk, captured at the second, replayed
 after; a failed capture raises. On the CPU the chunk's steps run one after
 another, so a chunked epoch is bitwise the per-batch one.
+
+``weight_update_sharding`` (ZeRO-1; ``tpuddp/parallel/ddp.py:472-480``,
+``tpuddp/training/step.py:291-366``): after the broadcast, the optimizer is
+wrapped in :class:`~tpuddp_torch.optim.ShardedUpdate` over the flat layout
+of :func:`~tpuddp_torch.training.step.make_flat_param_spec`: the
+parameters become views into one flat vector, each rank keeps the
+optimizer state of its shard only, and each update reduce-scatters the
+flattened gradient, divides it by the world size, clips the shard (the
+clip's norm summed across replicas), updates it and all-gathers the
+shards. The wrap then makes no gradient all-reduce of its own. It holds for
+``train_step``, ``train_cycle`` and ``train_step_many`` alike; the flat
+buffers exist before the first capture.
 """
 
 from __future__ import annotations
@@ -62,12 +74,18 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from tpuddp_torch.optim import ShardedUpdate
 from tpuddp_torch.parallel import backend, collectives
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
 from tpuddp_torch.training.step import (
-    EVAL_KEYS, TRAIN_KEYS, eval_core, eval_many, train_core, train_cycle, train_many,
+    EVAL_KEYS, TRAIN_KEYS, eval_core, eval_many, make_flat_param_spec, train_core, train_cycle,
+    train_many,
 )
+
+
+def _no_sync() -> None:
+    pass
 
 
 class DistributedDataParallel:
@@ -86,6 +104,7 @@ class DistributedDataParallel:
         grad_accumulation: int = 1,
         generator: Optional[torch.Generator] = None,
         clip_grad_norm: Optional[float] = None,
+        weight_update_sharding: bool = False,
     ):
         self.generator = generator
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
@@ -108,6 +127,17 @@ class DistributedDataParallel:
         self.world_size = backend.get_world_size()
         self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         collectives.broadcast_one_to_all(self.model)
+        self.weight_update_sharding = bool(weight_update_sharding)
+        # what the step cores sync and clip: under ZeRO-1 the wrapped
+        # optimizer's step does both
+        self._sync, self._clip = self.sync_grads, self.clip_grad_norm
+        if self.weight_update_sharding:
+            self.optimizer = ShardedUpdate(
+                optimizer, list(self.model.parameters()),
+                make_flat_param_spec(self.model, self.world_size), self.rank,
+                clip=self.clip_grad_norm,
+            )
+            self._sync, self._clip = _no_sync, None
 
     def _mean(self, flat: torch.Tensor) -> None:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
@@ -142,7 +172,7 @@ class DistributedDataParallel:
         self.step += 1
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
-            self.sync_grads, self.sync_buffers, x, y, w, self.clip_grad_norm,
+            self._sync, self.sync_buffers, x, y, w, self._clip,
         )
 
     def train_cycle(self, batches) -> torch.Tensor:
@@ -154,8 +184,8 @@ class DistributedDataParallel:
             )
         self.step += len(batches)
         return train_cycle(
-            self.model, self.optimizer, self.criterion, self.augment, self.sync_grads,
-            self.sync_buffers, [self.to_device(b) for b in batches], self.clip_grad_norm,
+            self.model, self.optimizer, self.criterion, self.augment, self._sync,
+            self.sync_buffers, [self.to_device(b) for b in batches], self._clip,
         )
 
     def eval_step(self, batch) -> torch.Tensor:
@@ -210,9 +240,9 @@ class DistributedDataParallel:
 
         def body(t):  # [sums, x_0, y_0, w_0, mask_0, x_1, ...]
             return train_many(
-                self.model, self.optimizer, self.criterion, self.augment, self.sync_grads,
+                self.model, self.optimizer, self.criterion, self.augment, self._sync,
                 self.sync_buffers, t[0], [tuple(t[i:i + 3]) for i in range(1, len(t), 4)],
-                t[4::4], self.clip_grad_norm, self.grad_accumulation,
+                t[4::4], self._clip, self.grad_accumulation,
             )
 
         inputs = [sums] + [t for b, m in zip(batches, masks) for t in (*b, m)]

@@ -39,7 +39,9 @@ copies each batch from pinned memory without blocking, ``pipeline.depth``
 batches ahead. ``training.resume``, ``auto_resume`` or
 ``$TPUDDP_AUTO_RESUME`` restore the newest intact ``state_{epoch}.npz`` in
 ``out_dir`` before the first epoch (``train_accelerate.py:894-912``) and the
-run continues at the epoch after it.
+run continues at the epoch after it. ``weight_update_sharding: true``
+shards the optimizer's update and state across the processes (ZeRO-1,
+``accelerate.py``).
 """
 
 from __future__ import annotations
@@ -218,6 +220,7 @@ def build_training(training: dict, device: str = "cuda"):
         gradient_accumulation_steps=accum,
         device=device,
         clip_grad_norm=training.get("clip_grad_norm"),
+        weight_update_sharding=bool(training.get("weight_update_sharding")),
     )
     size = training.get("image_size")
     mean, std = norm_stats_for(training)

@@ -11,7 +11,9 @@ loaders are wrapped in ``PrefetchLoader(workers=pipeline.host_workers)``, as
 continues from the newest intact checkpoint in ``out_dir``. ``scan_steps``
 (``auto`` by default) sets the batches of one dispatch: on a GPU each chunk
 of K steps is one CUDA-graph replay, on the CPU the same steps run one
-after another (``training/loop.py``).
+after another (``training/loop.py``). ``weight_update_sharding: true``
+shards the optimizer's update and state across the processes (ZeRO-1,
+``parallel/ddp.py``).
 """
 
 from __future__ import annotations
@@ -108,6 +110,9 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         eval_transform=eval_transform, device=dev,
         grad_accumulation=int(training.get("gradient_accumulation_steps") or 1),
         generator=generator, clip_grad_norm=training.get("clip_grad_norm"),
+        # reduce-scatter + the update of this rank's shard + all-gather
+        # (ZeRO-1) in place of the all-reduce and the replicated update
+        weight_update_sharding=bool(training.get("weight_update_sharding")),
     )
     return ddp, train_loader, test_loader, base_seed
 

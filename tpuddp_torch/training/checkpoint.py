@@ -29,6 +29,19 @@ nothing with momentum 0 (the JAX ``SGDState(momentum=None)``); LARS keeps
 ``.opt_state.momentum[...]`` always. A file that holds another optimizer's
 state is refused with a ``ValueError`` naming both.
 
+Under ``weight_update_sharding`` (:class:`~tpuddp_torch.optim.ShardedUpdate`)
+the optimizer's state is one flat vector per slot, sharded across the ranks,
+which the JAX package writes as ``.opt_state.m`` (``['opt_state'].m``
+managed) and so on, each the whole ``(total,)`` vector in its flat order,
+tagged ``{"kind": "data_flat"}`` in the topology record when the world is
+over one (``tpuddp/training/checkpoint.py:226-235``). Saving gathers every
+rank's shards (a collective: every rank calls the save), permutes them into
+the JAX order and writes them so. Loading re-pads a vector to the current
+world as ``_refit_flat`` does (a non-zero tail is refused), permutes it into
+the port's order and gives each rank its shard. As in the JAX package, a
+file of per-parameter moments does not load into a ZeRO-1 run, nor a ZeRO-1
+file into a run without it: the missing leaf is a ``KeyError``.
+
 Layouts are converted by :mod:`tpuddp_torch.models.convert` (HWIO/OIHW,
 ``(in, out)``/``(out, in)``, AlexNet's 9216-wide reorder), bitwise. bf16
 leaves (Adam moments under ``optimizer_state_dtype: bfloat16``) are stored as
@@ -38,8 +51,8 @@ agree. The port's own random streams (each rank's generator, the torch CPU
 and CUDA states) go into ``__tpuddp_torch_rng__``, one JSON record that no
 JAX loader reads. Files also carry ``__meta__epoch`` and
 ``__meta__completed`` (``completed=0``: an emergency save, resume redoes that
-epoch) and a ``__topology__`` record with the world size; all of the port's
-leaves are replicated, so it tags none. Files written before the key leaf
+epoch) and a ``__topology__`` record with the world size, which tags the
+ZeRO-1 vectors and nothing else. Files written before the key leaf
 became ``__prngkey__.rng`` hold a raw ``.rng`` instead; the port reads
 neither, so both load.
 
@@ -47,10 +60,10 @@ Rank 0 writes (staged, fsync'd, renamed), then a ``.sha256`` sidecar in the
 JAX package's manifest format; every rank waits at a barrier.
 :func:`restore_latest` takes the newest intact file (a corrupt or truncated
 one is skipped for the one before). A file that needs a part of the JAX
-package the port lacks (a step snapshot's ``__cursor__``, weight-update
-sharded or per-replica leaves, a comm hook's ``comm_state``, the guard's
-``skipped_steps``, a model axis) is refused with ``NotImplementedError``
-naming its ROADMAP item, never loaded in part.
+package the port lacks (a step snapshot's ``__cursor__``, per-replica
+leaves, a comm hook's ``comm_state``, the guard's ``skipped_steps``, a model
+axis) is refused with ``NotImplementedError`` naming its ROADMAP item, never
+loaded in part.
 """
 
 from __future__ import annotations
@@ -68,8 +81,10 @@ import torch.distributed as dist
 
 from tpuddp_torch import optim
 from tpuddp_torch.models.convert import (
-    jax_from_state_dict, model_name, state_dict_from_jax, torch_layout,
+    flat_from_jax, flat_to_jax, jax_from_state_dict, model_name, state_dict_from_jax,
+    torch_layout,
 )
+from tpuddp_torch.parallel import collectives
 from tpuddp_torch.seeding import jax_run_key
 
 logger = logging.getLogger("tpuddp")
@@ -192,9 +207,15 @@ _KINDS = {("m", "v"): "Adam or LAMB (step, m, v)", ("momentum",): "SGD, SGDW or 
           (): "no optimizer state (SGD or SGDW with momentum 0)"}
 
 
+def _inner(optimizer):
+    """The optimizer whose class keys the state: a ZeRO-1 wrap's own."""
+    return optimizer.inner if isinstance(optimizer, optim.ShardedUpdate) else optimizer
+
+
 def _opt_slots(optimizer) -> Tuple[Dict[str, str], bool]:
     """``optimizer``'s entry of :data:`OPT_STATE`; SGD and SGDW at momentum
     0 keep no state."""
+    optimizer = _inner(optimizer)
     try:
         slots, counted = OPT_STATE[type(optimizer)]
     except KeyError:
@@ -208,7 +229,47 @@ def _opt_slots(optimizer) -> Tuple[Dict[str, str], bool]:
 
 
 def _state_dtype(optimizer) -> torch.dtype:
-    return getattr(optimizer, "state_dtype", torch.float32)
+    return getattr(_inner(optimizer), "state_dtype", torch.float32)
+
+
+def gather_flat_state(optimizer) -> Dict[str, Any]:
+    """A ZeRO-1 optimizer's state, every rank's shards gathered (a
+    collective): ``{"step": int, slot: (total,) CPU tensor}``, each slot in
+    the moments' dtype, zeros before the first step."""
+    slots, counted = _opt_slots(optimizer)
+    dtype = _state_dtype(optimizer)
+    shard = optimizer.shard
+    out = {}
+    if counted:
+        state = optimizer.state.get(shard) or {}
+        out["step"] = int(state.get("step", 0))
+    for slot, key in slots.items():
+        local = optimizer.shard_state(key)
+        # bf16 travels as float32 (exact both ways), which every backend gathers
+        local = torch.zeros(shard.shape, device=shard.device) if local is None else local.float()
+        full = torch.empty(optimizer.spec.total, device=shard.device)
+        collectives.all_gather_shards(full, local.contiguous())
+        out[slot] = full.to(dtype).cpu()
+    return out
+
+
+def _flat_opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer,
+                      flat_state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The gathered ZeRO-1 state by its JAX keys, each vector in the JAX
+    flat order, padded to the world's length (numpy; bf16 as bits)."""
+    slots, counted = _opt_slots(optimizer)
+    spec = optimizer.spec
+    opt = _field(layout, "opt_state")
+    payload = {}
+    if counted:
+        payload[f"{opt}.step"] = np.asarray(flat_state["step"], np.int32)
+    mark = _BF16 if _state_dtype(optimizer) == torch.bfloat16 else ""
+    for slot in slots:
+        port = _bits(flat_state[slot])
+        vec = np.zeros(spec.total, port.dtype)
+        vec[:spec.raw] = flat_to_jax(name, model, port[:spec.raw])
+        payload[f"{mark}{opt}.{slot}"] = vec
+    return payload
 
 
 def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer) -> Dict[str, np.ndarray]:
@@ -238,22 +299,32 @@ def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer) -> D
     return payload
 
 
-def state_payload(layout: str, model: torch.nn.Module, optimizer=None) -> Dict[str, np.ndarray]:
-    """The model's (and the optimizer's) arrays by their JAX keys."""
+def state_payload(layout: str, model: torch.nn.Module, optimizer=None,
+                  flat_state: Optional[Dict[str, Any]] = None) -> Dict[str, np.ndarray]:
+    """The model's (and the optimizer's) arrays by their JAX keys; a ZeRO-1
+    optimizer's state comes from ``flat_state`` (:func:`gather_flat_state`)."""
     name = model_name(model)
     params, mstate = jax_from_state_dict(name, model.state_dict())
     payload = dict(_leaves(_field(layout, "params"), params))
     payload.update(_leaves(_field(layout, "model_state"), mstate))
-    if optimizer is not None:
+    if isinstance(optimizer, optim.ShardedUpdate):
+        payload.update(_flat_opt_payload(layout, name, model, optimizer, flat_state))
+    elif optimizer is not None:
         payload.update(_opt_payload(layout, name, model, optimizer))
     return payload
 
 
-def topology_record(world_size: int) -> dict:
-    """The JAX package's topology record for replicated leaves only."""
+def topology_record(world_size: int, flat_keys=()) -> dict:
+    """The JAX package's topology record: replicated leaves carry no tag;
+    the ZeRO-1 vectors ``flat_keys`` are ``data_flat``, sharded over the
+    data axis, when the world is over one (on one device the JAX package's
+    sharding is a replicated one, and it tags nothing)."""
     w = int(world_size)
+    flat_keys = tuple(flat_keys) if w > 1 else ()
     return {"format": FORMAT_VERSION, "world_size": w, "model_size": 1,
-            "mesh_axes": ["data"], "mesh_shape": [w], "leaves": {}, "placement": {}}
+            "mesh_axes": ["data"], "mesh_shape": [w],
+            "leaves": {k: {"kind": "data_flat"} for k in flat_keys},
+            "placement": {k: ["data"] for k in flat_keys}}
 
 
 # -------------------------------------------------------------- random state --
@@ -342,10 +413,15 @@ def save_on_main(
         raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
     device = next(model.parameters()).device
     record = _gather_rng(rng_states(generator, device))
+    flat_state, flat_keys = None, ()
+    if isinstance(optimizer, optim.ShardedUpdate):  # every rank gathers
+        flat_state = gather_flat_state(optimizer)
+        opt = _field(layout, "opt_state")
+        flat_keys = [f"{opt}.{slot}" for slot in _opt_slots(optimizer)[0]]
 
     def write_fn():
         os.makedirs(save_dir, exist_ok=True)
-        payload = state_payload(layout, model, optimizer)
+        payload = state_payload(layout, model, optimizer, flat_state)
         if layout == NATIVE:
             payload[".step"] = np.asarray(step, np.int32)
             payload[f"{_PRNG}.rng"] = jax_run_key(seed or 0)
@@ -356,7 +432,7 @@ def save_on_main(
         path = write(
             checkpoint_path(save_dir, epoch, PREFIX[layout]), payload,
             meta={"epoch": epoch, "completed": int(completed)},
-            topology=topology_record(world_size),
+            topology=topology_record(world_size, flat_keys),
         )
         if keep_last is not None:
             prune_checkpoints(save_dir, keep_last, PREFIX[layout])
@@ -397,15 +473,13 @@ def _refuse_unported(path: str, stored: dict) -> None:
         if key.startswith((".skipped_steps", "['skipped_steps']")):
             refuse("the numerical guard's skip counters (skipped_steps)", "numerical guard")
     kinds = {info.get("kind") for info in (topo.get("leaves") or {}).values()}
-    if "data_flat" in kinds:
-        refuse("weight-update-sharded flat leaves (data_flat)", "weight-update sharding (ZeRO-1)")
     if "per_replica" in kinds:
         refuse("per-replica comm residuals", "comm hooks")
 
 
-def _leaf(path: str, stored: dict, key: str, like: np.ndarray, bf16: bool = False) -> np.ndarray:
-    """The stored array for ``key`` (``__bf16__`` + key when ``bf16``),
-    checked against the template array ``like``."""
+def _stored(path: str, stored: dict, key: str, dtype, bf16: bool = False) -> np.ndarray:
+    """The stored array for ``key`` (``__bf16__`` + key when ``bf16``), of
+    ``dtype`` (uint16 bits when ``bf16``)."""
     want = _BF16 + key if bf16 else key
     if want not in stored:
         other = key if bf16 else _BF16 + key
@@ -418,13 +492,20 @@ def _leaf(path: str, stored: dict, key: str, like: np.ndarray, bf16: bool = Fals
             )
         raise KeyError(f"checkpoint {path} is missing leaf {key!r}")
     arr = stored[want]
+    if arr.dtype != (np.uint16 if bf16 else dtype):
+        raise ValueError(f"checkpoint {path}: leaf {key!r} has dtype {arr.dtype}")
+    return arr
+
+
+def _leaf(path: str, stored: dict, key: str, like: np.ndarray, bf16: bool = False) -> np.ndarray:
+    """The stored array for ``key`` (``__bf16__`` + key when ``bf16``),
+    checked against the template array ``like``."""
+    arr = _stored(path, stored, key, like.dtype, bf16)
     if arr.shape != like.shape:
         raise ValueError(
             f"checkpoint {path}: leaf {key!r} has shape {arr.shape} but the model expects "
             f"{like.shape}"
         )
-    if arr.dtype != (np.uint16 if bf16 else like.dtype):
-        raise ValueError(f"checkpoint {path}: leaf {key!r} has dtype {arr.dtype}")
     return arr
 
 
@@ -452,6 +533,56 @@ def _file_slots(stored: dict, opt: str) -> Tuple[str, ...]:
     return tuple(sorted(found - {"step"}))
 
 
+def _flat_leaf(path: str, stored: dict, key: str, total: int, bf16: bool) -> np.ndarray:
+    """The file's ZeRO-1 vector ``key`` at the current world's length
+    ``total``: as it is, or re-padded when the file tags it ``data_flat``
+    (``tpuddp/training/checkpoint.py:407-425``; only zeros may go)."""
+    arr = _stored(path, stored, key, np.float32, bf16)
+    if arr.shape == (total,):
+        return arr
+    topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
+    tagged = ((topo.get("leaves") or {}).get(key) or {}).get("kind") == "data_flat"
+    if arr.ndim != 1 or not tagged:
+        raise ValueError(
+            f"checkpoint {path}: leaf {key!r} has shape {arr.shape} but the model expects "
+            f"{(total,)}"
+        )
+    if len(arr) > total and np.any(arr[total:]):
+        raise ValueError(
+            f"checkpoint {path}: flat leaf {key!r} has {len(arr)} elements but the current "
+            f"topology expects {total}, and the tail past {total} is non-zero — this is not "
+            "world-multiple padding (was the model changed, not just the world size?)"
+        )
+    out = np.zeros(total, arr.dtype)
+    out[:min(len(arr), total)] = arr[:total]
+    return out
+
+
+def _restore_flat_opt(path, stored, layout, name, model, optimizer) -> None:
+    """Put the file's ZeRO-1 state into ``optimizer``: each vector re-padded,
+    permuted into the port's order, and this rank's shard kept."""
+    slots, counted = _opt_slots(optimizer)
+    opt = _field(layout, "opt_state")
+    spec, shard = optimizer.spec, optimizer.shard
+    bf16 = _state_dtype(optimizer) == torch.bfloat16
+    state = {}
+    for slot, key in slots.items():
+        vec = _flat_leaf(path, stored, f"{opt}.{slot}", spec.total, bf16)
+        if np.any(vec[spec.raw:]):
+            raise ValueError(f"checkpoint {path}: flat leaf '{opt}.{slot}' has a non-zero padding")
+        port = np.zeros_like(vec)
+        port[:spec.raw] = flat_from_jax(name, model, vec[:spec.raw])
+        t = torch.from_numpy(port[optimizer.lo:optimizer.hi].copy())
+        if bf16:
+            t = t.view(torch.int16).view(torch.bfloat16)
+        state[key] = t.to(shard.device)
+    if counted:
+        state["step"] = int(_leaf(path, stored, f"{opt}.step", np.zeros((), np.int32)))
+    optimizer.state.clear()
+    if state:
+        optimizer.state[shard] = state
+
+
 def _restore_opt(path, stored, layout, name, model, optimizer, params_like) -> None:
     """Put the file's optimizer state into ``optimizer``."""
     slots, counted = _opt_slots(optimizer)
@@ -461,9 +592,12 @@ def _restore_opt(path, stored, layout, name, model, optimizer, params_like) -> N
         raise ValueError(
             f"checkpoint {path} holds the optimizer state of "
             f"{_KINDS.get(held, 'an unknown optimizer ' + repr(held))}, but the optimizer is "
-            f"{type(optimizer).__name__} ({_KINDS[tuple(sorted(slots))]}); check "
+            f"{type(_inner(optimizer)).__name__} ({_KINDS[tuple(sorted(slots))]}); check "
             "training.optimizer (and momentum) match the saved run"
         )
+    if isinstance(optimizer, optim.ShardedUpdate):
+        _restore_flat_opt(path, stored, layout, name, model, optimizer)
+        return
     dtype = _state_dtype(optimizer)
     bf16 = dtype == torch.bfloat16
     step = int(_leaf(path, stored, f"{opt}.step", np.zeros((), np.int32))) if counted else None

@@ -38,7 +38,9 @@ events recorded between dispatches, read once after the pass, so the loop
 adds no synchronisation per update; a dispatch of K updates (a replay)
 gives each of them its time over K. Also the time the pass waited for host
 batches (``host_stall_s``) and the resolved ``scan_steps`` of both passes.
-Process 0 appends every row to ``save_dir/history.jsonl``.
+Process 0 appends every row to ``save_dir/history.jsonl``; it also says
+whether the update was sharded (``weight_update_sharding``, ZeRO-1: each
+checkpoint then gathers the moment shards from every rank).
 
 Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
 ``$TPUDDP_AUTO_RESUME``) the newest intact ``ckpt_{epoch}.npz`` in
@@ -319,6 +321,7 @@ def run_training_loop(
             "host_stall_s": train_pass.stall.total,
             "pipeline": pipeline.as_dict(),
             "grad_accumulation": accum,
+            "weight_update_sharding": bool(getattr(ddp, "weight_update_sharding", False)),
             "scan_steps": train_k,
             "eval_scan_steps": eval_k,
             "world_size": world_size,

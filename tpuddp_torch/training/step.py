@@ -26,12 +26,22 @@ steps (or K / A cycles) and K eval batches as one group, their sums added
 to a running sum in step order. They read nothing on the host, so a group
 runs as one CUDA graph too (``training/graphs.py``); each step's flip mask
 is an input, drawn before the group.
+
+Under ``weight_update_sharding`` (ZeRO-1) the optimizer is a
+:class:`tpuddp_torch.optim.ShardedUpdate` over the flat layout of
+:func:`make_flat_param_spec` (``tpuddp/training/step.py:50-97``), and its
+``step()`` is the whole update half of ``tpuddp/training/step.py:291-366``:
+flatten the gradients, reduce-scatter, divide by the world size, clip,
+update the shard, all-gather. The DDP wrap then passes no gradient sync and
+no clip to these cores; everything else is unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -40,6 +50,73 @@ from tpuddp_torch.optim import clip_grad_norm_
 
 TRAIN_KEYS = ("loss_sum", "n")
 EVAL_KEYS = ("loss_sum", "correct", "n")
+
+
+class FlatParamSpec(NamedTuple):
+    """The flat layout of weight-update sharding (the JAX package's
+    ``FlatParamSpec``): the model's parameters in ``model.parameters()``
+    order, each raveled as PyTorch stores it, as ONE float32 vector
+    zero-padded from ``raw`` to ``total = world * ceil(raw / world)``
+    elements, as the JAX spec pads, so each of ``world`` replicas owns an
+    equal contiguous shard. The JAX package orders the same vector by its
+    tree's leaves, each in its own layout;
+    :func:`tpuddp_torch.models.convert.flat_to_jax` and ``flat_from_jax``
+    permute between the two (exactly), which checkpoints pay. The port's
+    order lets the parameters be views into the vector, so a step needs no
+    permute."""
+
+    shapes: Tuple[Tuple[int, ...], ...]
+    sizes: Tuple[int, ...]
+    raw: int
+    total: int
+    world: int
+
+    @property
+    def shard_n(self) -> int:
+        return self.total // self.world
+
+    @property
+    def ends(self) -> Tuple[int, ...]:
+        """Where each parameter's elements end in the vector."""
+        return tuple(int(e) for e in np.cumsum(self.sizes))
+
+    def check(self, params: Sequence[torch.Tensor]) -> None:
+        shapes = tuple(tuple(p.shape) for p in params)
+        if shapes != self.shapes:
+            raise ValueError(f"parameters of shapes {shapes} for a flat spec of {self.shapes}")
+
+    def flatten(self, tensors: Sequence[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
+        """``tensors`` (one per parameter) raveled into ``out``'s first
+        ``raw`` elements, in one copy (``_tree_to_vec``); the padding is
+        left as it is."""
+        torch.cat([t.reshape(-1) for t in tensors], out=out[:self.raw])
+        return out
+
+    def views(self, vec: torch.Tensor):
+        """Each parameter's shaped view into ``vec`` (``_vec_to_tree``)."""
+        out, offset = [], 0
+        for shape, size in zip(self.shapes, self.sizes):
+            out.append(vec[offset:offset + size].view(shape))
+            offset += size
+        return out
+
+
+def make_flat_param_spec(model: torch.nn.Module, world: int) -> FlatParamSpec:
+    """The flat layout of ``model``'s parameters over ``world`` replicas;
+    a parameter that is not float32 is the JAX package's ``ValueError``."""
+    shapes, sizes = [], []
+    for i, p in enumerate(model.parameters()):
+        if p.dtype != torch.float32:
+            raise ValueError(
+                "weight_update_sharding flattens parameters into one f32 vector; leaf "
+                f"{i} has dtype {p.dtype} (tpuddp keeps f32 master params — mixed compute "
+                "dtypes live in activations, not parameters)"
+            )
+        shapes.append(tuple(p.shape))
+        sizes.append(p.numel())
+    raw = sum(sizes)
+    total = world * math.ceil(raw / world)
+    return FlatParamSpec(tuple(shapes), tuple(sizes), raw, total, int(world))
 
 
 def grad_core(
