@@ -172,12 +172,42 @@ Phases, each printing one line (the first failure exits non-zero):
      each, the first s2d turn the fast-file run above): epoch-3 step
      medians.
 
+12. the gradient comm hooks (``training.comm_hook``: ``bf16``, ``bf16_ef``,
+   ``int8_ef``, ``topk_ef``; plain PyTorch ops, the JAX package's are plain
+   ``jnp`` code) at world 1, where the collective is the identity but the
+   compression and the error-feedback residual run:
+   - "12 hooks vs plain": one AlexNet float32 gradient and a non-zero
+     residual from a seed through each hook's native exchange (five
+     JAX-order buckets) and managed round trip (each parameter a bucket)
+     on the card against the same port functions on the CPU: bf16 and
+     int8 bitwise, topk kept vectors equal but where a bucket's top-k
+     threshold ties; an all-zero bucket and a bucket with a NaN; each
+     round trip (``comm_sync``) timed call by call (the median of 40, in
+     turns with the plain sync's flatten and copy back);
+   - "12 native hooks": 3 epochs of ``cifar10_alexnet_h100.yaml`` at
+     ``scan_steps: auto`` per hook: one Adam launch per update, epoch 1
+     within ``loss_parity_tol`` of 2.9944 / 2.3076 (int8_ef's train loss
+     within the bound it gives topk_ef: see ``PARITY_AS``), the replayed
+     step;
+   - "12 graph vs eager": 3 AlexNet chunks of 8 with bf16_ef and topk_ef,
+     replayed and eager from one state: bitwise, the residual included;
+   - "12 managed hooks": 3 managed
+     AlexNet flushes of 8 with int8_ef, replay against the eager queue:
+     bitwise, the residual included;
+   - "12 ZeRO-1 hooks": the fast file with bf16_ef for 3 epochs, and 3
+     AlexNet float32 steps with bf16_ef, ZeRO-1 against the replicated
+     step from one state: bitwise, residuals included;
+   - "12 resume": ``digits_h100.yaml`` with int8_ef on both paths, epoch 1
+     resumed against the straight run: every array equal.
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
 
 Then one JSON line with the fused steps' numbers, one with phase 10's, one
-with phase 11's, one with the optimizers', one with every kernel's, the script's seconds, the
+with phase 11's, one with phase 12's (with each hook's gradient bytes per
+update on AlexNet at world 1 and, counted, at world 8), one with the
+optimizers', one with every kernel's, the script's seconds, the
 card's name and power limit again, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -209,11 +239,12 @@ from tpuddp_torch.accelerate import Accelerator, FusedEvaluator, PreparedOptimiz
 from tpuddp_torch.data import _native, load_datasets_for, norm_stats_for  # noqa: E402
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment  # noqa: E402
 from tpuddp_torch.models import AlexNet, load_model  # noqa: E402
-from tpuddp_torch.models.convert import jax_leaf_index  # noqa: E402
+from tpuddp_torch.models.convert import JaxFlatOrder, flat_to_jax, jax_leaf_index, jax_sizes  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
 from tpuddp_torch.optim import Adam  # noqa: E402
+from tpuddp_torch.parallel import collectives, comm  # noqa: E402
 from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
@@ -223,6 +254,7 @@ from tpuddp_torch.train_native import basic_ddp_training_loop, build_training, s
 from tpuddp_torch.training import checkpoint as ckpt  # noqa: E402
 from tpuddp_torch.training import graphs  # noqa: E402
 from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
+from tpuddp_torch.training.step import comm_sync  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = os.path.join(ROOT, "tpuddp_torch", "configs")
@@ -1010,15 +1042,18 @@ def _fused_settings(path: str = None, **overrides):
 
 
 def _pair_state(model, opt):
-    """Parameters, buffers and optimizer state, cloned off the card."""
+    """Parameters, buffers, optimizer state and the comm hook's residual,
+    cloned."""
     state = {f"model/{k}": v.detach().clone() for k, v in model._module.state_dict().items()}
     for i, st in enumerate(opt.optimizer.state.values()):
         state.update({f"opt{i}/{k}": t.clone() for k, t in st.items() if torch.is_tensor(t)})
+    for i, r in enumerate(opt.comm_residual() or ()):  # the comm hook's, with the state
+        state[f"opt/residual{i}"] = r.clone()
     return state
 
 
 def graph_vs_eager(label: str, make, steps, depth: int, opt_name: str = "adam", flushes: int = 3,
-                   signatures: int = 1):
+                   signatures: int = 1, tag: str = "9 graph vs eager"):
     """Phase 9: from one state, the steps of `steps` (``(x, y, w,
     criterion)`` each; ``flushes`` flushes of `depth`, over `signatures`
     flush signatures taking turns) through graph replay and through the
@@ -1080,7 +1115,7 @@ def graph_vs_eager(label: str, make, steps, depth: int, opt_name: str = "adam", 
               f"captures={g_r['captures']} replays={g_r['replays']} capture_s={g_r['capture_s']:.3f}")
     if failed:
         raise SystemExit(f"chip_smoke: graph replay vs eager queue, {label}, failed {failed}: {detail}")
-    phase("9 graph vs eager", f"{label}, depth {depth}, {flushes} flushes ({n_steps} steps) from one "
+    phase(tag, f"{label}, depth {depth}, {flushes} flushes ({n_steps} steps) from one "
           f"state: {detail}; losses (replay) first {l_r[0]:.6f} last {l_r[-1]:.6f}")
     return dict(label=label, depth=depth, steps=n_steps, max_abs_dp=dp, max_abs_d_opt_state=dopt,
                 max_abs_d_loss=dl, bitwise=bitwise, launches_replay=n_r, launches_eager=n_e,
@@ -1359,13 +1394,14 @@ def _kinds(g: dict) -> dict:
 
 
 def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam", accum: int = 1,
-                      chunks: int = 3, zero1: bool = False, tag: str = "10 native graph vs eager"):
+                      chunks: int = 3, zero1: bool = False, tag: str = "10 native graph vs eager",
+                      comm_hook: str = "none"):
     """Phase 10: `chunks` chunks of `k` batches through
     ``DistributedDataParallel.train_step_many`` from one state, as graph
     replays and eagerly (``_graph_replay = False``): max |dp| over
-    parameters, buffers and optimizer state, the sums, each kernel's
-    launches as the kernel counted them, the graph counts and the seconds
-    of each run."""
+    parameters, buffers and optimizer state (the comm hook's residual
+    with it), the sums, each kernel's launches as the kernel counted them,
+    the graph counts and the seconds of each run."""
     out = {}
     for mode in ("eager", "replay"):
         model, augment, gen, name = make()
@@ -1379,7 +1415,7 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
             opt = Adam(model.parameters(), lr=1e-3)
         ddp = DistributedDataParallel(model, opt, CrossEntropyLoss(), augment=augment, device="cuda",
                                       grad_accumulation=accum, generator=gen,
-                                      weight_update_sharding=zero1)
+                                      weight_update_sharding=zero1, comm_hook=comm_hook)
         ddp._graph_replay = mode == "replay"
         torch.cuda.manual_seed(7)  # dropout: the same stream in both runs
         reset_counts()
@@ -1394,6 +1430,8 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
         state = {f"model/{n}": t.detach().clone() for n, t in model.state_dict().items()}
         for i, st in enumerate(opt.state.values()):
             state.update({f"opt{i}/{n}": t.clone() for n, t in st.items() if torch.is_tensor(t)})
+        if ddp.residual is not None:
+            state["opt/residual"] = ddp.residual.clone()
         rows = set().union(*(kn.table_rows for kn in fused_adam.kernels.values()))
         out[mode] = (state, sums.clone(), {kn.symbol: kn.launches for kn in fused_adam.kernels.values()},
                      dict(graphs.stats), ddp.step, seconds, rows)
@@ -1829,11 +1867,13 @@ def flat_time(wrapper, alexnet_shapes, bw, flops):
     return out
 
 
-def zero1_vs_replicated():
+def zero1_vs_replicated(comm_hook: str = "none", tag: str = "11 ZeRO-1 vs replicated"):
     """Phase 11: 3 AlexNet@224 b128 float32 steps without the clip from one
     state, native and managed, with and without ZeRO-1: bitwise expected
     (Adam is elementwise, the bias corrections the same), failing beyond
-    1e-6; the ZeRO-1 launches each a table of one row."""
+    1e-6; the ZeRO-1 launches each a table of one row. Phase 12: the native
+    pair with `comm_hook` (its cast is elementwise too), the residuals
+    (permuted into one order) held alike."""
     torch.manual_seed(0)
     init = {key: val.clone() for key, val in AlexNet(num_classes=10).state_dict().items()}
     gen = torch.Generator().manual_seed(1)
@@ -1847,13 +1887,19 @@ def zero1_vs_replicated():
         model.load_state_dict(init)
         return model.cuda()
 
+    residuals = []
+
     def native(zero1):
         model = fresh()
         ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
-                                      augment=augment, device="cuda", weight_update_sharding=zero1)
+                                      augment=augment, device="cuda", weight_update_sharding=zero1,
+                                      comm_hook=comm_hook)
         torch.cuda.manual_seed(7)
         for batch in batches:
             ddp.train_step(batch)
+        if ddp.residual is not None:  # in the JAX flat order
+            r = ddp.residual.cpu().numpy()
+            residuals.append(flat_to_jax("alexnet", model, r) if zero1 else r)
         return model
 
     def managed(zero1):
@@ -1868,7 +1914,8 @@ def zero1_vs_replicated():
         return model.module
 
     out = {"max_abs_dp": {}, "launches": {}}
-    for path, run in (("native", native), ("managed", managed)):
+    runs = (("native", native),) if comm_hook != "none" else (("native", native), ("managed", managed))
+    for path, run in runs:
         diffs, rows = [], None
         for zero1 in (False, True):
             reset_counts()
@@ -1881,13 +1928,17 @@ def zero1_vs_replicated():
                 rows = (launches, table_rows)
             del model
         dp = max(float((a - b).abs().max()) for a, b in zip(diffs[0].values(), diffs[1].values()))
-        if not (dp <= 1e-6 and rows == (3, {1: 3})):
-            raise SystemExit(f"chip_smoke: {path} ZeRO-1 vs replicated: max|dp|={dp:.3g} (tolerance 1e-6), "
-                             f"ZeRO-1 launches and tables by rows {rows} (expected 3, {{1: 3}})")
+        dr = float(np.abs(residuals[0] - residuals[1]).max()) if residuals else 0.0
+        if not (dp <= 1e-6 and dr <= 1e-6 and rows == (3, {1: 3})):
+            raise SystemExit(f"chip_smoke: {path} ZeRO-1 vs replicated ({comm_hook}): max|dp|={dp:.3g} "
+                             f"max|d residual|={dr:.3g} (tolerance 1e-6), ZeRO-1 launches and tables by "
+                             f"rows {rows} (expected 3, {{1: 3}})")
         out["max_abs_dp"][path] = dp
-        phase("11 ZeRO-1 vs replicated", f"{path}: 3 AlexNet@224 b128 float32 steps from one state, "
+        out["max_abs_d_residual"] = dr
+        hooked = f", comm_hook {comm_hook} (max|d residual|={dr:.3g})" if residuals else ""
+        phase(tag, f"{path}: 3 AlexNet@224 b128 float32 steps from one state{hooked}, "
               f"ZeRO-1 at world 1 against the replicated step: max|dp|={dp:.3g} "
-              f"({'bitwise' if dp == 0 else 'NOT bitwise'}); ZeRO-1 launches {rows[0]}, tables by rows {rows[1]}")
+              f"({'bitwise' if dp == dr == 0 else 'NOT bitwise'}); ZeRO-1 launches {rows[0]}, tables by rows {rows[1]}")
         del diffs
         torch.cuda.empty_cache()
     return out
@@ -1931,6 +1982,319 @@ def stem_turns(first_s2d):
 
 
 T0 = time.perf_counter()
+
+
+# ---------------------------------------------------------------- phase 12 --
+
+HOOKS = ("bf16", "bf16_ef", "int8_ef", "topk_ef")
+HOOK_TURNS = ("none",) + HOOKS + HOOKS[::-1] + ("none",)
+HOOK_ITERS = 20
+
+
+def _alexnet_gradient(seed: int = 0):
+    """One AlexNet float32 gradient and a non-zero residual from a seed, on
+    the CPU: each parameter's gradient (port layout) normal at a scale of
+    its own (10^-3 to 1), the residual 1e-3 of it."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in AlexNet(num_classes=10).parameters()]
+    grads = []
+    for shape in shapes:
+        scale = 10.0 ** (-3 * float(torch.rand((), generator=gen)))
+        grads.append(torch.randn(shape, generator=gen) * scale)
+    residual = [torch.randn(shape, generator=gen) * 1e-3 for shape in shapes]
+    return grads, residual
+
+
+def _hook_agree(hook, send, card, cpu, buckets, density):
+    """``(agree, ties)``: the card's and the CPU's outputs of one hook are
+    equal, NaN where NaN; for topk_ef, but at elements whose magnitude is
+    their bucket's top-k threshold, where the two topk implementations may
+    keep different ones of equal magnitude (``ties`` counts them)."""
+    card = card.cpu()
+    nans = torch.equal(card.isnan(), cpu.isnan())
+    differ = card.nan_to_num(0.0) != cpu.nan_to_num(0.0)
+    if not differ.any():
+        return nans, 0
+    if hook != "topk_ef":
+        return False, 0
+    mag, ties = send.abs(), 0
+    for s, e in buckets:
+        d = differ[s:e]
+        if d.any():
+            k = comm.bucket_topk(e - s, density)
+            threshold = mag[s:e].kthvalue(e - s - k + 1).values
+            if not bool((mag[s:e][d] == threshold).all()):
+                return False, 0
+            ties += int(d.sum())
+    return nans, ties
+
+
+def hooks_vs_plain():
+    """Phase 12: each hook's native exchange (``GradComm.reduce`` over the
+    JAX-ordered AlexNet vector, its five buckets) and managed round trip
+    (``local_quantize``, each of the 16 parameters its own bucket) on the
+    card against the same port functions on the CPU, from one gradient
+    and a non-zero residual; an all-zero bucket and a bucket holding a
+    NaN; then each hook's round trip on the card (``comm_sync``: flatten,
+    into the JAX order, exchange, back) timed in turns with the plain
+    sync's flatten and copy back."""
+    grads, res_tree = _alexnet_gradient()
+    with torch.device("meta"):
+        meta = AlexNet(num_classes=10)
+    order = JaxFlatOrder("alexnet", meta, device="cpu")
+    g_vec = order.to_jax(torch.cat([g.reshape(-1) for g in grads]))
+    r_vec = order.to_jax(torch.cat([r.reshape(-1) for r in res_tree]))
+    sizes = jax_sizes("alexnet", meta)
+    buckets = comm.make_grad_comm(sizes, 1, "bf16").buckets
+    zero = buckets[2]  # classifier.4's bias
+    poisoned = {"plain": g_vec, "zero bucket": g_vec.clone(), "nan bucket": g_vec.clone()}
+    poisoned["zero bucket"][zero[0]:zero[1]] = 0
+    poisoned["nan bucket"][buckets[-1][0] + 3] = float("nan")
+    out = {}
+    for hook in HOOKS:
+        plan = comm.make_grad_comm(sizes, 1, hook)
+        row = {"native_ties": 0}
+        for case, g in poisoned.items():
+            res = {d: r_vec.to(d, copy=True) if plan.needs_residual else None for d in ("cpu", "cuda")}
+            cpu_out, _ = plan.reduce(g, res["cpu"])
+            card_out, _ = plan.reduce(g.cuda(), res["cuda"])
+            torch.cuda.synchronize()
+            send = g if res["cpu"] is None else g + r_vec
+            pairs = [(card_out, cpu_out)] + ([(res["cuda"], res["cpu"])] if plan.needs_residual else [])
+            for card, cpu in pairs:
+                ok, ties = _hook_agree(hook, send, card, cpu, plan.buckets, plan.density)
+                if not ok:
+                    raise SystemExit(f"chip_smoke: hook {hook} ({case}) on the card disagrees with the CPU")
+                row["native_ties"] += ties
+            if case == "zero bucket" and hook == "bf16" and cpu_out[zero[0]:zero[1]].any():
+                raise SystemExit("chip_smoke: bf16's all-zero bucket sent non-zeros")
+            if case == "nan bucket":
+                s, e = plan.buckets[-1]
+                nans = int(cpu_out[s:e].isnan().sum())
+                want = {"bf16": 1, "bf16_ef": 1, "int8_ef": e - s,
+                        "topk_ef": comm.bucket_topk(e - s, plan.density)}[hook]
+                if nans != want:
+                    raise SystemExit(f"chip_smoke: hook {hook}: {nans} NaN in the poisoned bucket, want {want}")
+                row["nan_bucket_nans"] = nans
+        residual = [r.clone() for r in res_tree] if hook in comm.EF_HOOKS else None
+        cpu_q, cpu_r = comm.local_quantize(grads, residual, hook)
+        card_q, card_r = comm.local_quantize([g.cuda() for g in grads],
+                                             None if residual is None else [r.cuda() for r in residual], hook)
+        row["managed_ties"] = 0
+        sends = grads if residual is None else [g + r for g, r in zip(grads, res_tree)]
+        for card, cpu, send in zip(card_q + (card_r or []), cpu_q + (cpu_r or []), sends + sends):
+            ok, ties = _hook_agree(hook, send.reshape(-1), card.reshape(-1), cpu.reshape(-1),
+                                   ((0, send.numel()),), plan.density)
+            if not ok:
+                raise SystemExit(f"chip_smoke: managed hook {hook} on the card disagrees with the CPU")
+            row["managed_ties"] += ties
+        out[hook] = row
+        del cpu_out, card_out, cpu_q, cpu_r, card_q, card_r
+    # the round trips, in turns
+    model = AlexNet(num_classes=10).cuda()
+    params = list(model.parameters())
+    card_order = JaxFlatOrder("alexnet", model)
+    card_grads = [g.cuda() for g in grads]
+    times = {h: [] for h in ("none",) + HOOKS}
+    for hook in HOOK_TURNS:
+        plan = comm.make_grad_comm(sizes, 1, hook)
+        residual = None if plan is None else plan.init_residual("cuda")
+
+        def once():
+            for p, g in zip(params, card_grads):
+                p.grad = g
+            if plan is None:  # the plain sync's flatten and copy back, its collective excepted
+                collectives.flat_collective([p.grad for p in params], lambda flat: None)
+            else:
+                comm_sync(params, plan, card_order, residual)
+
+        for _ in range(3):  # warm-up
+            once()
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(HOOK_ITERS)]
+        for start, stop in events:
+            start.record()
+            once()
+            stop.record()
+        torch.cuda.synchronize()
+        times[hook] += [start.elapsed_time(stop) for start, stop in events]
+    for hook in ("none",) + HOOKS:
+        out.setdefault(hook, {})["round_trip_ms"] = statistics.median(times[hook])
+        out[hook]["round_trip_ms_quartiles"] = statistics.quantiles(times[hook], n=4)
+    del model, params, card_grads
+    torch.cuda.empty_cache()
+    phase("12 hooks vs plain", "AlexNet's gradient (57,044,810 elements, five JAX-order buckets) and a "
+          "non-zero residual: every hook's native exchange and managed round trip on the card equal to "
+          "the CPU's (bf16 and int8 bitwise, topk kept vectors equal but at threshold ties: "
+          + ", ".join(f"{h} {out[h]['native_ties']}/{out[h]['managed_ties']}" for h in HOOKS)
+          + "); the all-zero bucket and the NaN bucket as the JAX package gives them; round trip "
+          + ", ".join(f"{h} {out[h]['round_trip_ms']:.3f} ms" for h in ("none",) + HOOKS)
+          + f" (comm_sync on the card, the median of {2 * HOOK_ITERS} calls timed each, in 2 turns; none: "
+          "the plain sync's flatten and copy back)")
+    return out
+
+
+def _epoch_1_tol(hook: str, key: str, base: float) -> float:
+    """The bound of a hook's epoch-1 loss around the float32 run's:
+    ``loss_parity_tol``; int8_ef's train loss takes the bound it gives
+    topk_ef's warm-up lag (see PARITY_AS)."""
+    return comm.loss_parity_tol(PARITY_AS.get((hook, key), hook), base)
+
+
+# One max-abs scale over AlexNet's 37.7M-element bucket rounds every element
+# under 1/254 of the bucket's largest to code 0, so int8_ef's first updates
+# send a sparse gradient and the rest waits in the residual: the warm-up lag
+# that loss_parity_tol allows topk_ef. The JAX package's own int8_ef run of
+# this cell leaves its float32 run's epoch-1 train loss by 0.158-0.159 (two
+# runs), three times the dense bound 0.055 (tools/jax_hook_epochs.py, the
+# JAX package on the H100).
+PARITY_AS = {("int8_ef", "train_loss"): "topk_ef"}
+
+
+def native_hooks():
+    """Phase 12: 3 epochs of cifar10_alexnet_h100.yaml at ``scan_steps:
+    auto`` with each hook: one Adam launch per update, the losses finite,
+    epoch 1's within ``loss_parity_tol`` of the float32 run's 2.9944 /
+    2.3076 (int8_ef's train loss within the warm-up-lag bound), the
+    replayed step median."""
+    out = {}
+    for hook in HOOKS:
+        history, wall_s, launches = native_run(SETTINGS, {"num_epochs": 3, "comm_hook": hook})
+        steps = check_epochs(f"comm_hook {hook}", history, launches, fused_adam.kernel, False)
+        first = history[0]
+        gaps = [abs(first[k] - base) - _epoch_1_tol(hook, k, base)
+                for k, base in zip(("train_loss", "test_loss"), F32_LOSSES)]
+        if max(gaps) > 0 or first["comm_hook"] != hook:
+            raise SystemExit(f"chip_smoke: native {hook} epoch 1 off the float32 losses: {first}")
+        steady = statistics.median(history[-1]["step_ms"])
+        out[hook] = dict(launches=launches[fused_adam.kernel.symbol], steps=steps,
+                         epochs=[(r["train_loss"], r["test_loss"]) for r in history],
+                         step_ms_median=steady,
+                         grad_comm_bytes_per_update=first["grad_comm_bytes_per_update"],
+                         grad_comm_bytes_per_update_f32=first["grad_comm_bytes_per_update_f32"])
+        phase("12 native hooks", f"cifar10_alexnet_h100.yaml comm_hook {hook}, 3 epochs: {steps} steps, "
+              f"fused_adam launches={out[hook]['launches']}; epoch 1 train_loss={first['train_loss']:.4f} "
+              f"test_loss={first['test_loss']:.4f} (float32 run 2.9944 / 2.3076, within "
+              + " / ".join(f"{_epoch_1_tol(hook, k, b):.4f}"
+                           for k, b in zip(("train_loss", "test_loss"), F32_LOSSES))
+              + f"); epoch 3 {history[-1]['train_loss']:.4f} / {history[-1]['test_loss']:.4f}; "
+              f"step_ms epoch 3 (replayed) {steady:.2f}; wall {wall_s:.2f} s")
+    return out
+
+
+def hooked_chunk_pairs():
+    """Phase 12: 3 AlexNet chunks of 8 with bf16_ef and with topk_ef through
+    replay and eagerly from one state: parameters, moments and the
+    residual bitwise."""
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32))
+               for _ in range(24)]
+
+    def alex():
+        torch.manual_seed(0)
+        g = torch.Generator().manual_seed(1)
+        return AlexNet(num_classes=10), make_train_augment(size=224, flip=True, generator=g), g, "alexnet"
+
+    return [native_chunk_pair(f"AlexNet@224 b128 flip dropout adam, comm_hook {hook}", alex, batches, 8,
+                              comm_hook=hook, tag="12 graph vs eager") for hook in ("bf16_ef", "topk_ef")]
+
+
+def managed_hooks():
+    """Phase 12: managed AlexNet@224 b128 with int8_ef, 3 flushes of 8
+    from one state through the fused graph replay and the eager queue:
+    bitwise, the residual included."""
+    mean = CrossEntropyLoss()
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32), mean)
+               for _ in range(24)]
+
+    def alex():
+        acc = Accelerator(seed=0, fuse_steps=8, device="cuda", comm_hook="int8_ef")
+        acc.augment = make_train_augment(size=224, flip=True, generator=acc.generator)
+        torch.manual_seed(0)
+        return acc, AlexNet(num_classes=10), "alexnet"
+
+    pair = graph_vs_eager("managed AlexNet@224 b128 flip dropout adam, comm_hook int8_ef", alex, batches, 8,
+                          tag="12 managed hooks")
+    if not pair["bitwise"]:
+        raise SystemExit(f"chip_smoke: managed int8_ef replay is not bitwise its eager queue: {pair}")
+    return pair
+
+
+def zero1_hooks():
+    """Phase 12: the fast file (alexnet_s2d, bf16 compute and moments,
+    ZeRO-1) with bf16_ef for 3 epochs; and at world 1 the ZeRO-1 step with
+    bf16_ef bitwise the replicated one (float32 moments: bf16 ones round
+    with noise keyed by the layout, which the two paths number apart)."""
+    bf16 = fused_adam.kernels[torch.bfloat16]
+    history, wall_s, launches = native_run(SETTINGS_FAST, {"num_epochs": 3, "comm_hook": "bf16_ef"})
+    steps = check_epochs("the fast file with bf16_ef", history, launches, bf16, False)
+    if set(bf16.table_rows) != {1}:
+        raise SystemExit(f"chip_smoke: the fast file with bf16_ef built tables of rows {bf16.table_rows}")
+    last = history[-1]
+    phase("12 ZeRO-1 hooks", f"cifar10_alexnet_fast_h100.yaml with comm_hook bf16_ef, 3 epochs: {steps} "
+          f"steps, {bf16.symbol} launches={launches[bf16.symbol]}; "
+          + ", ".join(f"epoch {r['epoch'] + 1} {r['train_loss']:.4f}/{r['test_loss']:.4f}" for r in history)
+          + f"; step_ms epoch 3 (replayed) {statistics.median(last['step_ms']):.2f}; wall {wall_s:.2f} s")
+    pair = zero1_vs_replicated("bf16_ef", tag="12 ZeRO-1 hooks")
+    return dict(launches=launches[bf16.symbol], step_ms_median=statistics.median(last["step_ms"]),
+                epochs=[(r["train_loss"], r["test_loss"]) for r in history], vs_replicated=pair)
+
+
+def hooked_resume(kind: str, root: str):
+    """Phase 12: digits_h100.yaml with int8_ef for 2 epochs straight against
+    epoch 0 and a resumed epoch 1: every array of the last file equal, the
+    residual included."""
+    worker = basic_ddp_training_loop if kind == "native" else basic_accelerate_training
+    prefix = ckpt.PREFIX[ckpt.NATIVE if kind == "native" else ckpt.MANAGED]
+    straight, resumed = os.path.join(root, kind, "straight"), os.path.join(root, kind, "resumed")
+
+    def run(save_dir, **more):
+        settings, training = _fused_settings(SETTINGS_DIGITS, comm_hook="int8_ef", checkpoint_epoch=1,
+                                             **more)
+        os.makedirs(save_dir, exist_ok=True)
+        reset_counts()
+        history = run_ddp_training(partial(worker, training=training, device="cuda"), 1, save_dir,
+                                   cfg_lib.optional_args_from(settings), backend="cuda")
+        torch.cuda.synchronize()
+        return history, fused_adam.kernel.launches
+
+    whole, _ = run(straight, num_epochs=2)
+    run(resumed, num_epochs=1)
+    again, launches = run(resumed, num_epochs=2, resume=True)
+    a, b = _arrays(os.path.join(straight, f"{prefix}_1.npz")), _arrays(os.path.join(resumed, f"{prefix}_1.npz"))
+    residual = [k for k in a if "comm_state" in k]
+    checks = {
+        "epoch 1 resumed alone": [r["epoch"] for r in again] == [1],
+        "epoch 1's losses equal": (again[0]["train_loss"], again[0]["test_loss"]) == (
+            whole[1]["train_loss"], whole[1]["test_loss"]),
+        "every array equal, the residual included": bool(residual) and sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a),
+        "a non-zero residual": any(np.any(a[k] != 0) for k in residual),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 12 resume ({kind}) failed {failed}: straight={whole}, resumed={again}")
+    phase("12 resume", f"{kind} digits_h100.yaml with comm_hook int8_ef: epoch 1 resumed from "
+          f"{prefix}_0.npz equal to the straight run (train_loss={again[0]['train_loss']:.4f}), every array "
+          f"of {prefix}_1.npz equal, {len(residual)} residual array(s) among them; {launches} fused_adam "
+          f"launches in the resumed run")
+    return launches
+
+
+def hook_bytes():
+    """Each hook's gradient wire bytes per update on AlexNet: the native
+    wrap's counters at world 1, and the analytic count at world 8."""
+    with torch.device("meta"):
+        sizes = jax_sizes("alexnet", AlexNet(num_classes=10))
+    return {hook: {"world_1": comm.comm_bytes_for_hook(sizes, 1, hook),
+                   "world_1_f32": comm.comm_bytes_for_hook(sizes, 1, "none"),
+                   "world_8": comm.comm_bytes_for_hook(sizes, 8, hook),
+                   "world_8_f32": comm.comm_bytes_for_hook(sizes, 8, "none")}
+            for hook in ("none",) + HOOKS}
 
 
 def main() -> None:
@@ -2034,6 +2398,19 @@ def main() -> None:
     zero1_pairs = zero1_vs_replicated()
     stem = stem_turns(fast_history)
     phase_11_s = time.perf_counter() - t11
+    t12 = time.perf_counter()
+    hooks_12 = hooks_vs_plain()
+    torch.cuda.empty_cache()
+    native_12 = native_hooks()
+    chunks_12 = hooked_chunk_pairs()
+    managed_12 = managed_hooks()
+    zero1_12 = zero1_hooks()
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_hooks_")
+    try:
+        resume_12 = {kind: hooked_resume(kind, root) for kind in ("native", "managed")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_12_s = time.perf_counter() - t12
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -2074,6 +2451,12 @@ def main() -> None:
         "flat_shard": {KERNEL_NAMES[d]: {**t_flat[d], "max_abs_err": err_flat[d]} for d in t_flat},
         "zero1_vs_replicated": zero1_pairs, "stem": stem, "phase_11_s": phase_11_s,
     }}))
+    print(json.dumps({"comm_hooks": {
+        "round_trips_and_agreement": hooks_12, "native_alexnet_3_epochs": native_12,
+        "phase_4_float32_step_ms_median": steady_f32, "graph_vs_eager": chunks_12,
+        "managed_int8_ef_graph_vs_eager": managed_12, "zero1_bf16_ef": zero1_12,
+        "bytes_per_update_alexnet": hook_bytes(), "phase_12_s": phase_12_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -2087,12 +2470,22 @@ def main() -> None:
                    for m in ("replay", "eager")},
                 **{f"native ZeRO-1 stem turns {m}": n for m, n in stem["launches"].items()}}
     phase_11_f32 = {f"{k} (phase 11)": n for k, n in zero1_pairs["launches"].items()}
+    phase_12 = {
+        **{f"native comm_hook {h}": native_12[h]["launches"] for h in HOOKS},
+        **{f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"][f32_sym]
+           for p in chunks_12 for m in ("replay", "eager")},
+        **{f"managed int8_ef graph vs eager ({m})": managed_12[f"launches_{m}"][f32_sym]
+           for m in ("replay", "eager")},
+        **{f"{k} bf16_ef (phase 12)": n for k, n in zero1_12["vs_replicated"]["launches"].items()},
+        **{f"{k} digits int8_ef resumed": n for k, n in resume_12.items()},
+    }
+    phase_12_bf16 = {"native ZeRO-1 fast file bf16_ef": zero1_12["launches"]}
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
-               "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32}
+               "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -2104,7 +2497,8 @@ def main() -> None:
          "launches_by_path": by_path, "flat_shard": flat[torch.float32]},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
-                      + sum(phase_10_bf16.values()) + sum(phase_11.values())),
+                      + sum(phase_10_bf16.values()) + sum(phase_11.values())
+                      + sum(phase_12_bf16.values())),
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
          "launches_by_path": {"native bf16": launches_bf16,
@@ -2112,11 +2506,12 @@ def main() -> None:
                               **{k: 0 for k in phase_8}, "native digits": 0,
                               **{k: 0 for k in phase_9}, **phase_9_bf16,
                               **{k: 0 for k in phase_10}, **phase_10_bf16, **phase_11,
-                              **{k: 0 for k in phase_11_f32}},
+                              **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
+                              **phase_12_bf16},
          "flat_shard": flat[torch.bfloat16]},
     ]}))
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
-          f"phase 11: {phase_11_s:.1f} s)")
+          f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

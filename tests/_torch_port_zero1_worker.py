@@ -18,7 +18,15 @@ of one launch (the port's ``run_ddp_training``, world 2, CPU, Gloo):
   history to ``{name}_history.json``;
 - ``{"kind": "restore", "name", "path", "training", "dir"}``: the same
   objects, the newest checkpoint of ``dir`` restored into them, then saved
-  as a "run" saves them.
+  as a "run" saves them;
+- ``{"kind": "exchange", "name", "hook", "sizes", "cap", "density"}``: the
+  comm hook's bucketed ``reduce`` and ZeRO-1 ``reduce_scatter`` of
+  ``parallel/comm.py`` on this rank's row of ``g`` and ``r`` in
+  ``WORKDIR/{name}_inputs.npz``, saved to ``{name}_{rank}.npz``.
+
+With a comm hook, every rank also saves its error-feedback residual to
+``{name}_residual_{rank}.npz`` (native: ``vec``; managed: one array per
+parameter name).
 
 Imports only torch, numpy and ``tpuddp_torch``.
 """
@@ -37,6 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpuddp_torch import train_accelerate, train_native  # noqa: E402
 from tpuddp_torch.optim import ShardedUpdate  # noqa: E402
+from tpuddp_torch.parallel import comm  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.training import checkpoint as ckpt  # noqa: E402
 from tpuddp_torch.training.loop import run_training_loop  # noqa: E402
@@ -57,6 +66,7 @@ def build(rank, world_size, path, training):
                 auto_resume=resume, scan_steps=training.get("scan_steps", "auto"),
                 log=lambda *_: None)
 
+        train.residual = lambda: ddp.residual
         return ddp.model, ddp.optimizer, train
     acc, model, opt, train_loader, test_loader, criterion, eval_transform = (
         train_accelerate.build_training(training, "cpu"))
@@ -69,6 +79,7 @@ def build(rank, world_size, path, training):
             deferred_metrics=bool(training.get("deferred_metrics")), start_epoch=start)
 
     train.load = partial(acc.load_state, model, opt)
+    train.residual = opt.comm_residual
     return model.module, opt.optimizer, train
 
 
@@ -90,13 +101,37 @@ def optimizer_state(model, optimizer) -> dict:
     return out
 
 
-def save(workdir, name, rank, model, optimizer, history=None):
+def save(workdir, name, rank, model, optimizer, history=None, residual=None):
     prefix = os.path.join(workdir, f"{name}_")
     np.savez(f"{prefix}{rank}.npz", **{k: v.numpy() for k, v in model.state_dict().items()})
     np.savez(f"{prefix}opt_{rank}.npz", **optimizer_state(model, optimizer))
+    if torch.is_tensor(residual):
+        np.savez(f"{prefix}residual_{rank}.npz", vec=residual.numpy())
+    elif residual is not None:
+        np.savez(f"{prefix}residual_{rank}.npz",
+                 **{n: r.numpy() for (n, _), r in zip(model.named_parameters(), residual)})
     if rank == 0 and history is not None:
         with open(prefix + "history.json", "w") as f:
             json.dump(history, f)
+
+
+def exchange(workdir, job, rank, world_size):
+    """One comm hook's bucketed reduce and ZeRO-1 reduce-scatter of this
+    rank's inputs (the exchange's order: the JAX package's)."""
+    with np.load(os.path.join(workdir, f"{job['name']}_inputs.npz")) as data:
+        g, r = data["g"][rank], data["r"][rank]
+    plan = comm.make_grad_comm(job["sizes"], world_size, job["hook"], job["cap"], job["density"])
+    out = {}
+    for kind in ("reduce", "reduce_scatter"):
+        res = torch.from_numpy(r.copy()) if plan.needs_residual else None
+        if kind == "reduce":
+            vec, res = plan.reduce(torch.from_numpy(g.copy()), res)
+        else:
+            vec, res = plan.reduce_scatter(torch.from_numpy(g.copy()), res, rank)
+        out[kind] = vec.numpy()
+        if res is not None:
+            out[f"{kind}_residual"] = res.numpy()
+    np.savez(os.path.join(workdir, f"{job['name']}_{rank}.npz"), **out)
 
 
 def worker(rank, world_size, save_dir, optional_args, workdir):
@@ -104,6 +139,9 @@ def worker(rank, world_size, save_dir, optional_args, workdir):
     with open(os.path.join(workdir, "jobs.json")) as f:
         jobs = json.load(f)
     for job in jobs:
+        if job["kind"] == "exchange":
+            exchange(workdir, job, rank, world_size)
+            continue
         model, optimizer, train = build(rank, world_size, job["path"], job["training"])
         init = os.path.join(workdir, f"{job['name']}_init.npz")
         if os.path.exists(init):
@@ -111,15 +149,15 @@ def worker(rank, world_size, save_dir, optional_args, workdir):
                 model.load_state_dict({k: torch.from_numpy(data[k]) for k in data.files})
         if job["kind"] == "restore":
             if job["path"] == "native":
-                ckpt.restore_latest(job["dir"], model, optimizer)
+                ckpt.restore_latest(job["dir"], model, optimizer, comm_state=train.residual())
             else:
                 train.load(job["dir"])
-            save(workdir, job["name"], rank, model, optimizer)
+            save(workdir, job["name"], rank, model, optimizer, residual=train.residual())
             continue
         if job.get("save_dir"):
             os.makedirs(job["save_dir"], exist_ok=True)
         history = train(job.get("save_dir"), bool(job.get("resume")))
-        save(workdir, job["name"], rank, model, optimizer, history)
+        save(workdir, job["name"], rank, model, optimizer, history, train.residual())
 
 
 if __name__ == "__main__":

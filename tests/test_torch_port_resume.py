@@ -309,10 +309,13 @@ def test_unported_contents_are_refused(tmp_path, cpu_devices):
                   topology=ckpt.topology_record(2, [".opt_state.m", ".opt_state.v"]))
     with pytest.raises(KeyError, match="missing leaf"):
         ckpt.restore_latest(str(tmp_path / "b"), model, opt)
+    # a comm hook's residual is ported (tests/test_torch_port_comm_ckpt.py);
+    # one saved at another world size is the elastic reshard's
+    raw = sum(p.numel() for p in model.parameters())
     jax_ckpt.save_on_main(str(tmp_path / "c"), 0,
-                          dataclasses.replace(state, comm_state=jnp.zeros(8)), world_size=1)
-    with pytest.raises(NotImplementedError, match="comm hooks"):
-        ckpt.restore_latest(str(tmp_path / "c"), model, opt)
+                          dataclasses.replace(state, comm_state=jnp.zeros(2 * raw)), world_size=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8: elastic reshard"):
+        ckpt.restore_latest(str(tmp_path / "c"), model, opt, comm_state=torch.zeros(raw))
     jax_ckpt.save_on_main(str(tmp_path / "d"), 0, dataclasses.replace(
         state, skipped_steps={"total": jnp.int32(0), "consecutive": jnp.int32(0)}), world_size=1)
     with pytest.raises(NotImplementedError, match="numerical guard"):

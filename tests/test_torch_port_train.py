@@ -256,7 +256,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("remat", True),
-    ("comm_hook", "bf16"), ("comm_topology", "hierarchical"), ("comm_overlap", True),
+    ("comm_topology", "hierarchical"), ("comm_overlap", True),
     ("guard", True), ("snapshot", True),
     ("pretrained_path", "/x.pt"), ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
@@ -264,6 +264,19 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 ])
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        cfg.training_config({"training": {knob: value}})
+
+
+@pytest.mark.parametrize("knob,value,message", [
+    ("comm_hook", "fp8", "unknown comm_hook 'fp8'"),
+    ("bucket_cap_mb", 0, "bucket_cap_mb must be > 0, got 0"),
+    ("topk_density", 0, r"topk density must be in \(0, 1\], got 0"),
+    ("topk_density", 1.5, r"topk density must be in \(0, 1\], got 1.5"),
+])
+def test_malformed_comm_hook_knobs_are_the_jax_packages_value_errors(knob, value, message):
+    """The comm hooks are ported: a bad value is the JAX package's
+    ValueError (``tpuddp/parallel/comm.py:138-175, :213-214``)."""
+    with pytest.raises(ValueError, match=message):
         cfg.training_config({"training": {knob: value}})
 
 

@@ -100,6 +100,18 @@ partitioned update does. It holds inside fused flushes and accumulation
 alike; ``save_state``/``load_state`` write and read the ``data_flat``
 vectors.
 
+``comm_hook`` (``tpuddp/accelerate.py:813-822, :986-1001, :1150-1166``):
+the managed path's collective is the float32 all-reduce of ``backward``, so,
+as in the JAX package, the hook round-trips the aggregated gradient through
+its wire format (:func:`~tpuddp_torch.parallel.comm.local_quantize`, each
+parameter its own bucket) at each update, before the clip, with the
+error-feedback residual (one float32 tensor per parameter, created at the
+first update and updated in place, so a fused flush's graph holds it;
+``save_state``/``load_state`` write and read it as ``['comm_state']``).
+``grad_comm_bytes_per_step`` counts float32 bytes: no byte cut reaches the
+wire here. ``comm_topology`` other than ``flat`` is the JAX package's
+``ValueError``.
+
 Batches may arrive already on the device (the entry point stages them,
 ``training/pipeline.py``); a host array is copied from pinned memory without
 blocking. ``save_model``/``load_model`` and ``save_state``/``load_state``
@@ -120,7 +132,7 @@ from tpuddp_torch import seeding
 from tpuddp_torch.data.loader import DataLoader, ShardedDataLoader
 from tpuddp_torch.nn.norm import BatchNorm, batch_weights, convert_sync_batchnorm
 from tpuddp_torch.optim import ShardedUpdate, clip_grad_norm_
-from tpuddp_torch.parallel import backend, collectives
+from tpuddp_torch.parallel import backend, collectives, comm
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import to_device
@@ -417,7 +429,23 @@ class PreparedOptimizer:
         self._accum_count = 0
         self._fuse: Optional[int] = None  # the resolved depth, at the first backward
         self._queue: List[_Request] = []
+        self._residual: Optional[List[torch.Tensor]] = None  # the hook's, at the first update
         self.updates = 0
+        acc = model.accelerator
+        # the collective is float32 whatever the hook (wire=False)
+        self.grad_comm_bytes_per_step = comm.comm_bytes_for_hook(
+            [p.numel() for p in model._params()], acc.num_processes, acc.comm_hook,
+            wus=acc.weight_update_sharding, wire=False)
+
+    def comm_residual(self) -> Optional[List[torch.Tensor]]:
+        """The hook's error-feedback residual, one tensor per trained
+        parameter (zeros when created here); None without error
+        feedback."""
+        if self.model.accelerator.comm_hook not in comm.EF_HOOKS:
+            return None
+        if self._residual is None:
+            self._residual = comm.init_residual_tree(self.model._params())
+        return self._residual
 
     @property
     def fuse_depth(self) -> Optional[int]:
@@ -556,7 +584,16 @@ class PreparedOptimizer:
         self._apply()
 
     def _apply(self) -> None:
-        clip = self.model.accelerator.clip_grad_norm
+        acc = self.model.accelerator
+        if acc.comm_hook != "none":
+            params, residual = self.model._params(), self.comm_residual()
+            quant, new = comm.local_quantize(
+                [p.grad for p in params], residual, acc.comm_hook, acc.topk_density)
+            for p, g in zip(params, quant):
+                p.grad = g
+            for r, n in zip(residual or (), new or ()):
+                r.copy_(n)
+        clip = acc.clip_grad_norm
         if clip is not None:
             clip_grad_norm_(self.model._params(), clip)
         self.optimizer.step()
@@ -687,7 +724,11 @@ class Accelerator:
     under accumulation; :func:`tpuddp_torch.config.resolve_fuse_steps`).
     ``clip_grad_norm``: the global L2 norm each update's gradient is clipped
     to (None: no clip). ``weight_update_sharding``: ZeRO-1, the optimizer's
-    update and state sharded across the processes."""
+    update and state sharded across the processes. ``comm_hook`` and
+    ``topk_density``: the gradient comm hook, emulated on the aggregated
+    gradient; ``bucket_cap_mb`` is accepted for parity with the native
+    path (each parameter is its own bucket here); ``comm_topology`` must be
+    ``flat``."""
 
     def __init__(
         self,
@@ -698,7 +739,24 @@ class Accelerator:
         device: str = "cuda",
         clip_grad_norm: Optional[float] = None,
         weight_update_sharding: bool = False,
+        comm_hook: str = "none",
+        bucket_cap_mb: float = comm.DEFAULT_BUCKET_CAP_MB,
+        comm_topology: str = "flat",
+        topk_density: float = comm.DEFAULT_TOPK_DENSITY,
     ):
+        self.comm_hook = comm.validate_hook(comm_hook)
+        self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
+        comm.validate_topology(comm_topology)
+        if comm_topology != "flat":
+            raise ValueError(
+                "comm_topology='hierarchical' needs the explicit API "
+                "(DistributedDataParallel / train_native.py, mode="
+                "'shard_map'): the managed path's collective is XLA-"
+                "inserted and cannot be hop-split"
+            )
+        self.comm_topology = comm_topology
+        self.topk_density = float(topk_density)
+        comm.bucket_topk(1, self.topk_density)  # the range, checked now
         self.gradient_accumulation_steps = max(1, int(gradient_accumulation_steps))
         self.weight_update_sharding = bool(weight_update_sharding)
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
@@ -822,13 +880,16 @@ class Accelerator:
                 req.loss._drop(reason)
             opt._queue = []
             opt._accum, opt._accum_count = None, 0
+            for r in opt._residual or ():  # compression error of the weights replaced
+                r.zero_()
         if model._graphs is not None:
             model._graphs.clear()
 
     def load_model(self, model: PreparedModel, save_dir: str) -> PreparedModel:
         """Restore the weights of ``save_dir/model.npz``; the optimizer's
-        state starts again from zero, as ``tpuddp/accelerate.py:1599-1607``
-        resets it (moments of other weights must not steer these)."""
+        state and the comm hook's residual start again from zero, as
+        ``tpuddp/accelerate.py:1599-1607`` resets them (moments of other
+        weights must not steer these)."""
         self._discard_staged_work(model, "load_model discarded the staged step")
         ckpt.load(os.path.join(save_dir, "model.npz"), model._module, layout=ckpt.MANAGED)
         if model._optimizer is not None:
@@ -838,8 +899,8 @@ class Accelerator:
     def save_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
                    save_dir: str, epoch: int = 0, keep_last: Optional[int] = None):
         """Process 0 writes ``save_dir/state_{epoch}.npz``: parameters,
-        buffers, the optimizer's state, the JAX keys and every process's
-        random streams; with ``keep_last`` the older state files are pruned.
+        buffers, the optimizer's state, the comm hook's residual, the JAX
+        keys and every process's random streams; with ``keep_last`` the older state files are pruned.
         Queued steps run first; a partial accumulation cycle is refused: it
         would be lost."""
         model._flush_queues()
@@ -853,7 +914,7 @@ class Accelerator:
             save_dir, epoch, model._module, optimizer.optimizer, self.process_index,
             layout=ckpt.MANAGED, seed=self.seed, generator=self.generator,
             world_size=self.num_processes, keep_last=keep_last, counter=model._bwd_counter,
-            keys=(self.jax_keys.key, model._bwd_key),
+            keys=(self.jax_keys.key, model._bwd_key), comm_state=optimizer.comm_residual(),
         )
 
     def load_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
@@ -863,7 +924,7 @@ class Accelerator:
         self._discard_staged_work(model, "load_state discarded the staged step")
         next_epoch, meta = ckpt.restore_latest(
             save_dir, model._module, optimizer.optimizer, layout=ckpt.MANAGED,
-            generator=self.generator,
+            generator=self.generator, comm_state=optimizer.comm_residual(),
         )
         model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)
         if "rng_key" in meta:

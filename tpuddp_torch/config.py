@@ -13,7 +13,9 @@ The port implements the native DDP main path and the managed
 (:data:`OPTIMIZERS`, with ``weight_decay``, ``momentum`` and
 ``trust_coefficient``), ``clip_grad_norm``, ``optimizer_state_dtype``,
 ``gradient_accumulation_steps``, ``deferred_metrics``, ``prefetch``
-(``PrefetchLoader`` threads), ``pipeline`` (staged host-to-device copies,
+(``PrefetchLoader`` threads), ``comm_hook`` (``bf16``, ``bf16_ef``,
+``int8_ef``, ``topk_ef``, with ``bucket_cap_mb`` and ``topk_density``;
+:mod:`tpuddp_torch.parallel.comm`), ``pipeline`` (staged host-to-device copies,
 :func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
 false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
 (checkpoints in the JAX package's layout) and the managed path's
@@ -92,7 +94,6 @@ DEVICES = ("cuda", "cpu")
 _UNSUPPORTED = {
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
-    "comm_hook": (lambda v: (v or "none") == "none", "Queue 1 item 8: comm hooks"),
     "comm_topology": (
         lambda v: (v or "flat") == "flat", "Queue 1 item 8: hierarchical topology"
     ),
@@ -179,14 +180,29 @@ def check_weight_update_sharding(training: Dict[str, Any], model_size: int = 1) 
         )
 
 
+def check_comm_hook(training: Dict[str, Any]) -> None:
+    """The JAX package's ``ValueError`` for an unknown ``comm_hook``, a
+    ``bucket_cap_mb`` not above 0 or a ``topk_density`` outside (0, 1]
+    (``tpuddp/parallel/comm.py:138-175``; a null knob is its default)."""
+    from tpuddp_torch.parallel import comm
+
+    comm.validate_hook(str(training.get("comm_hook") or "none"))
+    cap = training.get("bucket_cap_mb")
+    comm.validate_bucket_cap(comm.DEFAULT_BUCKET_CAP_MB if cap is None else cap)
+    density = training.get("topk_density")
+    comm.bucket_topk(1, comm.DEFAULT_TOPK_DENSITY if density is None else float(density))
+
+
 def check_supported(training: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for any knob set to a value this slice
     does not implement (``ValueError`` for a malformed ``pipeline`` block, a
+    malformed comm hook (:func:`check_comm_hook`), a
     ``scan_steps`` under 1, a gradient accumulation depth under 1, or one
     together with an explicit ``fuse_steps`` over 1, and for the
     combinations with ``weight_update_sharding`` that the JAX package
     refuses)."""
     check_weight_update_sharding(training)
+    check_comm_hook(training)
     for knob, (ok, item) in _UNSUPPORTED.items():
         value = training.get(knob, TRAINING_DEFAULTS[knob])
         if not ok(value):

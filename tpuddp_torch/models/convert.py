@@ -299,3 +299,40 @@ def flat_from_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndar
         raise ValueError(f"flat_from_jax: {len(vec)} elements for {offset} parameters")
     arrays = torch_layout(name, [layer or () for layer in tree])
     return np.concatenate([np.ravel(arrays[pname]) for pname, _ in model.named_parameters()])
+
+
+def jax_sizes(name: str, model: torch.nn.Module) -> Tuple[int, ...]:
+    """The element counts of ``model``'s parameters in the JAX package's
+    tree order (the leaves its ``make_flat_param_spec`` concatenates), which
+    the comm hooks' bucket plan packs."""
+    places = jax_places(name, model)
+    numel = {pname: p.numel() for pname, p in model.named_parameters()}
+    return tuple(numel[pname] for pname in sorted(places, key=places.get))
+
+
+class JaxFlatOrder:
+    """The permutation between the port's flat parameter order and the JAX
+    package's (:func:`flat_to_jax`), as two int64 index tensors on
+    ``device``, built once per model: ``to_jax(vec)`` is ``flat_to_jax`` of
+    a flat tensor (one gather), ``from_jax(vec)`` its inverse. The native
+    comm hooks exchange the gradient in the JAX order, so that its buckets,
+    their int8 scales and top-k sets, and the error-feedback residual are
+    the JAX package's."""
+
+    def __init__(self, name: str, model: torch.nn.Module, device=None):
+        raw = sum(p.numel() for p in model.parameters())
+        perm = flat_to_jax(name, model, np.arange(raw, dtype=np.int64))
+        inverse = np.empty_like(perm)
+        inverse[perm] = np.arange(raw, dtype=np.int64)
+        device = next(model.parameters()).device if device is None else device
+        self.raw = raw
+        self._to_jax = torch.from_numpy(perm).to(device)
+        self._from_jax = torch.from_numpy(inverse).to(device)
+
+    def to_jax(self, vec: torch.Tensor) -> torch.Tensor:
+        """The ``raw`` elements of ``vec`` (port order) in the JAX order."""
+        return vec.index_select(0, self._to_jax)
+
+    def from_jax(self, vec: torch.Tensor) -> torch.Tensor:
+        """The first ``raw`` elements of ``vec`` (JAX order) in the port's."""
+        return vec[:self.raw].index_select(0, self._from_jax)

@@ -500,10 +500,18 @@ class ShardedUpdate:
     all-gathers the new shards into the flat vector, which updates every
     parameter view. A world of one skips the collectives. Every buffer is
     allocated here, before any CUDA-graph capture; nothing reads the
-    device on the host."""
+    device on the host.
+
+    ``comm`` (native only), a :class:`~tpuddp_torch.parallel.comm.GradComm`
+    of a hook over the flat layout, makes the reduce-scatter its
+    :meth:`~tpuddp_torch.parallel.comm.GradComm.reduce_scatter`
+    (``tpuddp/parallel/comm.py:476-508``); ``residual`` is then this
+    rank's full-length error-feedback residual in the port's flat order
+    (None for ``bf16``), updated in place by each step."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], spec,
-                 rank: int = 0, *, managed: bool = False, clip: Optional[float] = None):
+                 rank: int = 0, *, managed: bool = False, clip: Optional[float] = None,
+                 comm=None):
         if len(optimizer.param_groups) != 1:
             raise ValueError(
                 "weight_update_sharding steps one flat vector: the optimizer must have one "
@@ -525,8 +533,12 @@ class ShardedUpdate:
             for p, view in zip(params, spec.views(self.flat)):
                 p.data = view
         self.flat_grad = torch.zeros_like(self.flat)
+        if comm is not None and (managed or comm.total != spec.total):
+            raise ValueError("a comm hook's reduce-scatter needs the native path's flat layout")
+        self.comm = comm
+        self.residual = None if comm is None else comm.init_residual(device)
         multi = self.world > 1
-        self._g_shard = torch.empty(n, device=device) if multi and not managed else None
+        self._g_shard = torch.empty(n, device=device) if multi and not managed and comm is None else None
         self._send = torch.empty(n, device=device) if multi else None
         self.shard = self.flat[self.lo:self.hi].detach()
         optimizer.param_groups[0]["params"] = [self.shard]
@@ -574,6 +586,8 @@ class ShardedUpdate:
         else:
             for g, view in zip(grads, self.spec.views(self.flat_grad)):
                 view.zero_() if g is None else view.copy_(g)
+        if self.comm is not None:
+            return self.comm.reduce_scatter(self.flat_grad, self.residual, self.rank)[0]
         if self._g_shard is None:
             return self.flat_grad[self.lo:self.hi]
         collectives.reduce_scatter_sum(self._g_shard, self.flat_grad)

@@ -10,6 +10,13 @@ reduce-scatter of a flat gradient into each rank's shard
 vector (``lax.all_gather(tiled=True)``), through
 ``dist.reduce_scatter_tensor`` and ``dist.all_gather_into_tensor``, which
 NCCL and Gloo both run.
+
+The comm hooks (:mod:`tpuddp_torch.parallel.comm`) add the exchanges of
+``tpuddp/parallel/collectives.py:100-145``: a bucket's all-reduce in its
+wire dtype, the int8 codes and scales all-gathered and dequantised and
+summed in rank order, the top-k payloads scatter-added in rank order (one
+``index_add_`` per replica, each over distinct indices, so a CUDA sum
+repeats bitwise), and the bf16 reduce-scatter of a whole vector.
 """
 
 from __future__ import annotations
@@ -101,3 +108,63 @@ def all_gather_shards(flat: torch.Tensor, shard: torch.Tensor) -> None:
         flat.copy_(shard)
         return
     dist.all_gather_into_tensor(flat, shard)
+
+
+def all_reduce_wire(b: torch.Tensor) -> torch.Tensor:
+    """In-place all-reduce SUM of one bucket in its own (wire) dtype;
+    returns it."""
+    if get_world_size() > 1:
+        dist.all_reduce(b, op=dist.ReduceOp.SUM)
+    return b
+
+
+def _gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (one shape), stacked in rank order: ``(world,
+    *t.shape)``."""
+    n = get_world_size()
+    out = torch.empty((n * t.numel(),), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.reshape(-1).contiguous())
+    return out.view(n, *t.shape)
+
+
+def allgather_dequant_sum(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The SUM over replicas of ``q * scale`` (int8 codes, a float32
+    scale): codes and scales all-gathered, each replica's payload
+    dequantised and added in rank order on every replica, each addition
+    rounded once with its product, as the fused multiply-adds of the JAX
+    package's compiled reduction round it (computed in float64, where the
+    product is exact, and so is the sum unless the replicas' scales are
+    over 2^20 apart)."""
+    if get_world_size() == 1:
+        return q.float() * scale
+    codes, scales = _gather(q), _gather(scale.reshape(1))
+    out = codes[0].float() * scales[0]
+    for r in range(1, codes.shape[0]):
+        out = (out.double() + codes[r].double() * scales[r].double()).float()
+    return out
+
+
+def allgather_topk_sum(idx: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """The SUM over replicas of each one's sparse payload (indices ``idx``,
+    sent as int32, int8 codes ``q``, a float32 scale) as a dense ``(n,)``
+    float32 vector: all three all-gathered, each replica's dequantised
+    values added at its indices in rank order."""
+    out = torch.zeros(n, dtype=torch.float32, device=q.device)
+    if get_world_size() == 1:
+        return out.index_add_(0, idx, q.float() * scale)
+    idxs, codes, scales = _gather(idx.to(torch.int32)), _gather(q), _gather(scale.reshape(1))
+    for r in range(codes.shape[0]):
+        out.index_add_(0, idxs[r], codes[r].float() * scales[r])
+    return out
+
+
+def psum_scatter_compressed(vec: torch.Tensor, wire_dtype: torch.dtype):
+    """``vec`` cast to ``wire_dtype`` and reduce-scattered (SUM) in it:
+    ``(this rank's float32 shard of the sum, the compressed send)``."""
+    comp = vec.to(wire_dtype)
+    n = get_world_size()
+    if n == 1:
+        return comp.float(), comp
+    shard = torch.empty(vec.numel() // n, dtype=wire_dtype, device=vec.device)
+    dist.reduce_scatter_tensor(shard, comp, op=dist.ReduceOp.SUM)
+    return shard.float(), comp

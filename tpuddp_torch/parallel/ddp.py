@@ -65,6 +65,20 @@ clip's norm summed across replicas), updates it and all-gathers the
 shards. The wrap then makes no gradient all-reduce of its own. It holds for
 ``train_step``, ``train_cycle`` and ``train_step_many`` alike; the flat
 buffers exist before the first capture.
+
+``comm_hook`` (``bf16``, ``bf16_ef``, ``int8_ef``, ``topk_ef``;
+``tpuddp/parallel/ddp.py:86-91, :242-247, :493-534``), with
+``bucket_cap_mb`` and ``topk_density``: the gradient sync becomes the
+bucketed compressed exchange of :mod:`tpuddp_torch.parallel.comm`, over
+the gradient in the JAX package's flat order, so that the buckets and the
+residual are the JAX package's (:func:`~tpuddp_torch.training.step.
+comm_sync`); under ZeRO-1, the hooked reduce-scatter of the wrapped
+optimizer, in the port's flat order. It runs at world 1 too: only the
+collective is skipped, the compression and the error-feedback residual
+(``residual``, this replica's ``(total,)`` float32 vector, allocated here
+and updated in place, so a CUDA graph holds it) are not.
+``grad_comm_bytes_per_step`` and ``grad_comm_bytes_per_step_f32`` count
+one reduction's wire bytes with the hook and without it.
 """
 
 from __future__ import annotations
@@ -74,13 +88,14 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from tpuddp_torch.models.convert import JaxFlatOrder, jax_sizes, model_name
 from tpuddp_torch.optim import ShardedUpdate
-from tpuddp_torch.parallel import backend, collectives
+from tpuddp_torch.parallel import backend, collectives, comm
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
 from tpuddp_torch.training.step import (
-    EVAL_KEYS, TRAIN_KEYS, eval_core, eval_many, make_flat_param_spec, train_core, train_cycle,
-    train_many,
+    EVAL_KEYS, TRAIN_KEYS, comm_sync, eval_core, eval_many, make_flat_param_spec, train_core,
+    train_cycle, train_many,
 )
 
 
@@ -105,7 +120,14 @@ class DistributedDataParallel:
         generator: Optional[torch.Generator] = None,
         clip_grad_norm: Optional[float] = None,
         weight_update_sharding: bool = False,
+        comm_hook: str = "none",
+        bucket_cap_mb: float = comm.DEFAULT_BUCKET_CAP_MB,
+        topk_density: float = comm.DEFAULT_TOPK_DENSITY,
     ):
+        self.comm_hook = comm.validate_hook(comm_hook)
+        self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
+        self.topk_density = float(topk_density)
+        comm.bucket_topk(1, self.topk_density)  # the range, checked now
         self.generator = generator
         self.clip_grad_norm = None if clip_grad_norm is None else float(clip_grad_norm)
         self.step = 0
@@ -131,20 +153,57 @@ class DistributedDataParallel:
         # what the step cores sync and clip: under ZeRO-1 the wrapped
         # optimizer's step does both
         self._sync, self._clip = self.sync_grads, self.clip_grad_norm
-        if self.weight_update_sharding:
+        # the hook's plan: over the JAX package's leaf order (its buckets),
+        # or under ZeRO-1 over the flat layout (one whole-vector bucket)
+        sizes = tuple(p.numel() for p in self.model.parameters())
+        if self.comm_hook != "none":
+            sizes = jax_sizes(model_name(self.model), self.model)
+        self._comm = self._order = self._residual = None
+        wus, world = self.weight_update_sharding, self.world_size
+        if wus:
+            spec = make_flat_param_spec(self.model, world)
             self.optimizer = ShardedUpdate(
-                optimizer, list(self.model.parameters()),
-                make_flat_param_spec(self.model, self.world_size), self.rank,
-                clip=self.clip_grad_norm,
+                optimizer, list(self.model.parameters()), spec, self.rank,
+                clip=self.clip_grad_norm, comm=comm.make_grad_comm(
+                    spec.sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density),
             )
             self._sync, self._clip = _no_sync, None
+        else:
+            self._comm = comm.make_grad_comm(
+                sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density)
+        if self._comm is not None:
+            self._order = JaxFlatOrder(model_name(self.model), self.model)
+            self._residual = self._comm.init_residual(self.device)
+        self.grad_comm_bytes_per_step = comm.comm_bytes_for_hook(
+            sizes, world, self.comm_hook, wus=wus, bucket_cap_mb=self.bucket_cap_mb,
+            density=self.topk_density)
+        self.grad_comm_bytes_per_step_f32 = comm.comm_bytes_for_hook(sizes, world, "none", wus=wus)
+
+    @property
+    def residual(self) -> Optional[torch.Tensor]:
+        """This replica's error-feedback residual, ``(total,)`` float32 (in
+        the JAX flat order; under ZeRO-1 in the port's), updated in place by
+        every step; None without an error-feedback hook."""
+        if self.weight_update_sharding:
+            return self.optimizer.residual
+        return self._residual
+
+    def _comm_key(self) -> tuple:
+        """What a captured step holds of the hook: its name, density and
+        bucket plan."""
+        plan = self._comm if self._comm is not None else getattr(self.optimizer, "comm", None)
+        return (self.comm_hook, self.topk_density, None if plan is None else plan.buckets)
 
     def _mean(self, flat: torch.Tensor) -> None:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
         flat.div_(self.world_size)
 
     def sync_grads(self) -> None:
-        """All-reduce mean of every gradient, through one flat buffer."""
+        """All-reduce mean of every gradient, through one flat buffer; with
+        a comm hook its exchange (at world 1 too)."""
+        if self._comm is not None:
+            comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual)
+            return
         if self.world_size == 1:
             return
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
@@ -249,7 +308,7 @@ class DistributedDataParallel:
         params = tuple(self.model.parameters())
         key = (graphs.shapes(inputs), self.grad_accumulation, self.clip_grad_norm,
                id(self.criterion), id(self.augment), tuple(id(p) for p in params),
-               graphs.hyperparameters(self.optimizer))
+               graphs.hyperparameters(self.optimizer), self._comm_key())
         return self._group("train", key, (self.criterion, self.augment, params), inputs, body)
 
     def eval_step_many(self, batches, sums: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -41,7 +41,8 @@ batches ahead. ``training.resume``, ``auto_resume`` or
 ``out_dir`` before the first epoch (``train_accelerate.py:894-912``) and the
 run continues at the epoch after it. ``weight_update_sharding: true``
 shards the optimizer's update and state across the processes (ZeRO-1,
-``accelerate.py``).
+``accelerate.py``); ``comm_hook`` round-trips each update's gradient
+through the hook's wire format, with its error-feedback residual.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models import load_model
 from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
+from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import run_ddp_training
 from tpuddp_torch.train_native import set_numerics
@@ -191,6 +193,8 @@ def run_training_loop(
             "api": "managed",
             "grad_accumulation": accelerator.gradient_accumulation_steps,
             "fuse_steps": optimizer.fuse_depth or accelerator.fuse_steps,
+            "comm_hook": accelerator.comm_hook,
+            "grad_comm_bytes_per_update": optimizer.grad_comm_bytes_per_step,
             "world_size": accelerator.num_processes,
         }
         history.append(record)
@@ -221,6 +225,11 @@ def build_training(training: dict, device: str = "cuda"):
         device=device,
         clip_grad_norm=training.get("clip_grad_norm"),
         weight_update_sharding=bool(training.get("weight_update_sharding")),
+        # the comm hook, emulated on the all-reduced gradient (accelerate.py)
+        comm_hook=str(training.get("comm_hook") or "none"),
+        bucket_cap_mb=float(training.get("bucket_cap_mb") or comm.DEFAULT_BUCKET_CAP_MB),
+        comm_topology=str(training.get("comm_topology") or "flat"),
+        topk_density=float(training.get("topk_density") or comm.DEFAULT_TOPK_DENSITY),
     )
     size = training.get("image_size")
     mean, std = norm_stats_for(training)

@@ -13,7 +13,8 @@ continues from the newest intact checkpoint in ``out_dir``. ``scan_steps``
 of K steps is one CUDA-graph replay, on the CPU the same steps run one
 after another (``training/loop.py``). ``weight_update_sharding: true``
 shards the optimizer's update and state across the processes (ZeRO-1,
-``parallel/ddp.py``).
+``parallel/ddp.py``); ``comm_hook`` compresses the gradient exchange, with
+an error-feedback residual for the ``_ef`` hooks (``parallel/comm.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from tpuddp_torch.models import load_model
 from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
+from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.ddp import DistributedDataParallel
 from tpuddp_torch.parallel.spawn import run_ddp_training
 from tpuddp_torch.training.loop import run_training_loop
@@ -113,6 +115,11 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         # reduce-scatter + the update of this rank's shard + all-gather
         # (ZeRO-1) in place of the all-reduce and the replicated update
         weight_update_sharding=bool(training.get("weight_update_sharding")),
+        # the gradient comm hook (bf16, bf16_ef, int8_ef, topk_ef) and its
+        # bucket cap and top-k density; null knobs are their defaults
+        comm_hook=str(training.get("comm_hook") or "none"),
+        bucket_cap_mb=float(training.get("bucket_cap_mb") or comm.DEFAULT_BUCKET_CAP_MB),
+        topk_density=float(training.get("topk_density") or comm.DEFAULT_TOPK_DENSITY),
     )
     return ddp, train_loader, test_loader, base_seed
 

@@ -52,17 +52,31 @@ and CUDA states) go into ``__tpuddp_torch_rng__``, one JSON record that no
 JAX loader reads. Files also carry ``__meta__epoch`` and
 ``__meta__completed`` (``completed=0``: an emergency save, resume redoes that
 epoch) and a ``__topology__`` record with the world size, which tags the
-ZeRO-1 vectors and nothing else. Files written before the key leaf
+ZeRO-1 vectors and the comm hooks' residual. Files written before the key leaf
 became ``__prngkey__.rng`` hold a raw ``.rng`` instead; the port reads
 neither, so both load.
+
+A comm hook with error feedback (:mod:`tpuddp_torch.parallel.comm`) saves
+its residual under the JAX package's keys (``tpuddp/training/checkpoint.
+py:133, :217-230, :620-660``): native ``.comm_state``, every replica's
+``(total,)`` residual in the JAX flat order, concatenated in rank order
+(``(world * total,)`` float32; the save gathers them, a collective), tagged
+``per_replica`` when the world is over one (``data_flat`` on one, as the
+JAX package's one-device sharding gives); under ZeRO-1 the port keeps it in
+its own flat order and permutes it at the save and the load. Managed
+``['comm_state']``: a tree like ``['params']``, in the JAX layout. A file
+without a residual loads it as zeros (the JAX package's forward-compatible
+load, with its warning); a residual saved at another world size is refused
+(its redistribution is the elastic reshard, not ported); a residual in a
+file for a run without error feedback is not read, as the JAX template
+does not read it.
 
 Rank 0 writes (staged, fsync'd, renamed), then a ``.sha256`` sidecar in the
 JAX package's manifest format; every rank waits at a barrier.
 :func:`restore_latest` takes the newest intact file (a corrupt or truncated
 one is skipped for the one before). A file that needs a part of the JAX
-package the port lacks (a step snapshot's ``__cursor__``, per-replica
-leaves, a comm hook's ``comm_state``, the guard's ``skipped_steps``, a model
-axis) is refused with ``NotImplementedError`` naming its ROADMAP item, never
+package the port lacks (a step snapshot's ``__cursor__``, the guard's
+``skipped_steps``, a model axis) is refused with ``NotImplementedError`` naming its ROADMAP item, never
 loaded in part.
 """
 
@@ -84,6 +98,7 @@ from tpuddp_torch.models.convert import (
     flat_from_jax, flat_to_jax, jax_from_state_dict, model_name, state_dict_from_jax,
     torch_layout,
 )
+from tpuddp_torch.parallel.backend import get_rank, get_world_size
 from tpuddp_torch.parallel import collectives
 from tpuddp_torch.seeding import jax_run_key
 
@@ -97,6 +112,7 @@ AUTO_RESUME_ENV = "TPUDDP_AUTO_RESUME"
 _BF16, _PRNG, _META, _TOPO, _CURSOR = (
     "__bf16__", "__prngkey__", "__meta__", "__topology__", "__cursor__",
 )
+_COMM = ".comm_state"  # the native residual's key
 
 
 def auto_resume_requested() -> bool:
@@ -314,17 +330,48 @@ def state_payload(layout: str, model: torch.nn.Module, optimizer=None,
     return payload
 
 
-def topology_record(world_size: int, flat_keys=()) -> dict:
+def topology_record(world_size: int, flat_keys=(), residual_per: Optional[int] = None) -> dict:
     """The JAX package's topology record: replicated leaves carry no tag;
     the ZeRO-1 vectors ``flat_keys`` are ``data_flat``, sharded over the
     data axis, when the world is over one (on one device the JAX package's
-    sharding is a replicated one, and it tags nothing)."""
+    sharding is a replicated one, and it tags nothing). A native residual
+    of ``residual_per`` elements per replica is ``per_replica`` over the
+    data axis when the world is over one, else ``data_flat``."""
     w = int(world_size)
     flat_keys = tuple(flat_keys) if w > 1 else ()
+    leaves = {k: {"kind": "data_flat"} for k in flat_keys}
+    placement = {k: ["data"] for k in flat_keys}
+    if residual_per is not None:
+        leaves[_COMM] = ({"kind": "per_replica", "world": w, "per": int(residual_per), "model": 1}
+                         if w > 1 else {"kind": "data_flat"})
+        if w > 1:
+            placement[_COMM] = ["data"]
     return {"format": FORMAT_VERSION, "world_size": w, "model_size": 1,
-            "mesh_axes": ["data"], "mesh_shape": [w],
-            "leaves": {k: {"kind": "data_flat"} for k in flat_keys},
-            "placement": {k: ["data"] for k in flat_keys}}
+            "mesh_axes": ["data"], "mesh_shape": [w], "leaves": leaves, "placement": placement}
+
+
+def gather_residual(model: torch.nn.Module, optimizer, residual: torch.Tensor) -> np.ndarray:
+    """Every replica's native residual (``(total,)`` each) in the JAX flat
+    order, concatenated in rank order (a collective): ``(world * total,)``
+    float32. Under ZeRO-1 (``optimizer`` a ShardedUpdate) each is permuted
+    from the port's order."""
+    world = get_world_size()
+    full = torch.empty(world * residual.numel(), dtype=torch.float32, device=residual.device)
+    collectives.all_gather_shards(full, residual.contiguous())
+    out = full.cpu().numpy().reshape(world, -1)
+    if isinstance(optimizer, optim.ShardedUpdate):
+        raw = optimizer.spec.raw
+        for row in out:
+            row[:raw] = flat_to_jax(model_name(model), model, row[:raw].copy())
+    return out.reshape(-1)
+
+
+def _managed_residual_payload(model: torch.nn.Module, residual) -> Dict[str, np.ndarray]:
+    """The managed residual (one tensor per parameter) as the JAX tree
+    ``['comm_state']``."""
+    arrays = {pname: _bits(r) for (pname, _), r in zip(model.named_parameters(), residual)}
+    tree, _ = jax_from_state_dict(model_name(model), arrays)
+    return dict(_leaves(_field(MANAGED, "comm_state"), tree))
 
 
 # -------------------------------------------------------------- random state --
@@ -402,13 +449,17 @@ def save_on_main(
     layout: str = NATIVE, seed: int = 0, generator: Optional[torch.Generator] = None,
     world_size: int = 1, completed: bool = True, keep_last: Optional[int] = None,
     step: int = 0, counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    comm_state=None,
 ) -> Optional[str]:
     """``ckpt_{epoch}.npz`` (``layout=NATIVE``, whose ``.step`` is ``step``
     and whose run key derives from ``seed``) or ``state_{epoch}.npz``
     (``MANAGED``, whose ``['bwd_counter']`` is ``counter`` and whose
     ``rng_key`` and ``bwd_key`` are ``keys``) in ``save_dir``, written by
     rank 0 after every rank's random streams are gathered; with
-    ``keep_last`` the older files are pruned. Returns the path on rank 0."""
+    ``keep_last`` the older files are pruned. ``comm_state`` is the comm
+    hook's residual (native: this rank's vector, gathered from every rank;
+    managed: one tensor per parameter), or None. Returns the path on rank
+    0."""
     if layout == MANAGED and keys is None:
         raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
     device = next(model.parameters()).device
@@ -418,10 +469,17 @@ def save_on_main(
         flat_state = gather_flat_state(optimizer)
         opt = _field(layout, "opt_state")
         flat_keys = [f"{opt}.{slot}" for slot in _opt_slots(optimizer)[0]]
+    residual, residual_per = {}, None
+    if comm_state is not None and layout == NATIVE:  # every rank gathers
+        residual = {_COMM: gather_residual(model, optimizer, comm_state)}
+        residual_per = comm_state.numel()
+    elif comm_state is not None:
+        residual = _managed_residual_payload(model, comm_state)
 
     def write_fn():
         os.makedirs(save_dir, exist_ok=True)
         payload = state_payload(layout, model, optimizer, flat_state)
+        payload.update(residual)
         if layout == NATIVE:
             payload[".step"] = np.asarray(step, np.int32)
             payload[f"{_PRNG}.rng"] = jax_run_key(seed or 0)
@@ -432,7 +490,7 @@ def save_on_main(
         path = write(
             checkpoint_path(save_dir, epoch, PREFIX[layout]), payload,
             meta={"epoch": epoch, "completed": int(completed)},
-            topology=topology_record(world_size, flat_keys),
+            topology=topology_record(world_size, flat_keys, residual_per),
         )
         if keep_last is not None:
             prune_checkpoints(save_dir, keep_last, PREFIX[layout])
@@ -468,13 +526,8 @@ def _refuse_unported(path: str, stored: dict) -> None:
         refuse(f"a model={topo['model_size']} mesh", "tensor parallel")
     for k in stored:
         key = k[len(_BF16):] if k.startswith(_BF16) else k
-        if key.startswith((".comm_state", "['comm_state']")):
-            refuse("a comm hook's error-feedback residual (comm_state)", "comm hooks")
         if key.startswith((".skipped_steps", "['skipped_steps']")):
             refuse("the numerical guard's skip counters (skipped_steps)", "numerical guard")
-    kinds = {info.get("kind") for info in (topo.get("leaves") or {}).values()}
-    if "per_replica" in kinds:
-        refuse("per-replica comm residuals", "comm hooks")
 
 
 def _stored(path: str, stored: dict, key: str, dtype, bf16: bool = False) -> np.ndarray:
@@ -619,8 +672,58 @@ def _restore_opt(path, stored, layout, name, model, optimizer, params_like) -> N
             optimizer.state[p] = state
 
 
+def _residual_missing(path: str, key: str) -> None:
+    logger.warning(
+        "checkpoint %s predates comm_hook state: leaf %r starts at its zero initialization",
+        path, key,
+    )
+
+
+@torch.no_grad()
+def _restore_residual(path, stored, layout, name, model, optimizer, params_like, residual) -> None:
+    """The file's comm-hook residual into ``residual`` (in place): native,
+    this rank's slice of the per-replica vector (permuted into the port's
+    order under ZeRO-1); managed, each parameter's tensor. Zeros when the
+    file has none."""
+    if layout == MANAGED:
+        prefix = _field(MANAGED, "comm_state")
+        if not any(k.startswith(prefix) for k in stored):
+            _residual_missing(path, prefix)
+            for r in residual:
+                r.zero_()
+            return
+        arrays = torch_layout(name, _read_tree(path, stored, prefix, params_like))
+        for (pname, _), r in zip(model.named_parameters(), residual):
+            r.copy_(torch.from_numpy(arrays[pname]))
+        return
+    if _COMM not in stored:
+        _residual_missing(path, _COMM)
+        residual.zero_()
+        return
+    topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
+    world, per = get_world_size(), residual.numel()
+    saved = int(topo.get("world_size") or world)
+    if saved != world:
+        raise NotImplementedError(
+            f"checkpoint {path} holds the per-replica comm-hook residual of a {saved}-replica "
+            f"world, and this run has {world}; redistributing it is not implemented in "
+            "tpuddp_torch yet (ROADMAP.md Queue 1 item 8: elastic reshard)"
+        )
+    arr = _stored(path, stored, _COMM, np.float32)
+    if arr.shape != (world * per,):
+        raise ValueError(
+            f"checkpoint {path}: leaf {_COMM!r} has shape {arr.shape} but the model expects "
+            f"{(world * per,)}"
+        )
+    mine = arr[get_rank() * per:(get_rank() + 1) * per].copy()
+    if isinstance(optimizer, optim.ShardedUpdate):
+        raw = optimizer.spec.raw
+        mine[:raw] = flat_from_jax(name, model, mine[:raw].copy())
+    residual.copy_(torch.from_numpy(mine))
+
+
 def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
-             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+             generator: Optional[torch.Generator] = None, comm_state=None) -> Dict[str, Any]:
     with np.load(path) as data:
         stored = dict(data.items())
     _refuse_unported(path, stored)
@@ -631,6 +734,8 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
     model.load_state_dict(state_dict_from_jax(name, params, mstate))
     if optimizer is not None:
         _restore_opt(path, stored, layout, name, model, optimizer, params_like)
+    if comm_state is not None:
+        _restore_residual(path, stored, layout, name, model, optimizer, params_like, comm_state)
     if RNG_KEY in stored:
         restore_rng(json.loads(str(stored[RNG_KEY])), generator, next(model.parameters()).device)
     meta = {k[len(_META):]: int(a) for k, a in stored.items() if k.startswith(_META)}
@@ -644,14 +749,15 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
 
 
 def load(path: str, model: torch.nn.Module, optimizer=None, *, layout: str = NATIVE,
-         generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """Restore ``model`` (and ``optimizer``'s state, and the random streams)
-    from the intact file ``path`` in ``layout``; returns its ``__meta__``
-    scalars, and a native file's ``.step`` as ``step`` or a managed file's
+         generator: Optional[torch.Generator] = None, comm_state=None) -> Dict[str, Any]:
+    """Restore ``model`` (and ``optimizer``'s state, the comm hook's
+    residual ``comm_state`` in place, and the random streams) from the
+    intact file ``path`` in ``layout``; returns its ``__meta__`` scalars,
+    and a native file's ``.step`` as ``step`` or a managed file's
     ``bwd_counter``, ``rng_key`` and ``bwd_key``."""
     if not verify_file(path):
         raise ValueError(f"checkpoint {path} does not match its sha256 manifest")
-    return _restore(path, layout, model, optimizer, generator)
+    return _restore(path, layout, model, optimizer, generator, comm_state)
 
 
 # ---------------------------------------------------------- files of a run --
@@ -730,20 +836,20 @@ def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> in
 
 
 def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
-                   layout: str = NATIVE, generator: Optional[torch.Generator] = None
-                   ) -> Tuple[int, Dict[str, Any]]:
+                   layout: str = NATIVE, generator: Optional[torch.Generator] = None,
+                   comm_state=None) -> Tuple[int, Dict[str, Any]]:
     """Restore the newest intact file of ``layout`` in ``save_dir``; returns
     ``(next_epoch, meta)``: the epoch to train next (0 when there is no
     file, the file's epoch after an emergency save, ``completed=0``, else
     the one after it) and what :func:`load` returns (empty without a
-    file)."""
+    file). ``comm_state`` is restored in place as :func:`load` does."""
     prefix = PREFIX[layout]
     sweep_stale_tmp(save_dir, prefix)
     found = latest(save_dir, prefix)
     if found is None:
         return 0, {}
     path, epoch = found
-    meta = _restore(path, layout, model, optimizer, generator)
+    meta = _restore(path, layout, model, optimizer, generator, comm_state)
     if not meta.get("completed", 1):
         logger.warning(
             "resuming from EMERGENCY checkpoint %s (preempted during epoch %d); that "

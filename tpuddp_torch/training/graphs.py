@@ -15,8 +15,9 @@ dispatches each group of that length as one call. One engine,
 A caller hands :meth:`StepGraphs.run` a signature (a dictionary key: K and
 everything else that a capture holds fixed, such as each step's input
 shapes and dtypes and whether it has a flip mask, the criterion, the
-augment or transform, the clip, the trained parameters and the optimizer's
-hyperparameters, which reach the captured kernels by value), the objects
+augment or transform, the clip, the trained parameters, the optimizer's
+hyperparameters, which reach the captured kernels by value, and the comm
+hook, its top-k density and bucket plan), the objects
 whose ids the key takes, the group's input tensors and a function of those
 inputs that runs the K steps and returns the group's output (a tensor or a
 tuple of tensors). For each signature
@@ -44,6 +45,11 @@ Dropout draws from PyTorch's CUDA generator, which a capture registers: each
 replay advances it as the eager steps would. Flip masks are drawn on the
 host before the group, in step order, and enter as inputs; nothing inside a
 group may read a device value on the host or copy from host memory.
+
+State that a group updates and later groups read (parameters, optimizer
+state, the comm hook's error-feedback residual) lives in tensors allocated
+before the capture and is updated in place, so a replay and the eager
+steps it stands for leave the same state.
 
 A failed capture or replay raises; nothing falls back to eager steps.
 ``clear()`` drops every graph (anything that replaces the storage that a
@@ -100,15 +106,17 @@ def check_graph_safe(optimizer) -> None:
 def signature(opt, queue) -> tuple:
     """The managed flush's key: per step the shapes and dtypes of ``x``,
     ``y``, ``w`` and the flip mask (None without one) and the criterion;
-    the augment, the clip, the parameters that train and the optimizer's
-    hyperparameters. Objects enter by ``id``; :class:`StepGraphs` keeps them
-    alive while the key is in use, so no id is reused."""
+    the augment, the clip, the parameters that train, the optimizer's
+    hyperparameters and the comm hook with its density. Objects enter by
+    ``id``; :class:`StepGraphs` keeps them alive while the key is in use, so
+    no id is reused."""
     model = opt.model
     steps = tuple(shapes((req.x, req.y, req.w, req.flip_mask)) + (id(req.criterion),)
                   for req in queue)
     acc = model.accelerator
     return (steps, id(acc.augment), acc.clip_grad_norm,
-            tuple(id(p) for p in model._params()), hyperparameters(opt.optimizer))
+            tuple(id(p) for p in model._params()), hyperparameters(opt.optimizer),
+            acc.comm_hook, acc.topk_density)
 
 
 def held(opt, queue) -> tuple:

@@ -40,14 +40,17 @@ gives each of them its time over K. Also the time the pass waited for host
 batches (``host_stall_s``) and the resolved ``scan_steps`` of both passes.
 Process 0 appends every row to ``save_dir/history.jsonl``; it also says
 whether the update was sharded (``weight_update_sharding``, ZeRO-1: each
-checkpoint then gathers the moment shards from every rank).
+checkpoint then gathers the moment shards from every rank), the comm hook
+and one update's gradient wire bytes with it and in float32
+(``grad_comm_bytes_per_update``, ``_f32``, as the JAX rows name them).
 
 Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
 ``$TPUDDP_AUTO_RESUME``) the newest intact ``ckpt_{epoch}.npz`` in
 ``save_dir`` is restored (parameters, buffers, the optimizer's state, the
-micro-batch count, every rank's random streams) and the run continues at
-the epoch after it; ``keep_last=K`` keeps the K newest checkpoints after
-each save.
+micro-batch count, every rank's random streams, the comm hook's
+error-feedback residual, which the wrap's graphs hold and update in place)
+and the run continues at the epoch after it; ``keep_last=K`` keeps the K
+newest checkpoints after each save.
 """
 
 from __future__ import annotations
@@ -237,7 +240,8 @@ def run_training_loop(
                 log("Auto-resume requested but no save_dir configured; starting fresh.")
         else:
             start_epoch, meta = ckpt.restore_latest(
-                save_dir, ddp.model, ddp.optimizer, generator=ddp.generator
+                save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
+                comm_state=getattr(ddp, "residual", None),
             )
             ddp.step = meta.get("step", ddp.step)
             ddp.clear_graphs()  # the restore replaced what a graph writes
@@ -306,7 +310,7 @@ def run_training_loop(
             ckpt.save_on_main(
                 save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
                 generator=ddp.generator, world_size=world_size, keep_last=keep_last,
-                step=ddp.step,
+                step=ddp.step, comm_state=getattr(ddp, "residual", None),
             )
         record = {
             "epoch": epoch,
@@ -322,6 +326,9 @@ def run_training_loop(
             "pipeline": pipeline.as_dict(),
             "grad_accumulation": accum,
             "weight_update_sharding": bool(getattr(ddp, "weight_update_sharding", False)),
+            "comm_hook": getattr(ddp, "comm_hook", "none"),
+            "grad_comm_bytes_per_update": getattr(ddp, "grad_comm_bytes_per_step", None),
+            "grad_comm_bytes_per_update_f32": getattr(ddp, "grad_comm_bytes_per_step_f32", None),
             "scan_steps": train_k,
             "eval_scan_steps": eval_k,
             "world_size": world_size,

@@ -34,6 +34,16 @@ Under ``weight_update_sharding`` (ZeRO-1) the optimizer is a
 flatten the gradients, reduce-scatter, divide by the world size, clip,
 update the shard, all-gather. The DDP wrap then passes no gradient sync and
 no clip to these cores; everything else is unchanged.
+
+With a comm hook (:mod:`tpuddp_torch.parallel.comm`) the DDP wrap's
+gradient sync is :func:`comm_sync`, the exchange of
+``tpuddp/training/step.py:390-396`` in its order of operations: flatten the
+gradients in the JAX package's flat order, add the error-feedback residual,
+compress, sum and decompress per bucket, divide by the world size, keep
+``send - kept`` as the new residual, unflatten; the clip (on the
+decompressed mean) and the optimizer follow as before. Under accumulation
+it runs once per cycle, at its boundary; under ZeRO-1 the wrapped
+optimizer's reduce-scatter is the hooked one.
 """
 
 from __future__ import annotations
@@ -136,6 +146,25 @@ def grad_core(
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     return loss.detach(), w.sum()
+
+
+@torch.no_grad()
+def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[torch.Tensor]) -> None:
+    """The hooked gradient exchange: each parameter's ``.grad`` (None counts
+    as zeros) flattened into one vector in the JAX order (``order``, a
+    :class:`~tpuddp_torch.models.convert.JaxFlatOrder`) and zero-padded to
+    ``comm.total``, through ``comm.reduce`` (``residual`` updated in place),
+    then each ``.grad`` set to its view of the mean, in the port's order."""
+    port = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    g_vec = order.to_jax(port)
+    if comm.total > order.raw:
+        g_vec = torch.cat([g_vec, g_vec.new_zeros(comm.total - order.raw)])
+    reduced, _ = comm.reduce(g_vec, residual)
+    flat, offset = order.from_jax(reduced), 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
 
 
 def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None) -> None:
