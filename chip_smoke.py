@@ -200,14 +200,39 @@ Phases, each printing one line (the first failure exits non-zero):
    - "12 resume": ``digits_h100.yaml`` with int8_ef on both paths, epoch 1
      resumed against the straight run: every array equal.
 
+13. the segmented-overlap step (``comm_overlap``, the native default
+   ``auto``; ``training/step.py::SegmentedSync``: each backward segment's
+   exchange issued from a gradient hook on a side stream as its gradients
+   land), AlexNet@224 b128 float32 at ``bucket_cap_mb: 25`` (three
+   segments):
+   - "13 segmented vs barrier": per hook (``none`` and the four of phase
+     12), 3 chunks of 4 steps from one state through the barrier step
+     eagerly (the reference), the segmented step eagerly and replayed, and
+     the barrier step replayed: max |d| over parameters, the last update's
+     gradients, Adam's moments and the residual, which must be 0; every
+     segment exchanged from inside the backward (the wrap's host counts);
+     one Adam launch per update; then the two replayed wraps' chunks in
+     turns (barrier, segmented, segmented, barrier; eight rounds): their
+     step medians. Then one A = 2 run with int8_ef the same way (one
+     round);
+   - "13 stream overlap": for ``int8_ef``, one chunk of each wrap eagerly
+     and one replayed under ``torch.profiler``: the device streams, the
+     busiest one's busy ms (eagerly the backward's stream) and the others'
+     (eagerly the side stream), and the ms in which the busiest and another
+     ran kernels at once (not measured where the trace holds no device
+     events);
+   - "13 plan": the resolved ``comm_overlap_meta`` at 25 (3 segments) and
+     at 250 MB (one segment: the barrier step, with the JAX package's
+     reason).
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
 
 Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
-update on AlexNet at world 1 and, counted, at world 8), one with the
-optimizers', one with every kernel's, the script's seconds, the
+update on AlexNet at world 1 and, counted, at world 8), one with phase
+13's, one with the optimizers', one with every kernel's, the script's seconds, the
 card's name and power limit again, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -215,6 +240,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2296,6 +2322,190 @@ def hook_bytes():
                    "world_8_f32": comm.comm_bytes_for_hook(sizes, 8, "none")}
             for hook in ("none",) + HOOKS}
 
+# ---------------------------------------------------------------- phase 13 --
+
+# each hook's segmented step against its barrier step (AlexNet at
+# bucket_cap_mb 25: three segments); (step, replay) in the order of the runs
+OVERLAP_HOOKS = ("none",) + HOOKS
+OVERLAP_RUNS = (("barrier", False), ("segmented", False), ("segmented", True), ("barrier", True))
+OVERLAP_K, OVERLAP_CHUNKS, OVERLAP_ROUNDS = 4, 3, 8
+
+
+def _overlap_ddp(hook: str, overlap, replay: bool, init, accum: int = 1, cap: float = 25.0):
+    """The native AlexNet wrap of phase 13 holding the weights ``init``."""
+    with torch.device("meta"):
+        model = AlexNet(num_classes=10)
+    model.to_empty(device="cuda").load_state_dict(init)
+    gen = torch.Generator().manual_seed(1)
+    ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                  augment=make_train_augment(size=224, flip=True, generator=gen),
+                                  device="cuda", generator=gen, grad_accumulation=accum, comm_hook=hook,
+                                  bucket_cap_mb=cap, comm_overlap=overlap)
+    ddp._graph_replay = replay
+    return ddp
+
+
+def _ddp_state(ddp):
+    """Parameters, the last update's gradients, Adam's moments and the
+    residual, cloned."""
+    state = {}
+    for n, p in ddp.model.named_parameters():
+        state[f"param/{n}"] = p.detach().clone()
+        state[f"grad/{n}"] = p.grad.clone()
+    for i, st in enumerate(ddp.optimizer.state.values()):
+        state.update({f"moment/{i}/{k}": t.clone() for k, t in st.items() if torch.is_tensor(t) and t.numel() > 1})
+    if ddp.residual is not None:
+        state["residual"] = ddp.residual.clone()
+    return state
+
+
+def _union(spans):
+    """The union of ``(start, end)`` spans as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def stream_overlap(ddp, batches, replay: bool):
+    """One chunk (eager, or replayed) under ``torch.profiler``: the device
+    streams that ran kernels, the busiest one's busy ms (eagerly: the
+    backward's stream), the others' (eagerly: the side stream), and the ms
+    in which the busiest and another ran kernels at once. A replay's
+    kernels run on streams the driver picks for the graph's nodes, so there
+    only the last number says something. Not measured where the trace holds
+    no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    was, ddp._graph_replay = ddp._graph_replay, replay
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ddp.train_step_many(batches)
+        torch.cuda.synchronize()
+    ddp._graph_replay = was
+    streams = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            streams.setdefault(e.device_resource_id, []).append((e.time_range.start, e.time_range.end))
+    if not streams:
+        return {"not_measured": "the trace holds no device events"}
+    unions = {s: _union(v) for s, v in streams.items()}
+    busy = {s: sum(b - a for a, b in u) / 1e3 for s, u in unions.items()}
+    main = max(busy, key=busy.get)
+    others = _union([iv for s, u in unions.items() if s != main for iv in u])
+    both = sum(max(0.0, min(b, d) - max(a, c)) for a, b in unions[main] for c, d in others)
+    return {"streams": len(streams), "kernels": sum(len(v) for v in streams.values()),
+            "busiest_busy_ms": busy[main], "others_busy_ms": sum(v for s, v in busy.items() if s != main),
+            "concurrent_ms": both / 1e3}
+
+
+def overlap_pair(hook: str, batches, init, accum: int = 1, rounds: int = OVERLAP_ROUNDS,
+                 trace: bool = False):
+    """Phase 13 for one hook: 3 chunks of 4 AlexNet@224 b128 float32 steps
+    (A = ``accum``) from the weights ``init``, barrier eagerly (the reference),
+    segmented eagerly, segmented replayed and barrier replayed: max |d|
+    over parameters, gradients, moments and the residual, which must be
+    0; one Adam launch per update and 1 capture, 2 replays per replayed
+    run; then the two replayed wraps' chunks timed in turns (barrier,
+    segmented, segmented, barrier; ``rounds`` times) as step medians."""
+    started = time.perf_counter()
+    k, updates = OVERLAP_K, OVERLAP_K * OVERLAP_CHUNKS // accum
+    states, launches, kinds, kept, meta, counts = {}, {}, {}, {}, None, None
+    for label, replay in OVERLAP_RUNS:
+        gc.collect()  # earlier wraps and their graphs, which cycles may hold
+        torch.cuda.empty_cache()
+        ddp = _overlap_ddp(hook, label == "segmented", replay, init, accum)
+        if label == "segmented":
+            meta = ddp.comm_overlap_meta
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        graphs.reset_stats()
+        for c in range(OVERLAP_CHUNKS):
+            ddp.train_step_many(batches[c * k:(c + 1) * k])
+        torch.cuda.synchronize()
+        run = f"{label} {'replay' if replay else 'eager'}"
+        launches[run] = fused_adam.kernel.launches
+        kinds[run] = _kinds(graphs.stats)
+        states[run] = _ddp_state(ddp)
+        if label == "segmented" and not replay:
+            counts = dict(ddp._overlap.counts)
+        if replay:
+            kept[label] = ddp
+        del ddp
+    ref = states.pop("barrier eager")
+    diff = {run: {part: max(float((st[key].double() - ref[key].double()).abs().max())
+                            for key in ref if key.startswith(part))
+                  for part in ("param", "grad", "moment", "residual") if any(key.startswith(part) for key in ref)}
+            for run, st in states.items()}
+    del states, ref
+    checks = {
+        "segmented: enabled, 3 segments": meta == {"enabled": True, "segments": 3, "reason": None},
+        "every segment exchanged from inside the backward": counts == {"hook": 3 * updates, "join": 0},
+        "max |d| = 0": all(v == 0.0 for d in diff.values() for v in d.values()),
+        "1 launch per update": all(n == updates for n in launches.values()),
+        "1 capture, 2 replays per replayed run": all(
+            kinds[f"{label} replay"] == {"train": (1, OVERLAP_CHUNKS - 1)} for label in kept),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 13 segmented vs barrier, {hook}, A={accum}, failed {failed}: "
+                         f"meta {meta}, counts {counts}, diff {diff}, launches {launches}, graphs {kinds}")
+    times = {"barrier": [], "segmented": []}
+    reset_counts()
+    for _ in range(rounds):
+        for label in ("barrier", "segmented", "segmented", "barrier"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept[label].train_step_many(batches[:k])
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3 / k)
+    launches["turns"] = fused_adam.kernel.launches
+    if launches["turns"] != 4 * rounds * k // accum:
+        raise SystemExit(f"chip_smoke: 13 turns of {hook}: {launches['turns']} Adam launches")
+    medians = {label: statistics.median(v) for label, v in times.items()}
+    traced = None
+    if trace:
+        traced = {f"{label} {'replay' if replay else 'eager'}": stream_overlap(kept[label], batches[:k], replay)
+                  for label in kept for replay in (False, True)}
+    del kept
+    torch.cuda.empty_cache()
+    phase("13 segmented vs barrier", f"AlexNet@224 b128 float32 comm_hook {hook}, bucket_cap_mb 25, A={accum}, "
+          f"{OVERLAP_CHUNKS} chunks of {k} from one state: comm_overlap_meta {meta}, segment exchanges "
+          f"{counts} (eager run); max |d| vs the eager barrier run "
+          + "; ".join(f"{run} " + " ".join(f"{p} {v:.3g}" for p, v in d.items()) for run, d in diff.items())
+          + f" (bitwise); Adam launches {launches}; replayed step median barrier {medians['barrier']:.3f} "
+          f"ms, segmented {medians['segmented']:.3f} ms ({rounds} rounds of b,s,s,b, {k} steps a chunk); "
+          f"{time.perf_counter() - started:.1f} s")
+    if traced is not None:
+        phase("13 stream overlap", f"comm_hook {hook}, one chunk of {k} of each wrap under torch.profiler, "
+              "eagerly and replayed: " + "; ".join(f"{label}: {json.dumps(t)}" for label, t in traced.items()))
+    return dict(hook=hook, accum=accum, meta=meta, segment_exchanges=counts, max_abs_diff=diff,
+                launches=launches, step_ms_median=medians, step_ms=times, trace=traced)
+
+
+def overlap_phase():
+    """Phase 13: every hook's segmented AlexNet step against its barrier
+    step (eager and replayed), one A = 2 cycle with int8_ef, and the
+    resolved plan at bucket_cap_mb 250 (one segment: the barrier step)."""
+    gen = torch.Generator().manual_seed(3)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32))
+               for _ in range(OVERLAP_K * OVERLAP_CHUNKS)]
+    torch.manual_seed(0)
+    init = AlexNet(num_classes=10).state_dict()
+    pairs = [overlap_pair(hook, batches, init, trace=hook == "int8_ef") for hook in OVERLAP_HOOKS]
+    pairs.append(overlap_pair("int8_ef", batches, init, accum=2, rounds=1))
+    single = _overlap_ddp("none", "auto", False, init, cap=250.0).comm_overlap_meta
+    if single["enabled"] or "single bucket-aligned segment at bucket_cap_mb=250" not in single["reason"]:
+        raise SystemExit(f"chip_smoke: AlexNet at bucket_cap_mb 250 resolved {single}")
+    phase("13 plan", f"AlexNet, comm_overlap auto: bucket_cap_mb 25 {pairs[0]['meta']}; 250 {single}")
+    torch.cuda.empty_cache()
+    return {"pairs": pairs, "cap_250_meta": single}
+
 
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
@@ -2411,6 +2621,9 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_12_s = time.perf_counter() - t12
+    t13 = time.perf_counter()
+    overlap_13 = overlap_phase()
+    phase_13_s = time.perf_counter() - t13
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -2457,6 +2670,7 @@ def main() -> None:
         "managed_int8_ef_graph_vs_eager": managed_12, "zero1_bf16_ef": zero1_12,
         "bytes_per_update_alexnet": hook_bytes(), "phase_12_s": phase_12_s,
     }}))
+    print(json.dumps({"overlap": {**overlap_13, "phase_13_s": phase_13_s}}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -2480,12 +2694,15 @@ def main() -> None:
         **{f"{k} digits int8_ef resumed": n for k, n in resume_12.items()},
     }
     phase_12_bf16 = {"native ZeRO-1 fast file bf16_ef": zero1_12["launches"]}
+    phase_13 = {f"native AlexNet {p['hook']} A={p['accum']} {run} (phase 13)": n
+                for p in overlap_13["pairs"] for run, n in p["launches"].items()}
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
-               "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12}
+               "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
+               **phase_13}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -2507,11 +2724,11 @@ def main() -> None:
                               **{k: 0 for k in phase_9}, **phase_9_bf16,
                               **{k: 0 for k in phase_10}, **phase_10_bf16, **phase_11,
                               **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
-                              **phase_12_bf16},
+                              **phase_12_bf16, **{k: 0 for k in phase_13}},
          "flat_shard": flat[torch.bfloat16]},
     ]}))
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
-          f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s)")
+          f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -26,7 +26,9 @@ of one launch (the port's ``run_ddp_training``, world 2, CPU, Gloo):
 
 With a comm hook, every rank also saves its error-feedback residual to
 ``{name}_residual_{rank}.npz`` (native: ``vec``; managed: one array per
-parameter name).
+parameter name). A native "run" also saves ``{name}_overlap_{rank}.json``:
+the wrap's ``comm_overlap_meta`` and, for the segmented step, how many
+segment exchanges were issued from the backward and at the join.
 
 Imports only torch, numpy and ``tpuddp_torch``.
 """
@@ -67,6 +69,8 @@ def build(rank, world_size, path, training):
                 log=lambda *_: None)
 
         train.residual = lambda: ddp.residual
+        train.overlap = lambda: {"meta": ddp.comm_overlap_meta,
+                                 "counts": None if ddp._overlap is None else ddp._overlap.counts}
         return ddp.model, ddp.optimizer, train
     acc, model, opt, train_loader, test_loader, criterion, eval_transform = (
         train_accelerate.build_training(training, "cpu"))
@@ -158,6 +162,9 @@ def worker(rank, world_size, save_dir, optional_args, workdir):
             os.makedirs(job["save_dir"], exist_ok=True)
         history = train(job.get("save_dir"), bool(job.get("resume")))
         save(workdir, job["name"], rank, model, optimizer, history, train.residual())
+        if hasattr(train, "overlap"):
+            with open(os.path.join(workdir, f"{job['name']}_overlap_{rank}.json"), "w") as f:
+                json.dump(train.overlap(), f)
 
 
 if __name__ == "__main__":

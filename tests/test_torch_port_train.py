@@ -256,7 +256,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("remat", True),
-    ("comm_topology", "hierarchical"), ("comm_overlap", True),
+    ("comm_topology", "hierarchical"),
     ("guard", True), ("snapshot", True),
     ("pretrained_path", "/x.pt"), ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),

@@ -112,6 +112,11 @@ first update and updated in place, so a fused flush's graph holds it;
 wire here. ``comm_topology`` other than ``flat`` is the JAX package's
 ``ValueError``.
 
+``comm_overlap`` (``tpuddp/accelerate.py:1417-1440``): accepted for parity
+with the native path, which has the segmented-overlap step; the managed
+path keeps the barrier step, so ``true`` is the JAX package's
+``ValueError`` and ``comm_overlap_meta`` records its reason.
+
 Batches may arrive already on the device (the entry point stages them,
 ``training/pipeline.py``); a host array is copied from pinned memory without
 blocking. ``save_model``/``load_model`` and ``save_state``/``load_state``
@@ -728,7 +733,8 @@ class Accelerator:
     ``topk_density``: the gradient comm hook, emulated on the aggregated
     gradient; ``bucket_cap_mb`` is accepted for parity with the native
     path (each parameter is its own bucket here); ``comm_topology`` must be
-    ``flat``."""
+    ``flat``; ``comm_overlap`` must not be true (``comm_overlap_meta`` says
+    why)."""
 
     def __init__(
         self,
@@ -743,10 +749,21 @@ class Accelerator:
         bucket_cap_mb: float = comm.DEFAULT_BUCKET_CAP_MB,
         comm_topology: str = "flat",
         topk_density: float = comm.DEFAULT_TOPK_DENSITY,
+        comm_overlap="auto",
     ):
         self.comm_hook = comm.validate_hook(comm_hook)
         self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
         comm.validate_topology(comm_topology)
+        overlap = comm.normalize_overlap(comm_overlap)
+        if overlap is True:
+            raise ValueError(
+                "comm_overlap=true needs the explicit API (DistributedDataParallel / "
+                "train_native.py, mode='shard_map'): the managed path's collective is "
+                "XLA-inserted and cannot be issued per backward segment"
+            )
+        self.comm_overlap_meta = {"enabled": False, "segments": None, "reason": (
+            "disabled" if overlap is False else
+            "managed path: the gradient collective is XLA-inserted, not issued per segment")}
         if comm_topology != "flat":
             raise ValueError(
                 "comm_topology='hierarchical' needs the explicit API "

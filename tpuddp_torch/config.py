@@ -15,7 +15,9 @@ The port implements the native DDP main path and the managed
 ``gradient_accumulation_steps``, ``deferred_metrics``, ``prefetch``
 (``PrefetchLoader`` threads), ``comm_hook`` (``bf16``, ``bf16_ef``,
 ``int8_ef``, ``topk_ef``, with ``bucket_cap_mb`` and ``topk_density``;
-:mod:`tpuddp_torch.parallel.comm`), ``pipeline`` (staged host-to-device copies,
+:mod:`tpuddp_torch.parallel.comm`), ``comm_overlap`` (the native path's
+segmented-overlap step; the managed path keeps the barrier step),
+``pipeline`` (staged host-to-device copies,
 :func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
 false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
 (checkpoints in the JAX package's layout) and the managed path's
@@ -97,8 +99,6 @@ _UNSUPPORTED = {
     "comm_topology": (
         lambda v: (v or "flat") == "flat", "Queue 1 item 8: hierarchical topology"
     ),
-    # auto and false both mean the barrier step this slice runs
-    "comm_overlap": (lambda v: v in ("auto", False), "Queue 1 item 8: overlap"),
     "remat": (lambda v: not v, "Queue 1 item 8: remat"),
     "guard": (lambda v: not v, "Queue 1 item 8: numerical guard"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
@@ -182,11 +182,14 @@ def check_weight_update_sharding(training: Dict[str, Any], model_size: int = 1) 
 
 def check_comm_hook(training: Dict[str, Any]) -> None:
     """The JAX package's ``ValueError`` for an unknown ``comm_hook``, a
-    ``bucket_cap_mb`` not above 0 or a ``topk_density`` outside (0, 1]
-    (``tpuddp/parallel/comm.py:138-175``; a null knob is its default)."""
+    ``bucket_cap_mb`` not above 0, a ``topk_density`` outside (0, 1]
+    (``tpuddp/parallel/comm.py:138-175``; a null knob is its default) or a
+    ``comm_overlap`` other than true, false or auto
+    (``tpuddp/parallel/ddp.py:44-61``)."""
     from tpuddp_torch.parallel import comm
 
     comm.validate_hook(str(training.get("comm_hook") or "none"))
+    comm.normalize_overlap(training.get("comm_overlap", "auto"))
     cap = training.get("bucket_cap_mb")
     comm.validate_bucket_cap(comm.DEFAULT_BUCKET_CAP_MB if cap is None else cap)
     density = training.get("topk_density")

@@ -310,6 +310,36 @@ def jax_sizes(name: str, model: torch.nn.Module) -> Tuple[int, ...]:
     return tuple(numel[pname] for pname in sorted(places, key=places.get))
 
 
+def jax_layer_sizes(name: str, model: torch.nn.Module) -> Tuple[int, ...]:
+    """The element count of each child of the JAX package's ``Sequential``
+    for ``model`` (0 for a parameter-free child; AlexNet's 22 children),
+    which the segmented-overlap step's :func:`~tpuddp_torch.parallel.comm.
+    make_segments` takes. The port's AlexNet is torchvision's nested
+    layout, so the children are the JAX package's, never
+    ``model.children()``."""
+    places = jax_places(name, model)
+    n_layers = _ALEXNET_LAYERS if _base(name) == "alexnet" else len(model)
+    sizes = [0] * n_layers
+    for pname, p in model.named_parameters():
+        sizes[places[pname][0]] += p.numel()
+    return tuple(sizes)
+
+
+def jax_param_span(name: str, model: torch.nn.Module, layers) -> Tuple[int, int]:
+    """The port parameters ``[first, end)`` (by ``model.parameters()``
+    index) of the JAX children ``[layers[0], layers[1])``: a contiguous run
+    in every model here, else a ``ValueError``."""
+    places = jax_places(name, model)
+    inside = [i for i, (n, _) in enumerate(model.named_parameters())
+              if layers[0] <= places[n][0] < layers[1]]
+    first, end = (inside[0], inside[-1] + 1) if inside else (0, 0)
+    if inside != list(range(first, end)):
+        raise ValueError(
+            f"the parameters of JAX children {tuple(layers)} are not contiguous in the port's "
+            "parameter order")
+    return first, end
+
+
 class JaxFlatOrder:
     """The permutation between the port's flat parameter order and the JAX
     package's (:func:`flat_to_jax`), as two int64 index tensors on
@@ -317,11 +347,26 @@ class JaxFlatOrder:
     a flat tensor (one gather), ``from_jax(vec)`` its inverse. The native
     comm hooks exchange the gradient in the JAX order, so that its buckets,
     their int8 scales and top-k sets, and the error-feedback residual are
-    the JAX package's."""
+    the JAX package's.
 
-    def __init__(self, name: str, model: torch.nn.Module, device=None):
-        raw = sum(p.numel() for p in model.parameters())
-        perm = flat_to_jax(name, model, np.arange(raw, dtype=np.int64))
+    With ``layers = (a, b)`` it is the permutation of one backward segment:
+    the parameters of the JAX children ``[a, b)`` (:func:`jax_param_span`),
+    concatenated in the port's order, against their span of the JAX order.
+    ``perm``, when given, is ``flat_to_jax`` of the port's element indices
+    (one computation for a model's segments)."""
+
+    def __init__(self, name: str, model: torch.nn.Module, device=None, layers=None, perm=None):
+        named = list(model.named_parameters())
+        sizes = [p.numel() for _, p in named]
+        if perm is None:
+            perm = flat_to_jax(name, model, np.arange(sum(sizes), dtype=np.int64))
+        first, end, jax_lo = 0, len(named), 0
+        if layers is not None:
+            first, end = jax_param_span(name, model, layers)
+            places = jax_places(name, model)
+            jax_lo = sum(s for (n, _), s in zip(named, sizes) if places[n][0] < layers[0])
+        port_lo, raw = sum(sizes[:first]), sum(sizes[first:end])
+        perm = perm[jax_lo:jax_lo + raw] - port_lo
         inverse = np.empty_like(perm)
         inverse[perm] = np.arange(raw, dtype=np.int64)
         device = next(model.parameters()).device if device is None else device
@@ -333,6 +378,7 @@ class JaxFlatOrder:
         """The ``raw`` elements of ``vec`` (port order) in the JAX order."""
         return vec.index_select(0, self._to_jax)
 
-    def from_jax(self, vec: torch.Tensor) -> torch.Tensor:
-        """The first ``raw`` elements of ``vec`` (JAX order) in the port's."""
-        return vec[:self.raw].index_select(0, self._from_jax)
+    def from_jax(self, vec: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The first ``raw`` elements of ``vec`` (JAX order) in the port's
+        (into ``out`` when given)."""
+        return torch.index_select(vec[:self.raw], 0, self._from_jax, out=out)

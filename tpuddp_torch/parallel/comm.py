@@ -35,8 +35,16 @@ managed path (:func:`local_quantize`) round-trips the already all-reduced
 gradient, each parameter its own bucket; the byte counter says the wire
 carried float32 there (``wire=False``).
 
-Not here yet: the hierarchical topology, the overlapped segments and the
-elastic redistribution of a residual (ROADMAP.md Queue 1 item 8).
+The segmented-overlap step (``comm_overlap``; :func:`make_segments`,
+:meth:`GradComm.exchange_segment`, ``tpuddp/parallel/comm.py:233-300,
+:393-414``) cuts the flat vector into backward **segments**: runs of the
+JAX package's ``Sequential`` children whose span is a union of whole
+buckets, so each segment's exchange can be issued as soon as its gradients
+land in backward, bucket for bucket the barrier step's arithmetic
+(:class:`~tpuddp_torch.training.step.SegmentedSync`).
+
+Not here yet: the hierarchical topology and the elastic redistribution of
+a residual (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -86,6 +94,26 @@ def validate_topology(topology: str) -> str:
     if topology not in COMM_TOPOLOGIES:
         raise ValueError(f"unknown comm_topology {topology!r}; one of {COMM_TOPOLOGIES}")
     return topology
+
+
+def normalize_overlap(value):
+    """The ``comm_overlap`` knob as True, False or ``"auto"`` (None is
+    ``"auto"``; YAML gives booleans, command-line overrides strings), as
+    ``tpuddp/parallel/ddp.py:44-61`` reads it; anything else is its
+    ``ValueError``."""
+    if value is True or value is False:
+        return value
+    if value is None:
+        return "auto"
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v == "auto":
+            return "auto"
+        if v in ("true", "1", "on", "yes"):
+            return True
+        if v in ("false", "0", "off", "no"):
+            return False
+    raise ValueError(f"comm_overlap must be true, false, or 'auto'; got {value!r}")
 
 
 def validate_bucket_cap(bucket_cap_mb) -> float:
@@ -161,6 +189,52 @@ def make_buckets(sizes: Sequence[int], total: int,
     return tuple(buckets)
 
 
+class CommSegment(NamedTuple):
+    """One backward segment of the segmented-overlap step: the children
+    ``[layers[0], layers[1])`` of the JAX package's ``Sequential``, whose
+    span ``[flat[0], flat[1])`` of the padded vector is exactly the union of
+    ``buckets`` (absolute ``(start, end)`` slices), so its exchange never
+    splits a bucket."""
+
+    layers: Tuple[int, int]
+    flat: Tuple[int, int]
+    buckets: Tuple[Tuple[int, int], ...]
+
+
+def make_segments(layer_sizes: Sequence[int], buckets: Sequence[Tuple[int, int]],
+                  total: int) -> Tuple[CommSegment, ...]:
+    """The backward segments of a ``Sequential`` whose child ``i`` holds
+    ``layer_sizes[i]`` elements (in the JAX tree order) over ``buckets`` of
+    the vector padded to ``total`` (``tpuddp/parallel/comm.py:252-300``): a
+    segment boundary at every child boundary that is also a bucket edge, so
+    a bucket that straddles two children fuses them into one segment;
+    parameter-free children join the segment before them (trailing ones
+    the last), and the padding rides the last segment."""
+    offsets = [0]
+    for n in layer_sizes:
+        offsets.append(offsets[-1] + int(n))
+    if offsets[-1] > total:
+        raise ValueError(f"layer sizes sum to {offsets[-1]} > padded total {total}")
+    offsets[-1] = total
+    edges = {s for s, _ in buckets} | {e for _, e in buckets}
+    bounds = [0]
+    for off in offsets[1:-1]:
+        if off > bounds[-1] and off in edges:
+            bounds.append(off)
+    if total > bounds[-1] or bounds == [0]:
+        bounds.append(total)
+    segs, cursor, n_layers = [], 0, len(layer_sizes)
+    for lo, hi in zip(bounds, bounds[1:]):
+        first = cursor
+        while cursor < n_layers and offsets[cursor + 1] <= hi:
+            cursor += 1
+        segs.append(CommSegment((first, cursor), (lo, hi),
+                                tuple(b for b in buckets if lo <= b[0] and b[1] <= hi)))
+    segs[-1] = segs[-1]._replace(layers=(segs[-1].layers[0], n_layers))
+    assert sum(len(s.buckets) for s in segs) == len(buckets)
+    return tuple(segs)
+
+
 def _int8_lost(b: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``b - q * scale`` rounded once to float32, as the JAX package's
     compiled step computes it (XLA contracts the product and the difference
@@ -228,12 +302,28 @@ class GradComm(NamedTuple):
             return kept if self.world == 1 else col.allgather_topk_sum(idx, q, scale, b.numel())
         raise AssertionError(f"hook {self.hook!r} has no exchange")
 
+    def _exchange_span(self, send: torch.Tensor, lo: int, buckets, lost: Optional[torch.Tensor]):
+        """The buckets of a span starting at ``lo`` through the exchange,
+        reassembled; ``send`` and ``lost`` (when given, receiving each
+        bucket's loss) hold the span's elements."""
+        sums = [self._exchange_bucket(send[s - lo:e - lo], None if lost is None else lost[s - lo:e - lo])
+                for s, e in buckets]
+        return sums[0] if len(sums) == 1 else torch.cat(sums)
+
     def _compressed_sum(self, send: torch.Tensor, lost: Optional[torch.Tensor]) -> torch.Tensor:
         """The padded vector through the bucketed exchange, reassembled;
         ``lost`` (when given) receives each bucket's loss."""
-        sums = [self._exchange_bucket(send[s:e], None if lost is None else lost[s:e])
-                for s, e in self.buckets]
-        return sums[0] if len(sums) == 1 else torch.cat(sums)
+        return self._exchange_span(send, 0, self.buckets, lost)
+
+    def exchange_segment(self, send: torch.Tensor, seg: CommSegment,
+                         lost: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One segment's slice of the bucketed exchange: ``send`` is the
+        segment's ``seg.flat`` span of this replica's send vector; returns
+        the SUM over replicas of its buckets' payloads, element for element
+        that span of what :meth:`reduce` sums over the whole vector, and
+        writes each bucket's loss into ``lost`` (the segment's span of the
+        residual) when it is given."""
+        return self._exchange_span(send, seg.flat[0], seg.buckets, lost)
 
     def reduce(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor]):
         """The bucketed hook pipeline on this replica's padded gradient

@@ -79,23 +79,41 @@ collective is skipped, the compression and the error-feedback residual
 and updated in place, so a CUDA graph holds it) are not.
 ``grad_comm_bytes_per_step`` and ``grad_comm_bytes_per_step_f32`` count
 one reduction's wire bytes with the hook and without it.
+
+``comm_overlap`` (``true``, ``false`` or ``auto``, the default;
+``tpuddp/parallel/ddp.py:44-61, :623-721``): the segmented-overlap step.
+At wrap time :meth:`~DistributedDataParallel._resolve_overlap` walks the
+JAX package's eligibility order (mode ``shard_map``, flat topology, no
+ZeRO-1, no remat, no tensor parallel, a model whose JAX counterpart is a
+``Sequential``) and cuts the JAX package's bucket plan (for every hook,
+``none`` included) into backward segments at the children of that
+``Sequential``; ``auto`` keeps the barrier step where it does not apply or
+gives one segment, with the JAX package's reason, and ``true`` raises its
+``ValueError`` there. Where it applies, every step, cycle and chunk runs
+the exchange as :class:`~tpuddp_torch.training.step.SegmentedSync`: each
+segment's exchange issued as its gradients land in backward, on a side
+stream of the card, bitwise the barrier step. ``comm_overlap_meta`` records
+``{"enabled", "segments", "reason"}`` as the JAX wrap does.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpuddp_torch.models.convert import JaxFlatOrder, jax_sizes, model_name
+from tpuddp_torch.models.convert import (
+    JaxFlatOrder, flat_to_jax, jax_layer_sizes, jax_param_span, jax_sizes, model_name,
+)
 from tpuddp_torch.optim import ShardedUpdate
 from tpuddp_torch.parallel import backend, collectives, comm
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
 from tpuddp_torch.training.step import (
-    EVAL_KEYS, TRAIN_KEYS, comm_sync, eval_core, eval_many, make_flat_param_spec, train_core,
-    train_cycle, train_many,
+    EVAL_KEYS, TRAIN_KEYS, SegmentedSync, comm_sync, eval_core, eval_many, make_flat_param_spec,
+    train_core, train_cycle, train_many,
 )
 
 
@@ -107,6 +125,12 @@ class DistributedDataParallel:
     # False: on a GPU the K-step chunks and eval groups run eagerly, the
     # reference that chip_smoke.py and the cuda tests hold the replays against
     _graph_replay = True
+    # what the port's wrap runs of the JAX package's knobs, which the
+    # overlap eligibility reads in the JAX order (config refuses the others)
+    mode = "shard_map"
+    comm_topology = "flat"
+    remat = False
+    model_size = 1
 
     def __init__(
         self,
@@ -123,8 +147,10 @@ class DistributedDataParallel:
         comm_hook: str = "none",
         bucket_cap_mb: float = comm.DEFAULT_BUCKET_CAP_MB,
         topk_density: float = comm.DEFAULT_TOPK_DENSITY,
+        comm_overlap="auto",
     ):
         self.comm_hook = comm.validate_hook(comm_hook)
+        self.comm_overlap = comm.normalize_overlap(comm_overlap)
         self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
         self.topk_density = float(topk_density)
         comm.bucket_topk(1, self.topk_density)  # the range, checked now
@@ -150,9 +176,9 @@ class DistributedDataParallel:
         self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         collectives.broadcast_one_to_all(self.model)
         self.weight_update_sharding = bool(weight_update_sharding)
-        # what the step cores sync and clip: under ZeRO-1 the wrapped
-        # optimizer's step does both
-        self._sync, self._clip = self.sync_grads, self.clip_grad_norm
+        # what the step cores clip: under ZeRO-1 the wrapped optimizer's
+        # step clips (and syncs, :attr:`_sync`)
+        self._clip = self.clip_grad_norm
         # the hook's plan: over the JAX package's leaf order (its buckets),
         # or under ZeRO-1 over the flat layout (one whole-vector bucket)
         sizes = tuple(p.numel() for p in self.model.parameters())
@@ -167,17 +193,99 @@ class DistributedDataParallel:
                 clip=self.clip_grad_norm, comm=comm.make_grad_comm(
                     spec.sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density),
             )
-            self._sync, self._clip = _no_sync, None
+            self._clip = None
         else:
             self._comm = comm.make_grad_comm(
                 sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density)
         if self._comm is not None:
-            self._order = JaxFlatOrder(model_name(self.model), self.model)
             self._residual = self._comm.init_residual(self.device)
         self.grad_comm_bytes_per_step = comm.comm_bytes_for_hook(
             sizes, world, self.comm_hook, wus=wus, bucket_cap_mb=self.bucket_cap_mb,
             density=self.topk_density)
         self.grad_comm_bytes_per_step_f32 = comm.comm_bytes_for_hook(sizes, world, "none", wus=wus)
+        self._overlap = None  # the SegmentedSync, where the segmented step applies
+        self._resolve_overlap()
+        if self._comm is not None and self._overlap is None:  # the barrier exchange's order
+            self._order = JaxFlatOrder(model_name(self.model), self.model)
+
+    def _resolve_overlap(self) -> None:
+        """The ``comm_overlap`` knob against the JAX package's eligibility
+        order and reasons (``tpuddp/parallel/ddp.py:623-715``): the
+        segments of the JAX bucket plan, and the :class:`SegmentedSync`
+        where the segmented step applies; ``auto`` falls back to the
+        barrier step with a recorded reason, ``true`` raises."""
+        want = self.comm_overlap
+        if want is False:
+            self._overlap_meta = {"enabled": False, "segments": None, "reason": "disabled"}
+            return
+        reason = None
+        try:
+            name = model_name(self.model)
+        except ValueError:
+            name = None
+        if self.mode != "shard_map":
+            reason = ("mode='auto' has no explicit collective to issue per segment (XLA places "
+                      "the psum itself)")
+        elif self.comm_topology != "flat":
+            reason = ("comm_topology='hierarchical': a per-segment scatter would move the "
+                      "error-feedback residual's owner placement")
+        elif self.weight_update_sharding:
+            reason = ("weight_update_sharding: per-segment reduce-scatter pieces do not "
+                      "reassemble into the replica's canonical full-vector shard")
+        elif self.remat:
+            reason = ("remat wraps the whole forward in one jax.checkpoint body; per-segment "
+                      "VJP staging would recompute outside it")
+        elif self.model_size > 1:
+            reason = "tensor parallelism (parallel.model > 1)"
+        elif name is None:  # every model with a JAX counterpart here is a Sequential
+            reason = ("segment boundaries are derived from Sequential children; "
+                      f"{type(self.model).__name__} has no child decomposition")
+        segments = None
+        if reason is None:
+            try:
+                sizes = jax_sizes(name, self.model)
+                total = self.world_size * -(-sum(sizes) // self.world_size)
+                buckets = (self._comm.buckets if self._comm is not None
+                           else comm.make_buckets(sizes, total, self.bucket_cap_mb))
+                segments = comm.make_segments(jax_layer_sizes(name, self.model), buckets, total)
+                spans = [jax_param_span(name, self.model, seg.layers) for seg in segments]
+            except ValueError as e:
+                reason, segments = f"segment derivation failed: {e}", None
+        if reason is None and want == "auto" and len(segments) < 2:
+            reason = (f"single bucket-aligned segment at bucket_cap_mb={self.bucket_cap_mb:g} — "
+                      "segmentation would be the barrier step with extra staging")
+        if reason is not None:
+            if want is True:
+                raise ValueError(
+                    f"comm_overlap=true refused: {reason}. Use comm_overlap='auto' to fall back "
+                    "to the barrier step where segmentation does not apply."
+                )
+            self._overlap_meta = {"enabled": False, "segments": None, "reason": reason}
+            return
+        orders = None
+        if self._comm is not None:  # each segment's permutation, from one of the model's
+            perm = flat_to_jax(name, self.model, np.arange(sum(sizes), dtype=np.int64))
+            orders = [JaxFlatOrder(name, self.model, self.device, seg.layers, perm)
+                      for seg in segments]
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._overlap = SegmentedSync(self.model, segments, spans, orders, self._comm,
+                                      self._residual, self.world_size, stream)
+        self._overlap_meta = {"enabled": True, "segments": len(segments), "reason": None}
+
+    @property
+    def _sync(self) -> Callable:
+        """What the step cores sync the gradients with: :meth:`sync_grads`,
+        nothing under ZeRO-1 (the wrapped optimizer's step syncs). Not
+        stored: a bound method kept on the wrap would make a reference
+        cycle, and a dropped wrap would hold its model's memory until a
+        garbage collection."""
+        return _no_sync if self.weight_update_sharding else self.sync_grads
+
+    @property
+    def comm_overlap_meta(self) -> dict:
+        """How ``comm_overlap`` resolved: ``{"enabled", "segments",
+        "reason"}``, as the JAX wrap's ``comm_overlap_meta``."""
+        return self._overlap_meta
 
     @property
     def residual(self) -> Optional[torch.Tensor]:
@@ -199,9 +307,12 @@ class DistributedDataParallel:
         flat.div_(self.world_size)
 
     def sync_grads(self) -> None:
-        """All-reduce mean of every gradient, through one flat buffer; with
-        a comm hook its exchange (at world 1 too)."""
+        """The barrier step's sync: all-reduce mean of every gradient,
+        through one flat buffer; with a comm hook its exchange (at world 1
+        too)."""
         if self._comm is not None:
+            if self._order is None:  # the wrap's steps exchange per segment
+                self._order = JaxFlatOrder(model_name(self.model), self.model)
             comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual)
             return
         if self.world_size == 1:
@@ -231,7 +342,7 @@ class DistributedDataParallel:
         self.step += 1
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
-            self._sync, self.sync_buffers, x, y, w, self._clip,
+            self._sync, self.sync_buffers, x, y, w, self._clip, overlap=self._overlap,
         )
 
     def train_cycle(self, batches) -> torch.Tensor:
@@ -245,6 +356,7 @@ class DistributedDataParallel:
         return train_cycle(
             self.model, self.optimizer, self.criterion, self.augment, self._sync,
             self.sync_buffers, [self.to_device(b) for b in batches], self._clip,
+            overlap=self._overlap,
         )
 
     def eval_step(self, batch) -> torch.Tensor:
@@ -301,7 +413,7 @@ class DistributedDataParallel:
             return train_many(
                 self.model, self.optimizer, self.criterion, self.augment, self._sync,
                 self.sync_buffers, t[0], [tuple(t[i:i + 3]) for i in range(1, len(t), 4)],
-                t[4::4], self._clip, self.grad_accumulation,
+                t[4::4], self._clip, self.grad_accumulation, self._overlap,
             )
 
         inputs = [sums] + [t for b, m in zip(batches, masks) for t in (*b, m)]

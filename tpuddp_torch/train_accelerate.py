@@ -230,6 +230,8 @@ def build_training(training: dict, device: str = "cuda"):
         bucket_cap_mb=float(training.get("bucket_cap_mb") or comm.DEFAULT_BUCKET_CAP_MB),
         comm_topology=str(training.get("comm_topology") or "flat"),
         topk_density=float(training.get("topk_density") or comm.DEFAULT_TOPK_DENSITY),
+        # the barrier step; true is refused (accelerate.py)
+        comm_overlap=training.get("comm_overlap", "auto"),
     )
     size = training.get("image_size")
     mean, std = norm_stats_for(training)

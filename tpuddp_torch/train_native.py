@@ -120,6 +120,8 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         comm_hook=str(training.get("comm_hook") or "none"),
         bucket_cap_mb=float(training.get("bucket_cap_mb") or comm.DEFAULT_BUCKET_CAP_MB),
         topk_density=float(training.get("topk_density") or comm.DEFAULT_TOPK_DENSITY),
+        # each backward segment's exchange issued as its gradients land
+        comm_overlap=training.get("comm_overlap", "auto"),
     )
     return ddp, train_loader, test_loader, base_seed
 

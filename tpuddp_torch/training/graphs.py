@@ -51,6 +51,13 @@ state, the comm hook's error-feedback residual) lives in tensors allocated
 before the capture and is updated in place, so a replay and the eager
 steps it stands for leave the same state.
 
+The segmented-overlap exchange (``training/step.py::SegmentedSync``) forks
+each segment's work onto a side stream from a gradient hook, which the
+autograd engine runs on its own thread (hence ``capture_error_mode=
+"thread_local"``), and joins it before the clip: every fork joins inside
+the capture, so the graph holds the side stream's branch, and a replay
+runs it beside the backward as the eager step does.
+
 A failed capture or replay raises; nothing falls back to eager steps.
 ``clear()`` drops every graph (anything that replaces the storage that a
 graph's replays write must call it). At world > 1 the captures hold the

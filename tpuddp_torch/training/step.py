@@ -44,11 +44,24 @@ compress, sum and decompress per bucket, divide by the world size, keep
 decompressed mean) and the optimizer follow as before. Under accumulation
 it runs once per cycle, at its boundary; under ZeRO-1 the wrapped
 optimizer's reduce-scatter is the hooked one.
+
+The segmented-overlap step (``comm_overlap``; ``tpuddp/training/step.py:
+486-733, :930-1040``) is :class:`SegmentedSync`: the same exchange cut
+into the JAX package's backward segments (:func:`~tpuddp_torch.parallel.
+comm.make_segments`), each issued from a gradient hook as soon as its
+segment's gradients have landed in backward, on a side stream of the card
+while backward goes on. The cores take it as ``overlap``: it is armed just
+before the backward that ends a step (or a cycle, whose last micro-batch
+then folds ``(acc + n g) / denom`` per segment inside the hook, as the JAX
+package's accumulation peel does), and joined in place of ``sync_grads``
+before the clip. Only the order in which the work is issued changes: the
+step is bitwise the barrier step.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,6 +70,7 @@ import torch.distributed as dist
 
 from tpuddp_torch.nn.norm import batch_weights
 from tpuddp_torch.optim import clip_grad_norm_
+from tpuddp_torch.parallel import collectives
 
 TRAIN_KEYS = ("loss_sum", "n")
 EVAL_KEYS = ("loss_sum", "correct", "n")
@@ -132,10 +146,13 @@ def make_flat_param_spec(model: torch.nn.Module, world: int) -> FlatParamSpec:
 def grad_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_buffers: Callable,
     x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, flip_mask: Optional[torch.Tensor] = None,
+    arm: Optional[Callable] = None,
 ):
     """Forward and backward of one batch; the replica's local weighted-mean
     gradient replaces each parameter's ``.grad``. Returns the on-device
-    ``(loss, n)``. Without ``flip_mask`` the augment draws its own."""
+    ``(loss, n)``. Without ``flip_mask`` the augment draws its own.
+    ``arm(loss, n)``, when given, runs just before the backward (it arms
+    the segmented exchange)."""
     model.train()
     if augment is not None:
         x = augment(x) if flip_mask is None else augment(x, flip_mask=flip_mask)
@@ -143,9 +160,12 @@ def grad_core(
         logits = model(x)
     sync_buffers()
     loss = criterion(logits, y, w)
+    n = w.sum()
     optimizer.zero_grad(set_to_none=True)
+    if arm is not None:
+        arm(loss.detach(), n)
     loss.backward()
-    return loss.detach(), w.sum()
+    return loss.detach(), n
 
 
 @torch.no_grad()
@@ -167,6 +187,183 @@ def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[to
         offset += p.numel()
 
 
+class SegmentedSync:
+    """The segmented-overlap exchange of one DDP wrap: the counterpart of
+    ``_segmented_exchange`` (``tpuddp/training/step.py:629-677``).
+
+    ``segments`` are the plan's :class:`~tpuddp_torch.parallel.comm.
+    CommSegment` for ``model``, ``spans`` each one's port parameters ``[first, end)``
+    (:func:`~tpuddp_torch.models.convert.jax_param_span`) and ``orders``
+    (with a hook; None for ``none``) each one's :class:`~tpuddp_torch.
+    models.convert.JaxFlatOrder`; ``comm`` is the hook's plan (None for
+    ``none``), ``residual`` its error-feedback vector (updated in place).
+
+    A hook on every parameter counts the gradients that land in an armed
+    backward; when a segment's last one has landed, the segment is
+    exchanged: its gradients gathered into its span of the JAX order (the
+    padding on the last segment), its residual span added, its buckets
+    through :meth:`~tpuddp_torch.parallel.comm.GradComm.exchange_segment`,
+    the sum divided by the world size and written back into each ``.grad``
+    as a view of one flat vector in the port's order, as
+    :func:`comm_sync` leaves them; with hook ``none`` the segment's
+    gradients go through the all-reduce mean (nothing at world 1). Under a
+    fold ``(acc, n, denom)`` each gradient first becomes ``(acc + n g) /
+    denom``, the two operations of :func:`train_cycle`'s barrier fold.
+    :meth:`join` exchanges any segment whose gradients did not all land (a
+    parameter without a gradient counts as zeros, as in :func:`comm_sync`),
+    last segment first, and disarms. ``counts`` says how many segment
+    exchanges were issued from the backward (``"hook"``) and how many at the
+    join (host counts: a CUDA-graph replay adds none).
+
+    On the card the exchange runs on ``stream``, forked from the stream the
+    gradient landed on and joined by the current stream in :meth:`join`, so
+    inside a CUDA-graph capture every fork joins before the capture ends.
+    What the side stream reads is kept alive until that join, and what the
+    current stream reads afterwards is allocated on it before the fork.
+    Hooks fire in the autograd engine's order, the same on every replica,
+    so the segment collectives (and SyncBN's backward all-reduces) are
+    issued in one order everywhere. The hooks reach this object through a
+    weak reference, so a dropped wrap frees its model and its memory
+    without waiting for the garbage collector."""
+
+    def __init__(self, model, segments, spans, orders, comm, residual: Optional[torch.Tensor],
+                 world: int, stream=None):
+        self.model = model
+        self.params = list(model.parameters())
+        self.segments = tuple(segments)
+        self.orders = orders
+        self.comm = comm
+        self.residual = residual
+        self.world = int(world)
+        self.stream = stream
+        self.counts = {"hook": 0, "join": 0}
+        self.raw = sum(p.numel() for p in self.params)
+        self._members = [self.params[a:b] for a, b in spans]
+        self._first = [a for a, _ in spans]
+        ends = np.cumsum([0] + [p.numel() for p in self.params])
+        self._port_lo = [int(ends[a]) for a, _ in spans]
+        self._armed = False
+        self._left = self._done = self._fold = self._flat = None
+        self._forked = False
+        self._held = []
+        ref = weakref.ref(self)
+
+        def hook(k):
+            def landed(_param):
+                sync = ref()
+                if sync is not None:
+                    sync._landed(k)
+            return landed
+
+        for k, members in enumerate(self._members):
+            for p in members:
+                if p.requires_grad:
+                    p.register_post_accumulate_grad_hook(hook(k))
+
+    def arm(self, fold=None) -> None:
+        """Before the backward that ends a step, or a cycle with ``fold =
+        (acc, n, denom)``: each segment's count starts anew."""
+        if any(p is not q for p, q in zip(self.model.parameters(), self.params)):
+            raise RuntimeError(
+                "a parameter of the model was replaced after the DDP wrap (its gradient hook "
+                "stays on the old one); wrap the model again")
+        self._left = [sum(p.requires_grad for p in m) for m in self._members]
+        self._done = [False] * len(self.segments)
+        self._forked = False
+        self._fold = fold
+        # the hooked mean's port-order vector, on the current stream: the
+        # gradients become views into it, read after the join
+        self._flat = None if self.comm is None else torch.empty(
+            self.raw, dtype=torch.float32, device=self.params[0].device)
+        self._armed = True
+
+    def _landed(self, k: int) -> None:
+        if not self._armed:
+            return
+        self._left[k] -= 1
+        if self._left[k] == 0:
+            self.counts["hook"] += 1
+            self._exchange(k)
+
+    def join(self) -> None:
+        """After the backward: the segments not yet exchanged (last first),
+        then the current stream waits for the side stream; disarms."""
+        if not self._armed:
+            raise RuntimeError("SegmentedSync.join without an armed backward")
+        for k in reversed(range(len(self.segments))):
+            if not self._done[k]:
+                self.counts["join"] += 1
+                self._exchange(k)
+        if self._forked:  # (a stream that never forked is not in a capture)
+            torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
+        self._held.clear()
+        self._armed, self._fold, self._flat = False, None, None
+
+    def _mean(self, flat: torch.Tensor) -> None:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat.div_(self.world)
+
+    def _folded(self, k: int, grads):
+        """The segment's gradients under the cycle's fold (as they are
+        without one)."""
+        if self._fold is None:
+            return grads
+        acc, n, denom = self._fold
+        first = self._first[k]
+        out = []
+        for i, g in enumerate(grads):
+            a = acc[first + i]
+            if g is None:
+                out.append(None if a is None else a / denom)
+            else:
+                out.append((n * g if a is None else a + n * g) / denom)
+        return out
+
+    @torch.no_grad()
+    def _exchange(self, k: int) -> None:
+        self._done[k] = True
+        members = self._members[k]
+        grads = [p.grad for p in members]
+        if self.comm is None and self.world == 1:  # the mean is the identity
+            if self._fold is not None:
+                for p, g in zip(members, self._folded(k, grads)):
+                    p.grad = g
+            return
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
+            self._forked = True
+        # read on the side stream: alive until the join
+        self._held.append((grads, self._fold))
+        with torch.cuda.stream(self.stream):
+            grads = self._folded(k, grads)
+            if self.comm is None:
+                # the segment's slice of the flat all-reduce mean, in place
+                present = [g for g in grads if g is not None]
+                if present:
+                    collectives.flat_collective(present, self._mean)
+                for p, g in zip(members, grads):
+                    p.grad = g
+                return
+            seg, order = self.segments[k], self.orders[k]
+            lo, hi = seg.flat
+            port = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                              for p, g in zip(members, grads)])
+            g_vec = order.to_jax(port)
+            if hi - lo > order.raw:  # the padding rides the last segment
+                g_vec = torch.cat([g_vec, g_vec.new_zeros(hi - lo - order.raw)])
+            residual = None if self.residual is None else self.residual[lo:hi]
+            send = g_vec if residual is None else g_vec + residual
+            summed = self.comm.exchange_segment(send, seg, residual if self.comm.needs_residual else None)
+            if self.world > 1:
+                summed = summed / self.world
+            lo_port = self._port_lo[k]
+            flat = order.from_jax(summed, out=self._flat[lo_port:lo_port + order.raw])
+        offset = 0
+        for p in members:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+
+
 def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None) -> None:
     """The gradient all-reduce, the clip to global norm ``clip`` (if any),
     then one optimizer update."""
@@ -180,33 +377,56 @@ def train_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     clip: Optional[float] = None, flip_mask: Optional[torch.Tensor] = None,
+    overlap: Optional[SegmentedSync] = None,
 ) -> torch.Tensor:
-    """One train step; returns the on-device sums ``[loss_sum, n]``."""
-    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask)
-    update_core(optimizer, sync_grads, clip)
+    """One train step; returns the on-device sums ``[loss_sum, n]``. With
+    ``overlap`` its segmented exchange replaces ``sync_grads``."""
+    arm = None if overlap is None else (lambda loss, n: overlap.arm())
+    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask, arm)
+    update_core(optimizer, sync_grads if overlap is None else overlap.join, clip)
     return torch.stack([loss * n, n])
+
+
+def _add_step(sums, loss, n):
+    step = torch.stack([loss * n, n])
+    return step if sums is None else sums + step
+
+
+def _denom(sums):
+    return torch.where(sums[1] == 0, torch.ones_like(sums[1]), sums[1])
 
 
 def train_cycle(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, batches: Sequence, clip: Optional[float] = None,
-    flip_masks: Optional[Sequence] = None,
+    flip_masks: Optional[Sequence] = None, overlap: Optional[SegmentedSync] = None,
 ) -> torch.Tensor:
     """One accumulation cycle over the device batches ``(x, y, w)`` of
     ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
     concatenation on this replica; the all-padding case divides by 1), then
-    one update. Returns the cycle's on-device sums ``[loss_sum, n]``."""
+    one update. Returns the cycle's on-device sums ``[loss_sum, n]``. With
+    ``overlap`` the last micro-batch's backward folds each segment and
+    issues its exchange (``tpuddp/training/step.py:1001-1019``), in place
+    of the fold after the cycle and ``sync_grads``."""
     params = list(model.parameters())
     acc = [None] * len(params)
     sums = None
-    for (x, y, w), mask in zip(batches, flip_masks or [None] * len(batches)):
-        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, mask)
-        for i, p in enumerate(params):
-            if p.grad is not None:
-                acc[i] = n * p.grad if acc[i] is None else acc[i] + n * p.grad
-        step = torch.stack([loss * n, n])
-        sums = step if sums is None else sums + step
-    denom = torch.where(sums[1] == 0, torch.ones_like(sums[1]), sums[1])
+    masks = flip_masks or [None] * len(batches)
+    for j, ((x, y, w), mask) in enumerate(zip(batches, masks)):
+        arm = None
+        if overlap is not None and j == len(batches) - 1:
+            def arm(loss, n):
+                overlap.arm(fold=(acc, n, _denom(_add_step(sums, loss, n))))
+        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, mask, arm)
+        if arm is None:
+            for i, p in enumerate(params):
+                if p.grad is not None:
+                    acc[i] = n * p.grad if acc[i] is None else acc[i] + n * p.grad
+        sums = _add_step(sums, loss, n)
+    if overlap is not None:
+        update_core(optimizer, overlap.join, clip)
+        return sums
+    denom = _denom(sums)
     for p, a in zip(params, acc):
         p.grad = None if a is None else a / denom
     update_core(optimizer, sync_grads, clip)
@@ -216,7 +436,7 @@ def train_cycle(
 def train_many(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, sums: torch.Tensor, batches: Sequence, flip_masks: Sequence,
-    clip: Optional[float] = None, accum: int = 1,
+    clip: Optional[float] = None, accum: int = 1, overlap: Optional[SegmentedSync] = None,
 ) -> torch.Tensor:
     """K train steps on the device batches (K / ``accum`` accumulation
     cycles), each step's flip mask given: the counterpart of
@@ -227,10 +447,10 @@ def train_many(
         if accum == 1:
             x, y, w = batches[i]
             step = train_core(model, optimizer, criterion, augment, sync_grads, sync_buffers,
-                              x, y, w, clip, flip_masks[i])
+                              x, y, w, clip, flip_masks[i], overlap)
         else:
             step = train_cycle(model, optimizer, criterion, augment, sync_grads, sync_buffers,
-                               batches[i:i + accum], clip, flip_masks[i:i + accum])
+                               batches[i:i + accum], clip, flip_masks[i:i + accum], overlap)
         sums = sums + step
     return sums
 
