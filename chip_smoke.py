@@ -225,6 +225,41 @@ Phases, each printing one line (the first failure exits non-zero):
      at 250 MB (one segment: the barrier step, with the JAX package's
      reason).
 
+14. the numerical guard (``training.guard``: a non-finite aggregated
+   gradient makes the update a bitwise no-op, decided on the device; the
+   Adam kernel's guarded calling form reads the verdict and the step count
+   from device memory):
+   - "14 guard kernel": for both moment types at AlexNet's 16 leaves, the
+     guarded launch at device count 6 and verdict 1 bitwise the unguarded
+     launch of step 7; at verdict 0 nothing written and one launch
+     counted; against the guarded plain version within phase 3's bounds;
+     timed in turns with the unguarded launch, the skipped launch (as a
+     CUDA graph's replays: its device work is shorter than its host
+     enqueue), the plain version and (float32)
+     ``torch.optim.Adam(fused=True)``, beside the bound (28 B / 20 B per
+     parameter);
+   - "14 guard verdict": the verdict over one AlexNet gradient
+     (``all_finite``: one ``aminmax`` pass a leaf) in turns with
+     ``isfinite(leaf).all()`` a leaf, replayed from CUDA graphs and eagerly,
+     beside reading the gradient once; both 1 on it, 0 with a NaN or an
+     infinity;
+   - "14 guard chunk": native AlexNet@224 b128 float32 with flips and
+     dropout, guarded, 3 chunks of 8 whose last holds the step poisoned
+     through ``$TPUDDP_FAULT=nan@step=19`` (a NaN sample weight), replayed
+     (warm-up, capture, replay) against eager chunks, the eager one cut
+     around the poisoned step: every array bitwise, counters (1, 0), the
+     skipped step a no-op, one Adam launch per update; with ``comm_hook``
+     none and bf16_ef (segmented, 3 segments: every segment's residual span
+     armed and unchanged by the skip); then the guarded and an unguarded
+     replayed wrap in turns: step medians;
+   - "14 managed guard": 3 managed AlexNet flushes of 8 guarded, the last
+     holding the poisoned step, replayed against the eager queue: bitwise,
+     losses included, counters (1, 0);
+   - "14 rollback": ``digits_h100.yaml`` guarded for 2 epochs with epoch
+     1's last 4 steps poisoned (over ``max_consecutive_skips`` 3): one
+     rollback event, epochs 0, 1, 1, and the redone epoch's row and final
+     state equal to a run resumed from a copy of the same ``ckpt_0.npz``.
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
@@ -232,7 +267,8 @@ eager one does, and a graph that lost its Adam node would count none.
 Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
-13's, one with the optimizers', one with every kernel's, the script's seconds, the
+13's, one with phase 14's, one with the optimizers', one with every kernel's
+(each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -273,6 +309,8 @@ from tpuddp_torch.optim import Adam  # noqa: E402
 from tpuddp_torch.parallel import collectives, comm  # noqa: E402
 from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
+from tpuddp_torch.resilience import faults  # noqa: E402
+from tpuddp_torch.resilience import guard as guard_lib  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
 from tpuddp_torch.train_accelerate import build_training as managed_build  # noqa: E402
 from tpuddp_torch.train_accelerate import train as managed_train  # noqa: E402
@@ -473,6 +511,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters, enqueue_ms
+
+
+def graph_ms(fn, iters: int = 20):
+    """Device ms per call of ``fn`` captured into a CUDA graph and replayed
+    ``iters`` times between CUDA events: for work shorter than its host
+    enqueue, which an eager timing would measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters)[0]
 
 
 def compare_cases(alexnet_shapes):
@@ -2507,6 +2557,415 @@ def overlap_phase():
     return {"pairs": pairs, "cap_250_meta": single}
 
 
+# ---------------------------------------------------------------- phase 14 --
+
+GUARD_K, GUARD_CHUNKS, GUARD_BAD = 8, 3, 3  # the last chunk's step 3 poisoned
+GUARD_ROUNDS = 4
+GUARD_COUNT = 6  # the device count of the kernel check: step 7
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+def _leaves_equal(a, b) -> bool:
+    return all(torch.equal(_bits(x), _bits(y)) for la, lb in zip(a, b) for x, y in zip(la, lb))
+
+
+def guard_kernel(wrapper, alexnet_shapes, bw, flops):
+    """Phase 14: the kernel's guarded calling form at AlexNet's shapes: at
+    verdict 1 bitwise the unguarded launch of the same step, at verdict 0
+    nothing written and one launch counted; against its plain version
+    (the guarded ``adam_update_reference``) within phase 3's bounds; timed
+    in turns with the unguarded launch (and, float32, with
+    ``torch.optim.Adam(fused=True)``), the skipped launch too."""
+    bf16 = wrapper.moment_dtype == torch.bfloat16
+    wd = 5e-4
+    n = len(alexnet_shapes)
+    leaves = make_leaves(alexnet_shapes, seed=14, moments=wrapper.moment_dtype)
+    unguarded, applied, skipped, plain = clone(leaves), clone(leaves), clone(leaves), clone(leaves)
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    count = torch.full((), GUARD_COUNT, dtype=torch.int32, device="cuda")
+
+    def guarded(ls, verdict):
+        ps, gs, ms, vs = (list(x) for x in zip(*ls))
+        return partial(wrapper, ps, gs, ms, vs, leaves=leaf_indices(n), weight_decay=wd,
+                       verdict=verdict, count=count, **HP)
+
+    kernel_step(wrapper, unguarded, [GUARD_COUNT + 1] * n, wd)
+    guarded(applied, one)()
+    reset_counts()
+    guarded(skipped, zero)()
+    torch.cuda.synchronize()
+    skip_launches = wrapper.launches
+    for (p, g, m, v), k in zip(plain, leaf_indices(n)):
+        fused_adam.adam_update_reference(p, g, m, v, weight_decay=wd, leaf=k, verdict=one,
+                                         count=count, **HP)
+    torch.cuda.synchronize()
+    dp, dm, dv = max_diffs(applied, plain)
+    checks = {
+        "verdict 1 bitwise the unguarded launch at the same step": _leaves_equal(applied, unguarded),
+        "verdict 0 writes nothing": _leaves_equal(skipped, leaves),
+        "verdict 0 is one launch": skip_launches == 1,
+        f"p within {P_TOL} of the plain version": dp <= P_TOL,
+    }
+    if bf16:
+        outside, apart = bf16_moment_check(applied, plain, leaves, wd)
+        checks["bf16 moments each a neighbour of the plain moment"] = outside == 0
+        detail = f"max|dp|={dp:.3g}, bf16 moments stored differently {apart}, outside {outside}"
+    else:
+        checks[f"moments within {MOMENT_TOL}"] = dm <= MOMENT_TOL and dv <= MOMENT_TOL
+        detail = f"max|dp|={dp:.3g} max|dm|={dm:.3g} max|dv|={dv:.3g}"
+    failed = [c for c, ok in checks.items() if not ok]
+    name = KERNEL_NAMES[wrapper.moment_dtype]
+    if failed:
+        raise SystemExit(f"chip_smoke: 14 guard kernel, {name}, failed {failed}: {detail}")
+    del unguarded, skipped, plain
+    # timing: the applied and the skipped guarded launch, the unguarded one
+    ps, gs, ms, vs = (list(x) for x in zip(*applied))
+    bcs = [fused_adam.bias_corrections(GUARD_COUNT + 1, HP["betas"])] * n
+    fns = {
+        "unguarded": partial(wrapper, ps, gs, ms, vs, bc1s=[b[0] for b in bcs],
+                             bc2s=[b[1] for b in bcs], steps=[GUARD_COUNT + 1] * n,
+                             leaves=leaf_indices(n), weight_decay=wd, **HP),
+        "guarded": guarded(applied, one),
+        "skipped": guarded(applied, zero),
+        "plain": lambda: [fused_adam.adam_update_reference(
+            p, g, m, v, weight_decay=wd, leaf=k, verdict=one, count=count, **HP)
+            for (p, g, m, v), k in zip(applied, leaf_indices(n))],
+    }
+    order = ("plain", "unguarded", "guarded", "skipped", "skipped", "guarded", "unguarded", "plain")
+    if not bf16:
+        params = [torch.nn.Parameter(p.clone()) for p in ps]
+        for prm, g in zip(params, gs):
+            prm.grad = g.clone()
+        fns["library"] = torch.optim.Adam(params, fused=True, **HP).step
+        order = order[:4] + ("library", "library") + order[4:]
+    runs = {k: [] for k in fns}
+    for k in order:
+        # the skipped launch's device work is shorter than its host enqueue
+        runs[k].append(graph_ms(fns[k]) if k == "skipped" else time_ms(fns[k])[0])
+    best = {k: min(r) for k, r in runs.items()}
+    n_params = sum(math.prod(s) for s in alexnet_shapes)
+    nbytes = (3 * 4 + 4 * ms[0].element_size()) * n_params  # applied: as the unguarded launch
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = (ADAM_OPS_PER_ELEMENT + (2 * ROUNDING_OPS_PER_MOMENT if bf16 else 0)) * n_params / flops * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    phase("14 guard kernel", f"{name}, AlexNet's {n} leaves ({n_params} params) at device count "
+          f"{GUARD_COUNT}, wd={wd}: verdict 1 bitwise the unguarded step {GUARD_COUNT + 1}, verdict 0 "
+          f"wrote nothing in {skip_launches} launch; vs plain: {detail}; best of two in turns: guarded "
+          f"{best['guarded']:.4f} ms, unguarded {best['unguarded']:.4f} ms, skipped (replayed) "
+          f"{best['skipped']:.4f} ms, "
+          + (f"library {best['library']:.4f} ms, " if not bf16 else "")
+          + f"plain {best['plain']:.4f} ms, bound {bound_ms:.4f} ms ({100 * bound_ms / best['guarded']:.1f}%)"
+          f"; each run: " + " ".join(f"{k}=" + ",".join(f"{t:.4f}" for t in r) for k, r in runs.items()))
+    return dict(ms=best["guarded"], plain_ms=best["plain"], bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=best.get("library"), unguarded_ms=best["unguarded"],
+                skipped_ms=best["skipped"], max_abs_err=dp)
+
+
+def guard_verdict(alexnet_shapes, bw):
+    """Phase 14: the firewall's verdict over one AlexNet float32 gradient
+    (16 leaves): the port's ``all_finite`` (one ``aminmax`` pass a leaf)
+    timed in turns with ``isfinite(leaf).all()`` a leaf, each as a CUDA
+    graph's replays (its device time, as in a replayed step; eagerly the
+    host's launches set the pace) and eagerly, beside the bound of reading
+    the gradient once; both give 1 on it and 0 with a NaN or an infinity."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gs = [torch.randn(s, generator=gen, device="cuda") for s in alexnet_shapes]
+    verdict = torch.ones((), dtype=torch.int32, device="cuda")
+    fns = {"all_finite": lambda: verdict.copy_(guard_lib.all_finite(gs)),
+           "isfinite_all": lambda: verdict.copy_(torch.stack([torch.isfinite(g).all() for g in gs]).all())}
+    runs = {k: [] for k in fns}
+    eager = {k: [] for k in fns}
+    for k in ("isfinite_all", "all_finite", "all_finite", "isfinite_all"):
+        runs[k].append(graph_ms(fns[k]))
+        eager[k].append(time_ms(fns[k])[0])
+    agree = []
+    for leaf, value in ((None, None), (15, float("nan")), (3, float("inf")), (0, float("-inf"))):
+        if leaf is not None:
+            gs[leaf].view(-1)[-1] = value
+        agree.append([int(fns[k]()) for k in fns])
+        if leaf is not None:
+            gs[leaf].view(-1)[-1] = 0.0
+    if agree != [[1, 1], [0, 0], [0, 0], [0, 0]]:
+        raise SystemExit(f"chip_smoke: 14 guard verdict disagrees: {agree}")
+    n_params = sum(math.prod(s) for s in alexnet_shapes)
+    bound_ms = 4 * n_params / bw * 1e3
+    best = {k: min(r) for k, r in runs.items()}
+    best_eager = {k: min(r) for k, r in eager.items()}
+    phase("14 guard verdict", f"over one AlexNet gradient ({n_params} float32, 16 leaves), best of two "
+          f"in turns, replayed from a CUDA graph: all_finite (aminmax) {best['all_finite']:.4f} ms, "
+          f"isfinite().all() {best['isfinite_all']:.4f} ms, bound {bound_ms:.4f} ms (bytes); eagerly "
+          f"{best_eager['all_finite']:.4f} / {best_eager['isfinite_all']:.4f} ms; verdicts "
+          f"finite/nan/inf/-inf {agree}; each run: "
+          + " ".join(f"{k}=" + ",".join(f"{t:.4f}" for t in r) for k, r in runs.items()))
+    return dict(ms=best["all_finite"], isfinite_all_ms=best["isfinite_all"], bound_ms=bound_ms,
+                bound_by="bytes", eager_ms=best_eager["all_finite"],
+                isfinite_all_eager_ms=best_eager["isfinite_all"])
+
+
+def _guard_batches(n, seed, poison=None):
+    """``n`` AlexNet batches (uint8 32x32 rows, b128); with ``poison`` the
+    batch of that index through ``$TPUDDP_FAULT=nan@step=<poison>``'s
+    injection (a NaN sample weight, as for every uint8 input)."""
+    gen = torch.Generator().manual_seed(seed)
+    batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
+                torch.randint(0, 10, (128,), generator=gen).numpy(), np.ones(128, np.float32))
+               for _ in range(n)]
+    if poison is not None:
+        os.environ["TPUDDP_FAULT"] = f"nan@step={poison}"
+        faults.reload_faults()
+        try:
+            batches = [faults.maybe_corrupt_batch(b, i) for i, b in enumerate(batches)]
+        finally:
+            del os.environ["TPUDDP_FAULT"]
+            faults.reload_faults()
+        if math.isfinite(float(batches[poison][2][0])):
+            raise SystemExit("chip_smoke: the nan@step injection poisoned nothing")
+    return batches
+
+
+def _guard_ddp(hook: str, guard, replay: bool, init):
+    """Phase 14's native AlexNet wrap (float32, flips, dropout) from the
+    weights ``init``; with a hook the segmented step (bucket_cap_mb 25)."""
+    with torch.device("meta"):
+        model = AlexNet(num_classes=10)
+    model.to_empty(device="cuda").load_state_dict(init)
+    gen = torch.Generator().manual_seed(1)
+    ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                  augment=make_train_augment(size=224, flip=True, generator=gen),
+                                  device="cuda", generator=gen, comm_hook=hook, guard=guard)
+    ddp._graph_replay = replay
+    return ddp
+
+
+def guard_chunk(hook: str, batches, clean, init):
+    """Phase 14: 3 native AlexNet chunks of 8 guarded (the last with its
+    step 3 poisoned) through CUDA-graph replay (warm-up, capture, replay)
+    and eagerly, the eager run's last chunk cut around the poisoned step:
+    every array bitwise, counters (1, 0), the skipped step a no-op (with a
+    hook: every segment's residual span unchanged), one Adam launch per
+    update; then the guarded and an unguarded replayed wrap's chunks in
+    turns (guarded, unguarded, unguarded, guarded): step medians."""
+    started = time.perf_counter()
+    runs, noop = {}, None
+    for mode in ("eager", "replay"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp = _guard_ddp(hook, True, mode == "replay", init)
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        graphs.reset_stats()
+        for c in range(GUARD_CHUNKS):
+            chunk = batches[c * GUARD_K:(c + 1) * GUARD_K]
+            if mode == "replay" or c < GUARD_CHUNKS - 1:
+                ddp.train_step_many(chunk)
+                continue
+            ddp.train_step_many(chunk[:GUARD_BAD])
+            before = _ddp_state(ddp)
+            ddp.train_step_many(chunk[GUARD_BAD:GUARD_BAD + 1])
+            after = _ddp_state(ddp)
+            spans = ([seg.flat for seg in ddp._overlap.segments]
+                     if ddp._overlap is not None and ddp.residual is not None else [])
+            noop = {
+                "state bitwise": all(torch.equal(before[k], after[k])
+                                     for k in before if not k.startswith("grad/")),
+                "counters (1, 1)": ddp.skip_counters() == (1, 1),
+                "every segment's residual span armed and unchanged": all(
+                    bool(before["residual"][a:b].abs().sum() > 0)
+                    and torch.equal(before["residual"][a:b], after["residual"][a:b])
+                    for a, b in spans),
+            }
+            del before, after
+            ddp.train_step_many(chunk[GUARD_BAD + 1:])
+        torch.cuda.synchronize()
+        runs[mode] = (_ddp_state(ddp), ddp.skip_counters(), fused_adam.kernel.launches,
+                      _kinds(graphs.stats), ddp.comm_overlap_meta)
+        if mode == "replay":
+            kept = ddp
+        del ddp
+    (eager, c_e, n_e, _, meta), (replay, c_r, n_r, g_r, _) = runs["eager"], runs["replay"]
+    diff = max(float((eager[k].double() - replay[k].double()).abs().max()) for k in eager)
+    updates = GUARD_K * GUARD_CHUNKS
+    checks = {
+        **{f"the skipped step: {k}": ok for k, ok in noop.items()},
+        "replay bitwise eager (parameters, last gradients, moments, residual)": diff == 0.0,
+        "counters (1, 0)": c_e == c_r == (1, 0),
+        "1 launch per update, the skipped one too": n_e == n_r == updates,
+        "1 capture, 2 replays": g_r == {"train": (1, GUARD_CHUNKS - 1)},
+        "segmented (3 segments)": meta == {"enabled": True, "segments": 3, "reason": None},
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 14 guard chunk, {hook}, failed {failed}: max|d|={diff}, "
+                         f"counters {c_e} {c_r}, launches {n_e} {n_r}, graphs {g_r}, meta {meta}")
+    del runs, eager, replay
+    plain = _guard_ddp(hook, None, True, init)
+    for c in range(2):  # warm-up and capture of the unguarded wrap
+        plain.train_step_many(clean[c * GUARD_K:(c + 1) * GUARD_K])
+    wraps, times = {"guarded": kept, "unguarded": plain}, {"guarded": [], "unguarded": []}
+    reset_counts()
+    for _ in range(GUARD_ROUNDS):
+        for label in ("guarded", "unguarded", "unguarded", "guarded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wraps[label].train_step_many(clean[:GUARD_K])
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3 / GUARD_K)
+    turns = fused_adam.kernel.launches
+    medians = {label: statistics.median(v) for label, v in times.items()}
+    quartiles = {label: statistics.quantiles(v, n=4) for label, v in times.items()}
+    del wraps, kept, plain
+    torch.cuda.empty_cache()
+    phase("14 guard chunk", f"AlexNet@224 b128 float32 comm_hook {hook} (segmented, 3 segments), "
+          f"guard on, {GUARD_CHUNKS} chunks of {GUARD_K}, step {GUARD_BAD} of the last poisoned "
+          f"(nan@step={GUARD_K * (GUARD_CHUNKS - 1) + GUARD_BAD}): replay vs eager max |d| {diff:.3g} (bitwise), "
+          f"counters {c_r}, the skipped step {noop}, launches replay {n_r} eager {n_e}, graphs {g_r}; "
+          f"replayed step median guarded {medians['guarded']:.3f} ms, unguarded {medians['unguarded']:.3f} "
+          f"ms (quartiles " + ", ".join(f"{k} {q[0]:.3f}-{q[2]:.3f}" for k, q in quartiles.items())
+          + f"; {GUARD_ROUNDS} rounds of g,u,u,g; {turns} launches); {time.perf_counter() - started:.1f} s")
+    return dict(hook=hook, segmented=meta["enabled"], max_abs_diff=diff, counters=list(c_r),
+                launches={"replay": n_r, "eager": n_e, "turns": turns}, step_ms_median=medians,
+                step_ms_quartiles=quartiles, step_ms=times)
+
+
+def managed_guard(batches):
+    """Phase 14: 3 managed AlexNet flushes of 8 guarded (the last holding
+    the poisoned step) through the fused graph replay and the eager queue:
+    bitwise, counters (1, 0), one launch per update, the skipped one too."""
+    out = {}
+    for mode in ("eager", "replay"):
+        acc = Accelerator(seed=0, fuse_steps=GUARD_K, device="cuda", guard=True)
+        acc.augment = make_train_augment(size=224, flip=True, generator=acc.generator)
+        torch.manual_seed(0)
+        module = AlexNet(num_classes=10)
+        model, opt = acc.prepare(module, Adam(module.parameters(), lr=1e-3))
+        opt._graph_replay = mode == "replay"
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        graphs.reset_stats()
+        mean = CrossEntropyLoss()
+        losses = []
+        for x, y, w in batches:
+            loss = mean(model(x), y, w)
+            acc.backward(loss)
+            opt.step()
+            losses.append(loss)
+        values = torch.stack([loss.device_value() for loss in losses]).cpu()
+        torch.cuda.synchronize()
+        out[mode] = (_pair_state(model, opt), values, opt.skip_counters(), fused_adam.kernel.launches,
+                     dict(graphs.stats))
+        del acc, module, model, opt, losses
+        torch.cuda.empty_cache()
+    (eager, l_e, c_e, n_e, _), (replay, l_r, c_r, n_r, g_r) = out["eager"], out["replay"]
+    diff = max(float((eager[k].double() - replay[k].double()).abs().max()) for k in eager)
+    losses_equal = torch.equal(l_e.view(torch.int32), l_r.view(torch.int32))
+    checks = {
+        "replay bitwise eager": diff == 0.0 and losses_equal,
+        "the poisoned step's loss is not finite, every other one is": [
+            bool(torch.isfinite(v)) for v in l_r] == [i != len(batches) - GUARD_K + GUARD_BAD
+                                                        for i in range(len(batches))],
+        "counters (1, 0)": c_e == c_r == (1, 0),
+        "1 launch per update": n_e == n_r == len(batches),
+        "1 capture, 2 replays": (g_r["captures"], g_r["replays"]) == (1, GUARD_CHUNKS - 1),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 14 managed guard failed {failed}: max|d|={diff}, counters "
+                         f"{c_e} {c_r}, launches {n_e} {n_r}, graphs {g_r}")
+    phase("14 managed guard", f"managed AlexNet@224 b128 float32 flip dropout, fuse_steps {GUARD_K}, "
+          f"guard on, {GUARD_CHUNKS} flushes, step {GUARD_BAD} of the last poisoned: replay vs eager "
+          f"max |d| {diff:.3g}, losses bitwise, counters {c_r}, launches replay {n_r} eager {n_e}, "
+          f"captures {g_r['captures']} replays {g_r['replays']}")
+    return dict(max_abs_diff=diff, counters=list(c_r), launches={"replay": n_r, "eager": n_e})
+
+
+def guard_rollback(root: str):
+    """Phase 14: ``digits_h100.yaml`` guarded (``max_consecutive_skips``
+    3), epoch 1's last 4 steps poisoned through ``$TPUDDP_FAULT``: a
+    rollback to ``ckpt_0.npz`` and epoch 1 redone; against a run resumed
+    from a copy of the same ``ckpt_0.npz``: the redone epoch's row and the
+    final state equal."""
+    settings, training = _fused_settings(SETTINGS_DIGITS, num_epochs=2, checkpoint_epoch=1,
+                                         guard=True)
+    run_dir, resume_dir = os.path.join(root, "rollback"), os.path.join(root, "resumed")
+    poisoned = ",".join(f"nan@step={s}" for s in range(86, 90))  # epoch 1 is steps 45-89
+    os.environ["TPUDDP_FAULT"] = poisoned
+    faults.reload_faults()
+    reset_counts()
+    try:
+        captured = {}
+
+        def worker(rank, world_size, save_dir, optional_args):
+            ddp, train_loader, test_loader, seed = build_training(rank, world_size, training, "cuda")
+            history = run_training_loop(
+                ddp, train_loader, test_loader, save_dir, num_epochs=2, checkpoint_epoch=1,
+                base_seed=seed, log=lambda *_: None)
+            captured[save_dir] = {k: v.detach().clone() for k, v in ddp.model.state_dict().items()}
+            return history
+
+        os.makedirs(run_dir)
+        history = run_ddp_training(worker, 1, run_dir, {}, backend="cuda")
+        launches = fused_adam.kernel.launches
+    finally:
+        del os.environ["TPUDDP_FAULT"]
+        faults.reload_faults()
+    os.makedirs(resume_dir)
+    for name in ("ckpt_0.npz", "ckpt_0.npz.sha256"):
+        shutil.copy(os.path.join(run_dir, name), resume_dir)
+    training["auto_resume"] = True
+    resumed = run_ddp_training(worker, 1, resume_dir, {}, backend="cuda")
+    with open(os.path.join(run_dir, "history.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    events = [r for r in lines if r.get("event") == "rollback"]
+    rows = [r for r in lines if "train_loss" in r]
+    keys = ("train_loss", "test_loss", "test_accuracy")
+    same = all(torch.equal(captured[run_dir][k], captured[resume_dir][k]) for k in captured[run_dir])
+    checks = {
+        "epochs 0, 1, 1": [r["epoch"] for r in rows] == [0, 1, 1],
+        "one rollback event, epoch 1 to epoch 1": [(e["epoch"], e["resume_epoch"]) for e in events] == [(1, 1)],
+        "the poisoned epoch: 4 skips, its loss null": (rows[1]["skipped_steps_epoch"], rows[1]["train_loss"])
+        == (4, None),
+        "the redone epoch's row is the resumed run's": [rows[2][k] for k in keys] == [resumed[-1][k] for k in keys],
+        "the final state is the resumed run's": same,
+        "one launch per update": launches == 3 * 45,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 14 rollback failed {failed}: rows {rows}, events {events}, "
+                         f"resumed {resumed}, launches {launches}")
+    phase("14 rollback", f"digits_h100.yaml guarded, 2 epochs, {poisoned}: epochs "
+          f"{[r['epoch'] for r in rows]}, rollback {events[0]['reason']!r} to epoch "
+          f"{events[0]['resume_epoch']}; the redone epoch {[round(rows[2][k], 4) for k in keys]} equal "
+          f"to the run resumed from ckpt_0.npz, final state bitwise; {launches} launches")
+    return dict(epochs=[r["epoch"] for r in rows], event=events[0], launches=launches,
+                redone=[rows[2][k] for k in keys])
+
+
+def guard_phase(alexnet_shapes, bw, flops):
+    """Phase 14: the numerical guard (``training.guard``)."""
+    kernel = {w.moment_dtype: guard_kernel(w, alexnet_shapes, bw, flops)
+              for w in fused_adam.kernels.values()}
+    verdict = guard_verdict(alexnet_shapes, bw)
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    init = AlexNet(num_classes=10).state_dict()
+    bad = GUARD_K * (GUARD_CHUNKS - 1) + GUARD_BAD
+    batches = _guard_batches(GUARD_K * GUARD_CHUNKS, 5, poison=bad)
+    clean = _guard_batches(GUARD_K * 2, 6)
+    chunks = [guard_chunk(hook, batches, clean, init) for hook in ("none", "bf16_ef")]
+    managed = managed_guard(batches)
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_guard_")
+    try:
+        rollback = guard_rollback(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(kernel=kernel, verdict=verdict, chunks=chunks, managed=managed, rollback=rollback)
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -2624,6 +3083,9 @@ def main() -> None:
     t13 = time.perf_counter()
     overlap_13 = overlap_phase()
     phase_13_s = time.perf_counter() - t13
+    t14 = time.perf_counter()
+    guard_14 = guard_phase(alexnet_shapes, bw, flops)
+    phase_14_s = time.perf_counter() - t14
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -2671,6 +3133,11 @@ def main() -> None:
         "bytes_per_update_alexnet": hook_bytes(), "phase_12_s": phase_12_s,
     }}))
     print(json.dumps({"overlap": {**overlap_13, "phase_13_s": phase_13_s}}))
+    print(json.dumps({"guard": {
+        "kernel": {KERNEL_NAMES[d]: v for d, v in guard_14["kernel"].items()},
+        **{k: guard_14[k] for k in ("verdict", "chunks", "managed", "rollback")},
+        "phase_14_s": phase_14_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -2696,13 +3163,20 @@ def main() -> None:
     phase_12_bf16 = {"native ZeRO-1 fast file bf16_ef": zero1_12["launches"]}
     phase_13 = {f"native AlexNet {p['hook']} A={p['accum']} {run} (phase 13)": n
                 for p in overlap_13["pairs"] for run, n in p["launches"].items()}
+    phase_14 = {
+        **{f"native AlexNet guarded {c['hook']} {run} (phase 14)": n
+           for c in guard_14["chunks"] for run, n in c["launches"].items()},
+        **{f"managed AlexNet guarded {run} (phase 14)": n
+           for run, n in guard_14["managed"]["launches"].items()},
+        "native digits guarded rollback (phase 14)": guard_14["rollback"]["launches"],
+    }
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
-               **phase_13}
+               **phase_13, **phase_14}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -2711,7 +3185,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": KERNEL_NAMES[torch.float32], **common, "launches": sum(by_path.values()),
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
-         "launches_by_path": by_path, "flat_shard": flat[torch.float32]},
+         "launches_by_path": by_path, "flat_shard": flat[torch.float32],
+         "guarded": {**guard_14["kernel"][torch.float32], "launches_by_path": phase_14}},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
                       + sum(phase_10_bf16.values()) + sum(phase_11.values())
@@ -2724,11 +3199,15 @@ def main() -> None:
                               **{k: 0 for k in phase_9}, **phase_9_bf16,
                               **{k: 0 for k in phase_10}, **phase_10_bf16, **phase_11,
                               **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
-                              **phase_12_bf16, **{k: 0 for k in phase_13}},
-         "flat_shard": flat[torch.bfloat16]},
+                              **phase_12_bf16, **{k: 0 for k in phase_13},
+                              **{k: 0 for k in phase_14}},
+         "flat_shard": flat[torch.bfloat16],
+         "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
+                     "launches_by_path": {}}},
     ]}))
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
-          f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s)")
+          f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
+          f"phase 14: {phase_14_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -316,10 +316,16 @@ def test_unported_contents_are_refused(tmp_path, cpu_devices):
                           dataclasses.replace(state, comm_state=jnp.zeros(2 * raw)), world_size=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8: elastic reshard"):
         ckpt.restore_latest(str(tmp_path / "c"), model, opt, comm_state=torch.zeros(raw))
+    # the numerical guard's counters are ported: a guarded run restores them
+    # (tests/test_torch_port_guard_loop.py), an unguarded one does not read them
     jax_ckpt.save_on_main(str(tmp_path / "d"), 0, dataclasses.replace(
-        state, skipped_steps={"total": jnp.int32(0), "consecutive": jnp.int32(0)}), world_size=1)
-    with pytest.raises(NotImplementedError, match="numerical guard"):
-        ckpt.restore_latest(str(tmp_path / "d"), model, opt)
+        state, skipped_steps={"total": jnp.int32(4), "consecutive": jnp.int32(2)}), world_size=1)
+    from tpuddp_torch.resilience.guard import init_skip_counters, read_skip_counters
+
+    counters = init_skip_counters()
+    ckpt.restore_latest(str(tmp_path / "d"), model, opt, skipped=counters)
+    assert read_skip_counters(counters) == (4, 2)
+    ckpt.restore_latest(str(tmp_path / "d"), model, opt)
 
 
 def test_a_file_of_another_model_or_moment_type_is_refused(tmp_path, cpu_devices):

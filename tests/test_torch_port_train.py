@@ -257,7 +257,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 @pytest.mark.parametrize("knob,value", [
     ("remat", True),
     ("comm_topology", "hierarchical"),
-    ("guard", True), ("snapshot", True),
+    ("snapshot", True),
     ("pretrained_path", "/x.pt"), ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
     ("reshard_on_mismatch", True),

@@ -117,6 +117,18 @@ with the native path, which has the segmented-overlap step; the managed
 path keeps the barrier step, so ``true`` is the JAX package's
 ``ValueError`` and ``comm_overlap_meta`` records its reason.
 
+``guard`` (``training.guard``; ``tpuddp/accelerate.py:591-630, :790-910,
+:1076-1190``): the numerical guard. ``prepare`` audits every process's
+copy of the model's parameters (``ReplicaDesync`` on a divergence). Each
+update (per step, in a fused flush, at a cycle's end) is then guarded by
+the optimizer's :class:`~tpuddp_torch.resilience.guard.Firewall`: the
+verdict of the aggregated float32 gradient, before the hook's round trip
+and the clip; at 0 the update is a bitwise no-op on the parameters, the
+optimizer state and the hook's residual, and the BatchNorm buffers go back
+to their values before the step's forward (before the cycle's first
+forward under accumulation); the skip counters advance on the device
+(``PreparedOptimizer.skip_counters``) and ride in ``state_{epoch}.npz``.
+
 Batches may arrive already on the device (the entry point stages them,
 ``training/pipeline.py``); a host array is copied from pinned memory without
 blocking. ``save_model``/``load_model`` and ``save_state``/``load_state``
@@ -136,8 +148,9 @@ from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
 from tpuddp_torch.data.loader import DataLoader, ShardedDataLoader
 from tpuddp_torch.nn.norm import BatchNorm, batch_weights, convert_sync_batchnorm
-from tpuddp_torch.optim import ShardedUpdate, clip_grad_norm_
+from tpuddp_torch.optim import ShardedUpdate, arm_guard, clip_grad_norm_, count_from_state
 from tpuddp_torch.parallel import backend, collectives, comm
+from tpuddp_torch.resilience.guard import Firewall, audit_or_raise, resolve_guard
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import to_device
@@ -266,6 +279,9 @@ class PreparedModel:
         self._staged: Optional[LazyLoss] = None  # backward run, step() not yet
         self._optimizer: Optional["PreparedOptimizer"] = None  # bound by prepare
         self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
+        # under the guard: the buffers before the last backward's forward,
+        # which a skipped update restores
+        self._buffers_before = None
         self._bwd_counter = 0  # backward requests, saved as ['bwd_counter']
         # the JAX model's draws: its backward base key here, its init key at
         # its first forward (tpuddp/accelerate.py:544, :605)
@@ -388,6 +404,8 @@ class PreparedModel:
         runs inside a CUDA-graph capture too."""
         module = self._module
         x = req.x
+        if self._optimizer is not None and self._optimizer.firewall is not None:
+            self._buffers_before = Firewall.save_buffers(module)
         was_training = module.training
         module.train()
         try:
@@ -427,11 +445,13 @@ class PreparedOptimizer:
     # chip_smoke.py holds the graph replays against
     _graph_replay = True
 
-    def __init__(self, optimizer: torch.optim.Optimizer, model: PreparedModel):
+    def __init__(self, optimizer: torch.optim.Optimizer, model: PreparedModel, firewall=None):
         self.optimizer = optimizer
         self.model = model
+        self.firewall = firewall  # the numerical guard's device state, when it is on
         self._accum = None  # the cycle's gradient sum, one tensor per parameter
         self._accum_count = 0
+        self._cycle_buffers = None  # under the guard: the buffers before the cycle
         self._fuse: Optional[int] = None  # the resolved depth, at the first backward
         self._queue: List[_Request] = []
         self._residual: Optional[List[torch.Tensor]] = None  # the hook's, at the first update
@@ -451,6 +471,11 @@ class PreparedOptimizer:
         if self._residual is None:
             self._residual = comm.init_residual_tree(self.model._params())
         return self._residual
+
+    def skip_counters(self):
+        """Host ``(total, consecutive)`` of the guard's skipped updates;
+        ``(0, 0)`` without the guard. One fetch: call it per epoch."""
+        return (0, 0) if self.firewall is None else self.firewall.read()
 
     @property
     def fuse_depth(self) -> Optional[int]:
@@ -520,6 +545,7 @@ class PreparedOptimizer:
             p.grad = None
         if self._accum is None:
             self._accum = grads
+            self._cycle_buffers = self.model._buffers_before
         else:
             self._accum = [a + g for a, g in zip(self._accum, grads)]
         self._accum_count += 1
@@ -585,11 +611,18 @@ class PreparedOptimizer:
         scale = 1.0 / self._accum_count
         for p, a in zip(self.model._params(), self._accum):
             p.grad = a * scale
+        buffers, self._cycle_buffers = self._cycle_buffers, None
         self._accum, self._accum_count = None, 0
-        self._apply()
+        self._apply(buffers)
 
-    def _apply(self) -> None:
+    def _apply(self, buffers=None) -> None:
+        """One update from the gradients in ``.grad``. Under the guard:
+        their verdict first, and a skip restores ``buffers`` (the step's
+        own buffers from before its forward when None)."""
         acc = self.model.accelerator
+        fw = self.firewall
+        if fw is not None:
+            fw.judge([p.grad for p in self.model._params()])
         if acc.comm_hook != "none":
             params, residual = self.model._params(), self.comm_residual()
             quant, new = comm.local_quantize(
@@ -597,12 +630,20 @@ class PreparedOptimizer:
             for p, g in zip(params, quant):
                 p.grad = g
             for r, n in zip(residual or (), new or ()):
-                r.copy_(n)
+                if fw is None:
+                    r.copy_(n)
+                else:
+                    fw.keep(n, r)
         clip = acc.clip_grad_norm
         if clip is not None:
             clip_grad_norm_(self.model._params(), clip)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        if fw is not None:
+            saved = self.model._buffers_before if buffers is None else buffers
+            if saved is not None:
+                fw.restore_buffers(self.model._module, saved)
+            fw.commit()
         self.updates += 1
 
 
@@ -734,7 +775,7 @@ class Accelerator:
     gradient; ``bucket_cap_mb`` is accepted for parity with the native
     path (each parameter is its own bucket here); ``comm_topology`` must be
     ``flat``; ``comm_overlap`` must not be true (``comm_overlap_meta`` says
-    why)."""
+    why). ``guard``: the ``training.guard`` block (the numerical guard)."""
 
     def __init__(
         self,
@@ -750,7 +791,9 @@ class Accelerator:
         comm_topology: str = "flat",
         topk_density: float = comm.DEFAULT_TOPK_DENSITY,
         comm_overlap="auto",
+        guard=None,
     ):
+        self.guard = resolve_guard(guard)
         self.comm_hook = comm.validate_hook(comm_hook)
         self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
         comm.validate_topology(comm_topology)
@@ -819,6 +862,8 @@ class Accelerator:
         for obj in objects:
             if isinstance(obj, torch.nn.Module):
                 model = PreparedModel(self, obj)
+                if self.guard.enabled:  # every process's copy, as broadcast
+                    audit_or_raise(model._module, where="accelerator-prepare")
                 self._models.append(model)
                 out.append(model)
             elif isinstance(obj, PreparedModel):
@@ -845,7 +890,11 @@ class Accelerator:
                         make_flat_param_spec(model._module, self.num_processes),
                         self.process_index, managed=True,
                     )
-                out[i] = model._optimizer = PreparedOptimizer(obj, model)
+                firewall = None
+                if self.guard.enabled:
+                    firewall = Firewall(self.device)
+                    arm_guard(obj, firewall)
+                out[i] = model._optimizer = PreparedOptimizer(obj, model, firewall)
         return out[0] if len(out) == 1 else tuple(out)
 
     def backward(self, loss: LazyLoss) -> None:
@@ -896,7 +945,7 @@ class Accelerator:
                 req.loss._queued_on = None
                 req.loss._drop(reason)
             opt._queue = []
-            opt._accum, opt._accum_count = None, 0
+            opt._accum, opt._accum_count, opt._cycle_buffers = None, 0, None
             for r in opt._residual or ():  # compression error of the weights replaced
                 r.zero_()
         if model._graphs is not None:
@@ -911,13 +960,15 @@ class Accelerator:
         ckpt.load(os.path.join(save_dir, "model.npz"), model._module, layout=ckpt.MANAGED)
         if model._optimizer is not None:
             model._optimizer.optimizer.state.clear()
+            count_from_state(model._optimizer.optimizer)
         return model
 
     def save_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
                    save_dir: str, epoch: int = 0, keep_last: Optional[int] = None):
         """Process 0 writes ``save_dir/state_{epoch}.npz``: parameters,
-        buffers, the optimizer's state, the comm hook's residual, the JAX
-        keys and every process's random streams; with ``keep_last`` the older state files are pruned.
+        buffers, the optimizer's state, the comm hook's residual, the guard's
+        skip counters, the JAX keys and every process's random streams; with
+        ``keep_last`` the older state files are pruned.
         Queued steps run first; a partial accumulation cycle is refused: it
         would be lost."""
         model._flush_queues()
@@ -932,6 +983,7 @@ class Accelerator:
             layout=ckpt.MANAGED, seed=self.seed, generator=self.generator,
             world_size=self.num_processes, keep_last=keep_last, counter=model._bwd_counter,
             keys=(self.jax_keys.key, model._bwd_key), comm_state=optimizer.comm_residual(),
+            skipped=None if optimizer.firewall is None else optimizer.firewall.counters,
         )
 
     def load_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
@@ -942,6 +994,7 @@ class Accelerator:
         next_epoch, meta = ckpt.restore_latest(
             save_dir, model._module, optimizer.optimizer, layout=ckpt.MANAGED,
             generator=self.generator, comm_state=optimizer.comm_residual(),
+            skipped=None if optimizer.firewall is None else optimizer.firewall.counters,
         )
         model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)
         if "rng_key" in meta:

@@ -17,6 +17,8 @@ The port implements the native DDP main path and the managed
 ``int8_ef``, ``topk_ef``, with ``bucket_cap_mb`` and ``topk_density``;
 :mod:`tpuddp_torch.parallel.comm`), ``comm_overlap`` (the native path's
 segmented-overlap step; the managed path keeps the barrier step),
+``guard`` (the numerical guard, :func:`tpuddp_torch.resilience.guard.
+resolve_guard`),
 ``pipeline`` (staged host-to-device copies,
 :func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
 false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
@@ -100,7 +102,6 @@ _UNSUPPORTED = {
         lambda v: (v or "flat") == "flat", "Queue 1 item 8: hierarchical topology"
     ),
     "remat": (lambda v: not v, "Queue 1 item 8: remat"),
-    "guard": (lambda v: not v, "Queue 1 item 8: numerical guard"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
     "pretrained_path": (lambda v: not v, "Queue 1 item 8: pretrained fine-tune"),
     "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
@@ -206,6 +207,9 @@ def check_supported(training: Dict[str, Any]) -> None:
     refuses)."""
     check_weight_update_sharding(training)
     check_comm_hook(training)
+    from tpuddp_torch.resilience.guard import resolve_guard
+
+    resolve_guard(training.get("guard"))  # its ValueErrors, before anything runs
     for knob, (ok, item) in _UNSUPPORTED.items():
         value = training.get(knob, TRAINING_DEFAULTS[knob])
         if not ok(value):

@@ -69,6 +69,22 @@
 // - Table::launches, when set, is a device word that thread 0 of block 0
 //   adds one to: the count of launches that ran, eager ones and those a
 //   graph replays alike, which the host cannot see launch by launch.
+// - The guarded calling form (training.guard, the numerical guard's
+//   firewall): Table::verdict points at an int32 on the device, 1 to apply
+//   the update, 0 to skip it, set by the step from the aggregated gradient.
+//   At 0 every block returns before its loads and writes nothing to p, m
+//   or v (block 0 still counts the launch, so a skipped update is one
+//   launch, as in the JAX package, whose lax.cond skips the kernel's work).
+//   The step count is then the optimizer's one device count, as the TPU
+//   kernel reads its bias corrections from device memory: t = *count + 1,
+//   bc1 and bc2 from Table::bc[min(t, bc_len - 1)], a table the host builds
+//   once with the host's float32 arithmetic up to where both are exactly 1
+//   (fused_adam.bias_table), and the bf16 noise words the rows' step-free
+//   parts plus t * 0x85EBCA77 (uint32, as noise_offset computes them). So
+//   a guarded update of verdict 1 is bitwise the unguarded one at the same
+//   count, and nothing the host uploads depends on a skip: the count
+//   advances on the device (count += verdict, after the launch), inside a
+//   CUDA-graph replay too. An unguarded launch passes null and is unchanged.
 // - The leaves are cut into chunks of `chunk` elements, numbered across the
 //   table, and the grid has one block per chunk. A block finds its chunk's
 //   leaf by binary search over the chunk starts (at most 6 steps for 48
@@ -143,6 +159,10 @@ static_assert(sizeof(LeafScalars) == 16, "LeafScalars layout");
 struct Table {
   const LeafScalars* scalars;    // null: each row's own bc1, bc2 and noise words
   unsigned long long* launches;  // null, or the word each launch adds one to
+  const int32_t* verdict;        // null: unguarded; else 1 apply, 0 skip
+  const int32_t* count;          // guarded: the optimizer's applied updates
+  const float2* bc;              // guarded: (bc1, bc2) by step count t
+  int64_t bc_len;                // guarded: rows of bc, the last (1, 1)
   int64_t n_chunks;
   int32_t n_leaves;
   Leaf leaves[kMaxLeaves];
@@ -152,8 +172,8 @@ struct Hyper {
   float lr, b1, one_minus_b1, b2, one_minus_b2, eps, weight_decay;
 };
 
-// Every CUDA version takes 4,096 bytes of kernel parameters; the table (3,488
-// bytes with its two pointers) stays within them.
+// Every CUDA version takes 4,096 bytes of kernel parameters; the table (3,520
+// bytes with its five pointers and bc_len) stays within them.
 static_assert(sizeof(Table) + sizeof(int64_t) + sizeof(Hyper) <= 4096,
               "kernel parameters exceed 4 KB");
 
@@ -227,6 +247,9 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
   if (c == 0 && threadIdx.x == 0 && table.launches != nullptr) {
     atomicAdd(table.launches, 1ull);
   }
+  if (table.verdict != nullptr && *table.verdict == 0) {
+    return;  // a skipped update: nothing loaded, nothing written
+  }
   // the leaf holding chunk c: the last one whose first chunk is <= c
   int lo = 0;
   int hi = table.n_leaves - 1;
@@ -251,6 +274,16 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
     bc2 = s.bc2;
     noise_m = s.noise_m;
     noise_v = s.noise_v;
+  }
+  if (table.verdict != nullptr) {
+    // the step count from the device; the rows hold the noise words'
+    // step-free parts (uint32 arithmetic wraps as noise_offset's)
+    const uint32_t t = static_cast<uint32_t>(*table.count) + 1u;
+    const float2 b = table.bc[t < table.bc_len ? static_cast<int64_t>(t) : table.bc_len - 1];
+    bc1 = b.x;
+    bc2 = b.y;
+    noise_m += t * 0x85EBCA77u;
+    noise_v += t * 0x85EBCA77u;
   }
   M* const mp = static_cast<M*>(leaf.m);
   M* const vp = static_cast<M*>(leaf.v);
@@ -306,14 +339,21 @@ fused_adam_multi_kernel(const __grid_constant__ Table table, const int64_t chunk
 // kernel's parameters, so the array may be freed when this returns. `chunk`
 // is a positive multiple of 4. `scalars` is null, or a device array of
 // n_leaves LeafScalars that replaces the rows' bc1, bc2 and noise words;
-// `launches` is null or a device word the launch adds one to. Returns
-// cudaGetLastError() after the launch (0 on success), or
+// `launches` is null or a device word the launch adds one to. `verdict` is
+// null (unguarded), or with `count` a device int32 each and `bc` a device
+// array of bc_len (bc1, bc2) pairs the guarded form (see the header).
+// Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments it cannot take.
 template <typename M>
 int launch(const void* leaves, int n_leaves, int64_t chunk, const void* scalars,
-           void* launches, float lr, float b1, float one_minus_b1, float b2,
+           void* launches, const void* verdict, const void* count, const void* bc,
+           int64_t bc_len, float lr, float b1, float one_minus_b1, float b2,
            float one_minus_b2, float eps, float weight_decay, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || chunk <= 0 || chunk % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (verdict != nullptr && (count == nullptr || bc == nullptr || bc_len < 1 ||
+                             scalars != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Table table;
@@ -322,6 +362,10 @@ int launch(const void* leaves, int n_leaves, int64_t chunk, const void* scalars,
   table.n_leaves = n_leaves;
   table.scalars = static_cast<const LeafScalars*>(scalars);
   table.launches = static_cast<unsigned long long*>(launches);
+  table.verdict = static_cast<const int32_t*>(verdict);
+  table.count = static_cast<const int32_t*>(count);
+  table.bc = static_cast<const float2*>(bc);
+  table.bc_len = bc_len;
   const Leaf& last = table.leaves[n_leaves - 1];
   table.n_chunks = last.chunk_start + (last.n + chunk - 1) / chunk;
 
@@ -338,20 +382,24 @@ int launch(const void* leaves, int n_leaves, int64_t chunk, const void* scalars,
 
 // float32 moments: m and v are float* in every row.
 extern "C" int tpuddp_fused_adam_multi(const void* leaves, int n_leaves, int64_t chunk,
-                                       const void* scalars, void* launches, float lr,
-                                       float b1, float one_minus_b1, float b2,
-                                       float one_minus_b2, float eps, float weight_decay,
-                                       void* stream) {
-  return launch<float>(leaves, n_leaves, chunk, scalars, launches, lr, b1, one_minus_b1,
-                       b2, one_minus_b2, eps, weight_decay, stream);
+                                       const void* scalars, void* launches,
+                                       const void* verdict, const void* count, const void* bc,
+                                       int64_t bc_len, float lr, float b1, float one_minus_b1,
+                                       float b2, float one_minus_b2, float eps,
+                                       float weight_decay, void* stream) {
+  return launch<float>(leaves, n_leaves, chunk, scalars, launches, verdict, count, bc, bc_len,
+                       lr, b1, one_minus_b1, b2, one_minus_b2, eps, weight_decay, stream);
 }
 
 // bf16 moments: m and v point at bf16 arrays; noise_m and noise_v are set.
 extern "C" int tpuddp_fused_adam_multi_bf16(const void* leaves, int n_leaves, int64_t chunk,
-                                            const void* scalars, void* launches, float lr,
+                                            const void* scalars, void* launches,
+                                            const void* verdict, const void* count,
+                                            const void* bc, int64_t bc_len, float lr,
                                             float b1, float one_minus_b1, float b2,
                                             float one_minus_b2, float eps, float weight_decay,
                                             void* stream) {
-  return launch<unsigned short>(leaves, n_leaves, chunk, scalars, launches, lr, b1,
-                                one_minus_b1, b2, one_minus_b2, eps, weight_decay, stream);
+  return launch<unsigned short>(leaves, n_leaves, chunk, scalars, launches, verdict, count, bc,
+                                bc_len, lr, b1, one_minus_b1, b2, one_minus_b2, eps,
+                                weight_decay, stream);
 }

@@ -18,6 +18,10 @@ The buffer is allocated before the capture, at the size that the same
 flush's eager warm-up counted (a counting :class:`Recorder`): memory taken
 during a capture may be memory that the graph's earlier kernels use as
 scratch, which would overwrite the scalars uploaded before the replay.
+
+A step under the numerical guard takes no slot: whether it applies, and
+so its step count, is known only on the device, and the guarded launch
+reads its step from there (``ops/fused_adam.py``).
 """
 
 from __future__ import annotations

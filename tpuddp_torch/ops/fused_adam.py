@@ -32,6 +32,15 @@ from a device slot instead (:func:`table_scalars`,
 :mod:`tpuddp_torch.ops.device_scalars`), which the host refills before each
 replay with :func:`replay_scalars`; an eager launch is unchanged.
 
+The guarded calling form (``training.guard``; ``verdict`` and ``count``):
+the launch reads a device verdict (1 apply, 0 skip: nothing is written) and
+the optimizer's device step count, from which it takes its bias corrections
+(a device table, :func:`bias_table`, of the host's own float32 values) and
+its bf16 noise words, so that a skip decided on the device needs nothing
+from the host, in a CUDA-graph replay too; at verdict 1 it is bitwise the
+unguarded launch at the same count. The plain version takes the same two
+arguments.
+
 The JAX kernel returns new arrays; here ``p``, ``m`` and ``v`` are updated in
 place, which keeps one copy of each in device memory.
 """
@@ -39,6 +48,7 @@ place, which keeps one copy of each in device memory.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -114,6 +124,53 @@ def bias_corrections(step: int, betas: Tuple[float, float]) -> Tuple[float, floa
     return float(np.float32(1) - b1**t), float(np.float32(1) - b2**t)
 
 
+# a bias table past this many rows is refused (betas within ~2e-6 of 1)
+MAX_BIAS_ROWS = 1 << 22
+_bias_tables = {}  # (b1, b2 as float32 bits, device) -> the device table
+
+
+def bias_rows(betas: Tuple[float, float]) -> int:
+    """Rows of :func:`bias_table`: enough that at the last step count both
+    ``b^t`` are below 2^-30, so that ``1 - b^t`` is exactly 1 in float32
+    there and at every later count."""
+    top = max(float(np.float32(b)) for b in betas)
+    if not top < 1.0:
+        raise ValueError(f"the guarded Adam needs betas below 1, got {tuple(betas)}")
+    rows = 2 if top <= 0.0 else int(math.ceil(30 * math.log(2) / -math.log(top))) + 2
+    if rows > MAX_BIAS_ROWS:
+        raise ValueError(f"betas {tuple(betas)} need a bias table of {rows} rows")
+    return rows
+
+
+def bias_table(betas: Tuple[float, float], device, inverse: bool = False) -> torch.Tensor:
+    """``(rows, 2)`` float32 on ``device``: row ``t`` holds
+    :func:`bias_corrections` ``(t, betas)`` (row 0 is unused), the same host
+    computation, so a guarded launch reads the unguarded launch's bits; the
+    last row is ``(1, 1)``, which every later count also has, and the
+    kernel reads it for them. ``inverse``: each value's float32 reciprocal
+    instead (LAMB's on the card). Built once per betas and device, at the
+    first guarded step, which must not be inside a CUDA-graph capture."""
+    device = torch.device(device)
+    key = (np.float32(betas[0]).tobytes(), np.float32(betas[1]).tobytes(), device, inverse)
+    table = _bias_tables.get(key)
+    if table is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_adam: the bias table is built inside a CUDA-graph capture; "
+                "run one guarded step eagerly first"
+            )
+        rows = bias_rows(betas)
+        host = np.ones((rows, 2), np.float32)
+        for t in range(1, rows):
+            host[t] = bias_corrections(t, betas)
+        if not (host[-1] == 1.0).all():
+            raise AssertionError(f"the bias table of {tuple(betas)} does not end at (1, 1)")
+        if inverse:
+            host = np.float32(1) / host
+        table = _bias_tables[key] = torch.from_numpy(host).to(device)
+    return table
+
+
 def bf16_neighbours(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 values just below and just above each float32 value of
     ``x`` (both ``x`` where it is a bf16 value), as float32: the two results
@@ -131,15 +188,23 @@ def bf16_neighbours(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def adam_update_reference(
     p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
     lr: float, betas: Tuple[float, float], eps: float, weight_decay: float,
-    bc1: float, bc2: float, step: Optional[int] = None, leaf: Optional[int] = None,
-    base: int = 0,
+    bc1: Optional[float] = None, bc2: Optional[float] = None, step: Optional[int] = None,
+    leaf: Optional[int] = None, base: int = 0, verdict: Optional[torch.Tensor] = None,
+    count: Optional[torch.Tensor] = None,
 ) -> None:
     """Plain PyTorch version of the kernel for one leaf: the torch Adam rule
     with the L2 term, in the operation order of ``tpuddp/optim.py``'s Adam.
     bf16 moments (``m.dtype``) are widened, updated in float32, used for
     ``p`` unrounded, and stored with :func:`stochastic_round_bf16` keyed by
     the leaf's step count ``step``, JAX leaf index ``leaf`` and flat index
-    base ``base``."""
+    base ``base``. The guarded form (``verdict``, ``count``: int32 scalars,
+    read on the host) writes nothing at verdict 0 and otherwise takes the
+    step ``count + 1`` and its bias corrections."""
+    if verdict is not None:
+        if not int(verdict):
+            return
+        step = int(count) + 1
+        bc1, bc2 = bias_corrections(step, betas)
     b1, b2 = betas
     if weight_decay:
         g = g + weight_decay * p
@@ -277,6 +342,7 @@ class _Library:
         fn = getattr(self._lib, name)
         fn.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
             + [ctypes.c_float] * 7 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -291,7 +357,11 @@ class FusedAdamKernel:
     loads its C function at first use, checks its arguments and launches once
     per launch table on PyTorch's current stream. During a CUDA-graph
     capture each launch reads its rows' per-step words from a device slot
-    (:mod:`~tpuddp_torch.ops.device_scalars`).
+    (:mod:`~tpuddp_torch.ops.device_scalars`). With ``verdict`` and
+    ``count`` (device int32 scalars) the launch is the guarded form: its
+    rows hold the noise words' step-free parts, and the kernel takes the
+    step, the bias corrections (:func:`bias_table`) and whether to write at
+    all from the device, in a capture too.
 
     Each launch that runs adds one to a word on its device (the kernel's
     block 0 does, so a launch replayed from a CUDA graph counts as well as
@@ -336,14 +406,27 @@ class FusedAdamKernel:
         return self._fn
 
     def __call__(
-        self, ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s,
-        steps=None, leaves=None, bases=None,
+        self, ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s=None, bc2s=None,
+        steps=None, leaves=None, bases=None, verdict=None, count=None,
     ) -> None:
         if not ps:
             return
+        guarded = verdict is not None
+        if guarded:
+            # the step comes from the device: rows carry no bias corrections
+            # and the noise words' step-free parts
+            bc1s = bc2s = [0.0] * len(ps)
+            steps = [0] * len(ps)
         _check(ps, gs, ms, vs, bc1s, bc2s, self.moment_dtype)
         bf16 = self.moment_dtype == torch.bfloat16
         chunk = CHUNK
+        guard_args = (None, None, None, 0)
+        if guarded:
+            for name, t in (("verdict", verdict), ("count", count)):
+                if t is None or t.device != ps[0].device or t.dtype != torch.int32 or t.numel() != 1:
+                    raise ValueError(f"fused_adam: {name} must be an int32 scalar on {ps[0].device}")
+            bc = bias_table(betas, ps[0].device)
+            guard_args = (verdict.data_ptr(), count.data_ptr(), bc.data_ptr(), len(bc))
         tables = launch_tables(
             [(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
              for p, g, m, v in zip(ps, gs, ms, vs)],
@@ -359,12 +442,12 @@ class FusedAdamKernel:
         b1, b2 = betas
         stream = torch.cuda.current_stream(ps[0].device).cuda_stream
         counter = self._counter(ps[0].device).data_ptr()
-        recorder = device_scalars.active()
+        recorder = None if guarded else device_scalars.active()
         for table in tables:
             scalars = None if recorder is None else recorder.slot(table_scalars(table))
             err = fn(
                 table.ctypes.data, len(table), chunk,
-                None if scalars is None else scalars.data_ptr(), counter,
+                None if scalars is None else scalars.data_ptr(), counter, *guard_args,
                 lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay, stream,
             )
             if err != 0:
@@ -379,23 +462,35 @@ kernel = kernels[torch.float32]  # float32 moments, the default
 
 
 def adam_update(
-    ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s, bc2s, steps=None, leaves=None,
-    bases=None,
+    ps, gs, ms, vs, *, lr, betas, eps, weight_decay, bc1s=None, bc2s=None, steps=None,
+    leaves=None, bases=None, verdict=None, count=None,
 ) -> None:
     """Update the leaves ``ps[i]`` (gradient ``gs[i]``, moments ``ms[i]``,
     ``vs[i]``, bias corrections ``bc1s[i]``, ``bc2s[i]``) in place: the CUDA
     kernel of the moments' dtype for CUDA tensors, the plain version for CPU
     tensors. bf16 moments also need each leaf's step count ``steps[i]`` and
     JAX leaf index ``leaves[i]``, which key their rounding, and take the flat
-    index of its first element from ``bases[i]`` (0 when None)."""
+    index of its first element from ``bases[i]`` (0 when None). With
+    ``verdict`` and ``count`` (int32 scalars on the leaves' device) it is
+    the guarded form: every leaf at step ``count + 1``, nothing written at
+    verdict 0; ``bc1s``, ``bc2s`` and ``steps`` are then not given."""
     if not ps:
         return
     hp = dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+    if verdict is not None:
+        if bc1s is not None or bc2s is not None or steps is not None:
+            raise ValueError("fused_adam: the guarded form takes its steps from count")
+        hp.update(verdict=verdict, count=count)
+        bc1s = bc2s = [None] * len(ps)
+        steps = [0] * len(ps)
     device = ps[0].device
     moment_dtype = ms[0].dtype
     if moment_dtype not in kernels:
         raise TypeError(f"fused_adam: moments are {moment_dtype}, expected one of {list(kernels)}")
     if device.type == "cuda":
+        if verdict is not None:
+            kernels[moment_dtype](ps, gs, ms, vs, leaves=leaves, bases=bases, **hp)
+            return
         kernels[moment_dtype](
             ps, gs, ms, vs, bc1s=bc1s, bc2s=bc2s, steps=steps, leaves=leaves, bases=bases, **hp
         )

@@ -46,6 +46,19 @@ a device value on the host. The host state that changes per step, Adam's and
 LAMB's step counts and the scalars they give, is advanced and uploaded
 before each replay through :mod:`tpuddp_torch.ops.device_scalars`, which
 the captured launches read instead of the captured step's values.
+
+Under the numerical guard (``training.guard``; :func:`arm_guard`) each
+optimizer reads the firewall's device verdict (``verdict``, int32: 1 apply,
+0 skip) and an update at 0 writes nothing: Adam's kernel takes the verdict
+itself (its guarded calling form); SGD, SGDW, LARS and LAMB select the old
+parameters and state back where it is 0, bitwise. Adam and LAMB then keep
+one step count per optimizer on the device (``AdamState.step`` is one count
+for the tree in the JAX package), advanced by the verdict after the update,
+from which the kernel (Adam) or a device table (LAMB) takes the bias
+corrections: nothing the host uploads before a replay depends on a skip.
+The host's per-parameter ``state["step"]`` is brought into line with it by
+:meth:`Adam.sync_steps` (at a save and at an epoch's end), and the device
+count from the host's by :meth:`Adam.count_from_state` (after a restore).
 """
 
 from __future__ import annotations
@@ -57,7 +70,9 @@ import numpy as np
 import torch
 
 from tpuddp_torch.ops import device_scalars
-from tpuddp_torch.ops.fused_adam import adam_update, bias_corrections, replay_scalars
+from tpuddp_torch.ops.fused_adam import (
+    adam_update, bias_corrections, bias_rows, bias_table, replay_scalars,
+)
 from tpuddp_torch.parallel import collectives
 
 # tpuddp/optim.py:162-181: these two have a correct storage path; any other
@@ -82,7 +97,61 @@ def state_dtype_from(name) -> torch.dtype:
         ) from None
 
 
-class Adam(torch.optim.Optimizer):
+class _DeviceCount:
+    """Adam's and LAMB's per-parameter state (``step``, ``exp_avg``,
+    ``exp_avg_sq``) and, under the guard (``verdict`` set), one int32 step
+    count per optimizer on the device, the updates applied, which the
+    guarded update reads (``t = count + 1``) and advances by the verdict."""
+
+    verdict: Optional[torch.Tensor] = None  # the firewall's, set by arm_guard
+    _count: Optional[torch.Tensor] = None
+    state_dtype = torch.float32
+
+    def _init_state(self, p) -> dict:
+        """``p``'s state, created (step 0, zero moments) at its first step."""
+        state = self.state[p]
+        if not state:
+            state["step"] = 0
+            state["exp_avg"] = torch.zeros_like(
+                p, dtype=self.state_dtype, memory_format=torch.contiguous_format
+            )
+            state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
+        return state
+
+    def _device_count(self) -> torch.Tensor:
+        if self._count is None:
+            device = self.param_groups[0]["params"][0].device
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "the guarded optimizer's step count is made inside a CUDA-graph capture; "
+                    "run one step eagerly first"
+                )
+            self._count = torch.zeros((), dtype=torch.int32, device=device)
+        return self._count
+
+    def sync_steps(self) -> None:
+        """Each parameter's host ``state["step"]`` set to the device count
+        (a host read; nothing without the guard)."""
+        if self.verdict is None or self._count is None:
+            return
+        count = int(self._count)
+        for state in self.state.values():
+            if "step" in state:
+                state["step"] = count
+
+    @torch.no_grad()
+    def count_from_state(self) -> None:
+        """The device count set to the parameters' host step count (one
+        count for all of them; 0 without state), after a restore."""
+        if self.verdict is None:
+            return
+        steps = {int(st["step"]) for st in self.state.values() if "step" in st}
+        if len(steps) > 1:
+            raise ValueError(f"parameters are at steps {sorted(steps)}; the guard keeps one count")
+        self._device_count().fill_(steps.pop() if steps else 0)
+
+
+class Adam(_DeviceCount, torch.optim.Optimizer):
     def __init__(
         self,
         params,
@@ -127,13 +196,7 @@ class Adam(torch.optim.Optimizer):
         bc1s, bc2s, steps, leaves = [], [], [], []
         corrections = {}
         for p in ps:
-            state = self.state[p]
-            if not state:
-                state["step"] = 0
-                state["exp_avg"] = torch.zeros_like(
-                    p, dtype=self.state_dtype, memory_format=torch.contiguous_format
-                )
-                state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
+            state = self._init_state(p)
             state["step"] += 1
             step = state["step"]
             if step not in corrections:
@@ -163,6 +226,9 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        if self.verdict is not None:
+            self._guarded_step()
+            return loss
         stepped = []
         for group in self.param_groups:
             # the group's leaves that have a gradient, each with the bias
@@ -178,6 +244,23 @@ class Adam(torch.optim.Optimizer):
             stepped.append(ps)
         device_scalars.on_replay(partial(self._replay, stepped))
         return loss
+
+    def _guarded_step(self) -> None:
+        """Every group's leaves through the kernel's guarded form at the
+        device count, then ``count += verdict``: no host state advances,
+        so a replay needs nothing uploaded."""
+        count = self._device_count()
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            states = [self._init_state(p) for p in ps]
+            adam_update(
+                ps, [p.grad for p in ps], [st["exp_avg"] for st in states],
+                [st["exp_avg_sq"] for st in states], lr=group["lr"], betas=group["betas"],
+                eps=group["eps"], weight_decay=group["weight_decay"],
+                leaves=[self.leaf_index[p] for p in ps],
+                bases=[self.noise_base.get(p, 0) for p in ps], verdict=self.verdict, count=count,
+            )
+        count.add_(self.verdict)
 
 
 # ------------------------------------------------- SGD, SGDW, LARS, LAMB --
@@ -266,10 +349,13 @@ class _TreeMap(torch.optim.Optimizer):
     package's tree maps), behind ``torch.optim.Optimizer.step``'s closure
     protocol. LARS and LAMB take their layers' norms per parameter, or with
     ``flat`` (a :class:`FlatSegments`, set by :class:`ShardedUpdate`) over
-    the segments of their one parameter, a ZeRO-1 shard."""
+    the segments of their one parameter, a ZeRO-1 shard. Under the guard
+    (``verdict``) the parameters and the state the update writes are copied
+    first and selected back where the verdict is 0."""
 
     GRAPH_SAFE = True
     flat: Optional[FlatSegments] = None
+    verdict: Optional[torch.Tensor] = None  # the firewall's, set by arm_guard
 
     def _layer_norms(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         return _norms(tensors) if self.flat is None else self.flat.norms(tensors[0])
@@ -285,9 +371,27 @@ class _TreeMap(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        held = self._hold() if self.verdict is not None else ()
         for group in self.param_groups:
             self._update(group)
+        if held:
+            keep = self.verdict.bool()
+            for t, old in held:
+                torch.where(keep, t, old, out=t)
         return loss
+
+    def _hold(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """``(tensor, its copy)`` of everything the update writes: the
+        stepped parameters and their state (created first, as zeros)."""
+        held = []
+        for group in self.param_groups:
+            ps, _ = _stepped(group)
+            held += [(t, t.clone()) for t in ps + self._state_tensors(group, ps)]
+        return held
+
+    def _state_tensors(self, group, ps) -> List[torch.Tensor]:
+        """The state tensors the update of ``ps`` writes."""
+        return []
 
     def _update(self, group) -> None:
         raise NotImplementedError
@@ -300,6 +404,9 @@ class SGD(_TreeMap):
 
     def __init__(self, params, lr: float, momentum: float = 0.0, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+
+    def _state_tensors(self, group, ps) -> List[torch.Tensor]:
+        return [] if group["momentum"] == 0.0 else _momentum_buffers(self, ps)
 
     def _update(self, group) -> None:
         ps, gs = _stepped(group)
@@ -324,6 +431,9 @@ class SGDW(_TreeMap):
 
     def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+
+    def _state_tensors(self, group, ps) -> List[torch.Tensor]:
+        return [] if group["momentum"] == 0.0 else _momentum_buffers(self, ps)
 
     def _update(self, group) -> None:
         ps, gs = _stepped(group)
@@ -353,6 +463,9 @@ class LARS(_TreeMap):
                                       trust_coefficient=trust_coefficient, eps=eps))
         self.trust_ratios: Optional[torch.Tensor] = None
 
+    def _state_tensors(self, group, ps) -> List[torch.Tensor]:
+        return _momentum_buffers(self, ps)
+
     def _update(self, group) -> None:
         ps, gs = _stepped(group)
         if not ps:
@@ -368,7 +481,7 @@ class LARS(_TreeMap):
         self.trust_ratios = ratios
 
 
-class LAMB(_TreeMap):
+class LAMB(_DeviceCount, _TreeMap):
     """``tpuddp/optim.py:361-448``: Adam's moments in float32 (``step``,
     ``exp_avg``, ``exp_avg_sq`` per parameter), the direction
     ``r = (m / bc1) / (sqrt(v / bc2) + eps) + wd * p`` and, per layer,
@@ -380,19 +493,31 @@ class LAMB(_TreeMap):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
         self.trust_ratios: Optional[torch.Tensor] = None
 
+    def _state_tensors(self, group, ps) -> List[torch.Tensor]:
+        states = [self._init_state(p) for p in ps]
+        return [st["exp_avg"] for st in states] + [st["exp_avg_sq"] for st in states]
+
     def _advance(self, group, ps) -> List[Tuple[float, float]]:
         """Advance the step count of each of ``ps`` (creating its state at
         its first step); each one's ``(bc1, bc2)``."""
         out = []
         for p in ps:
-            state = self.state[p]
-            if not state:
-                state["step"] = 0
-                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.contiguous_format)
-                state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"])
+            state = self._init_state(p)
             state["step"] += 1
             out.append(bias_corrections(state["step"], group["betas"]))
         return out
+
+    def _guarded_corrections(self, group, device) -> Tuple[torch.Tensor, bool]:
+        """The bias corrections of step ``count + 1``, gathered on the
+        device from a table of the host's values, and whether to divide by
+        them: on the CPU ``(bc1, bc2)``, divided by as by the host's scalars;
+        on the card ``(1 / bc1, 1 / bc2)``, which a division by a host
+        scalar multiplies by there."""
+        betas = group["betas"]
+        t = (self._device_count() + 1).clamp_(max=bias_rows(betas) - 1).long().reshape(1)
+        cpu = device.type == "cpu"
+        table = bias_table(betas, device, inverse=not cpu)
+        return table.index_select(0, t).reshape(2), cpu
 
     @staticmethod
     def _inverses(bcs) -> np.ndarray:
@@ -409,7 +534,10 @@ class LAMB(_TreeMap):
     def step(self, closure=None):
         self._stepped = []
         loss = super().step(closure)
-        device_scalars.on_replay(partial(self._replay, self._stepped))
+        if self.verdict is None:
+            device_scalars.on_replay(partial(self._replay, self._stepped))
+        else:
+            self._device_count().add_(self.verdict)
         return loss
 
     def _update(self, group) -> None:
@@ -419,21 +547,26 @@ class LAMB(_TreeMap):
             return
         b1, b2 = group["betas"]
         wd, eps = group["weight_decay"], group["eps"]
-        bcs = self._advance(group, ps)
-        # inside a capture: the inverses from a device slot (see _inverses)
-        recorder = device_scalars.active()
-        inv = None if recorder is None else recorder.slot(self._inverses(bcs))
+        if self.verdict is not None:  # the state exists: _hold made it
+            bc, divide = self._guarded_corrections(group, ps[0].device)
+            scales = [(bc[0], bc[1])] * len(ps)
+        else:
+            bcs = self._advance(group, ps)
+            # inside a capture: the inverses from a device slot (see _inverses)
+            recorder = device_scalars.active()
+            inv = None if recorder is None else recorder.slot(self._inverses(bcs))
+            divide = inv is None
+            scales = bcs if divide else [(inv[2 * i], inv[2 * i + 1]) for i in range(len(ps))]
         rs = []
-        for i, (p, g) in enumerate(zip(ps, gs)):
+        for p, g, (c1, c2) in zip(ps, gs, scales):
             state = self.state[p]
-            bc1, bc2 = bcs[i]
             m, v = state["exp_avg"], state["exp_avg_sq"]
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(g.square().mul_(1 - b2))
-            if inv is None:
-                r = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+            if divide:
+                r = (m / c1).div_((v / c2).sqrt_().add_(eps))
             else:
-                r = (m * inv[2 * i]).div_((v * inv[2 * i + 1]).sqrt_().add_(eps))
+                r = (m * c1).div_((v * c2).sqrt_().add_(eps))
             if wd:
                 r.add_(wd * p)
             rs.append(r)
@@ -507,7 +640,14 @@ class ShardedUpdate:
     :meth:`~tpuddp_torch.parallel.comm.GradComm.reduce_scatter`
     (``tpuddp/parallel/comm.py:476-508``); ``residual`` is then this
     rank's full-length error-feedback residual in the port's flat order
-    (None for ``bf16``), updated in place by each step."""
+    (None for ``bf16``), updated in place by each step.
+
+    Under the guard (:func:`arm_guard`) the wrapped optimizer reads the
+    firewall's verdict, and on the native path this step makes it: the
+    shard of the mean gradient (before the clip) is judged and the verdict
+    agreed across ranks with an all-reduce MIN, the JAX package's ``pmin``
+    (``tpuddp/training/step.py:360-368``); the hook writes its residual into
+    the firewall's staging vector. A skipped shard all-gathers unchanged."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], spec,
                  rank: int = 0, *, managed: bool = False, clip: Optional[float] = None,
@@ -524,6 +664,8 @@ class ShardedUpdate:
         self.params = params
         self.world, self.rank = spec.world, int(rank)
         self.clip = None if clip is None else float(clip)
+        self.managed = bool(managed)
+        self.firewall = None  # the numerical guard's, set by arm_guard
         device = params[0].device
         n = spec.shard_n
         self.lo, self.hi = self.rank * n, (self.rank + 1) * n
@@ -566,6 +708,11 @@ class ShardedUpdate:
     def GRAPH_SAFE(self) -> bool:
         return getattr(self.inner, "GRAPH_SAFE", False)
 
+    @property
+    def judges(self) -> bool:
+        """Whether this step makes the guard's verdict (native ZeRO-1)."""
+        return self.firewall is not None and not self.managed
+
     def zero_grad(self, set_to_none: bool = True) -> None:
         """Drop every parameter's gradient (the steps' one use)."""
         for p in self.params:
@@ -587,7 +734,8 @@ class ShardedUpdate:
             for g, view in zip(grads, self.spec.views(self.flat_grad)):
                 view.zero_() if g is None else view.copy_(g)
         if self.comm is not None:
-            return self.comm.reduce_scatter(self.flat_grad, self.residual, self.rank)[0]
+            lost = None if self.firewall is None else self.firewall.staged
+            return self.comm.reduce_scatter(self.flat_grad, self.residual, self.rank, lost)[0]
         if self._g_shard is None:
             return self.flat_grad[self.lo:self.hi]
         collectives.reduce_scatter_sum(self._g_shard, self.flat_grad)
@@ -600,6 +748,8 @@ class ShardedUpdate:
             with torch.enable_grad():
                 loss = closure()
         g = self._flat_gradient()
+        if self.judges:
+            self.firewall.judge([g], agree=True)
         if self.clip is not None:
             sq = _norms64([g]).square()
             collectives.all_reduce_sum_([sq])
@@ -611,3 +761,40 @@ class ShardedUpdate:
             self._send.copy_(self.shard)
             collectives.all_gather_shards(self.flat, self._send)
         return loss
+
+
+def arm_guard(optimizer, firewall) -> None:
+    """Gate ``optimizer``'s updates on ``firewall``'s verdict (a
+    :class:`~tpuddp_torch.resilience.guard.Firewall`): any optimizer of this
+    module, or a :class:`ShardedUpdate` around one (which then also makes
+    the verdict on the native path)."""
+    inner = optimizer
+    if isinstance(optimizer, ShardedUpdate):
+        optimizer.firewall = firewall
+        inner = optimizer.inner
+    if not isinstance(inner, (Adam, _TreeMap)):
+        raise TypeError(
+            "the numerical guard (training.guard) gates the updates of tpuddp_torch.optim's "
+            f"optimizers; got {type(inner).__name__}"
+        )
+    inner.verdict = firewall.verdict
+
+
+def _counted(optimizer) -> Optional[_DeviceCount]:
+    inner = optimizer.inner if isinstance(optimizer, ShardedUpdate) else optimizer
+    return inner if isinstance(inner, _DeviceCount) else None
+
+
+def sync_steps(optimizer) -> None:
+    """:meth:`Adam.sync_steps` of ``optimizer`` (or of the optimizer a
+    ZeRO-1 wrap holds); nothing for one without a step count."""
+    counted = _counted(optimizer)
+    if counted is not None:
+        counted.sync_steps()
+
+
+def count_from_state(optimizer) -> None:
+    """:meth:`Adam.count_from_state` of ``optimizer``, as :func:`sync_steps`."""
+    counted = _counted(optimizer)
+    if counted is not None:
+        counted.count_from_state()

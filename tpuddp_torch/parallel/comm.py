@@ -149,7 +149,9 @@ def quantize_int8(b: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Symmetric int8 codes of ``b`` against ``scale`` (= max|b| / 127),
     rounded half to even. An all-zero bucket (scale 0) sends zeros; a
     non-finite scale is not guarded, so dequantising a bucket that held a
-    NaN or an Inf gives NaN at every element."""
+    NaN or an Inf gives NaN at every element: the NaN reaches the numerical
+    guard's verdict through the scale, whatever code a NaN element's cast
+    to int8 gives (PyTorch leaves that cast undefined)."""
     denom = torch.where(scale > 0, scale, torch.ones_like(scale))
     return torch.clamp(torch.round(b / denom), -127, 127).to(torch.int8)
 
@@ -246,7 +248,8 @@ def _int8_lost(b: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.T
 
 def _topk(b: torch.Tensor, density: float) -> torch.Tensor:
     """The indices of the ``bucket_topk`` largest |b| (int64, in no
-    particular order)."""
+    particular order). A NaN ranks above every number, as in ``lax.top_k``,
+    on the CPU and on the card alike."""
     return torch.topk(b.abs(), bucket_topk(b.numel(), density), sorted=False).indices
 
 
@@ -325,24 +328,30 @@ class GradComm(NamedTuple):
         residual) when it is given."""
         return self._exchange_span(send, seg.flat[0], seg.buckets, lost)
 
-    def reduce(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor]):
+    def reduce(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor],
+               lost: Optional[torch.Tensor] = None):
         """The bucketed hook pipeline on this replica's padded gradient
         vector ``g_vec`` (``(total,)``, the exchange's order): returns the
         cross-replica MEAN vector and the residual, which becomes ``send -
-        kept`` with ``send = g_vec + residual``, written in place."""
+        kept`` with ``send = g_vec + residual``, written in place, or into
+        ``lost`` when it is given (the numerical guard's staging vector: the
+        residual then stays as it is)."""
         send = g_vec if residual is None else g_vec + residual
-        reduced = self._compressed_sum(send, residual if self.needs_residual else None)
+        lost = residual if lost is None else lost
+        reduced = self._compressed_sum(send, lost if self.needs_residual else None)
         if self.world > 1:
             reduced = reduced / self.world
         return reduced, residual
 
-    def reduce_scatter(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor], rank: int):
+    def reduce_scatter(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor], rank: int,
+                       lost: Optional[torch.Tensor] = None):
         """The ZeRO-1 composition: ``(rank's shard of the MEAN, residual)``.
         The bf16 hooks reduce-scatter the whole vector in bf16; int8_ef and
         topk_ef exchange it as one bucket and slice the rank's shard from
-        the sum. The residual stays full length and replica-local."""
+        the sum. The residual stays full length and replica-local; its new
+        value goes into ``lost`` when that is given, as :meth:`reduce`."""
         send = g_vec if residual is None else g_vec + residual
-        lost = residual if self.needs_residual else None
+        lost = (residual if lost is None else lost) if self.needs_residual else None
         n = self.total // self.world
         if self.hook in ("bf16", "bf16_ef"):
             shard, comp = col.psum_scatter_compressed(send, wire_dtype(self.hook))

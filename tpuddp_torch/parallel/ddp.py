@@ -94,6 +94,17 @@ the exchange as :class:`~tpuddp_torch.training.step.SegmentedSync`: each
 segment's exchange issued as its gradients land in backward, on a side
 stream of the card, bitwise the barrier step. ``comm_overlap_meta`` records
 ``{"enabled", "segments", "reason"}`` as the JAX wrap does.
+
+``guard`` (``training.guard``; ``tpuddp/parallel/ddp.py:90, :560-580,
+:723-740``): the numerical guard. At wrap time, after the broadcast, every
+replica's parameters are audited (:func:`~tpuddp_torch.resilience.guard.
+audit_or_raise`, ``ReplicaDesync`` on a divergence). Every step, cycle and
+chunk is then guarded by the wrap's :class:`~tpuddp_torch.resilience.guard.
+Firewall` (``training/step.py``): a non-finite aggregated gradient makes the
+update a bitwise no-op on the parameters, the optimizer state, the hook's
+residual and the BatchNorm buffers, counted on the device;
+:meth:`~DistributedDataParallel.skip_counters` reads the counters. The
+guard does not change how ``comm_overlap`` resolves.
 """
 
 from __future__ import annotations
@@ -107,8 +118,9 @@ import torch.distributed as dist
 from tpuddp_torch.models.convert import (
     JaxFlatOrder, flat_to_jax, jax_layer_sizes, jax_param_span, jax_sizes, model_name,
 )
-from tpuddp_torch.optim import ShardedUpdate
+from tpuddp_torch.optim import ShardedUpdate, arm_guard
 from tpuddp_torch.parallel import backend, collectives, comm
+from tpuddp_torch.resilience.guard import Firewall, audit_or_raise, resolve_guard
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
 from tpuddp_torch.training.step import (
@@ -148,7 +160,9 @@ class DistributedDataParallel:
         bucket_cap_mb: float = comm.DEFAULT_BUCKET_CAP_MB,
         topk_density: float = comm.DEFAULT_TOPK_DENSITY,
         comm_overlap="auto",
+        guard=None,
     ):
+        self.guard = resolve_guard(guard)
         self.comm_hook = comm.validate_hook(comm_hook)
         self.comm_overlap = comm.normalize_overlap(comm_overlap)
         self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
@@ -207,6 +221,13 @@ class DistributedDataParallel:
         self._resolve_overlap()
         if self._comm is not None and self._overlap is None:  # the barrier exchange's order
             self._order = JaxFlatOrder(model_name(self.model), self.model)
+        self.firewall = None  # the numerical guard's device state, when it is on
+        if self.guard.enabled:
+            self.firewall = Firewall(self.device, self.residual)
+            arm_guard(self.optimizer, self.firewall)
+            if self._overlap is not None:
+                self._overlap.staged = self.firewall.staged
+            audit_or_raise(self.model, where="ddp-wrap")
 
     def _resolve_overlap(self) -> None:
         """The ``comm_overlap`` knob against the JAX package's eligibility
@@ -281,6 +302,11 @@ class DistributedDataParallel:
         garbage collection."""
         return _no_sync if self.weight_update_sharding else self.sync_grads
 
+    def skip_counters(self):
+        """Host ``(total, consecutive)`` of the guard's skipped updates;
+        ``(0, 0)`` without the guard. One fetch: call it per epoch."""
+        return (0, 0) if self.firewall is None else self.firewall.read()
+
     @property
     def comm_overlap_meta(self) -> dict:
         """How ``comm_overlap`` resolved: ``{"enabled", "segments",
@@ -313,7 +339,8 @@ class DistributedDataParallel:
         if self._comm is not None:
             if self._order is None:  # the wrap's steps exchange per segment
                 self._order = JaxFlatOrder(model_name(self.model), self.model)
-            comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual)
+            lost = None if self.firewall is None else self.firewall.staged
+            comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual, lost)
             return
         if self.world_size == 1:
             return
@@ -343,6 +370,7 @@ class DistributedDataParallel:
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
             self._sync, self.sync_buffers, x, y, w, self._clip, overlap=self._overlap,
+            firewall=self.firewall,
         )
 
     def train_cycle(self, batches) -> torch.Tensor:
@@ -356,7 +384,7 @@ class DistributedDataParallel:
         return train_cycle(
             self.model, self.optimizer, self.criterion, self.augment, self._sync,
             self.sync_buffers, [self.to_device(b) for b in batches], self._clip,
-            overlap=self._overlap,
+            overlap=self._overlap, firewall=self.firewall,
         )
 
     def eval_step(self, batch) -> torch.Tensor:
@@ -413,7 +441,7 @@ class DistributedDataParallel:
             return train_many(
                 self.model, self.optimizer, self.criterion, self.augment, self._sync,
                 self.sync_buffers, t[0], [tuple(t[i:i + 3]) for i in range(1, len(t), 4)],
-                t[4::4], self._clip, self.grad_accumulation, self._overlap,
+                t[4::4], self._clip, self.grad_accumulation, self._overlap, self.firewall,
             )
 
         inputs = [sums] + [t for b, m in zip(batches, masks) for t in (*b, m)]

@@ -7,16 +7,27 @@ process. The launcher holds the rendezvous server
 (:func:`backend.rendezvous_store`) for the spawned ranks. The spawned worker
 function lives here, so a child process imports
 only ``tpuddp_torch`` (and whatever module ``demo_fn`` comes from).
+
+A :class:`~tpuddp_torch.resilience.guard.ReplicaDesync` (the numerical
+guard's auditor found a divergent replica) ends the process with exit
+:data:`~tpuddp_torch.resilience.guard.EXIT_DESYNC` (77), the "requeue me
+into auto-resume" code (``tpuddp/parallel/spawn.py:163-168``); a spawned
+rank that exits so makes the launcher exit so too.
 """
 
 from __future__ import annotations
 
+import logging
+import sys
 from typing import Callable, Optional
 
 import torch
 import torch.multiprocessing as mp
 
 from tpuddp_torch.parallel import backend as _backend
+from tpuddp_torch.resilience.guard import EXIT_DESYNC, ReplicaDesync
+
+logger = logging.getLogger("tpuddp")
 
 
 def _worker(
@@ -31,6 +42,9 @@ def _worker(
     _backend.setup(rank, world_size, device, port)
     try:
         return demo_fn(rank, world_size, save_dir, optional_args)
+    except ReplicaDesync as e:
+        logger.critical("%s; exiting %d", e, EXIT_DESYNC)
+        sys.exit(EXIT_DESYNC)
     finally:
         _backend.cleanup()
 
@@ -54,5 +68,10 @@ def run_ddp_training(
         return _worker(0, demo_fn, 1, save_dir, optional_args, backend, None)
     store = _backend.rendezvous_store(world_size)  # open until every rank joins
     args = (demo_fn, world_size, save_dir, optional_args, backend, store.port)
-    mp.spawn(_worker, args=args, nprocs=world_size, join=True)
+    try:
+        mp.spawn(_worker, args=args, nprocs=world_size, join=True)
+    except mp.ProcessExitedException as e:
+        if e.exit_code == EXIT_DESYNC:
+            sys.exit(EXIT_DESYNC)
+        raise
     return None

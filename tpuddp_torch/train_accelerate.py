@@ -43,14 +43,26 @@ run continues at the epoch after it. ``weight_update_sharding: true``
 shards the optimizer's update and state across the processes (ZeRO-1,
 ``accelerate.py``); ``comm_hook`` round-trips each update's gradient
 through the hook's wire format, with its error-feedback residual.
+
+``training.guard`` (the numerical guard; ``train_accelerate.py:431-460,
+:555-600, :674-750``): a skipped update is a bitwise no-op
+(``accelerate.py``); each row carries ``skipped_steps`` and
+``skipped_steps_epoch`` (one counter fetch per epoch), an epoch with skips
+prints its count and writes a ``skipped_updates`` event
+(``$TPUDDP_FAULT=nan@step=N`` poisons a host micro-batch before it is
+staged, as the native loop does, so a fused flush carries it);
+``audit_every_n_epochs`` audits the processes' parameters at those epochs'
+starts; more than ``max_consecutive_skips`` consecutive skips restore the
+newest intact ``state_{epoch}.npz`` (``load_state``) and redo the epoch (a
+``rollback`` event), at most ``max_rollbacks`` times, or raise
+``FloatingPointError`` without one. A divergent replica exits 77
+(``parallel/spawn.py``).
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import logging
-import os
 import time
 from functools import partial
 from typing import Optional
@@ -71,9 +83,10 @@ from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import run_ddp_training
+from tpuddp_torch.resilience import guard as guard_lib
 from tpuddp_torch.train_native import set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
-from tpuddp_torch.training.loop import StepClock
+from tpuddp_torch.training.loop import StepClock, append_row, event, nan_injector
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
 
 
@@ -157,8 +170,47 @@ def run_training_loop(
 ):
     """Run epochs ``start_epoch`` to ``num_epochs``; returns the list of
     per-epoch records."""
+    # nan@step=N: the train loader's staging poisons that host micro-batch
+    train_loader.inject = nan_injector()
+    guard = accelerator.guard
+    prev_skips = optimizer.skip_counters()[0] if guard.enabled else 0
+    rollbacks = 0
+
+    def rollback(epoch: int, reason: str) -> Optional[int]:
+        """Restore the newest intact state file; the epoch to redo (None
+        when there is none)."""
+        nonlocal rollbacks
+        if save_dir is None or ckpt.latest(save_dir, prefix="state") is None:
+            return None
+        rollbacks += 1
+        if rollbacks > guard.max_rollbacks:
+            raise RuntimeError(
+                f"guard rollback limit ({guard.max_rollbacks}) exceeded; last trigger: {reason}. "
+                "The failure recurs after restoring known-good state — a systematic divergence, "
+                "not a transient."
+            )
+        redo = accelerator.load_state(model, optimizer, save_dir)
+        if accelerator.is_main_process:
+            append_row(save_dir, event("rollback", epoch=epoch, resume_epoch=redo, reason=reason))
+        accelerator.print(f"Guard rollback ({reason}): restored last-good state, "
+                          f"redoing from epoch {redo}.")
+        return redo
+
     history = []
-    for epoch in range(start_epoch, num_epochs):
+    epoch = start_epoch
+    while epoch < num_epochs:
+        if guard.enabled and guard.audit_every_n_epochs and \
+                (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
+            bad_leaf = guard_lib.audit_params(model.module)
+            if bad_leaf is not None:
+                if accelerator.is_main_process:
+                    append_row(save_dir, event("desync", epoch=epoch, leaf=bad_leaf))
+                if guard.on_desync == "rollback":
+                    redo = rollback(epoch, f"replica desync at leaf {bad_leaf}")
+                    if redo is not None:
+                        epoch, prev_skips = redo, optimizer.skip_counters()[0]
+                        continue
+                raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
         epoch_t0 = time.perf_counter()
         train_loader.set_epoch(epoch)
         clock = StepClock(accelerator.device)
@@ -197,14 +249,37 @@ def run_training_loop(
             "grad_comm_bytes_per_update": optimizer.grad_comm_bytes_per_step,
             "world_size": accelerator.num_processes,
         }
+        # the guard's skips: one counter fetch per epoch, never silent
+        epoch_skips = consecutive = 0
+        if guard.enabled:
+            total, consecutive = optimizer.skip_counters()
+            epoch_skips, prev_skips = total - prev_skips, total
+            record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
+            if epoch_skips:
+                accelerator.print(f"Guard: skipped {epoch_skips} non-finite update(s) in epoch "
+                                  f"{epoch} (total {total}).")
         history.append(record)
-        if save_dir is not None and accelerator.is_main_process:
-            with open(os.path.join(save_dir, "history.jsonl"), "a") as f:
-                f.write(json.dumps(record) + "\n")
+        if accelerator.is_main_process:
+            append_row(save_dir, record)
+            if epoch_skips:
+                append_row(save_dir, event("skipped_updates", epoch=epoch, count=epoch_skips,
+                                           total=record["skipped_steps"]))
+        if consecutive > guard.max_consecutive_skips:
+            # training stalled on frozen weights: roll back, or fail loudly
+            reason = f"{consecutive} consecutive non-finite updates skipped"
+            redo = rollback(epoch, reason)
+            if redo is not None:
+                epoch, prev_skips = redo, optimizer.skip_counters()[0]
+                continue
+            raise FloatingPointError(
+                f"non-finite gradients forced {consecutive} consecutive skipped updates and no "
+                "saved state exists to roll back to (lower checkpoint_epoch to arm rollback)"
+            )
         if save_dir is not None and epoch % checkpoint_epoch == 0:
             accelerator.wait_for_everyone()
             accelerator.save_model(model, save_dir)
             accelerator.save_state(model, optimizer, save_dir, epoch=epoch, keep_last=keep_last)
+        epoch += 1
     accelerator.print("Finished Training.")
     return history
 
@@ -232,6 +307,8 @@ def build_training(training: dict, device: str = "cuda"):
         topk_density=float(training.get("topk_density") or comm.DEFAULT_TOPK_DENSITY),
         # the barrier step; true is refused (accelerate.py)
         comm_overlap=training.get("comm_overlap", "auto"),
+        # the numerical guard: non-finite updates skipped, replicas audited
+        guard=training.get("guard"),
     )
     size = training.get("image_size")
     mean, std = norm_stats_for(training)

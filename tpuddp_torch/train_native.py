@@ -14,7 +14,11 @@ of K steps is one CUDA-graph replay, on the CPU the same steps run one
 after another (``training/loop.py``). ``weight_update_sharding: true``
 shards the optimizer's update and state across the processes (ZeRO-1,
 ``parallel/ddp.py``); ``comm_hook`` compresses the gradient exchange, with
-an error-feedback residual for the ``_ef`` hooks (``parallel/comm.py``).
+an error-feedback residual for the ``_ef`` hooks (``parallel/comm.py``);
+``guard`` turns on the numerical guard (a non-finite update skipped as a
+bitwise no-op, the replicas audited, rollback to the last good checkpoint:
+``resilience/guard.py``, ``training/loop.py``); a divergent replica exits
+77.
 """
 
 from __future__ import annotations
@@ -122,6 +126,8 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         topk_density=float(training.get("topk_density") or comm.DEFAULT_TOPK_DENSITY),
         # each backward segment's exchange issued as its gradients land
         comm_overlap=training.get("comm_overlap", "auto"),
+        # the numerical guard: non-finite updates skipped, replicas audited
+        guard=training.get("guard"),
     )
     return ddp, train_loader, test_loader, base_seed
 

@@ -71,13 +71,24 @@ load, with its warning); a residual saved at another world size is refused
 file for a run without error feedback is not read, as the JAX template
 does not read it.
 
+The numerical guard's skip counters (``training.guard``) ride under the
+JAX package's keys (``tpuddp/training/checkpoint.py:620-660``): native
+``.skipped_steps['consecutive']`` and ``.skipped_steps['total']``, managed
+``['skipped_steps']['consecutive']`` and ``['skipped_steps']['total']``,
+int32 scalars, written by a guarded run only. A file without them loads
+into a guarded run at zero counters, with the JAX package's warning; a run
+without the guard does not read them. Under the guard Adam's and LAMB's
+step count lives on the device (:mod:`tpuddp_torch.optim`): a save first
+brings the host's per-parameter counts into line with it, a restore sets it
+from the file's ``.opt_state.step``.
+
 Rank 0 writes (staged, fsync'd, renamed), then a ``.sha256`` sidecar in the
 JAX package's manifest format; every rank waits at a barrier.
 :func:`restore_latest` takes the newest intact file (a corrupt or truncated
 one is skipped for the one before). A file that needs a part of the JAX
-package the port lacks (a step snapshot's ``__cursor__``, the guard's
-``skipped_steps``, a model axis) is refused with ``NotImplementedError`` naming its ROADMAP item, never
-loaded in part.
+package the port lacks (a step snapshot's ``__cursor__``, a model axis) is
+refused with ``NotImplementedError`` naming its ROADMAP item, never loaded
+in part.
 """
 
 from __future__ import annotations
@@ -113,6 +124,7 @@ _BF16, _PRNG, _META, _TOPO, _CURSOR = (
     "__bf16__", "__prngkey__", "__meta__", "__topology__", "__cursor__",
 )
 _COMM = ".comm_state"  # the native residual's key
+_SKIP_KEYS = ("consecutive", "total")  # the guard's counters, in the JAX key order
 
 
 def auto_resume_requested() -> bool:
@@ -366,6 +378,32 @@ def gather_residual(model: torch.nn.Module, optimizer, residual: torch.Tensor) -
     return out.reshape(-1)
 
 
+def _skip_key(layout: str, name: str) -> str:
+    return f"{_field(layout, 'skipped_steps')}['{name}']"
+
+
+def _skip_payload(layout: str, skipped) -> Dict[str, np.ndarray]:
+    """The guard's counters (device int32 scalars) by their JAX keys."""
+    values = torch.stack([skipped[k] for k in _SKIP_KEYS]).tolist()
+    return {_skip_key(layout, k): np.asarray(v, np.int32) for k, v in zip(_SKIP_KEYS, values)}
+
+
+@torch.no_grad()
+def _restore_skipped(path: str, stored: dict, layout: str, skipped) -> None:
+    """The file's skip counters into ``skipped`` (in place); zeros, with
+    the JAX package's warning, for a file written before the guard."""
+    for k in _SKIP_KEYS:
+        key = _skip_key(layout, k)
+        if key in stored:
+            skipped[k].fill_(int(_leaf(path, stored, key, np.zeros((), np.int32))))
+        else:
+            logger.warning(
+                "checkpoint %s predates guard state: leaf %r starts at its zero initialization",
+                path, key,
+            )
+            skipped[k].zero_()
+
+
 def _managed_residual_payload(model: torch.nn.Module, residual) -> Dict[str, np.ndarray]:
     """The managed residual (one tensor per parameter) as the JAX tree
     ``['comm_state']``."""
@@ -449,7 +487,7 @@ def save_on_main(
     layout: str = NATIVE, seed: int = 0, generator: Optional[torch.Generator] = None,
     world_size: int = 1, completed: bool = True, keep_last: Optional[int] = None,
     step: int = 0, counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-    comm_state=None,
+    comm_state=None, skipped=None,
 ) -> Optional[str]:
     """``ckpt_{epoch}.npz`` (``layout=NATIVE``, whose ``.step`` is ``step``
     and whose run key derives from ``seed``) or ``state_{epoch}.npz``
@@ -458,10 +496,12 @@ def save_on_main(
     rank 0 after every rank's random streams are gathered; with
     ``keep_last`` the older files are pruned. ``comm_state`` is the comm
     hook's residual (native: this rank's vector, gathered from every rank;
-    managed: one tensor per parameter), or None. Returns the path on rank
-    0."""
+    managed: one tensor per parameter), or None; ``skipped`` the guard's
+    skip counters, or None. Returns the path on rank 0."""
     if layout == MANAGED and keys is None:
         raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
+    if optimizer is not None:
+        optim.sync_steps(optimizer)  # the guard's device step count, on the host
     device = next(model.parameters()).device
     record = _gather_rng(rng_states(generator, device))
     flat_state, flat_keys = None, ()
@@ -475,6 +515,8 @@ def save_on_main(
         residual_per = comm_state.numel()
     elif comm_state is not None:
         residual = _managed_residual_payload(model, comm_state)
+    if skipped is not None:
+        residual.update(_skip_payload(layout, skipped))
 
     def write_fn():
         os.makedirs(save_dir, exist_ok=True)
@@ -524,10 +566,6 @@ def _refuse_unported(path: str, stored: dict) -> None:
     topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
     if int(topo.get("model_size") or 1) > 1:
         refuse(f"a model={topo['model_size']} mesh", "tensor parallel")
-    for k in stored:
-        key = k[len(_BF16):] if k.startswith(_BF16) else k
-        if key.startswith((".skipped_steps", "['skipped_steps']")):
-            refuse("the numerical guard's skip counters (skipped_steps)", "numerical guard")
 
 
 def _stored(path: str, stored: dict, key: str, dtype, bf16: bool = False) -> np.ndarray:
@@ -723,7 +761,8 @@ def _restore_residual(path, stored, layout, name, model, optimizer, params_like,
 
 
 def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
-             generator: Optional[torch.Generator] = None, comm_state=None) -> Dict[str, Any]:
+             generator: Optional[torch.Generator] = None, comm_state=None,
+             skipped=None) -> Dict[str, Any]:
     with np.load(path) as data:
         stored = dict(data.items())
     _refuse_unported(path, stored)
@@ -734,8 +773,11 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
     model.load_state_dict(state_dict_from_jax(name, params, mstate))
     if optimizer is not None:
         _restore_opt(path, stored, layout, name, model, optimizer, params_like)
+        optim.count_from_state(optimizer)
     if comm_state is not None:
         _restore_residual(path, stored, layout, name, model, optimizer, params_like, comm_state)
+    if skipped is not None:
+        _restore_skipped(path, stored, layout, skipped)
     if RNG_KEY in stored:
         restore_rng(json.loads(str(stored[RNG_KEY])), generator, next(model.parameters()).device)
     meta = {k[len(_META):]: int(a) for k, a in stored.items() if k.startswith(_META)}
@@ -749,15 +791,17 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
 
 
 def load(path: str, model: torch.nn.Module, optimizer=None, *, layout: str = NATIVE,
-         generator: Optional[torch.Generator] = None, comm_state=None) -> Dict[str, Any]:
+         generator: Optional[torch.Generator] = None, comm_state=None,
+         skipped=None) -> Dict[str, Any]:
     """Restore ``model`` (and ``optimizer``'s state, the comm hook's
-    residual ``comm_state`` in place, and the random streams) from the
-    intact file ``path`` in ``layout``; returns its ``__meta__`` scalars,
-    and a native file's ``.step`` as ``step`` or a managed file's
-    ``bwd_counter``, ``rng_key`` and ``bwd_key``."""
+    residual ``comm_state`` and the guard's counters ``skipped`` in place,
+    and the random streams) from the intact file ``path`` in ``layout``;
+    returns its ``__meta__`` scalars, and a native file's ``.step`` as
+    ``step`` or a managed file's ``bwd_counter``, ``rng_key`` and
+    ``bwd_key``."""
     if not verify_file(path):
         raise ValueError(f"checkpoint {path} does not match its sha256 manifest")
-    return _restore(path, layout, model, optimizer, generator, comm_state)
+    return _restore(path, layout, model, optimizer, generator, comm_state, skipped)
 
 
 # ---------------------------------------------------------- files of a run --
@@ -837,19 +881,20 @@ def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> in
 
 def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
                    layout: str = NATIVE, generator: Optional[torch.Generator] = None,
-                   comm_state=None) -> Tuple[int, Dict[str, Any]]:
+                   comm_state=None, skipped=None) -> Tuple[int, Dict[str, Any]]:
     """Restore the newest intact file of ``layout`` in ``save_dir``; returns
     ``(next_epoch, meta)``: the epoch to train next (0 when there is no
     file, the file's epoch after an emergency save, ``completed=0``, else
     the one after it) and what :func:`load` returns (empty without a
-    file). ``comm_state`` is restored in place as :func:`load` does."""
+    file). ``comm_state`` and ``skipped`` are restored in place as
+    :func:`load` does."""
     prefix = PREFIX[layout]
     sweep_stale_tmp(save_dir, prefix)
     found = latest(save_dir, prefix)
     if found is None:
         return 0, {}
     path, epoch = found
-    meta = _restore(path, layout, model, optimizer, generator, comm_state)
+    meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped)
     if not meta.get("completed", 1):
         logger.warning(
             "resuming from EMERGENCY checkpoint %s (preempted during epoch %d); that "

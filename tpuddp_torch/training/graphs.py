@@ -49,7 +49,12 @@ group may read a device value on the host or copy from host memory.
 State that a group updates and later groups read (parameters, optimizer
 state, the comm hook's error-feedback residual) lives in tensors allocated
 before the capture and is updated in place, so a replay and the eager
-steps it stands for leave the same state.
+steps it stands for leave the same state. Under the numerical guard that
+state includes the firewall's verdict, its skip counters and residual
+staging vector, and the optimizer's device step count: a guarded step
+decides a skip and advances its count on the device, and registers no
+per-step scalars, so the host uploads nothing before a replay that
+depends on a skip.
 
 The segmented-overlap exchange (``training/step.py::SegmentedSync``) forks
 each segment's work onto a side stream from a gradient hook, which the

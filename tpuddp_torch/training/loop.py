@@ -51,6 +51,20 @@ micro-batch count, every rank's random streams, the comm hook's
 error-feedback residual, which the wrap's graphs hold and update in place)
 and the run continues at the epoch after it; ``keep_last=K`` keeps the K
 newest checkpoints after each save.
+
+The numerical guard (``ddp.guard``; ``tpuddp/training/loop.py:548-625,
+:760-795, :1026-1110``): one counter fetch per epoch gives the row's
+``skipped_steps`` (the total) and ``skipped_steps_epoch``, and a
+``skipped_updates`` event for an epoch with skips; ``audit_every_n_epochs``
+audits the replicas at the start of those epochs (a ``desync`` event, then
+``ReplicaDesync``, or a rollback with ``on_desync: rollback``); more than
+``max_consecutive_skips`` consecutive skips at an epoch's end restore the
+newest intact checkpoint and redo the epoch from there (a ``rollback``
+event; ``set_epoch`` re-derives its order), at most ``max_rollbacks``
+times (then ``RuntimeError``), or raise ``FloatingPointError`` without a
+checkpoint. ``$TPUDDP_FAULT=nan@step=N`` poisons the host micro-batch of
+global train index N from the loop's entry before it is staged, so a chunk
+carries it as any batch. Rows are strict JSON: a non-finite loss is null.
 """
 
 from __future__ import annotations
@@ -65,7 +79,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from tpuddp_torch import seeding
+from tpuddp_torch import optim, seeding
+from tpuddp_torch.resilience import faults
+from tpuddp_torch.resilience import guard as guard_lib
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import pipeline as pipeline_lib
 from tpuddp_torch.training.step import EVAL_KEYS, TRAIN_KEYS, finalize_metrics
@@ -191,6 +207,48 @@ def _per_replica_lines(sums: torch.Tensor, world_size: int, log) -> None:
             f"based on {_count(n)} samples")
 
 
+def strict_json(value):
+    """``value`` with every non-finite float as None (strict JSON: a
+    poisoned epoch's loss is ``null``, never a bare ``NaN``)."""
+    if isinstance(value, float) and not math.isfinite(value):
+        return None
+    if isinstance(value, dict):
+        return {k: strict_json(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [strict_json(v) for v in value]
+    return value
+
+
+def append_row(save_dir: Optional[str], row: dict) -> None:
+    """One strict-JSON line of ``save_dir/history.jsonl`` (nothing without a
+    directory)."""
+    if save_dir is not None:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "history.jsonl"), "a") as f:
+            f.write(json.dumps(strict_json(row)) + "\n")
+
+
+def event(name: str, **fields) -> dict:
+    """A history event row (``{"type": "event", "event": name, ...}``)."""
+    return {"type": "event", "event": name, **fields}
+
+
+def nan_injector():
+    """The ``nan@step=N`` hook of the train pass (None when no such fault
+    is armed): each host micro-batch counted from the loop's entry."""
+    faults.refuse_unported()
+    if not faults.has_nan_fault():
+        return None
+    counter = {"i": 0}
+
+    def inject(host_batch):
+        i = counter["i"]
+        counter["i"] += 1
+        return faults.maybe_corrupt_batch(host_batch, i)
+
+    return inject
+
+
 def _prober(loader, every: Optional[int], log):
     """The shard-disjointness probe of every ``every``-th host batch."""
     def probe(batch_idx, batch):
@@ -242,17 +300,61 @@ def run_training_loop(
             start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
                 comm_state=getattr(ddp, "residual", None),
+                skipped=None if getattr(ddp, "firewall", None) is None else ddp.firewall.counters,
             )
             ddp.step = meta.get("step", ddp.step)
             ddp.clear_graphs()  # the restore replaced what a graph writes
             if start_epoch > 0 and is_main:
                 log(f"Auto-resume: continuing from epoch {start_epoch}.")
     train_pass = pipeline_lib.StagedLoader(
-        train_loader, device, pipeline, probe=_prober(train_loader, data_probe_every, log)
+        train_loader, device, pipeline, probe=_prober(train_loader, data_probe_every, log),
+        inject=nan_injector(),
     )
     test_pass = pipeline_lib.StagedLoader(test_loader, device, pipeline)
+    guard = getattr(ddp, "guard", guard_lib.DISABLED)
+    prev_total = ddp.skip_counters()[0] if guard.enabled else 0
+    rollbacks = 0
+
+    def can_roll_back() -> bool:
+        return save_dir is not None and ckpt.latest(save_dir) is not None
+
+    def rollback(epoch: int, reason: str) -> int:
+        """Restore the newest intact checkpoint; the epoch to redo."""
+        nonlocal rollbacks
+        rollbacks += 1
+        if rollbacks > guard.max_rollbacks:
+            raise RuntimeError(
+                f"guard rollback limit ({guard.max_rollbacks}) exceeded; last trigger: {reason}. "
+                "The failure recurs after restoring known-good state — a systematic divergence, "
+                "not a transient."
+            )
+        redo, meta = ckpt.restore_latest(
+            save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
+            comm_state=getattr(ddp, "residual", None), skipped=ddp.firewall.counters,
+        )
+        ddp.step = meta.get("step", ddp.step)
+        ddp.clear_graphs()  # the restore replaced what a graph writes
+        if is_main:
+            append_row(save_dir, event("rollback", epoch=epoch, resume_epoch=redo,
+                                       resume_step=None, reason=reason))
+            log(f"Guard rollback ({reason}): restored last-good checkpoint, "
+                f"redoing from epoch {redo}.")
+        return redo
+
     history = []
-    for epoch in range(start_epoch, num_epochs):
+    epoch = start_epoch
+    while epoch < num_epochs:
+        if guard.enabled and guard.audit_every_n_epochs and \
+                (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
+            bad_leaf = guard_lib.audit_params(ddp.model)
+            if bad_leaf is not None:
+                if is_main:
+                    append_row(save_dir, event("desync", epoch=epoch, leaf=bad_leaf))
+                if guard.on_desync == "rollback" and can_roll_back():
+                    epoch = rollback(epoch, f"replica desync at leaf {bad_leaf}")
+                    prev_total = ddp.skip_counters()[0]
+                    continue
+                raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
         t0 = time.perf_counter()
         if is_main:
             log(f"Process {rank}, Epoch {epoch}")
@@ -306,12 +408,6 @@ def run_training_loop(
                 f"Test Loss: {test_loss:.4f}, "
                 f"Test Accuracy: {test_accuracy:.2f}%"
             )
-        if save_dir is not None and epoch % checkpoint_epoch == 0:
-            ckpt.save_on_main(
-                save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
-                generator=ddp.generator, world_size=world_size, keep_last=keep_last,
-                step=ddp.step, comm_state=getattr(ddp, "residual", None),
-            )
         record = {
             "epoch": epoch,
             "train_loss": train_loss,
@@ -333,10 +429,43 @@ def run_training_loop(
             "eval_scan_steps": eval_k,
             "world_size": world_size,
         }
+        # the guard's skips: one counter fetch per epoch
+        epoch_skips = consecutive = 0
+        if guard.enabled:
+            total, consecutive = ddp.skip_counters()
+            epoch_skips, prev_total = total - prev_total, total
+            record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
+            optim.sync_steps(ddp.optimizer)  # the host's step counts, at the epoch's end
         history.append(record)
-        if save_dir is not None and is_main:
-            with open(os.path.join(save_dir, "history.jsonl"), "a") as f:
-                f.write(json.dumps(record) + "\n")
+        if is_main:
+            append_row(save_dir, record)
+            if epoch_skips:
+                append_row(save_dir, event("skipped_updates", epoch=epoch, count=epoch_skips,
+                                           total=record["skipped_steps"]))
+        if consecutive > guard.max_consecutive_skips:
+            # updates skipped back to back: restore the last good state
+            # instead of checkpointing a wedged trajectory
+            reason = f"{consecutive} consecutive non-finite updates skipped"
+            if can_roll_back():
+                epoch = rollback(epoch, reason)
+                prev_total = ddp.skip_counters()[0]
+                continue
+            raise FloatingPointError(
+                f"non-finite gradients forced {consecutive} consecutive skipped updates and no "
+                "checkpoint exists to roll back to (set save_dir / checkpoint_epoch to arm "
+                "rollback)"
+            )
+        if save_dir is not None and epoch % checkpoint_epoch == 0:
+            if epoch_skips:
+                logger.warning("checkpointing epoch %d after %d skipped update(s) this epoch "
+                               "(total %d)", epoch, epoch_skips, record["skipped_steps"])
+            ckpt.save_on_main(
+                save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
+                generator=ddp.generator, world_size=world_size, keep_last=keep_last,
+                step=ddp.step, comm_state=getattr(ddp, "residual", None),
+                skipped=None if getattr(ddp, "firewall", None) is None else ddp.firewall.counters,
+            )
+        epoch += 1
     if is_main:
         log(f"Finished Training on process {rank}.")
     return history

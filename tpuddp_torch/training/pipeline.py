@@ -159,14 +159,17 @@ class StagedLoader:
     (byte-capped) ahead of the consumer; under ``cfg.sync_readback`` each
     batch is staged just before its step and the device is synchronised
     after every step. ``probe(index, host_batch)`` sees each host batch
-    before it is staged. ``stall`` is the last pass's :class:`StallClock`."""
+    before it is staged; ``inject(host_batch)``, when set, returns the batch
+    to stage in its place (the ``nan@step=N`` fault injection). ``stall`` is
+    the last pass's :class:`StallClock`."""
 
     def __init__(self, loader, device, cfg: PipelineConfig = DEFAULT,
-                 probe: Optional[Callable] = None):
+                 probe: Optional[Callable] = None, inject: Optional[Callable] = None):
         self.loader = loader
         self.device = torch.device(device)
         self.cfg = cfg
         self.probe = probe
+        self.inject = inject
         self.stall = StallClock()
 
     def set_epoch(self, epoch: int) -> None:
@@ -191,6 +194,8 @@ class StagedLoader:
         for i, host_batch in enumerate(stalled_iter(self.loader, self.stall)):
             if self.probe is not None:
                 self.probe(i, host_batch)
+            if self.inject is not None:
+                host_batch = self.inject(host_batch)
             staged.append(stage_batch(host_batch, self.device))
             while len(staged) > depth:
                 yield staged.popleft()

@@ -56,6 +56,18 @@ then folds ``(acc + n g) / denom`` per segment inside the hook, as the JAX
 package's accumulation peel does), and joined in place of ``sync_grads``
 before the clip. Only the order in which the work is issued changes: the
 step is bitwise the barrier step.
+
+The numerical guard's firewall (``training.guard``, ``tpuddp/training/
+step.py:231-254, :355-416``) is the cores' ``firewall``, a
+:class:`~tpuddp_torch.resilience.guard.Firewall`: after the exchange (after
+the join of the segmented step) the verdict is taken on the aggregated
+float32 gradient, before the clip and any quantisation (under ZeRO-1 the
+wrapped optimizer's step takes it from its shard); the optimizer reads it;
+the hook's new residual, which the exchange wrote into the firewall's
+staging vector (every segment's span of it), lands only where it is 1; the
+BatchNorm buffers go back to their values before the step (before the
+cycle under accumulation, ``:960-1066``) where it is 0; the skip counters
+advance. All of it happens on the device, so a chunk replays whole.
 """
 
 from __future__ import annotations
@@ -169,18 +181,20 @@ def grad_core(
 
 
 @torch.no_grad()
-def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[torch.Tensor]) -> None:
+def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[torch.Tensor],
+              lost: Optional[torch.Tensor] = None) -> None:
     """The hooked gradient exchange: each parameter's ``.grad`` (None counts
     as zeros) flattened into one vector in the JAX order (``order``, a
     :class:`~tpuddp_torch.models.convert.JaxFlatOrder`) and zero-padded to
-    ``comm.total``, through ``comm.reduce`` (``residual`` updated in place),
-    then each ``.grad`` set to its view of the mean, in the port's order."""
+    ``comm.total``, through ``comm.reduce`` (``residual`` updated in place,
+    or the new one written into ``lost``), then each ``.grad`` set to its
+    view of the mean, in the port's order."""
     port = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in params])
     g_vec = order.to_jax(port)
     if comm.total > order.raw:
         g_vec = torch.cat([g_vec, g_vec.new_zeros(comm.total - order.raw)])
-    reduced, _ = comm.reduce(g_vec, residual)
+    reduced, _ = comm.reduce(g_vec, residual, lost)
     flat, offset = order.from_jax(reduced), 0
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
@@ -196,7 +210,9 @@ class SegmentedSync:
     (:func:`~tpuddp_torch.models.convert.jax_param_span`) and ``orders``
     (with a hook; None for ``none``) each one's :class:`~tpuddp_torch.
     models.convert.JaxFlatOrder`; ``comm`` is the hook's plan (None for
-    ``none``), ``residual`` its error-feedback vector (updated in place).
+    ``none``), ``residual`` its error-feedback vector (updated in place;
+    under the guard each segment writes its span of ``staged`` instead, the
+    firewall's staging vector, which the verdict lands after the join).
 
     A hook on every parameter counts the gradients that land in an armed
     backward; when a segment's last one has landed, the segment is
@@ -234,6 +250,7 @@ class SegmentedSync:
         self.orders = orders
         self.comm = comm
         self.residual = residual
+        self.staged: Optional[torch.Tensor] = None  # the guard's, set by the wrap
         self.world = int(world)
         self.stream = stream
         self.counts = {"hook": 0, "join": 0}
@@ -353,7 +370,8 @@ class SegmentedSync:
                 g_vec = torch.cat([g_vec, g_vec.new_zeros(hi - lo - order.raw)])
             residual = None if self.residual is None else self.residual[lo:hi]
             send = g_vec if residual is None else g_vec + residual
-            summed = self.comm.exchange_segment(send, seg, residual if self.comm.needs_residual else None)
+            lost = residual if self.staged is None else self.staged[lo:hi]
+            summed = self.comm.exchange_segment(send, seg, lost if self.comm.needs_residual else None)
             if self.world > 1:
                 summed = summed / self.world
             lo_port = self._port_lo[k]
@@ -364,26 +382,39 @@ class SegmentedSync:
             offset += p.numel()
 
 
-def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None) -> None:
+def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None,
+                firewall=None) -> None:
     """The gradient all-reduce, the clip to global norm ``clip`` (if any),
-    then one optimizer update."""
+    then one optimizer update. With ``firewall`` the update is guarded: the
+    verdict of the exchanged gradient before the clip (unless the optimizer
+    makes it, ZeRO-1), the update gated on it, then the residual and the
+    counters (:meth:`~tpuddp_torch.resilience.guard.Firewall.commit`)."""
     sync_grads()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if firewall is not None and not getattr(optimizer, "judges", False):
+        firewall.judge([p.grad for p in params if p.grad is not None])
     if clip is not None:
-        clip_grad_norm_([p for g in optimizer.param_groups for p in g["params"]], clip)
+        clip_grad_norm_(params, clip)
     optimizer.step()
+    if firewall is not None:
+        firewall.commit()
 
 
 def train_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     clip: Optional[float] = None, flip_mask: Optional[torch.Tensor] = None,
-    overlap: Optional[SegmentedSync] = None,
+    overlap: Optional[SegmentedSync] = None, firewall=None,
 ) -> torch.Tensor:
     """One train step; returns the on-device sums ``[loss_sum, n]``. With
-    ``overlap`` its segmented exchange replaces ``sync_grads``."""
+    ``overlap`` its segmented exchange replaces ``sync_grads``; with
+    ``firewall`` the update is guarded and a skipped step's buffers revert."""
+    saved = None if firewall is None else firewall.save_buffers(model)
     arm = None if overlap is None else (lambda loss, n: overlap.arm())
     loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask, arm)
-    update_core(optimizer, sync_grads if overlap is None else overlap.join, clip)
+    update_core(optimizer, sync_grads if overlap is None else overlap.join, clip, firewall)
+    if saved is not None:
+        firewall.restore_buffers(model, saved)
     return torch.stack([loss * n, n])
 
 
@@ -400,6 +431,7 @@ def train_cycle(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, batches: Sequence, clip: Optional[float] = None,
     flip_masks: Optional[Sequence] = None, overlap: Optional[SegmentedSync] = None,
+    firewall=None,
 ) -> torch.Tensor:
     """One accumulation cycle over the device batches ``(x, y, w)`` of
     ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
@@ -407,7 +439,10 @@ def train_cycle(
     one update. Returns the cycle's on-device sums ``[loss_sum, n]``. With
     ``overlap`` the last micro-batch's backward folds each segment and
     issues its exchange (``tpuddp/training/step.py:1001-1019``), in place
-    of the fold after the cycle and ``sync_grads``."""
+    of the fold after the cycle and ``sync_grads``. With ``firewall`` the
+    update is guarded and a skipped cycle's buffers revert to their values
+    before its first micro-batch."""
+    saved = None if firewall is None else firewall.save_buffers(model)
     params = list(model.parameters())
     acc = [None] * len(params)
     sums = None
@@ -423,13 +458,13 @@ def train_cycle(
                 if p.grad is not None:
                     acc[i] = n * p.grad if acc[i] is None else acc[i] + n * p.grad
         sums = _add_step(sums, loss, n)
-    if overlap is not None:
-        update_core(optimizer, overlap.join, clip)
-        return sums
-    denom = _denom(sums)
-    for p, a in zip(params, acc):
-        p.grad = None if a is None else a / denom
-    update_core(optimizer, sync_grads, clip)
+    if overlap is None:
+        denom = _denom(sums)
+        for p, a in zip(params, acc):
+            p.grad = None if a is None else a / denom
+    update_core(optimizer, sync_grads if overlap is None else overlap.join, clip, firewall)
+    if saved is not None:
+        firewall.restore_buffers(model, saved)
     return sums
 
 
@@ -437,20 +472,22 @@ def train_many(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, sums: torch.Tensor, batches: Sequence, flip_masks: Sequence,
     clip: Optional[float] = None, accum: int = 1, overlap: Optional[SegmentedSync] = None,
+    firewall=None,
 ) -> torch.Tensor:
     """K train steps on the device batches (K / ``accum`` accumulation
     cycles), each step's flip mask given: the counterpart of
     ``build_train_scan_step`` (``tpuddp/training/step.py:840-1100``).
     Returns ``sums`` plus each step's (each cycle's) sums, added in order,
-    as the per-batch loop adds them."""
+    as the per-batch loop adds them; each update guarded with ``firewall``."""
     for i in range(0, len(batches), accum):
         if accum == 1:
             x, y, w = batches[i]
             step = train_core(model, optimizer, criterion, augment, sync_grads, sync_buffers,
-                              x, y, w, clip, flip_masks[i], overlap)
+                              x, y, w, clip, flip_masks[i], overlap, firewall)
         else:
             step = train_cycle(model, optimizer, criterion, augment, sync_grads, sync_buffers,
-                               batches[i:i + accum], clip, flip_masks[i:i + accum], overlap)
+                               batches[i:i + accum], clip, flip_masks[i:i + accum], overlap,
+                               firewall)
         sums = sums + step
     return sums
 
