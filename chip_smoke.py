@@ -260,6 +260,35 @@ Phases, each printing one line (the first failure exits non-zero):
      rollback event, epochs 0, 1, 1, and the redone epoch's row and final
      state equal to a run resumed from a copy of the same ``ckpt_0.npz``.
 
+15. the ResNets (``configs/multihost.yaml``'s ``resnet18_small`` on one
+   card; the Adam kernel's multi-table update: 62 leaves in 2 launch tables
+   of 48 and 14 rows, ResNet-50's 161 in 4):
+   - "15 resnet file": ``tpuddp_torch/configs/cifar10_resnet18_small_h100.yaml``
+     (sync_bn, 32 px, b128, float32) on the synthetic stand-in, one epoch one
+     step per batch and 3 epochs at ``scan_steps: auto`` (one 16-step chunk
+     an epoch): finite losses, 2 launches per update counted by the kernel,
+     the step medians; "15 resnet graph vs eager": 3 chunks of 8 replayed
+     against the same chunks run eagerly from one state, bitwise
+     (parameters, BatchNorm buffers, moments, sums);
+   - "15 resnet managed vs native": 3 steps of each path from one state:
+     bitwise, 6 launches each;
+   - "15 resnet50": one epoch of the file at ``model: resnet50`` and
+     ``resnet50_s2d``, 224 px, one step per batch, in turns (plain, s2d,
+     s2d, plain): step medians, peak device memory, 4 launches per update;
+   - "15 resnet50 adam": both kernels over ResNet-50's 161 leaves against
+     the plain version per step from one state (p within 1e-5 of max(1,
+     |p|), as phase 11; float32 moments 1e-6; bf16 by the neighbour rule,
+     bitwise at zero gradients), 4 launches a step, timed in turns with the
+     plain version and (float32) ``torch.optim.Adam(fused=True)``, beside
+     the bound (28 B / 20 B a parameter);
+   - "15 resnet guard": 3 guarded ``resnet18_small`` chunks of 8 with
+     ``nan@step=19``, replayed and eager: the skipped update a bitwise no-op
+     on parameters, moments and all 40 BatchNorm buffers, with both of its
+     launch tables at verdict 0; replay bitwise eager, counters (1, 0);
+   - "15 resnet overlap": ``int8_ef`` at ``bucket_cap_mb: 5`` (2 segments),
+     3 chunks of 4, segmented (eager, replayed) and the replayed barrier
+     step against the eager barrier step: max |d| 0.
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
@@ -267,7 +296,8 @@ eager one does, and a graph that lost its Adam node would count none.
 Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
-13's, one with phase 14's, one with the optimizers', one with every kernel's
+13's, one with phase 14's, one with phase 15's, one with the optimizers', one
+with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -329,6 +359,7 @@ SETTINGS_MANAGED = os.path.join(CONFIGS, "cifar10_alexnet_managed_h100.yaml")
 SETTINGS_FUSED = os.path.join(CONFIGS, "managed_fused_h100.yaml")
 SETTINGS_DIGITS = os.path.join(CONFIGS, "digits_h100.yaml")
 SETTINGS_FAST = os.path.join(CONFIGS, "cifar10_alexnet_fast_h100.yaml")
+SETTINGS_RESNET = os.path.join(CONFIGS, "cifar10_resnet18_small_h100.yaml")
 
 # Tolerances of the kernel against its plain version (IEEE float32 both;
 # they differ only where the kernel fuses a multiply-add that the plain
@@ -455,11 +486,17 @@ def plain_step(leaves, steps, weight_decay):
                                          bc1=bc1, bc2=bc2, step=s, leaf=k, **HP)
 
 
-def max_diffs(a, b):
-    """max |dp|, max |dm|, max |dv| over the leaves, the moments as float32."""
-    return [
+def max_diffs(a, b, p_relative: bool = False):
+    """max |dp|, max |dm|, max |dv| over the leaves, the moments as float32;
+    with ``p_relative`` max |dp| / max(1, |p|) (phase 11's bound: a v of
+    exactly 0 beside a non-zero m steps p by lr * m / eps)."""
+    def dp(x, y):
+        d = (x[0] - y[0]).abs()
+        return d / y[0].abs().clamp_min(1.0) if p_relative else d
+
+    return [max(float(dp(x, y).max()) for x, y in zip(a, b))] + [
         max(float((x[i].float() - y[i].float()).abs().max()) for x, y in zip(a, b))
-        for i in (0, 2, 3)  # p, m, v
+        for i in (2, 3)  # m, v
     ]
 
 
@@ -539,7 +576,7 @@ def compare_cases(alexnet_shapes):
     ]
 
 
-def compare(wrapper, cases, alexnet_shapes):
+def compare(wrapper, cases, alexnet_shapes, tag: str = "3 compare", p_relative: bool = False):
     """Phase 3: `wrapper`'s kernel against the plain version over the
     cases, 3 steps each; returns max |dp| over them. Before each step the
     plain version takes the kernel's state, so each step is held from the
@@ -554,7 +591,7 @@ def compare(wrapper, cases, alexnet_shapes):
     bf16 = wrapper.moment_dtype == torch.bfloat16
     runs = [(*c, False) for c in cases]
     if bf16:
-        runs += [("zero gradients, AlexNet", alexnet_shapes, "", 0.0, True),
+        runs += [(f"zero gradients, {cases[0][0]}", alexnet_shapes, "", 0.0, True),
                  ("zero gradients, odd shapes", ODD_SHAPES + [(1,), (3,), (4097,)], "", 0.0, True)]
     errs = []
     for label, shapes, misaligned, wd, zero_grad in runs:
@@ -569,14 +606,15 @@ def compare(wrapper, cases, alexnet_shapes):
             kernel_step(wrapper, kern, steps, wd)
             plain_step(plain, steps, wd)
             torch.cuda.synchronize()
-            dp, dm, dv = (max(a, b) for a, b in zip((dp, dm, dv), max_diffs(kern, plain)))
+            dp, dm, dv = (max(a, b) for a, b in zip((dp, dm, dv), max_diffs(kern, plain, p_relative)))
             if bf16:
                 out, n_apart = bf16_moment_check(kern, plain, before, wd)
                 outside, apart = outside + out, apart + n_apart
             del before, plain
         launches = wrapper.launches - launches
         want = STEPS * math.ceil(len(shapes) / fused_adam.MAX_LEAVES)
-        detail = f"max|dp|={dp:.3g} max|dm|={dm:.3g} max|dv|={dv:.3g}"
+        detail = (f"max|dp|{'/max(1,|p|)' if p_relative else ''}={dp:.3g} max|dm|={dm:.3g} "
+                  f"max|dv|={dv:.3g}")
         if bf16:
             n = STEPS * sum(2 * math.prod(s) for s in shapes)
             moments_ok = outside == 0 and (apart == 0 or not zero_grad)
@@ -593,12 +631,12 @@ def compare(wrapper, cases, alexnet_shapes):
                 f"(expected {want})"
             )
         errs.append(dp)
-        phase("3 compare", f"{name} vs plain, {label}: {len(shapes)} leaves, wd={wd}, "
+        phase(tag, f"{name} vs plain, {label}: {len(shapes)} leaves, wd={wd}, "
               f"{STEPS} steps, {launches} launches: {detail}")
     return max(errs)
 
 
-def time_kernel(wrapper, alexnet_shapes, bw, flops):
+def time_kernel(wrapper, alexnet_shapes, bw, flops, label: str = "AlexNet", tag: str = "3 time"):
     """Phase 3: one AlexNet Adam step of `wrapper`'s kernel timed in turns
     with the plain version and, for float32 moments, with
     ``torch.optim.Adam(fused=True)``; beside the bound for the bytes it must
@@ -640,7 +678,7 @@ def time_kernel(wrapper, alexnet_shapes, bw, flops):
     if library_ms is not None:
         library = (f"library_ms={library_ms:.4f} library_enqueue_ms={best['library'][1]:.4f} "
                    f"(kernel/library {kernel_ms / library_ms:.3f}) ")
-    phase("3 time", f"one AlexNet Adam step, {KERNEL_NAMES[wrapper.moment_dtype]} "
+    phase(tag, f"one {label} Adam step, {KERNEL_NAMES[wrapper.moment_dtype]} "
           f"({len(alexnet_shapes)} leaves, {n_params} params, {nbytes / 1e9:.3f} GB), best of "
           f"two in turns: kernel_ms={kernel_ms:.4f} enqueue_ms={kernel_enq:.4f} {library}"
           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({nbytes / kernel_ms / 1e6:.0f} "
@@ -810,29 +848,36 @@ def managed_epoch(label: str, accum: int, overrides=None, tag: str = "5 managed"
     return launches, steady
 
 
-def managed_vs_native():
-    """3 AlexNet steps through each API from one state dict, no flip, the
-    dropout generator seeded alike: the parameters (and buffers) after them
-    agree."""
+def managed_vs_native(name: str = "alexnet", size=224, sync_bn: bool = False,
+                      tag: str = "5 managed vs native"):
+    """3 steps of the registry model ``name`` (AlexNet by default) through
+    each API from one state dict, no flip, the dropout generator seeded
+    alike: the parameters (and buffers) after them agree. Returns each
+    path's Adam launches."""
     torch.manual_seed(0)
-    init = {k: v.clone() for k, v in AlexNet(num_classes=10).state_dict().items()}
+    init = {k: v.clone() for k, v in load_model(name, 10).state_dict().items()}
     gen = torch.Generator().manual_seed(1)
     batches = [(torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen).numpy(),
                 torch.randint(0, 10, (128,), generator=gen).numpy(),
                 torch.ones(128).numpy()) for _ in range(3)]
-    augment = make_train_augment(size=224, flip=False)
+    augment = make_train_augment(size=size, flip=False)
 
     def fresh():
-        model = AlexNet(num_classes=10)
+        model = load_model(name, 10)
         model.load_state_dict(init)
+        if sync_bn:
+            convert_sync_batchnorm(model)
         return model.cuda()
 
     native = fresh()
     ddp = DistributedDataParallel(native, Adam(native.parameters(), lr=1e-3), CrossEntropyLoss(),
                                   augment=augment, device="cuda")
     torch.cuda.manual_seed(7)
+    reset_counts()
     for batch in batches:
         ddp.train_step(batch)
+    launches = {"native": fused_adam.kernel.launches}
+    reset_counts()
 
     acc = Accelerator(seed=0, augment=augment, device="cuda")
     module = fresh()
@@ -846,14 +891,17 @@ def managed_vs_native():
         opt.step()
         losses.append(loss.item())
     torch.cuda.synchronize()
+    launches["managed"] = fused_adam.kernel.launches
     diff = max(float((a - b).abs().max()) for a, b in
                zip(model.module.state_dict().values(), native.state_dict().values()))
     if not diff <= PATHS_TOL or not all(math.isfinite(v) for v in losses):
-        raise SystemExit(f"chip_smoke: managed and native AlexNet disagree after 3 steps: "
+        raise SystemExit(f"chip_smoke: managed and native {name} disagree after 3 steps: "
                          f"max|dp|={diff:.3g} (tolerance {PATHS_TOL}), losses {losses}")
-    phase("5 managed vs native", f"3 AlexNet@224 b128 steps through each API from one state: "
-          f"max|dp|={diff:.3g} (tolerance {PATHS_TOL}); managed losses "
-          + ", ".join(f"{v:.4f}" for v in losses))
+    phase(tag, f"3 {name}@{size or 32} b128 steps through each API from one state: "
+          f"max|dp|={diff:.3g} over parameters and buffers (tolerance {PATHS_TOL}"
+          f"{', bitwise' if diff == 0 else ''}); managed losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; Adam launches {launches}")
+    return dict(max_abs_dp=diff, losses=losses, launches=launches)
 
 
 def pipeline_turns(label: str, path: str, wrapper, f32_losses: bool):
@@ -1471,7 +1519,7 @@ def _kinds(g: dict) -> dict:
 
 def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam", accum: int = 1,
                       chunks: int = 3, zero1: bool = False, tag: str = "10 native graph vs eager",
-                      comm_hook: str = "none"):
+                      comm_hook: str = "none", tables: int = 1):
     """Phase 10: `chunks` chunks of `k` batches through
     ``DistributedDataParallel.train_step_many`` from one state, as graph
     replays and eagerly (``_graph_replay = False``): max |dp| over
@@ -1522,10 +1570,11 @@ def native_chunk_pair(label: str, make, batches, k: int, opt_name: str = "adam",
     updates = chunks * k // accum
     want = {kn.symbol: 0 for kn in fused_adam.kernels.values()}
     if opt_name != "lars":
-        want[fused_adam.kernels[torch.bfloat16 if opt_name == "adam_bf16" else torch.float32].symbol] = updates
+        want[fused_adam.kernels[torch.bfloat16 if opt_name == "adam_bf16" else torch.float32].symbol] = (
+            updates * tables)
     checks = {
         f"params, buffers, optimizer state and sums within {PATHS_TOL}": max(dp, dopt, dsum) <= PATHS_TOL,
-        "1 launch of the moments' kernel per update, counted on the card": n_e == n_r == want,
+        f"{tables} launch(es) of the moments' kernel per update, counted on the card": n_e == n_r == want,
         f"1 capture, {chunks - 1} replays": _kinds(g) == {"train": (1, chunks - 1)},
         f"step {chunks * k}": step_e == step_r == chunks * k,
         "finite sums": bool(torch.isfinite(s_r).all()),
@@ -2708,7 +2757,8 @@ def guard_verdict(alexnet_shapes, bw):
 
 
 def _guard_batches(n, seed, poison=None):
-    """``n`` AlexNet batches (uint8 32x32 rows, b128); with ``poison`` the
+    """``n`` CIFAR-sized batches (uint8 32x32 rows, b128: AlexNet resizes
+    them on the card, the ResNets of phase 15 take them as they are); with ``poison`` the
     batch of that index through ``$TPUDDP_FAULT=nan@step=<poison>``'s
     injection (a NaN sample weight, as for every uint8 input)."""
     gen = torch.Generator().manual_seed(seed)
@@ -2966,6 +3016,295 @@ def guard_phase(alexnet_shapes, bw, flops):
     return dict(kernel=kernel, verdict=verdict, chunks=chunks, managed=managed, rollback=rollback)
 
 
+# ---------------------------------------------------------------- phase 15 --
+
+RESNET_K, RESNET_CHUNKS = 8, 3
+RESNET_GUARD_BAD = 3  # the last chunk's step 3 poisoned: nan@step=19
+RESNET_TURNS = ("resnet50", "resnet50_s2d", "resnet50_s2d", "resnet50")
+
+
+def _tables(n_leaves: int) -> int:
+    return math.ceil(n_leaves / fused_adam.MAX_LEAVES)
+
+
+def _resnet_model(init):
+    """``(model, augment, generator, name)``: the settings file's
+    ``resnet18_small`` (sync_bn) on the card holding the weights ``init``,
+    and its 32 px train augment (flips) with the generator it draws from."""
+    with torch.device("meta"):
+        model = convert_sync_batchnorm(load_model("resnet18_small", 10))
+    model.to_empty(device="cuda").load_state_dict(init)
+    gen = torch.Generator().manual_seed(1)
+    return model, make_train_augment(size=None, flip=True, generator=gen), gen, "resnet18_small"
+
+
+def _resnet_ddp(init, replay: bool, **kwargs):
+    """The native wrap of :func:`_resnet_model`."""
+    model, augment, gen, _ = _resnet_model(init)
+    ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                  augment=augment, device="cuda", generator=gen, **kwargs)
+    ddp._graph_replay = replay
+    return ddp
+
+
+def _resnet_state(ddp):
+    """:func:`_ddp_state` and every BatchNorm buffer."""
+    state = _ddp_state(ddp)
+    state.update({f"buffer/{n}": b.clone() for n, b in ddp.model.named_buffers()})
+    return state
+
+
+def resnet_file(n_leaves: int):
+    """15 (a): ``cifar10_resnet18_small_h100.yaml`` natively, an epoch one
+    step per batch, 3 epochs at ``scan_steps: auto`` (one 16-step chunk an
+    epoch: the eager warm-up, the capture, a replay) and 3 chunks of 8
+    replayed against the same chunks run eagerly from one state."""
+    tables = _tables(n_leaves)
+    out = {}
+    for label, overrides in (("scan_steps 1", {"scan_steps": 1}), ("scan_steps auto", {"num_epochs": 3})):
+        history, wall_s, launches = native_run(SETTINGS_RESNET, overrides)
+        steps = sum(len(r["step_ms"]) for r in history)
+        rows = dict(fused_adam.kernel.table_rows)
+        checks = {
+            "16 train steps an epoch": all(len(r["step_ms"]) == 16 for r in history),
+            f"{tables} float32-kernel launches per update": launches[fused_adam.kernel.symbol] == tables * steps,
+            "finite losses": all(math.isfinite(r[k]) for r in history for k in ("train_loss", "test_loss")),
+            "2048 train / 512 test samples": all(
+                (r["train_samples"], r["test_samples"]) == (2048, 512) for r in history),
+        }
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: 15 resnet file, {label}, failed {failed}: launches {launches}, "
+                             f"tables by rows {rows}, history {history}")
+        last = history[-1]
+        median = statistics.median(last["step_ms"][1:] if label == "scan_steps 1" else last["step_ms"])
+        out[label] = dict(launches=launches[fused_adam.kernel.symbol], tables_by_rows=rows,
+                          step_ms_median=median, epochs=[
+                              {k: r[k] for k in ("train_loss", "test_loss", "test_accuracy")} for r in history],
+                          wall_s=wall_s)
+        phase("15 resnet file", f"cifar10_resnet18_small_h100.yaml (resnet18_small, sync_bn, 32 px, b128, "
+              f"float32) {label}: {len(history)} epoch(s), {steps} steps, {launches} launches "
+              f"({tables} per update; tables by rows {rows}), losses "
+              + ", ".join(f"{r['train_loss']:.4f}/{r['test_loss']:.4f}" for r in history)
+              + f"; step median {median:.3f} ms ({'steps 2-16' if label == 'scan_steps 1' else 'epoch 3, replayed'}"
+              f", {128 * 1e3 / median:.0f} img/s); {wall_s:.1f} s")
+    torch.manual_seed(0)
+    init = load_model("resnet18_small", 10).state_dict()
+    batches = _guard_batches(RESNET_K * RESNET_CHUNKS, 3)
+
+    out["graph vs eager"] = native_chunk_pair(
+        "resnet18_small@32 b128 sync_bn, flips", partial(_resnet_model, init), batches, RESNET_K,
+        tables=tables, tag="15 resnet graph vs eager")
+    return out
+
+
+def resnet_guard(init, n_leaves: int):
+    """15 (d): 3 guarded ``resnet18_small`` chunks of 8, the last with its
+    step 3 poisoned, replayed (warm-up, capture, replay) and eagerly, the
+    eager run cut around the poisoned step: the skipped update a bitwise
+    no-op on parameters, moments and every BatchNorm buffer, each of its
+    launch tables at verdict 0; replay bitwise eager; counters (1, 0)."""
+    tables = _tables(n_leaves)
+    bad = RESNET_K * (RESNET_CHUNKS - 1) + RESNET_GUARD_BAD
+    batches = _guard_batches(RESNET_K * RESNET_CHUNKS, 5, poison=bad)
+    runs, noop = {}, None
+    for mode in ("eager", "replay"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp = _resnet_ddp(init, mode == "replay", guard=True)
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        graphs.reset_stats()
+        for c in range(RESNET_CHUNKS):
+            chunk = batches[c * RESNET_K:(c + 1) * RESNET_K]
+            if mode == "replay" or c < RESNET_CHUNKS - 1:
+                ddp.train_step_many(chunk)
+                continue
+            ddp.train_step_many(chunk[:RESNET_GUARD_BAD])
+            before, launched = _resnet_state(ddp), fused_adam.kernel.launches
+            ddp.train_step_many(chunk[RESNET_GUARD_BAD:RESNET_GUARD_BAD + 1])
+            after, launched = _resnet_state(ddp), fused_adam.kernel.launches - launched
+            leaves = [n for n, _ in ddp.model.named_parameters()]
+            same = {k: torch.equal(before[k], after[k]) for k in before if not k.startswith("grad/")}
+            noop = {
+                "parameters, moments and BatchNorm buffers bitwise": all(same.values()),
+                f"{len(list(ddp.model.buffers()))} BatchNorm buffers held": all(
+                    v for k, v in same.items() if k.startswith("buffer/")),
+                f"table 1 (leaves 1-{fused_adam.MAX_LEAVES}) and table {tables} (leaves "
+                f"{fused_adam.MAX_LEAVES * (tables - 1) + 1}-{len(leaves)}) at verdict 0": all(
+                    same[f"param/{n}"] for n in leaves),
+                f"{tables} launches for the skipped update": launched == tables,
+                "counters (1, 1)": ddp.skip_counters() == (1, 1),
+            }
+            del before, after
+            ddp.train_step_many(chunk[RESNET_GUARD_BAD + 1:])
+        torch.cuda.synchronize()
+        runs[mode] = (_resnet_state(ddp), ddp.skip_counters(), fused_adam.kernel.launches,
+                      _kinds(graphs.stats))
+        del ddp
+    (eager, c_e, n_e, _), (replay, c_r, n_r, g_r) = runs["eager"], runs["replay"]
+    diff = max(float((eager[k].double() - replay[k].double()).abs().max()) for k in eager)
+    updates = RESNET_K * RESNET_CHUNKS
+    checks = {
+        **{f"the skipped update: {k}": ok for k, ok in noop.items()},
+        "replay bitwise eager (parameters, last gradients, moments, buffers)": diff == 0.0,
+        "counters (1, 0)": c_e == c_r == (1, 0),
+        f"{tables} launches per update, the skipped one too": n_e == n_r == tables * updates,
+        "1 capture, 2 replays": g_r == {"train": (1, RESNET_CHUNKS - 1)},
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 15 resnet guard failed {failed}: max|d|={diff}, counters {c_e} "
+                         f"{c_r}, launches {n_e} {n_r}, graphs {g_r}, the skipped update {noop}")
+    del runs, eager, replay
+    torch.cuda.empty_cache()
+    phase("15 resnet guard", f"resnet18_small@32 b128 sync_bn guarded, {RESNET_CHUNKS} chunks of {RESNET_K}, "
+          f"nan@step={bad}: the skipped update {noop}; replay vs eager max |d| {diff:.3g} (bitwise), "
+          f"counters {c_r}, launches replay {n_r} eager {n_e}, graphs {g_r}")
+    return dict(max_abs_diff=diff, counters=list(c_r), launches={"replay": n_r, "eager": n_e},
+                skipped_update=noop)
+
+
+def resnet_overlap(init, n_leaves: int):
+    """15 (e): ``resnet18_small`` with ``int8_ef`` at ``bucket_cap_mb: 5``
+    (two segments), 3 chunks of 4 through the barrier step eagerly (the
+    reference), the segmented step (``comm_overlap: true``) eagerly and
+    replayed, and the barrier step replayed: max |d| 0 over parameters,
+    gradients, moments, the residual and the BatchNorm buffers."""
+    tables, k, chunks = _tables(n_leaves), 4, 3
+    batches = _guard_batches(k * chunks, 4)
+    states, launches, meta, counts = {}, {}, None, None
+    for label, overlap, replay in (("barrier eager", False, False), ("segmented eager", True, False),
+                                   ("segmented replay", True, True), ("barrier replay", False, True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp = _resnet_ddp(init, replay, comm_hook="int8_ef", bucket_cap_mb=5.0, comm_overlap=overlap)
+        if overlap:
+            meta = ddp.comm_overlap_meta
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        for c in range(chunks):
+            ddp.train_step_many(batches[c * k:(c + 1) * k])
+        torch.cuda.synchronize()
+        launches[label] = fused_adam.kernel.launches
+        states[label] = _resnet_state(ddp)
+        if label == "segmented eager":
+            counts = dict(ddp._overlap.counts)
+        del ddp
+    ref = states.pop("barrier eager")
+    diff = {run: max(float((st[key].double() - ref[key].double()).abs().max()) for key in ref)
+            for run, st in states.items()}
+    updates = k * chunks
+    checks = {
+        "segmented: enabled, 2 segments": meta == {"enabled": True, "segments": 2, "reason": None},
+        "every segment exchanged from inside the backward": counts == {"hook": 2 * updates, "join": 0},
+        "max |d| = 0": all(v == 0.0 for v in diff.values()),
+        f"{tables} launches per update": all(n == tables * updates for n in launches.values()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 15 resnet overlap failed {failed}: meta {meta}, counts {counts}, "
+                         f"diff {diff}, launches {launches}")
+    torch.cuda.empty_cache()
+    phase("15 resnet overlap", f"resnet18_small@32 b128 sync_bn int8_ef bucket_cap_mb 5, {chunks} chunks of "
+          f"{k}: comm_overlap_meta {meta}, segment exchanges {counts}; max |d| vs the eager barrier run "
+          f"{diff} (bitwise); Adam launches {launches}")
+    return dict(meta=meta, segment_exchanges=counts, max_abs_diff=diff, launches=launches)
+
+
+def resnet50_turns():
+    """15 (c): one epoch of the settings file at ``model: resnet50`` and
+    ``resnet50_s2d``, 224 px, float32, one step per batch, in turns: step
+    medians (steps 2-16), peak device memory, launches."""
+    runs = {m: [] for m in RESNET_TURNS[:2]}
+    for model in RESNET_TURNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        history, wall_s, launches = native_run(
+            SETTINGS_RESNET, {"model": model, "image_size": 224, "scan_steps": 1})
+        steps = len(history[0]["step_ms"])
+        n = launches[fused_adam.kernel.symbol]
+        if steps != 16 or n != 4 * steps or not math.isfinite(history[0]["train_loss"]):
+            raise SystemExit(f"chip_smoke: 15 resnet50 {model}: {steps} steps, {launches} launches "
+                             f"(expected 4 per update), history {history}")
+        runs[model].append(dict(step_ms_median=statistics.median(history[0]["step_ms"][1:]),
+                                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                launches=n, train_loss=history[0]["train_loss"], wall_s=wall_s))
+    medians = {m: statistics.median(r["step_ms_median"] for r in v) for m, v in runs.items()}
+    phase("15 resnet50", "resnet50 and resnet50_s2d @224 b128 float32 (no TF32), one epoch each at scan_steps 1, "
+          f"in turns {RESNET_TURNS}: step medians (steps 2-16) "
+          + "; ".join(f"{m} " + ", ".join(f"{r['step_ms_median']:.2f}" for r in v) + " ms, peak "
+                      + ", ".join(f"{r['max_memory_allocated_gb']:.2f}" for r in v) + " GB"
+                      for m, v in runs.items())
+          + f"; s2d/plain {medians['resnet50_s2d'] / medians['resnet50']:.3f}; 4 Adam launches per update")
+    return dict(turns=list(RESNET_TURNS), runs=runs, medians=medians)
+
+
+def adam_graph_ms(wrapper, shapes):
+    """One Adam step of ``wrapper``'s kernel over ``shapes`` replayed from a
+    CUDA graph, and (float32) ``torch.optim.Adam(fused=True,
+    capturable=True)`` likewise, in turns (kernel, library, library,
+    kernel): device ms without the host's enqueue, which over 161 leaves
+    takes as long as the launches."""
+    leaves = make_leaves(shapes, seed=1, moments=wrapper.moment_dtype)
+    steps = step_counts(1, len(shapes))
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    bcs = [fused_adam.bias_corrections(s, HP["betas"]) for s in steps]
+    fns = {"kernel": partial(wrapper, ps, gs, ms, vs, bc1s=[b[0] for b in bcs],
+                             bc2s=[b[1] for b in bcs], steps=steps,
+                             leaves=leaf_indices(len(leaves)), weight_decay=0.0, **HP)}
+    order = ("kernel", "kernel")
+    if wrapper.moment_dtype == torch.float32:
+        params = [torch.nn.Parameter(p.clone()) for p in ps]
+        for prm, g in zip(params, gs):
+            prm.grad = g.clone()
+        fns["library"] = torch.optim.Adam(params, fused=True, capturable=True, **HP).step
+        order = ("kernel", "library", "library", "kernel")
+    runs = {k: [] for k in fns}
+    for k in order:
+        runs[k].append(graph_ms(fns[k]))
+    del leaves, fns
+    torch.cuda.empty_cache()
+    return {k: min(v) for k, v in runs.items()}
+
+
+def resnet_phase(bw, flops):
+    """Phase 15: the ResNets (``configs/multihost.yaml``'s model on one
+    card, and ResNet-50's 161-leaf Adam update in 4 launch tables)."""
+    with torch.device("meta"):
+        small_shapes = [tuple(p.shape) for p in load_model("resnet18_small", 10).parameters()]
+        r50_shapes = [tuple(p.shape) for p in load_model("resnet50", 10).parameters()]
+    file_runs = resnet_file(len(small_shapes))
+    managed = managed_vs_native("resnet18_small", size=None, sync_bn=True, tag="15 resnet managed vs native")
+    if managed["max_abs_dp"] != 0.0 or managed["launches"] != {"native": 6, "managed": 6}:
+        raise SystemExit(f"chip_smoke: 15 resnet managed vs native: {managed}")
+    r50 = resnet50_turns()
+    kernels = {}
+    for wrapper in fused_adam.kernels.values():
+        err = compare(wrapper, [("ResNet-50", r50_shapes, "", 0.0)], r50_shapes, tag="15 resnet50 adam",
+                      p_relative=True)
+        torch.cuda.empty_cache()
+        kernels[wrapper.moment_dtype] = {**time_kernel(wrapper, r50_shapes, bw, flops, label="ResNet-50",
+                                                       tag="15 resnet50 adam"), "max_abs_err": err}
+        torch.cuda.empty_cache()
+        graphed = adam_graph_ms(wrapper, r50_shapes)
+        kernels[wrapper.moment_dtype].update(graph_ms=graphed["kernel"],
+                                             library_graph_ms=graphed.get("library"),
+                                             launches_per_step=_tables(len(r50_shapes)))
+        bound = kernels[wrapper.moment_dtype]["bound_ms"]
+        phase("15 resnet50 adam", f"one ResNet-50 Adam step of {KERNEL_NAMES[wrapper.moment_dtype]} "
+              f"replayed from a CUDA graph (4 launches, no host enqueue), best of two in turns: "
+              f"kernel {graphed['kernel']:.4f} ms ({100 * bound / graphed['kernel']:.1f}% of the "
+              f"{bound:.4f} ms bound)" + (f", torch.optim.Adam(fused=True, capturable=True) "
+                                           f"{graphed['library']:.4f} ms" if "library" in graphed else ""))
+    torch.manual_seed(0)
+    init = load_model("resnet18_small", 10).state_dict()
+    guard = resnet_guard(init, len(small_shapes))
+    overlap = resnet_overlap(init, len(small_shapes))
+    return dict(file=file_runs, managed_vs_native=managed, resnet50=r50, kernels=kernels, guard=guard,
+                overlap=overlap, leaves={"resnet18_small": len(small_shapes), "resnet50": len(r50_shapes)})
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -3086,6 +3425,9 @@ def main() -> None:
     t14 = time.perf_counter()
     guard_14 = guard_phase(alexnet_shapes, bw, flops)
     phase_14_s = time.perf_counter() - t14
+    t15 = time.perf_counter()
+    resnet_15 = resnet_phase(bw, flops)
+    phase_15_s = time.perf_counter() - t15
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -3138,6 +3480,11 @@ def main() -> None:
         **{k: guard_14[k] for k in ("verdict", "chunks", "managed", "rollback")},
         "phase_14_s": phase_14_s,
     }}))
+    print(json.dumps({"resnet": {
+        **{k: resnet_15[k] for k in ("file", "managed_vs_native", "resnet50", "guard", "overlap", "leaves")},
+        "adam_resnet50": {KERNEL_NAMES[d]: v for d, v in resnet_15["kernels"].items()},
+        "phase_15_s": phase_15_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -3170,13 +3517,27 @@ def main() -> None:
            for run, n in guard_14["managed"]["launches"].items()},
         "native digits guarded rollback (phase 14)": guard_14["rollback"]["launches"],
     }
+    phase_15 = {
+        **{f"native resnet18_small file {k} (phase 15)": v["launches"]
+           for k, v in resnet_15["file"].items() if k.startswith("scan_steps")},
+        **{f"native resnet18_small graph vs eager ({m}) (phase 15)":
+           resnet_15["file"]["graph vs eager"][f"launches_{m}"][f32_sym] for m in ("replay", "eager")},
+        **{f"{k} resnet18_small (phase 15)": n
+           for k, n in resnet_15["managed_vs_native"]["launches"].items()},
+        **{f"native {m} turn {i} (phase 15)": r["launches"]
+           for m, runs in resnet_15["resnet50"]["runs"].items() for i, r in enumerate(runs)},
+        **{f"native resnet18_small guarded {m} (phase 15)": n
+           for m, n in resnet_15["guard"]["launches"].items()},
+        **{f"native resnet18_small int8_ef {m} (phase 15)": n
+           for m, n in resnet_15["overlap"]["launches"].items()},
+    }
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
-               **phase_13, **phase_14}
+               **phase_13, **phase_14, **phase_15}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -3186,7 +3547,8 @@ def main() -> None:
         {"name": KERNEL_NAMES[torch.float32], **common, "launches": sum(by_path.values()),
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
          "launches_by_path": by_path, "flat_shard": flat[torch.float32],
-         "guarded": {**guard_14["kernel"][torch.float32], "launches_by_path": phase_14}},
+         "guarded": {**guard_14["kernel"][torch.float32], "launches_by_path": phase_14},
+         "resnet50_161_leaves": {**resnet_15["kernels"][torch.float32], "launches_by_path": phase_15}},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
                       + sum(phase_10_bf16.values()) + sum(phase_11.values())
@@ -3200,14 +3562,16 @@ def main() -> None:
                               **{k: 0 for k in phase_10}, **phase_10_bf16, **phase_11,
                               **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
                               **phase_12_bf16, **{k: 0 for k in phase_13},
-                              **{k: 0 for k in phase_14}},
+                              **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
-                     "launches_by_path": {}}},
+                     "launches_by_path": {}},
+         "resnet50_161_leaves": {**resnet_15["kernels"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
+                                 "launches_by_path": {k: 0 for k in phase_15}}},
     ]}))
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
-          f"phase 14: {phase_14_s:.1f} s)")
+          f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

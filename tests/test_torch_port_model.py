@@ -116,7 +116,9 @@ def test_load_model_registry():
     assert isinstance(load_model("alexnet", 10), AlexNet)
     mlp = load_model("toy_mlp", 7, input_shape=(8, 8, 3))
     assert mlp(torch.zeros(2, 8, 8, 3)).shape == (2, 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("resnet18", 10)
+    assert load_model("resnet18_small", 10)(torch.zeros(2, 8, 8, 3)).shape == (2, 10)
+    for name in ("vgg11", "transformer_tiny"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8: other models"):
+            load_model(name, 10)
     with pytest.raises(ValueError):
         load_model("nope", 10)

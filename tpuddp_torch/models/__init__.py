@@ -1,17 +1,21 @@
 """Model zoo of the port: ``alexnet`` (the main path), ``alexnet_s2d`` (its
-space-to-depth stem, the same parameters and checkpoints), ``toy_mlp`` and
-``toy_cnn``. The JAX package's other models wait for a later slice."""
+space-to-depth stem, the same parameters and checkpoints), ``toy_mlp``,
+``toy_cnn`` and the ResNets (``resnet{18,34,50,101,152}``, each with its
+``_small`` CIFAR stem and its ``_s2d`` stem). The JAX package's VGGs and
+transformers wait for a later slice."""
 
 from typing import Sequence
 
 from tpuddp_torch.models.alexnet import AlexNet  # noqa: F401
+from tpuddp_torch.models.resnet import DEPTHS as _RESNETS
+from tpuddp_torch.models.resnet import BasicBlock, Bottleneck, ResNet, resnet  # noqa: F401
 from tpuddp_torch.models.toy import ToyCNN, ToyMLP  # noqa: F401
 
 # the JAX package's other models (tpuddp/models/__init__.py)
 _NOT_PORTED = (
-    "vgg11", "vgg13", "vgg16", "vgg19", "resnet18", "resnet34",
-    "resnet50", "resnet101", "resnet152", "transformer_tiny", "transformer_small",
+    "vgg11", "vgg13", "vgg16", "vgg19", "transformer_tiny", "transformer_small",
 )
+RESNET_NAMES = tuple(f"{base}{stem}" for base in _RESNETS for stem in ("", "_small", "_s2d"))
 
 
 def load_model(
@@ -28,13 +32,18 @@ def load_model(
         return ToyMLP(in_features=h * w * c, num_classes=num_classes, **kwargs)
     if name == "toy_cnn":
         return ToyCNN(num_classes=num_classes, input_shape=input_shape, **kwargs)
-    base = name.split("_s2d")[0].split("_small")[0]
-    if base in _NOT_PORTED:
+    if name in RESNET_NAMES:
+        return resnet(name, num_classes=num_classes, **kwargs)
+    if name.split("_s2d")[0].split("_small")[0] in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not implemented in tpuddp_torch yet "
             "(ROADMAP.md Queue 1 item 8: other models)"
         )
-    raise ValueError(f"unknown model {name!r}; one of alexnet, alexnet_s2d, toy_mlp, toy_cnn")
+    raise ValueError(
+        f"unknown model {name!r}; one of alexnet, alexnet_s2d, toy_mlp, toy_cnn, "
+        f"{', '.join(RESNET_NAMES)}"
+    )
 
 
-__all__ = ["AlexNet", "ToyCNN", "ToyMLP", "load_model"]
+__all__ = ["AlexNet", "BasicBlock", "Bottleneck", "ResNet", "ToyCNN", "ToyMLP", "load_model",
+           "RESNET_NAMES"]

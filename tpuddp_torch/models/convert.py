@@ -11,12 +11,22 @@ JAX params arrive as numpy arrays (one entry per layer of the JAX
 - Linear weights: ``(in, out)`` -> ``(out, in)``;
 - AlexNet's first classifier Linear additionally re-orders its 9216-wide
   input axis from JAX's NHWC flatten ``(h, w, c)`` to torch's ``(c, h, w)``;
-- BatchNorm (``toy_cnn``): ``scale`` and ``bias`` -> ``weight`` and
-  ``bias``, and the JAX model state's ``mean`` and ``var`` -> the
+- BatchNorm (``toy_cnn``, the ResNets): ``scale`` and ``bias`` -> ``weight``
+  and ``bias``, and the JAX model state's ``mean`` and ``var`` -> the
   ``running_mean`` and ``running_var`` buffers.
 
-``alexnet_s2d`` has AlexNet's parameters and keys, so every function here
-takes it as ``alexnet``. :func:`flat_to_jax` and :func:`flat_from_jax` move
+A ResNet child of the JAX ``Sequential`` is a block whose parameters (and
+state) are a nested dict, ``{"bn1": {"bias", "scale"}, "conv1": {"weight"},
+..., "down_conv", "down_bn"}``, which the port keeps as torchvision's
+``layer{s}.{b}.bn1``, ``.conv1``, ``.downsample.0``/``.1``. So a parameter's
+place in the JAX tree is ``(child index, path)``, the path a tuple of dict
+keys, ``(3, ("bn1", "scale"))``; places sort as ``jax.tree_util`` flattens
+the tree (children in order, each dict's keys sorted, at every level).
+
+``alexnet_s2d`` has AlexNet's parameters and keys, and each ``resnet*_s2d``
+its base's, so every function here takes them as ``alexnet`` and
+``resnet*``; a ``resnet*_small`` is a layout of its own (no max-pool
+child). :func:`flat_to_jax` and :func:`flat_from_jax` move
 one flat vector of all parameters (ZeRO-1's layout) between the port's order
 (``model.parameters()``, each raveled as PyTorch stores it) and the JAX
 package's (its tree's leaves in order, each raveled in its own layout).
@@ -30,10 +40,14 @@ uint16 bits).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from functools import lru_cache
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from tpuddp_torch.models.resnet import DEPTHS as _RESNET_DEPTHS
+from tpuddp_torch.models.resnet import Bottleneck
 
 # JAX AlexNet Sequential index -> torchvision key (tpuddp/models/torch_import.py)
 _ALEXNET_CONV = {0: "features.0", 3: "features.3", 6: "features.6",
@@ -42,9 +56,94 @@ _ALEXNET_LINEAR = {16: "classifier.1", 19: "classifier.4", 21: "classifier.6"}
 _POOL_GRID, _POOL_CH = 6, 256
 
 
+Place = Tuple[int, Tuple[str, ...]]  # (JAX child index, path of dict keys)
+
+
 def _base(name: str) -> str:
-    """The name whose layout ``name`` shares: ``alexnet_s2d`` is AlexNet's."""
-    return "alexnet" if name == "alexnet_s2d" else name
+    """The name whose layout ``name`` shares: ``alexnet_s2d`` is AlexNet's,
+    ``resnet18_s2d`` ResNet-18's."""
+    return name[: -len("_s2d")] if name.endswith("_s2d") else name
+
+
+def _resnet_spec(name: str):
+    """``(blocks per stage, block class, small stem)`` of a ResNet layout
+    name, None for another model."""
+    small = name.endswith("_small")
+    spec = _RESNET_DEPTHS.get(name[: -len("_small")] if small else name)
+    return None if spec is None else (*spec, small)
+
+
+# a block's port child -> its key in the JAX block's dict
+_BLOCK_KEYS = {"downsample.0": "down_conv", "downsample.1": "down_bn"}
+
+
+@lru_cache(maxsize=None)
+def _resnet_modules(name: str) -> Tuple[Tuple[Tuple[str, str, Place], ...], int]:
+    """Every module of the ResNet layout ``name`` that may hold parameters,
+    in the port's order: ``(module prefix, kind, place)``, kind ``conv``,
+    ``bn`` or ``linear``, place its dict's ``(child, path)`` in the JAX
+    tree (``downsample`` listed for every block; a block without it has
+    none); and the JAX ``Sequential``'s child count."""
+    depths, block, small = _resnet_spec(name)
+    convs = 3 if block is Bottleneck else 2
+    child = 3 if small else 4  # conv, BatchNorm, ReLU[, MaxPool]
+    out = [("conv1", "conv", (0, ())), ("bn1", "bn", (1, ()))]
+    for stage, n_blocks in enumerate(depths, start=1):
+        for b in range(n_blocks):
+            prefix = f"layer{stage}.{b}"
+            for i in range(1, convs + 1):
+                out += [(f"{prefix}.conv{i}", "conv", (child, (f"conv{i}",))),
+                        (f"{prefix}.bn{i}", "bn", (child, (f"bn{i}",)))]
+            out += [(f"{prefix}.{key}", "conv" if key.endswith("0") else "bn", (child, (jkey,)))
+                    for key, jkey in _BLOCK_KEYS.items()]
+            child += 1
+    out.append(("fc", "linear", (child + 1, ())))  # after the pool
+    return tuple(out), child + 2
+
+
+def _get(tree, path: Sequence[str]):
+    """The node at ``path`` inside one child's dict, None where it is absent."""
+    for key in path:
+        if not tree or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def _set(tree: dict, path: Sequence[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def tree_leaves(node, path: Tuple = ()) -> Iterator[Tuple[Tuple, np.ndarray]]:
+    """``(path, leaf)`` of a JAX tree (tuples by index, dicts by sorted
+    key, ``()`` and empty dicts holding none) in ``jax.tree_util``'s
+    order; a path is a tuple of ints and strings."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from tree_leaves(node[k], path + (k,))
+    elif isinstance(node, (tuple, list)):
+        for i, child in enumerate(node):
+            yield from tree_leaves(child, path + (i,))
+    else:
+        yield path, node
+
+
+def keystr(path: Tuple) -> str:
+    """``jax.tree_util.keystr`` of a :func:`tree_leaves` path of tuples
+    and dicts: ``[3]['bn1']['bias']``."""
+    return "".join(f"[{k}]" if isinstance(k, int) else f"['{k}']" for k in path)
+
+
+def tree_map(fn, node, path: Tuple = ()):
+    """``node`` with each leaf replaced by ``fn(path, leaf)``, the same
+    structure."""
+    if isinstance(node, dict):
+        return {k: tree_map(fn, v, path + (k,)) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(tree_map(fn, c, path + (i,)) for i, c in enumerate(node))
+    return fn(path, node)
 
 
 def _linear_indices(params: Sequence) -> list:
@@ -54,7 +153,7 @@ def _linear_indices(params: Sequence) -> list:
 def _expected_model(name: str, params: Sequence):
     """The port's model with the widths ``params`` imply, on the meta device
     (shapes only, no memory)."""
-    from tpuddp_torch.models import AlexNet, ToyCNN, ToyMLP
+    from tpuddp_torch.models import AlexNet, ResNet, ToyCNN, ToyMLP
 
     name = _base(name)
     lin = _linear_indices(params)
@@ -62,6 +161,9 @@ def _expected_model(name: str, params: Sequence):
     with torch.device("meta"):
         if name == "alexnet":
             return AlexNet(num_classes=num_classes)
+        if _resnet_spec(name) is not None:
+            depths, block, small = _resnet_spec(name)
+            return ResNet(depths, block, num_classes, small_input=small)
         if name == "toy_mlp":
             hidden = [int(np.shape(params[i]["weight"])[1]) for i in lin[:-1]]
             in_features = int(np.shape(params[lin[0]]["weight"])[0])
@@ -74,9 +176,16 @@ def _expected_model(name: str, params: Sequence):
             cells = int(np.shape(params[lin[-1]]["weight"])[0]) // widths[-1]
             f = 2 ** len(widths)
             return ToyCNN(num_classes, widths, input_shape=(f, f * cells, int(convs[0][2])))
-    raise ValueError(
-        f"no weight bridge for model {name!r}; one of alexnet, toy_mlp, toy_cnn"
-    )
+    raise ValueError(f"no weight bridge for model {name!r}; {_LAYOUTS}")
+
+
+_LAYOUTS = ("one of alexnet, toy_mlp, toy_cnn, resnet{18,34,50,101,152} and their _small "
+            "layouts")
+
+
+def _check_children(name: str, params: Sequence, n: int) -> None:
+    if len(params) != n:
+        raise ValueError(f"{name}: the JAX tree has {len(params)} children, the layout {n}")
 
 
 def torch_layout(
@@ -113,6 +222,23 @@ def torch_layout(
         for idx in _linear_indices(params):
             out[f"{idx}.weight"] = np.asarray(params[idx]["weight"]).T
             out[f"{idx}.bias"] = params[idx]["bias"]
+    elif _resnet_spec(name) is not None:
+        modules, n_children = _resnet_modules(name)
+        _check_children(name, params, n_children)
+        for prefix, kind, (idx, path) in modules:
+            p = _get(params[idx], path)
+            if p is None:  # a block without a projection shortcut
+                continue
+            if kind == "bn":
+                out[f"{prefix}.weight"], out[f"{prefix}.bias"] = p["scale"], p["bias"]
+                if model_state is not None:
+                    s = _get(model_state[idx], path)
+                    out[f"{prefix}.running_mean"], out[f"{prefix}.running_var"] = s["mean"], s["var"]
+            elif kind == "conv":  # HWIO -> OIHW
+                out[f"{prefix}.weight"] = np.transpose(p["weight"], (3, 2, 0, 1))
+            else:
+                out[f"{prefix}.weight"] = np.asarray(p["weight"]).T
+                out[f"{prefix}.bias"] = p["bias"]
     elif name == "toy_cnn":
         for idx, p in enumerate(params):
             if not p:
@@ -178,6 +304,8 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
     ``params`` and a ``model_state`` of ``()``."""
     sd = {k: _numpy(v) for k, v in state_dict.items()}
     name = _base(name)
+    if _resnet_spec(name) is not None:
+        return _resnet_from_state_dict(name, sd)
     if name == "alexnet":
         layers = {idx: key for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
         n_layers = _ALEXNET_LAYERS
@@ -186,7 +314,7 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
         layers = {i: str(i) for i in idxs}
         n_layers = idxs[-1] + 1
     else:
-        raise ValueError(f"no weight bridge for model {name!r}; one of alexnet, toy_mlp, toy_cnn")
+        raise ValueError(f"no weight bridge for model {name!r}; {_LAYOUTS}")
     params, mstate = [()] * n_layers, [()] * n_layers
     for idx, key in layers.items():
         w, b = sd.get(f"{key}.weight"), sd.get(f"{key}.bias")
@@ -213,48 +341,110 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
     return tuple(map(contiguous, params)), tuple(map(contiguous, mstate))
 
 
+def _resnet_from_state_dict(name: str, sd: Dict[str, np.ndarray]) -> Tuple[tuple, tuple]:
+    """:func:`jax_from_state_dict` of a ResNet: each block's child a nested
+    dict (``{"bn1": {"bias", "scale"}, "conv1": {"weight"}, ...}``)."""
+    modules, n_children = _resnet_modules(name)
+    params = [{} for _ in range(n_children)]
+    mstate = [{} for _ in range(n_children)]
+    known = set()
+    for prefix, kind, (idx, path) in modules:
+        w = sd.get(f"{prefix}.weight")
+        if w is None:
+            if not prefix.endswith(tuple(_BLOCK_KEYS)):
+                raise KeyError(f"{name}: state_dict has no {prefix}.weight")
+            continue
+        keys = {f"{prefix}.{k}" for k in ("weight", "bias", "running_mean", "running_var")}
+        known |= keys
+        if kind == "bn":
+            node = {"bias": sd[f"{prefix}.bias"], "scale": w}
+            if f"{prefix}.running_mean" in sd:
+                stats = {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
+                if path:
+                    _set(mstate[idx], path, stats)
+                else:
+                    mstate[idx] = stats
+        elif kind == "conv":  # OIHW -> HWIO
+            node = {"weight": np.transpose(w, (2, 3, 1, 0))}
+        else:  # (out, in) -> (in, out)
+            node = {"weight": w.T, "bias": sd[f"{prefix}.bias"]}
+        if path:
+            _set(params[idx], path, node)
+        else:
+            params[idx] = node
+    unknown = sorted(set(sd) - known)
+    if unknown:
+        raise KeyError(f"{name}: state_dict keys {unknown[:3]} have no place in the layout")
+    contiguous = lambda child: tree_map(lambda _, a: np.ascontiguousarray(a), child) if child else ()
+    return tuple(map(contiguous, params)), tuple(map(contiguous, mstate))
+
+
 def model_name(model: torch.nn.Module) -> str:
     """The registry name of the layout of one of the port's models
-    (``alexnet`` for ``alexnet_s2d`` too)."""
-    from tpuddp_torch.models import AlexNet, ToyCNN, ToyMLP
+    (``alexnet`` for ``alexnet_s2d`` too; ``resnet{depth}`` or
+    ``resnet{depth}_small`` for a ResNet, its ``_s2d`` stem included)."""
+    from tpuddp_torch.models import AlexNet, ResNet, ToyCNN, ToyMLP
 
+    if isinstance(model, ResNet):
+        block = type(model.layer1[0])
+        for base, spec in _RESNET_DEPTHS.items():
+            if spec == (model.depths, block):
+                return base + ("_small" if model.maxpool is None else "")
+        raise ValueError(f"no JAX layout for a ResNet of {model.depths} {block.__name__}s")
     for cls, name in ((AlexNet, "alexnet"), (ToyCNN, "toy_cnn"), (ToyMLP, "toy_mlp")):
         if isinstance(model, cls):
             return name
-    raise ValueError(f"no JAX layout for a {type(model).__name__}; one of AlexNet, ToyCNN, ToyMLP")
+    raise ValueError(
+        f"no JAX layout for a {type(model).__name__}; one of AlexNet, ResNet, ToyCNN, ToyMLP")
 
 
 def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:
     """Each parameter of the port's ``model`` (by ``named_parameters`` name)
     -> its index among the leaves of the JAX package's flattened parameter
     tree for the same model: the layers in order, each layer's dict keys
-    sorted (``bias`` before ``scale`` and ``weight``), parameter-free layers
-    holding none. bf16 Adam moments salt their rounding with it
-    (``tpuddp/optim.py:127``)."""
+    sorted at every level (``bias`` before ``scale`` and ``weight``; a
+    ResNet block's ``bn1`` before ``conv1`` and ``down_bn``),
+    parameter-free layers holding none. bf16 Adam moments salt their
+    rounding with it (``tpuddp/optim.py:127``)."""
     places = jax_places(name, model)
     return {pname: k for k, pname in enumerate(sorted(places, key=places.get))}
 
 
-def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Tuple[int, str]]:
+def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Place]:
     """Each parameter of the port's ``model`` (by ``named_parameters``
-    name) -> its ``(layer index, key)`` in the JAX package's parameter tree
-    (a BatchNorm's ``weight`` is its ``scale``)."""
+    name) -> its ``(layer index, path)`` in the JAX package's parameter
+    tree, the path the dict keys down to the leaf: ``(0, ("weight",))``,
+    a ResNet block's ``(3, ("bn1", "scale"))`` (a BatchNorm's ``weight`` is
+    its ``scale``)."""
     from tpuddp_torch.nn.norm import BatchNorm
 
     name = _base(name)
     if name == "alexnet":
-        layer_of = {key: idx for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
+        place_of = {key: (idx, ()) for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
     elif name in ("toy_mlp", "toy_cnn"):
-        layer_of = None  # Sequentials with the JAX layer indices
+        place_of = None  # Sequentials with the JAX layer indices
+    elif _resnet_spec(name) is not None:
+        place_of = {prefix: place for prefix, _, place in _resnet_modules(name)[0]}
     else:
-        raise ValueError(f"no JAX leaf order for model {name!r}; one of alexnet, toy_mlp, toy_cnn")
+        raise ValueError(f"no JAX leaf order for model {name!r}; {_LAYOUTS}")
     places = {}
     for pname, _ in model.named_parameters():
         prefix, key = pname.rsplit(".", 1)
         if key == "weight" and isinstance(model.get_submodule(prefix), BatchNorm):
             key = "scale"
-        places[pname] = (int(prefix) if layer_of is None else layer_of[prefix], key)
+        idx, path = (int(prefix), ()) if place_of is None else place_of[prefix]
+        places[pname] = (idx, path + (key,))
     return places
+
+
+def _n_children(name: str, model: torch.nn.Module) -> int:
+    """The JAX ``Sequential``'s child count for ``model``."""
+    name = _base(name)
+    if name == "alexnet":
+        return _ALEXNET_LAYERS
+    if _resnet_spec(name) is not None:
+        return _resnet_modules(name)[1]
+    return len(model)
 
 
 def _jax_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -280,7 +470,7 @@ def flat_to_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndarra
     if offset != len(vec):
         raise ValueError(f"flat_to_jax: {len(vec)} elements for {offset} parameters")
     params, _ = jax_from_state_dict(name, arrays)
-    return np.concatenate([np.ravel(layer[k]) for layer in params for k in sorted(layer or ())])
+    return np.concatenate([np.ravel(leaf) for _, leaf in tree_leaves(params)])
 
 
 def flat_from_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndarray:
@@ -288,12 +478,11 @@ def flat_from_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndar
     ``model.parameters()`` order."""
     places = jax_places(name, model)
     shapes = {pname: _jax_shape(tuple(p.shape)) for pname, p in model.named_parameters()}
-    n_layers = _ALEXNET_LAYERS if _base(name) == "alexnet" else 1 + max(l for l, _ in places.values())
-    tree, offset = [{} for _ in range(n_layers)], 0
+    tree, offset = [{} for _ in range(_n_children(name, model))], 0
     for pname in sorted(places, key=places.get):
-        layer, key = places[pname]
+        layer, path = places[pname]
         n = int(np.prod(shapes[pname]))
-        tree[layer][key] = vec[offset:offset + n].reshape(shapes[pname])
+        _set(tree[layer], path, vec[offset:offset + n].reshape(shapes[pname]))
         offset += n
     if offset != len(vec):
         raise ValueError(f"flat_from_jax: {len(vec)} elements for {offset} parameters")
@@ -314,12 +503,12 @@ def jax_layer_sizes(name: str, model: torch.nn.Module) -> Tuple[int, ...]:
     """The element count of each child of the JAX package's ``Sequential``
     for ``model`` (0 for a parameter-free child; AlexNet's 22 children),
     which the segmented-overlap step's :func:`~tpuddp_torch.parallel.comm.
-    make_segments` takes. The port's AlexNet is torchvision's nested
-    layout, so the children are the JAX package's, never
+    make_segments` takes. The port's AlexNet and ResNets are torchvision's
+    nested layouts, so the children are the JAX package's (a ResNet block
+    one child: 13 for ``resnet18_small``, 22 for ``resnet50``), never
     ``model.children()``."""
     places = jax_places(name, model)
-    n_layers = _ALEXNET_LAYERS if _base(name) == "alexnet" else len(model)
-    sizes = [0] * n_layers
+    sizes = [0] * _n_children(name, model)
     for pname, p in model.named_parameters():
         sizes[places[pname][0]] += p.numel()
     return tuple(sizes)

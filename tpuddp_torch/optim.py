@@ -5,7 +5,10 @@ bfloat16 moments (lines 133-225), SGD, SGDW, LARS and LAMB (lines 36-70,
 Each param group's update is one call of
 :func:`tpuddp_torch.ops.fused_adam.adam_update`: one CUDA kernel launch for
 all of the group's CUDA parameters (up to 48 leaves; more take one launch per
-48), the plain PyTorch version for CPU ones. ``weight_decay`` is the
+48: 2 for a ResNet-18, 4 for a ResNet-50), the plain PyTorch version for CPU
+ones. The launches of one update read the same step counts, on the host or,
+under the guard, from the one device count, which advances once after the
+last of them. ``weight_decay`` is the
 torch L2 convention (added to the gradient), as in the JAX package.
 
 ``state_dtype`` (``training.optimizer_state_dtype``) stores m and v in

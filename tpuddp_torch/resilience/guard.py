@@ -239,9 +239,10 @@ def _leaf_fingerprint(t: torch.Tensor) -> torch.Tensor:
 
 def jax_leaf_names(model: torch.nn.Module):
     """``(JAX path, parameter)`` of ``model``'s parameters in the JAX
-    package's tree order (its ``keystr`` paths, ``[i]['weight']``); the
-    port's own names and order for a model without a JAX layout."""
-    from tpuddp_torch.models.convert import jax_places, model_name
+    package's tree order (its ``keystr`` paths, ``[i]['weight']``, a
+    ResNet block's ``[3]['bn1']['scale']``); the port's own names and order
+    for a model without a JAX layout."""
+    from tpuddp_torch.models.convert import jax_places, keystr, model_name
 
     named = dict(model.named_parameters())
     try:
@@ -249,7 +250,7 @@ def jax_leaf_names(model: torch.nn.Module):
     except ValueError:
         return list(named.items())
     order = sorted(places, key=places.get)
-    return [(f"[{places[n][0]}]['{places[n][1]}']", named[n]) for n in order]
+    return [(keystr((places[n][0],) + places[n][1]), named[n]) for n in order]
 
 
 @torch.no_grad()

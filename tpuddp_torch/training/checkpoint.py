@@ -7,7 +7,8 @@ trees, so the unchanged JAX package restores what the port writes and the
 port restores what the JAX package writes:
 
 - native ``ckpt_{epoch}.npz``, a ``TrainState``: ``.params[i]['weight']``
-  (and ``'bias'``, ``'scale'``), ``.model_state[i]['mean'|'var']``, the
+  (and ``'bias'``, ``'scale'``; a ResNet block's leaves one level deeper,
+  ``.params[3]['bn1']['bias']``), ``.model_state[i]['mean'|'var']``, the
   optimizer's state under ``.opt_state`` (below), ``.step`` (int32: the
   micro-batches trained, so under gradient accumulation A per update,
   padding micro-batches included) and ``__prngkey__.rng`` (uint32 ``(2,)``,
@@ -106,8 +107,8 @@ import torch.distributed as dist
 
 from tpuddp_torch import optim
 from tpuddp_torch.models.convert import (
-    flat_from_jax, flat_to_jax, jax_from_state_dict, model_name, state_dict_from_jax,
-    torch_layout,
+    flat_from_jax, flat_to_jax, jax_from_state_dict, keystr, model_name, state_dict_from_jax,
+    torch_layout, tree_leaves, tree_map,
 )
 from tpuddp_torch.parallel.backend import get_rank, get_world_size
 from tpuddp_torch.parallel import collectives
@@ -208,11 +209,11 @@ def _field(layout: str, name: str) -> str:
 
 
 def _leaves(prefix: str, tree):
-    """``(key, array)`` of a per-layer tuple of dicts, keyed as
-    ``jax.tree_util.keystr`` keys them."""
-    for i, layer in enumerate(tree):
-        for k in sorted(layer or ()):
-            yield f"{prefix}[{i}]['{k}']", layer[k]
+    """``(key, array)`` of a per-layer tuple of (nested) dicts, keyed as
+    ``jax.tree_util.keystr`` keys them: ``[0]['weight']``, a ResNet
+    block's ``[3]['bn1']['bias']``."""
+    for path, leaf in tree_leaves(tree):
+        yield prefix + keystr(path), leaf
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -601,11 +602,10 @@ def _leaf(path: str, stored: dict, key: str, like: np.ndarray, bf16: bool = Fals
 
 
 def _read_tree(path, stored, prefix, template, bf16=False):
-    return tuple(
-        {k: _leaf(path, stored, f"{prefix}[{i}]['{k}']", layer[k], bf16) for k in layer}
-        if layer else ()
-        for i, layer in enumerate(template)
-    )
+    """The file's arrays under ``prefix`` in the structure of ``template``
+    (each leaf checked against the template's)."""
+    return tree_map(lambda at, like: _leaf(path, stored, prefix + keystr(at), like, bf16),
+                    template)
 
 
 def read_meta(path: str) -> Dict[str, int]:
