@@ -289,6 +289,32 @@ Phases, each printing one line (the first failure exits non-zero):
      3 chunks of 4, segmented (eager, replayed) and the replayed barrier
      step against the eager barrier step: max |d| 0.
 
+16. the VGGs and the pretrained fine-tune (``training.pretrained_path``;
+   the Adam kernel over VGG-16's 32 leaves, 134,301,514 parameters, in one
+   launch):
+   - "16 vgg16 file": ``cifar10_alexnet_h100.yaml`` at ``model: vgg16``
+     (224 px, b128, float32), one epoch one step per batch: finite losses,
+     one launch per update, the step median (steps 2-16), peak memory;
+   - "16 vgg chunks": 3 chunks of 4 steps from one state with flips and
+     dropout: ``vgg16``@224 eagerly and replayed (the replayed step is the
+     last chunk's time over 4); ``vgg11`` at 32 px (the 1 -> 7 adaptive
+     pool) and 64 px (2 -> 7, overlapping bins) eagerly twice and
+     replayed: every run bitwise the first (the pool's backward has no
+     atomics), one launch per update;
+   - "16 vgg managed vs native": 3 ``vgg11``@32 steps of each path from one
+     state: bitwise;
+   - "16 pretrained": a 1000-class torchvision-layout AlexNet file written
+     from a seed; loaded on the card before a step, the file's tensors
+     bitwise but the head, 10x4096; one epoch of
+     ``cifar10_alexnet_h100.yaml`` with ``pretrained_path`` through each
+     entry point (files in a temporary directory deleted afterwards): the
+     managed parameters bitwise the native ones; 1000-class ``vgg16`` and
+     ``resnet18`` files load with their heads swapped;
+   - "16 vgg16 adam": both kernels over VGG-16's 32 leaves against the plain
+     version per step from one state (phase 15's bounds), timed in turns
+     with the plain version and (float32) ``torch.optim.Adam(fused=True)``,
+     beside the bound (28 B / 20 B a parameter).
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
@@ -296,7 +322,8 @@ eager one does, and a graph that lost its Adam node would count none.
 Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
-13's, one with phase 14's, one with phase 15's, one with the optimizers', one
+13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
+the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -332,6 +359,7 @@ from tpuddp_torch.data import _native, load_datasets_for, norm_stats_for  # noqa
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment  # noqa: E402
 from tpuddp_torch.models import AlexNet, load_model  # noqa: E402
 from tpuddp_torch.models.convert import JaxFlatOrder, flat_to_jax, jax_leaf_index, jax_sizes  # noqa: E402
+from tpuddp_torch.models.pretrained import pretrained_from_config  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
@@ -3305,6 +3333,222 @@ def resnet_phase(bw, flops):
                 overlap=overlap, leaves={"resnet18_small": len(small_shapes), "resnet50": len(r50_shapes)})
 
 
+VGG_K, VGG_CHUNKS = 4, 3
+VGG11_SIZES = {"32 px (1 -> 7 pool)": None, "64 px (2 -> 7 pool)": 64}
+
+
+def _vgg_init(name: str):
+    """The registry VGG ``name``'s initial weights, drawn on the card from
+    a seed."""
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        return {k: v.clone() for k, v in load_model(name, 10).state_dict().items()}
+
+
+def _vgg_runs(name: str, size, modes, batches, init):
+    """``VGG_CHUNKS`` chunks of ``VGG_K`` native steps of ``name`` (flips,
+    dropout, Adam) from the weights ``init``, one run per mode (``eager``:
+    ``_graph_replay = False``; ``replay``: warm-up, capture, replay), each
+    from the same dropout stream: its state (parameters, last gradients,
+    moments), sums, float32-kernel launches, graph counts and each chunk's
+    seconds."""
+    runs = []
+    for mode in modes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.device("meta"):
+            model = load_model(name, 10)
+        model.to_empty(device="cuda").load_state_dict(init)
+        gen = torch.Generator().manual_seed(1)
+        ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                      augment=make_train_augment(size=size, flip=True, generator=gen),
+                                      device="cuda", generator=gen)
+        ddp._graph_replay = mode == "replay"
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        graphs.reset_stats()
+        sums, seconds = None, []
+        for c in range(VGG_CHUNKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums = ddp.train_step_many(batches[c * VGG_K:(c + 1) * VGG_K], sums)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        runs.append(dict(mode=mode, state=_ddp_state(ddp), sums=sums.clone(),
+                         launches=fused_adam.kernel.launches, graphs=_kinds(graphs.stats), seconds=seconds))
+        del ddp, model
+    return runs
+
+
+def _max_diff(a, b) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def vgg_chunk_checks(label: str, name: str, size, modes, seed: int):
+    """16 (a, b): the chunk runs of ``modes`` from one state; every later
+    run bitwise the first (parameters, last gradients, moments, sums), one
+    Adam launch per update counted by the kernel, a replay run's 1
+    capture and 2 replays. Returns the runs' numbers (the replay run's
+    last chunk is a pure replay: its seconds over ``VGG_K`` is the
+    replayed step)."""
+    runs = _vgg_runs(name, size, modes, _guard_batches(VGG_K * VGG_CHUNKS, seed), _vgg_init(name))
+    ref = runs[0]
+    diffs = [max(_max_diff(ref["state"], r["state"]), float((ref["sums"] - r["sums"]).abs().max()))
+             for r in runs[1:]]
+    updates = VGG_K * VGG_CHUNKS
+    checks = {
+        "every run bitwise the first (parameters, last gradients, moments, sums)": all(d == 0.0 for d in diffs),
+        "1 Adam launch per update, counted by the kernel": all(r["launches"] == updates for r in runs),
+        "finite sums": all(bool(torch.isfinite(r["sums"]).all()) for r in runs),
+        "replay: 1 capture, 2 replays": all(r["graphs"] == {"train": (1, VGG_CHUNKS - 1)}
+                                             for r in runs if r["mode"] == "replay"),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    out = dict(modes=list(modes), max_abs_diff=diffs, launches=[r["launches"] for r in runs],
+               chunk_s=[r["seconds"] for r in runs])
+    if failed:
+        raise SystemExit(f"chip_smoke: 16 {label} failed {failed}: {out}")
+    replay = [r for r in runs if r["mode"] == "replay"]
+    if replay:
+        out["replayed_step_ms"] = replay[0]["seconds"][-1] * 1e3 / VGG_K
+    phase("16 vgg chunks", f"{label}, {VGG_CHUNKS} chunks of {VGG_K} from one state with flips and dropout, "
+          f"runs {'/'.join(modes)}: max |d| vs the first {diffs} (bitwise), Adam launches "
+          f"{out['launches']}, chunk s " + "; ".join(", ".join(f"{t:.3f}" for t in r["seconds"]) for r in runs)
+          + (f"; replayed step {out['replayed_step_ms']:.2f} ms" if replay else ""))
+    del runs, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def vgg16_file():
+    """16 (a): ``cifar10_alexnet_h100.yaml`` at ``model: vgg16`` (224 px,
+    b128, float32), one epoch one step per batch (16 steps): finite losses,
+    one Adam launch per update, the step median (steps 2-16), peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    history, wall_s, launches = native_run(SETTINGS, {"model": "vgg16", "scan_steps": 1})
+    row = history[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    checks = {
+        "16 train steps": len(row["step_ms"]) == 16,
+        "1 float32-kernel launch per update": launches[fused_adam.kernel.symbol] == 16
+        and sum(launches.values()) == 16,
+        "finite losses": all(math.isfinite(row[k]) for k in ("train_loss", "test_loss")),
+        "2048 train / 512 test samples": (row["train_samples"], row["test_samples"]) == (2048, 512),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 16 vgg16 file failed {failed}: launches {launches}, history {history}")
+    median = statistics.median(row["step_ms"][1:])
+    phase("16 vgg16 file", f"cifar10_alexnet_h100.yaml at model vgg16 (224 px, b128, float32, no TF32), one "
+          f"epoch at scan_steps 1: {launches[fused_adam.kernel.symbol]} Adam launches, train_loss "
+          f"{row['train_loss']:.4f} test_loss {row['test_loss']:.4f}; step median (steps 2-16) {median:.2f} ms "
+          f"({128 * 1e3 / median:.0f} img/s), first {row['step_ms'][0]:.2f}; peak memory {peak_gb:.2f} GB; "
+          f"wall {wall_s:.1f} s")
+    return dict(step_ms_median=median, max_memory_allocated_gb=peak_gb, launches=launches[fused_adam.kernel.symbol],
+                train_loss=row["train_loss"], test_loss=row["test_loss"], wall_s=wall_s)
+
+
+def _params_of(path: str, prefix: str):
+    with np.load(path) as data:
+        return {k[len(prefix):]: data[k] for k in data.files if k.startswith(prefix)}
+
+
+def pretrained_checks(root: str):
+    """16 (c): a 1000-class torchvision-layout AlexNet written from a seed;
+    before a step, the loaded model on the card holds the file's tensors
+    bitwise but the head, which is 10x4096; one cut epoch of
+    ``cifar10_alexnet_h100.yaml`` with ``pretrained_path`` through each
+    entry point, the managed parameters bitwise the native ones; then
+    1000-class ``vgg16`` and ``resnet18`` files load with their heads
+    swapped."""
+    torch.manual_seed(14)
+    path = os.path.join(root, "alexnet_1000.pt")
+    torch.save(AlexNet(num_classes=1000).state_dict(), path)
+    file_sd = torch.load(path, weights_only=True)
+    settings, training = training_for(SETTINGS)
+    training.update(pretrained_path=path, checkpoint_epoch=1)
+    model = pretrained_from_config(training).cuda()
+    loaded = {k: v.cpu() for k, v in model.state_dict().items()}
+    head = loaded["classifier.6.weight"].shape
+    features_equal = all(torch.equal(loaded[k], v) for k, v in file_sd.items() if not k.startswith("classifier.6."))
+    del model
+    runs, launches = {}, {}
+    for kind, worker in (("native", basic_ddp_training_loop), ("managed", basic_accelerate_training)):
+        save_dir = os.path.join(root, kind)
+        os.makedirs(save_dir)
+        reset_counts()
+        runs[kind] = run_ddp_training(partial(worker, training=training, device="cuda"), 1, save_dir,
+                                      cfg_lib.optional_args_from(settings), backend="cuda")[0]
+        torch.cuda.synchronize()
+        launches[kind] = fused_adam.kernel.launches
+    native = _params_of(os.path.join(root, "native", "ckpt_0.npz"), ".params")
+    managed = _params_of(os.path.join(root, "managed", "state_0.npz"), "['params']")
+    diff = max(float(np.abs(native[k].astype(np.float64) - managed[k]).max()) for k in native)
+    swapped = {}
+    for name, model in (("vgg16", load_model("vgg16", 1000)), ("resnet18", load_model("resnet18", 1000))):
+        donor = os.path.join(root, f"{name}_1000.pt")
+        torch.save(model.state_dict(), donor)
+        got = pretrained_from_config(dict(training, model=name, pretrained_path=donor)).state_dict()
+        head_key = "fc" if name.startswith("resnet") else "classifier.6"
+        same = all(torch.equal(got[k], v) for k, v in model.state_dict().items() if not k.startswith(head_key + "."))
+        swapped[name] = (tuple(got[f"{head_key}.weight"].shape), same)
+        del model, got
+        os.remove(donor)
+    checks = {
+        "features bitwise the file before the first step": features_equal,
+        "head 10x4096": tuple(head) == (10, 4096),
+        "16 Adam launches per epoch on each path": launches == {"native": 16, "managed": 16},
+        "finite losses": all(math.isfinite(r[k]) for r in runs.values() for k in ("train_loss", "test_loss")),
+        "managed parameters bitwise the native ones": native.keys() == managed.keys() and diff == 0.0,
+        "vgg16 and resnet18 heads swapped, the rest the files'": swapped == {
+            "vgg16": ((10, 4096), True), "resnet18": ((10, 512), True)},
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 16 pretrained failed {failed}: runs {runs}, launches {launches}, "
+                         f"max|d| {diff}, swapped {swapped}")
+    phase("16 pretrained", f"1000-class AlexNet file from a seed: features bitwise the file on the card, head "
+          f"{tuple(head)}; one epoch of cifar10_alexnet_h100.yaml with pretrained_path: native "
+          f"{runs['native']['train_loss']:.4f}/{runs['native']['test_loss']:.4f}, managed "
+          f"{runs['managed']['train_loss']:.4f}/{runs['managed']['test_loss']:.4f}, parameters max |d| "
+          f"{diff:.3g} (bitwise), Adam launches {launches}; vgg16 and resnet18 files: heads {swapped}")
+    return dict(head=list(head), losses={k: [r["train_loss"], r["test_loss"]] for k, r in runs.items()},
+                max_abs_dp=diff, launches=launches, swapped={k: list(v[0]) for k, v in swapped.items()})
+
+
+def vgg_phase(bw, flops):
+    """Phase 16: the VGGs and the pretrained fine-tune."""
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in load_model("vgg16", 10).parameters()]
+    out = {"vgg16_file": vgg16_file()}
+    out["vgg16_chunks"] = vgg_chunk_checks("vgg16@224 b128 float32", "vgg16", 224, ("eager", "replay"), 11)
+    out["vgg11_chunks"] = {label: vgg_chunk_checks(f"vgg11@{label} b128 float32", "vgg11", size,
+                                                   ("eager", "eager", "replay"), 12)
+                           for label, size in VGG11_SIZES.items()}
+    managed = managed_vs_native("vgg11", size=None, tag="16 vgg managed vs native")
+    if managed["max_abs_dp"] != 0.0 or managed["launches"] != {"native": 3, "managed": 3}:
+        raise SystemExit(f"chip_smoke: 16 vgg managed vs native: {managed}")
+    out["vgg11_managed_vs_native"] = managed
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_pretrained_")
+    try:
+        out["pretrained"] = pretrained_checks(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    kernels = {}
+    for wrapper in fused_adam.kernels.values():
+        err = compare(wrapper, [("VGG-16", shapes, "", 0.0)], shapes, tag="16 vgg16 adam", p_relative=True)
+        torch.cuda.empty_cache()
+        kernels[wrapper.moment_dtype] = {**time_kernel(wrapper, shapes, bw, flops, label="VGG-16",
+                                                       tag="16 vgg16 adam"), "max_abs_err": err,
+                                         "launches_per_step": _tables(len(shapes))}
+        torch.cuda.empty_cache()
+    out["kernels"] = kernels
+    out["leaves"] = len(shapes)
+    return out
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -3428,6 +3672,9 @@ def main() -> None:
     t15 = time.perf_counter()
     resnet_15 = resnet_phase(bw, flops)
     phase_15_s = time.perf_counter() - t15
+    t16 = time.perf_counter()
+    vgg_16 = vgg_phase(bw, flops)
+    phase_16_s = time.perf_counter() - t16
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -3485,6 +3732,12 @@ def main() -> None:
         "adam_resnet50": {KERNEL_NAMES[d]: v for d, v in resnet_15["kernels"].items()},
         "phase_15_s": phase_15_s,
     }}))
+    print(json.dumps({"vgg": {
+        **{k: vgg_16[k] for k in ("vgg16_file", "vgg16_chunks", "vgg11_chunks", "vgg11_managed_vs_native",
+                                  "pretrained", "leaves")},
+        "adam_vgg16": {KERNEL_NAMES[d]: v for d, v in vgg_16["kernels"].items()},
+        "phase_16_s": phase_16_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -3531,13 +3784,23 @@ def main() -> None:
         **{f"native resnet18_small int8_ef {m} (phase 15)": n
            for m, n in resnet_15["overlap"]["launches"].items()},
     }
+    phase_16 = {
+        "native vgg16 file (phase 16)": vgg_16["vgg16_file"]["launches"],
+        **{f"native vgg16 chunks {m} (phase 16)": n
+           for m, n in zip(vgg_16["vgg16_chunks"]["modes"], vgg_16["vgg16_chunks"]["launches"])},
+        **{f"native vgg11 {label} chunks {m} {i} (phase 16)": n
+           for label, c in vgg_16["vgg11_chunks"].items()
+           for i, (m, n) in enumerate(zip(c["modes"], c["launches"]))},
+        **{f"{k} vgg11 (phase 16)": n for k, n in vgg_16["vgg11_managed_vs_native"]["launches"].items()},
+        **{f"{k} pretrained AlexNet (phase 16)": n for k, n in vgg_16["pretrained"]["launches"].items()},
+    }
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
-               **phase_13, **phase_14, **phase_15}
+               **phase_13, **phase_14, **phase_15, **phase_16}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -3548,7 +3811,8 @@ def main() -> None:
          "max_abs_err": err_f32, **t_f32, "launches_per_step": launches_f32 // steps,
          "launches_by_path": by_path, "flat_shard": flat[torch.float32],
          "guarded": {**guard_14["kernel"][torch.float32], "launches_by_path": phase_14},
-         "resnet50_161_leaves": {**resnet_15["kernels"][torch.float32], "launches_by_path": phase_15}},
+         "resnet50_161_leaves": {**resnet_15["kernels"][torch.float32], "launches_by_path": phase_15},
+         "vgg16_32_leaves": {**vgg_16["kernels"][torch.float32], "launches_by_path": phase_16}},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
                       + sum(phase_10_bf16.values()) + sum(phase_11.values())
@@ -3562,16 +3826,19 @@ def main() -> None:
                               **{k: 0 for k in phase_10}, **phase_10_bf16, **phase_11,
                               **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
                               **phase_12_bf16, **{k: 0 for k in phase_13},
-                              **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15}},
+                              **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15},
+                              **{k: 0 for k in phase_16}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
          "resnet50_161_leaves": {**resnet_15["kernels"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
-                                 "launches_by_path": {k: 0 for k in phase_15}}},
+                                 "launches_by_path": {k: 0 for k in phase_15}},
+         "vgg16_32_leaves": {**vgg_16["kernels"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
+                             "launches_by_path": {k: 0 for k in phase_16}}},
     ]}))
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
-          f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s)")
+          f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -24,6 +24,10 @@ of one launch (the port's ``run_ddp_training``, world 2, CPU, Gloo):
   ``parallel/comm.py`` on this rank's row of ``g`` and ``r`` in
   ``WORKDIR/{name}_inputs.npz``, saved to ``{name}_{rank}.npz``.
 
+A job may also carry ``"vgg_plans"`` (plans registered in the port's
+``VGG_PLANS`` before the build, a test's narrow VGG) and ``"dropout"``
+(every ``Dropout``'s ``p`` after it).
+
 With a comm hook, every rank also saves its error-feedback residual to
 ``{name}_residual_{rank}.npz`` (native: ``vec``; managed: one array per
 parameter name). A native "run" also saves ``{name}_overlap_{rank}.json``:
@@ -46,6 +50,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpuddp_torch import train_accelerate, train_native  # noqa: E402
+from tpuddp_torch.models import vgg  # noqa: E402
 from tpuddp_torch.optim import ShardedUpdate  # noqa: E402
 from tpuddp_torch.parallel import comm  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
@@ -146,7 +151,12 @@ def worker(rank, world_size, save_dir, optional_args, workdir):
         if job["kind"] == "exchange":
             exchange(workdir, job, rank, world_size)
             continue
+        vgg.VGG_PLANS.update(job.get("vgg_plans", {}))
         model, optimizer, train = build(rank, world_size, job["path"], job["training"])
+        if "dropout" in job:
+            for m in model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = job["dropout"]
         init = os.path.join(workdir, f"{job['name']}_init.npz")
         if os.path.exists(init):
             with np.load(init) as data:

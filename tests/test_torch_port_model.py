@@ -91,7 +91,7 @@ def test_bridge_names_the_key_on_a_shape_mismatch(alexnet_pair):
     with pytest.raises(ValueError, match="features.3.weight"):
         state_dict_from_jax("alexnet", params)
     with pytest.raises(ValueError, match="no weight bridge"):
-        state_dict_from_jax("vgg11", params)
+        state_dict_from_jax("transformer_tiny", params)
 
 
 @pytest.mark.parametrize("p", [0.3, 0.5])
@@ -117,7 +117,8 @@ def test_load_model_registry():
     mlp = load_model("toy_mlp", 7, input_shape=(8, 8, 3))
     assert mlp(torch.zeros(2, 8, 8, 3)).shape == (2, 7)
     assert load_model("resnet18_small", 10)(torch.zeros(2, 8, 8, 3)).shape == (2, 10)
-    for name in ("vgg11", "transformer_tiny"):
+    assert load_model("vgg11", 10).classifier[6].out_features == 10
+    for name in ("transformer_tiny", "transformer_small"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8: other models"):
             load_model(name, 10)
     with pytest.raises(ValueError):

@@ -258,7 +258,7 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
     ("remat", True),
     ("comm_topology", "hierarchical"),
     ("snapshot", True),
-    ("pretrained_path", "/x.pt"), ("mode", "auto"),
+    ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
     ("reshard_on_mismatch", True),
 ])

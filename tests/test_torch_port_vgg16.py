@@ -1,0 +1,12 @@
+"""The port's VGG-16 (``vgg16``) against the JAX package on the CPU: the
+bridge round trip, eval logits at 32 px, the leaf order, the JAX children and the overlap plans
+(``vgg_tests`` in tests/test_torch_port_vgg.py, which states the
+tolerances)."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_vgg import vgg_tests  # noqa: E402
+
+globals().update(vgg_tests("vgg16"))

@@ -284,9 +284,11 @@ class PreparedModel:
         self._buffers_before = None
         self._bwd_counter = 0  # backward requests, saved as ['bwd_counter']
         # the JAX model's draws: its backward base key here, its init key at
-        # its first forward (tpuddp/accelerate.py:544, :605)
+        # its first forward (tpuddp/accelerate.py:544, :605), which a
+        # pretrained model (models/pretrained.py) does not draw (:597-605)
         self._bwd_key = accelerator.jax_keys.draw()
-        accelerator.jax_keys.draw()
+        if getattr(module, "pretrained_from", None) is None:
+            accelerator.jax_keys.draw()
 
     @property
     def module(self) -> torch.nn.Module:

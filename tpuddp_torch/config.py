@@ -18,7 +18,8 @@ The port implements the native DDP main path and the managed
 :mod:`tpuddp_torch.parallel.comm`), ``comm_overlap`` (the native path's
 segmented-overlap step; the managed path keeps the barrier step),
 ``guard`` (the numerical guard, :func:`tpuddp_torch.resilience.guard.
-resolve_guard`),
+resolve_guard`), ``pretrained_path`` (a torchvision checkpoint on disk,
+:func:`tpuddp_torch.models.pretrained.pretrained_from_config`),
 ``pipeline`` (staged host-to-device copies,
 :func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
 false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
@@ -103,7 +104,6 @@ _UNSUPPORTED = {
     ),
     "remat": (lambda v: not v, "Queue 1 item 8: remat"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
-    "pretrained_path": (lambda v: not v, "Queue 1 item 8: pretrained fine-tune"),
     "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
 }
 

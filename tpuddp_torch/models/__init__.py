@@ -1,8 +1,9 @@
 """Model zoo of the port: ``alexnet`` (the main path), ``alexnet_s2d`` (its
 space-to-depth stem, the same parameters and checkpoints), ``toy_mlp``,
-``toy_cnn`` and the ResNets (``resnet{18,34,50,101,152}``, each with its
-``_small`` CIFAR stem and its ``_s2d`` stem). The JAX package's VGGs and
-transformers wait for a later slice."""
+``toy_cnn``, the ResNets (``resnet{18,34,50,101,152}``, each with its
+``_small`` CIFAR stem and its ``_s2d`` stem) and the VGGs
+(``vgg{11,13,16,19}``). The JAX package's transformers wait for a later
+slice."""
 
 from typing import Sequence
 
@@ -10,11 +11,11 @@ from tpuddp_torch.models.alexnet import AlexNet  # noqa: F401
 from tpuddp_torch.models.resnet import DEPTHS as _RESNETS
 from tpuddp_torch.models.resnet import BasicBlock, Bottleneck, ResNet, resnet  # noqa: F401
 from tpuddp_torch.models.toy import ToyCNN, ToyMLP  # noqa: F401
+from tpuddp_torch.models.vgg import VGG, VGG_PLANS
 
 # the JAX package's other models (tpuddp/models/__init__.py)
-_NOT_PORTED = (
-    "vgg11", "vgg13", "vgg16", "vgg19", "transformer_tiny", "transformer_small",
-)
+_NOT_PORTED = ("transformer_tiny", "transformer_small")
+VGG_NAMES = tuple(VGG_PLANS)  # vgg11, vgg13, vgg16, vgg19
 RESNET_NAMES = tuple(f"{base}{stem}" for base in _RESNETS for stem in ("", "_small", "_s2d"))
 
 
@@ -34,16 +35,18 @@ def load_model(
         return ToyCNN(num_classes=num_classes, input_shape=input_shape, **kwargs)
     if name in RESNET_NAMES:
         return resnet(name, num_classes=num_classes, **kwargs)
-    if name.split("_s2d")[0].split("_small")[0] in _NOT_PORTED:
+    if name in VGG_PLANS:
+        return VGG(name, num_classes=num_classes, **kwargs)
+    if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not implemented in tpuddp_torch yet "
             "(ROADMAP.md Queue 1 item 8: other models)"
         )
     raise ValueError(
         f"unknown model {name!r}; one of alexnet, alexnet_s2d, toy_mlp, toy_cnn, "
-        f"{', '.join(RESNET_NAMES)}"
+        f"{', '.join(RESNET_NAMES)}, {', '.join(VGG_NAMES)}"
     )
 
 
-__all__ = ["AlexNet", "BasicBlock", "Bottleneck", "ResNet", "ToyCNN", "ToyMLP", "load_model",
-           "RESNET_NAMES"]
+__all__ = ["AlexNet", "BasicBlock", "Bottleneck", "ResNet", "ToyCNN", "ToyMLP", "VGG", "load_model",
+           "RESNET_NAMES", "VGG_NAMES"]

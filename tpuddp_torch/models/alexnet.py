@@ -9,6 +9,9 @@ Mixed precision follows the JAX package: every conv and linear runs in the
 input's dtype with its float32 master weight cast per call
 (:mod:`tpuddp_torch.nn.layers`); ReLU, pooling and dropout keep the dtype,
 so a bfloat16 input gives bfloat16 logits (the loss takes them in float32).
+The adaptive pool is the port's (:class:`~tpuddp_torch.nn.layers.
+AdaptiveAvgPool2d`: the JAX bins, a backward without atomics); at 224 px
+its bins are the identity.
 
 ``space_to_depth=True`` (``alexnet_s2d``) computes the 11x11 stride-4 stem
 as :class:`~tpuddp_torch.nn.layers.SpaceToDepthConv2d`: the same sum
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpuddp_torch.nn.layers import Conv2d, Linear, SpaceToDepthConv2d
+from tpuddp_torch.nn.layers import AdaptiveAvgPool2d, Conv2d, Linear, SpaceToDepthConv2d
 
 
 class AlexNet(nn.Module):
@@ -43,7 +46,7 @@ class AlexNet(nn.Module):
             nn.ReLU(inplace=True),
             nn.MaxPool2d(kernel_size=3, stride=2),
         )
-        self.avgpool = nn.AdaptiveAvgPool2d((6, 6))
+        self.avgpool = AdaptiveAvgPool2d((6, 6))
         self.classifier = nn.Sequential(
             nn.Dropout(p=dropout),
             Linear(256 * 6 * 6, 4096),

@@ -9,11 +9,18 @@ JAX params arrive as numpy arrays (one entry per layer of the JAX
 
 - conv weights: HWIO -> OIHW;
 - Linear weights: ``(in, out)`` -> ``(out, in)``;
-- AlexNet's first classifier Linear additionally re-orders its 9216-wide
-  input axis from JAX's NHWC flatten ``(h, w, c)`` to torch's ``(c, h, w)``;
+- the first classifier Linear of AlexNet and of a VGG additionally
+  re-orders its input axis (AlexNet's 9216 = 6 x 6 x 256, a VGG's 25088 =
+  7 x 7 x 512) from JAX's NHWC flatten ``(h, w, c)`` to torch's
+  ``(c, h, w)``;
 - BatchNorm (``toy_cnn``, the ResNets): ``scale`` and ``bias`` -> ``weight``
   and ``bias``, and the JAX model state's ``mean`` and ``var`` -> the
   ``running_mean`` and ``running_var`` buffers.
+
+AlexNet and the VGGs are torchvision ``Sequential`` CNNs whose
+``features.N`` indices are the JAX ``Sequential``'s; their classifier
+Linears sit at other indices on each side (:func:`_seq_layout`, a VGG's
+generated from its plan, ``tpuddp_torch/models/vgg.py``).
 
 A ResNet child of the JAX ``Sequential`` is a block whose parameters (and
 state) are a nested dict, ``{"bn1": {"bias", "scale"}, "conv1": {"weight"},
@@ -41,19 +48,51 @@ uint16 bits).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tpuddp_torch.models import vgg
 from tpuddp_torch.models.resnet import DEPTHS as _RESNET_DEPTHS
 from tpuddp_torch.models.resnet import Bottleneck
 
+
+class SeqLayout(NamedTuple):
+    """A torchvision ``Sequential`` CNN against the JAX ``Sequential``:
+    each JAX child index holding a conv or a Linear -> its port prefix; the
+    first classifier Linear, whose input axis is the pooled ``(grid, grid,
+    channels)`` map; the JAX child count."""
+
+    convs: Dict[int, str]
+    linears: Dict[int, str]
+    first_linear: str
+    grid: int
+    channels: int
+    children: int
+
+
 # JAX AlexNet Sequential index -> torchvision key (tpuddp/models/torch_import.py)
-_ALEXNET_CONV = {0: "features.0", 3: "features.3", 6: "features.6",
-                 8: "features.8", 10: "features.10"}
-_ALEXNET_LINEAR = {16: "classifier.1", 19: "classifier.4", 21: "classifier.6"}
-_POOL_GRID, _POOL_CH = 6, 256
+_ALEXNET = SeqLayout(
+    convs={0: "features.0", 3: "features.3", 6: "features.6", 8: "features.8", 10: "features.10"},
+    linears={16: "classifier.1", 19: "classifier.4", 21: "classifier.6"},
+    first_linear="classifier.1", grid=6, channels=256, children=22)
+
+
+def _seq_layout(name: str) -> Optional[SeqLayout]:
+    """The layout of ``alexnet`` or of a VGG (generated from its plan, as
+    ``tpuddp/models/torch_import.py:111-124`` generates the JAX
+    converter's), None for another model."""
+    if name == "alexnet":
+        return _ALEXNET
+    if name not in vgg.VGG_PLANS:
+        return None
+    linears = vgg.vgg_classifier_linear_indices(name)
+    return SeqLayout(
+        convs={i: f"features.{i}" for i in vgg.vgg_conv_indices(name)},
+        linears=dict(zip(linears, ("classifier.0", "classifier.3", "classifier.6"))),
+        first_linear="classifier.0", grid=vgg.POOL_GRID, channels=vgg.vgg_channels(name),
+        children=linears[-1] + 1)
 
 
 Place = Tuple[int, Tuple[str, ...]]  # (JAX child index, path of dict keys)
@@ -153,7 +192,7 @@ def _linear_indices(params: Sequence) -> list:
 def _expected_model(name: str, params: Sequence):
     """The port's model with the widths ``params`` imply, on the meta device
     (shapes only, no memory)."""
-    from tpuddp_torch.models import AlexNet, ResNet, ToyCNN, ToyMLP
+    from tpuddp_torch.models import VGG, AlexNet, ResNet, ToyCNN, ToyMLP
 
     name = _base(name)
     lin = _linear_indices(params)
@@ -161,6 +200,8 @@ def _expected_model(name: str, params: Sequence):
     with torch.device("meta"):
         if name == "alexnet":
             return AlexNet(num_classes=num_classes)
+        if name in vgg.VGG_PLANS:
+            return VGG(name, num_classes=num_classes)
         if _resnet_spec(name) is not None:
             depths, block, small = _resnet_spec(name)
             return ResNet(depths, block, num_classes, small_input=small)
@@ -180,7 +221,7 @@ def _expected_model(name: str, params: Sequence):
 
 
 _LAYOUTS = ("one of alexnet, toy_mlp, toy_cnn, resnet{18,34,50,101,152} and their _small "
-            "layouts")
+            "layouts, vgg{11,13,16,19}")
 
 
 def _check_children(name: str, params: Sequence, n: int) -> None:
@@ -195,22 +236,21 @@ def torch_layout(
     ``state_dict`` keys, in the port's layouts, each in its own dtype."""
     out: Dict[str, np.ndarray] = {}
     name = _base(name)
-    if name == "alexnet":
-        for idx, key in _ALEXNET_CONV.items():
+    seq = _seq_layout(name)
+    if seq is not None:
+        _check_children(name, params, seq.children)
+        for idx, key in seq.convs.items():
             out[f"{key}.weight"] = np.transpose(params[idx]["weight"], (3, 2, 0, 1))
             out[f"{key}.bias"] = params[idx]["bias"]
-        for idx, key in _ALEXNET_LINEAR.items():
+        for idx, key in seq.linears.items():
             w = np.asarray(params[idx]["weight"])  # (in, out)
-            if key == "classifier.1":
-                out_f = w.shape[1]
-                if w.shape[0] != _POOL_GRID * _POOL_GRID * _POOL_CH:
-                    raise ValueError(
-                        f"{key}.weight: input width {w.shape[0]} != "
-                        f"{_POOL_GRID * _POOL_GRID * _POOL_CH}"
-                    )
+            if key == seq.first_linear:
+                out_f, width = w.shape[1], seq.grid * seq.grid * seq.channels
+                if w.shape[0] != width:
+                    raise ValueError(f"{key}.weight: input width {w.shape[0]} != {width}")
                 # (h, w, c, out) -> (out, c, h, w)
                 w = (
-                    w.reshape(_POOL_GRID, _POOL_GRID, _POOL_CH, out_f)
+                    w.reshape(seq.grid, seq.grid, seq.channels, out_f)
                     .transpose(3, 2, 0, 1)
                     .reshape(out_f, -1)
                 )
@@ -284,10 +324,6 @@ def state_dict_from_jax(
     return state
 
 
-# JAX AlexNet's Sequential: 22 layers, parameters at the conv and Linear indices
-_ALEXNET_LAYERS = 22
-
-
 def _numpy(value) -> np.ndarray:
     if torch.is_tensor(value):
         if value.dtype == torch.bfloat16:
@@ -306,9 +342,10 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
     name = _base(name)
     if _resnet_spec(name) is not None:
         return _resnet_from_state_dict(name, sd)
-    if name == "alexnet":
-        layers = {idx: key for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
-        n_layers = _ALEXNET_LAYERS
+    seq = _seq_layout(name)
+    if seq is not None:
+        layers = {**seq.convs, **seq.linears}
+        n_layers = seq.children
     elif name in ("toy_mlp", "toy_cnn"):
         idxs = sorted({int(k.split(".")[0]) for k in sd})
         layers = {i: str(i) for i in idxs}
@@ -327,10 +364,10 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
             continue
         if w.ndim == 4:  # conv, OIHW -> HWIO
             w = np.transpose(w, (2, 3, 1, 0))
-        elif name == "alexnet" and key == "classifier.1":
+        elif seq is not None and key == seq.first_linear:
             # (out, c, h, w) -> (h, w, c, out)
             out_f = w.shape[0]
-            w = w.reshape(out_f, _POOL_CH, _POOL_GRID, _POOL_GRID).transpose(2, 3, 1, 0)
+            w = w.reshape(out_f, seq.channels, seq.grid, seq.grid).transpose(2, 3, 1, 0)
             w = w.reshape(-1, out_f)
         else:  # Linear, (out, in) -> (in, out)
             w = w.T
@@ -382,8 +419,9 @@ def _resnet_from_state_dict(name: str, sd: Dict[str, np.ndarray]) -> Tuple[tuple
 def model_name(model: torch.nn.Module) -> str:
     """The registry name of the layout of one of the port's models
     (``alexnet`` for ``alexnet_s2d`` too; ``resnet{depth}`` or
-    ``resnet{depth}_small`` for a ResNet, its ``_s2d`` stem included)."""
-    from tpuddp_torch.models import AlexNet, ResNet, ToyCNN, ToyMLP
+    ``resnet{depth}_small`` for a ResNet, its ``_s2d`` stem included; a
+    VGG's plan name)."""
+    from tpuddp_torch.models import VGG, AlexNet, ResNet, ToyCNN, ToyMLP
 
     if isinstance(model, ResNet):
         block = type(model.layer1[0])
@@ -391,11 +429,13 @@ def model_name(model: torch.nn.Module) -> str:
             if spec == (model.depths, block):
                 return base + ("_small" if model.maxpool is None else "")
         raise ValueError(f"no JAX layout for a ResNet of {model.depths} {block.__name__}s")
+    if isinstance(model, VGG):
+        return model.name
     for cls, name in ((AlexNet, "alexnet"), (ToyCNN, "toy_cnn"), (ToyMLP, "toy_mlp")):
         if isinstance(model, cls):
             return name
     raise ValueError(
-        f"no JAX layout for a {type(model).__name__}; one of AlexNet, ResNet, ToyCNN, ToyMLP")
+        f"no JAX layout for a {type(model).__name__}; one of AlexNet, ResNet, ToyCNN, ToyMLP, VGG")
 
 
 def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:
@@ -419,8 +459,9 @@ def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Place]:
     from tpuddp_torch.nn.norm import BatchNorm
 
     name = _base(name)
-    if name == "alexnet":
-        place_of = {key: (idx, ()) for idx, key in {**_ALEXNET_CONV, **_ALEXNET_LINEAR}.items()}
+    seq = _seq_layout(name)
+    if seq is not None:
+        place_of = {key: (idx, ()) for idx, key in {**seq.convs, **seq.linears}.items()}
     elif name in ("toy_mlp", "toy_cnn"):
         place_of = None  # Sequentials with the JAX layer indices
     elif _resnet_spec(name) is not None:
@@ -439,9 +480,9 @@ def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Place]:
 
 def _n_children(name: str, model: torch.nn.Module) -> int:
     """The JAX ``Sequential``'s child count for ``model``."""
-    name = _base(name)
-    if name == "alexnet":
-        return _ALEXNET_LAYERS
+    name, seq = _base(name), _seq_layout(_base(name))
+    if seq is not None:
+        return seq.children
     if _resnet_spec(name) is not None:
         return _resnet_modules(name)[1]
     return len(model)
@@ -503,10 +544,10 @@ def jax_layer_sizes(name: str, model: torch.nn.Module) -> Tuple[int, ...]:
     """The element count of each child of the JAX package's ``Sequential``
     for ``model`` (0 for a parameter-free child; AlexNet's 22 children),
     which the segmented-overlap step's :func:`~tpuddp_torch.parallel.comm.
-    make_segments` takes. The port's AlexNet and ResNets are torchvision's
-    nested layouts, so the children are the JAX package's (a ResNet block
-    one child: 13 for ``resnet18_small``, 22 for ``resnet50``), never
-    ``model.children()``."""
+    make_segments` takes. The port's AlexNet, ResNets and VGGs are
+    torchvision's nested layouts, so the children are the JAX package's (a
+    ResNet block one child: 13 for ``resnet18_small``, 22 for ``resnet50``;
+    40 for ``vgg16``), never ``model.children()``."""
     places = jax_places(name, model)
     sizes = [0] * _n_children(name, model)
     for pname, p in model.named_parameters():

@@ -8,6 +8,10 @@ the layer is ``torch.nn``'s own.
 :class:`SpaceToDepthConv2d` is the JAX package's exact reparameterisation of
 a strided convolution (``alexnet_s2d``'s stem).
 
+:class:`AdaptiveAvgPool2d` is the JAX package's adaptive average pool
+(``tpuddp/nn/layers.py:258-321``) as two products with fixed bin matrices,
+so that its backward has no atomics and repeats bit for bit on a GPU.
+
 Explicit casts, not ``torch.autocast``: autocast brings its own op lists and
 cast cache, which the JAX package does not have, and the parity tests compare
 dtypes layer by layer.
@@ -83,3 +87,42 @@ class SpaceToDepthConv2d(Conv2d):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
         return y
+
+
+def _bin_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """The ``(n_out, n_in)`` float32 matrix whose row ``i`` is 1 on the
+    JAX package's bin ``[floor(i * n_in / n_out), ceil((i + 1) * n_in /
+    n_out))`` and 0 elsewhere; made by device ops only (no copy from the
+    host, so it may be built inside a CUDA-graph capture)."""
+    i = torch.arange(n_out, device=device)
+    starts = torch.div(i * n_in, n_out, rounding_mode="floor")
+    ends = -torch.div(-(i + 1) * n_in, n_out, rounding_mode="floor")
+    j = torch.arange(n_in, device=device)
+    return ((j >= starts[:, None]) & (j < ends[:, None])).float()
+
+
+class AdaptiveAvgPool2d(nn.Module):
+    """Adaptive average pooling of NCHW to ``output_size`` with the JAX
+    package's bins (``tpuddp/nn/layers.py:270-294``): output ``(i, j)``
+    averages the rows of bin ``i`` and the columns of bin ``j``, so bins
+    overlap where the sizes do not divide and repeat one input where the
+    output is larger (1 -> 7). Each bin's sum is ``A_h @ x @ A_w^T`` with
+    the 0/1 bin matrices of :func:`_bin_matrix`, divided by the bin's area,
+    in float32, cast back to the input's dtype, as the JAX layer pools.
+    ``torch.nn.AdaptiveAvgPool2d``'s CUDA backward sums into the input with
+    atomics, so where bins overlap its gradient varies from run to run;
+    the backward of these products is two more products, the same bits on
+    every run. At identity bins (7 -> 7) the input is returned as it is."""
+
+    def __init__(self, output_size):
+        super().__init__()
+        self.output_size = (output_size, output_size) if isinstance(output_size, int) else tuple(output_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (h, w), (oh, ow) = x.shape[-2:], self.output_size
+        if (h, w) == (oh, ow):
+            return x
+        rows, cols = _bin_matrix(h, oh, x.device), _bin_matrix(w, ow, x.device)
+        sums = rows @ x.float() @ cols.T
+        area = rows.sum(1)[:, None] * cols.sum(1)[None, :]
+        return (sums / area).to(x.dtype)

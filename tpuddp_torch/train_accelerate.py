@@ -77,14 +77,13 @@ from tpuddp_torch.data import (
     norm_stats_for,
 )
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
-from tpuddp_torch.models import load_model
 from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import run_ddp_training
 from tpuddp_torch.resilience import guard as guard_lib
-from tpuddp_torch.train_native import set_numerics
+from tpuddp_torch.train_native import load_model_for, set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training.loop import StepClock, append_row, event, nan_injector
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
@@ -321,10 +320,11 @@ def build_training(training: dict, device: str = "cuda"):
 
     train_loader, test_loader = setup_dataloaders(training)
     in_hw = size if size else train_loader.dataset.images.shape[1]
-    with seeding.fork_from(accelerator.generator):  # the init draws from the stream
-        model = load_model(
-            training["model"], cfg_lib.num_classes_from(training), input_shape=(in_hw, in_hw, 3)
-        )
+    if training.get("pretrained_path"):  # no init, so no draw (tpuddp/accelerate.py:597-605)
+        model = load_model_for(training, (in_hw, in_hw, 3))
+    else:
+        with seeding.fork_from(accelerator.generator):  # the init draws from the stream
+            model = load_model_for(training, (in_hw, in_hw, 3))
     leaf = jax_leaf_index(training["model"], model)
     optimizer = cfg_lib.optimizer_from(
         training, model.parameters(), leaf_index=[leaf[n] for n, _ in model.named_parameters()]

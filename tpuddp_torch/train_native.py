@@ -18,7 +18,8 @@ an error-feedback residual for the ``_ef`` hooks (``parallel/comm.py``);
 ``guard`` turns on the numerical guard (a non-finite update skipped as a
 bitwise no-op, the replicas audited, rollback to the last good checkpoint:
 ``resilience/guard.py``, ``training/loop.py``); a divergent replica exits
-77.
+77. ``pretrained_path`` fine-tunes from a torchvision checkpoint on disk
+(``models/pretrained.py``; nothing is downloaded).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from tpuddp_torch.data import (
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models import load_model
 from tpuddp_torch.models.convert import jax_leaf_index
+from tpuddp_torch.models.pretrained import pretrained_from_config
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
 from tpuddp_torch.parallel import comm
@@ -65,6 +67,21 @@ def set_numerics() -> None:
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
     )
     print(f"torch.backends.cudnn.deterministic={torch.backends.cudnn.deterministic}")
+
+
+def load_model_for(training: dict, input_shape) -> torch.nn.Module:
+    """``training.model`` on the CPU: fresh, or, with ``pretrained_path``,
+    the checkpoint on disk with its head swapped for the dataset's classes
+    (the reference's pretrained-AlexNet workflow), as both JAX entry points
+    load it (``train_native.py:112-122``, ``train_accelerate.py:949-962``).
+    Every rank draws the same head (its generator is seeded from
+    ``training.seed``)."""
+    if not training.get("pretrained_path"):
+        return load_model(training["model"], cfg_lib.num_classes_from(training),
+                          input_shape=input_shape)
+    model = pretrained_from_config(training)
+    print(f"Loaded pretrained {training['model']} weights from {training['pretrained_path']}.")
+    return model
 
 
 def build_training(rank: int, world_size: int, training: dict, device: str = "cuda"):
@@ -102,9 +119,7 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     eval_transform = make_eval_transform(size=size, mean=mean, std=std, compute_dtype=cdtype)
 
     in_hw = size if size else train_ds.images.shape[1]
-    model = load_model(
-        training["model"], cfg_lib.num_classes_from(training), input_shape=(in_hw, in_hw, 3)
-    ).to(dev)
+    model = load_model_for(training, (in_hw, in_hw, 3)).to(dev)
     if training.get("sync_bn"):
         convert_sync_batchnorm(model)
     leaf = jax_leaf_index(training["model"], model)
