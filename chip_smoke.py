@@ -315,6 +315,30 @@ Phases, each printing one line (the first failure exits non-zero):
      with the plain version and (float32) ``torch.optim.Adam(fused=True)``,
      beside the bound (28 B / 20 B a parameter).
 
+17. ``configs/multihost.yaml`` whole (``tpuddp_torch/configs/
+   multihost_h100.yaml``: its ``local.rendezvous`` over 2 hosts, and the
+   hierarchical topology): the card's first world-2 runs.
+   - "17 multihost": two host processes (``$TPUDDP_PROCESS_ID`` 0 and 1,
+     each running every turn in order through ``train_native.main`` as
+     ``python -m tpuddp_torch.train_native`` runs it, each turn its own
+     ``out_dir`` per host) meet at a free ``127.0.0.1`` coordinator (one
+     port a turn), one rank each on this card over Gloo
+     (``$TPUDDP_BACKEND=gloo``: NCCL refuses two ranks on one GPU), at
+     ``$TPUDDP_WORLD_SIZE=2`` = 2 hosts x 1 local, one synthetic epoch at
+     ``scan_steps: 1`` (a CUDA graph cannot hold Gloo) and seed 0: ``flat``,
+     ``hierarchical`` with hook ``none`` and with ``bf16_ef`` in turns
+     (flat, none, bf16_ef, none, flat). Both ranks log the world and the
+     split, host 0 alone writes the checkpoint, the history and the epoch
+     line, each process counts 2 Adam launches per update (``resnet18_small``'s
+     two tables); ``none``'s checkpoint bitwise flat's (a sum of two values),
+     every repeated run bitwise its first, ``bf16_ef`` within
+     ``loss_parity_tol`` of flat with a finite non-zero residual; the step
+     medians (Gloo through the host, two ranks on one card: not an NCCL
+     measurement);
+   - "17 bytes": AlexNet's counted bytes of one reduction at world 8 (2 x
+     4) and 16 (2 x 8) per hook, flat and hierarchical (intra-host,
+     inter-host).
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
@@ -323,7 +347,7 @@ Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
-the optimizers', one
+phase 17's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -3549,6 +3573,259 @@ def vgg_phase(bw, flops):
     return out
 
 
+# ---------------------------------------------------------------- phase 17 --
+# configs/multihost.yaml whole: two "hosts" (two launcher processes, each one
+# rank on this card) meet at a coordinator through the rendezvous, over Gloo
+# (NCCL refuses two ranks on one GPU), at global world 2 = 2 hosts x 1 local.
+SETTINGS_MULTIHOST = os.path.join(CONFIGS, "multihost_h100.yaml")
+MULTIHOST_TOPOLOGIES = {
+    "flat": {},
+    "hierarchical none": {"comm_topology": "hierarchical"},
+    "hierarchical bf16_ef": {"comm_topology": "hierarchical", "comm_hook": "bf16_ef"},
+}
+# flat against hierarchical in turns, bf16_ef between them
+MULTIHOST_TURNS = ("flat", "hierarchical none", "hierarchical bf16_ef", "hierarchical none", "flat")
+MULTIHOST_S = 600
+# each host process: every turn in order, each the native entry point's
+# main() as `python -m tpuddp_torch.train_native` runs it, the Adam-kernel
+# launch counts set to 0 just before it and printed just after. One process
+# per host for all turns: a process start (~8 s to reach the card) is most
+# of a turn's time.
+HOST_SCRIPT = (
+    "import json, sys\n"
+    "from tpuddp_torch import train_native\n"
+    "from tpuddp_torch.ops import fused_adam\n"
+    "for path in sys.argv[1:]:\n"
+    "    for k in fused_adam.kernels.values():\n"
+    "        k.reset_launches()\n"
+    "    train_native.main(['--settings_file', path])\n"
+    "    print('LAUNCHES ' + json.dumps({k.symbol: k.launches for k in fused_adam.kernels.values()}),\n"
+    "          flush=True)\n"
+)
+
+
+def _free_ports(n: int):
+    """``n`` distinct ports free on 127.0.0.1 (all bound at once, then
+    released)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def multihost_runs(root: str):
+    """Every turn of :data:`MULTIHOST_TURNS` at world 2, ``multihost_h100.yaml``
+    cut to one synthetic epoch, ``scan_steps: 1``, seed 0: two host
+    processes (``$TPUDDP_PROCESS_ID`` 0 and 1), each turn at its own
+    coordinator port and, per host, its own ``out_dir``. Returns per turn
+    each host's stdout, ``out_dir`` and launches, and the wall seconds."""
+    base = cfg_lib.load_settings(SETTINGS_MULTIHOST)
+    ports = _free_ports(len(MULTIHOST_TURNS))
+    paths, runs = ([], []), []
+    for turn, (label, port) in enumerate(zip(MULTIHOST_TURNS, ports)):
+        settings = json.loads(json.dumps(base))
+        # the file has no seed (a fresh one per run): runs compared bitwise need one
+        settings["training"].update(num_epochs=1, dataset="synthetic", synthetic_n=[2048, 512],
+                                    scan_steps=1, seed=0, **MULTIHOST_TOPOLOGIES[label])
+        settings["local"]["rendezvous"]["coordinator_address"] = f"127.0.0.1:{port}"
+        dirs = []
+        for pid in (0, 1):
+            name = f"turn{turn}_{label.replace(' ', '_')}_host{pid}"
+            d = os.path.join(root, name)
+            os.makedirs(d)
+            with open(os.path.join(root, name + ".yaml"), "w") as f:
+                json.dump(dict(settings, out_dir=d), f)  # JSON is YAML
+            paths[pid].append(os.path.join(root, name + ".yaml"))
+            dirs.append(d)
+        runs.append(dict(label=label, dirs=dirs))
+    procs = []
+    t0 = time.perf_counter()
+    for pid in (0, 1):
+        env = dict(os.environ, TPUDDP_BACKEND="gloo", TPUDDP_PROCESS_ID=str(pid),
+                   TPUDDP_WORLD_SIZE="2", PYTHONPATH=ROOT)
+        for var in ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES"):
+            env.pop(var, None)
+        procs.append(subprocess.Popen([sys.executable, "-c", HOST_SCRIPT, *paths[pid]], cwd=ROOT,
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTIHOST_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t0
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: 17 multihost: host {pid} exited {p.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-5000:]}")
+    for pid, (out, _) in enumerate(outs):
+        # each turn's output ends at its LAUNCHES line
+        parts = out.split("LAUNCHES ")
+        if len(parts) != len(runs) + 1:
+            raise SystemExit(f"chip_smoke: 17 multihost: host {pid} ran {len(parts) - 1} of "
+                             f"{len(runs)} turns:\n{out[-3000:]}")
+        # parts[0]: turn 0's lines; parts[i]: turn i-1's counts, then turn i's lines
+        for i, run in enumerate(runs):
+            run.setdefault("launches", []).append(json.loads(parts[i + 1].partition("\n")[0]))
+            run.setdefault("stdout", []).append(parts[0] if i == 0 else parts[i].partition("\n")[2])
+    return runs, wall_s
+
+
+def _multihost_checks(run):
+    """The run's own checks: both ranks at world 2, 2 hosts x 1 local;
+    host 0 alone writes; the Adam kernel's launches per update."""
+    label, (out0, out1), (d0, d1) = run["label"], run["stdout"], run["dirs"]
+    history = [json.loads(l) for l in open(os.path.join(d0, "history.jsonl"))]
+    updates = sum(len(r["step_ms"]) for r in history)
+    tables = _tables(62)  # resnet18_small's 62 leaves
+    f32 = fused_adam.kernel.symbol
+    checks = {
+        "both ranks at world 2, 2 hosts x 1 local": all(
+            f"global rank {pid} of a 2-process world, host {pid} of 2, local rank 0 of 1." in out
+            for pid, out in enumerate((out0, out1))),
+        "host 0 alone writes epoch lines": (
+            sum(l.startswith("Epoch 1/1, ") for l in out0.splitlines()) == 1
+            and not any(l.startswith("Epoch ") for l in out1.splitlines())),
+        "host 0 alone writes checkpoints": (
+            os.path.exists(os.path.join(d0, "ckpt_0.npz"))
+            and not any(n.endswith(".npz") or n.endswith(".jsonl") for n in os.listdir(d1))),
+        "8 updates of 2x128 rows": updates == 8 and history[0]["train_samples"] == 2048,
+        f"{tables} Adam launches per update in each process": all(
+            n[f32] == tables * updates and sum(n.values()) == n[f32] for n in run["launches"]),
+        "finite losses": all(math.isfinite(history[0][k]) for k in ("train_loss", "test_loss")),
+    }
+    if label != "flat":
+        checks["the split logged by both ranks"] = all(
+            f"comm_topology hierarchical on process {pid}: 2 hosts x 1 local (2-process world)." in out
+            for pid, out in enumerate((out0, out1)))
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 17 multihost {label}: failed {failed}; launches "
+                         f"{run['launches']}; host 0:\n{out0[-2000:]}\nhost 1:\n{out1[-2000:]}")
+    return history[0]
+
+
+def _file_diff(a, b) -> float:
+    """Max |a - b| over two checkpoint files' state arrays (parameters,
+    BatchNorm buffers, moments, residual; not the ``__``-prefixed records),
+    inf where the keys, shapes or a non-float array differ."""
+    a, b = ({k: v for k, v in f.items() if not k.startswith("__")} for f in (a, b))
+    if sorted(a) != sorted(b):
+        return math.inf
+    out = 0.0
+    for k in a:
+        if a[k].shape != b[k].shape:
+            return math.inf
+        if a[k].dtype.kind == "f":
+            d = np.abs(a[k].astype(np.float64) - b[k].astype(np.float64))
+            out = max(out, float(d.max()) if d.size else 0.0)
+        elif not np.array_equal(a[k], b[k]):
+            return math.inf
+    return out
+
+
+def multihost_bytes():
+    """AlexNet's counted bytes of one reduction at world 8 (2 x 4) and 16
+    (2 x 8), per hook, flat and hierarchical (intra- and inter-host)."""
+    with torch.device("meta"):
+        sizes = jax_sizes("alexnet", AlexNet(num_classes=10))
+    out = {}
+    for world, local in ((8, 4), (16, 8)):
+        for hook in comm.COMM_HOOKS:
+            flat = comm.comm_bytes_breakdown(sizes, world, hook)
+            hier = comm.comm_bytes_breakdown(sizes, world, hook, "hierarchical", local_size=local)
+            out[f"world {world} = 2 x {local} {hook}"] = {
+                "flat_inter_host": flat["inter_host"], "hierarchical_intra_host": hier["intra_host"],
+                "hierarchical_inter_host": hier["inter_host"]}
+            phase("17 bytes", f"AlexNet, world {world} = 2 hosts x {local}, {hook}: flat "
+                  f"{flat['inter_host']:,} B inter-host; hierarchical {hier['intra_host']:,} B "
+                  f"intra-host + {hier['inter_host']:,} B inter-host "
+                  f"({hier['inter_host'] / flat['inter_host']:.4f} of flat's)")
+    return out
+
+
+def multihost_phase():
+    """Phase 17: configs/multihost.yaml whole, at world 2 on this card."""
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_multihost_")
+    runs = []
+    try:
+        turns, wall_s = multihost_runs(root)
+        for run in turns:
+            row = _multihost_checks(run)
+            file = _arrays(os.path.join(run["dirs"][0], "ckpt_0.npz"))
+            runs.append((run, row, file))
+            median = statistics.median(row["step_ms"][1:])
+            phase("17 multihost", f"multihost_h100.yaml (resnet18_small sync_bn 32 px b128 a rank), world "
+                  f"2 = 2 hosts x 1 local through the rendezvous, Gloo through the host, two ranks on "
+                  f"one card, {run['label']}: losses {row['train_loss']:.4f}/{row['test_loss']:.4f}, "
+                  f"{run['launches'][0][fused_adam.kernel.symbol]} + "
+                  f"{run['launches'][1][fused_adam.kernel.symbol]} launches, step median (steps 2-8) "
+                  f"{median:.2f} ms; epoch {row['epoch_time_s']:.1f} s")
+        by = {}
+        for run, row, file in runs:
+            by.setdefault(run["label"], []).append((row, file))
+        flat, none, bf16 = (by[k][0] for k in MULTIHOST_TOPOLOGIES)
+        # hierarchical none re-brackets a sum of two values: bitwise flat
+        # (parameters, BatchNorm buffers, moments); every repeated run
+        # bitwise its first
+        pairs = [("hierarchical none vs flat", none[1], flat[1])] + [
+            (f"{k} repeated", runs_[i][1], runs_[0][1]) for k, runs_ in by.items()
+            for i in range(1, len(runs_))]
+        diffs = {name: _file_diff(a, b) for name, a, b in pairs}
+        residual = bf16[1][".comm_state"]
+        tol = {k: comm.loss_parity_tol("bf16_ef", flat[0][k]) for k in ("train_loss", "test_loss")}
+        checks = {
+            "hierarchical none bitwise flat": diffs["hierarchical none vs flat"] == 0.0,
+            "repeated runs bitwise": all(v == 0.0 for k, v in diffs.items() if k.endswith("repeated")),
+            "bf16_ef within loss_parity_tol of flat": all(
+                abs(bf16[0][k] - flat[0][k]) <= tol[k] for k in tol),
+            "bf16_ef residual finite and not all zero": bool(np.isfinite(residual).all()
+                                                             and np.any(residual != 0)),
+        }
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"chip_smoke: 17 multihost: failed {failed}: diffs {diffs}, tol {tol}, "
+                             f"losses flat {flat[0]['train_loss']}/{flat[0]['test_loss']} bf16_ef "
+                             f"{bf16[0]['train_loss']}/{bf16[0]['test_loss']}")
+        medians = {f"{run['label']} turn {i}": statistics.median(row["step_ms"][1:])
+                   for i, (run, row, _) in enumerate(runs)}
+        phase("17 multihost", "Gloo through the host, two ranks on one card (not an NCCL measurement): "
+              "step medians in turns " + ", ".join(f"{k} {v:.2f} ms" for k, v in medians.items())
+              + f"; max |d| {diffs}; bf16_ef losses {bf16[0]['train_loss']:.4f}/{bf16[0]['test_loss']:.4f} "
+              f"vs flat {flat[0]['train_loss']:.4f}/{flat[0]['test_loss']:.4f} (bounds "
+              f"{tol['train_loss']:.3f}/{tol['test_loss']:.3f}), residual max |r| "
+              f"{float(np.abs(residual).max()):.3g}; {len(runs)} turns in {wall_s:.1f} s (two host "
+              "processes, each running every turn)")
+        out = {
+            "turns": list(MULTIHOST_TURNS),
+            "step_ms_medians_gloo_two_ranks_one_card": medians,
+            "max_abs_diff": diffs,
+            "losses": {run["label"]: [row["train_loss"], row["test_loss"]] for run, row, _ in runs},
+            "bytes_per_update": {run["label"]: {k: row[k] for k in (
+                "grad_comm_bytes_per_update", "grad_comm_bytes_intra_host", "grad_comm_bytes_inter_host")}
+                for run, row, _ in runs},
+            "launches": {f"native multihost {run['label']} turn {i} host {pid} (phase 17)":
+                         run["launches"][pid][fused_adam.kernel.symbol]
+                         for i, (run, _, _) in enumerate(runs) for pid in (0, 1)},
+            "epoch_s": [row["epoch_time_s"] for _, row, _ in runs],
+            "wall_s": wall_s,
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["alexnet_bytes"] = multihost_bytes()
+    return out
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -3675,6 +3952,9 @@ def main() -> None:
     t16 = time.perf_counter()
     vgg_16 = vgg_phase(bw, flops)
     phase_16_s = time.perf_counter() - t16
+    t17 = time.perf_counter()
+    multihost_17 = multihost_phase()
+    phase_17_s = time.perf_counter() - t17
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -3738,6 +4018,9 @@ def main() -> None:
         "adam_vgg16": {KERNEL_NAMES[d]: v for d, v in vgg_16["kernels"].items()},
         "phase_16_s": phase_16_s,
     }}))
+    print(json.dumps({"multihost": {
+        **{k: v for k, v in multihost_17.items() if k != "launches"}, "phase_17_s": phase_17_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -3794,13 +4077,14 @@ def main() -> None:
         **{f"{k} vgg11 (phase 16)": n for k, n in vgg_16["vgg11_managed_vs_native"]["launches"].items()},
         **{f"{k} pretrained AlexNet (phase 16)": n for k, n in vgg_16["pretrained"]["launches"].items()},
     }
+    phase_17 = multihost_17["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
-               **phase_13, **phase_14, **phase_15, **phase_16}
+               **phase_13, **phase_14, **phase_15, **phase_16, **phase_17}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -3827,7 +4111,7 @@ def main() -> None:
                               **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
                               **phase_12_bf16, **{k: 0 for k in phase_13},
                               **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15},
-                              **{k: 0 for k in phase_16}},
+                              **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -3838,7 +4122,8 @@ def main() -> None:
     ]}))
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
-          f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s)")
+          f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
+          f"phase 17: {phase_17_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -156,11 +156,6 @@ def test_comm_bytes_breakdown_matches_jax_flat(toy, hook, world, wire):
         jax_comm.comm_bytes_breakdown(params, world, hook, topology="flat", **kw)
 
 
-def test_the_hierarchical_split_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: hierarchical topology"):
-        comm.comm_bytes_breakdown((10,), 2, "bf16", topology="hierarchical")
-
-
 # ------------------------------------------------------------- primitives --
 
 def _buckets_to_quantize():

@@ -256,7 +256,6 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("remat", True),
-    ("comm_topology", "hierarchical"),
     ("snapshot", True),
     ("mode", "auto"),
     ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
@@ -369,7 +368,6 @@ def test_bf16_state_is_an_adam_knob():
 @pytest.mark.parametrize("settings", [
     {"parallel": {"model": 2}},
     {"observability": {"exporter": True}},
-    {"local": {"rendezvous": {"coordinator_address": "localhost:1234"}}},
 ])
 def test_unported_settings_blocks_are_refused(settings):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

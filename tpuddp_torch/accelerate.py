@@ -763,7 +763,8 @@ class Accelerator:
     """The managed entry: topology from the process group, a per-process
     random stream, and the verbs of the reference's Accelerator.
 
-    ``device``: ``cuda`` (the default, ``cuda:<process index>``; raises
+    ``device``: ``cuda`` (the default, the GPU the process group pinned:
+    ``cuda:<local rank>``; raises
     without a GPU) or ``cpu``. ``augment``: the train-time transform
     ``x -> x`` (flip, normalize, resize) that runs inside every backward's
     forward; build it with ``generator=accelerator.generator`` so its flip
@@ -831,7 +832,8 @@ class Accelerator:
                     "Accelerator on cuda but no GPU is visible; pass device='cpu' "
                     "to run on the CPU"
                 )
-            self.device = torch.device("cuda", self.process_index)
+            # the GPU setup() pinned: the local rank's (the process index on one host)
+            self.device = torch.device("cuda", torch.cuda.current_device())
         else:
             self.device = torch.device(device)
         self.generator, self.seed = seeding.set_seed_based_on_rank(self.process_index, seed)

@@ -25,7 +25,10 @@ resolve_guard`), ``pretrained_path`` (a torchvision checkpoint on disk,
 false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
 (checkpoints in the JAX package's layout) and the managed path's
 ``fuse_steps`` (K queued steps per flush, one CUDA-graph replay on the card;
-:func:`resolve_fuse_steps`). Every knob whose non-default value needs a part
+:func:`resolve_fuse_steps`), ``comm_topology: hierarchical`` (the native
+path's three-hop exchange, :meth:`tpuddp_torch.parallel.comm.GradComm.
+reduce_hierarchical`; the managed path refuses it as the JAX package's
+does) and the multi-host ``local.rendezvous`` block (:func:`rendezvous_from`). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
 never ignored. The native path's ``scan_steps`` (K batches per dispatch,
@@ -99,15 +102,14 @@ DEVICES = ("cuda", "cpu")
 _UNSUPPORTED = {
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
-    "comm_topology": (
-        lambda v: (v or "flat") == "flat", "Queue 1 item 8: hierarchical topology"
-    ),
     "remat": (lambda v: not v, "Queue 1 item 8: remat"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
     "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
 }
 
-_MULTIHOST_ENV = ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID")
+# local.rendezvous's keys and the variables that override them
+_RENDEZVOUS_ENV = {"coordinator_address": "TPUDDP_COORDINATOR",
+                   "num_processes": "TPUDDP_NUM_PROCESSES", "process_id": "TPUDDP_PROCESS_ID"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -190,6 +192,7 @@ def check_comm_hook(training: Dict[str, Any]) -> None:
     from tpuddp_torch.parallel import comm
 
     comm.validate_hook(str(training.get("comm_hook") or "none"))
+    comm.validate_topology(str(training.get("comm_topology") or "flat"))
     comm.normalize_overlap(training.get("comm_overlap", "auto"))
     cap = training.get("bucket_cap_mb")
     comm.validate_bucket_cap(comm.DEFAULT_BUCKET_CAP_MB if cap is None else cap)
@@ -241,9 +244,10 @@ def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:
 
 def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -> None:
     """Refuse the settings blocks outside ``training`` that this slice does
-    not implement: a tensor-parallel ``parallel`` block, an ``observability``
-    block and a multi-host rendezvous. An explicit ``parallel.data`` must
-    equal ``world_size``."""
+    not implement: a tensor-parallel ``parallel`` block and an
+    ``observability`` block. An explicit ``parallel.data`` must equal
+    ``world_size`` (the hosts of a ``local.rendezvous`` block tile it, as
+    :func:`tpuddp_torch.parallel.spawn.resolve_world` checks)."""
     parallel = settings.get("parallel") or {}
     unknown = set(parallel) - {"data", "model"}
     if unknown:
@@ -261,9 +265,52 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
         )
     if settings.get("observability") is not None:
         raise _not_ported("the observability block", "Queue 1 item 8: observability")
-    local = settings.get("local") or {}
-    if local.get("rendezvous") or any(os.environ.get(e) for e in _MULTIHOST_ENV):
-        raise _not_ported("multi-host rendezvous", "Queue 1 item 8: multi-host")
+
+
+def rendezvous_from(settings: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``local.rendezvous`` block as ``run_ddp_training``'s keyword
+    arguments (``tpuddp/config.py:684-740``): ``coordinator_address``
+    (``host:port`` of global rank 0), ``num_processes`` (the number of
+    HOSTS, each launching its share of the world) and ``process_id`` (this
+    host's index). ``$TPUDDP_COORDINATOR``, ``$TPUDDP_NUM_PROCESSES`` and
+    ``$TPUDDP_PROCESS_ID`` override the keys, so one settings file serves
+    every host. Unknown keys, and more than one host without a coordinator
+    or without a ``process_id``, are the JAX package's ``ValueError``s; the
+    port has no pod auto-discovery, so a coordinator is always needed."""
+    rdv = dict((settings.get("local") or {}).get("rendezvous") or {})
+    for key, env in _RENDEZVOUS_ENV.items():
+        if os.environ.get(env):
+            rdv[key] = os.environ[env]
+    out: Dict[str, Any] = {}
+    if rdv.get("coordinator_address"):
+        out["coordinator_address"] = str(rdv["coordinator_address"])
+    if rdv.get("num_processes") is not None:
+        out["num_processes"] = int(rdv["num_processes"])
+    if rdv.get("process_id") is not None:
+        out["process_id"] = int(rdv["process_id"])
+    unknown = set(rdv) - set(_RENDEZVOUS_ENV)
+    if unknown:
+        raise ValueError(
+            f"unknown local.rendezvous keys {sorted(unknown)}; expected coordinator_address, "
+            "num_processes, process_id"
+        )
+    if out.get("num_processes", 1) > 1:
+        if not out.get("coordinator_address"):
+            raise ValueError(
+                "local.rendezvous with num_processes > 1 needs a coordinator_address (host:port "
+                "of process 0; set TPUDDP_COORDINATOR or the YAML key)"
+            )
+        if "process_id" not in out:
+            raise ValueError(
+                "local.rendezvous with num_processes > 1 needs a process_id (set "
+                "TPUDDP_PROCESS_ID per host, or the YAML key)"
+            )
+        if not 0 <= out["process_id"] < out["num_processes"]:
+            raise ValueError(
+                f"local.rendezvous process_id={out['process_id']} is not one of the "
+                f"{out['num_processes']} hosts (0 .. {out['num_processes'] - 1})"
+            )
+    return out
 
 
 def num_classes_from(training: Dict[str, Any]) -> int:
@@ -303,7 +350,9 @@ def prepare_out_dir(settings: Dict[str, Any], settings_file: str) -> str:
 def world_size_from(settings: Dict[str, Any]) -> Optional[int]:
     """World size: ``$TPUDDP_WORLD_SIZE``, else ``local.gpu.num_gpus``, else
     the reference's ``local.condor.num_gpus``. None -> every visible GPU
-    (one process on the CPU)."""
+    (one process on the CPU), on each host. Under ``local.rendezvous`` it
+    is the GLOBAL world, every host's processes together, as the JAX
+    package's ``local.tpu.num_chips`` is."""
     env = os.environ.get("TPUDDP_WORLD_SIZE")
     if env:
         return int(env)

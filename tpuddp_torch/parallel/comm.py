@@ -43,8 +43,20 @@ buckets, so each segment's exchange can be issued as soon as its gradients
 land in backward, bucket for bucket the barrier step's arithmetic
 (:class:`~tpuddp_torch.training.step.SegmentedSync`).
 
-Not here yet: the hierarchical topology and the elastic redistribution of
-a residual (ROADMAP.md Queue 1 item 8).
+The hierarchical topology (``comm_topology: hierarchical``;
+:meth:`GradComm.reduce_hierarchical`, ``tpuddp/parallel/comm.py:433-475``)
+runs the exchange in three hops over the groups of
+:mod:`tpuddp_torch.parallel.mesh`: a float32 reduce-scatter over the local
+group, the shard as ONE bucket through the hook over the host group (a
+float32 all-reduce with hook ``none``, whose plan is then built all the
+same: ``make_grad_comm(force=True)``), and an all-gather over the local
+group. Only the middle hop is lossy, and its error is this replica's
+residual at its shard's offset, zeros elsewhere.
+:func:`comm_bytes_breakdown` splits one reduction's bytes between the
+intra-host and the inter-host link.
+
+Not here yet: the elastic redistribution of a residual (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -277,23 +289,26 @@ class GradComm(NamedTuple):
             return None
         return torch.zeros(self.total, dtype=torch.float32, device=device)
 
-    def _exchange_bucket(self, b: torch.Tensor, lost: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _exchange_bucket(self, b: torch.Tensor, lost: Optional[torch.Tensor] = None,
+                         group=None) -> torch.Tensor:
         """One bucket of this replica's send through the hook's wire format:
-        returns the SUM over replicas of each one's decompressed payload,
-        and writes ``b - kept``, what the send lost in the round trip, into
-        ``lost`` when it is given."""
+        returns the SUM over the replicas of ``group`` (the whole world
+        when None) of each one's decompressed payload, and writes ``b -
+        kept``, what the send lost in the round trip, into ``lost`` when it
+        is given. A group of one skips the collective."""
+        single = (self.world if group is None else col.group_size(group)) == 1
         if self.hook in ("bf16", "bf16_ef"):
             comp = b.to(wire_dtype(self.hook))
             kept = comp.float()
             if lost is not None:
                 torch.sub(b, kept, out=lost)
-            return kept if self.world == 1 else col.all_reduce_wire(comp).float()
+            return kept if single else col.all_reduce_wire(comp, group).float()
         scale = int8_scale(b)
         if self.hook == "int8_ef":
             q = quantize_int8(b, scale)
             if lost is not None:
                 lost.copy_(_int8_lost(b, q, scale))
-            return q.float() * scale if self.world == 1 else col.allgather_dequant_sum(q, scale)
+            return q.float() * scale if single else col.allgather_dequant_sum(q, scale, group)
         if self.hook == "topk_ef":
             # the whole bucket's scale: top-k holds the max of a finite
             # bucket, and a NaN anywhere must poison the payload
@@ -302,7 +317,7 @@ class GradComm(NamedTuple):
             kept = torch.zeros_like(b).index_copy_(0, idx, q.float() * scale)
             if lost is not None:
                 torch.sub(b, kept, out=lost)
-            return kept if self.world == 1 else col.allgather_topk_sum(idx, q, scale, b.numel())
+            return kept if single else col.allgather_topk_sum(idx, q, scale, b.numel(), group)
         raise AssertionError(f"hook {self.hook!r} has no exchange")
 
     def _exchange_span(self, send: torch.Tensor, lo: int, buckets, lost: Optional[torch.Tensor]):
@@ -343,6 +358,40 @@ class GradComm(NamedTuple):
             reduced = reduced / self.world
         return reduced, residual
 
+    def reduce_hierarchical(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor],
+                            local_group, host_group, lost: Optional[torch.Tensor] = None):
+        """The multi-hop reduction of ``comm_topology: hierarchical``
+        (``tpuddp/parallel/comm.py:433-475``) on this replica's padded
+        vector ``g_vec`` (the exchange's order): ``send = g_vec +
+        residual`` reduce-scattered in float32 over ``local_group`` (this
+        rank's contiguous ``total / L`` shard of the host's sum), the shard
+        as ONE bucket through the hook over ``host_group`` (hook ``none``:
+        a float32 all-reduce), the sums all-gathered over ``local_group``
+        and divided by the world size. Returns ``(mean, residual)``; the
+        new residual, the shard's loss placed at ``local_rank * shard_n``
+        with zeros elsewhere, is written in place, or into ``lost`` when
+        that is given (the guard's staging vector), as :meth:`reduce`."""
+        send = g_vec if residual is None else g_vec + residual
+        n_local = col.group_size(local_group)
+        shard_n = self.total // n_local
+        shard = torch.empty(shard_n, dtype=torch.float32, device=send.device)
+        col.reduce_scatter_sum(shard, send, local_group)
+        shard_lost = torch.empty_like(shard) if self.needs_residual else None
+        if self.hook == "none":
+            shard_sum = col.all_reduce_wire(shard, host_group)
+        else:
+            single = self._replace(buckets=((0, shard_n),))
+            shard_sum = single._exchange_bucket(shard, shard_lost, host_group)
+        reduced = torch.empty(self.total, dtype=torch.float32, device=send.device)
+        col.all_gather_shards(reduced, shard_sum, local_group)
+        reduced = reduced / self.world
+        if shard_lost is not None:
+            out = residual if lost is None else lost
+            offset = col.group_rank(local_group) * shard_n
+            out.zero_()
+            out[offset:offset + shard_n].copy_(shard_lost)
+        return reduced, residual
+
     def reduce_scatter(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor], rank: int,
                        lost: Optional[torch.Tensor] = None):
         """The ZeRO-1 composition: ``(rank's shard of the MEAN, residual)``.
@@ -367,12 +416,14 @@ class GradComm(NamedTuple):
 
 def make_grad_comm(sizes: Sequence[int], world: int, comm_hook: str = "none",
                    bucket_cap_mb: float = DEFAULT_BUCKET_CAP_MB,
-                   density: float = DEFAULT_TOPK_DENSITY) -> Optional[GradComm]:
+                   density: float = DEFAULT_TOPK_DENSITY, force: bool = False) -> Optional[GradComm]:
     """The plan for leaves of ``sizes`` (in the exchange's order) over
     ``world`` replicas: the vector padded to ``world * ceil(raw / world)``,
-    its buckets; None for hook ``none``, whose sync needs no plan."""
+    its buckets; None for hook ``none``, whose sync needs no plan, unless
+    ``force`` (the hierarchical exchange needs the flat layout even
+    uncompressed, ``tpuddp/parallel/comm.py:511-530``)."""
     validate_hook(comm_hook)
-    if comm_hook == "none":
+    if comm_hook == "none" and not force:
         return None
     if comm_hook == "topk_ef":
         bucket_topk(1, density)
@@ -421,20 +472,34 @@ def comm_bytes_for_hook(sizes: Sequence[int], world: int, comm_hook: str, wus: b
 
 
 def comm_bytes_breakdown(sizes: Sequence[int], world: int, comm_hook: str, topology: str = "flat",
-                         wire: bool = True, bucket_cap_mb: float = DEFAULT_BUCKET_CAP_MB,
+                         local_size: Optional[int] = None, wire: bool = True,
+                         bucket_cap_mb: float = DEFAULT_BUCKET_CAP_MB,
                          density: float = DEFAULT_TOPK_DENSITY) -> dict:
-    """One reduction's bytes split by link: under the flat topology all of
-    it counts as inter-host (``tpuddp/parallel/comm.py:604-653``)."""
+    """One reduction's per-replica bytes split by link
+    (``tpuddp/parallel/comm.py:604-653``): under the flat topology (and
+    with ``wire=False``) all of it counts as inter-host; under the
+    hierarchical one, intra-host is the float32 reduce-scatter operand
+    (``total`` x 4) plus the float32 all-gather operand (the ``total / L``
+    shard x 4), inter-host the hook's payload of that shard as one bucket.
+    ``local_size`` is ``L``; missing, or not dividing ``world``, it is the
+    JAX package's ``ValueError``."""
     validate_hook(comm_hook)
     validate_topology(topology)
-    if topology != "flat" and wire:
-        raise NotImplementedError(
-            "the hierarchical byte split is not implemented in tpuddp_torch yet "
-            "(ROADMAP.md Queue 1 item 8: hierarchical topology)"
+    total_flat = comm_bytes_for_hook(sizes, world, comm_hook, wire=wire,
+                                     bucket_cap_mb=bucket_cap_mb, density=density)
+    if topology == "flat" or not wire:
+        return {"total": total_flat, "inter_host": total_flat, "intra_host": 0}
+    if not local_size or world % local_size:
+        raise ValueError(
+            f"hierarchical accounting needs the inner-axis size (got local_size={local_size!r} "
+            f"for world {world})"
         )
-    total = comm_bytes_for_hook(sizes, world, comm_hook, wire=wire, bucket_cap_mb=bucket_cap_mb,
-                                density=density)
-    return {"total": total, "inter_host": total, "intra_host": 0}
+    total = world * -(-sum(int(s) for s in sizes) // world)
+    shard_n = total // local_size
+    intra = total * _F32_BYTES + shard_n * _F32_BYTES
+    inter = (shard_n * _F32_BYTES if comm_hook == "none"
+             else _bucket_payload_bytes(comm_hook, shard_n, density))
+    return {"total": intra + inter, "inter_host": inter, "intra_host": intra}
 
 
 # ------------------------------------------------------- managed emulation --

@@ -105,6 +105,22 @@ update a bitwise no-op on the parameters, the optimizer state, the hook's
 residual and the BatchNorm buffers, counted on the device;
 :meth:`~DistributedDataParallel.skip_counters` reads the counters. The
 guard does not change how ``comm_overlap`` resolves.
+
+``comm_topology`` (``flat``, the default, or ``hierarchical``;
+``tpuddp/parallel/ddp.py:135-219, :485-530``): under ``hierarchical`` the
+replicas split into ``hosts x local`` (:func:`~tpuddp_torch.parallel.mesh.
+hierarchical_groups`: the rendezvous's host count, else a simulated 2),
+and every step, cycle and chunk exchanges the gradient in three hops
+(:meth:`~tpuddp_torch.parallel.comm.GradComm.reduce_hierarchical`): a
+float32 reduce-scatter over the host's own ranks, the shard through the
+hook between the hosts, an all-gather back, in the JAX flat order, with a
+plan for hook ``none`` too. It is refused, with the JAX package's
+``ValueError``s and in its order, with ZeRO-1 and where the host count
+does not tile the world; the segmented-overlap step does not apply (``auto``
+records the JAX reason, ``true`` raises). ``grad_comm_bytes_intra_host``
+and ``grad_comm_bytes_inter_host`` split one reduction's bytes by link
+(:func:`~tpuddp_torch.parallel.comm.comm_bytes_breakdown`; under ``flat``
+all of them are inter-host).
 """
 
 from __future__ import annotations
@@ -119,7 +135,7 @@ from tpuddp_torch.models.convert import (
     JaxFlatOrder, flat_to_jax, jax_layer_sizes, jax_param_span, jax_sizes, model_name,
 )
 from tpuddp_torch.optim import ShardedUpdate, arm_guard
-from tpuddp_torch.parallel import backend, collectives, comm
+from tpuddp_torch.parallel import backend, collectives, comm, mesh
 from tpuddp_torch.resilience.guard import Firewall, audit_or_raise, resolve_guard
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
@@ -140,7 +156,6 @@ class DistributedDataParallel:
     # what the port's wrap runs of the JAX package's knobs, which the
     # overlap eligibility reads in the JAX order (config refuses the others)
     mode = "shard_map"
-    comm_topology = "flat"
     remat = False
     model_size = 1
 
@@ -161,9 +176,12 @@ class DistributedDataParallel:
         topk_density: float = comm.DEFAULT_TOPK_DENSITY,
         comm_overlap="auto",
         guard=None,
+        comm_topology: str = "flat",
     ):
         self.guard = resolve_guard(guard)
         self.comm_hook = comm.validate_hook(comm_hook)
+        self.comm_topology = comm.validate_topology(comm_topology or "flat")
+        hier = self.comm_topology == "hierarchical"
         self.comm_overlap = comm.normalize_overlap(comm_overlap)
         self.bucket_cap_mb = comm.validate_bucket_cap(bucket_cap_mb)
         self.topk_density = float(topk_density)
@@ -187,6 +205,8 @@ class DistributedDataParallel:
         self.eval_transform = eval_transform
         self.rank = backend.get_rank()
         self.world_size = backend.get_world_size()
+        # (local_group, host_group, hosts, local) of the hierarchical split
+        self._hier = self._hierarchy(weight_update_sharding) if hier else None
         self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         collectives.broadcast_one_to_all(self.model)
         self.weight_update_sharding = bool(weight_update_sharding)
@@ -196,7 +216,7 @@ class DistributedDataParallel:
         # the hook's plan: over the JAX package's leaf order (its buckets),
         # or under ZeRO-1 over the flat layout (one whole-vector bucket)
         sizes = tuple(p.numel() for p in self.model.parameters())
-        if self.comm_hook != "none":
+        if self.comm_hook != "none" or hier:
             sizes = jax_sizes(model_name(self.model), self.model)
         self._comm = self._order = self._residual = None
         wus, world = self.weight_update_sharding, self.world_size
@@ -209,13 +229,22 @@ class DistributedDataParallel:
             )
             self._clip = None
         else:
+            # the hierarchical exchange needs the plan even uncompressed
             self._comm = comm.make_grad_comm(
-                sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density)
+                sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density, force=hier)
         if self._comm is not None:
             self._residual = self._comm.init_residual(self.device)
-        self.grad_comm_bytes_per_step = comm.comm_bytes_for_hook(
-            sizes, world, self.comm_hook, wus=wus, bucket_cap_mb=self.bucket_cap_mb,
-            density=self.topk_density)
+        if wus:
+            total = comm.comm_bytes_for_hook(
+                sizes, world, self.comm_hook, wus=True, bucket_cap_mb=self.bucket_cap_mb,
+                density=self.topk_density)
+            self._bytes = {"total": total, "inter_host": total, "intra_host": 0}
+        else:
+            self._bytes = comm.comm_bytes_breakdown(
+                sizes, world, self.comm_hook, self.comm_topology,
+                local_size=self._hier[3] if hier else None, bucket_cap_mb=self.bucket_cap_mb,
+                density=self.topk_density)
+        self.grad_comm_bytes_per_step = self._bytes["total"]
         self.grad_comm_bytes_per_step_f32 = comm.comm_bytes_for_hook(sizes, world, "none", wus=wus)
         self._overlap = None  # the SegmentedSync, where the segmented step applies
         self._resolve_overlap()
@@ -228,6 +257,41 @@ class DistributedDataParallel:
             if self._overlap is not None:
                 self._overlap.staged = self.firewall.staged
             audit_or_raise(self.model, where="ddp-wrap")
+
+    def _hierarchy(self, weight_update_sharding: bool):
+        """The hierarchical split's groups, after the JAX package's checks
+        in its order (``tpuddp/parallel/ddp.py:198-219``)."""
+        if self.mode != "shard_map":
+            raise ValueError(
+                "comm_topology='hierarchical' needs the explicit per-replica step "
+                "(mode='shard_map'): the multi-hop reduction is expressed over the factored "
+                "mesh's named axes (mode='auto' lets XLA place the collective)"
+            )
+        if weight_update_sharding:
+            raise ValueError(
+                "comm_topology='hierarchical' and weight_update_sharding are mutually "
+                "exclusive: the reduce-scatter/all-gather exchange already factors the "
+                "reduction; pick one"
+            )
+        return mesh.hierarchical_groups(self.world_size)
+
+    @property
+    def hierarchy(self):
+        """``(hosts, local)`` of the hierarchical split; None under
+        ``flat``."""
+        return None if self._hier is None else self._hier[2:]
+
+    @property
+    def grad_comm_bytes_inter_host(self) -> int:
+        """The inter-host share of one reduction's bytes: the hook's payload
+        of the shard under ``hierarchical``, all of them under ``flat``."""
+        return self._bytes["inter_host"]
+
+    @property
+    def grad_comm_bytes_intra_host(self) -> int:
+        """The intra-host share: the float32 reduce-scatter and all-gather
+        operands under ``hierarchical``, 0 under ``flat``."""
+        return self._bytes["intra_host"]
 
     def _resolve_overlap(self) -> None:
         """The ``comm_overlap`` knob against the JAX package's eligibility
@@ -335,12 +399,14 @@ class DistributedDataParallel:
     def sync_grads(self) -> None:
         """The barrier step's sync: all-reduce mean of every gradient,
         through one flat buffer; with a comm hook its exchange (at world 1
-        too)."""
+        too); under ``hierarchical`` the three-hop exchange."""
         if self._comm is not None:
             if self._order is None:  # the wrap's steps exchange per segment
                 self._order = JaxFlatOrder(model_name(self.model), self.model)
             lost = None if self.firewall is None else self.firewall.staged
-            comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual, lost)
+            groups = None if self._hier is None else self._hier[:2]
+            comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual, lost,
+                      groups)
             return
         if self.world_size == 1:
             return

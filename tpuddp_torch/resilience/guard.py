@@ -169,7 +169,9 @@ class Firewall:
     CUDA-graph capture, and written in place, so a replay holds it.
 
     A guarded update: the exchange writes the new residual into ``staged``
-    (not into ``residual``); :meth:`judge` sets the verdict from the
+    (not into ``residual``; the hierarchical exchange writes all of it, its
+    shard's loss at the shard's offset and zeros elsewhere, so nothing of an
+    earlier step is left there); :meth:`judge` sets the verdict from the
     aggregated gradient (before the clip and any quantisation); the
     optimizer reads the verdict; :meth:`commit` lands the staged residual
     where the verdict is 1 and advances the counters. :meth:`keep` and

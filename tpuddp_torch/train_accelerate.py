@@ -81,7 +81,7 @@ from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
-from tpuddp_torch.parallel.spawn import run_ddp_training
+from tpuddp_torch.parallel.spawn import resolve_world, run_ddp_training
 from tpuddp_torch.resilience import guard as guard_lib
 from tpuddp_torch.train_native import load_model_for, set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
@@ -179,7 +179,7 @@ def run_training_loop(
         """Restore the newest intact state file; the epoch to redo (None
         when there is none)."""
         nonlocal rollbacks
-        if save_dir is None or ckpt.latest(save_dir, prefix="state") is None:
+        if save_dir is None or ckpt.agreed_latest(save_dir, "state", accelerator.device) is None:
             return None
         rollbacks += 1
         if rollbacks > guard.max_rollbacks:
@@ -379,15 +379,14 @@ def main(argv=None):
 
     settings = cfg_lib.load_settings(args.settings_file)
     device = cfg_lib.device_from(settings)
-    world_size = cfg_lib.world_size_from(settings)
-    if world_size is None:
-        world_size = torch.cuda.device_count() if device == "cuda" else 1
+    rendezvous = cfg_lib.rendezvous_from(settings)
+    world_size, _ = resolve_world(cfg_lib.world_size_from(settings), device, **rendezvous)
     cfg_lib.check_settings(settings, world_size)
     training = cfg_lib.training_config(settings)
     out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
     return run_ddp_training(
         partial(basic_accelerate_training, training=training, device=device),
-        world_size, out_dir, cfg_lib.optional_args_from(settings), backend=device,
+        world_size, out_dir, cfg_lib.optional_args_from(settings), backend=device, **rendezvous,
     )
 
 

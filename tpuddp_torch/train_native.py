@@ -19,7 +19,18 @@ an error-feedback residual for the ``_ef`` hooks (``parallel/comm.py``);
 bitwise no-op, the replicas audited, rollback to the last good checkpoint:
 ``resilience/guard.py``, ``training/loop.py``); a divergent replica exits
 77. ``pretrained_path`` fine-tunes from a torchvision checkpoint on disk
-(``models/pretrained.py``; nothing is downloaded).
+(``models/pretrained.py``; nothing is downloaded). ``comm_topology:
+hierarchical`` exchanges the gradient in three hops, within each host and
+then between the hosts (``parallel/comm.py``).
+
+Across hosts, one settings file with a ``local.rendezvous`` block
+(``coordinator_address``, ``num_processes`` = the hosts) serves every host;
+each host runs the same command with its ``$TPUDDP_PROCESS_ID`` and starts
+its share of the world (``local.gpu.num_gpus`` is the global world).
+Two hosts on one machine with one GPU each share it over Gloo::
+
+    TPUDDP_BACKEND=gloo TPUDDP_PROCESS_ID=0 python -m tpuddp_torch.train_native --settings_file F &
+    TPUDDP_BACKEND=gloo TPUDDP_PROCESS_ID=1 python -m tpuddp_torch.train_native --settings_file F
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
 from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.ddp import DistributedDataParallel
-from tpuddp_torch.parallel.spawn import run_ddp_training
+from tpuddp_torch.parallel.spawn import resolve_world, run_ddp_training
 from tpuddp_torch.training.loop import run_training_loop
 from tpuddp_torch.training.pipeline import resolve_pipeline
 
@@ -90,7 +101,8 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     base_seed)``."""
     cfg_lib.check_supported(training)
     set_numerics()
-    dev = torch.device(f"cuda:{rank}" if device == "cuda" else "cpu")
+    # the GPU the process group pinned (the local rank's, rank on one host)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
 
     generator, base_seed = seeding.set_seed_based_on_rank(rank, training.get("seed"))
 
@@ -143,7 +155,13 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         comm_overlap=training.get("comm_overlap", "auto"),
         # the numerical guard: non-finite updates skipped, replicas audited
         guard=training.get("guard"),
+        # flat, or the three-hop exchange over hosts x local processes
+        comm_topology=str(training.get("comm_topology") or "flat"),
     )
+    if ddp.hierarchy is not None:
+        hosts, local = ddp.hierarchy
+        print(f"comm_topology hierarchical on process {rank}: {hosts} hosts x {local} local "
+              f"({world_size}-process world).")
     return ddp, train_loader, test_loader, base_seed
 
 
@@ -197,9 +215,8 @@ def main(argv=None):
 
     settings = cfg_lib.load_settings(args.settings_file)
     device = cfg_lib.device_from(settings)
-    world_size = cfg_lib.world_size_from(settings)
-    if world_size is None:
-        world_size = torch.cuda.device_count() if device == "cuda" else 1
+    rendezvous = cfg_lib.rendezvous_from(settings)
+    world_size, _ = resolve_world(cfg_lib.world_size_from(settings), device, **rendezvous)
     cfg_lib.check_settings(settings, world_size)
     training = cfg_lib.training_config(settings)
     out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
@@ -209,6 +226,7 @@ def main(argv=None):
         out_dir,
         cfg_lib.optional_args_from(settings),
         backend=device,
+        **rendezvous,
     )
 
 

@@ -64,7 +64,10 @@ py:133, :217-230, :620-660``): native ``.comm_state``, every replica's
 (``(world * total,)`` float32; the save gathers them, a collective), tagged
 ``per_replica`` when the world is over one (``data_flat`` on one, as the
 JAX package's one-device sharding gives); under ZeRO-1 the port keeps it in
-its own flat order and permutes it at the save and the load. Managed
+its own flat order and permutes it at the save and the load; under
+``comm_topology: hierarchical`` it is the same per-replica vector (each
+replica's shard loss at its shard's offset, zeros elsewhere), which the JAX
+package's hierarchical run restores at the same world. Managed
 ``['comm_state']``: a tree like ``['params']``, in the JAX layout. A file
 without a residual loads it as zeros (the JAX package's forward-compatible
 load, with its warning); a residual saved at another world size is refused
@@ -86,7 +89,10 @@ from the file's ``.opt_state.step``.
 Rank 0 writes (staged, fsync'd, renamed), then a ``.sha256`` sidecar in the
 JAX package's manifest format; every rank waits at a barrier.
 :func:`restore_latest` takes the newest intact file (a corrupt or truncated
-one is skipped for the one before). A file that needs a part of the JAX
+one is skipped for the one before) as process 0 finds it, on every process
+(:func:`agreed_latest`): the hosts of a multi-host run resume from one file
+or none, and a process that cannot open it raises on every process, so
+``out_dir`` must be one filesystem that every host sees. A file that needs a part of the JAX
 package the port lacks (a step snapshot's ``__cursor__``, a model axis) is
 refused with ``NotImplementedError`` naming its ROADMAP item, never loaded
 in part.
@@ -835,6 +841,30 @@ def latest(save_dir: str, prefix: str = "ckpt") -> Optional[Tuple[str, int]]:
     return None
 
 
+def agreed_latest(save_dir: str, prefix: str = "ckpt",
+                  device: Optional[torch.device] = None) -> Optional[Tuple[str, int]]:
+    """:func:`latest` as process 0 finds it, on every process (a collective
+    at world > 1; ``device`` carries it). ``FileNotFoundError`` on every
+    process when one of them cannot verify that file."""
+    found = latest(save_dir, prefix) if get_rank() == 0 else None
+    if get_world_size() == 1:
+        return found
+    box = [None if found is None else (os.path.basename(found[0]), found[1])]
+    dist.broadcast_object_list(box, src=0, device=device)
+    if box[0] is None:
+        return None
+    name, epoch = box[0]
+    path = os.path.join(save_dir, name)
+    ok = torch.tensor([int(get_rank() == 0 or verify_file(path))], device=device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    if not ok.item():
+        raise FileNotFoundError(
+            f"process 0 resumes from {name}, which a process cannot open under its {save_dir}: "
+            "every host must see one out_dir (a shared filesystem) to resume or roll back"
+        )
+    return path, epoch
+
+
 def sweep_stale_tmp(save_dir: str, prefix: str = "ckpt") -> int:
     """Delete the staging files a writer killed mid-save left; returns how
     many."""
@@ -887,10 +917,11 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
     file, the file's epoch after an emergency save, ``completed=0``, else
     the one after it) and what :func:`load` returns (empty without a
     file). ``comm_state`` and ``skipped`` are restored in place as
-    :func:`load` does."""
+    :func:`load` does. Every process restores :func:`agreed_latest`'s
+    file."""
     prefix = PREFIX[layout]
     sweep_stale_tmp(save_dir, prefix)
-    found = latest(save_dir, prefix)
+    found = agreed_latest(save_dir, prefix, next(model.parameters()).device)
     if found is None:
         return 0, {}
     path, epoch = found

@@ -66,7 +66,12 @@ runs it beside the backward as the eager step does.
 A failed capture or replay raises; nothing falls back to eager steps.
 ``clear()`` drops every graph (anything that replaces the storage that a
 graph's replays write must call it). At world > 1 the captures hold the
-NCCL all-reduces of each step; that path has not run on a card yet.
+NCCL collectives of each step; that path has not run on a card yet. A
+group at world > 1 on a Gloo process group (``$TPUDDP_BACKEND=gloo``, as a
+two-host world on one card runs) raises ``ValueError`` before any work
+(:func:`check_capturable`): Gloo moves the data in host code, which a CUDA
+graph cannot hold (a captured Gloo all-reduce fails the capture on an
+H100), so such runs take ``scan_steps: 1`` and ``fuse_steps: 1``.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ import time
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tpuddp_torch.ops import device_scalars
 
@@ -103,6 +109,19 @@ def hyperparameters(optimizer) -> tuple:
     value."""
     return tuple(tuple(sorted((k, repr(v)) for k, v in group.items() if k != "params"))
                  for group in optimizer.param_groups)
+
+
+def check_capturable() -> None:
+    """``ValueError`` when the process group is Gloo at world > 1: its
+    collectives cannot be captured into a CUDA graph, and a group is never
+    run eagerly in a graph's place."""
+    if dist.is_initialized() and dist.get_world_size() > 1 and dist.get_backend() == "gloo":
+        raise ValueError(
+            "a CUDA-graph group (scan_steps or fuse_steps > 1) at world "
+            f"{dist.get_world_size()} on a Gloo process group: Gloo's collectives run in host "
+            "code, which a CUDA graph cannot capture. Set scan_steps: 1 (native) or "
+            "fuse_steps: 1 (managed), or use NCCL (one process per GPU)"
+        )
 
 
 def check_graph_safe(optimizer) -> None:
@@ -180,6 +199,7 @@ class StepGraphs:
             if on_replay is not None:
                 on_replay()
             return self._launch(graph)
+        check_capturable()  # before the signature's eager group, and again before its capture
         if key in self._words:
             graph = self._graphs[key] = self._capture(kind, inputs, body, self._words[key])
             return self._launch(graph)

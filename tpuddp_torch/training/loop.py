@@ -42,7 +42,9 @@ Process 0 appends every row to ``save_dir/history.jsonl``; it also says
 whether the update was sharded (``weight_update_sharding``, ZeRO-1: each
 checkpoint then gathers the moment shards from every rank), the comm hook
 and one update's gradient wire bytes with it and in float32
-(``grad_comm_bytes_per_update``, ``_f32``, as the JAX rows name them).
+(``grad_comm_bytes_per_update``, ``_f32``, as the JAX rows name them),
+the top-k density (``comm_density``), the topology, and the bytes' split
+by link (``grad_comm_bytes_inter_host``, ``grad_comm_bytes_intra_host``).
 
 Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
 ``$TPUDDP_AUTO_RESUME``) the newest intact ``ckpt_{epoch}.npz`` in
@@ -50,7 +52,9 @@ Resume (``tpuddp/training/loop.py:271-359``): with ``auto_resume`` (or
 micro-batch count, every rank's random streams, the comm hook's
 error-feedback residual, which the wrap's graphs hold and update in place)
 and the run continues at the epoch after it; ``keep_last=K`` keeps the K
-newest checkpoints after each save.
+newest checkpoints after each save. Every process resumes and rolls back
+from the file process 0 finds (``checkpoint.agreed_latest``), so across
+hosts ``save_dir`` must be one shared filesystem.
 
 The numerical guard (``ddp.guard``; ``tpuddp/training/loop.py:548-625,
 :760-795, :1026-1110``): one counter fetch per epoch gives the row's
@@ -316,7 +320,7 @@ def run_training_loop(
     rollbacks = 0
 
     def can_roll_back() -> bool:
-        return save_dir is not None and ckpt.latest(save_dir) is not None
+        return save_dir is not None and ckpt.agreed_latest(save_dir, device=device) is not None
 
     def rollback(epoch: int, reason: str) -> int:
         """Restore the newest intact checkpoint; the epoch to redo."""
@@ -425,6 +429,12 @@ def run_training_loop(
             "comm_hook": getattr(ddp, "comm_hook", "none"),
             "grad_comm_bytes_per_update": getattr(ddp, "grad_comm_bytes_per_step", None),
             "grad_comm_bytes_per_update_f32": getattr(ddp, "grad_comm_bytes_per_step_f32", None),
+            # the top-k density and the bytes' split by link, under the JAX
+            # names (tpuddp/training/loop.py:415-431)
+            "comm_density": getattr(ddp, "topk_density", None),
+            "comm_topology": getattr(ddp, "comm_topology", "flat"),
+            "grad_comm_bytes_inter_host": getattr(ddp, "grad_comm_bytes_inter_host", None),
+            "grad_comm_bytes_intra_host": getattr(ddp, "grad_comm_bytes_intra_host", None),
             "scan_steps": train_k,
             "eval_scan_steps": eval_k,
             "world_size": world_size,

@@ -35,12 +35,15 @@ flatten the gradients, reduce-scatter, divide by the world size, clip,
 update the shard, all-gather. The DDP wrap then passes no gradient sync and
 no clip to these cores; everything else is unchanged.
 
-With a comm hook (:mod:`tpuddp_torch.parallel.comm`) the DDP wrap's
+With a comm hook (:mod:`tpuddp_torch.parallel.comm`), or under
+``comm_topology: hierarchical`` with any hook, the DDP wrap's
 gradient sync is :func:`comm_sync`, the exchange of
 ``tpuddp/training/step.py:390-396`` in its order of operations: flatten the
 gradients in the JAX package's flat order, add the error-feedback residual,
-compress, sum and decompress per bucket, divide by the world size, keep
-``send - kept`` as the new residual, unflatten; the clip (on the
+compress, sum and decompress per bucket (hierarchically: the three hops
+of :meth:`~tpuddp_torch.parallel.comm.GradComm.reduce_hierarchical`),
+divide by the world size, keep ``send - kept`` as the new residual,
+unflatten; the clip (on the
 decompressed mean) and the optimizer follow as before. Under accumulation
 it runs once per cycle, at its boundary; under ZeRO-1 the wrapped
 optimizer's reduce-scatter is the hooked one.
@@ -182,19 +185,25 @@ def grad_core(
 
 @torch.no_grad()
 def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[torch.Tensor],
-              lost: Optional[torch.Tensor] = None) -> None:
+              lost: Optional[torch.Tensor] = None, groups=None) -> None:
     """The hooked gradient exchange: each parameter's ``.grad`` (None counts
     as zeros) flattened into one vector in the JAX order (``order``, a
     :class:`~tpuddp_torch.models.convert.JaxFlatOrder`) and zero-padded to
     ``comm.total``, through ``comm.reduce`` (``residual`` updated in place,
     or the new one written into ``lost``), then each ``.grad`` set to its
-    view of the mean, in the port's order."""
+    view of the mean, in the port's order. With ``groups = (local_group,
+    host_group)`` (``comm_topology: hierarchical``) the exchange is
+    ``comm.reduce_hierarchical`` over them instead, the JAX package's
+    ``tpuddp/training/step.py:379-384``."""
     port = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in params])
     g_vec = order.to_jax(port)
     if comm.total > order.raw:
         g_vec = torch.cat([g_vec, g_vec.new_zeros(comm.total - order.raw)])
-    reduced, _ = comm.reduce(g_vec, residual, lost)
+    if groups is None:
+        reduced, _ = comm.reduce(g_vec, residual, lost)
+    else:
+        reduced, _ = comm.reduce_hierarchical(g_vec, residual, *groups, lost)
     flat, offset = order.from_jax(reduced), 0
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
