@@ -339,6 +339,36 @@ Phases, each printing one line (the first failure exits non-zero):
      4) and 16 (2 x 8) per hook, flat and hierarchical (intra-host,
      inter-host).
 
+18. remat (``training.remat: true``) and the cluster launcher:
+   - "18 remat": ``cifar10_alexnet_h100.yaml``'s AlexNet@224 b128 float32,
+     and the same at ``vgg16``@224: 8 updates one step per batch from one
+     state and one dropout stream (flips and dropout on), plain and remat in
+     turns (plain, remat, remat, plain), each wrap alone on the card: every
+     run's losses, parameters, last gradients and moments bitwise the first
+     plain run's, one Adam launch per update; each run's step median (steps
+     2-8, each step synchronised) and peak device memory
+     (``torch.cuda.max_memory_allocated``, reset before the run);
+   - "18 remat buffers": toy_cnn@32 (BatchNorm, sync_bn) plain and remat, 8
+     updates: bitwise, BatchNorm buffers included, every buffer moved;
+   - "18 remat chunks": 3 chunks of 4 AlexNet remat steps eagerly and
+     replayed: bitwise, 1 capture and 2 replays;
+   - "18 remat entry point": ``cifar10_alexnet_h100.yaml`` one epoch at
+     ``scan_steps: 1`` through the entry point's worker, plain and remat: the
+     same losses to the bit;
+   - "18 launcher": ``python -m tpuddp_torch.submit_job --dry_run`` with a
+     ``local.gpu`` and a ``local.condor`` block: an executable
+     ``launch_gpu.sh``, the reference ``.sub``, and each one's command run
+     from the repository's root with ``--help`` (exit 0).
+19. telemetry: ``cifar10_alexnet_h100.yaml`` one epoch through the entry
+   point's worker with ``step_stats_every: 8`` and
+   ``$TPUDDP_PROFILE_STEPS=4:12``, one step per batch and replayed
+   (``scan_steps: 2``: updates 4-11 are four pure replays): the history
+   valid under the port's validator, the header's ``device_kind``, the
+   epoch row's p50/p95/p99 and ``mfu_p50``, two windows; from the trace the
+   window's ten device operations by total time and the device idle share
+   (1 - the union of the kernels' intervals over the span from the first
+   device operation to the last).
+
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
 eager one does, and a graph that lost its Adam node would count none.
@@ -347,7 +377,7 @@ Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
-phase 17's, one with the optimizers', one
+phase 17's, one with phase 18's, one with phase 19's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -3685,7 +3715,8 @@ def _multihost_checks(run):
     """The run's own checks: both ranks at world 2, 2 hosts x 1 local;
     host 0 alone writes; the Adam kernel's launches per update."""
     label, (out0, out1), (d0, d1) = run["label"], run["stdout"], run["dirs"]
-    history = [json.loads(l) for l in open(os.path.join(d0, "history.jsonl"))]
+    records = [json.loads(l) for l in open(os.path.join(d0, "history.jsonl"))]
+    history = [r for r in records if r["type"] == "epoch"]
     updates = sum(len(r["step_ms"]) for r in history)
     tables = _tables(62)  # resnet18_small's 62 leaves
     f32 = fused_adam.kernel.symbol
@@ -3703,6 +3734,8 @@ def _multihost_checks(run):
         f"{tables} Adam launches per update in each process": all(
             n[f32] == tables * updates and sum(n.values()) == n[f32] for n in run["launches"]),
         "finite losses": all(math.isfinite(history[0][k]) for k in ("train_loss", "test_loss")),
+        "the history opens with host 0's run_meta header": records[0]["type"] == "run_meta"
+        and (records[0]["process_count"], records[0]["process_index"]) == (2, 0),
     }
     if label != "flat":
         checks["the split logged by both ranks"] = all(
@@ -3824,6 +3857,392 @@ def multihost_phase():
         shutil.rmtree(root, ignore_errors=True)
     out["alexnet_bytes"] = multihost_bytes()
     return out
+
+
+# ---------------------------------------------------------------- phase 18 --
+
+# remat against plain: (label, model name, image size), the runs' order
+# (each from one state and one dropout stream), the updates of a run
+REMAT_MODELS = (("AlexNet@224", "alexnet", 224), ("vgg16@224", "vgg16", 224))
+REMAT_TURNS = ("plain", "remat", "remat", "plain")
+REMAT_STEPS, REMAT_K = 8, 4
+
+
+def _remat_init(name: str, size):
+    """Registry model ``name``'s initial weights at ``size`` px (None: 32),
+    drawn on the card from a seed."""
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = load_model(name, 10, input_shape=(size or 32, size or 32, 3))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def _remat_ddp(name: str, size, init, remat: bool, replay: bool = False):
+    """A native wrap of registry model ``name`` holding the weights
+    ``init`` (flips and dropout on), with or without remat."""
+    with torch.device("meta"):
+        model = load_model(name, 10, input_shape=(size or 32, size or 32, 3))
+    model.to_empty(device="cuda").load_state_dict(init)
+    if any(isinstance(m, BatchNorm) for m in model.modules()):
+        convert_sync_batchnorm(model)
+    gen = torch.Generator().manual_seed(1)
+    ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                  augment=make_train_augment(size=size, flip=True, generator=gen),
+                                  device="cuda", generator=gen, remat=remat)
+    ddp._graph_replay = replay
+    return ddp
+
+
+def _remat_state(ddp):
+    """Parameters, last gradients, moments (and the residual) with the
+    model's buffers, cloned."""
+    state = _ddp_state(ddp)
+    state.update({f"buffer/{n}": b.clone() for n, b in ddp.model.named_buffers()})
+    return state
+
+
+def remat_turns(label: str, name: str, size, batches):
+    """18 (a): ``REMAT_STEPS`` updates one step per batch from one state and
+    one dropout stream, plain and remat in turns (``REMAT_TURNS``), each wrap
+    alone on the card: every run's losses and state bitwise the first plain
+    run's, one Adam launch per update; the step median (steps 2-8, each step
+    synchronised) and each run's peak device memory: the most allocated
+    during the run less what was allocated before its wrap was built (the
+    weights it starts from, the earlier runs' states), so the wrap's own
+    parameters, gradients, moments and activations."""
+    init = _remat_init(name, size)
+    runs = []
+    for mode in REMAT_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        ddp = _remat_ddp(name, size, init, mode == "remat")
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for batch in batches[:REMAT_STEPS]:
+            t0 = time.perf_counter()
+            losses.append(ddp.train_step(batch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs.append(dict(mode=mode, state=_remat_state(ddp), losses=torch.stack(losses),
+                         peak_gb=(torch.cuda.max_memory_allocated() - before) / 1e9,
+                         median=statistics.median(times[1:]), launches=fused_adam.kernel.launches))
+        del ddp
+    init.clear()
+    ref = runs[0]
+    diffs = [max(_max_diff(ref["state"], r["state"]), float((ref["losses"] - r["losses"]).abs().max()))
+             for r in runs[1:]]
+    moved = [k for k in ref["state"] if k.startswith("buffer/")]
+    checks = {
+        "every run bitwise the first plain run (losses, parameters, gradients, moments, buffers)":
+            all(d == 0.0 for d in diffs),
+        "1 Adam launch per update": all(r["launches"] == REMAT_STEPS for r in runs),
+        "finite losses": all(bool(torch.isfinite(r["losses"]).all()) for r in runs),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    by_mode = {m: [r for r in runs if r["mode"] == m] for m in ("plain", "remat")}
+    out = dict(turns=list(REMAT_TURNS), max_abs_diff=diffs, buffers=len(moved),
+               step_ms_median={m: [r["median"] for r in rs] for m, rs in by_mode.items()},
+               peak_gb={m: [r["peak_gb"] for r in rs] for m, rs in by_mode.items()},
+               launches=[r["launches"] for r in runs])
+    if failed:
+        raise SystemExit(f"chip_smoke: 18 remat {label} failed {failed}: {out}")
+    plain, remat = (statistics.median(out["step_ms_median"][m]) for m in ("plain", "remat"))
+    phase("18 remat", f"{label} b128 float32 (flips, dropout), {REMAT_STEPS} updates one step per batch "
+          f"from one state, turns {'/'.join(REMAT_TURNS)}: max |d| vs the first plain run {diffs} "
+          f"(bitwise: losses, parameters, gradients, moments, {len(moved)} buffers); Adam launches "
+          f"{out['launches']}; step median (steps 2-{REMAT_STEPS}) plain "
+          + "/".join(f"{t:.2f}" for t in out["step_ms_median"]["plain"]) + " ms, remat "
+          + "/".join(f"{t:.2f}" for t in out["step_ms_median"]["remat"])
+          + f" ms (remat/plain {remat / plain:.3f}); peak memory plain "
+          + "/".join(f"{g:.3f}" for g in out["peak_gb"]["plain"]) + " GB, remat "
+          + "/".join(f"{g:.3f}" for g in out["peak_gb"]["remat"]) + " GB")
+    del runs, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_buffers(batches):
+    """18 (b): toy_cnn@32 (BatchNorm, sync_bn) plain and remat, 8 updates
+    from one state: bitwise, and the running buffers moved (advanced once a
+    step: a second advance in the recompute would part them from plain)."""
+    init = _remat_init("toy_cnn", None)
+    states = {}
+    for mode in ("plain", "remat"):
+        ddp = _remat_ddp("toy_cnn", None, init, mode == "remat")
+        reset_counts()
+        for batch in batches[:REMAT_STEPS]:
+            ddp.train_step(batch)
+        states[mode] = _remat_state(ddp)
+        del ddp
+    moved = all(not torch.equal(states["plain"][f"buffer/{k}"], v.to("cuda")) for k, v in init.items()
+                if k.endswith(("running_mean", "running_var")))
+    diff = _max_diff(states["plain"], states["remat"])
+    if diff != 0.0 or not moved or fused_adam.kernel.launches != REMAT_STEPS:
+        raise SystemExit(f"chip_smoke: 18 remat toy_cnn: max |d| {diff}, buffers moved {moved}, "
+                         f"launches {fused_adam.kernel.launches}")
+    phase("18 remat buffers", f"toy_cnn@32 b128 sync_bn, {REMAT_STEPS} updates plain and remat from one "
+          f"state: max |d| {diff} (bitwise, BatchNorm buffers included), every running buffer moved")
+    return dict(max_abs_diff=diff, buffers_moved=moved, launches=REMAT_STEPS)
+
+
+def remat_chunks(batches):
+    """18 (c): 3 chunks of ``REMAT_K`` AlexNet@224 remat steps from one
+    state, eagerly and replayed (warm-up, capture, replay): bitwise, one
+    Adam launch per update, 1 capture and 2 replays."""
+    init = _remat_init("alexnet", 224)
+    runs = {}
+    for mode in ("eager", "replay"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp = _remat_ddp("alexnet", 224, init, True, replay=mode == "replay")
+        torch.cuda.manual_seed(7)
+        reset_counts()
+        graphs.reset_stats()
+        sums = None
+        for c in range(3):
+            sums = ddp.train_step_many(batches[c * REMAT_K:(c + 1) * REMAT_K], sums)
+        torch.cuda.synchronize()
+        runs[mode] = dict(state=_remat_state(ddp), sums=sums.clone(), launches=fused_adam.kernel.launches,
+                          graphs=_kinds(graphs.stats))
+        del ddp
+    diff = max(_max_diff(runs["eager"]["state"], runs["replay"]["state"]),
+               float((runs["eager"]["sums"] - runs["replay"]["sums"]).abs().max()))
+    checks = {
+        "replay bitwise eager": diff == 0.0,
+        "1 Adam launch per update": all(r["launches"] == 3 * REMAT_K for r in runs.values()),
+        "1 capture, 2 replays": runs["replay"]["graphs"] == {"train": (1, 2)},
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    out = dict(max_abs_diff=diff, launches={m: r["launches"] for m, r in runs.items()},
+               graphs=runs["replay"]["graphs"])
+    if failed:
+        raise SystemExit(f"chip_smoke: 18 remat chunks failed {failed}: {out}")
+    phase("18 remat chunks", f"AlexNet@224 b128 remat, 3 chunks of {REMAT_K} from one state eagerly and "
+          f"replayed (the dropout draws recorded in the forward, nothing reads the generator in the "
+          f"capture): max |d| {diff} (bitwise), Adam launches {out['launches']}, graphs {out['graphs']}")
+    return out
+
+
+def remat_entry():
+    """18 (d): ``cifar10_alexnet_h100.yaml`` one epoch at ``scan_steps: 1``
+    through the entry point's worker, plain and with ``remat: true``: the
+    same losses to the bit, one Adam launch per step each."""
+    out = {}
+    for mode in ("plain", "remat"):
+        history, wall_s, launches = native_run(SETTINGS, {"scan_steps": 1, "remat": mode == "remat"})
+        row = history[0]
+        out[mode] = dict(train_loss=row["train_loss"], test_loss=row["test_loss"],
+                         launches=launches[fused_adam.kernel.symbol], wall_s=wall_s,
+                         step_ms_median=statistics.median(row["step_ms"][1:]))
+    same = all(out["plain"][k] == out["remat"][k] for k in ("train_loss", "test_loss"))
+    if not same or any(r["launches"] != 16 for r in out.values()):
+        raise SystemExit(f"chip_smoke: 18 remat entry point: {out}")
+    phase("18 remat entry point", f"cifar10_alexnet_h100.yaml, one epoch at scan_steps 1, plain / remat: "
+          f"train_loss {out['plain']['train_loss']!r} / {out['remat']['train_loss']!r}, test_loss "
+          f"{out['plain']['test_loss']!r} / {out['remat']['test_loss']!r} (bitwise), 16 Adam launches each, "
+          f"step median {out['plain']['step_ms_median']:.2f} / {out['remat']['step_ms_median']:.2f} ms")
+    return out
+
+
+def launcher_checks(root: str):
+    """18 (e): ``python -m tpuddp_torch.submit_job --dry_run`` on
+    ``cifar10_alexnet_h100.yaml`` with a ``local.gpu`` block and with the
+    reference's ``local.condor`` block: an executable ``launch_gpu.sh`` and
+    the reference ``.sub``; the command each writes runs from the
+    repository's root on this machine (with ``--help``: exit 0)."""
+    import shlex
+
+    import yaml
+
+    settings = cfg_lib.load_settings(SETTINGS)
+    out = {}
+    for block, local in (("gpu", {"device": "cuda", "gpu": {"num_gpus": 1}}),
+                         ("condor", {"device": "cuda", "condor": {"bid": 50, "num_cpus": 8,
+                                                                   "memory_cpus": 96000, "num_gpus": 1,
+                                                                   "memory_gpus": 80000}})):
+        out_dir = os.path.join(root, block)
+        path = os.path.join(root, f"{block}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump({**settings, "out_dir": out_dir, "local": local}, f)
+        done = subprocess.run([sys.executable, "-m", "tpuddp_torch.submit_job", "--settings_file", path,
+                               "--dry_run"], cwd=ROOT, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise SystemExit(f"chip_smoke: 18 launcher {block}: {done.stderr}")
+        if block == "gpu":
+            script = os.path.join(out_dir, "launch_gpu.sh")
+            text = open(script).read()
+            line = text.strip().splitlines()[-1]
+            command = shlex.split(line.split(" 2>&1")[0])[1:]
+            ok = os.access(script, os.X_OK) and "set -euo pipefail" in text and "info_${HOSTNAME}.log" in text
+        else:
+            text = open(os.path.join(out_dir, "submission_file.sub")).read()
+            args = next(line for line in text.splitlines() if line.startswith("arguments = "))
+            command = shlex.split(args[len("arguments = "):].strip('"'))
+            ok = (f"executable = {sys.executable}" in text and "request_gpus = 1" in text
+                  and "TARGET.CUDAGlobalMemoryMb > 80000" in text and text.rstrip().endswith("queue"))
+        ran = subprocess.run([sys.executable, *command, "--help"], cwd=ROOT, capture_output=True, text=True)
+        if not ok or ran.returncode != 0:
+            raise SystemExit(f"chip_smoke: 18 launcher {block}: contract {ok}, {command} --help exited "
+                             f"{ran.returncode}: {ran.stderr[-500:]}")
+        out[block] = " ".join(command)
+        phase("18 launcher", f"local.{block} --dry_run: {text.splitlines()[0] if block == 'condor' else script}"
+              f"; `python {out[block]} --help` from the repository's root exited 0")
+    return out
+
+
+def remat_phase():
+    """Phase 18: remat against plain on AlexNet and vgg16 at 224 px, the
+    buffers, a replayed chunk, the entry point; the launcher."""
+    batches = _guard_batches(max(REMAT_STEPS, 3 * REMAT_K), 8)
+    turns = {label: remat_turns(label, name, size, batches) for label, name, size in REMAT_MODELS}
+    buffers = remat_buffers(batches)
+    chunks = remat_chunks(batches)
+    entry = remat_entry()
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_launch_")
+    try:
+        launcher = launcher_checks(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {
+        **{f"native {label} {mode} turn {i} (phase 18)": n
+           for label, t in turns.items() for i, (mode, n) in enumerate(zip(t["turns"], t["launches"]))},
+        "native toy_cnn plain and remat (phase 18)": 2 * buffers["launches"],
+        **{f"native AlexNet remat chunks {m} (phase 18)": n for m, n in chunks["launches"].items()},
+        **{f"native AlexNet file {m} (phase 18)": r["launches"] for m, r in entry.items()},
+    }
+    return dict(turns=turns, buffers=buffers, chunks=chunks, entry=entry, launcher=launcher,
+                launches=launches)
+
+
+# ---------------------------------------------------------------- phase 19 --
+
+# the telemetry runs: (label, scan_steps); the profiled update window, which
+# lies inside the epoch's one step_stats window, so the window's fence (at
+# update 16) is not in the trace
+TELEMETRY_RUNS = (("one step per batch", 1), ("replayed", 2))
+TELEMETRY_WINDOW = (4, 12)
+TELEMETRY_EVERY = 16
+
+
+def trace_summary(path: str, top: int = 10):
+    """The device operations of a Chrome trace written by ``torch.profiler``:
+    the ``top`` by total time, how many there are, and the device idle
+    share, 1 - (union of the kernels' intervals) / span. The span runs from
+    the end of the first traced update's Adam kernel to the end of the last
+    one, so the profiler's start (the host blocked while the card drains)
+    stays out; ``idle_share_whole`` is the same over the first device op's
+    start to the last one's end. Not measured where the trace holds none."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launches = sum(1 for e in events if e.get("ph") == "X" and e.get("name") in ("cudaGraphLaunch",))
+    if not device:
+        return {"device_ops": 0, "graph_launches": launches, "idle_share": "not measured",
+                "idle_share_whole": "not measured"}
+    totals = {}
+    for e in device:
+        totals[e["name"]] = totals.get(e["name"], 0.0) + float(e["dur"])
+    kernels = _union([(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device if e["cat"] == "kernel"])
+    start = min(float(e["ts"]) for e in device)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in device)
+    busy = sum(b - a for a, b in kernels)
+    adam_ends = sorted(float(e["ts"]) + float(e["dur"]) for e in device if "fused_adam" in e["name"])
+    steady = {"idle_share": "not measured", "steady_updates": max(len(adam_ends) - 1, 0)}
+    if len(adam_ends) > 1:
+        a, b = adam_ends[0], adam_ends[-1]
+        steady_busy = sum(max(0.0, min(y, b) - max(x, a)) for x, y in kernels)
+        steady.update(steady_span_ms=(b - a) / 1e3, steady_busy_ms=steady_busy / 1e3,
+                      idle_share=1.0 - steady_busy / (b - a))
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ops": len(device), "kernels": sum(1 for e in device if e["cat"] == "kernel"),
+            "graph_launches": launches, "span_ms": (end - start) / 1e3, "kernel_busy_ms": busy / 1e3,
+            "idle_share_whole": 1.0 - busy / (end - start), **steady,
+            "top": [{"name": n[:120], "ms": t / 1e3, "share_of_span": t / (end - start)} for n, t in ranked]}
+
+
+def telemetry_run(label: str, scan_steps: int, root: str, plain):
+    """19: ``cifar10_alexnet_h100.yaml`` one epoch through the entry point's
+    worker with ``step_stats_every: 16`` and ``$TPUDDP_PROFILE_STEPS=4:12``:
+    the history valid under the port's validator, its header, the epoch
+    row's percentiles and MFU, the step_stats window, and the trace. The
+    losses against phase 18's plain run of the same file (`plain`, telemetry
+    off): bitwise one step per batch, shown for the replayed run."""
+    from tpuddp_torch.observability import profiling, schema
+
+    save_dir = os.path.join(root, f"scan_{scan_steps}")
+    os.environ["TPUDDP_PROFILE_STEPS"] = "{}:{}".format(*TELEMETRY_WINDOW)
+    try:
+        profiling.reset_profiling_state()
+        history, wall_s, launches = native_run(
+            SETTINGS, {"scan_steps": scan_steps, "step_stats_every": TELEMETRY_EVERY}, save_dir=save_dir)
+    finally:
+        del os.environ["TPUDDP_PROFILE_STEPS"]
+    path = os.path.join(save_dir, "history.jsonl")
+    errors, n = schema.validate_history_file(path)
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    header, row = records[0], history[0]
+    windows = [r for r in records if r["type"] == "step_stats"]
+    events = [r for r in records if r["type"] == "event" and r["event"] == "profile"]
+    trace = events[0]["path"] if events else None
+    checks = {
+        "history valid (port validator)": not errors,
+        "run_meta header first, device_kind the card's": header["type"] == "run_meta"
+        and header["device_kind"] == torch.cuda.get_device_name(0),
+        "1 step_stats window of 16": [w["steps"] for w in windows] == [TELEMETRY_EVERY],
+        "one profile event naming its trace": len(events) == 1 and os.path.exists(trace),
+        "16 Adam launches": launches[fused_adam.kernel.symbol] == 16,
+    }
+    same = all(row[k] == plain[k] for k in ("train_loss", "test_loss"))
+    if scan_steps == 1:
+        checks["losses bitwise phase 18's plain run (telemetry off)"] = same
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 19 telemetry {label} failed {failed}: errors {errors}, records "
+                         f"{[r['type'] for r in records]}, events {events}")
+    summary = trace_summary(trace)
+    fields = {k: row[k] for k in ("step_time_ms_p50", "step_time_ms_p95", "step_time_ms_p99",
+                                  "step_time_ms_max", "mfu_p50", "mfu_p95", "train_samples_per_sec")}
+    phase("19 telemetry", f"AlexNet@224 b128 float32, one epoch {label} (scan_steps {scan_steps}), "
+          f"step_stats_every {TELEMETRY_EVERY}, TPUDDP_PROFILE_STEPS={TELEMETRY_WINDOW[0]}:"
+          f"{TELEMETRY_WINDOW[1]}: {n} records valid; device_kind {header['device_kind']!r}; epoch row "
+          f"{json.dumps(fields)}; windows " + "; ".join(
+              f"[{w['step_start']}, +{w['steps']}) p50 {w['step_time_ms_p50']} ms, {w['samples_per_sec']} "
+              f"img/s, host stall {w['host_stall_ms']} ms" for w in windows)
+          + f"; train_loss {row['train_loss']!r} test_loss {row['test_loss']!r} "
+          f"({'bitwise' if same else 'not bitwise'} phase 18's plain run, telemetry off)"
+          + f"; trace {os.path.basename(trace)}: {summary['device_ops']} device ops, "
+          f"{summary['graph_launches']} cudaGraphLaunch, idle share {summary['idle_share']} over "
+          f"{summary['steady_updates']} updates (Adam end to Adam end), {summary['idle_share_whole']} "
+          f"over the whole trace")
+    if summary.get("top"):
+        phase("19 device time", f"{label}, updates [{TELEMETRY_WINDOW[0]}, {TELEMETRY_WINDOW[1]}): span "
+              f"{summary['span_ms']:.3f} ms, kernels busy {summary['kernel_busy_ms']:.3f} ms"
+              + (f"; steady span {summary['steady_span_ms']:.3f} ms, busy {summary['steady_busy_ms']:.3f} ms"
+                 if "steady_span_ms" in summary else "") + "; top 10: " + "; ".join(
+                  f"{t['name'][:60]} {t['ms']:.3f} ms ({100 * t['share_of_span']:.1f}%)" for t in summary["top"]))
+    return dict(header_device_kind=header["device_kind"], records=n, epoch=fields,
+                losses_bitwise_plain=same,
+                windows=[{k: w[k] for k in ("step_start", "steps", "step_time_ms_p50", "step_time_ms_p95",
+                                            "samples_per_sec", "host_stall_ms", "staging_queue_depth",
+                                            "inflight_depth")} for w in windows],
+                trace=summary, launches=launches[fused_adam.kernel.symbol], wall_s=wall_s)
+
+
+def telemetry_phase(plain):
+    """Phase 19: the telemetry runs (one step per batch, replayed), held
+    against phase 18's plain run of the same file (`plain`)."""
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_telemetry_")
+    try:
+        runs = {label: telemetry_run(label, k, root, plain) for label, k in TELEMETRY_RUNS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(runs=runs, launches={f"native AlexNet telemetry {label} (phase 19)": r["launches"]
+                                     for label, r in runs.items()})
 
 
 def main() -> None:
@@ -3955,6 +4374,12 @@ def main() -> None:
     t17 = time.perf_counter()
     multihost_17 = multihost_phase()
     phase_17_s = time.perf_counter() - t17
+    t18 = time.perf_counter()
+    remat_18 = remat_phase()
+    phase_18_s = time.perf_counter() - t18
+    t19 = time.perf_counter()
+    telemetry_19 = telemetry_phase(remat_18["entry"]["plain"])
+    phase_19_s = time.perf_counter() - t19
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -4021,6 +4446,10 @@ def main() -> None:
     print(json.dumps({"multihost": {
         **{k: v for k, v in multihost_17.items() if k != "launches"}, "phase_17_s": phase_17_s,
     }}))
+    print(json.dumps({"remat": {
+        **{k: v for k, v in remat_18.items() if k != "launches"}, "phase_18_s": phase_18_s,
+    }}))
+    print(json.dumps({"telemetry": {**telemetry_19["runs"], "phase_19_s": phase_19_s}}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -4078,13 +4507,15 @@ def main() -> None:
         **{f"{k} pretrained AlexNet (phase 16)": n for k, n in vgg_16["pretrained"]["launches"].items()},
     }
     phase_17 = multihost_17["launches"]
+    phase_18 = remat_18["launches"]
+    phase_19 = telemetry_19["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
-               **phase_13, **phase_14, **phase_15, **phase_16, **phase_17}
+               **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -4111,7 +4542,8 @@ def main() -> None:
                               **{k: 0 for k in phase_11_f32}, **{k: 0 for k in phase_12},
                               **phase_12_bf16, **{k: 0 for k in phase_13},
                               **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15},
-                              **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17}},
+                              **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17},
+                              **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -4123,7 +4555,7 @@ def main() -> None:
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
-          f"phase 17: {phase_17_s:.1f} s)")
+          f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -558,6 +558,8 @@ def test_entry_point_two_gloo_processes(tmp_path):
             r"Test Accuracy: \d+\.\d{2}%", line), line
     assert lines.count("Finished Training.") == 1
     rows = [json.loads(l) for l in (out / "history.jsonl").read_text().splitlines()]
+    assert rows[0]["type"] == "run_meta"  # the typed history's header
+    rows = [r for r in rows if r["type"] == "epoch"]
     assert [r["epoch"] for r in rows] == [0, 1]
     for r in rows:
         assert (r["api"], r["grad_accumulation"], r["fuse_steps"], r["world_size"]) == ("managed", 2, 1, 2)

@@ -58,7 +58,10 @@ from test_torch_port_optim_train import (  # noqa: E402
 
 PORT_SETTINGS = os.path.join(ROOT, "tpuddp_torch", "configs", "managed_fused_h100.yaml")
 JAX_SETTINGS = os.path.join(ROOT, "configs", "managed_fused.yaml")
-TIMED = ("train_time_s", "epoch_time_s", "step_ms", "host_stall_s")
+# the host's and the card's clocks: every timing field of a history row
+TIMED = ("train_time_s", "epoch_time_s", "step_ms", "host_stall_s", "host_stall_ms",
+         "samples_per_sec", "train_samples_per_sec", "step_time_ms_p50", "step_time_ms_p95",
+         "step_time_ms_p99", "step_time_ms_max", "mfu_p50", "mfu_p95")
 
 
 def _settings(path):

@@ -155,5 +155,8 @@ def test_a_divergent_rank_exits_77(tmp_path, path):
     assert proc.returncode == 77, proc.stderr[-3000:]
     assert "cross-replica desync at epoch 0 audit: parameter leaf \"[1]['bias']\"" in proc.stderr
     with open(tmp_path / "history.jsonl") as f:
-        events = [json.loads(line) for line in f]
-    assert events == [{"type": "event", "event": "desync", "epoch": 0, "leaf": "[1]['bias']"}]
+        records = [json.loads(line) for line in f]
+    assert records[0]["type"] == "run_meta"
+    events = [r for r in records if r["type"] == "event"]
+    assert events == [{"type": "event", "schema_version": 12, "event": "desync", "epoch": 0,
+                       "leaf": "[1]['bias']"}]

@@ -276,7 +276,9 @@ def test_two_launchers_train_bitwise_the_single_launcher(launches, run):
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name} {k}")
-    rows = [[json.loads(l) for l in open(d / "history.jsonl")] for d in (single, host0)]
+    rows = [[r for r in map(json.loads, open(d / "history.jsonl")) if r["type"] == "epoch"]
+            for d in (single, host0)]
+    assert len(rows[0]) == len(rows[1]) > 0
     for a, b in zip(*rows):
         for key in ("train_loss", "test_loss", "test_accuracy", "world_size"):
             assert a[key] == b[key], key

@@ -74,7 +74,7 @@ def _check_continuity(workdir, path):
     rows = {}
     for run in ("straight", "resumed"):
         with open(os.path.join(workdir, path, run, "history.jsonl")) as f:
-            rows[run] = [json.loads(line) for line in f]
+            rows[run] = [r for r in map(json.loads, f) if r["type"] == "epoch"]
     assert [r["epoch"] for r in rows["resumed"]] == [0, 1]  # appended, never rewritten
     for a, b in zip(rows["straight"], rows["resumed"]):
         assert (a["train_loss"], a["test_loss"]) == (b["train_loss"], b["test_loss"])
@@ -177,4 +177,7 @@ def test_entry_point_resumes_prunes_and_appends(tmp_path, capsys, monkeypatch):
     assert [r["epoch"] for r in history] == [1, 2]
     assert _names(tmp_path) == ["ckpt_2.npz"]
     with open(tmp_path / "history.jsonl") as f:
-        assert [json.loads(line)["epoch"] for line in f] == [0, 1, 2]
+        records = [json.loads(line) for line in f]
+    # each run opens with its run_meta header: the resume appended a second
+    assert [r["type"] for r in records if r["type"] != "epoch"] == ["run_meta", "run_meta"]
+    assert [r["epoch"] for r in records if r["type"] == "epoch"] == [0, 1, 2]

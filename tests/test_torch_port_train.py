@@ -255,10 +255,9 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 # ---------------------------------------------------------------- config --
 
 @pytest.mark.parametrize("knob,value", [
-    ("remat", True),
     ("snapshot", True),
     ("mode", "auto"),
-    ("pipeline", {"device_augment": False}), ("step_stats_every", 10),
+    ("pipeline", {"device_augment": False}),
     ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):

@@ -28,7 +28,12 @@ false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
 :func:`resolve_fuse_steps`), ``comm_topology: hierarchical`` (the native
 path's three-hop exchange, :meth:`tpuddp_torch.parallel.comm.GradComm.
 reduce_hierarchical`; the managed path refuses it as the JAX package's
-does) and the multi-host ``local.rendezvous`` block (:func:`rendezvous_from`). Every knob whose non-default value needs a part
+does), the multi-host ``local.rendezvous`` block (:func:`rendezvous_from`),
+``remat`` (the native path recomputes each train forward in its backward,
+:mod:`tpuddp_torch.nn.remat`; the managed path accepts the key and runs
+as without it, as the JAX package's does) and ``step_stats_every`` (one
+``step_stats`` row of ``history.jsonl`` per N updates, both paths,
+:mod:`tpuddp_torch.observability`). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
 never ignored. The native path's ``scan_steps`` (K batches per dispatch,
@@ -102,9 +107,7 @@ DEVICES = ("cuda", "cpu")
 _UNSUPPORTED = {
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
-    "remat": (lambda v: not v, "Queue 1 item 8: remat"),
     "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
-    "step_stats_every": (lambda v: not v, "Queue 1 item 8: observability"),
 }
 
 # local.rendezvous's keys and the variables that override them
@@ -264,7 +267,7 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
             "must tile the world exactly (set data: auto to derive it)"
         )
     if settings.get("observability") is not None:
-        raise _not_ported("the observability block", "Queue 1 item 8: observability")
+        raise _not_ported("the observability block", "Queue 1 item 8: observability, part 2")
 
 
 def rendezvous_from(settings: Dict[str, Any]) -> Dict[str, Any]:

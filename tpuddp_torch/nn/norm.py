@@ -18,7 +18,9 @@ unbiased one for the running buffer. What ``torch.nn.BatchNorm2d`` and
 - a batch with no real rows (on this replica, or on every replica when
   synced) leaves the running buffers as they are;
 - ``stable_var`` forms the variance in two passes, ``E[(x - mean)^2]``,
-  instead of ``E[x^2] - mean^2``, at the price of a second all-reduce.
+  instead of ``E[x^2] - mean^2``, at the price of a second all-reduce;
+- the forward that a remat backward runs again (:func:`recomputing`)
+  leaves the running buffers as the first one left them.
 
 On the managed path (:mod:`tpuddp_torch.accelerate`) BatchNorm statistics
 are the global batch's whatever ``sync_bn`` says, as the JAX ``Accelerator``
@@ -33,12 +35,23 @@ This is plain PyTorch; no TPU kernel stands behind it.
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+
+_local = threading.local()
+
+
+def recomputing() -> bool:
+    """True while the backward recomputes a remat forward, in the thread
+    running it (:mod:`tpuddp_torch.nn.remat`): the running statistics then
+    stay as the first forward left them."""
+    return getattr(_local, "recompute", False)
 
 
 def _world() -> int:
@@ -145,7 +158,7 @@ class BatchNorm(nn.Module):
         xs = x.float()  # statistics in float32 even for bf16 activations
         if self.training or not self.track_running_stats:
             mean, var, count, denom = self._batch_stats(xs)
-            if self.track_running_stats and self.training:
+            if self.track_running_stats and self.training and not recomputing():
                 with torch.no_grad():
                     m = self.momentum
                     # the element count behind the statistics (all replicas when synced)

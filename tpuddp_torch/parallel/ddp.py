@@ -95,6 +95,12 @@ segment's exchange issued as its gradients land in backward, on a side
 stream of the card, bitwise the barrier step. ``comm_overlap_meta`` records
 ``{"enabled", "segments", "reason"}`` as the JAX wrap does.
 
+``remat`` (``training.remat``; ``tpuddp/parallel/ddp.py:83, :240``):
+every step, cycle and chunk recomputes its forward in the backward
+(:mod:`tpuddp_torch.nn.remat`), bitwise the plain step; the
+segmented-overlap step does not apply (``auto`` records the JAX reason,
+``true`` raises).
+
 ``guard`` (``training.guard``; ``tpuddp/parallel/ddp.py:90, :560-580,
 :723-740``): the numerical guard. At wrap time, after the broadcast, every
 replica's parameters are audited (:func:`~tpuddp_torch.resilience.guard.
@@ -156,7 +162,6 @@ class DistributedDataParallel:
     # what the port's wrap runs of the JAX package's knobs, which the
     # overlap eligibility reads in the JAX order (config refuses the others)
     mode = "shard_map"
-    remat = False
     model_size = 1
 
     def __init__(
@@ -177,8 +182,11 @@ class DistributedDataParallel:
         comm_overlap="auto",
         guard=None,
         comm_topology: str = "flat",
+        remat: bool = False,
     ):
         self.guard = resolve_guard(guard)
+        # the whole train forward recomputed in its backward (nn/remat.py)
+        self.remat = bool(remat)
         self.comm_hook = comm.validate_hook(comm_hook)
         self.comm_topology = comm.validate_topology(comm_topology or "flat")
         hier = self.comm_topology == "hierarchical"
@@ -436,7 +444,7 @@ class DistributedDataParallel:
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
             self._sync, self.sync_buffers, x, y, w, self._clip, overlap=self._overlap,
-            firewall=self.firewall,
+            firewall=self.firewall, remat=self.remat,
         )
 
     def train_cycle(self, batches) -> torch.Tensor:
@@ -450,7 +458,7 @@ class DistributedDataParallel:
         return train_cycle(
             self.model, self.optimizer, self.criterion, self.augment, self._sync,
             self.sync_buffers, [self.to_device(b) for b in batches], self._clip,
-            overlap=self._overlap, firewall=self.firewall,
+            overlap=self._overlap, firewall=self.firewall, remat=self.remat,
         )
 
     def eval_step(self, batch) -> torch.Tensor:
@@ -508,6 +516,7 @@ class DistributedDataParallel:
                 self.model, self.optimizer, self.criterion, self.augment, self._sync,
                 self.sync_buffers, t[0], [tuple(t[i:i + 3]) for i in range(1, len(t), 4)],
                 t[4::4], self._clip, self.grad_accumulation, self._overlap, self.firewall,
+                self.remat,
             )
 
         inputs = [sums] + [t for b, m in zip(batches, masks) for t in (*b, m)]

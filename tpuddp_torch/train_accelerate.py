@@ -57,6 +57,15 @@ newest intact ``state_{epoch}.npz`` (``load_state``) and redo the epoch (a
 ``rollback`` event), at most ``max_rollbacks`` times, or raise
 ``FloatingPointError`` without one. A divergent replica exits 77
 (``parallel/spawn.py``).
+
+Every row is typed (``observability/schema.py``): ``history.jsonl`` opens
+with a ``run_meta`` header (a resumed run appends a fresh one), the epoch
+rows carry the step-time percentiles over ``step_ms`` (MFU null, as the
+JAX managed rows), ``step_stats_every: N`` adds a ``step_stats`` row per N
+steps (each group of fused steps counted once it has run), and
+``$TPUDDP_PROFILE``, ``$TPUDDP_PROFILE_STEPS`` (widened to whole queued
+groups) and SIGUSR1 write ``torch.profiler`` traces. ``training.remat`` is
+accepted and changes nothing here: the JAX managed path does not read it.
 """
 
 from __future__ import annotations
@@ -79,13 +88,14 @@ from tpuddp_torch.data import (
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
-from tpuddp_torch.parallel import comm
+from tpuddp_torch.observability import MetricsWriter, RunTelemetry, config_hash, schema
+from tpuddp_torch.parallel import backend, comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import resolve_world, run_ddp_training
 from tpuddp_torch.resilience import guard as guard_lib
 from tpuddp_torch.train_native import load_model_for, set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
-from tpuddp_torch.training.loop import StepClock, append_row, event, nan_injector
+from tpuddp_torch.training.loop import StepClock, event, nan_injector
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
 
 
@@ -99,34 +109,51 @@ def setup_dataloaders(training):
 
 
 def train(model, train_loader, criterion, optimizer, accelerator,
-          clock: Optional[StepClock] = None):
+          clock: Optional[StepClock] = None, tel=None):
     """One training epoch; returns ``(mean per-step loss, real rows of the
     global batches)``. A partial accumulation cycle is applied at the end;
-    the fuse queue's last steps run at the epoch's ``sum_losses``."""
+    the fuse queue's last steps run at the epoch's ``sum_losses``. ``tel``
+    (a :class:`~tpuddp_torch.observability.RunTelemetry`, with ``clock``)
+    sees each group of steps once it has run, as one dispatch
+    (``train_accelerate.py:100-160``): a step that only queued is not one."""
     model.train()
     n_seen = torch.zeros((), device=model.device)
     losses = []
     pending = 0  # steps of the open group (queued, or not yet marked)
+    rows = 0.0  # the open group's real rows, from the host weights
+    depth = 0  # the deepest the fuse queue ran in the open group
     for inputs, labels, weights in train_loader:
         n_seen = n_seen + model.to_device(weights, torch.float32).sum()
         optimizer.zero_grad()
         if clock is not None and pending == 0:
             clock.mark()
+        if tel is not None:
+            # the dispatch that will carry this step is the whole queued
+            # group, so a profiled window inside it arms at its first step
+            tel.pre_dispatch(pending + 1)
+            rows += train_loader.take_rows(1)
         outputs = model(inputs)  # flip/normalize/resize run inside the step's forward
         loss = criterion(outputs, labels, weights)
         accelerator.backward(loss)
         optimizer.step()
         losses.append(loss)
         pending += 1
+        depth = max(depth, optimizer.queued)
         if not optimizer.queued:  # the step ran, or the flush it filled did
             if clock is not None:
                 clock.groups.append(pending)
-            pending = 0
+            if tel is not None:
+                tel.post_dispatch(pending, rows, host_stall_s=train_loader.stall.take(),
+                                  staging_depth=train_loader.staged_depth, inflight_depth=depth)
+            pending, rows, depth = 0, 0.0, 0
     optimizer.flush_accumulation()
     loss_sum = sum_losses(losses)  # flushes what is still queued
     if clock is not None:
         if pending:
             clock.groups.append(pending)
+            if tel is not None:
+                tel.post_dispatch(pending, rows, host_stall_s=train_loader.stall.take(),
+                                  staging_depth=train_loader.staged_depth, inflight_depth=depth)
         clock.mark()
     # one read of the loss sum and of the rows every process saw
     totals = torch.stack([loss_sum, n_seen])
@@ -166,12 +193,43 @@ def run_training_loop(
     model, train_loader, test_loader, criterion, optimizer, save_dir: Optional[str],
     accelerator, eval_transform, num_epochs: int = 20, checkpoint_epoch: int = 5,
     deferred_metrics: bool = False, start_epoch: int = 0, keep_last: Optional[int] = None,
+    step_stats_every: int = 0, run_meta: Optional[dict] = None,
 ):
     """Run epochs ``start_epoch`` to ``num_epochs``; returns the list of
-    per-epoch records."""
+    per-epoch records. ``run_meta`` holds the entry point's header fields."""
     # nan@step=N: the train loader's staging poisons that host micro-batch
     train_loader.inject = nan_injector()
+    # the typed history (train_accelerate.py:276-420): the header, then the
+    # recorder and the profiling triggers; MFU stays null, as the JAX
+    # managed rows have it (no FLOPs probe on this path)
+    writer = MetricsWriter(save_dir)
     guard = accelerator.guard
+    hosts = backend.num_hosts() or 1
+    world = accelerator.num_processes
+    device = accelerator.device
+    writer.write(schema.make_run_meta(
+        world_size=world, process_count=hosts,
+        process_index=accelerator.process_index // (world // hosts),
+        device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else None,
+        comm_hook=accelerator.comm_hook, comm_topology=accelerator.comm_topology, guard=guard,
+        comm={"overlap": dict(accelerator.comm_overlap_meta)},
+        extra={
+            "api": "managed",
+            "fuse_steps": accelerator.fuse_steps,
+            "grad_accumulation": accelerator.gradient_accumulation_steps,
+            "start_epoch": start_epoch,
+            "num_epochs": num_epochs,
+            "step_stats_every": int(step_stats_every or 0),
+            "pipeline": train_loader.cfg.as_dict(),
+            "comm_density": accelerator.topk_density,
+            # known once the model has materialised (a resumed run); the
+            # JAX header leaves the key out otherwise
+            **({"grad_comm_bytes_per_update": optimizer.grad_comm_bytes_per_step}
+               if optimizer.grad_comm_bytes_per_step is not None else {}),
+            **(run_meta or {}),
+        },
+    ))
+    tel = RunTelemetry(writer, save_dir, step_stats_every, device)
     prev_skips = optimizer.skip_counters()[0] if guard.enabled else 0
     rollbacks = 0
 
@@ -189,99 +247,105 @@ def run_training_loop(
                 "not a transient."
             )
         redo = accelerator.load_state(model, optimizer, save_dir)
-        if accelerator.is_main_process:
-            append_row(save_dir, event("rollback", epoch=epoch, resume_epoch=redo, reason=reason))
+        writer.write(event("rollback", epoch=epoch, resume_epoch=redo, reason=reason))
         accelerator.print(f"Guard rollback ({reason}): restored last-good state, "
                           f"redoing from epoch {redo}.")
         return redo
 
-    history = []
-    epoch = start_epoch
-    while epoch < num_epochs:
-        if guard.enabled and guard.audit_every_n_epochs and \
-                (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
-            bad_leaf = guard_lib.audit_params(model.module)
-            if bad_leaf is not None:
-                if accelerator.is_main_process:
-                    append_row(save_dir, event("desync", epoch=epoch, leaf=bad_leaf))
-                if guard.on_desync == "rollback":
-                    redo = rollback(epoch, f"replica desync at leaf {bad_leaf}")
-                    if redo is not None:
-                        epoch, prev_skips = redo, optimizer.skip_counters()[0]
-                        continue
-                raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
-        epoch_t0 = time.perf_counter()
-        train_loader.set_epoch(epoch)
-        clock = StepClock(accelerator.device)
-        updates = optimizer.updates
-        train_loss, train_samples = train(
-            model, train_loader, criterion, optimizer, accelerator, clock
-        )
-        step_ms = clock.step_ms()
-        train_time_s = time.perf_counter() - epoch_t0
-        test_loss, test_accuracy, test_samples = evaluate(
-            model, test_loader, criterion, eval_transform, deferred=deferred_metrics
-        )
-        epoch_time = time.perf_counter() - epoch_t0
-        accelerator.print(
-            f"Epoch {epoch + 1}/{num_epochs}, "
-            f"Train Loss: {train_loss:.4f}, "
-            f"Test Loss: {test_loss:.4f}, "
-            f"Test Accuracy: {test_accuracy:.2f}%"
-        )
-        record = {
-            "epoch": epoch,
-            "train_loss": train_loss,
-            "test_loss": test_loss,
-            "test_accuracy": test_accuracy,
-            "train_samples": train_samples,
-            "test_samples": test_samples,
-            "train_time_s": train_time_s,
-            "epoch_time_s": epoch_time,
-            "step_ms": step_ms,
-            "host_stall_s": train_loader.stall.total,
-            "updates": optimizer.updates - updates,
-            "api": "managed",
-            "grad_accumulation": accelerator.gradient_accumulation_steps,
-            "fuse_steps": optimizer.fuse_depth or accelerator.fuse_steps,
-            "comm_hook": accelerator.comm_hook,
-            "grad_comm_bytes_per_update": optimizer.grad_comm_bytes_per_step,
-            "world_size": accelerator.num_processes,
-        }
-        # the guard's skips: one counter fetch per epoch, never silent
-        epoch_skips = consecutive = 0
-        if guard.enabled:
-            total, consecutive = optimizer.skip_counters()
-            epoch_skips, prev_skips = total - prev_skips, total
-            record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
-            if epoch_skips:
-                accelerator.print(f"Guard: skipped {epoch_skips} non-finite update(s) in epoch "
-                                  f"{epoch} (total {total}).")
-        history.append(record)
-        if accelerator.is_main_process:
-            append_row(save_dir, record)
-            if epoch_skips:
-                append_row(save_dir, event("skipped_updates", epoch=epoch, count=epoch_skips,
-                                           total=record["skipped_steps"]))
-        if consecutive > guard.max_consecutive_skips:
-            # training stalled on frozen weights: roll back, or fail loudly
-            reason = f"{consecutive} consecutive non-finite updates skipped"
-            redo = rollback(epoch, reason)
-            if redo is not None:
-                epoch, prev_skips = redo, optimizer.skip_counters()[0]
-                continue
-            raise FloatingPointError(
-                f"non-finite gradients forced {consecutive} consecutive skipped updates and no "
-                "saved state exists to roll back to (lower checkpoint_epoch to arm rollback)"
+    try:
+        history = []
+        epoch = start_epoch
+        while epoch < num_epochs:
+            if guard.enabled and guard.audit_every_n_epochs and \
+                    (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
+                bad_leaf = guard_lib.audit_params(model.module)
+                if bad_leaf is not None:
+                    writer.write(event("desync", epoch=epoch, leaf=bad_leaf))
+                    if guard.on_desync == "rollback":
+                        redo = rollback(epoch, f"replica desync at leaf {bad_leaf}")
+                        if redo is not None:
+                            epoch, prev_skips = redo, optimizer.skip_counters()[0]
+                            continue
+                    raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
+            epoch_t0 = time.perf_counter()
+            train_loader.set_epoch(epoch)
+            clock = StepClock(accelerator.device)
+            tel.start_epoch(epoch, clock)
+            updates = optimizer.updates
+            train_loss, train_samples = train(
+                model, train_loader, criterion, optimizer, accelerator, clock, tel
             )
-        if save_dir is not None and epoch % checkpoint_epoch == 0:
-            accelerator.wait_for_everyone()
-            accelerator.save_model(model, save_dir)
-            accelerator.save_state(model, optimizer, save_dir, epoch=epoch, keep_last=keep_last)
-        epoch += 1
-    accelerator.print("Finished Training.")
-    return history
-
+            step_ms = clock.step_ms()
+            step_fields = tel.end_epoch(step_ms)
+            train_time_s = time.perf_counter() - epoch_t0
+            test_loss, test_accuracy, test_samples = evaluate(
+                model, test_loader, criterion, eval_transform, deferred=deferred_metrics
+            )
+            tel.stop_epoch_trace()  # the first-epoch and SIGUSR1 traces hold the eval pass
+            epoch_time = time.perf_counter() - epoch_t0
+            accelerator.print(
+                f"Epoch {epoch + 1}/{num_epochs}, "
+                f"Train Loss: {train_loss:.4f}, "
+                f"Test Loss: {test_loss:.4f}, "
+                f"Test Accuracy: {test_accuracy:.2f}%"
+            )
+            record = {
+                "epoch": epoch,
+                "train_loss": train_loss,
+                "test_loss": test_loss,
+                "test_accuracy": test_accuracy,
+                "train_samples": train_samples,
+                "test_samples": test_samples,
+                "train_time_s": train_time_s,
+                "epoch_time_s": epoch_time,
+                "samples_per_sec": (train_samples + test_samples) / max(epoch_time, 1e-9),
+                **step_fields,
+                "step_ms": step_ms,
+                "host_stall_s": train_loader.stall.total,
+                "updates": optimizer.updates - updates,
+                "api": "managed",
+                "grad_accumulation": accelerator.gradient_accumulation_steps,
+                "fuse_steps": optimizer.fuse_depth or accelerator.fuse_steps,
+                "comm_hook": accelerator.comm_hook,
+                "grad_comm_bytes_per_update": optimizer.grad_comm_bytes_per_step,
+                "world_size": accelerator.num_processes,
+            }
+            # the guard's skips: one counter fetch per epoch, never silent
+            epoch_skips = consecutive = 0
+            if guard.enabled:
+                total, consecutive = optimizer.skip_counters()
+                epoch_skips, prev_skips = total - prev_skips, total
+                record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
+                if epoch_skips:
+                    accelerator.print(f"Guard: skipped {epoch_skips} non-finite update(s) in epoch "
+                                      f"{epoch} (total {total}).")
+            record = schema.stamp("epoch", record)
+            history.append(record)
+            writer.write(record)
+            if epoch_skips:
+                writer.write(event("skipped_updates", epoch=epoch, count=epoch_skips,
+                                   total=record["skipped_steps"]))
+            if consecutive > guard.max_consecutive_skips:
+                # training stalled on frozen weights: roll back, or fail loudly
+                reason = f"{consecutive} consecutive non-finite updates skipped"
+                redo = rollback(epoch, reason)
+                if redo is not None:
+                    epoch, prev_skips = redo, optimizer.skip_counters()[0]
+                    continue
+                raise FloatingPointError(
+                    f"non-finite gradients forced {consecutive} consecutive skipped updates and no "
+                    "saved state exists to roll back to (lower checkpoint_epoch to arm rollback)"
+                )
+            if save_dir is not None and epoch % checkpoint_epoch == 0:
+                accelerator.wait_for_everyone()
+                accelerator.save_model(model, save_dir)
+                accelerator.save_state(model, optimizer, save_dir, epoch=epoch, keep_last=keep_last)
+            epoch += 1
+        accelerator.print("Finished Training.")
+        return history
+    finally:
+        tel.finish()
+        writer.close()
 
 def build_training(training: dict, device: str = "cuda"):
     """The accelerator and the prepared objects a process trains with:
@@ -363,6 +427,12 @@ def basic_accelerate_training(
         deferred_metrics=bool(training.get("deferred_metrics")),
         start_epoch=start_epoch,
         keep_last=int(training["keep_last"]) if training.get("keep_last") else None,
+        step_stats_every=int(training.get("step_stats_every") or 0),
+        run_meta={
+            "config_hash": config_hash(training),
+            "model": training.get("model"),
+            "dataset": training.get("dataset"),
+        },
     )
 
 

@@ -21,7 +21,13 @@ bitwise no-op, the replicas audited, rollback to the last good checkpoint:
 77. ``pretrained_path`` fine-tunes from a torchvision checkpoint on disk
 (``models/pretrained.py``; nothing is downloaded). ``comm_topology:
 hierarchical`` exchanges the gradient in three hops, within each host and
-then between the hosts (``parallel/comm.py``).
+then between the hosts (``parallel/comm.py``). ``remat: true`` recomputes
+each train forward in its backward (``nn/remat.py``), bitwise the plain
+run. Process 0 writes ``out_dir/history.jsonl``: a ``run_meta`` header,
+one ``epoch`` row per epoch (with the step-time percentiles and MFU),
+``step_stats`` rows every ``step_stats_every`` updates and event rows;
+``$TPUDDP_PROFILE``, ``$TPUDDP_PROFILE_STEPS`` and SIGUSR1 write
+``torch.profiler`` traces (``observability/``).
 
 Across hosts, one settings file with a ``local.rendezvous`` block
 (``coordinator_address``, ``num_processes`` = the hosts) serves every host;
@@ -54,6 +60,7 @@ from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.models.pretrained import pretrained_from_config
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
+from tpuddp_torch.observability import config_hash
 from tpuddp_torch.parallel import comm
 from tpuddp_torch.parallel.ddp import DistributedDataParallel
 from tpuddp_torch.parallel.spawn import resolve_world, run_ddp_training
@@ -93,6 +100,13 @@ def load_model_for(training: dict, input_shape) -> torch.nn.Module:
     model = pretrained_from_config(training)
     print(f"Loaded pretrained {training['model']} weights from {training['pretrained_path']}.")
     return model
+
+
+def model_input_for(training: dict, train_loader):
+    """One train batch as the model takes it (after the augment):
+    ``(shape, dtype)``, what the telemetry counts one update's FLOPs on."""
+    in_hw = training.get("image_size") or train_loader.dataset.images.shape[1]
+    return (int(training["train_batch_size"]), in_hw, in_hw, 3), compute_dtype_for(training)
 
 
 def build_training(rank: int, world_size: int, training: dict, device: str = "cuda"):
@@ -157,6 +171,8 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         guard=training.get("guard"),
         # flat, or the three-hop exchange over hosts x local processes
         comm_topology=str(training.get("comm_topology") or "flat"),
+        # the forward recomputed in the backward (train_native.py:149)
+        remat=bool(training.get("remat", False)),
     )
     if ddp.hierarchy is not None:
         hosts, local = ddp.hierarchy
@@ -198,6 +214,15 @@ def basic_ddp_training_loop(
         keep_last=int(training["keep_last"]) if training.get("keep_last") else None,
         pipeline=training.get("pipeline"),
         scan_steps=training.get("scan_steps", "auto"),
+        # one step_stats row per N updates (0: none)
+        step_stats_every=int(training.get("step_stats_every") or 0),
+        # the run_meta header's provenance (train_native.py:217-221)
+        run_meta={
+            "config_hash": config_hash(training),
+            "model": training.get("model"),
+            "dataset": training.get("dataset"),
+        },
+        model_input=model_input_for(training, train_loader),
     )
 
 

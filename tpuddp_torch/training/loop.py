@@ -38,7 +38,14 @@ events recorded between dispatches, read once after the pass, so the loop
 adds no synchronisation per update; a dispatch of K updates (a replay)
 gives each of them its time over K. Also the time the pass waited for host
 batches (``host_stall_s``) and the resolved ``scan_steps`` of both passes.
-Process 0 appends every row to ``save_dir/history.jsonl``; it also says
+Process 0 appends every row to ``save_dir/history.jsonl`` in the JAX
+package's typed schema (``tpuddp/training/loop.py:399-520``;
+:mod:`tpuddp_torch.observability`): a ``run_meta`` header at the loop's
+start (a resumed run appends a fresh one), ``epoch`` rows with the
+step-time percentiles over ``step_ms`` and MFU, one ``step_stats`` row per
+``step_stats_every`` updates (one wait for the device per window; none
+with 0) and ``event`` rows; ``$TPUDDP_PROFILE``, ``$TPUDDP_PROFILE_STEPS``
+and SIGUSR1 trace through ``torch.profiler``. Each row also says
 whether the update was sharded (``weight_update_sharding``, ZeRO-1: each
 checkpoint then gathers the moment shards from every rank), the comm hook
 and one update's gradient wire bytes with it and in float32
@@ -73,10 +80,8 @@ carries it as any batch. Rows are strict JSON: a non-finite loss is null.
 
 from __future__ import annotations
 
-import json
 import logging
 import math
-import os
 import time
 from typing import Optional
 
@@ -84,6 +89,9 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch import optim, seeding
+from tpuddp_torch.observability import CommBytesCounter, MetricsWriter, RunTelemetry, schema
+from tpuddp_torch.observability.recorder import count_step_flops
+from tpuddp_torch.parallel import backend
 from tpuddp_torch.resilience import faults
 from tpuddp_torch.resilience import guard as guard_lib
 from tpuddp_torch.training import checkpoint as ckpt
@@ -177,6 +185,20 @@ class StepClock:
         else:
             self.marks.append(time.perf_counter())
 
+    def fence(self):
+        """A mark taken now and waited for (not one of ``marks``): the
+        ``step_stats`` window's one wait."""
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ev.synchronize()
+        return ev
+
+    def seconds(self, a, b) -> float:
+        """Seconds from mark ``a`` to a completed mark ``b``."""
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
     def step_ms(self):
         if self.cuda:
             self.marks[-1].synchronize()
@@ -211,30 +233,10 @@ def _per_replica_lines(sums: torch.Tensor, world_size: int, log) -> None:
             f"based on {_count(n)} samples")
 
 
-def strict_json(value):
-    """``value`` with every non-finite float as None (strict JSON: a
-    poisoned epoch's loss is ``null``, never a bare ``NaN``)."""
-    if isinstance(value, float) and not math.isfinite(value):
-        return None
-    if isinstance(value, dict):
-        return {k: strict_json(v) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return [strict_json(v) for v in value]
-    return value
-
-
-def append_row(save_dir: Optional[str], row: dict) -> None:
-    """One strict-JSON line of ``save_dir/history.jsonl`` (nothing without a
-    directory)."""
-    if save_dir is not None:
-        os.makedirs(save_dir, exist_ok=True)
-        with open(os.path.join(save_dir, "history.jsonl"), "a") as f:
-            f.write(json.dumps(strict_json(row)) + "\n")
-
-
 def event(name: str, **fields) -> dict:
-    """A history event row (``{"type": "event", "event": name, ...}``)."""
-    return {"type": "event", "event": name, **fields}
+    """A typed history event row (``{"type": "event", "event": name, ...}``,
+    stamped with the schema version)."""
+    return schema.stamp("event", {"event": name, **fields})
 
 
 def nan_injector():
@@ -278,10 +280,17 @@ def run_training_loop(
     keep_last: Optional[int] = None,
     pipeline=None,
     scan_steps="auto",
+    step_stats_every: int = 0,
+    run_meta: Optional[dict] = None,
+    model_input: Optional[tuple] = None,
     log=print,
 ):
     """Run the epochs from the first not yet done (0 unless resumed) to
-    ``num_epochs``; returns the list of per-epoch records."""
+    ``num_epochs``; returns the list of per-epoch records. ``run_meta``
+    holds the entry point's header fields (config_hash, model, dataset);
+    ``model_input`` is one train batch's ``(shape, dtype)`` as the model
+    takes it, which the telemetry counts an update's FLOPs on (MFU is
+    null without it)."""
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
     accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
     pipeline = pipeline_lib.resolve_pipeline(pipeline)
@@ -318,6 +327,42 @@ def run_training_loop(
     guard = getattr(ddp, "guard", guard_lib.DISABLED)
     prev_total = ddp.skip_counters()[0] if guard.enabled else 0
     rollbacks = 0
+    # the typed history (tpuddp/training/loop.py:399-520): the run_meta
+    # header first (a resumed run appends a fresh one), then the recorder
+    # and the profiling triggers
+    writer = MetricsWriter(save_dir)
+    comm_counter = CommBytesCounter(getattr(ddp, "grad_comm_bytes_per_step", None))
+    writer.write(schema.make_run_meta(
+        world_size=world_size,
+        process_count=backend.num_hosts() or 1,
+        process_index=rank // (world_size // (backend.num_hosts() or 1)),
+        device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else None,
+        hierarchy=getattr(ddp, "hierarchy", None),
+        comm_hook=getattr(ddp, "comm_hook", "none"),
+        comm_topology=getattr(ddp, "comm_topology", "flat"),
+        guard=guard,
+        comm={"overlap": dict(ddp.comm_overlap_meta)},
+        extra={
+            "api": "native",
+            "scan_steps": scan_steps,
+            "grad_accumulation": accum,
+            "start_epoch": start_epoch,
+            "num_epochs": num_epochs,
+            "step_stats_every": int(step_stats_every or 0),
+            "pipeline": pipeline.as_dict(),
+            "grad_comm_bytes_per_update": comm_counter.bytes_per_update,
+            "grad_comm_bytes_per_update_f32": getattr(ddp, "grad_comm_bytes_per_step_f32", None),
+            "comm_density": getattr(ddp, "topk_density", None),
+            "grad_comm_bytes_inter_host": getattr(ddp, "grad_comm_bytes_inter_host", None),
+            "grad_comm_bytes_intra_host": getattr(ddp, "grad_comm_bytes_intra_host", None),
+            **(run_meta or {}),
+        },
+    ))
+    flops_fn = None
+    if accum == 1 and model_input is not None:  # the JAX package's null under accumulation
+        def flops_fn():
+            return count_step_flops(ddp.model, *model_input)
+    tel = RunTelemetry(writer, save_dir, step_stats_every, device, flops_fn)
 
     def can_roll_back() -> bool:
         return save_dir is not None and ckpt.agreed_latest(save_dir, device=device) is not None
@@ -338,144 +383,169 @@ def run_training_loop(
         )
         ddp.step = meta.get("step", ddp.step)
         ddp.clear_graphs()  # the restore replaced what a graph writes
+        writer.write(event("rollback", epoch=epoch, resume_epoch=redo, resume_step=None,
+                           reason=reason))
         if is_main:
-            append_row(save_dir, event("rollback", epoch=epoch, resume_epoch=redo,
-                                       resume_step=None, reason=reason))
             log(f"Guard rollback ({reason}): restored last-good checkpoint, "
                 f"redoing from epoch {redo}.")
         return redo
 
-    history = []
-    epoch = start_epoch
-    while epoch < num_epochs:
-        if guard.enabled and guard.audit_every_n_epochs and \
-                (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
-            bad_leaf = guard_lib.audit_params(ddp.model)
-            if bad_leaf is not None:
+    try:
+        history = []
+        epoch = start_epoch
+        while epoch < num_epochs:
+            if guard.enabled and guard.audit_every_n_epochs and \
+                    (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
+                bad_leaf = guard_lib.audit_params(ddp.model)
+                if bad_leaf is not None:
+                    writer.write(event("desync", epoch=epoch, leaf=bad_leaf))
+                    if guard.on_desync == "rollback" and can_roll_back():
+                        epoch = rollback(epoch, f"replica desync at leaf {bad_leaf}")
+                        prev_total = ddp.skip_counters()[0]
+                        continue
+                    raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
+            t0 = time.perf_counter()
+            if is_main:
+                log(f"Process {rank}, Epoch {epoch}")
+            if set_epoch:
+                # without it every epoch replays epoch-0 order (reference :175-178)
+                train_loader.set_epoch(epoch)
+                test_loader.set_epoch(epoch)
                 if is_main:
-                    append_row(save_dir, event("desync", epoch=epoch, leaf=bad_leaf))
-                if guard.on_desync == "rollback" and can_roll_back():
-                    epoch = rollback(epoch, f"replica desync at leaf {bad_leaf}")
+                    log(f"DistributedSampler.set_epoch: {set_epoch}")
+            if print_rand:
+                log(f"Process {rank}, {seeding.rng_probe_string(base_seed)}")
+
+            train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
+            clock = StepClock(device)
+            tel.start_epoch(epoch, clock)
+            left = len(train_loader)  # loader batches not yet dispatched
+            dispatched = 0  # dispatches since the last wait for the device
+            for many, chunk in dispatches(train_pass, train_k, accum):
+                updates = len(chunk) // accum
+                tel.pre_dispatch(updates)
+                clock.mark()
+                clock.groups.append(updates)
+                if not many:
+                    train_sums += ddp.train_step(chunk[0])
+                elif chunked:
+                    train_sums = ddp.train_step_many(chunk, train_sums)
+                else:
+                    train_sums += ddp.train_cycle(chunk)
+                real = min(len(chunk), left)  # an accumulation tail's padding is not the loader's
+                left -= real
+                windows = tel.recorder.windows_emitted
+                tel.post_dispatch(updates, train_pass.take_rows(real),
+                                  host_stall_s=train_pass.stall.take(),
+                                  staging_depth=train_pass.staged_depth,
+                                  inflight_depth=dispatched + 1)
+                dispatched = 0 if tel.recorder.windows_emitted > windows else dispatched + 1
+            clock.mark()
+            step_ms = clock.step_ms()
+            if not step_ms:
+                raise RuntimeError(
+                    "train loader yielded no batches this epoch; check the "
+                    "dataset and batch size"
+                )
+            train_time_s = time.perf_counter() - t0
+
+            eval_sums = torch.zeros(len(EVAL_KEYS), device=device)
+            for many, chunk in dispatches(test_pass, eval_k):
+                if many:
+                    eval_sums = ddp.eval_step_many(chunk, eval_sums)
+                else:
+                    eval_sums += ddp.eval_step(chunk[0])
+
+            if per_replica_log:
+                _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
+            sums = finalize_metrics(train_sums, eval_sums)
+            tel.stop_epoch_trace()  # the first-epoch and SIGUSR1 traces hold the eval pass
+            train_m, eval_m = sums["train"], sums["eval"]
+            train_loss = train_m["loss_sum"] / max(train_m["n"], 1.0)
+            test_loss = eval_m["loss_sum"] / max(eval_m["n"], 1.0)
+            test_accuracy = 100.0 * eval_m["correct"] / max(eval_m["n"], 1.0)
+            if is_main:
+                log(
+                    f"Epoch {epoch + 1}/{num_epochs}, "
+                    f"Train Loss: {train_loss:.4f}, "
+                    f"Test Loss: {test_loss:.4f}, "
+                    f"Test Accuracy: {test_accuracy:.2f}%"
+                )
+            epoch_time = time.perf_counter() - t0
+            epoch_updates = -(-len(train_loader) // accum)
+            comm_counter.add_updates(epoch_updates)
+            record = {
+                "epoch": epoch,
+                "train_loss": train_loss,
+                "test_loss": test_loss,
+                "test_accuracy": test_accuracy,
+                "train_samples": train_m["n"],
+                "test_samples": eval_m["n"],
+                "train_time_s": train_time_s,
+                "epoch_time_s": epoch_time,
+                "samples_per_sec": (train_m["n"] + eval_m["n"]) / max(epoch_time, 1e-9),
+                # step-time percentiles and MFU over step_ms (the recorder)
+                **tel.end_epoch(step_ms),
+                "step_ms": step_ms,
+                "host_stall_s": train_pass.stall.total,
+                "pipeline": pipeline.as_dict(),
+                "grad_accumulation": accum,
+                "weight_update_sharding": bool(getattr(ddp, "weight_update_sharding", False)),
+                "comm_hook": getattr(ddp, "comm_hook", "none"),
+                **comm_counter.snapshot(epoch_updates),
+                "grad_comm_bytes_per_update_f32": getattr(ddp, "grad_comm_bytes_per_step_f32",
+                                                          None),
+                # the top-k density and the bytes' split by link, under the JAX
+                # names (tpuddp/training/loop.py:415-431)
+                "comm_density": getattr(ddp, "topk_density", None),
+                "comm_topology": getattr(ddp, "comm_topology", "flat"),
+                "grad_comm_bytes_inter_host": getattr(ddp, "grad_comm_bytes_inter_host", None),
+                "grad_comm_bytes_intra_host": getattr(ddp, "grad_comm_bytes_intra_host", None),
+                "scan_steps": train_k,
+                "eval_scan_steps": eval_k,
+                "world_size": world_size,
+            }
+            # the guard's skips: one counter fetch per epoch
+            epoch_skips = consecutive = 0
+            if guard.enabled:
+                total, consecutive = ddp.skip_counters()
+                epoch_skips, prev_total = total - prev_total, total
+                record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
+                optim.sync_steps(ddp.optimizer)  # the host's step counts, at the epoch's end
+            record = schema.stamp("epoch", record)
+            history.append(record)
+            writer.write(record)
+            if epoch_skips:
+                writer.write(event("skipped_updates", epoch=epoch, count=epoch_skips,
+                                   total=record["skipped_steps"]))
+            if consecutive > guard.max_consecutive_skips:
+                # updates skipped back to back: restore the last good state
+                # instead of checkpointing a wedged trajectory
+                reason = f"{consecutive} consecutive non-finite updates skipped"
+                if can_roll_back():
+                    epoch = rollback(epoch, reason)
                     prev_total = ddp.skip_counters()[0]
                     continue
-                raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
-        t0 = time.perf_counter()
+                raise FloatingPointError(
+                    f"non-finite gradients forced {consecutive} consecutive skipped updates and no "
+                    "checkpoint exists to roll back to (set save_dir / checkpoint_epoch to arm "
+                    "rollback)"
+                )
+            if save_dir is not None and epoch % checkpoint_epoch == 0:
+                if epoch_skips:
+                    logger.warning("checkpointing epoch %d after %d skipped update(s) this epoch "
+                                   "(total %d)", epoch, epoch_skips, record["skipped_steps"])
+                ckpt.save_on_main(
+                    save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
+                    generator=ddp.generator, world_size=world_size, keep_last=keep_last,
+                    step=ddp.step, comm_state=getattr(ddp, "residual", None),
+                    skipped=(None if getattr(ddp, "firewall", None) is None
+                             else ddp.firewall.counters),
+                )
+            epoch += 1
         if is_main:
-            log(f"Process {rank}, Epoch {epoch}")
-        if set_epoch:
-            # without it every epoch replays epoch-0 order (reference :175-178)
-            train_loader.set_epoch(epoch)
-            test_loader.set_epoch(epoch)
-            if is_main:
-                log(f"DistributedSampler.set_epoch: {set_epoch}")
-        if print_rand:
-            log(f"Process {rank}, {seeding.rng_probe_string(base_seed)}")
-
-        train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
-        clock = StepClock(device)
-        for many, chunk in dispatches(train_pass, train_k, accum):
-            clock.mark()
-            clock.groups.append(len(chunk) // accum)
-            if not many:
-                train_sums += ddp.train_step(chunk[0])
-            elif chunked:
-                train_sums = ddp.train_step_many(chunk, train_sums)
-            else:
-                train_sums += ddp.train_cycle(chunk)
-        clock.mark()
-        step_ms = clock.step_ms()
-        if not step_ms:
-            raise RuntimeError(
-                "train loader yielded no batches this epoch; check the "
-                "dataset and batch size"
-            )
-        train_time_s = time.perf_counter() - t0
-
-        eval_sums = torch.zeros(len(EVAL_KEYS), device=device)
-        for many, chunk in dispatches(test_pass, eval_k):
-            if many:
-                eval_sums = ddp.eval_step_many(chunk, eval_sums)
-            else:
-                eval_sums += ddp.eval_step(chunk[0])
-
-        if per_replica_log:
-            _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
-        sums = finalize_metrics(train_sums, eval_sums)
-        train_m, eval_m = sums["train"], sums["eval"]
-        train_loss = train_m["loss_sum"] / max(train_m["n"], 1.0)
-        test_loss = eval_m["loss_sum"] / max(eval_m["n"], 1.0)
-        test_accuracy = 100.0 * eval_m["correct"] / max(eval_m["n"], 1.0)
-        if is_main:
-            log(
-                f"Epoch {epoch + 1}/{num_epochs}, "
-                f"Train Loss: {train_loss:.4f}, "
-                f"Test Loss: {test_loss:.4f}, "
-                f"Test Accuracy: {test_accuracy:.2f}%"
-            )
-        record = {
-            "epoch": epoch,
-            "train_loss": train_loss,
-            "test_loss": test_loss,
-            "test_accuracy": test_accuracy,
-            "train_samples": train_m["n"],
-            "test_samples": eval_m["n"],
-            "train_time_s": train_time_s,
-            "epoch_time_s": time.perf_counter() - t0,
-            "step_ms": step_ms,
-            "host_stall_s": train_pass.stall.total,
-            "pipeline": pipeline.as_dict(),
-            "grad_accumulation": accum,
-            "weight_update_sharding": bool(getattr(ddp, "weight_update_sharding", False)),
-            "comm_hook": getattr(ddp, "comm_hook", "none"),
-            "grad_comm_bytes_per_update": getattr(ddp, "grad_comm_bytes_per_step", None),
-            "grad_comm_bytes_per_update_f32": getattr(ddp, "grad_comm_bytes_per_step_f32", None),
-            # the top-k density and the bytes' split by link, under the JAX
-            # names (tpuddp/training/loop.py:415-431)
-            "comm_density": getattr(ddp, "topk_density", None),
-            "comm_topology": getattr(ddp, "comm_topology", "flat"),
-            "grad_comm_bytes_inter_host": getattr(ddp, "grad_comm_bytes_inter_host", None),
-            "grad_comm_bytes_intra_host": getattr(ddp, "grad_comm_bytes_intra_host", None),
-            "scan_steps": train_k,
-            "eval_scan_steps": eval_k,
-            "world_size": world_size,
-        }
-        # the guard's skips: one counter fetch per epoch
-        epoch_skips = consecutive = 0
-        if guard.enabled:
-            total, consecutive = ddp.skip_counters()
-            epoch_skips, prev_total = total - prev_total, total
-            record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
-            optim.sync_steps(ddp.optimizer)  # the host's step counts, at the epoch's end
-        history.append(record)
-        if is_main:
-            append_row(save_dir, record)
-            if epoch_skips:
-                append_row(save_dir, event("skipped_updates", epoch=epoch, count=epoch_skips,
-                                           total=record["skipped_steps"]))
-        if consecutive > guard.max_consecutive_skips:
-            # updates skipped back to back: restore the last good state
-            # instead of checkpointing a wedged trajectory
-            reason = f"{consecutive} consecutive non-finite updates skipped"
-            if can_roll_back():
-                epoch = rollback(epoch, reason)
-                prev_total = ddp.skip_counters()[0]
-                continue
-            raise FloatingPointError(
-                f"non-finite gradients forced {consecutive} consecutive skipped updates and no "
-                "checkpoint exists to roll back to (set save_dir / checkpoint_epoch to arm "
-                "rollback)"
-            )
-        if save_dir is not None and epoch % checkpoint_epoch == 0:
-            if epoch_skips:
-                logger.warning("checkpointing epoch %d after %d skipped update(s) this epoch "
-                               "(total %d)", epoch, epoch_skips, record["skipped_steps"])
-            ckpt.save_on_main(
-                save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
-                generator=ddp.generator, world_size=world_size, keep_last=keep_last,
-                step=ddp.step, comm_state=getattr(ddp, "residual", None),
-                skipped=None if getattr(ddp, "firewall", None) is None else ddp.firewall.counters,
-            )
-        epoch += 1
-    if is_main:
-        log(f"Finished Training on process {rank}.")
-    return history
+            log(f"Finished Training on process {rank}.")
+        return history
+    finally:
+        tel.finish()
+        writer.close()

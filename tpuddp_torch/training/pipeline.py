@@ -18,8 +18,9 @@ pageable copy before every step. Batches, order and arithmetic are the
 synchronous pass's, so the result is bitwise the same at every depth.
 :class:`StallClock` sums the time the pass waits for host batches.
 
-``device_augment: false`` and the telemetry and trace hooks of the JAX
-``run_pass`` are not ported (ROADMAP.md Queue 1 item 8).
+``device_augment: false`` and the trace hooks of the JAX ``run_pass`` are
+not ported (ROADMAP.md Queue 1 item 8); its telemetry hooks are the epoch
+loops' (:mod:`tpuddp_torch.observability`).
 """
 
 from __future__ import annotations
@@ -104,9 +105,16 @@ class StallClock:
 
     def __init__(self):
         self.total = 0.0
+        self._taken = 0.0
 
     def add(self, dt: float) -> None:
         self.total += dt
+
+    def take(self) -> float:
+        """The stall since the last ``take`` (a dispatch's occupancy
+        sample, ``step_stats``' ``host_stall_ms``)."""
+        dt, self._taken = self.total - self._taken, self.total
+        return dt
 
 
 def stalled_iter(loader, stall: StallClock):
@@ -161,7 +169,10 @@ class StagedLoader:
     after every step. ``probe(index, host_batch)`` sees each host batch
     before it is staged; ``inject(host_batch)``, when set, returns the batch
     to stage in its place (the ``nan@step=N`` fault injection). ``stall`` is
-    the last pass's :class:`StallClock`."""
+    the last pass's :class:`StallClock`; :meth:`take_rows` gives the real
+    rows of the next batches consumed, from the host weights, and
+    ``staged_depth`` the batches staged ahead when the last one was
+    handed out (the telemetry's occupancy fields)."""
 
     def __init__(self, loader, device, cfg: PipelineConfig = DEFAULT,
                  probe: Optional[Callable] = None, inject: Optional[Callable] = None):
@@ -171,6 +182,8 @@ class StagedLoader:
         self.probe = probe
         self.inject = inject
         self.stall = StallClock()
+        self._rows = deque()
+        self.staged_depth = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -185,8 +198,14 @@ class StagedLoader:
         if self.cfg.sync_readback and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def take_rows(self, n: int) -> float:
+        """The real rows (the weights' sum) of the next ``n`` batches
+        consumed."""
+        return sum(self._rows.popleft() for _ in range(min(n, len(self._rows))))
+
     def __iter__(self):
         self.stall = StallClock()
+        self._rows.clear()
         depth = 0 if self.cfg.sync_readback else staging_depth_for(
             self.cfg.depth, getattr(self.loader, "batch_nbytes", None)
         )
@@ -196,10 +215,13 @@ class StagedLoader:
                 self.probe(i, host_batch)
             if self.inject is not None:
                 host_batch = self.inject(host_batch)
+            self._rows.append(float(np.asarray(host_batch[2], dtype=np.float64).sum()))
             staged.append(stage_batch(host_batch, self.device))
             while len(staged) > depth:
+                self.staged_depth = len(staged) - 1
                 yield staged.popleft()
                 self._fence()
         while staged:
+            self.staged_depth = len(staged) - 1
             yield staged.popleft()
             self._fence()

@@ -71,6 +71,12 @@ staging vector (every segment's span of it), lands only where it is 1; the
 BatchNorm buffers go back to their values before the step (before the
 cycle under accumulation, ``:960-1066``) where it is 0; the skip counters
 advance. All of it happens on the device, so a chunk replays whole.
+
+``remat`` (``training.remat``, ``tpuddp/training/step.py:187-195``) runs
+each train forward under :func:`tpuddp_torch.nn.remat.forward`: the
+backward recomputes it, with the forward's dropout draws and without a
+second BatchNorm buffer update, so the step is bitwise the plain one, per
+step, cycle and replayed chunk.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpuddp_torch.nn.norm import batch_weights
+from tpuddp_torch.nn import remat as remat_lib
 from tpuddp_torch.optim import clip_grad_norm_
 from tpuddp_torch.parallel import collectives
 
@@ -161,18 +167,19 @@ def make_flat_param_spec(model: torch.nn.Module, world: int) -> FlatParamSpec:
 def grad_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_buffers: Callable,
     x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, flip_mask: Optional[torch.Tensor] = None,
-    arm: Optional[Callable] = None,
+    arm: Optional[Callable] = None, remat: bool = False,
 ):
     """Forward and backward of one batch; the replica's local weighted-mean
     gradient replaces each parameter's ``.grad``. Returns the on-device
     ``(loss, n)``. Without ``flip_mask`` the augment draws its own.
     ``arm(loss, n)``, when given, runs just before the backward (it arms
-    the segmented exchange)."""
+    the segmented exchange). ``remat`` checkpoints the whole forward
+    (:func:`tpuddp_torch.nn.remat.forward`; ``tpuddp/training/step.py:
+    187-195``): the backward recomputes it, bitwise the plain step."""
     model.train()
     if augment is not None:
         x = augment(x) if flip_mask is None else augment(x, flip_mask=flip_mask)
-    with batch_weights(model, w):
-        logits = model(x)
+    logits = remat_lib.forward(model, x, w, remat)
     sync_buffers()
     loss = criterion(logits, y, w)
     n = w.sum()
@@ -413,14 +420,16 @@ def train_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     clip: Optional[float] = None, flip_mask: Optional[torch.Tensor] = None,
-    overlap: Optional[SegmentedSync] = None, firewall=None,
+    overlap: Optional[SegmentedSync] = None, firewall=None, remat: bool = False,
 ) -> torch.Tensor:
     """One train step; returns the on-device sums ``[loss_sum, n]``. With
     ``overlap`` its segmented exchange replaces ``sync_grads``; with
-    ``firewall`` the update is guarded and a skipped step's buffers revert."""
+    ``firewall`` the update is guarded and a skipped step's buffers revert;
+    ``remat`` recomputes the forward in the backward."""
     saved = None if firewall is None else firewall.save_buffers(model)
     arm = None if overlap is None else (lambda loss, n: overlap.arm())
-    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask, arm)
+    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask, arm,
+                        remat)
     update_core(optimizer, sync_grads if overlap is None else overlap.join, clip, firewall)
     if saved is not None:
         firewall.restore_buffers(model, saved)
@@ -440,7 +449,7 @@ def train_cycle(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, batches: Sequence, clip: Optional[float] = None,
     flip_masks: Optional[Sequence] = None, overlap: Optional[SegmentedSync] = None,
-    firewall=None,
+    firewall=None, remat: bool = False,
 ) -> torch.Tensor:
     """One accumulation cycle over the device batches ``(x, y, w)`` of
     ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
@@ -461,7 +470,8 @@ def train_cycle(
         if overlap is not None and j == len(batches) - 1:
             def arm(loss, n):
                 overlap.arm(fold=(acc, n, _denom(_add_step(sums, loss, n))))
-        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, mask, arm)
+        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, mask, arm,
+                            remat)
         if arm is None:
             for i, p in enumerate(params):
                 if p.grad is not None:
@@ -481,22 +491,23 @@ def train_many(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, sums: torch.Tensor, batches: Sequence, flip_masks: Sequence,
     clip: Optional[float] = None, accum: int = 1, overlap: Optional[SegmentedSync] = None,
-    firewall=None,
+    firewall=None, remat: bool = False,
 ) -> torch.Tensor:
     """K train steps on the device batches (K / ``accum`` accumulation
     cycles), each step's flip mask given: the counterpart of
     ``build_train_scan_step`` (``tpuddp/training/step.py:840-1100``).
     Returns ``sums`` plus each step's (each cycle's) sums, added in order,
-    as the per-batch loop adds them; each update guarded with ``firewall``."""
+    as the per-batch loop adds them; each update guarded with ``firewall``,
+    each forward recomputed in its backward under ``remat``."""
     for i in range(0, len(batches), accum):
         if accum == 1:
             x, y, w = batches[i]
             step = train_core(model, optimizer, criterion, augment, sync_grads, sync_buffers,
-                              x, y, w, clip, flip_masks[i], overlap, firewall)
+                              x, y, w, clip, flip_masks[i], overlap, firewall, remat)
         else:
             step = train_cycle(model, optimizer, criterion, augment, sync_grads, sync_buffers,
                                batches[i:i + accum], clip, flip_masks[i:i + accum], overlap,
-                               firewall)
+                               firewall, remat)
         sums = sums + step
     return sums
 
