@@ -368,6 +368,23 @@ Phases, each printing one line (the first failure exits non-zero):
    window's ten device operations by total time and the device idle share
    (1 - the union of the kernels' intervals over the span from the first
    device operation to the last).
+20. the preemption drain and step snapshots (``training.snapshot``):
+   - "20 preempt": per path (native, then managed), ``cifar10_alexnet_h100.yaml``
+     (``..._managed_h100.yaml``) one synthetic epoch at ``scan_steps: 4``
+     with ``snapshot: {every_steps: 4, inflight: 1}``: straight; with
+     ``$TPUDDP_FAULT=preempt@step=10``, exit 75 and a ``{prefix}_0_s{N}.npz``
+     with the v4 cursor; the ``$TPUDDP_AUTO_RESUME=1`` rerun continuing at
+     N, its epoch row and epoch file bitwise the straight run's (native at
+     2.9944 / 2.3076); Adam launches 16, N and 16 - N;
+   - "20 SIGTERM": the native entry point's ``main`` in a process of its
+     own, 3 synthetic epochs of 64 steps one step per batch: SIGTERM 1 s
+     after epoch 0's banner, exit 75 within the 25 s grace, the drain's
+     step snapshot inside epoch 0 intact, a ``preempt`` event row, one Adam
+     launch per update;
+   - "20 snapshot turns": 2 epochs at ``scan_steps: 4``, snapshots (every
+     4 steps, one held at a time) off and on in turns: rows bitwise, epoch
+     2's step median, snapshots written and skipped, the writer's seconds
+     and the loop's per step in the engine.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -377,7 +394,8 @@ Then one JSON line with the fused steps' numbers, one with phase 10's, one
 with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
-phase 17's, one with phase 18's, one with phase 19's, one with the optimizers', one
+phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
+the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -392,10 +410,12 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 
@@ -421,7 +441,7 @@ from tpuddp_torch.optim import Adam  # noqa: E402
 from tpuddp_torch.parallel import collectives, comm  # noqa: E402
 from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
-from tpuddp_torch.resilience import faults  # noqa: E402
+from tpuddp_torch.resilience import faults, preemption  # noqa: E402
 from tpuddp_torch.resilience import guard as guard_lib  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
 from tpuddp_torch.train_accelerate import build_training as managed_build  # noqa: E402
@@ -4245,6 +4265,278 @@ def telemetry_phase(plain):
                                      for label, r in runs.items()})
 
 
+# ---------------------------------------------------------------- phase 20 --
+
+# the step snapshots of phase 20: every 4 real micro-batches, one held at a
+# time (a 685 MB write takes seconds on the card's host: the rest are
+# skipped, and fewer writes keep the phase short); its dispatches (chunks
+# of 4, replayed from the second) and the global train micro-batch of the
+# injected preempt
+PREEMPT_SNAP = {"every_steps": 4, "inflight": 1}
+PREEMPT_RUN = {"scan_steps": 4, "snapshot": PREEMPT_SNAP, "keep_last": 2}
+PREEMPT_STEP = 10
+PREEMPT_GRACE_S = 25.0  # the drain's default grace ($TPUDDP_PREEMPT_GRACE)
+SNAPSHOT_TURNS = ("off", "on", "on", "off")  # the turns without snapshots have no save directory
+# the SIGTERM run: 64 steps an epoch (over a second one step per batch), the
+# signal this long after epoch 0's banner
+SIGTERM_N = [8192, 512]
+SIGTERM_AFTER_S = 1.0
+# the entry point in a process of its own: main() as `python -m
+# tpuddp_torch.train_native` runs it, its Adam launches printed however it
+# ends (the drain ends it with SystemExit(75))
+SIGTERM_SCRIPT = (
+    "import json, sys\n"
+    "from tpuddp_torch import train_native\n"
+    "from tpuddp_torch.ops import fused_adam\n"
+    "try:\n"
+    "    train_native.main(['--settings_file', sys.argv[1]])\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps({k.symbol: k.launches for k in fused_adam.kernels.values()}),\n"
+    "          flush=True)\n"
+)
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with ``env`` set (the fault spec re-read), then put back."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    faults.reload_faults()
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reload_faults()
+
+
+def _drained(fn):
+    """``fn()`` that the drain ends: ``(exit code, seconds)``; the flag is
+    cleared after (else the grace failsafe would end this process)."""
+    t0 = time.perf_counter()
+    code = 0
+    try:
+        fn()
+    except SystemExit as e:
+        code = e.code
+    finally:
+        preemption.reset_preemption()
+    return code, time.perf_counter() - t0
+
+
+def _step_files(d: str, prefix: str):
+    return sorted((f for f in os.listdir(d) if f.startswith(f"{prefix}_0_s") and f.endswith(".npz")),
+                  key=lambda f: int(f[len(prefix) + 4:-4]))
+
+
+def preempt_cycle(kind: str, root: str):
+    """20 for one path: the epoch straight with snapshots every 4 steps;
+    the same run with ``$TPUDDP_FAULT=preempt@step=10``, which must exit 75
+    with a step snapshot carrying the v4 cursor; the ``$TPUDDP_AUTO_RESUME=1``
+    rerun, whose epoch row and epoch file must be bitwise the straight
+    run's; one Adam launch per update in each run."""
+    native = kind == "native"
+    prefix = "ckpt" if native else "state"
+    path = SETTINGS if native else SETTINGS_MANAGED
+    worker = basic_ddp_training_loop if native else basic_accelerate_training
+    straight, cut = os.path.join(root, f"{kind}_straight"), os.path.join(root, f"{kind}_cut")
+
+    def run(save_dir):
+        settings, training = training_for(path)
+        training.update(PREEMPT_RUN)
+        reset_counts()
+        history = run_ddp_training(partial(worker, training=training, device="cuda"), 1, save_dir,
+                                   cfg_lib.optional_args_from(settings), backend="cuda")
+        torch.cuda.synchronize()
+        return history, fused_adam.kernel.launches
+
+    t0 = time.perf_counter()
+    whole, l_whole = run(straight)
+    straight_s = time.perf_counter() - t0
+    code, drain_s = _drained(lambda: _with_env({"TPUDDP_FAULT": f"preempt@step={PREEMPT_STEP}"},
+                                               lambda: run(cut)))
+    l_cut = fused_adam.kernel.launches
+    snaps = _step_files(cut, prefix)
+    newest = os.path.join(cut, snaps[-1]) if snaps else None
+    cursor = ckpt.read_cursor(newest) if newest else None
+    intact = newest is not None and ckpt.verify_file(newest)  # before the resume prunes it
+    t0 = time.perf_counter()
+    again, l_again = _with_env({"TPUDDP_AUTO_RESUME": "1"}, lambda: run(cut))
+    resumed_s = time.perf_counter() - t0
+    a, b = _arrays(os.path.join(straight, f"{prefix}_0.npz")), _arrays(os.path.join(cut, f"{prefix}_0.npz"))
+    step = int(cursor["step"]) if cursor else -1
+    keys = ("train_loss", "test_loss", "test_accuracy", "train_samples")
+    checks = {
+        "exit 75": code == 75,
+        "a step snapshot with a v4 cursor (epoch 0, 0 < step < 16, plan key)": cursor is not None
+        and cursor["epoch"] == 0 and 0 < step < 16 and bool(cursor.get("plan_key")) and intact,
+        "resumed epoch row bitwise the straight run's": [[r[k] for k in keys] for r in again] == [
+            [r[k] for k in keys] for r in whole],
+        f"{prefix}_0.npz bitwise the straight run's": sorted(a) == sorted(b)
+        and all(np.array_equal(a[k], b[k]) for k in a),
+        "one Adam launch per update (16 straight, step cut, 16 - step resumed)": (
+            l_whole, l_cut, l_again) == (16, step, 16 - step),
+    }
+    if native:
+        checks["the epoch at 2.9944 / 2.3076"] = (
+            round(whole[0]["train_loss"], 4), round(whole[0]["test_loss"], 4)) == F32_LOSSES
+    del a, b
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 20 preempt {kind} failed {failed}: exit {code}, files "
+                         f"{sorted(os.listdir(cut))}, cursor {cursor}, launches {(l_whole, l_cut, l_again)}, "
+                         f"straight {whole}, resumed {again}")
+    acc = {k: np.asarray(v).tolist() for k, v in (cursor.get("acc") or {}).items() if k != "['losses']"}
+    phase("20 preempt", f"{kind} AlexNet@224 b128 float32, scan_steps 4, snapshot every 4 steps: "
+          f"preempt@step={PREEMPT_STEP} exit {code} after {drain_s:.2f} s, {snaps[-1]} (cursor step "
+          f"{step}, plan key {cursor['plan_key']}, acc {acc}); auto-resume continued at step {step}: "
+          f"train_loss {again[0]['train_loss']!r} test_loss {again[0]['test_loss']!r} bitwise the straight "
+          f"run's, {prefix}_0.npz bitwise; Adam launches straight/cut/resumed {l_whole}/{l_cut}/{l_again}; "
+          f"straight run {straight_s:.2f} s, resumed run {resumed_s:.2f} s")
+    shutil.rmtree(straight, ignore_errors=True)
+    shutil.rmtree(cut, ignore_errors=True)
+    return dict(exit=code, drain_s=drain_s, cursor_step=step, file=snaps[-1], acc=acc,
+                straight_s=straight_s, resumed_s=resumed_s,
+                losses={k: again[0][k] for k in ("train_loss", "test_loss")},
+                launches={f"{kind} straight snapshots (phase 20)": l_whole,
+                          f"{kind} preempted (phase 20)": l_cut, f"{kind} resumed (phase 20)": l_again})
+
+
+def sigterm_run(root: str):
+    """20 SIGTERM: ``cifar10_alexnet_h100.yaml`` through ``python -m
+    tpuddp_torch.train_native``'s ``main`` in a process of its own (3
+    synthetic epochs of 64 steps, one step per batch, snapshots every 4
+    steps); :data:`SIGTERM_AFTER_S` after epoch 0's banner the script sends
+    SIGTERM; the process must exit 75 within the grace with an intact step
+    snapshot written for the drain and a ``preempt`` event row."""
+    settings = cfg_lib.load_settings(SETTINGS)
+    d = os.path.join(root, "sigterm")
+    os.makedirs(d)
+    settings["out_dir"] = d
+    settings["training"].update(num_epochs=3, dataset="synthetic", synthetic_n=SIGTERM_N,
+                                scan_steps=1, snapshot=PREEMPT_SNAP, keep_last=2)
+    steps = SIGTERM_N[0] // settings["training"]["train_batch_size"]
+    yaml_path = os.path.join(root, "sigterm.yaml")
+    with open(yaml_path, "w") as f:
+        json.dump(settings, f)  # JSON is YAML
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for var in ("TPUDDP_FAULT", "TPUDDP_AUTO_RESUME", "TPUDDP_WORLD_SIZE"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-u", "-c", SIGTERM_SCRIPT, yaml_path], cwd=ROOT, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(300, p.kill)
+    watchdog.start()
+    lines, t_sig = [], None
+    try:
+        for line in p.stdout:  # the epoch banners stream as the run goes
+            lines.append(line)
+            if t_sig is None and line.startswith("Process 0, Epoch 0"):
+                time.sleep(SIGTERM_AFTER_S)
+                t_sig = time.perf_counter()
+                p.send_signal(signal.SIGTERM)
+        p.wait(timeout=PREEMPT_GRACE_S + 60)
+        exit_s = time.perf_counter() - (t_sig or t0)
+    finally:
+        watchdog.cancel()
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    stdout = "".join(lines)
+    if t_sig is None:
+        raise SystemExit(f"chip_smoke: 20 SIGTERM: no epoch-0 banner before exit {p.returncode}: "
+                         f"{stdout[-3000:]}")
+    with open(os.path.join(d, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    events = [r for r in records if r["type"] == "event" and r["event"] == "preempt"]
+    ev = events[0] if events else {}
+    written = (f"ckpt_{ev.get('epoch')}_s{ev['snapshot_step']}.npz" if ev.get("snapshot_step")
+               else f"ckpt_{ev.get('epoch')}.npz")
+    launches = json.loads(stdout.split("LAUNCHES ", 1)[1].splitlines()[0]) if "LAUNCHES " in stdout else {}
+    epochs = [r["epoch"] for r in records if r["type"] == "epoch"]
+    checks = {
+        "exit 75": p.returncode == 75,
+        f"within the {PREEMPT_GRACE_S:.0f} s grace": exit_s < PREEMPT_GRACE_S,
+        "one preempt event row, inside epoch 0": len(events) == 1 and ev["epoch"] == 0
+        and 0 < (ev.get("snapshot_step") or 0) < steps,
+        "the drain's step snapshot intact": ckpt.verify_file(os.path.join(d, written)),
+        "one Adam launch per update": launches.get(fused_adam.kernel.symbol)
+        == steps * len(epochs) + (ev.get("snapshot_step") or 0),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 20 SIGTERM failed {failed}: exit {p.returncode} after {exit_s:.2f} s, "
+                         f"written {written}, events {events}, launches {launches}: {stdout[-3000:]}")
+    phase("20 SIGTERM", f"python -m tpuddp_torch.train_native (cifar10_alexnet_h100.yaml, 3 synthetic epochs "
+          f"of {steps} steps, scan_steps 1, snapshot every 4, one held): SIGTERM {SIGTERM_AFTER_S} s after "
+          f"epoch 0's banner, {t_sig - t0:.2f} s after the start; exit {p.returncode} {exit_s:.2f} s later "
+          f"(grace {PREEMPT_GRACE_S:.0f} s); the drain wrote {written} (epoch {ev['epoch']}, step "
+          f"{ev.get('snapshot_step')}); Adam launches "
+          f"{launches.get(fused_adam.kernel.symbol)}")
+    return dict(exit=p.returncode, exit_s=exit_s, written=written, event=ev, epochs_done=len(epochs),
+                launches=launches.get(fused_adam.kernel.symbol))
+
+
+def snapshot_turns(root: str):
+    """20 turns: ``cifar10_alexnet_h100.yaml`` two epochs at scan_steps 4,
+    snapshots (:data:`PREEMPT_SNAP`) off and on in turns (off, on, on, off):
+    every run's rows bitwise the first's; epoch 2's step median; for the
+    runs with snapshots, those written, skipped (a full engine), the
+    writer's seconds and the loop's seconds in the engine (its host stall)
+    per step."""
+    runs = []
+    for i, mode in enumerate(SNAPSHOT_TURNS):
+        d = os.path.join(root, f"turn{i}_{mode}")
+        on = mode == "on"
+        overrides = dict(PREEMPT_RUN, num_epochs=2, snapshot=PREEMPT_SNAP if on else None)
+        history, wall_s, launches = native_run(SETTINGS, overrides, save_dir=d if on else None)
+        # the writer's statistics once every write has landed: the newest sidecar
+        sidecars = [json.load(open(os.path.join(d, f))) for f in os.listdir(d)
+                    if f.endswith(".writer.json")] if on else []
+        snap = max(sidecars, key=lambda w: (w["snapshots"], w["skipped_queue_full"]), default={})
+        shutil.rmtree(d, ignore_errors=True)
+        runs.append(dict(mode=mode, wall_s=wall_s, launches=launches[fused_adam.kernel.symbol],
+                         step_ms_median=statistics.median(history[1]["step_ms"]),
+                         rows=[[r[k] for k in ("train_loss", "test_loss")] for r in history],
+                         snapshots=snap.get("snapshots"), skipped=snap.get("skipped_queue_full"),
+                         write_s=snap.get("write_s"),
+                         host_ms_per_step=None if not snap else snap["host_s"] * 1e3 / 32))
+    checks = {
+        "every turn's rows bitwise the first's": all(r["rows"] == runs[0]["rows"] for r in runs),
+        "32 Adam launches a run": all(r["launches"] == 32 for r in runs),
+        "snapshots written where on": all((r["snapshots"] or 0) > 0 for r in runs if r["mode"] == "on"),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 20 snapshot turns failed {failed}: {runs}")
+    phase("20 snapshot turns", "cifar10_alexnet_h100.yaml 2 epochs at scan_steps 4, snapshots every 4 "
+          "steps (one held at a time) off/on in turns: " + "; ".join(
+              f"{r['mode']} epoch-2 step median {r['step_ms_median']:.3f} ms" + (
+                  f" ({r['snapshots']} written, {r['skipped']} skipped, writer {r['write_s']:.2f} s, "
+                  f"loop {r['host_ms_per_step']:.3f} ms/step in the engine)" if r["mode"] == "on" else "")
+              + f", wall {r['wall_s']:.2f} s" for r in runs) + "; rows bitwise across turns")
+    return dict(turns=runs, launches={f"native snapshot turn {i} {r['mode']} (phase 20)": r["launches"]
+                                      for i, r in enumerate(runs)})
+
+
+def preempt_phase():
+    """Phase 20: the drain and the step snapshots (native and managed cycles,
+    the real SIGTERM, snapshots off/on in turns)."""
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_preempt_")
+    try:
+        cycles = {kind: preempt_cycle(kind, root) for kind in ("native", "managed")}
+        sig = sigterm_run(root)
+        turns = snapshot_turns(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: n for c in cycles.values() for k, n in c["launches"].items()}
+    launches.update(turns["launches"])
+    return dict(cycles={k: {f: v for f, v in c.items() if f != "launches"} for k, c in cycles.items()},
+                sigterm=sig, turns=turns["turns"], launches=launches)
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -4380,6 +4672,9 @@ def main() -> None:
     t19 = time.perf_counter()
     telemetry_19 = telemetry_phase(remat_18["entry"]["plain"])
     phase_19_s = time.perf_counter() - t19
+    t20 = time.perf_counter()
+    preempt_20 = preempt_phase()
+    phase_20_s = time.perf_counter() - t20
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -4450,6 +4745,9 @@ def main() -> None:
         **{k: v for k, v in remat_18.items() if k != "launches"}, "phase_18_s": phase_18_s,
     }}))
     print(json.dumps({"telemetry": {**telemetry_19["runs"], "phase_19_s": phase_19_s}}))
+    print(json.dumps({"preempt": {
+        **{k: v for k, v in preempt_20.items() if k != "launches"}, "phase_20_s": phase_20_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -4509,13 +4807,15 @@ def main() -> None:
     phase_17 = multihost_17["launches"]
     phase_18 = remat_18["launches"]
     phase_19 = telemetry_19["launches"]
+    phase_20 = preempt_20["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
                **{f"toy_cnn pipeline {k}": n for k, n in ab_toy.items()},
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
-               **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19}
+               **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
+               **phase_20}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -4543,7 +4843,8 @@ def main() -> None:
                               **phase_12_bf16, **{k: 0 for k in phase_13},
                               **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15},
                               **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17},
-                              **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19}},
+                              **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
+                              **{k: 0 for k in phase_20}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -4555,7 +4856,8 @@ def main() -> None:
     phase("total", f"{time.perf_counter() - T0:.1f} s from the script's start (phase 10: {phase_10_s:.1f} s, "
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
-          f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s)")
+          f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
+          f"phase 20: {phase_20_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

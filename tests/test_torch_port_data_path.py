@@ -295,8 +295,8 @@ def test_resolve_pipeline_matches_the_jax_rules():
         pipeline_lib.resolve_pipeline({"dpeth": 4})
     with pytest.raises(ValueError, match="host_workers"):
         pipeline_lib.resolve_pipeline({"host_workers": -1})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: async pipeline"):
-        pipeline_lib.resolve_pipeline({"device_augment": False})
+    # device_augment: false is ported (tests/test_torch_port_preempt.py): accepted
+    assert not pipeline_lib.resolve_pipeline({"device_augment": False}).device_augment
     assert pipeline_lib.staging_depth_for(3, batching.STAGE_BYTES_BUDGET) == 1
     assert pipeline_lib.staging_depth_for(3, None) == 3
 

@@ -147,7 +147,6 @@ def test_the_fault_grammar_is_the_jax_packages(raw):
 @pytest.mark.parametrize("raw,entry", [
     ("crash@epoch=2", "elastic reshard"), ("hang@barrier", "elastic reshard"),
     ("corrupt@ckpt_1", "elastic reshard"), ("crash@step=3", "elastic reshard"),
-    ("preempt@epoch=1", "async pipeline"), ("preempt@step=12", "async pipeline"),
 ])
 def test_the_other_fault_kinds_are_refused(monkeypatch, raw, entry):
     monkeypatch.setenv("TPUDDP_FAULT", raw)
@@ -156,6 +155,35 @@ def test_the_other_fault_kinds_are_refused(monkeypatch, raw, entry):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item 8: {entry}"):
             faults.refuse_unported()
     finally:
+        faults.reload_faults()
+
+
+@pytest.mark.parametrize("raw,site,ctx,other", [
+    ("preempt@epoch=1", "epoch", {"epoch": 1}, {"epoch": 0}),
+    ("preempt@step=12", "step", {"step": 12}, {"step": 11}),
+])
+def test_the_preempt_kind_asks_for_the_drain_once(monkeypatch, raw, site, ctx, other):
+    """``preempt`` is ported (tests/test_torch_port_preempt.py): not refused,
+    it fires at its site alone, once, and sets the drain flag as the JAX
+    package's SIGTERM to itself does."""
+    from tpuddp_torch.resilience import preemption
+
+    monkeypatch.setenv("TPUDDP_FAULT", raw)
+    monkeypatch.setenv("TPUDDP_PREEMPT_GRACE", "3600")
+    faults.reload_faults()
+    preemption.reset_preemption()
+    try:
+        faults.refuse_unported()
+        assert faults.has_step_fault() == (site == "step")
+        faults.maybe_fire(site, **other)
+        assert not preemption.preemption_requested()
+        faults.maybe_fire(site, **ctx)
+        assert preemption.preemption_requested()
+        preemption.reset_preemption()
+        faults.maybe_fire(site, **ctx)  # fired once
+        assert not preemption.preemption_requested()
+    finally:
+        preemption.reset_preemption()
         faults.reload_faults()
 
 

@@ -296,10 +296,13 @@ def test_an_emergency_jax_save_redoes_its_epoch(tmp_path, cpu_devices):
 def test_unported_contents_are_refused(tmp_path, cpu_devices):
     state = _jax_state("toy_mlp", "float32", cpu_devices)
     model, opt = _port("toy_mlp")
+    # a step snapshot's data cursor is ported (tests/test_torch_port_snapshot.py):
+    # the file restores and its cursor comes back, as the JAX package's does
     jax_ckpt.save_on_main(str(tmp_path / "a"), 0, state, step=3, cursor={"epoch": 0, "step": 3},
                           world_size=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: step snapshots"):
-        ckpt.restore_latest(str(tmp_path / "a"), model, opt)
+    cursors = []
+    assert ckpt.restore_latest(str(tmp_path / "a"), model, opt, cursor_out=cursors)[0] == 0
+    assert [(c["epoch"], c["step"], c["provenance"]) for c in cursors] == [(0, 3, "local")]
     os.makedirs(tmp_path / "b")
     # ZeRO-1's data_flat moments are ported: into per-parameter Adam they
     # are the JAX package's missing leaf (tests/test_torch_port_zero1_ckpt.py)

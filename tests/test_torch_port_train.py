@@ -255,14 +255,22 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
 # ---------------------------------------------------------------- config --
 
 @pytest.mark.parametrize("knob,value", [
-    ("snapshot", True),
     ("mode", "auto"),
-    ("pipeline", {"device_augment": False}),
     ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         cfg.training_config({"training": {knob: value}})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("snapshot", True),
+    ("pipeline", {"device_augment": False}),
+])
+def test_the_drain_slices_knobs_are_accepted(knob, value):
+    """``training.snapshot`` and ``pipeline.device_augment: false`` are
+    ported (tests/test_torch_port_snapshot.py, tests/test_torch_port_preempt.py)."""
+    assert cfg.training_config({"training": {knob: value}})[knob] == value
 
 
 @pytest.mark.parametrize("knob,value,message", [

@@ -133,7 +133,9 @@ Batches may arrive already on the device (the entry point stages them,
 ``training/pipeline.py``); a host array is copied from pinned memory without
 blocking. ``save_model``/``load_model`` and ``save_state``/``load_state``
 write and read the JAX package's ``model.npz`` and ``state_{epoch}.npz``
-(``training/checkpoint.py``).
+(``training/checkpoint.py``); ``save_state(step=, cursor=)`` writes a step
+snapshot ``state_{epoch}_s{step}.npz``, whose cursor ``load_state`` leaves
+in ``last_restore_cursor`` (``tpuddp/accelerate.py:1664-1797``).
 """
 
 from __future__ import annotations
@@ -235,18 +237,28 @@ class LazyLoss:
         return float(self.device_value())
 
 
+def loss_values(losses, initial=None) -> torch.Tensor:
+    """The device vector of many losses' values in their order, with no
+    host read; queued steps are flushed once. ``initial`` (the values of an
+    interrupted pass's steps, carried by a step snapshot's cursor) comes
+    first, so a resumed pass sums the uninterrupted pass's vector."""
+    losses = list(losses)
+    for l in losses:
+        if l._value is None and l._queued_on is not None:
+            l._queued_on.flush()
+    parts = [torch.stack([l.device_value() for l in losses])] if losses else []
+    if initial is not None:
+        device = parts[0].device if parts else torch.device("cpu")
+        parts.insert(0, torch.as_tensor(np.asarray(initial, np.float32), device=device))
+    return torch.cat(parts) if parts else torch.zeros(0)
+
+
 def sum_losses(losses) -> torch.Tensor:
     """The device sum of many losses' values, with no host read; ``float()``
     it for the one read of an epoch. Queued steps are flushed once. The
     values are summed as one vector in the losses' order, so the sum is the
     same bits whatever the fuse depth."""
-    losses = list(losses)
-    for l in losses:
-        if l._value is None and l._queued_on is not None:
-            l._queued_on.flush()
-    if not losses:
-        return torch.zeros(())
-    return torch.stack([l.device_value() for l in losses]).sum()
+    return loss_values(losses).sum()
 
 
 class _Request(NamedTuple):
@@ -488,6 +500,12 @@ class PreparedOptimizer:
     def queued(self) -> int:
         """Steps waiting in the queue."""
         return len(self._queue)
+
+    @property
+    def accumulating(self) -> bool:
+        """A gradient-accumulation cycle is open (micro-batches summed, its
+        update not yet applied)."""
+        return bool(self._accum_count)
 
     def _depth(self, x: torch.Tensor) -> int:
         """The fuse depth, resolved at the first request: ``auto`` is 32,
@@ -840,6 +858,7 @@ class Accelerator:
         self.jax_keys = seeding.JaxKeyStream(self.seed, self.process_index)
         self.augment = augment
         self._models: List[PreparedModel] = []
+        self.last_restore_cursor: Optional[dict] = None  # a step snapshot's, after load_state
 
     @property
     def is_main_process(self) -> bool:
@@ -968,13 +987,17 @@ class Accelerator:
         return model
 
     def save_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
-                   save_dir: str, epoch: int = 0, keep_last: Optional[int] = None):
+                   save_dir: str, epoch: int = 0, keep_last: Optional[int] = None,
+                   step: Optional[int] = None, cursor: Optional[dict] = None):
         """Process 0 writes ``save_dir/state_{epoch}.npz``: parameters,
         buffers, the optimizer's state, the comm hook's residual, the guard's
         skip counters, the JAX keys and every process's random streams; with
-        ``keep_last`` the older state files are pruned.
-        Queued steps run first; a partial accumulation cycle is refused: it
-        would be lost."""
+        ``keep_last`` the older state files are pruned. ``step`` and
+        ``cursor`` (``{"plan_key", "acc": {name: array}}``) write the step
+        snapshot ``state_{epoch}_s{step}.npz`` with the v4 data cursor
+        instead (``tpuddp/accelerate.py:1664-1713``), which :meth:`load_state`
+        resumes at that step. Queued steps run first; a partial accumulation
+        cycle is refused: it would be lost."""
         model._flush_queues()
         if optimizer._accum_count:
             raise RuntimeError(
@@ -982,24 +1005,38 @@ class Accelerator:
                 "partial cycle; call optimizer.flush_accumulation() first (the entry "
                 "point's epoch boundary does)"
             )
+        cursor_acc = None
+        if cursor is not None:
+            cursor = dict(cursor)
+            cursor.setdefault("version", ckpt.FORMAT_VERSION)
+            cursor.setdefault("epoch", int(epoch))
+            if step is not None:
+                cursor.setdefault("step", int(step))
+            cursor_acc = cursor.pop("acc", None)
         return ckpt.save_on_main(
             save_dir, epoch, model._module, optimizer.optimizer, self.process_index,
             layout=ckpt.MANAGED, seed=self.seed, generator=self.generator,
             world_size=self.num_processes, keep_last=keep_last, counter=model._bwd_counter,
             keys=(self.jax_keys.key, model._bwd_key), comm_state=optimizer.comm_residual(),
             skipped=None if optimizer.firewall is None else optimizer.firewall.counters,
+            snapshot_step=step, cursor=cursor, cursor_acc=cursor_acc,
         )
 
     def load_state(self, model: PreparedModel, optimizer: PreparedOptimizer,
                    save_dir: str) -> int:
-        """Restore the newest intact ``state_{epoch}.npz`` in ``save_dir``;
-        returns the epoch to train next (0 when there is none)."""
+        """Restore the freshest intact ``state_{epoch}.npz`` (or step
+        snapshot ``state_{epoch}_s{step}.npz``) in ``save_dir``; returns the
+        epoch to train next (0 when there is none; a step snapshot's own
+        epoch, its cursor then in ``last_restore_cursor``, else None)."""
         self._discard_staged_work(model, "load_state discarded the staged step")
+        cursors = []
         next_epoch, meta = ckpt.restore_latest(
             save_dir, model._module, optimizer.optimizer, layout=ckpt.MANAGED,
             generator=self.generator, comm_state=optimizer.comm_residual(),
             skipped=None if optimizer.firewall is None else optimizer.firewall.counters,
+            cursor_out=cursors,
         )
+        self.last_restore_cursor = cursors[-1] if cursors else None
         model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)
         if "rng_key" in meta:
             self.jax_keys.key, model._bwd_key = meta["rng_key"], meta["bwd_key"]

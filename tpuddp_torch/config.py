@@ -107,7 +107,6 @@ DEVICES = ("cuda", "cpu")
 _UNSUPPORTED = {
     "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
-    "snapshot": (lambda v: not v, "Queue 1 item 8: step snapshots"),
 }
 
 # local.rendezvous's keys and the variables that override them
@@ -222,8 +221,10 @@ def check_supported(training: Dict[str, Any]) -> None:
             raise _not_ported(f"training.{knob}={value!r}", item)
     from tpuddp_torch.training.loop import resolve_scan_steps
     from tpuddp_torch.training.pipeline import resolve_pipeline
+    from tpuddp_torch.training.snapshot import resolve_snapshot
 
     resolve_pipeline(training.get("pipeline"))
+    resolve_snapshot(training.get("snapshot"))
     resolve_scan_steps(training.get("scan_steps", "auto"), 1)
     accum = int(training.get("gradient_accumulation_steps") or 1)
     if accum < 1:

@@ -100,7 +100,9 @@ class MetricsWriter:
                 self._f = open(self.path, "a", buffering=1)
             self._f.write(line)
 
-    def close(self) -> None:
+    def sync(self) -> None:
+        """Flush and fsync what was written (the preemption drain's event
+        row must outlive the SIGKILL that follows the grace window)."""
         with self._lock:
             if self._f is not None:
                 self._f.flush()
@@ -108,6 +110,11 @@ class MetricsWriter:
                     os.fsync(self._f.fileno())
                 except OSError:
                     pass  # fsync is best-effort on exotic filesystems
+
+    def close(self) -> None:
+        self.sync()
+        with self._lock:
+            if self._f is not None:
                 self._f.close()
                 self._f = None
 

@@ -231,6 +231,15 @@ _REQUIRED_SINCE = {
     },
 }
 
+# the fields an event row of a kind must carry: the drain's ``preempt`` row
+# (tpuddp/training/loop.py:684-692, train_accelerate.py:480-486) says which
+# epoch, whether it was complete, the updates so far and, for a step
+# snapshot, its step (``snapshot_step``, optional)
+_EVENT_REQUIRED = {
+    "preempt": ("epoch", "completed", "step"),
+}
+
+
 def stamp(record_type: str, record: dict) -> dict:
     """Return ``record`` wrapped in the schema envelope (type first, so the
     line is eyeball-able with ``head``)."""
@@ -273,6 +282,7 @@ def make_run_meta(
     comm_topology: Optional[str] = None,
     guard=None,
     comm: Optional[dict] = None,
+    snapshot=False,
     extra: Optional[dict] = None,
 ) -> dict:
     """The run_meta header row of a port run, with every key of the JAX
@@ -280,8 +290,10 @@ def make_run_meta(
     ``hierarchy`` is ``(hosts, local)`` under ``comm_topology:
     hierarchical`` (the mesh shape is then ``{"host", "local"}``, as the
     JAX package factors its mesh); ``guard`` a ``GuardConfig`` or dict;
-    ``comm`` the ``{"overlap": ...}`` block; ``extra`` the entry point's
-    fields (config_hash, model, dataset, api, ...)."""
+    ``comm`` the ``{"overlap": ...}`` block; ``snapshot`` the step-snapshot
+    engine's ``describe()`` (native), the managed drain's block, or False
+    when off (schema v11); ``extra`` the entry point's fields (config_hash,
+    model, dataset, api, ...)."""
     import torch
 
     import tpuddp_torch
@@ -312,7 +324,7 @@ def make_run_meta(
         "survivability": None,
         "tracing": None,
         "comm": comm,
-        "snapshot": False,
+        "snapshot": snapshot,
         "tuning": None,
     }
     if extra:
@@ -350,6 +362,10 @@ def validate_record(record, index: int = 0) -> List[str]:
         errors.append(f"{where} ({rtype}): missing required field(s) {missing}")
     if rtype == "event" and not isinstance(record.get("event"), str):
         errors.append(f"{where} (event): 'event' must be a string")
+    elif rtype == "event":
+        missing = [k for k in _EVENT_REQUIRED.get(record["event"], ()) if k not in record]
+        if missing:
+            errors.append(f"{where} (event {record['event']}): missing field(s) {missing}")
     if rtype == "run_meta":
         shape = record.get("mesh_shape")
         if shape is not None and not isinstance(shape, dict):

@@ -8,11 +8,18 @@ process. The launcher holds the rendezvous server
 function lives here, so a child process imports
 only ``tpuddp_torch`` (and whatever module ``demo_fn`` comes from).
 
-A :class:`~tpuddp_torch.resilience.guard.ReplicaDesync` (the numerical
-guard's auditor found a divergent replica) ends the process with exit
-:data:`~tpuddp_torch.resilience.guard.EXIT_DESYNC` (77), the "requeue me
-into auto-resume" code (``tpuddp/parallel/spawn.py:163-168``); a spawned
-rank that exits so makes the launcher exit so too.
+Each rank installs the SIGTERM/SIGINT drain handler before it trains
+(:mod:`~tpuddp_torch.resilience.preemption`); a
+:class:`~tpuddp_torch.resilience.preemption.TrainingPreempted` (the drain
+saved and stopped) ends the rank with exit 75, and a
+:class:`~tpuddp_torch.resilience.guard.ReplicaDesync` (the numerical
+guard's auditor found a divergent replica) with exit 77, the "requeue me
+into auto-resume" codes (``tpuddp/parallel/spawn.py:149-168``); a spawned
+rank that exits so makes the launcher exit so too. A scheduler's SIGTERM
+reaches the launcher alone (HTCondor signals the job's process, then kills
+the whole tree after the grace window), so a launcher with spawned ranks
+passes each SIGTERM on to them; a SIGINT from a terminal reaches the whole
+process group, so the launcher only keeps it from interrupting its wait.
 
 Across hosts (``local.rendezvous``; ``tpuddp/parallel/spawn.py:120-171``)
 each host runs this launcher with its ``process_id``: it starts ``world /
@@ -28,14 +35,18 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
 import sys
+import threading
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.multiprocessing as mp
 
 from tpuddp_torch.parallel import backend as _backend
+from tpuddp_torch.resilience import preemption
 from tpuddp_torch.resilience.guard import EXIT_DESYNC, ReplicaDesync
+from tpuddp_torch.resilience.preemption import EXIT_PREEMPTED, TrainingPreempted
 
 logger = logging.getLogger("tpuddp")
 
@@ -93,12 +104,17 @@ def _worker(
         print(f"Rendezvous at {address}: global rank {rank} of a {world_size}-process world, "
               f"host {process_id} of {world_size // local_world}, local rank {local_rank} of "
               f"{local_world}.", flush=True)
+    preemption.install_preemption_handler()  # SIGTERM/SIGINT only set the drain flag
     try:
         return demo_fn(rank, world_size, save_dir, optional_args)
+    except TrainingPreempted as e:
+        logger.warning("%s; exiting %d (requeue+resume)", e, EXIT_PREEMPTED)
+        sys.exit(EXIT_PREEMPTED)
     except ReplicaDesync as e:
         logger.critical("%s; exiting %d", e, EXIT_DESYNC)
         sys.exit(EXIT_DESYNC)
     finally:
+        preemption.uninstall_preemption_handler()
         _backend.cleanup()
 
 
@@ -133,14 +149,31 @@ def run_ddp_training(
 
 
 def _spawn(nprocs: int, args: tuple) -> None:
-    """``nprocs`` ranks of :func:`_worker` on ``args``; a rank's desync exit
-    becomes this process's."""
+    """``nprocs`` ranks of :func:`_worker` on ``args``; a rank's drain (75)
+    or desync (77) exit becomes this process's. While they run, a SIGTERM
+    to this process is passed on to every rank, and a SIGINT (which the
+    terminal sends to the ranks too) is absorbed."""
+    ctx = mp.spawn(_worker, args=args, nprocs=nprocs, join=False)
+
+    def forward(signum, frame):
+        if signum == signal.SIGTERM:
+            for p in ctx.processes:
+                if p.is_alive():
+                    os.kill(p.pid, signum)
+
+    previous = {}
+    if threading.current_thread() is threading.main_thread():
+        previous = {s: signal.signal(s, forward) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        mp.spawn(_worker, args=args, nprocs=nprocs, join=True)
+        while not ctx.join():
+            pass
     except mp.ProcessExitedException as e:
-        if e.exit_code == EXIT_DESYNC:
-            sys.exit(EXIT_DESYNC)
+        if e.exit_code in (EXIT_DESYNC, EXIT_PREEMPTED):
+            sys.exit(e.exit_code)
         raise
+    finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
 
 
 def _run_host(demo_fn, world_size: int, save_dir, optional_args: dict, device: str,

@@ -1,11 +1,13 @@
 """Resilience — the counterpart of ``tpuddp/resilience/``: the numerical
 guard (:mod:`~tpuddp_torch.resilience.guard`: the non-finite firewall, the
-skip counters, the desync auditor and its exit code) and
-``$TPUDDP_FAULT`` injection (:mod:`~tpuddp_torch.resilience.faults`, its
-``nan`` kind) and the retry with jittered backoff
+skip counters, the desync auditor and its exit code), the SIGTERM/SIGINT
+drain (:mod:`~tpuddp_torch.resilience.preemption`: the flag, the grace
+failsafe, exit 75 and ``$TPUDDP_AUTO_RESUME``), ``$TPUDDP_FAULT``
+injection (:mod:`~tpuddp_torch.resilience.faults`, its ``nan`` and
+``preempt`` kinds) and the retry with jittered backoff
 (:mod:`~tpuddp_torch.resilience.retry`, the multi-host rendezvous's). The
-preemption drain, the watchdog and the restart supervisor are not ported
-(ROADMAP.md Queue 1 item 8)."""
+watchdog and the restart supervisor are not ported (ROADMAP.md Queue 1
+item 8)."""
 
 from tpuddp_torch.resilience.guard import (  # noqa: F401
     DISABLED as GUARD_DISABLED,
@@ -16,4 +18,18 @@ from tpuddp_torch.resilience.guard import (  # noqa: F401
     audit_or_raise,
     audit_params,
     resolve_guard,
+)
+from tpuddp_torch.resilience.preemption import (  # noqa: F401
+    EXIT_INJECTED_CRASH,
+    EXIT_PREEMPTED,
+    EXIT_WATCHDOG,
+    TrainingPreempted,
+    auto_resume_requested,
+    install_preemption_handler,
+    preemption_deadline,
+    preemption_grace_seconds,
+    preemption_requested,
+    request_preemption,
+    reset_preemption,
+    uninstall_preemption_handler,
 )

@@ -1,18 +1,22 @@
 """``$TPUDDP_FAULT`` fault injection — the counterpart of
-``tpuddp/resilience/faults.py``, its grammar whole and its ``nan`` kind.
+``tpuddp/resilience/faults.py``, its grammar whole and its ``nan`` and
+``preempt`` kinds.
 
     TPUDDP_FAULT=<kind>@<site>[,<kind>@<site>...]
 
 The grammar, the kinds, the sites and the ``ValueError`` of a malformed spec
-are the JAX package's (:func:`parse_fault_specs`). The port runs one kind:
+are the JAX package's (:func:`parse_fault_specs`). The port runs two kinds:
 ``nan@step=N`` poisons the host micro-batch whose global train index from
 the epoch driver's entry is ``N`` (:func:`maybe_corrupt_batch`), so its
 loss and gradient go non-finite and the numerical guard's firewall must
-skip the update. The other training kinds parse and then raise
-``NotImplementedError`` naming their ROADMAP entry at the driver's start
-(:func:`refuse_unported`): ``crash``, ``hang`` and ``corrupt`` belong to the
-supervisor's chaos matrix ("elastic reshard"), ``preempt`` to the SIGTERM
-drain ("async pipeline"). The serving kinds are the serving engines', which
+skip the update; ``preempt@epoch=N`` (at the start of epoch N) and
+``preempt@step=N`` (at the global train micro-batch N, before it is staged)
+ask for the drain as a SIGTERM would (:func:`maybe_fire`, which calls
+:func:`~tpuddp_torch.resilience.preemption.request_preemption`). The other
+training kinds, ``crash``, ``hang`` and ``corrupt``, belong to the
+supervisor's chaos matrix: they parse and then raise ``NotImplementedError``
+naming their ROADMAP entry, "elastic reshard", at the epoch loop's start
+(:func:`refuse_unported`). The serving kinds are the serving engines', which
 the training hooks never consume, as in the JAX package. Each spec fires at
 most once per process; :func:`reload_faults` re-reads the variable.
 """
@@ -36,7 +40,6 @@ _UNPORTED = {
     "crash": "Queue 1 item 8: elastic reshard",
     "hang": "Queue 1 item 8: elastic reshard",
     "corrupt": "Queue 1 item 8: elastic reshard",
-    "preempt": "Queue 1 item 8: async pipeline",
 }
 
 _cache = {"raw": None, "specs": None}
@@ -128,7 +131,7 @@ def reload_faults() -> None:
 
 def refuse_unported() -> None:
     """``NotImplementedError`` for a training fault kind the port does not
-    run (every kind but ``nan``), naming its ROADMAP entry."""
+    run (every kind but ``nan`` and ``preempt``), naming its ROADMAP entry."""
     for spec in active_faults():
         item = _UNPORTED.get(spec.kind)
         if item is not None:
@@ -139,9 +142,29 @@ def refuse_unported() -> None:
 
 
 def has_nan_fault() -> bool:
-    """True while an un-fired ``nan@step=N`` spec is armed: the epoch driver
-    wires its per-batch hook only then."""
+    """True while an un-fired ``nan@step=N`` spec is armed."""
     return any(s.kind == "nan" and not s.fired for s in active_faults())
+
+
+def has_step_fault() -> bool:
+    """True while an un-fired training spec at ``step=N`` is armed
+    (``nan`` or ``preempt``): the epoch loops wire their per-batch hook
+    only then."""
+    return any(s.site == "step" and not s.fired and s.kind not in SERVING_KINDS
+               for s in active_faults())
+
+
+def maybe_fire(site: str, **ctx) -> None:
+    """The ``preempt`` hook: an un-fired ``preempt`` spec matching ``site``
+    (``epoch`` with ``epoch=``, ``step`` with ``step=``) fires once and asks
+    for the drain. The other kinds are not consumed here."""
+    from tpuddp_torch.resilience.preemption import request_preemption
+
+    for spec in active_faults():
+        if spec.kind == "preempt" and spec.matches(site, **ctx):
+            spec.fired = True
+            logger.critical("fault injection: preempt@%s fired (ctx=%s)", site, ctx)
+            request_preemption()
 
 
 def maybe_corrupt_batch(batch, step: int):

@@ -66,6 +66,19 @@ steps (each group of fused steps counted once it has run), and
 ``$TPUDDP_PROFILE``, ``$TPUDDP_PROFILE_STEPS`` (widened to whole queued
 groups) and SIGUSR1 write ``torch.profiler`` traces. ``training.remat`` is
 accepted and changes nothing here: the JAX managed path does not read it.
+
+The drain (``train_accelerate.py:470-655``): a SIGTERM or SIGINT seen at an
+epoch's start saves the last whole epoch's state and exits 75; seen when
+the train pass ends, it saves that epoch as done (its eval is lost). With
+``training.snapshot`` at world 1 the train pass also polls after each
+accumulation cycle: a drain there writes ``state_{epoch}_s{step}.npz``
+with the v4 cursor (the plan key; the sums ``loss_total`` and ``n_seen``
+under the JAX names, and the pass's per-step losses, with which the
+resumed epoch's loss is the uninterrupted one's bitwise), and the requeued
+run continues that epoch at that step. ``pipeline.device_augment: false``
+runs the augment as its own op on each batch before the step, outside the
+step and its CUDA graph (``train_accelerate.py:879-886``); it draws the same
+flips from the same stream, so the run is the in-step one's.
 """
 
 from __future__ import annotations
@@ -76,11 +89,12 @@ import time
 from functools import partial
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tpuddp_torch import config as cfg_lib
 from tpuddp_torch import seeding
-from tpuddp_torch.accelerate import Accelerator, FusedEvaluator, sum_losses
+from tpuddp_torch.accelerate import Accelerator, FusedEvaluator, loss_values
 from tpuddp_torch.data import (
     DataLoader, PrefetchLoader, compute_dtype_for, flip_for, load_datasets_for,
     norm_stats_for,
@@ -92,10 +106,13 @@ from tpuddp_torch.observability import MetricsWriter, RunTelemetry, config_hash,
 from tpuddp_torch.parallel import backend, comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import resolve_world, run_ddp_training
+from tpuddp_torch.resilience import faults, preemption
 from tpuddp_torch.resilience import guard as guard_lib
+from tpuddp_torch.resilience.preemption import TrainingPreempted
 from tpuddp_torch.train_native import load_model_for, set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
-from tpuddp_torch.training.loop import StepClock, event, nan_injector
+from tpuddp_torch.training import snapshot as snapshot_lib
+from tpuddp_torch.training.loop import StepClock, drain_requested, event, step_fault_hook
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
 
 
@@ -109,20 +126,37 @@ def setup_dataloaders(training):
 
 
 def train(model, train_loader, criterion, optimizer, accelerator,
-          clock: Optional[StepClock] = None, tel=None):
+          clock: Optional[StepClock] = None, tel=None, *, augment=None, start_batch: int = 0,
+          carried: Optional[dict] = None, poll=None, progress: Optional[dict] = None,
+          total_batches: Optional[int] = None):
     """One training epoch; returns ``(mean per-step loss, real rows of the
     global batches)``. A partial accumulation cycle is applied at the end;
     the fuse queue's last steps run at the epoch's ``sum_losses``. ``tel``
     (a :class:`~tpuddp_torch.observability.RunTelemetry`, with ``clock``)
     sees each group of steps once it has run, as one dispatch
-    (``train_accelerate.py:100-160``): a step that only queued is not one."""
+    (``train_accelerate.py:100-160``): a step that only queued is not one.
+    ``augment`` (``pipeline.device_augment: false``) runs on each batch as
+    its own op before the step; None when the step augments.
+
+    The step snapshot's resume and drain (``train_accelerate.py:61-215``):
+    the loader may be an epoch's tail from batch ``start_batch``;
+    ``carried`` (``{"losses", "n_seen"}``, from the cursor) seeds the
+    pass's sums so the epoch row is the uninterrupted run's, bitwise: the
+    loss sum is over the same vector of per-step losses; ``total_batches``
+    is the whole epoch's count, the mean's denominator. ``poll`` is checked
+    after each completed accumulation cycle: True stops the pass there and
+    ``progress`` gets ``interrupted``, the epoch ``step`` reached and the
+    sums, which the drain writes as the cursor."""
     model.train()
     n_seen = torch.zeros((), device=model.device)
+    if carried is not None:
+        n_seen.fill_(float(carried["n_seen"]))
     losses = []
     pending = 0  # steps of the open group (queued, or not yet marked)
     rows = 0.0  # the open group's real rows, from the host weights
     depth = 0  # the deepest the fuse queue ran in the open group
-    for inputs, labels, weights in train_loader:
+    interrupted_at = None
+    for i, (inputs, labels, weights) in enumerate(train_loader):
         n_seen = n_seen + model.to_device(weights, torch.float32).sum()
         optimizer.zero_grad()
         if clock is not None and pending == 0:
@@ -132,7 +166,9 @@ def train(model, train_loader, criterion, optimizer, accelerator,
             # group, so a profiled window inside it arms at its first step
             tel.pre_dispatch(pending + 1)
             rows += train_loader.take_rows(1)
-        outputs = model(inputs)  # flip/normalize/resize run inside the step's forward
+        if augment is not None:
+            inputs = augment(model.to_device(inputs))  # its own op, outside the step
+        outputs = model(inputs)  # else flip/normalize/resize run inside the step's forward
         loss = criterion(outputs, labels, weights)
         accelerator.backward(loss)
         optimizer.step()
@@ -146,8 +182,13 @@ def train(model, train_loader, criterion, optimizer, accelerator,
                 tel.post_dispatch(pending, rows, host_stall_s=train_loader.stall.take(),
                                   staging_depth=train_loader.staged_depth, inflight_depth=depth)
             pending, rows, depth = 0, 0.0, 0
-    optimizer.flush_accumulation()
-    loss_sum = sum_losses(losses)  # flushes what is still queued
+        if poll is not None and not optimizer.accumulating and poll():
+            interrupted_at = start_batch + i + 1  # a cycle boundary: every step taken is whole
+            break
+    if interrupted_at is None:
+        optimizer.flush_accumulation()
+    values = loss_values(losses, initial=None if carried is None else carried["losses"])
+    loss_sum = values.sum()
     if clock is not None:
         if pending:
             clock.groups.append(pending)
@@ -155,11 +196,17 @@ def train(model, train_loader, criterion, optimizer, accelerator,
                 tel.post_dispatch(pending, rows, host_stall_s=train_loader.stall.take(),
                                   staging_depth=train_loader.staged_depth, inflight_depth=depth)
         clock.mark()
+    if progress is not None:
+        progress.update(interrupted=interrupted_at is not None,
+                        step=start_batch + len(train_loader) if interrupted_at is None
+                        else interrupted_at,
+                        losses=values.cpu().numpy(), n_seen=float(n_seen),
+                        loss_total=float(loss_sum))
     # one read of the loss sum and of the rows every process saw
     totals = torch.stack([loss_sum, n_seen])
     all_reduce_sum_([totals[1:]])
     loss_sum, n_seen = totals.tolist()
-    return loss_sum / len(train_loader), n_seen
+    return loss_sum / (total_batches or len(train_loader)), n_seen
 
 
 def evaluate(model, test_loader, criterion, transform, deferred: bool = False):
@@ -193,12 +240,21 @@ def run_training_loop(
     model, train_loader, test_loader, criterion, optimizer, save_dir: Optional[str],
     accelerator, eval_transform, num_epochs: int = 20, checkpoint_epoch: int = 5,
     deferred_metrics: bool = False, start_epoch: int = 0, keep_last: Optional[int] = None,
-    step_stats_every: int = 0, run_meta: Optional[dict] = None,
+    step_stats_every: int = 0, run_meta: Optional[dict] = None, snapshot=None, augment=None,
 ):
     """Run epochs ``start_epoch`` to ``num_epochs``; returns the list of
-    per-epoch records. ``run_meta`` holds the entry point's header fields."""
-    # nan@step=N: the train loader's staging poisons that host micro-batch
-    train_loader.inject = nan_injector()
+    per-epoch records. ``run_meta`` holds the entry point's header fields;
+    ``snapshot`` the ``training.snapshot`` block (the managed flavour: no
+    background writer; armed at world 1, a drain caught at a cycle boundary
+    writes ``state_{epoch}_s{step}.npz`` with the v4 cursor and the resumed
+    run continues that epoch at that step); ``augment`` the out-of-step
+    augment of ``pipeline.device_augment: false``."""
+    # $TPUDDP_FAULT step hook: nan@step=N poisons that staged host batch,
+    # preempt@step=N asks for the drain there
+    train_loader.inject = step_fault_hook()
+    full_loader = train_loader.loader  # an epoch's tail is put in its place
+    snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
+    pending = {"c": getattr(accelerator, "last_restore_cursor", None)}
     # the typed history (train_accelerate.py:276-420): the header, then the
     # recorder and the profiling triggers; MFU stays null, as the JAX
     # managed rows have it (no FLOPs probe on this path)
@@ -213,6 +269,8 @@ def run_training_loop(
         device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else None,
         comm_hook=accelerator.comm_hook, comm_topology=accelerator.comm_topology, guard=guard,
         comm={"overlap": dict(accelerator.comm_overlap_meta)},
+        # the managed flavour's provenance (drain-time step snapshots only)
+        snapshot={**snap_cfg.as_dict(), "mode": "drain"} if snap_cfg.enabled else False,
         extra={
             "api": "managed",
             "fuse_steps": accelerator.fuse_steps,
@@ -247,15 +305,55 @@ def run_training_loop(
                 "not a transient."
             )
         redo = accelerator.load_state(model, optimizer, save_dir)
+        pending["c"] = accelerator.last_restore_cursor
         writer.write(event("rollback", epoch=epoch, resume_epoch=redo, reason=reason))
         accelerator.print(f"Guard rollback ({reason}): restored last-good state, "
                           f"redoing from epoch {redo}.")
         return redo
 
+    def drain(last_completed: int):
+        """The drain at an epoch boundary (``train_accelerate.py:470-494``):
+        the state of the last whole epoch, so the requeued run continues
+        after it; then :class:`TrainingPreempted`."""
+        if last_completed >= 0 and save_dir is not None:
+            accelerator.wait_for_everyone()
+            accelerator.save_state(model, optimizer, save_dir, epoch=last_completed)
+            accelerator.print(f"Preempted: emergency state for epoch {last_completed} saved.")
+        writer.write(event("preempt", epoch=last_completed + 1, completed=True,
+                           step=tel.recorder.global_step))
+        writer.sync()
+        raise TrainingPreempted(last_completed + 1)
+
+    def mid_drain(epoch: int, prog: dict, plan_key: str):
+        """The drain inside a train pass (``train_accelerate.py:496-535``):
+        ``state_{epoch}_s{step}.npz`` with the v4 cursor (the plan key and
+        the pass's sums), which the requeued run continues at that step."""
+        step = int(prog["step"])
+        if save_dir is not None:
+            accelerator.wait_for_everyone()
+            accelerator.save_state(model, optimizer, save_dir, epoch=epoch, step=step, cursor={
+                "plan_key": plan_key,
+                "acc": {"loss_total": np.asarray(prog["loss_total"], np.float64),
+                        "n_seen": np.asarray(prog["n_seen"], np.float64),
+                        "losses": np.asarray(prog["losses"], np.float32)},
+            })
+            accelerator.print(f"Preempted: step snapshot for epoch {epoch} step {step} saved "
+                              "(exact resume).")
+        writer.write(event("preempt", epoch=epoch, completed=False,
+                           step=tel.recorder.global_step, snapshot_step=step))
+        writer.sync()
+        raise TrainingPreempted(epoch)
+
+    # the poll inside a pass: armed by training.snapshot, at world 1 only
+    poll = preemption.preemption_requested if snap_cfg.enabled and world == 1 else None
+
     try:
         history = []
         epoch = start_epoch
         while epoch < num_epochs:
+            faults.maybe_fire("epoch", epoch=epoch)  # $TPUDDP_FAULT=preempt@epoch=N
+            if drain_requested(world, device):
+                drain(epoch - 1)
             if guard.enabled and guard.audit_every_n_epochs and \
                     (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
                 bad_leaf = guard_lib.audit_params(model.module)
@@ -268,13 +366,42 @@ def run_training_loop(
                             continue
                     raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
             epoch_t0 = time.perf_counter()
+            train_loader.loader = full_loader
             train_loader.set_epoch(epoch)
+            plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch)
+            # the exact mid-epoch resume: a cursor for this epoch whose plan
+            # key matches continues at its step with the sums it carried
+            start_batch, carried = 0, None
+            cur, pending["c"] = pending["c"], None
+            if cur is not None and int(cur.get("epoch", -1)) == epoch:
+                if cur.get("plan_key") == plan_key:
+                    start_batch = int(cur["step"])
+                    acc = snapshot_lib.acc_from_cursor(cur) or {}
+                    carried = {"n_seen": float(np.asarray(acc.get("n_seen", 0.0))),
+                               "losses": acc.get("losses")}
+                    if carried["losses"] is None:  # a JAX cursor: its float total
+                        carried["losses"] = np.asarray(acc.get("loss_total", 0.0)).reshape(1)
+                    train_loader.loader = snapshot_lib.EpochTailLoader(full_loader, start_batch)
+                    accelerator.print(f"Exact resume: epoch {epoch} continues at step "
+                                      f"{start_batch} (zero batches replayed).")
+                else:
+                    logging.getLogger("tpuddp").warning(
+                        "step snapshot plan key mismatch for epoch %d: data order changed, "
+                        "redoing the epoch from the restored state", epoch,
+                    )
             clock = StepClock(accelerator.device)
             tel.start_epoch(epoch, clock)
             updates = optimizer.updates
+            progress = {}
             train_loss, train_samples = train(
-                model, train_loader, criterion, optimizer, accelerator, clock, tel
+                model, train_loader, criterion, optimizer, accelerator, clock, tel,
+                augment=augment, start_batch=start_batch, carried=carried, poll=poll,
+                progress=progress, total_batches=len(full_loader),
             )
+            if progress["interrupted"]:  # stopped at a cycle boundary inside the epoch
+                mid_drain(epoch, progress, plan_key)
+            if drain_requested(world, device):  # every update of the epoch is in
+                drain(epoch)
             step_ms = clock.step_ms()
             step_fields = tel.end_epoch(step_ms)
             train_time_s = time.perf_counter() - epoch_t0
@@ -344,6 +471,7 @@ def run_training_loop(
         accelerator.print("Finished Training.")
         return history
     finally:
+        train_loader.loader = full_loader
         tel.finish()
         writer.close()
 
@@ -413,12 +541,21 @@ def basic_accelerate_training(
     accelerator, model, optimizer, train_loader, test_loader, criterion, eval_transform = (
         build_training(training, device)
     )
+    augment = None
+    if not train_loader.cfg.device_augment:
+        # the augment as its own op on each batch before the step, not in
+        # the step (nor in a fused flush's graph): train_accelerate.py:879-886
+        augment, accelerator.augment = accelerator.augment, None
     start_epoch = 0
     if save_dir is not None and (
         training.get("resume") or training.get("auto_resume") or ckpt.auto_resume_requested()
     ):
         start_epoch = accelerator.load_state(model, optimizer, save_dir)
-        if start_epoch:
+        cursor = accelerator.last_restore_cursor
+        if cursor is not None:
+            accelerator.print(f"Resumed from step snapshot: epoch {start_epoch} step "
+                              f"{int(cursor.get('step', 0))}.")
+        elif start_epoch:
             accelerator.print(f"Resumed from epoch {start_epoch - 1} state.")
     return run_training_loop(
         model, train_loader, test_loader, criterion, optimizer, save_dir, accelerator,
@@ -433,6 +570,9 @@ def basic_accelerate_training(
             "model": training.get("model"),
             "dataset": training.get("dataset"),
         },
+        # drain-time step snapshots and the exact mid-epoch resume
+        snapshot=training.get("snapshot"),
+        augment=augment,
     )
 
 

@@ -223,6 +223,8 @@ def basic_ddp_training_loop(
             "dataset": training.get("dataset"),
         },
         model_input=model_input_for(training, train_loader),
+        # step snapshots and the exact mid-epoch resume (training/snapshot.py)
+        snapshot=training.get("snapshot"),
     )
 
 

@@ -93,18 +93,36 @@ one is skipped for the one before) as process 0 finds it, on every process
 (:func:`agreed_latest`): the hosts of a multi-host run resume from one file
 or none, and a process that cannot open it raises on every process, so
 ``out_dir`` must be one filesystem that every host sees. A file that needs a part of the JAX
-package the port lacks (a step snapshot's ``__cursor__``, a model axis) is
-refused with ``NotImplementedError`` naming its ROADMAP item, never loaded
-in part.
+package the port lacks (a model axis) is refused with ``NotImplementedError``
+naming its ROADMAP item, never loaded in part.
+
+Step snapshots (format v4, ``tpuddp/training/checkpoint.py:91-115,
+:751-782, :862-938, :1008-1095``): ``{prefix}_{epoch}_s{step}.npz``, the
+state after ``step`` real micro-batches of ``epoch`` (``__meta__step``,
+``completed=0``), with a ``__cursor__`` JSON record (version, epoch, step,
+the epoch's plan key) and the partial sums under ``__cursor_acc__['name']``
+(:func:`write`, :func:`read_cursor`). :func:`restore_latest` takes the
+freshest intact file across the local files, the peer copies under
+``<heartbeat_dir>/peer_ckpt/ring_<i>`` (:func:`peer_checkpoint_dirs`) and
+the epoch family (an epoch's full file outranks its step snapshots), logs
+where it came from, and hands a step snapshot's cursor to the caller, which
+continues that epoch at that step. Each save is a :func:`capture` of the
+live state, turned into arrays and written by :func:`write_captured`: the
+snapshot engine (``training/snapshot.py``) copies the capture's tensors on
+the device and writes from its own thread through the same function, and
+:func:`_savez` fixes every zip entry's time, so the same state gives the
+same bytes either way. Files of both packages cross both ways.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import logging
 import os
 import re
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -118,6 +136,10 @@ from tpuddp_torch.models.convert import (
 )
 from tpuddp_torch.parallel.backend import get_rank, get_world_size
 from tpuddp_torch.parallel import collectives
+# re-exported: the parser moved to the drain's module
+from tpuddp_torch.resilience.preemption import (  # noqa: F401
+    AUTO_RESUME_ENV, auto_resume_requested,
+)
 from tpuddp_torch.seeding import jax_run_key
 
 logger = logging.getLogger("tpuddp")
@@ -126,22 +148,45 @@ FORMAT_VERSION = 4
 NATIVE, MANAGED = "native", "managed"
 PREFIX = {NATIVE: "ckpt", MANAGED: "state"}
 RNG_KEY = "__tpuddp_torch_rng__"
-AUTO_RESUME_ENV = "TPUDDP_AUTO_RESUME"
-_BF16, _PRNG, _META, _TOPO, _CURSOR = (
-    "__bf16__", "__prngkey__", "__meta__", "__topology__", "__cursor__",
+_BF16, _PRNG, _META, _TOPO, _CURSOR, _CURSOR_ACC = (
+    "__bf16__", "__prngkey__", "__meta__", "__topology__", "__cursor__", "__cursor_acc__",
 )
 _COMM = ".comm_state"  # the native residual's key
 _SKIP_KEYS = ("consecutive", "total")  # the guard's counters, in the JAX key order
 
 
-def auto_resume_requested() -> bool:
-    """``$TPUDDP_AUTO_RESUME`` set to anything but empty or ``0``
-    (``tpuddp/resilience/preemption.py:77-81``)."""
-    return os.environ.get(AUTO_RESUME_ENV, "") not in ("", "0")
-
-
 def checkpoint_path(save_dir: str, epoch: int, prefix: str = "ckpt") -> str:
     return os.path.join(save_dir, f"{prefix}_{epoch}.npz")
+
+
+def step_checkpoint_path(save_dir: str, epoch: int, step: int, prefix: str = "ckpt") -> str:
+    """``{prefix}_{epoch}_s{step}.npz``: a step snapshot, ``step`` real
+    micro-batches of ``epoch`` applied."""
+    return os.path.join(save_dir, f"{prefix}_{epoch}_s{step}.npz")
+
+
+def heartbeat_dir(save_dir: Optional[str]) -> Optional[str]:
+    """``$TPUDDP_HEARTBEAT_DIR``, else ``<save_dir>/.heartbeats``: the one
+    directory every process of a job reaches (``tpuddp/resilience/
+    watchdog.py:72-78``), where peer snapshot copies are spilled."""
+    env = os.environ.get("TPUDDP_HEARTBEAT_DIR")
+    if env:
+        return env
+    if save_dir:
+        return os.path.join(save_dir, ".heartbeats")
+    return None
+
+
+def peer_checkpoint_dirs(save_dir: str) -> List[str]:
+    """Every ``ring_*`` directory under ``<heartbeat_dir>/peer_ckpt``, where
+    the snapshot engine spills its ring neighbour's copies; empty when there
+    is none."""
+    hb = heartbeat_dir(save_dir)
+    root = os.path.join(hb, "peer_ckpt") if hb else None
+    if root is None or not os.path.isdir(root):
+        return []
+    return sorted(os.path.join(root, d) for d in os.listdir(root)
+                  if d.startswith("ring_") and os.path.isdir(os.path.join(root, d)))
 
 
 # ---------------------------------------------------------------- integrity --
@@ -269,8 +314,8 @@ def _state_dtype(optimizer) -> torch.dtype:
 
 def gather_flat_state(optimizer) -> Dict[str, Any]:
     """A ZeRO-1 optimizer's state, every rank's shards gathered (a
-    collective): ``{"step": int, slot: (total,) CPU tensor}``, each slot in
-    the moments' dtype, zeros before the first step."""
+    collective): ``{"step": int, slot: (total,) tensor on the device}``,
+    each slot in the moments' dtype, zeros before the first step."""
     slots, counted = _opt_slots(optimizer)
     dtype = _state_dtype(optimizer)
     shard = optimizer.shard
@@ -284,7 +329,7 @@ def gather_flat_state(optimizer) -> Dict[str, Any]:
         local = torch.zeros(shard.shape, device=shard.device) if local is None else local.float()
         full = torch.empty(optimizer.spec.total, device=shard.device)
         collectives.all_gather_shards(full, local.contiguous())
-        out[slot] = full.to(dtype).cpu()
+        out[slot] = full.to(dtype)
     return out
 
 
@@ -307,17 +352,19 @@ def _flat_opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer,
     return payload
 
 
-def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer) -> Dict[str, np.ndarray]:
-    """The optimizer's state by its JAX keys (numpy; bf16 as bits). A
-    parameter without state yet has zeros; mixed step counts are refused."""
+def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer, tensors,
+                 steps) -> Dict[str, np.ndarray]:
+    """The optimizer's state by its JAX keys (numpy; bf16 as bits), from the
+    captured ``tensors`` (``opt/<parameter>/<key>``) and step counts
+    ``steps``. A parameter without state yet has zeros; mixed step counts
+    are refused."""
     slots, counted = _opt_slots(optimizer)
     dtype = _state_dtype(optimizer)
-    steps, by_slot = set(), {slot: {} for slot in slots}
+    by_slot = {slot: {} for slot in slots}
     for pname, p in model.named_parameters():
-        state = optimizer.state.get(p) or {}
-        steps.add(int(state.get("step", 0)))
         for slot, key in slots.items():
-            by_slot[slot][pname] = _bits(state.get(key, torch.zeros(p.shape, dtype=dtype)))
+            t = tensors.get(f"opt/{pname}/{key}")
+            by_slot[slot][pname] = _bits(torch.zeros(p.shape, dtype=dtype) if t is None else t)
     opt = _field(layout, "opt_state")
     payload = {}
     if counted:
@@ -326,7 +373,7 @@ def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer) -> D
                 f"parameters are at steps {sorted(steps)}; the JAX layout keeps one step "
                 "count for the whole tree"
             )
-        payload[f"{opt}.step"] = np.asarray(steps.pop() if steps else 0, np.int32)
+        payload[f"{opt}.step"] = np.asarray(min(steps) if steps else 0, np.int32)
     mark = _BF16 if dtype == torch.bfloat16 else ""
     for slot, arrays in by_slot.items():
         tree, _ = jax_from_state_dict(name, arrays)
@@ -334,18 +381,13 @@ def _opt_payload(layout: str, name: str, model: torch.nn.Module, optimizer) -> D
     return payload
 
 
-def state_payload(layout: str, model: torch.nn.Module, optimizer=None,
-                  flat_state: Optional[Dict[str, Any]] = None) -> Dict[str, np.ndarray]:
-    """The model's (and the optimizer's) arrays by their JAX keys; a ZeRO-1
-    optimizer's state comes from ``flat_state`` (:func:`gather_flat_state`)."""
-    name = model_name(model)
-    params, mstate = jax_from_state_dict(name, model.state_dict())
+def model_payload(layout: str, model: torch.nn.Module, state_dict=None) -> Dict[str, np.ndarray]:
+    """The model's parameters and buffers by their JAX keys, from
+    ``state_dict`` (the model's own when None)."""
+    params, mstate = jax_from_state_dict(
+        model_name(model), model.state_dict() if state_dict is None else state_dict)
     payload = dict(_leaves(_field(layout, "params"), params))
     payload.update(_leaves(_field(layout, "model_state"), mstate))
-    if isinstance(optimizer, optim.ShardedUpdate):
-        payload.update(_flat_opt_payload(layout, name, model, optimizer, flat_state))
-    elif optimizer is not None:
-        payload.update(_opt_payload(layout, name, model, optimizer))
     return payload
 
 
@@ -369,20 +411,24 @@ def topology_record(world_size: int, flat_keys=(), residual_per: Optional[int] =
             "mesh_axes": ["data"], "mesh_shape": [w], "leaves": leaves, "placement": placement}
 
 
-def gather_residual(model: torch.nn.Module, optimizer, residual: torch.Tensor) -> np.ndarray:
-    """Every replica's native residual (``(total,)`` each) in the JAX flat
-    order, concatenated in rank order (a collective): ``(world * total,)``
-    float32. Under ZeRO-1 (``optimizer`` a ShardedUpdate) each is permuted
-    from the port's order."""
-    world = get_world_size()
-    full = torch.empty(world * residual.numel(), dtype=torch.float32, device=residual.device)
+def gather_residual(residual: torch.Tensor) -> torch.Tensor:
+    """Every replica's native residual (``(total,)`` each), concatenated in
+    rank order on the device (a collective): ``(world * total,)``."""
+    full = torch.empty(get_world_size() * residual.numel(), dtype=torch.float32,
+                       device=residual.device)
     collectives.all_gather_shards(full, residual.contiguous())
-    out = full.cpu().numpy().reshape(world, -1)
+    return full
+
+
+def _residual_payload(model: torch.nn.Module, optimizer, full, per: int) -> np.ndarray:
+    """The gathered native residual (rows of ``per``, one a replica) in the
+    JAX flat order: each row permuted from the port's order under ZeRO-1."""
+    out = _bits(full).copy()
     if isinstance(optimizer, optim.ShardedUpdate):
         raw = optimizer.spec.raw
-        for row in out:
+        for row in out.reshape(-1, per):
             row[:raw] = flat_to_jax(model_name(model), model, row[:raw].copy())
-    return out.reshape(-1)
+    return out
 
 
 def _skip_key(layout: str, name: str) -> str:
@@ -390,8 +436,8 @@ def _skip_key(layout: str, name: str) -> str:
 
 
 def _skip_payload(layout: str, skipped) -> Dict[str, np.ndarray]:
-    """The guard's counters (device int32 scalars) by their JAX keys."""
-    values = torch.stack([skipped[k] for k in _SKIP_KEYS]).tolist()
+    """The guard's counters (int32 scalars) by their JAX keys."""
+    values = torch.stack([skipped[k].cpu() for k in _SKIP_KEYS]).tolist()
     return {_skip_key(layout, k): np.asarray(v, np.int32) for k, v in zip(_SKIP_KEYS, values)}
 
 
@@ -412,8 +458,8 @@ def _restore_skipped(path: str, stored: dict, layout: str, skipped) -> None:
 
 
 def _managed_residual_payload(model: torch.nn.Module, residual) -> Dict[str, np.ndarray]:
-    """The managed residual (one tensor per parameter) as the JAX tree
-    ``['comm_state']``."""
+    """The managed residual (one tensor per parameter, in the parameters'
+    order) as the JAX tree ``['comm_state']``."""
     arrays = {pname: _bits(r) for (pname, _), r in zip(model.named_parameters(), residual)}
     tree, _ = jax_from_state_dict(model_name(model), arrays)
     return dict(_leaves(_field(MANAGED, "comm_state"), tree))
@@ -461,23 +507,62 @@ def restore_rng(record: List[dict], generator: Optional[torch.Generator],
 
 # --------------------------------------------------------------------- save --
 
+_ZIP_TIME = (1980, 1, 1, 0, 0, 0)
+
+
+def _savez(f, payload: dict) -> None:
+    """``np.savez``'s layout (one stored ``<key>.npy`` entry per array, in
+    order) with every entry's zip time fixed, so one payload gives one
+    sequence of bytes whenever it is written: an async snapshot and a
+    synchronous save of the same step are byte-identical."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED, allowZip64=True) as z:
+        for key, val in payload.items():
+            info = zipfile.ZipInfo(key + ".npy", date_time=_ZIP_TIME)
+            with z.open(info, "w", force_zip64=True) as fid:
+                np.lib.format.write_array(fid, np.asanyarray(val), allow_pickle=False)
+
+
 def write(path: str, payload: dict, meta: Optional[Dict[str, int]] = None,
-          topology: Optional[dict] = None) -> str:
-    """Write ``payload`` (and the ``__meta__`` scalars and topology record)
-    to ``path`` atomically and durably, then its manifest."""
+          topology: Optional[dict] = None, cursor: Optional[dict] = None,
+          cursor_acc: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``payload`` (and the ``__meta__`` scalars, the topology record
+    and a step snapshot's v4 ``__cursor__`` record with its partial
+    accumulator ``cursor_acc``, ``{name: array}``, stored as
+    ``__cursor_acc__['name']``) to ``path`` atomically and durably, then its
+    manifest (``tpuddp/training/checkpoint.py:298-361``)."""
     payload = dict(payload)
     if topology is not None:
         payload[_TOPO] = np.asarray(json.dumps(topology))
+    if cursor is not None:
+        acc = {f"{_CURSOR_ACC}['{k}']": np.asarray(v) for k, v in (cursor_acc or {}).items()}
+        record = dict(cursor, acc_keys=sorted(acc))
+        payload[_CURSOR] = np.asarray(json.dumps(record, sort_keys=True))
+        for k in sorted(acc):
+            payload[k] = acc[k]
     for k, v in (meta or {}).items():
         payload[_META + k] = np.asarray(int(v), dtype=np.int64)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        np.savez(f, **payload)
+        _savez(f, payload)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
     write_manifest(path)
     return path
+
+
+def read_cursor(path: str) -> Optional[dict]:
+    """The v4 data cursor of a step snapshot with its partial accumulator
+    under ``"acc"`` (``{"['name']": array}``, the JAX keys); None for a file
+    without one (``tpuddp/training/checkpoint.py:364-384``)."""
+    with np.load(path) as data:
+        if _CURSOR not in data.files:
+            return None
+        record = json.loads(str(np.asarray(data[_CURSOR]).item()))
+        acc = {k[len(_CURSOR_ACC):]: np.asarray(data[k])
+               for k in record.pop("acc_keys", []) if k in data.files}
+        record["acc"] = acc or None
+        return record
 
 
 def _on_main(rank: int, write_fn):
@@ -489,12 +574,155 @@ def _on_main(rank: int, write_fn):
     return path
 
 
+@dataclasses.dataclass
+class Captured:
+    """What one save of a run writes, taken at one point of it: ``tensors``
+    by capture key (``sd/<key>`` the model's state_dict, ``opt/<parameter>/
+    <slot>`` or ``flat/<slot>`` the optimizer's state, ``opt_count`` the
+    guard's device step count, ``residual`` or ``residual/<i>`` the comm
+    hook's, ``skip/<counter>`` the guard's), on the device or the host, and
+    the host values beside them. ``model`` and ``optimizer`` give the
+    layout (names, shapes, the JAX flat order, the optimizer's class); their
+    values are never read."""
+
+    layout: str
+    model: torch.nn.Module
+    optimizer: Any
+    tensors: Dict[str, torch.Tensor]
+    host: Dict[str, Any]
+
+
+def _capture_opt(layout: str, model: torch.nn.Module, optimizer, tensors: dict, host: dict) -> None:
+    """The optimizer's part of :func:`capture`, into ``tensors`` and
+    ``host`` (a ZeRO-1 wrap's shards gathered: a collective)."""
+    counted = optim._counted(optimizer)
+    if counted is not None and counted.verdict is not None and counted._count is not None:
+        tensors["opt_count"] = counted._count  # under the guard the host's steps are stale
+    if isinstance(optimizer, optim.ShardedUpdate):  # every rank gathers
+        flat = gather_flat_state(optimizer)
+        host["steps"] = {flat.pop("step")} if "step" in flat else set()
+        tensors.update((f"flat/{slot}", t) for slot, t in flat.items())
+        opt = _field(layout, "opt_state")
+        host["flat_keys"] = [f"{opt}.{slot}" for slot in _opt_slots(optimizer)[0]]
+        return
+    slots, _ = _opt_slots(optimizer)
+    for pname, p in model.named_parameters():
+        state = optimizer.state.get(p) or {}
+        host["steps"].add(int(state.get("step", 0)))
+        for key in slots.values():
+            if key in state:
+                tensors[f"opt/{pname}/{key}"] = state[key]
+
+
+def _captured_opt_payload(layout: str, model: torch.nn.Module, optimizer, t: dict,
+                          host: dict) -> Dict[str, np.ndarray]:
+    """The optimizer's arrays by their JAX keys, from what
+    :func:`_capture_opt` took."""
+    name = model_name(model)
+    steps = {int(t["opt_count"])} if "opt_count" in t else host["steps"]
+    if isinstance(optimizer, optim.ShardedUpdate):
+        flat = {k[5:]: v for k, v in t.items() if k.startswith("flat/")}
+        flat["step"] = min(steps) if steps else 0
+        return _flat_opt_payload(layout, name, model, optimizer, flat)
+    return _opt_payload(layout, name, model, optimizer, t, steps)
+
+
+def state_payload(layout: str, model: torch.nn.Module, optimizer=None) -> Dict[str, np.ndarray]:
+    """The model's (and the optimizer's) arrays by their JAX keys, read now."""
+    payload = model_payload(layout, model)
+    if optimizer is not None:
+        tensors, host = {}, {"steps": set(), "flat_keys": ()}
+        _capture_opt(layout, model, optimizer, tensors, host)
+        payload.update(_captured_opt_payload(layout, model, optimizer, tensors, host))
+    return payload
+
+
+def capture(model: torch.nn.Module, optimizer, *, layout: str = NATIVE, seed: int = 0,
+            generator: Optional[torch.Generator] = None, world_size: int = 1, step: int = 0,
+            counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+            comm_state=None, skipped=None) -> Captured:
+    """Everything a save of ``model`` writes, as references to the live
+    tensors, read nothing on the host (the snapshot engine copies them
+    before the next step). A collective at world > 1: every rank's random
+    streams, ZeRO-1 shards and native residual are gathered. Arguments as
+    :func:`save_on_main`."""
+    if layout == MANAGED and keys is None:
+        raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
+    device = next(model.parameters()).device
+    tensors = {f"sd/{k}": v.detach() for k, v in model.state_dict().items()}
+    host = {"rng": _gather_rng(rng_states(generator, device)), "world_size": world_size,
+            "flat_keys": (), "residual_per": None, "step": step, "seed": seed,
+            "counter": counter, "keys": keys, "steps": set()}
+    if optimizer is not None:
+        _capture_opt(layout, model, optimizer, tensors, host)
+    if comm_state is not None and layout == NATIVE:  # every rank gathers
+        tensors["residual"] = gather_residual(comm_state)
+        host["residual_per"] = comm_state.numel()
+    elif comm_state is not None:
+        tensors.update((f"residual/{i}", r) for i, r in enumerate(comm_state))
+    if skipped is not None:
+        tensors.update((f"skip/{k}", skipped[k]) for k in _SKIP_KEYS)
+    return Captured(layout, model, optimizer, tensors, host)
+
+
+def captured_payload(cap: Captured) -> Dict[str, np.ndarray]:
+    """The file's arrays by their JAX keys, from ``cap`` (a host read of
+    each tensor still on the device)."""
+    layout, model, optimizer, t, host = cap.layout, cap.model, cap.optimizer, cap.tensors, cap.host
+    payload = model_payload(layout, model, {k[3:]: v for k, v in t.items() if k.startswith("sd/")})
+    if optimizer is not None:
+        payload.update(_captured_opt_payload(layout, model, optimizer, t, host))
+    if "residual" in t:
+        payload[_COMM] = _residual_payload(model, optimizer, t["residual"], host["residual_per"])
+    elif "residual/0" in t:
+        n = sum(1 for k in t if k.startswith("residual/"))
+        payload.update(_managed_residual_payload(model, [t[f"residual/{i}"] for i in range(n)]))
+    if "skip/total" in t:
+        payload.update(_skip_payload(layout, {k: t[f"skip/{k}"] for k in _SKIP_KEYS}))
+    if layout == NATIVE:
+        payload[".step"] = np.asarray(host["step"], np.int32)
+        payload[f"{_PRNG}.rng"] = jax_run_key(host["seed"] or 0)
+    else:
+        payload[f"{_PRNG}['rng_key']"], payload[f"{_PRNG}['bwd_key']"] = host["keys"]
+        payload["['bwd_counter']"] = np.asarray(host["counter"], np.int64)
+    payload[RNG_KEY] = np.asarray(json.dumps(host["rng"]))
+    return payload
+
+
+def write_captured(save_dir: str, epoch: int, cap: Captured, *, completed: bool = True,
+                   snapshot_step: Optional[int] = None, cursor: Optional[dict] = None,
+                   cursor_acc: Optional[Dict[str, Any]] = None,
+                   keep_last: Optional[int] = None) -> str:
+    """Write ``cap`` as ``{prefix}_{epoch}.npz``, or with ``snapshot_step``
+    as the step snapshot ``{prefix}_{epoch}_s{step}.npz`` (always
+    ``completed=0``, its meta carrying the step; ``cursor`` and
+    ``cursor_acc`` as :func:`write`); with ``keep_last`` the older files
+    are pruned. The one writer of the synchronous save and of the snapshot
+    engine's thread, so both give the same bytes."""
+    os.makedirs(save_dir, exist_ok=True)
+    prefix = PREFIX[cap.layout]
+    if snapshot_step is None:
+        target = checkpoint_path(save_dir, epoch, prefix)
+        meta = {"epoch": epoch, "completed": int(completed)}
+    else:
+        target = step_checkpoint_path(save_dir, epoch, snapshot_step, prefix)
+        meta = {"epoch": epoch, "completed": 0, "step": int(snapshot_step)}
+    path = write(target, captured_payload(cap), meta=meta,
+                 topology=topology_record(cap.host["world_size"], cap.host["flat_keys"],
+                                          cap.host["residual_per"]),
+                 cursor=cursor, cursor_acc=cursor_acc)
+    if keep_last is not None:
+        prune_checkpoints(save_dir, keep_last, prefix)
+    return path
+
+
 def save_on_main(
     save_dir: str, epoch: int, model: torch.nn.Module, optimizer, rank: int, *,
     layout: str = NATIVE, seed: int = 0, generator: Optional[torch.Generator] = None,
     world_size: int = 1, completed: bool = True, keep_last: Optional[int] = None,
     step: int = 0, counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-    comm_state=None, skipped=None,
+    comm_state=None, skipped=None, snapshot_step: Optional[int] = None,
+    cursor: Optional[dict] = None, cursor_acc: Optional[Dict[str, Any]] = None,
 ) -> Optional[str]:
     """``ckpt_{epoch}.npz`` (``layout=NATIVE``, whose ``.step`` is ``step``
     and whose run key derives from ``seed``) or ``state_{epoch}.npz``
@@ -504,48 +732,18 @@ def save_on_main(
     ``keep_last`` the older files are pruned. ``comm_state`` is the comm
     hook's residual (native: this rank's vector, gathered from every rank;
     managed: one tensor per parameter), or None; ``skipped`` the guard's
-    skip counters, or None. Returns the path on rank 0."""
-    if layout == MANAGED and keys is None:
-        raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
+    skip counters, or None. ``snapshot_step`` (with the v4 ``cursor`` and
+    ``cursor_acc``) writes the step snapshot ``{prefix}_{epoch}_s{step}.npz``
+    of that many real micro-batches of ``epoch`` instead
+    (``tpuddp/training/checkpoint.py:804-859``). Returns the path on rank 0."""
     if optimizer is not None:
         optim.sync_steps(optimizer)  # the guard's device step count, on the host
-    device = next(model.parameters()).device
-    record = _gather_rng(rng_states(generator, device))
-    flat_state, flat_keys = None, ()
-    if isinstance(optimizer, optim.ShardedUpdate):  # every rank gathers
-        flat_state = gather_flat_state(optimizer)
-        opt = _field(layout, "opt_state")
-        flat_keys = [f"{opt}.{slot}" for slot in _opt_slots(optimizer)[0]]
-    residual, residual_per = {}, None
-    if comm_state is not None and layout == NATIVE:  # every rank gathers
-        residual = {_COMM: gather_residual(model, optimizer, comm_state)}
-        residual_per = comm_state.numel()
-    elif comm_state is not None:
-        residual = _managed_residual_payload(model, comm_state)
-    if skipped is not None:
-        residual.update(_skip_payload(layout, skipped))
-
-    def write_fn():
-        os.makedirs(save_dir, exist_ok=True)
-        payload = state_payload(layout, model, optimizer, flat_state)
-        payload.update(residual)
-        if layout == NATIVE:
-            payload[".step"] = np.asarray(step, np.int32)
-            payload[f"{_PRNG}.rng"] = jax_run_key(seed or 0)
-        else:
-            payload[f"{_PRNG}['rng_key']"], payload[f"{_PRNG}['bwd_key']"] = keys
-            payload["['bwd_counter']"] = np.asarray(counter, np.int64)
-        payload[RNG_KEY] = np.asarray(json.dumps(record))
-        path = write(
-            checkpoint_path(save_dir, epoch, PREFIX[layout]), payload,
-            meta={"epoch": epoch, "completed": int(completed)},
-            topology=topology_record(world_size, flat_keys, residual_per),
-        )
-        if keep_last is not None:
-            prune_checkpoints(save_dir, keep_last, PREFIX[layout])
-        return path
-
-    return _on_main(rank, write_fn)
+    cap = capture(model, optimizer, layout=layout, seed=seed, generator=generator,
+                  world_size=world_size, step=step, counter=counter, keys=keys,
+                  comm_state=comm_state, skipped=skipped)
+    return _on_main(rank, lambda: write_captured(
+        save_dir, epoch, cap, completed=completed, snapshot_step=snapshot_step, cursor=cursor,
+        cursor_acc=cursor_acc, keep_last=keep_last))
 
 
 def save_model_on_main(save_dir: str, model: torch.nn.Module, rank: int) -> Optional[str]:
@@ -553,7 +751,7 @@ def save_model_on_main(save_dir: str, model: torch.nn.Module, rank: int) -> Opti
     written by rank 0."""
     def write_fn():
         os.makedirs(save_dir, exist_ok=True)
-        return write(os.path.join(save_dir, "model.npz"), state_payload(MANAGED, model))
+        return write(os.path.join(save_dir, "model.npz"), model_payload(MANAGED, model))
 
     return _on_main(rank, write_fn)
 
@@ -568,8 +766,6 @@ def _refuse_unported(path: str, stored: dict) -> None:
             f"(ROADMAP.md Queue 1 item 8: {item})"
         )
 
-    if _CURSOR in stored:
-        refuse("a step snapshot's data cursor (__cursor__)", "step snapshots")
     topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
     if int(topo.get("model_size") or 1) > 1:
         refuse(f"a model={topo['model_size']} mesh", "tensor parallel")
@@ -841,20 +1037,52 @@ def latest(save_dir: str, prefix: str = "ckpt") -> Optional[Tuple[str, int]]:
     return None
 
 
-def agreed_latest(save_dir: str, prefix: str = "ckpt",
-                  device: Optional[torch.device] = None) -> Optional[Tuple[str, int]]:
-    """:func:`latest` as process 0 finds it, on every process (a collective
-    at world > 1; ``device`` carries it). ``FileNotFoundError`` on every
-    process when one of them cannot verify that file."""
-    found = latest(save_dir, prefix) if get_rank() == 0 else None
+def _latest_any(save_dir: str, prefix: str = "ckpt",
+                include_peers: bool = True) -> Optional[Tuple[str, int, Optional[int], str]]:
+    """The freshest intact file across the local files, the peer spills
+    (:func:`peer_checkpoint_dirs`) and the epoch family: ``(path, epoch,
+    step, provenance)``, ``provenance`` ``"local"`` or ``"peer:ring_<i>"``;
+    equal freshness prefers the local file (``tpuddp/training/
+    checkpoint.py:908-937``)."""
+    candidates = [((e, 1 if s is None else 0, s or 0), 0, path, e, s, "local")
+                  for path, e, s in _all_checkpoints(save_dir, prefix)]
+    if include_peers:
+        for pd in peer_checkpoint_dirs(save_dir):
+            prov = f"peer:{os.path.basename(pd)}"
+            candidates += [((e, 1 if s is None else 0, s or 0), 1, path, e, s, prov)
+                           for path, e, s in _all_checkpoints(pd, prefix)]
+    candidates.sort(key=lambda c: (c[0], -c[1]), reverse=True)
+    for _key, _rank, path, epoch, step, prov in candidates:
+        if verify_file(path):
+            return path, epoch, step, prov
+        logger.warning(
+            "checkpoint %s (%s) failed integrity verification (corrupt or truncated); skipping "
+            "it and falling back to the next-newest intact candidate across {local, peer, "
+            "epoch-family}", path, prov,
+        )
+    return None
+
+
+def _agreed(save_dir: str, prefix: str, device: Optional[torch.device]):
+    """:func:`_latest_any` as process 0 finds it, on every process (a
+    collective at world > 1; ``device`` carries it): each process opens the
+    file of that name under its own ``save_dir`` (or its own peer spill
+    directory). ``FileNotFoundError`` on every process when one of them
+    cannot verify it."""
+    found = _latest_any(save_dir, prefix) if get_rank() == 0 else None
     if get_world_size() == 1:
         return found
-    box = [None if found is None else (os.path.basename(found[0]), found[1])]
+    peer_root = os.path.join(heartbeat_dir(save_dir), "peer_ckpt")
+    box = [None]
+    if found is not None:
+        path, epoch, step, prov = found
+        root = save_dir if prov == "local" else peer_root
+        box = [(os.path.relpath(path, root), epoch, step, prov)]
     dist.broadcast_object_list(box, src=0, device=device)
     if box[0] is None:
         return None
-    name, epoch = box[0]
-    path = os.path.join(save_dir, name)
+    name, epoch, step, prov = box[0]
+    path = os.path.join(save_dir if prov == "local" else peer_root, name)
     ok = torch.tensor([int(get_rank() == 0 or verify_file(path))], device=device)
     dist.all_reduce(ok, op=dist.ReduceOp.MIN)
     if not ok.item():
@@ -862,7 +1090,17 @@ def agreed_latest(save_dir: str, prefix: str = "ckpt",
             f"process 0 resumes from {name}, which a process cannot open under its {save_dir}: "
             "every host must see one out_dir (a shared filesystem) to resume or roll back"
         )
-    return path, epoch
+    return path, epoch, step, prov
+
+
+def agreed_latest(save_dir: str, prefix: str = "ckpt",
+                  device: Optional[torch.device] = None) -> Optional[Tuple[str, int]]:
+    """The freshest intact ``(path, epoch)`` (:func:`_latest_any`, step
+    snapshots and peer spills included) as process 0 finds it, on every
+    process; ``FileNotFoundError`` on every process when one of them cannot
+    verify that file."""
+    found = _agreed(save_dir, prefix, device)
+    return None if found is None else found[:2]
 
 
 def sweep_stale_tmp(save_dir: str, prefix: str = "ckpt") -> int:
@@ -883,9 +1121,10 @@ def sweep_stale_tmp(save_dir: str, prefix: str = "ckpt") -> int:
 
 
 def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> int:
-    """Delete all but the ``keep_last`` newest files (and their manifests)
-    and stale staging files; the newest intact full-epoch file is never
-    collected. Returns how many checkpoints went."""
+    """Delete all but the ``keep_last`` newest files (with their manifests
+    and a snapshot's writer sidecar) and stale staging files; the newest
+    intact full-epoch file is never collected. Returns how many
+    checkpoints went."""
     if keep_last < 1:
         raise ValueError(f"keep_last must be >= 1, got {keep_last}")
     sweep_stale_tmp(save_dir, prefix)
@@ -899,7 +1138,7 @@ def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> in
     for path, _epoch, _step in found:
         if path in keep:
             continue
-        for p in (path, manifest_path(path)):
+        for p in (path, manifest_path(path), path + ".writer.json"):
             try:
                 os.remove(p)
             except FileNotFoundError:
@@ -911,21 +1150,40 @@ def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> in
 
 def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
                    layout: str = NATIVE, generator: Optional[torch.Generator] = None,
-                   comm_state=None, skipped=None) -> Tuple[int, Dict[str, Any]]:
-    """Restore the newest intact file of ``layout`` in ``save_dir``; returns
-    ``(next_epoch, meta)``: the epoch to train next (0 when there is no
-    file, the file's epoch after an emergency save, ``completed=0``, else
-    the one after it) and what :func:`load` returns (empty without a
-    file). ``comm_state`` and ``skipped`` are restored in place as
-    :func:`load` does. Every process restores :func:`agreed_latest`'s
-    file."""
+                   comm_state=None, skipped=None,
+                   cursor_out: Optional[List[dict]] = None) -> Tuple[int, Dict[str, Any]]:
+    """Restore the freshest intact file of ``layout`` across ``save_dir``,
+    the peer spills and the epoch family; returns ``(next_epoch, meta)``:
+    the epoch to train next (0 when there is no file; a step snapshot's own
+    epoch, whose cursor, with its ``path`` and ``provenance``, is appended
+    to ``cursor_out``; the file's epoch after an emergency save,
+    ``completed=0``; else the one after it) and what :func:`load` returns
+    (empty without a file). ``comm_state`` and ``skipped`` are restored in
+    place as :func:`load` does. Every process restores the file process 0
+    picks; its provenance is logged when it is not a local epoch file."""
     prefix = PREFIX[layout]
     sweep_stale_tmp(save_dir, prefix)
-    found = agreed_latest(save_dir, prefix, next(model.parameters()).device)
+    found = _agreed(save_dir, prefix, next(model.parameters()).device)
     if found is None:
         return 0, {}
-    path, epoch = found
+    path, epoch, step, provenance = found
+    if provenance != "local" or step is not None:
+        logger.warning(
+            "restore_latest: picked %s (epoch=%d, %s, provenance=%s) as the freshest intact "
+            "candidate across {local, peer, epoch-family}", path, epoch,
+            "full-epoch" if step is None else f"step={step}", provenance,
+        )
     meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped)
+    cursor = read_cursor(path)
+    if cursor is not None:
+        if cursor_out is not None:
+            cursor_out.append(dict(cursor, path=path, provenance=provenance))
+        logger.warning(
+            "resuming from STEP snapshot %s (epoch %d, step %s, provenance=%s); the interrupted "
+            "epoch continues at the recorded step — zero batches replayed",
+            path, int(cursor.get("epoch", epoch)), cursor.get("step"), provenance,
+        )
+        return int(cursor.get("epoch", epoch)), meta
     if not meta.get("completed", 1):
         logger.warning(
             "resuming from EMERGENCY checkpoint %s (preempted during epoch %d); that "

@@ -76,6 +76,25 @@ times (then ``RuntimeError``), or raise ``FloatingPointError`` without a
 checkpoint. ``$TPUDDP_FAULT=nan@step=N`` poisons the host micro-batch of
 global train index N from the loop's entry before it is staged, so a chunk
 carries it as any batch. Rows are strict JSON: a non-finite loss is null.
+
+The preemption drain and step snapshots (``tpuddp/training/loop.py:
+303-360, :612-708, :759-1000``): at world 1 every pass polls the drain
+flag (SIGTERM, SIGINT, ``$TPUDDP_FAULT=preempt@step=N``) before it stages a
+batch and stops after the last dispatch issued; at world > 1 no pass polls,
+and the drain is decided at each epoch's start on rank 0's flag (one
+broadcast). The drain writes one save and raises ``TrainingPreempted``
+(exit 75 in ``parallel/spawn.py``): a cut train pass saves
+``ckpt_{epoch}.npz`` with ``completed=0`` (the epoch is redone), or, with
+``training.snapshot`` armed, flushes the snapshot writer and writes the
+final step snapshot at the drained step; a cut eval pass writes the
+epoch's row with null eval metrics and saves the epoch as done; then a
+``preempt`` event row, fsync'd. With ``training.snapshot`` the engine
+snapshots every ``every_steps`` real micro-batches after a dispatch's
+telemetry (between chunks under replay). A resume whose file carries a
+cursor with this epoch's plan key continues the epoch at its step through
+``EpochTailLoader``, the train sums seeded from the cursor: the rows are
+bitwise an uninterrupted run's; a mismatched key redoes the epoch. A
+guard rollback to a step snapshot continues that epoch at its step.
 """
 
 from __future__ import annotations
@@ -85,6 +104,7 @@ import math
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -92,10 +112,12 @@ from tpuddp_torch import optim, seeding
 from tpuddp_torch.observability import CommBytesCounter, MetricsWriter, RunTelemetry, schema
 from tpuddp_torch.observability.recorder import count_step_flops
 from tpuddp_torch.parallel import backend
-from tpuddp_torch.resilience import faults
+from tpuddp_torch.resilience import faults, preemption
 from tpuddp_torch.resilience import guard as guard_lib
+from tpuddp_torch.resilience.preemption import TrainingPreempted
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import pipeline as pipeline_lib
+from tpuddp_torch.training import snapshot as snapshot_lib
 from tpuddp_torch.training.step import EVAL_KEYS, TRAIN_KEYS, finalize_metrics
 from tpuddp_torch.utils import batching
 
@@ -148,7 +170,9 @@ def dispatches(batches, k: int, accum: int = 1):
     each (``many``); under ``accum > 1`` a ragged tail is padded with
     all-padding copies of its last batch to whole cycles and is one
     dispatch; otherwise the remainder is single steps. With ``k <= 1`` and
-    no accumulation every batch is a single step."""
+    no accumulation every batch is a single step. A pass ``batches`` marks
+    ``interrupted`` (the preemption drain) ends after the last dispatch
+    issued: a partial chunk is dropped with the staged batches."""
     if k <= 1 and accum <= 1:
         for batch in batches:
             yield False, [batch]
@@ -159,6 +183,8 @@ def dispatches(batches, k: int, accum: int = 1):
         if len(chunk) == k:
             yield True, chunk
             chunk = []
+    if getattr(batches, "interrupted", False):
+        return
     if chunk and accum > 1:
         x, y, w = chunk[-1]
         yield True, chunk + [(x, y, torch.zeros_like(w))] * (-len(chunk) % accum)
@@ -239,20 +265,35 @@ def event(name: str, **fields) -> dict:
     return schema.stamp("event", {"event": name, **fields})
 
 
-def nan_injector():
-    """The ``nan@step=N`` hook of the train pass (None when no such fault
-    is armed): each host micro-batch counted from the loop's entry."""
+def step_fault_hook():
+    """The ``$TPUDDP_FAULT`` hook of the train pass (None when no step fault
+    is armed): each host micro-batch counted from the loop's entry;
+    ``preempt@step=N`` asks for the drain there (the poll that follows stops
+    the pass before batch N is staged), ``nan@step=N`` poisons it."""
     faults.refuse_unported()
-    if not faults.has_nan_fault():
+    if not faults.has_step_fault():
         return None
     counter = {"i": 0}
 
     def inject(host_batch):
         i = counter["i"]
         counter["i"] += 1
+        faults.maybe_fire("step", step=i)
         return faults.maybe_corrupt_batch(host_batch, i)
 
     return inject
+
+
+def drain_requested(world_size: int, device) -> bool:
+    """Rank 0's drain flag on every rank (one broadcast of one int at world
+    > 1: signals land on the ranks apart, and all must agree before the
+    save's collectives; ``tpuddp/training/loop.py:626-639``)."""
+    flag = preemption.preemption_requested()
+    if world_size == 1 or not dist.is_initialized():
+        return flag
+    box = torch.tensor([int(flag)], device=device)
+    dist.broadcast(box, src=0)
+    return bool(box.item())
 
 
 def _prober(loader, every: Optional[int], log):
@@ -283,6 +324,7 @@ def run_training_loop(
     step_stats_every: int = 0,
     run_meta: Optional[dict] = None,
     model_input: Optional[tuple] = None,
+    snapshot=None,
     log=print,
 ):
     """Run the epochs from the first not yet done (0 unless resumed) to
@@ -290,7 +332,7 @@ def run_training_loop(
     holds the entry point's header fields (config_hash, model, dataset);
     ``model_input`` is one train batch's ``(shape, dtype)`` as the model
     takes it, which the telemetry counts an update's FLOPs on (MFU is
-    null without it)."""
+    null without it); ``snapshot`` the ``training.snapshot`` block."""
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
     accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
     pipeline = pipeline_lib.resolve_pipeline(pipeline)
@@ -302,6 +344,24 @@ def run_training_loop(
     chunked = train_k > 1  # else one step (one cycle) per dispatch, as before
     train_k = scan_steps_in_cycles(train_k, accum, train_nbytes)
     is_main = rank == 0
+    residual = getattr(ddp, "residual", None)
+    counters = None if getattr(ddp, "firewall", None) is None else ddp.firewall.counters
+
+    def capture():
+        """The live state as a save writes it (the snapshot engine copies it)."""
+        return ckpt.capture(ddp.model, ddp.optimizer, seed=base_seed, generator=ddp.generator,
+                            world_size=world_size, step=ddp.step, comm_state=residual,
+                            skipped=counters)
+
+    # step snapshots (training/snapshot.py): device copies between
+    # dispatches, a background writer; pending["c"] carries a restored v4
+    # cursor to the epoch it continues (tpuddp/training/loop.py:303-359)
+    snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
+    snap_engine = None
+    if snap_cfg.enabled and save_dir is not None:
+        snap_engine = snapshot_lib.SnapshotEngine(save_dir, snap_cfg, rank=rank,
+                                                  world_size=world_size, keep_last=keep_last)
+    pending = {"c": None}
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
     start_epoch = 0
@@ -310,20 +370,26 @@ def run_training_loop(
             if is_main:
                 log("Auto-resume requested but no save_dir configured; starting fresh.")
         else:
+            cursors = []
             start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
-                comm_state=getattr(ddp, "residual", None),
-                skipped=None if getattr(ddp, "firewall", None) is None else ddp.firewall.counters,
+                comm_state=residual, skipped=counters, cursor_out=cursors,
             )
+            pending["c"] = cursors[-1] if cursors else None
             ddp.step = meta.get("step", ddp.step)
             ddp.clear_graphs()  # the restore replaced what a graph writes
             if start_epoch > 0 and is_main:
                 log(f"Auto-resume: continuing from epoch {start_epoch}.")
+    # the drain flag, polled at every batch boundary at world 1; at world > 1
+    # never inside a pass (one rank stopping while the others issue the
+    # step's collectives would wedge them): drain_requested decides at the
+    # epoch's start
+    poll = preemption.preemption_requested if world_size == 1 else None
     train_pass = pipeline_lib.StagedLoader(
         train_loader, device, pipeline, probe=_prober(train_loader, data_probe_every, log),
-        inject=nan_injector(),
+        inject=step_fault_hook(), poll=poll,
     )
-    test_pass = pipeline_lib.StagedLoader(test_loader, device, pipeline)
+    test_pass = pipeline_lib.StagedLoader(test_loader, device, pipeline, poll=poll)
     guard = getattr(ddp, "guard", guard_lib.DISABLED)
     prev_total = ddp.skip_counters()[0] if guard.enabled else 0
     rollbacks = 0
@@ -342,6 +408,7 @@ def run_training_loop(
         comm_topology=getattr(ddp, "comm_topology", "flat"),
         guard=guard,
         comm={"overlap": dict(ddp.comm_overlap_meta)},
+        snapshot=snap_engine.describe() if snap_engine is not None else False,
         extra={
             "api": "native",
             "scan_steps": scan_steps,
@@ -368,7 +435,8 @@ def run_training_loop(
         return save_dir is not None and ckpt.agreed_latest(save_dir, device=device) is not None
 
     def rollback(epoch: int, reason: str) -> int:
-        """Restore the newest intact checkpoint; the epoch to redo."""
+        """Restore the freshest intact checkpoint; the epoch to redo (a step
+        snapshot's epoch continues at its step)."""
         nonlocal rollbacks
         rollbacks += 1
         if rollbacks > guard.max_rollbacks:
@@ -377,23 +445,70 @@ def run_training_loop(
                 "The failure recurs after restoring known-good state — a systematic divergence, "
                 "not a transient."
             )
+        cursors = []
         redo, meta = ckpt.restore_latest(
             save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
-            comm_state=getattr(ddp, "residual", None), skipped=ddp.firewall.counters,
+            comm_state=residual, skipped=ddp.firewall.counters, cursor_out=cursors,
         )
+        pending["c"] = cursors[-1] if cursors else None
+        resume_step = pending["c"]["step"] if cursors else None
         ddp.step = meta.get("step", ddp.step)
         ddp.clear_graphs()  # the restore replaced what a graph writes
-        writer.write(event("rollback", epoch=epoch, resume_epoch=redo, resume_step=None,
+        writer.write(event("rollback", epoch=epoch, resume_epoch=redo, resume_step=resume_step,
                            reason=reason))
         if is_main:
             log(f"Guard rollback ({reason}): restored last-good checkpoint, "
                 f"redoing from epoch {redo}.")
+            if resume_step is not None:
+                log(f"Rollback target is a step snapshot: epoch {redo} continues at step "
+                    f"{resume_step}.")
         return redo
+
+    def emergency_stop(epoch: int, completed: bool = False, partial: Optional[dict] = None):
+        """The drain (``tpuddp/training/loop.py:641-708``): one save, then
+        :class:`TrainingPreempted`. ``completed=False`` marks a train pass
+        cut mid-epoch (resume redoes the epoch from that state);
+        ``completed=True`` an eval pass cut after every update of the epoch
+        (resume starts at the next). With the snapshot engine armed, a cut
+        train pass (``partial``: its step, plan key and sums) flushes the
+        writer and writes a final step snapshot; resume continues at that
+        step. The ``preempt`` event row is fsync'd before the raise."""
+        path = None
+        flushed = None
+        snap_drain = snap_engine is not None and not completed and partial is not None
+        if save_dir is not None:
+            if snap_drain:
+                flushed = snap_engine.flush()
+                path = snap_engine.final_snapshot(
+                    capture, epoch=epoch, step=int(partial["step"]),
+                    plan_key=partial["plan_key"], acc=partial["acc"],
+                )
+                snap_drain = snap_engine.armed
+            if not snap_drain:
+                path = ckpt.save_on_main(
+                    save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
+                    generator=ddp.generator, world_size=world_size, completed=completed,
+                    step=ddp.step, comm_state=residual, skipped=counters,
+                )
+                if is_main:
+                    log(f"Preempted: emergency checkpoint for epoch {epoch} saved.")
+            elif is_main:
+                log(f"Preempted: drained snapshot writer (flushed step {flushed}) and saved "
+                    f"final step snapshot for epoch {epoch} step {int(partial['step'])}.")
+        row = {"epoch": epoch, "completed": bool(completed), "step": tel.recorder.global_step}
+        if snap_drain:
+            row["snapshot_step"] = int(partial["step"])
+        writer.write(event("preempt", **row))
+        writer.sync()
+        raise TrainingPreempted(epoch, path)
 
     try:
         history = []
         epoch = start_epoch
         while epoch < num_epochs:
+            faults.maybe_fire("epoch", epoch=epoch)  # $TPUDDP_FAULT=preempt@epoch=N
+            if drain_requested(world_size, device):
+                emergency_stop(epoch)
             if guard.enabled and guard.audit_every_n_epochs and \
                     (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
                 bad_leaf = guard_lib.audit_params(ddp.model)
@@ -416,10 +531,47 @@ def run_training_loop(
             if print_rand:
                 log(f"Process {rank}, {seeding.rng_probe_string(base_seed)}")
 
+            # the exact mid-epoch resume: a cursor restored for this epoch
+            # whose plan key matches this loader's continues at its step
+            # (zero batches replayed); a mismatch redoes the epoch
+            base_step, acc0 = 0, None
+            cur, pending["c"] = pending["c"], None
+            if cur is not None and int(cur.get("epoch", -1)) == epoch:
+                expect = snapshot_lib.epoch_plan_key(train_loader, epoch)
+                if not cur.get("plan_key"):
+                    logger.warning("Step snapshot for epoch %d carries no plan key (resharded "
+                                   "restore): redoing the epoch.", epoch)
+                elif cur["plan_key"] != expect:
+                    logger.warning(
+                        "Step snapshot plan key mismatch for epoch %d (%s != %s): data order "
+                        "changed, redoing the epoch from the restored state.",
+                        epoch, cur["plan_key"], expect,
+                    )
+                else:
+                    base_step = int(cur["step"])
+                    acc0 = snapshot_lib.acc_from_cursor(cur)
+                    if is_main:
+                        log(f"Exact resume: epoch {epoch} continues at step {base_step} "
+                            "(zero batches replayed).")
+            train_pass.loader = (snapshot_lib.EpochTailLoader(train_loader, base_step)
+                                 if base_step else train_loader)
+            plan_key = None
+            if snap_engine is not None:
+                plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch)
+                snap_engine.begin_epoch(epoch, base_step)
+
             train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
+            if acc0 is not None:  # the cursor's partial sums seed this pass's
+                train_sums.copy_(torch.from_numpy(np.concatenate(
+                    [np.asarray(acc0[k], np.float32).reshape(-1)[:1] for k in TRAIN_KEYS])))
+
+            def sums_by_key():
+                return {k: train_sums[i:i + 1] for i, k in enumerate(TRAIN_KEYS)}
+
             clock = StepClock(device)
             tel.start_epoch(epoch, clock)
-            left = len(train_loader)  # loader batches not yet dispatched
+            left = len(train_pass)  # loader batches not yet dispatched
+            done = base_step  # real micro-batches of the epoch dispatched
             dispatched = 0  # dispatches since the last wait for the device
             for many, chunk in dispatches(train_pass, train_k, accum):
                 updates = len(chunk) // accum
@@ -434,15 +586,22 @@ def run_training_loop(
                     train_sums += ddp.train_cycle(chunk)
                 real = min(len(chunk), left)  # an accumulation tail's padding is not the loader's
                 left -= real
+                done += real
                 windows = tel.recorder.windows_emitted
                 tel.post_dispatch(updates, train_pass.take_rows(real),
                                   host_stall_s=train_pass.stall.take(),
                                   staging_depth=train_pass.staged_depth,
                                   inflight_depth=dispatched + 1)
                 dispatched = 0 if tel.recorder.windows_emitted > windows else dispatched + 1
+                if snap_engine is not None:  # after the telemetry, before the next dispatch
+                    snap_engine.maybe(capture, epoch=epoch, step=done, plan_key=plan_key,
+                                      acc=sums_by_key())
+            if train_pass.interrupted:
+                emergency_stop(epoch, partial=None if snap_engine is None else {
+                    "step": done, "plan_key": plan_key, "acc": sums_by_key()})
             clock.mark()
             step_ms = clock.step_ms()
-            if not step_ms:
+            if not step_ms and not base_step:
                 raise RuntimeError(
                     "train loader yielded no batches this epoch; check the "
                     "dataset and batch size"
@@ -455,8 +614,11 @@ def run_training_loop(
                     eval_sums = ddp.eval_step_many(chunk, eval_sums)
                 else:
                     eval_sums += ddp.eval_step(chunk[0])
+            # a drain during the eval pass: every update of the epoch is in,
+            # so its row lands (eval metrics null) and the save counts it done
+            eval_cut = test_pass.interrupted
 
-            if per_replica_log:
+            if per_replica_log and not eval_cut:
                 _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
             sums = finalize_metrics(train_sums, eval_sums)
             tel.stop_epoch_trace()  # the first-epoch and SIGUSR1 traces hold the eval pass
@@ -464,7 +626,10 @@ def run_training_loop(
             train_loss = train_m["loss_sum"] / max(train_m["n"], 1.0)
             test_loss = eval_m["loss_sum"] / max(eval_m["n"], 1.0)
             test_accuracy = 100.0 * eval_m["correct"] / max(eval_m["n"], 1.0)
-            if is_main:
+            if eval_cut:
+                test_loss = test_accuracy = float("nan")
+                eval_m = dict(eval_m, n=0.0)
+            elif is_main:
                 log(
                     f"Epoch {epoch + 1}/{num_epochs}, "
                     f"Train Loss: {train_loss:.4f}, "
@@ -518,6 +683,8 @@ def run_training_loop(
             if epoch_skips:
                 writer.write(event("skipped_updates", epoch=epoch, count=epoch_skips,
                                    total=record["skipped_steps"]))
+            if eval_cut:
+                emergency_stop(epoch, completed=True)
             if consecutive > guard.max_consecutive_skips:
                 # updates skipped back to back: restore the last good state
                 # instead of checkpointing a wedged trajectory
@@ -535,17 +702,19 @@ def run_training_loop(
                 if epoch_skips:
                     logger.warning("checkpointing epoch %d after %d skipped update(s) this epoch "
                                    "(total %d)", epoch, epoch_skips, record["skipped_steps"])
+                if snap_engine is not None:
+                    snap_engine.flush()  # its writes land before this file and its pruning
                 ckpt.save_on_main(
                     save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
                     generator=ddp.generator, world_size=world_size, keep_last=keep_last,
-                    step=ddp.step, comm_state=getattr(ddp, "residual", None),
-                    skipped=(None if getattr(ddp, "firewall", None) is None
-                             else ddp.firewall.counters),
+                    step=ddp.step, comm_state=residual, skipped=counters,
                 )
             epoch += 1
         if is_main:
             log(f"Finished Training on process {rank}.")
         return history
     finally:
+        if snap_engine is not None:
+            snap_engine.close()
         tel.finish()
         writer.close()

@@ -18,9 +18,20 @@ pageable copy before every step. Batches, order and arithmetic are the
 synchronous pass's, so the result is bitwise the same at every depth.
 :class:`StallClock` sums the time the pass waits for host batches.
 
-``device_augment: false`` and the trace hooks of the JAX ``run_pass`` are
-not ported (ROADMAP.md Queue 1 item 8); its telemetry hooks are the epoch
-loops' (:mod:`tpuddp_torch.observability`).
+``poll`` (the preemption flag) is checked at each batch boundary before
+the batch is staged (``tpuddp/training/pipeline.py:240-249, :367-420``):
+an interrupted pass stops after the last dispatch already issued, the
+batches staged but not dispatched are dropped (the resumed run fetches
+them again), and :attr:`StagedLoader.interrupted` says so; the epoch
+loop's dispatch plan then drops its partial chunk too. A flag raised while
+the last batches are dispatched marks the pass interrupted at its end.
+
+``device_augment: false`` runs the managed path's augment as its own op on
+each batch before the step (``train_accelerate.py``); the native step always
+augments inside, as the JAX native step does, so there it changes nothing.
+The trace hooks of the JAX ``run_pass`` are not ported (ROADMAP.md Queue 1
+item 8: observability, part 2); its telemetry hooks are the epoch loops'
+(:mod:`tpuddp_torch.observability`).
 """
 
 from __future__ import annotations
@@ -38,12 +49,9 @@ from tpuddp_torch.utils import batching
 PIPELINE_DEFAULTS = {
     "depth": 2,  # batches staged on the device ahead of the step
     "host_workers": 2,  # PrefetchLoader threads (0: loading inline)
-    "device_augment": True,  # augment inside the step (the port's only mode)
+    "device_augment": True,  # managed: augment inside the step (false: its own op first)
     "sync_readback": False,  # synchronise after every step (the A/B baseline)
 }
-
-PIPELINE_ITEM = "Queue 1 item 8: async pipeline"
-
 
 @dataclass(frozen=True)
 class PipelineConfig:
@@ -65,31 +73,26 @@ def resolve_pipeline(block) -> PipelineConfig:
     """The ``training.pipeline`` knob: None or True -> :data:`DEFAULT`,
     False -> :data:`SYNCHRONOUS`, a mapping -> the defaults overridden, with
     unknown keys refused (``tpuddp/training/pipeline.py:86-117``)."""
-    from tpuddp_torch.config import _merge_refusing_unknown, _not_ported
+    from tpuddp_torch.config import _merge_refusing_unknown
 
     if isinstance(block, PipelineConfig):
-        cfg = block
-    elif block is None or block is True:
-        cfg = DEFAULT
-    elif block is False:
-        cfg = SYNCHRONOUS
-    elif isinstance(block, dict):
-        merged = _merge_refusing_unknown(PIPELINE_DEFAULTS, block, "training.pipeline")
-        cfg = PipelineConfig(
-            depth=int(merged["depth"]), host_workers=int(merged["host_workers"]),
-            device_augment=bool(merged["device_augment"]),
-            sync_readback=bool(merged["sync_readback"]),
-        )
-        if cfg.depth < 1:
-            raise ValueError(f"training.pipeline.depth must be >= 1, got {cfg.depth}")
-        if cfg.host_workers < 0:
-            raise ValueError(
-                f"training.pipeline.host_workers must be >= 0, got {cfg.host_workers}"
-            )
-    else:
+        return block
+    if block is None or block is True:
+        return DEFAULT
+    if block is False:
+        return SYNCHRONOUS
+    if not isinstance(block, dict):
         raise ValueError(f"training.pipeline must be true/false or a mapping, got {block!r}")
-    if not cfg.device_augment:
-        raise _not_ported("training.pipeline.device_augment=False", PIPELINE_ITEM)
+    merged = _merge_refusing_unknown(PIPELINE_DEFAULTS, block, "training.pipeline")
+    cfg = PipelineConfig(
+        depth=int(merged["depth"]), host_workers=int(merged["host_workers"]),
+        device_augment=bool(merged["device_augment"]),
+        sync_readback=bool(merged["sync_readback"]),
+    )
+    if cfg.depth < 1:
+        raise ValueError(f"training.pipeline.depth must be >= 1, got {cfg.depth}")
+    if cfg.host_workers < 0:
+        raise ValueError(f"training.pipeline.host_workers must be >= 0, got {cfg.host_workers}")
     return cfg
 
 
@@ -168,19 +171,24 @@ class StagedLoader:
     batch is staged just before its step and the device is synchronised
     after every step. ``probe(index, host_batch)`` sees each host batch
     before it is staged; ``inject(host_batch)``, when set, returns the batch
-    to stage in its place (the ``nan@step=N`` fault injection). ``stall`` is
+    to stage in its place (the ``$TPUDDP_FAULT`` step hook); ``poll()``,
+    when set, is checked after it: True stops the pass (module doc,
+    :attr:`interrupted`). ``stall`` is
     the last pass's :class:`StallClock`; :meth:`take_rows` gives the real
     rows of the next batches consumed, from the host weights, and
     ``staged_depth`` the batches staged ahead when the last one was
     handed out (the telemetry's occupancy fields)."""
 
     def __init__(self, loader, device, cfg: PipelineConfig = DEFAULT,
-                 probe: Optional[Callable] = None, inject: Optional[Callable] = None):
+                 probe: Optional[Callable] = None, inject: Optional[Callable] = None,
+                 poll: Optional[Callable] = None):
         self.loader = loader
         self.device = torch.device(device)
         self.cfg = cfg
         self.probe = probe
         self.inject = inject
+        self.poll = poll
+        self.interrupted = False
         self.stall = StallClock()
         self._rows = deque()
         self.staged_depth = 0
@@ -203,9 +211,14 @@ class StagedLoader:
         consumed."""
         return sum(self._rows.popleft() for _ in range(min(n, len(self._rows))))
 
+    def _polled(self) -> bool:
+        self.interrupted = self.interrupted or (self.poll is not None and bool(self.poll()))
+        return self.interrupted
+
     def __iter__(self):
         self.stall = StallClock()
         self._rows.clear()
+        self.interrupted = False
         depth = 0 if self.cfg.sync_readback else staging_depth_for(
             self.cfg.depth, getattr(self.loader, "batch_nbytes", None)
         )
@@ -215,13 +228,18 @@ class StagedLoader:
                 self.probe(i, host_batch)
             if self.inject is not None:
                 host_batch = self.inject(host_batch)
+            if self._polled():
+                return  # what was staged is dropped: the resume fetches it again
             self._rows.append(float(np.asarray(host_batch[2], dtype=np.float64).sum()))
             staged.append(stage_batch(host_batch, self.device))
             while len(staged) > depth:
                 self.staged_depth = len(staged) - 1
                 yield staged.popleft()
                 self._fence()
+        if self._polled():
+            return
         while staged:
             self.staged_depth = len(staged) - 1
             yield staged.popleft()
             self._fence()
+        self._polled()  # a flag raised during the last dispatches ends the pass interrupted
