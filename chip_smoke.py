@@ -382,9 +382,25 @@ Phases, each printing one line (the first failure exits non-zero):
      step snapshot inside epoch 0 intact, a ``preempt`` event row, one Adam
      launch per update;
    - "20 snapshot turns": 2 epochs at ``scan_steps: 4``, snapshots (every
-     4 steps, one held at a time) off and on in turns: rows bitwise, epoch
-     2's step median, snapshots written and skipped, the writer's seconds
-     and the loop's per step in the engine.
+     4 steps, one held at a time) off, then on: rows bitwise, epoch 2's
+     step median, snapshots written and skipped, the writer's seconds and
+     the loop's per step in the engine.
+21. the elastic restart (``multihost_h100.yaml`` cut to 2 synthetic epochs,
+   ``comm_hook: bf16_ef``, seed 0):
+   - "21 watchdog": two host processes over Gloo on this card (as phase
+     17) sharing one out_dir, ``$TPUDDP_WATCHDOG_TIMEOUT=5`` on both,
+     ``hang@epoch=1`` on host 1: host 0 exits 76 within 5 + 5 s of the
+     hang, its ``history.jsonl`` holds a ``watchdog_stale`` row naming
+     process 1 with ``lag_s`` >= 5, ``ckpt_0.npz`` holds a world-2
+     ``per_replica`` residual; host 1 is killed;
+   - "21 supervisor": the port's restore of that file at world 1 in this
+     process (the residual bitwise the float32 sum of the file's two rows),
+     then ``python -m tpuddp_torch.supervise --world 1 --backoff-base 0.1
+     --first-env TPUDDP_FAULT=crash@step=5`` over the entry point on the
+     same out_dir without the rendezvous, ``$TPUDDP_AUTO_RESUME=1``:
+     history ``[(0, 113, 1), (1, 0, 1)]``, a ``topology_change`` (2 -> 1,
+     redistributed) per attempt, attempt 1's Adam launches its updates
+     times the tables; each attempt's wall seconds and the losses.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -395,7 +411,7 @@ with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
-the optimizers', one
+phase 21's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -4276,7 +4292,9 @@ PREEMPT_SNAP = {"every_steps": 4, "inflight": 1}
 PREEMPT_RUN = {"scan_steps": 4, "snapshot": PREEMPT_SNAP, "keep_last": 2}
 PREEMPT_STEP = 10
 PREEMPT_GRACE_S = 25.0  # the drain's default grace ($TPUDDP_PREEMPT_GRACE)
-SNAPSHOT_TURNS = ("off", "on", "on", "off")  # the turns without snapshots have no save directory
+# the turns without snapshots have no save directory; two turns, not four, to
+# leave the script's time to phase 21
+SNAPSHOT_TURNS = ("off", "on")
 # the SIGTERM run: 64 steps an epoch (over a second one step per batch), the
 # signal this long after epoch 0's banner
 SIGTERM_N = [8192, 512]
@@ -4481,7 +4499,7 @@ def sigterm_run(root: str):
 
 def snapshot_turns(root: str):
     """20 turns: ``cifar10_alexnet_h100.yaml`` two epochs at scan_steps 4,
-    snapshots (:data:`PREEMPT_SNAP`) off and on in turns (off, on, on, off):
+    snapshots (:data:`PREEMPT_SNAP`) off and on in turns (:data:`SNAPSHOT_TURNS`):
     every run's rows bitwise the first's; epoch 2's step median; for the
     runs with snapshots, those written, skipped (a full engine), the
     writer's seconds and the loop's seconds in the engine (its host stall)
@@ -4535,6 +4553,267 @@ def preempt_phase():
     launches.update(turns["launches"])
     return dict(cycles={k: {f: v for f, v in c.items() if f != "launches"} for k, c in cycles.items()},
                 sigterm=sig, turns=turns["turns"], launches=launches)
+
+
+# ---------------------------------------------------------------- phase 21 --
+
+# the elastic restart on multihost_h100.yaml cut to 2 synthetic epochs
+# (2048 / 512 images: 8 steps an epoch at world 2, 16 at world 1) with
+# bf16_ef. The watchdog's timeout; the slack past it that host 0's exit may
+# take after the hang (the watchdog reads the beats every timeout / 4 = 1.25
+# s, a beat lands every 1 s, then the event row's fsync and the process's
+# exit); the supervised crash's micro-batch, counted from the resumed loop's
+# entry (the 6th of epoch 1); the time limit of each part
+ELASTIC_TIMEOUT_S = 5.0
+ELASTIC_SLACK_S = 5.0
+ELASTIC_CRASH_STEP = 5
+ELASTIC_S = 300
+# a host of the hung pair: the entry point's main, every log line stamped
+# with its wall time (the hang's moment)
+ELASTIC_HOST_SCRIPT = (
+    "import logging, sys\n"
+    "logging.basicConfig(level=logging.INFO, format='%(created).6f %(message)s')\n"
+    "from tpuddp_torch import train_native\n"
+    "train_native.main(['--settings_file', sys.argv[1]])\n"
+)
+# the supervised command: the entry point's main with its arguments, its
+# start time and, however it ends but os._exit, its Adam launches printed
+ELASTIC_CHILD_SCRIPT = (
+    "import json, sys, time\n"
+    "print(f'START {time.time():.6f}', flush=True)\n"
+    "from tpuddp_torch import train_native\n"
+    "from tpuddp_torch.ops import fused_adam\n"
+    "try:\n"
+    "    train_native.main(sys.argv[1:])\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps({k.symbol: k.launches for k in fused_adam.kernels.values()}),\n"
+    "          flush=True)\n"
+)
+
+
+def _elastic_settings():
+    """multihost_h100.yaml cut for phase 21 (seeded: the file has no seed)."""
+    settings = json.loads(json.dumps(cfg_lib.load_settings(SETTINGS_MULTIHOST)))
+    settings["training"].update(num_epochs=2, checkpoint_epoch=1, dataset="synthetic",
+                                synthetic_n=[2048, 512], scan_steps=1, seed=0, comm_hook="bf16_ef")
+    return settings
+
+
+def _records(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def elastic_hang(root: str):
+    """21 watchdog: two host processes over Gloo on this card (as phase 17)
+    sharing one out_dir, ``$TPUDDP_WATCHDOG_TIMEOUT`` on both and
+    ``hang@epoch=1`` on host 1: host 0 exits 76 within the timeout and the
+    slack after host 1's hang, its history holds a ``watchdog_stale`` row
+    naming process 1, and ``ckpt_0.npz`` holds a world-2 per-replica
+    residual. Host 1 is killed after. Returns the out_dir and the numbers."""
+    settings = _elastic_settings()
+    settings["local"]["rendezvous"]["coordinator_address"] = f"127.0.0.1:{_free_ports(1)[0]}"
+    out = os.path.join(root, "run")
+    os.makedirs(out)
+    path = os.path.join(root, "hosts.yaml")
+    with open(path, "w") as f:
+        json.dump(dict(settings, out_dir=out), f)  # JSON is YAML
+    procs, logs = [], []
+    try:
+        for pid in (0, 1):
+            env = dict(os.environ, TPUDDP_BACKEND="gloo", TPUDDP_PROCESS_ID=str(pid),
+                       TPUDDP_WORLD_SIZE="2", PYTHONPATH=ROOT,
+                       TPUDDP_WATCHDOG_TIMEOUT=str(ELASTIC_TIMEOUT_S))
+            for var in ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_FAULT",
+                        "TPUDDP_AUTO_RESUME", "TPUDDP_HEARTBEAT_DIR"):
+                env.pop(var, None)
+            if pid == 1:
+                env["TPUDDP_FAULT"] = "hang@epoch=1"
+            logs.append(open(os.path.join(root, f"host{pid}.log"), "w+"))
+            procs.append(subprocess.Popen([sys.executable, "-c", ELASTIC_HOST_SCRIPT, path], cwd=ROOT,
+                                          env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        t0 = time.time()
+        try:
+            rc0 = procs[0].wait(timeout=ELASTIC_S)
+        except subprocess.TimeoutExpired:
+            rc0 = None
+        t_exit = time.time()
+        host1_alive = procs[1].poll() is None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    hung = [float(line.split()[0]) for line in texts[1].splitlines()
+            if "fault injection: hang@epoch fired" in line]
+    detect_s = t_exit - hung[0] if hung else math.inf
+    records = _records(os.path.join(out, "history.jsonl"))
+    stale = [r for r in records if r.get("event") == "watchdog_stale"]
+    topo = ckpt.read_topology(os.path.join(out, "ckpt_0.npz"))
+    residual_tag = ((topo or {}).get("leaves") or {}).get(".comm_state") or {}
+    epoch_0 = [r for r in records if r["type"] == "epoch"]
+    checks = {
+        "host 0 exits 76": rc0 == 76,
+        "host 1 hung (alive, its hang logged) when host 0 exited": host1_alive and bool(hung),
+        f"host 0 out within {ELASTIC_TIMEOUT_S} + {ELASTIC_SLACK_S} s of the hang":
+            detect_s <= ELASTIC_TIMEOUT_S + ELASTIC_SLACK_S,
+        "a watchdog_stale row naming process 1, lag_s >= the timeout": len(stale) == 1 and (
+            stale[0]["process"] == 0 and [p["process"] for p in stale[0]["stale_peers"]] == [1]
+            and stale[0]["stale_peers"][0]["lag_s"] >= ELASTIC_TIMEOUT_S),
+        "ckpt_0.npz's residual per_replica at world 2": residual_tag.get("kind") == "per_replica"
+        and residual_tag.get("world") == 2 and (topo or {}).get("world_size") == 2,
+        "epoch 0 trained at world 2": [(r["epoch"], r["world_size"]) for r in epoch_0] == [(0, 2)],
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 21 watchdog: failed {failed}; rc0 {rc0}, detect {detect_s} s, "
+                         f"stale {stale}, topology {topo}\nhost 0:\n{texts[0][-3000:]}\n"
+                         f"host 1:\n{texts[1][-3000:]}")
+    phase("21 watchdog", f"multihost_h100.yaml 2 synthetic epochs bf16_ef, world 2 = 2 hosts over Gloo "
+          f"on one card, $TPUDDP_WATCHDOG_TIMEOUT={ELASTIC_TIMEOUT_S:g}, hang@epoch=1 on host 1: host 0 "
+          f"exit {rc0} {detect_s:.2f} s after the hang (limit {ELASTIC_TIMEOUT_S + ELASTIC_SLACK_S:g}), "
+          f"stale lag {stale[0]['stale_peers'][0]['lag_s']} s; pair's wall {t_exit - t0:.1f} s; epoch 0 "
+          f"losses {epoch_0[0]['train_loss']:.4f}/{epoch_0[0]['test_loss']:.4f}")
+    return out, dict(rc_host0=rc0, detect_s=detect_s, stale=stale[0], wall_s=t_exit - t0,
+                     epoch_0=[epoch_0[0]["train_loss"], epoch_0[0]["test_loss"]])
+
+
+def elastic_restore_check(out: str, training: dict):
+    """The port's restore of the hung pair's ``ckpt_0.npz`` at world 1 on
+    the card, in this process: the residual bitwise the float32 sum of the
+    file's two rows, one ``topology_change`` (2 -> 1, redistributed)."""
+    ddp, *_ = build_training(0, 1, training, "cuda")
+    log = []
+    ckpt.restore_latest(out, ddp.model, ddp.optimizer, comm_state=ddp.residual, reshard_log=log)
+    got = ddp.residual.cpu().numpy()
+    rows = _arrays(os.path.join(out, "ckpt_0.npz"))[".comm_state"].reshape(2, -1)
+    summed = rows[0] + rows[1]  # float32
+    per = got.size
+    ok = (np.array_equal(got, summed[:per]) and not np.any(summed[per:])
+          and np.any(rows[0] != 0) and np.any(rows[1] != 0))
+    events = [(e["event"], e["from_world"], e["to_world"], e["residual"]) for e in log]
+    del ddp
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok or events != [("topology_change", 2, 1, "redistributed")]:
+        raise SystemExit(f"chip_smoke: 21 restore: residual bitwise the rows' sum {ok}, events {events}")
+    return dict(elements=per, max_abs=float(np.abs(got).max()), events=events)
+
+
+def elastic_supervised(root: str, out: str):
+    """21 supervisor: ``python -m tpuddp_torch.supervise --world 1`` over the
+    entry point on the hung pair's out_dir without its rendezvous (one
+    process on the card), ``$TPUDDP_AUTO_RESUME=1`` on the first attempt
+    too and ``crash@step=5`` on it alone: attempt 0 resumes ckpt_0.npz at
+    world 1 and exits 113, attempt 1 resumes it again and exits 0; a
+    ``topology_change`` (2 -> 1, redistributed) per attempt; attempt 1's
+    Adam launches equal its updates times the tables."""
+    from tpuddp_torch.observability import schema
+
+    settings = _elastic_settings()
+    settings["local"].pop("rendezvous")
+    settings["local"].update(device="cuda", gpu={"num_gpus": 1})
+    path = os.path.join(root, "single.yaml")
+    with open(path, "w") as f:
+        json.dump(dict(settings, out_dir=out), f)
+    restore = elastic_restore_check(out, cfg_lib.training_config(settings))
+    env = dict(os.environ, PYTHONPATH=ROOT, TPUDDP_AUTO_RESUME="1")
+    for var in ("TPUDDP_BACKEND", "TPUDDP_PROCESS_ID", "TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES",
+                "TPUDDP_FAULT", "TPUDDP_WATCHDOG_TIMEOUT", "TPUDDP_WORLD_SIZE"):
+        env.pop(var, None)
+    cmd = [sys.executable, "-m", "tpuddp_torch.supervise", "--world", "1", "--backoff-base", "0.1",
+           "--first-env", f"TPUDDP_FAULT=crash@step={ELASTIC_CRASH_STEP}", "--",
+           sys.executable, "-c", ELASTIC_CHILD_SCRIPT, "--settings_file", path]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    timer = threading.Timer(ELASTIC_S, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:  # each line stamped as it arrives
+            lines.append((time.time(), line.rstrip("\n")))
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # the supervisor's trail from its lines: each attempt's start (the
+    # child's stamp), its exit code and the moment the supervisor read it
+    starts = [float(l.split()[1]) for _, l in lines if l.startswith("START ")]
+    ends = []
+    for t, l in lines:
+        if l.startswith("supervisor: child exited "):
+            ends.append((int(l.split()[3].rstrip(";")), t))
+        elif l.startswith("supervisor: child finished cleanly"):
+            ends.append((0, t))
+    records = _records(os.path.join(out, "history.jsonl"))
+    heads = [i for i, r in enumerate(records) if r["type"] == "run_meta"][1:]  # the pair's first
+    attempts = [records[a:b] for a, b in zip(heads, heads[1:] + [len(records)])]
+    worlds = [a[0]["world_size"] for a in attempts]
+    history = [(i, rc_i, w) for i, ((rc_i, _), w) in enumerate(zip(ends, worlds))]
+    topo = [[(r["from_world"], r["to_world"], r["residual"], r["checkpoint"]) for r in a
+             if r.get("event") == "topology_change"] for a in attempts]
+    last_rows = [r for r in attempts[-1] if r["type"] == "epoch"] if attempts else []
+    updates = sum(len(r["step_ms"]) for r in last_rows)
+    launch_lines = [json.loads(l[len("LAUNCHES "):]) for _, l in lines if l.startswith("LAUNCHES ")]
+    f32 = fused_adam.kernel.symbol
+    tables = _tables(62)  # resnet18_small's 62 leaves
+    wall = [t_end - t_start for t_start, (_, t_end) in zip(starts, ends)]
+    text = "\n".join(l for _, l in lines)
+    errors, _n = schema.validate_history_file(os.path.join(out, "history.jsonl"))
+    checks = {
+        "the supervisor exits 0": rc == 0,
+        "history [(0, 113, 1), (1, 0, 1)]": history == [(0, 113, 1), (1, 0, 1)],
+        "each attempt resumed epoch 1": text.count("Auto-resume: continuing from epoch 1.") == 2,
+        "a topology_change 2 -> 1 redistributed from ckpt_0.npz per attempt":
+            topo == [[(2, 1, "redistributed", "ckpt_0.npz")]] * 2,
+        "the headers say resumed_from_world 2": all(a[0].get("resumed_from_world") == 2
+                                                   for a in attempts),
+        "attempt 1 trained epoch 1 (16 updates)": [r["epoch"] for r in last_rows] == [1]
+        and updates == 16,
+        f"{tables} Adam launches per update of attempt 1": len(launch_lines) == 1
+        and launch_lines[0][f32] == tables * updates and sum(launch_lines[0].values()) == tables * updates,
+        "finite losses": all(math.isfinite(r[k]) for r in last_rows for k in ("train_loss", "test_loss")),
+        "the history validates": not errors,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 21 supervisor: failed {failed}; rc {rc}, history {history}, "
+                         f"topology {topo}, launches {launch_lines}, errors {errors[:5]}\n{text[-5000:]}")
+    phase("21 supervisor", f"python -m tpuddp_torch.supervise --world 1 --backoff-base 0.1 --first-env "
+          f"TPUDDP_FAULT=crash@step={ELASTIC_CRASH_STEP} over the entry point on the pair's out_dir at "
+          f"world 1 on the card: history {history}, exit {rc}; attempts' wall "
+          + ", ".join(f"{w:.1f} s" for w in wall) + f"; restore in this process: residual of "
+          f"{restore['elements']} bitwise the float32 sum of the file's 2 rows (max |r| "
+          f"{restore['max_abs']:.3g}); attempt 1: {updates} updates, {launch_lines[0][f32]} Adam "
+          f"launches, losses {last_rows[0]['train_loss']:.4f}/{last_rows[0]['test_loss']:.4f}")
+    return dict(history=history, rc=rc, attempt_wall_s=wall, restore=restore, updates=updates,
+                launches=launch_lines[0][f32],
+                epoch_1=[last_rows[0]["train_loss"], last_rows[0]["test_loss"]])
+
+
+def elastic_phase():
+    """Phase 21: the elastic restart (the watchdog, the supervisor, a
+    residual restored onto another world size)."""
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_elastic_")
+    try:
+        out, hang = elastic_hang(root)
+        sup = elastic_supervised(root, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase("21 elastic", f"card {card_line()}: host 0 exit {hang['rc_host0']} {hang['detect_s']:.2f} s "
+          f"after the hang; supervisor exits {[h[1] for h in sup['history']]}, attempts' wall "
+          + ", ".join(f"{w:.1f} s" for w in sup["attempt_wall_s"])
+          + f"; losses epoch 0 (world 2) {hang['epoch_0'][0]:.4f}/{hang['epoch_0'][1]:.4f}, epoch 1 "
+          f"(world 1, resumed) {sup['epoch_1'][0]:.4f}/{sup['epoch_1'][1]:.4f}")
+    return dict(watchdog=hang, supervisor=sup,
+                launches={"native elastic supervised attempt 1 (phase 21)": sup["launches"]})
 
 
 def main() -> None:
@@ -4675,6 +4954,9 @@ def main() -> None:
     t20 = time.perf_counter()
     preempt_20 = preempt_phase()
     phase_20_s = time.perf_counter() - t20
+    t21 = time.perf_counter()
+    elastic_21 = elastic_phase()
+    phase_21_s = time.perf_counter() - t21
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -4748,6 +5030,9 @@ def main() -> None:
     print(json.dumps({"preempt": {
         **{k: v for k, v in preempt_20.items() if k != "launches"}, "phase_20_s": phase_20_s,
     }}))
+    print(json.dumps({"elastic": {
+        **{k: v for k, v in elastic_21.items() if k != "launches"}, "phase_21_s": phase_21_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -4808,6 +5093,7 @@ def main() -> None:
     phase_18 = remat_18["launches"]
     phase_19 = telemetry_19["launches"]
     phase_20 = preempt_20["launches"]
+    phase_21 = elastic_21["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
@@ -4815,7 +5101,7 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20}
+               **phase_20, **phase_21}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -4844,7 +5130,7 @@ def main() -> None:
                               **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15},
                               **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17},
                               **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
-                              **{k: 0 for k in phase_20}},
+                              **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -4857,7 +5143,7 @@ def main() -> None:
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
-          f"phase 20: {phase_20_s:.1f} s)")
+          f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -10,9 +10,9 @@ parameters in five).
   its tree; the JAX package (on 2 devices) restores them and trains on;
   the port restores the JAX package's files into each rank's residual; a
   resumed port run equals the straight one.
-- One process: a residual saved at world 2 is refused at world 1 (the
-  elastic reshard is not ported); a file without a residual starts it at
-  zero; a ``scan_steps`` chunk with a hook equals its per-batch steps.
+- One process: a residual saved at world 2 is redistributed at world 1
+  (the file's two rows summed, a ``topology_change`` event); a file
+  without a residual starts it at zero; a ``scan_steps`` chunk with a hook equals its per-batch steps.
 - On the card (``cuda``, skipped here): a hooked chunk replayed from a
   CUDA graph equals the same chunk run eagerly, residual included.
 
@@ -259,11 +259,20 @@ def test_a_resumed_port_run_equals_the_straight_run_world_2(world2, key):
 # ------------------------------------------------------------- one process --
 
 def test_a_per_replica_residual_of_another_world_is_refused(world2):
+    """...as a refusal no more: the JAX package's world-2 residual restores
+    at world 1, the file's two rows summed (the elastic restore), with a
+    ``topology_change`` row."""
     torch.set_num_threads(2)
     ddp, *_ = train_native.build_training(0, 1, NATIVE, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: elastic reshard"):
-        ckpt.restore_latest(str(world2 / "jax_native"), ddp.model, ddp.optimizer,
-                            comm_state=ddp.residual)
+    log = []
+    ckpt.restore_latest(str(world2 / "jax_native"), ddp.model, ddp.optimizer,
+                        comm_state=ddp.residual, reshard_log=log)
+    path, _ = ckpt.latest(str(world2 / "jax_native"))
+    rows = _arrays(path)[".comm_state"].reshape(2, TOTAL)
+    assert np.any(rows[0] != rows[1])
+    np.testing.assert_array_equal(ddp.residual.numpy(), rows[0] + rows[1])
+    assert [(e["event"], e["from_world"], e["to_world"], e["residual"], e["resharded_leaves"])
+            for e in log] == [("topology_change", 2, 1, "redistributed", [".comm_state"])]
 
 
 @pytest.mark.parametrize("path", ["native", "managed"])

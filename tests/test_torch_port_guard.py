@@ -144,18 +144,68 @@ def test_the_fault_grammar_is_the_jax_packages(raw):
     assert [(s.kind, s.site, s.arg) for s in faults.parse_fault_specs(raw)] == theirs
 
 
+class _Exited(Exception):
+    pass
+
+
+# the kinds with the Queue 1 entry that ported them, and where each fires
 @pytest.mark.parametrize("raw,entry", [
     ("crash@epoch=2", "elastic reshard"), ("hang@barrier", "elastic reshard"),
     ("corrupt@ckpt_1", "elastic reshard"), ("crash@step=3", "elastic reshard"),
 ])
-def test_the_other_fault_kinds_are_refused(monkeypatch, raw, entry):
+def test_the_other_fault_kinds_are_refused(monkeypatch, tmp_path, raw, entry):
+    """...as refusals no more (ported by the Queue 1 entry ``entry``):
+    ``crash``, ``hang`` and ``corrupt`` fire at their site alone, once, as
+    the JAX package's (``tpuddp/resilience/faults.py:252-286``): crash is
+    ``os._exit(113)``, hang raises the hung flag (the heartbeat stops) and
+    sleeps forever, corrupt tears the published file into the bytes the JAX
+    package's tear gives."""
+    from tpuddp.resilience import faults as jax_faults
+
+    site, ctx, other = {
+        "crash@epoch=2": ("epoch", {"epoch": 2}, {"epoch": 1}),
+        "hang@barrier": ("barrier", {}, None),
+        "corrupt@ckpt_1": ("ckpt", {"name": "ckpt_1"}, {"name": "ckpt_0"}),
+        "crash@step=3": ("step", {"step": 3}, {"step": 2}),
+    }[raw]
+    assert entry == "elastic reshard"
+
+    def exit_(code):
+        raise _Exited(code)
+
+    def sleep(_s):
+        raise _Exited("sleep")
+
     monkeypatch.setenv("TPUDDP_FAULT", raw)
+    monkeypatch.setattr(faults.os, "_exit", exit_)
+    monkeypatch.setattr(faults.time, "sleep", sleep)
     faults.reload_faults()
+    payload = np.random.default_rng(0).integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    ours, theirs = tmp_path / "ckpt_1.npz", tmp_path / "jax.npz"
+    ours.write_bytes(payload)
+    theirs.write_bytes(payload)
+    if site == "ckpt":
+        ctx = dict(ctx, path=str(ours))
+        other = dict(other, path=str(ours))
     try:
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item 8: {entry}"):
-            faults.refuse_unported()
+        assert faults.has_step_fault() == (site == "step")
+        if other is not None:
+            faults.maybe_fire(site, **other)
+            assert ours.read_bytes() == payload and not faults.is_hung()
+        kind = raw.split("@")[0]
+        if kind == "corrupt":
+            faults.maybe_fire(site, **ctx)
+            jax_faults._corrupt_file(str(theirs))
+            assert ours.read_bytes() == theirs.read_bytes() != payload
+        else:
+            with pytest.raises(_Exited) as fired:
+                faults.maybe_fire(site, **ctx)
+            assert fired.value.args[0] == (113 if kind == "crash" else "sleep")
+            assert faults.is_hung() == (kind == "hang")
+        faults.maybe_fire(site, **ctx)  # fired once
     finally:
         faults.reload_faults()
+    assert not faults.is_hung()
 
 
 @pytest.mark.parametrize("raw,site,ctx,other", [
@@ -163,8 +213,7 @@ def test_the_other_fault_kinds_are_refused(monkeypatch, raw, entry):
     ("preempt@step=12", "step", {"step": 12}, {"step": 11}),
 ])
 def test_the_preempt_kind_asks_for_the_drain_once(monkeypatch, raw, site, ctx, other):
-    """``preempt`` is ported (tests/test_torch_port_preempt.py): not refused,
-    it fires at its site alone, once, and sets the drain flag as the JAX
+    """``preempt`` is ported (tests/test_torch_port_preempt.py): it fires at its site alone, once, and sets the drain flag as the JAX
     package's SIGTERM to itself does."""
     from tpuddp_torch.resilience import preemption
 
@@ -173,7 +222,6 @@ def test_the_preempt_kind_asks_for_the_drain_once(monkeypatch, raw, site, ctx, o
     faults.reload_faults()
     preemption.reset_preemption()
     try:
-        faults.refuse_unported()
         assert faults.has_step_fault() == (site == "step")
         faults.maybe_fire(site, **other)
         assert not preemption.preemption_requested()
@@ -188,11 +236,15 @@ def test_the_preempt_kind_asks_for_the_drain_once(monkeypatch, raw, site, ctx, o
 
 
 def test_nan_and_serving_kinds_are_not_refused(monkeypatch):
+    """Nor consumed by the training hook: ``nan`` is the batch poison's,
+    the serving kinds the serving engines'."""
     monkeypatch.setenv("TPUDDP_FAULT", "nan@step=2,replica_kill@batch=3")
     faults.reload_faults()
     try:
-        faults.refuse_unported()
+        faults.maybe_fire("step", step=2)
+        faults.maybe_fire("batch", batch=3)
         assert faults.has_nan_fault()
+        assert not any(s.fired for s in faults.active_faults())
     finally:
         faults.reload_faults()
 

@@ -2,8 +2,10 @@
 
 - ``config.rendezvous_from`` against ``tpuddp/config.py``'s (the cases of
   ``tests/test_config.py``), with its ``ValueError``s, and the launch's
-  own checks (``spawn.resolve_world``: hosts must tile the world;
-  ``$TPUDDP_WATCHDOG_TIMEOUT`` is refused beside a rendezvous);
+  own checks (``spawn.resolve_world``: hosts must tile the world); with
+  ``$TPUDDP_WATCHDOG_TIMEOUT`` a host's local rank 0 arms the watchdog
+  beside a rendezvous (its beat as ``hb_<process_id>``), and one host
+  arms none;
 - ``$TPUDDP_BACKEND``, the preferred rung of the backend ladder;
 - two launcher processes (two "hosts", ``$TPUDDP_PROCESS_ID`` 0 and 1)
   of 2 Gloo ranks each, meeting at a coordinator through ``python -m
@@ -27,6 +29,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -117,12 +120,32 @@ def test_the_hosts_must_tile_the_world(no_rdv_env):
         spawn.resolve_world(3, "cpu", **rdv)
 
 
-def test_the_watchdog_is_refused_beside_a_rendezvous(no_rdv_env):
-    rdv = {"coordinator_address": "h:1", "num_processes": 2, "process_id": 0}
+def test_the_watchdog_is_refused_beside_a_rendezvous(no_rdv_env, tmp_path):
+    """...as a refusal no more: beside a rendezvous of 2 hosts the rank arms the heartbeat and the
+    watchdog (``tpuddp/parallel/spawn.py:157``: id process_id of 2 hosts)
+    while it trains, and stops them after; at one host none is armed, as
+    in the JAX package. The process group itself is not made here."""
+    rdv = {"coordinator_address": "h:1", "num_processes": 2, "process_id": 1}
     no_rdv_env.setenv("TPUDDP_WATCHDOG_TIMEOUT", "30")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: elastic reshard"):
-        spawn.resolve_world(2, "cpu", **rdv)
-    spawn.resolve_world(2, "cpu")  # one host: the JAX package arms no watchdog either
+    assert spawn.resolve_world(2, "cpu", **rdv) == (2, 2)
+    no_rdv_env.setattr(spawn._backend, "setup", lambda *a, **k: None)
+    no_rdv_env.setattr(spawn._backend, "cleanup", lambda: None)
+    seen = {}
+
+    def demo(rank, world, save_dir, _args):
+        seen[save_dir] = sorted(os.listdir(os.path.join(save_dir, ".heartbeats"))) \
+            if os.path.isdir(os.path.join(save_dir, ".heartbeats")) else None
+        seen["threads"] = sorted(t.name for t in threading.enumerate()
+                                 if t.name.startswith("tpuddp-"))
+        return rank, world
+
+    hosts, alone = str(tmp_path / "hosts"), str(tmp_path / "alone")
+    assert spawn._worker(0, demo, 2, hosts, {}, "cpu", None, ("h:1", 1, 1)) == (1, 2)
+    assert seen[hosts] == ["hb_1"]
+    assert seen["threads"] == ["tpuddp-heartbeat", "tpuddp-watchdog"]
+    assert not any(t.name in seen["threads"] for t in threading.enumerate())  # stopped
+    assert spawn._worker(0, demo, 1, alone, {}, "cpu", None) == (0, 1)
+    assert seen[alone] is None and seen["threads"] == []
 
 
 def test_the_multihost_file_parses(no_rdv_env):

@@ -313,12 +313,21 @@ def test_unported_contents_are_refused(tmp_path, cpu_devices):
     with pytest.raises(KeyError, match="missing leaf"):
         ckpt.restore_latest(str(tmp_path / "b"), model, opt)
     # a comm hook's residual is ported (tests/test_torch_port_comm_ckpt.py);
-    # one saved at another world size is the elastic reshard's
+    # one saved at another world size is redistributed onto this one: at
+    # world 1 the file's two rows summed in float32, bitwise
+    # (tests/test_torch_port_elastic*.py)
     raw = sum(p.numel() for p in model.parameters())
-    jax_ckpt.save_on_main(str(tmp_path / "c"), 0,
-                          dataclasses.replace(state, comm_state=jnp.zeros(2 * raw)), world_size=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: elastic reshard"):
-        ckpt.restore_latest(str(tmp_path / "c"), model, opt, comm_state=torch.zeros(raw))
+    rows = np.random.default_rng(3).standard_normal((2, raw)).astype(np.float32)
+    os.makedirs(tmp_path / "c")
+    jax_ckpt.save(str(tmp_path / "c" / "ckpt_0.npz"),
+                  dataclasses.replace(state, comm_state=jnp.asarray(rows.reshape(-1))),
+                  meta={"epoch": 0, "completed": 1},
+                  topology=ckpt.topology_record(2, residual_per=raw))
+    residual, log = torch.zeros(raw), []
+    ckpt.restore_latest(str(tmp_path / "c"), model, opt, comm_state=residual, reshard_log=log)
+    np.testing.assert_array_equal(residual.numpy(), rows[0] + rows[1])
+    assert [(e["event"], e["from_world"], e["to_world"], e["residual"]) for e in log] == [
+        ("topology_change", 2, 1, "redistributed")]
     # the numerical guard's counters are ported: a guarded run restores them
     # (tests/test_torch_port_guard_loop.py), an unguarded one does not read them
     jax_ckpt.save_on_main(str(tmp_path / "d"), 0, dataclasses.replace(

@@ -259,8 +259,32 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
     ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):
+    """``mode: auto`` is refused; ``reshard_on_mismatch`` is refused no
+    more: at model 1 on both sides it changes nothing, as in the JAX
+    package (a file of a model axis is refused whatever it says)."""
+    if knob == "reshard_on_mismatch":
+        assert cfg.training_config({"training": {knob: value}})[knob] is True
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         cfg.training_config({"training": {knob: value}})
+
+
+@pytest.mark.parametrize("env,parallel,refused", [
+    ("1", None, False), ("2", None, True), (None, {"model": 2}, True), ("1", {"model": 2}, False),
+])
+def test_model_size_over_1_is_refused(monkeypatch, env, parallel, refused):
+    """``$TPUDDP_MODEL_SIZE`` (the supervisor's lever) overrides
+    ``parallel.model`` as ``tpuddp/config.py:335-363`` does; over 1 is
+    tensor parallel."""
+    monkeypatch.delenv("TPUDDP_MODEL_SIZE", raising=False)
+    if env is not None:
+        monkeypatch.setenv("TPUDDP_MODEL_SIZE", env)
+    settings = {} if parallel is None else {"parallel": parallel}
+    if refused:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8: tensor parallel"):
+            cfg.check_settings(settings)
+    else:
+        cfg.check_settings(settings)
 
 
 @pytest.mark.parametrize("knob,value", [

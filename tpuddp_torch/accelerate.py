@@ -859,6 +859,9 @@ class Accelerator:
         self.augment = augment
         self._models: List[PreparedModel] = []
         self.last_restore_cursor: Optional[dict] = None  # a step snapshot's, after load_state
+        # the last load_state's elastic restore rows (topology_change, ...),
+        # which the managed entry point writes after its header
+        self.last_restore_events: list = []
 
     @property
     def is_main_process(self) -> bool:
@@ -1027,16 +1030,21 @@ class Accelerator:
         """Restore the freshest intact ``state_{epoch}.npz`` (or step
         snapshot ``state_{epoch}_s{step}.npz``) in ``save_dir``; returns the
         epoch to train next (0 when there is none; a step snapshot's own
-        epoch, its cursor then in ``last_restore_cursor``, else None)."""
+        epoch, its cursor then in ``last_restore_cursor``, else None). A
+        state written at another world size restores onto this one (ZeRO-1's
+        flat moments re-padded; the residual is a tree of parameter-shaped
+        leaves, the same at every world): its event rows land in
+        ``last_restore_events`` (``tpuddp/accelerate.py:1745-1767``)."""
         self._discard_staged_work(model, "load_state discarded the staged step")
-        cursors = []
+        cursors, events = [], []
         next_epoch, meta = ckpt.restore_latest(
             save_dir, model._module, optimizer.optimizer, layout=ckpt.MANAGED,
             generator=self.generator, comm_state=optimizer.comm_residual(),
             skipped=None if optimizer.firewall is None else optimizer.firewall.counters,
-            cursor_out=cursors,
+            cursor_out=cursors, reshard_log=events,
         )
         self.last_restore_cursor = cursors[-1] if cursors else None
+        self.last_restore_events = events
         model._bwd_counter = meta.get("bwd_counter", model._bwd_counter)
         if "rng_key" in meta:
             self.jax_keys.key, model._bwd_key = meta["rng_key"], meta["bwd_key"]

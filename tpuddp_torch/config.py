@@ -22,9 +22,10 @@ resolve_guard`), ``pretrained_path`` (a torchvision checkpoint on disk,
 :func:`tpuddp_torch.models.pretrained.pretrained_from_config`),
 ``pipeline`` (staged host-to-device copies,
 :func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
-false`` is refused there), ``resume``, ``auto_resume`` and ``keep_last``
-(checkpoints in the JAX package's layout) and the managed path's
-``fuse_steps`` (K queued steps per flush, one CUDA-graph replay on the card;
+false`` is refused there), ``resume``, ``auto_resume``, ``keep_last``
+(checkpoints in the JAX package's layout, restored across world sizes) and
+``reshard_on_mismatch`` (accepted: at model 1 there is nothing to
+reshape), the managed path's ``fuse_steps`` (K queued steps per flush, one CUDA-graph replay on the card;
 :func:`resolve_fuse_steps`), ``comm_topology: hierarchical`` (the native
 path's three-hop exchange, :meth:`tpuddp_torch.parallel.comm.GradComm.
 reduce_hierarchical`; the managed path refuses it as the JAX package's
@@ -103,9 +104,12 @@ DATASET_NUM_CLASSES = {"cifar10": 10, "synthetic": 10, "digits": 10}
 
 DEVICES = ("cuda", "cpu")
 
-# knob -> (is the value one the port implements?, ROADMAP.md item)
+# knob -> (is the value one the port implements?, ROADMAP.md item).
+# training.reshard_on_mismatch is accepted: at model 1 on both sides (the
+# only width the port runs) it changes nothing, as in the JAX package, and
+# a file of a model axis is refused whatever it says
+# (training/checkpoint.py).
 _UNSUPPORTED = {
-    "reshard_on_mismatch": (lambda v: not v, "Queue 1 item 8: elastic reshard"),
     "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
 }
 
@@ -248,19 +252,24 @@ def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:
 
 def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -> None:
     """Refuse the settings blocks outside ``training`` that this slice does
-    not implement: a tensor-parallel ``parallel`` block and an
+    not implement: a tensor-parallel ``parallel`` block (``parallel.model``,
+    or ``$TPUDDP_MODEL_SIZE``, the restart supervisor's lever, which
+    overrides it as in ``tpuddp/config.py:335-363``, over 1) and an
     ``observability`` block. An explicit ``parallel.data`` must equal
     ``world_size`` (the hosts of a ``local.rendezvous`` block tile it, as
     :func:`tpuddp_torch.parallel.spawn.resolve_world` checks)."""
-    parallel = settings.get("parallel") or {}
+    parallel = dict(settings.get("parallel") or {})
     unknown = set(parallel) - {"data", "model"}
     if unknown:
         raise ValueError(f"unknown parallel key(s) {sorted(unknown)}")
-    check_weight_update_sharding(settings.get("training") or {}, int(parallel.get("model", 1)))
-    if int(parallel.get("model", 1)) != 1:
-        raise _not_ported(
-            f"parallel.model={parallel['model']!r}", "Queue 1 item 8: tensor parallel"
-        )
+    if os.environ.get("TPUDDP_MODEL_SIZE"):
+        parallel.update(model=int(os.environ["TPUDDP_MODEL_SIZE"]), data="auto")
+    model = int(parallel.get("model", 1))
+    if model < 1:
+        raise ValueError(f"parallel.model must be >= 1, got {parallel['model']!r}")
+    check_weight_update_sharding(settings.get("training") or {}, model)
+    if model != 1:
+        raise _not_ported(f"parallel.model={model!r}", "Queue 1 item 8: tensor parallel")
     data = parallel.get("data", "auto")
     if data != "auto" and world_size is not None and int(data) != world_size:
         raise ValueError(

@@ -80,14 +80,16 @@ class MetricsWriter:
     """JSONL sink (``history.jsonl`` in ``save_dir``): one line-buffered
     append handle, opened at the first record, so the file always ends on a
     whole record; :meth:`close` (the loops' ``finally``) fsyncs and
-    closes it. Only process 0 (global rank 0) writes. Writes are serialised
-    by a lock, so threads sharing a writer append whole lines."""
+    closes it. Only process 0 (global rank 0) writes, unless
+    ``main_only=False`` (the watchdog's verdict: process 0 may be the dead
+    one). Writes are serialised by a lock, so threads sharing a writer
+    append whole lines."""
 
-    def __init__(self, save_dir: Optional[str]):
+    def __init__(self, save_dir: Optional[str], main_only: bool = True):
         self.path = None
         self._f = None
         self._lock = threading.Lock()
-        if save_dir is not None and _process_index() == 0:
+        if save_dir is not None and (not main_only or _process_index() == 0):
             os.makedirs(save_dir, exist_ok=True)
             self.path = os.path.join(save_dir, "history.jsonl")
 

@@ -13,7 +13,9 @@ training run writes four of the record types:
   :mod:`tpuddp_torch.observability.recorder`;
 - ``step_stats``: one row per ``training.step_stats_every`` updates inside
   an epoch;
-- ``event``: rollback, desync, skipped updates, profiler captures.
+- ``event``: rollback, desync, skipped updates, profiler captures, the
+  drain's ``preempt``, an elastic restore's ``topology_change`` and
+  ``comm_state_reset``, the watchdog's ``watchdog_stale``.
 
 The other types (serving, decode, trace summaries, tune reports) belong to
 planes the port has not ported; they stay in the tables so that validation
@@ -237,6 +239,14 @@ _REQUIRED_SINCE = {
 # snapshot, its step (``snapshot_step``, optional)
 _EVENT_REQUIRED = {
     "preempt": ("epoch", "completed", "step"),
+    # the elastic restore (tpuddp/training/checkpoint.py:692-741): what the
+    # file was written on, what it was restored onto, which leaves were
+    # refitted and what happened to the error-feedback residual
+    "topology_change": ("from_world", "to_world", "from_model", "to_model", "checkpoint",
+                        "checkpoint_epoch", "resharded_leaves", "residual"),
+    "comm_state_reset": ("leaf", "from_world", "to_world", "reason"),
+    # the watchdog's verdict (tpuddp/resilience/watchdog.py:400-412)
+    "watchdog_stale": ("process", "timeout_s", "stale_peers", "max_observed_lag_s"),
 }
 
 
@@ -273,7 +283,7 @@ OBSERVABILITY_OFF = {
 
 def make_run_meta(
     *,
-    world_size: int,
+    world_size: Optional[int],
     process_count: int = 1,
     process_index: int = 0,
     device_kind: Optional[str] = None,
@@ -287,7 +297,8 @@ def make_run_meta(
 ) -> dict:
     """The run_meta header row of a port run, with every key of the JAX
     package's ``make_run_meta`` (``tpuddp/observability/schema.py:325-433``).
-    ``hierarchy`` is ``(hosts, local)`` under ``comm_topology:
+    ``world_size`` None is a writer without a mesh (the watchdog's header:
+    ``mesh_shape`` and ``mesh`` null). ``hierarchy`` is ``(hosts, local)`` under ``comm_topology:
     hierarchical`` (the mesh shape is then ``{"host", "local"}``, as the
     JAX package factors its mesh); ``guard`` a ``GuardConfig`` or dict;
     ``comm`` the ``{"overlap": ...}`` block; ``snapshot`` the step-snapshot
@@ -298,11 +309,14 @@ def make_run_meta(
 
     import tpuddp_torch
 
-    world_size = int(world_size)
-    if hierarchy is not None:
-        mesh_shape = {"host": int(hierarchy[0]), "local": int(hierarchy[1])}
-    else:
-        mesh_shape = {"data": world_size}
+    mesh_shape = mesh = None  # a writer without a mesh (the watchdog's header)
+    if world_size is not None:
+        world_size = int(world_size)
+        if hierarchy is not None:
+            mesh_shape = {"host": int(hierarchy[0]), "local": int(hierarchy[1])}
+        else:
+            mesh_shape = {"data": world_size}
+        mesh = {"data": world_size, "model": 1, "tp_rules_hash": None}
     if dataclasses.is_dataclass(guard):
         guard = dataclasses.asdict(guard)
     record = {
@@ -314,7 +328,7 @@ def make_run_meta(
         "process_count": int(process_count),
         "process_index": int(process_index),
         "mesh_shape": mesh_shape,
-        "mesh": {"data": world_size, "model": 1, "tp_rules_hash": None},
+        "mesh": mesh,
         "device_kind": device_kind,
         "comm_hook": comm_hook,
         "comm_topology": comm_topology,

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch.parallel.backend import get_world_size
+from tpuddp_torch.resilience import faults
 
 
 def group_size(group=None) -> int:
@@ -65,7 +66,10 @@ def _by_dtype(tensors: Iterable[torch.Tensor]):
 
 
 def barrier() -> None:
-    """Every process waits here for the others (``col.barrier``)."""
+    """Every process waits here for the others (``col.barrier``). Its entry
+    is a ``$TPUDDP_FAULT`` site: ``hang@barrier`` is the dead peer that the
+    watchdog must find (``tpuddp/parallel/collectives.py:179-198``)."""
+    faults.maybe_fire("barrier")
     if dist.is_initialized():
         dist.barrier()
 

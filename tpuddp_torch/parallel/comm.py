@@ -55,14 +55,17 @@ residual at its shard's offset, zeros elsewhere.
 :func:`comm_bytes_breakdown` splits one reduction's bytes between the
 intra-host and the inter-host link.
 
-Not here yet: the elastic redistribution of a residual (ROADMAP.md Queue 1
-item 8).
+A residual saved at one world size is restored at another by
+:func:`redistribute_residual` (the elastic restore of
+:mod:`tpuddp_torch.training.checkpoint`), which keeps the sum over the
+replicas where whole rows allow it.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tpuddp_torch.parallel import collectives as col
@@ -539,3 +542,40 @@ def init_residual_tree(params: Sequence[torch.Tensor]):
     """Zeros like each of ``params``, float32: :func:`local_quantize`'s
     residual."""
     return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+
+
+def redistribute_residual(mat: np.ndarray, new_world: int) -> Tuple[np.ndarray, str]:
+    """The per-replica error-feedback residuals ``mat``, ``(old_world,
+    per)`` (row ``r`` replica ``r``'s), mapped onto ``new_world`` replicas
+    (``tpuddp/parallel/comm.py:744-787``). What steers the run is the sum
+    over the replicas (each adds its residual into its next send, and the
+    sends are summed), so the map keeps the elementwise sum where it can:
+
+    - shrink, ``new_world`` divides ``old_world``: new row ``i`` is the
+      float32 sum of old rows ``i*k .. i*k + k - 1`` (``k = old / new``);
+    - grow, ``old_world`` divides ``new_world``: old row ``r`` moves to new
+      row ``r * (new / old)``, the other rows are zero;
+    - neither: no alignment of whole rows keeps the sum, so the residual
+      resets to zero (the un-sent error of about one step's rounding is
+      dropped once; the caller records a ``comm_state_reset`` event).
+
+    Returns ``(new_mat, action)``, ``action`` one of ``"unchanged"``,
+    ``"redistributed"``, ``"reset"``; numpy, the JAX function's own
+    arithmetic, so its result is bitwise the JAX package's."""
+    mat = np.asarray(mat)
+    if mat.ndim != 2:
+        raise ValueError(f"expected a (world, per) residual view, got {mat.shape}")
+    old_world, per = mat.shape
+    if new_world < 1:
+        raise ValueError(f"new_world must be >= 1, got {new_world}")
+    if new_world == old_world:
+        return mat, "unchanged"
+    if old_world % new_world == 0:
+        k = old_world // new_world
+        return mat.reshape(new_world, k, per).sum(axis=1), "redistributed"
+    if new_world % old_world == 0:
+        k = new_world // old_world
+        out = np.zeros((new_world, per), mat.dtype)
+        out[::k] = mat
+        return out, "redistributed"
+    return np.zeros((new_world, per), mat.dtype), "reset"

@@ -15,7 +15,9 @@ saved and stopped) ends the rank with exit 75, and a
 :class:`~tpuddp_torch.resilience.guard.ReplicaDesync` (the numerical
 guard's auditor found a divergent replica) with exit 77, the "requeue me
 into auto-resume" codes (``tpuddp/parallel/spawn.py:149-168``); a spawned
-rank that exits so makes the launcher exit so too. A scheduler's SIGTERM
+rank that exits so, or with the watchdog's 76 or an injected crash's 113,
+makes the launcher exit so too, so that the restart supervisor
+(:mod:`~tpuddp_torch.resilience.supervisor`) reads the code. A scheduler's SIGTERM
 reaches the launcher alone (HTCondor signals the job's process, then kills
 the whole tree after the grace window), so a launcher with spawned ranks
 passes each SIGTERM on to them; a SIGINT from a terminal reaches the whole
@@ -28,7 +30,13 @@ num_processes`` ranks (in this process when that is one), global rank
 coordinator (:func:`~tpuddp_torch.parallel.backend.setup`). The
 checkpoints and the epoch lines come from global rank 0 alone.
 :func:`resolve_world` alone decides the host count, the default world and
-whether the hosts tile it.
+whether the hosts tile it. With ``$TPUDDP_WATCHDOG_TIMEOUT`` set, each
+host's local rank 0 arms the heartbeat and stale-peer watchdog
+(:mod:`~tpuddp_torch.resilience.watchdog`, ``tpuddp/parallel/spawn.py:157``:
+id ``process_id`` of ``num_processes`` hosts) in its own process, so a
+``hang`` there stops its beat; a dead host then makes every other host
+exit 76 instead of waiting forever in its next collective. One host arms
+none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,15 +52,16 @@ import torch
 import torch.multiprocessing as mp
 
 from tpuddp_torch.parallel import backend as _backend
-from tpuddp_torch.resilience import preemption
+from tpuddp_torch.resilience import preemption, watchdog
 from tpuddp_torch.resilience.guard import EXIT_DESYNC, ReplicaDesync
-from tpuddp_torch.resilience.preemption import EXIT_PREEMPTED, TrainingPreempted
+from tpuddp_torch.resilience.preemption import (
+    EXIT_INJECTED_CRASH, EXIT_PREEMPTED, EXIT_WATCHDOG, TrainingPreempted,
+)
 
 logger = logging.getLogger("tpuddp")
 
-# read by the JAX package's multi-host launch (tpuddp/parallel/spawn.py:138-141);
-# its watchdog is not ported
-WATCHDOG_ENV = "TPUDDP_WATCHDOG_TIMEOUT"
+# a spawned rank's exits that the launcher passes on as its own
+_CONTRACT_EXITS = (EXIT_PREEMPTED, EXIT_WATCHDOG, EXIT_DESYNC, EXIT_INJECTED_CRASH)
 
 
 def resolve_world(world_size: Optional[int], backend: str,
@@ -62,8 +71,7 @@ def resolve_world(world_size: Optional[int], backend: str,
     """``(world, hosts)`` of a launch with ``run_ddp_training``'s arguments:
     ``hosts`` is ``num_processes`` under a coordinator, else 1; ``world``
     is ``world_size``, or every visible GPU (one process on the CPU) of
-    every host. A world the hosts do not tile is a ``ValueError``, and
-    ``$TPUDDP_WATCHDOG_TIMEOUT`` beside more than one host is refused."""
+    every host. A world the hosts do not tile is a ``ValueError``."""
     hosts = int(num_processes or 1) if coordinator_address else 1
     if world_size is None:
         world_size = hosts * (torch.cuda.device_count() if backend == "cuda" else 1)
@@ -73,11 +81,6 @@ def resolve_world(world_size: Optional[int], backend: str,
                 f"a world of {world_size} processes does not tile over local.rendezvous."
                 f"num_processes={hosts} hosts; the world size (local.gpu.num_gpus or "
                 "$TPUDDP_WORLD_SIZE) is the global one, hosts x processes per host"
-            )
-        if os.environ.get(WATCHDOG_ENV):
-            raise NotImplementedError(
-                f"${WATCHDOG_ENV} (the multi-host watchdog) is not implemented in "
-                "tpuddp_torch yet (ROADMAP.md Queue 1 item 8: elastic reshard)"
             )
     return int(world_size), hosts
 
@@ -93,7 +96,9 @@ def _worker(
     rendezvous: Optional[tuple] = None,
 ):
     """One rank: ``rank`` is the global rank on one host, the local rank
-    under a ``rendezvous = (coordinator_address, process_id, local_world)``."""
+    under a ``rendezvous = (coordinator_address, process_id, local_world)``,
+    where local rank 0 arms the watchdog (with ``$TPUDDP_WATCHDOG_TIMEOUT``)."""
+    pair = None
     if rendezvous is None:
         _backend.setup(rank, world_size, device, port)
     else:
@@ -104,6 +109,8 @@ def _worker(
         print(f"Rendezvous at {address}: global rank {rank} of a {world_size}-process world, "
               f"host {process_id} of {world_size // local_world}, local rank {local_rank} of "
               f"{local_world}.", flush=True)
+        if local_rank == 0:  # this host's beat and its watch over the others
+            pair = watchdog.start(save_dir, process_id, world_size // local_world)
     preemption.install_preemption_handler()  # SIGTERM/SIGINT only set the drain flag
     try:
         return demo_fn(rank, world_size, save_dir, optional_args)
@@ -114,6 +121,7 @@ def _worker(
         logger.critical("%s; exiting %d", e, EXIT_DESYNC)
         sys.exit(EXIT_DESYNC)
     finally:
+        watchdog.stop(pair)
         preemption.uninstall_preemption_handler()
         _backend.cleanup()
 
@@ -149,8 +157,9 @@ def run_ddp_training(
 
 
 def _spawn(nprocs: int, args: tuple) -> None:
-    """``nprocs`` ranks of :func:`_worker` on ``args``; a rank's drain (75)
-    or desync (77) exit becomes this process's. While they run, a SIGTERM
+    """``nprocs`` ranks of :func:`_worker` on ``args``; a rank's drain (75),
+    watchdog (76), desync (77) or injected-crash (113) exit becomes this
+    process's. While they run, a SIGTERM
     to this process is passed on to every rank, and a SIGINT (which the
     terminal sends to the ranks too) is absorbed."""
     ctx = mp.spawn(_worker, args=args, nprocs=nprocs, join=False)
@@ -168,7 +177,7 @@ def _spawn(nprocs: int, args: tuple) -> None:
         while not ctx.join():
             pass
     except mp.ProcessExitedException as e:
-        if e.exit_code in (EXIT_DESYNC, EXIT_PREEMPTED):
+        if e.exit_code in _CONTRACT_EXITS:
             sys.exit(e.exit_code)
         raise
     finally:

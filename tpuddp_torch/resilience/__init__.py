@@ -3,11 +3,16 @@ guard (:mod:`~tpuddp_torch.resilience.guard`: the non-finite firewall, the
 skip counters, the desync auditor and its exit code), the SIGTERM/SIGINT
 drain (:mod:`~tpuddp_torch.resilience.preemption`: the flag, the grace
 failsafe, exit 75 and ``$TPUDDP_AUTO_RESUME``), ``$TPUDDP_FAULT``
-injection (:mod:`~tpuddp_torch.resilience.faults`, its ``nan`` and
-``preempt`` kinds) and the retry with jittered backoff
-(:mod:`~tpuddp_torch.resilience.retry`, the multi-host rendezvous's). The
-watchdog and the restart supervisor are not ported (ROADMAP.md Queue 1
-item 8)."""
+injection (:mod:`~tpuddp_torch.resilience.faults`: ``crash``, ``preempt``,
+``hang``, ``corrupt`` and ``nan``), the retry with jittered backoff
+(:mod:`~tpuddp_torch.resilience.retry`, the multi-host rendezvous's), the
+multi-host heartbeat and stale-peer watchdog
+(:mod:`~tpuddp_torch.resilience.watchdog`, ``$TPUDDP_WATCHDOG_TIMEOUT``,
+exit 76) and the restart supervisor
+(:mod:`~tpuddp_torch.resilience.supervisor`: 75 resume now, 76/77/113
+back off and resume, repeated 76 shrinks the world, which the elastic
+restore of ``training/checkpoint.py`` then refits the checkpoint onto;
+CLI ``python -m tpuddp_torch.supervise``)."""
 
 from tpuddp_torch.resilience.guard import (  # noqa: F401
     DISABLED as GUARD_DISABLED,
@@ -32,4 +37,23 @@ from tpuddp_torch.resilience.preemption import (  # noqa: F401
     request_preemption,
     reset_preemption,
     uninstall_preemption_handler,
+)
+from tpuddp_torch.resilience.faults import (  # noqa: F401
+    FaultSpec,
+    active_faults,
+    is_hung,
+    maybe_fire,
+    parse_fault_specs,
+    reload_faults,
+)
+from tpuddp_torch.resilience.supervisor import (  # noqa: F401
+    RestartSupervisor,
+    SupervisorPolicy,
+    classify_exit,
+    supervise,
+)
+from tpuddp_torch.resilience.watchdog import (  # noqa: F401
+    Heartbeat,
+    Watchdog,
+    watchdog_timeout_seconds,
 )

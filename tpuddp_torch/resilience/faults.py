@@ -1,24 +1,34 @@
 """``$TPUDDP_FAULT`` fault injection — the counterpart of
-``tpuddp/resilience/faults.py``, its grammar whole and its ``nan`` and
-``preempt`` kinds.
+``tpuddp/resilience/faults.py``, its grammar whole and its training kinds.
 
     TPUDDP_FAULT=<kind>@<site>[,<kind>@<site>...]
 
 The grammar, the kinds, the sites and the ``ValueError`` of a malformed spec
-are the JAX package's (:func:`parse_fault_specs`). The port runs two kinds:
-``nan@step=N`` poisons the host micro-batch whose global train index from
-the epoch driver's entry is ``N`` (:func:`maybe_corrupt_batch`), so its
-loss and gradient go non-finite and the numerical guard's firewall must
-skip the update; ``preempt@epoch=N`` (at the start of epoch N) and
-``preempt@step=N`` (at the global train micro-batch N, before it is staged)
-ask for the drain as a SIGTERM would (:func:`maybe_fire`, which calls
-:func:`~tpuddp_torch.resilience.preemption.request_preemption`). The other
-training kinds, ``crash``, ``hang`` and ``corrupt``, belong to the
-supervisor's chaos matrix: they parse and then raise ``NotImplementedError``
-naming their ROADMAP entry, "elastic reshard", at the epoch loop's start
-(:func:`refuse_unported`). The serving kinds are the serving engines', which
-the training hooks never consume, as in the JAX package. Each spec fires at
-most once per process; :func:`reload_faults` re-reads the variable.
+are the JAX package's (:func:`parse_fault_specs`). The training kinds fire
+where the JAX package's do (:func:`maybe_fire`):
+
+- ``crash`` leaves at once with ``os._exit(EXIT_INJECTED_CRASH)`` (113),
+  the unclean kill;
+- ``preempt`` asks for the drain as a SIGTERM would
+  (:func:`~tpuddp_torch.resilience.preemption.request_preemption`);
+- ``hang`` raises the hung flag (:func:`is_hung`), which stops this
+  process's heartbeat (:mod:`~tpuddp_torch.resilience.watchdog`), and sleeps
+  forever: to its peers' watchdogs it is a dead host;
+- ``corrupt`` tears the file just published (a header of garbage, the
+  tail cut off, its manifest left stale), which the restore must detect and
+  skip;
+- ``nan@step=N`` poisons the host micro-batch of global train index ``N``
+  from the epoch driver's entry (:func:`maybe_corrupt_batch`), so its loss
+  and gradient go non-finite and the numerical guard must skip the update.
+
+The sites: ``epoch=N`` at the start of epoch N; ``step=N`` at the global
+train micro-batch N, before it is staged; ``barrier`` on entry to
+:func:`tpuddp_torch.parallel.collectives.barrier`; ``ckpt_N`` (or
+``ckpt_E_sS``, a step snapshot) after that file is published, by the
+checkpoint writer and the snapshot writer alike. The serving kinds are the
+serving engines', which the training hooks never consume, as in the JAX
+package. Each spec fires at most once per process; :func:`reload_faults`
+re-reads the variable and lowers the hung flag.
 """
 
 from __future__ import annotations
@@ -26,23 +36,21 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
+
+from tpuddp_torch.resilience.preemption import EXIT_INJECTED_CRASH, request_preemption
 
 logger = logging.getLogger("tpuddp")
 
 _FAULT_ENV = "TPUDDP_FAULT"
 SERVING_KINDS = ("replica_kill", "pool_poison", "dispatch_wedge")
 _KINDS = ("crash", "preempt", "hang", "corrupt", "nan") + SERVING_KINDS
-# the training kinds the port does not run, by the ROADMAP entry that ports them
-_UNPORTED = {
-    "crash": "Queue 1 item 8: elastic reshard",
-    "hang": "Queue 1 item 8: elastic reshard",
-    "corrupt": "Queue 1 item 8: elastic reshard",
-}
 
 _cache = {"raw": None, "specs": None}
+_hung = {"active": False}
 
 
 @dataclasses.dataclass
@@ -127,18 +135,13 @@ def active_faults() -> List[FaultSpec]:
 
 def reload_faults() -> None:
     _cache.update(raw=None, specs=None)
+    _hung["active"] = False
 
 
-def refuse_unported() -> None:
-    """``NotImplementedError`` for a training fault kind the port does not
-    run (every kind but ``nan`` and ``preempt``), naming its ROADMAP entry."""
-    for spec in active_faults():
-        item = _UNPORTED.get(spec.kind)
-        if item is not None:
-            raise NotImplementedError(
-                f"{_FAULT_ENV} kind {spec.kind!r} ({spec.kind}@{spec.site}) is not implemented "
-                f"in tpuddp_torch yet (ROADMAP.md {item})"
-            )
+def is_hung() -> bool:
+    """True once a ``hang`` fault fired: the heartbeat thread stops beating,
+    so peers see this process as dead."""
+    return _hung["active"]
 
 
 def has_nan_fault() -> bool:
@@ -148,23 +151,47 @@ def has_nan_fault() -> bool:
 
 def has_step_fault() -> bool:
     """True while an un-fired training spec at ``step=N`` is armed
-    (``nan`` or ``preempt``): the epoch loops wire their per-batch hook
-    only then."""
+    (``nan``, ``crash`` or ``preempt``): the epoch loops wire their
+    per-batch hook only then."""
     return any(s.site == "step" and not s.fired and s.kind not in SERVING_KINDS
                for s in active_faults())
 
 
-def maybe_fire(site: str, **ctx) -> None:
-    """The ``preempt`` hook: an un-fired ``preempt`` spec matching ``site``
-    (``epoch`` with ``epoch=``, ``step`` with ``step=``) fires once and asks
-    for the drain. The other kinds are not consumed here."""
-    from tpuddp_torch.resilience.preemption import request_preemption
+def _corrupt_file(path: str) -> None:
+    """Tear ``path`` as a write cut short would: garbage over its header,
+    its tail gone (the JAX package's ``_corrupt_file``)."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(0)
+        f.write(b"\x00CHAOS\x00" * 4)
+        f.truncate(max(32, size // 2))
 
+
+def maybe_fire(site: str, **ctx) -> None:
+    """The injection hook of the epoch loops (``epoch``, ``step``), the
+    barrier (``barrier``) and the checkpoint writers (``ckpt``, with
+    ``name`` and ``path``): an un-fired spec matching ``site`` (and
+    ``ctx``) fires once. ``nan`` and the serving kinds are not consumed
+    here."""
     for spec in active_faults():
-        if spec.kind == "preempt" and spec.matches(site, **ctx):
-            spec.fired = True
-            logger.critical("fault injection: preempt@%s fired (ctx=%s)", site, ctx)
+        if spec.kind == "nan" or spec.kind in SERVING_KINDS:
+            continue
+        if not spec.matches(site, **ctx):
+            continue
+        spec.fired = True
+        logger.critical("fault injection: %s@%s fired (ctx=%s)", spec.kind, site, ctx)
+        if spec.kind == "crash":
+            os._exit(EXIT_INJECTED_CRASH)
+        elif spec.kind == "preempt":
             request_preemption()
+        elif spec.kind == "hang":
+            _hung["active"] = True
+            while True:  # a peer's watchdog (or the harness) must kill this process
+                time.sleep(1.0)
+        elif spec.kind == "corrupt":
+            path = ctx.get("path")
+            if path and os.path.exists(path):
+                _corrupt_file(path)
 
 
 def maybe_corrupt_batch(batch, step: int):

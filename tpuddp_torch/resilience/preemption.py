@@ -40,8 +40,8 @@ logger = logging.getLogger("tpuddp")
 # requeue"; 76, 77 and 113 are the JAX package's own, outside the shell's
 # and the signals' ranges (126-165).
 EXIT_PREEMPTED = 75  # drained after SIGTERM/SIGINT; safe to requeue and resume
-EXIT_WATCHDOG = 76  # a peer's heartbeat went stale (the watchdog: not ported)
-EXIT_INJECTED_CRASH = 113  # $TPUDDP_FAULT crash@... (not ported)
+EXIT_WATCHDOG = 76  # a peer's heartbeat went stale (resilience/watchdog.py)
+EXIT_INJECTED_CRASH = 113  # $TPUDDP_FAULT crash@... (resilience/faults.py)
 
 _GRACE_ENV = "TPUDDP_PREEMPT_GRACE"
 _DEFAULT_GRACE = 25.0
@@ -53,7 +53,7 @@ _state = {
     "previous": {},  # signum -> the handler before ours
     "signum": None,
     "deadline": None,
-    "failsafe": None,
+    "cancel": None,  # the running failsafe's Event; reset_preemption sets it
 }
 
 
@@ -87,15 +87,16 @@ def preemption_grace_seconds() -> float:
         return _DEFAULT_GRACE
 
 
-def _failsafe(grace: float) -> None:
-    time.sleep(grace)
+def _failsafe(grace: float, cancel: threading.Event) -> None:
+    if cancel.wait(grace):
+        return  # reset_preemption ended the drain window
     if _flag.is_set():  # the drain did not finish in time: beat the SIGKILL
         logger.critical(
             "preemption drain exceeded the %.0fs grace window; forcing exit %d",
             grace, EXIT_PREEMPTED,
         )
         # the JAX failsafe dumps the flight recorder here; that recorder is
-        # ROADMAP.md Queue 1 item 8: observability, part 2 (entry 5), not ported
+        # ROADMAP.md Queue 1 item 8: observability, part 2, not ported
         os._exit(EXIT_PREEMPTED)
 
 
@@ -114,10 +115,9 @@ def request_preemption(signum: Optional[int] = None, frame=None) -> None:
         "%s received: draining — emergency checkpoint at the next batch-group boundary, "
         "then exit %d (grace %.0fs)", name, EXIT_PREEMPTED, grace,
     )
-    t = threading.Thread(target=_failsafe, args=(grace,), name="tpuddp-preempt-failsafe",
-                         daemon=True)
-    t.start()
-    _state["failsafe"] = t
+    _state["cancel"] = threading.Event()
+    threading.Thread(target=_failsafe, args=(grace, _state["cancel"]),
+                     name="tpuddp-preempt-failsafe", daemon=True).start()
 
 
 def preemption_requested() -> bool:
@@ -153,6 +153,9 @@ def uninstall_preemption_handler() -> None:
 
 
 def reset_preemption() -> None:
-    """Clear the flag and the deadline (tests; a real process exits)."""
+    """Clear the flag and the deadline and end the failsafe's thread
+    (tests; a real process exits)."""
     _flag.clear()
-    _state.update(signum=None, deadline=None, failsafe=None)
+    if _state["cancel"] is not None:
+        _state["cancel"].set()
+    _state.update(signum=None, deadline=None, cancel=None)

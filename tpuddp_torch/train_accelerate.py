@@ -260,6 +260,7 @@ def run_training_loop(
     # managed rows have it (no FLOPs probe on this path)
     writer = MetricsWriter(save_dir)
     guard = accelerator.guard
+    restore_events = list(accelerator.last_restore_events)
     hosts = backend.num_hosts() or 1
     world = accelerator.num_processes
     device = accelerator.device
@@ -285,8 +286,11 @@ def run_training_loop(
             **({"grad_comm_bytes_per_update": optimizer.grad_comm_bytes_per_step}
                if optimizer.grad_comm_bytes_per_step is not None else {}),
             **(run_meta or {}),
+            **ckpt.resumed_from(restore_events),
         },
     ))
+    for ev in restore_events:  # an elastic restore's rows (train_accelerate.py:329-394)
+        writer.write(schema.stamp("event", ev))
     tel = RunTelemetry(writer, save_dir, step_stats_every, device)
     prev_skips = optimizer.skip_counters()[0] if guard.enabled else 0
     rollbacks = 0

@@ -70,10 +70,24 @@ replica's shard loss at its shard's offset, zeros elsewhere), which the JAX
 package's hierarchical run restores at the same world. Managed
 ``['comm_state']``: a tree like ``['params']``, in the JAX layout. A file
 without a residual loads it as zeros (the JAX package's forward-compatible
-load, with its warning); a residual saved at another world size is refused
-(its redistribution is the elastic reshard, not ported); a residual in a
-file for a run without error feedback is not read, as the JAX template
-does not read it.
+load, with its warning); a residual in a file for a run without error
+feedback is not read, as the JAX template does not read it.
+
+The elastic restore (``tpuddp/training/checkpoint.py:429-538, :692-741``):
+a native residual saved at another world size is refitted onto this one by
+:func:`fit_residual` in the JAX loader's steps and order (each row re-padded
+to this world's per-replica length, a non-zero tail refused, the rows
+summed, spread or reset by :func:`~tpuddp_torch.parallel.comm.
+redistribute_residual`), and each rank takes its row (permuted under
+ZeRO-1); a world-1 file's ``data_flat`` residual is re-padded to the whole
+vector, as the JAX loader re-pads it. What was refitted comes back from
+:func:`restore_latest` as the JAX package's typed event rows
+(:func:`build_reshard_events`: one ``topology_change``, one
+``comm_state_reset`` per residual that reset); a step snapshot's cursor
+restored across worlds loses its plan key, so the epoch is redone. The
+managed residual is a tree of parameter-shaped leaves and crosses worlds as
+it is. A file the loader cannot fit raises :class:`TopologyMismatch` (a
+``ValueError``) with the JAX package's text.
 
 The numerical guard's skip counters (``training.guard``) ride under the
 JAX package's keys (``tpuddp/training/checkpoint.py:620-660``): native
@@ -94,7 +108,10 @@ one is skipped for the one before) as process 0 finds it, on every process
 or none, and a process that cannot open it raises on every process, so
 ``out_dir`` must be one filesystem that every host sees. A file that needs a part of the JAX
 package the port lacks (a model axis) is refused with ``NotImplementedError``
-naming its ROADMAP item, never loaded in part.
+naming its ROADMAP item, never loaded in part, whatever
+``training.reshard_on_mismatch`` says. Publishing a checkpoint is a
+``$TPUDDP_FAULT`` site (``corrupt@ckpt_N``, in :func:`write_captured`, the
+snapshot writer's writer too).
 
 Step snapshots (format v4, ``tpuddp/training/checkpoint.py:91-115,
 :751-782, :862-938, :1008-1095``): ``{prefix}_{epoch}_s{step}.npz``, the
@@ -136,6 +153,10 @@ from tpuddp_torch.models.convert import (
 )
 from tpuddp_torch.parallel.backend import get_rank, get_world_size
 from tpuddp_torch.parallel import collectives
+from tpuddp_torch.parallel.comm import redistribute_residual
+from tpuddp_torch.resilience import faults
+# the heartbeat directory is the watchdog's (peer spills live under it too)
+from tpuddp_torch.resilience.watchdog import heartbeat_dir
 # re-exported: the parser moved to the drain's module
 from tpuddp_torch.resilience.preemption import (  # noqa: F401
     AUTO_RESUME_ENV, auto_resume_requested,
@@ -155,6 +176,13 @@ _COMM = ".comm_state"  # the native residual's key
 _SKIP_KEYS = ("consecutive", "total")  # the guard's counters, in the JAX key order
 
 
+class TopologyMismatch(ValueError):
+    """A checkpoint's world-size-dependent state cannot be fitted onto the
+    current topology (``tpuddp/training/checkpoint.py:119-123``): a file
+    without a topology record, a tail that is not padding, or a
+    redistribution without the world size it needs."""
+
+
 def checkpoint_path(save_dir: str, epoch: int, prefix: str = "ckpt") -> str:
     return os.path.join(save_dir, f"{prefix}_{epoch}.npz")
 
@@ -163,18 +191,6 @@ def step_checkpoint_path(save_dir: str, epoch: int, step: int, prefix: str = "ck
     """``{prefix}_{epoch}_s{step}.npz``: a step snapshot, ``step`` real
     micro-batches of ``epoch`` applied."""
     return os.path.join(save_dir, f"{prefix}_{epoch}_s{step}.npz")
-
-
-def heartbeat_dir(save_dir: Optional[str]) -> Optional[str]:
-    """``$TPUDDP_HEARTBEAT_DIR``, else ``<save_dir>/.heartbeats``: the one
-    directory every process of a job reaches (``tpuddp/resilience/
-    watchdog.py:72-78``), where peer snapshot copies are spilled."""
-    env = os.environ.get("TPUDDP_HEARTBEAT_DIR")
-    if env:
-        return env
-    if save_dir:
-        return os.path.join(save_dir, ".heartbeats")
-    return None
 
 
 def peer_checkpoint_dirs(save_dir: str) -> List[str]:
@@ -567,10 +583,9 @@ def read_cursor(path: str) -> Optional[dict]:
 
 def _on_main(rank: int, write_fn):
     """Rank 0 runs ``write_fn()``; everyone waits so no reader races the
-    writer."""
+    writer (a ``$TPUDDP_FAULT`` barrier site, as the JAX save's)."""
     path = write_fn() if rank == 0 else None
-    if dist.is_initialized():
-        dist.barrier()
+    collectives.barrier()
     return path
 
 
@@ -711,6 +726,9 @@ def write_captured(save_dir: str, epoch: int, cap: Captured, *, completed: bool 
                  topology=topology_record(cap.host["world_size"], cap.host["flat_keys"],
                                           cap.host["residual_per"]),
                  cursor=cursor, cursor_acc=cursor_acc)
+    # $TPUDDP_FAULT corrupt@ckpt_N tears the file just published (its manifest
+    # then stale), which the restore must detect and skip
+    faults.maybe_fire("ckpt", name=os.path.basename(target)[:-len(".npz")], path=path)
     if keep_last is not None:
         prune_checkpoints(save_dir, keep_last, prefix)
     return path
@@ -758,17 +776,201 @@ def save_model_on_main(save_dir: str, model: torch.nn.Module, rank: int) -> Opti
 
 # --------------------------------------------------------------------- load --
 
+def _topology(stored: dict) -> Optional[dict]:
+    """The file's topology record; None for a file without one."""
+    return json.loads(str(stored[_TOPO])) if _TOPO in stored else None
+
+
+def read_topology(path: str) -> Optional[dict]:
+    """The topology record of the checkpoint at ``path`` (None without)."""
+    with np.load(path) as data:
+        return _topology(data)
+
+
+def topology_model_size(topo: Optional[dict]) -> int:
+    """The model-axis width a file was written under: its ``model_size``,
+    else its mesh's ``model`` axis, else 1
+    (``tpuddp/training/checkpoint.py:254-266``)."""
+    if not topo:
+        return 1
+    if topo.get("model_size") is not None:
+        return int(topo["model_size"])
+    axes, shape = topo.get("mesh_axes"), topo.get("mesh_shape")
+    if axes and shape and "model" in axes:
+        return int(shape[list(axes).index("model")])
+    return 1
+
+
 def _refuse_unported(path: str, stored: dict) -> None:
-    """``NotImplementedError`` for contents the port cannot restore whole."""
-    def refuse(what, item):
+    """``NotImplementedError`` for contents the port cannot restore whole:
+    a file of a model axis, whatever ``training.reshard_on_mismatch`` says
+    (the JAX package reshapes it with ``tpuddp/training/reshard.py``)."""
+    model = topology_model_size(_topology(stored))
+    if model > 1:
         raise NotImplementedError(
-            f"checkpoint {path} holds {what}, which tpuddp_torch cannot restore yet "
-            f"(ROADMAP.md Queue 1 item 8: {item})"
+            f"checkpoint {path} holds a model={model} mesh, which tpuddp_torch cannot restore "
+            "yet (ROADMAP.md Queue 1 item 8: tensor parallel)"
         )
 
-    topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
-    if int(topo.get("model_size") or 1) > 1:
-        refuse(f"a model={topo['model_size']} mesh", "tensor parallel")
+
+def _v1_mismatch(path: str, key: str, shape, t_shape) -> TopologyMismatch:
+    return TopologyMismatch(
+        f"checkpoint {path}: world-size-dependent leaf {key!r} has "
+        f"shape {tuple(shape)} but the current topology "
+        f"expects {tuple(t_shape)}. This checkpoint predates the format-v2 "
+        "topology record and cannot be resharded onto a different "
+        "world size — resume it on the topology that wrote it, or "
+        "re-save it through save_on_main (elastic v2) first."
+    )
+
+
+def _shape_mismatch(path: str, key: str, shape, t_shape) -> ValueError:
+    return ValueError(
+        f"checkpoint {path}: leaf {key!r} has shape {tuple(shape)} but the model expects "
+        f"{tuple(t_shape)}"
+    )
+
+
+def _refit_flat(path: str, key: str, stored: np.ndarray, n_new: int,
+                actions: Optional[List[dict]]) -> np.ndarray:
+    """A world-padded flat vector (a ZeRO-1 moment, a world-1 residual)
+    re-padded to ``n_new`` elements (``tpuddp/training/checkpoint.py:
+    407-425``): a shorter target may drop only zeros, a longer one gains
+    zeros. Recorded in ``actions`` as ``repadded``."""
+    n_old = int(stored.shape[0])
+    if n_new < n_old and np.any(stored[n_new:]):
+        raise TopologyMismatch(
+            f"checkpoint {path}: flat leaf {key!r} has {n_old} elements but "
+            f"the current topology expects {n_new}, and the tail past "
+            f"{n_new} is non-zero — this is not world-multiple padding (was "
+            "the model changed, not just the world size?)"
+        )
+    out = np.zeros((n_new,), stored.dtype)
+    out[:min(n_old, n_new)] = stored[:min(n_old, n_new)]
+    if actions is not None:
+        actions.append({"leaf": key, "action": "repadded",
+                        "from_shape": list(stored.shape), "to_shape": [n_new]})
+    return out
+
+
+def fit_residual(path: str, stored: np.ndarray, topo: Optional[dict], target_len: int,
+                 world_size: Optional[int], actions: Optional[List[dict]] = None) -> np.ndarray:
+    """The file's native residual ``stored`` fitted to this run's
+    ``(target_len,)`` vector (``world_size`` rows), as the JAX loader fits
+    ``.comm_state`` (``tpuddp/training/checkpoint.py:429-538``): as it is at
+    the same shape; a ``data_flat`` vector (a world-1 file's) re-padded; a
+    ``per_replica`` one written at another world re-padded column-wise to
+    this world's per-replica length (a non-zero tail refused), then its rows
+    redistributed (:func:`~tpuddp_torch.parallel.comm.redistribute_residual`:
+    summed, spread or reset; recorded in ``actions`` with the worlds). A
+    file without a topology record, or ``world_size`` None where the rows
+    must be redistributed, is a :class:`TopologyMismatch`."""
+    key = _COMM
+    t_shape = (int(target_len),)
+    if tuple(stored.shape) == t_shape:
+        return stored
+    info = ((topo or {}).get("leaves") or {}).get(key)
+    if info is None:
+        if topo is None and stored.ndim == 1:
+            raise _v1_mismatch(path, key, stored.shape, t_shape)
+        raise _shape_mismatch(path, key, stored.shape, t_shape)
+    if info["kind"] == "data_flat":
+        return _refit_flat(path, key, stored, t_shape[0], actions)
+    if info["kind"] != "per_replica":
+        raise TopologyMismatch(f"checkpoint {path}: leaf {key!r} has unknown shard tag {info!r}")
+    if world_size is None:
+        raise TopologyMismatch(
+            f"checkpoint {path}: per-replica leaf {key!r} (saved on a "
+            f"{info['world']}-replica world) needs the CURRENT world "
+            "size to redistribute; pass world_size= to load/"
+            "restore_latest (the epoch drivers do)"
+        )
+    n_from, per_from = int(info["world"]), int(info["per"])
+    if stored.shape[0] != n_from * per_from:
+        raise TopologyMismatch(
+            f"checkpoint {path}: per-replica leaf {key!r} has "
+            f"{stored.shape[0]} elements but its topology record says "
+            f"{n_from} x {per_from}"
+        )
+    if t_shape[0] % int(world_size) != 0:
+        raise TopologyMismatch(
+            f"checkpoint {path}: per-replica leaf {key!r} target length "
+            f"{t_shape[0]} is not a multiple of world_size={world_size}"
+        )
+    per_to = t_shape[0] // int(world_size)
+    mat = stored.reshape(n_from, per_from)
+    if per_from != per_to:  # the column re-pad first: each row is world-padded
+        cols = np.zeros((n_from, per_to), stored.dtype)
+        keep = min(per_from, per_to)
+        if per_from > per_to and np.any(mat[:, per_to:]):
+            raise TopologyMismatch(
+                f"checkpoint {path}: per-replica leaf {key!r} carries "
+                f"non-zero data past the current per-replica length "
+                f"{per_to} — not world-multiple padding"
+            )
+        cols[:, :keep] = mat[:, :keep]
+        mat = cols
+    new_mat, action = redistribute_residual(mat, int(world_size))
+    if actions is not None:
+        actions.append({"leaf": key, "action": action,
+                        "from_world": n_from, "to_world": int(world_size)})
+    if action == "reset":
+        logger.warning(
+            "checkpoint %s: per-replica leaf %r cannot be redistributed sum-preservingly from "
+            "world %d to %d (no divisor relation); residual RESET to zero",
+            path, key, n_from, world_size,
+        )
+    return new_mat.reshape(-1)
+
+
+def build_reshard_events(path: str, epoch: int, topo: Optional[dict],
+                         world_size: Optional[int], actions: List[dict],
+                         model_size: Optional[int] = None) -> List[dict]:
+    """The typed event rows of an elastic restore
+    (``tpuddp/training/checkpoint.py:692-741``): one ``topology_change``
+    (the worlds, the model widths, the refitted leaves, what became of the
+    residual) and one ``comm_state_reset`` per residual that reset; empty
+    for a restore onto the file's own topology. Logs the JAX package's
+    "elastic resume" line."""
+    from_world = (topo or {}).get("world_size")
+    from_model = topology_model_size(topo) if topo else None
+    to_model = None if model_size is None else int(model_size)
+    if not (actions or (from_world and world_size and from_world != world_size)):
+        return []
+    events = [{
+        "event": "topology_change",
+        "from_world": from_world,
+        "to_world": world_size,
+        "from_model": from_model,
+        "to_model": to_model,
+        "checkpoint": os.path.basename(path),
+        "checkpoint_epoch": epoch,
+        "resharded_leaves": [a["leaf"] for a in actions],
+        "residual": next((a["action"] for a in actions if a.get("from_world")), None),
+    }]
+    for a in actions:
+        if a.get("action") == "reset":
+            events.append({
+                "event": "comm_state_reset",
+                "leaf": a["leaf"],
+                "from_world": a["from_world"],
+                "to_world": a["to_world"],
+                "reason": a.get("reason") or "no divisor relation between world sizes; "
+                "error-feedback residual reset to zero",
+            })
+    logger.warning(
+        "elastic resume: checkpoint %s written on world %s restored onto world %s "
+        "(%d leaf/leaves resharded)", path, from_world, world_size, len(actions),
+    )
+    return events
+
+
+def resumed_from(events: List[dict]) -> Dict[str, Any]:
+    """The run header's field of an elastic restore's rows: its
+    ``topology_change``'s world as ``resumed_from_world`` (empty without
+    one), as the JAX loops stamp it."""
+    change = next((ev for ev in events if ev["event"] == "topology_change"), None)
+    return {} if change is None else {"resumed_from_world": change["from_world"]}
 
 
 def _stored(path: str, stored: dict, key: str, dtype, bf16: bool = False) -> np.ndarray:
@@ -826,32 +1028,24 @@ def _file_slots(stored: dict, opt: str) -> Tuple[str, ...]:
     return tuple(sorted(found - {"step"}))
 
 
-def _flat_leaf(path: str, stored: dict, key: str, total: int, bf16: bool) -> np.ndarray:
+def _flat_leaf(path: str, stored: dict, key: str, total: int, bf16: bool,
+               actions: Optional[List[dict]] = None) -> np.ndarray:
     """The file's ZeRO-1 vector ``key`` at the current world's length
     ``total``: as it is, or re-padded when the file tags it ``data_flat``
-    (``tpuddp/training/checkpoint.py:407-425``; only zeros may go)."""
+    (``tpuddp/training/checkpoint.py:429-475``; only zeros may go)."""
     arr = _stored(path, stored, key, np.float32, bf16)
     if arr.shape == (total,):
         return arr
-    topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
-    tagged = ((topo.get("leaves") or {}).get(key) or {}).get("kind") == "data_flat"
-    if arr.ndim != 1 or not tagged:
-        raise ValueError(
-            f"checkpoint {path}: leaf {key!r} has shape {arr.shape} but the model expects "
-            f"{(total,)}"
-        )
-    if len(arr) > total and np.any(arr[total:]):
-        raise ValueError(
-            f"checkpoint {path}: flat leaf {key!r} has {len(arr)} elements but the current "
-            f"topology expects {total}, and the tail past {total} is non-zero — this is not "
-            "world-multiple padding (was the model changed, not just the world size?)"
-        )
-    out = np.zeros(total, arr.dtype)
-    out[:min(len(arr), total)] = arr[:total]
-    return out
+    topo = _topology(stored)
+    info = ((topo or {}).get("leaves") or {}).get(key)
+    if info is None or info.get("kind") != "data_flat":
+        if topo is None and arr.ndim == 1:
+            raise _v1_mismatch(path, key, arr.shape, (total,))
+        raise _shape_mismatch(path, key, arr.shape, (total,))
+    return _refit_flat(path, key, arr, total, actions)
 
 
-def _restore_flat_opt(path, stored, layout, name, model, optimizer) -> None:
+def _restore_flat_opt(path, stored, layout, name, model, optimizer, actions=None) -> None:
     """Put the file's ZeRO-1 state into ``optimizer``: each vector re-padded,
     permuted into the port's order, and this rank's shard kept."""
     slots, counted = _opt_slots(optimizer)
@@ -860,7 +1054,7 @@ def _restore_flat_opt(path, stored, layout, name, model, optimizer) -> None:
     bf16 = _state_dtype(optimizer) == torch.bfloat16
     state = {}
     for slot, key in slots.items():
-        vec = _flat_leaf(path, stored, f"{opt}.{slot}", spec.total, bf16)
+        vec = _flat_leaf(path, stored, f"{opt}.{slot}", spec.total, bf16, actions)
         if np.any(vec[spec.raw:]):
             raise ValueError(f"checkpoint {path}: flat leaf '{opt}.{slot}' has a non-zero padding")
         port = np.zeros_like(vec)
@@ -876,7 +1070,8 @@ def _restore_flat_opt(path, stored, layout, name, model, optimizer) -> None:
         optimizer.state[shard] = state
 
 
-def _restore_opt(path, stored, layout, name, model, optimizer, params_like) -> None:
+def _restore_opt(path, stored, layout, name, model, optimizer, params_like,
+                 actions=None) -> None:
     """Put the file's optimizer state into ``optimizer``."""
     slots, counted = _opt_slots(optimizer)
     opt = _field(layout, "opt_state")
@@ -889,7 +1084,7 @@ def _restore_opt(path, stored, layout, name, model, optimizer, params_like) -> N
             "training.optimizer (and momentum) match the saved run"
         )
     if isinstance(optimizer, optim.ShardedUpdate):
-        _restore_flat_opt(path, stored, layout, name, model, optimizer)
+        _restore_flat_opt(path, stored, layout, name, model, optimizer, actions)
         return
     dtype = _state_dtype(optimizer)
     bf16 = dtype == torch.bfloat16
@@ -920,11 +1115,12 @@ def _residual_missing(path: str, key: str) -> None:
 
 
 @torch.no_grad()
-def _restore_residual(path, stored, layout, name, model, optimizer, params_like, residual) -> None:
+def _restore_residual(path, stored, layout, name, model, optimizer, params_like, residual,
+                      actions=None) -> None:
     """The file's comm-hook residual into ``residual`` (in place): native,
-    this rank's slice of the per-replica vector (permuted into the port's
-    order under ZeRO-1); managed, each parameter's tensor. Zeros when the
-    file has none."""
+    this rank's row of the per-replica vector fitted to this world
+    (:func:`fit_residual`), permuted into the port's order under ZeRO-1;
+    managed, each parameter's tensor. Zeros when the file has none."""
     if layout == MANAGED:
         prefix = _field(MANAGED, "comm_state")
         if not any(k.startswith(prefix) for k in stored):
@@ -940,21 +1136,9 @@ def _restore_residual(path, stored, layout, name, model, optimizer, params_like,
         _residual_missing(path, _COMM)
         residual.zero_()
         return
-    topo = json.loads(str(stored[_TOPO])) if _TOPO in stored else {}
     world, per = get_world_size(), residual.numel()
-    saved = int(topo.get("world_size") or world)
-    if saved != world:
-        raise NotImplementedError(
-            f"checkpoint {path} holds the per-replica comm-hook residual of a {saved}-replica "
-            f"world, and this run has {world}; redistributing it is not implemented in "
-            "tpuddp_torch yet (ROADMAP.md Queue 1 item 8: elastic reshard)"
-        )
-    arr = _stored(path, stored, _COMM, np.float32)
-    if arr.shape != (world * per,):
-        raise ValueError(
-            f"checkpoint {path}: leaf {_COMM!r} has shape {arr.shape} but the model expects "
-            f"{(world * per,)}"
-        )
+    arr = fit_residual(path, _stored(path, stored, _COMM, np.float32), _topology(stored),
+                       world * per, world, actions)
     mine = arr[get_rank() * per:(get_rank() + 1) * per].copy()
     if isinstance(optimizer, optim.ShardedUpdate):
         raw = optimizer.spec.raw
@@ -964,7 +1148,7 @@ def _restore_residual(path, stored, layout, name, model, optimizer, params_like,
 
 def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
              generator: Optional[torch.Generator] = None, comm_state=None,
-             skipped=None) -> Dict[str, Any]:
+             skipped=None, actions: Optional[List[dict]] = None) -> Dict[str, Any]:
     with np.load(path) as data:
         stored = dict(data.items())
     _refuse_unported(path, stored)
@@ -974,10 +1158,11 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
     mstate = _read_tree(path, stored, _field(layout, "model_state"), mstate_like)
     model.load_state_dict(state_dict_from_jax(name, params, mstate))
     if optimizer is not None:
-        _restore_opt(path, stored, layout, name, model, optimizer, params_like)
+        _restore_opt(path, stored, layout, name, model, optimizer, params_like, actions)
         optim.count_from_state(optimizer)
     if comm_state is not None:
-        _restore_residual(path, stored, layout, name, model, optimizer, params_like, comm_state)
+        _restore_residual(path, stored, layout, name, model, optimizer, params_like, comm_state,
+                          actions)
     if skipped is not None:
         _restore_skipped(path, stored, layout, skipped)
     if RNG_KEY in stored:
@@ -1151,7 +1336,9 @@ def prune_checkpoints(save_dir: str, keep_last: int, prefix: str = "ckpt") -> in
 def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
                    layout: str = NATIVE, generator: Optional[torch.Generator] = None,
                    comm_state=None, skipped=None,
-                   cursor_out: Optional[List[dict]] = None) -> Tuple[int, Dict[str, Any]]:
+                   cursor_out: Optional[List[dict]] = None,
+                   reshard_log: Optional[List[dict]] = None,
+                   model_size: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
     """Restore the freshest intact file of ``layout`` across ``save_dir``,
     the peer spills and the epoch family; returns ``(next_epoch, meta)``:
     the epoch to train next (0 when there is no file; a step snapshot's own
@@ -1160,7 +1347,12 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
     ``completed=0``; else the one after it) and what :func:`load` returns
     (empty without a file). ``comm_state`` and ``skipped`` are restored in
     place as :func:`load` does. Every process restores the file process 0
-    picks; its provenance is logged when it is not a local epoch file."""
+    picks; its provenance is logged when it is not a local epoch file.
+
+    A file written at another world size is refitted onto this one (the
+    module doc); ``reshard_log`` receives :func:`build_reshard_events`' rows
+    (``model_size`` is their ``to_model``), and a step snapshot's cursor
+    then carries no plan key, so the caller redoes that epoch."""
     prefix = PREFIX[layout]
     sweep_stale_tmp(save_dir, prefix)
     found = _agreed(save_dir, prefix, next(model.parameters()).device)
@@ -1173,9 +1365,15 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
             "candidate across {local, peer, epoch-family}", path, epoch,
             "full-epoch" if step is None else f"step={step}", provenance,
         )
-    meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped)
+    actions: List[dict] = []
+    meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped, actions)
+    if reshard_log is not None:
+        reshard_log.extend(build_reshard_events(path, epoch, read_topology(path),
+                                                get_world_size(), actions, model_size))
     cursor = read_cursor(path)
     if cursor is not None:
+        if actions:  # the sampler's plan keys on the world: these are other batches
+            cursor["plan_key"] = None
         if cursor_out is not None:
             cursor_out.append(dict(cursor, path=path, provenance=provenance))
         logger.warning(

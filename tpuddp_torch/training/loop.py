@@ -95,6 +95,13 @@ cursor with this epoch's plan key continues the epoch at its step through
 ``EpochTailLoader``, the train sums seeded from the cursor: the rows are
 bitwise an uninterrupted run's; a mismatched key redoes the epoch. A
 guard rollback to a step snapshot continues that epoch at its step.
+
+The elastic resume (``tpuddp/training/loop.py:321-395, :435-441, :493,
+:576``): a checkpoint written at another world size is refitted onto this
+one by ``checkpoint.restore_latest`` (the error-feedback residual
+redistributed, ZeRO-1's moments re-padded), whose ``topology_change`` and
+``comm_state_reset`` rows follow the run's header (which then carries
+``resumed_from_world``) or the guard's ``rollback`` row.
 """
 
 from __future__ import annotations
@@ -112,6 +119,7 @@ from tpuddp_torch import optim, seeding
 from tpuddp_torch.observability import CommBytesCounter, MetricsWriter, RunTelemetry, schema
 from tpuddp_torch.observability.recorder import count_step_flops
 from tpuddp_torch.parallel import backend
+from tpuddp_torch.parallel import collectives as col
 from tpuddp_torch.resilience import faults, preemption
 from tpuddp_torch.resilience import guard as guard_lib
 from tpuddp_torch.resilience.preemption import TrainingPreempted
@@ -269,8 +277,8 @@ def step_fault_hook():
     """The ``$TPUDDP_FAULT`` hook of the train pass (None when no step fault
     is armed): each host micro-batch counted from the loop's entry;
     ``preempt@step=N`` asks for the drain there (the poll that follows stops
-    the pass before batch N is staged), ``nan@step=N`` poisons it."""
-    faults.refuse_unported()
+    the pass before batch N is staged), ``crash@step=N`` exits 113 there,
+    ``nan@step=N`` poisons it."""
     if not faults.has_step_fault():
         return None
     counter = {"i": 0}
@@ -365,6 +373,9 @@ def run_training_loop(
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
     start_epoch = 0
+    # an elastic restore's topology_change/comm_state_reset rows, written
+    # after the run_meta header (tpuddp/training/loop.py:321-395, :493)
+    reshard_log = []
     if auto_resume or ckpt.auto_resume_requested():
         if save_dir is None:
             if is_main:
@@ -374,6 +385,7 @@ def run_training_loop(
             start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
                 comm_state=residual, skipped=counters, cursor_out=cursors,
+                reshard_log=reshard_log, model_size=1,
             )
             pending["c"] = cursors[-1] if cursors else None
             ddp.step = meta.get("step", ddp.step)
@@ -423,8 +435,11 @@ def run_training_loop(
             "grad_comm_bytes_inter_host": getattr(ddp, "grad_comm_bytes_inter_host", None),
             "grad_comm_bytes_intra_host": getattr(ddp, "grad_comm_bytes_intra_host", None),
             **(run_meta or {}),
+            **ckpt.resumed_from(reshard_log),  # a run continued from another world
         },
     ))
+    for ev in reshard_log:
+        writer.write(schema.stamp("event", ev))
     flops_fn = None
     if accum == 1 and model_input is not None:  # the JAX package's null under accumulation
         def flops_fn():
@@ -445,10 +460,11 @@ def run_training_loop(
                 "The failure recurs after restoring known-good state — a systematic divergence, "
                 "not a transient."
             )
-        cursors = []
+        cursors, reshard = [], []
         redo, meta = ckpt.restore_latest(
             save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
             comm_state=residual, skipped=ddp.firewall.counters, cursor_out=cursors,
+            reshard_log=reshard, model_size=1,
         )
         pending["c"] = cursors[-1] if cursors else None
         resume_step = pending["c"]["step"] if cursors else None
@@ -456,6 +472,8 @@ def run_training_loop(
         ddp.clear_graphs()  # the restore replaced what a graph writes
         writer.write(event("rollback", epoch=epoch, resume_epoch=redo, resume_step=resume_step,
                            reason=reason))
+        for ev in reshard:
+            writer.write(schema.stamp("event", ev))
         if is_main:
             log(f"Guard rollback ({reason}): restored last-good checkpoint, "
                 f"redoing from epoch {redo}.")
@@ -617,6 +635,9 @@ def run_training_loop(
             # a drain during the eval pass: every update of the epoch is in,
             # so its row lands (eval metrics null) and the save counts it done
             eval_cut = test_pass.interrupted
+            # every process here before the epoch's sums are combined (the
+            # reference's :194; a $TPUDDP_FAULT barrier site)
+            col.barrier()
 
             if per_replica_log and not eval_cut:
                 _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
