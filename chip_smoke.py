@@ -55,7 +55,7 @@ Phases, each printing one line (the first failure exits non-zero):
    ``pipeline: false`` adds) under ``pipeline: false``, the default
    pipeline and the default's staging without loader threads
    (``host_workers: 0``), in turns (false, default,
-   no threads, no threads, default, false), each with its launches, the
+   no threads), each with its launches, the
    float32 ones at 2.9944 / 2.3076: step medians (steps 2-16) and the train
    pass's host stall per step; and the native row gather's ms per 128-row
    batch of a CIFAR-10-sized uint8 array beside numpy's, in turns;
@@ -107,7 +107,7 @@ Phases, each printing one line (the first failure exits non-zero):
      written (toy_cnn, real digits, 6 epochs, ``fuse_steps: auto`` = 32,
      checkpoints at epochs 0 and 5 in a temporary directory) with graph
      replay, the eager queue and ``fuse_steps: 1`` in turns (replay, eager,
-     depth 1, depth 1, eager, replay): finite losses, the accuracy, 270
+     depth 1): finite losses, the accuracy, 270
      launches for 270 updates, 2 captures and 10 replays, the capture
      seconds, whether the three give the same epoch rows, and each one's
      step median over epochs 2-6;
@@ -132,8 +132,8 @@ Phases, each printing one line (the first failure exits non-zero):
      batches through ``eval_step_many``;
    - "10 native digits": ``digits_h100.yaml`` as written at ``scan_steps:
      auto`` (45 train and 8 eval batches per dispatch) with replay, eagerly
-     and at ``scan_steps: 1``, in turns (replay, eager, 1, 1, eager,
-     replay): the accuracy, equal epoch rows, 450 launches, 1 capture and 9
+     and at ``scan_steps: 1``, in turns (replay, eager, 1): the accuracy,
+     equal epoch rows, 450 launches, 1 capture and 9
      replays each for train and eval, the step median over epochs 3-10;
    - "10 native AlexNet": 3 epochs of ``cifar10_alexnet_h100.yaml`` at
      auto (K = 16 train, 6 eval) against ``scan_steps: 1``, in turns: equal
@@ -168,9 +168,8 @@ Phases, each printing one line (the first failure exits non-zero):
      (reported as max |dp|, failing beyond 1e-6);
    - "11 stem": ``alexnet_s2d`` against ``alexnet`` from one state (max |d
      logits| at 224 px, float32), and the fast file against itself with
-     ``model: alexnet``, in turns (s2d, alexnet, alexnet, s2d; 3 epochs
-     each, the first s2d turn the fast-file run above): epoch-3 step
-     medians.
+     ``model: alexnet``, in turns (s2d, alexnet; 3 epochs each, the s2d
+     turn the fast-file run above): epoch-3 step medians.
 
 12. the gradient comm hooks (``training.comm_hook``: ``bf16``, ``bf16_ef``,
    ``int8_ef``, ``topk_ef``; plain PyTorch ops, the JAX package's are plain
@@ -212,7 +211,7 @@ Phases, each printing one line (the first failure exits non-zero):
      gradients, Adam's moments and the residual, which must be 0; every
      segment exchanged from inside the backward (the wrap's host counts);
      one Adam launch per update; then the two replayed wraps' chunks in
-     turns (barrier, segmented, segmented, barrier; eight rounds): their
+     turns (barrier, segmented, segmented, barrier; three rounds): their
      step medians. Then one A = 2 run with int8_ef the same way (one
      round);
    - "13 stream overlap": for ``int8_ef``, one chunk of each wrap eagerly
@@ -273,8 +272,8 @@ Phases, each printing one line (the first failure exits non-zero):
    - "15 resnet managed vs native": 3 steps of each path from one state:
      bitwise, 6 launches each;
    - "15 resnet50": one epoch of the file at ``model: resnet50`` and
-     ``resnet50_s2d``, 224 px, one step per batch, in turns (plain, s2d,
-     s2d, plain): step medians, peak device memory, 4 launches per update;
+     ``resnet50_s2d``, 224 px, one step per batch, in turns (plain, s2d):
+     step medians, peak device memory, 4 launches per update;
    - "15 resnet50 adam": both kernels over ResNet-50's 161 leaves against
      the plain version per step from one state (p within 1e-5 of max(1,
      |p|), as phase 11; float32 moments 1e-6; bf16 by the neighbour rule,
@@ -343,7 +342,7 @@ Phases, each printing one line (the first failure exits non-zero):
    - "18 remat": ``cifar10_alexnet_h100.yaml``'s AlexNet@224 b128 float32,
      and the same at ``vgg16``@224: 8 updates one step per batch from one
      state and one dropout stream (flips and dropout on), plain and remat in
-     turns (plain, remat, remat, plain), each wrap alone on the card: every
+     turns (plain, remat), each wrap alone on the card: every
      run's losses, parameters, last gradients and moments bitwise the first
      plain run's, one Adam launch per update; each run's step median (steps
      2-8, each step synchronised) and peak device memory
@@ -370,9 +369,10 @@ Phases, each printing one line (the first failure exits non-zero):
    device operation to the last).
 20. the preemption drain and step snapshots (``training.snapshot``):
    - "20 preempt": per path (native, then managed), ``cifar10_alexnet_h100.yaml``
-     (``..._managed_h100.yaml``) one synthetic epoch at ``scan_steps: 4``
-     with ``snapshot: {every_steps: 4, inflight: 1}``: straight; with
-     ``$TPUDDP_FAULT=preempt@step=10``, exit 75 and a ``{prefix}_0_s{N}.npz``
+     (``..._managed_h100.yaml``) one synthetic epoch at ``scan_steps: 4``:
+     straight without snapshots; with ``snapshot: {every_steps: 4,
+     inflight: 1}`` and ``$TPUDDP_FAULT=preempt@step=10``, exit 75 and a
+     ``{prefix}_0_s{N}.npz``
      with the v4 cursor; the ``$TPUDDP_AUTO_RESUME=1`` rerun continuing at
      N, its epoch row and epoch file bitwise the straight run's (native at
      2.9944 / 2.3076); Adam launches 16, N and 16 - N;
@@ -401,6 +401,30 @@ Phases, each printing one line (the first failure exits non-zero):
      history ``[(0, 113, 1), (1, 0, 1)]``, a ``topology_change`` (2 -> 1,
      redistributed) per attempt, attempt 1's Adam launches its updates
      times the tables; each attempt's wall seconds and the losses.
+22. step snapshots and the agreed drain at world 2 on one host, and
+   ``training.mode: auto``:
+   - "22 mode auto": one epoch of ``cifar10_alexnet_h100.yaml`` at
+     ``mode: auto`` at world 1 (16 updates, 16 Adam launches, 2.9944 /
+     2.3076: at world 1 the global batch is the batch), and one AlexNet@224
+     b128 step (dropout 0) on the card against the CPU from one state: the
+     loss within 1e-4, the gradient's distance printed;
+   - "22 snapshots world 2": two rank processes this script starts, each
+     the port's rank worker as local rank 0 of 1 at world 2 against a
+     store the script holds (one host; Gloo on this card), every turn in
+     both: ``cifar10_resnet18_small_h100.yaml`` 2 synthetic epochs,
+     ``bf16_ef``, ZeRO-1, snapshots every 4 steps off, then on as (a) the
+     uninterrupted run; (b) ``preempt@step=12``: exit 75 on both ranks,
+     one ``preempt`` row inside epoch 1 with its step snapshot; (c) the
+     auto-resumed run, continued at that step: its epoch rows and
+     ``ckpt_1.npz`` bitwise (a)'s, its last parameters (a)'s on both
+     ranks; the same snapshots taken on both ranks, written by rank 0;
+     as many agreements on both ranks; one Adam launch per ZeRO-1 update
+     on each rank; a ``mode: auto`` pair (``sync_bn``, no hook) whose
+     ranks hold bitwise equal parameters at both epoch saves; then the
+     agreed poll alone, 500 exchanges back to back. Printed: the
+     snapshots, the loop's ms a step in the engine on each rank, the
+     poll's ms an exchange (in each turn, and alone), the epoch-2 step
+     medians off and on.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -411,7 +435,7 @@ with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
-phase 21's, one with the optimizers', one
+phase 21's, one with phase 22's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -425,6 +449,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -454,7 +479,7 @@ from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
 from tpuddp_torch.optim import Adam  # noqa: E402
-from tpuddp_torch.parallel import collectives, comm  # noqa: E402
+from tpuddp_torch.parallel import backend, collectives, comm  # noqa: E402
 from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.resilience import faults, preemption  # noqa: E402
@@ -498,7 +523,7 @@ HP = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 F32_LOSSES = (2.9944, 2.3076)
 # the pipelines of phase 6, in the order of their runs: the synchronous A/B
 # mode, the default, and the default's staging without loader threads
-PIPELINE_TURNS = ("false", "default", "no threads", "no threads", "default", "false")
+PIPELINE_TURNS = ("false", "default", "no threads")
 PIPELINES = {"default": None, "false": False, "no threads": {"host_workers": 0}}
 
 # Published peaks (NVIDIA data sheets): memory bytes/s and float32 FLOP/s
@@ -532,7 +557,8 @@ NO_LIBRARY_BF16 = (
 
 
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One line of a phase, ending in the seconds since the script began."""
+    print(f"[{name}] {msg} [t={time.perf_counter() - T0:.1f} s]", flush=True)
 
 
 def card_line() -> str:
@@ -1420,7 +1446,7 @@ def graph_pairs():
     ]
 
 
-FUSED_TURNS = ("replay", "eager", "depth 1", "depth 1", "eager", "replay")
+FUSED_TURNS = ("replay", "eager", "depth 1")
 
 
 def fused_run(mode: str, save_dir=None, **overrides):
@@ -1626,8 +1652,8 @@ def digits_native():
 
 # ---------------------------------------------------------------- phase 10 --
 
-NATIVE_TURNS = ("replay", "eager", "depth 1", "depth 1", "eager", "replay")
-ALEXNET_TURNS = ("auto", "depth 1", "depth 1", "auto")
+NATIVE_TURNS = ("replay", "eager", "depth 1")
+ALEXNET_TURNS = ("auto", "depth 1")
 
 
 def _kinds(g: dict) -> dict:
@@ -1851,7 +1877,7 @@ def native_digits_turns():
           f"scan_steps auto = 45 train / 8 eval): epoch 10 train_loss={last['train_loss']:.4f} test_loss="
           f"{last['test_loss']:.4f} test_accuracy={last['test_accuracy']:.2f}%; epoch rows equal: {same}; "
           f"launches {launches}; captures/replays {_kinds(g)}, capture_s={g['capture_s']:.3f}; turns "
-          f"{'/'.join(NATIVE_TURNS)} (launches: both runs of each mode): step median (epochs 3-10) ms "
+          f"{'/'.join(NATIVE_TURNS)} (launches: each mode's run): step median (epochs 3-10) ms "
           + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
           + "; wall s " + "; ".join(f"{m} [{fmt(v)}]" for m, v in walls.items()))
     return dict(medians=medians, launches=launches, rows_equal=same, capture_s=g["capture_s"],
@@ -1889,7 +1915,7 @@ def native_alexnet_turns():
     g = runs["auto"][1]
     fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
     phase("10 native AlexNet", f"cifar10_alexnet_h100.yaml, 3 epochs (synthetic stand-in, scan_steps auto = "
-          f"16 train / 6 eval) against scan_steps 1, launches of both runs of each: epoch rows equal ({', '.join(f'{a:.4f}/{b:.4f}' for a, b, _ in rows['auto'])}); "
+          f"16 train / 6 eval) against scan_steps 1, launches of each run: epoch rows equal ({', '.join(f'{a:.4f}/{b:.4f}' for a, b, _ in rows['auto'])}); "
           f"launches {launches}; captures/replays {_kinds(g)}, capture_s={g['capture_s']:.3f}; turns "
           f"{'/'.join(ALEXNET_TURNS)}: epoch-3 step median ms "
           + "; ".join(f"{m} [{fmt(v)}]" for m, v in medians.items())
@@ -1897,7 +1923,7 @@ def native_alexnet_turns():
     return dict(medians=medians, launches=launches, rows_equal=same, capture_s=g["capture_s"], graphs=_kinds(g))
 
 
-EVAL_TURNS = ("groups", "depth 1", "depth 1", "groups")
+EVAL_TURNS = ("groups", "depth 1")
 
 
 def managed_eval_groups(passes: int = 5):
@@ -1956,7 +1982,7 @@ def managed_eval_groups(passes: int = 5):
 
 # ---------------------------------------------------------------- phase 11 --
 
-STEM_TURNS = ("s2d", "alexnet", "alexnet", "s2d")
+STEM_TURNS = ("s2d", "alexnet")
 FLAT_BASE = 28_522_405  # half AlexNet's flat vector: rank 1's base at world 2, managed
 
 
@@ -2545,7 +2571,7 @@ def hook_bytes():
 # bucket_cap_mb 25: three segments); (step, replay) in the order of the runs
 OVERLAP_HOOKS = ("none",) + HOOKS
 OVERLAP_RUNS = (("barrier", False), ("segmented", False), ("segmented", True), ("barrier", True))
-OVERLAP_K, OVERLAP_CHUNKS, OVERLAP_ROUNDS = 4, 3, 8
+OVERLAP_K, OVERLAP_CHUNKS, OVERLAP_ROUNDS = 4, 3, 3
 
 
 def _overlap_ddp(hook: str, overlap, replay: bool, init, accum: int = 1, cap: float = 25.0):
@@ -3138,7 +3164,7 @@ def guard_phase(alexnet_shapes, bw, flops):
 
 RESNET_K, RESNET_CHUNKS = 8, 3
 RESNET_GUARD_BAD = 3  # the last chunk's step 3 poisoned: nan@step=19
-RESNET_TURNS = ("resnet50", "resnet50_s2d", "resnet50_s2d", "resnet50")
+RESNET_TURNS = ("resnet50", "resnet50_s2d")
 
 
 def _tables(n_leaves: int) -> int:
@@ -3900,7 +3926,7 @@ def multihost_phase():
 # remat against plain: (label, model name, image size), the runs' order
 # (each from one state and one dropout stream), the updates of a run
 REMAT_MODELS = (("AlexNet@224", "alexnet", 224), ("vgg16@224", "vgg16", 224))
-REMAT_TURNS = ("plain", "remat", "remat", "plain")
+REMAT_TURNS = ("plain", "remat")
 REMAT_STEPS, REMAT_K = 8, 4
 
 
@@ -4350,8 +4376,10 @@ def _step_files(d: str, prefix: str):
 
 
 def preempt_cycle(kind: str, root: str):
-    """20 for one path: the epoch straight with snapshots every 4 steps;
-    the same run with ``$TPUDDP_FAULT=preempt@step=10``, which must exit 75
+    """20 for one path: the epoch straight (without snapshots: they change
+    nothing a run computes, which the snapshot turns hold, and each is a
+    685 MB write); the same run with snapshots every 4 steps and
+    ``$TPUDDP_FAULT=preempt@step=10``, which must exit 75
     with a step snapshot carrying the v4 cursor; the ``$TPUDDP_AUTO_RESUME=1``
     rerun, whose epoch row and epoch file must be bitwise the straight
     run's; one Adam launch per update in each run."""
@@ -4361,9 +4389,11 @@ def preempt_cycle(kind: str, root: str):
     worker = basic_ddp_training_loop if native else basic_accelerate_training
     straight, cut = os.path.join(root, f"{kind}_straight"), os.path.join(root, f"{kind}_cut")
 
-    def run(save_dir):
+    def run(save_dir, snapshot=True):
         settings, training = training_for(path)
         training.update(PREEMPT_RUN)
+        if not snapshot:
+            training["snapshot"] = None
         reset_counts()
         history = run_ddp_training(partial(worker, training=training, device="cuda"), 1, save_dir,
                                    cfg_lib.optional_args_from(settings), backend="cuda")
@@ -4371,7 +4401,7 @@ def preempt_cycle(kind: str, root: str):
         return history, fused_adam.kernel.launches
 
     t0 = time.perf_counter()
-    whole, l_whole = run(straight)
+    whole, l_whole = run(straight, snapshot=False)
     straight_s = time.perf_counter() - t0
     code, drain_s = _drained(lambda: _with_env({"TPUDDP_FAULT": f"preempt@step={PREEMPT_STEP}"},
                                                lambda: run(cut)))
@@ -4418,7 +4448,7 @@ def preempt_cycle(kind: str, root: str):
     return dict(exit=code, drain_s=drain_s, cursor_step=step, file=snaps[-1], acc=acc,
                 straight_s=straight_s, resumed_s=resumed_s,
                 losses={k: again[0][k] for k in ("train_loss", "test_loss")},
-                launches={f"{kind} straight snapshots (phase 20)": l_whole,
+                launches={f"{kind} straight (phase 20)": l_whole,
                           f"{kind} preempted (phase 20)": l_cut, f"{kind} resumed (phase 20)": l_again})
 
 
@@ -4816,6 +4846,351 @@ def elastic_phase():
                 launches={"native elastic supervised attempt 1 (phase 21)": sup["launches"]})
 
 
+# ---------------------------------------------------------------- phase 22 --
+
+# step snapshots and the agreed drain at world 2 on one host, and mode auto.
+# The two ranks of one host are two processes this script starts, each
+# calling the port's rank worker (parallel/spawn.py's _worker) as local rank
+# 0 of 1 at world 2 against a store this script holds, over Gloo on this
+# card (NCCL and the launcher refuse two ranks on one GPU): one host, so the
+# engine arms on both and the drain is agreed at every dispatch.
+# cifar10_resnet18_small_h100.yaml (configs/multihost.yaml's training block,
+# full width) cut to 2 synthetic epochs (1024 images a rank: 8 steps an
+# epoch), one step per batch (a CUDA graph cannot hold Gloo), seed 0,
+# bf16_ef with ZeRO-1, a step snapshot every 4 steps
+SNAP22 = {"every_steps": 4}
+RUN22 = dict(num_epochs=2, checkpoint_epoch=1, dataset="synthetic", synthetic_n=[2048, 512],
+             scan_steps=1, seed=0, comm_hook="bf16_ef", weight_update_sharding=True,
+             snapshot=SNAP22)
+# the drain's micro-batch: a rank's 12th, epoch 1's 4th (staged ahead of its step)
+PREEMPT22_STEP = 12
+# the pair's turns in order (label, the training block's overrides, the
+# environment): snapshots off, then on in (a) the uninterrupted run; (b)
+# the drained one and (c) its resume; the mode auto pair; last, the agreed
+# poll alone: POLL22_N exchanges back to back (after POLL22_WARM), with no
+# step between them to wait for
+TURNS22 = (
+    ("off", {"snapshot": None}, {}),
+    ("a", {}, {}),
+    ("b", {}, {"TPUDDP_FAULT": f"preempt@step={PREEMPT22_STEP}"}),
+    ("c", {}, {"TPUDDP_AUTO_RESUME": "1"}),
+    ("auto", {"mode": "auto", "comm_hook": "none", "weight_update_sharding": False,
+              "snapshot": None}, {}),
+    ("poll", None, {}),
+)
+POLL22_WARM, POLL22_N = 50, 500
+PAIR22_S = 600
+# one rank of the pair: every turn in order, each through the rank worker
+# with the Adam launch counts set to 0 just before it; after it one TURN
+# line on stderr, after the loop's closing line there: its exit code, its
+# launches, and a sha256 of the rank's parameters at each epoch save (every
+# rank takes part in a save)
+PAIR22_SCRIPT = (
+    "import hashlib, json, os, sys\n"
+    "from functools import partial\n"
+    "from tpuddp_torch import config as cfg_lib\n"
+    "from tpuddp_torch.ops import fused_adam\n"
+    "from tpuddp_torch.parallel import backend, spawn\n"
+    "from tpuddp_torch.resilience import faults, preemption\n"
+    "from tpuddp_torch.train_native import basic_ddp_training_loop\n"
+    "from tpuddp_torch.training import checkpoint as ckpt\n"
+    "from tpuddp_torch.training.loop import AgreedPoll\n"
+    "rank = int(sys.argv[1])\n"
+    "with open(sys.argv[2]) as f:\n"
+    "    turns = json.load(f)\n"
+    "save, digests = ckpt.save_on_main, []\n"
+    "def hashed(save_dir, epoch, model, *args, **kwargs):\n"
+    "    h = hashlib.sha256()\n"
+    "    for p in model.parameters():\n"
+    "        h.update(p.detach().cpu().numpy().tobytes())\n"
+    "    digests.append(h.hexdigest())\n"
+    "    return save(save_dir, epoch, model, *args, **kwargs)\n"
+    "ckpt.save_on_main = hashed\n"
+    "for turn in turns:\n"
+    "    if turn['label'] == 'poll':\n"
+    "        backend.setup(rank, 2, 'cuda', turn['port'], local_rank=0, local_world=1)\n"
+    "        agreed = AgreedPoll()\n"
+    "        for i in range(turn['warm'] + turn['n']):\n"
+    "            if i == turn['warm']:\n"
+    "                agreed.exchanges, agreed.seconds = 0, 0.0\n"
+    "            agreed.exchange()\n"
+    "        backend.cleanup()\n"
+    "        print('TURN ' + json.dumps({'label': 'poll', 'exit': 0, 'digests': [], 'launches': {},\n"
+    "              'exchanges': agreed.exchanges, 'seconds': agreed.seconds}), file=sys.stderr,\n"
+    "              flush=True)\n"
+    "        continue\n"
+    "    os.environ.update(turn['env'])\n"
+    "    faults.reload_faults()\n"
+    "    for k in fused_adam.kernels.values():\n"
+    "        k.reset_launches()\n"
+    "    digests.clear()\n"
+    "    settings = cfg_lib.load_settings(turn['settings'])\n"
+    "    fn = partial(basic_ddp_training_loop, training=cfg_lib.training_config(settings),\n"
+    "                 device='cuda')\n"
+    "    code = 0\n"
+    "    try:\n"
+    "        spawn._worker(rank, fn, 2, settings['out_dir'], cfg_lib.optional_args_from(settings),\n"
+    "                      'cuda', turn['port'], None, (0, 1))\n"
+    "    except SystemExit as e:\n"
+    "        code = e.code\n"
+    "    preemption.reset_preemption()\n"
+    "    for k in turn['env']:\n"
+    "        os.environ.pop(k, None)\n"
+    "    faults.reload_faults()\n"
+    "    print('TURN ' + json.dumps({'label': turn['label'], 'exit': code, 'digests': digests,\n"
+    "          'launches': {k.symbol: k.launches for k in fused_adam.kernels.values()}}),\n"
+    "          file=sys.stderr, flush=True)\n"
+)
+# a rank's closing line of a turn on stderr (training/loop.py's _log_drain_stats)
+STATS22 = re.compile(r"^rank (\d+); snapshot engine: (\d+) taken, (\d+) written, (\d+) skipped, "
+                     r"host_s ([0-9.]+); agreed poll: (\d+) exchanges, ([0-9.]+) ms each$", re.M)
+POLL22 = re.compile(r"^rank (\d+); agreed poll: (\d+) exchanges, ([0-9.]+) ms each$", re.M)
+# mode auto at world 1 on the card against the CPU: one AlexNet@224 b128
+# float32 step (dropout 0: the two devices draw different masks) from one
+# seeded state on a seeded batch, no flip: its loss within AUTO22_RTOL
+# (float32 convolutions and sums in another order). Its gradient is printed,
+# not held: elementwise it parts from the CPU's by up to 2.7% of a leaf's
+# largest element on the card (not split). A loss after the update is no
+# check either: Adam's first step is about lr * sign(g), which a near-zero
+# element flips
+AUTO22_RTOL = 1e-4
+
+
+def _pair_turns(root: str):
+    """Write each turn's settings and hold a store for it: the turns, the
+    stores (open until the pair ends) and the out_dirs by label."""
+    base = cfg_lib.load_settings(SETTINGS_RESNET)
+    turns, stores = [], []
+    for i, (label, overrides, env) in enumerate(TURNS22):
+        stores.append(backend.rendezvous_store(2))
+        if label == "poll":
+            turns.append(dict(label=label, env={}, port=stores[-1].port, dir=None,
+                              warm=POLL22_WARM, n=POLL22_N))
+            continue
+        settings = json.loads(json.dumps(base))
+        settings["training"].update(RUN22)
+        settings["training"].update(overrides)
+        # (b) and (c) share one out_dir: the resume reads the drain's file
+        d = os.path.join(root, "cut" if label in ("b", "c") else f"turn{i}_{label}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(root, f"turn{i}.yaml")
+        with open(path, "w") as f:
+            json.dump(dict(settings, out_dir=d), f)  # JSON is YAML
+        turns.append(dict(label=label, settings=path, env=env, port=stores[-1].port, dir=d))
+    return turns, stores
+
+
+def pair_runs(root: str):
+    """Every turn of :data:`TURNS22` in one pair of rank processes: per turn
+    each rank's exit code, launches, save digests and closing line, and
+    rank 0's epoch rows and preempt events; each rank's stdout; the pair's
+    wall seconds."""
+    turns, stores = _pair_turns(root)
+    path = os.path.join(root, "turns.json")
+    with open(path, "w") as f:
+        json.dump(turns, f)
+    env = dict(os.environ, TPUDDP_BACKEND="gloo", PYTHONPATH=ROOT)
+    for var in ("TPUDDP_FAULT", "TPUDDP_AUTO_RESUME", "TPUDDP_WORLD_SIZE", "TPUDDP_COORDINATOR",
+                "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", PAIR22_SCRIPT, str(rank), path], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAIR22_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        del stores
+    wall_s = time.perf_counter() - t0
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or err.count("TURN ") != len(turns):
+            raise SystemExit(f"chip_smoke: 22 pair: rank {rank} exited {p.returncode} after "
+                             f"{err.count('TURN ')} of {len(turns)} turns:\n{out[-3000:]}\n{err[-5000:]}")
+    for rank, (_, err) in enumerate(outs):
+        text = ""
+        for line in err.splitlines(keepends=True):
+            if not line.startswith("TURN "):
+                text += line
+                continue
+            rec = json.loads(line[5:])
+            turn = next(t for t in turns if t["label"] == rec["label"] and rank not in t.get("ranks", {}))
+            stats = STATS22.search(text)
+            poll = POLL22.search(text)
+            if rec["label"] == "poll":
+                turn.setdefault("ranks", {})[rank] = dict(
+                    exit=rec["exit"], launches=0, others=0, digests=[], stderr=text,
+                    poll=dict(exchanges=rec["exchanges"], ms=rec["seconds"] * 1e3 / rec["exchanges"]))
+                text = ""
+                continue
+            turn.setdefault("ranks", {})[rank] = dict(
+                exit=rec["exit"], launches=rec["launches"][fused_adam.kernel.symbol],
+                others=sum(n for s, n in rec["launches"].items() if s != fused_adam.kernel.symbol),
+                digests=rec["digests"], stderr=text,
+                snapshots=None if stats is None else dict(
+                    taken=int(stats.group(2)), written=int(stats.group(3)),
+                    skipped=int(stats.group(4)), engine_s=float(stats.group(5))),
+                poll=None if (stats or poll) is None else dict(
+                    exchanges=int((stats or poll).group(6 if stats else 2)),
+                    ms=float((stats or poll).group(7 if stats else 3))))
+            text = ""
+    for turn in turns:
+        if turn["dir"] is None:
+            continue
+        records = _records(os.path.join(turn["dir"], "history.jsonl"))
+        turn["rows"] = [r for r in records if r["type"] == "epoch"]
+        turn["preempts"] = [r for r in records if r.get("event") == "preempt"]
+    return turns, [out for out, _ in outs], wall_s
+
+
+def _rows22(rows):
+    return [[r[k] for k in ("epoch", "train_loss", "test_loss", "test_accuracy", "train_samples")]
+            for r in rows]
+
+
+def pair_checks(turns, stdouts):
+    """Part A's and the auto pair's checks on the turns and each rank's
+    stdout; returns the drained step."""
+    by = {}
+    for t in turns:
+        by.setdefault(t["label"], []).append(t)
+    (a,), (b,), (c,), (auto,), (poll,) = by["a"], by["b"], by["c"], by["auto"], by["poll"]
+    steps = b["preempts"][0].get("snapshot_step") if len(b["preempts"]) == 1 else None
+    a_file, c_file = os.path.join(a["dir"], "ckpt_1.npz"), os.path.join(c["dir"], "ckpt_1.npz")
+    fa, fc = _arrays(a_file), _arrays(c_file)
+    exits = {t["label"] + str(i): [t["ranks"][r]["exit"] for r in (0, 1)]
+             for i, t in enumerate(turns)}
+    checks = {
+        "(b) exits 75 on both ranks, every other turn 0": all(
+            codes == ([75, 75] if label.startswith("b") else [0, 0]) for label, codes in exits.items()),
+        "(b) one preempt row, inside epoch 1, with its step snapshot": steps is not None
+        and b["preempts"][0]["epoch"] == 1 and 0 < steps < 8,
+        "(c) continued epoch 1 at that step": f"Exact resume: epoch 1 continues at step {steps}"
+        in stdouts[0],
+        "(c)'s epoch rows bitwise (a)'s": _rows22(c["rows"]) == _rows22(a["rows"])
+        and len(a["rows"]) == 2,
+        "(c)'s ckpt_1.npz bitwise (a)'s": sorted(fa) == sorted(fc)
+        and all(np.array_equal(fa[k], fc[k]) for k in fa),
+        "(c)'s last parameters (a)'s on both ranks": {c["ranks"][r]["digests"][-1] for r in (0, 1)}
+        == {a["ranks"][0]["digests"][-1]},
+        "both ranks stopped after the same dispatch (as many agreements)": len(
+            {b["ranks"][r]["poll"]["exchanges"] for r in (0, 1)}) == 1,
+        "every rank takes the same snapshots, rank 0 writes them": all(
+            t["ranks"][0]["snapshots"]["taken"] == t["ranks"][1]["snapshots"]["taken"]
+            == t["ranks"][0]["snapshots"]["written"] > 0 and t["ranks"][1]["snapshots"]["written"] == 0
+            for t in by["a"]),
+        "one Adam launch per ZeRO-1 update on each rank (16; 8 + step; 8 - step)": all(
+            t["ranks"][r]["launches"] == 16 and t["ranks"][r]["others"] == 0
+            for t in by["off"] + by["a"] for r in (0, 1))
+        and [b["ranks"][r]["launches"] for r in (0, 1)] == [8 + (steps or 0)] * 2
+        and [c["ranks"][r]["launches"] for r in (0, 1)] == [8 - (steps or 0)] * 2,
+        "auto: the ranks' parameters bitwise equal after every epoch": len(
+            auto["ranks"][0]["digests"]) == 2 and auto["ranks"][0]["digests"] == auto["ranks"][1]["digests"],
+        "auto: finite losses, two tables per update": all(
+            math.isfinite(r[k]) for r in auto["rows"] for k in ("train_loss", "test_loss"))
+        and all(auto["ranks"][r]["launches"] == 16 * _tables(62) for r in (0, 1)),
+        "every turn's ranks hold the same parameters at each save": all(
+            t["ranks"][0]["digests"] == t["ranks"][1]["digests"] for t in turns),
+        "the poll alone: as many exchanges on both ranks": [
+            poll["ranks"][r]["poll"]["exchanges"] for r in (0, 1)] == [POLL22_N] * 2,
+    }
+    del fa, fc
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 22 pair failed {failed}: exits {exits}, preempts {b['preempts']}, "
+                         + "; ".join(f"{t['label']}: rows {_rows22(t['rows'])} ranks "
+                                     f"{ {r: {k: v for k, v in d.items() if k != 'stderr'} for r, d in t['ranks'].items()} }"
+                                     for t in turns)
+                         + f"\nrank 0: {stdouts[0][-3000:]}")
+    return steps
+
+
+def auto_world_1():
+    """mode auto at world 1: one epoch of cifar10_alexnet_h100.yaml (16
+    updates, one Adam launch each, at the float32 losses 2.9944 / 2.3076:
+    at world 1 the global batch is the batch), and one step on the card
+    against the CPU from one state."""
+    history, wall_s, launches = native_run(SETTINGS, {"mode": "auto"})
+    steps = check_epochs("22 mode auto AlexNet", history, launches, fused_adam.kernel, True)
+    gen = torch.Generator().manual_seed(22)
+    batch = (torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, generator=gen),
+             torch.randint(0, 10, (128,), generator=gen), torch.ones(128))
+    torch.manual_seed(0)
+    init = AlexNet(num_classes=10, dropout=0.0).state_dict()
+    sums, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = AlexNet(num_classes=10, dropout=0.0)
+        model.load_state_dict(init)
+        ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                      augment=make_train_augment(size=224, flip=False), device=dev,
+                                      mode="auto")
+        sums[dev] = ddp.train_step(batch).cpu()
+        grads[dev] = [p.grad.detach().cpu() for p in ddp.model.parameters()]
+    loss_rel = float((sums["cuda"][0] - sums["cpu"][0]).abs() / sums["cpu"][0].abs())
+    grad_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads["cuda"], grads["cpu"]))
+    grad_l2 = float(torch.cat([(a - b).reshape(-1) for a, b in zip(grads["cuda"], grads["cpu"])]).norm()
+                    / torch.cat([b.reshape(-1) for b in grads["cpu"]]).norm())
+    if not (loss_rel <= AUTO22_RTOL and sums["cuda"][1] == sums["cpu"][1] == 128):
+        raise SystemExit(f"chip_smoke: 22 mode auto card vs CPU: sums {sums}, loss relative {loss_rel}, "
+                         f"gradient relative {grad_rel}")
+    phase("22 mode auto", f"cifar10_alexnet_h100.yaml mode auto, world 1: {steps} updates, "
+          f"{launches[fused_adam.kernel.symbol]} Adam launches, epoch 1 train_loss="
+          f"{history[0]['train_loss']:.4f} test_loss={history[0]['test_loss']:.4f} (the float32 run's "
+          f"2.9944 / 2.3076), wall {wall_s:.2f} s; one AlexNet@224 b128 step (dropout 0) on the card "
+          f"against the CPU from one state: loss sum {float(sums['cuda'][0])!r} vs "
+          f"{float(sums['cpu'][0])!r} (relative {loss_rel:.3g}, tolerance {AUTO22_RTOL:g}); the gradient "
+          f"(not held) {grad_l2:.3g} off in relative L2, elementwise up to {grad_rel:.3g} of a leaf's "
+          f"largest element")
+    return dict(launches=launches[fused_adam.kernel.symbol], updates=steps,
+                losses=[history[0]["train_loss"], history[0]["test_loss"]],
+                card_vs_cpu_loss_sum=[float(sums["cuda"][0]), float(sums["cpu"][0])],
+                loss_rel=loss_rel, grad_rel=grad_rel, grad_l2_rel=grad_l2)
+
+
+def snapshot_world2_phase():
+    """Phase 22: step snapshots and the agreed drain at world 2 on one host
+    (the pair's turns), and mode auto (world 1 here, world 2 in the pair)."""
+    auto_1 = auto_world_1()
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_snap2_")
+    try:
+        turns, stdouts, wall_s = pair_runs(root)
+        steps = pair_checks(turns, stdouts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    medians = [(t["label"], statistics.median(t["rows"][1]["step_ms"]))
+               for t in turns if t["label"] in ("off", "a")]
+    per = {t["label"]: t for t in turns}
+    a, b = per["a"], per["b"]
+    snaps = {lab: {r: per[lab]["ranks"][r]["snapshots"] for r in (0, 1)} for lab in ("a",)}
+    updates = 16
+    engine_ms = {lab: {r: s[r]["engine_s"] * 1e3 / updates for r in (0, 1)} for lab, s in snaps.items()}
+    polls = {lab: {r: per[lab]["ranks"][r]["poll"] for r in (0, 1)}
+             for lab in ("off", "a", "b", "c", "auto", "poll")}
+    phase("22 snapshots world 2", f"card {card_line()}: cifar10_resnet18_small_h100.yaml b128 a rank, "
+          f"bf16_ef, ZeRO-1, 2 synthetic epochs of 8 steps, snapshot every 4 steps, world 2 = two rank "
+          f"processes of one host over Gloo on this card: (b) preempt@step={PREEMPT22_STEP} exit 75 on "
+          f"both ranks, one preempt row at epoch 1 step {steps}; (c) resumed there, epoch rows and "
+          f"ckpt_1.npz bitwise (a)'s; snapshots (a) {snaps['a']}; the loop's ms a step in the engine "
+          f"{engine_ms}; the agreed poll per exchange in each turn (a rank's wait for the other "
+          f"included) and alone ({POLL22_N} back to back) {polls}; epoch-2 step medians in turns "
+          + ", ".join(f"{lab} {m:.3f} ms" for lab, m in medians)
+          + f"; mode auto pair (resnet18_small sync_bn, none): rows "
+          f"{[[round(r['train_loss'], 4), round(r['test_loss'], 4)] for r in per['auto']['rows']]}, "
+          f"both ranks' parameters bitwise equal after each epoch; pair wall {wall_s:.1f} s")
+    launches = {f"native world-2 {t['label']} turn {i} rank {r} (phase 22)": t["ranks"][r]["launches"]
+                for i, t in enumerate(turns) if t["label"] != "poll" for r in (0, 1)}
+    launches["native mode auto AlexNet world 1 (phase 22)"] = auto_1["launches"]
+    return dict(auto_world_1=auto_1, drain_step=steps, step_ms_medians=medians, snapshots=snaps,
+                engine_ms_per_step=engine_ms, poll=polls, pair_wall_s=wall_s,
+                auto_pair_rows=[[r["train_loss"], r["test_loss"]] for r in per["auto"]["rows"]],
+                launches=launches)
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -4957,6 +5332,9 @@ def main() -> None:
     t21 = time.perf_counter()
     elastic_21 = elastic_phase()
     phase_21_s = time.perf_counter() - t21
+    t22 = time.perf_counter()
+    snap_22 = snapshot_world2_phase()
+    phase_22_s = time.perf_counter() - t22
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -5033,6 +5411,9 @@ def main() -> None:
     print(json.dumps({"elastic": {
         **{k: v for k, v in elastic_21.items() if k != "launches"}, "phase_21_s": phase_21_s,
     }}))
+    print(json.dumps({"snapshots_world_2": {
+        **{k: v for k, v in snap_22.items() if k != "launches"}, "phase_22_s": phase_22_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -5094,6 +5475,7 @@ def main() -> None:
     phase_19 = telemetry_19["launches"]
     phase_20 = preempt_20["launches"]
     phase_21 = elastic_21["launches"]
+    phase_22 = snap_22["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
@@ -5101,7 +5483,7 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20, **phase_21}
+               **phase_20, **phase_21, **phase_22}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -5130,7 +5512,8 @@ def main() -> None:
                               **{k: 0 for k in phase_14}, **{k: 0 for k in phase_15},
                               **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17},
                               **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
-                              **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21}},
+                              **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21},
+                              **{k: 0 for k in phase_22}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -5143,7 +5526,7 @@ def main() -> None:
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
-          f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s)")
+          f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -399,20 +399,38 @@ def test_sigterm_to_the_entry_point_drains_and_the_requeued_run_resumes(tmp_path
 
 
 def test_a_drain_at_world_2_stops_both_ranks_at_the_epoch_boundary(tmp_path):
-    """Two Gloo ranks: ``preempt@step=3`` fires on each inside epoch 0, no
-    rank stops mid-pass, and the drain is agreed at epoch 1's start (rank
-    0's flag, broadcast): both save together, both exit 75, so does the
-    launcher."""
-    path, out = _settings(tmp_path, num_epochs=3)
-    proc = subprocess.run(
-        [sys.executable, "-m", "tpuddp_torch.train_native", "--settings_file", path], cwd=ROOT,
-        env=_env_for(TPUDDP_WORLD_SIZE="2", TPUDDP_FAULT="preempt@step=3"),
-        capture_output=True, text=True, timeout=SUBPROCESS_S)
-    assert proc.returncode == 75, proc.stdout[-2000:] + proc.stderr[-3000:]
-    assert ckpt.read_meta(str(out / "ckpt_1.npz")) == {"epoch": 1, "completed": 0}
-    assert not [f for f in os.listdir(out) if "_s" in f]  # the engine is disarmed at world 2
-    with open(out / "history.jsonl") as f:
-        records = [json.loads(line) for line in f]
-    assert [r["epoch"] for r in records if r["type"] == "epoch"] == [0]
-    assert records[-1]["event"] == "preempt" and records[-1]["epoch"] == 1
-    assert "snapshot engine disarmed" in proc.stdout + proc.stderr
+    """Two Gloo ranks on one host (the JAX package's one process with two
+    devices, ``tpuddp/training/loop.py:625-630``): ``preempt@step=3`` fires
+    on each inside epoch 0, and the drain lands mid-pass at the boundary
+    the ranks agree on (rank 0's flag, exchanged after every dispatch), not
+    at the next epoch's start, which stays the rule across hosts
+    (tests/test_torch_port_snapshot_gloo.py). The native poll is armed
+    whatever ``training.snapshot`` says: without it the drain writes the
+    JAX package's mid-pass epoch file (``completed: 0``), with it a step
+    snapshot. Both ranks exit 75, so does the launcher, with one
+    ``preempt`` row."""
+    for snapshot in (None, {"every_steps": 3}):
+        case = tmp_path / ("snap" if snapshot else "plain")
+        case.mkdir()
+        path, out = _settings(case, num_epochs=3, snapshot=snapshot)
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpuddp_torch.train_native", "--settings_file", path],
+            cwd=ROOT, env=_env_for(TPUDDP_WORLD_SIZE="2", TPUDDP_FAULT="preempt@step=3"),
+            capture_output=True, text=True, timeout=SUBPROCESS_S)
+        assert proc.returncode == 75, proc.stdout[-2000:] + proc.stderr[-3000:]
+        text = proc.stdout + proc.stderr
+        assert text.count("exiting 75 (requeue+resume)") == 2  # both ranks
+        assert "snapshot engine disarmed" not in text
+        with open(out / "history.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        assert [r["epoch"] for r in records if r["type"] == "epoch"] == []
+        preempts = [r for r in records if r.get("event") == "preempt"]
+        assert len(preempts) == 1 and preempts[0]["epoch"] == 0
+        steps = [f for f in os.listdir(out) if "_s" in f and f.endswith(".npz")]
+        if snapshot is None:
+            assert ckpt.read_meta(str(out / "ckpt_0.npz")) == {"epoch": 0, "completed": 0}
+            assert not steps
+        else:
+            assert len(steps) == 1 and steps[0].startswith("ckpt_0_s"), steps
+            step = ckpt.read_cursor(str(out / steps[0]))["step"]
+            assert 0 < step < 6 and preempts[0]["snapshot_step"] == step

@@ -310,13 +310,25 @@ def test_peer_copies_restore_a_lost_or_corrupt_local_file(tmp_path, monkeypatch,
 
 
 def test_an_engine_at_world_2_disarms(tmp_path, caplog):
+    """At world 2 on one host the engine arms on every rank (each takes
+    part in the capture, a collective; rank 0 writes) and its header has no
+    ``disarmed`` key; across two hosts it disarms with the JAX package's
+    text for state that spans processes, and a due step captures nothing."""
+    for rank in (0, 1):
+        engine = snap.SnapshotEngine(str(tmp_path), snap.SnapshotConfig(every_steps=1),
+                                     rank=rank, world_size=2)
+        assert engine.armed and engine.writes == (rank == 0)
+        assert "disarmed" not in engine.describe() and engine.describe()["writer_rank"] == 0
+        engine.close()
     with caplog.at_level(logging.WARNING, logger="tpuddp"):
         engine = snap.SnapshotEngine(str(tmp_path), snap.SnapshotConfig(every_steps=1),
-                                     world_size=2)
+                                     world_size=2, hosts=2)
     assert not engine.armed and "disarmed" in engine.describe()
-    assert not engine.maybe(lambda: pytest.fail("no capture at world 2"), epoch=0, step=1, plan_key="k")
+    assert not engine.maybe(lambda: pytest.fail("no capture across hosts"), epoch=0, step=1,
+                            plan_key="k")
     engine.close()
-    assert any("snapshot engine disarmed" in r.message for r in caplog.records)
+    assert any("snapshot engine disarmed: state holds cross-host-sharded leaves" in r.message
+               for r in caplog.records)
 
 
 def test_run_meta_and_the_preempt_event_validate_in_both_packages():

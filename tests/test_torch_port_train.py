@@ -259,14 +259,11 @@ def test_entry_point_prints_the_reference_log_lines(tmp_path):
     ("reshard_on_mismatch", True),
 ])
 def test_unported_knobs_are_refused(knob, value):
-    """``mode: auto`` is refused; ``reshard_on_mismatch`` is refused no
-    more: at model 1 on both sides it changes nothing, as in the JAX
-    package (a file of a model axis is refused whatever it says)."""
-    if knob == "reshard_on_mismatch":
-        assert cfg.training_config({"training": {knob: value}})[knob] is True
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        cfg.training_config({"training": {knob: value}})
+    """Neither knob is refused any more: ``mode: auto`` runs the global
+    batch's step (tests/test_torch_port_auto.py), and
+    ``reshard_on_mismatch`` at model 1 on both sides changes nothing, as in
+    the JAX package (a file of a model axis is refused whatever it says)."""
+    assert cfg.training_config({"training": {knob: value}})[knob] == value
 
 
 @pytest.mark.parametrize("env,parallel,refused", [

@@ -156,7 +156,7 @@ from tpuddp_torch.resilience.guard import Firewall, audit_or_raise, resolve_guar
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import to_device
-from tpuddp_torch.training.step import make_flat_param_spec
+from tpuddp_torch.training.step import global_share, make_flat_param_spec
 from tpuddp_torch.utils import batching
 
 # the fuse depth that ``auto`` is capped at (tpuddp/accelerate.py:473-491)
@@ -430,10 +430,7 @@ class PreparedModel:
                 logits = module(x)
         finally:
             module.train(was_training)
-        n = req.w.sum()
-        total = n.clone()
-        collectives.all_reduce_sum_([total])
-        share = n / torch.where(total == 0, torch.ones_like(total), total)
+        share, _ = global_share(req.w.sum())
         scaled = req.criterion(logits, req.y, req.w) * share
         params = self._params()
         for p in params:

@@ -104,14 +104,11 @@ DATASET_NUM_CLASSES = {"cifar10": 10, "synthetic": 10, "digits": 10}
 
 DEVICES = ("cuda", "cpu")
 
-# knob -> (is the value one the port implements?, ROADMAP.md item).
 # training.reshard_on_mismatch is accepted: at model 1 on both sides (the
 # only width the port runs) it changes nothing, as in the JAX package, and
 # a file of a model axis is refused whatever it says
-# (training/checkpoint.py).
-_UNSUPPORTED = {
-    "mode": (lambda v: v == "shard_map", "Queue 1 item 8: mode auto"),
-}
+# (training/checkpoint.py). training.mode takes shard_map and auto
+# (parallel/ddp.py), as the JAX package's does.
 
 # local.rendezvous's keys and the variables that override them
 _RENDEZVOUS_ENV = {"coordinator_address": "TPUDDP_COORDINATOR",
@@ -219,10 +216,6 @@ def check_supported(training: Dict[str, Any]) -> None:
     from tpuddp_torch.resilience.guard import resolve_guard
 
     resolve_guard(training.get("guard"))  # its ValueErrors, before anything runs
-    for knob, (ok, item) in _UNSUPPORTED.items():
-        value = training.get(knob, TRAINING_DEFAULTS[knob])
-        if not ok(value):
-            raise _not_ported(f"training.{knob}={value!r}", item)
     from tpuddp_torch.training.loop import resolve_scan_steps
     from tpuddp_torch.training.pipeline import resolve_pipeline
     from tpuddp_torch.training.snapshot import resolve_snapshot

@@ -12,6 +12,9 @@ a strided convolution (``alexnet_s2d``'s stem).
 (``tpuddp/nn/layers.py:258-321``) as two products with fixed bin matrices,
 so that its backward has no atomics and repeats bit for bit on a GPU.
 
+:func:`global_batch_dropout` makes a model's dropout layers draw the
+global batch's mask and keep this replica's rows (``mode: auto``).
+
 Explicit casts, not ``torch.autocast``: autocast brings its own op lists and
 cast cache, which the JAX package does not have, and the parity tests compare
 dtypes layer by layer.
@@ -126,3 +129,30 @@ class AdaptiveAvgPool2d(nn.Module):
         sums = rows @ x.float() @ cols.T
         area = rows.sum(1)[:, None] * cols.sum(1)[None, :]
         return (sums / area).to(x.dtype)
+
+
+def _rows_dropout(self, x: torch.Tensor) -> torch.Tensor:
+    """``nn.Dropout``'s forward on replica ``rank``'s rows of a global batch
+    of ``world`` such batches: the mask of the whole (drawn alike on every
+    replica from a stream seeded alike), this replica's rows of it."""
+    if not self.training or self.p == 0.0:
+        return x
+    rank, world = self.tpuddp_rows
+    b = x.shape[0]
+    keep = F.dropout(torch.ones((world * b,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                device=x.device), self.p, True)
+    return x * keep[rank * b:(rank + 1) * b]
+
+
+def global_batch_dropout(model: nn.Module, rank: int, world: int) -> nn.Module:
+    """Every ``nn.Dropout`` of ``model`` draws the mask of the global batch
+    (``world`` replicas' rows, in rank order) and keeps replica ``rank``'s
+    rows: ``mode: auto``'s one dropout key per step, which the JAX package
+    draws over the whole sharded batch (``tpuddp/training/step.py:134-141``
+    with no replica fold). Needs torch's generators seeded alike on every
+    replica. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.tpuddp_rows = (int(rank), int(world))
+            m.forward = _rows_dropout.__get__(m)
+    return model

@@ -127,6 +127,20 @@ records the JAX reason, ``true`` raises). ``grad_comm_bytes_intra_host``
 and ``grad_comm_bytes_inter_host`` split one reduction's bytes by link
 (:func:`~tpuddp_torch.parallel.comm.comm_bytes_breakdown`; under ``flat``
 all of them are inter-host).
+
+``mode="auto"`` (the JAX package's XLA-placed step,
+``tpuddp/training/step.py:814-826``) trains the global batch's step
+instead: every BatchNorm syncs its statistics, one flip mask and one
+dropout mask are drawn for the global batch (every replica's streams
+seeded alike) and each replica keeps its rows, each replica's loss is
+scaled by its share ``n_r / sum(n)`` of the real rows and the gradients
+are summed (:meth:`DistributedDataParallel.sync_global`): the global
+batch's weighted-mean gradient, the managed path's rule. The guard judges
+that float32 sum; a hook rounds it locally with one replicated ``(total,)``
+residual and no collective of its own, and the byte counters count the
+float32 collective (``wire=False``). ZeRO-1 and ``comm_topology:
+hierarchical`` are the JAX ``ValueError``; ``comm_overlap: auto`` falls
+back with the JAX reason.
 """
 
 from __future__ import annotations
@@ -140,14 +154,16 @@ import torch.distributed as dist
 from tpuddp_torch.models.convert import (
     JaxFlatOrder, flat_to_jax, jax_layer_sizes, jax_param_span, jax_sizes, model_name,
 )
+from tpuddp_torch.nn.layers import global_batch_dropout
+from tpuddp_torch.nn.norm import convert_sync_batchnorm
 from tpuddp_torch.optim import ShardedUpdate, arm_guard
 from tpuddp_torch.parallel import backend, collectives, comm, mesh
 from tpuddp_torch.resilience.guard import Firewall, audit_or_raise, resolve_guard
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
 from tpuddp_torch.training.step import (
-    EVAL_KEYS, TRAIN_KEYS, SegmentedSync, comm_sync, eval_core, eval_many, make_flat_param_spec,
-    train_core, train_cycle, train_many,
+    EVAL_KEYS, TRAIN_KEYS, SegmentedSync, comm_sync, eval_core, eval_many, global_share,
+    make_flat_param_spec, train_core, train_cycle, train_many,
 )
 
 
@@ -161,7 +177,6 @@ class DistributedDataParallel:
     _graph_replay = True
     # what the port's wrap runs of the JAX package's knobs, which the
     # overlap eligibility reads in the JAX order (config refuses the others)
-    mode = "shard_map"
     model_size = 1
 
     def __init__(
@@ -183,7 +198,11 @@ class DistributedDataParallel:
         guard=None,
         comm_topology: str = "flat",
         remat: bool = False,
+        mode: str = "shard_map",
     ):
+        if mode not in ("shard_map", "auto"):
+            raise ValueError(f"unknown mode {mode!r}; one of 'shard_map', 'auto'")
+        self.mode = mode
         self.guard = resolve_guard(guard)
         # the whole train forward recomputed in its backward (nn/remat.py)
         self.remat = bool(remat)
@@ -215,6 +234,20 @@ class DistributedDataParallel:
         self.world_size = backend.get_world_size()
         # (local_group, host_group, hosts, local) of the hierarchical split
         self._hier = self._hierarchy(weight_update_sharding) if hier else None
+        auto = self.mode == "auto"
+        if weight_update_sharding and auto:
+            raise ValueError(
+                "weight_update_sharding requires mode='shard_map' (the reduce-scatter/"
+                "all-gather exchange is expressed over the explicit per-replica step's "
+                "named axis)"
+            )
+        # mode auto's step is the global batch's: its BatchNorm statistics,
+        # its dropout mask, its loss mean (global_share)
+        self._scale = global_share if auto else None
+        if auto:
+            convert_sync_batchnorm(self.model)
+            if self.world_size > 1:
+                global_batch_dropout(self.model, self.rank, self.world_size)
         self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         collectives.broadcast_one_to_all(self.model)
         self.weight_update_sharding = bool(weight_update_sharding)
@@ -240,8 +273,14 @@ class DistributedDataParallel:
             # the hierarchical exchange needs the plan even uncompressed
             self._comm = comm.make_grad_comm(
                 sizes, world, self.comm_hook, self.bucket_cap_mb, self.topk_density, force=hier)
+            if auto and self._comm is not None:
+                # the hook on the all-reduced aggregate: the world's plan and
+                # one replicated (total,) residual, no collective of its own
+                # (the JAX step's comm.reduce with no axis)
+                self._comm = self._comm._replace(world=1)
         if self._comm is not None:
             self._residual = self._comm.init_residual(self.device)
+        wire = not auto  # mode auto's collective is float32 whatever the hook
         if wus:
             total = comm.comm_bytes_for_hook(
                 sizes, world, self.comm_hook, wus=True, bucket_cap_mb=self.bucket_cap_mb,
@@ -250,10 +289,11 @@ class DistributedDataParallel:
         else:
             self._bytes = comm.comm_bytes_breakdown(
                 sizes, world, self.comm_hook, self.comm_topology,
-                local_size=self._hier[3] if hier else None, bucket_cap_mb=self.bucket_cap_mb,
-                density=self.topk_density)
+                local_size=self._hier[3] if hier else None, wire=wire,
+                bucket_cap_mb=self.bucket_cap_mb, density=self.topk_density)
         self.grad_comm_bytes_per_step = self._bytes["total"]
-        self.grad_comm_bytes_per_step_f32 = comm.comm_bytes_for_hook(sizes, world, "none", wus=wus)
+        self.grad_comm_bytes_per_step_f32 = comm.comm_bytes_for_hook(sizes, world, "none", wus=wus,
+                                                                     wire=wire)
         self._overlap = None  # the SegmentedSync, where the segmented step applies
         self._resolve_overlap()
         if self._comm is not None and self._overlap is None:  # the barrier exchange's order
@@ -261,6 +301,7 @@ class DistributedDataParallel:
         self.firewall = None  # the numerical guard's device state, when it is on
         if self.guard.enabled:
             self.firewall = Firewall(self.device, self.residual)
+            self.firewall.judged_in_sync = auto
             arm_guard(self.optimizer, self.firewall)
             if self._overlap is not None:
                 self._overlap.staged = self.firewall.staged
@@ -372,6 +413,8 @@ class DistributedDataParallel:
         stored: a bound method kept on the wrap would make a reference
         cycle, and a dropped wrap would hold its model's memory until a
         garbage collection."""
+        if self.mode == "auto":
+            return self.sync_global
         return _no_sync if self.weight_update_sharding else self.sync_grads
 
     def skip_counters(self):
@@ -421,10 +464,37 @@ class DistributedDataParallel:
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         collectives.flat_collective(grads, self._mean)
 
+    def _sum(self, flat: torch.Tensor) -> None:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+
+    def sync_global(self) -> None:
+        """``mode: auto``'s sync (``tpuddp/training/step.py:366-396`` with no
+        axis): the all-reduce SUM of the share-scaled gradients, the global
+        batch's mean gradient on every replica; the guard's verdict on it,
+        in float32 before any hook; then the hook's round trip of that
+        aggregate in the JAX flat order, with the one replicated residual
+        and no collective of its own."""
+        params = list(self.model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.world_size > 1:
+            collectives.flat_collective([p.grad for p in params], self._sum)
+        if self.firewall is not None:
+            self.firewall.judge([p.grad for p in params])
+        if self._comm is not None:
+            if self._order is None:
+                self._order = JaxFlatOrder(model_name(self.model), self.model)
+            lost = None if self.firewall is None else self.firewall.staged
+            comm_sync(params, self._comm, self._order, self._residual, lost)
+
     def sync_buffers(self) -> None:
         """Broadcast the model's buffers from rank 0, one flat collective per
-        buffer dtype; nothing for a world of one or a model without buffers."""
-        collectives.broadcast_(self.model.buffers())
+        buffer dtype; nothing for a world of one or a model without buffers,
+        nor under ``mode: auto``, whose BatchNorm statistics are the global
+        batch's on every replica."""
+        if self.mode != "auto":
+            collectives.broadcast_(self.model.buffers())
 
     def to_device(self, batch):
         """``(x, y, w)`` on the device: staged tensors as they are, a host
@@ -441,10 +511,11 @@ class DistributedDataParallel:
             )
         x, y, w = self.to_device(batch)
         self.step += 1
+        mask = self._flip_masks([(x, y, w)])[0] if self._scale is not None else None
         return train_core(
             self.model, self.optimizer, self.criterion, self.augment,
-            self._sync, self.sync_buffers, x, y, w, self._clip, overlap=self._overlap,
-            firewall=self.firewall, remat=self.remat,
+            self._sync, self.sync_buffers, x, y, w, self._clip, mask, overlap=self._overlap,
+            firewall=self.firewall, remat=self.remat, scale=self._scale,
         )
 
     def train_cycle(self, batches) -> torch.Tensor:
@@ -455,10 +526,12 @@ class DistributedDataParallel:
                 f"a cycle takes {self.grad_accumulation} micro-batches, got {len(batches)}"
             )
         self.step += len(batches)
+        batches = [self.to_device(b) for b in batches]
+        masks = self._flip_masks(batches) if self._scale is not None else None
         return train_cycle(
             self.model, self.optimizer, self.criterion, self.augment, self._sync,
-            self.sync_buffers, [self.to_device(b) for b in batches], self._clip,
-            overlap=self._overlap, firewall=self.firewall, remat=self.remat,
+            self.sync_buffers, batches, self._clip, masks,
+            overlap=self._overlap, firewall=self.firewall, remat=self.remat, scale=self._scale,
         )
 
     def eval_step(self, batch) -> torch.Tensor:
@@ -469,9 +542,23 @@ class DistributedDataParallel:
     def _flip_masks(self, batches):
         """One flip mask per batch (None without flips), drawn on the host
         from the augment's generator in step order, as the per-batch steps
-        draw them, and sent to the device in one copy."""
+        draw them, and sent to the device in one copy. Under ``mode: auto``
+        at world > 1 each is this replica's rows of the global batch's mask
+        (drawn alike on every replica: ``tpuddp/training/step.py:134-141``
+        with no replica fold)."""
         draw = getattr(self.augment, "flip_mask", None)
-        masks = [None if draw is None else draw(x, device="cpu") for x, _, _ in batches]
+        rows = self._scale is not None and self.world_size > 1
+
+        def one(x):
+            if draw is None:
+                return None
+            if not rows:
+                return draw(x, device="cpu")
+            b = x.shape[0]
+            full = draw(torch.empty((self.world_size * b,), device="meta"), device="cpu")
+            return full[self.rank * b:(self.rank + 1) * b]
+
+        masks = [one(x) for x, _, _ in batches]
         if any(m is None for m in masks):
             return [None] * len(batches)
         return list(to_device(torch.stack(masks), self.device).unbind(0))
@@ -516,7 +603,7 @@ class DistributedDataParallel:
                 self.model, self.optimizer, self.criterion, self.augment, self._sync,
                 self.sync_buffers, t[0], [tuple(t[i:i + 3]) for i in range(1, len(t), 4)],
                 t[4::4], self._clip, self.grad_accumulation, self._overlap, self.firewall,
-                self.remat,
+                self.remat, self._scale,
             )
 
         inputs = [sums] + [t for b, m in zip(batches, masks) for t in (*b, m)]

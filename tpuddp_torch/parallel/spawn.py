@@ -46,6 +46,8 @@ import os
 import signal
 import sys
 import threading
+import time
+from multiprocessing import connection as mp_connection
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -62,6 +64,8 @@ logger = logging.getLogger("tpuddp")
 
 # a spawned rank's exits that the launcher passes on as its own
 _CONTRACT_EXITS = (EXIT_PREEMPTED, EXIT_WATCHDOG, EXIT_DESYNC, EXIT_INJECTED_CRASH)
+# how long the launcher waits for the other ranks of a drain once one exits 75
+DRAIN_GRACE_S = 60.0
 
 
 def resolve_world(world_size: Optional[int], backend: str,
@@ -94,13 +98,19 @@ def _worker(
     device: str,
     port: Optional[int],
     rendezvous: Optional[tuple] = None,
+    local: Optional[Tuple[int, int]] = None,
 ):
     """One rank: ``rank`` is the global rank on one host, the local rank
     under a ``rendezvous = (coordinator_address, process_id, local_world)``,
-    where local rank 0 arms the watchdog (with ``$TPUDDP_WATCHDOG_TIMEOUT``)."""
+    where local rank 0 arms the watchdog (with ``$TPUDDP_WATCHDOG_TIMEOUT``).
+    ``local = (local_rank, local_world)`` pins a rank of one host that its
+    caller started itself (two ranks sharing one GPU over Gloo: ``(0, 1)``
+    each)."""
     pair = None
     if rendezvous is None:
-        _backend.setup(rank, world_size, device, port)
+        local_rank, local_world = local or (None, None)
+        _backend.setup(rank, world_size, device, port, local_rank=local_rank,
+                       local_world=local_world)
     else:
         address, process_id, local_world = rendezvous
         local_rank, rank = rank, process_id * local_world + rank
@@ -159,7 +169,8 @@ def run_ddp_training(
 def _spawn(nprocs: int, args: tuple) -> None:
     """``nprocs`` ranks of :func:`_worker` on ``args``; a rank's drain (75),
     watchdog (76), desync (77) or injected-crash (113) exit becomes this
-    process's. While they run, a SIGTERM
+    process's (after a drain, once the other ranks end theirs:
+    :func:`_await_drain`). While they run, a SIGTERM
     to this process is passed on to every rank, and a SIGINT (which the
     terminal sends to the ranks too) is absorbed."""
     ctx = mp.spawn(_worker, args=args, nprocs=nprocs, join=False)
@@ -174,6 +185,7 @@ def _spawn(nprocs: int, args: tuple) -> None:
     if threading.current_thread() is threading.main_thread():
         previous = {s: signal.signal(s, forward) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
+        _await_drain(ctx.processes)
         while not ctx.join():
             pass
     except mp.ProcessExitedException as e:
@@ -183,6 +195,25 @@ def _spawn(nprocs: int, args: tuple) -> None:
     finally:
         for s, handler in previous.items():
             signal.signal(s, handler)
+
+
+def _await_drain(processes, grace_s: float = DRAIN_GRACE_S) -> None:
+    """Return when every rank has ended, when one has ended with another
+    code than 0 or 75, or ``grace_s`` after the first 75. A drain ends every
+    rank of the world by itself after its last collective (an agreed stop,
+    the save), and ``ctx.join()`` would terminate the others at the first
+    exit: this wait lets each finish its drain and exit 75 itself."""
+    deadline = None
+    while True:
+        alive = [p for p in processes if p.is_alive()]
+        codes = [p.exitcode for p in processes if p.exitcode is not None]
+        if not alive or any(c not in (0, EXIT_PREEMPTED) for c in codes):
+            return
+        if EXIT_PREEMPTED in codes:
+            deadline = deadline or time.monotonic() + grace_s
+            if time.monotonic() >= deadline:
+                return
+        mp_connection.wait([p.sentinel for p in alive], timeout=1.0)
 
 
 def _run_host(demo_fn, world_size: int, save_dir, optional_args: dict, device: str,

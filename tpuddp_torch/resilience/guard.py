@@ -182,6 +182,8 @@ class Firewall:
         self.counters = init_skip_counters(device)
         self.residual = residual
         self.staged = None if residual is None else torch.empty_like(residual)
+        # mode auto: the sync judges the aggregated gradient before its hook
+        self.judged_in_sync = False
 
     def judge(self, tensors: Sequence[torch.Tensor], agree: bool = False) -> None:
         """The verdict of ``tensors`` (all finite: 1); with ``agree``, the

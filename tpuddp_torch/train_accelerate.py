@@ -70,8 +70,10 @@ accepted and changes nothing here: the JAX managed path does not read it.
 The drain (``train_accelerate.py:470-655``): a SIGTERM or SIGINT seen at an
 epoch's start saves the last whole epoch's state and exits 75; seen when
 the train pass ends, it saves that epoch as done (its eval is lost). With
-``training.snapshot`` at world 1 the train pass also polls after each
-accumulation cycle: a drain there writes ``state_{epoch}_s{step}.npz``
+``training.snapshot`` on one host the train pass also polls after each
+accumulation cycle (at world > 1 rank 0's flag, agreed by every process
+there: ``training/loop.py``'s ``AgreedPoll``; across hosts no poll inside a
+pass): a drain there writes ``state_{epoch}_s{step}.npz``
 with the v4 cursor (the plan key; the sums ``loss_total`` and ``n_seen``
 under the JAX names, and the pass's per-step losses, with which the
 resumed epoch's loss is the uninterrupted one's bitwise), and the requeued
@@ -85,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import sys
 import time
 from functools import partial
 from typing import Optional
@@ -112,7 +115,9 @@ from tpuddp_torch.resilience.preemption import TrainingPreempted
 from tpuddp_torch.train_native import load_model_for, set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import snapshot as snapshot_lib
-from tpuddp_torch.training.loop import StepClock, drain_requested, event, step_fault_hook
+from tpuddp_torch.training.loop import (
+    StepClock, agreed_poll, drain_requested, event, host_ranks, step_fault_hook,
+)
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
 
 
@@ -144,12 +149,14 @@ def train(model, train_loader, criterion, optimizer, accelerator,
     pass's sums so the epoch row is the uninterrupted run's, bitwise: the
     loss sum is over the same vector of per-step losses; ``total_batches``
     is the whole epoch's count, the mean's denominator. ``poll`` is checked
-    after each completed accumulation cycle: True stops the pass there and
-    ``progress`` gets ``interrupted``, the epoch ``step`` reached and the
-    sums, which the drain writes as the cursor."""
+    after each completed accumulation cycle (at world > 1 it is the agreed
+    poll, a collective every process makes there): True stops the pass
+    there and ``progress`` gets ``interrupted``, the epoch ``step`` reached
+    and the sums, which the drain writes as the cursor: the global rows
+    seen (process 0 seeds them back on resume, the others start at 0)."""
     model.train()
     n_seen = torch.zeros((), device=model.device)
-    if carried is not None:
+    if carried is not None and accelerator.process_index == 0:
         n_seen.fill_(float(carried["n_seen"]))
     losses = []
     pending = 0  # steps of the open group (queued, or not yet marked)
@@ -196,17 +203,16 @@ def train(model, train_loader, criterion, optimizer, accelerator,
                 tel.post_dispatch(pending, rows, host_stall_s=train_loader.stall.take(),
                                   staging_depth=train_loader.staged_depth, inflight_depth=depth)
         clock.mark()
+    # one read of the loss sum and of the rows every process saw
+    totals = torch.stack([loss_sum, n_seen])
+    all_reduce_sum_([totals[1:]])
+    loss_total, n_seen = totals.tolist()
     if progress is not None:
         progress.update(interrupted=interrupted_at is not None,
                         step=start_batch + len(train_loader) if interrupted_at is None
                         else interrupted_at,
-                        losses=values.cpu().numpy(), n_seen=float(n_seen),
-                        loss_total=float(loss_sum))
-    # one read of the loss sum and of the rows every process saw
-    totals = torch.stack([loss_sum, n_seen])
-    all_reduce_sum_([totals[1:]])
-    loss_sum, n_seen = totals.tolist()
-    return loss_sum / (total_batches or len(train_loader)), n_seen
+                        losses=values.cpu().numpy(), n_seen=n_seen, loss_total=loss_total)
+    return loss_total / (total_batches or len(train_loader)), n_seen
 
 
 def evaluate(model, test_loader, criterion, transform, deferred: bool = False):
@@ -245,7 +251,7 @@ def run_training_loop(
     """Run epochs ``start_epoch`` to ``num_epochs``; returns the list of
     per-epoch records. ``run_meta`` holds the entry point's header fields;
     ``snapshot`` the ``training.snapshot`` block (the managed flavour: no
-    background writer; armed at world 1, a drain caught at a cycle boundary
+    background writer; armed on one host, a drain caught at a cycle boundary
     writes ``state_{epoch}_s{step}.npz`` with the v4 cursor and the resumed
     run continues that epoch at that step); ``augment`` the out-of-step
     augment of ``pipeline.device_augment: false``."""
@@ -348,15 +354,22 @@ def run_training_loop(
         writer.sync()
         raise TrainingPreempted(epoch)
 
-    # the poll inside a pass: armed by training.snapshot, at world 1 only
-    poll = preemption.preemption_requested if snap_cfg.enabled and world == 1 else None
+    # the poll inside a pass, armed by training.snapshot on one host: the
+    # flag at world 1, rank 0's flag agreed at each cycle boundary at world
+    # > 1 (train_accelerate.py:537-542); across hosts the drain waits for
+    # the epoch boundary
+    agreed = agreed_poll(world)
+    poll = None
+    if snap_cfg.enabled and hosts == 1:
+        poll = preemption.preemption_requested if agreed is None else agreed.exchange
+    plan_ranks = host_ranks(world)
 
     try:
         history = []
         epoch = start_epoch
         while epoch < num_epochs:
             faults.maybe_fire("epoch", epoch=epoch)  # $TPUDDP_FAULT=preempt@epoch=N
-            if drain_requested(world, device):
+            if drain_requested(world, device, agreed):
                 drain(epoch - 1)
             if guard.enabled and guard.audit_every_n_epochs and \
                     (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
@@ -372,7 +385,7 @@ def run_training_loop(
             epoch_t0 = time.perf_counter()
             train_loader.loader = full_loader
             train_loader.set_epoch(epoch)
-            plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch)
+            plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch, plan_ranks)
             # the exact mid-epoch resume: a cursor for this epoch whose plan
             # key matches continues at its step with the sums it carried
             start_batch, carried = 0, None
@@ -404,7 +417,7 @@ def run_training_loop(
             )
             if progress["interrupted"]:  # stopped at a cycle boundary inside the epoch
                 mid_drain(epoch, progress, plan_key)
-            if drain_requested(world, device):  # every update of the epoch is in
+            if drain_requested(world, device, agreed):  # every update of the epoch is in
                 drain(epoch)
             step_ms = clock.step_ms()
             step_fields = tel.end_epoch(step_ms)
@@ -476,6 +489,10 @@ def run_training_loop(
         return history
     finally:
         train_loader.loader = full_loader
+        if agreed is not None:
+            # on stderr, whole: a rank's line never splits the epoch lines
+            print(f"rank {accelerator.process_index}; {agreed.describe()}", file=sys.stderr,
+                  flush=True)
         tel.finish()
         writer.close()
 

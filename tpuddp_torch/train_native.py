@@ -21,7 +21,10 @@ bitwise no-op, the replicas audited, rollback to the last good checkpoint:
 77. ``pretrained_path`` fine-tunes from a torchvision checkpoint on disk
 (``models/pretrained.py``; nothing is downloaded). ``comm_topology:
 hierarchical`` exchanges the gradient in three hops, within each host and
-then between the hosts (``parallel/comm.py``). ``remat: true`` recomputes
+then between the hosts (``parallel/comm.py``). ``mode: auto`` trains the
+global batch's step (its loss mean, BatchNorm statistics, flip and dropout
+masks; ``parallel/ddp.py``) where ``shard_map``, the default, averages the
+replicas' own steps. ``remat: true`` recomputes
 each train forward in its backward (``nn/remat.py``), bitwise the plain
 run. Process 0 writes ``out_dir/history.jsonl``: a ``run_meta`` header,
 one ``epoch`` row per epoch (with the step-time percentiles and MFU),
@@ -118,7 +121,11 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     # the GPU the process group pinned (the local rank's, rank on one host)
     dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
 
-    generator, base_seed = seeding.set_seed_based_on_rank(rank, training.get("seed"))
+    # mode auto draws one flip mask and one dropout mask per step for the
+    # global batch, each rank keeping its rows: every rank's streams alike
+    mode = training.get("mode") or "shard_map"
+    generator, base_seed = seeding.set_seed_based_on_rank(
+        0 if mode == "auto" else rank, training.get("seed"))
 
     train_ds, test_ds = load_datasets_for(training)
     # the data order is shared across ranks and independent of the model seed
@@ -173,6 +180,8 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         comm_topology=str(training.get("comm_topology") or "flat"),
         # the forward recomputed in the backward (train_native.py:149)
         remat=bool(training.get("remat", False)),
+        # shard_map (the per-replica step) or auto (the global batch's step)
+        mode=mode,
     )
     if ddp.hierarchy is not None:
         hosts, local = ddp.hierarchy

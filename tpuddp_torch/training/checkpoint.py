@@ -407,18 +407,23 @@ def model_payload(layout: str, model: torch.nn.Module, state_dict=None) -> Dict[
     return payload
 
 
-def topology_record(world_size: int, flat_keys=(), residual_per: Optional[int] = None) -> dict:
+def topology_record(world_size: int, flat_keys=(), residual_per: Optional[int] = None,
+                    residual_flat: bool = False) -> dict:
     """The JAX package's topology record: replicated leaves carry no tag;
     the ZeRO-1 vectors ``flat_keys`` are ``data_flat``, sharded over the
     data axis, when the world is over one (on one device the JAX package's
     sharding is a replicated one, and it tags nothing). A native residual
     of ``residual_per`` elements per replica is ``per_replica`` over the
-    data axis when the world is over one, else ``data_flat``."""
+    data axis when the world is over one, else ``data_flat``; the one
+    replicated residual of ``mode: auto`` (``residual_flat``) is
+    ``data_flat`` at every world."""
     w = int(world_size)
     flat_keys = tuple(flat_keys) if w > 1 else ()
     leaves = {k: {"kind": "data_flat"} for k in flat_keys}
     placement = {k: ["data"] for k in flat_keys}
-    if residual_per is not None:
+    if residual_flat:
+        leaves[_COMM] = {"kind": "data_flat"}
+    elif residual_per is not None:
         leaves[_COMM] = ({"kind": "per_replica", "world": w, "per": int(residual_per), "model": 1}
                          if w > 1 else {"kind": "data_flat"})
         if w > 1:
@@ -655,22 +660,26 @@ def state_payload(layout: str, model: torch.nn.Module, optimizer=None) -> Dict[s
 def capture(model: torch.nn.Module, optimizer, *, layout: str = NATIVE, seed: int = 0,
             generator: Optional[torch.Generator] = None, world_size: int = 1, step: int = 0,
             counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-            comm_state=None, skipped=None) -> Captured:
+            comm_state=None, skipped=None, residual_replicated: bool = False) -> Captured:
     """Everything a save of ``model`` writes, as references to the live
     tensors, read nothing on the host (the snapshot engine copies them
     before the next step). A collective at world > 1: every rank's random
-    streams, ZeRO-1 shards and native residual are gathered. Arguments as
-    :func:`save_on_main`."""
+    streams, ZeRO-1 shards and native residual are gathered (the one
+    residual of ``mode: auto``, ``residual_replicated``, is every rank's
+    already). Arguments as :func:`save_on_main`."""
     if layout == MANAGED and keys is None:
         raise ValueError("a managed state file needs the accelerator's keys (rng_key, bwd_key)")
     device = next(model.parameters()).device
     tensors = {f"sd/{k}": v.detach() for k, v in model.state_dict().items()}
     host = {"rng": _gather_rng(rng_states(generator, device)), "world_size": world_size,
-            "flat_keys": (), "residual_per": None, "step": step, "seed": seed,
-            "counter": counter, "keys": keys, "steps": set()}
+            "flat_keys": (), "residual_per": None, "residual_flat": False, "step": step,
+            "seed": seed, "counter": counter, "keys": keys, "steps": set()}
     if optimizer is not None:
         _capture_opt(layout, model, optimizer, tensors, host)
-    if comm_state is not None and layout == NATIVE:  # every rank gathers
+    if comm_state is not None and layout == NATIVE and residual_replicated:
+        tensors["residual"] = comm_state.detach()
+        host["residual_per"], host["residual_flat"] = comm_state.numel(), True
+    elif comm_state is not None and layout == NATIVE:  # every rank gathers
         tensors["residual"] = gather_residual(comm_state)
         host["residual_per"] = comm_state.numel()
     elif comm_state is not None:
@@ -724,7 +733,8 @@ def write_captured(save_dir: str, epoch: int, cap: Captured, *, completed: bool 
         meta = {"epoch": epoch, "completed": 0, "step": int(snapshot_step)}
     path = write(target, captured_payload(cap), meta=meta,
                  topology=topology_record(cap.host["world_size"], cap.host["flat_keys"],
-                                          cap.host["residual_per"]),
+                                          cap.host["residual_per"],
+                                          cap.host.get("residual_flat", False)),
                  cursor=cursor, cursor_acc=cursor_acc)
     # $TPUDDP_FAULT corrupt@ckpt_N tears the file just published (its manifest
     # then stale), which the restore must detect and skip
@@ -741,6 +751,7 @@ def save_on_main(
     step: int = 0, counter: int = 0, keys: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     comm_state=None, skipped=None, snapshot_step: Optional[int] = None,
     cursor: Optional[dict] = None, cursor_acc: Optional[Dict[str, Any]] = None,
+    residual_replicated: bool = False,
 ) -> Optional[str]:
     """``ckpt_{epoch}.npz`` (``layout=NATIVE``, whose ``.step`` is ``step``
     and whose run key derives from ``seed``) or ``state_{epoch}.npz``
@@ -750,7 +761,9 @@ def save_on_main(
     ``keep_last`` the older files are pruned. ``comm_state`` is the comm
     hook's residual (native: this rank's vector, gathered from every rank;
     managed: one tensor per parameter), or None; ``skipped`` the guard's
-    skip counters, or None. ``snapshot_step`` (with the v4 ``cursor`` and
+    skip counters, or None; ``residual_replicated`` marks the native
+    residual as ``mode: auto``'s one replicated vector (saved as it is,
+    ``data_flat``). ``snapshot_step`` (with the v4 ``cursor`` and
     ``cursor_acc``) writes the step snapshot ``{prefix}_{epoch}_s{step}.npz``
     of that many real micro-batches of ``epoch`` instead
     (``tpuddp/training/checkpoint.py:804-859``). Returns the path on rank 0."""
@@ -758,7 +771,7 @@ def save_on_main(
         optim.sync_steps(optimizer)  # the guard's device step count, on the host
     cap = capture(model, optimizer, layout=layout, seed=seed, generator=generator,
                   world_size=world_size, step=step, counter=counter, keys=keys,
-                  comm_state=comm_state, skipped=skipped)
+                  comm_state=comm_state, skipped=skipped, residual_replicated=residual_replicated)
     return _on_main(rank, lambda: write_captured(
         save_dir, epoch, cap, completed=completed, snapshot_step=snapshot_step, cursor=cursor,
         cursor_acc=cursor_acc, keep_last=keep_last))
@@ -1116,11 +1129,13 @@ def _residual_missing(path: str, key: str) -> None:
 
 @torch.no_grad()
 def _restore_residual(path, stored, layout, name, model, optimizer, params_like, residual,
-                      actions=None) -> None:
+                      actions=None, replicated: bool = False) -> None:
     """The file's comm-hook residual into ``residual`` (in place): native,
     this rank's row of the per-replica vector fitted to this world
-    (:func:`fit_residual`), permuted into the port's order under ZeRO-1;
-    managed, each parameter's tensor. Zeros when the file has none."""
+    (:func:`fit_residual`), permuted into the port's order under ZeRO-1, or
+    with ``replicated`` (``mode: auto``'s one residual) the file's vector
+    fitted to one row (a per-replica file's rows summed); managed, each
+    parameter's tensor. Zeros when the file has none."""
     if layout == MANAGED:
         prefix = _field(MANAGED, "comm_state")
         if not any(k.startswith(prefix) for k in stored):
@@ -1136,10 +1151,11 @@ def _restore_residual(path, stored, layout, name, model, optimizer, params_like,
         _residual_missing(path, _COMM)
         residual.zero_()
         return
-    world, per = get_world_size(), residual.numel()
+    world, rank, per = (1, 0, residual.numel()) if replicated else (
+        get_world_size(), get_rank(), residual.numel())
     arr = fit_residual(path, _stored(path, stored, _COMM, np.float32), _topology(stored),
                        world * per, world, actions)
-    mine = arr[get_rank() * per:(get_rank() + 1) * per].copy()
+    mine = arr[rank * per:(rank + 1) * per].copy()
     if isinstance(optimizer, optim.ShardedUpdate):
         raw = optimizer.spec.raw
         mine[:raw] = flat_from_jax(name, model, mine[:raw].copy())
@@ -1148,7 +1164,8 @@ def _restore_residual(path, stored, layout, name, model, optimizer, params_like,
 
 def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
              generator: Optional[torch.Generator] = None, comm_state=None,
-             skipped=None, actions: Optional[List[dict]] = None) -> Dict[str, Any]:
+             skipped=None, actions: Optional[List[dict]] = None,
+             residual_replicated: bool = False) -> Dict[str, Any]:
     with np.load(path) as data:
         stored = dict(data.items())
     _refuse_unported(path, stored)
@@ -1162,7 +1179,7 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
         optim.count_from_state(optimizer)
     if comm_state is not None:
         _restore_residual(path, stored, layout, name, model, optimizer, params_like, comm_state,
-                          actions)
+                          actions, residual_replicated)
     if skipped is not None:
         _restore_skipped(path, stored, layout, skipped)
     if RNG_KEY in stored:
@@ -1179,7 +1196,7 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
 
 def load(path: str, model: torch.nn.Module, optimizer=None, *, layout: str = NATIVE,
          generator: Optional[torch.Generator] = None, comm_state=None,
-         skipped=None) -> Dict[str, Any]:
+         skipped=None, residual_replicated: bool = False) -> Dict[str, Any]:
     """Restore ``model`` (and ``optimizer``'s state, the comm hook's
     residual ``comm_state`` and the guard's counters ``skipped`` in place,
     and the random streams) from the intact file ``path`` in ``layout``;
@@ -1188,7 +1205,8 @@ def load(path: str, model: torch.nn.Module, optimizer=None, *, layout: str = NAT
     ``bwd_key``."""
     if not verify_file(path):
         raise ValueError(f"checkpoint {path} does not match its sha256 manifest")
-    return _restore(path, layout, model, optimizer, generator, comm_state, skipped)
+    return _restore(path, layout, model, optimizer, generator, comm_state, skipped,
+                    residual_replicated=residual_replicated)
 
 
 # ---------------------------------------------------------- files of a run --
@@ -1338,7 +1356,8 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
                    comm_state=None, skipped=None,
                    cursor_out: Optional[List[dict]] = None,
                    reshard_log: Optional[List[dict]] = None,
-                   model_size: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
+                   model_size: Optional[int] = None,
+                   residual_replicated: bool = False) -> Tuple[int, Dict[str, Any]]:
     """Restore the freshest intact file of ``layout`` across ``save_dir``,
     the peer spills and the epoch family; returns ``(next_epoch, meta)``:
     the epoch to train next (0 when there is no file; a step snapshot's own
@@ -1366,7 +1385,8 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
             "full-epoch" if step is None else f"step={step}", provenance,
         )
     actions: List[dict] = []
-    meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped, actions)
+    meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped, actions,
+                    residual_replicated)
     if reshard_log is not None:
         reshard_log.extend(build_reshard_events(path, epoch, read_topology(path),
                                                 get_world_size(), actions, model_size))

@@ -80,9 +80,15 @@ carries it as any batch. Rows are strict JSON: a non-finite loss is null.
 The preemption drain and step snapshots (``tpuddp/training/loop.py:
 303-360, :612-708, :759-1000``): at world 1 every pass polls the drain
 flag (SIGTERM, SIGINT, ``$TPUDDP_FAULT=preempt@step=N``) before it stages a
-batch and stops after the last dispatch issued; at world > 1 no pass polls,
-and the drain is decided at each epoch's start on rank 0's flag (one
-broadcast). The drain writes one save and raises ``TrainingPreempted``
+batch and stops after the last dispatch issued. At world > 1 on one host
+(the JAX package's one process with N devices) rank 0's flag is agreed
+after every dispatch of both passes (:class:`AgreedPoll`, one broadcast on
+a Gloo group of CPU tensors, which also carries whether rank 0's snapshot
+engine has room), and every pass polls that verdict, so all ranks stop
+after the same dispatch. Across hosts no pass polls, and the drain is
+decided at each epoch's start on rank 0's flag (one broadcast). The drain
+writes one save (a collective: every rank captures, rank 0 writes) and
+raises ``TrainingPreempted``
 (exit 75 in ``parallel/spawn.py``): a cut train pass saves
 ``ckpt_{epoch}.npz`` with ``completed=0`` (the epoch is redone), or, with
 ``training.snapshot`` armed, flushes the snapshot writer and writes the
@@ -91,10 +97,12 @@ epoch's row with null eval metrics and saves the epoch as done; then a
 ``preempt`` event row, fsync'd. With ``training.snapshot`` the engine
 snapshots every ``every_steps`` real micro-batches after a dispatch's
 telemetry (between chunks under replay). A resume whose file carries a
-cursor with this epoch's plan key continues the epoch at its step through
-``EpochTailLoader``, the train sums seeded from the cursor: the rows are
-bitwise an uninterrupted run's; a mismatched key redoes the epoch. A
-guard rollback to a step snapshot continues that epoch at its step.
+cursor with this epoch's plan key (keyed on every rank of the host, so all
+ranks agree on it) continues the epoch at its step through
+``EpochTailLoader``, each rank's train sums seeded from its entry of the
+cursor's per-replica sums: the rows are bitwise an uninterrupted run's; a
+mismatched key redoes the epoch. A guard rollback to a step snapshot
+continues that epoch at its step.
 
 The elastic resume (``tpuddp/training/loop.py:321-395, :435-441, :493,
 :576``): a checkpoint written at another world size is refitted onto this
@@ -108,6 +116,7 @@ from __future__ import annotations
 
 import logging
 import math
+import sys
 import time
 from typing import Optional
 
@@ -292,16 +301,106 @@ def step_fault_hook():
     return inject
 
 
-def drain_requested(world_size: int, device) -> bool:
+class AgreedPoll:
+    """The drain flag agreed at a dispatch boundary at world > 1 on one host
+    (the JAX package's one-process branch, ``tpuddp/training/loop.py:
+    625-630``, where one process polls for all its devices). Signals land on
+    the ranks apart, and a rank that stopped alone would leave the others in
+    the step's collectives, so :meth:`exchange` broadcasts rank 0's flag,
+    with rank 0's snapshot room (``engine.has_room()``: whether a due
+    snapshot is taken or skipped, which every rank must decide alike, as
+    the capture is a collective). The exchange is one broadcast of two
+    int32 on a Gloo group of CPU tensors, made once here: no read of the
+    device, so the staged pipeline keeps its depth. Calling the object
+    reads the last agreed verdict without a collective (the staged
+    loader's poll, consulted before each batch is staged). The drain flag
+    is sticky. ``exchanges`` and ``seconds`` count the exchanges and their
+    host time."""
+
+    def __init__(self, engine=None):
+        self.engine = engine
+        self.rank = dist.get_rank()
+        self.group = dist.new_group(backend="gloo")
+        self.box = torch.zeros(2, dtype=torch.int32)
+        self.drain = False
+        self.room = True
+        self.exchanges = 0
+        self.seconds = 0.0
+
+    def exchange(self) -> bool:
+        """One agreement; returns the drain verdict."""
+        t0 = time.perf_counter()
+        if self.rank == 0:
+            engine = self.engine
+            self.box[0] = int(preemption.preemption_requested())
+            self.box[1] = int(engine is None or not engine.armed or engine.has_room())
+        dist.broadcast(self.box, src=0, group=self.group)
+        self.drain = self.drain or bool(self.box[0])
+        self.room = bool(self.box[1])
+        self.exchanges += 1
+        self.seconds += time.perf_counter() - t0
+        return self.drain
+
+    def __call__(self) -> bool:
+        return self.drain
+
+    def describe(self) -> str:
+        ms = 1e3 * self.seconds / max(self.exchanges, 1)
+        return f"agreed poll: {self.exchanges} exchanges, {ms:.6f} ms each"
+
+
+def agreed_poll(world_size: int, engine=None) -> Optional[AgreedPoll]:
+    """The :class:`AgreedPoll` of a world over 1 on one host; None at world
+    1 (the flag itself is the poll) and across hosts (no poll inside a pass:
+    the drain is decided at the epoch boundary, the JAX package's
+    multi-process branch)."""
+    if world_size == 1 or (backend.num_hosts() or 1) > 1 or not dist.is_initialized():
+        return None
+    return AgreedPoll(engine)
+
+
+def host_ranks(world_size: int):
+    """The global ranks of one host when the run has one host (the ranks
+    one JAX process would serve: the step snapshots' plan key); None
+    across hosts (each rank's own key)."""
+    return list(range(world_size)) if (backend.num_hosts() or 1) == 1 else None
+
+
+def drain_requested(world_size: int, device, agreed: Optional[AgreedPoll] = None) -> bool:
     """Rank 0's drain flag on every rank (one broadcast of one int at world
     > 1: signals land on the ranks apart, and all must agree before the
-    save's collectives; ``tpuddp/training/loop.py:626-639``)."""
+    save's collectives; ``tpuddp/training/loop.py:626-639``); through
+    ``agreed`` when there is one."""
+    if agreed is not None:
+        return agreed.exchange()
     flag = preemption.preemption_requested()
     if world_size == 1 or not dist.is_initialized():
         return flag
     box = torch.tensor([int(flag)], device=device)
     dist.broadcast(box, src=0)
     return bool(box.item())
+
+
+def _replica_entry(values, rank: int) -> np.ndarray:
+    """A cursor's partial sum for ``rank``: its entry of a per-replica
+    vector (entry 0 of a world-1 one)."""
+    flat = np.asarray(values, np.float32).reshape(-1)
+    return flat[rank:rank + 1] if flat.size > rank else flat[:1]
+
+
+def _log_drain_stats(rank: int, engine, agreed: Optional[AgreedPoll]) -> None:
+    """One line per rank on stderr (each rank writes it whole, so the
+    ranks' lines never split the epoch lines on stdout): the snapshots
+    taken and skipped, the loop's time in the engine, and the agreed
+    poll's exchanges."""
+    parts = [f"rank {rank}"]
+    if engine is not None:
+        st = engine.stats
+        parts.append(f"snapshot engine: {st['taken']} taken, {st['snapshots']} written, "
+                     f"{st['skipped_queue_full']} skipped, host_s {st['host_s']:.6f}")
+    if agreed is not None:
+        parts.append(agreed.describe())
+    print("; ".join(parts), file=sys.stderr, flush=True)
 
 
 def _prober(loader, every: Optional[int], log):
@@ -355,20 +454,26 @@ def run_training_loop(
     residual = getattr(ddp, "residual", None)
     counters = None if getattr(ddp, "firewall", None) is None else ddp.firewall.counters
 
+    replicated = getattr(ddp, "mode", "shard_map") == "auto"  # mode auto's one residual
+
     def capture():
-        """The live state as a save writes it (the snapshot engine copies it)."""
+        """The live state as a save writes it (the snapshot engine copies
+        it); a collective at world > 1."""
         return ckpt.capture(ddp.model, ddp.optimizer, seed=base_seed, generator=ddp.generator,
                             world_size=world_size, step=ddp.step, comm_state=residual,
-                            skipped=counters)
+                            skipped=counters, residual_replicated=replicated)
 
     # step snapshots (training/snapshot.py): device copies between
     # dispatches, a background writer; pending["c"] carries a restored v4
     # cursor to the epoch it continues (tpuddp/training/loop.py:303-359)
     snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
     snap_engine = None
+    hosts = backend.num_hosts() or 1
     if snap_cfg.enabled and save_dir is not None:
-        snap_engine = snapshot_lib.SnapshotEngine(save_dir, snap_cfg, rank=rank,
-                                                  world_size=world_size, keep_last=keep_last)
+        snap_engine = snapshot_lib.SnapshotEngine(
+            save_dir, snap_cfg, rank=rank, world_size=world_size, hosts=hosts,
+            host=rank // (world_size // hosts), keep_last=keep_last)
+    plan_ranks = host_ranks(world_size)
     pending = {"c": None}
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
@@ -385,7 +490,7 @@ def run_training_loop(
             start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
                 comm_state=residual, skipped=counters, cursor_out=cursors,
-                reshard_log=reshard_log, model_size=1,
+                reshard_log=reshard_log, model_size=1, residual_replicated=replicated,
             )
             pending["c"] = cursors[-1] if cursors else None
             ddp.step = meta.get("step", ddp.step)
@@ -393,10 +498,12 @@ def run_training_loop(
             if start_epoch > 0 and is_main:
                 log(f"Auto-resume: continuing from epoch {start_epoch}.")
     # the drain flag, polled at every batch boundary at world 1; at world > 1
-    # never inside a pass (one rank stopping while the others issue the
-    # step's collectives would wedge them): drain_requested decides at the
-    # epoch's start
-    poll = preemption.preemption_requested if world_size == 1 else None
+    # on one host agreed at every dispatch boundary (AgreedPoll: the staged
+    # loaders read the last verdict); across hosts never inside a pass (one
+    # rank stopping while the others issue the step's collectives would
+    # wedge them): drain_requested decides at the epoch's start
+    agreed = agreed_poll(world_size, snap_engine)
+    poll = preemption.preemption_requested if world_size == 1 else agreed
     train_pass = pipeline_lib.StagedLoader(
         train_loader, device, pipeline, probe=_prober(train_loader, data_probe_every, log),
         inject=step_fault_hook(), poll=poll,
@@ -464,7 +571,7 @@ def run_training_loop(
         redo, meta = ckpt.restore_latest(
             save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
             comm_state=residual, skipped=ddp.firewall.counters, cursor_out=cursors,
-            reshard_log=reshard, model_size=1,
+            reshard_log=reshard, model_size=1, residual_replicated=replicated,
         )
         pending["c"] = cursors[-1] if cursors else None
         resume_step = pending["c"]["step"] if cursors else None
@@ -507,6 +614,7 @@ def run_training_loop(
                     save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
                     generator=ddp.generator, world_size=world_size, completed=completed,
                     step=ddp.step, comm_state=residual, skipped=counters,
+                    residual_replicated=replicated,
                 )
                 if is_main:
                     log(f"Preempted: emergency checkpoint for epoch {epoch} saved.")
@@ -525,7 +633,7 @@ def run_training_loop(
         epoch = start_epoch
         while epoch < num_epochs:
             faults.maybe_fire("epoch", epoch=epoch)  # $TPUDDP_FAULT=preempt@epoch=N
-            if drain_requested(world_size, device):
+            if drain_requested(world_size, device, agreed):
                 emergency_stop(epoch)
             if guard.enabled and guard.audit_every_n_epochs and \
                     (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
@@ -555,7 +663,7 @@ def run_training_loop(
             base_step, acc0 = 0, None
             cur, pending["c"] = pending["c"], None
             if cur is not None and int(cur.get("epoch", -1)) == epoch:
-                expect = snapshot_lib.epoch_plan_key(train_loader, epoch)
+                expect = snapshot_lib.epoch_plan_key(train_loader, epoch, plan_ranks)
                 if not cur.get("plan_key"):
                     logger.warning("Step snapshot for epoch %d carries no plan key (resharded "
                                    "restore): redoing the epoch.", epoch)
@@ -575,16 +683,23 @@ def run_training_loop(
                                  if base_step else train_loader)
             plan_key = None
             if snap_engine is not None:
-                plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch)
+                plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch, plan_ranks)
                 snap_engine.begin_epoch(epoch, base_step)
 
             train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
-            if acc0 is not None:  # the cursor's partial sums seed this pass's
+            if acc0 is not None:  # the cursor's partial sums (this replica's) seed this pass's
                 train_sums.copy_(torch.from_numpy(np.concatenate(
-                    [np.asarray(acc0[k], np.float32).reshape(-1)[:1] for k in TRAIN_KEYS])))
+                    [_replica_entry(acc0[k], rank) for k in TRAIN_KEYS])))
 
             def sums_by_key():
-                return {k: train_sums[i:i + 1] for i, k in enumerate(TRAIN_KEYS)}
+                """The partial sums as the cursor keeps them: one entry per
+                replica (the JAX package's per-replica metrics; gathered at
+                world > 1, a collective)."""
+                if world_size == 1:
+                    return {k: train_sums[i:i + 1] for i, k in enumerate(TRAIN_KEYS)}
+                full = torch.empty(world_size * len(TRAIN_KEYS), device=device)
+                col.all_gather_shards(full, train_sums.contiguous())
+                return {k: full[i::len(TRAIN_KEYS)].clone() for i, k in enumerate(TRAIN_KEYS)}
 
             clock = StepClock(device)
             tel.start_epoch(epoch, clock)
@@ -611,12 +726,15 @@ def run_training_loop(
                                   staging_depth=train_pass.staged_depth,
                                   inflight_depth=dispatched + 1)
                 dispatched = 0 if tel.recorder.windows_emitted > windows else dispatched + 1
+                if agreed is not None:  # the drain verdict and rank 0's room, agreed
+                    agreed.exchange()
                 if snap_engine is not None:  # after the telemetry, before the next dispatch
                     snap_engine.maybe(capture, epoch=epoch, step=done, plan_key=plan_key,
-                                      acc=sums_by_key())
+                                      acc=sums_by_key,
+                                      room=None if agreed is None else agreed.room)
             if train_pass.interrupted:
                 emergency_stop(epoch, partial=None if snap_engine is None else {
-                    "step": done, "plan_key": plan_key, "acc": sums_by_key()})
+                    "step": done, "plan_key": plan_key, "acc": sums_by_key})
             clock.mark()
             step_ms = clock.step_ms()
             if not step_ms and not base_step:
@@ -632,6 +750,8 @@ def run_training_loop(
                     eval_sums = ddp.eval_step_many(chunk, eval_sums)
                 else:
                     eval_sums += ddp.eval_step(chunk[0])
+                if agreed is not None:
+                    agreed.exchange()
             # a drain during the eval pass: every update of the epoch is in,
             # so its row lands (eval metrics null) and the save counts it done
             eval_cut = test_pass.interrupted
@@ -729,6 +849,7 @@ def run_training_loop(
                     save_dir, epoch, ddp.model, ddp.optimizer, rank, seed=base_seed,
                     generator=ddp.generator, world_size=world_size, keep_last=keep_last,
                     step=ddp.step, comm_state=residual, skipped=counters,
+                    residual_replicated=replicated,
                 )
             epoch += 1
         if is_main:
@@ -737,5 +858,7 @@ def run_training_loop(
     finally:
         if snap_engine is not None:
             snap_engine.close()
+        if agreed is not None or snap_engine is not None:
+            _log_drain_stats(rank, snap_engine, agreed)
         tel.finish()
         writer.close()

@@ -36,10 +36,19 @@ the sums seeded from the cursor. A mismatch redoes the epoch.
 copied under ``<heartbeat_dir>/peer_ckpt/ring_<i>`` (the ring neighbour's
 directory); ``restore_latest`` weighs those copies with the local files.
 
-At world > 1 every rank is a process and a capture is a collective (the
-random streams are gathered), which a background thread cannot join: the
-engine disarms itself there, with a warning, as the JAX engine does for
-state that spans processes, and the run keeps the epoch-granular saves.
+**World > 1 on one host.** Every rank is a process and a capture is a
+collective (each rank's random streams, ZeRO-1's shards, the native
+residual and the epoch's partial sums are gathered), so every rank runs
+the engine and calls the capture at a due step, on the loop's thread,
+between dispatches; only rank 0 clones, copies and hands the copy to its
+writer thread, and the other ranks drop what they gathered at once. Whether
+a due snapshot is taken or skipped must be the same on every rank: the loop
+passes ``room``, rank 0's free slot, agreed at the dispatch boundary
+(``training/loop.py``'s :class:`~tpuddp_torch.training.loop.AgreedPoll`),
+and a rank never decides alone. This is the JAX package's one-process,
+N-device case. Across hosts (``backend.num_hosts() > 1``) the engine
+disarms itself with the JAX package's warning for state that spans
+processes, and the run keeps the epoch-granular saves.
 
 Config block (``training.snapshot``, unknown keys refused)::
 
@@ -132,14 +141,17 @@ def resolve_snapshot(block) -> SnapshotConfig:
 
 # ---------------------------------------------------------------- cursor --
 
-def epoch_plan_key(loader, epoch: int) -> str:
+def epoch_plan_key(loader, epoch: int, local_ranks=None) -> str:
     """The fingerprint of what fixes ``loader``'s batch order in ``epoch``
     (``tpuddp/training/snapshot.py:157-197``): the innermost loader's class,
     the batch count, batch size, seed, shuffle, drop_last, world size, the
     ranks it serves and the epoch. The port's ``ShardedDataLoader`` serves
     one rank with one sampler, so its ``local_ranks`` is ``[rank]`` and its
     seed and shuffle are its sampler's: the key is the JAX package's for
-    the same settings, and a cursor written by either package matches."""
+    the same settings, and a cursor written by either package matches.
+    ``local_ranks`` overrides the ranks: the loops pass every rank of
+    their host, which one JAX process serves, so that all ranks of a host
+    agree on one key (the JAX package's one-process key of that world)."""
     inner = loader
     for _ in range(4):  # Staged / Prefetch / Tail wrappers
         nxt = inner.__dict__.get("loader", inner.__dict__.get("inner"))
@@ -157,7 +169,7 @@ def epoch_plan_key(loader, epoch: int) -> str:
         "epoch": int(epoch),
     }
     sampler = getattr(inner, "sampler", None)
-    local_ranks = getattr(inner, "local_ranks", None)
+    local_ranks = local_ranks if local_ranks is not None else getattr(inner, "local_ranks", None)
     if local_ranks is None and sampler is not None and hasattr(inner, "rank"):
         local_ranks = [inner.rank]
     if local_ranks is not None:
@@ -259,25 +271,27 @@ class SnapshotEngine:
     prefix = ckpt.PREFIX[ckpt.NATIVE]  # the native loop's files: ckpt_{epoch}_s{step}.npz
 
     def __init__(self, save_dir: str, cfg: SnapshotConfig, *, rank: int = 0, world_size: int = 1,
-                 keep_last: Optional[int] = None):
+                 hosts: int = 1, host: int = 0, keep_last: Optional[int] = None):
         self.save_dir = save_dir
         self.cfg = cfg
         self.rank = int(rank)
         self.world_size = int(world_size)
+        self.hosts, self.host = max(int(hosts), 1), int(host)
         self.keep_last = keep_last
         self.stats: Dict[str, Any] = {
-            "snapshots": 0, "skipped_queue_full": 0, "flushes": 0, "write_s": 0.0,
+            "snapshots": 0, "taken": 0, "skipped_queue_full": 0, "flushes": 0, "write_s": 0.0,
             "bytes": 0, "host_s": 0.0, "last_epoch": None, "last_step": None,
             "last_path": None,
         }
         self._disarmed: Optional[str] = None
-        if self.world_size > 1:
+        if self.hosts > 1:  # the JAX engine's _addressable text
             self._disarmed = (
-                "every rank is a process, so a capture is a collective (the random streams are "
-                "gathered) that the background writer cannot join — falling back to "
-                "epoch-granular checkpoints"
+                "state holds cross-host-sharded leaves (weight-update sharding across "
+                "processes); step snapshots need a collective gather the background writer "
+                "cannot join — falling back to epoch-granular checkpoints"
             )
             logger.warning("snapshot engine disarmed: %s", self._disarmed)
+        self._last_taken = None  # (epoch, step) of the last snapshot taken, on every rank
         self._next_due = cfg.every_steps
         self._lock = threading.Lock()
         self._errors: List[str] = []
@@ -298,11 +312,26 @@ class SnapshotEngine:
         out["prefix"] = self.prefix
         if self._disarmed:
             out["disarmed"] = self._disarmed
+        elif self.world_size > 1:
+            out["writer_rank"] = 0  # every rank captures, rank 0 writes
         return out
 
     @property
     def armed(self) -> bool:
-        return self.cfg.enabled and not self._disarmed and self.rank == 0
+        """This rank takes part in the snapshots (every rank of one host
+        does: the capture is a collective)."""
+        return self.cfg.enabled and not self._disarmed
+
+    @property
+    def writes(self) -> bool:
+        """This rank writes the files (rank 0)."""
+        return self.armed and self.rank == 0
+
+    def has_room(self) -> bool:
+        """A due snapshot would be taken now (fewer than ``inflight``
+        held); rank 0's answer is the one the loop agrees on."""
+        self._advance()
+        return self._held < self.cfg.inflight
 
     def begin_epoch(self, epoch: int, start_step: int = 0) -> None:
         """Reset the cadence for ``epoch`` (a resumed epoch passes the
@@ -310,21 +339,27 @@ class SnapshotEngine:
         self._next_due = int(start_step) + self.cfg.every_steps
 
     def maybe(self, capture: Callable, *, epoch: int, step: int, plan_key,
-              acc: Optional[Dict[str, torch.Tensor]] = None) -> bool:
+              acc=None, room: Optional[bool] = None) -> bool:
         """Snapshot at ``(epoch, step)`` if the cadence is due; never waits
-        for the writer (a full engine skips, counted). Returns True when a
-        snapshot was taken."""
+        for the writer (a full engine skips, counted). ``acc`` maps the
+        partial sums' names to tensors, or is a callable returning that map
+        (called, like ``capture``, only when a snapshot is taken: at world >
+        1 both gather). ``room`` is the agreed answer of rank 0's
+        :meth:`has_room` at world > 1 (None: this engine's own). Returns
+        True when a snapshot was taken."""
         if not self.armed:
             return False
         t0 = time.perf_counter()
         self._advance()
         taken = False
         if step >= self._next_due:
-            if self._held >= self.cfg.inflight:
+            if not (self._held < self.cfg.inflight if room is None else room):
                 self.stats["skipped_queue_full"] += 1
             else:
-                job = _Job(capture(), acc, epoch, step, plan_key)
-                if self._queue is None:
+                job = _Job(capture(), acc() if callable(acc) else acc, epoch, step, plan_key)
+                if not self.writes:
+                    pass  # a collective taken part in; rank 0 writes
+                elif self._queue is None:
                     job.cap = self._host_copy(job)
                     self._write(job)
                 else:
@@ -332,6 +367,8 @@ class SnapshotEngine:
                     self._copy(job)
                     self._advance()
                 taken = True
+                self.stats["taken"] += 1
+                self._last_taken = (int(epoch), int(step))
                 self._next_due = int(step) + self.cfg.every_steps
         self.stats["host_s"] += time.perf_counter() - t0
         return taken
@@ -350,15 +387,19 @@ class SnapshotEngine:
         return self.stats["last_step"]
 
     def final_snapshot(self, capture: Callable, *, epoch: int, step: int, plan_key,
-                       acc: Optional[Dict[str, torch.Tensor]] = None) -> Optional[str]:
+                       acc=None) -> Optional[str]:
         """The drain's final delta: flush, then write the state at ``(epoch,
-        step)`` inline; its path (None off rank 0 or disarmed)."""
+        step)`` inline; its path (None off rank 0 or disarmed). Every rank
+        captures (a collective) unless the snapshot taken last, on every
+        rank alike, is this one."""
         self.flush()
         if not self.armed:
             return None
-        if self.stats["last_epoch"] == int(epoch) and self.stats["last_step"] == int(step):
-            return self.stats["last_path"]  # the flush wrote it
-        job = _Job(capture(), acc, epoch, step, plan_key)
+        if self._last_taken == (int(epoch), int(step)):
+            return self.stats["last_path"] if self.writes else None  # the flush wrote it
+        job = _Job(capture(), acc() if callable(acc) else acc, epoch, step, plan_key)
+        if not self.writes:
+            return None
         job.cap = self._host_copy(job)
         return self._write(job)
 
@@ -470,7 +511,7 @@ class SnapshotEngine:
         hb = ckpt.heartbeat_dir(self.save_dir)
         if not hb:
             return None
-        ring = (self.rank + 1) % max(self.world_size, 1)
+        ring = (self.host + 1) % self.hosts  # the host's neighbour (the JAX process ring)
         return os.path.join(hb, "peer_ckpt", f"ring_{ring}")
 
     def _spill_peer(self, path: str) -> None:

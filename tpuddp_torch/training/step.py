@@ -164,18 +164,32 @@ def make_flat_param_spec(model: torch.nn.Module, world: int) -> FlatParamSpec:
     return FlatParamSpec(tuple(shapes), tuple(sizes), raw, total, int(world))
 
 
+def global_share(n: torch.Tensor):
+    """This process's share of the global batch's real rows: ``(n /
+    sum(n), sum(n))`` (one all-reduce of ``n``; a share of 0 for an
+    all-padding global batch). A loss scaled by it and summed over the
+    processes is the global batch's weighted mean: the managed step and
+    ``mode: auto`` (``tpuddp/training/step.py:805-820``)."""
+    total = n.clone()
+    collectives.all_reduce_sum_([total])
+    return n / torch.where(total == 0, torch.ones_like(total), total), total
+
+
 def grad_core(
     model, optimizer, criterion, augment: Optional[Callable], sync_buffers: Callable,
     x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, flip_mask: Optional[torch.Tensor] = None,
-    arm: Optional[Callable] = None, remat: bool = False,
+    arm: Optional[Callable] = None, remat: bool = False, scale: Optional[Callable] = None,
 ):
     """Forward and backward of one batch; the replica's local weighted-mean
     gradient replaces each parameter's ``.grad``. Returns the on-device
-    ``(loss, n)``. Without ``flip_mask`` the augment draws its own.
-    ``arm(loss, n)``, when given, runs just before the backward (it arms
-    the segmented exchange). ``remat`` checkpoints the whole forward
-    (:func:`tpuddp_torch.nn.remat.forward`; ``tpuddp/training/step.py:
-    187-195``): the backward recomputes it, bitwise the plain step."""
+    ``(loss, n, weight)``: ``weight`` is ``n``, or with ``scale`` (``mode:
+    auto``: :func:`global_share`) the global batch's rows, the backward then
+    taken of the loss times this replica's share. Without ``flip_mask`` the
+    augment draws its own. ``arm(loss, n)``, when given, runs just before
+    the backward (it arms the segmented exchange). ``remat`` checkpoints the
+    whole forward (:func:`tpuddp_torch.nn.remat.forward`;
+    ``tpuddp/training/step.py:187-195``): the backward recomputes it,
+    bitwise the plain step."""
     model.train()
     if augment is not None:
         x = augment(x) if flip_mask is None else augment(x, flip_mask=flip_mask)
@@ -183,11 +197,15 @@ def grad_core(
     sync_buffers()
     loss = criterion(logits, y, w)
     n = w.sum()
+    weight, back = n, loss
+    if scale is not None:
+        share, weight = scale(n)
+        back = loss * share
     optimizer.zero_grad(set_to_none=True)
     if arm is not None:
         arm(loss.detach(), n)
-    loss.backward()
-    return loss.detach(), n
+    back.backward()
+    return loss.detach(), n, weight
 
 
 @torch.no_grad()
@@ -407,7 +425,8 @@ def update_core(optimizer, sync_grads: Callable, clip: Optional[float] = None,
     counters (:meth:`~tpuddp_torch.resilience.guard.Firewall.commit`)."""
     sync_grads()
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    if firewall is not None and not getattr(optimizer, "judges", False):
+    if firewall is not None and not getattr(optimizer, "judges", False) \
+            and not firewall.judged_in_sync:
         firewall.judge([p.grad for p in params if p.grad is not None])
     if clip is not None:
         clip_grad_norm_(params, clip)
@@ -421,15 +440,17 @@ def train_core(
     sync_buffers: Callable, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     clip: Optional[float] = None, flip_mask: Optional[torch.Tensor] = None,
     overlap: Optional[SegmentedSync] = None, firewall=None, remat: bool = False,
+    scale: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One train step; returns the on-device sums ``[loss_sum, n]``. With
     ``overlap`` its segmented exchange replaces ``sync_grads``; with
     ``firewall`` the update is guarded and a skipped step's buffers revert;
-    ``remat`` recomputes the forward in the backward."""
+    ``remat`` recomputes the forward in the backward; ``scale`` as
+    :func:`grad_core`."""
     saved = None if firewall is None else firewall.save_buffers(model)
     arm = None if overlap is None else (lambda loss, n: overlap.arm())
-    loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask, arm,
-                        remat)
+    loss, n, _ = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, flip_mask,
+                           arm, remat, scale)
     update_core(optimizer, sync_grads if overlap is None else overlap.join, clip, firewall)
     if saved is not None:
         firewall.restore_buffers(model, saved)
@@ -449,12 +470,14 @@ def train_cycle(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, batches: Sequence, clip: Optional[float] = None,
     flip_masks: Optional[Sequence] = None, overlap: Optional[SegmentedSync] = None,
-    firewall=None, remat: bool = False,
+    firewall=None, remat: bool = False, scale: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One accumulation cycle over the device batches ``(x, y, w)`` of
     ``batches``: ``sum n_i g_i / sum n_i`` (the mean gradient of their
     concatenation on this replica; the all-padding case divides by 1), then
-    one update. Returns the cycle's on-device sums ``[loss_sum, n]``. With
+    one update; with ``scale`` (``mode: auto``) the ``n_i`` are the global
+    batches' rows and the ``g_i`` this replica's share of their global
+    gradients. Returns the cycle's on-device sums ``[loss_sum, n]``. With
     ``overlap`` the last micro-batch's backward folds each segment and
     issues its exchange (``tpuddp/training/step.py:1001-1019``), in place
     of the fold after the cycle and ``sync_grads``. With ``firewall`` the
@@ -463,22 +486,24 @@ def train_cycle(
     saved = None if firewall is None else firewall.save_buffers(model)
     params = list(model.parameters())
     acc = [None] * len(params)
-    sums = None
+    sums = weights = None
     masks = flip_masks or [None] * len(batches)
     for j, ((x, y, w), mask) in enumerate(zip(batches, masks)):
         arm = None
         if overlap is not None and j == len(batches) - 1:
             def arm(loss, n):
                 overlap.arm(fold=(acc, n, _denom(_add_step(sums, loss, n))))
-        loss, n = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w, mask, arm,
-                            remat)
+        loss, n, weight = grad_core(model, optimizer, criterion, augment, sync_buffers, x, y, w,
+                                    mask, arm, remat, scale)
         if arm is None:
             for i, p in enumerate(params):
                 if p.grad is not None:
-                    acc[i] = n * p.grad if acc[i] is None else acc[i] + n * p.grad
+                    acc[i] = weight * p.grad if acc[i] is None else acc[i] + weight * p.grad
         sums = _add_step(sums, loss, n)
+        weights = weight if weights is None else weights + weight
     if overlap is None:
-        denom = _denom(sums)
+        denom = _denom(sums) if scale is None else torch.where(
+            weights == 0, torch.ones_like(weights), weights)
         for p, a in zip(params, acc):
             p.grad = None if a is None else a / denom
     update_core(optimizer, sync_grads if overlap is None else overlap.join, clip, firewall)
@@ -491,7 +516,7 @@ def train_many(
     model, optimizer, criterion, augment: Optional[Callable], sync_grads: Callable,
     sync_buffers: Callable, sums: torch.Tensor, batches: Sequence, flip_masks: Sequence,
     clip: Optional[float] = None, accum: int = 1, overlap: Optional[SegmentedSync] = None,
-    firewall=None, remat: bool = False,
+    firewall=None, remat: bool = False, scale: Optional[Callable] = None,
 ) -> torch.Tensor:
     """K train steps on the device batches (K / ``accum`` accumulation
     cycles), each step's flip mask given: the counterpart of
@@ -503,11 +528,11 @@ def train_many(
         if accum == 1:
             x, y, w = batches[i]
             step = train_core(model, optimizer, criterion, augment, sync_grads, sync_buffers,
-                              x, y, w, clip, flip_masks[i], overlap, firewall, remat)
+                              x, y, w, clip, flip_masks[i], overlap, firewall, remat, scale)
         else:
             step = train_cycle(model, optimizer, criterion, augment, sync_grads, sync_buffers,
                                batches[i:i + accum], clip, flip_masks[i:i + accum], overlap,
-                               firewall, remat)
+                               firewall, remat, scale)
         sums = sums + step
     return sums
 
