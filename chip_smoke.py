@@ -62,8 +62,10 @@ Phases, each printing one line (the first failure exits non-zero):
 7. resume at full width (AlexNet@224 b128 float32, ``checkpoint_epoch: 1``,
    in a temporary directory deleted afterwards; each file is 684 MB), for
    the native (``ckpt_{epoch}.npz``) and the managed (``state_{epoch}.npz``)
-   path: 2 epochs straight against epoch 0 alone and a run with ``resume:
-   true`` and ``keep_last: 1`` for epoch 1: epoch 1's losses equal, the final
+   path: 2 epochs straight, then a run with ``resume: true`` and
+   ``keep_last: 1`` from the straight run's epoch-0 file (linked into its
+   own directory, not trained and written again) for epoch 1: epoch 1's
+   losses equal, the final
    parameters and moments at max |dp| = 0, 16 float32-kernel launches in the
    resumed run, only ``*_1.npz`` kept; a truncated newest file is skipped for
    the one before it; the save and load seconds of one file;
@@ -326,7 +328,12 @@ Phases, each printing one line (the first failure exits non-zero):
      ``$TPUDDP_WORLD_SIZE=2`` = 2 hosts x 1 local, one synthetic epoch at
      ``scan_steps: 1`` (a CUDA graph cannot hold Gloo) and seed 0: ``flat``,
      ``hierarchical`` with hook ``none`` and with ``bf16_ef`` in turns
-     (flat, none, bf16_ef, none, flat). Both ranks log the world and the
+     (flat, none, bf16_ef, flat), each with a ``step_stats`` window every 2
+     updates and host 0's exporter (``observability: {exporter: true}``):
+     each host's leader publishes its telemetry shard into a heartbeat
+     directory both share (``$TPUDDP_HEARTBEAT_DIR``), and a thread of this
+     script scrapes host 0's ``/snapshot``: process 0's pod view must hold
+     both hosts. Both ranks log the world and the
      split, host 0 alone writes the checkpoint, the history and the epoch
      line, each process counts 2 Adam launches per update (``resnet18_small``'s
      two tables); ``none``'s checkpoint bitwise flat's (a sum of two values),
@@ -371,19 +378,22 @@ Phases, each printing one line (the first failure exits non-zero):
    - "20 preempt": per path (native, then managed), ``cifar10_alexnet_h100.yaml``
      (``..._managed_h100.yaml``) one synthetic epoch at ``scan_steps: 4``:
      straight without snapshots; with ``snapshot: {every_steps: 4,
-     inflight: 1}`` and ``$TPUDDP_FAULT=preempt@step=10``, exit 75 and a
+     inflight: 1}`` and ``$TPUDDP_FAULT=preempt@step=6``, exit 75 and a
      ``{prefix}_0_s{N}.npz``
-     with the v4 cursor; the ``$TPUDDP_AUTO_RESUME=1`` rerun continuing at
-     N, its epoch row and epoch file bitwise the straight run's (native at
-     2.9944 / 2.3076); Adam launches 16, N and 16 - N;
+     with the v4 cursor; ``flightrec_preempt.json`` valid, its one
+     ``preempt`` row and its notes' emergency step, final (and, native,
+     flushed) snapshot step all N; the ``$TPUDDP_AUTO_RESUME=1`` rerun
+     continuing at N, its epoch row and epoch file bitwise the straight
+     run's (native at 2.9944 / 2.3076); Adam launches 16, N and 16 - N;
    - "20 SIGTERM": the native entry point's ``main`` in a process of its
-     own, 3 synthetic epochs of 64 steps one step per batch: SIGTERM 1 s
+     own (started with the preempt cycles and run beside them: most of its
+     time is its start), 3 synthetic epochs of 64 steps one step per batch: SIGTERM 1 s
      after epoch 0's banner, exit 75 within the 25 s grace, the drain's
      step snapshot inside epoch 0 intact, a ``preempt`` event row, one Adam
      launch per update;
-   - "20 snapshot turns": 2 epochs at ``scan_steps: 4``, snapshots (every
-     4 steps, one held at a time) off, then on: rows bitwise, epoch 2's
-     step median, snapshots written and skipped, the writer's seconds and
+   - "20 snapshot turns": 1 epoch at ``scan_steps: 4``, snapshots (every
+     4 steps, one held at a time) off, then on: rows bitwise, the step
+     median, snapshots written and skipped, the writer's seconds and
      the loop's per step in the engine.
 21. the elastic restart (``multihost_h100.yaml`` cut to 2 synthetic epochs,
    ``comm_hook: bf16_ef``, seed 0):
@@ -392,12 +402,15 @@ Phases, each printing one line (the first failure exits non-zero):
      ``hang@epoch=1`` on host 1: host 0 exits 76 within 5 + 5 s of the
      hang, its ``history.jsonl`` holds a ``watchdog_stale`` row naming
      process 1 with ``lag_s`` >= 5, ``ckpt_0.npz`` holds a world-2
-     ``per_replica`` residual; host 1 is killed;
+     ``per_replica`` residual, and host 0's watchdog dumped a valid
+     ``flightrec_watchdog.json`` holding epoch 0's row; host 1 is killed;
    - "21 supervisor": the port's restore of that file at world 1 in this
      process (the residual bitwise the float32 sum of the file's two rows),
      then ``python -m tpuddp_torch.supervise --world 1 --backoff-base 0.1
-     --first-env TPUDDP_FAULT=crash@step=5`` over the entry point on the
-     same out_dir without the rendezvous, ``$TPUDDP_AUTO_RESUME=1``:
+     --first-env TPUDDP_FAULT=crash@step=5 --flight-dir <out_dir>`` over
+     the entry point on the same out_dir without the rendezvous,
+     ``$TPUDDP_AUTO_RESUME=1``: the watchdog's recording summarized once,
+     before attempt 0;
      history ``[(0, 113, 1), (1, 0, 1)]``, a ``topology_change`` (2 -> 1,
      redistributed) per attempt, attempt 1's Adam launches its updates
      times the tables; each attempt's wall seconds and the losses.
@@ -407,7 +420,8 @@ Phases, each printing one line (the first failure exits non-zero):
      ``mode: auto`` at world 1 (16 updates, 16 Adam launches, 2.9944 /
      2.3076: at world 1 the global batch is the batch), and one AlexNet@224
      b128 step (dropout 0) on the card against the CPU from one state: the
-     loss within 1e-4, the gradient's distance printed;
+     loss within 1e-4, the gradient's distance printed, beside the same
+     distance of the plain step (``mode: shard_map``);
    - "22 snapshots world 2": two rank processes this script starts, each
      the port's rank worker as local rank 0 of 1 at world 2 against a
      store the script holds (one host; Gloo on this card), every turn in
@@ -425,6 +439,26 @@ Phases, each printing one line (the first failure exits non-zero):
      snapshots, the loop's ms a step in the engine on each rank, the
      poll's ms an exchange (in each turn, and alone), the epoch-2 step
      medians off and on.
+23. the live plane (the ``observability`` block): ``cifar10_alexnet_h100.yaml``
+   one synthetic epoch one step per batch (the host-bound case) a run,
+   through the entry point's worker, in five variants in turns there and
+   back (``LIVE_TURNS``): off (``observability: false``, no ``step_stats``
+   window), the windows alone (every 4 updates), the plane alone (the
+   exporter and tracing; the flight recorder and aggregation by default),
+   the plane with the windows unscraped, and scraped every 20 ms by a
+   thread of this process (``/metrics`` and ``/snapshot`` of the port in
+   the run's ``exporter.port``); the epoch-end save replaced by clones of
+   the parameters and moments on the card: losses, parameters and moments
+   bitwise in every run, 16 Adam launches each, as many
+   ``torch.cuda.synchronize`` and ``Tensor.item`` calls (counted by
+   wrappers; ``Event.synchronize`` printed: the windows' waits);
+   ``train_steps_total`` monotone up to 16, every response whole; the
+   first scraped run's header (the bound port, the tracer), four windows,
+   one ``trace_summary`` row, ``trace_train.json`` valid under the port's
+   validator with the epoch, stage, dispatch and readback spans (and the
+   collective annotations where the segmented overlap resolved on); a
+   clean exit leaves no flight recording and no port file; each run's step
+   median.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -435,7 +469,7 @@ with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
-phase 21's, one with phase 22's, one with the optimizers', one
+phase 21's, one with phase 22's, one with phase 23's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -475,6 +509,7 @@ from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models import AlexNet, load_model  # noqa: E402
 from tpuddp_torch.models.convert import JaxFlatOrder, flat_to_jax, jax_leaf_index, jax_sizes  # noqa: E402
 from tpuddp_torch.models.pretrained import pretrained_from_config  # noqa: E402
+from tpuddp_torch.observability import aggregate as aggregate_lib  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
@@ -1101,6 +1136,21 @@ def _arrays(path):
         return {k: data[k] for k in data.files}
 
 
+def _file_compare(a_path: str, b_path: str):
+    """``(every array equal, max |d| over the float arrays)`` of two
+    checkpoint files: the sha256 of each file, from its sidecar, first
+    (equal bytes are equal arrays, with no 685 MB load), the arrays only
+    when the bytes differ."""
+    digests = [ckpt.read_manifest(p) for p in (a_path, b_path)]
+    if all(digests) and digests[0] == digests[1]:
+        return True, 0.0
+    a, b = _arrays(a_path), _arrays(b_path)
+    equal = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    dp = max((float(np.abs(a[k].astype(np.float64) - b[k].astype(np.float64)).max())
+              for k in a if k in b and a[k].dtype.kind == "f"), default=math.inf)
+    return equal, dp
+
+
 def resume_check(kind: str, root: str, overrides=None, tag: str = "7 resume"):
     """Phase 7 for one path (phase 8 with `overrides` naming another
     optimizer): 2 epochs straight against epoch 0 and a resumed epoch 1
@@ -1125,20 +1175,23 @@ def resume_check(kind: str, root: str, overrides=None, tag: str = "7 resume"):
         return history, {k.symbol: k.launches for k in fused_adam.kernels.values()}
 
     whole, _ = run(straight, num_epochs=2)
-    run(resumed, num_epochs=1)
+    # the resume's source: the straight run's epoch-0 file, linked (the same
+    # bytes a 1-epoch run writes, without training and writing them again)
+    os.makedirs(resumed, exist_ok=True)
+    for name in (f"{prefix}_0.npz", f"{prefix}_0.npz.sha256"):
+        os.link(os.path.join(straight, name), os.path.join(resumed, name))
     t0 = time.perf_counter()
     again, launches = run(resumed, num_epochs=2, resume=True, keep_last=1)
     resumed_s = time.perf_counter() - t0
-    a, b = _arrays(os.path.join(straight, f"{prefix}_1.npz")), _arrays(os.path.join(resumed, f"{prefix}_1.npz"))
-    dp = max((float(np.abs(a[k].astype(np.float64) - b[k].astype(np.float64)).max())
-              for k in a if a[k].dtype.kind == "f"), default=math.inf)
+    equal, dp = _file_compare(os.path.join(straight, f"{prefix}_1.npz"),
+                              os.path.join(resumed, f"{prefix}_1.npz"))
     kept = sorted(f for f in os.listdir(resumed) if f.startswith(f"{prefix}_"))
     checks = {
         "epoch 1 resumed alone": [r["epoch"] for r in again] == [1],
         "epoch 1's losses equal": (again[0]["train_loss"], again[0]["test_loss"]) == (
             whole[1]["train_loss"], whole[1]["test_loss"]),
         "max |dp| = 0 over parameters and moments": dp == 0.0,
-        "every array equal": sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a),
+        "every array equal": equal,
         ("16 float32-kernel launches in the resumed run" if adam else "no Adam-kernel launch"): (
             launches[fused_adam.kernel.symbol] == (16 if adam else 0)
             and sum(launches.values()) == launches[fused_adam.kernel.symbol]),
@@ -1147,7 +1200,6 @@ def resume_check(kind: str, root: str, overrides=None, tag: str = "7 resume"):
     if kind == "native" and adam:
         checks["epoch 0 at 2.9944 / 2.3076"] = (
             round(whole[0]["train_loss"], 4), round(whole[0]["test_loss"], 4)) == F32_LOSSES
-    del a, b
     newest = os.path.join(straight, f"{prefix}_1.npz")
     with open(newest, "r+b") as f:
         f.truncate(os.path.getsize(newest) // 2)
@@ -2279,8 +2331,10 @@ def _hook_agree(hook, send, card, cpu, buckets, density):
     """``(agree, ties)``: the card's and the CPU's outputs of one hook are
     equal, NaN where NaN; for topk_ef, but at elements whose magnitude is
     their bucket's top-k threshold, where the two topk implementations may
-    keep different ones of equal magnitude (``ties`` counts them)."""
-    card = card.cpu()
+    keep different ones of equal magnitude (``ties`` counts them). The
+    comparison runs on the card (exact either way; the CPU's 57 M-element
+    passes took seconds a hook)."""
+    cpu, send = cpu.to(card.device), send.to(card.device)
     nans = torch.equal(card.isnan(), cpu.isnan())
     differ = card.nan_to_num(0.0) != cpu.nan_to_num(0.0)
     if not differ.any():
@@ -2317,10 +2371,13 @@ def hooks_vs_plain():
     sizes = jax_sizes("alexnet", meta)
     buckets = comm.make_grad_comm(sizes, 1, "bf16").buckets
     zero = buckets[2]  # classifier.4's bias
-    poisoned = {"plain": g_vec, "zero bucket": g_vec.clone(), "nan bucket": g_vec.clone()}
-    poisoned["zero bucket"][zero[0]:zero[1]] = 0
-    poisoned["nan bucket"][buckets[-1][0] + 3] = float("nan")
+    # the all-zero bucket and the NaN bucket in one vector: every hook treats
+    # each bucket on its own, so one pass over the 57 M elements holds both
+    poisoned = {"plain": g_vec, "zero and nan buckets": g_vec.clone()}
+    poisoned["zero and nan buckets"][zero[0]:zero[1]] = 0
+    poisoned["zero and nan buckets"][buckets[-1][0] + 3] = float("nan")
     out = {}
+    t_agree = time.perf_counter()
     for hook in HOOKS:
         plan = comm.make_grad_comm(sizes, 1, hook)
         row = {"native_ties": 0}
@@ -2336,9 +2393,9 @@ def hooks_vs_plain():
                 if not ok:
                     raise SystemExit(f"chip_smoke: hook {hook} ({case}) on the card disagrees with the CPU")
                 row["native_ties"] += ties
-            if case == "zero bucket" and hook == "bf16" and cpu_out[zero[0]:zero[1]].any():
+            if case != "plain" and hook == "bf16" and cpu_out[zero[0]:zero[1]].any():
                 raise SystemExit("chip_smoke: bf16's all-zero bucket sent non-zeros")
-            if case == "nan bucket":
+            if case != "plain":
                 s, e = plan.buckets[-1]
                 nans = int(cpu_out[s:e].isnan().sum())
                 want = {"bf16": 1, "bf16_ef": 1, "int8_ef": e - s,
@@ -2360,7 +2417,9 @@ def hooks_vs_plain():
             row["managed_ties"] += ties
         out[hook] = row
         del cpu_out, card_out, cpu_q, cpu_r, card_q, card_r
+    agree_s = time.perf_counter() - t_agree
     # the round trips, in turns
+    t_turns = time.perf_counter()
     model = AlexNet(num_classes=10).cuda()
     params = list(model.parameters())
     card_order = JaxFlatOrder("alexnet", model)
@@ -2400,7 +2459,8 @@ def hooks_vs_plain():
           + "); the all-zero bucket and the NaN bucket as the JAX package gives them; round trip "
           + ", ".join(f"{h} {out[h]['round_trip_ms']:.3f} ms" for h in ("none",) + HOOKS)
           + f" (comm_sync on the card, the median of {2 * HOOK_ITERS} calls timed each, in 2 turns; none: "
-          "the plain sync's flatten and copy back)")
+          f"the plain sync's flatten and copy back); agreement {agree_s:.1f} s, round trips "
+          f"{time.perf_counter() - t_turns:.1f} s")
     return out
 
 
@@ -2658,10 +2718,13 @@ def overlap_pair(hook: str, batches, init, accum: int = 1, rounds: int = OVERLAP
     started = time.perf_counter()
     k, updates = OVERLAP_K, OVERLAP_K * OVERLAP_CHUNKS // accum
     states, launches, kinds, kept, meta, counts = {}, {}, {}, {}, None, None
+    seconds = {}  # each run's: (its wrap built, its chunks run)
     for label, replay in OVERLAP_RUNS:
+        t0 = time.perf_counter()
         gc.collect()  # earlier wraps and their graphs, which cycles may hold
         torch.cuda.empty_cache()
         ddp = _overlap_ddp(hook, label == "segmented", replay, init, accum)
+        t1 = time.perf_counter()
         if label == "segmented":
             meta = ddp.comm_overlap_meta
         torch.cuda.manual_seed(7)
@@ -2671,6 +2734,7 @@ def overlap_pair(hook: str, batches, init, accum: int = 1, rounds: int = OVERLAP
             ddp.train_step_many(batches[c * k:(c + 1) * k])
         torch.cuda.synchronize()
         run = f"{label} {'replay' if replay else 'eager'}"
+        seconds[run] = (round(t1 - t0, 2), round(time.perf_counter() - t1, 2))
         launches[run] = fused_adam.kernel.launches
         kinds[run] = _kinds(graphs.stats)
         states[run] = _ddp_state(ddp)
@@ -2722,7 +2786,7 @@ def overlap_pair(hook: str, batches, init, accum: int = 1, rounds: int = OVERLAP
           + "; ".join(f"{run} " + " ".join(f"{p} {v:.3g}" for p, v in d.items()) for run, d in diff.items())
           + f" (bitwise); Adam launches {launches}; replayed step median barrier {medians['barrier']:.3f} "
           f"ms, segmented {medians['segmented']:.3f} ms ({rounds} rounds of b,s,s,b, {k} steps a chunk); "
-          f"{time.perf_counter() - started:.1f} s")
+          f"seconds (wrap, chunks) {seconds}; {time.perf_counter() - started:.1f} s")
     if traced is not None:
         phase("13 stream overlap", f"comm_hook {hook}, one chunk of {k} of each wrap under torch.profiler, "
               "eagerly and replayed: " + "; ".join(f"{label}: {json.dumps(t)}" for label, t in traced.items()))
@@ -3675,9 +3739,15 @@ MULTIHOST_TOPOLOGIES = {
     "hierarchical none": {"comm_topology": "hierarchical"},
     "hierarchical bf16_ef": {"comm_topology": "hierarchical", "comm_hook": "bf16_ef"},
 }
-# flat against hierarchical in turns, bf16_ef between them
-MULTIHOST_TURNS = ("flat", "hierarchical none", "hierarchical bf16_ef", "hierarchical none", "flat")
+# flat, hierarchical none and bf16_ef, and flat again (the repeated run)
+MULTIHOST_TURNS = ("flat", "hierarchical none", "hierarchical bf16_ef", "flat")
 MULTIHOST_S = 600
+# the live plane rides every turn: a step_stats window every 2 updates (each
+# host's leader publishes its telemetry shard there into a heartbeat
+# directory both hosts share, $TPUDDP_HEARTBEAT_DIR), host 0's exporter,
+# which the script scrapes for the pod view
+MULTIHOST_LIVE = {"step_stats_every": 2}
+MULTIHOST_OBS = {"exporter": True}
 # each host process: every turn in order, each the native entry point's
 # main() as `python -m tpuddp_torch.train_native` runs it, the Adam-kernel
 # launch counts set to 0 just before it and printed just after. One process
@@ -3724,7 +3794,9 @@ def multihost_runs(root: str):
         settings = json.loads(json.dumps(base))
         # the file has no seed (a fresh one per run): runs compared bitwise need one
         settings["training"].update(num_epochs=1, dataset="synthetic", synthetic_n=[2048, 512],
-                                    scan_steps=1, seed=0, **MULTIHOST_TOPOLOGIES[label])
+                                    scan_steps=1, seed=0, **MULTIHOST_LIVE,
+                                    **MULTIHOST_TOPOLOGIES[label])
+        settings["observability"] = MULTIHOST_OBS
         settings["local"]["rendezvous"]["coordinator_address"] = f"127.0.0.1:{port}"
         dirs = []
         for pid in (0, 1):
@@ -3737,25 +3809,35 @@ def multihost_runs(root: str):
             dirs.append(d)
         runs.append(dict(label=label, dirs=dirs))
     procs = []
+    hb = os.path.join(root, "heartbeats")
+    stop = threading.Event()
+    pods = {run["dirs"][0]: [] for run in runs}
+    scraper = threading.Thread(target=_scrape_pods, args=(pods, stop), daemon=True)
     t0 = time.perf_counter()
     for pid in (0, 1):
         env = dict(os.environ, TPUDDP_BACKEND="gloo", TPUDDP_PROCESS_ID=str(pid),
-                   TPUDDP_WORLD_SIZE="2", PYTHONPATH=ROOT)
-        for var in ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES"):
+                   TPUDDP_WORLD_SIZE="2", PYTHONPATH=ROOT, TPUDDP_HEARTBEAT_DIR=hb)
+        for var in ("TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_WATCHDOG_TIMEOUT"):
             env.pop(var, None)
         procs.append(subprocess.Popen([sys.executable, "-c", HOST_SCRIPT, *paths[pid]], cwd=ROOT,
                                       env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True))
+    scraper.start()
     outs = []
     try:
         for p in procs:
             outs.append(p.communicate(timeout=MULTIHOST_S))
     finally:
+        stop.set()
+        scraper.join(timeout=30)
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
     wall_s = time.perf_counter() - t0
+    for run in runs:
+        run["pod_hosts"] = pods[run["dirs"][0]]
+    shards = {pid: aggregate_lib.read_shard(hb, pid) for pid in (0, 1)}
     for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             raise SystemExit(f"chip_smoke: 17 multihost: host {pid} exited {p.returncode}:\n"
@@ -3770,7 +3852,32 @@ def multihost_runs(root: str):
         for i, run in enumerate(runs):
             run.setdefault("launches", []).append(json.loads(parts[i + 1].partition("\n")[0]))
             run.setdefault("stdout", []).append(parts[0] if i == 0 else parts[i].partition("\n")[2])
-    return runs, wall_s
+    return runs, wall_s, shards
+
+
+def _scrape_pods(pods: dict, stop: threading.Event) -> None:
+    """While the hosts run: each turn's host-0 exporter (named in its port
+    file once ``/healthz`` answers) scraped for the pod view's hosts
+    reporting (``pod_hosts_reporting``), appended to ``pods[dir]``."""
+    import urllib.request
+
+    from tpuddp_torch.observability.exporter import read_live_port
+
+    while not stop.is_set():
+        for d, seen in pods.items():
+            port = read_live_port(d, probe_timeout=0.2) if os.path.exists(
+                os.path.join(d, "exporter.port")) else None
+            if port is None:
+                continue
+            try:
+                series = json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/snapshot", timeout=2).read())["series"]
+            except OSError:
+                continue
+            value = series.get("pod_hosts_reporting", {}).get("value")
+            if value is not None:
+                seen.append(value)
+        stop.wait(0.05)
 
 
 def _multihost_checks(run):
@@ -3854,7 +3961,7 @@ def multihost_phase():
     root = tempfile.mkdtemp(prefix="tpuddp_torch_multihost_")
     runs = []
     try:
-        turns, wall_s = multihost_runs(root)
+        turns, wall_s, shards = multihost_runs(root)
         for run in turns:
             row = _multihost_checks(run)
             file = _arrays(os.path.join(run["dirs"][0], "ckpt_0.npz"))
@@ -3879,7 +3986,15 @@ def multihost_phase():
         diffs = {name: _file_diff(a, b) for name, a, b in pairs}
         residual = bf16[1][".comm_state"]
         tol = {k: comm.loss_parity_tol("bf16_ef", flat[0][k]) for k in ("train_loss", "test_loss")}
+        pod = {run["label"] + f" turn {i}": max(run["pod_hosts"], default=0)
+               for i, (run, _, _) in enumerate(runs)}
+        stragglers = sum(r.get("event") == "straggler" for run, _, _ in runs
+                         for r in map(json.loads, open(os.path.join(run["dirs"][0], "history.jsonl"))))
         checks = {
+            "process 0's aggregator saw hosts 0 and 1": max(pod.values()) == 2,
+            "each host's shard in the shared heartbeat directory": all(
+                shard is not None and shard["window_index"] > 0 and shard["epoch"] == 0
+                for shard in shards.values()),
             "hierarchical none bitwise flat": diffs["hierarchical none vs flat"] == 0.0,
             "repeated runs bitwise": all(v == 0.0 for k, v in diffs.items() if k.endswith("repeated")),
             "bf16_ef within loss_parity_tol of flat": all(
@@ -3889,7 +4004,8 @@ def multihost_phase():
         }
         failed = [c for c, ok in checks.items() if not ok]
         if failed:
-            raise SystemExit(f"chip_smoke: 17 multihost: failed {failed}: diffs {diffs}, tol {tol}, "
+            raise SystemExit(f"chip_smoke: 17 multihost: failed {failed}: pod {pod}, shards {shards}, "
+                             f"diffs {diffs}, tol {tol}, "
                              f"losses flat {flat[0]['train_loss']}/{flat[0]['test_loss']} bf16_ef "
                              f"{bf16[0]['train_loss']}/{bf16[0]['test_loss']}")
         medians = {f"{run['label']} turn {i}": statistics.median(row["step_ms"][1:])
@@ -3900,7 +4016,10 @@ def multihost_phase():
               f"vs flat {flat[0]['train_loss']:.4f}/{flat[0]['test_loss']:.4f} (bounds "
               f"{tol['train_loss']:.3f}/{tol['test_loss']:.3f}), residual max |r| "
               f"{float(np.abs(residual).max()):.3g}; {len(runs)} turns in {wall_s:.1f} s (two host "
-              "processes, each running every turn)")
+              "processes, each running every turn); live plane: hosts in host 0's pod view per turn "
+              f"{pod} (its /snapshot scraped), {stragglers} straggler rows, shards " + json.dumps(
+                  {pid: {k: shard[k] for k in ("window_index", "epoch", "step", "step_time_ms_p50")}
+                   for pid, shard in shards.items()}))
         out = {
             "turns": list(MULTIHOST_TURNS),
             "step_ms_medians_gloo_two_ranks_one_card": medians,
@@ -3914,6 +4033,8 @@ def multihost_phase():
                          for i, (run, _, _) in enumerate(runs) for pid in (0, 1)},
             "epoch_s": [row["epoch_time_s"] for _, row, _ in runs],
             "wall_s": wall_s,
+            "pod_hosts_reporting": pod,
+            "straggler_rows": stragglers,
         }
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4122,18 +4243,25 @@ def launcher_checks(root: str):
 
     settings = cfg_lib.load_settings(SETTINGS)
     out = {}
-    for block, local in (("gpu", {"device": "cuda", "gpu": {"num_gpus": 1}}),
-                         ("condor", {"device": "cuda", "condor": {"bid": 50, "num_cpus": 8,
-                                                                   "memory_cpus": 96000, "num_gpus": 1,
-                                                                   "memory_gpus": 80000}})):
-        out_dir = os.path.join(root, block)
+    blocks = (("gpu", {"device": "cuda", "gpu": {"num_gpus": 1}}),
+              ("condor", {"device": "cuda", "condor": {"bid": 50, "num_cpus": 8, "memory_cpus": 96000,
+                                                        "num_gpus": 1, "memory_gpus": 80000}}))
+    # both blocks' launchers at once, then both written commands at once (each
+    # a process start): the same runs, side by side
+    submits = {}
+    for block, local in blocks:
         path = os.path.join(root, f"{block}.yaml")
         with open(path, "w") as f:
-            yaml.safe_dump({**settings, "out_dir": out_dir, "local": local}, f)
-        done = subprocess.run([sys.executable, "-m", "tpuddp_torch.submit_job", "--settings_file", path,
-                               "--dry_run"], cwd=ROOT, capture_output=True, text=True)
-        if done.returncode != 0:
-            raise SystemExit(f"chip_smoke: 18 launcher {block}: {done.stderr}")
+            yaml.safe_dump({**settings, "out_dir": os.path.join(root, block), "local": local}, f)
+        submits[block] = subprocess.Popen([sys.executable, "-m", "tpuddp_torch.submit_job",
+                                           "--settings_file", path, "--dry_run"], cwd=ROOT,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    commands = {}
+    for block, _ in blocks:
+        out_dir = os.path.join(root, block)
+        _, err = submits[block].communicate(timeout=300)
+        if submits[block].returncode != 0:
+            raise SystemExit(f"chip_smoke: 18 launcher {block}: {err}")
         if block == "gpu":
             script = os.path.join(out_dir, "launch_gpu.sh")
             text = open(script).read()
@@ -4146,10 +4274,14 @@ def launcher_checks(root: str):
             command = shlex.split(args[len("arguments = "):].strip('"'))
             ok = (f"executable = {sys.executable}" in text and "request_gpus = 1" in text
                   and "TARGET.CUDAGlobalMemoryMb > 80000" in text and text.rstrip().endswith("queue"))
-        ran = subprocess.run([sys.executable, *command, "--help"], cwd=ROOT, capture_output=True, text=True)
+        commands[block] = (ok, command, text, subprocess.Popen(
+            [sys.executable, *command, "--help"], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    for block, (ok, command, text, ran) in commands.items():
+        _, err = ran.communicate(timeout=300)
         if not ok or ran.returncode != 0:
             raise SystemExit(f"chip_smoke: 18 launcher {block}: contract {ok}, {command} --help exited "
-                             f"{ran.returncode}: {ran.stderr[-500:]}")
+                             f"{ran.returncode}: {err[-500:]}")
         out[block] = " ".join(command)
         phase("18 launcher", f"local.{block} --dry_run: {text.splitlines()[0] if block == 'condor' else script}"
               f"; `python {out[block]} --help` from the repository's root exited 0")
@@ -4316,7 +4448,9 @@ def telemetry_phase(plain):
 # injected preempt
 PREEMPT_SNAP = {"every_steps": 4, "inflight": 1}
 PREEMPT_RUN = {"scan_steps": 4, "snapshot": PREEMPT_SNAP, "keep_last": 2}
-PREEMPT_STEP = 10
+# (a rank's 7th micro-batch: the drain lands after the first chunk, at the
+# step of the first snapshot, which the drain's flush has then published)
+PREEMPT_STEP = 6
 PREEMPT_GRACE_S = 25.0  # the drain's default grace ($TPUDDP_PREEMPT_GRACE)
 # the turns without snapshots have no save directory; two turns, not four, to
 # leave the script's time to phase 21
@@ -4375,11 +4509,30 @@ def _step_files(d: str, prefix: str):
                   key=lambda f: int(f[len(prefix) + 4:-4]))
 
 
+def _flight(d: str, reason: str):
+    """``d``'s ``flightrec_<reason>.json`` (host 0's) and its errors under
+    the port's validator (``({}, [...])`` when there is none)."""
+    from tpuddp_torch.observability import schema
+
+    path = os.path.join(d, f"flightrec_{reason}.json")
+    if not os.path.exists(path):
+        return {}, [f"no {os.path.basename(path)}"]
+    errors, _ = schema.validate_flight_file(path)
+    with open(path) as f:
+        return json.load(f), errors
+
+
+def _flight_notes(payload: dict) -> dict:
+    """A recording's notes but the paths, and its rings' counts."""
+    notes = {k: v for k, v in (payload.get("notes") or {}).items() if k != "emergency_checkpoint"}
+    return {**notes, "counts": payload.get("counts"), "reason": payload.get("reason")}
+
+
 def preempt_cycle(kind: str, root: str):
     """20 for one path: the epoch straight (without snapshots: they change
     nothing a run computes, which the snapshot turns hold, and each is a
     685 MB write); the same run with snapshots every 4 steps and
-    ``$TPUDDP_FAULT=preempt@step=10``, which must exit 75
+    ``$TPUDDP_FAULT=preempt@step=6``, which must exit 75
     with a step snapshot carrying the v4 cursor; the ``$TPUDDP_AUTO_RESUME=1``
     rerun, whose epoch row and epoch file must be bitwise the straight
     run's; one Adam launch per update in each run."""
@@ -4413,8 +4566,10 @@ def preempt_cycle(kind: str, root: str):
     t0 = time.perf_counter()
     again, l_again = _with_env({"TPUDDP_AUTO_RESUME": "1"}, lambda: run(cut))
     resumed_s = time.perf_counter() - t0
-    a, b = _arrays(os.path.join(straight, f"{prefix}_0.npz")), _arrays(os.path.join(cut, f"{prefix}_0.npz"))
+    equal, _ = _file_compare(os.path.join(straight, f"{prefix}_0.npz"),
+                             os.path.join(cut, f"{prefix}_0.npz"))
     step = int(cursor["step"]) if cursor else -1
+    flight, flight_errors = _flight(cut, "preempt")
     keys = ("train_loss", "test_loss", "test_accuracy", "train_samples")
     checks = {
         "exit 75": code == 75,
@@ -4422,43 +4577,50 @@ def preempt_cycle(kind: str, root: str):
         and cursor["epoch"] == 0 and 0 < step < 16 and bool(cursor.get("plan_key")) and intact,
         "resumed epoch row bitwise the straight run's": [[r[k] for k in keys] for r in again] == [
             [r[k] for k in keys] for r in whole],
-        f"{prefix}_0.npz bitwise the straight run's": sorted(a) == sorted(b)
-        and all(np.array_equal(a[k], b[k]) for k in a),
+        f"{prefix}_0.npz bitwise the straight run's": equal,
         "one Adam launch per update (16 straight, step cut, 16 - step resumed)": (
             l_whole, l_cut, l_again) == (16, step, 16 - step),
+        "flightrec_preempt.json valid, its preempt row and steps the drain's": not flight_errors
+        and [e["event"] for e in flight["records"]["event"]] == ["preempt"]
+        and flight["notes"]["emergency_step"] == flight["records"]["event"][0]["step"] == step
+        and flight["notes"]["snapshot_final_step"] == step,
     }
     if native:
         checks["the epoch at 2.9944 / 2.3076"] = (
             round(whole[0]["train_loss"], 4), round(whole[0]["test_loss"], 4)) == F32_LOSSES
-    del a, b
+        checks["the recording's flushed step the snapshot's"] = (
+            flight.get("notes", {}).get("snapshot_flushed_step") == step)
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: 20 preempt {kind} failed {failed}: exit {code}, files "
                          f"{sorted(os.listdir(cut))}, cursor {cursor}, launches {(l_whole, l_cut, l_again)}, "
-                         f"straight {whole}, resumed {again}")
+                         f"flight {flight_errors[:5]} {flight.get('notes')}, straight {whole}, "
+                         f"resumed {again}")
     acc = {k: np.asarray(v).tolist() for k, v in (cursor.get("acc") or {}).items() if k != "['losses']"}
     phase("20 preempt", f"{kind} AlexNet@224 b128 float32, scan_steps 4, snapshot every 4 steps: "
           f"preempt@step={PREEMPT_STEP} exit {code} after {drain_s:.2f} s, {snaps[-1]} (cursor step "
           f"{step}, plan key {cursor['plan_key']}, acc {acc}); auto-resume continued at step {step}: "
           f"train_loss {again[0]['train_loss']!r} test_loss {again[0]['test_loss']!r} bitwise the straight "
           f"run's, {prefix}_0.npz bitwise; Adam launches straight/cut/resumed {l_whole}/{l_cut}/{l_again}; "
+          f"flightrec_preempt.json notes {json.dumps(_flight_notes(flight))}; "
           f"straight run {straight_s:.2f} s, resumed run {resumed_s:.2f} s")
     shutil.rmtree(straight, ignore_errors=True)
     shutil.rmtree(cut, ignore_errors=True)
     return dict(exit=code, drain_s=drain_s, cursor_step=step, file=snaps[-1], acc=acc,
-                straight_s=straight_s, resumed_s=resumed_s,
+                straight_s=straight_s, resumed_s=resumed_s, flight_notes=_flight_notes(flight),
                 losses={k: again[0][k] for k in ("train_loss", "test_loss")},
                 launches={f"{kind} straight (phase 20)": l_whole,
                           f"{kind} preempted (phase 20)": l_cut, f"{kind} resumed (phase 20)": l_again})
 
 
-def sigterm_run(root: str):
+def sigterm_run(root: str, started: threading.Event = None):
     """20 SIGTERM: ``cifar10_alexnet_h100.yaml`` through ``python -m
     tpuddp_torch.train_native``'s ``main`` in a process of its own (3
     synthetic epochs of 64 steps, one step per batch, snapshots every 4
     steps); :data:`SIGTERM_AFTER_S` after epoch 0's banner the script sends
     SIGTERM; the process must exit 75 within the grace with an intact step
-    snapshot written for the drain and a ``preempt`` event row."""
+    snapshot written for the drain and a ``preempt`` event row. ``started``
+    is set once the process is launched (its environment copied)."""
     settings = cfg_lib.load_settings(SETTINGS)
     d = os.path.join(root, "sigterm")
     os.makedirs(d)
@@ -4475,6 +4637,8 @@ def sigterm_run(root: str):
     t0 = time.perf_counter()
     p = subprocess.Popen([sys.executable, "-u", "-c", SIGTERM_SCRIPT, yaml_path], cwd=ROOT, env=env,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if started is not None:
+        started.set()
     watchdog = threading.Timer(300, p.kill)
     watchdog.start()
     lines, t_sig = [], None
@@ -4538,30 +4702,37 @@ def snapshot_turns(root: str):
     for i, mode in enumerate(SNAPSHOT_TURNS):
         d = os.path.join(root, f"turn{i}_{mode}")
         on = mode == "on"
-        overrides = dict(PREEMPT_RUN, num_epochs=2, snapshot=PREEMPT_SNAP if on else None)
-        history, wall_s, launches = native_run(SETTINGS, overrides, save_dir=d if on else None)
+        overrides = dict(PREEMPT_RUN, num_epochs=1, snapshot=PREEMPT_SNAP if on else None)
+        real_save = ckpt.save_on_main
+        # the epoch-end save is not what the turns measure (a 685 MB write
+        # the off turn, with no save directory, does not make)
+        ckpt.save_on_main = lambda save_dir, epoch, model, optimizer, *a, **k: None
+        try:
+            history, wall_s, launches = native_run(SETTINGS, overrides, save_dir=d if on else None)
+        finally:
+            ckpt.save_on_main = real_save
         # the writer's statistics once every write has landed: the newest sidecar
         sidecars = [json.load(open(os.path.join(d, f))) for f in os.listdir(d)
                     if f.endswith(".writer.json")] if on else []
         snap = max(sidecars, key=lambda w: (w["snapshots"], w["skipped_queue_full"]), default={})
         shutil.rmtree(d, ignore_errors=True)
         runs.append(dict(mode=mode, wall_s=wall_s, launches=launches[fused_adam.kernel.symbol],
-                         step_ms_median=statistics.median(history[1]["step_ms"]),
+                         step_ms_median=statistics.median(history[0]["step_ms"]),
                          rows=[[r[k] for k in ("train_loss", "test_loss")] for r in history],
                          snapshots=snap.get("snapshots"), skipped=snap.get("skipped_queue_full"),
                          write_s=snap.get("write_s"),
-                         host_ms_per_step=None if not snap else snap["host_s"] * 1e3 / 32))
+                         host_ms_per_step=None if not snap else snap["host_s"] * 1e3 / 16))
     checks = {
         "every turn's rows bitwise the first's": all(r["rows"] == runs[0]["rows"] for r in runs),
-        "32 Adam launches a run": all(r["launches"] == 32 for r in runs),
+        "16 Adam launches a run": all(r["launches"] == 16 for r in runs),
         "snapshots written where on": all((r["snapshots"] or 0) > 0 for r in runs if r["mode"] == "on"),
     }
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: 20 snapshot turns failed {failed}: {runs}")
-    phase("20 snapshot turns", "cifar10_alexnet_h100.yaml 2 epochs at scan_steps 4, snapshots every 4 "
+    phase("20 snapshot turns", "cifar10_alexnet_h100.yaml 1 epoch at scan_steps 4, snapshots every 4 "
           "steps (one held at a time) off/on in turns: " + "; ".join(
-              f"{r['mode']} epoch-2 step median {r['step_ms_median']:.3f} ms" + (
+              f"{r['mode']} step median {r['step_ms_median']:.3f} ms" + (
                   f" ({r['snapshots']} written, {r['skipped']} skipped, writer {r['write_s']:.2f} s, "
                   f"loop {r['host_ms_per_step']:.3f} ms/step in the engine)" if r["mode"] == "on" else "")
               + f", wall {r['wall_s']:.2f} s" for r in runs) + "; rows bitwise across turns")
@@ -4571,11 +4742,27 @@ def snapshot_turns(root: str):
 
 def preempt_phase():
     """Phase 20: the drain and the step snapshots (native and managed cycles,
-    the real SIGTERM, snapshots off/on in turns)."""
+    the real SIGTERM, snapshots off/on in turns). The SIGTERM process runs
+    beside the cycles (most of its time is its start; the card holds both)."""
     root = tempfile.mkdtemp(prefix="tpuddp_torch_preempt_")
     try:
+        started, sig = threading.Event(), {}
+
+        def sigterm():
+            try:
+                sig["out"] = sigterm_run(root, started)
+            except BaseException as e:  # noqa: BLE001 — raised again on this thread
+                sig["error"] = e
+                started.set()
+
+        side = threading.Thread(target=sigterm, name="chip-smoke-sigterm", daemon=True)
+        side.start()
+        started.wait()
         cycles = {kind: preempt_cycle(kind, root) for kind in ("native", "managed")}
-        sig = sigterm_run(root)
+        side.join()
+        if "error" in sig:
+            raise sig["error"]
+        sig = sig["out"]
         turns = snapshot_turns(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4687,7 +4874,12 @@ def elastic_hang(root: str):
     topo = ckpt.read_topology(os.path.join(out, "ckpt_0.npz"))
     residual_tag = ((topo or {}).get("leaves") or {}).get(".comm_state") or {}
     epoch_0 = [r for r in records if r["type"] == "epoch"]
+    flight, flight_errors = _flight(out, "watchdog")
     checks = {
+        "host 0's flightrec_watchdog.json valid, holding epoch 0's row": not flight_errors
+        and flight["reason"] == "watchdog" and flight["process_index"] == 0
+        and [r["epoch"] for r in flight["records"]["epoch"]] == [0]
+        and flight["run_meta"]["observability"]["flight_recorder"] == {"capacity": 64},
         "host 0 exits 76": rc0 == 76,
         "host 1 hung (alive, its hang logged) when host 0 exited": host1_alive and bool(hung),
         f"host 0 out within {ELASTIC_TIMEOUT_S} + {ELASTIC_SLACK_S} s of the hang":
@@ -4702,15 +4894,18 @@ def elastic_hang(root: str):
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: 21 watchdog: failed {failed}; rc0 {rc0}, detect {detect_s} s, "
-                         f"stale {stale}, topology {topo}\nhost 0:\n{texts[0][-3000:]}\n"
+                         f"stale {stale}, topology {topo}, flight {flight_errors[:5]} "
+                         f"{_flight_notes(flight)}\nhost 0:\n{texts[0][-3000:]}\n"
                          f"host 1:\n{texts[1][-3000:]}")
     phase("21 watchdog", f"multihost_h100.yaml 2 synthetic epochs bf16_ef, world 2 = 2 hosts over Gloo "
           f"on one card, $TPUDDP_WATCHDOG_TIMEOUT={ELASTIC_TIMEOUT_S:g}, hang@epoch=1 on host 1: host 0 "
           f"exit {rc0} {detect_s:.2f} s after the hang (limit {ELASTIC_TIMEOUT_S + ELASTIC_SLACK_S:g}), "
           f"stale lag {stale[0]['stale_peers'][0]['lag_s']} s; pair's wall {t_exit - t0:.1f} s; epoch 0 "
-          f"losses {epoch_0[0]['train_loss']:.4f}/{epoch_0[0]['test_loss']:.4f}")
+          f"losses {epoch_0[0]['train_loss']:.4f}/{epoch_0[0]['test_loss']:.4f}; host 0 dumped "
+          f"flightrec_watchdog.json ({json.dumps(_flight_notes(flight))})")
     return out, dict(rc_host0=rc0, detect_s=detect_s, stale=stale[0], wall_s=t_exit - t0,
-                     epoch_0=[epoch_0[0]["train_loss"], epoch_0[0]["test_loss"]])
+                     epoch_0=[epoch_0[0]["train_loss"], epoch_0[0]["test_loss"]],
+                     flight=_flight_notes(flight))
 
 
 def elastic_restore_check(out: str, training: dict):
@@ -4757,7 +4952,7 @@ def elastic_supervised(root: str, out: str):
                 "TPUDDP_FAULT", "TPUDDP_WATCHDOG_TIMEOUT", "TPUDDP_WORLD_SIZE"):
         env.pop(var, None)
     cmd = [sys.executable, "-m", "tpuddp_torch.supervise", "--world", "1", "--backoff-base", "0.1",
-           "--first-env", f"TPUDDP_FAULT=crash@step={ELASTIC_CRASH_STEP}", "--",
+           "--first-env", f"TPUDDP_FAULT=crash@step={ELASTIC_CRASH_STEP}", "--flight-dir", out, "--",
            sys.executable, "-c", ELASTIC_CHILD_SCRIPT, "--settings_file", path]
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -4811,13 +5006,17 @@ def elastic_supervised(root: str, out: str):
         and launch_lines[0][f32] == tables * updates and sum(launch_lines[0].values()) == tables * updates,
         "finite losses": all(math.isfinite(r[k]) for r in last_rows for k in ("train_loss", "test_loss")),
         "the history validates": not errors,
+        "the supervisor summarized the watchdog's recording once, before attempt 0": text.count(
+            "supervisor: flight recording: reason=watchdog process=0") == 1
+        and text.index("supervisor: flight recording: reason=watchdog") < text.index("START "),
     }
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: 21 supervisor: failed {failed}; rc {rc}, history {history}, "
                          f"topology {topo}, launches {launch_lines}, errors {errors[:5]}\n{text[-5000:]}")
     phase("21 supervisor", f"python -m tpuddp_torch.supervise --world 1 --backoff-base 0.1 --first-env "
-          f"TPUDDP_FAULT=crash@step={ELASTIC_CRASH_STEP} over the entry point on the pair's out_dir at "
+          f"TPUDDP_FAULT=crash@step={ELASTIC_CRASH_STEP} --flight-dir <out_dir> over the entry point "
+          f"(the watchdog's recording summarized before attempt 0) on the pair's out_dir at "
           f"world 1 on the card: history {history}, exit {rc}; attempts' wall "
           + ", ".join(f"{w:.1f} s" for w in wall) + f"; restore in this process: residual of "
           f"{restore['elements']} bitwise the float32 sum of the file's 2 rows (max |r| "
@@ -5122,19 +5321,31 @@ def auto_world_1():
              torch.randint(0, 10, (128,), generator=gen), torch.ones(128))
     torch.manual_seed(0)
     init = AlexNet(num_classes=10, dropout=0.0).state_dict()
-    sums, grads = {}, {}
-    for dev in ("cuda", "cpu"):
-        model = AlexNet(num_classes=10, dropout=0.0)
-        model.load_state_dict(init)
-        ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
-                                      augment=make_train_augment(size=224, flip=False), device=dev,
-                                      mode="auto")
-        sums[dev] = ddp.train_step(batch).cpu()
-        grads[dev] = [p.grad.detach().cpu() for p in ddp.model.parameters()]
-    loss_rel = float((sums["cuda"][0] - sums["cpu"][0]).abs() / sums["cpu"][0].abs())
-    grad_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads["cuda"], grads["cpu"]))
-    grad_l2 = float(torch.cat([(a - b).reshape(-1) for a, b in zip(grads["cuda"], grads["cpu"])]).norm()
-                    / torch.cat([b.reshape(-1) for b in grads["cpu"]]).norm())
+    # the same step at mode shard_map (the plain per-replica step) beside it:
+    # whether the card parts from the CPU in the gradient for mode auto alone
+    parts = {}
+    for mode in ("auto", "shard_map"):
+        sums, grads = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = AlexNet(num_classes=10, dropout=0.0)
+            model.load_state_dict(init)
+            ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                          augment=make_train_augment(size=224, flip=False), device=dev,
+                                          mode=mode)
+            sums[dev] = ddp.train_step(batch).cpu()
+            grads[dev] = [p.grad.detach().cpu() for p in ddp.model.parameters()]
+        parts[mode] = dict(
+            sums=sums, grads=grads,
+            loss_rel=float((sums["cuda"][0] - sums["cpu"][0]).abs() / sums["cpu"][0].abs()),
+            grad_rel=max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(grads["cuda"], grads["cpu"])),
+            grad_l2=float(torch.cat([(a - b).reshape(-1) for a, b in zip(grads["cuda"], grads["cpu"])]).norm()
+                          / torch.cat([b.reshape(-1) for b in grads["cpu"]]).norm()))
+    sums, loss_rel, grad_rel, grad_l2 = (parts["auto"][k] for k in ("sums", "loss_rel", "grad_rel",
+                                                                    "grad_l2"))
+    plain = parts["shard_map"]
+    auto_vs_plain = max(float((a - b).abs().max()) for dev in ("cuda", "cpu")
+                        for a, b in zip(parts["auto"]["grads"][dev], plain["grads"][dev]))
     if not (loss_rel <= AUTO22_RTOL and sums["cuda"][1] == sums["cpu"][1] == 128):
         raise SystemExit(f"chip_smoke: 22 mode auto card vs CPU: sums {sums}, loss relative {loss_rel}, "
                          f"gradient relative {grad_rel}")
@@ -5145,11 +5356,17 @@ def auto_world_1():
           f"against the CPU from one state: loss sum {float(sums['cuda'][0])!r} vs "
           f"{float(sums['cpu'][0])!r} (relative {loss_rel:.3g}, tolerance {AUTO22_RTOL:g}); the gradient "
           f"(not held) {grad_l2:.3g} off in relative L2, elementwise up to {grad_rel:.3g} of a leaf's "
-          f"largest element")
+          f"largest element; the plain step (mode shard_map) from the same state and batch: loss sum "
+          f"{float(plain['sums']['cuda'][0])!r} vs {float(plain['sums']['cpu'][0])!r} (relative "
+          f"{plain['loss_rel']:.3g}), its gradient {plain['grad_l2']:.3g} off the CPU's in relative L2, "
+          f"elementwise up to {plain['grad_rel']:.3g}; auto vs plain on one device: max |d grad| "
+          f"{auto_vs_plain:.3g}")
     return dict(launches=launches[fused_adam.kernel.symbol], updates=steps,
                 losses=[history[0]["train_loss"], history[0]["test_loss"]],
                 card_vs_cpu_loss_sum=[float(sums["cuda"][0]), float(sums["cpu"][0])],
-                loss_rel=loss_rel, grad_rel=grad_rel, grad_l2_rel=grad_l2)
+                loss_rel=loss_rel, grad_rel=grad_rel, grad_l2_rel=grad_l2,
+                plain_card_vs_cpu={k: plain[k] for k in ("loss_rel", "grad_rel", "grad_l2")},
+                auto_vs_plain_grad_max_abs=auto_vs_plain)
 
 
 def snapshot_world2_phase():
@@ -5190,6 +5407,252 @@ def snapshot_world2_phase():
                 auto_pair_rows=[[r["train_loss"], r["test_loss"]] for r in per["auto"]["rows"]],
                 launches=launches)
 
+
+# ---------------------------------------------------------------- phase 23 --
+
+# the live plane: cifar10_alexnet_h100.yaml one synthetic epoch one step per
+# batch (the host-bound case), in variants: off (observability: false, no
+# step_stats window); the windows alone (a step_stats window every 4
+# updates); the plane alone (the exporter, tracing; the flight recorder and
+# aggregation by default); the plane with the windows, unscraped and
+# scraped by a thread of this process every LIVE_SCRAPE_S (the plane "on"
+# as a user runs it). In turns, there and back, so drift meets every
+# variant alike
+LIVE_VARIANTS = {
+    "off": ({"observability": False, "step_stats_every": 0}, False),
+    "windows": ({"observability": False, "step_stats_every": 4}, False),
+    "plane": ({"observability": {"exporter": True, "tracing": True}, "step_stats_every": 0}, False),
+    "on unscraped": ({"observability": {"exporter": True, "tracing": True}, "step_stats_every": 4},
+                     False),
+    "on": ({"observability": {"exporter": True, "tracing": True}, "step_stats_every": 4}, True),
+}
+LIVE_TURNS = tuple(LIVE_VARIANTS) + tuple(reversed(LIVE_VARIANTS))
+LIVE_SCRAPE_S = 0.02
+
+
+class _SyncCounts:
+    """Counts ``torch.cuda.synchronize``, ``torch.cuda.Event.synchronize``
+    and ``Tensor.item`` calls while it is entered."""
+
+    def __enter__(self):
+        self.counts = {"torch.cuda.synchronize": 0, "Event.synchronize": 0, "Tensor.item": 0}
+        self._saved = (torch.cuda.synchronize, torch.cuda.Event.synchronize, torch.Tensor.item)
+        sync, event_sync, item = self._saved
+        counts = self.counts
+
+        def counted_sync(*a, **k):
+            counts["torch.cuda.synchronize"] += 1
+            return sync(*a, **k)
+
+        def counted_event_sync(ev):
+            counts["Event.synchronize"] += 1
+            return event_sync(ev)
+
+        def counted_item(t):
+            counts["Tensor.item"] += 1
+            return item(t)
+
+        torch.cuda.synchronize, torch.cuda.Event.synchronize, torch.Tensor.item = (
+            counted_sync, counted_event_sync, counted_item)
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize, torch.cuda.Event.synchronize, torch.Tensor.item = self._saved
+
+
+def _scrape_live(save_dir: str, stop: threading.Event, seen: dict) -> None:
+    """While the run lives: ``/metrics`` and ``/snapshot`` of the exporter
+    named in ``save_dir``'s port file (once ``/healthz`` answers), every
+    :data:`LIVE_SCRAPE_S`; ``train_steps_total`` of each, and each
+    response whole (every sample line a name and a number, the JSON
+    parsed)."""
+    import urllib.request
+
+    from tpuddp_torch.observability.exporter import read_live_port
+
+    port = None
+    while not stop.is_set():
+        if port is None:
+            port = read_live_port(save_dir, probe_timeout=0.2)
+        else:
+            try:
+                text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                              timeout=2).read().decode()
+                snap = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/snapshot",
+                                                         timeout=2).read())
+            except OSError:
+                seen["refused"] += 1  # the run closed the endpoint
+            else:
+                lines = [l for l in text.splitlines() if l and not l.startswith("#")]
+                if not text.endswith("\n") or not all(
+                        len(l.rsplit(" ", 1)) == 2 and _is_number(l.rsplit(" ", 1)[1]) for l in lines):
+                    seen["torn"] += 1
+                steps = [float(l.split()[1]) for l in lines if l.startswith("tpuddp_train_steps_total ")]
+                seen["metrics"] += steps
+                seen["snapshot"].append(snap["series"].get("train_steps_total", {}).get("value"))
+        stop.wait(LIVE_SCRAPE_S)
+
+
+def _is_number(text: str) -> bool:
+    try:
+        float(text)
+        return True
+    except ValueError:
+        return False
+
+
+def live_run(label: str, overrides: dict, root: str, scrape: bool):
+    """One epoch of a live variant through the entry point's worker, the
+    counts set to 0 just before it and read just after; the epoch-end save
+    replaced by clones of the parameters and the moments on the card (no
+    685 MB write); with ``scrape``, a thread scraping its exporter."""
+    settings, training = training_for(SETTINGS)
+    training.update(scan_steps=1, step_stats_every=overrides["step_stats_every"])
+    save_dir = os.path.join(root, label)
+    os.makedirs(save_dir)
+    states = []
+    real_save = ckpt.save_on_main
+
+    def keep(save_dir, epoch, model, optimizer, *args, **kwargs):
+        states.append([p.detach().clone() for p in model.parameters()] + [
+            st[k].detach().clone() for st in optimizer.state.values() for k in sorted(st)
+            if torch.is_tensor(st[k])])
+
+    seen = {"metrics": [], "snapshot": [], "torn": 0, "refused": 0}
+    stop = threading.Event()
+    scraper = None
+    if scrape:
+        scraper = threading.Thread(target=_scrape_live, args=(save_dir, stop, seen), daemon=True)
+        scraper.start()
+    ckpt.save_on_main = keep
+    reset_counts()
+    try:
+        with _SyncCounts() as counts:
+            history = run_ddp_training(
+                partial(basic_ddp_training_loop, training=training, device="cuda",
+                        observability=cfg_lib.resolve_observability(overrides["observability"])),
+                1, save_dir, cfg_lib.optional_args_from(settings), backend="cuda")
+    finally:
+        ckpt.save_on_main = real_save
+        stop.set()
+        if scraper is not None:
+            scraper.join(timeout=30)
+    torch.cuda.synchronize()
+    return dict(history=history, states=states, syncs=counts.counts, seen=seen, dir=save_dir,
+                launches={k.symbol: k.launches for k in fused_adam.kernels.values()})
+
+
+def _live_files(run: dict) -> None:
+    """The first scraped run's files into ``run``: its history, its trace
+    (validated by the port's validator), what is left in its directory."""
+    from tpuddp_torch.observability import schema
+
+    with open(os.path.join(run["dir"], "history.jsonl")) as f:
+        run["records"] = [json.loads(line) for line in f]
+    trace = os.path.join(run["dir"], "trace_train.json")
+    run["trace_errors"], run["spans"] = schema.validate_trace_file(trace)
+    run["history_errors"], _ = schema.validate_history_file(os.path.join(run["dir"], "history.jsonl"))
+    with open(trace) as f:
+        run["kinds"] = sorted({e["cat"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"})
+    run["left"] = sorted(os.listdir(run["dir"]))
+
+
+def live_phase():
+    """Phase 23: the live plane's variants (:data:`LIVE_VARIANTS`) in turns
+    over one host-bound AlexNet epoch each: losses, parameters and moments
+    bitwise, the same Adam launches, the same ``torch.cuda.synchronize``
+    and ``Tensor.item`` calls; the scraped ``train_steps_total`` monotone up
+    to the run's updates, every response whole; the trace valid under the
+    port's validator; each variant's step medians."""
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_live_")
+    runs, ref, same = [], None, []
+    try:
+        for i, label in enumerate(LIVE_TURNS):
+            overrides, scrape = LIVE_VARIANTS[label]
+            run = live_run(f"{i}_{label}", overrides, root, scrape)
+            run["label"] = label
+            states = run.pop("states")
+            if ref is None:
+                ref = states
+            same.append(len(states) == 1 and len(states[0]) == len(ref[0])
+                        and all(torch.equal(a, b) for a, b in zip(states[0], ref[0])))
+            del states
+            if label == "on" and not any(r["label"] == "on" for r in runs):
+                _live_files(run)
+            runs.append(run)
+        del ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    f32 = fused_adam.kernel.symbol
+    first_on = next(r for r in runs if "records" in r)
+    header = first_on["records"][0]
+    windows = [r for r in first_on["records"] if r["type"] == "step_stats"]
+    summary = [r for r in first_on["records"] if r["type"] == "trace_summary"]
+    rows = [[[r[k] for k in ("train_loss", "test_loss", "test_accuracy")] for r in run["history"]]
+            for run in runs]
+    scraped = [r for r in runs if r["label"] == "on"]
+    updates = sum(len(r["step_ms"]) for r in runs[0]["history"])
+    medians = {label: [statistics.median(r["history"][0]["step_ms"][1:]) for r in runs
+                       if r["label"] == label] for label in LIVE_VARIANTS}
+    median = {label: statistics.median(v) for label, v in medians.items()}
+    syncs = {label: next(r["syncs"] for r in runs if r["label"] == label) for label in LIVE_VARIANTS}
+
+    def scrapes_ok(seen):
+        steps = seen["metrics"]
+        # a scrape between the loop's detaching its source and the endpoint's
+        # stop sees no training series
+        snap = [v for v in seen["snapshot"] if v is not None]
+        return (len(steps) > 0 and all(a <= b for a, b in zip(steps, steps[1:]))
+                and steps[-1] == updates and snap[-1:] == [updates] and seen["torn"] == 0)
+
+    checks = {
+        "losses bitwise in every run": all(r == rows[0] for r in rows),
+        "parameters and moments bitwise in every run": all(same),
+        "16 Adam launches a run, no other kernel": updates == 16 and all(
+            r["launches"][f32] == sum(r["launches"].values()) == 16 for r in runs),
+        "as many torch.cuda.synchronize and Tensor.item calls in every run": all(
+            r["syncs"][k] == runs[0]["syncs"][k] for r in runs
+            for k in ("torch.cuda.synchronize", "Tensor.item")),
+        "train_steps_total scraped in each scraped run, monotone to the updates, /snapshot "
+        "agreeing, every response whole": all(scrapes_ok(r["seen"]) for r in scraped),
+        "the trace valid (port validator), every training kind (collective: a hook's or the "
+        "overlap's)": not first_on["trace_errors"] and first_on["spans"] > 0
+        and {"dispatch", "epoch", "readback", "stage"} <= set(first_on["kinds"])
+        and ("collective" in first_on["kinds"]) == (
+            header["comm_hook"] != "none" or bool(header["comm"]["overlap"]["enabled"])),
+        "the history valid, header with the bound port and the tracer": not first_on["history_errors"]
+        and header["observability"]["exporter"]["port"] > 0
+        and header["observability"]["flight_recorder"] == {"capacity": 64}
+        and header["tracing"] == {"capacity": 4096, "artifact": "trace_train.json"}
+        and len(summary) == 1 and len(windows) == 4,
+        "a clean exit leaves no flight recording and no port file": first_on["left"] == [
+            "history.jsonl", "trace_train.json"],
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 23 live plane failed {failed}: " + "; ".join(
+            f"{r['label']}: {r['syncs']} {r['launches']} scraped {r['seen']['metrics'][-5:]} "
+            f"{r['seen']['snapshot'][-3:]} torn {r['seen']['torn']}" for r in runs)
+            + f"; rows {rows}; same {same}; trace {first_on['trace_errors'][:5]} {first_on['kinds']}; "
+            f"history {first_on['history_errors'][:5]}; files {first_on['left']}")
+    n_scrapes = [len(r["seen"]["metrics"]) for r in scraped]
+    phase("23 live plane", f"card {card_line()}: cifar10_alexnet_h100.yaml one epoch one step per batch "
+          f"a run, in turns {'/'.join(LIVE_TURNS)}: losses {rows[0][0][0]!r}/{rows[0][0][1]!r}, "
+          f"parameters and moments bitwise in every run, 16 Adam launches each; calls per variant "
+          f"{json.dumps(syncs)} (the windows' waits are Event.synchronize); {n_scrapes} /metrics "
+          f"scrapes every {LIVE_SCRAPE_S * 1e3:.0f} ms in the scraped runs, train_steps_total "
+          f"monotone to 16, all whole; trace {first_on['spans']} spans {summary[0]['by_kind']}; step "
+          f"medians (steps 2-16, each run) " + ", ".join(
+              f"{label} {'/'.join(f'{m:.3f}' for m in v)} ms" for label, v in medians.items())
+          + "; the median of each variant's two against off's: " + ", ".join(
+              f"{label} {median[label] / median['off']:.4f}" for label in LIVE_VARIANTS
+              if label != "off"))
+    return dict(step_ms_medians=medians, ratio_to_off={label: median[label] / median["off"]
+                                                       for label in LIVE_VARIANTS},
+                syncs=syncs, scrapes=n_scrapes, by_kind=summary[0]["by_kind"], windows=len(windows),
+                losses=rows[0][0],
+                launches={f"native AlexNet live plane {r['label']} turn {i} (phase 23)":
+                          r["launches"][f32] for i, r in enumerate(runs)})
 
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
@@ -5335,6 +5798,9 @@ def main() -> None:
     t22 = time.perf_counter()
     snap_22 = snapshot_world2_phase()
     phase_22_s = time.perf_counter() - t22
+    t23 = time.perf_counter()
+    live_23 = live_phase()
+    phase_23_s = time.perf_counter() - t23
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -5414,6 +5880,9 @@ def main() -> None:
     print(json.dumps({"snapshots_world_2": {
         **{k: v for k, v in snap_22.items() if k != "launches"}, "phase_22_s": phase_22_s,
     }}))
+    print(json.dumps({"live_plane": {
+        **{k: v for k, v in live_23.items() if k != "launches"}, "phase_23_s": phase_23_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -5476,6 +5945,7 @@ def main() -> None:
     phase_20 = preempt_20["launches"]
     phase_21 = elastic_21["launches"]
     phase_22 = snap_22["launches"]
+    phase_23 = live_23["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
@@ -5483,7 +5953,7 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20, **phase_21, **phase_22}
+               **phase_20, **phase_21, **phase_22, **phase_23}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -5513,7 +5983,7 @@ def main() -> None:
                               **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17},
                               **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
                               **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21},
-                              **{k: 0 for k in phase_22}},
+                              **{k: 0 for k in phase_22}, **{k: 0 for k in phase_23}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -5526,7 +5996,8 @@ def main() -> None:
           f"phase 11: {phase_11_s:.1f} s, phase 12: {phase_12_s:.1f} s, phase 13: {phase_13_s:.1f} s, "
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
-          f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s)")
+          f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s, "
+          f"phase 23: {phase_23_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -313,7 +313,11 @@ def test_only_host_0_writes(launches, run):
     host1, out1 = launches[run]["host1"]
     assert any(l.startswith("Epoch 1/1, ") for l in out0.splitlines())
     assert not any(l.startswith("Epoch ") for l in out1.splitlines())
-    assert sorted(os.listdir(host1)) == [f"{run}_host1.yaml"]  # the settings' copy alone
+    # the settings' copy, and the telemetry shards' directory (observability.
+    # aggregate is on by default across hosts: host 1's leader makes it, as
+    # the JAX process of a second host does; no step_stats window, no shard)
+    assert sorted(os.listdir(host1)) == [".heartbeats", f"{run}_host1.yaml"]
+    assert os.listdir(host1 / ".heartbeats") == []
     assert all((host0 / name).exists() for name in FILES[run])
 
 

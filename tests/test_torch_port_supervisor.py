@@ -159,8 +159,16 @@ def test_the_delay_is_the_jax_packages():
 
 
 def test_flight_dir_belongs_to_observability_part_2(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: observability, part 2"):
-        sup.RestartSupervisor(["x"], flight_dir=str(tmp_path))
+    """Observability part 2 is in: ``flight_dir`` is accepted and a
+    recording there is summarized before the first attempt, once."""
+    from tpuddp_torch.observability.flight import FlightRecorder
+
+    rec = FlightRecorder(str(tmp_path), capacity=2, process_index=0)
+    rec.observe({"type": "event", "schema_version": 12, "event": "preempt", "epoch": 0})
+    rec.dump("preempt")
+    s = sup.RestartSupervisor(["x"], flight_dir=str(tmp_path), runner=lambda argv, env: 0)
+    assert s.flight_dir == str(tmp_path)
+    assert s.run() == 0 and s.summarize_flight() == 0  # logged once, at the start
 
 
 # ---------------------------------------------------------------- the CLI --
@@ -193,8 +201,7 @@ def test_the_cli_refuses_as_tools_supervise(argv, capsys):
         assert e.value.code == 2
         texts.append(capsys.readouterr().err.strip().splitlines()[-1].split("error: ")[1])
     assert texts[0] == texts[1]
-    with pytest.raises(NotImplementedError, match="observability, part 2"):
-        cli.main(["--flight-dir", "d", "--", "true"])
+    assert cli.main(["--flight-dir", "d", "--", "true"]) == 0  # accepted since part 2
 
 
 def test_the_cli_resumes_a_crashed_child(tmp_path):

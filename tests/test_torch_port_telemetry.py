@@ -28,6 +28,7 @@ import pytest
 import torch
 import yaml
 
+from tpuddp.config import resolve_observability as jax_resolve_observability
 from tpuddp.config import training_config as jax_training_config
 from tpuddp.observability import profiling as jax_profiling
 from tpuddp.observability import recorder as jax_recorder
@@ -114,7 +115,14 @@ def test_header_fields(runs, path):
     assert header["mesh"] == {"data": 1, "model": 1, "tp_rules_hash": None}
     assert header["comm"]["overlap"]["enabled"] is False
     assert header["snapshot"] is False and header["tracing"] is None and header["tuning"] is None
-    assert not any(header["observability"][k] for k in ("exporter", "aggregate", "flight_recorder"))
+    # no observability block: the JAX loop's header from its defaults
+    # (tpuddp/training/loop.py:452-460): no exporter, aggregation and the
+    # flight recorder on
+    obs = jax_resolve_observability(None)
+    assert header["observability"] == {
+        "exporter": False, "aggregate": obs["aggregate"],
+        "straggler_ratio": obs["straggler_ratio"], "straggler_windows": obs["straggler_windows"],
+        "flight_recorder": {"capacity": obs["flight_capacity"]}}
     assert header["api"] == path and header["model"] == "toy_mlp"
     more = {"deferred_metrics": True, "fuse_steps": 4} if path == "managed" else {"scan_steps": 1}
     training = cfg.training_config({"training": {**TRAINING, **more,

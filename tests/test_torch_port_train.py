@@ -395,7 +395,7 @@ def test_bf16_state_is_an_adam_knob():
 
 @pytest.mark.parametrize("settings", [
     {"parallel": {"model": 2}},
-    {"observability": {"exporter": True}},
+    {"observability": {"exporter": True, "advisor": True}},
 ])
 def test_unported_settings_blocks_are_refused(settings):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

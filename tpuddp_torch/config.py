@@ -34,7 +34,9 @@ does), the multi-host ``local.rendezvous`` block (:func:`rendezvous_from`),
 :mod:`tpuddp_torch.nn.remat`; the managed path accepts the key and runs
 as without it, as the JAX package's does) and ``step_stats_every`` (one
 ``step_stats`` row of ``history.jsonl`` per N updates, both paths,
-:mod:`tpuddp_torch.observability`). Every knob whose non-default value needs a part
+:mod:`tpuddp_torch.observability`), and the top-level ``observability``
+block (the live plane: flight recorder, exporter, pod shards, tracing;
+:func:`resolve_observability`). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
 never ignored. The native path's ``scan_steps`` (K batches per dispatch,
@@ -248,7 +250,8 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
     not implement: a tensor-parallel ``parallel`` block (``parallel.model``,
     or ``$TPUDDP_MODEL_SIZE``, the restart supervisor's lever, which
     overrides it as in ``tpuddp/config.py:335-363``, over 1) and an
-    ``observability`` block. An explicit ``parallel.data`` must equal
+    ``observability`` block's ``advisor: true`` (and the block's
+    ``ValueError`` texts, :func:`resolve_observability`). An explicit ``parallel.data`` must equal
     ``world_size`` (the hosts of a ``local.rendezvous`` block tile it, as
     :func:`tpuddp_torch.parallel.spawn.resolve_world` checks)."""
     parallel = dict(settings.get("parallel") or {})
@@ -269,8 +272,72 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
             f"parallel.data={data!r} != world size {world_size}; the data axis "
             "must tile the world exactly (set data: auto to derive it)"
         )
-    if settings.get("observability") is not None:
-        raise _not_ported("the observability block", "Queue 1 item 8: observability, part 2")
+    observability_config(settings)  # its ValueErrors and the advisor's refusal, before a run
+
+
+# The live telemetry plane's knobs (tpuddp/config.py:272-314): the
+# ``observability`` block of a settings file, read by both entry points.
+OBSERVABILITY_DEFAULTS = {
+    "exporter": False,  # the /metrics /healthz /snapshot /trace endpoint
+    # (observability/exporter.py)
+    "exporter_host": "127.0.0.1",  # bind address (0.0.0.0 to scrape off-host)
+    "exporter_port": 0,  # 0 binds ephemerally; the bound port lands in <out_dir>/exporter.port
+    # and the run_meta header's observability field
+    "aggregate": True,  # per-host telemetry shards through the heartbeat files, merged by
+    # process 0 (observability/aggregate.py); inert on one host
+    "straggler_ratio": 1.5,  # a host straggles when its window p50 exceeds ratio x the pod
+    # median ...
+    "straggler_windows": 3,  # ... for this many consecutive fresh windows: one straggler event
+    "flight_recorder": True,  # the last N history records per kind, dumped to
+    # flightrec_<reason>.json on abnormal exits (observability/flight.py)
+    "flight_capacity": 64,  # ring length per record kind
+    "tracing": False,  # span trees of the native loop (observability/trace.py), exported as
+    # trace_train.json and served on /trace; host bracketing only
+    "trace_capacity": 4096,  # completed-span ring length per process
+    "advisor": False,  # the autotuning advisor's crash hook: refused (fleet and tune)
+}
+
+
+def observability_config(settings: Dict[str, Any]) -> Dict[str, Any]:
+    """The settings file's ``observability`` block over
+    :data:`OBSERVABILITY_DEFAULTS` (:func:`resolve_observability`)."""
+    return resolve_observability(settings.get("observability"))
+
+
+def resolve_observability(block) -> Dict[str, Any]:
+    """An ``observability`` block (None, a bool or a mapping) as the whole
+    knob dict (``tpuddp/config.py:431-463``): None or True give the
+    defaults (exporter off, aggregation and the flight recorder on); False
+    turns the plane off; a mapping overrides the defaults, unknown keys
+    refused with a did-you-mean hint. ``exporter`` also takes ``{host,
+    port}`` for the three exporter knobs. ``advisor: true`` raises
+    ``NotImplementedError`` (the advisor is ROADMAP.md's "fleet and
+    tune")."""
+    if block is None or block is True:
+        return dict(OBSERVABILITY_DEFAULTS)
+    if block is False:
+        off = dict(OBSERVABILITY_DEFAULTS)
+        off.update(exporter=False, aggregate=False, flight_recorder=False)
+        return off
+    if not isinstance(block, dict):
+        raise ValueError(f"observability block must be a mapping or bool, got {block!r}")
+    block = dict(block)
+    exporter = block.get("exporter")
+    if isinstance(exporter, dict):
+        unknown = set(exporter) - {"host", "port"}
+        if unknown:
+            raise ValueError(
+                f"unknown observability.exporter key(s) {sorted(unknown)}; expected host, port"
+            )
+        if "host" in exporter:
+            block.setdefault("exporter_host", exporter["host"])
+        if "port" in exporter:
+            block.setdefault("exporter_port", exporter["port"])
+        block["exporter"] = True
+    cfg = _merge_refusing_unknown(OBSERVABILITY_DEFAULTS, block, "observability")
+    if cfg["advisor"]:
+        raise _not_ported("observability.advisor", "Queue 1 item 8: fleet and tune")
+    return cfg
 
 
 def rendezvous_from(settings: Dict[str, Any]) -> Dict[str, Any]:

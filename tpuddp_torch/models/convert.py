@@ -570,6 +570,14 @@ def jax_param_span(name: str, model: torch.nn.Module, layers) -> Tuple[int, int]
     return first, end
 
 
+def jax_order_indices(name: str, model: torch.nn.Module) -> np.ndarray:
+    """:func:`flat_to_jax` of the port's element indices ``0..n-1``: at
+    JAX-order place ``i``, the port-order index of that element; int32
+    where ``n`` fits (half the bytes to move), else int64."""
+    n = sum(p.numel() for p in model.parameters())
+    return flat_to_jax(name, model, np.arange(n, dtype=np.int32 if n < 2**31 else np.int64))
+
+
 class JaxFlatOrder:
     """The permutation between the port's flat parameter order and the JAX
     package's (:func:`flat_to_jax`), as two int64 index tensors on
@@ -582,27 +590,28 @@ class JaxFlatOrder:
     With ``layers = (a, b)`` it is the permutation of one backward segment:
     the parameters of the JAX children ``[a, b)`` (:func:`jax_param_span`),
     concatenated in the port's order, against their span of the JAX order.
-    ``perm``, when given, is ``flat_to_jax`` of the port's element indices
-    (one computation for a model's segments)."""
+    ``perm``, when given, is :func:`jax_order_indices` (one computation for
+    a model's segments). The inverse is scattered on ``device`` (on a GPU a
+    few milliseconds, where numpy's scatter of AlexNet's 57 M indices takes
+    seconds of the wrap's set-up)."""
 
     def __init__(self, name: str, model: torch.nn.Module, device=None, layers=None, perm=None):
         named = list(model.named_parameters())
         sizes = [p.numel() for _, p in named]
         if perm is None:
-            perm = flat_to_jax(name, model, np.arange(sum(sizes), dtype=np.int64))
+            perm = jax_order_indices(name, model)
         first, end, jax_lo = 0, len(named), 0
         if layers is not None:
             first, end = jax_param_span(name, model, layers)
             places = jax_places(name, model)
             jax_lo = sum(s for (n, _), s in zip(named, sizes) if places[n][0] < layers[0])
         port_lo, raw = sum(sizes[:first]), sum(sizes[first:end])
-        perm = perm[jax_lo:jax_lo + raw] - port_lo
-        inverse = np.empty_like(perm)
-        inverse[perm] = np.arange(raw, dtype=np.int64)
         device = next(model.parameters()).device if device is None else device
         self.raw = raw
-        self._to_jax = torch.from_numpy(perm).to(device)
-        self._from_jax = torch.from_numpy(inverse).to(device)
+        self._to_jax = torch.from_numpy(perm[jax_lo:jax_lo + raw] - perm.dtype.type(port_lo)).to(
+            device).long()
+        self._from_jax = torch.empty_like(self._to_jax)
+        self._from_jax[self._to_jax] = torch.arange(raw, dtype=torch.int64, device=device)
 
     def to_jax(self, vec: torch.Tensor) -> torch.Tensor:
         """The ``raw`` elements of ``vec`` (port order) in the JAX order."""

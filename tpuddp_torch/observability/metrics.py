@@ -83,17 +83,22 @@ class MetricsWriter:
     closes it. Only process 0 (global rank 0) writes, unless
     ``main_only=False`` (the watchdog's verdict: process 0 may be the dead
     one). Writes are serialised by a lock, so threads sharing a writer
-    append whole lines."""
+    append whole lines. ``flight`` (a :class:`~tpuddp_torch.observability.
+    flight.FlightRecorder`) sees every record written, before the process-0
+    gate, so a process that writes no file keeps its recording too."""
 
-    def __init__(self, save_dir: Optional[str], main_only: bool = True):
+    def __init__(self, save_dir: Optional[str], main_only: bool = True, flight=None):
         self.path = None
         self._f = None
         self._lock = threading.Lock()
+        self.flight = flight
         if save_dir is not None and (not main_only or _process_index() == 0):
             os.makedirs(save_dir, exist_ok=True)
             self.path = os.path.join(save_dir, "history.jsonl")
 
     def write(self, record: dict) -> None:
+        if self.flight is not None:
+            self.flight.observe(record)
         if self.path is None:
             return
         line = json.dumps(json_sanitize(record), allow_nan=False) + "\n"

@@ -28,7 +28,9 @@ the model's FLOPs, not the recompute's.
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence
+import time
+from collections import deque
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -135,16 +137,33 @@ class StepStatsRecorder:
     :meth:`record` is called once per dispatch, after it was issued, with
     the dispatch's updates, its real rows and the pipeline's occupancy
     sample; ``clock`` (a ``training.loop.StepClock``) holds the mark taken
-    just before it. ``global_step`` counts updates since the loop's entry."""
+    just before it. ``global_step`` counts updates since the loop's entry.
+
+    The live plane (``tpuddp/observability/recorder.py:137-160, :285-323``):
+    ``on_window`` is called after each window's row (the telemetry shard's
+    publish and the pod merge ride the window's wait), and
+    :meth:`live_snapshot` is the exporter's and the shard's view: running
+    totals and the last window's row, or without windows percentiles over
+    the newest host laps between dispatches (issue times, never a device
+    read)."""
+
+    # host laps kept for live_snapshot() without windows
+    LAPS = 256
 
     def __init__(self, writer=None, window: int = 0, flops_per_step: Optional[float] = None,
-                 peak_flops: Optional[float] = None):
+                 peak_flops: Optional[float] = None, on_window: Optional[Callable] = None):
         self.writer = writer
         self.window = max(0, int(window or 0))
         self.flops_per_step = flops_per_step
         self.peak_flops = peak_flops
+        self.on_window = on_window
         self.global_step = 0
         self.windows_emitted = 0
+        self.last_window: Optional[dict] = None
+        self.total_samples = 0.0
+        self.total_stall_s = 0.0
+        self._laps = deque(maxlen=self.LAPS)  # seconds per update between dispatches
+        self._last_t: Optional[float] = None
         self._clock = None
         self._epoch = 0
         self._epoch_samples = 0.0
@@ -163,14 +182,22 @@ class StepStatsRecorder:
         self._clock = clock
         self._epoch_samples = 0.0
         self._epoch_stall = 0.0
+        self._laps.clear()
+        self._last_t = time.perf_counter()
         self._reset_window()
 
     def record(self, n_steps: int, n_samples: float, *, host_stall_s: float = 0.0,
                staging_depth: int = 0, inflight_depth: int = 0) -> None:
         n_steps = max(1, int(n_steps))
+        now = time.perf_counter()
+        if self._last_t is not None:
+            self._laps.extend([(now - self._last_t) / n_steps] * min(n_steps, self.LAPS))
+        self._last_t = now
         self.global_step += n_steps
         self._epoch_samples += float(n_samples)
         self._epoch_stall += float(host_stall_s)
+        self.total_samples += float(n_samples)
+        self.total_stall_s += float(host_stall_s)
         if not self.window:
             return
         self._win.append(_Dispatch(self._clock.marks[-1], n_steps, float(n_samples)))
@@ -202,8 +229,35 @@ class StepStatsRecorder:
         }
         if self.writer is not None:
             self.writer.write(schema.stamp("step_stats", record))
+        self.last_window = record  # the live plane reads what the history got
         self.windows_emitted += 1
         self._reset_window()
+        if self.on_window is not None:
+            self.on_window()
+
+    def live_snapshot(self) -> dict:
+        """The live view (host values only): running totals and the last
+        window's fields, or without windows the percentiles of the newest
+        host laps of this epoch and no throughput."""
+        snap = {
+            "epoch": self._epoch,
+            "step": self.global_step,
+            "samples_total": self.total_samples,
+            "host_stall_ms_total": round(self.total_stall_s * 1e3, 3),
+            "windows_emitted": self.windows_emitted,
+        }
+        last = self.last_window
+        if last is not None:
+            for k in ("step_time_ms_p50", "step_time_ms_p95", "step_time_ms_p99",
+                      "step_time_ms_max", "samples_per_sec", "mfu_p50", "host_stall_ms"):
+                snap[k] = last.get(k)
+            snap["window"] = {k: last.get(k) for k in ("epoch", "step_start", "steps")}
+        else:
+            snap.update(step_time_fields(list(self._laps), self.flops_per_step,
+                                         self.peak_flops))
+            snap["samples_per_sec"] = None
+            snap["window"] = None
+        return snap
 
     def epoch_summary(self, step_ms: Sequence[float]) -> dict:
         """The epoch row's fields from the pass's times per update

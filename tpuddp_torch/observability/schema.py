@@ -15,11 +15,17 @@ training run writes four of the record types:
   an epoch;
 - ``event``: rollback, desync, skipped updates, profiler captures, the
   drain's ``preempt``, an elastic restore's ``topology_change`` and
-  ``comm_state_reset``, the watchdog's ``watchdog_stale``.
+  ``comm_state_reset``, the watchdog's ``watchdog_stale``, the pod
+  aggregator's ``straggler``;
+- ``trace_summary``: the tracing plane's digest, written at the loop's end
+  when ``observability.tracing`` is on.
 
-The other types (serving, decode, trace summaries, tune reports) belong to
-planes the port has not ported; they stay in the tables so that validation
-agrees with the JAX package's on every record. :func:`make_run_meta` builds
+Two sidecar artifacts have validators here too, copies of the JAX ones:
+the flight recording ``flightrec_<reason>.json``
+(:func:`validate_flight_file`) and the Chrome trace ``trace_<role>.json``
+(:func:`validate_trace_file`). The other record types (serving, decode,
+tune reports) belong to planes the port has not ported; they stay in the
+tables so that validation agrees with the JAX package's on every record. :func:`make_run_meta` builds
 the header from the port's run: the keys that name JAX (``jax_version``)
 are null, and ``torch_version``, ``cuda_version`` and ``device_kind``
 (``torch.cuda.get_device_name``) say what ran; ``process_count`` and
@@ -247,6 +253,8 @@ _EVENT_REQUIRED = {
     "comm_state_reset": ("leaf", "from_world", "to_world", "reason"),
     # the watchdog's verdict (tpuddp/resilience/watchdog.py:400-412)
     "watchdog_stale": ("process", "timeout_s", "stale_peers", "max_observed_lag_s"),
+    # the pod aggregator's verdict (tpuddp/observability/aggregate.py:219-228)
+    "straggler": ("host", "ratio", "windows", "window_p50_ms", "pod_p50_ms"),
 }
 
 
@@ -270,17 +278,6 @@ def config_hash(training: Optional[dict]) -> Optional[str]:
     return hashlib.sha256(canon.encode()).hexdigest()[:16]
 
 
-# the live plane's knobs with every member off (observability, part 2, not
-# ported): the JAX package's defaults for the straggler thresholds
-OBSERVABILITY_OFF = {
-    "exporter": False,
-    "aggregate": False,
-    "straggler_ratio": 1.5,
-    "straggler_windows": 3,
-    "flight_recorder": False,
-}
-
-
 def make_run_meta(
     *,
     world_size: Optional[int],
@@ -291,6 +288,8 @@ def make_run_meta(
     comm_hook: Optional[str] = None,
     comm_topology: Optional[str] = None,
     guard=None,
+    observability: Optional[dict] = None,
+    tracing: Optional[dict] = None,
     comm: Optional[dict] = None,
     snapshot=False,
     extra: Optional[dict] = None,
@@ -301,7 +300,11 @@ def make_run_meta(
     ``mesh_shape`` and ``mesh`` null). ``hierarchy`` is ``(hosts, local)`` under ``comm_topology:
     hierarchical`` (the mesh shape is then ``{"host", "local"}``, as the
     JAX package factors its mesh); ``guard`` a ``GuardConfig`` or dict;
-    ``comm`` the ``{"overlap": ...}`` block; ``snapshot`` the step-snapshot
+    ``observability`` the live plane's block (schema v5: the exporter's
+    bound endpoint or False, the aggregation and straggler knobs, the flight
+    recorder's capacity or False; None for a writer without the plane, the
+    watchdog's header); ``tracing`` the tracer's ``describe()`` (schema v9,
+    None when off); ``comm`` the ``{"overlap": ...}`` block; ``snapshot`` the step-snapshot
     engine's ``describe()`` (native), the managed drain's block, or False
     when off (schema v11); ``extra`` the entry point's fields (config_hash,
     model, dataset, api, ...)."""
@@ -333,10 +336,10 @@ def make_run_meta(
         "comm_hook": comm_hook,
         "comm_topology": comm_topology,
         "guard": guard,
-        "observability": dict(OBSERVABILITY_OFF),
+        "observability": observability,
         "decode": None,
         "survivability": None,
-        "tracing": None,
+        "tracing": tracing,
         "comm": comm,
         "snapshot": snapshot,
         "tuning": None,
@@ -440,3 +443,163 @@ def validate_history_file(path: str) -> Tuple[List[str], int]:
         return [f"cannot read {path}: {e}"], 0
     errors.extend(validate_history_records(records))
     return errors, len(records)
+
+
+# ------------------------------------------------------ flight recordings --
+# flightrec_<reason>.json (tpuddp/observability/schema.py:570-642): one JSON
+# object, the envelope and per-kind rings of ordinary history records, each
+# validated by the history's own per-record rules.
+FLIGHT_TYPE = "flight_recording"
+FLIGHT_REASONS = (
+    "preempt",          # SIGTERM/SIGINT drain (exit 75)
+    "preempt_forced",   # the drain blew the grace window; the failsafe forced exit 75
+    "watchdog",         # a peer's heartbeat went stale (exit 76)
+    "desync",           # the guard's auditor found a divergent replica (77)
+    "exception",        # an unhandled exception in an epoch loop
+    "serving_dispatch", # the serving engine lost its last healthy replica
+)
+_FLIGHT_REQUIRED = ("reason", "process_index", "capacity", "counts", "records")
+_FLIGHT_RINGS = ("step_stats", "event", "epoch", "serving_stats", "decode_stats")
+
+
+def _strict_json(path: str):
+    """``path`` parsed as strict JSON (a bare NaN or Infinity raises)."""
+
+    def _reject(token):
+        raise ValueError(f"non-strict JSON token {token}")
+
+    with open(path) as f:
+        return json.load(f, parse_constant=_reject)
+
+
+def validate_flight_payload(payload) -> List[str]:
+    """Schema errors for a flight-recording payload (empty = valid)."""
+    if not isinstance(payload, dict):
+        return ["flight payload is not a JSON object"]
+    errors = []
+    if payload.get("type") != FLIGHT_TYPE:
+        errors.append(f"'type' must be {FLIGHT_TYPE!r}, got {payload.get('type')!r}")
+    version = payload.get("schema_version")
+    if not isinstance(version, int) or version < 5:
+        errors.append(f"schema_version {version!r} is not an int >= 5 (flight "
+                      "recordings were introduced at v5)")
+    elif version > SCHEMA_VERSION:
+        errors.append(f"schema_version {version} is newer than this reader's {SCHEMA_VERSION}")
+    errors += [f"missing field {k!r}" for k in _FLIGHT_REQUIRED if k not in payload]
+    reason = payload.get("reason")
+    if "reason" in payload and reason not in FLIGHT_REASONS:
+        errors.append(f"unknown reason {reason!r}; expected one of {FLIGHT_REASONS}")
+    records = payload.get("records")
+    if records is not None:
+        if not isinstance(records, dict):
+            errors.append("'records' must be an object of ring -> [records]")
+        else:
+            for ring in _FLIGHT_RINGS:
+                entries = records.get(ring, [])
+                if not isinstance(entries, list):
+                    errors.append(f"ring {ring!r} is not a list")
+                    continue
+                for i, rec in enumerate(entries):
+                    for e in validate_record(rec, i):
+                        errors.append(f"ring {ring!r}: {e}")
+                    if isinstance(rec, dict) and rec.get("type") != ring:
+                        errors.append(f"ring {ring!r} record {i}: type {rec.get('type')!r} "
+                                      "does not belong in this ring")
+    run_meta = payload.get("run_meta")
+    if run_meta is not None:
+        for e in validate_record(run_meta, 0):
+            errors.append(f"run_meta: {e}")
+    return errors
+
+
+def validate_flight_file(path: str) -> Tuple[List[str], int]:
+    """Parse and validate a flight recording: ``(errors, ring records)``;
+    non-strict JSON is itself an error."""
+    try:
+        payload = _strict_json(path)
+    except (OSError, ValueError) as e:
+        return [f"cannot parse {path}: {e}"], 0
+    errors = validate_flight_payload(payload)
+    n = 0
+    if isinstance(payload, dict) and isinstance(payload.get("records"), dict):
+        n = sum(len(v) for v in payload["records"].values() if isinstance(v, list))
+    return errors, n
+
+
+# ---------------------------------------------------------- trace artifacts --
+# trace_<role>.json (tpuddp/observability/schema.py:645-775): Chrome trace
+# events (complete "X" spans, metadata and flow events) and a ``tpuddp``
+# provenance block; Perfetto loads it as it is.
+TRACE_TYPE = "trace"
+_TRACE_META_REQUIRED = ("role", "process_index", "capacity", "spans", "dropped", "open_spans",
+                        "by_kind", "slowest", "clock_sync")
+
+
+def validate_trace_payload(payload) -> List[str]:
+    """Schema errors for a trace artifact (empty = valid). Every X event's
+    ``parent_id`` must name a span of the artifact while the ring dropped
+    nothing (``tpuddp.dropped == 0``)."""
+    if not isinstance(payload, dict):
+        return ["trace payload is not a JSON object"]
+    errors = []
+    events = payload.get("traceEvents")
+    if not isinstance(events, list):
+        errors.append("'traceEvents' must be a list")
+        events = []
+    meta = payload.get("tpuddp")
+    if not isinstance(meta, dict):
+        return errors + ["missing 'tpuddp' provenance block"]
+    if meta.get("type") != TRACE_TYPE:
+        errors.append(f"tpuddp.type must be {TRACE_TYPE!r}, got {meta.get('type')!r}")
+    version = meta.get("schema_version")
+    if not isinstance(version, int) or version < 9:
+        errors.append(f"tpuddp.schema_version {version!r} is not an int >= 9 (trace "
+                      "artifacts were introduced at v9)")
+    elif version > SCHEMA_VERSION:
+        errors.append(f"tpuddp.schema_version {version} is newer than this reader's "
+                      f"{SCHEMA_VERSION}")
+    errors += [f"tpuddp block missing field {k!r}" for k in _TRACE_META_REQUIRED
+               if k not in meta]
+    clock = meta.get("clock_sync")
+    if isinstance(clock, dict):
+        for k in ("unix_us", "perf_ns"):
+            if not isinstance(clock.get(k), (int, float)):
+                errors.append(f"clock_sync.{k} is not a number")
+    span_ids = set()
+    x_events = []
+    for i, e in enumerate(events):
+        if not isinstance(e, dict) or "ph" not in e:
+            errors.append(f"event {i}: not an object with a 'ph' field")
+            continue
+        if e["ph"] != "X":
+            continue
+        x_events.append((i, e))
+        missing = [k for k in ("name", "ts", "dur", "pid", "tid") if k not in e]
+        if missing:
+            errors.append(f"event {i} (X): missing field(s) {missing}")
+        args = e.get("args")
+        if not isinstance(args, dict) or "span_id" not in args or "trace_id" not in args:
+            errors.append(f"event {i} (X): args must carry span_id and trace_id")
+            continue
+        span_ids.add(args["span_id"])
+    if meta.get("dropped") == 0:
+        for i, e in x_events:
+            parent = (e.get("args") or {}).get("parent_id")
+            if parent is not None and parent not in span_ids:
+                errors.append(f"event {i} (X): orphan parent_id {parent} — no such span in the "
+                              "artifact (and the ring dropped nothing)")
+    return errors
+
+
+def validate_trace_file(path: str) -> Tuple[List[str], int]:
+    """Parse and validate a trace artifact: ``(errors, X events)``;
+    non-strict JSON is itself an error."""
+    try:
+        payload = _strict_json(path)
+    except (OSError, ValueError) as e:
+        return [f"cannot parse {path}: {e}"], 0
+    errors = validate_trace_payload(payload)
+    n = 0
+    if isinstance(payload, dict) and isinstance(payload.get("traceEvents"), list):
+        n = sum(1 for e in payload["traceEvents"] if isinstance(e, dict) and e.get("ph") == "X")
+    return errors, n

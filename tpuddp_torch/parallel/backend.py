@@ -214,5 +214,22 @@ def get_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def host_index() -> int:
+    """This process's host: the JAX package's ``jax.process_index()`` (one
+    JAX process drives every device of a host)."""
+    if not dist.is_initialized():
+        return 0
+    return dist.get_rank() // (dist.get_world_size() // (_hosts or 1))
+
+
+def is_host_leader() -> bool:
+    """Whether this process is its host's local rank 0, the one that stands
+    for the JAX package's process of that host (it runs the heartbeat, the
+    flight recorder, the exporter and the tracer)."""
+    if not dist.is_initialized():
+        return True
+    return dist.get_rank() % (dist.get_world_size() // (_hosts or 1)) == 0
+
+
 def get_world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1

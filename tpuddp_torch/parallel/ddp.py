@@ -147,12 +147,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from tpuddp_torch.models.convert import (
-    JaxFlatOrder, flat_to_jax, jax_layer_sizes, jax_param_span, jax_sizes, model_name,
+    JaxFlatOrder, jax_layer_sizes, jax_order_indices, jax_param_span, jax_sizes, model_name,
 )
 from tpuddp_torch.nn.layers import global_batch_dropout
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
@@ -398,7 +397,7 @@ class DistributedDataParallel:
             return
         orders = None
         if self._comm is not None:  # each segment's permutation, from one of the model's
-            perm = flat_to_jax(name, self.model, np.arange(sum(sizes), dtype=np.int64))
+            perm = jax_order_indices(name, self.model)
             orders = [JaxFlatOrder(name, self.model, self.device, seg.layers, perm)
                       for seg in segments]
         stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None

@@ -17,7 +17,10 @@ window, then sends SIGKILL. The contract:
 4. A daemon failsafe started at the signal force-exits with the same code
    after ``$TPUDDP_PREEMPT_GRACE`` seconds (default 25), so a drain that
    wedges (a collective that never completes) still beats the SIGKILL and
-   still reports 75.
+   still reports 75. Before it exits it dumps the flight recorders
+   (``flightrec_preempt_forced.json``) on a thread it waits for at most
+   :data:`FORCED_DUMP_WAIT_S` seconds: a dump stuck on a wedged filesystem
+   does not hold the exit back.
 
 A second signal during the drain exits at once: the operator, or the
 scheduler escalating, asked twice.
@@ -45,6 +48,7 @@ EXIT_INJECTED_CRASH = 113  # $TPUDDP_FAULT crash@... (resilience/faults.py)
 
 _GRACE_ENV = "TPUDDP_PREEMPT_GRACE"
 _DEFAULT_GRACE = 25.0
+FORCED_DUMP_WAIT_S = 5.0  # the failsafe's wait for its flight dump
 AUTO_RESUME_ENV = "TPUDDP_AUTO_RESUME"
 
 _flag = threading.Event()
@@ -95,8 +99,22 @@ def _failsafe(grace: float, cancel: threading.Event) -> None:
             "preemption drain exceeded the %.0fs grace window; forcing exit %d",
             grace, EXIT_PREEMPTED,
         )
-        # the JAX failsafe dumps the flight recorder here; that recorder is
-        # ROADMAP.md Queue 1 item 8: observability, part 2, not ported
+        # a wedged drain is when a post-mortem matters: dump the flight rings
+        # before the forced exit skips every finally, on a side thread with a
+        # bounded wait (the dump writes to the filesystem the drain may have
+        # hung on, and a hang raises nothing): the exit goes on regardless
+        try:
+            from tpuddp_torch.observability import flight
+
+            t = threading.Thread(target=flight.dump_all, args=("preempt_forced",),
+                                 name="tpuddp-flight-forced", daemon=True)
+            t.start()
+            t.join(timeout=FORCED_DUMP_WAIT_S)
+            if t.is_alive():
+                logger.critical("forced-exit flight dump is wedged too (shared FS?); exiting "
+                                "without it")
+        except Exception:
+            logger.exception("forced-exit flight dump failed")
         os._exit(EXIT_PREEMPTED)
 
 

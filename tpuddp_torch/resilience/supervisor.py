@@ -34,9 +34,11 @@ code, so the scheduler around it still sees the truth.
 ``runner`` is injectable (tests drive the policy with a fake child);
 ``first_attempt_env`` applies to attempt 0 only and is stripped from every
 restart, so a fault injected there (``$TPUDDP_FAULT``) cannot fire again in
-the resumed child. The JAX supervisor's ``flight_dir`` (summaries of the
-flight recorder's dumps) belongs to ROADMAP.md's "observability, part 2"
-and raises ``NotImplementedError``.
+the resumed child. ``flight_dir`` (usually the run's ``out_dir``) is where
+the child's flight recorder dumps ``flightrec_<reason>.json``: after every
+abnormal exit, and once before the first attempt, the supervisor logs a
+summary of each recording it has not logged yet (:meth:`RestartSupervisor.
+summarize_flight`), before it decides the restart.
 """
 
 from __future__ import annotations
@@ -134,12 +136,6 @@ class RestartSupervisor:
         world_env_var: str = WORLD_ENV,
         model_size: Optional[int] = None,
     ):
-        if flight_dir is not None:
-            raise NotImplementedError(
-                "the supervisor's flight_dir (summaries of the flight recorder's dumps) is not "
-                "implemented in tpuddp_torch yet (ROADMAP.md Queue 1 item 8: observability, "
-                "part 2)"
-            )
         self.argv = list(argv)
         self.policy = policy or SupervisorPolicy()
         self.world_size = int(world_size) if world_size else None
@@ -156,6 +152,8 @@ class RestartSupervisor:
         self.sleep = sleep
         self._rng = rng or random.Random()
         self.world_env_var = world_env_var
+        self.flight_dir = flight_dir
+        self._summarized: set = set()  # (path, mtime) of the recordings logged
         # (attempt, exit code, world) per child run: the supervisor's trail
         self.history: List[Tuple[int, int, Optional[int]]] = []
         # the live child (the default runner's), which a controller may signal
@@ -255,12 +253,37 @@ class RestartSupervisor:
             return (model // f, model // f)
         return None
 
+    # ------------------------------------------------------------ flight --
+    def summarize_flight(self) -> int:
+        """Log the recordings in ``flight_dir`` not logged yet, newest
+        first (``tpuddp/resilience/supervisor.py:316-348``); returns how
+        many. Best-effort: a missing directory or a corrupt file never
+        holds back the restart."""
+        if self.flight_dir is None:
+            return 0
+        from tpuddp_torch.observability import flight as flight_lib
+
+        summarized = 0
+        for path in flight_lib.find_recordings(self.flight_dir):
+            try:
+                key = (path, os.path.getmtime(path))
+            except OSError:
+                continue
+            if key in self._summarized:
+                continue
+            self._summarized.add(key)
+            summarized += 1
+            for line in flight_lib.summarize_recording(path):
+                logger.warning("supervisor: %s", line)
+        return summarized
+
     # --------------------------------------------------------------- run --
     def run(self) -> int:
         restarts = 0
         consecutive_failures = 0  # the backoff's exponent (75 resets it)
         consecutive_peer_deaths = 0  # the shrink's trigger (a streak of 76)
         attempt = 0
+        self.summarize_flight()  # what an earlier, unsupervised run left
         while True:
             if self._stop.is_set():
                 # stopped before this attempt: preempted work must not run
@@ -273,6 +296,7 @@ class RestartSupervisor:
             if rc == 0:
                 logger.info("supervisor: child finished cleanly")
                 return 0
+            self.summarize_flight()  # the child's post-mortem, before deciding
             if self._stop.is_set():
                 logger.warning("supervisor: stop requested; child exited %d (%s), not "
                                "restarting", rc, classify_exit(rc))

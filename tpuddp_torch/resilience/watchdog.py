@@ -22,11 +22,14 @@ The directory is ``$TPUDDP_HEARTBEAT_DIR``, else ``<save_dir>/.heartbeats``
 fault (:func:`~tpuddp_torch.resilience.faults.is_hung`) stops the beat
 without stopping the process: to its peers it is a dead host.
 
-A heartbeat file may carry a second line, one JSON object (a host's last
-telemetry window), which the pod aggregator of "observability, part 2"
-will read (:func:`set_heartbeat_payload`, :func:`read_heartbeat_payload`);
-the liveness reader takes line 1 alone. The files are the JAX package's,
-so either package's reader reads the other's.
+A heartbeat file may carry a second line, one JSON object: the host's
+telemetry shard, which the pod aggregator reads
+(:mod:`tpuddp_torch.observability.aggregate`; :func:`set_heartbeat_payload`
+registers the shard's source with the beat thread,
+:func:`read_heartbeat_payload` reads it); the liveness reader takes line 1
+alone. The files are the JAX package's, so either package's reader reads
+the other's. Before it exits 76 the watchdog dumps the process's flight
+recorders (``flightrec_watchdog.json``).
 """
 
 from __future__ import annotations
@@ -337,8 +340,14 @@ class Watchdog:
                 self.event_writer.sync()
             except Exception:
                 logger.exception("watchdog event record failed")
-        # the JAX watchdog dumps its flight recorder here; that recorder is
-        # ROADMAP.md's "observability, part 2"
+        # the exit-76 flight recording: the last windows and events this
+        # process saw before it stopped waiting for the dead peer
+        try:
+            from tpuddp_torch.observability import flight
+
+            flight.dump_all("watchdog")
+        except Exception:
+            logger.exception("watchdog flight dump failed")
         if callable(self.action):
             self.action(stale)
         else:

@@ -26,9 +26,10 @@ The options are the policy's (:class:`~tpuddp_torch.resilience.supervisor.
 SupervisorPolicy`) and ``tools/supervise.py``'s; ``--first-env KEY=VAL``
 applies to the first attempt only (a fault injected there must not fire
 again in the resumed run); ``--world`` pins ``$TPUDDP_WORLD_SIZE`` and arms
-the shrink. ``--flight-dir`` (the flight recorder's dumps) and a ``--model``
-over 1 belong to parts the port has not ported: the supervisor and the
-entry points refuse them, naming their ROADMAP entries.
+the shrink; ``--flight-dir DIR`` logs a summary of each flight recording
+the child leaves in DIR (usually its ``out_dir``) before each restart. A
+``--model`` over 1 belongs to a part the port has not ported: the entry
+points refuse it, naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -69,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="set $TPUDDP_AUTO_RESUME=1 on the FIRST attempt "
                         "too (restarts always resume)")
     parser.add_argument("--flight-dir", default=None, metavar="DIR",
-                        help="summarize the flight recorder's crash recordings "
-                        "in DIR (not implemented in tpuddp_torch yet)")
+                        help="summarize flightrec_<reason>.json crash recordings "
+                        "from DIR (usually the run's out_dir) before each restart")
     parser.add_argument("--first-env", action="append", default=[],
                         metavar="KEY=VAL",
                         help="env applied to attempt 0 only (repeatable; "

@@ -81,6 +81,12 @@ run continues that epoch at that step. ``pipeline.device_augment: false``
 runs the augment as its own op on each batch before the step, outside the
 step and its CUDA graph (``train_accelerate.py:879-886``); it draws the same
 flips from the same stream, so the run is the in-step one's.
+
+The ``observability`` block (``train_accelerate.py:298-534``), in each
+host's local rank 0: the flight recorder (dumped on a drain, a desync or an
+exception), the ``/metrics`` exporter and, across hosts, the telemetry
+shards with process 0's straggler detector. The JAX managed loop builds no
+tracer, so ``tracing: true`` is accepted and changes nothing here.
 """
 
 from __future__ import annotations
@@ -106,6 +112,8 @@ from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment
 from tpuddp_torch.models.convert import jax_leaf_index
 from tpuddp_torch.nn import CrossEntropyLoss
 from tpuddp_torch.observability import MetricsWriter, RunTelemetry, config_hash, schema
+from tpuddp_torch.observability import exporter as exp_lib
+from tpuddp_torch.observability import flight as flight_lib
 from tpuddp_torch.parallel import backend, comm
 from tpuddp_torch.parallel.collectives import all_reduce_sum_
 from tpuddp_torch.parallel.spawn import resolve_world, run_ddp_training
@@ -116,7 +124,8 @@ from tpuddp_torch.train_native import load_model_for, set_numerics
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import snapshot as snapshot_lib
 from tpuddp_torch.training.loop import (
-    StepClock, agreed_poll, drain_requested, event, host_ranks, step_fault_hook,
+    StepClock, agreed_poll, drain_requested, event, host_ranks, live_plane, observability_meta,
+    step_fault_hook,
 )
 from tpuddp_torch.training.pipeline import StagedLoader, resolve_pipeline
 
@@ -247,6 +256,7 @@ def run_training_loop(
     accelerator, eval_transform, num_epochs: int = 20, checkpoint_epoch: int = 5,
     deferred_metrics: bool = False, start_epoch: int = 0, keep_last: Optional[int] = None,
     step_stats_every: int = 0, run_meta: Optional[dict] = None, snapshot=None, augment=None,
+    observability=None,
 ):
     """Run epochs ``start_epoch`` to ``num_epochs``; returns the list of
     per-epoch records. ``run_meta`` holds the entry point's header fields;
@@ -254,27 +264,43 @@ def run_training_loop(
     background writer; armed on one host, a drain caught at a cycle boundary
     writes ``state_{epoch}_s{step}.npz`` with the v4 cursor and the resumed
     run continues that epoch at that step); ``augment`` the out-of-step
-    augment of ``pipeline.device_augment: false``."""
+    augment of ``pipeline.device_augment: false``; ``observability`` the
+    ``observability`` block (``train_accelerate.py:298-534``: the flight
+    recorder, the exporter, the shards and the aggregator in each host's
+    local rank 0; the JAX managed loop builds no tracer, so ``tracing`` is
+    accepted and changes nothing here)."""
     # $TPUDDP_FAULT step hook: nan@step=N poisons that staged host batch,
     # preempt@step=N asks for the drain there
     train_loader.inject = step_fault_hook()
     full_loader = train_loader.loader  # an epoch's tail is put in its place
     snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
     pending = {"c": getattr(accelerator, "last_restore_cursor", None)}
+    hosts = backend.num_hosts() or 1
+    world = accelerator.num_processes
+    host = accelerator.process_index // (world // hosts)
+    leader = backend.is_host_leader()
+    obs_cfg = cfg_lib.resolve_observability(observability)
+    flight = None
+    if leader and obs_cfg["flight_recorder"] and save_dir is not None:
+        flight = flight_lib.install(flight_lib.FlightRecorder(
+            save_dir, capacity=int(obs_cfg["flight_capacity"]), process_index=host))
     # the typed history (train_accelerate.py:276-420): the header, then the
     # recorder and the profiling triggers; MFU stays null, as the JAX
     # managed rows have it (no FLOPs probe on this path)
-    writer = MetricsWriter(save_dir)
+    writer = MetricsWriter(save_dir, flight=flight)
     guard = accelerator.guard
     restore_events = list(accelerator.last_restore_events)
-    hosts = backend.num_hosts() or 1
-    world = accelerator.num_processes
     device = accelerator.device
+    # the exporter binds before the header, which records the bound port
+    exporter = (exp_lib.exporter_from_config(obs_cfg, run_dir=save_dir, process_index=host)
+                if leader else None)
+    if exporter is not None:
+        exporter.start()
     writer.write(schema.make_run_meta(
-        world_size=world, process_count=hosts,
-        process_index=accelerator.process_index // (world // hosts),
+        world_size=world, process_count=hosts, process_index=host,
         device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else None,
         comm_hook=accelerator.comm_hook, comm_topology=accelerator.comm_topology, guard=guard,
+        observability=observability_meta(obs_cfg, exporter, flight),
         comm={"overlap": dict(accelerator.comm_overlap_meta)},
         # the managed flavour's provenance (drain-time step snapshots only)
         snapshot={**snap_cfg.as_dict(), "mode": "drain"} if snap_cfg.enabled else False,
@@ -298,6 +324,10 @@ def run_training_loop(
     for ev in restore_events:  # an elastic restore's rows (train_accelerate.py:329-394)
         writer.write(schema.stamp("event", ev))
     tel = RunTelemetry(writer, save_dir, step_stats_every, device)
+    aggregator, shard_dir = live_plane(obs_cfg, save_dir, hosts, leader,
+                                       accelerator.process_index == 0, writer)
+    tel.attach_live(exporter=exporter, aggregator=aggregator, shard_dir=shard_dir,
+                    process_id=host)
     prev_skips = optimizer.skip_counters()[0] if guard.enabled else 0
     rollbacks = 0
 
@@ -332,6 +362,9 @@ def run_training_loop(
         writer.write(event("preempt", epoch=last_completed + 1, completed=True,
                            step=tel.recorder.global_step))
         writer.sync()
+        if flight is not None:  # the exit-75 recording (the preempt row rode the tee)
+            flight.note(emergency_epoch=last_completed, emergency_step=tel.recorder.global_step)
+            flight.dump("preempt")
         raise TrainingPreempted(last_completed + 1)
 
     def mid_drain(epoch: int, prog: dict, plan_key: str):
@@ -352,6 +385,10 @@ def run_training_loop(
         writer.write(event("preempt", epoch=epoch, completed=False,
                            step=tel.recorder.global_step, snapshot_step=step))
         writer.sync()
+        if flight is not None:
+            flight.note(emergency_epoch=epoch, emergency_step=tel.recorder.global_step,
+                        snapshot_final_step=step)
+            flight.dump("preempt")
         raise TrainingPreempted(epoch)
 
     # the poll inside a pass, armed by training.snapshot on one host: the
@@ -463,6 +500,12 @@ def run_training_loop(
                 if epoch_skips:
                     accelerator.print(f"Guard: skipped {epoch_skips} non-finite update(s) in epoch "
                                       f"{epoch} (total {total}).")
+            # the live gauges (train_accelerate.py:688-701)
+            tel.update_live(train_loss=train_loss, test_loss=test_loss,
+                            test_accuracy=test_accuracy,
+                            skipped_steps=record.get("skipped_steps", 0))
+            if aggregator is not None:
+                aggregator.update()
             record = schema.stamp("epoch", record)
             history.append(record)
             writer.write(record)
@@ -487,6 +530,16 @@ def run_training_loop(
             epoch += 1
         accelerator.print("Finished Training.")
         return history
+    except TrainingPreempted:
+        raise  # the drain dumped the "preempt" recording
+    except guard_lib.ReplicaDesync:
+        if flight is not None:
+            flight.dump("desync")
+        raise
+    except BaseException:
+        if flight is not None:
+            flight.dump("exception")
+        raise
     finally:
         train_loader.loader = full_loader
         if agreed is not None:
@@ -495,6 +548,10 @@ def run_training_loop(
                   flush=True)
         tel.finish()
         writer.close()
+        if exporter is not None:
+            exporter.stop()
+        if flight is not None:
+            flight_lib.uninstall(flight)
 
 def build_training(training: dict, device: str = "cuda"):
     """The accelerator and the prepared objects a process trains with:
@@ -555,9 +612,10 @@ def build_training(training: dict, device: str = "cuda"):
 
 def basic_accelerate_training(
     rank: int, world_size: int, save_dir: Optional[str], optional_args: dict,
-    training: Optional[dict] = None, device: str = "cuda",
+    training: Optional[dict] = None, device: str = "cuda", observability: Optional[dict] = None,
 ):
-    """Per-process worker; returns the epoch history."""
+    """Per-process worker; returns the epoch history. ``observability`` is
+    the settings file's resolved block (None: its defaults)."""
     training = dict(training or cfg_lib.TRAINING_DEFAULTS)
     accelerator, model, optimizer, train_loader, test_loader, criterion, eval_transform = (
         build_training(training, device)
@@ -594,6 +652,7 @@ def basic_accelerate_training(
         # drain-time step snapshots and the exact mid-epoch resume
         snapshot=training.get("snapshot"),
         augment=augment,
+        observability=observability,
     )
 
 
@@ -616,7 +675,8 @@ def main(argv=None):
     training = cfg_lib.training_config(settings)
     out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
     return run_ddp_training(
-        partial(basic_accelerate_training, training=training, device=device),
+        partial(basic_accelerate_training, training=training, device=device,
+                observability=cfg_lib.observability_config(settings)),
         world_size, out_dir, cfg_lib.optional_args_from(settings), backend=device, **rendezvous,
     )
 

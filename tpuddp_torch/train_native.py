@@ -30,7 +30,12 @@ run. Process 0 writes ``out_dir/history.jsonl``: a ``run_meta`` header,
 one ``epoch`` row per epoch (with the step-time percentiles and MFU),
 ``step_stats`` rows every ``step_stats_every`` updates and event rows;
 ``$TPUDDP_PROFILE``, ``$TPUDDP_PROFILE_STEPS`` and SIGUSR1 write
-``torch.profiler`` traces (``observability/``).
+``torch.profiler`` traces (``observability/``). The settings file's
+``observability`` block sets the live plane: the flight recorder (on by
+default: ``flightrec_<reason>.json`` on a drain, a watchdog exit, a desync
+or an exception), the ``/metrics`` exporter (``out_dir/exporter.port``),
+the hosts' telemetry shards and the straggler detector, and the span trees
+(``tracing: true``: ``out_dir/trace_train.json``).
 
 Across hosts, one settings file with a ``local.rendezvous`` block
 (``coordinator_address``, ``num_processes`` = the hosts) serves every host;
@@ -197,10 +202,12 @@ def basic_ddp_training_loop(
     optional_args: dict,
     training: Optional[dict] = None,
     device: str = "cuda",
+    observability: Optional[dict] = None,
 ):
     """Per-process worker (reference ``basic_DDP_training_loop``,
     multi-GPU-training-torch.py:228-266); the process group is already up.
-    Returns the epoch history."""
+    ``observability`` is the settings file's resolved block (the live
+    plane; None: its defaults). Returns the epoch history."""
     unit = "GPU" if device == "cuda" else "process"
     print(f"Running DDP training on process {rank} ({world_size}-{unit} world).")
     training = dict(training or cfg_lib.TRAINING_DEFAULTS)
@@ -234,6 +241,9 @@ def basic_ddp_training_loop(
         model_input=model_input_for(training, train_loader),
         # step snapshots and the exact mid-epoch resume (training/snapshot.py)
         snapshot=training.get("snapshot"),
+        # the live plane (train_native.py:213, :252): flight recorder,
+        # exporter, pod shards, tracing
+        observability=observability,
     )
 
 
@@ -257,7 +267,8 @@ def main(argv=None):
     training = cfg_lib.training_config(settings)
     out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
     return run_ddp_training(
-        partial(basic_ddp_training_loop, training=training, device=device),
+        partial(basic_ddp_training_loop, training=training, device=device,
+                observability=cfg_lib.observability_config(settings)),
         world_size,
         out_dir,
         cfg_lib.optional_args_from(settings),

@@ -116,6 +116,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import sys
 import time
 from typing import Optional
@@ -125,12 +126,18 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch import optim, seeding
+from tpuddp_torch.config import resolve_observability
 from tpuddp_torch.observability import CommBytesCounter, MetricsWriter, RunTelemetry, schema
+from tpuddp_torch.observability import aggregate as agg_lib
+from tpuddp_torch.observability import exporter as exp_lib
+from tpuddp_torch.observability import flight as flight_lib
+from tpuddp_torch.observability import trace as trace_lib
 from tpuddp_torch.observability.recorder import count_step_flops
 from tpuddp_torch.parallel import backend
 from tpuddp_torch.parallel import collectives as col
 from tpuddp_torch.resilience import faults, preemption
 from tpuddp_torch.resilience import guard as guard_lib
+from tpuddp_torch.resilience import watchdog as wd_lib
 from tpuddp_torch.resilience.preemption import TrainingPreempted
 from tpuddp_torch.training import checkpoint as ckpt
 from tpuddp_torch.training import pipeline as pipeline_lib
@@ -403,6 +410,99 @@ def _log_drain_stats(rank: int, engine, agreed: Optional[AgreedPoll]) -> None:
     print("; ".join(parts), file=sys.stderr, flush=True)
 
 
+def observability_meta(obs_cfg: dict, exporter, flight) -> dict:
+    """The run_meta header's ``observability`` field from the live objects
+    (``tpuddp/training/loop.py:452-460``): the exporter's bound endpoint
+    and the flight recorder's capacity, or False where they are off."""
+    return {
+        "exporter": exporter.describe() if exporter is not None else False,
+        "aggregate": bool(obs_cfg["aggregate"]),
+        "straggler_ratio": float(obs_cfg["straggler_ratio"]),
+        "straggler_windows": int(obs_cfg["straggler_windows"]),
+        "flight_recorder": flight.describe() if flight is not None else False,
+    }
+
+
+def live_plane(obs_cfg: dict, save_dir: Optional[str], hosts: int, leader: bool, is_main: bool,
+               writer):
+    """``(aggregator, shard_dir)`` of a run (``tpuddp/training/loop.py:
+    513-539``): with ``aggregate`` on and more than one host, each host's
+    leader publishes its shard into the heartbeat directory
+    (:func:`~tpuddp_torch.resilience.watchdog.heartbeat_dir`) and process 0
+    merges the shards into ``writer``'s history; else ``(None, None)``."""
+    if not (obs_cfg["aggregate"] and hosts > 1 and leader):
+        return None, None
+    shard_dir = wd_lib.heartbeat_dir(save_dir)
+    if shard_dir is None:
+        return None, None
+    os.makedirs(shard_dir, exist_ok=True)
+    aggregator = None
+    if is_main:
+        aggregator = agg_lib.PodAggregator(
+            shard_dir, hosts, writer=writer, straggler_ratio=float(obs_cfg["straggler_ratio"]),
+            straggler_windows=int(obs_cfg["straggler_windows"]))
+    return aggregator, shard_dir
+
+
+def collective_attrs(ddp) -> Optional[dict]:
+    """The attributes of a train dispatch's ``collective`` annotation spans
+    (``tpuddp/training/loop.py:718-760``), or None without a comm hook and
+    without the segmented overlap: the hook, the topology and the bucket
+    plan's wire bytes per update (host integers), and under the overlap
+    each segment's layers, flat range and bucket count."""
+    overlap_on = bool((getattr(ddp, "comm_overlap_meta", None) or {}).get("enabled"))
+    hook = getattr(ddp, "comm_hook", "none")
+    if hook == "none" and not overlap_on:
+        return None
+    attrs = {
+        "hook": hook,
+        "topology": getattr(ddp, "comm_topology", "flat"),
+        "wire_bytes_per_update": getattr(ddp, "grad_comm_bytes_per_step", None),
+        "wire_bytes_per_update_f32": getattr(ddp, "grad_comm_bytes_per_step_f32", None),
+        "inter_host_bytes_per_update": getattr(ddp, "grad_comm_bytes_inter_host", None),
+    }
+    if overlap_on:
+        attrs["overlap"] = True
+        attrs["segments"] = [
+            {"segment": i, "layers": list(seg.layers), "flat": list(seg.flat),
+             "buckets": len(seg.buckets)}
+            for i, seg in enumerate(ddp._overlap.segments)
+        ]
+    return attrs
+
+
+def annotate_collectives(tracer, parent, comm_attrs: dict, updates: int) -> None:
+    """A train dispatch's zero-length ``collective`` spans, nested in it:
+    ``grad_comm``, or ``grad_comm.seg{k}`` per segment of the overlap. The
+    exchange runs inside the step, so the host cannot time it; the spans
+    carry what the plan counts (``tpuddp/training/pipeline.py:316-344``)."""
+    segs = comm_attrs.get("segments")
+    if segs:
+        shared = {k: v for k, v in comm_attrs.items() if k != "segments"}
+        for seg in segs:
+            tracer.end_span(tracer.start_span(
+                f"grad_comm.seg{seg['segment']}", trace_lib.KIND_COLLECTIVE, parent=parent,
+                attrs={**shared, **seg, "updates": updates}))
+    else:
+        tracer.end_span(tracer.start_span("grad_comm", trace_lib.KIND_COLLECTIVE, parent=parent,
+                                          attrs={**comm_attrs, "updates": updates}))
+
+
+def _host_rows(chunk, world_size: int, hosts: int) -> int:
+    """A dispatch's rows on this host (every rank of a host holds batches
+    of one shape): the JAX process's host batch rows."""
+    return sum(len(b[1]) for b in chunk) * (world_size // hosts)
+
+
+def _sync_readback(staged, tracer, parent) -> None:
+    """Under ``sync_readback`` the dispatch's wait for the device, a
+    ``readback`` span nested in its dispatch span."""
+    if staged.cfg.sync_readback:
+        rsp = tracer.start_span("readback", trace_lib.KIND_READBACK, parent=parent)
+        staged.fence()
+        tracer.end_span(rsp, sync=True)
+
+
 def _prober(loader, every: Optional[int], log):
     """The shard-disjointness probe of every ``every``-th host batch."""
     def probe(batch_idx, batch):
@@ -432,6 +532,7 @@ def run_training_loop(
     run_meta: Optional[dict] = None,
     model_input: Optional[tuple] = None,
     snapshot=None,
+    observability=None,
     log=print,
 ):
     """Run the epochs from the first not yet done (0 unless resumed) to
@@ -439,7 +540,9 @@ def run_training_loop(
     holds the entry point's header fields (config_hash, model, dataset);
     ``model_input`` is one train batch's ``(shape, dtype)`` as the model
     takes it, which the telemetry counts an update's FLOPs on (MFU is
-    null without it); ``snapshot`` the ``training.snapshot`` block."""
+    null without it); ``snapshot`` the ``training.snapshot`` block;
+    ``observability`` the settings file's ``observability`` block (the
+    live plane, :func:`tpuddp_torch.config.resolve_observability`)."""
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
     accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
     pipeline = pipeline_lib.resolve_pipeline(pipeline)
@@ -463,21 +566,39 @@ def run_training_loop(
                             world_size=world_size, step=ddp.step, comm_state=residual,
                             skipped=counters, residual_replicated=replicated)
 
+    hosts = backend.num_hosts() or 1
+    host = rank // (world_size // hosts)
+    # the live plane (tpuddp/training/loop.py:229-545): in each host's local
+    # rank 0, the process standing for the JAX package's one process of that
+    # host: the flight recorder (before the writer, which tees into it),
+    # the tracer, the exporter, this host's shard; process 0 aggregates
+    obs_cfg = resolve_observability(observability)
+    leader = backend.is_host_leader()
+    tracer = (trace_lib.tracer_from_config(obs_cfg, "train", run_dir=save_dir) if leader
+              else trace_lib.NULL_TRACER)
+    flight = None
+    if leader and obs_cfg["flight_recorder"] and save_dir is not None:
+        flight = flight_lib.install(flight_lib.FlightRecorder(
+            save_dir, capacity=int(obs_cfg["flight_capacity"]), process_index=host))
+        if tracer.enabled:  # a dump names the spans still open: where the process died
+            flight.add_context("open_spans", tracer.open_span_summaries)
     # step snapshots (training/snapshot.py): device copies between
     # dispatches, a background writer; pending["c"] carries a restored v4
     # cursor to the epoch it continues (tpuddp/training/loop.py:303-359)
     snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
     snap_engine = None
-    hosts = backend.num_hosts() or 1
     if snap_cfg.enabled and save_dir is not None:
         snap_engine = snapshot_lib.SnapshotEngine(
             save_dir, snap_cfg, rank=rank, world_size=world_size, hosts=hosts,
-            host=rank // (world_size // hosts), keep_last=keep_last)
+            host=host, keep_last=keep_last, tracer=tracer, flight=flight)
     plan_ranks = host_ranks(world_size)
     pending = {"c": None}
     if is_main:
         log(f"Training on {len(train_loader)} batches, test on {len(test_loader)} batches")
     start_epoch = 0
+    # the run is one trace, minted before the restore so that an elastic
+    # reshard lands in the same tree as the epochs after it
+    run_trace_id = tracer.new_trace()
     # an elastic restore's topology_change/comm_state_reset rows, written
     # after the run_meta header (tpuddp/training/loop.py:321-395, :493)
     reshard_log = []
@@ -486,6 +607,8 @@ def run_training_loop(
             if is_main:
                 log("Auto-resume requested but no save_dir configured; starting fresh.")
         else:
+            resume_span = tracer.start_span("auto-resume restore", trace_lib.KIND_ACTION,
+                                            trace_id=run_trace_id, tid="train")
             cursors = []
             start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
@@ -497,6 +620,23 @@ def run_training_loop(
             ddp.clear_graphs()  # the restore replaced what a graph writes
             if start_epoch > 0 and is_main:
                 log(f"Auto-resume: continuing from epoch {start_epoch}.")
+            if cursors and flight is not None:
+                flight.note(snapshot_resume={
+                    "epoch": cursors[-1].get("epoch"), "step": cursors[-1].get("step"),
+                    "provenance": cursors[-1].get("provenance"),
+                    "path": os.path.basename(cursors[-1].get("path") or "")})
+            topo = next((ev for ev in reshard_log if ev.get("event") == "topology_change"), None)
+            if topo is not None:  # the reshard on every surface: a span, a note, the rows
+                keys = ("from_world", "to_world", "from_model", "to_model", "checkpoint")
+                tracer.end_span(
+                    tracer.start_span("elastic reshard", trace_lib.KIND_ACTION,
+                                      parent=resume_span,
+                                      attrs={k: topo.get(k) for k in keys + ("residual",)}),
+                    resharded_leaves=len(topo.get("resharded_leaves") or ()))
+                if flight is not None:
+                    flight.note(elastic_reshard={k: topo.get(k) for k in keys})
+            tracer.end_span(resume_span, resumed_epoch=start_epoch,
+                            resharded=bool(reshard_log))
     # the drain flag, polled at every batch boundary at world 1; at world > 1
     # on one host agreed at every dispatch boundary (AgreedPoll: the staged
     # loaders read the last verdict); across hosts never inside a pass (one
@@ -509,14 +649,23 @@ def run_training_loop(
         inject=step_fault_hook(), poll=poll,
     )
     test_pass = pipeline_lib.StagedLoader(test_loader, device, pipeline, poll=poll)
+    for staged_pass in (train_pass, test_pass):  # sync_readback: a wait in each dispatch span
+        staged_pass.tracer, staged_pass.fence_in_consumer = tracer, True
     guard = getattr(ddp, "guard", guard_lib.DISABLED)
     prev_total = ddp.skip_counters()[0] if guard.enabled else 0
     rollbacks = 0
     # the typed history (tpuddp/training/loop.py:399-520): the run_meta
     # header first (a resumed run appends a fresh one), then the recorder
     # and the profiling triggers
-    writer = MetricsWriter(save_dir)
+    writer = MetricsWriter(save_dir, flight=flight)
     comm_counter = CommBytesCounter(getattr(ddp, "grad_comm_bytes_per_step", None))
+    # the exporter binds before the header, which records the bound port
+    exporter = (exp_lib.exporter_from_config(obs_cfg, run_dir=save_dir, process_index=host)
+                if leader else None)
+    if exporter is not None:
+        exporter.start()
+        if tracer.enabled:
+            exporter.set_trace_source(tracer.endpoint_payload)
     writer.write(schema.make_run_meta(
         world_size=world_size,
         process_count=backend.num_hosts() or 1,
@@ -526,6 +675,8 @@ def run_training_loop(
         comm_hook=getattr(ddp, "comm_hook", "none"),
         comm_topology=getattr(ddp, "comm_topology", "flat"),
         guard=guard,
+        observability=observability_meta(obs_cfg, exporter, flight),
+        tracing=tracer.describe(),
         comm={"overlap": dict(ddp.comm_overlap_meta)},
         snapshot=snap_engine.describe() if snap_engine is not None else False,
         extra={
@@ -552,6 +703,10 @@ def run_training_loop(
         def flops_fn():
             return count_step_flops(ddp.model, *model_input)
     tel = RunTelemetry(writer, save_dir, step_stats_every, device, flops_fn)
+    aggregator, shard_dir = live_plane(obs_cfg, save_dir, hosts, leader, is_main, writer)
+    tel.attach_live(exporter=exporter, aggregator=aggregator, shard_dir=shard_dir,
+                    process_id=host)
+    comm_attrs = collective_attrs(ddp) if tracer.enabled else None
 
     def can_roll_back() -> bool:
         return save_dir is not None and ckpt.agreed_latest(save_dir, device=device) is not None
@@ -626,6 +781,14 @@ def run_training_loop(
             row["snapshot_step"] = int(partial["step"])
         writer.write(event("preempt", **row))
         writer.sync()
+        if flight is not None:  # the exit-75 recording: the preempt row rode the tee above
+            notes = dict(emergency_checkpoint=path, emergency_epoch=epoch,
+                         emergency_step=tel.recorder.global_step)
+            if snap_drain:  # the last snapshot the writer published, and the drain's own
+                notes.update(snapshot_flushed_step=flushed,
+                             snapshot_final_step=int(partial["step"]))
+            flight.note(**notes)
+            flight.dump("preempt")
         raise TrainingPreempted(epoch, path)
 
     try:
@@ -646,6 +809,9 @@ def run_training_loop(
                         continue
                     raise guard_lib.ReplicaDesync(bad_leaf, where=f"epoch {epoch} audit")
             t0 = time.perf_counter()
+            epoch_span = tracer.start_span(f"epoch {epoch}", trace_lib.KIND_EPOCH,
+                                           trace_id=run_trace_id, tid="train",
+                                           attrs={"epoch": epoch})
             if is_main:
                 log(f"Process {rank}, Epoch {epoch}")
             if set_epoch:
@@ -685,6 +851,11 @@ def run_training_loop(
             if snap_engine is not None:
                 plan_key = snapshot_lib.epoch_plan_key(train_loader, epoch, plan_ranks)
                 snap_engine.begin_epoch(epoch, base_step)
+                snap_engine.trace_parent = epoch_span
+            train_pass.trace_parent = test_pass.trace_parent = epoch_span
+            if tracer.enabled:
+                train_pass.stage_plan = pipeline_lib.stage_units(len(train_pass), train_k, accum)
+                test_pass.stage_plan = pipeline_lib.stage_units(len(test_pass), eval_k)
 
             train_sums = torch.zeros(len(TRAIN_KEYS), device=device)
             if acc0 is not None:  # the cursor's partial sums (this replica's) seed this pass's
@@ -709,6 +880,9 @@ def run_training_loop(
             for many, chunk in dispatches(train_pass, train_k, accum):
                 updates = len(chunk) // accum
                 tel.pre_dispatch(updates)
+                dsp = tracer.start_span("dispatch", trace_lib.KIND_DISPATCH, parent=epoch_span,
+                                        attrs={"steps": len(chunk),
+                                               "samples": _host_rows(chunk, world_size, hosts)})
                 clock.mark()
                 clock.groups.append(updates)
                 if not many:
@@ -717,6 +891,10 @@ def run_training_loop(
                     train_sums = ddp.train_step_many(chunk, train_sums)
                 else:
                     train_sums += ddp.train_cycle(chunk)
+                _sync_readback(train_pass, tracer, dsp)
+                if comm_attrs is not None:
+                    annotate_collectives(tracer, dsp, comm_attrs, max(1, len(chunk) // accum))
+                tracer.end_span(dsp, inflight=dispatched + 1)
                 real = min(len(chunk), left)  # an accumulation tail's padding is not the loader's
                 left -= real
                 done += real
@@ -735,8 +913,11 @@ def run_training_loop(
             if train_pass.interrupted:
                 emergency_stop(epoch, partial=None if snap_engine is None else {
                     "step": done, "plan_key": plan_key, "acc": sums_by_key})
+            rsp = tracer.start_span("readback", trace_lib.KIND_READBACK, parent=epoch_span,
+                                    attrs={"pending": dispatched})
             clock.mark()
-            step_ms = clock.step_ms()
+            step_ms = clock.step_ms()  # waits for the pass's last mark
+            tracer.end_span(rsp)
             if not step_ms and not base_step:
                 raise RuntimeError(
                     "train loader yielded no batches this epoch; check the "
@@ -745,11 +926,18 @@ def run_training_loop(
             train_time_s = time.perf_counter() - t0
 
             eval_sums = torch.zeros(len(EVAL_KEYS), device=device)
+            eval_dispatches = 0
             for many, chunk in dispatches(test_pass, eval_k):
+                dsp = tracer.start_span("dispatch", trace_lib.KIND_DISPATCH, parent=epoch_span,
+                                        attrs={"steps": len(chunk),
+                                               "samples": _host_rows(chunk, world_size, hosts)})
                 if many:
                     eval_sums = ddp.eval_step_many(chunk, eval_sums)
                 else:
                     eval_sums += ddp.eval_step(chunk[0])
+                _sync_readback(test_pass, tracer, dsp)
+                eval_dispatches += 1
+                tracer.end_span(dsp, inflight=eval_dispatches)
                 if agreed is not None:
                     agreed.exchange()
             # a drain during the eval pass: every update of the epoch is in,
@@ -761,7 +949,10 @@ def run_training_loop(
 
             if per_replica_log and not eval_cut:
                 _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
-            sums = finalize_metrics(train_sums, eval_sums)
+            rsp = tracer.start_span("readback", trace_lib.KIND_READBACK, parent=epoch_span,
+                                    attrs={"pending": eval_dispatches})
+            sums = finalize_metrics(train_sums, eval_sums)  # the epoch's one read of its sums
+            tracer.end_span(rsp)
             tel.stop_epoch_trace()  # the first-epoch and SIGUSR1 traces hold the eval pass
             train_m, eval_m = sums["train"], sums["eval"]
             train_loss = train_m["loss_sum"] / max(train_m["n"], 1.0)
@@ -818,6 +1009,13 @@ def run_training_loop(
                 epoch_skips, prev_total = total - prev_total, total
                 record.update(skipped_steps=total, skipped_steps_epoch=epoch_skips)
                 optim.sync_steps(ddp.optimizer)  # the host's step counts, at the epoch's end
+            # the live gauges the recorder cannot see (host values)
+            tel.update_live(train_loss=train_loss, test_loss=test_loss,
+                            test_accuracy=test_accuracy,
+                            skipped_steps=record.get("skipped_steps", 0),
+                            grad_comm_bytes_total=comm_counter.total_bytes)
+            if aggregator is not None:
+                aggregator.update()  # the epoch's merge (windows may be off)
             record = schema.stamp("epoch", record)
             history.append(record)
             writer.write(record)
@@ -831,6 +1029,7 @@ def run_training_loop(
                 # instead of checkpointing a wedged trajectory
                 reason = f"{consecutive} consecutive non-finite updates skipped"
                 if can_roll_back():
+                    tracer.end_span(epoch_span, rollback="consecutive_skips")
                     epoch = rollback(epoch, reason)
                     prev_total = ddp.skip_counters()[0]
                     continue
@@ -851,14 +1050,34 @@ def run_training_loop(
                     step=ddp.step, comm_state=residual, skipped=counters,
                     residual_replicated=replicated,
                 )
+            tracer.end_span(epoch_span, train_loss=float(train_loss), skipped_steps=epoch_skips)
             epoch += 1
         if is_main:
             log(f"Finished Training on process {rank}.")
         return history
+    except TrainingPreempted:
+        raise  # emergency_stop dumped the "preempt" recording
+    except guard_lib.ReplicaDesync:
+        if flight is not None:
+            flight.dump("desync")
+        raise
+    except BaseException:
+        if flight is not None:
+            flight.dump("exception")
+        raise
     finally:
         if snap_engine is not None:
             snap_engine.close()
         if agreed is not None or snap_engine is not None:
             _log_drain_stats(rank, snap_engine, agreed)
         tel.finish()
+        if tracer.enabled:
+            # on every way out: the summary row before the history closes, the
+            # Chrome trace beside it (an interrupted epoch's spans flagged open)
+            writer.write(schema.stamp("trace_summary", tracer.summary_record()))
+            tracer.export()
         writer.close()
+        if exporter is not None:
+            exporter.stop()
+        if flight is not None:
+            flight_lib.uninstall(flight)

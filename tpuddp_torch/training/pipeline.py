@@ -29,9 +29,18 @@ the last batches are dispatched marks the pass interrupted at its end.
 ``device_augment: false`` runs the managed path's augment as its own op on
 each batch before the step (``train_accelerate.py``); the native step always
 augments inside, as the JAX native step does, so there it changes nothing.
-The trace hooks of the JAX ``run_pass`` are not ported (ROADMAP.md Queue 1
-item 8: observability, part 2); its telemetry hooks are the epoch loops'
-(:mod:`tpuddp_torch.observability`).
+
+The trace hooks of the JAX ``run_pass`` (``tpuddp/training/pipeline.py:
+291-364``): with a live tracer (:attr:`StagedLoader.tracer`) each unit of
+:attr:`StagedLoader.stage_plan` (one dispatch's batches, :func:`stage_units`)
+is one ``stage`` span under :attr:`StagedLoader.trace_parent`, from the
+placement of its first batch to that of its last. The lookahead is in
+batches, so at a depth over 0 the previous dispatch is issued in between:
+the spans sit on a timeline row of their own (``tid`` ``stage``).
+The epoch loops own the other spans and the telemetry hooks
+(:mod:`tpuddp_torch.observability`). A consumer that fences its own
+dispatches under ``sync_readback`` (the native loop, inside its dispatch
+span) sets :attr:`StagedLoader.fence_in_consumer`.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tpuddp_torch.observability import trace as trace_lib
 from tpuddp_torch.utils import batching
 
 PIPELINE_DEFAULTS = {
@@ -94,6 +104,20 @@ def resolve_pipeline(block) -> PipelineConfig:
     if cfg.host_workers < 0:
         raise ValueError(f"training.pipeline.host_workers must be >= 0, got {cfg.host_workers}")
     return cfg
+
+
+def stage_units(n_batches: int, k: int, accum: int = 1):
+    """The ``(batches, steps)`` of each dispatch of a pass of ``n_batches``
+    at ``k`` batches a chunk (the dispatch plan of ``training.loop.
+    dispatches``): full chunks of ``k``; then under ``accum > 1`` the tail
+    as one dispatch, ``steps`` padded to whole cycles; else single steps."""
+    if k <= 1 and accum <= 1:
+        return [(1, 1)] * n_batches
+    units = [(k, k)] * (n_batches // k)
+    rem = n_batches % k
+    if rem and accum > 1:
+        return units + [(rem, rem + (-rem % accum))]
+    return units + [(1, 1)] * rem
 
 
 def staging_depth_for(depth: int, batch_nbytes) -> int:
@@ -192,6 +216,10 @@ class StagedLoader:
         self.stall = StallClock()
         self._rows = deque()
         self.staged_depth = 0
+        self.tracer = trace_lib.NULL_TRACER
+        self.trace_parent = None
+        self.stage_plan = None  # the pass's stage_units (traced)
+        self.fence_in_consumer = False
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -202,9 +230,15 @@ class StagedLoader:
     def __getattr__(self, name):
         return getattr(self.loader, name)
 
-    def _fence(self) -> None:
+    def fence(self) -> None:
+        """Under ``sync_readback``, wait for the device (the synchronous
+        A/B mode's one wait a step)."""
         if self.cfg.sync_readback and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _fence(self) -> None:
+        if not self.fence_in_consumer:
+            self.fence()
 
     def take_rows(self, n: int) -> float:
         """The real rows (the weights' sum) of the next ``n`` batches
@@ -223,23 +257,39 @@ class StagedLoader:
             self.cfg.depth, getattr(self.loader, "batch_nbytes", None)
         )
         staged = deque()
-        for i, host_batch in enumerate(stalled_iter(self.loader, self.stall)):
-            if self.probe is not None:
-                self.probe(i, host_batch)
-            if self.inject is not None:
-                host_batch = self.inject(host_batch)
+        tracer = self.tracer
+        plan = iter(self.stage_plan or ()) if tracer.enabled else None
+        unit = {"left": 0, "span": None}
+        try:
+            for i, host_batch in enumerate(stalled_iter(self.loader, self.stall)):
+                if self.probe is not None:
+                    self.probe(i, host_batch)
+                if self.inject is not None:
+                    host_batch = self.inject(host_batch)
+                if self._polled():
+                    return  # what was staged is dropped: the resume fetches it again
+                self._rows.append(float(np.asarray(host_batch[2], dtype=np.float64).sum()))
+                if plan is not None and not unit["left"]:
+                    n, steps = next(plan, (1, 1))
+                    unit["left"] = n
+                    unit["span"] = tracer.start_span(
+                        "stage", trace_lib.KIND_STAGE, parent=self.trace_parent, tid="stage",
+                        attrs={"steps": steps})
+                staged.append(stage_batch(host_batch, self.device))
+                if plan is not None:
+                    unit["left"] -= 1
+                    if not unit["left"]:
+                        tracer.end_span(unit["span"])
+                while len(staged) > depth:
+                    self.staged_depth = len(staged) - 1
+                    yield staged.popleft()
+                    self._fence()
             if self._polled():
-                return  # what was staged is dropped: the resume fetches it again
-            self._rows.append(float(np.asarray(host_batch[2], dtype=np.float64).sum()))
-            staged.append(stage_batch(host_batch, self.device))
-            while len(staged) > depth:
+                return
+            while staged:
                 self.staged_depth = len(staged) - 1
                 yield staged.popleft()
                 self._fence()
-        if self._polled():
-            return
-        while staged:
-            self.staged_depth = len(staged) - 1
-            yield staged.popleft()
-            self._fence()
-        self._polled()  # a flag raised during the last dispatches ends the pass interrupted
+            self._polled()  # a flag raised during the last dispatches ends the pass interrupted
+        finally:
+            tracer.end_span(unit["span"])  # a unit cut by the drain (a closed span: a no-op)

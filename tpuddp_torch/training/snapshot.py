@@ -271,8 +271,18 @@ class SnapshotEngine:
     prefix = ckpt.PREFIX[ckpt.NATIVE]  # the native loop's files: ckpt_{epoch}_s{step}.npz
 
     def __init__(self, save_dir: str, cfg: SnapshotConfig, *, rank: int = 0, world_size: int = 1,
-                 hosts: int = 1, host: int = 0, keep_last: Optional[int] = None):
+                 hosts: int = 1, host: int = 0, keep_last: Optional[int] = None, tracer=None,
+                 flight=None):
+        from tpuddp_torch.observability import trace as trace_lib
+
         self.save_dir = save_dir
+        # the live plane (tpuddp/training/snapshot.py:297-307, :363-390,
+        # :565-571): a ``snapshot`` span per snapshot taken, under the epoch
+        # span the loop sets as trace_parent, and the flight recorder's
+        # ``snapshot_last`` note per file written
+        self.tracer = tracer if tracer is not None else trace_lib.NULL_TRACER
+        self.flight = flight
+        self.trace_parent = None
         self.cfg = cfg
         self.rank = int(rank)
         self.world_size = int(world_size)
@@ -356,16 +366,24 @@ class SnapshotEngine:
             if not (self._held < self.cfg.inflight if room is None else room):
                 self.stats["skipped_queue_full"] += 1
             else:
+                from tpuddp_torch.observability import trace as trace_lib
+
+                span = self.tracer.start_span(
+                    "snapshot", trace_lib.KIND_ACTION, parent=self.trace_parent,
+                    attrs={"epoch": int(epoch), "step": int(step),
+                           "mode": "async" if self.cfg.async_writes else "sync"})
                 job = _Job(capture(), acc() if callable(acc) else acc, epoch, step, plan_key)
                 if not self.writes:
-                    pass  # a collective taken part in; rank 0 writes
+                    self.tracer.end_span(span)  # a collective taken part in; rank 0 writes
                 elif self._queue is None:
                     job.cap = self._host_copy(job)
                     self._write(job)
+                    self.tracer.end_span(span)
                 else:
                     self._held += 1
                     self._copy(job)
                     self._advance()
+                    self.tracer.end_span(span, enqueued=True)
                 taken = True
                 self.stats["taken"] += 1
                 self._last_taken = (int(epoch), int(step))
@@ -570,4 +588,7 @@ class SnapshotEngine:
             os.replace(tmp, writer_stats_path(path))
         except OSError:
             pass
+        if self.flight is not None:
+            self.flight.note(snapshot_last={"epoch": job.epoch, "step": job.step,
+                                            "path": os.path.basename(path)})
         return path
