@@ -459,6 +459,32 @@ Phases, each printing one line (the first failure exits non-zero):
    collective annotations where the segmented overlap resolved on); a
    clean exit leaves no flight recording and no port file; each run's step
    median.
+24. the transformer family: ``transformer_small`` at full width (d 128, 8
+   heads, 4 layers, 256 positions, vocabulary 256), its weights converted
+   from one seeded JAX-layout tree drawn with numpy:
+   - "24 forward": a (8, 256) token batch on the card against the port's
+     CPU forward, TF32 off, within rtol/atol 1e-4;
+   - "24 decode": the decode defaults' pools (8 slots, 64 blocks of 16),
+     three prompts of 17, 40 and 64 tokens prefilled at their buckets,
+     then 32 greedy ``decode_step`` s of every slot, eagerly and replayed
+     from one captured CUDA graph: the replay bitwise the eager run
+     (tokens, logits, pools), every sequence's 33 tokens those of greedy
+     decoding by repeated full forwards on the card; ms a step each way;
+   - "24 steps": the first 3 steps' losses (64 sequences of 256 tokens a
+     step) on the card within rtol 1e-3 of the CPU port's from the same
+     state, then chunks of 16 (eager, captured, replayed): the replayed
+     step's ms, tokens/s and MFU, 2 Adam launches an update;
+   - "24 training": the token job through ``run_ddp_training`` at world 1
+     (the token loader, 64 x 256 tokens a step, 2 epochs of 16 steps, Adam
+     float32), eagerly and at ``scan_steps: auto`` with graph replay in
+     turns (eager, replay, replay, eager): finite losses that fall, every
+     token counted, 2 Adam launches an update, the epoch rows and the final
+     checkpoint's parameters, moments and step counts bitwise across runs,
+     ``mfu_p50`` a number, each run's epoch-2 step median;
+   - "24 adam": the float32 kernel against its plain version over the 52
+     leaves (2 launch tables), then timed with the plain version and
+     ``torch.optim.Adam(fused=True)`` beside its 28-byte-a-parameter bound,
+     and replayed from a CUDA graph beside the library's graph.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -469,7 +495,8 @@ with phase 11's, one with phase 12's (with each hook's gradient bytes per
 update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
-phase 21's, one with phase 22's, one with phase 23's, one with the optimizers', one
+phase 21's, one with phase 22's, one with phase 23's, one with phase 24's, one with
+the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -505,11 +532,16 @@ from tpuddp_torch import config as cfg_lib  # noqa: E402
 from tpuddp_torch import optim  # noqa: E402
 from tpuddp_torch.accelerate import Accelerator, FusedEvaluator, PreparedOptimizer  # noqa: E402
 from tpuddp_torch.data import _native, load_datasets_for, norm_stats_for  # noqa: E402
+from tpuddp_torch.data.tokens import TokenLMLoader, token_loaders  # noqa: E402
 from tpuddp_torch.data.transforms import make_eval_transform, make_train_augment  # noqa: E402
 from tpuddp_torch.models import AlexNet, load_model  # noqa: E402
-from tpuddp_torch.models.convert import JaxFlatOrder, flat_to_jax, jax_leaf_index, jax_sizes  # noqa: E402
+from tpuddp_torch.models import transformer as tf_lib  # noqa: E402
+from tpuddp_torch.models.convert import (  # noqa: E402
+    JaxFlatOrder, flat_to_jax, jax_leaf_index, jax_sizes, state_dict_from_jax,
+)
 from tpuddp_torch.models.pretrained import pretrained_from_config  # noqa: E402
 from tpuddp_torch.observability import aggregate as aggregate_lib  # noqa: E402
+from tpuddp_torch.observability.recorder import count_step_flops, device_peak_flops  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
@@ -5654,6 +5686,328 @@ def live_phase():
                 launches={f"native AlexNet live plane {r['label']} turn {i} (phase 23)":
                           r["launches"][f32] for i, r in enumerate(runs)})
 
+# ---------------------------------------------------------------- phase 24 --
+# transformer_small at full width (tpuddp/models/__init__.py:36-44: d 128,
+# 8 heads, 4 layers, 256 positions) and the serving vocabulary
+# (tpuddp/config.py:206: 256); the decode defaults (tpuddp/config.py:211-218:
+# 8 slots, 64 blocks of 16); prompts of three lengths in three slots, 32
+# decode steps; 64 sequences of 256 tokens a step, 2 epochs of 16 steps
+TF_NAME, TF_VOCAB, TF_SEQ = "transformer_small", 256, 256
+TF_SLOTS, TF_BLOCKS, TF_BLOCK_SIZE, TF_NEW = 8, 64, 16, 32
+TF_PROMPTS = {0: 17, 3: 40, 6: 64}  # slot -> prompt length
+TF_GLOBAL_BATCH, TF_STEPS = 64, 16
+TF_TURNS = ("eager", "replay", "replay", "eager")
+TF_FWD_TOL = 1e-4  # rtol and atol of the card's forward (TF32 off) against the CPU's
+TF_LOSS_RTOL = 1e-3  # the card's first 3 step losses against the CPU port's
+TF_LOADERS = partial(token_loaders, vocab=TF_VOCAB, seq_len=TF_SEQ, global_batch=TF_GLOBAL_BATCH,
+                     n_batches=TF_STEPS)
+
+
+def _token_tree(seed: int) -> dict:
+    """transformer_small's parameters in the JAX package's tree and layouts,
+    drawn with numpy by the JAX init laws (``tpuddp/models/transformer.py:
+    101-146``): embeddings N(0, 0.02), projections U(+-1/sqrt(fan_in)),
+    zero biases, LayerNorms ones and zeros."""
+    rng = np.random.default_rng(seed)
+    spec = load_model(TF_NAME, TF_VOCAB)
+    e, f = spec.d_model, spec.d_mlp
+
+    def uni(fan_in, shape):
+        bound = 1.0 / math.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    zeros = lambda n: np.zeros(n, np.float32)
+    ln = lambda: {"bias": zeros(e), "scale": np.ones(e, np.float32)}
+    blocks = tuple({
+        "attn": {"bo": zeros(e), "bqkv": zeros(3 * e), "wo": uni(e, (e, e)), "wqkv": uni(e, (e, 3 * e))},
+        "ln1": ln(), "ln2": ln(),
+        "mlp": {"b1": zeros(f), "b2": zeros(e), "w1": uni(e, (e, f)), "w2": uni(f, (f, e))},
+    } for _ in range(spec.n_layers))
+    normal = lambda rows: (0.02 * rng.standard_normal((rows, e))).astype(np.float32)
+    return {"blocks": blocks, "embed": {"weight": normal(TF_VOCAB)}, "ln_f": ln(),
+            "pos": {"weight": normal(spec.max_seq_len)}}
+
+
+def _token_model(tree, device: str):
+    model = load_model(TF_NAME, TF_VOCAB)
+    model.load_state_dict(state_dict_from_jax(TF_NAME, tree))
+    return model.to(device)
+
+
+def transformer_forward(tree):
+    """24 forward: a (8, 256) token batch through the card's forward and
+    the CPU's, from one converted tree."""
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, TF_VOCAB, (8, TF_SEQ)).astype(np.int32))
+    with torch.no_grad():
+        cpu = _token_model(tree, "cpu").eval()(toks)
+        card = _token_model(tree, "cuda").eval()(toks.cuda()).cpu()
+    err = float((card - cpu).abs().max())
+    ok = bool(((card - cpu).abs() <= TF_FWD_TOL + TF_FWD_TOL * cpu.abs()).all())
+    if not ok or tuple(card.shape) != (8, TF_SEQ, TF_VOCAB) or not torch.isfinite(card).all():
+        raise SystemExit(f"chip_smoke: 24 forward: card vs CPU max |d| {err} (rtol/atol {TF_FWD_TOL})")
+    phase("24 forward", f"{TF_NAME} (d 128, 8 heads, 4 layers, 256 positions, vocab 256), a (8, 256) "
+          f"batch, TF32 off: card vs CPU max |d logits| {err:.3g} (within rtol/atol {TF_FWD_TOL})")
+    return dict(max_abs_err=err)
+
+
+def _decode_steps(model, pools, tables, lengths0, tokens0, graph: bool):
+    """``TF_NEW`` greedy steps of every slot from copies of the prefilled
+    pools and slot state: each step ``decode_step``, the argmax fed back
+    (inactive slots keep token 0 at length 0), eagerly or as replays of one
+    CUDA graph of a step. Returns ``(tokens (TF_NEW, S), last logits,
+    kpool, vpool, ms a step)``."""
+    kp, vp = (p.clone() for p in pools)
+    lengths, tokens = lengths0.clone(), tokens0.clone()
+    active = lengths0 > 0
+
+    def step():
+        logits, _, _ = model.decode_step(kp, vp, tables, lengths, tokens)
+        tokens.copy_(torch.where(active, logits.argmax(-1).to(tokens.dtype), tokens))
+        lengths.add_(active.to(lengths.dtype))
+        return logits
+
+    run = step
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm the capture's stream on throwaway copies
+            model.decode_step(kp.clone(), vp.clone(), tables, lengths.clone(), tokens.clone())
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            static = step()
+        run = lambda: (g.replay(), static)[1]
+    history = []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TF_NEW):
+        logits = run()
+        history.append(tokens.clone())
+    stop.record()
+    stop.synchronize()
+    return torch.stack(history), logits.clone(), kp, vp, start.elapsed_time(stop) / TF_NEW
+
+
+def transformer_decode(tree):
+    """24 decode: the decode defaults' pools, three prompts prefilled at
+    their buckets into slots of their own (blocks from a seeded
+    permutation), 32 greedy steps eagerly and replayed from one captured
+    graph: the replay bitwise the eager run (tokens, logits, pools), and
+    every sequence's 33 tokens those of greedy decoding by repeated full
+    forwards on the card."""
+    model = _token_model(tree, "cuda").eval()
+    rng = np.random.default_rng(2)
+    shape = (model.n_layers, TF_BLOCKS, TF_BLOCK_SIZE, model.n_heads, model.head_dim)
+    kpool, vpool = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
+    width = TF_SEQ // TF_BLOCK_SIZE
+    need = -(-(max(TF_PROMPTS.values()) + TF_NEW) // TF_BLOCK_SIZE)
+    free = iter(rng.permutation(np.arange(1, TF_BLOCKS)))  # block 0: the garbage block
+    tables = np.zeros((TF_SLOTS, width), np.int32)
+    lengths, tokens = np.zeros(TF_SLOTS, np.int32), np.zeros(TF_SLOTS, np.int32)
+    prompts, buckets = {}, tf_lib.prefill_buckets(TF_SEQ)
+    for slot, n in TF_PROMPTS.items():
+        tables[slot, :need] = [next(free) for _ in range(need)]
+        prompts[slot] = rng.integers(0, TF_VOCAB, n).astype(np.int32)
+        bucket = min(b for b in buckets if b >= n)
+        buf = np.zeros((1, bucket), np.int32)
+        buf[0, :n] = prompts[slot]
+        last, kpool, vpool = model.prefill(kpool, vpool, torch.from_numpy(tables[slot]).cuda(),
+                                           torch.from_numpy(buf).cuda(), n)
+        tokens[slot], lengths[slot] = int(last.argmax()), n
+    dev = lambda a: torch.from_numpy(a).cuda()
+    runs = {mode: _decode_steps(model, (kpool, vpool), dev(tables), dev(lengths), dev(tokens), mode == "replay")
+            for mode in ("eager", "replay")}
+    (t_e, l_e, k_e, v_e, ms_e), (t_r, l_r, k_r, v_r, ms_r) = runs["eager"], runs["replay"]
+    bitwise = all(torch.equal(a, b) for a, b in ((t_e, t_r), (l_e, l_r), (k_e, k_r), (v_e, v_r)))
+    got = {slot: [int(tokens[slot])] + t_e[:, slot].tolist() for slot in TF_PROMPTS}
+    want = {}
+    with torch.no_grad():
+        for slot in TF_PROMPTS:
+            seq = torch.from_numpy(prompts[slot]).cuda()
+            out = []
+            for _ in range(TF_NEW + 1):
+                out.append(int(model(seq[None])[0, -1].argmax()))
+                seq = torch.cat([seq, seq.new_tensor([out[-1]])])
+            want[slot] = out
+    checks = {
+        "the replay bitwise the eager run (tokens, logits, pools)": bitwise,
+        "greedy tokens those of repeated full forwards": got == want,
+        "inactive slots stay at token 0, length 0": bool((t_e[:, [s for s in range(TF_SLOTS)
+                                                                 if s not in TF_PROMPTS]] == 0).all()),
+        "finite logits": bool(torch.isfinite(l_e).all()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 24 decode failed {failed}: got {got}, want {want}")
+    phase("24 decode", f"{TF_SLOTS} slots, {TF_BLOCKS} blocks of {TF_BLOCK_SIZE}; prompts of "
+          f"{list(TF_PROMPTS.values())} tokens prefilled in slots {list(TF_PROMPTS)}, {TF_NEW} greedy "
+          f"steps: replay bitwise eager, tokens equal repeated full forwards; decode_step ms a step "
+          f"eager {ms_e:.4f}, replayed {ms_r:.4f}")
+    return dict(decode_ms_eager=ms_e, decode_ms_replay=ms_r, tokens=got)
+
+
+def _tf_training(mode: str, save_dir: str):
+    """The native worker on the token job (``run_ddp_training`` at world 1)
+    with graph replay or eagerly, checkpoints into ``save_dir``; counts set
+    to 0 just before and read just after."""
+    training = dict(cfg_lib.TRAINING_DEFAULTS, model=TF_NAME, num_classes=TF_VOCAB, seed=0,
+                    dataset="synthetic_tokens", num_epochs=2, checkpoint_epoch=1, scan_steps="auto")
+    os.makedirs(save_dir, exist_ok=True)
+    reset_counts()
+    graphs.reset_stats()
+    DistributedDataParallel._graph_replay = mode != "eager"
+    t0 = time.perf_counter()
+    try:
+        history = run_ddp_training(
+            partial(basic_ddp_training_loop, training=training, device="cuda", loaders=TF_LOADERS),
+            1, save_dir, {}, backend="cuda")
+        torch.cuda.synchronize()
+    finally:
+        DistributedDataParallel._graph_replay = True
+    launches = {k.symbol: k.launches for k in fused_adam.kernels.values()}
+    return dict(history=history, launches=launches, graphs=_kinds(graphs.stats),
+                wall_s=time.perf_counter() - t0, path=os.path.join(save_dir, "ckpt_1.npz"))
+
+
+def _state_diff(a_path: str, b_path: str):
+    """The keys whose arrays differ between two checkpoints: ``(the
+    training state's: parameters, moments, step counts; the others')``."""
+    a, b = _arrays(a_path), _arrays(b_path)
+    differ = sorted(k for k in set(a) | set(b)
+                    if k not in a or k not in b or not np.array_equal(a[k], b[k]))
+    return [k for k in differ if k.startswith(".")], [k for k in differ if not k.startswith(".")]
+
+
+def transformer_steps(tree, flops_per_step: float, peak: float):
+    """24 steps: from one converted tree, the first 3 steps' losses on the
+    card against the CPU port's; then chunks of 16 (eager, captured,
+    replayed) on the card: the replayed step's time, 2 Adam launches an
+    update."""
+    batches = list(TokenLMLoader(TF_VOCAB, TF_SEQ, TF_GLOBAL_BATCH, TF_STEPS, seed=0))
+    losses = {}
+    for device in ("cpu", "cuda"):
+        model = _token_model(tree, device)
+        ddp = DistributedDataParallel(model, Adam(model.parameters(), lr=1e-3), CrossEntropyLoss(),
+                                      device=device)
+        losses[device] = [float(s[0] / s[1]) for s in (ddp.train_step(b) for b in batches[:3])]
+    rel = max(abs(g - c) / abs(c) for g, c in zip(losses["cuda"], losses["cpu"]))
+    reset_counts()
+    chunk_s = []
+    for _ in range(3):  # the signature's eager group, its capture, a replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ddp.train_step_many(batches)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    launches = fused_adam.kernel.launches
+    step_ms = chunk_s[-1] * 1e3 / TF_STEPS
+    tokens = TF_GLOBAL_BATCH * TF_SEQ
+    checks = {
+        f"first 3 losses within rtol {TF_LOSS_RTOL} of the CPU port's": rel <= TF_LOSS_RTOL,
+        "2 Adam launches an update in the chunks": launches == 2 * 3 * TF_STEPS,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 24 steps failed {failed}: losses {losses}, launches {launches}")
+    mfu = flops_per_step / (step_ms / 1e3) / peak
+    phase("24 steps", f"first 3 step losses card {[round(x, 6) for x in losses['cuda']]} vs CPU "
+          f"{[round(x, 6) for x in losses['cpu']]} (max rel {rel:.2e}); a chunk of {TF_STEPS} steps "
+          f"eager/captured/replayed s {', '.join(f'{t:.4f}' for t in chunk_s)}: replayed step {step_ms:.3f} ms, "
+          f"{tokens * 1e3 / step_ms:.0f} tokens/s, MFU {mfu:.4f} of the bf16 peak; {launches} Adam launches "
+          f"for {3 * TF_STEPS} updates")
+    return dict(losses=losses, max_rel=rel, chunk_s=chunk_s, replayed_step_ms=step_ms,
+                tokens_per_s=tokens * 1e3 / step_ms, mfu=mfu, launches=launches)
+
+
+def transformer_training(root: str):
+    """24 training: the token job through the native worker, eagerly and at
+    ``scan_steps: auto`` with graph replay in turns: finite losses that
+    fall, every token counted, 2 Adam launches an update, the replay's
+    graphs, every run's epoch rows and final checkpoint bitwise the first's."""
+    runs = [_tf_training(mode, os.path.join(root, f"{i}_{mode}")) for i, mode in enumerate(TF_TURNS)]
+    f32 = fused_adam.kernel.symbol
+    updates = 2 * TF_STEPS
+    rows = [[(r["train_loss"], r["test_loss"], r["test_accuracy"]) for r in run["history"]] for run in runs]
+    diff = [_state_diff(runs[0]["path"], run["path"]) for run in runs[1:]]
+    checks = {
+        "2 epochs of 16 steps": all([len(r["step_ms"]) for r in run["history"]] == [TF_STEPS] * 2
+                                    for run in runs),
+        "2 Adam launches an update, no other kernel": all(
+            run["launches"][f32] == sum(run["launches"].values()) == 2 * updates for run in runs),
+        "finite losses": all(math.isfinite(x) for row in rows for r in row for x in r),
+        "the train loss falls": all(row[1][0] < row[0][0] for row in rows),
+        "every token counted": all((r["train_samples"], r["test_samples"]) == (
+            TF_STEPS * TF_GLOBAL_BATCH * TF_SEQ, 4 * TF_GLOBAL_BATCH * TF_SEQ)
+            for run in runs for r in run["history"]),
+        "replay: 1 capture and 1 replay of train and eval; eager: none": all(
+            run["graphs"] == ({"train": (1, 1), "eval": (1, 1)} if mode == "replay" else {})
+            for mode, run in zip(TF_TURNS, runs)),
+        "every run's epoch rows bitwise the first's": all(r == rows[0] for r in rows),
+        "every run's final parameters, moments and step counts bitwise the first's": all(
+            not diffs[0] for diffs in diff),
+        "mfu_p50 a number": all(r["mfu_p50"] is not None for run in runs for r in run["history"]),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 24 training failed {failed}: "
+                         + json.dumps([{k: run[k] for k in ("launches", "graphs")} for run in runs])
+                         + f" rows {rows}, checkpoint keys that differ from the first run's {diff}")
+    medians = {m: [statistics.median(run["history"][1]["step_ms"]) for mode, run in zip(TF_TURNS, runs)
+                   if mode == m] for m in dict.fromkeys(TF_TURNS)}
+    eager = runs[0]["history"][1]
+    phase("24 training", f"run_ddp_training world 1, the token loader ({TF_GLOBAL_BATCH} x {TF_SEQ} tokens a "
+          f"step), 2 epochs of {TF_STEPS}, Adam float32, turns {'/'.join(TF_TURNS)}: train_loss "
+          f"{rows[0][0][0]:.4f} -> {rows[0][1][0]:.4f}, test_loss {rows[0][0][1]:.4f} -> {rows[0][1][1]:.4f}; "
+          f"rows and the final parameters, moments and step counts bitwise across runs (other "
+          f"checkpoint keys that differ: {sorted(set(k for d in diff for k in d[1]))}); {2 * updates} "
+          f"Adam launches a run; epoch 2 step median "
+          f"ms {medians} (replay: the epoch of the capture); eager epoch 2 mfu_p50 {eager['mfu_p50']}; "
+          f"wall s {[round(run['wall_s'], 2) for run in runs]}")
+    return dict(rows=rows[0], medians=medians, mfu_p50_eager=eager["mfu_p50"],
+                step_ms_eager=statistics.median(eager["step_ms"]),
+                launches={f"native {TF_NAME} {mode} turn {i} (phase 24)": run["launches"][f32]
+                          for i, (mode, run) in enumerate(zip(TF_TURNS, runs))},
+                wall_s=[run["wall_s"] for run in runs])
+
+
+def transformer_phase(bw, flops):
+    """Phase 24: transformer_small's forward, decode and training on the
+    card, and the Adam update over its 52 leaves."""
+    tree = _token_tree(0)
+    out = {"forward": transformer_forward(tree), "decode": transformer_decode(tree)}
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        meta = load_model(TF_NAME, TF_VOCAB)
+    shapes = [tuple(p.shape) for p in meta.parameters()]
+    step_flops = count_step_flops(meta, (TF_GLOBAL_BATCH, TF_SEQ), torch.int32)
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    out["steps"] = transformer_steps(tree, step_flops, peak)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_tokens_")
+    try:
+        out["training"] = transformer_training(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wrapper = fused_adam.kernel
+    err = compare(wrapper, [(TF_NAME, shapes, "", 0.0)], shapes, tag="24 adam", p_relative=True)
+    torch.cuda.empty_cache()
+    out["kernel"] = {**time_kernel(wrapper, shapes, bw, flops, label=TF_NAME, tag="24 adam"),
+                     "max_abs_err": err, "launches_per_step": _tables(len(shapes))}
+    graphed = adam_graph_ms(wrapper, shapes)
+    out["kernel"].update(graph_ms=graphed["kernel"], library_graph_ms=graphed["library"])
+    bound = out["kernel"]["bound_ms"]
+    phase("24 adam", f"one {TF_NAME} Adam step replayed from a CUDA graph (2 launches, no host enqueue), "
+          f"best of two in turns: kernel {graphed['kernel']:.4f} ms ({100 * bound / graphed['kernel']:.1f}% of "
+          f"the {bound:.4f} ms bound), torch.optim.Adam(fused=True, capturable=True) "
+          f"{graphed['library']:.4f} ms")
+    out["leaves"] = len(shapes)
+    out["flops_per_step"] = step_flops
+    phase("24 transformer", f"card {card_line()}: {len(shapes)} leaves, {_tables(len(shapes))} Adam launches "
+          f"an update; {step_flops:.4g} FLOPs a step (forward and backward, counted)")
+    return out
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -5801,6 +6155,9 @@ def main() -> None:
     t23 = time.perf_counter()
     live_23 = live_phase()
     phase_23_s = time.perf_counter() - t23
+    t24 = time.perf_counter()
+    tf_24 = transformer_phase(bw, flops)
+    phase_24_s = time.perf_counter() - t24
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -5883,6 +6240,11 @@ def main() -> None:
     print(json.dumps({"live_plane": {
         **{k: v for k, v in live_23.items() if k != "launches"}, "phase_23_s": phase_23_s,
     }}))
+    print(json.dumps({"transformer": {
+        **{k: tf_24[k] for k in ("forward", "decode", "steps", "leaves", "flops_per_step")},
+        "training": {k: v for k, v in tf_24["training"].items() if k != "launches"},
+        "adam_transformer_small": tf_24["kernel"], "phase_24_s": phase_24_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -5946,6 +6308,8 @@ def main() -> None:
     phase_21 = elastic_21["launches"]
     phase_22 = snap_22["launches"]
     phase_23 = live_23["launches"]
+    phase_24 = {**tf_24["training"]["launches"],
+                f"native {TF_NAME} chunks (phase 24)": tf_24["steps"]["launches"]}
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
@@ -5953,7 +6317,7 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20, **phase_21, **phase_22, **phase_23}
+               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -5965,7 +6329,8 @@ def main() -> None:
          "launches_by_path": by_path, "flat_shard": flat[torch.float32],
          "guarded": {**guard_14["kernel"][torch.float32], "launches_by_path": phase_14},
          "resnet50_161_leaves": {**resnet_15["kernels"][torch.float32], "launches_by_path": phase_15},
-         "vgg16_32_leaves": {**vgg_16["kernels"][torch.float32], "launches_by_path": phase_16}},
+         "vgg16_32_leaves": {**vgg_16["kernels"][torch.float32], "launches_by_path": phase_16},
+         "transformer_small_52_leaves": {**tf_24["kernel"], "launches_by_path": phase_24}},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
                       + sum(phase_10_bf16.values()) + sum(phase_11.values())
@@ -5983,7 +6348,8 @@ def main() -> None:
                               **{k: 0 for k in phase_16}, **{k: 0 for k in phase_17},
                               **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
                               **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21},
-                              **{k: 0 for k in phase_22}, **{k: 0 for k in phase_23}},
+                              **{k: 0 for k in phase_22}, **{k: 0 for k in phase_23},
+                              **{k: 0 for k in phase_24}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -5997,7 +6363,7 @@ def main() -> None:
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
           f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s, "
-          f"phase 23: {phase_23_s:.1f} s)")
+          f"phase 23: {phase_23_s:.1f} s, phase 24: {phase_24_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

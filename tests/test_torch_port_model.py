@@ -13,7 +13,7 @@ from tpuddp.models import ToyMLP as JaxToyMLP
 from tpuddp.models.torch_import import convert_alexnet_state_dict
 from tpuddp.nn.core import Context
 
-from tpuddp_torch.models import AlexNet, ToyMLP, load_model
+from tpuddp_torch.models import AlexNet, ToyMLP, TransformerLM, load_model
 from tpuddp_torch.models.convert import state_dict_from_jax
 
 # float32 convolutions/matmuls summed in another order by two libraries
@@ -118,8 +118,11 @@ def test_load_model_registry():
     assert mlp(torch.zeros(2, 8, 8, 3)).shape == (2, 7)
     assert load_model("resnet18_small", 10)(torch.zeros(2, 8, 8, 3)).shape == (2, 10)
     assert load_model("vgg11", 10).classifier[6].out_features == 10
-    for name in ("transformer_tiny", "transformer_small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8: other models"):
-            load_model(name, 10)
+    for name, (width, heads, layers, rows) in (("transformer_tiny", (64, 4, 2, 128)),
+                                               ("transformer_small", (128, 8, 4, 256))):
+        model = load_model(name, 10)
+        assert isinstance(model, TransformerLM) and model.vocab_size == 10
+        assert (model.d_model, model.n_heads, model.n_layers, model.max_seq_len) == (
+            width, heads, layers, rows)
     with pytest.raises(ValueError):
         load_model("nope", 10)

@@ -38,7 +38,7 @@ from tpuddp.parallel import comm as jax_comm
 from tpuddp.parallel import make_mesh
 from tpuddp.parallel.ddp import DistributedDataParallel as JaxDDP
 
-from tpuddp_torch.models import VGG, VGG_NAMES, load_model
+from tpuddp_torch.models import VGG, VGG_NAMES, TransformerLM, load_model
 from tpuddp_torch.models import vgg
 from tpuddp_torch.models.convert import (
     flat_from_jax, flat_to_jax, jax_from_state_dict, jax_layer_sizes, jax_leaf_index,
@@ -147,8 +147,12 @@ def test_the_plan_table_and_its_indices_are_the_jax_packages(name):
 def test_the_registry_lists_the_vggs_and_refuses_the_transformers():
     assert sorted(VGG_NAMES) == sorted(n for n in jax_vgg.VGG_PLANS)
     for name in ("transformer_tiny", "transformer_small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8: other models"):
-            load_model(name, 10)
+        want = jax_load_model(name, num_classes=10)
+        model = load_model(name, 10)
+        assert isinstance(model, TransformerLM)
+        assert [getattr(model, k) for k in ("vocab_size", "d_model", "n_heads", "n_layers",
+                                            "max_seq_len")] == [
+            getattr(want, k) for k in ("vocab_size", "d_model", "n_heads", "n_layers", "max_seq_len")]
     with pytest.raises(ValueError, match="vgg11, vgg13, vgg16, vgg19"):
         load_model("vgg15", 10)
 

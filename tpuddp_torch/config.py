@@ -207,7 +207,8 @@ def check_comm_hook(training: Dict[str, Any]) -> None:
 
 def check_supported(training: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for any knob set to a value this slice
-    does not implement (``ValueError`` for a malformed ``pipeline`` block, a
+    does not implement (a ``transformer*`` model's ``compute_dtype`` other
+    than float32 among them; ``ValueError`` for a malformed ``pipeline`` block, a
     malformed comm hook (:func:`check_comm_hook`), a
     ``scan_steps`` under 1, a gradient accumulation depth under 1, or one
     together with an explicit ``fuse_steps`` over 1, and for the
@@ -231,6 +232,11 @@ def check_supported(training: Dict[str, Any]) -> None:
     resolve_fuse_steps(
         training.get("fuse_steps", "auto"), accum, bool(training.get("deferred_metrics"))
     )
+    if str(training.get("model") or "").startswith("transformer") and \
+            str(training.get("compute_dtype") or "float32") != "float32":
+        # the token branch has no augment to cast the activations
+        raise _not_ported(f"compute_dtype={training['compute_dtype']!r} for a token model",
+                          "Queue 1 item 8: bf16 compute of token models")
 
 
 def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:

@@ -30,6 +30,17 @@ place in the JAX tree is ``(child index, path)``, the path a tuple of dict
 keys, ``(3, ("bn1", "scale"))``; places sort as ``jax.tree_util`` flattens
 the tree (children in order, each dict's keys sorted, at every level).
 
+A transformer's JAX tree is a dict, ``{"blocks": (block, ...), "embed",
+"ln_f", "pos"}``, which ``jax.tree_util`` flattens blocks first (its keys
+sorted), each block's dicts sorted too (``attn.{bo,bqkv,wo,wqkv}``,
+``ln1``, ``ln2``, ``mlp.{b1,b2,w1,w2}``). Its places number the tree's
+parts as children: block ``i`` is child ``i``, and ``embed``, ``ln_f`` and
+``pos`` are children ``L``, ``L + 1`` and ``L + 2`` of an ``L``-block model,
+so places sort in the JAX leaf order there too (:func:`jax_paths` gives
+the tree paths). Its projections transpose as Linears do; its embedding
+tables are ``(rows, features)`` on both sides; a LayerNorm's ``weight`` is
+the JAX ``scale``; it has no model state.
+
 ``alexnet_s2d`` has AlexNet's parameters and keys, and each ``resnet*_s2d``
 its base's, so every function here takes them as ``alexnet`` and
 ``resnet*``; a ``resnet*_small`` is a layout of its own (no max-pool
@@ -185,6 +196,85 @@ def tree_map(fn, node, path: Tuple = ()):
     return fn(path, node)
 
 
+# ------------------------------------------------------------- transformer --
+
+_TF_TAIL = ("embed", "ln_f", "pos")  # the dict's keys after "blocks", sorted
+# a block's port parameter -> its path in the JAX block's dict
+_TF_BLOCK = {
+    "ln1.weight": ("ln1", "scale"), "ln1.bias": ("ln1", "bias"),
+    "attn.in_proj.weight": ("attn", "wqkv"), "attn.in_proj.bias": ("attn", "bqkv"),
+    "attn.out_proj.weight": ("attn", "wo"), "attn.out_proj.bias": ("attn", "bo"),
+    "ln2.weight": ("ln2", "scale"), "ln2.bias": ("ln2", "bias"),
+    "mlp.fc1.weight": ("mlp", "w1"), "mlp.fc1.bias": ("mlp", "b1"),
+    "mlp.fc2.weight": ("mlp", "w2"), "mlp.fc2.bias": ("mlp", "b2"),
+}
+_TF_TOP = {"embed.weight": ("embed", "weight"), "ln_f.weight": ("ln_f", "scale"),
+           "ln_f.bias": ("ln_f", "bias"), "pos.weight": ("pos", "weight")}
+_TF_LINEAR_WEIGHTS = ("attn.in_proj.weight", "attn.out_proj.weight", "mlp.fc1.weight",
+                      "mlp.fc2.weight")
+_TF_PORT = {path: key for key, path in _TF_BLOCK.items()}
+_TF_TOP_PORT = {path: key for key, path in _TF_TOP.items()}
+
+
+def is_transformer(name: str) -> bool:
+    """True for a transformer layout name (``transformer``, the registry's
+    ``transformer_tiny`` and ``transformer_small``)."""
+    return name.startswith("transformer")
+
+
+def _tf_place(pname: str, n_layers: int) -> Place:
+    if pname.startswith("blocks."):
+        _, i, rest = pname.split(".", 2)
+        return int(i), _TF_BLOCK[rest]
+    top, leaf = _TF_TOP[pname]
+    return n_layers + _TF_TAIL.index(top), (leaf,)
+
+
+def _tf_transposed(pname: str) -> bool:
+    """True for a projection's weight, ``(out, in)`` here and ``(in, out)``
+    in the JAX tree."""
+    return pname.endswith(_TF_LINEAR_WEIGHTS)
+
+
+def _tf_tree(children: Sequence) -> dict:
+    """A transformer's JAX tree from its children (blocks, embed, ln_f,
+    pos)."""
+    n = len(children) - len(_TF_TAIL)
+    return {"blocks": tuple(children[:n]), **dict(zip(_TF_TAIL, children[n:]))}
+
+
+def _tf_torch_layout(name: str, params: dict) -> Dict[str, np.ndarray]:
+    if not isinstance(params, dict) or "blocks" not in params:
+        raise ValueError(
+            f"no weight bridge for {name!r} from a {type(params).__name__}: its JAX tree is a "
+            "dict of blocks, embed, ln_f and pos")
+    out = {}
+    children = list(params["blocks"]) + [params[k] for k in _TF_TAIL]
+    n = len(children) - len(_TF_TAIL)
+    for idx, child in enumerate(children):
+        for path, leaf in tree_leaves(child):
+            if idx < n:
+                pname = f"blocks.{idx}.{_TF_PORT[path]}"
+            else:
+                pname = _TF_TOP_PORT[(_TF_TAIL[idx - n],) + path]
+            out[pname] = np.asarray(leaf).T if _tf_transposed(pname) else leaf
+    return out
+
+
+def _tf_from_state_dict(sd: Dict[str, np.ndarray]) -> Tuple[dict, tuple]:
+    blocks = {int(k.split(".")[1]) for k in sd if k.startswith("blocks.")}
+    n = max(blocks) + 1 if blocks else 0
+    children = [{} for _ in range(n + len(_TF_TAIL))]
+    expected = {f"blocks.{i}.{k}" for i in range(n) for k in _TF_BLOCK} | set(_TF_TOP)
+    missing, unknown = sorted(expected - set(sd)), sorted(set(sd) - expected)
+    if missing or unknown:
+        raise KeyError(f"transformer: state_dict keys missing {missing[:3]}, unknown {unknown[:3]}")
+    for pname, arr in sd.items():
+        idx, path = _tf_place(pname, n)
+        _set(children[idx], path, np.ascontiguousarray(arr.T if _tf_transposed(pname) else arr))
+    return _tf_tree(children), ()
+
+
 def _linear_indices(params: Sequence) -> list:
     return [i for i, p in enumerate(params) if p and "weight" in p]
 
@@ -192,9 +282,15 @@ def _linear_indices(params: Sequence) -> list:
 def _expected_model(name: str, params: Sequence):
     """The port's model with the widths ``params`` imply, on the meta device
     (shapes only, no memory)."""
-    from tpuddp_torch.models import VGG, AlexNet, ResNet, ToyCNN, ToyMLP
+    from tpuddp_torch.models import VGG, AlexNet, ResNet, ToyCNN, ToyMLP, TransformerLM
 
     name = _base(name)
+    if is_transformer(name):
+        (vocab, width), rows = np.shape(params["embed"]["weight"]), np.shape(params["pos"]["weight"])[0]
+        mlp = np.shape(params["blocks"][0]["mlp"]["w1"])[1] if params["blocks"] else None
+        with torch.device("meta"):  # the heads leave no trace in the shapes
+            return TransformerLM(num_classes=int(vocab), d_model=int(width), n_heads=1,
+                                 n_layers=len(params["blocks"]), d_mlp=mlp, max_seq_len=int(rows))
     lin = _linear_indices(params)
     num_classes = int(np.shape(params[lin[-1]]["weight"])[1])
     with torch.device("meta"):
@@ -221,7 +317,7 @@ def _expected_model(name: str, params: Sequence):
 
 
 _LAYOUTS = ("one of alexnet, toy_mlp, toy_cnn, resnet{18,34,50,101,152} and their _small "
-            "layouts, vgg{11,13,16,19}")
+            "layouts, vgg{11,13,16,19}, transformer_{tiny,small}")
 
 
 def _check_children(name: str, params: Sequence, n: int) -> None:
@@ -237,7 +333,9 @@ def torch_layout(
     out: Dict[str, np.ndarray] = {}
     name = _base(name)
     seq = _seq_layout(name)
-    if seq is not None:
+    if is_transformer(name):
+        out = _tf_torch_layout(name, params)
+    elif seq is not None:
         _check_children(name, params, seq.children)
         for idx, key in seq.convs.items():
             out[f"{key}.weight"] = np.transpose(params[idx]["weight"], (3, 2, 0, 1))
@@ -340,6 +438,8 @@ def jax_from_state_dict(name: str, state_dict) -> Tuple[tuple, tuple]:
     ``params`` and a ``model_state`` of ``()``."""
     sd = {k: _numpy(v) for k, v in state_dict.items()}
     name = _base(name)
+    if is_transformer(name):
+        return _tf_from_state_dict(sd)
     if _resnet_spec(name) is not None:
         return _resnet_from_state_dict(name, sd)
     seq = _seq_layout(name)
@@ -420,8 +520,9 @@ def model_name(model: torch.nn.Module) -> str:
     """The registry name of the layout of one of the port's models
     (``alexnet`` for ``alexnet_s2d`` too; ``resnet{depth}`` or
     ``resnet{depth}_small`` for a ResNet, its ``_s2d`` stem included; a
-    VGG's plan name)."""
-    from tpuddp_torch.models import VGG, AlexNet, ResNet, ToyCNN, ToyMLP
+    VGG's plan name; ``transformer`` for any transformer, whose layout its
+    widths give)."""
+    from tpuddp_torch.models import VGG, AlexNet, ResNet, ToyCNN, ToyMLP, TransformerLM
 
     if isinstance(model, ResNet):
         block = type(model.layer1[0])
@@ -431,11 +532,14 @@ def model_name(model: torch.nn.Module) -> str:
         raise ValueError(f"no JAX layout for a ResNet of {model.depths} {block.__name__}s")
     if isinstance(model, VGG):
         return model.name
+    if isinstance(model, TransformerLM):
+        return "transformer"
     for cls, name in ((AlexNet, "alexnet"), (ToyCNN, "toy_cnn"), (ToyMLP, "toy_mlp")):
         if isinstance(model, cls):
             return name
     raise ValueError(
-        f"no JAX layout for a {type(model).__name__}; one of AlexNet, ResNet, ToyCNN, ToyMLP, VGG")
+        f"no JAX layout for a {type(model).__name__}; one of AlexNet, ResNet, ToyCNN, ToyMLP, "
+        "TransformerLM, VGG")
 
 
 def jax_leaf_index(name: str, model: torch.nn.Module) -> Dict[str, int]:
@@ -459,6 +563,8 @@ def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Place]:
     from tpuddp_torch.nn.norm import BatchNorm
 
     name = _base(name)
+    if is_transformer(name):
+        return {pname: _tf_place(pname, model.n_layers) for pname, _ in model.named_parameters()}
     seq = _seq_layout(name)
     if seq is not None:
         place_of = {key: (idx, ()) for idx, key in {**seq.convs, **seq.linears}.items()}
@@ -478,9 +584,26 @@ def jax_places(name: str, model: torch.nn.Module) -> Dict[str, Place]:
     return places
 
 
+def jax_paths(name: str, model: torch.nn.Module) -> Dict[str, Tuple]:
+    """Each parameter of the port's ``model`` -> its path in the JAX
+    package's parameter tree (``jax.tree_util``'s keys, for
+    :func:`keystr`): ``(0, "weight")``, a ResNet block's ``(3, "bn1",
+    "scale")``, a transformer's ``("blocks", 0, "attn", "wqkv")`` or
+    ``("embed", "weight")``."""
+    places = jax_places(name, model)
+    if not is_transformer(_base(name)):
+        return {pname: (idx,) + path for pname, (idx, path) in places.items()}
+    n = model.n_layers
+    return {pname: (("blocks", idx) if idx < n else (_TF_TAIL[idx - n],)) + path
+            for pname, (idx, path) in places.items()}
+
+
 def _n_children(name: str, model: torch.nn.Module) -> int:
-    """The JAX ``Sequential``'s child count for ``model``."""
+    """The JAX ``Sequential``'s child count for ``model`` (a transformer's
+    blocks, embed, ln_f and pos)."""
     name, seq = _base(name), _seq_layout(_base(name))
+    if is_transformer(name):
+        return model.n_layers + len(_TF_TAIL)
     if seq is not None:
         return seq.children
     if _resnet_spec(name) is not None:
@@ -488,9 +611,12 @@ def _n_children(name: str, model: torch.nn.Module) -> int:
     return len(model)
 
 
-def _jax_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+def _jax_shape(name: str, pname: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """A parameter's JAX shape for its port shape: OIHW -> HWIO, ``(out,
-    in)`` -> ``(in, out)``, vectors as they are."""
+    in)`` -> ``(in, out)``, vectors and a transformer's embedding tables as
+    they are."""
+    if is_transformer(_base(name)) and not _tf_transposed(pname):
+        return tuple(shape)
     if len(shape) == 4:
         return (shape[2], shape[3], shape[1], shape[0])
     if len(shape) == 2:
@@ -518,7 +644,7 @@ def flat_from_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndar
     """The inverse of :func:`flat_to_jax`: a raw JAX-ordered flat vector in
     ``model.parameters()`` order."""
     places = jax_places(name, model)
-    shapes = {pname: _jax_shape(tuple(p.shape)) for pname, p in model.named_parameters()}
+    shapes = {pname: _jax_shape(name, pname, tuple(p.shape)) for pname, p in model.named_parameters()}
     tree, offset = [{} for _ in range(_n_children(name, model))], 0
     for pname in sorted(places, key=places.get):
         layer, path = places[pname]
@@ -527,7 +653,8 @@ def flat_from_jax(name: str, model: torch.nn.Module, vec: np.ndarray) -> np.ndar
         offset += n
     if offset != len(vec):
         raise ValueError(f"flat_from_jax: {len(vec)} elements for {offset} parameters")
-    arrays = torch_layout(name, [layer or () for layer in tree])
+    children = [layer or () for layer in tree]
+    arrays = torch_layout(name, _tf_tree(children) if is_transformer(_base(name)) else children)
     return np.concatenate([np.ravel(arrays[pname]) for pname, _ in model.named_parameters()])
 
 

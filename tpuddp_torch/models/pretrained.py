@@ -24,6 +24,12 @@ files the JAX loader does:
 One stricter check: a bias of the wrong shape is refused here, where the
 JAX loader takes it and its first step fails.
 
+:func:`convert_transformer_state_dict` is the JAX package's import of a
+torch transformer checkpoint (``tpuddp/models/torch_import.py:429-500``):
+the file's tensors in the JAX parameter tree, with its refusals. The port's
+:class:`~tpuddp_torch.models.transformer.TransformerLM` loads such a file by
+key as it is.
+
 The model is built on the meta device and takes the file's tensors as its
 own (float32), so loading draws nothing from torch's generators. It
 carries ``pretrained_from`` (the path), by which the managed path leaves
@@ -36,6 +42,8 @@ import math
 from typing import Dict, Optional
 
 import torch
+
+import numpy as np
 
 from tpuddp_torch.models import RESNET_NAMES, VGG_NAMES, load_model
 from tpuddp_torch.models.resnet import Bottleneck
@@ -124,3 +132,71 @@ def pretrained_from_config(training, generator: Optional[torch.Generator] = None
     if generator is None:
         generator = torch.Generator().manual_seed(int(training.get("seed") or 0))
     return load_pretrained(name, str(training["pretrained_path"]), num_classes_from(training), generator)
+
+
+def _shapes_checked(tag: str, new: dict, expect) -> dict:
+    """Every array of ``new`` (nested) at the shape of its place in
+    ``expect``, else the JAX converter's ``ValueError`` naming it."""
+    for k, arr in new.items():
+        exp = expect.get(k) if isinstance(expect, dict) else None
+        if isinstance(arr, dict):
+            if exp is None:
+                raise ValueError(f"{tag}.{k}: unexpected parameter group")
+            _shapes_checked(f"{tag}.{k}", arr, exp)
+        elif exp is None or tuple(arr.shape) != tuple(np.shape(exp)):
+            raise ValueError(
+                f"{tag}.{k}: shape {tuple(arr.shape)} != expected "
+                f"{None if exp is None else tuple(np.shape(exp))}")
+    return new
+
+
+def convert_transformer_state_dict(state_dict, params) -> dict:
+    """A torch decoder-only transformer ``state_dict`` (the port's layout:
+    ``embed.weight``, ``pos.weight``, ``blocks.{i}.{ln1,ln2}.{weight,bias}``,
+    ``blocks.{i}.attn.{in_proj,out_proj}.{weight,bias}``,
+    ``blocks.{i}.mlp.{fc1,fc2}.{weight,bias}``, ``ln_f.{weight,bias}``) ->
+    the JAX ``TransformerLM``'s parameter tree of float32 numpy arrays, each
+    checked against ``params`` (that tree's template, e.g. the first of
+    :func:`~tpuddp_torch.models.convert.jax_from_state_dict`), as
+    ``tpuddp/models/torch_import.py:429-500`` converts it: Linear weights
+    transposed ``(out, in) -> (in, out)``; a missing tensor a ``KeyError``;
+    a wrong geometry a ``ValueError`` naming it; a tensor the layout does
+    not take (an untied ``head.weight``, a block past ``params``') the
+    leftover ``ValueError``."""
+    consumed = set()
+
+    def get(key):
+        consumed.add(key)
+        t = state_dict[key]
+        return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach") else t, np.float32)
+
+    def lin(key):
+        return get(f"{key}.weight").T, get(f"{key}.bias")
+
+    def ln(key):
+        return {"scale": get(f"{key}.weight"), "bias": get(f"{key}.bias")}
+
+    new = dict(params)
+    new["embed"] = _shapes_checked("embed", {"weight": get("embed.weight")}, params["embed"])
+    new["pos"] = _shapes_checked("pos", {"weight": get("pos.weight")}, params["pos"])
+    blocks = []
+    for i, expect in enumerate(params["blocks"]):
+        t = f"blocks.{i}"
+        (wqkv, bqkv), (wo, bo) = lin(f"{t}.attn.in_proj"), lin(f"{t}.attn.out_proj")
+        (w1, b1), (w2, b2) = lin(f"{t}.mlp.fc1"), lin(f"{t}.mlp.fc2")
+        block = {
+            "ln1": ln(f"{t}.ln1"),
+            "attn": {"wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo},
+            "ln2": ln(f"{t}.ln2"),
+            "mlp": {"w1": w1, "b1": b1, "w2": w2, "b2": b2},
+        }
+        blocks.append(_shapes_checked(t, block, expect))
+    new["blocks"] = tuple(blocks)
+    new["ln_f"] = _shapes_checked("ln_f", ln("ln_f"), params["ln_f"])
+    leftover = sorted(k for k in state_dict
+                      if k not in consumed and not k.endswith("num_batches_tracked"))
+    if leftover:
+        raise ValueError(
+            f"checkpoint has {len(leftover)} tensors this {len(params['blocks'])}-block "
+            f"TransformerLM layout does not consume (e.g. {leftover[:3]}); wrong architecture?")
+    return new

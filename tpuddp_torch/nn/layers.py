@@ -15,12 +15,23 @@ so that its backward has no atomics and repeats bit for bit on a GPU.
 :func:`global_batch_dropout` makes a model's dropout layers draw the
 global batch's mask and keep this replica's rows (``mode: auto``).
 
+:class:`Embedding` is the JAX package's token-id lookup table
+(``tpuddp/nn/layers.py:62-83``), the transformers' embeddings and tied head.
+Its backward is an accumulating ``index_put_``, which sums each row's
+gradients in one order on every run (sorted by id on a GPU): the backward
+of ``torch.nn.functional.embedding`` on a GPU can add them in an order that
+changes from run to run (on a transformer_small batch of 64 x 256 tokens
+on an H100 it did), and then neither two runs nor a CUDA-graph replay and
+its eager steps can be held bitwise.
+
 Explicit casts, not ``torch.autocast``: autocast brings its own op lists and
 cast cache, which the JAX package does not have, and the parity tests compare
 dtypes layer by layer.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +45,45 @@ def _cast(t, dtype):
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class _Lookup(torch.autograd.Function):
+    """Rows ``ids`` of ``weight``; the backward sums each row's gradients
+    with an accumulating ``index_put_``, the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        flat = grad.reshape(-1, grad.shape[-1])
+        out = flat.new_zeros((ctx.rows, flat.shape[1]))
+        out.index_put_((ids.reshape(-1).long(),), flat, accumulate=True)
+        return out, None
+
+
+class Embedding(nn.Module):
+    """Token-id lookup: ids of any shape -> ``(*ids.shape, features)`` rows
+    of ``weight``, a ``(num_embeddings, features)`` table in torch's layout
+    (``nn.Embedding``'s, so its ``state_dict`` key is ``weight``), N(0, 1)
+    at init, drawn from ``generator`` when given. A transformer ties its LM
+    head to this table (logits = h @ W.T)."""
+
+    def __init__(self, num_embeddings: int, features: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_embeddings, self.features = int(num_embeddings), int(features)
+        self.weight = nn.Parameter(torch.empty(self.num_embeddings, self.features, device=device))
+        if not self.weight.is_meta:
+            with torch.no_grad():
+                self.weight.normal_(generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return _Lookup.apply(self.weight, ids)
 
 
 class Conv2d(nn.Conv2d):

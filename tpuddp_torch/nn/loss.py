@@ -2,7 +2,10 @@
 
 Padded rows of a static-shape batch carry weight 0. The ``mean`` reduction is
 the weighted mean, and a batch that is all padding has loss 0, not 0/0.
-Computed in float32 whatever the logits' dtype.
+Computed in float32 whatever the logits' dtype. Logits of rank over 2 (a
+language model's ``(B, T, V)``) are flattened to ``(B*T, V)``, and their
+labels and weights to ``(B*T,)``: each token is a sample, as
+``tpuddp/nn/loss.py:33-37`` flattens them.
 
 A criterion applied to the managed path's deferred forward (an object with
 a ``_tpuddp_bind_loss`` hook, :class:`tpuddp_torch.accelerate.LazyForward`)
@@ -23,7 +26,14 @@ def cross_entropy(
     weights: Optional[torch.Tensor] = None,
     reduction: str = "mean",
 ) -> torch.Tensor:
-    """Softmax cross-entropy. logits: (N, C), labels: (N,) int, weights: (N,)."""
+    """Softmax cross-entropy. logits: (N, C), labels: (N,) int, weights:
+    (N,); or logits (..., C) with labels and weights (...), flattened first
+    (``reduction='none'`` then gives the flattened per-token losses)."""
+    if logits.dim() > 2:
+        logits = logits.reshape(-1, logits.shape[-1])
+        labels = labels.reshape(-1)
+        if weights is not None:
+            weights = weights.reshape(-1)
     losses = F.cross_entropy(logits.float(), labels.long(), reduction="none")
     if weights is not None:
         losses = losses * weights

@@ -30,6 +30,10 @@ give the global statistics whenever the global batch holds at least as many
 real elements per feature as there are processes (the clamp of the
 averaged count to 1 acts below that).
 
+:class:`LayerNorm` is the transformers' norm (``tpuddp/nn/norm.py:162-197``):
+per-sample statistics over the last axis, so no buffers and nothing that
+diverges across replicas.
+
 This is plain PyTorch; no TPU kernel stands behind it.
 """
 
@@ -179,6 +183,29 @@ class BatchNorm(nn.Module):
         if self.affine:
             y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layer normalisation over the last axis, as the JAX package's
+    (``tpuddp/nn/norm.py:162-197``): the mean and the biased variance in
+    float32, eps 1e-5, then ``y * weight + bias`` (the JAX ``scale`` and
+    ``bias``, ones and zeros at init), cast back to the input's dtype.
+    ``torch.nn.LayerNorm``'s ``state_dict`` layout; the same math in the
+    JAX order of operations, so train and eval are one computation."""
+
+    def __init__(self, features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(int(features), device=device))
+        self.bias = nn.Parameter(torch.zeros(int(features), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = x.float()
+        mean = xs.mean(dim=-1, keepdim=True)
+        centred = xs - mean
+        var = centred.square().mean(dim=-1, keepdim=True)  # biased
+        y = centred * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 @contextmanager

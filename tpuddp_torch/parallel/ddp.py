@@ -85,8 +85,9 @@ one reduction's wire bytes with the hook and without it.
 At wrap time :meth:`~DistributedDataParallel._resolve_overlap` walks the
 JAX package's eligibility order (mode ``shard_map``, flat topology, no
 ZeRO-1, no remat, no tensor parallel, a model whose JAX counterpart is a
-``Sequential``) and cuts the JAX package's bucket plan (for every hook,
-``none`` included) into backward segments at the children of that
+``Sequential``: not a transformer, whose JAX tree is a dict) and cuts the
+JAX package's bucket plan (for every hook, ``none`` included) into
+backward segments at the children of that
 ``Sequential``; ``auto`` keeps the barrier step where it does not apply or
 gives one segment, with the JAX package's reason, and ``true`` raises its
 ``ValueError`` there. Where it applies, every step, cycle and chunk runs
@@ -151,7 +152,8 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch.models.convert import (
-    JaxFlatOrder, jax_layer_sizes, jax_order_indices, jax_param_span, jax_sizes, model_name,
+    JaxFlatOrder, is_transformer, jax_layer_sizes, jax_order_indices, jax_param_span, jax_sizes,
+    model_name,
 )
 from tpuddp_torch.nn.layers import global_batch_dropout
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
@@ -356,6 +358,8 @@ class DistributedDataParallel:
             name = model_name(self.model)
         except ValueError:
             name = None
+        if name is not None and is_transformer(name):
+            name = None  # a dict tree, not a Sequential, in the JAX package
         if self.mode != "shard_map":
             reason = ("mode='auto' has no explicit collective to issue per segment (XLA places "
                       "the psum itself)")
@@ -370,7 +374,7 @@ class DistributedDataParallel:
                       "VJP staging would recompute outside it")
         elif self.model_size > 1:
             reason = "tensor parallelism (parallel.model > 1)"
-        elif name is None:  # every model with a JAX counterpart here is a Sequential
+        elif name is None:  # every other model with a JAX counterpart here is a Sequential
             reason = ("segment boundaries are derived from Sequential children; "
                       f"{type(self.model).__name__} has no child decomposition")
         segments = None

@@ -244,17 +244,18 @@ def _leaf_fingerprint(t: torch.Tensor) -> torch.Tensor:
 def jax_leaf_names(model: torch.nn.Module):
     """``(JAX path, parameter)`` of ``model``'s parameters in the JAX
     package's tree order (its ``keystr`` paths, ``[i]['weight']``, a
-    ResNet block's ``[3]['bn1']['scale']``); the port's own names and order
-    for a model without a JAX layout."""
-    from tpuddp_torch.models.convert import jax_places, keystr, model_name
+    ResNet block's ``[3]['bn1']['scale']``, a transformer's
+    ``['blocks'][0]['attn']['bo']``); the port's own names and order for a
+    model without a JAX layout."""
+    from tpuddp_torch.models.convert import jax_paths, jax_places, keystr, model_name
 
     named = dict(model.named_parameters())
     try:
-        places = jax_places(model_name(model), model)
+        name = model_name(model)
     except ValueError:
         return list(named.items())
-    order = sorted(places, key=places.get)
-    return [(keystr((places[n][0],) + places[n][1]), named[n]) for n in order]
+    places, paths = jax_places(name, model), jax_paths(name, model)
+    return [(keystr(paths[n]), named[n]) for n in sorted(places, key=places.get)]
 
 
 @torch.no_grad()

@@ -52,7 +52,7 @@ from __future__ import annotations
 import argparse
 import logging
 from functools import partial
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -110,17 +110,29 @@ def load_model_for(training: dict, input_shape) -> torch.nn.Module:
     return model
 
 
+def is_token_model(training: dict) -> bool:
+    """A ``transformer*`` model: int token sequences in, no image augment
+    (``train_native.py:98-103``)."""
+    return str(training.get("model") or "").startswith("transformer")
+
+
 def model_input_for(training: dict, train_loader):
     """One train batch as the model takes it (after the augment):
-    ``(shape, dtype)``, what the telemetry counts one update's FLOPs on."""
+    ``(shape, dtype)``, what the telemetry counts one update's FLOPs on; a
+    token model's ``(rows, seq_len)`` int32 tokens."""
+    if is_token_model(training):
+        return (int(train_loader.batch_size), int(train_loader.seq_len)), torch.int32
     in_hw = training.get("image_size") or train_loader.dataset.images.shape[1]
     return (int(training["train_batch_size"]), in_hw, in_hw, 3), compute_dtype_for(training)
 
 
-def build_training(rank: int, world_size: int, training: dict, device: str = "cuda"):
+def build_training(rank: int, world_size: int, training: dict, device: str = "cuda",
+                   loaders: Optional[Callable] = None):
     """Everything a rank trains with: seeds, loaders, transforms, model,
     optimizer and the DDP wrap. Returns ``(ddp, train_loader, test_loader,
-    base_seed)``."""
+    base_seed)``. ``loaders(rank, world_size)``, when given, makes the
+    ``(train, test)`` loaders in place of ``training.dataset``'s (a token
+    model's stream: :func:`tpuddp_torch.data.tokens.token_loaders`)."""
     cfg_lib.check_supported(training)
     set_numerics()
     # the GPU the process group pinned (the local rank's, rank on one host)
@@ -132,14 +144,18 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
     generator, base_seed = seeding.set_seed_based_on_rank(
         0 if mode == "auto" else rank, training.get("seed"))
 
-    train_ds, test_ds = load_datasets_for(training)
-    # the data order is shared across ranks and independent of the model seed
-    train_loader = ShardedDataLoader(
-        train_ds, training["train_batch_size"], rank, world_size, shuffle=True
-    )
-    test_loader = ShardedDataLoader(
-        test_ds, training["test_batch_size"], rank, world_size, shuffle=True
-    )
+    if loaders is not None:
+        train_loader, test_loader = loaders(rank, world_size)
+    else:
+        train_ds, test_ds = load_datasets_for(training)
+        # the data order is shared across ranks and independent of the model seed
+        train_loader = ShardedDataLoader(
+            train_ds, training["train_batch_size"], rank, world_size, shuffle=True
+        )
+        test_loader = ShardedDataLoader(
+            test_ds, training["test_batch_size"], rank, world_size, shuffle=True
+        )
+    input_shape = model_input_for(training, train_loader)[0][1:]
     pipeline = resolve_pipeline(training.get("pipeline"))
     if training.get("prefetch", True) and pipeline.host_workers > 0:
         # host batch assembly overlaps the device's work (the reference's
@@ -147,17 +163,21 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         train_loader = PrefetchLoader(train_loader, workers=pipeline.host_workers)
         test_loader = PrefetchLoader(test_loader, workers=pipeline.host_workers)
 
-    size = training.get("image_size")
-    mean, std = norm_stats_for(training)
-    cdtype = compute_dtype_for(training)
-    augment = make_train_augment(
-        size=size, flip=flip_for(training), mean=mean, std=std, generator=generator,
-        compute_dtype=cdtype,
-    )
-    eval_transform = make_eval_transform(size=size, mean=mean, std=std, compute_dtype=cdtype)
+    if is_token_model(training):
+        # token models take int sequences: the image augment and
+        # normalisation do not apply (train_native.py:98-103)
+        augment = eval_transform = None
+    else:
+        size = training.get("image_size")
+        mean, std = norm_stats_for(training)
+        cdtype = compute_dtype_for(training)
+        augment = make_train_augment(
+            size=size, flip=flip_for(training), mean=mean, std=std, generator=generator,
+            compute_dtype=cdtype,
+        )
+        eval_transform = make_eval_transform(size=size, mean=mean, std=std, compute_dtype=cdtype)
 
-    in_hw = size if size else train_ds.images.shape[1]
-    model = load_model_for(training, (in_hw, in_hw, 3)).to(dev)
+    model = load_model_for(training, input_shape).to(dev)
     if training.get("sync_bn"):
         convert_sync_batchnorm(model)
     leaf = jax_leaf_index(training["model"], model)
@@ -203,16 +223,23 @@ def basic_ddp_training_loop(
     training: Optional[dict] = None,
     device: str = "cuda",
     observability: Optional[dict] = None,
+    loaders: Optional[Callable] = None,
 ):
     """Per-process worker (reference ``basic_DDP_training_loop``,
     multi-GPU-training-torch.py:228-266); the process group is already up.
     ``observability`` is the settings file's resolved block (the live
-    plane; None: its defaults). Returns the epoch history."""
+    plane; None: its defaults); ``loaders`` as :func:`build_training` takes
+    it. Returns the epoch history.
+
+    A token job runs as the JAX package runs one (``tools/bench_mesh.py:
+    108-135``): ``run_ddp_training`` -> this worker with a ``transformer*``
+    model, ``num_classes`` its vocabulary and ``loaders`` a
+    :func:`~tpuddp_torch.data.tokens.token_loaders` partial."""
     unit = "GPU" if device == "cuda" else "process"
     print(f"Running DDP training on process {rank} ({world_size}-{unit} world).")
     training = dict(training or cfg_lib.TRAINING_DEFAULTS)
     ddp, train_loader, test_loader, base_seed = build_training(
-        rank, world_size, training, device
+        rank, world_size, training, device, loaders
     )
     return run_training_loop(
         ddp,
@@ -223,7 +250,8 @@ def basic_ddp_training_loop(
         checkpoint_epoch=training["checkpoint_epoch"],
         set_epoch=optional_args.get("set_epoch", True),
         print_rand=optional_args.get("print_rand", False),
-        data_probe_every=100,  # shard-disjointness probe (reference :112-115)
+        # shard-disjointness probe (reference :112-115) of the image loaders
+        data_probe_every=None if loaders is not None else 100,
         per_replica_log=True,  # reference's per-replica loss lines (:186-191)
         base_seed=base_seed,
         auto_resume=bool(training.get("auto_resume") or training.get("resume")),

@@ -1,7 +1,8 @@
 """The staging budget and the depth policy that every queue of batches
-ahead of the step is capped by — the port's copy of the part of
-``tpuddp/utils/batching.py`` it uses (``PrefetchLoader``'s host queue and the
-staged device queue of ``training/pipeline.py``)."""
+ahead of the step is capped by, and the power-of-two bucket ladder — the
+port's copy of the parts of ``tpuddp/utils/batching.py`` it uses
+(``PrefetchLoader``'s host queue, the staged device queue of
+``training/pipeline.py``, the transformers' prefill lengths)."""
 
 from __future__ import annotations
 
@@ -18,3 +19,18 @@ def resolve_fuse(batch_nbytes: Optional[int], cap: int = 32) -> int:
     if batch_nbytes:
         cap = max(1, min(cap, STAGE_BYTES_BUDGET // int(batch_nbytes)))
     return cap
+
+
+def bucket_sizes(max_batch: int):
+    """The power-of-two ladder up to ``max_batch`` (inclusive; ``max_batch``
+    itself is always the top rung even when it is not a power of two)."""
+    max_batch = int(max_batch)
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    sizes = []
+    b = 1
+    while b < max_batch:
+        sizes.append(b)
+        b *= 2
+    sizes.append(max_batch)
+    return sizes
