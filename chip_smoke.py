@@ -485,6 +485,26 @@ Phases, each printing one line (the first failure exits non-zero):
      leaves (2 launch tables), then timed with the plain version and
      ``torch.optim.Adam(fused=True)`` beside its 28-byte-a-parameter bound,
      and replayed from a CUDA graph beside the library's graph.
+25. tensor parallel: ``transformer_small`` at full width (as phase 24) at
+   ``parallel: {model: 2}`` on a world of 2 (data 1) on the one card over
+   Gloo (two rank processes this script starts, as phase 22's), the
+   native entry point's ``build_training`` and ``run_training_loop``,
+   eagerly (a Gloo collective cannot be captured):
+   - "25 forward": each rank's ``tp_forward`` of an (8, 256) batch against
+     the card's model-1 forward of the gathered weights, atol 2e-5;
+   - "25 steps": 8 train steps (8 epochs of one (8, 256) batch) through the
+     loop: each step's loss within 1e-4 of a world-1 model-1 run of the same
+     global batches on the card; the model-axis collectives exactly 19 a
+     train step (10 forward, 9 backward) on each rank; the Adam kernel's
+     launches 2 an update on each rank (the local shard's 52 leaves);
+   - "25 checkpoint": the model-2 file of the last epoch restored here at
+     world 1, model 1, with ``reshard_on_mismatch``: the parameters bitwise
+     the ranks' gathered ones;
+   - "25 times": the eager TP step's median ms beside the model-1 step's,
+     and the float32 kernel over one rank's local shard (447,488
+     parameters, 2 tables) against its plain version, timed beside its
+     bound and ``torch.optim.Adam(fused=True)``, each with the card's name
+     and power limit.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -496,7 +516,7 @@ update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
 phase 21's, one with phase 22's, one with phase 23's, one with phase 24's, one with
-the optimizers', one
+phase 25's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -547,6 +567,7 @@ from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
 from tpuddp_torch.ops import fused_adam  # noqa: E402
 from tpuddp_torch.optim import Adam  # noqa: E402
 from tpuddp_torch.parallel import backend, collectives, comm  # noqa: E402
+from tpuddp_torch.parallel import tensor as tp_lib  # noqa: E402
 from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.resilience import faults, preemption  # noqa: E402
@@ -6008,6 +6029,232 @@ def transformer_phase(bw, flops):
     return out
 
 
+# ---------------------------------------------------------------- phase 25 --
+# tensor parallel: transformer_small at full width at parallel.model 2 on a
+# world of 2 (data 1) on the one card over Gloo; 8 epochs of one (8, 256)
+# batch through the loop (each epoch's train loss is one step's), one eval
+# batch an epoch, the first and the last epoch saved
+TP25_MODEL, TP25_BATCH, TP25_STEPS = 2, 8, 8
+TP25_FWD_ATOL = 2e-5  # tests/test_mesh2d.py:228-250
+TP25_LOSS_ATOL = 1e-4  # tests/test_mesh2d.py:283-296
+TP25_FWD, TP25_BWD = 10, 9  # collectives of a train step: 1 + 2 a block + 1; 2 a block + 1
+TP25_S = 600
+TP25_TRAINING = dict(model=TF_NAME, num_classes=TF_VOCAB, seed=0, dataset="synthetic_tokens",
+                     num_epochs=TP25_STEPS, checkpoint_epoch=TP25_STEPS - 1, scan_steps=1)
+TP25_LOADERS = dict(vocab=TF_VOCAB, seq_len=TF_SEQ, global_batch=TP25_BATCH, n_batches=1,
+                    test_batches=1)
+# one rank of the pair: the weights of init.npz cut to its shard, (a) the
+# forward of x.npy, then (b) the loop with the counts set to 0 just before
+# and read just after, then the gathered parameters (rank 0 writes)
+TP25_SCRIPT = (
+    "import json, os, sys\n"
+    "from functools import partial\n"
+    "import numpy as np, torch\n"
+    "from tpuddp_torch import config as cfg_lib, train_native\n"
+    "from tpuddp_torch.data.tokens import token_loaders\n"
+    "from tpuddp_torch.ops import fused_adam\n"
+    "from tpuddp_torch.parallel import spawn, tensor as tp_lib\n"
+    "from tpuddp_torch.training.loop import run_training_loop\n"
+    "rank, work, port = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])\n"
+    "with open(os.path.join(work, 'job.json')) as f:\n"
+    "    job = json.load(f)\n"
+    "def fn(rank, world, save_dir, _):\n"
+    "    for k in fused_adam.kernels.values():\n"
+    "        k.load()\n"
+    "    training = dict(cfg_lib.TRAINING_DEFAULTS, **job['training'])\n"
+    "    ddp, train, test, seed = train_native.build_training(\n"
+    "        rank, world, training, 'cuda', partial(token_loaders, **job['loaders']),\n"
+    "        cfg_lib.resolve_parallel(job['parallel']))\n"
+    "    with np.load(os.path.join(work, 'init.npz')) as data:\n"
+    "        full = {k: torch.from_numpy(data[k]) for k in data.files}\n"
+    "    ddp.model.load_state_dict(tp_lib.local_state_dict(full, ddp.mesh.model_index, ddp.model_size))\n"
+    "    x = torch.from_numpy(np.load(os.path.join(work, 'x.npy'))).cuda()\n"
+    "    with torch.no_grad():\n"
+    "        np.save(os.path.join(work, f'logits_{rank}.npy'), ddp.model(x).cpu().numpy())\n"
+    "    tp_lib.reset_counts()\n"
+    "    for k in fused_adam.kernels.values():\n"
+    "        k.reset_launches()\n"
+    "    history = run_training_loop(ddp, train, test, save_dir, num_epochs=training['num_epochs'],\n"
+    "                                checkpoint_epoch=training['checkpoint_epoch'], base_seed=seed,\n"
+    "                                scan_steps=1, log=lambda *a, **k: None)\n"
+    "    torch.cuda.synchronize()\n"
+    "    out = {'counts': {k: tp_lib.collectives_issued(k) for k in ('forward', 'backward', 'eval')},\n"
+    "           'launches': {k.symbol: k.launches for k in fused_adam.kernels.values()},\n"
+    "           'local_params': sum(p.numel() for p in ddp.model.parameters()),\n"
+    "           'leaves': len(list(ddp.model.parameters()))}\n"
+    "    gathered = {k: v.cpu().numpy() for k, v in ddp.gather_params().items()}\n"
+    "    if rank == 0:\n"
+    "        out['history'] = history\n"
+    "        np.savez(os.path.join(work, 'gathered.npz'), **gathered)\n"
+    "    with open(os.path.join(work, f'rank_{rank}.json'), 'w') as f:\n"
+    "        json.dump(out, f)\n"
+    "spawn._worker(rank, fn, 2, os.path.join(work, 'out'), {}, 'cuda', port, None, (0, 1))\n"
+)
+
+
+def _tp25_pair(work: str):
+    """Both rank processes of the pair against a store held here: each
+    rank's JSON and its stdout/stderr tails; the pair's wall seconds."""
+    store = backend.rendezvous_store(2)
+    env = dict(os.environ, TPUDDP_BACKEND="gloo", PYTHONPATH=ROOT)
+    for var in ("TPUDDP_FAULT", "TPUDDP_AUTO_RESUME", "TPUDDP_WORLD_SIZE", "TPUDDP_MODEL_SIZE",
+                "TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", TP25_SCRIPT, str(rank), work, str(store.port)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TP25_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        del store
+    wall_s = time.perf_counter() - t0
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: 25 pair: rank {rank} exited {p.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-5000:]}")
+    ranks = []
+    for rank in (0, 1):
+        with open(os.path.join(work, f"rank_{rank}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, wall_s
+
+
+def _tp25_reference(tree, root: str):
+    """The same global batches at world 1, model 1, on the card through
+    the native worker (eager: one step a dispatch)."""
+    training = dict(cfg_lib.TRAINING_DEFAULTS, **TP25_TRAINING)
+    init = state_dict_from_jax(TF_NAME, tree)
+
+    def worker(rank, world, save_dir, optional_args):
+        ddp, train, test, seed = build_training(rank, world, training, "cuda",
+                                                partial(token_loaders, **TP25_LOADERS))
+        ddp.model.load_state_dict(init)
+        return run_training_loop(ddp, train, test, None, num_epochs=TP25_STEPS, base_seed=seed,
+                                 scan_steps=1, log=lambda *a, **k: None)
+
+    reset_counts()
+    history = run_ddp_training(worker, 1, None, {}, backend="cuda")
+    torch.cuda.synchronize()
+    return history, fused_adam.kernel.launches
+
+
+def tensor_parallel_phase(bw, flops):
+    """Phase 25: transformer_small at parallel.model 2 on a world of 2 on
+    the one card: (a) the forward, (b) 8 steps through the loop against a
+    world-1 model-1 run, the collectives and the Adam launches, (c) the
+    model-2 checkpoint restored at model 1, (d) the times."""
+    tree = _token_tree(0)
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_tp_")
+    try:
+        np.savez(os.path.join(root, "init.npz"),
+                 **{k: v.numpy() for k, v in state_dict_from_jax(TF_NAME, tree).items()})
+        x = np.random.default_rng(25).integers(0, TF_VOCAB, (TP25_BATCH, TF_SEQ)).astype(np.int32)
+        np.save(os.path.join(root, "x.npy"), x)
+        with open(os.path.join(root, "job.json"), "w") as f:
+            json.dump({"training": TP25_TRAINING, "loaders": TP25_LOADERS,
+                       "parallel": {"model": TP25_MODEL}}, f)
+        ranks, wall_s = _tp25_pair(root)
+        # (a) the forward against the card's model 1 of the gathered weights
+        model = _token_model(tree, "cuda").eval()
+        with torch.no_grad():
+            ref = model(torch.from_numpy(x).cuda()).cpu().numpy()
+        fwd_err = max(float(np.abs(np.load(os.path.join(root, f"logits_{r}.npy")) - ref).max())
+                      for r in (0, 1))
+        # (b) the steps against world 1, model 1
+        ref_history, ref_launches = _tp25_reference(tree, root)
+        rows = ranks[0]["history"]
+        losses = [r["train_loss"] for r in rows]
+        ref_losses = [r["train_loss"] for r in ref_history]
+        loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        f32 = fused_adam.kernel.symbol
+        # (c) the model-2 file at world 1, model 1, reshaped on load
+        restored = load_model(TF_NAME, TF_VOCAB).cuda()
+        ckpt.restore_latest(os.path.join(root, "out"), restored,
+                            Adam(restored.parameters(), lr=1e-3), reshard_on_mismatch=True)
+        with np.load(os.path.join(root, "gathered.npz")) as data:
+            gathered = {k: data[k] for k in data.files}
+        ckpt_diff = [k for k, v in restored.state_dict().items()
+                     if not np.array_equal(v.cpu().numpy(), gathered[k])]
+        with np.load(os.path.join(root, "out", f"ckpt_{TP25_STEPS - 1}.npz")) as f:
+            topo = json.loads(str(f["__topology__"]))
+            wqkv = f[".params['blocks'][0]['attn']['wqkv']"].shape
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = {
+        f"(a) each rank's tp_forward within atol {TP25_FWD_ATOL} of model 1": fwd_err <= TP25_FWD_ATOL,
+        f"(b) {TP25_STEPS} step losses within {TP25_LOSS_ATOL} of world 1, model 1":
+            len(losses) == len(ref_losses) == TP25_STEPS and loss_err <= TP25_LOSS_ATOL,
+        f"(b) {TP25_FWD + TP25_BWD} model-axis collectives a train step on each rank": all(
+            (r["counts"]["forward"], r["counts"]["backward"])
+            == (TP25_FWD * TP25_STEPS, TP25_BWD * TP25_STEPS) for r in ranks),
+        "(b) 2 Adam launches an update on each rank, no other kernel": all(
+            r["launches"][f32] == sum(r["launches"].values()) == 2 * TP25_STEPS for r in ranks),
+        "(b) every token of each step counted": all(
+            r["train_samples"] == TP25_BATCH * TF_SEQ for r in rows),
+        "(c) the model-2 file restored at model 1 bitwise the gathered parameters": not ckpt_diff,
+        "(c) the file is a model-2 one in the TP layout": topo["model_size"] == TP25_MODEL
+            and wqkv == (128, 3, 128),
+        "the world-1 reference launched 2 tables an update": ref_launches == 2 * TP25_STEPS,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 25 tensor parallel failed {failed}: forward {fwd_err}, losses "
+                         f"{losses} vs {ref_losses}, ranks {[{k: r[k] for k in ('counts', 'launches')} for r in ranks]}, "
+                         f"checkpoint keys that differ {ckpt_diff}")
+    card = card_line()
+    phase("25 forward", f"{TF_NAME} at parallel.model {TP25_MODEL} (world 2, data 1, Gloo on one card), "
+          f"a ({TP25_BATCH}, {TF_SEQ}) batch: each rank's tp_forward vs the model-1 forward of the "
+          f"gathered weights max |d logits| {fwd_err:.3g} (atol {TP25_FWD_ATOL}); card {card}")
+    tp_ms = statistics.median(r["step_ms"][0] for r in rows[1:])
+    one_ms = statistics.median(r["step_ms"][0] for r in ref_history[1:])
+    phase("25 steps", f"{TP25_STEPS} steps through run_training_loop, eager: losses "
+          f"{[round(v, 6) for v in losses]} vs world 1 model 1 max |d| {loss_err:.3g}; "
+          f"collectives a train step {TP25_FWD} forward + {TP25_BWD} backward on each rank; "
+          f"{2 * TP25_STEPS} Adam launches a rank ({ranks[0]['leaves']} local leaves, "
+          f"{ranks[0]['local_params']} local parameters); step median (epochs 2..{TP25_STEPS}) "
+          f"TP {tp_ms:.3f} ms vs model 1 {one_ms:.3f} ms (ratio {tp_ms / one_ms:.2f}); pair wall "
+          f"{wall_s:.1f} s; card {card}")
+    phase("25 checkpoint", f"ckpt_{TP25_STEPS - 1}.npz (model_size {topo['model_size']}, wqkv {wqkv}) "
+          f"restored at world 1, model 1 with reshard_on_mismatch: parameters bitwise the gathered ones")
+    with torch.device("meta"):
+        shard = tp_lib.TensorParallelLM(load_model(TF_NAME, TF_VOCAB), _Mesh25())
+    shapes = [tuple(p.shape) for p in shard.parameters()]
+    wrapper = fused_adam.kernel
+    err = compare(wrapper, [(f"{TF_NAME} model-2 shard", shapes, "", 0.0)], shapes, tag="25 adam",
+                  p_relative=True)
+    torch.cuda.empty_cache()
+    kernel = {**time_kernel(wrapper, shapes, bw, flops, label=f"{TF_NAME} model-2 shard", tag="25 adam"),
+              "max_abs_err": err, "launches_per_step": _tables(len(shapes)),
+              "local_params": sum(math.prod(s) for s in shapes)}
+    graphed = adam_graph_ms(wrapper, shapes)
+    kernel.update(graph_ms=graphed["kernel"], library_graph_ms=graphed["library"])
+    phase("25 times", f"card {card}: eager TP step {tp_ms:.3f} ms, model-1 step {one_ms:.3f} ms; "
+          f"local Adam update ({kernel['local_params']} parameters, {len(shapes)} leaves, "
+          f"{kernel['launches_per_step']} tables) eagerly {kernel['ms']:.4f} ms (host-bound), replayed "
+          f"from a CUDA graph {graphed['kernel']:.4f} ms vs bound {kernel['bound_ms']:.4f} ms "
+          f"({100 * kernel['bound_ms'] / graphed['kernel']:.1f}%); Adam(fused=True) eagerly "
+          f"{kernel['library_ms']:.4f} ms, replayed (capturable=True) {graphed['library']:.4f} ms")
+    return dict(forward_max_abs_err=fwd_err, losses=losses, reference_losses=ref_losses,
+                loss_max_abs_err=loss_err, counts=[r["counts"] for r in ranks],
+                step_ms_tp=tp_ms, step_ms_model_1=one_ms, pair_wall_s=wall_s, kernel=kernel,
+                local_params=ranks[0]["local_params"],
+                launches={f"native {TF_NAME} model 2 rank {i} (phase 25)": r["launches"][f32]
+                          for i, r in enumerate(ranks)})
+
+
+class _Mesh25:
+    """Model rank 0 of a (1, 2) world, for the shard's shapes (no group)."""
+
+    model, data, model_index, data_index = TP25_MODEL, 1, 0, 0
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -6158,6 +6405,9 @@ def main() -> None:
     t24 = time.perf_counter()
     tf_24 = transformer_phase(bw, flops)
     phase_24_s = time.perf_counter() - t24
+    t25 = time.perf_counter()
+    tp_25 = tensor_parallel_phase(bw, flops)
+    phase_25_s = time.perf_counter() - t25
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -6245,6 +6495,9 @@ def main() -> None:
         "training": {k: v for k, v in tf_24["training"].items() if k != "launches"},
         "adam_transformer_small": tf_24["kernel"], "phase_24_s": phase_24_s,
     }}))
+    print(json.dumps({"tensor_parallel": {
+        **{k: v for k, v in tp_25.items() if k != "launches"}, "phase_25_s": phase_25_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -6310,6 +6563,7 @@ def main() -> None:
     phase_23 = live_23["launches"]
     phase_24 = {**tf_24["training"]["launches"],
                 f"native {TF_NAME} chunks (phase 24)": tf_24["steps"]["launches"]}
+    phase_25 = tp_25["launches"]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
@@ -6317,7 +6571,7 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24}
+               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24, **phase_25}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -6330,7 +6584,8 @@ def main() -> None:
          "guarded": {**guard_14["kernel"][torch.float32], "launches_by_path": phase_14},
          "resnet50_161_leaves": {**resnet_15["kernels"][torch.float32], "launches_by_path": phase_15},
          "vgg16_32_leaves": {**vgg_16["kernels"][torch.float32], "launches_by_path": phase_16},
-         "transformer_small_52_leaves": {**tf_24["kernel"], "launches_by_path": phase_24}},
+         "transformer_small_52_leaves": {**tf_24["kernel"], "launches_by_path": phase_24},
+         "transformer_small_model_2_shard": {**tp_25["kernel"], "launches_by_path": phase_25}},
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
                       + sum(phase_10_bf16.values()) + sum(phase_11.values())
@@ -6349,7 +6604,7 @@ def main() -> None:
                               **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
                               **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21},
                               **{k: 0 for k in phase_22}, **{k: 0 for k in phase_23},
-                              **{k: 0 for k in phase_24}},
+                              **{k: 0 for k in phase_24}, **{k: 0 for k in phase_25}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -6363,7 +6618,7 @@ def main() -> None:
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
           f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s, "
-          f"phase 23: {phase_23_s:.1f} s, phase 24: {phase_24_s:.1f} s)")
+          f"phase 23: {phase_23_s:.1f} s, phase 24: {phase_24_s:.1f} s, phase 25: {phase_25_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -262,7 +262,8 @@ def test_unported_knobs_are_refused(knob, value):
     """Neither knob is refused any more: ``mode: auto`` runs the global
     batch's step (tests/test_torch_port_auto.py), and
     ``reshard_on_mismatch`` at model 1 on both sides changes nothing, as in
-    the JAX package (a file of a model axis is refused whatever it says)."""
+    the JAX package (a file of another model width is reshaped on load:
+    tests/test_torch_port_tp_elastic.py)."""
     assert cfg.training_config({"training": {knob: value}})[knob] == value
 
 
@@ -271,17 +272,21 @@ def test_unported_knobs_are_refused(knob, value):
 ])
 def test_model_size_over_1_is_refused(monkeypatch, env, parallel, refused):
     """``$TPUDDP_MODEL_SIZE`` (the supervisor's lever) overrides
-    ``parallel.model`` as ``tpuddp/config.py:335-363`` does; over 1 is
-    tensor parallel."""
+    ``parallel.model`` as ``tpuddp/config.py:335-363`` does. A width over 1
+    is tensor parallel, which is ported: accepted on a world it tiles, and
+    on one it does not the JAX package's ValueError (``refused`` names the
+    cases whose width is 2)."""
     monkeypatch.delenv("TPUDDP_MODEL_SIZE", raising=False)
     if env is not None:
         monkeypatch.setenv("TPUDDP_MODEL_SIZE", env)
     settings = {} if parallel is None else {"parallel": parallel}
+    cfg.check_settings(settings)
+    assert cfg.check_settings(settings, world_size=4)["model"] == (2 if refused else 1)
     if refused:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8: tensor parallel"):
-            cfg.check_settings(settings)
+        with pytest.raises(ValueError, match="does not tile the 3-device world"):
+            cfg.check_settings(settings, world_size=3)
     else:
-        cfg.check_settings(settings)
+        cfg.check_settings(settings, world_size=3)
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -398,8 +403,20 @@ def test_bf16_state_is_an_adam_knob():
     {"observability": {"exporter": True, "advisor": True}},
 ])
 def test_unported_settings_blocks_are_refused(settings):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.check_settings(settings)
+    """The advisor is not ported (NotImplementedError naming its ROADMAP
+    item). A ``parallel`` block is: ``model: 2`` is accepted on a world it
+    tiles, with the JAX package's ValueErrors where it does not, under
+    ``hierarchical``, and (at the wrap) for a model without partition
+    metadata (tests/test_torch_port_mesh2d.py)."""
+    if "parallel" not in settings:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cfg.check_settings(settings)
+        return
+    cfg.check_settings(settings, world_size=4)
+    with pytest.raises(ValueError, match="does not tile"):
+        cfg.check_settings(settings, world_size=3)
+    with pytest.raises(ValueError, match="hierarchical"):
+        cfg.check_settings({**settings, "training": {"comm_topology": "hierarchical"}}, 4)
 
 
 def test_parallel_data_must_tile_the_world():

@@ -272,7 +272,9 @@ def test_the_epoch_files_cross_both_ways(loops, cpu_devices, init, tmp_path):
 
 def test_a_model_axis_file_is_refused(loops, tmp_path):
     """A token file whose topology record says model=2 (a tensor-parallel
-    run's) is refused whole."""
+    run's) restored at model 1 is the JAX package's typed
+    ``TopologyMismatch`` (``reshard_on_mismatch`` reshapes it instead:
+    tests/test_torch_port_tp_elastic.py), before any leaf is read."""
     with np.load(loops["root"] / "port" / "ckpt_0.npz") as data:
         stored = dict(data.items())
     key = next(k for k in stored if "topology" in k)
@@ -281,7 +283,8 @@ def test_a_model_axis_file_is_refused(loops, tmp_path):
     stored[key] = np.asarray(json.dumps(topo))
     np.savez(tmp_path / "ckpt_0.npz", **stored)
     model = load_model(NAME, V)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8: tensor parallel"):
+    with pytest.raises(ckpt.TopologyMismatch, match="written on a model=2 mesh but the current "
+                       "run is model=1"):
         ckpt.restore_latest(str(tmp_path), model, Adam(model.parameters(), lr=LR))
 
 

@@ -24,8 +24,8 @@ resolve_guard`), ``pretrained_path`` (a torchvision checkpoint on disk,
 :func:`tpuddp_torch.training.pipeline.resolve_pipeline`; ``device_augment:
 false`` is refused there), ``resume``, ``auto_resume``, ``keep_last``
 (checkpoints in the JAX package's layout, restored across world sizes) and
-``reshard_on_mismatch`` (accepted: at model 1 there is nothing to
-reshape), the managed path's ``fuse_steps`` (K queued steps per flush, one CUDA-graph replay on the card;
+``reshard_on_mismatch`` (the cross-width reshaper of a model-sharded
+file, :mod:`tpuddp_torch.training.reshard`), the managed path's ``fuse_steps`` (K queued steps per flush, one CUDA-graph replay on the card;
 :func:`resolve_fuse_steps`), ``comm_topology: hierarchical`` (the native
 path's three-hop exchange, :meth:`tpuddp_torch.parallel.comm.GradComm.
 reduce_hierarchical`; the managed path refuses it as the JAX package's
@@ -36,7 +36,9 @@ as without it, as the JAX package's does) and ``step_stats_every`` (one
 ``step_stats`` row of ``history.jsonl`` per N updates, both paths,
 :mod:`tpuddp_torch.observability`), and the top-level ``observability``
 block (the live plane: flight recorder, exporter, pod shards, tracing;
-:func:`resolve_observability`). Every knob whose non-default value needs a part
+:func:`resolve_observability`), and the top-level ``parallel`` block (the
+``(data, model)`` world of tensor parallelism, :func:`resolve_parallel`,
+:func:`mesh_from`; ``$TPUDDP_MODEL_SIZE`` overrides its width). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
 never ignored. The native path's ``scan_steps`` (K batches per dispatch,
@@ -106,11 +108,10 @@ DATASET_NUM_CLASSES = {"cifar10": 10, "synthetic": 10, "digits": 10}
 
 DEVICES = ("cuda", "cpu")
 
-# training.reshard_on_mismatch is accepted: at model 1 on both sides (the
-# only width the port runs) it changes nothing, as in the JAX package, and
-# a file of a model axis is refused whatever it says
-# (training/checkpoint.py). training.mode takes shard_map and auto
-# (parallel/ddp.py), as the JAX package's does.
+# training.reshard_on_mismatch reshapes a checkpoint of another (data,
+# model) shape on load, as the JAX package's loader does
+# (training/checkpoint.py, training/reshard.py). training.mode takes
+# shard_map and auto (parallel/ddp.py), as the JAX package's does.
 
 # local.rendezvous's keys and the variables that override them
 _RENDEZVOUS_ENV = {"coordinator_address": "TPUDDP_COORDINATOR",
@@ -251,34 +252,104 @@ def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:
     return cfg
 
 
-def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -> None:
+def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -> Dict[str, Any]:
     """Refuse the settings blocks outside ``training`` that this slice does
-    not implement: a tensor-parallel ``parallel`` block (``parallel.model``,
-    or ``$TPUDDP_MODEL_SIZE``, the restart supervisor's lever, which
-    overrides it as in ``tpuddp/config.py:335-363``, over 1) and an
+    not implement and the malformed ones: the ``parallel`` block's
+    ``ValueError``s (:func:`resolve_parallel`; ``data * model`` must tile
+    ``world_size``, and ``comm_topology: hierarchical`` takes no model axis,
+    :func:`mesh_from`'s texts), ZeRO-1 with a model axis, and an
     ``observability`` block's ``advisor: true`` (and the block's
-    ``ValueError`` texts, :func:`resolve_observability`). An explicit ``parallel.data`` must equal
-    ``world_size`` (the hosts of a ``local.rendezvous`` block tile it, as
-    :func:`tpuddp_torch.parallel.spawn.resolve_world` checks)."""
-    parallel = dict(settings.get("parallel") or {})
-    unknown = set(parallel) - {"data", "model"}
-    if unknown:
-        raise ValueError(f"unknown parallel key(s) {sorted(unknown)}")
-    if os.environ.get("TPUDDP_MODEL_SIZE"):
-        parallel.update(model=int(os.environ["TPUDDP_MODEL_SIZE"]), data="auto")
-    model = int(parallel.get("model", 1))
-    if model < 1:
-        raise ValueError(f"parallel.model must be >= 1, got {parallel['model']!r}")
-    check_weight_update_sharding(settings.get("training") or {}, model)
-    if model != 1:
-        raise _not_ported(f"parallel.model={model!r}", "Queue 1 item 8: tensor parallel")
-    data = parallel.get("data", "auto")
-    if data != "auto" and world_size is not None and int(data) != world_size:
-        raise ValueError(
-            f"parallel.data={data!r} != world size {world_size}; the data axis "
-            "must tile the world exactly (set data: auto to derive it)"
-        )
+    ``ValueError`` texts, :func:`resolve_observability`). Returns the
+    resolved ``parallel`` block, the one the run goes on with."""
+    parallel = resolve_parallel(settings.get("parallel"))
+    training = settings.get("training") or {}
+    check_weight_update_sharding(training, parallel["model"])
+    if world_size is not None:
+        check_tiling(parallel, world_size, str(training.get("comm_topology") or "flat"))
     observability_config(settings)  # its ValueErrors and the advisor's refusal, before a run
+    return parallel
+
+
+# 2-D mesh knobs (tpuddp/config.py:317-330): the top-level ``parallel``
+# block of a settings file, how the world factors into the ("data",
+# "model") grid. Same unknown-key refusal as every block.
+PARALLEL_DEFAULTS = {
+    "data": "auto",  # data-parallel width; "auto" -> world_size / model
+    "model": 1,  # tensor-parallel width (1 = plain DDP: today's code path)
+}
+
+MODEL_SIZE_ENV = "TPUDDP_MODEL_SIZE"
+
+
+def resolve_parallel(block) -> Dict[str, Any]:
+    """A ``parallel`` block (None or a mapping) as the full knob dict
+    (``tpuddp/config.py:333-363``). ``$TPUDDP_MODEL_SIZE`` overrides the
+    model width as ``$TPUDDP_WORLD_SIZE`` overrides the world (the restart
+    supervisor's lever) and resets an explicit ``data`` to ``auto``."""
+    if block is None:
+        cfg = dict(PARALLEL_DEFAULTS)
+    elif not isinstance(block, dict):
+        raise ValueError(f"parallel block must be a mapping, got {block!r}")
+    else:
+        cfg = _merge_refusing_unknown(PARALLEL_DEFAULTS, block, "parallel")
+    env_model = os.environ.get(MODEL_SIZE_ENV)
+    if env_model:
+        cfg["model"] = int(env_model)
+        cfg["data"] = "auto"
+    model = int(cfg["model"])
+    if model < 1:
+        raise ValueError(f"parallel.model must be >= 1, got {cfg['model']!r}")
+    cfg["model"] = model
+    if cfg["data"] != "auto":
+        data = int(cfg["data"])
+        if data < 1:
+            raise ValueError(f"parallel.data must be >= 1 or 'auto', got {cfg['data']!r}")
+        cfg["data"] = data
+    return cfg
+
+
+def check_tiling(cfg: Dict[str, Any], world: int, comm_topology: str = "flat") -> int:
+    """The data width of a resolved ``parallel`` block over ``world``
+    processes, with :func:`mesh_from`'s refusals in the JAX order and
+    texts (``tpuddp/config.py:366-420``)."""
+    model = cfg["model"]
+    if comm_topology == "hierarchical" and model > 1:
+        raise ValueError(
+            "parallel.model > 1 with comm_topology='hierarchical' is "
+            "refused: pick the 2-D ('data', 'model') mesh OR the factored "
+            "('host', 'local') data axis, not both"
+        )
+    data = cfg["data"]
+    if data == "auto":
+        if world % model:
+            raise ValueError(
+                f"parallel.model={model} does not tile the {world}-device "
+                "world; data * model must equal the device count"
+            )
+        data = world // model
+    if data * model != world:
+        raise ValueError(
+            f"parallel: data={data} x model={model} != device count {world}; "
+            "the mesh must tile the world exactly (set data: auto to derive it)"
+        )
+    return data
+
+
+def mesh_from(parallel: Dict[str, Any], world_size: int, comm_topology: str = "flat"):
+    """The run's world from the resolved ``parallel`` block
+    (:func:`resolve_parallel`'s; ``tpuddp/config.py:366-420``): None, the
+    flat data world (today's path, the hierarchical split included), at
+    ``model == 1``; else the ``(data, model)`` grid of
+    :func:`tpuddp_torch.parallel.mesh2d.mesh2d`, its process groups created
+    here (a collective of the default group: every rank calls it). A block
+    that does not tile the world, or a model axis under ``hierarchical``,
+    is the JAX package's ``ValueError``."""
+    data = check_tiling(parallel, int(world_size), comm_topology)
+    if parallel["model"] == 1:
+        return None
+    from tpuddp_torch.parallel.mesh2d import mesh2d
+
+    return mesh2d(data, parallel["model"])
 
 
 # The live telemetry plane's knobs (tpuddp/config.py:272-314): the

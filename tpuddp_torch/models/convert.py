@@ -748,3 +748,40 @@ class JaxFlatOrder:
         """The first ``raw`` elements of ``vec`` (JAX order) in the port's
         (into ``out`` when given)."""
         return torch.index_select(vec[:self.raw], 0, self._from_jax, out=out)
+
+
+# ------------------------------------------------------ tensor-parallel --
+
+def tp_local_from_jax(params: dict, model_index: int, model_width: int) -> Dict[str, np.ndarray]:
+    """A transformer's canonical JAX tree (numpy) -> model rank
+    ``model_index``'s shard as a torch-layout ``state_dict`` of numpy
+    arrays (``parallel/tensor.py``'s split of each parameter)."""
+    from tpuddp_torch.parallel import tensor
+
+    return tensor.local_state_dict(torch_layout("transformer", params), model_index, model_width)
+
+
+def tp_local_from_jax_tp(tp_params: dict, model_index: int, model_width: int) -> Dict[str, np.ndarray]:
+    """The same from a tree in the JAX TP layout (``wqkv (E, 3, HD)``,
+    ``bqkv (3, HD)``: what a JAX TP state's parameters and its checkpoint
+    hold)."""
+    from tpuddp_torch.parallel import tensor
+
+    return tp_local_from_jax(tensor.from_tp_tree(tp_params), model_index, model_width)
+
+
+def jax_from_tp_locals(shards: Sequence[Dict[str, object]]) -> dict:
+    """The inverse of :func:`tp_local_from_jax`: every model rank's shard
+    (tensors or arrays, model-index order) -> the canonical JAX tree."""
+    from tpuddp_torch.parallel import tensor
+
+    params, _ = jax_from_state_dict("transformer", tensor.full_state_dict(shards))
+    return params
+
+
+def jax_tp_from_tp_locals(shards: Sequence[Dict[str, object]]) -> dict:
+    """The inverse of :func:`tp_local_from_jax_tp`: the shards -> the JAX
+    TP-layout tree."""
+    from tpuddp_torch.parallel import tensor
+
+    return tensor.to_tp_tree(jax_from_tp_locals(shards))

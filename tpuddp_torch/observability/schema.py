@@ -293,6 +293,7 @@ def make_run_meta(
     comm: Optional[dict] = None,
     snapshot=False,
     extra: Optional[dict] = None,
+    mesh: Optional[dict] = None,
 ) -> dict:
     """The run_meta header row of a port run, with every key of the JAX
     package's ``make_run_meta`` (``tpuddp/observability/schema.py:325-433``).
@@ -307,19 +308,24 @@ def make_run_meta(
     None when off); ``comm`` the ``{"overlap": ...}`` block; ``snapshot`` the step-snapshot
     engine's ``describe()`` (native), the managed drain's block, or False
     when off (schema v11); ``extra`` the entry point's fields (config_hash,
-    model, dataset, api, ...)."""
+    model, dataset, api, ...); ``mesh`` the DDP wrap's ``{"data", "model",
+    "tp_rules_hash"}`` block (a tensor-parallel run's ``model`` over 1 and
+    its rule table's hash; the mesh shape then ``{"data", "model"}``), else
+    derived from ``world_size``."""
     import torch
 
     import tpuddp_torch
 
-    mesh_shape = mesh = None  # a writer without a mesh (the watchdog's header)
+    given, mesh_shape, mesh = mesh, None, None  # None: a writer without a mesh (the watchdog's)
     if world_size is not None:
         world_size = int(world_size)
         if hierarchy is not None:
             mesh_shape = {"host": int(hierarchy[0]), "local": int(hierarchy[1])}
         else:
             mesh_shape = {"data": world_size}
-        mesh = {"data": world_size, "model": 1, "tp_rules_hash": None}
+        mesh = dict(given or {"data": world_size, "model": 1, "tp_rules_hash": None})
+        if mesh["model"] > 1:
+            mesh_shape = {"data": mesh["data"], "model": mesh["model"]}
     if dataclasses.is_dataclass(guard):
         guard = dataclasses.asdict(guard)
     record = {

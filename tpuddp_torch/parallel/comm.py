@@ -323,18 +323,21 @@ class GradComm(NamedTuple):
             return kept if single else col.allgather_topk_sum(idx, q, scale, b.numel(), group)
         raise AssertionError(f"hook {self.hook!r} has no exchange")
 
-    def _exchange_span(self, send: torch.Tensor, lo: int, buckets, lost: Optional[torch.Tensor]):
+    def _exchange_span(self, send: torch.Tensor, lo: int, buckets, lost: Optional[torch.Tensor],
+                       group=None):
         """The buckets of a span starting at ``lo`` through the exchange,
         reassembled; ``send`` and ``lost`` (when given, receiving each
         bucket's loss) hold the span's elements."""
-        sums = [self._exchange_bucket(send[s - lo:e - lo], None if lost is None else lost[s - lo:e - lo])
+        sums = [self._exchange_bucket(send[s - lo:e - lo], None if lost is None else lost[s - lo:e - lo],
+                                      group)
                 for s, e in buckets]
         return sums[0] if len(sums) == 1 else torch.cat(sums)
 
-    def _compressed_sum(self, send: torch.Tensor, lost: Optional[torch.Tensor]) -> torch.Tensor:
+    def _compressed_sum(self, send: torch.Tensor, lost: Optional[torch.Tensor],
+                        group=None) -> torch.Tensor:
         """The padded vector through the bucketed exchange, reassembled;
         ``lost`` (when given) receives each bucket's loss."""
-        return self._exchange_span(send, 0, self.buckets, lost)
+        return self._exchange_span(send, 0, self.buckets, lost, group)
 
     def exchange_segment(self, send: torch.Tensor, seg: CommSegment,
                          lost: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -347,16 +350,17 @@ class GradComm(NamedTuple):
         return self._exchange_span(send, seg.flat[0], seg.buckets, lost)
 
     def reduce(self, g_vec: torch.Tensor, residual: Optional[torch.Tensor],
-               lost: Optional[torch.Tensor] = None):
+               lost: Optional[torch.Tensor] = None, group=None):
         """The bucketed hook pipeline on this replica's padded gradient
         vector ``g_vec`` (``(total,)``, the exchange's order): returns the
         cross-replica MEAN vector and the residual, which becomes ``send -
         kept`` with ``send = g_vec + residual``, written in place, or into
         ``lost`` when it is given (the numerical guard's staging vector: the
-        residual then stays as it is)."""
+        residual then stays as it is). The replicas are ``group``'s (a
+        tensor-parallel rank's data group), the world's when None."""
         send = g_vec if residual is None else g_vec + residual
         lost = residual if lost is None else lost
-        reduced = self._compressed_sum(send, lost if self.needs_residual else None)
+        reduced = self._compressed_sum(send, lost if self.needs_residual else None, group)
         if self.world > 1:
             reduced = reduced / self.world
         return reduced, residual

@@ -104,8 +104,8 @@ segmented-overlap step does not apply (``auto`` records the JAX reason,
 
 ``guard`` (``training.guard``; ``tpuddp/parallel/ddp.py:90, :560-580,
 :723-740``): the numerical guard. At wrap time, after the broadcast, every
-replica's parameters are audited (:func:`~tpuddp_torch.resilience.guard.
-audit_or_raise`, ``ReplicaDesync`` on a divergence). Every step, cycle and
+replica's parameters are audited (:meth:`audit_replicas`,
+``ReplicaDesync`` on a divergence; the loop's periodic audit too). Every step, cycle and
 chunk is then guarded by the wrap's :class:`~tpuddp_torch.resilience.guard.
 Firewall` (``training/step.py``): a non-finite aggregated gradient makes the
 update a bitwise no-op on the parameters, the optimizer state, the hook's
@@ -142,6 +142,25 @@ residual and no collective of its own, and the byte counters count the
 float32 collective (``wire=False``). ZeRO-1 and ``comm_topology:
 hierarchical`` are the JAX ``ValueError``; ``comm_overlap: auto`` falls
 back with the JAX reason.
+
+``mesh`` (a :class:`~tpuddp_torch.parallel.mesh2d.Mesh2D` from
+``config.mesh_from``; ``tpuddp/parallel/ddp.py:181-195, :263-440``): at
+``model > 1`` the wrap trains tensor-parallel. After the broadcast of the
+whole model from rank 0, ``model`` becomes this rank's shard
+(:class:`~tpuddp_torch.parallel.tensor.TensorParallelLM`, the Megatron
+split of the transformer), the optimizer is rebound to the shard's
+parameters (its state built over them at the first step: the Adam kernel
+updates the local shards), the gradient mean and the comm hook's exchange
+run over the rank's DATA group only, with the plan and the byte counts over
+the local shard's leaves in the JAX TP layout's order and one residual per
+rank (keyed ``(data_index, model_index)``), the guard's verdict is agreed
+with one all-reduce MIN over the MODEL group, the desync audit compares
+each rank's own shard across data replicas only, and the segmented-overlap
+step records the JAX reason. Every combination the JAX TP wrap refuses is
+its ``ValueError``, in its order (:meth:`DistributedDataParallel.
+_validate_tp`), more than one host among them. ``model == 1`` (or no
+``mesh``) is the unchanged code path. Metrics are per data replica: the
+loop sums them over the data group (:attr:`metrics_group`).
 """
 
 from __future__ import annotations
@@ -152,14 +171,17 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch.models.convert import (
-    JaxFlatOrder, is_transformer, jax_layer_sizes, jax_order_indices, jax_param_span, jax_sizes,
-    model_name,
+    JaxFlatOrder, is_transformer, jax_from_state_dict, jax_layer_sizes, jax_order_indices,
+    jax_param_span, jax_sizes, model_name, tree_leaves,
 )
 from tpuddp_torch.nn.layers import global_batch_dropout
 from tpuddp_torch.nn.norm import convert_sync_batchnorm
 from tpuddp_torch.optim import ShardedUpdate, arm_guard
 from tpuddp_torch.parallel import backend, collectives, comm, mesh
-from tpuddp_torch.resilience.guard import Firewall, audit_or_raise, resolve_guard
+from tpuddp_torch.parallel import mesh2d as mesh2d_lib
+from tpuddp_torch.parallel import tensor as tp_lib
+from tpuddp_torch.resilience import guard as guard_lib
+from tpuddp_torch.resilience.guard import Firewall, ReplicaDesync, resolve_guard
 from tpuddp_torch.training import graphs
 from tpuddp_torch.training.pipeline import stage_batch, to_device
 from tpuddp_torch.training.step import (
@@ -174,11 +196,10 @@ def _no_sync() -> None:
 
 class DistributedDataParallel:
     # False: on a GPU the K-step chunks and eval groups run eagerly, the
-    # reference that chip_smoke.py and the cuda tests hold the replays against
+    # reference that chip_smoke.py and the cuda tests hold the replays
+    # against. A tensor-parallel wrap runs them eagerly whatever it says
+    # (:meth:`_group`)
     _graph_replay = True
-    # what the port's wrap runs of the JAX package's knobs, which the
-    # overlap eligibility reads in the JAX order (config refuses the others)
-    model_size = 1
 
     def __init__(
         self,
@@ -200,10 +221,18 @@ class DistributedDataParallel:
         comm_topology: str = "flat",
         remat: bool = False,
         mode: str = "shard_map",
+        mesh: Optional[mesh2d_lib.Mesh2D] = None,
     ):
         if mode not in ("shard_map", "auto"):
             raise ValueError(f"unknown mode {mode!r}; one of 'shard_map', 'auto'")
         self.mode = mode
+        # the (data, model) world: model == 1 squeezes to the flat data
+        # world, today's code path; model > 1 is the tensor-parallel wrap
+        self.model_size = mesh2d_lib.model_size(mesh)
+        self.mesh = mesh if self.model_size > 1 else mesh2d_lib.squeeze_model(mesh)
+        if self.model_size > 1:
+            self._validate_tp(model, optimizer, mode, comm_topology, weight_update_sharding,
+                              grad_accumulation, clip_grad_norm, augment, eval_transform, remat)
         self.guard = resolve_guard(guard)
         # the whole train forward recomputed in its backward (nn/remat.py)
         self.remat = bool(remat)
@@ -233,6 +262,9 @@ class DistributedDataParallel:
         self.eval_transform = eval_transform
         self.rank = backend.get_rank()
         self.world_size = backend.get_world_size()
+        # the replicas of the gradient exchange: the world, or the data axis
+        self.data_size = mesh2d_lib.data_size(self.mesh)
+        tp = mesh2d_lib.is_tensor_parallel(self.mesh)
         # (local_group, host_group, hosts, local) of the hierarchical split
         self._hier = self._hierarchy(weight_update_sharding) if hier else None
         auto = self.mode == "auto"
@@ -251,17 +283,29 @@ class DistributedDataParallel:
                 global_batch_dropout(self.model, self.rank, self.world_size)
         self._graphs = None  # training.graphs.StepGraphs, at the first group on a GPU
         collectives.broadcast_one_to_all(self.model)
+        self._tp_specs = None
+        # the hook's plan: over the JAX package's leaf order (its buckets),
+        # or under ZeRO-1 over the flat layout (one whole-vector bucket)
+        sizes = tuple(p.numel() for p in self.model.parameters())
+        if tp:  # the whole model broadcast, then this rank keeps its shard
+            self._tp_specs = tp_lib.tp_param_specs(self.model)
+            # the plan over the LOCAL shard template, in the TP tree's leaf
+            # order: the exchange spans the data group only
+            whole, _ = jax_from_state_dict(model_name(self.model), self.model.state_dict())
+            template = tp_lib.local_param_template(tp_lib.to_tp_tree(whole), self._tp_specs,
+                                                   self.model_size)
+            sizes = tuple(leaf.size for _, leaf in tree_leaves(template))
+            full = list(self.model.parameters())
+            self.model = tp_lib.TensorParallelLM(self.model, self.mesh)
+            _rebind(optimizer, full, list(self.model.parameters()))
         self.weight_update_sharding = bool(weight_update_sharding)
         # what the step cores clip: under ZeRO-1 the wrapped optimizer's
         # step clips (and syncs, :attr:`_sync`)
         self._clip = self.clip_grad_norm
-        # the hook's plan: over the JAX package's leaf order (its buckets),
-        # or under ZeRO-1 over the flat layout (one whole-vector bucket)
-        sizes = tuple(p.numel() for p in self.model.parameters())
-        if self.comm_hook != "none" or hier:
+        if (self.comm_hook != "none" or hier) and not tp:
             sizes = jax_sizes(model_name(self.model), self.model)
         self._comm = self._order = self._residual = None
-        wus, world = self.weight_update_sharding, self.world_size
+        wus, world = self.weight_update_sharding, self.data_size
         if wus:
             spec = make_flat_param_spec(self.model, world)
             self.optimizer = ShardedUpdate(
@@ -303,10 +347,116 @@ class DistributedDataParallel:
         if self.guard.enabled:
             self.firewall = Firewall(self.device, self.residual)
             self.firewall.judged_in_sync = auto
+            if tp:  # the shards' verdicts differ: one MIN over the model group
+                self.firewall.agree_group = self.mesh.model_group
             arm_guard(self.optimizer, self.firewall)
             if self._overlap is not None:
                 self._overlap.staged = self.firewall.staged
-            audit_or_raise(self.model, where="ddp-wrap")
+            leaf = self.audit_replicas()
+            if leaf is not None:
+                raise ReplicaDesync(leaf, where="ddp-wrap")
+
+    def _validate_tp(self, model, optimizer, mode, comm_topology, weight_update_sharding,
+                     grad_accumulation, clip_grad_norm, augment, eval_transform, remat) -> None:
+        """The tensor-parallel refusal surface, in the JAX package's order
+        and with its texts (``tpuddp/parallel/ddp.py:263-322``): the JAX
+        wrap refuses more than one process, the port more than one host."""
+        tp_lib.validate_tp_geometry(model, self.model_size)
+        if mode != "shard_map":
+            raise ValueError(
+                "parallel.model > 1 needs the explicit per-replica step "
+                "(mode='shard_map'): the model-axis exchanges are written "
+                "over named mesh axes"
+            )
+        if (comm_topology or "flat") != "flat":
+            raise ValueError(
+                "parallel.model > 1 with comm_topology='hierarchical' is "
+                "refused: the factored ('host','local') data axis and the "
+                "model axis would need a 3-D mesh the comm hooks do not "
+                "express yet — pick one"
+            )
+        if weight_update_sharding:
+            raise ValueError(
+                "parallel.model > 1 with weight_update_sharding is refused: "
+                "the WUS flat layout spans the whole replicated parameter "
+                "vector, which a model-sharded state no longer has (the "
+                "ZeRO composition is ROADMAP item 2)"
+            )
+        if int(grad_accumulation) != 1:
+            raise ValueError(
+                "parallel.model > 1 with grad_accumulation > 1 is deferred; "
+                "scale the per-replica batch instead"
+            )
+        if clip_grad_norm is not None:
+            raise ValueError(
+                "parallel.model > 1 with clip_grad_norm is deferred: the "
+                "global norm of a model-sharded gradient needs a model-axis "
+                "reduction the clip path does not express yet"
+            )
+        if augment is not None or eval_transform is not None:
+            raise ValueError(
+                "parallel.model > 1 is a token-model path; image "
+                "augment/eval_transform hooks do not apply"
+            )
+        if remat:
+            raise ValueError("parallel.model > 1 with remat is deferred")
+        if type(optimizer).__name__ in ("LARS", "LAMB"):
+            raise ValueError(
+                "parallel.model > 1 with LARS/LAMB is deferred: per-layer "
+                "trust ratios over model-sharded leaves need model-axis "
+                "norm reductions; use adam/sgd/sgdw"
+            )
+        if (backend.num_hosts() or 1) > 1:
+            raise ValueError(
+                "parallel.model > 1 is single-controller only for now "
+                "(every shard must be addressable for placement and "
+                f"checkpoint gather): the {backend.num_hosts()} hosts of this "
+                "rendezvous must be one"
+            )
+
+    @property
+    def metrics_group(self):
+        """The group a step's metric sums and the desync audit reduce over:
+        the data group of a tensor-parallel wrap (model-axis neighbours hold
+        the same batch and shards that differ by design), else None, the
+        world."""
+        return None if self.mesh is None else self.mesh.data_group
+
+    def audit_replicas(self) -> Optional[str]:
+        """The desync audit (``tpuddp/parallel/ddp.py:723-736``): the JAX
+        path of the first parameter whose replicas differ, None when they
+        agree; a collective. Under tensor parallelism each rank's own shard
+        is compared across its data group and the finding agreed over its
+        model group, so every rank returns the same verdict."""
+        if self.mesh is None:
+            return guard_lib.audit_params(self.model)
+        return guard_lib.audit_params(self.model, self.mesh.data_group, self.mesh.model_group)
+
+    @property
+    def tp_rules_hash(self) -> Optional[str]:
+        """The TP rule table's hash (run_meta ``mesh.tp_rules_hash``); None
+        on a pure data-parallel wrap."""
+        return tp_lib.tp_rules_hash() if self.model_size > 1 else None
+
+    @property
+    def tp_param_specs(self) -> Optional[dict]:
+        """The TP-layout tree's specs (None on a pure data-parallel wrap)."""
+        return self._tp_specs
+
+    @property
+    def mesh_block(self) -> dict:
+        """The run_meta ``mesh`` block: ``{"data", "model",
+        "tp_rules_hash"}``."""
+        return dict(mesh2d_lib.describe(self.mesh, self.world_size),
+                    tp_rules_hash=self.tp_rules_hash)
+
+    def gather_params(self) -> dict:
+        """The whole model's ``state_dict`` (torch layout): the model's own,
+        or under tensor parallelism every model rank's shard joined (a
+        collective of the model group)."""
+        if self.model_size > 1:
+            return tp_lib.gather_params(self.model)
+        return {k: v.detach() for k, v in self.model.state_dict().items()}
 
     def _hierarchy(self, weight_update_sharding: bool):
         """The hierarchical split's groups, after the JAX package's checks
@@ -447,11 +597,12 @@ class DistributedDataParallel:
         return (self.comm_hook, self.topk_density, None if plan is None else plan.buckets)
 
     def _mean(self, flat: torch.Tensor) -> None:
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat.div_(self.world_size)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.metrics_group)
+        flat.div_(self.data_size)
 
     def sync_grads(self) -> None:
-        """The barrier step's sync: all-reduce mean of every gradient,
+        """The barrier step's sync: all-reduce mean of every gradient over
+        the data replicas (the world; a tensor-parallel rank's data group),
         through one flat buffer; with a comm hook its exchange (at world 1
         too); under ``hierarchical`` the three-hop exchange."""
         if self._comm is not None:
@@ -460,9 +611,9 @@ class DistributedDataParallel:
             lost = None if self.firewall is None else self.firewall.staged
             groups = None if self._hier is None else self._hier[:2]
             comm_sync(list(self.model.parameters()), self._comm, self._order, self._residual, lost,
-                      groups)
+                      groups, group=self.metrics_group)
             return
-        if self.world_size == 1:
+        if self.data_size == 1:
             return
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         collectives.flat_collective(grads, self._mean)
@@ -568,8 +719,11 @@ class DistributedDataParallel:
 
     def _group(self, kind: str, key: tuple, held: tuple, inputs, body):
         """``body(inputs)``: eagerly on the CPU (or with ``_graph_replay``
-        off), else one group of the CUDA-graph engine."""
-        if not (self._graph_replay and self.device.type == "cuda"):
+        off), else one group of the CUDA-graph engine. A tensor-parallel
+        wrap runs eagerly on the card too: its model-axis exchanges run over
+        Gloo where two ranks share a GPU, and a Gloo collective cannot be
+        captured in a CUDA graph."""
+        if not (self._graph_replay and self.device.type == "cuda") or self.model_size > 1:
             return body(inputs)
         if kind == "train":
             graphs.check_graph_safe(self.optimizer)
@@ -634,3 +788,19 @@ class DistributedDataParallel:
         key = (graphs.shapes(inputs), id(self.criterion), id(self.eval_transform),
                tuple(id(p) for p in params))
         return self._group("eval", key, (self.criterion, self.eval_transform, params), inputs, body)
+
+
+def _rebind(optimizer, old, new) -> None:
+    """Point ``optimizer`` at the parameters ``new`` in place of ``old``
+    (one for one, in order): its param groups and its per-parameter tables
+    (Adam's ``leaf_index`` and ``noise_base``). Its state must be empty: it
+    is built over the new parameters at their first step."""
+    if optimizer.state:
+        raise ValueError("a tensor-parallel wrap takes an optimizer with no state yet")
+    swap = {id(p): q for p, q in zip(old, new)}
+    for group in optimizer.param_groups:
+        group["params"] = [swap[id(p)] for p in group["params"]]
+    for attr in ("leaf_index", "noise_base"):
+        table = getattr(optimizer, attr, None)
+        if isinstance(table, dict):
+            setattr(optimizer, attr, {swap.get(id(p), p): v for p, v in table.items()})

@@ -184,15 +184,22 @@ class Firewall:
         self.staged = None if residual is None else torch.empty_like(residual)
         # mode auto: the sync judges the aggregated gradient before its hook
         self.judged_in_sync = False
+        # tensor parallelism: every verdict is agreed over the model group
+        # (its ranks judge different slices of the gradient;
+        # tpuddp/parallel/tensor.py:424-433)
+        self.agree_group = None
 
     def judge(self, tensors: Sequence[torch.Tensor], agree: bool = False) -> None:
         """The verdict of ``tensors`` (all finite: 1); with ``agree``, the
         MIN over the process group (a ZeRO-1 shard's verdict must be the
-        world's)."""
+        world's); with :attr:`agree_group` set, the MIN over that group."""
         ok = all_finite(tensors).to(torch.int32)
         if agree and get_world_size() > 1:
             ok = ok.reshape(1)
             dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        if self.agree_group is not None:
+            ok = ok.reshape(1)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.agree_group)
         self.verdict.copy_(ok.reshape(()))
 
     def keep(self, new: torch.Tensor, old: torch.Tensor) -> None:
@@ -259,22 +266,33 @@ def jax_leaf_names(model: torch.nn.Module):
 
 
 @torch.no_grad()
-def audit_params(model: torch.nn.Module) -> Optional[str]:
+def audit_params(model: torch.nn.Module, group=None, agree_group=None) -> Optional[str]:
     """Compare every replica's copy of ``model``'s parameters (a collective
     at world > 1): the JAX path of the first divergent or non-finite
     parameter, None when every fingerprint agrees and is finite. One
-    all-reduce MAX and one MIN of all fingerprints, one host fetch."""
+    all-reduce MAX and one MIN of all fingerprints, one host fetch. With
+    ``group`` (a tensor-parallel rank's data group) the replicas compared
+    are that group's: each rank's own shard against its data replicas',
+    never against its model-axis neighbours', which differ by design.
+    ``agree_group`` (the rank's model group) then ORs the groups' findings,
+    so every rank returns the one verdict of the JAX package's
+    single-controller audit (the shards have equal fingerprint counts)."""
     leaves = jax_leaf_names(model)
     if not leaves:
         return None
     fps = [_leaf_fingerprint(p) for _, p in leaves]
     hi = torch.cat(fps)
     lo = hi.clone()
-    if get_world_size() > 1:
-        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    size = get_world_size() if group is None else dist.get_world_size(group)
+    if size > 1:
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
     diff = hi - lo
-    bad = ((diff != 0) | ~torch.isfinite(diff)).cpu()
+    bad = (diff != 0) | ~torch.isfinite(diff)
+    if agree_group is not None and dist.get_world_size(agree_group) > 1:
+        bad = bad.to(torch.int32)
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=agree_group)
+    bad = bad.bool().cpu()
     offset = 0
     for (name, _), fp in zip(leaves, fps):
         if bool(bad[offset:offset + fp.numel()].any()):

@@ -26,8 +26,10 @@ and restarts it:
 
 ``model_size`` pins the child's tensor-parallel width (``$TPUDDP_MODEL_SIZE``)
 and makes the shrink mesh-aware, data axis first (:meth:`RestartSupervisor.
-_shrunk_mesh`), as the JAX supervisor's; the port's entry points refuse a
-width over 1 (ROADMAP.md "tensor parallel"). Every restart counts against
+_shrunk_mesh`), as the JAX supervisor's; the native entry point's child
+derives ``data = world / model`` from it and reshapes the checkpoint onto
+the new ``(data, model)`` shape under ``training.reshard_on_mismatch``
+(``training/reshard.py``). Every restart counts against
 ``max_restarts``; once it is spent the supervisor returns the child's last
 code, so the scheduler around it still sees the truth.
 

@@ -671,8 +671,16 @@ def main(argv=None):
     device = cfg_lib.device_from(settings)
     rendezvous = cfg_lib.rendezvous_from(settings)
     world_size, _ = resolve_world(cfg_lib.world_size_from(settings), device, **rendezvous)
-    cfg_lib.check_settings(settings, world_size)
+    parallel = cfg_lib.check_settings(settings, world_size)
     training = cfg_lib.training_config(settings)
+    # the managed path has no tensor-parallel step: a model axis is the JAX
+    # entry point's ValueError (train_accelerate.py:986-994)
+    if parallel["model"] > 1:
+        raise ValueError(
+            "parallel.model > 1 needs the explicit API (train_native.py / "
+            "DistributedDataParallel); the managed Accelerator path runs "
+            "pure data parallelism"
+        )
     out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
     return run_ddp_training(
         partial(basic_accelerate_training, training=training, device=device,

@@ -35,7 +35,11 @@ one ``epoch`` row per epoch (with the step-time percentiles and MFU),
 default: ``flightrec_<reason>.json`` on a drain, a watchdog exit, a desync
 or an exception), the ``/metrics`` exporter (``out_dir/exporter.port``),
 the hosts' telemetry shards and the straggler detector, and the span trees
-(``tracing: true``: ``out_dir/trace_train.json``).
+(``tracing: true``: ``out_dir/trace_train.json``). The top-level
+``parallel`` block (``model: M``, or ``$TPUDDP_MODEL_SIZE``) trains a
+transformer tensor-parallel over a ``(data, model)`` world of processes
+(``parallel/tensor.py``): ``rank = data_index * M + model_index``, the
+loaders split over the data indices only.
 
 Across hosts, one settings file with a ``local.rendezvous`` block
 (``coordinator_address``, ``num_processes`` = the hosts) serves every host;
@@ -127,13 +131,25 @@ def model_input_for(training: dict, train_loader):
 
 
 def build_training(rank: int, world_size: int, training: dict, device: str = "cuda",
-                   loaders: Optional[Callable] = None):
+                   loaders: Optional[Callable] = None, parallel: Optional[dict] = None):
     """Everything a rank trains with: seeds, loaders, transforms, model,
     optimizer and the DDP wrap. Returns ``(ddp, train_loader, test_loader,
     base_seed)``. ``loaders(rank, world_size)``, when given, makes the
     ``(train, test)`` loaders in place of ``training.dataset``'s (a token
-    model's stream: :func:`tpuddp_torch.data.tokens.token_loaders`)."""
+    model's stream: :func:`tpuddp_torch.data.tokens.token_loaders`).
+    ``parallel`` is the resolved ``parallel`` block
+    (:func:`~tpuddp_torch.config.resolve_parallel`'s; None: its defaults,
+    ``$TPUDDP_MODEL_SIZE`` applied): at ``model > 1`` the ranks
+    form the ``(data, model)`` world (``config.mesh_from``, a collective),
+    the loaders take ``(data_index, data_size)`` in place of ``(rank,
+    world_size)`` (model-axis neighbours get the same rows) and the wrap is
+    tensor-parallel."""
     cfg_lib.check_supported(training)
+    if parallel is None:
+        parallel = cfg_lib.resolve_parallel(None)
+    mesh = cfg_lib.mesh_from(parallel, world_size, str(training.get("comm_topology") or "flat"))
+    # the loaders' replica: the data index of the (data, model) world
+    replica, replicas = (rank, world_size) if mesh is None else (mesh.data_index, mesh.data)
     set_numerics()
     # the GPU the process group pinned (the local rank's, rank on one host)
     dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
@@ -145,15 +161,15 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         0 if mode == "auto" else rank, training.get("seed"))
 
     if loaders is not None:
-        train_loader, test_loader = loaders(rank, world_size)
+        train_loader, test_loader = loaders(replica, replicas)
     else:
         train_ds, test_ds = load_datasets_for(training)
         # the data order is shared across ranks and independent of the model seed
         train_loader = ShardedDataLoader(
-            train_ds, training["train_batch_size"], rank, world_size, shuffle=True
+            train_ds, training["train_batch_size"], replica, replicas, shuffle=True
         )
         test_loader = ShardedDataLoader(
-            test_ds, training["test_batch_size"], rank, world_size, shuffle=True
+            test_ds, training["test_batch_size"], replica, replicas, shuffle=True
         )
     input_shape = model_input_for(training, train_loader)[0][1:]
     pipeline = resolve_pipeline(training.get("pipeline"))
@@ -207,6 +223,8 @@ def build_training(rank: int, world_size: int, training: dict, device: str = "cu
         remat=bool(training.get("remat", False)),
         # shard_map (the per-replica step) or auto (the global batch's step)
         mode=mode,
+        # the (data, model) world of tensor parallelism (None: the flat one)
+        mesh=mesh,
     )
     if ddp.hierarchy is not None:
         hosts, local = ddp.hierarchy
@@ -224,12 +242,13 @@ def basic_ddp_training_loop(
     device: str = "cuda",
     observability: Optional[dict] = None,
     loaders: Optional[Callable] = None,
+    parallel: Optional[dict] = None,
 ):
     """Per-process worker (reference ``basic_DDP_training_loop``,
     multi-GPU-training-torch.py:228-266); the process group is already up.
     ``observability`` is the settings file's resolved block (the live
-    plane; None: its defaults); ``loaders`` as :func:`build_training` takes
-    it. Returns the epoch history.
+    plane; None: its defaults); ``loaders`` and ``parallel`` as
+    :func:`build_training` takes them. Returns the epoch history.
 
     A token job runs as the JAX package runs one (``tools/bench_mesh.py:
     108-135``): ``run_ddp_training`` -> this worker with a ``transformer*``
@@ -239,7 +258,7 @@ def basic_ddp_training_loop(
     print(f"Running DDP training on process {rank} ({world_size}-{unit} world).")
     training = dict(training or cfg_lib.TRAINING_DEFAULTS)
     ddp, train_loader, test_loader, base_seed = build_training(
-        rank, world_size, training, device, loaders
+        rank, world_size, training, device, loaders, parallel
     )
     return run_training_loop(
         ddp,
@@ -272,6 +291,8 @@ def basic_ddp_training_loop(
         # the live plane (train_native.py:213, :252): flight recorder,
         # exporter, pod shards, tracing
         observability=observability,
+        # a checkpoint of another (data, model) shape reshaped on load
+        reshard_on_mismatch=bool(training.get("reshard_on_mismatch")),
     )
 
 
@@ -291,12 +312,12 @@ def main(argv=None):
     device = cfg_lib.device_from(settings)
     rendezvous = cfg_lib.rendezvous_from(settings)
     world_size, _ = resolve_world(cfg_lib.world_size_from(settings), device, **rendezvous)
-    cfg_lib.check_settings(settings, world_size)
+    parallel = cfg_lib.check_settings(settings, world_size)
     training = cfg_lib.training_config(settings)
     out_dir = cfg_lib.prepare_out_dir(settings, args.settings_file)
     return run_ddp_training(
         partial(basic_ddp_training_loop, training=training, device=device,
-                observability=cfg_lib.observability_config(settings)),
+                observability=cfg_lib.observability_config(settings), parallel=parallel),
         world_size,
         out_dir,
         cfg_lib.optional_args_from(settings),

@@ -106,10 +106,7 @@ JAX package's manifest format; every rank waits at a barrier.
 one is skipped for the one before) as process 0 finds it, on every process
 (:func:`agreed_latest`): the hosts of a multi-host run resume from one file
 or none, and a process that cannot open it raises on every process, so
-``out_dir`` must be one filesystem that every host sees. A file that needs a part of the JAX
-package the port lacks (a model axis) is refused with ``NotImplementedError``
-naming its ROADMAP item, never loaded in part, whatever
-``training.reshard_on_mismatch`` says. Publishing a checkpoint is a
+``out_dir`` must be one filesystem that every host sees. Publishing a checkpoint is a
 ``$TPUDDP_FAULT`` site (``corrupt@ckpt_N``, in :func:`write_captured`, the
 snapshot writer's writer too).
 
@@ -129,6 +126,23 @@ snapshot engine (``training/snapshot.py``) copies the capture's tensors on
 the device and writes from its own thread through the same function, and
 :func:`_savez` fixes every zip entry's time, so the same state gives the
 same bytes either way. Files of both packages cross both ways.
+
+Model-sharded files (``parallel.model > 1``, format v3/v4;
+``tpuddp/training/checkpoint.py:196-300, :540-600``): the save gathers
+every split parameter and moment over the model group and rank 0 writes
+the whole arrays in the JAX TP layout (``wqkv (E, 3, HD)``, ``bqkv (3,
+HD)``; a ``model == 1`` file keeps ``(E, 3HD)``); the residual is one
+``per_replica`` row a rank, in rank order (``(data_index, model_index)``,
+model minor), tagged with the model width; the topology record holds
+``model_size``, ``mesh_axes`` ``["data", "model"]``, ``mesh_shape`` and the
+``placement`` of every split leaf by its JAX path. The restore cuts each
+rank's shard out of the whole arrays. A file of another model width is the
+JAX package's :class:`TopologyMismatch` (``_check_model_width``), and so is
+a model > 1 residual at another data width; with ``reshard_on_mismatch``
+the payload is first reshaped onto this ``(data, model)`` shape by
+:func:`tpuddp_torch.training.reshard.reshard_arrays` (a model-width change
+drops the residual, which restarts at zero), as the JAX loader does. A
+``model == 1`` restore at another world keeps the data-axis refit above.
 """
 
 from __future__ import annotations
@@ -155,6 +169,7 @@ from tpuddp_torch.parallel.backend import get_rank, get_world_size
 from tpuddp_torch.parallel import collectives
 from tpuddp_torch.parallel.comm import redistribute_residual
 from tpuddp_torch.resilience import faults
+from tpuddp_torch.training import reshard
 # the heartbeat directory is the watchdog's (peer spills live under it too)
 from tpuddp_torch.resilience.watchdog import heartbeat_dir
 # re-exported: the parser moved to the drain's module
@@ -686,7 +701,33 @@ def capture(model: torch.nn.Module, optimizer, *, layout: str = NATIVE, seed: in
         tensors.update((f"residual/{i}", r) for i, r in enumerate(comm_state))
     if skipped is not None:
         tensors.update((f"skip/{k}", skipped[k]) for k in _SKIP_KEYS)
+    shard = _shard(model)
+    if shard is not None:  # every rank of a model group gathers its split leaves
+        _gather_whole(tensors, shard)
+        host["tp"] = shard.mesh.shape
+        model = shard.whole_meta()
     return Captured(layout, model, optimizer, tensors, host)
+
+
+def _shard(model: torch.nn.Module):
+    """``model`` when it is a tensor-parallel shard, whose hooks
+    (``gather_whole``, ``whole_meta``, ``cut``: ``parallel/tensor.py``'s
+    ``TensorParallelLM``) save it as the whole model and restore its own
+    part; else None."""
+    return model if hasattr(model, "gather_whole") else None
+
+
+def _gather_whole(tensors: dict, shard) -> None:
+    """The captured state_dict and moments of a shard replaced by the whole
+    tensors, in place (a collective of the model group, in one order on
+    every rank)."""
+    sd = {k[3:]: v for k, v in tensors.items() if k.startswith("sd/")}
+    tensors.update((f"sd/{k}", v) for k, v in shard.gather_whole(sd).items())
+    slots = sorted({k.rsplit("/", 1)[1] for k in tensors if k.startswith("opt/")})
+    for slot in slots:
+        named = {k[4:-len(slot) - 1]: v for k, v in tensors.items()
+                 if k.startswith("opt/") and k.endswith("/" + slot)}
+        tensors.update((f"opt/{n}/{slot}", v) for n, v in shard.gather_whole(named).items())
 
 
 def captured_payload(cap: Captured) -> Dict[str, np.ndarray]:
@@ -710,7 +751,7 @@ def captured_payload(cap: Captured) -> Dict[str, np.ndarray]:
         payload[f"{_PRNG}['rng_key']"], payload[f"{_PRNG}['bwd_key']"] = host["keys"]
         payload["['bwd_counter']"] = np.asarray(host["counter"], np.int64)
     payload[RNG_KEY] = np.asarray(json.dumps(host["rng"]))
-    return payload
+    return reshard.qkv_layout(payload, True) if "tp" in host else payload
 
 
 def write_captured(save_dir: str, epoch: int, cap: Captured, *, completed: bool = True,
@@ -731,11 +772,15 @@ def write_captured(save_dir: str, epoch: int, cap: Captured, *, completed: bool 
     else:
         target = step_checkpoint_path(save_dir, epoch, snapshot_step, prefix)
         meta = {"epoch": epoch, "completed": 0, "step": int(snapshot_step)}
-    path = write(target, captured_payload(cap), meta=meta,
-                 topology=topology_record(cap.host["world_size"], cap.host["flat_keys"],
-                                          cap.host["residual_per"],
-                                          cap.host.get("residual_flat", False)),
-                 cursor=cursor, cursor_acc=cursor_acc)
+    payload = captured_payload(cap)
+    if "tp" in cap.host:
+        topology = reshard.tp_topology(cap.host["world_size"], cap.host["tp"][1], payload,
+                                       cap.host["residual_per"])
+    else:
+        topology = topology_record(cap.host["world_size"], cap.host["flat_keys"],
+                                   cap.host["residual_per"], cap.host.get("residual_flat", False))
+    path = write(target, payload, meta=meta, topology=topology, cursor=cursor,
+                 cursor_acc=cursor_acc)
     # $TPUDDP_FAULT corrupt@ckpt_N tears the file just published (its manifest
     # then stale), which the restore must detect and skip
     faults.maybe_fire("ckpt", name=os.path.basename(target)[:-len(".npz")], path=path)
@@ -814,16 +859,57 @@ def topology_model_size(topo: Optional[dict]) -> int:
     return 1
 
 
-def _refuse_unported(path: str, stored: dict) -> None:
-    """``NotImplementedError`` for contents the port cannot restore whole:
-    a file of a model axis, whatever ``training.reshard_on_mismatch`` says
-    (the JAX package reshapes it with ``tpuddp/training/reshard.py``)."""
-    model = topology_model_size(_topology(stored))
-    if model > 1:
-        raise NotImplementedError(
-            f"checkpoint {path} holds a model={model} mesh, which tpuddp_torch cannot restore "
-            "yet (ROADMAP.md Queue 1 item 8: tensor parallel)"
+def _check_model_width(path: str, topo: Optional[dict], model_size) -> None:
+    """The cross-``model``-width refusal (``tpuddp/training/checkpoint.py:
+    269-296``): a file of one tensor-parallel width restored under another,
+    or a file without a topology record onto a model axis, is a
+    :class:`TopologyMismatch` with the JAX package's text."""
+    cur = 1 if model_size is None else int(model_size)
+    if topo is None:
+        if cur > 1:
+            raise TopologyMismatch(
+                f"checkpoint {path} predates the topology record (format v1) "
+                f"and cannot be restored onto a model={cur} tensor-parallel "
+                "mesh: it carries no shard provenance, so even the reshaper "
+                "refuses it. Resume it on a pure-DP world (model=1) or "
+                "re-save it through save_on_main (format v3) first."
+            )
+        return
+    saved = topology_model_size(topo)
+    if saved != cur:
+        raise TopologyMismatch(
+            f"checkpoint {path} was written on a model={saved} mesh but the "
+            f"current run is model={cur}. Cross-topology restore is opt-in: "
+            "set training.reshard_on_mismatch=true to reshard on load, or "
+            "reshape the file offline with `tpuddp_inspect reshard "
+            f"--to data=D,model={cur}` (README '2-D mesh' documents which "
+            "reshapes are exact and which reset the comm residual)."
         )
+
+
+def _reshard_if_asked(path: str, stored: dict, model_size: int, reshard_on_mismatch: bool,
+                      actions: Optional[List[dict]]) -> dict:
+    """``stored`` reshaped onto this run's ``(data, model)`` shape when
+    ``reshard_on_mismatch`` asks and the file's shape needs it: another
+    model width, or another data width at model > 1
+    (``tpuddp/training/checkpoint.py:554-587``); the reshaper's actions go
+    to ``actions``. A model == 1 change of world keeps the loader's own
+    refit."""
+    topo = _topology(stored)
+    world = get_world_size()
+    if not reshard_on_mismatch or topo is None:
+        return stored
+    saved_model, saved_world = topology_model_size(topo), int(topo.get("world_size") or 0)
+    if saved_model == model_size and not (model_size > 1 and saved_world and saved_world != world):
+        return stored
+    stored, _topo, racts = reshard.reshard_arrays(stored, data=world // model_size,
+                                                  model=model_size, path=path)
+    logger.warning(
+        "elastic reshard: checkpoint %s re-shaped in-memory onto (data=%d, model=%d) before "
+        "load (%d leaf action(s))", path, world // model_size, model_size, len(racts))
+    if actions is not None:
+        actions.extend(racts)
+    return stored
 
 
 def _v1_mismatch(path: str, key: str, shape, t_shape) -> TopologyMismatch:
@@ -891,6 +977,16 @@ def fit_residual(path: str, stored: np.ndarray, topo: Optional[dict], target_len
         return _refit_flat(path, key, stored, t_shape[0], actions)
     if info["kind"] != "per_replica":
         raise TopologyMismatch(f"checkpoint {path}: leaf {key!r} has unknown shard tag {info!r}")
+    if int(info.get("model", 1) or 1) > 1:
+        # (data_index, model_index) slices: the reshaper redistributes them
+        # per model column; the loader's own refit does not
+        raise TopologyMismatch(
+            f"checkpoint {path}: per-replica leaf {key!r} was written on "
+            f"a model={info['model']} mesh under a different data width; "
+            "set training.reshard_on_mismatch=true (or reshape offline "
+            "with `tpuddp_inspect reshard`) to redistribute it, or "
+            "resume on the same (data, model) grid"
+        )
     if world_size is None:
         raise TopologyMismatch(
             f"checkpoint {path}: per-replica leaf {key!r} (saved on a "
@@ -978,12 +1074,19 @@ def build_reshard_events(path: str, epoch: int, topo: Optional[dict],
     return events
 
 
-def resumed_from(events: List[dict]) -> Dict[str, Any]:
-    """The run header's field of an elastic restore's rows: its
+def resumed_from(events: List[dict], with_model: bool = False) -> Dict[str, Any]:
+    """The run header's fields of an elastic restore's rows: its
     ``topology_change``'s world as ``resumed_from_world`` (empty without
-    one), as the JAX loops stamp it."""
+    one), as the JAX loops stamp it; with ``with_model`` (the native loop,
+    ``tpuddp/training/loop.py:435-443``) its model width as
+    ``resumed_from_model`` too, where it has one."""
     change = next((ev for ev in events if ev["event"] == "topology_change"), None)
-    return {} if change is None else {"resumed_from_world": change["from_world"]}
+    if change is None:
+        return {}
+    out = {"resumed_from_world": change["from_world"]}
+    if with_model and change.get("from_model") is not None:
+        out["resumed_from_model"] = change["from_model"]
+    return out
 
 
 def _stored(path: str, stored: dict, key: str, dtype, bf16: bool = False) -> np.ndarray:
@@ -1084,8 +1187,9 @@ def _restore_flat_opt(path, stored, layout, name, model, optimizer, actions=None
 
 
 def _restore_opt(path, stored, layout, name, model, optimizer, params_like,
-                 actions=None) -> None:
-    """Put the file's optimizer state into ``optimizer``."""
+                 actions=None, cut=None) -> None:
+    """Put the file's optimizer state into ``optimizer``; ``cut`` makes a
+    shard's moments of the whole ones (a tensor-parallel restore)."""
     slots, counted = _opt_slots(optimizer)
     opt = _field(layout, "opt_state")
     held = _file_slots(stored, opt)
@@ -1104,6 +1208,8 @@ def _restore_opt(path, stored, layout, name, model, optimizer, params_like,
     step = int(_leaf(path, stored, f"{opt}.step", np.zeros((), np.int32))) if counted else None
     trees = {slot: torch_layout(name, _read_tree(path, stored, f"{opt}.{slot}", params_like, bf16))
              for slot in slots}
+    if cut is not None:
+        trees = {slot: cut(tree) for slot, tree in trees.items()}
 
     def tensor(arr, p):
         t = torch.from_numpy(np.ascontiguousarray(arr))
@@ -1165,17 +1271,29 @@ def _restore_residual(path, stored, layout, name, model, optimizer, params_like,
 def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
              generator: Optional[torch.Generator] = None, comm_state=None,
              skipped=None, actions: Optional[List[dict]] = None,
-             residual_replicated: bool = False) -> Dict[str, Any]:
+             residual_replicated: bool = False,
+             reshard_on_mismatch: bool = False) -> Dict[str, Any]:
     with np.load(path) as data:
         stored = dict(data.items())
-    _refuse_unported(path, stored)
+    shard = _shard(model)
+    model_size = 1 if shard is None else shard.mesh.model
+    stored = _reshard_if_asked(path, stored, model_size, reshard_on_mismatch, actions)
+    _check_model_width(path, _topology(stored), model_size)
     name = model_name(model)
-    params_like, mstate_like = jax_from_state_dict(name, model.state_dict())
+    cut = None
+    template = model.state_dict()
+    if shard is not None:  # the whole arrays, canonical layout; each rank cuts its shard
+        stored = reshard.qkv_layout(stored, False)
+        template = {k: np.zeros(tuple(v.shape), np.float32)
+                    for k, v in shard.whole_meta().state_dict().items()}
+        cut = shard.cut
+    params_like, mstate_like = jax_from_state_dict(name, template)
     params = _read_tree(path, stored, _field(layout, "params"), params_like)
     mstate = _read_tree(path, stored, _field(layout, "model_state"), mstate_like)
-    model.load_state_dict(state_dict_from_jax(name, params, mstate))
+    sd = state_dict_from_jax(name, params, mstate)
+    model.load_state_dict(sd if cut is None else cut(sd))
     if optimizer is not None:
-        _restore_opt(path, stored, layout, name, model, optimizer, params_like, actions)
+        _restore_opt(path, stored, layout, name, model, optimizer, params_like, actions, cut)
         optim.count_from_state(optimizer)
     if comm_state is not None:
         _restore_residual(path, stored, layout, name, model, optimizer, params_like, comm_state,
@@ -1196,17 +1314,20 @@ def _restore(path: str, layout: str, model: torch.nn.Module, optimizer=None,
 
 def load(path: str, model: torch.nn.Module, optimizer=None, *, layout: str = NATIVE,
          generator: Optional[torch.Generator] = None, comm_state=None,
-         skipped=None, residual_replicated: bool = False) -> Dict[str, Any]:
+         skipped=None, residual_replicated: bool = False,
+         reshard_on_mismatch: bool = False) -> Dict[str, Any]:
     """Restore ``model`` (and ``optimizer``'s state, the comm hook's
     residual ``comm_state`` and the guard's counters ``skipped`` in place,
     and the random streams) from the intact file ``path`` in ``layout``;
     returns its ``__meta__`` scalars, and a native file's ``.step`` as
     ``step`` or a managed file's ``bwd_counter``, ``rng_key`` and
-    ``bwd_key``."""
+    ``bwd_key``. A file of another model width is a :class:`TopologyMismatch`
+    unless ``reshard_on_mismatch`` reshapes it (the module doc)."""
     if not verify_file(path):
         raise ValueError(f"checkpoint {path} does not match its sha256 manifest")
     return _restore(path, layout, model, optimizer, generator, comm_state, skipped,
-                    residual_replicated=residual_replicated)
+                    residual_replicated=residual_replicated,
+                    reshard_on_mismatch=reshard_on_mismatch)
 
 
 # ---------------------------------------------------------- files of a run --
@@ -1357,7 +1478,8 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
                    cursor_out: Optional[List[dict]] = None,
                    reshard_log: Optional[List[dict]] = None,
                    model_size: Optional[int] = None,
-                   residual_replicated: bool = False) -> Tuple[int, Dict[str, Any]]:
+                   residual_replicated: bool = False,
+                   reshard_on_mismatch: bool = False) -> Tuple[int, Dict[str, Any]]:
     """Restore the freshest intact file of ``layout`` across ``save_dir``,
     the peer spills and the epoch family; returns ``(next_epoch, meta)``:
     the epoch to train next (0 when there is no file; a step snapshot's own
@@ -1371,7 +1493,10 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
     A file written at another world size is refitted onto this one (the
     module doc); ``reshard_log`` receives :func:`build_reshard_events`' rows
     (``model_size`` is their ``to_model``), and a step snapshot's cursor
-    then carries no plan key, so the caller redoes that epoch."""
+    then carries no plan key, so the caller redoes that epoch. A file of
+    another ``(data, model)`` shape is reshaped first under
+    ``reshard_on_mismatch``, else refused where the loader cannot fit it
+    (:class:`TopologyMismatch`)."""
     prefix = PREFIX[layout]
     sweep_stale_tmp(save_dir, prefix)
     found = _agreed(save_dir, prefix, next(model.parameters()).device)
@@ -1386,7 +1511,7 @@ def restore_latest(save_dir: str, model: torch.nn.Module, optimizer=None, *,
         )
     actions: List[dict] = []
     meta = _restore(path, layout, model, optimizer, generator, comm_state, skipped, actions,
-                    residual_replicated)
+                    residual_replicated, reshard_on_mismatch)
     if reshard_log is not None:
         reshard_log.extend(build_reshard_events(path, epoch, read_topology(path),
                                                 get_world_size(), actions, model_size))

@@ -109,7 +109,15 @@ The elastic resume (``tpuddp/training/loop.py:321-395, :435-441, :493,
 one by ``checkpoint.restore_latest`` (the error-feedback residual
 redistributed, ZeRO-1's moments re-padded), whose ``topology_change`` and
 ``comm_state_reset`` rows follow the run's header (which then carries
-``resumed_from_world``) or the guard's ``rollback`` row.
+``resumed_from_world`` and ``resumed_from_model``) or the guard's
+``rollback`` row. With ``reshard_on_mismatch`` a file of another ``(data,
+model)`` shape is reshaped on load (``training/reshard.py``).
+
+Tensor parallelism (a wrap with ``model_size > 1``): the metric sums and
+the per-replica lines are the data group's (each data replica's, as the
+JAX package's per-replica metrics; model-axis neighbours hold the same
+batch), the header's ``mesh`` block is the wrap's, and step snapshots are
+refused (ROADMAP.md Queue 1 item 8: tensor parallel, part 2).
 """
 
 from __future__ import annotations
@@ -262,11 +270,15 @@ def _count(v: float):
     return int(v) if math.isfinite(v) else v
 
 
-def _per_replica_lines(sums: torch.Tensor, world_size: int, log) -> None:
-    """The reference's per-replica loss lines (:186-191), on process 0."""
+def _per_replica_lines(sums: torch.Tensor, world_size: int, log, group=None) -> None:
+    """The reference's per-replica loss lines (:186-191), on process 0; the
+    replicas are ``group``'s (a tensor-parallel rank's data group) when
+    given."""
+    if group is not None:
+        world_size = dist.get_world_size(group)
     if dist.is_initialized() and world_size > 1:
         parts = [torch.empty_like(sums) for _ in range(world_size)]
-        dist.all_gather(parts, sums)
+        dist.all_gather(parts, sums, group=group)
     else:
         parts = [sums]
     if dist.is_initialized() and dist.get_rank() != 0:
@@ -533,6 +545,7 @@ def run_training_loop(
     model_input: Optional[tuple] = None,
     snapshot=None,
     observability=None,
+    reshard_on_mismatch: bool = False,
     log=print,
 ):
     """Run the epochs from the first not yet done (0 unless resumed) to
@@ -542,8 +555,12 @@ def run_training_loop(
     takes it, which the telemetry counts an update's FLOPs on (MFU is
     null without it); ``snapshot`` the ``training.snapshot`` block;
     ``observability`` the settings file's ``observability`` block (the
-    live plane, :func:`tpuddp_torch.config.resolve_observability`)."""
+    live plane, :func:`tpuddp_torch.config.resolve_observability`);
+    ``reshard_on_mismatch`` the ``training`` knob (a resume reshapes a
+    checkpoint of another ``(data, model)`` shape)."""
     rank, world_size, device = ddp.rank, ddp.world_size, ddp.device
+    model_size = int(getattr(ddp, "model_size", 1) or 1)
+    metrics_group = getattr(ddp, "metrics_group", None)
     accum = int(getattr(ddp, "grad_accumulation", 1) or 1)
     pipeline = pipeline_lib.resolve_pipeline(pipeline)
     param_bytes = sum(p.numel() * p.element_size() for p in ddp.model.parameters())
@@ -586,6 +603,10 @@ def run_training_loop(
     # dispatches, a background writer; pending["c"] carries a restored v4
     # cursor to the epoch it continues (tpuddp/training/loop.py:303-359)
     snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
+    if snap_cfg.enabled and model_size > 1:
+        raise NotImplementedError(
+            "training.snapshot of a parallel.model > 1 job is not implemented in tpuddp_torch "
+            "yet (ROADMAP.md Queue 1 item 8: tensor parallel, part 2)")
     snap_engine = None
     if snap_cfg.enabled and save_dir is not None:
         snap_engine = snapshot_lib.SnapshotEngine(
@@ -613,7 +634,8 @@ def run_training_loop(
             start_epoch, meta = ckpt.restore_latest(
                 save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
                 comm_state=residual, skipped=counters, cursor_out=cursors,
-                reshard_log=reshard_log, model_size=1, residual_replicated=replicated,
+                reshard_log=reshard_log, model_size=model_size, residual_replicated=replicated,
+                reshard_on_mismatch=reshard_on_mismatch,
             )
             pending["c"] = cursors[-1] if cursors else None
             ddp.step = meta.get("step", ddp.step)
@@ -672,6 +694,7 @@ def run_training_loop(
         process_index=rank // (world_size // (backend.num_hosts() or 1)),
         device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else None,
         hierarchy=getattr(ddp, "hierarchy", None),
+        mesh=getattr(ddp, "mesh_block", None),
         comm_hook=getattr(ddp, "comm_hook", "none"),
         comm_topology=getattr(ddp, "comm_topology", "flat"),
         guard=guard,
@@ -693,7 +716,8 @@ def run_training_loop(
             "grad_comm_bytes_inter_host": getattr(ddp, "grad_comm_bytes_inter_host", None),
             "grad_comm_bytes_intra_host": getattr(ddp, "grad_comm_bytes_intra_host", None),
             **(run_meta or {}),
-            **ckpt.resumed_from(reshard_log),  # a run continued from another world
+            # a run continued from another world (and model width)
+            **ckpt.resumed_from(reshard_log, with_model=True),
         },
     ))
     for ev in reshard_log:
@@ -726,7 +750,8 @@ def run_training_loop(
         redo, meta = ckpt.restore_latest(
             save_dir, ddp.model, ddp.optimizer, generator=ddp.generator,
             comm_state=residual, skipped=ddp.firewall.counters, cursor_out=cursors,
-            reshard_log=reshard, model_size=1, residual_replicated=replicated,
+            reshard_log=reshard, model_size=model_size, residual_replicated=replicated,
+            reshard_on_mismatch=reshard_on_mismatch,
         )
         pending["c"] = cursors[-1] if cursors else None
         resume_step = pending["c"]["step"] if cursors else None
@@ -800,7 +825,7 @@ def run_training_loop(
                 emergency_stop(epoch)
             if guard.enabled and guard.audit_every_n_epochs and \
                     (epoch - start_epoch) % guard.audit_every_n_epochs == 0:
-                bad_leaf = guard_lib.audit_params(ddp.model)
+                bad_leaf = ddp.audit_replicas()  # a TP shard against its data replicas'
                 if bad_leaf is not None:
                     writer.write(event("desync", epoch=epoch, leaf=bad_leaf))
                     if guard.on_desync == "rollback" and can_roll_back():
@@ -948,10 +973,12 @@ def run_training_loop(
             col.barrier()
 
             if per_replica_log and not eval_cut:
-                _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log)
+                _per_replica_lines(torch.cat([train_sums, eval_sums]), world_size, log,
+                                   metrics_group)
             rsp = tracer.start_span("readback", trace_lib.KIND_READBACK, parent=epoch_span,
                                     attrs={"pending": eval_dispatches})
-            sums = finalize_metrics(train_sums, eval_sums)  # the epoch's one read of its sums
+            # the epoch's one read of its sums
+            sums = finalize_metrics(train_sums, eval_sums, metrics_group)
             tracer.end_span(rsp)
             tel.stop_epoch_trace()  # the first-epoch and SIGUSR1 traces hold the eval pass
             train_m, eval_m = sums["train"], sums["eval"]

@@ -210,7 +210,7 @@ def grad_core(
 
 @torch.no_grad()
 def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[torch.Tensor],
-              lost: Optional[torch.Tensor] = None, groups=None) -> None:
+              lost: Optional[torch.Tensor] = None, groups=None, group=None) -> None:
     """The hooked gradient exchange: each parameter's ``.grad`` (None counts
     as zeros) flattened into one vector in the JAX order (``order``, a
     :class:`~tpuddp_torch.models.convert.JaxFlatOrder`) and zero-padded to
@@ -219,14 +219,15 @@ def comm_sync(params: Sequence[torch.Tensor], comm, order, residual: Optional[to
     view of the mean, in the port's order. With ``groups = (local_group,
     host_group)`` (``comm_topology: hierarchical``) the exchange is
     ``comm.reduce_hierarchical`` over them instead, the JAX package's
-    ``tpuddp/training/step.py:379-384``."""
+    ``tpuddp/training/step.py:379-384``. ``group`` is the flat exchange's
+    (a tensor-parallel rank's data group; the world when None)."""
     port = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in params])
     g_vec = order.to_jax(port)
     if comm.total > order.raw:
         g_vec = torch.cat([g_vec, g_vec.new_zeros(comm.total - order.raw)])
     if groups is None:
-        reduced, _ = comm.reduce(g_vec, residual, lost)
+        reduced, _ = comm.reduce(g_vec, residual, lost, group)
     else:
         reduced, _ = comm.reduce_hierarchical(g_vec, residual, *groups, lost)
     flat, offset = order.from_jax(reduced), 0
@@ -563,12 +564,15 @@ def eval_many(model, criterion, transform: Optional[Callable], sums: torch.Tenso
     return sums
 
 
-def finalize_metrics(train_sums: torch.Tensor, eval_sums: torch.Tensor) -> Dict[str, Dict[str, float]]:
+def finalize_metrics(train_sums: torch.Tensor, eval_sums: torch.Tensor,
+                     group=None) -> Dict[str, Dict[str, float]]:
     """Epoch-end aggregation: ONE all-reduce (SUM) of the stacked epoch sums
-    over the process group, then one host read."""
+    over the process group (``group``: a tensor-parallel rank's data group,
+    whose replicas' sums are the JAX package's per-data-replica metrics),
+    then one host read."""
     stacked = torch.cat([train_sums, eval_sums])
     if dist.is_initialized():
-        dist.all_reduce(stacked, op=dist.ReduceOp.SUM)
+        dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=group)
     values = stacked.tolist()
     return {
         "train": dict(zip(TRAIN_KEYS, values[: len(TRAIN_KEYS)])),
