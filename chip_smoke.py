@@ -505,6 +505,32 @@ Phases, each printing one line (the first failure exits non-zero):
      parameters, 2 tables) against its plain version, timed beside its
      bound and ``torch.optim.Adam(fused=True)``, each with the card's name
      and power limit.
+26. serving (:mod:`tpuddp_torch.serving`), from
+   ``tpuddp_torch/configs/cifar10_alexnet_serving_h100.yaml``'s ``serving``
+   block and its ``decode`` sub-block, the Adam kernels' counts set to 0
+   just before each engine's traffic and read just after (0: serving runs
+   no optimizer):
+   - "26 serving": the request engine over AlexNet@224 (10 classes) on
+     cuda:0, restored through the integrity path from a native checkpoint
+     of a seeded init that this phase saves; 64 seeded requests of 1-4 rows
+     from 2 tenants at once: every request's logits bitwise a direct
+     forward of its padded batch on the card, 4 within 1e-4 of the CPU
+     forward, no rejects; images/s, e2e latency p50 and p99, batch
+     occupancy;
+   - "26 decode": the decode engine over transformer_small at full width (8
+     slots, 129 blocks of 16, 64 greedy tokens); 32 seeded prompts of
+     1-192 tokens from 4 tenants at once: 4 streams re-run alone bitwise,
+     2 those of repeated full forwards on the card, one graph capture and
+     then replays only; two replicas on ``[cuda:0, cuda:0]`` under
+     ``$TPUDDP_FAULT=replica_kill@step=40``: every stream bitwise the
+     undisturbed run, with ``session_failover`` events; ``pool_poison``:
+     rebuilt, captured again, bitwise, and a poisoned replica's next
+     dispatch raises; tokens/s, TTFT and ITL p50 and p99, peak KV
+     occupancy, a step replayed against eager;
+   - "26 entry": ``python -m tpuddp_torch.serving --decode --demo 16
+     --serve 30`` on that file, SIGTERM once the demo is submitted: exit
+     75, the last line the JSON summary with all 16 sequences finished,
+     ``history.jsonl`` valid.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -516,7 +542,7 @@ update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
 phase 21's, one with phase 22's, one with phase 23's, one with phase 24's, one with
-phase 25's, one with the optimizers', one
+phase 25's, one with phase 26's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -561,6 +587,7 @@ from tpuddp_torch.models.convert import (  # noqa: E402
 )
 from tpuddp_torch.models.pretrained import pretrained_from_config  # noqa: E402
 from tpuddp_torch.observability import aggregate as aggregate_lib  # noqa: E402
+from tpuddp_torch.observability import schema  # noqa: E402
 from tpuddp_torch.observability.recorder import count_step_flops, device_peak_flops  # noqa: E402
 from tpuddp_torch.nn import CrossEntropyLoss  # noqa: E402
 from tpuddp_torch.nn.norm import BatchNorm, convert_sync_batchnorm  # noqa: E402
@@ -572,6 +599,9 @@ from tpuddp_torch.parallel.ddp import DistributedDataParallel  # noqa: E402
 from tpuddp_torch.parallel.spawn import run_ddp_training  # noqa: E402
 from tpuddp_torch.resilience import faults, preemption  # noqa: E402
 from tpuddp_torch.resilience import guard as guard_lib  # noqa: E402
+from tpuddp_torch.serving import ServingEngine  # noqa: E402  (sets $CUBLAS_WORKSPACE_CONFIG)
+from tpuddp_torch.serving.decode import DecodeEngine  # noqa: E402
+from tpuddp_torch.serving.replica import seeded_model  # noqa: E402
 from tpuddp_torch.train_accelerate import basic_accelerate_training  # noqa: E402
 from tpuddp_torch.train_accelerate import build_training as managed_build  # noqa: E402
 from tpuddp_torch.train_accelerate import train as managed_train  # noqa: E402
@@ -6255,6 +6285,353 @@ class _Mesh25:
     model, data, model_index, data_index = TP25_MODEL, 1, 0, 0
 
 
+# ---------------------------------------------------------------- phase 26 --
+# serving: the request engine over AlexNet (the tutorial's model, 224 px, 10
+# classes) restored from a native checkpoint, and the decode engine over
+# transformer_small at full width, both from the port's serving settings
+# file; 64 requests of 1-4 rows from 2 tenants; 32 prompts of 1-192 tokens
+# from 4 tenants, 64 greedy tokens each
+SETTINGS_SERVING = os.path.join(CONFIGS, "cifar10_alexnet_serving_h100.yaml")
+SV_REQUESTS, SV_TENANTS, SV_MAX_ROWS, SV_CPU_CHECKS = 64, 2, 4, 4
+SV_CPU_TOL = 1e-4  # rtol and atol of the card's served logits (TF32 off) against the CPU forward
+DC_PROMPTS, DC_TENANTS, DC_MAX_PROMPT = 32, 4, 192
+DC_SOLO, DC_FULL = 4, 2  # streams re-run alone; streams held against repeated full forwards
+DC_KILL_STEP, DC_POISON_STEP = 40, 30  # the faults' decode steps (1-based, per engine)
+DC_POISON_PROMPTS = 8
+DC_TIME_STEPS = 50
+ENTRY_DEMO, ENTRY_SERVE_S = 16, 30
+
+
+def _serving_settings():
+    """The serving file's ``serving`` block and its ``decode`` sub-block."""
+    serving = cfg_lib.serving_config(cfg_lib.load_settings(SETTINGS_SERVING))
+    return serving, cfg_lib.decode_config(serving)
+
+
+def _launch_counts():
+    return {k.symbol: k.launches for k in fused_adam.kernels.values()}
+
+
+def serving_requests(root: str):
+    """26 serving: the file's serving block over a native AlexNet
+    checkpoint of a seeded init, restored through the integrity path on
+    cuda:0; 64 seeded requests of 1-4 rows from 2 tenants submitted at
+    once. Every request's logits bitwise a direct forward of its padded
+    batch on the card, 4 within SV_CPU_TOL of the CPU forward, no rejects."""
+    cfg, _ = _serving_settings()
+    save_dir = os.path.join(root, "alexnet_ckpt")
+    model = seeded_model(cfg["model"], cfg["num_classes"], cfg["input_shape"], 26)
+    t0 = time.perf_counter()
+    ckpt.save_on_main(save_dir, 0, model, None, 0)
+    save_s = time.perf_counter() - t0
+    cfg.update(checkpoint_dir=save_dir)
+    t0 = time.perf_counter()
+    engine = ServingEngine.from_config(cfg, out_dir=os.path.join(root, "serving"),
+                                       devices=[torch.device("cuda", 0)])
+    restore_s = time.perf_counter() - t0
+    batches = []
+    form = engine.scheduler.form
+    engine.scheduler.form = lambda reqs: batches.append(form(reqs)) or batches[-1]
+    t0 = time.perf_counter()
+    engine.start()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.RandomState(26)
+    shape = tuple(cfg["input_shape"])
+    xs = [rng.randn(int(rng.randint(1, SV_MAX_ROWS + 1)), *shape).astype(np.float32)
+          for _ in range(SV_REQUESTS)]
+    reset_counts()
+    mark = engine.stats.mark()
+    results = [engine.submit(f"tenant{i % SV_TENANTS}", x) for i, x in enumerate(xs)]
+    outs = [r.result(timeout=300) for r in results]
+    window = engine.stats.since(mark)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    summary = engine.drain(reason="chip_smoke")
+    master = engine.pool.model  # the host copy the replicas were made from
+    direct = engine.pool.replicas[0].model  # the replica's weights, driven here on the default stream
+    bitwise, served_rows = True, 0
+    with torch.inference_mode():
+        for b in batches:
+            ref = direct(torch.from_numpy(b.x).cuda()).cpu().numpy()
+            for r, (lo, hi) in zip(b.requests, b.slices):
+                bitwise &= bool(np.array_equal(r.result.result(), ref[lo:hi]))
+                served_rows += hi - lo
+        cpu_err, cpu_ok = 0.0, True
+        for x, out in list(zip(xs, outs))[:SV_CPU_CHECKS]:
+            ref = master(torch.from_numpy(x)).numpy()
+            cpu_err = max(cpu_err, float(np.abs(out - ref).max()))
+            cpu_ok &= bool(np.allclose(out, ref, rtol=SV_CPU_TOL, atol=SV_CPU_TOL))
+    errors, n = schema.validate_history_file(os.path.join(root, "serving", "history.jsonl"))
+    checks = {
+        "every request's logits bitwise a direct forward of its padded batch": bitwise,
+        f"every row served once ({sum(len(x) for x in xs)})": served_rows == sum(len(x) for x in xs),
+        f"{SV_CPU_CHECKS} requests within {SV_CPU_TOL} of the CPU forward": cpu_ok,
+        "finite logits of (rows, 10)": all(np.isfinite(o).all() and o.shape == (len(x), 10)
+                                           for o, x in zip(outs, xs)),
+        "no rejects": not summary["rejected"] and summary["completed"] == SV_REQUESTS,
+        "the restored epoch 0": engine.pool.restored_epoch == 0,
+        "history.jsonl valid": not errors and n > 0,
+        "no Adam launch": not any(launches.values()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 26 serving failed {failed}: summary {summary}, CPU max |d| {cpu_err}, "
+                         f"history errors {errors[:5]}")
+    occupancy = window["batch_occupancy"]
+    phase("26 serving", f"ServingEngine over {cfg['model']}@224 (10 classes) on cuda:0, restored from a "
+          f"native checkpoint (saved {save_s:.2f} s, pool built and restored {restore_s:.2f} s, buckets "
+          f"{engine.scheduler.buckets} warmed {warm_s:.2f} s); {SV_REQUESTS} requests of 1-{SV_MAX_ROWS} rows "
+          f"({window['rows']} rows) from {SV_TENANTS} tenants at once: {window['batches']} batches, "
+          f"{window['rows_per_sec']} images/s, {window['throughput_rps']} requests/s, e2e latency p50 "
+          f"{window['e2e_ms']['p50']} ms p99 {window['e2e_ms']['p99']} ms (device p50 "
+          f"{window['device_ms']['p50']} ms), batch occupancy {occupancy}; logits bitwise a direct forward "
+          f"of each padded batch; CPU max |d| {cpu_err:.3g} (rtol/atol {SV_CPU_TOL}); no rejects")
+    return dict(window=window, batches=window["batches"], save_s=save_s, restore_s=restore_s,
+                warm_s=warm_s, cpu_max_abs_err=cpu_err, launches=launches)
+
+
+def _decode_engine(dcfg: dict, devices, out_dir=None):
+    return DecodeEngine.from_config(dict(dcfg, num_replicas=len(devices)), out_dir=out_dir,
+                                     devices=devices).start()
+
+
+def _prompts(dcfg: dict, n: int, seed: int):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, dcfg["vocab_size"], size=int(rng.randint(1, DC_MAX_PROMPT + 1))).astype(np.int32)
+            for _ in range(n)]
+
+
+def _decode_all(engine, prompts, tenants: int = DC_TENANTS):
+    results = [engine.submit(f"tenant{i % tenants}", p) for i, p in enumerate(prompts)]
+    return [np.asarray(r.result(timeout=600)) for r in results]
+
+
+def _events26(path: str):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["type"] == "event"]
+
+
+def _step_ms(replica, dcfg):
+    """ms of one replayed step (the static inputs copied in, the graph
+    replayed, the logits fetched) and of the same step run eagerly on the
+    replica's stream, in turns, over the drained replica's pools (all-zero
+    tables: the writes go to garbage block 0)."""
+    s, mb = replica.cache.max_slots, replica.cache.max_blocks
+    tables, zeros = np.zeros((s, mb), np.int32), np.zeros((s,), np.int32)
+    dev = lambda a: torch.from_numpy(a).cuda()
+
+    def eager():
+        with torch.cuda.stream(replica.stream):
+            logits, _, _ = replica.model.decode_step(replica.kpool, replica.vpool, dev(tables), dev(zeros),
+                                                     dev(zeros))
+            logits.cpu()
+
+    def replay():
+        replica._step(replica.kpool, replica.vpool, tables, zeros, zeros)
+
+    times = {"replay": [], "eager": []}
+    for _ in range(DC_TIME_STEPS):
+        for name, fn in (("replay", replay), ("eager", eager)):
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def serving_decode(root: str):
+    """26 decode: the file's serving.decode block (transformer_small at full
+    width, 8 slots, 129 blocks of 16, greedy, 64 new tokens) on cuda:0; 32
+    seeded prompts of 1-192 tokens from 4 tenants at once. Checks: 4 streams
+    re-run alone bitwise, 2 against repeated full forwards on the card, one
+    capture and then replays only; two replicas on [cuda:0, cuda:0] under
+    replica_kill@step=N bitwise the undisturbed streams with
+    session_failover events; a pool_poison rebuilt, captured again,
+    bitwise; a poisoned replica's next dispatch raises."""
+    _, dcfg = _serving_settings()
+    card = torch.device("cuda", 0)
+    prompts = _prompts(dcfg, DC_PROMPTS, 26)
+    out = os.path.join(root, "decode")
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = _decode_engine(dcfg, [card], out)
+    start_s = time.perf_counter() - t0
+    replica = engine.replicas[0]
+    captures_at_start = replica.captures
+    peak, stop = [0.0], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            peak[0] = max(peak[0], engine.kv_occupancy())
+            time.sleep(0.0005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    mark = engine.stats.mark()
+    streams = _decode_all(engine, prompts)
+    window = engine.stats.since(mark)
+    stop.set()
+    watcher.join()
+    solo = [np.asarray(engine.submit("solo", prompts[i]).result(timeout=600)) for i in range(DC_SOLO)]
+    launches = _launch_counts()
+    summary = engine.drain(reason="chip_smoke")
+    replays, steps = replica.replays, replica.steps
+    step_ms = _step_ms(replica, dcfg)
+    model = replica.model
+    full = {}
+    with torch.inference_mode():
+        for i in range(DC_FULL):
+            seq, toks = torch.from_numpy(prompts[i]).long().cuda(), []
+            for _ in range(len(streams[i])):
+                toks.append(int(model(seq[None])[0, -1].argmax()))
+                seq = torch.cat([seq, seq.new_tensor([toks[-1]])])
+            full[i] = toks
+    # two replicas on the one card, the first killed mid-sweep
+    out2 = os.path.join(root, "decode_kill")
+    killed = _with_env({"TPUDDP_FAULT": f"replica_kill@step={DC_KILL_STEP}"},
+                       lambda: _run_engine(dcfg, [card, card], out2, prompts))
+    # one replica whose pools are poisoned mid-sweep
+    out3 = os.path.join(root, "decode_poison")
+    poisoned = _with_env({"TPUDDP_FAULT": f"pool_poison@step={DC_POISON_STEP}"},
+                         lambda: _run_engine(dcfg, [card], out3, prompts[:DC_POISON_PROMPTS]))
+    # a poisoned replica's next dispatch raises; rebuilt, it serves again
+    probe = poisoned["engine"].replicas[0]
+    probe.poison()
+    s, mb = probe.cache.max_slots, probe.cache.max_blocks
+    zeros = np.zeros((s,), np.int32)
+    try:
+        probe._step(probe.kpool, probe.vpool, np.zeros((s, mb), np.int32), zeros, zeros)
+        raised = False
+    except RuntimeError:
+        raised = True
+    probe.rebuild()
+    probe.canary(poisoned["engine"].buckets)
+    failovers = [e for e in _events26(os.path.join(out2, "history.jsonl")) if e["event"] == "session_failover"]
+    poison_events = [e["event"] for e in _events26(os.path.join(out3, "history.jsonl"))]
+    errors = [schema.validate_history_file(os.path.join(d, "history.jsonl"))[0] for d in (out, out2, out3)]
+    checks = {
+        f"{DC_SOLO} streams re-run alone bitwise": all(np.array_equal(a, b) for a, b in zip(solo, streams)),
+        f"{DC_FULL} streams those of repeated full forwards": all(full[i] == streams[i].tolist()
+                                                                  for i in range(DC_FULL)),
+        "every stream 64 tokens": all(len(t) == dcfg["max_new_tokens"] for t in streams),
+        "one capture at start, then replays only": captures_at_start == 1 and replica.captures == 1
+        and replays == steps > 0,
+        "replica_kill: every stream bitwise the undisturbed run": all(
+            np.array_equal(a, b) for a, b in zip(killed["streams"], streams)),
+        "replica_kill: session_failover events, the replica recovered": bool(failovers)
+        and sum(r.recoveries for r in killed["engine"].replicas) == 1 and killed["fired"],
+        "pool_poison: bitwise, rebuilt, captured again": all(
+            np.array_equal(a, b) for a, b in zip(poisoned["streams"], streams[:DC_POISON_PROMPTS]))
+        and probe.recoveries == 1 and poisoned["captures"] == 2 and poisoned["fired"],
+        "a poisoned replica's next dispatch raises": raised and probe.captures == 3,
+        "no rejects": not summary["rejected"],
+        "history.jsonl valid (3 runs)": not any(errors),
+        "no Adam launch": not any(launches.values()),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 26 decode failed {failed}: summary {summary}, failovers {failovers}, "
+                         f"poison events {poison_events}, killed {killed['summary']}, errors {errors}")
+    phase("26 decode", f"DecodeEngine over {dcfg['model']} (d 128, 8 heads, 4 layers, 256 positions, vocab "
+          f"256) on cuda:0, {dcfg['max_slots']} slots, {dcfg['kv_blocks']} blocks of {dcfg['kv_block_size']}, "
+          f"started (9 prefill buckets + capture) in {start_s:.2f} s; {DC_PROMPTS} prompts of 1-{DC_MAX_PROMPT} "
+          f"tokens from {DC_TENANTS} tenants at once, {dcfg['max_new_tokens']} greedy tokens each: "
+          f"{window['tokens_per_sec']} tokens/s, TTFT p50 {window['ttft_ms']['p50']} ms p99 "
+          f"{window['ttft_ms']['p99']} ms, ITL p50 {window['itl_ms']['p50']} ms p99 {window['itl_ms']['p99']} ms, "
+          f"peak KV occupancy {peak[0]:.4f}; {replica.captures} capture, {replays} replays for "
+          f"{steps} steps; a step replayed {step_ms['replay']:.4f} ms vs eager {step_ms['eager']:.4f} ms "
+          f"(inputs in, logits out); {DC_SOLO} solo re-runs bitwise, {DC_FULL} streams = full forwards; "
+          f"replica_kill@step={DC_KILL_STEP} on [cuda:0, cuda:0]: {len(failovers)} session_failover events, "
+          f"every stream bitwise; pool_poison@step={DC_POISON_STEP}: rebuilt, captured again, bitwise")
+    return dict(window=window, peak_kv_occupancy=peak[0], start_s=start_s, step_ms=step_ms,
+                captures=replica.captures, replays=replays, steps=steps,
+                failovers=len(failovers), kill_summary=killed["summary"], launches=launches)
+
+
+def _run_engine(dcfg, devices, out_dir, prompts):
+    engine = _decode_engine(dcfg, devices, out_dir)
+    streams = _decode_all(engine, prompts)
+    summary = engine.drain(reason="chip_smoke")
+    return dict(engine=engine, streams=streams, summary=summary,
+                captures=engine.replicas[0].captures,
+                fired=all(s.fired for s in faults.active_faults()))
+
+
+def serving_entry(root: str):
+    """26 entry: ``python -m tpuddp_torch.serving --decode --demo 16 --serve
+    30`` on the serving settings file (out_dir in ``root``); SIGTERM once
+    it prints "demo traffic complete; serving": exit 75, the last line the
+    JSON summary with all 16 sequences finished, history.jsonl valid."""
+    settings = cfg_lib.load_settings(SETTINGS_SERVING)
+    d = os.path.join(root, "entry")
+    settings["out_dir"] = d
+    path = os.path.join(root, "entry.yaml")
+    with open(path, "w") as f:
+        json.dump(settings, f)  # JSON is YAML
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("TPUDDP_FAULT", None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-u", "-m", "tpuddp_torch.serving", "--decode", "--demo",
+                          str(ENTRY_DEMO), "--serve", str(ENTRY_SERVE_S), "--settings", path],
+                         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(180, p.kill)
+    watchdog.start()
+    lines, t_sig = [], None
+    try:
+        for line in p.stdout:
+            lines.append(line)
+            if t_sig is None and line.startswith("demo traffic complete; serving"):
+                t_sig = time.perf_counter()
+                p.send_signal(signal.SIGTERM)
+        p.wait(timeout=120)
+    finally:
+        watchdog.cancel()
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    out = [ln for ln in lines if ln.strip()]
+    try:
+        summary = json.loads(out[-1])
+    except (IndexError, ValueError):
+        summary = {}
+    errors, n = schema.validate_history_file(os.path.join(d, "history.jsonl"))
+    checks = {
+        "SIGTERM sent after the demo": t_sig is not None,
+        "exit 75": p.returncode == preemption.EXIT_PREEMPTED,
+        f"the last line the JSON summary, {ENTRY_DEMO} sequences finished": summary.get("completed")
+        == ENTRY_DEMO and summary.get("submitted") == ENTRY_DEMO,
+        "history.jsonl valid": not errors and n > 0,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 26 entry failed {failed}: exit {p.returncode}, errors {errors[:5]}: "
+                         f"{''.join(lines)[-3000:]}")
+    phase("26 entry", f"python -m tpuddp_torch.serving --decode --demo {ENTRY_DEMO} --serve {ENTRY_SERVE_S} "
+          f"(cifar10_alexnet_serving_h100.yaml): SIGTERM {t_sig - t0:.2f} s after the start, "
+          f"{summary['in_flight_at_drain']} sequences in flight; exit {p.returncode}, "
+          f"{summary['completed']} sequences finished, {summary['tokens']} tokens, history.jsonl valid "
+          f"({n} records)")
+    return dict(exit=p.returncode, start_to_sigterm_s=t_sig - t0, summary=summary)
+
+
+def serving_phase():
+    """Phase 26: the request engine, the decode engine and the entry point
+    on the card, each with the Adam kernels' counts set to 0 just before
+    and read just after (serving runs no optimizer: 0)."""
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_serving_")
+    try:
+        requests = serving_requests(root)
+        torch.cuda.empty_cache()
+        decode = serving_decode(root)
+        entry = serving_entry(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+    for label, run in (("serving alexnet", requests), (f"decode {TF_NAME}", decode)):
+        for sym, n in run.pop("launches").items():
+            launches.setdefault(sym, {})[f"{label} (phase 26)"] = n
+    return dict(requests=requests, decode=decode, entry=entry, launches=launches)
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -6408,6 +6785,9 @@ def main() -> None:
     t25 = time.perf_counter()
     tp_25 = tensor_parallel_phase(bw, flops)
     phase_25_s = time.perf_counter() - t25
+    t26 = time.perf_counter()
+    serving_26 = serving_phase()
+    phase_26_s = time.perf_counter() - t26
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -6498,6 +6878,9 @@ def main() -> None:
     print(json.dumps({"tensor_parallel": {
         **{k: v for k, v in tp_25.items() if k != "launches"}, "phase_25_s": phase_25_s,
     }}))
+    print(json.dumps({"serving": {
+        **{k: v for k, v in serving_26.items() if k != "launches"}, "phase_26_s": phase_26_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -6564,6 +6947,8 @@ def main() -> None:
     phase_24 = {**tf_24["training"]["launches"],
                 f"native {TF_NAME} chunks (phase 24)": tf_24["steps"]["launches"]}
     phase_25 = tp_25["launches"]
+    phase_26 = serving_26["launches"][f32_sym]
+    phase_26_bf16 = serving_26["launches"][bf16_sym]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
                **{f"native pipeline {k}": n for k, n in ab_f32.items()},
@@ -6571,7 +6956,7 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24, **phase_25}
+               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24, **phase_25, **phase_26}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -6589,7 +6974,7 @@ def main() -> None:
         {"name": KERNEL_NAMES[torch.bfloat16], **common,
          "launches": (launches_bf16 + sum(ab_bf16.values()) + sum(phase_9_bf16.values())
                       + sum(phase_10_bf16.values()) + sum(phase_11.values())
-                      + sum(phase_12_bf16.values())),
+                      + sum(phase_12_bf16.values()) + sum(phase_26_bf16.values())),
          "max_abs_err": err_bf16, **t_bf16, "library_note": NO_LIBRARY_BF16,
          "launches_per_step": launches_bf16 // steps_bf16,
          "launches_by_path": {"native bf16": launches_bf16,
@@ -6604,7 +6989,8 @@ def main() -> None:
                               **{k: 0 for k in phase_18}, **{k: 0 for k in phase_19},
                               **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21},
                               **{k: 0 for k in phase_22}, **{k: 0 for k in phase_23},
-                              **{k: 0 for k in phase_24}, **{k: 0 for k in phase_25}},
+                              **{k: 0 for k in phase_24}, **{k: 0 for k in phase_25},
+                              **phase_26_bf16},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -6618,7 +7004,8 @@ def main() -> None:
           f"phase 14: {phase_14_s:.1f} s, phase 15: {phase_15_s:.1f} s, phase 16: {phase_16_s:.1f} s, "
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
           f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s, "
-          f"phase 23: {phase_23_s:.1f} s, phase 24: {phase_24_s:.1f} s, phase 25: {phase_25_s:.1f} s)")
+          f"phase 23: {phase_23_s:.1f} s, phase 24: {phase_24_s:.1f} s, phase 25: {phase_25_s:.1f} s, "
+          f"phase 26: {phase_26_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

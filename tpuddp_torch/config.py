@@ -38,7 +38,11 @@ as without it, as the JAX package's does) and ``step_stats_every`` (one
 block (the live plane: flight recorder, exporter, pod shards, tracing;
 :func:`resolve_observability`), and the top-level ``parallel`` block (the
 ``(data, model)`` world of tensor parallelism, :func:`resolve_parallel`,
-:func:`mesh_from`; ``$TPUDDP_MODEL_SIZE`` overrides its width). Every knob whose non-default value needs a part
+:func:`mesh_from`; ``$TPUDDP_MODEL_SIZE`` overrides its width), and the
+top-level ``serving`` block with its ``decode`` sub-block (the serving
+engines of :mod:`tpuddp_torch.serving`, :func:`serving_config`,
+:func:`decode_config`; ``$TPUDDP_SERVING_REPLICAS`` overrides the replica
+count). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
 never ignored. The native path's ``scan_steps`` (K batches per dispatch,
@@ -268,6 +272,89 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
         check_tiling(parallel, world_size, str(training.get("comm_topology") or "flat"))
     observability_config(settings)  # its ValueErrors and the advisor's refusal, before a run
     return parallel
+
+
+# The serving engines' knobs (tpuddp/config.py:145-250): the ``serving``
+# block of a settings file, read by ``python -m tpuddp_torch.serving``, and
+# its ``decode`` sub-block (the token engine). Same unknown-key refusal as
+# every block; the defaults are the JAX package's.
+SERVING_DEFAULTS = {
+    "model": "toy_mlp",  # zoo name (tpuddp_torch/models)
+    "num_classes": 10,
+    "input_shape": [32, 32, 3],  # one sample's NHWC shape, no batch axis
+    "checkpoint_dir": None,  # restore the newest intact checkpoint from here; None: seeded init
+    "checkpoint_prefix": "auto",  # "ckpt" (native), "state" (managed) or "auto": the newest
+    "num_replicas": "auto",  # one replica per device; "auto": every visible device
+    "max_batch_size": 32,  # rows coalesce into power-of-two buckets up to this
+    "max_queue_depth": 256,  # queued requests beyond this are rejected (queue_full)
+    "per_tenant_quota": None,  # queued requests per tenant (tenant_quota); None: unbounded
+    "batch_timeout_ms": 2.0,  # how long a loop lingers for more rows while the queue is empty
+    "stats_window": 64,  # completed requests per serving_stats row
+    "unhealthy_after": 3,  # K consecutive dispatch errors send a replica to probation; 0: never
+    # survivability (tpuddp_torch/serving/survive.py)
+    "request_ttl_s": None,  # shed requests still queued this long after submit
+    "max_recoveries": 2,  # lifetime probation rejoins per replica
+    "recovery_attempts": 2,  # rebuild + canary tries per probation episode
+    "recovery_backoff_s": 0.1,  # base of the jittered backoff between tries
+    "retry_budget": 0,  # per-tenant retries of a failed dispatch's requests; 0: off
+    "seed": 0,  # seed of a fresh init (ignored with a checkpoint)
+    "decode": None,  # the token engine's block (DECODE_DEFAULTS); true: all defaults
+}
+
+DECODE_DEFAULTS = {
+    "model": "transformer_tiny",  # a TransformerLM (prefill and decode_step)
+    "vocab_size": 256,  # the model's num_classes
+    "checkpoint_dir": None,
+    "checkpoint_prefix": "auto",
+    "num_replicas": 1,  # "auto": every visible device
+    "max_slots": 8,  # the fixed decode batch: every step is one (max_slots, 1) program
+    "kv_blocks": 64,  # KV-pool blocks per replica, garbage block 0 included
+    "kv_block_size": 16,  # tokens per block
+    "max_seq_len": 128,  # prompt + generated tokens per sequence
+    "max_new_tokens": 32,  # per-request generation cap
+    "stop_token": None,  # sampled, it ends the sequence (consumed, not emitted)
+    "temperature": 0.0,  # 0: greedy; > 0: softmax draws keyed by (seed, token index)
+    "max_queue_depth": 256,
+    "per_tenant_quota": None,
+    "stats_window": 64,  # generated tokens per decode_stats row
+    "request_ttl_s": None,
+    "max_recoveries": 2,
+    "recovery_attempts": 2,
+    "recovery_backoff_s": 0.1,
+    "max_failovers": 1,  # failover episodes charged to a culprit request before it fails
+    "seed": 0,
+}
+
+SERVING_REPLICAS_ENV = "TPUDDP_SERVING_REPLICAS"
+
+
+def serving_config(settings: Dict[str, Any]) -> Dict[str, Any]:
+    """The settings file's ``serving`` block over :data:`SERVING_DEFAULTS`,
+    unknown keys refused; ``$TPUDDP_SERVING_REPLICAS`` overrides
+    ``num_replicas`` (``tpuddp/config.py:487-502``). A tune overlay is
+    refused, as :func:`training_config` refuses it."""
+    if os.environ.get("TPUDDP_TUNE_OVERLAY"):
+        raise _not_ported("$TPUDDP_TUNE_OVERLAY", "Queue 1 item 8: fleet and tune")
+    cfg = _merge_refusing_unknown(SERVING_DEFAULTS, settings.get("serving") or {}, "serving")
+    env = os.environ.get(SERVING_REPLICAS_ENV)
+    if env:
+        cfg["num_replicas"] = int(env)
+    return cfg
+
+
+def decode_config(serving: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """A resolved ``serving`` block's ``decode`` sub-block
+    (``tpuddp/config.py:252-269``): None or False give None (no token
+    engine), True the defaults, a mapping the defaults with its keys,
+    unknown ones refused."""
+    block = serving.get("decode")
+    if block is None or block is False:
+        return None
+    if block is True:
+        return dict(DECODE_DEFAULTS)
+    if not isinstance(block, dict):
+        raise ValueError(f"serving.decode must be a mapping or bool, got {block!r}")
+    return _merge_refusing_unknown(DECODE_DEFAULTS, block, "serving.decode")
 
 
 # 2-D mesh knobs (tpuddp/config.py:317-330): the top-level ``parallel``

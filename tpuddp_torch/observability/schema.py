@@ -23,9 +23,12 @@ training run writes four of the record types:
 Two sidecar artifacts have validators here too, copies of the JAX ones:
 the flight recording ``flightrec_<reason>.json``
 (:func:`validate_flight_file`) and the Chrome trace ``trace_<role>.json``
-(:func:`validate_trace_file`). The other record types (serving, decode,
-tune reports) belong to planes the port has not ported; they stay in the
-tables so that validation agrees with the JAX package's on every record. :func:`make_run_meta` builds
+(:func:`validate_trace_file`). The serving engines
+(:mod:`tpuddp_torch.serving`) write ``serving_stats`` and
+``decode_stats`` rows, ``event`` rows of their own, and a header with the
+v6 ``decode`` and v7 ``survivability`` blocks. Tune reports belong to a
+plane the port has not ported; they stay in the tables so that validation
+agrees with the JAX package's on every record. :func:`make_run_meta` builds
 the header from the port's run: the keys that name JAX (``jax_version``)
 are null, and ``torch_version``, ``cuda_version`` and ``device_kind``
 (``torch.cuda.get_device_name``) say what ran; ``process_count`` and
@@ -294,6 +297,8 @@ def make_run_meta(
     snapshot=False,
     extra: Optional[dict] = None,
     mesh: Optional[dict] = None,
+    decode: Optional[dict] = None,
+    survivability: Optional[dict] = None,
 ) -> dict:
     """The run_meta header row of a port run, with every key of the JAX
     package's ``make_run_meta`` (``tpuddp/observability/schema.py:325-433``).
@@ -311,7 +316,9 @@ def make_run_meta(
     model, dataset, api, ...); ``mesh`` the DDP wrap's ``{"data", "model",
     "tp_rules_hash"}`` block (a tensor-parallel run's ``model`` over 1 and
     its rule table's hash; the mesh shape then ``{"data", "model"}``), else
-    derived from ``world_size``."""
+    derived from ``world_size``; ``decode`` the decode engine's provenance
+    (schema v6) and ``survivability`` a serving engine's policy (v7), null
+    for every other writer."""
     import torch
 
     import tpuddp_torch
@@ -343,8 +350,8 @@ def make_run_meta(
         "comm_topology": comm_topology,
         "guard": guard,
         "observability": observability,
-        "decode": None,
-        "survivability": None,
+        "decode": decode,
+        "survivability": survivability,
         "tracing": tracing,
         "comm": comm,
         "snapshot": snapshot,

@@ -23,6 +23,14 @@ so a traced run is bitwise the untraced one. Off
 (``observability.tracing: false``, the default) the loop holds
 :data:`NULL`, whose methods do nothing.
 
+The serving engines (roles ``serving`` and ``decode``,
+:mod:`tpuddp_torch.serving`) trace one tree per request: ``request`` ->
+``admission`` -> ``queue_wait`` -> ``serve`` or ``prefill``, with a
+retry's or a failover's second wait linked ``follows_from`` the attempt
+before it, and per-replica ``dispatch``, ``decode_step`` and ``probation``
+rows; every failure exit closes a request's tree through
+:func:`end_request_trace`.
+
 One tracer per host, in its local rank 0 (the JAX package's one process
 per host): ``trace_train.json`` on host 0, ``trace_train_p<host>.json``
 past it. The timestamps map ``perf_counter_ns`` onto the unix axis through
@@ -182,7 +190,9 @@ def _host_index() -> int:
 
 
 class Tracer:
-    """The span recorder of one process and role (``train``); thread-safe.
+    """The span recorder of one process and role (``train``, ``serving``,
+    ``decode``); thread-safe: the serving engines' loop threads and the
+    client's submit path share one.
     ``process_index`` is the host (default: this process's)."""
 
     enabled = True
@@ -419,6 +429,22 @@ class Tracer:
             return None
         logger.info("trace: %d span(s) (%d dropped) -> %s", self.completed, self.dropped, path)
         return path
+
+
+def end_request_trace(tracer, request, error) -> None:
+    """Close a failed or shed request's trace: the one sequence every
+    failure exit of both serving engines shares. The error (an exception or
+    a reason string) goes onto the open child span, if any, and the root;
+    ``request.trace`` is cleared. Nothing for an untraced request."""
+    trace = getattr(request, "trace", None)
+    if not trace:
+        return
+    reason = error if isinstance(error, str) else repr(error)
+    open_span = trace.get("open")
+    if open_span is not None:
+        tracer.end_span(open_span, error=reason)
+    tracer.end_span(trace["root"], error=reason)
+    request.trace = None
 
 
 def tracer_from_config(obs_cfg, role: str, run_dir: Optional[str] = None):

@@ -391,8 +391,9 @@ class TensorParallelLM(TransformerLM):
     :class:`TransformerLM`), its values cut from ``full`` on ``full``'s
     device; ``forward`` is :func:`tp_forward`. The widths (``vocab_size``,
     ``n_heads``, ``d_mlp``) are the whole model's; ``local_heads`` and the
-    local shapes are the shard's. Serving (prefill, decode) is not
-    sharded."""
+    local shapes are the shard's. A shard has no serving path (prefill,
+    decode step), in either package: the serving engines serve the whole
+    model."""
 
     def __init__(self, full: TransformerLM, mesh):
         nn.Module.__init__(self)
@@ -441,7 +442,10 @@ class TensorParallelLM(TransformerLM):
 
     def prefill(self, *args, **kwargs):
         raise NotImplementedError(
-            "tensor-parallel serving is not ported (ROADMAP.md Queue 1 item 8: serving)")
+            "a tensor-parallel shard has no prefill or decode step: the serving engines "
+            "(tpuddp_torch.serving), as the JAX package's, serve the whole model on each "
+            "replica's device; reshape the checkpoint to model=1 "
+            "(tpuddp_torch.training.reshard.reshard_checkpoint) and serve that")
 
     decode_step = prefill
 

@@ -25,9 +25,11 @@ The sites: ``epoch=N`` at the start of epoch N; ``step=N`` at the global
 train micro-batch N, before it is staged; ``barrier`` on entry to
 :func:`tpuddp_torch.parallel.collectives.barrier`; ``ckpt_N`` (or
 ``ckpt_E_sS``, a step snapshot) after that file is published, by the
-checkpoint writer and the snapshot writer alike. The serving kinds are the
-serving engines', which the training hooks never consume, as in the JAX
-package. Each spec fires at most once per process; :func:`reload_faults`
+checkpoint writer and the snapshot writer alike. The serving kinds
+(``replica_kill``, ``pool_poison``, ``dispatch_wedge``) fire through
+:func:`maybe_serving_fault`, the serving engines' hook, at ``step=N`` (the
+decode engine's N-th step) and ``batch=N`` (the request engine's N-th
+batch); the training hooks never consume them, as in the JAX package. Each spec fires at most once per process; :func:`reload_faults`
 re-reads the variable and lowers the hung flag.
 """
 
@@ -192,6 +194,19 @@ def maybe_fire(site: str, **ctx) -> None:
             path = ctx.get("path")
             if path and os.path.exists(path):
                 _corrupt_file(path)
+
+
+def maybe_serving_fault(site: str, **ctx) -> Optional[str]:
+    """The serving engines' injection hook: the serving kind that fired at
+    ``site`` (``step`` or ``batch``), or None. Only serving specs are
+    considered, each fires once; the engine acts on the kind."""
+    for spec in active_faults():
+        if spec.kind not in SERVING_KINDS or not spec.matches(site, **ctx):
+            continue
+        spec.fired = True
+        logger.critical("fault injection: %s@%s fired (ctx=%s)", spec.kind, site, ctx)
+        return spec.kind
+    return None
 
 
 def maybe_corrupt_batch(batch, step: int):
