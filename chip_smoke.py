@@ -504,7 +504,17 @@ Phases, each printing one line (the first failure exits non-zero):
      and the float32 kernel over one rank's local shard (447,488
      parameters, 2 tables) against its plain version, timed beside its
      bound and ``torch.optim.Adam(fused=True)``, each with the card's name
-     and power limit.
+     and power limit;
+   - "25 snapshots": the same two rank processes after (a)-(d), each leg
+     in a process group of its own, 2 epochs of 4 batches, a step snapshot
+     every 2 steps: two turns, snapshots off then on (the latter the
+     straight run), then ``preempt@step=5`` (the drain's ``SystemExit(75)``
+     on both ranks at one step; a v4 step file of the model-2 topology),
+     then the auto-resumed run: its epoch rows and a digest of the gathered
+     parameters and moments bitwise the straight run's; the step file
+     restored here at model 1 through the reshaper bitwise the parameters
+     the ranks gathered from it; "25 snapshot times": the step medians with
+     snapshots off and on.
 26. serving (:mod:`tpuddp_torch.serving`), from
    ``tpuddp_torch/configs/cifar10_alexnet_serving_h100.yaml``'s ``serving``
    block and its ``decode`` sub-block, the Adam kernels' counts set to 0
@@ -531,6 +541,21 @@ Phases, each printing one line (the first failure exits non-zero):
      --serve 30`` on that file, SIGTERM once the demo is submitted: exit
      75, the last line the JSON summary with all 16 sequences finished,
      ``history.jsonl`` valid.
+27. the fleet: ``python -m tpuddp_torch.fleet chaos-demo`` cut for one card
+   (:func:`tpuddp_torch.fleet.__main__.run_chaos_demo`; every job at world
+   1 on cuda:0, a pool of three slots): two ``digits_h100.yaml`` training
+   jobs with a checkpoint each epoch, a toy_mlp serving job of up to two
+   replicas on ``[cuda:0, cuda:0]`` and a late arrival of priority 100.
+   "27 fleet": one job SIGKILLed and resumed with every epoch; one endorsed
+   tuner action (``pipeline_sync_readback``) through drain and relaunch,
+   the relaunched header carrying ``tuning``; that job displaced by the
+   arrival through the drain (exit 75, its emergency checkpoint, never a
+   SIGKILL); the serving job autoscaled 1 -> 2 replicas through
+   ``$TPUDDP_SERVING_REPLICAS`` on an SLO no batch meets; every history
+   valid; each training attempt's Adam launches, as the job reports them.
+   "27 times": seconds from the SIGKILL to the resumed header and first
+   epoch, from each SIGTERM to exit 75 and to the relaunched header and
+   first epoch, from the scale-up to the 2-replica header.
 
 Every launch count is the kernel's own: block 0 of each launch adds one to
 a word on the card, so a launch replayed from a CUDA graph counts as an
@@ -542,7 +567,7 @@ update on AlexNet at world 1 and, counted, at world 8), one with phase
 13's, one with phase 14's, one with phase 15's, one with phase 16's, one with
 phase 17's, one with phase 18's, one with phase 19's, one with phase 20's, one with
 phase 21's, one with phase 22's, one with phase 23's, one with phase 24's, one with
-phase 25's, one with phase 26's, one with the optimizers', one
+phase 25's, one with phase 26's, one with phase 27's, one with the optimizers', one
 with every kernel's
 (each with its guarded calling form's numbers), the script's seconds, the
 card's name and power limit again, and last
@@ -6085,7 +6110,8 @@ TP25_SCRIPT = (
     "from tpuddp_torch.ops import fused_adam\n"
     "from tpuddp_torch.parallel import spawn, tensor as tp_lib\n"
     "from tpuddp_torch.training.loop import run_training_loop\n"
-    "rank, work, port = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])\n"
+    "rank, work = int(sys.argv[1]), sys.argv[2]\n"
+    "ports = [int(p) for p in sys.argv[3].split(',')]\n"
     "with open(os.path.join(work, 'job.json')) as f:\n"
     "    job = json.load(f)\n"
     "def fn(rank, world, save_dir, _):\n"
@@ -6118,22 +6144,25 @@ TP25_SCRIPT = (
     "        np.savez(os.path.join(work, 'gathered.npz'), **gathered)\n"
     "    with open(os.path.join(work, f'rank_{rank}.json'), 'w') as f:\n"
     "        json.dump(out, f)\n"
-    "spawn._worker(rank, fn, 2, os.path.join(work, 'out'), {}, 'cuda', port, None, (0, 1))\n"
+    "spawn._worker(rank, fn, 2, os.path.join(work, 'out'), {}, 'cuda', ports[0], None, (0, 1))\n"
 )
 
 
 def _tp25_pair(work: str):
-    """Both rank processes of the pair against a store held here: each
-    rank's JSON and its stdout/stderr tails; the pair's wall seconds."""
-    store = backend.rendezvous_store(2)
+    """Both rank processes of the pair against stores held here, one a
+    process group the ranks make in turn (phase 25's, then its snapshot
+    legs', :data:`TP25S_SCRIPT`): each rank's JSON and the pair's wall
+    seconds."""
+    stores = [backend.rendezvous_store(2) for _ in range(TP25_GROUPS)]
     env = dict(os.environ, TPUDDP_BACKEND="gloo", PYTHONPATH=ROOT)
     for var in ("TPUDDP_FAULT", "TPUDDP_AUTO_RESUME", "TPUDDP_WORLD_SIZE", "TPUDDP_MODEL_SIZE",
                 "TPUDDP_COORDINATOR", "TPUDDP_NUM_PROCESSES", "TPUDDP_PROCESS_ID"):
         env.pop(var, None)
+    ports = ",".join(str(store.port) for store in stores)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-c", TP25_SCRIPT, str(rank), work, str(store.port)],
-                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for rank in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, "-c", TP25_SCRIPT + TP25S_SCRIPT, str(rank), work,
+                               ports], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
     outs = []
     try:
         for p in procs:
@@ -6143,7 +6172,7 @@ def _tp25_pair(work: str):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-        del store
+        del stores
     wall_s = time.perf_counter() - t0
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
@@ -6179,7 +6208,9 @@ def tensor_parallel_phase(bw, flops):
     """Phase 25: transformer_small at parallel.model 2 on a world of 2 on
     the one card: (a) the forward, (b) 8 steps through the loop against a
     world-1 model-1 run, the collectives and the Adam launches, (c) the
-    model-2 checkpoint restored at model 1, (d) the times."""
+    model-2 checkpoint restored at model 1, (e) step snapshots, the drain
+    and the exact resume in the same pair (:func:`tp_snapshot_checks`), (d)
+    the times."""
     tree = _token_tree(0)
     root = tempfile.mkdtemp(prefix="tpuddp_torch_tp_")
     try:
@@ -6190,6 +6221,7 @@ def tensor_parallel_phase(bw, flops):
         with open(os.path.join(root, "job.json"), "w") as f:
             json.dump({"training": TP25_TRAINING, "loaders": TP25_LOADERS,
                        "parallel": {"model": TP25_MODEL}}, f)
+        tp_snapshot_job(root)
         ranks, wall_s = _tp25_pair(root)
         # (a) the forward against the card's model 1 of the gathered weights
         model = _token_model(tree, "cuda").eval()
@@ -6215,6 +6247,7 @@ def tensor_parallel_phase(bw, flops):
         with np.load(os.path.join(root, "out", f"ckpt_{TP25_STEPS - 1}.npz")) as f:
             topo = json.loads(str(f["__topology__"]))
             wqkv = f[".params['blocks'][0]['attn']['wqkv']"].shape
+        snapshots = tp_snapshot_checks(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     checks = {
@@ -6275,8 +6308,213 @@ def tensor_parallel_phase(bw, flops):
                 loss_max_abs_err=loss_err, counts=[r["counts"] for r in ranks],
                 step_ms_tp=tp_ms, step_ms_model_1=one_ms, pair_wall_s=wall_s, kernel=kernel,
                 local_params=ranks[0]["local_params"],
-                launches={f"native {TF_NAME} model 2 rank {i} (phase 25)": r["launches"][f32]
-                          for i, r in enumerate(ranks)})
+                snapshots={k: v for k, v in snapshots.items() if k != "launches"},
+                launches={**{f"native {TF_NAME} model 2 rank {i} (phase 25)": r["launches"][f32]
+                             for i, r in enumerate(ranks)}, **snapshots["launches"]})
+
+
+# phase 25's snapshot legs, in the same rank processes after (a)-(d), each
+# in a process group of its own (one store a group, TP25_GROUPS in all):
+# the same init, 2 epochs of 4 (8, 256) batches, one step a dispatch, a
+# checkpoint each epoch and a step snapshot every 2 steps: (i) turns
+# snapshots off and on, the last the straight run; (ii) a run with
+# preempt@step=5 armed, its drain's SystemExit(75) caught; (iii) the step
+# file's state gathered, then the auto-resumed run
+TP25S_EVERY, TP25S_BATCHES, TP25S_EPOCHS, TP25S_PREEMPT = 2, 4, 2, 5
+TP25S_TURNS = (False, True)
+TP25_GROUPS = 4
+TP25S_SCRIPT = (
+    "import hashlib, shutil\n"
+    "from tpuddp_torch.resilience import faults, preemption\n"
+    "from tpuddp_torch.training import checkpoint as ckpt\n"
+    "with open(os.path.join(work, 'snap_job.json')) as f:\n"
+    "    sjob = json.load(f)\n"
+    "snap = {'every_steps': sjob['every']}\n"
+    "def wrap(rank, world):\n"
+    "    training = dict(cfg_lib.TRAINING_DEFAULTS, **sjob['training'])\n"
+    "    ddp, train, test, seed = train_native.build_training(\n"
+    "        rank, world, training, 'cuda', partial(token_loaders, **sjob['loaders']),\n"
+    "        cfg_lib.resolve_parallel(sjob['parallel']))\n"
+    "    with np.load(os.path.join(work, 'init.npz')) as data:\n"
+    "        full = {k: torch.from_numpy(data[k]) for k in data.files}\n"
+    "    ddp.model.load_state_dict(tp_lib.local_state_dict(full, ddp.mesh.model_index, ddp.model_size))\n"
+    "    return ddp, train, test, seed, training\n"
+    "def gathered(ddp):\n"
+    "    params = {k: v.cpu().numpy() for k, v in ddp.gather_params().items()}\n"
+    "    named = dict(ddp.model.named_parameters())\n"
+    "    for key in ('exp_avg', 'exp_avg_sq'):\n"
+    "        whole = tp_lib.gather_named({n: ddp.optimizer.state[p][key] for n, p in named.items()},\n"
+    "                                    ddp.mesh)\n"
+    "        params.update({f'{key}/{n}': t.cpu().numpy() for n, t in whole.items()})\n"
+    "    return params\n"
+    "def digest(arrays):\n"
+    "    h = hashlib.sha256()\n"
+    "    for k in sorted(arrays):\n"
+    "        h.update(k.encode())\n"
+    "        h.update(np.ascontiguousarray(arrays[k]).tobytes())\n"
+    "    return h.hexdigest()\n"
+    "def loop(ddp, train, test, seed, training, save_dir, snapshot, resume=False):\n"
+    "    for k in fused_adam.kernels.values():\n"
+    "        k.reset_launches()\n"
+    "    return run_training_loop(ddp, train, test, save_dir, num_epochs=training['num_epochs'],\n"
+    "                             checkpoint_epoch=training['checkpoint_epoch'], base_seed=seed,\n"
+    "                             scan_steps=1, snapshot=snapshot, auto_resume=resume,\n"
+    "                             log=lambda *a, **k: None)\n"
+    "def launches():\n"
+    "    torch.cuda.synchronize()\n"
+    "    return {k.symbol: k.launches for k in fused_adam.kernels.values()}\n"
+    "def dump(out, name):\n"
+    "    with open(os.path.join(work, f'snap_{name}_{rank}.json'), 'w') as f:\n"
+    "        json.dump(out, f)\n"
+    "def turns_fn(rank, world, save_dir, _):\n"
+    "    turns = []\n"
+    "    for i, on in enumerate(sjob['turns']):\n"
+    "        args = wrap(rank, world)\n"
+    "        rows = loop(*args, os.path.join(work, f'turn_{i}'), snap if on else None)\n"
+    "        turns.append({'snapshot': on, 'rows': rows, 'launches': launches(),\n"
+    "                      'digest': digest(gathered(args[0]))})\n"
+    "    dump({'turns': turns}, 'turns')\n"
+    "drained = {}\n"
+    "def drain_fn(rank, world, save_dir, _):\n"
+    "    args = wrap(rank, world)\n"
+    "    try:\n"
+    "        loop(*args, os.path.join(work, 'drain'), snap)\n"
+    "    finally:\n"
+    "        drained.update(step=args[0].step, launches=launches())\n"
+    "def resume_fn(rank, world, save_dir, _):\n"
+    "    ddp, cursors = wrap(rank, world)[0], []\n"
+    "    ckpt.restore_latest(os.path.join(work, 'drain'), ddp.model, ddp.optimizer,\n"
+    "                        model_size=ddp.model_size, cursor_out=cursors)\n"
+    "    state = gathered(ddp)\n"
+    "    if rank == 0:\n"
+    "        np.savez(os.path.join(work, 'gathered_drain.npz'),\n"
+    "                 **{k: v for k, v in state.items() if '/' not in k})\n"
+    "        os.makedirs(os.path.join(work, 'step_file'))\n"
+    "        for suffix in ('', '.sha256'):\n"
+    "            shutil.copy(cursors[-1]['path'] + suffix, os.path.join(work, 'step_file'))\n"
+    "    args = wrap(rank, world)\n"
+    "    rows = loop(*args, os.path.join(work, 'drain'), snap, resume=True)\n"
+    "    dump({'rows': rows, 'launches': launches(), 'digest': digest(gathered(args[0]))}, 'resume')\n"
+    "snap_out = os.path.join(work, 'snap_out')\n"
+    "spawn._worker(rank, turns_fn, 2, snap_out, {}, 'cuda', ports[1], None, (0, 1))\n"
+    "os.environ['TPUDDP_FAULT'] = sjob['fault']\n"
+    "faults.reload_faults()\n"
+    "try:\n"
+    "    spawn._worker(rank, drain_fn, 2, snap_out, {}, 'cuda', ports[2], None, (0, 1))\n"
+    "    drained['exit'] = 0\n"
+    "except SystemExit as e:\n"
+    "    drained['exit'] = e.code\n"
+    "preemption.reset_preemption()\n"
+    "os.environ.pop('TPUDDP_FAULT')\n"
+    "faults.reload_faults()\n"
+    "dump(drained, 'drain')\n"
+    "spawn._worker(rank, resume_fn, 2, snap_out, {}, 'cuda', ports[3], None, (0, 1))\n"
+)
+LOSS_KEYS = ("epoch", "train_loss", "train_samples", "test_loss", "test_accuracy", "test_samples")
+
+
+def _epoch_losses(path: str):
+    """The loss and accuracy fields of a history file's epoch rows."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return [{k: r.get(k) for k in LOSS_KEYS} for r in rows if r.get("type") == "epoch"]
+
+
+def tp_snapshot_job(root: str) -> None:
+    """``snap_job.json`` of phase 25's snapshot legs, in ``root``."""
+    training = dict(TP25_TRAINING, num_epochs=TP25S_EPOCHS, checkpoint_epoch=1)
+    with open(os.path.join(root, "snap_job.json"), "w") as f:
+        json.dump({"training": training, "parallel": {"model": TP25_MODEL},
+                   "loaders": dict(TP25_LOADERS, n_batches=TP25S_BATCHES),
+                   "every": TP25S_EVERY, "turns": list(TP25S_TURNS),
+                   "fault": f"preempt@step={TP25S_PREEMPT}"}, f)
+
+
+def tp_snapshot_checks(root: str):
+    """Phase 25's snapshot legs, which the pair ran: the turns, the drain,
+    the step file restored here at model 1 through the reshaper, the
+    auto-resumed run; returns the figures, raises on a failed check."""
+    legs = {}
+    for name in ("turns", "drain", "resume"):
+        legs[name] = []
+        for rank in (0, 1):
+            with open(os.path.join(root, f"snap_{name}_{rank}.json")) as f:
+                legs[name].append(json.load(f))
+    turns, drained, resumed = legs["turns"], legs["drain"], legs["resume"]
+    drain_dir = os.path.join(root, "drain")
+    # the file the resume started from, copied by the pair before it ran on
+    kept = os.path.join(root, "step_file")
+    step_files = sorted(f for f in os.listdir(kept) if f.endswith(".npz"))
+    step_file = step_files[0]
+    topo = ckpt.read_topology(os.path.join(kept, step_file))
+    meta = ckpt.read_meta(os.path.join(kept, step_file))
+    with open(os.path.join(drain_dir, "history.jsonl")) as f:
+        preempts = [r for r in map(json.loads, f) if r.get("event") == "preempt"]
+    # the step file restored here at world 1, model 1, reshaped on load
+    restored = load_model(TF_NAME, TF_VOCAB).cuda()
+    ckpt.restore_latest(kept, restored, Adam(restored.parameters(), lr=1e-3), reshard_on_mismatch=True)
+    with np.load(os.path.join(root, "gathered_drain.npz")) as data:
+        at_drain = {k: data[k] for k in data.files}
+    model_1_diff = [k for k, v in restored.state_dict().items()
+                    if not np.array_equal(v.cpu().numpy(), at_drain[k])]
+    straight = len(TP25S_TURNS) - 1
+    f32 = fused_adam.kernel.symbol
+    steps = TP25S_EPOCHS * TP25S_BATCHES
+    checks = {
+        "exit 75 on both ranks, drained at one step": [d["exit"] for d in drained] == [75, 75]
+            and drained[0]["step"] == drained[1]["step"] and len(preempts) == 1,
+        "one v4 step file of the model-2 topology": topo["format"] == ckpt.FORMAT_VERSION
+            and topo["model_size"] == TP25_MODEL and topo["mesh_shape"] == [1, TP25_MODEL]
+            and meta["completed"] == 0 and "step" in meta,
+        "the auto-resumed run's epoch rows are the straight run's": _epoch_losses(
+            os.path.join(drain_dir, "history.jsonl")) == _epoch_losses(
+            os.path.join(root, f"turn_{straight}", "history.jsonl")),
+        "the resumed parameters and moments are bitwise the straight run's (both ranks)": all(
+            r["digest"] == t["turns"][straight]["digest"] for r, t in zip(resumed, turns)),
+        "the step file restored at model 1 through the reshaper is bitwise the gathered "
+        "parameters": not model_1_diff,
+        "snapshots off and on give the same parameters and moments": len(
+            {t["digest"] for r in turns for t in r["turns"]}) == 1,
+        "2 Adam launches an update on each rank in each turn": all(
+            t["launches"][f32] == sum(t["launches"].values()) == 2 * steps
+            for r in turns for t in r["turns"]),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: 25 snapshots failed {failed}: step files {step_files}, "
+                         f"topology {topo}, meta {meta}, drained {drained}, preempt rows {preempts}, "
+                         f"model-1 keys that differ {model_1_diff}, digests "
+                         f"{[[t['digest'][:12] for t in r['turns']] for r in turns]} vs "
+                         f"{[r['digest'][:12] for r in resumed]}")
+    medians = {}
+    for on in (False, True):  # the second epoch's steps of each turn, rank 0
+        ms = [v for t in turns[0]["turns"] if t["snapshot"] == on for v in t["rows"][-1]["step_ms"]]
+        medians["on" if on else "off"] = statistics.median(ms)
+    card = card_line()
+    phase("25 snapshots", f"{TF_NAME} at parallel.model {TP25_MODEL}, {TP25S_EPOCHS} epochs of "
+          f"{TP25S_BATCHES} batches, a step snapshot every {TP25S_EVERY}: preempt@step={TP25S_PREEMPT} "
+          f"-> exit 75 on both ranks at step {drained[0]['step']} (epoch {preempts[0]['epoch']}), "
+          f"{step_file} (v{topo['format']}, model_size {topo['model_size']}, mesh "
+          f"{topo['mesh_shape']}); auto-resumed: epoch rows and the digest of parameters and moments "
+          f"({resumed[0]['digest'][:16]}) bitwise the straight run; the file at model 1 through the "
+          f"reshaper bitwise the gathered parameters; card {card}")
+    phase("25 snapshot times", f"card {card}: step median (second epoch, rank 0, turns "
+          f"{'/'.join('on' if t else 'off' for t in TP25S_TURNS)}) snapshots off "
+          f"{medians['off']:.3f} ms, on {medians['on']:.3f} ms (ratio "
+          f"{medians['on'] / medians['off']:.3f})")
+    launches = {f"native {TF_NAME} model 2 snapshot turn {i} {'on' if on else 'off'} rank {r} "
+                f"(phase 25)": turns[r]["turns"][i]["launches"][f32]
+                for i, on in enumerate(TP25S_TURNS) for r in (0, 1)}
+    launches.update({f"native {TF_NAME} model 2 drained rank {r} (phase 25)":
+                     drained[r]["launches"][f32] for r in (0, 1)})
+    launches.update({f"native {TF_NAME} model 2 resumed rank {r} (phase 25)":
+                     resumed[r]["launches"][f32] for r in (0, 1)})
+    return dict(step_file=step_file, topology={k: topo[k] for k in ("format", "world_size",
+                                                                      "model_size", "mesh_shape")},
+                drained_step=drained[0]["step"], drained_epoch=preempts[0]["epoch"],
+                step_ms_median_snapshot_off=medians["off"],
+                step_ms_median_snapshot_on=medians["on"], digest=resumed[0]["digest"],
+                launches=launches)
 
 
 class _Mesh25:
@@ -6632,6 +6870,57 @@ def serving_phase():
     return dict(requests=requests, decode=decode, entry=entry, launches=launches)
 
 
+# ---------------------------------------------------------------- phase 27 --
+# the fleet: `python -m tpuddp_torch.fleet chaos-demo` cut for one card (the
+# port's launcher takes one process a GPU, so every job runs at world 1 on
+# cuda:0 and the pool counts three slots): two digits_h100.yaml training jobs
+# cut to short epochs with a checkpoint each, one toy_mlp serving job of up to
+# 2 replicas on cuda:0, one late arrival of priority 100; the SIGKILL resume,
+# one endorsed tuner action through drain and relaunch, the displacement
+# through the drain (never SIGKILL first), the serving job autoscaled 1 -> 2,
+# every history valid, every job in its own run dir; each training attempt's
+# Adam launches as the job itself reports them
+FLEET_TIMEOUT_S = 420
+
+
+def fleet_phase():
+    """Phase 27: the chaos demo on the card; its figures and each training
+    attempt's Adam launches."""
+    from tpuddp_torch.fleet import __main__ as fleet_cli
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="tpuddp_torch_fleet_")
+    t0 = time.perf_counter()
+    try:
+        summary = fleet_cli.run_chaos_demo(os.path.join(root, "fleet"), device="cuda",
+                                           timeout=FLEET_TIMEOUT_S)
+    except fleet_cli.ChaosCheckFailure as e:
+        raise SystemExit(f"chip_smoke: 27 fleet failed: {e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    f32 = fused_adam.kernel.symbol
+    launches = {f"native digits fleet {job} attempt {i} (phase 27)": attempt[f32]
+                for job, attempts in summary["adam_launches"].items()
+                for i, attempt in enumerate(attempts)}
+    card = card_line()
+    phase("27 fleet", f"chaos demo on one card (pool {summary['pool']} slots, every job at world 1 on "
+          f"cuda:0): supervisor histories {summary['supervisor_history']}; autoscaler "
+          f"{[(a['job'], a['action'], a['world']) for a in summary['autoscaler_actions']]} over "
+          f"{summary['scrapes']['tried']} scrapes ({summary['scrapes']['live']} live), "
+          f"{summary['proposals']} proposal(s); tuner {summary['tuner_counters']}; epochs "
+          f"{summary['epochs']}; every history valid; Adam launches by attempt {launches}")
+    phase("27 times", f"card {card}: SIGKILL -> resumed header {summary['sigkill_to_resumed_header_s']:.3f} s, "
+          f"-> resumed first epoch {summary['sigkill_to_resumed_epoch_s']:.3f} s; tuner SIGTERM -> exit "
+          f"75 {summary['tune_sigterm_to_exit_75_s']:.3f} s, -> relaunched header "
+          f"{summary['tune_sigterm_to_relaunched_header_s']:.3f} s, -> its first epoch "
+          f"{summary['tune_sigterm_to_relaunched_epoch_s']:.3f} s; displacement SIGTERM -> exit 75 "
+          f"{summary['displace_sigterm_to_exit_75_s']:.3f} s; scale-up -> the 2-replica header "
+          f"{summary['scale_up_to_scaled_header_s']:.3f} s; demo wall {wall_s:.1f} s")
+    return dict(**{k: v for k, v in summary.items() if k != "adam_launches"}, wall_s=wall_s,
+                launches=launches)
+
+
 def main() -> None:
     set_numerics()  # the entry points' numerics, for the pairs built here too
     name = torch.cuda.get_device_name(0)
@@ -6788,6 +7077,9 @@ def main() -> None:
     t26 = time.perf_counter()
     serving_26 = serving_phase()
     phase_26_s = time.perf_counter() - t26
+    t27 = time.perf_counter()
+    fleet_27 = fleet_phase()
+    phase_27_s = time.perf_counter() - t27
     f32_sym, bf16_sym = fused_adam.kernel.symbol, fused_adam.kernels[torch.bfloat16].symbol
     native_pair_launches = {f"native graph vs eager {p['label']} ({m})": p[f"launches_{m}"]
                             for p in native_chunk_pairs for m in ("replay", "eager")}
@@ -6881,6 +7173,9 @@ def main() -> None:
     print(json.dumps({"serving": {
         **{k: v for k, v in serving_26.items() if k != "launches"}, "phase_26_s": phase_26_s,
     }}))
+    print(json.dumps({"fleet": {
+        **{k: v for k, v in fleet_27.items() if k != "launches"}, "phase_27_s": phase_27_s,
+    }}))
     print(json.dumps({"optimizers": [
         {"name": n, **steps_8[n], "native_step_ms_median": epochs_8[n][1],
          "adam_f32_step_ms_median": steady_f32, "launches_by_path": {f"native {n}": epochs_8[n][0]}}
@@ -6948,6 +7243,7 @@ def main() -> None:
                 f"native {TF_NAME} chunks (phase 24)": tf_24["steps"]["launches"]}
     phase_25 = tp_25["launches"]
     phase_26 = serving_26["launches"][f32_sym]
+    phase_27 = fleet_27["launches"]
     phase_26_bf16 = serving_26["launches"][bf16_sym]
     by_path = {"native": launches_f32, "toy_cnn sync_bn": launches_toy,
                "managed": launches_managed, "managed accum 2": launches_accum,
@@ -6956,7 +7252,8 @@ def main() -> None:
                "native resumed": resume_native, "managed resumed": resume_managed, **phase_8,
                "native digits": launches_digits, **phase_9, **phase_10, **phase_11_f32, **phase_12,
                **phase_13, **phase_14, **phase_15, **phase_16, **phase_17, **phase_18, **phase_19,
-               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24, **phase_25, **phase_26}
+               **phase_20, **phase_21, **phase_22, **phase_23, **phase_24, **phase_25, **phase_26,
+               **phase_27}
     common = dict(route="cuda", source="tpuddp_torch/ops/csrc/fused_adam.cu",
                   replaces="tpuddp/ops/fused_adam.py:71", design=DESIGN)
     flat = {d: {**t_flat[d], "max_abs_err": err_flat[d], "launches_by_path": (
@@ -6990,7 +7287,7 @@ def main() -> None:
                               **{k: 0 for k in phase_20}, **{k: 0 for k in phase_21},
                               **{k: 0 for k in phase_22}, **{k: 0 for k in phase_23},
                               **{k: 0 for k in phase_24}, **{k: 0 for k in phase_25},
-                              **phase_26_bf16},
+                              **phase_26_bf16, **{k: 0 for k in phase_27}},
          "flat_shard": flat[torch.bfloat16],
          "guarded": {**guard_14["kernel"][torch.bfloat16], "library_note": NO_LIBRARY_BF16,
                      "launches_by_path": {}},
@@ -7005,7 +7302,7 @@ def main() -> None:
           f"phase 17: {phase_17_s:.1f} s, phase 18: {phase_18_s:.1f} s, phase 19: {phase_19_s:.1f} s, "
           f"phase 20: {phase_20_s:.1f} s, phase 21: {phase_21_s:.1f} s, phase 22: {phase_22_s:.1f} s, "
           f"phase 23: {phase_23_s:.1f} s, phase 24: {phase_24_s:.1f} s, phase 25: {phase_25_s:.1f} s, "
-          f"phase 26: {phase_26_s:.1f} s)")
+          f"phase 26: {phase_26_s:.1f} s, phase 27: {phase_27_s:.1f} s)")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

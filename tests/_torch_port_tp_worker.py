@@ -2,7 +2,7 @@
 tests/test_torch_port_tp_gloo.py and tests/test_torch_port_tp_elastic.py.
 
     python tests/_torch_port_tp_worker.py WORKDIR WORLD
-    python tests/_torch_port_tp_worker.py --train OUT_DIR EPOCHS
+    python tests/_torch_port_tp_worker.py --train OUT_DIR EPOCHS [EVERY_STEPS]
 
 ``--train`` is the elastic legs' token job, the JAX package's
 ``tests/_chaos_tp_worker.py`` on the port: ``transformer_tiny`` (V 64,
@@ -10,8 +10,9 @@ T 32, global batch 8, 4 batches an epoch) through ``run_ddp_training`` ->
 ``train_native.basic_ddp_training_loop`` on ``$TPUDDP_WORLD_SIZE``
 processes (default 4) at ``parallel: {model: 2}`` unless
 ``$TPUDDP_MODEL_SIZE`` says otherwise, a checkpoint every epoch,
-``reshard_on_mismatch: true``; ``$TPUDDP_FAULT`` and
-``$TPUDDP_AUTO_RESUME`` act as on any run.
+``reshard_on_mismatch: true``, and with ``EVERY_STEPS`` a step snapshot
+(``training.snapshot``) every that many micro-batches; ``$TPUDDP_FAULT``
+and ``$TPUDDP_AUTO_RESUME`` act as on any run.
 
 ``WORKDIR/jobs.json`` is a list of jobs, run one after another in one world
 of ``WORLD`` processes (the port's own launcher, ``run_ddp_training`` on
@@ -231,8 +232,10 @@ TRAIN = dict(model="transformer_tiny", num_classes=64, learning_rate=1e-3, seed=
 TRAIN_LOADERS = dict(vocab=64, seq_len=32, global_batch=8, n_batches=4)
 
 
-def train(out_dir: str, epochs: int):
+def train(out_dir: str, epochs: int, every_steps: int = 0):
     training = dict(cfg.TRAINING_DEFAULTS, num_epochs=epochs, **TRAIN)
+    if every_steps:
+        training["snapshot"] = {"every_steps": every_steps}
     parallel = cfg.resolve_parallel({"model": 2})  # $TPUDDP_MODEL_SIZE overrides the width
     world = int(os.environ.get("TPUDDP_WORLD_SIZE") or 4)
     torch.set_num_threads(2)
@@ -244,7 +247,7 @@ def train(out_dir: str, epochs: int):
 
 if __name__ == "__main__":
     if sys.argv[1] == "--train":
-        train(sys.argv[2], int(sys.argv[3]))
+        train(sys.argv[2], int(sys.argv[3]), *map(int, sys.argv[4:5]))
     else:
         workdir, world = sys.argv[1], int(sys.argv[2])
         run_ddp_training(partial(worker, workdir=workdir), world, workdir, {}, backend="cpu")

@@ -92,12 +92,15 @@ def test_resolve_observability_is_the_jax_one(block):
 
 
 def test_the_advisor_is_refused_naming_fleet_and_tune():
-    assert jax_config.resolve_observability({"advisor": True})["advisor"] is True
-    for call in (lambda: cfg.resolve_observability({"advisor": True}),
-                 lambda: cfg.check_settings({"observability": {"advisor": True}}),
-                 lambda: cfg.observability_config({"observability": {"advisor": 1}})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8: fleet and tune"):
-            call()
+    """``observability.advisor: true`` is ported (the flight recorder's
+    ``pending_tune`` context): the block resolves as the JAX package's does
+    and the settings check takes it."""
+    for block in ({"advisor": True}, {"advisor": 1, "exporter": True}):
+        assert cfg.resolve_observability(block) == jax_config.resolve_observability(block)
+        assert cfg.observability_config({"observability": block}) == \
+            jax_config.observability_config({"observability": block})
+        cfg.check_settings({"observability": block})
+    assert cfg.resolve_observability({"advisor": True})["advisor"] is True
     assert cfg.observability_config({}) == jax_config.observability_config({})
     cfg.check_settings({"observability": {"exporter": True, "tracing": True}})
 

@@ -343,21 +343,37 @@ def test_more_than_one_host_is_refused(monkeypatch):
 
 
 def test_token_model_and_snapshot_refusals_stay():
+    """The bf16-token refusal stays; step snapshots of a ``model_size > 1``
+    wrap are taken now (``tests/test_torch_port_tp_snapshot.py`` drains and
+    resumes one): the loop goes past the snapshot set-up to the header, and
+    the block resolves as the JAX package's does."""
     with pytest.raises(NotImplementedError, match="bf16 compute of token models"):
         cfg.training_config({"training": {"model": NAME, "compute_dtype": "bfloat16"}})
+    from tpuddp.training import snapshot as jax_snapshot
     from tpuddp_torch.training import loop
+    from tpuddp_torch.training import snapshot as snapshot_lib
+
+    class PastTheSnapshotSetUp(Exception):
+        pass
 
     class Wrap:
         model_size, rank, world_size, device = 2, 0, 4, torch.device("cpu")
         model = load_model(NAME, V)
         grad_accumulation = 1
 
+        @property
+        def comm_overlap_meta(self):  # read for the run_meta header
+            raise PastTheSnapshotSetUp
+
     class Loader(list):
         batch_nbytes = 0
 
-    with pytest.raises(NotImplementedError, match="tensor parallel, part 2"):
-        loop.run_training_loop(Wrap(), Loader([1]), Loader([1]), None, snapshot=True,
-                               log=lambda *a: None)
+    for block in (True, {"every_steps": 2, "inflight": 1}):
+        with pytest.raises(PastTheSnapshotSetUp):
+            loop.run_training_loop(Wrap(), Loader([1]), Loader([1]), None, snapshot=block,
+                                   log=lambda *a: None)
+        assert snapshot_lib.resolve_snapshot(block).as_dict() == \
+            jax_snapshot.resolve_snapshot(block).as_dict()
 
 
 # ------------------------------------------------------------ the reshaper --

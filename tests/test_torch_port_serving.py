@@ -164,9 +164,16 @@ def test_the_serving_blocks_are_the_jax_packages(monkeypatch):
         assert str(err.value) == str(jax_err.value)
     monkeypatch.setenv("TPUDDP_SERVING_REPLICAS", "3")
     assert cfg.serving_config({})["num_replicas"] == jax_cfg.serving_config({})["num_replicas"] == 3
+    # the tune overlay's serving and decode sections merge last, as in the
+    # JAX package; an empty overlay changes nothing
     monkeypatch.setenv("TPUDDP_TUNE_OVERLAY", "{}")
-    with pytest.raises(NotImplementedError, match="fleet and tune"):
-        cfg.serving_config({})
+    assert cfg.serving_config({}) == jax_cfg.serving_config({})
+    monkeypatch.setenv("TPUDDP_TUNE_OVERLAY", '{"serving": {"batch_timeout_ms": 1}, '
+                       '"decode": {"max_slots": 4}}')
+    assert cfg.serving_config(settings) == jax_cfg.serving_config(settings)
+    assert cfg.serving_config(settings)["batch_timeout_ms"] == 1
+    assert cfg.decode_config(cfg.serving_config(settings)) == jax_cfg.decode_config(
+        jax_cfg.serving_config(settings))
 
 
 # ------------------------------------------------------ queue and scheduler --

@@ -403,14 +403,16 @@ def test_bf16_state_is_an_adam_knob():
     {"observability": {"exporter": True, "advisor": True}},
 ])
 def test_unported_settings_blocks_are_refused(settings):
-    """The advisor is not ported (NotImplementedError naming its ROADMAP
-    item). A ``parallel`` block is: ``model: 2`` is accepted on a world it
-    tiles, with the JAX package's ValueErrors where it does not, under
-    ``hierarchical``, and (at the wrap) for a model without partition
+    """Both blocks are ported now. The advisor's block resolves as the JAX
+    package's does. A ``parallel`` block is: ``model: 2`` is accepted on a
+    world it tiles, with the JAX package's ValueErrors where it does not,
+    under ``hierarchical``, and (at the wrap) for a model without partition
     metadata (tests/test_torch_port_mesh2d.py)."""
     if "parallel" not in settings:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cfg.check_settings(settings)
+        from tpuddp import config as jax_config
+
+        cfg.check_settings(settings)
+        assert cfg.observability_config(settings) == jax_config.observability_config(settings)
         return
     cfg.check_settings(settings, world_size=4)
     with pytest.raises(ValueError, match="does not tile"):

@@ -42,7 +42,10 @@ block (the live plane: flight recorder, exporter, pod shards, tracing;
 top-level ``serving`` block with its ``decode`` sub-block (the serving
 engines of :mod:`tpuddp_torch.serving`, :func:`serving_config`,
 :func:`decode_config`; ``$TPUDDP_SERVING_REPLICAS`` overrides the replica
-count). Every knob whose non-default value needs a part
+count). ``$TPUDDP_TUNE_OVERLAY`` (the fleet tuner's lever) merges its
+``training``, ``serving`` and ``decode`` sections over the resolved blocks
+last (:func:`apply_tune_overlay`; :func:`tuning_provenance_from_env` is the
+header's ``tuning``). Every knob whose non-default value needs a part
 of the JAX package that is not ported yet is refused with
 ``NotImplementedError`` naming its ROADMAP item (:func:`check_supported`),
 never ignored. The native path's ``scan_steps`` (K batches per dispatch,
@@ -246,12 +249,13 @@ def check_supported(training: Dict[str, Any]) -> None:
 
 def training_config(settings: Dict[str, Any]) -> Dict[str, Any]:
     """Merge the settings file's ``training`` block over the defaults,
-    refusing unknown keys and unported values."""
-    if os.environ.get("TPUDDP_TUNE_OVERLAY"):
-        raise _not_ported("$TPUDDP_TUNE_OVERLAY", "Queue 1 item 8: fleet and tune")
+    refusing unknown keys and unported values; a ``training`` section of
+    ``$TPUDDP_TUNE_OVERLAY`` merges last (:func:`apply_tune_overlay`,
+    ``tpuddp/config.py:791-800``)."""
     cfg = _merge_refusing_unknown(
         TRAINING_DEFAULTS, settings.get("training") or {}, "training"
     )
+    cfg, _ = apply_tune_overlay(cfg, section="training")
     check_supported(cfg)
     return cfg
 
@@ -262,15 +266,15 @@ def check_settings(settings: Dict[str, Any], world_size: Optional[int] = None) -
     ``ValueError``s (:func:`resolve_parallel`; ``data * model`` must tile
     ``world_size``, and ``comm_topology: hierarchical`` takes no model axis,
     :func:`mesh_from`'s texts), ZeRO-1 with a model axis, and an
-    ``observability`` block's ``advisor: true`` (and the block's
-    ``ValueError`` texts, :func:`resolve_observability`). Returns the
+    ``observability`` block's ``ValueError`` texts
+    (:func:`resolve_observability`). Returns the
     resolved ``parallel`` block, the one the run goes on with."""
     parallel = resolve_parallel(settings.get("parallel"))
     training = settings.get("training") or {}
     check_weight_update_sharding(training, parallel["model"])
     if world_size is not None:
         check_tiling(parallel, world_size, str(training.get("comm_topology") or "flat"))
-    observability_config(settings)  # its ValueErrors and the advisor's refusal, before a run
+    observability_config(settings)  # its ValueErrors, before a run
     return parallel
 
 
@@ -331,30 +335,127 @@ SERVING_REPLICAS_ENV = "TPUDDP_SERVING_REPLICAS"
 def serving_config(settings: Dict[str, Any]) -> Dict[str, Any]:
     """The settings file's ``serving`` block over :data:`SERVING_DEFAULTS`,
     unknown keys refused; ``$TPUDDP_SERVING_REPLICAS`` overrides
-    ``num_replicas`` (``tpuddp/config.py:487-502``). A tune overlay is
-    refused, as :func:`training_config` refuses it."""
-    if os.environ.get("TPUDDP_TUNE_OVERLAY"):
-        raise _not_ported("$TPUDDP_TUNE_OVERLAY", "Queue 1 item 8: fleet and tune")
+    ``num_replicas`` (``tpuddp/config.py:487-502``) and a ``serving``
+    section of ``$TPUDDP_TUNE_OVERLAY`` merges last."""
     cfg = _merge_refusing_unknown(SERVING_DEFAULTS, settings.get("serving") or {}, "serving")
     env = os.environ.get(SERVING_REPLICAS_ENV)
     if env:
         cfg["num_replicas"] = int(env)
+    cfg, _ = apply_tune_overlay(cfg, section="serving")
     return cfg
+
+
+# The fleet tuner's knob lever (tpuddp/config.py:506-600;
+# tpuddp_torch/tune/online.py): a JSON object in this env var carries
+# per-section config diffs plus the provenance fields that land in the
+# run_meta header's ``tuning``. It rides the drain-and-relaunch contract
+# the way $TPUDDP_WORLD_SIZE does: the controller mutates the supervisor's
+# env and SIGTERMs the child; the relaunch resolves its config through the
+# overlay. Unset, config resolution is what it was without it.
+TUNE_OVERLAY_ENV = "TPUDDP_TUNE_OVERLAY"
+_TUNE_OVERLAY_SECTIONS = ("training", "serving", "decode")
+
+
+def _tune_overlay() -> Optional[Dict[str, Any]]:
+    """``$TPUDDP_TUNE_OVERLAY`` parsed; None when unset. A garbled overlay
+    is refused: training the baseline config while the header claims a
+    tuned one would spoil every A/B comparison after it."""
+    raw = os.environ.get(TUNE_OVERLAY_ENV)
+    if not raw:
+        return None
+    import json
+
+    try:
+        overlay = json.loads(raw)
+    except ValueError as e:
+        raise ValueError(f"${TUNE_OVERLAY_ENV} is not valid JSON: {e}")
+    if not isinstance(overlay, dict):
+        raise ValueError(
+            f"${TUNE_OVERLAY_ENV} must be a JSON object, got {overlay!r}"
+        )
+    unknown = set(overlay) - set(_TUNE_OVERLAY_SECTIONS) - {
+        "source", "rule", "generation"
+    }
+    if unknown:
+        raise ValueError(
+            f"unknown ${TUNE_OVERLAY_ENV} key(s) {sorted(unknown)}; expected "
+            f"sections {_TUNE_OVERLAY_SECTIONS} plus source/rule/generation"
+        )
+    return overlay
+
+
+def apply_tune_overlay(cfg: Dict[str, Any], section: str = "training") -> tuple:
+    """``$TPUDDP_TUNE_OVERLAY``'s ``section`` diff merged over a resolved
+    config dict: ``(config, tuning_provenance)``. With no overlay set the
+    input dict itself comes back with provenance None. Knob names are
+    checked against the section's defaults and the dict's own keys (the
+    JAX package's refusal texts); dict-valued knobs (``pipeline``,
+    ``snapshot``, ``guard``) merge one level deep."""
+    overlay = _tune_overlay()
+    if overlay is None:
+        return cfg, None
+    diff = overlay.get(section) or {}
+    if not isinstance(diff, dict):
+        raise ValueError(
+            f"${TUNE_OVERLAY_ENV}.{section} must be an object, got {diff!r}"
+        )
+    merged = dict(cfg)
+    if diff:
+        defaults = {
+            "training": TRAINING_DEFAULTS,
+            "serving": SERVING_DEFAULTS,
+            "decode": DECODE_DEFAULTS,
+        }.get(section) or {}
+        known = set(defaults) | set(cfg)
+        unknown = set(diff) - known
+        if unknown:
+            raise ValueError(
+                f"${TUNE_OVERLAY_ENV}.{section} carries unknown knob(s) "
+                f"{sorted(unknown)}; known: {sorted(known)}"
+            )
+        for knob, value in diff.items():
+            if isinstance(value, dict) and isinstance(merged.get(knob), dict):
+                merged[knob] = {**merged[knob], **value}
+            else:
+                merged[knob] = value
+    return merged, tuning_provenance_from_env(section=section)
+
+
+def tuning_provenance_from_env(section: str = "training") -> Optional[dict]:
+    """The run_meta header's ``tuning`` block (schema v12): the overlay
+    this run's knobs came from, or None with no overlay set."""
+    overlay = _tune_overlay()
+    if overlay is None:
+        return None
+    return {
+        "source": overlay.get("source") or "overlay",
+        "rule": overlay.get("rule"),
+        "generation": overlay.get("generation"),
+        "applied": {
+            sec: overlay[sec]
+            for sec in _TUNE_OVERLAY_SECTIONS
+            if isinstance(overlay.get(sec), dict) and overlay[sec]
+        },
+        "section": section,
+    }
 
 
 def decode_config(serving: Dict[str, Any]) -> Optional[Dict[str, Any]]:
     """A resolved ``serving`` block's ``decode`` sub-block
     (``tpuddp/config.py:252-269``): None or False give None (no token
     engine), True the defaults, a mapping the defaults with its keys,
-    unknown ones refused."""
+    unknown ones refused; a ``decode`` section of ``$TPUDDP_TUNE_OVERLAY``
+    merges last."""
     block = serving.get("decode")
     if block is None or block is False:
         return None
     if block is True:
-        return dict(DECODE_DEFAULTS)
+        block = {}
     if not isinstance(block, dict):
         raise ValueError(f"serving.decode must be a mapping or bool, got {block!r}")
-    return _merge_refusing_unknown(DECODE_DEFAULTS, block, "serving.decode")
+    cfg = _merge_refusing_unknown(DECODE_DEFAULTS, block, "serving.decode")
+    cfg, _ = apply_tune_overlay(cfg, section="decode")
+    return cfg
 
 
 # 2-D mesh knobs (tpuddp/config.py:317-330): the top-level ``parallel``
@@ -458,7 +559,8 @@ OBSERVABILITY_DEFAULTS = {
     "tracing": False,  # span trees of the native loop (observability/trace.py), exported as
     # trace_train.json and served on /trace; host bracketing only
     "trace_capacity": 4096,  # completed-span ring length per process
-    "advisor": False,  # the autotuning advisor's crash hook: refused (fleet and tune)
+    "advisor": False,  # the autotuning advisor's crash hook: a flight dump carries its
+    # top pending recommendation (observability/advisor.py)
 }
 
 
@@ -474,9 +576,7 @@ def resolve_observability(block) -> Dict[str, Any]:
     defaults (exporter off, aggregation and the flight recorder on); False
     turns the plane off; a mapping overrides the defaults, unknown keys
     refused with a did-you-mean hint. ``exporter`` also takes ``{host,
-    port}`` for the three exporter knobs. ``advisor: true`` raises
-    ``NotImplementedError`` (the advisor is ROADMAP.md's "fleet and
-    tune")."""
+    port}`` for the three exporter knobs."""
     if block is None or block is True:
         return dict(OBSERVABILITY_DEFAULTS)
     if block is False:
@@ -498,10 +598,7 @@ def resolve_observability(block) -> Dict[str, Any]:
         if "port" in exporter:
             block.setdefault("exporter_port", exporter["port"])
         block["exporter"] = True
-    cfg = _merge_refusing_unknown(OBSERVABILITY_DEFAULTS, block, "observability")
-    if cfg["advisor"]:
-        raise _not_ported("observability.advisor", "Queue 1 item 8: fleet and tune")
-    return cfg
+    return _merge_refusing_unknown(OBSERVABILITY_DEFAULTS, block, "observability")
 
 
 def rendezvous_from(settings: Dict[str, Any]) -> Dict[str, Any]:

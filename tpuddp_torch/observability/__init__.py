@@ -7,8 +7,9 @@ recorder, profiling and the bundle an epoch loop wires through its passes
 the straggler detector (:mod:`~tpuddp_torch.observability.aggregate`) and
 the causal tracing plane (:mod:`~tpuddp_torch.observability.trace`), set by
 a settings file's ``observability`` block
-(:func:`tpuddp_torch.config.resolve_observability`). The autotuning
-advisor (``advisor: true``) is ROADMAP.md Queue 1 item 8 "fleet and tune".
+(:func:`tpuddp_torch.config.resolve_observability`), and the autotuning
+advisor (:mod:`~tpuddp_torch.observability.advisor`; ``advisor: true``
+arms its ``pending_tune`` flight context).
 """
 
 from tpuddp_torch.observability.metrics import (  # noqa: F401

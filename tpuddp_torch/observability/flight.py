@@ -176,6 +176,25 @@ class FlightRecorder:
         return {"capacity": self.capacity}
 
 
+def arm_pending_tune(recorder: Optional[FlightRecorder], obs_cfg: dict,
+                     run_dir: Optional[str]) -> bool:
+    """With ``observability.advisor`` on or ``$TPUDDP_TUNE_OVERLAY`` set,
+    give ``recorder`` the ``pending_tune`` context (``tpuddp/training/
+    loop.py:293-300``): a dump then carries the advisor's top pending
+    recommendation over ``run_dir``, so a preempted or crashed run keeps
+    what it had learned. Returns whether it armed."""
+    from tpuddp_torch.config import TUNE_OVERLAY_ENV
+
+    if recorder is None or run_dir is None:
+        return False
+    if not (obs_cfg.get("advisor") or os.environ.get(TUNE_OVERLAY_ENV)):
+        return False
+    from tpuddp_torch.observability import advisor
+
+    recorder.add_context("pending_tune", lambda: advisor.pending_summary(run_dir))
+    return True
+
+
 def install(recorder: FlightRecorder) -> FlightRecorder:
     """Register a live recorder for :func:`dump_all`."""
     with _registry_lock:

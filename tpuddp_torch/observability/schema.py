@@ -299,6 +299,7 @@ def make_run_meta(
     mesh: Optional[dict] = None,
     decode: Optional[dict] = None,
     survivability: Optional[dict] = None,
+    tuning: Optional[dict] = None,
 ) -> dict:
     """The run_meta header row of a port run, with every key of the JAX
     package's ``make_run_meta`` (``tpuddp/observability/schema.py:325-433``).
@@ -318,7 +319,9 @@ def make_run_meta(
     its rule table's hash; the mesh shape then ``{"data", "model"}``), else
     derived from ``world_size``; ``decode`` the decode engine's provenance
     (schema v6) and ``survivability`` a serving engine's policy (v7), null
-    for every other writer."""
+    for every other writer; ``tuning`` the ``$TPUDDP_TUNE_OVERLAY``
+    provenance (v12, ``config.tuning_provenance_from_env``), null without
+    an overlay."""
     import torch
 
     import tpuddp_torch
@@ -355,7 +358,7 @@ def make_run_meta(
         "tracing": tracing,
         "comm": comm,
         "snapshot": snapshot,
-        "tuning": None,
+        "tuning": tuning,
     }
     if extra:
         record.update(extra)
@@ -615,4 +618,76 @@ def validate_trace_file(path: str) -> Tuple[List[str], int]:
     n = 0
     if isinstance(payload, dict) and isinstance(payload.get("traceEvents"), list):
         n = sum(1 for e in payload["traceEvents"] if isinstance(e, dict) and e.get("ph") == "X")
+    return errors, n
+
+
+# ----------------------------------------------------------- tune reports --
+# TUNE_r*.json (tpuddp/observability/schema.py:760-868), the A/B probe's
+# report (python -m tpuddp_torch.tune, tune/probe.py): one JSON object
+# stamped ``type: tune_report``, its baseline metrics and one result row
+# per advisor rule probed.
+TUNE_MODES = ("train", "serving")
+_TUNE_ROW_REQUIRED = ("rule", "rule_class", "knob", "diff", "metric", "predicted_delta_pct",
+                      "measured_delta_pct", "endorsed", "evidence")
+TUNE_RULE_CLASSES = ("pipeline", "comm", "snapshot", "serving")
+
+
+def validate_tune_payload(payload) -> List[str]:
+    """Schema errors for a ``TUNE_r*.json`` payload (empty = valid), the JAX
+    package's texts. A row whose ``measured_delta_pct`` is negative (a
+    regression on its own metric) must not carry ``endorsed: true``: the
+    fleet never applies a knob the probe watched regress."""
+    if not isinstance(payload, dict):
+        return ["tune payload is not a JSON object"]
+    errors = []
+    if payload.get("type") != "tune_report":
+        errors.append(f"'type' must be 'tune_report', got {payload.get('type')!r}")
+    version = payload.get("schema_version")
+    if not isinstance(version, int) or version < 12:
+        errors.append(f"schema_version {version!r} is not an int >= 12 (tune reports "
+                      "were introduced at v12)")
+    elif version > SCHEMA_VERSION:
+        errors.append(f"schema_version {version} is newer than this reader's {SCHEMA_VERSION}")
+    errors += [f"missing field {k!r}" for k in _REQUIRED["tune_report"] if k not in payload]
+    if "mode" in payload and payload.get("mode") not in TUNE_MODES:
+        errors.append(f"unknown mode {payload.get('mode')!r}; expected one of {TUNE_MODES}")
+    if "baseline_metrics" in payload and not isinstance(payload.get("baseline_metrics"), dict):
+        errors.append("'baseline_metrics' must be an object of metric -> value")
+    results = payload.get("results")
+    if results is None:
+        return errors
+    if not isinstance(results, list):
+        return errors + ["'results' must be a list of rule rows"]
+    for i, row in enumerate(results):
+        if not isinstance(row, dict):
+            errors.append(f"result {i}: not an object")
+            continue
+        missing = [k for k in _TUNE_ROW_REQUIRED if k not in row]
+        if missing:
+            errors.append(f"result {i}: missing field(s) {missing}")
+        rclass = row.get("rule_class")
+        if "rule_class" in row and rclass not in TUNE_RULE_CLASSES:
+            errors.append(f"result {i}: unknown rule_class {rclass!r}; expected one "
+                          f"of {TUNE_RULE_CLASSES}")
+        if "diff" in row and not isinstance(row.get("diff"), dict):
+            errors.append(f"result {i}: 'diff' must be a config-diff object")
+        if "evidence" in row and not isinstance(row.get("evidence"), list):
+            errors.append(f"result {i}: 'evidence' must be a list of citations")
+        measured = row.get("measured_delta_pct")
+        if isinstance(measured, (int, float)) and measured < 0 and row.get("endorsed") is True:
+            errors.append(f"result {i}: endorsed=true with a regressing measured "
+                          f"delta ({measured:+.2f}%) — the probe must refuse")
+    return errors
+
+
+def validate_tune_file(path: str) -> Tuple[List[str], int]:
+    """Parse and validate a ``TUNE_r*.json`` artifact: ``(errors, result
+    rows)``; non-strict JSON is itself an error."""
+    try:
+        payload = _strict_json(path)
+    except (OSError, ValueError) as e:
+        return [f"cannot parse {path}: {e}"], 0
+    errors = validate_tune_payload(payload)
+    n = len(payload["results"]) if isinstance(payload, dict) and isinstance(
+        payload.get("results"), list) else 0
     return errors, n

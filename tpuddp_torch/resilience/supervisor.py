@@ -166,10 +166,17 @@ class RestartSupervisor:
     # ---------------------------------------------------------- the child --
     def _popen_runner(self, argv: Sequence[str], env: Dict[str, str]) -> int:
         """Run the child, keeping it on ``self.child`` for
-        :meth:`signal_child`; an exception while waiting (a KeyboardInterrupt)
-        kills the child before it propagates, so no trainer is orphaned."""
+        :meth:`signal_child`; a child spawned after :meth:`request_stop` is
+        sent SIGTERM at once (the controller's drain found none to signal);
+        an exception while waiting (a KeyboardInterrupt) kills the child
+        before it propagates, so no trainer is orphaned."""
         proc = subprocess.Popen(list(argv), env=env)
         self.child = proc
+        if self._stop.is_set():
+            # a stop (and the controller's SIGTERM) that landed between the
+            # run loop's check and this spawn found no child to signal: drain
+            # this one now, or preempted work would run unsignalled
+            self.signal_child(signal_lib.SIGTERM)
         try:
             return proc.wait()
         except BaseException:

@@ -6,8 +6,10 @@ Reads the same YAML settings file the training entry points use; the
 keys refused) configures the engine, ``out_dir`` receives ``history.jsonl``
 (run_meta + serving_stats + events). The replicas' devices come from
 ``local.device`` (:func:`tpuddp_torch.config.device_from`): ``cuda``, the
-default, gives every visible card (``num_replicas`` takes the first N) and
-raises without one; ``cpu`` gives one replica on the host.
+default, gives every visible card (``num_replicas`` takes the first N), or
+the cards ``local.gpu.serving_devices`` lists (``[0, 0]``: up to two
+replicas on ``cuda:0``), and raises without one; ``cpu`` gives one replica
+on the host.
 
 Modes:
 
@@ -31,8 +33,9 @@ Modes:
   in ``<out_dir>/exporter.port``).
 
 Stdout contract: the LAST line is one compact JSON object (the SLO
-summary). A ``$TPUDDP_TUNE_OVERLAY`` is refused, as the training entry
-points refuse it.
+summary). A ``$TPUDDP_TUNE_OVERLAY`` merges its ``serving`` and ``decode``
+sections over the settings file's blocks, and the request engine's header
+records it under ``tuning``.
 """
 
 from __future__ import annotations
@@ -107,7 +110,8 @@ def main(argv=None) -> int:
     settings = config_lib.load_settings(args.settings)
     serving = config_lib.serving_config(settings)
     observability = config_lib.observability_config(settings)
-    devices = serving_devices(config_lib.device_from(settings))
+    devices = serving_devices(config_lib.device_from(settings),
+                              ((settings.get("local") or {}).get("gpu") or {}).get("serving_devices"))
     out_dir = settings.get("out_dir")
     if out_dir:
         out_dir = config_lib.prepare_out_dir(settings, args.settings)

@@ -28,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpuddp_torch.config import tuning_provenance_from_env
 from tpuddp_torch.observability import MetricsWriter, schema
 from tpuddp_torch.observability import trace as trace_lib
 from tpuddp_torch.resilience import faults
@@ -176,6 +177,7 @@ class ServingEngine:
             cfg = self._config
             self.writer.write(run_meta_header(
                 len(self.pool), self.pool.devices[0],
+                tuning=tuning_provenance_from_env("serving"),
                 observability={
                     "exporter": (
                         self.exporter.describe() if self.exporter is not None else False

@@ -35,13 +35,16 @@ from tpuddp_torch.training import checkpoint as ckpt
 logger = logging.getLogger("tpuddp")
 
 
-def serving_devices(kind: str = "cuda") -> List[torch.device]:
+def serving_devices(kind: str = "cuda", indices: Optional[Sequence[int]] = None) -> List[torch.device]:
     """The devices ``local.device`` gives the engines: every visible card
     for ``cuda`` (``num_replicas: auto`` takes them all), the one host for
-    ``cpu``. ``cuda`` without a card raises: the engines never serve on the
-    CPU in its place."""
+    ``cpu``. ``indices`` (``local.gpu.serving_devices``) names the cards in
+    order instead, an index repeated to put several replicas on one card
+    (``[0, 0]``: two replicas on ``cuda:0``; on the CPU, as many replicas
+    on the host). ``cuda`` without a card raises: the engines never serve on
+    the CPU in its place."""
     if kind == "cpu":
-        return [torch.device("cpu")]
+        return [torch.device("cpu")] * (len(indices) if indices else 1)
     if kind != "cuda":
         raise ValueError(f"unsupported device kind {kind!r} (expected cuda or cpu)")
     if not torch.cuda.is_available():
@@ -49,7 +52,13 @@ def serving_devices(kind: str = "cuda") -> List[torch.device]:
             "local.device is cuda but torch.cuda.is_available() is False; the serving "
             "engines do not fall back to the CPU (set local.device: cpu to serve there)"
         )
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    count = torch.cuda.device_count()
+    if indices is None:
+        return [torch.device("cuda", i) for i in range(count)]
+    bad = [i for i in indices if not 0 <= int(i) < count]
+    if bad or not indices:
+        raise ValueError(f"local.gpu.serving_devices {list(indices)} must name cards 0..{count - 1}")
+    return [torch.device("cuda", int(i)) for i in indices]
 
 
 def set_numerics() -> None:

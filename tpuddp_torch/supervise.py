@@ -27,9 +27,10 @@ SupervisorPolicy`) and ``tools/supervise.py``'s; ``--first-env KEY=VAL``
 applies to the first attempt only (a fault injected there must not fire
 again in the resumed run); ``--world`` pins ``$TPUDDP_WORLD_SIZE`` and arms
 the shrink; ``--flight-dir DIR`` logs a summary of each flight recording
-the child leaves in DIR (usually its ``out_dir``) before each restart. A
-``--model`` over 1 belongs to a part the port has not ported: the entry
-points refuse it, naming its ROADMAP entry.
+the child leaves in DIR (usually its ``out_dir``) before each restart.
+``--model`` pins ``$TPUDDP_MODEL_SIZE``; the native entry point then
+derives ``data = world / model`` and, with ``training.reshard_on_mismatch``,
+reshapes a checkpoint of another width on load.
 """
 
 from __future__ import annotations

@@ -284,6 +284,7 @@ def run_training_loop(
     if leader and obs_cfg["flight_recorder"] and save_dir is not None:
         flight = flight_lib.install(flight_lib.FlightRecorder(
             save_dir, capacity=int(obs_cfg["flight_capacity"]), process_index=host))
+        flight_lib.arm_pending_tune(flight, obs_cfg, save_dir)
     # the typed history (train_accelerate.py:276-420): the header, then the
     # recorder and the profiling triggers; MFU stays null, as the JAX
     # managed rows have it (no FLOPs probe on this path)
@@ -304,6 +305,7 @@ def run_training_loop(
         comm={"overlap": dict(accelerator.comm_overlap_meta)},
         # the managed flavour's provenance (drain-time step snapshots only)
         snapshot={**snap_cfg.as_dict(), "mode": "drain"} if snap_cfg.enabled else False,
+        tuning=cfg_lib.tuning_provenance_from_env(),  # the overlay's provenance (null: none)
         extra={
             "api": "managed",
             "fuse_steps": accelerator.fuse_steps,

@@ -256,7 +256,10 @@ def basic_ddp_training_loop(
     :func:`~tpuddp_torch.data.tokens.token_loaders` partial."""
     unit = "GPU" if device == "cuda" else "process"
     print(f"Running DDP training on process {rank} ({world_size}-{unit} world).")
-    training = dict(training or cfg_lib.TRAINING_DEFAULTS)
+    # a worker handed a resolved training dict picks up $TPUDDP_TUNE_OVERLAY
+    # here too (train_native.py:54-57); over training_config's result the
+    # merge is idempotent
+    training, _ = cfg_lib.apply_tune_overlay(dict(training or cfg_lib.TRAINING_DEFAULTS))
     ddp, train_loader, test_loader, base_seed = build_training(
         rank, world_size, training, device, loaders, parallel
     )

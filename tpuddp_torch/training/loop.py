@@ -116,8 +116,14 @@ model)`` shape is reshaped on load (``training/reshard.py``).
 Tensor parallelism (a wrap with ``model_size > 1``): the metric sums and
 the per-replica lines are the data group's (each data replica's, as the
 JAX package's per-replica metrics; model-axis neighbours hold the same
-batch), the header's ``mesh`` block is the wrap's, and step snapshots are
-refused (ROADMAP.md Queue 1 item 8: tensor parallel, part 2).
+batch) and the header's ``mesh`` block is the wrap's. A step snapshot's
+capture is a collective of each model group (``checkpoint.capture``
+gathers the shards' whole tensors on the loop's thread, every rank at the
+same dispatch boundary; the writer thread issues none), the file carries
+the model-width topology (``reshard.tp_topology``), and the agreed drain
+(:class:`AgreedPoll`) spans the whole ``(data, model)`` world, so a
+``preempt@step`` drain exits 75 on every rank at one step
+(``tpuddp/training/loop.py:303-359``).
 """
 
 from __future__ import annotations
@@ -134,7 +140,7 @@ import torch
 import torch.distributed as dist
 
 from tpuddp_torch import optim, seeding
-from tpuddp_torch.config import resolve_observability
+from tpuddp_torch.config import resolve_observability, tuning_provenance_from_env
 from tpuddp_torch.observability import CommBytesCounter, MetricsWriter, RunTelemetry, schema
 from tpuddp_torch.observability import aggregate as agg_lib
 from tpuddp_torch.observability import exporter as exp_lib
@@ -599,14 +605,11 @@ def run_training_loop(
             save_dir, capacity=int(obs_cfg["flight_capacity"]), process_index=host))
         if tracer.enabled:  # a dump names the spans still open: where the process died
             flight.add_context("open_spans", tracer.open_span_summaries)
+        flight_lib.arm_pending_tune(flight, obs_cfg, save_dir)
     # step snapshots (training/snapshot.py): device copies between
     # dispatches, a background writer; pending["c"] carries a restored v4
     # cursor to the epoch it continues (tpuddp/training/loop.py:303-359)
     snap_cfg = snapshot_lib.resolve_snapshot(snapshot)
-    if snap_cfg.enabled and model_size > 1:
-        raise NotImplementedError(
-            "training.snapshot of a parallel.model > 1 job is not implemented in tpuddp_torch "
-            "yet (ROADMAP.md Queue 1 item 8: tensor parallel, part 2)")
     snap_engine = None
     if snap_cfg.enabled and save_dir is not None:
         snap_engine = snapshot_lib.SnapshotEngine(
@@ -702,6 +705,8 @@ def run_training_loop(
         tracing=tracer.describe(),
         comm={"overlap": dict(ddp.comm_overlap_meta)},
         snapshot=snap_engine.describe() if snap_engine is not None else False,
+        # the overlay this process was relaunched under (null: none)
+        tuning=tuning_provenance_from_env(),
         extra={
             "api": "native",
             "scan_steps": scan_steps,
